@@ -1,0 +1,558 @@
+"""Smoke run of the torch port on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # from the repository root; one GPU
+
+1. Requires CUDA (exits non-zero without it) and prints the card and its
+   power limit.
+2. Builds the three CUDA kernels from ``spectral_cube_tpu_torch/csrc/``.
+3. Holds each kernel against its plain PyTorch version on the card at the
+   slice's shapes (623 x 768 x 768 float32, and 1024 channels for the
+   moments), with and without NaN, and times both with CUDA events.
+4. Writes a 623 x 768 x 768 cube (a Gaussian line on noise with a NaN
+   border, an elliptical rotated beam) to FITS, reads it onto the card and
+   runs ``run_pipeline`` (convolve to a larger beam, SNR mask, moments and
+   statistics, reproject onto a CRPIX-shifted grid) with every launch
+   counter at 0 before and each > 0 after; then checks each stage against
+   the plain functions on the card, and a small pipeline against the same
+   pipeline on the CPU.
+
+Prints one JSON line with each kernel's numbers, the card line, and as the
+last line ``{"ok": true, "device": {...}}``.  Any failed check raises.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+import warnings
+
+import numpy as np
+
+SEED = 20261016
+NCHAN, NY, NX = 623, 768, 768
+PIX_ARCSEC = 2.0
+CUBE_BEAM = (6.0, 4.5, 30.0)       # arcsec, arcsec, deg (elliptical)
+TARGET_BEAM = 12.0                 # arcsec, circular
+SNR = 3.0
+SHIFT = (0.37, -0.61)              # CRPIX1, CRPIX2 shift of the target
+
+# name -> (source, TPU kernels it replaces)
+KERNELS = {
+    "moments": ("spectral_cube_tpu_torch/csrc/moments.cu",
+                "spectral_cube_tpu/ops/moments.py:129 moments_012_pallas; "
+                "spectral_cube_tpu/ops/moments.py:288 "
+                "_moments_pallas_chunked"),
+    "conv_sep": ("spectral_cube_tpu_torch/csrc/conv_sep.cu",
+                 "spectral_cube_tpu/ops/banded_pallas.py:491 "
+                 "per_channel_conv_strips; "
+                 "spectral_cube_tpu/ops/banded_pallas.py:617 "
+                 "per_channel_conv_strips_blocked"),
+    "resample2": ("spectral_cube_tpu_torch/csrc/resample2.cu",
+                  "spectral_cube_tpu/ops/banded_pallas.py:913 "
+                  "per_channel_resample_raw_strips; "
+                  "spectral_cube_tpu/ops/banded_pallas.py:1500 "
+                  "per_channel_shift_lerp"),
+}
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def card_line():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps):
+    """Median milliseconds of ``fn`` over ``reps`` runs after one warm-up,
+    each bracketed by CUDA events."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def compare(name, got, want, rtol):
+    """NaN patterns equal, then max |got - want| within ``rtol`` of the
+    largest |want|.  Returns (max_abs_err, relative error)."""
+    import torch
+    got, want = got.float(), want.float()
+    nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+    if not torch.equal(nan_g, nan_w):
+        raise AssertionError(f"{name}: NaN patterns differ in "
+                             f"{int((nan_g != nan_w).sum())} places")
+    fin = ~nan_w
+    if not bool(fin.any()):
+        return 0.0, 0.0
+    err = float((got[fin] - want[fin]).abs().max())
+    scale = float(want[fin].abs().max())
+    rel = err / max(scale, 1e-30)
+    log(f"  {name}: max_abs_err={err:.3e} rel={rel:.3e} (tol {rtol:g}) "
+        f"nan_equal=True")
+    if rel > rtol:
+        raise AssertionError(f"{name}: relative error {rel:.3e} > {rtol:g}")
+    return err, rel
+
+
+def compare_conv(name, got, want, x, ys, xs, hy, hx, rtol):
+    """Kernel 2 against its plain version.  The normalized convolution is
+    num / den with den = 1 - K*isnan, the valid fraction of the kernel's
+    footprint, so float32 rounding in num and den is amplified by 1/den:
+    where den is tiny the NaN test (den > 1e-6) is rounding itself.  den
+    comes here from a float64 evaluation.  NaN patterns must agree wherever
+    den > 1e-5, and max |got - want| * den must stay within ``rtol`` of the
+    largest |want|.  Returns the max |got - want| where den >= 0.1."""
+    import torch
+    from spectral_cube_tpu_torch.kernels.conv_sep import _apply
+    den = torch.empty_like(x)
+    for c0 in range(0, x.shape[0], 64):
+        bad = (~torch.isfinite(x[c0:c0 + 64])).double()
+        den[c0:c0 + 64] = (1.0 - _apply(bad, ys[0].double(), xs[0].double(),
+                                        hy, hx)).float()
+    flip = torch.isnan(got) != torch.isnan(want)
+    if bool((flip & (den > 1e-5)).any()):
+        raise AssertionError(f"{name}: NaN patterns differ where the "
+                             "convolution is well conditioned")
+    both = ~torch.isnan(got) & ~torch.isnan(want)
+    diff = torch.where(both, (got - want).abs(), 0.0)
+    scale = float(torch.where(both, want.abs(), 0.0).max())
+    weighted = float((diff * den.clamp(max=1.0)).max()) / max(scale, 1e-30)
+    err = float(torch.where(den >= 0.1, diff, 0.0).max())
+    log(f"  {name}: max_abs_err(den >= 0.1)={err:.3e} "
+        f"max|diff|*den/scale={weighted:.3e} (tol {rtol:g}); "
+        f"{int(flip.sum())} NaN flips, all at den <= 1e-5")
+    if weighted > rtol:
+        raise AssertionError(f"{name}: {weighted:.3e} > {rtol:g}")
+    return err, weighted
+
+
+def synth_header(nchan, ny, nx):
+    from spectral_cube_tpu_torch.io.fits_low import Header
+    h = Header()
+    for key, val in (
+            ("SIMPLE", True), ("BITPIX", -32), ("NAXIS", 3),
+            ("NAXIS1", nx), ("NAXIS2", ny), ("NAXIS3", nchan),
+            ("CTYPE1", "RA---SIN"), ("CRVAL1", 83.82), ("CUNIT1", "deg"),
+            ("CDELT1", -PIX_ARCSEC / 3600.0), ("CRPIX1", nx / 2 + 0.5),
+            ("CTYPE2", "DEC--SIN"), ("CRVAL2", -5.39), ("CUNIT2", "deg"),
+            ("CDELT2", PIX_ARCSEC / 3600.0), ("CRPIX2", ny / 2 + 0.5),
+            ("CTYPE3", "VRAD"), ("CRVAL3", -20000.0), ("CUNIT3", "m/s"),
+            ("CDELT3", 250.0), ("CRPIX3", 1.0), ("RESTFRQ", 2.30538e11),
+            ("SPECSYS", "LSRK"), ("BUNIT", "Jy/beam"),
+            ("BMAJ", CUBE_BEAM[0] / 3600.0), ("BMIN", CUBE_BEAM[1] / 3600.0),
+            ("BPA", CUBE_BEAM[2])):
+        h[key] = val
+    return h
+
+
+def synth_cube(nchan, ny, nx, seed, cutoff=True):
+    """float32 cube from numpy.random.RandomState(seed): a Gaussian line
+    whose centre drifts across the field, on unit noise, NaN outside a
+    circular primary-beam cutoff (``cutoff``) or in a 2-pixel frame."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:ny, 0:nx].astype(np.float32)
+    ry, rx = (yy - ny / 2) / ny, (xx - nx / 2) / nx
+    amp = 6.0 * np.exp(-0.5 * ((ry / 0.2) ** 2 + (rx / 0.25) ** 2))
+    centre = nchan / 2 + 0.15 * nchan * rx
+    if cutoff:
+        cut = (ry / 0.47) ** 2 + (rx / 0.47) ** 2 > 1.0
+    else:
+        cut = np.zeros((ny, nx), bool)
+        cut[:2] = cut[-2:] = cut[:, :2] = cut[:, -2:] = True
+    data = np.empty((nchan, ny, nx), np.float32)
+    for c in range(nchan):
+        plane = amp * np.exp(-0.5 * ((c - centre) / (0.02 * nchan)) ** 2)
+        plane += rng.standard_normal((ny, nx)).astype(np.float32)
+        plane[cut] = np.nan
+        data[c] = plane
+    return data
+
+
+def shifted_header(h, dx, dy):
+    t = h.__class__(h)
+    t["CRPIX1"] = float(h["CRPIX1"]) + dx
+    t["CRPIX2"] = float(h["CRPIX2"]) + dy
+    return t
+
+
+def beams():
+    import spectral_cube_tpu_torch as T
+    cube_beam = T.Beam(T.Quantity(CUBE_BEAM[0], "arcsec"),
+                       T.Quantity(CUBE_BEAM[1], "arcsec"),
+                       T.Quantity(CUBE_BEAM[2], "deg"))
+    target = T.Beam(T.Quantity(TARGET_BEAM, "arcsec"),
+                    T.Quantity(TARGET_BEAM, "arcsec"), T.Quantity(0, "deg"))
+    return cube_beam, target
+
+
+def phase_moments(dev, data, results):
+    import torch
+    from spectral_cube_tpu_torch.kernels import moments as km
+    log("phase moments (kernel 1)")
+    for label, cube in (("623ch", data), ("1024ch", None)):
+        if cube is None:
+            cube = torch.as_tensor(synth_cube(1024, NY, NX, SEED + 2),
+                                   device=dev)
+        for nan in (False, True):
+            x = cube
+            if nan:
+                x = cube.clone()
+                x[:, :40] = float("nan")
+                x[7] = float("nan")
+            coords = np.arange(x.shape[0]) * 0.25
+            for stats in (False, True):
+                tag = f"{label} nan={nan} with_stats={stats}"
+                want = km.moments_planes_plain(x, coords, 1, 0.75, None,
+                                               stats)
+                got = km.moments_planes(x, coords, 1, 0.75, None, stats)
+                if not torch.equal(got[1], want[1]):
+                    raise AssertionError(f"moments {tag}: counts differ")
+                fg = _finalize(got, stats)
+                fw = _finalize(want, stats)
+                errs = [compare(f"moments {tag} mom{i}", a, b,
+                                2e-6 if i < 2 else 1e-5)
+                        for i, (a, b) in enumerate(zip(fg[:3], fw[:3]))]
+                if stats:
+                    for key in ("mean", "sigma", "sum", "rms", "min", "max"):
+                        a, b = float(fg[3][key]), float(fw[3][key])
+                        if abs(a - b) > 2e-5 * abs(b):
+                            raise AssertionError(f"statistics {key}: {a} "
+                                                 f"vs {b}")
+                if label == "623ch" and nan and not stats:
+                    ms = cuda_ms(lambda: km.moments_planes(
+                        x, coords, 1, 0.75, None, False), 7)
+                    pms = cuda_ms(lambda: km.moments_planes_plain(
+                        x, coords, 1, 0.75, None, False), 3)
+                    results["moments"] = dict(
+                        max_abs_err=max(e[0] for e in errs), ms=ms,
+                        plain_ms=pms)
+                    log(f"  moments 623x768x768 masked: kernel {ms:.3f} ms,"
+                        f" plain {pms:.3f} ms")
+                if label == "1024ch" and nan and not stats:
+                    ms = cuda_ms(lambda: km.moments_planes(
+                        x, coords, 1, 0.75, None, False), 5)
+                    pms = cuda_ms(lambda: km.moments_planes_plain(
+                        x, coords, 1, 0.75, None, False), 3)
+                    log(f"  moments 1024x768x768 masked: kernel {ms:.3f} ms,"
+                        f" plain {pms:.3f} ms")
+    del cube
+
+
+def _finalize(res, stats):
+    from spectral_cube_tpu_torch.ops import moments as om
+    return om.finalize_planes(*res, 0.0, 1.0, stats)
+
+
+def phase_conv(dev, data, results):
+    import torch
+    from spectral_cube_tpu_torch.kernels import conv_sep as kc
+    from spectral_cube_tpu_torch.ops import convolve as oc
+    log("phase convolution (kernel 2)")
+    cube_beam, target = beams()
+    pix = np.radians(PIX_ARCSEC / 3600.0)
+    kern = target.deconvolve(cube_beam).as_kernel(pix)
+    yt, xt = oc.separable_factors(kern)
+    ys, hy = oc._tap_stack([yt])
+    xs, hx = oc._tap_stack([xt])
+    log(f"  kernel {kern.shape[0]}x{kern.shape[1]}, SVD rank r={yt.shape[1]}")
+    ys, xs = torch.as_tensor(ys, device=dev), torch.as_tensor(xs, device=dev)
+    gi = torch.zeros(NCHAN, dtype=torch.int32, device=dev)
+    for nan in (False, True):
+        x = torch.nan_to_num(data, nan=0.0) if not nan else data
+        got = kc.conv_sep(x, ys, xs, hy, hx, gi)
+        want = kc.conv_sep_plain(x, ys, xs, hy, hx, gi)
+        err, _ = compare_conv(f"conv nan={nan}", got, want, x, ys, xs, hy,
+                              hx, 1e-5)
+        del got, want
+        if nan:
+            ms = cuda_ms(lambda: kc.conv_sep(x, ys, xs, hy, hx, gi), 5)
+            pms = cuda_ms(lambda: kc.conv_sep_plain(x, ys, xs, hy, hx, gi),
+                          2)
+            results["conv_sep"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+            log(f"  conv 623x768x768 r={yt.shape[1]} with NaN: kernel "
+                f"{ms:.3f} ms, plain {pms:.3f} ms")
+        else:
+            ms = cuda_ms(lambda: kc.conv_sep(x, ys, xs, hy, hx, gi), 5)
+            pms = cuda_ms(lambda: kc.conv_sep_plain(x, ys, xs, hy, hx, gi),
+                          2)
+            log(f"  conv 623x768x768 clean: kernel {ms:.3f} ms, plain "
+                f"{pms:.3f} ms")
+        del x
+    return yt.shape[1]
+
+
+def phase_resample(dev, data, header, results):
+    import torch
+    from spectral_cube_tpu_torch.kernels import resample2 as kr
+    from spectral_cube_tpu_torch.ops import regrid as og
+    from spectral_cube_tpu_torch.wcs import WCS
+    log("phase reproject (kernel 3)")
+    wcs = WCS(header=header)
+    scaled = header.__class__(header)
+    scaled["NAXIS1"] = scaled["NAXIS2"] = 700
+    scaled["CDELT1"] = header["CDELT1"] * 1.07
+    scaled["CDELT2"] = header["CDELT2"] * 1.07
+    scaled["CRPIX1"] = scaled["CRPIX2"] = 350.5
+    for label, target in (("translation", shifted_header(header, *SHIFT)),
+                          ("scaled", scaled)):
+        zs, ys, xs, _ = og.reproject_mappings(wcs, target, NCHAN)
+        tr = og._translation_params(ys, xs, NY, NX)
+        if (label == "translation") != (tr is not None):
+            raise AssertionError(f"{label}: translation detection {tr}")
+        maps = og.bilinear_host_maps(zs, ys, xs, NCHAN, NY, NX, 1)
+        taps = og._axis_aligned_taps(ys, xs, NY, NX)
+        if taps is None:
+            raise AssertionError(f"{label}: target not axis-aligned")
+        valid = maps[4] & maps[5]
+        for nan in (False, True):
+            x = torch.nan_to_num(data, nan=0.0) if not nan else data
+            got = kr.resample2(x, *taps, valid, maps[0])
+            want = kr.resample2_plain(x, *taps, valid, maps[0])
+            err, _ = compare(f"resample {label} nan={nan}", got, want, 1e-6)
+            del got, want
+            ms = cuda_ms(lambda: kr.resample2(x, *taps, valid, maps[0]), 7)
+            pms = cuda_ms(lambda: kr.resample2_plain(x, *taps, valid,
+                                                     maps[0]), 3)
+            log(f"  resample {label} nan={nan}: kernel {ms:.3f} ms, plain "
+                f"{pms:.3f} ms")
+            if label == "translation" and nan:
+                results["resample2"] = dict(max_abs_err=err, ms=ms,
+                                            plain_ms=pms)
+            del x
+
+
+def phase_pipeline(dev, workdir):
+    import torch
+    import spectral_cube_tpu_torch as T
+    from spectral_cube_tpu_torch import kernels as K
+    from spectral_cube_tpu_torch.io.fits_low import HDU, write_fits
+    from spectral_cube_tpu_torch.kernels import conv_sep as kc
+    from spectral_cube_tpu_torch.kernels import resample2 as kr
+    from spectral_cube_tpu_torch.ops import convolve as oc
+    from spectral_cube_tpu_torch.ops import moments as om
+    from spectral_cube_tpu_torch.ops import reductions as rd
+    from spectral_cube_tpu_torch.ops import regrid as og
+    log("phase pipeline")
+    t0 = time.perf_counter()
+    data = synth_cube(NCHAN, NY, NX, SEED)
+    header = synth_header(NCHAN, NY, NX)
+    path = os.path.join(workdir, "cube.fits")
+    write_fits(path, [HDU(data=data, header=header)])
+    del data
+    log(f"  synthesized and wrote {path} in {time.perf_counter() - t0:.1f} s"
+        f" ({os.path.getsize(path) / 2**30:.2f} GiB)")
+    t0 = time.perf_counter()
+    cube = T.SpectralCube.read(path, device=dev)
+    torch.cuda.synchronize()
+    log(f"  read onto {cube.device} in {time.perf_counter() - t0:.2f} s: "
+        f"{cube}")
+    _, target_beam = beams()
+    target_header = shifted_header(cube.header, *SHIFT)
+
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = T.run_pipeline(cube, snr_threshold=SNR, target_beam=target_beam,
+                         target_header=target_header)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  run_pipeline: {total * 1e3:.1f} ms end to end, peak device "
+        f"memory {peak / 2**30:.2f} GiB, launches {counts}")
+    if not all(n > 0 for n in counts.values()):
+        raise AssertionError(f"a kernel of the main path never ran: {counts}")
+    # the first run pays one-time CUDA and library initialization; a second
+    # run of the same call gives the steady-state time
+    t0 = time.perf_counter()
+    T.run_pipeline(cube, snr_threshold=SNR, target_beam=target_beam,
+                   target_header=target_header)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    log(f"  run_pipeline again: {warm * 1e3:.1f} ms end to end")
+
+    m0, m1, lw = (np.asarray(p.value) for p in res["moments"])
+    out = res["cube"]
+    st = res["statistics"]
+    if m0.shape != (NY, NX) or out.shape != (NCHAN, NY, NX):
+        raise AssertionError("pipeline output shapes")
+    frac = float(np.isfinite(m0).mean())
+    log(f"  mom0 finite fraction {frac:.3f}; statistics npts={st['npts']} "
+        f"mean={float(st['mean'].value):.6g} "
+        f"sigma={float(st['sigma'].value):.6g}")
+    if not 0.05 < frac < 0.95 or st["npts"] <= 0:
+        raise AssertionError("pipeline outputs implausible")
+
+    # stage by stage, timed, each checked against the plain functions on
+    # the card
+    stages = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        val = fn()
+        torch.cuda.synchronize()
+        stages[name] = (time.perf_counter() - t) * 1e3
+        return val
+
+    conv = timed("convolve_to", lambda: cube.convolve_to(target_beam))
+    noise = timed("mad_std", lambda: float(conv.mad_std().value))
+    masked = conv.with_mask(conv > T.Quantity(SNR * noise, conv.unit))
+    mom = timed("moments", lambda: masked._moments012())
+    stats = timed("statistics", masked.statistics)
+    rep = timed("reproject", lambda: masked._reproject(target_header))
+    for name, ms in stages.items():
+        log(f"  stage {name}: {ms:.1f} ms")
+
+    kern = target_beam.deconvolve(cube.beam).as_kernel(
+        np.radians(PIX_ARCSEC / 3600.0))
+    yt, xt = oc.separable_factors(kern)
+    ys, hy = oc._tap_stack([yt])
+    xs, hx = oc._tap_stack([xt])
+    ys, xs = torch.as_tensor(ys, device=dev), torch.as_tensor(xs, device=dev)
+    filled = cube._get_filled_data(fill=np.nan)
+    plain_conv = kc.conv_sep_plain(filled, ys, xs, hy, hx,
+                                   torch.zeros(NCHAN, dtype=torch.int32,
+                                               device=dev))
+    # Jy/beam data scale with the beam area (ops/convolve.beam_unit_factor)
+    plain_conv *= oc.beam_unit_factor(cube.unit, cube.beam, target_beam)
+    compare_conv("stage convolve_to vs plain", conv._data, plain_conv,
+                 filled, ys, xs, hy, hx, 1e-5)
+    del filled, plain_conv
+    plain_mad = float(rd.masked_mad_std(conv._data,
+                                        torch.isfinite(conv._data)))
+    if abs(plain_mad - noise) > 1e-6 * abs(noise):
+        raise AssertionError(f"mad_std {noise} vs {plain_mad}")
+    include = masked.mask.include(data=masked._data)
+    pm = om.moments_012(masked._data, masked._spectral_offsets(),
+                        masked._spectral_pix_size(), include=include)
+    sv0 = float(np.asarray(masked.spectral_axis.value)[0])
+    for i, (a, b) in enumerate(zip(mom, pm)):
+        compare(f"stage moment{i} vs plain expression", torch.as_tensor(a),
+                (b + sv0 if i == 1 else b).cpu(), 3e-6 if i < 2 else 5e-5)
+    compare("stage moment0 vs run_pipeline", torch.as_tensor(mom[0]),
+            torch.as_tensor(m0), 0.0)
+    compare("stage moment1 vs run_pipeline", torch.as_tensor(mom[1]),
+            torch.as_tensor(m1), 0.0)
+    ps = rd.masked_statistics(masked._data, rd.valid_mask(masked._data,
+                                                          include))
+    del include
+    if stats["npts"] != int(ps["npts"]) or stats["npts"] != st["npts"]:
+        raise AssertionError("statistics npts")
+    for key in ("mean", "sigma", "sum", "rms", "min", "max"):
+        a, b = float(stats[key].value), float(ps[key])
+        if abs(a - b) > 2e-5 * abs(b):
+            raise AssertionError(f"statistics {key}: {a} vs {b}")
+    zs, ysm, xsm, _ = og.reproject_mappings(masked.wcs, target_header, NCHAN)
+    maps = og.bilinear_host_maps(zs, ysm, xsm, NCHAN, NY, NX, 1)
+    taps = og._axis_aligned_taps(ysm, xsm, NY, NX)
+    src = masked._get_filled_data(fill=np.nan)
+    plain_rep = kr.resample2_plain(src, *taps, maps[4] & maps[5], maps[0])
+    del src
+    compare("stage reproject vs plain", rep._data, plain_rep, 1e-6)
+    compare("stage reproject vs run_pipeline", rep._data, out._data, 0.0)
+    del plain_rep, rep, conv, masked, out, res, cube
+    torch.cuda.empty_cache()
+    return total * 1e3, warm * 1e3, peak, counts, stages
+
+
+def phase_small_reference(dev):
+    """A small pipeline on the card against the same pipeline on the CPU,
+    whose plain versions the CPU tests hold against the JAX package."""
+    import spectral_cube_tpu_torch as T
+    from spectral_cube_tpu_torch.wcs import WCS
+    log("phase small reference (card vs CPU)")
+    nchan, ny, nx = 48, 64, 72
+    data = synth_cube(nchan, ny, nx, SEED + 1, cutoff=False)
+    h = synth_header(nchan, ny, nx)
+    _, target_beam = beams()
+    out = {}
+    for d in ("cpu", dev):
+        cube = T.SpectralCube(data, WCS(header=h), header=h, device=d)
+        out[str(d)] = T.run_pipeline(cube, snr_threshold=SNR,
+                                     target_beam=target_beam,
+                                     target_header=shifted_header(h, *SHIFT))
+    a, b = out["cpu"], out[str(dev)]
+    if a["statistics"]["npts"] != b["statistics"]["npts"]:
+        raise AssertionError("small pipeline npts differ")
+    for pa, pb in zip(a["moments"][:2], b["moments"][:2]):
+        import torch
+        compare("small pipeline moment", torch.as_tensor(np.asarray(pb.value)),
+                torch.as_tensor(np.asarray(pa.value)), 1e-4)
+    compare("small pipeline cube", b["cube"]._data.cpu(), a["cube"]._data,
+            1e-5)
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    import spectral_cube_tpu_torch  # noqa: F401  (fails outside the repo)
+    from spectral_cube_tpu_torch.kernels import _build
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    log(f"card: {card}")
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}; device count "
+        f"{torch.cuda.device_count()}")
+    log(f"torch.backends.cuda.matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32} "
+        f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    t0 = time.perf_counter()
+    _build.load_library()
+    log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s "
+        f"(nvcc {_build.last_build['seconds']:.1f} s): "
+        f"{_build.last_build['path']}")
+
+    warnings.simplefilter("ignore")
+    results = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        total_ms, warm_ms, peak, counts, stages = phase_pipeline(dev,
+                                                                 workdir)
+    data = torch.as_tensor(synth_cube(NCHAN, NY, NX, SEED), device=dev)
+    phase_moments(dev, data, results)
+    rank = phase_conv(dev, data, results)
+    phase_resample(dev, data, synth_header(NCHAN, NY, NX), results)
+    del data
+    torch.cuda.empty_cache()
+    phase_small_reference(dev)
+
+    log(f"summary: pipeline {total_ms:.1f} ms (first call), {warm_ms:.1f} ms "
+        f"(second), peak {peak / 2**30:.2f} GiB, "
+        f"conv rank {rank}, stages "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in stages.items()))
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        r = results[name]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": counts[name],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"]})
+    print(json.dumps({"kernels": kernels}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,620 @@
+"""The cube class of the torch port: a single-beam SpectralCube.
+
+Port of the core of ``spectral_cube_tpu/cube.py`` for the analysis path
+(read -> convolve_to -> mask -> moments + statistics -> reproject).  The
+data is a torch tensor on the cube's device, taken from the tensor given
+or from ``device=``; masks are lazy expression trees evaluated on that
+device; WCS, beam and unit metadata stay on the host.  On a CUDA device
+the moments, statistics, convolution and reprojection run in the port's
+kernels (``kernels/``); on the CPU in their plain PyTorch versions.
+
+Not ported yet: slicing and subcubes, spectral smoothing and
+interpolation, regions, Stokes and varying-resolution cubes (ROADMAP.md
+Queue 1 items 5, 8, 10).
+"""
+
+from __future__ import annotations
+
+import re
+import sys
+import warnings
+
+import numpy as np
+import torch
+
+from .units import Quantity, Unit, UnitConversionError
+from .masks import (BooleanArrayMask, LazyComparisonMask, CompositeMask,
+                    MaskBase, trivial_view)
+from .beams import Beam, NoBeamError
+from .lower_dimensional_structures import (Projection,
+                                           LowerDimensionalObject)
+from .utils import cached, warn_slow, VarianceWarning
+from .ops import reductions as _red
+from .ops import moments as _mom
+from .ops import convolve as _conv
+from .ops import regrid as _regrid
+
+__all__ = ["SpectralCube"]
+
+SIGMA2FWHM = _mom.SIGMA2FWHM
+
+#: Sentinel for :meth:`SpectralCube._new_cube_with`: keep the current mask
+_INHERIT = object()
+
+
+def _as_tensor(data, device):
+    """Cube data as a tensor on ``device`` (default: the tensor's own
+    device, else the CPU).  A numpy float64 payload becomes float32, as
+    ``jnp.asarray`` stores it in the JAX package (64-bit mode off); a
+    numpy array is copied, never aliased."""
+    if isinstance(data, torch.Tensor):
+        return data if device is None else data.to(device)
+    arr = np.asarray(data)
+    if arr.dtype.byteorder not in ("=", "|") and arr.dtype.byteorder != (
+            "<" if sys.byteorder == "little" else ">"):
+        arr = arr.astype(arr.dtype.newbyteorder("="))
+    if arr.dtype == np.float64:
+        arr = arr.astype(np.float32)
+    device = torch.device(device if device is not None else "cpu")
+    if device.type == "cpu":
+        return torch.from_numpy(np.array(arr, order="C", copy=True))
+    with warnings.catch_warnings():
+        # a read-only FITS payload is only read here, to copy it over
+        warnings.filterwarnings("ignore", message="The given NumPy array "
+                                "is not writable")
+        return torch.as_tensor(np.ascontiguousarray(arr)).to(device)
+
+
+def _slice_syntax(f):
+    """``cube.attr[view]`` access (reference cube_utils.py:203-240)."""
+    class _Indexer:
+        def __init__(self, cube):
+            self._cube = cube
+
+        def __getitem__(self, view):
+            return f(self._cube, view if isinstance(view, tuple)
+                     else (view,))
+
+    prop = property(lambda self: _Indexer(self))
+    prop.__doc__ = f.__doc__
+    return prop
+
+
+class SpectralCube:
+    """A masked, unit- and WCS-aware [spec, lat, lon] cube with one beam
+    (reference spectral_cube.py:3689-3781)."""
+
+    def __init__(self, data, wcs, mask=None, meta=None, fill_value=np.nan,
+                 header=None, allow_huge_operations=False, beam=None,
+                 wcs_tolerance=0.0, unit=None, device=None):
+        if isinstance(data, Quantity):
+            if unit is None:
+                unit = data.unit
+            data = data.value
+        self._data = _as_tensor(data, device)
+        self._wcs = wcs
+        self._wcs_tolerance = wcs_tolerance
+        self._meta = dict(meta) if meta else {}
+        if mask is not None and not isinstance(mask, MaskBase):
+            raise TypeError(
+                f"mask must be a MaskBase subclass or None, got "
+                f"{type(mask).__name__!r} (wrap boolean arrays in "
+                f"BooleanArrayMask)")
+        self._mask = mask
+        self._fill_value = fill_value
+        self._header = header
+        self.allow_huge_operations = allow_huge_operations
+        if unit is not None:
+            self._unit = Unit.parse(unit)
+        else:
+            bunit = self._meta.get("BUNIT")
+            if bunit is None and header is not None and "BUNIT" in header:
+                bunit = header["BUNIT"]
+            self._unit = None
+            if bunit is not None:
+                try:
+                    self._unit = Unit.parse(str(bunit).strip())
+                except UnitConversionError:
+                    warnings.warn(f"Could not parse unit {bunit!r}")
+        if wcs is not None and wcs.spec != 2:
+            raise ValueError("WCS must be oriented [lon, lat, spec] "
+                             "(use spectral_cube_tpu_torch.cube_utils.orient)")
+        if beam is None:
+            if header is not None:
+                beam = Beam.from_header(header)
+            if beam is None and "beam" in self._meta:
+                beam = self._meta["beam"]
+        self._beam = beam
+        if beam is not None:
+            self._meta["beam"] = beam
+
+    # ------------------------------------------------------------------
+    # basic properties
+    # ------------------------------------------------------------------
+    @property
+    def shape(self):
+        return tuple(self._data.shape)
+
+    @property
+    def ndim(self):
+        return 3
+
+    @property
+    def size(self):
+        return int(np.prod(self.shape))
+
+    @property
+    def dtype(self):
+        return self._data.dtype
+
+    @property
+    def device(self):
+        return self._data.device
+
+    @property
+    def _is_huge(self):
+        from . import cube_utils
+        return cube_utils.is_huge(self)
+
+    @property
+    def unit(self):
+        return self._unit if self._unit is not None else Unit.parse("")
+
+    @property
+    def wcs(self):
+        return self._wcs
+
+    @property
+    def mask(self):
+        return self._mask
+
+    @property
+    def meta(self):
+        return self._meta
+
+    @property
+    def fill_value(self):
+        return Quantity(self._fill_value, self.unit)
+
+    def __len__(self):
+        return self.shape[0]
+
+    def _new_cube_with(self, data=None, wcs=None, mask=_INHERIT, meta=None,
+                       fill_value=None, unit=None, wcs_tolerance=None,
+                       beam=None):
+        """Copy with overrides (reference spectral_cube.py:244-289)."""
+        meta = dict(meta) if meta is not None else dict(self._meta)
+        unit = unit if unit is not None else self._unit
+        if unit is not None:
+            meta["BUNIT"] = unit.to_string()
+        cube = self.__class__(
+            data=data if data is not None else self._data,
+            wcs=wcs if wcs is not None else self._wcs,
+            mask=self._mask if mask is _INHERIT else mask, meta=meta,
+            fill_value=(fill_value if fill_value is not None
+                        else self._fill_value),
+            header=self._header, unit=unit,
+            allow_huge_operations=self.allow_huge_operations,
+            wcs_tolerance=(wcs_tolerance if wcs_tolerance is not None
+                           else self._wcs_tolerance))
+        cube._beam = beam if beam is not None else self._beam
+        if cube._beam is not None:
+            cube._meta["beam"] = cube._beam
+        return cube
+
+    # ------------------------------------------------------------------
+    # masked data access
+    # ------------------------------------------------------------------
+    def _get_filled_data(self, view=(), fill=None):
+        fill = self._fill_value if fill is None else fill
+        d = self._data if trivial_view(view) else self._data[view]
+        if self._mask is None:
+            return d
+        inc = self._mask.include(data=self._data, view=view, wcs=self._wcs)
+        return torch.where(inc, d, torch.as_tensor(fill, dtype=d.dtype,
+                                                   device=d.device))
+
+    @_slice_syntax
+    def unmasked_data(self, view):
+        return Quantity(self._data[view], self.unit)
+
+    def get_mask_array(self):
+        if self._mask is None:
+            return np.ones(self.shape, dtype=bool)
+        return np.array(self._mask.include(data=self._data).expand(
+            self.shape).cpu().numpy())
+
+    @property
+    def _nowcs_header(self):
+        from .io.fits_low import Header
+        h = Header(self._header) if self._header is not None else Header()
+        strip = {f"{key}{i}" for i in range(1, 6)
+                 for key in ("CTYPE", "CRVAL", "CRPIX", "CDELT", "CUNIT",
+                             "NAXIS", "CROTA")}
+        for k in list(h.keys()):
+            if k in strip or re.fullmatch(r"PC\d_\d|CD\d_\d", k):
+                del h[k]
+        return h
+
+    @property
+    def header(self):
+        from .io.fits_low import fold_meta_into_header
+        h = self._nowcs_header
+        h["NAXIS"] = 3
+        for i, n in enumerate(self.shape[::-1]):
+            h[f"NAXIS{i + 1}"] = int(n)
+        wcsheader = self._wcs.to_header()
+        fold_meta_into_header(h, self._meta, wcsheader)
+        h.update(wcsheader)
+        if self._unit is not None:
+            h["BUNIT"] = self._unit.to_string()
+        h.add_history("Written by spectral_cube_tpu_torch")
+        if self._beam is not None:
+            h.update(self._beam.to_header_keywords())
+        return h
+
+    @property
+    def hdu(self):
+        from .io.fits_low import HDU
+        return HDU(data=self._get_filled_data().cpu().numpy(),
+                   header=self.header)
+
+    @property
+    def hdulist(self):
+        return [self.hdu]
+
+    def write(self, filename, overwrite=False, format=None):
+        from .io import write_cube
+        write_cube(self, filename, overwrite=overwrite, format=format)
+
+    @classmethod
+    def read(cls, filename, format=None, hdu=0, device=None, **kwargs):
+        """Read a 3-D cube onto ``device`` (default CPU)."""
+        from .io import read_cube
+        return read_cube(filename, format=format, hdu=hdu, device=device,
+                         **kwargs)
+
+    # ------------------------------------------------------------------
+    # masking API (reference spectral_cube.py:1259-1306, :2263-2296)
+    # ------------------------------------------------------------------
+    def with_mask(self, mask, inherit_mask=True, wcs_tolerance=None):
+        if isinstance(mask, (np.ndarray, torch.Tensor)):
+            from .masks import is_broadcastable_and_smaller
+            if tuple(mask.shape) != self.shape and not \
+                    is_broadcastable_and_smaller(tuple(mask.shape),
+                                                 self.shape):
+                raise ValueError("Mask shape is not broadcastable to data "
+                                 f"shape: {tuple(mask.shape)} vs "
+                                 f"{self.shape}")
+            mask = BooleanArrayMask(mask, wcs=self._wcs, shape=self.shape)
+        self._validate_mask_wcs(mask, wcs_tolerance)
+        if self._mask is not None and inherit_mask:
+            new_mask = CompositeMask(self._mask, mask, operation="and")
+        else:
+            new_mask = mask
+        return self._new_cube_with(mask=new_mask,
+                                   wcs_tolerance=wcs_tolerance)
+
+    def _validate_mask_wcs(self, mask, wcs_tolerance=None):
+        """Reject a mask whose WCS differs from the cube's (reference
+        masks.py:425-435)."""
+        mwcs = getattr(mask, "_wcs", None)
+        if mwcs is None or self._wcs is None or mwcs is self._wcs:
+            return
+        tol = wcs_tolerance if wcs_tolerance is not None \
+            else self._wcs_tolerance
+        if not self._wcs.check_equality(mwcs, wcs_tolerance=tol):
+            raise ValueError("WCS does not match mask WCS")
+
+    def with_fill_value(self, fill_value):
+        return self._new_cube_with(fill_value=fill_value)
+
+    def _comparison_mask(self, op, value):
+        if not isinstance(value, Quantity):
+            if self.unit.dimensionless:
+                value = Quantity(value, "")
+            else:
+                raise ValueError(
+                    "Can only compare with Quantity values with units "
+                    "matching the cube's")
+        return LazyComparisonMask(op, value.to_value(self.unit),
+                                  data=self._data, wcs=self._wcs,
+                                  shape=self.shape)
+
+    def __gt__(self, value):
+        return self._comparison_mask(torch.gt, value)
+
+    def __ge__(self, value):
+        return self._comparison_mask(torch.ge, value)
+
+    def __lt__(self, value):
+        return self._comparison_mask(torch.lt, value)
+
+    def __le__(self, value):
+        return self._comparison_mask(torch.le, value)
+
+    def __eq__(self, value):
+        if isinstance(value, SpectralCube):
+            return NotImplemented
+        return self._comparison_mask(torch.eq, value)
+
+    def __ne__(self, value):
+        if isinstance(value, SpectralCube):
+            return NotImplemented
+        return self._comparison_mask(torch.ne, value)
+
+    def __hash__(self):
+        return id(self)
+
+    # ------------------------------------------------------------------
+    # spectral axis
+    # ------------------------------------------------------------------
+    @property
+    def spectral_unit(self):
+        return self._wcs.spectral_unit
+
+    @property
+    @cached
+    def spectral_axis(self) -> Quantity:
+        return Quantity(self._wcs.spectral_axis_values(self.shape[0]),
+                        self._wcs.spectral_unit)
+
+    def _spectral_offsets(self):
+        sv = np.asarray(self.spectral_axis.value, dtype=np.float64)
+        return sv - sv[0]
+
+    def _spectral_pix_size(self):
+        return abs(float(self._wcs.pixel_scale_matrix[2, 2]))
+
+    # ------------------------------------------------------------------
+    # reductions (reference spectral_cube.py:361-819)
+    # ------------------------------------------------------------------
+    def _reduce(self, fn, axis=None, unit=None, **kwargs):
+        if axis is not None:
+            axis = int(axis) % 3
+        data = self._data
+        include = self._mask.include(data=data) if self._mask is not None \
+            else None
+        out = fn(data, _red.valid_mask(data, include), axis=axis, **kwargs)
+        unit = unit if unit is not None else self.unit
+        if axis is None:
+            return Quantity(out.item(), unit)
+        return self._wrap_projection(out.cpu().numpy(), axis, unit)
+
+    def _wrap_projection(self, out, axis, unit):
+        new_wcs = self._wcs.dropaxis(2 - axis)
+        meta = {"collapse_axis": axis}
+        meta.update(self._meta)
+        if axis == 0:
+            if self._beam is not None:
+                meta["beam"] = self._beam
+            return Projection(out, unit=unit, wcs=new_wcs, meta=meta,
+                              header=self._nowcs_header, beam=self._beam)
+        return LowerDimensionalObject(out, unit=unit, wcs=new_wcs, meta=meta,
+                                      header=self._nowcs_header)
+
+    def sum(self, axis=None, how=None, **kwargs):
+        return self._reduce(_red.masked_sum, axis=axis)
+
+    def mean(self, axis=None, how=None, **kwargs):
+        return self._reduce(_red.masked_mean, axis=axis)
+
+    def std(self, axis=None, ddof=0, how=None, **kwargs):
+        return self._reduce(_red.masked_std, axis=axis, ddof=ddof)
+
+    def max(self, axis=None, how=None, **kwargs):
+        return self._reduce(_red.masked_max, axis=axis)
+
+    def min(self, axis=None, how=None, **kwargs):
+        return self._reduce(_red.masked_min, axis=axis)
+
+    def mad_std(self, axis=None, how=None, **kwargs):
+        return self._reduce(_red.masked_mad_std, axis=axis)
+
+    def median(self, axis=None, how=None, **kwargs):
+        return self._reduce(_red.masked_median, axis=axis)
+
+    def percentile(self, q, axis=None, how=None, **kwargs):
+        return self._reduce(lambda d, v, axis: _red.masked_percentile(
+            d, v, q, axis=axis), axis=axis)
+
+    def statistics(self):
+        """One-pass global statistics, CASA ia.statistics naming
+        (reference dask_spectral_cube.py:769-814)."""
+        data = self._data
+        if data.dtype == torch.float32:
+            # kernel 1's with_stats planes: one pass over the cube, the
+            # mask fused where it can be (cube.py:1008-1021)
+            raw = _mom.statistics_kernel(data, mask_expr=self._mask)
+        else:
+            include = self._mask.include(data=data) \
+                if self._mask is not None else None
+            raw = _red.masked_statistics(data,
+                                         _red.valid_mask(data, include))
+        order = ("min", "max", "sum", "mean", "sigma", "rms", "sumsq")
+        vals = torch.stack([raw[k].to(torch.float32) for k in order]) \
+            .cpu().numpy()
+        stats = {"npts": int(raw["npts"])}
+        for key, v in zip(order[:-1], vals[:-1]):
+            stats[key] = Quantity(float(v), self.unit)
+        stats["sumsq"] = Quantity(float(vals[-1]), self.unit ** 2)
+        return stats
+
+    # ------------------------------------------------------------------
+    # moments (reference spectral_cube.py:1614-1779, _moments.py)
+    # ------------------------------------------------------------------
+    def moment(self, order=0, axis=0, how="auto", **kwargs):
+        axis = int(axis) % 3
+        if axis == 0 and order == 2:
+            warnings.warn("Note that the second moment returned will be a "
+                          "variance map. To get a linewidth map, use the "
+                          "SpectralCube.linewidth_fwhm() or "
+                          "SpectralCube.linewidth_sigma() methods instead.",
+                          VarianceWarning)
+        if axis == 0 and order in (0, 1, 2):
+            out = self._moments012()[order]
+        else:
+            coords, dx = self._moment_coords(axis)
+            include = self._mask.include(data=self._data) \
+                if self._mask is not None else None
+            out = _mom.moment_generic(self._data, coords, dx, order,
+                                      axis=axis, include=include) \
+                .cpu().numpy()
+        axunit = self.spectral_unit if axis == 0 else Unit.parse("deg")
+        unit = self.unit * axunit if order == 0 else axunit ** max(order, 1)
+        meta = {"moment_order": order, "moment_axis": axis,
+                "moment_method": how}
+        meta.update(self._meta)
+        beam = self._beam if axis == 0 else None
+        if beam is not None:
+            meta["beam"] = beam
+        return Projection(out, unit=unit, wcs=self._wcs.dropaxis(2 - axis),
+                          meta=meta, header=self._nowcs_header, beam=beam)
+
+    def _moment_coords(self, axis):
+        if axis == 0:
+            return self._spectral_offsets(), self._spectral_pix_size()
+        y_off, x_off = self._spatial_pix_offsets()
+        coords = (y_off if axis == 1 else x_off)[None, :, :]
+        return coords, abs(self._wcs.proj_plane_pixel_scales()[2 - axis])
+
+    @cached
+    def _spatial_pix_offsets(self):
+        """Per-pixel cumulative angular offsets (deg) from the cube face
+        along y and x (reference _pix_cen, spectral_cube.py:1472-1493)."""
+        _, ny, nx = self.shape
+        yy, xx = np.mgrid[0:ny, 0:nx].astype(np.float64)
+        cel = self._wcs.celestial
+        lon, lat = cel.pix2world(xx.ravel(), yy.ravel())
+        lon = np.radians(Quantity(np.asarray(lon).reshape(ny, nx),
+                                  cel.cunit[0]).to_value("deg"))
+        lat = np.radians(Quantity(np.asarray(lat).reshape(ny, nx),
+                                  cel.cunit[1]).to_value("deg"))
+
+        def angsep(lon1, lat1, lon2, lat2):
+            # Vincenty formula (astropy.coordinates.angular_separation)
+            sdlon, cdlon = np.sin(lon2 - lon1), np.cos(lon2 - lon1)
+            num1 = np.cos(lat2) * sdlon
+            num2 = np.cos(lat1) * np.sin(lat2) \
+                - np.sin(lat1) * np.cos(lat2) * cdlon
+            den = np.sin(lat1) * np.sin(lat2) \
+                + np.cos(lat1) * np.cos(lat2) * cdlon
+            return np.arctan2(np.hypot(num1, num2), den)
+
+        dx = angsep(lon[:, :-1], lat[:, :-1], lon[:, 1:], lat[:, 1:])
+        dy = angsep(lon[:-1, :], lat[:-1, :], lon[1:, :], lat[1:, :])
+        x_off = np.zeros((ny, nx))
+        y_off = np.zeros((ny, nx))
+        x_off[:, 1:] = np.cumsum(np.degrees(dx), axis=1)
+        y_off[1:, :] = np.cumsum(np.degrees(dy), axis=0)
+        return y_off, x_off
+
+    @cached
+    def _moments012(self):
+        """(mom0, mom1, mom2) host arrays along the spectral axis, from one
+        pass over the cube."""
+        data = self._data
+        coords = self._spectral_offsets()
+        dx = self._spectral_pix_size()
+        if data.dtype == torch.float32:
+            m0, m1, m2 = _mom.moments_012_kernel(data, coords, dx,
+                                                 mask_expr=self._mask)
+        else:
+            # the kernel takes float32 only; the JAX package likewise
+            # keeps other dtypes off its kernel (cube.py:1134-1136)
+            include = self._mask.include(data=data) \
+                if self._mask is not None else None
+            m0, m1, m2 = _mom.moments_012(data, coords, dx, include=include)
+        # mom1 is relative to channel 0; the reference adds the world
+        # value at channel 0 (spectral_cube.py:1709-1710)
+        sv0 = float(np.asarray(self.spectral_axis.value)[0])
+        stacked = torch.stack([m0, m1, m2]).cpu().numpy()
+        return stacked[0], stacked[1] + sv0, stacked[2]
+
+    def moment0(self, axis=0, how="auto", **kwargs):
+        return self.moment(order=0, axis=axis, how=how, **kwargs)
+
+    def moment1(self, axis=0, how="auto", **kwargs):
+        return self.moment(order=1, axis=axis, how=how, **kwargs)
+
+    def moment2(self, axis=0, how="auto", **kwargs):
+        return self.moment(order=2, axis=axis, how=how, **kwargs)
+
+    def linewidth_sigma(self, how="auto"):
+        """sqrt(moment2) (reference spectral_cube.py:1746-1755)."""
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", VarianceWarning)
+            mom2 = self.moment(order=2, axis=0, how=how)
+        with np.errstate(invalid="ignore"):
+            vals = np.sqrt(np.asarray(mom2.value))
+        return Projection(vals, unit=self.spectral_unit, wcs=mom2.wcs,
+                          meta=mom2.meta, header=mom2._header,
+                          beam=mom2._beam)
+
+    def linewidth_fwhm(self, how="auto"):
+        sig = self.linewidth_sigma(how=how)
+        return Projection(np.asarray(sig.value) * SIGMA2FWHM, unit=sig.unit,
+                          wcs=sig.wcs, meta=sig.meta, header=sig._header,
+                          beam=sig._beam)
+
+    # ------------------------------------------------------------------
+    # reprojection and convolution
+    # ------------------------------------------------------------------
+    def _reproject(self, header, order="bilinear", filled=True):
+        data = self._get_filled_data(fill=np.nan) if filled else self._data
+        out, footprint, new_wcs = _regrid.reproject_cube(
+            data, self._wcs, header, order=order,
+            spectral_values_in=np.asarray(self.spectral_axis.value))
+        mask = BooleanArrayMask(footprint, wcs=new_wcs,
+                                shape=tuple(out.shape))
+        return self.__class__(data=out, wcs=new_wcs, mask=mask,
+                              meta=dict(self._meta), unit=self._unit,
+                              fill_value=self._fill_value,
+                              allow_huge_operations=self.allow_huge_operations)
+
+    @warn_slow
+    def reproject(self, header, order="bilinear", use_memmap=False,
+                  filled=True, **kwargs):
+        """Reproject onto a new spatial WCS (reference
+        spectral_cube.py:2649-2746); axis-aligned bilinear targets with
+        the input's spectral axis only, so far."""
+        return self._reproject(header, order=order, filled=filled)
+
+    @property
+    def beam(self):
+        if self._beam is None:
+            raise NoBeamError(
+                "No beam is defined for this SpectralCube; use with_beam "
+                "to attach one (reference base_class.py:486-497)")
+        return self._beam
+
+    def with_beam(self, beam, raise_error_jybm=True):
+        return self._new_cube_with(beam=beam)
+
+    @property
+    def pixels_per_beam(self):
+        return float(self.beam.sr.value /
+                     (self._wcs.proj_plane_pixel_area()
+                      * (np.pi / 180.0) ** 2))
+
+    def convolve_to(self, beam, convolve=None, update_function=None,
+                    **kwargs):
+        """Convolve every channel to a common target beam (reference
+        spectral_cube.py:3334-3392)."""
+        if self._beam is None:
+            raise NoBeamError("The cube has no beam; use with_beam first")
+        pixscale = float(np.mean(np.abs(
+            self._wcs.celestial.proj_plane_pixel_scales()))) * np.pi / 180.0
+        out, factors = _conv.convolve_cube_to_beam(
+            self._get_filled_data(fill=np.nan), self._beam, beam, pixscale,
+            unit=self.unit)
+        if not np.allclose(factors, 1.0):
+            out = out * torch.as_tensor(factors, dtype=out.dtype,
+                                        device=out.device)[:, None, None]
+        return self._new_cube_with(data=out, beam=beam)
+
+    def __repr__(self):
+        unit = str(self.unit)
+        head = f"{type(self).__name__} with shape={self.shape}"
+        head += f" and unit={unit}" if unit else ""
+        return head + f" on {self.device}"

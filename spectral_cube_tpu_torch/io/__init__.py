@@ -1,0 +1,34 @@
+"""Cube I/O: FITS files (other formats follow in ROADMAP.md Queue 1
+item 11)."""
+
+from __future__ import annotations
+
+import os
+
+from .fits_low import is_fits, Header, HDU, BinTableHDU, read_fits, write_fits
+from .fits import load_fits_cube, cube_from_hdus, write_fits_cube
+
+__all__ = ["read_cube", "write_cube", "Header", "HDU", "BinTableHDU"]
+
+
+def read_cube(filename, format=None, hdu=0, device=None, **kwargs):
+    if isinstance(filename, (HDU, list)):
+        hdus = filename if isinstance(filename, list) else [filename]
+        return cube_from_hdus(hdus, hdu=hdu, device=device, **kwargs)
+    name = str(filename)
+    if format is None and (is_fits(name)
+                           or name.lower().endswith((".fits", ".fit"))):
+        format = "fits"
+    if format != "fits":
+        raise NotImplementedError(
+            f"format {format!r} of {filename!r}: only FITS is ported to "
+            "torch so far (ROADMAP.md Queue 1 item 11)")
+    return load_fits_cube(name, hdu=hdu, device=device, **kwargs)
+
+
+def write_cube(cube, filename, overwrite=False, format=None):
+    if format not in (None, "fits"):
+        raise NotImplementedError(
+            f"format {format!r}: only FITS is ported to torch so far "
+            "(ROADMAP.md Queue 1 item 11)")
+    write_fits_cube(cube, filename, overwrite=overwrite)
