@@ -4,17 +4,28 @@
 
 1. Requires CUDA (exits non-zero without it) and prints the card and its
    power limit.
-2. Builds the three CUDA kernels from ``spectral_cube_tpu_torch/csrc/``.
-3. Holds each kernel against its plain PyTorch version on the card at the
-   slice's shapes (623 x 768 x 768 float32, and 1024 channels for the
-   moments), with and without NaN, and times both with CUDA events.
-4. Writes a 623 x 768 x 768 cube (a Gaussian line on noise with a NaN
+2. Builds the five CUDA kernels from ``spectral_cube_tpu_torch/csrc/`` (one
+   ``nvcc`` per source, all at once).
+3. Writes a 623 x 768 x 768 cube (a Gaussian line on noise with a NaN
    border, an elliptical rotated beam) to FITS, reads it onto the card and
    runs ``run_pipeline`` (convolve to a larger beam, SNR mask, moments and
    statistics, reproject onto a CRPIX-shifted grid) with every launch
-   counter at 0 before and each > 0 after; then checks each stage against
-   the plain functions on the card, and a small pipeline against the same
-   pipeline on the CPU.
+   counter at 0 before and the path's kernels > 0 after; then checks each
+   stage against the plain functions on the card.
+4. Writes a second 623 x 768 x 768 cube (the same kind, plus NaN holes
+   inside spectra), reads it with no device argument (the default is the
+   card) and runs the spectral path: ``spectral_smooth`` (17-tap
+   Gaussian), ``spectral_interpolate`` onto every second channel with the
+   same smooth kernel (312 channels), ``sigma_clip_spectrally(1.0)``, with
+   the counters at 0 before and the smooth_interp and sigma_clip counts > 0
+   after; checks each stage against the plain functions on the card.
+5. Holds each kernel against its plain PyTorch version on the card at the
+   paths' shapes, with and without NaN, and times the kernel, the plain
+   version and, where one exists, a single PyTorch call computing the same
+   function (CUDA events).  Each kernel's bound is the larger of its bytes
+   over 3.35 TB/s and its float32 operations over 67 TFLOP/s (H100 SXM).
+6. Runs a small pipeline and a small spectral path on the card and on the
+   CPU and compares them.
 
 Prints one JSON line with each kernel's numbers, the card line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises.
@@ -40,6 +51,22 @@ TARGET_BEAM = 12.0                 # arcsec, circular
 SNR = 3.0
 SHIFT = (0.37, -0.61)              # CRPIX1, CRPIX2 shift of the target
 
+# the kernels each path runs
+PIPELINE_KERNELS = ("moments", "conv_sep", "resample2")
+SPECTRAL_KERNELS = ("sigma_clip", "smooth_interp")
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
+# the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+# shared memory, all SMs: 132 SMs x 32 banks x 4 bytes x 1.98 GHz boost
+SMEM_BYTES_PER_S = 132 * 32 * 4 * 1.98e9
+
+# spectral path: Gaussian smoothing kernel (stddev in channels), clip
+SMOOTH_STDDEV = 2.0
+CLIP_SIGMA = 1.0
+CLIP_ITERS = 5
+
 # name -> (source, TPU kernels it replaces)
 KERNELS = {
     "moments": ("spectral_cube_tpu_torch/csrc/moments.cu",
@@ -56,6 +83,14 @@ KERNELS = {
                   "per_channel_resample_raw_strips; "
                   "spectral_cube_tpu/ops/banded_pallas.py:1500 "
                   "per_channel_shift_lerp"),
+    "sigma_clip": ("spectral_cube_tpu_torch/csrc/sigma_clip.cu",
+                   "spectral_cube_tpu/ops/clip_pallas.py:126 "
+                   "sigma_clip_fused"),
+    "smooth_interp": ("spectral_cube_tpu_torch/csrc/smooth_interp.cu",
+                      "spectral_cube_tpu/ops/banded_pallas.py:364 "
+                      "smooth_interp_strips_3d; "
+                      "spectral_cube_tpu/ops/banded_pallas.py:266 "
+                      "smooth_interp_strips"),
 }
 
 
@@ -86,6 +121,20 @@ def cuda_ms(fn, reps):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the float32 operations over the float32 peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def no_tf32():
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def compare(name, got, want, rtol):
@@ -239,9 +288,14 @@ def phase_moments(dev, data, results):
                         x, coords, 1, 0.75, None, False), 7)
                     pms = cuda_ms(lambda: km.moments_planes_plain(
                         x, coords, 1, 0.75, None, False), 3)
+                    # one read of the cube, six planes and the counts
+                    # written; ~8 flops per voxel (two passes)
+                    bms, by = bound(x.numel() * 4 + 28 * NY * NX,
+                                    8 * x.numel())
                     results["moments"] = dict(
                         max_abs_err=max(e[0] for e in errs), ms=ms,
-                        plain_ms=pms)
+                        plain_ms=pms, bound_ms=bms, bound_by=by,
+                        library_ms=None)
                     log(f"  moments 623x768x768 masked: kernel {ms:.3f} ms,"
                         f" plain {pms:.3f} ms")
                 if label == "1024ch" and nan and not stats:
@@ -249,8 +303,10 @@ def phase_moments(dev, data, results):
                         x, coords, 1, 0.75, None, False), 5)
                     pms = cuda_ms(lambda: km.moments_planes_plain(
                         x, coords, 1, 0.75, None, False), 3)
+                    bms, by = bound(x.numel() * 4 + 28 * NY * NX,
+                                    8 * x.numel())
                     log(f"  moments 1024x768x768 masked: kernel {ms:.3f} ms,"
-                        f" plain {pms:.3f} ms")
+                        f" plain {pms:.3f} ms, bound {bms:.3f} ms ({by})")
     del cube
 
 
@@ -261,6 +317,7 @@ def _finalize(res, stats):
 
 def phase_conv(dev, data, results):
     import torch
+    import torch.nn.functional as F
     from spectral_cube_tpu_torch.kernels import conv_sep as kc
     from spectral_cube_tpu_torch.ops import convolve as oc
     log("phase convolution (kernel 2)")
@@ -273,6 +330,13 @@ def phase_conv(dev, data, results):
     log(f"  kernel {kern.shape[0]}x{kern.shape[1]}, SVD rank r={yt.shape[1]}")
     ys, xs = torch.as_tensor(ys, device=dev), torch.as_tensor(xs, device=dev)
     gi = torch.zeros(NCHAN, dtype=torch.int32, device=dev)
+    # the library call: one conv2d with the full 2-D kernel, TF32 off
+    ky, kx = kern.shape
+    weight = torch.as_tensor(np.ascontiguousarray(kern[::-1, ::-1]),
+                             dtype=torch.float32, device=dev)[None, None]
+    pad = (kx - 1 - (kx - 1) // 2, (kx - 1) // 2,
+           ky - 1 - (ky - 1) // 2, (ky - 1) // 2)
+    lib_ms = None
     for nan in (False, True):
         x = torch.nan_to_num(data, nan=0.0) if not nan else data
         got = kc.conv_sep(x, ys, xs, hy, hx, gi)
@@ -284,17 +348,44 @@ def phase_conv(dev, data, results):
             ms = cuda_ms(lambda: kc.conv_sep(x, ys, xs, hy, hx, gi), 5)
             pms = cuda_ms(lambda: kc.conv_sep_plain(x, ys, xs, hy, hx, gi),
                           2)
-            results["conv_sep"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+            # one read and one write; the numerator's r (ly + lx) FMAs per
+            # voxel (the denominator that NaN footprints add is not counted)
+            bms, by = bound(2 * x.numel() * 4, 2 * ys.shape[1]
+                            * (ys.shape[2] + xs.shape[2]) * x.numel())
+            results["conv_sep"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                       bound_ms=bms, bound_by=by,
+                                       library_ms=lib_ms)
             log(f"  conv 623x768x768 r={yt.shape[1]} with NaN: kernel "
-                f"{ms:.3f} ms, plain {pms:.3f} ms")
+                f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.3f} ms "
+                f"({by})")
         else:
             ms = cuda_ms(lambda: kc.conv_sep(x, ys, xs, hy, hx, gi), 5)
             pms = cuda_ms(lambda: kc.conv_sep_plain(x, ys, xs, hy, hx, gi),
                           2)
+            lib_ms = cuda_ms(lambda: F.conv2d(F.pad(x[:, None], pad),
+                                              weight), 3)
             log(f"  conv 623x768x768 clean: kernel {ms:.3f} ms, plain "
-                f"{pms:.3f} ms")
+                f"{pms:.3f} ms, conv2d {kx}x{ky} {lib_ms:.3f} ms")
         del x
     return yt.shape[1]
+
+
+def grid_sample_call(x, taps):
+    """One ``grid_sample`` (bilinear, zero padding) computing the resample
+    of clean data ``x`` at the taps' sample points: the library call the
+    resample kernel is timed against."""
+    import torch
+    import torch.nn.functional as F
+    y0, wy, x0, wx = taps
+    _, ny_in, nx_in = x.shape
+    dev = x.device
+    ypos = torch.as_tensor(np.asarray(y0) + np.asarray(wy), device=dev)
+    xpos = torch.as_tensor(np.asarray(x0) + np.asarray(wx), device=dev)
+    gy = (2.0 * ypos / (ny_in - 1) - 1.0).float()
+    gx = (2.0 * xpos / (nx_in - 1) - 1.0).float()
+    grid = torch.stack(torch.meshgrid(gy, gx, indexing="ij")[::-1], -1)[None]
+    return lambda: F.grid_sample(x[None], grid, mode="bilinear",
+                                 padding_mode="zeros", align_corners=True)
 
 
 def phase_resample(dev, data, header, results):
@@ -303,6 +394,7 @@ def phase_resample(dev, data, header, results):
     from spectral_cube_tpu_torch.ops import regrid as og
     from spectral_cube_tpu_torch.wcs import WCS
     log("phase reproject (kernel 3)")
+    lib_ms = None
     wcs = WCS(header=header)
     scaled = header.__class__(header)
     scaled["NAXIS1"] = scaled["NAXIS2"] = 700
@@ -331,9 +423,19 @@ def phase_resample(dev, data, header, results):
                                                      maps[0]), 3)
             log(f"  resample {label} nan={nan}: kernel {ms:.3f} ms, plain "
                 f"{pms:.3f} ms")
+            if not nan:
+                lib_ms = cuda_ms(grid_sample_call(x, taps), 3)
+                log(f"  resample {label}: grid_sample bilinear "
+                    f"{lib_ms:.3f} ms")
+            else:
+                # one read and one write; ~12 flops per output voxel
+                n_out = NCHAN * valid.size
+                bms, by = bound(x.numel() * 4 + n_out * 4, 12 * n_out)
+                log(f"  resample {label}: bound {bms:.3f} ms ({by})")
             if label == "translation" and nan:
                 results["resample2"] = dict(max_abs_err=err, ms=ms,
-                                            plain_ms=pms)
+                                            plain_ms=pms, bound_ms=bms,
+                                            bound_by=by, library_ms=lib_ms)
             del x
 
 
@@ -377,6 +479,7 @@ def phase_pipeline(dev, workdir):
     peak = torch.cuda.max_memory_allocated()
     log(f"  run_pipeline: {total * 1e3:.1f} ms end to end, peak device "
         f"memory {peak / 2**30:.2f} GiB, launches {counts}")
+    counts = {k: counts[k] for k in PIPELINE_KERNELS}
     if not all(n > 0 for n in counts.values()):
         raise AssertionError(f"a kernel of the main path never ran: {counts}")
     # the first run pays one-time CUDA and library initialization; a second
@@ -473,6 +576,273 @@ def phase_pipeline(dev, workdir):
     return total * 1e3, warm * 1e3, peak, counts, stages
 
 
+def add_holes(data, seed):
+    """NaN holes inside spectra: 40 spaxels lose 3-12 consecutive channels
+    each, inside the primary-beam cutoff."""
+    rng = np.random.RandomState(seed)
+    nchan, ny, nx = data.shape
+    for _ in range(40):
+        y = rng.randint(ny // 3, 2 * ny // 3)
+        x = rng.randint(nx // 3, 2 * nx // 3)
+        c = rng.randint(0, nchan - 12)
+        data[c:c + rng.randint(3, 13), y, x] = np.nan
+    return data
+
+
+def band_thresholds64(spec, sigma, maxiters, use_mean):
+    """The clip thresholds of every band iteration of one spectrum,
+    computed in float64 from its sorted finite values."""
+    s = np.sort(spec[np.isfinite(spec)].astype(np.float64))
+    lo, hi, out = 0, s.size, []
+    for _ in range(maxiters):
+        cnt = hi - lo
+        if cnt <= 0:
+            break
+        band = s[lo:hi]
+        mean = band.mean()
+        centre = mean if use_mean else 0.5 * (band[(cnt - 1) // 2]
+                                              + band[cnt // 2])
+        std = np.sqrt(((band - mean) ** 2).mean())
+        lo_v, hi_v = centre - sigma * std, centre + sigma * std
+        out += [lo_v, hi_v]
+        lo = max(lo, int(np.searchsorted(s, lo_v, "left")))
+        hi = min(hi, int(np.searchsorted(s, hi_v, "right")))
+    return out
+
+
+def compare_clip(name, got, want, x, sigma, maxiters, use_mean):
+    """Kept values bitwise equal; samples kept by one and clipped by the
+    other at most 1e-6 of the voxels, each within 4 float32 ulp of a clip
+    threshold recomputed in float64 from the plain version's bands."""
+    import torch
+    nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+    both = ~nan_g & ~nan_w
+    if not torch.equal(got[both], want[both]):
+        raise AssertionError(f"{name}: kept values differ")
+    differ = torch.nonzero(nan_g != nan_w)
+    nd = differ.shape[0]
+    log(f"  {name}: {nd} samples kept/clipped differently "
+        f"(limit {1e-6 * x.numel():.0f}); kept values bitwise equal; "
+        f"{float(nan_w.float().mean()):.4f} clipped or missing")
+    if nd > 1e-6 * x.numel():
+        raise AssertionError(f"{name}: {nd} keep/clip differences")
+    for c, y, xx in differ.tolist():
+        v = float(x[c, y, xx])
+        thr = band_thresholds64(x[:, y, xx].cpu().numpy(), sigma, maxiters,
+                                use_mean)
+        gap = min(abs(v - t) / np.spacing(np.float32(t)) for t in thr)
+        if gap > 4:
+            raise AssertionError(f"{name}: sample {v} at ({c},{y},{xx}) "
+                                 f"flips {gap:.1f} ulp from a threshold")
+    return 0.0
+
+
+def clip_bound(x, maxiters):
+    """One read and one write of the cube; the operations of a bitonic
+    sort padded to a power of two (a min and a max per compare-exchange)
+    and of the band iterations (~3 per sample each), for the spectra
+    that hold a finite value.  Also returns the shared-memory bytes the
+    kernel's sort moves (two 4-byte loads and stores per
+    compare-exchange), the floor of its design rather than of the
+    function."""
+    import torch
+    nchan = x.shape[0]
+    npad = 1 << max(int(np.ceil(np.log2(max(nchan, 1)))), 0)
+    stages = int(np.log2(npad)) * (int(np.log2(npad)) + 1) // 2
+    live = int(torch.isfinite(x).any(0).sum())
+    flops = live * (stages * npad + 3 * maxiters * nchan)
+    smem_bytes = live * stages * (npad // 2) * 16
+    return bound(2 * x.numel() * 4, flops) + (smem_bytes,)
+
+
+def si_bound(x, M, S, I):
+    """One read of the input and one write of the output; the composed
+    band's FMAs for clean spectra and the chain's for spectra with NaN."""
+    import torch
+    from spectral_cube_tpu_torch.kernels.smooth_interp import band_rows
+    nin, nout = M.shape[1], M.shape[0]
+    fin = torch.isfinite(x.reshape(nin, -1))
+    some, allf = fin.any(0), fin.all(0)
+    clean = int(allf.sum())
+    dirty = int((some & ~allf).sum())
+    wm, ws, wi = (band_rows(A)[1].shape[1] for A in (M, S, I))
+    flops = 2 * nout * (clean * wm + dirty * wi * (2 * ws + 1))
+    return bound((x.numel() + nout * fin.shape[1]) * 4, flops)
+
+
+def compare_si(name, got, want, x, S, I):
+    """NaN patterns equal; max |got - want| within 3e-5 of the largest
+    |want| over the outputs whose smoothing windows all have den > 1e-3
+    (the chain divides by den, so rounding is amplified by 1/den
+    elsewhere).  Returns (max_abs_err there, relative error)."""
+    import torch
+    nin = x.shape[0]
+    dev = x.device
+    bad = (~torch.isfinite(x.reshape(nin, -1))).float()
+    with_weak = torch.as_tensor(I, device=dev) @ (
+        1.0 - torch.as_tensor(S, device=dev) @ bad <= 1e-3).float() > 0
+    nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+    if not torch.equal(nan_g, nan_w):
+        raise AssertionError(f"{name}: NaN patterns differ in "
+                             f"{int((nan_g != nan_w).sum())} places")
+    strong = ~nan_w & ~with_weak.reshape(want.shape)
+    if not bool(strong.any()):
+        return 0.0, 0.0
+    err = float((got - want)[strong].abs().max())
+    rel = err / max(float(want[strong].abs().max()), 1e-30)
+    log(f"  {name}: NaN patterns equal; max_abs_err {err:.3e}, relative "
+        f"{rel:.3e} where den > 1e-3 (tol 3e-5)")
+    if rel > 3e-5:
+        raise AssertionError(f"{name}: relative error {rel:.3e} > 3e-5")
+    return err, rel
+
+
+def phase_spectral(dev, workdir, results):
+    """The spectral path at 623 x 768 x 768 through the cube methods, with
+    the cube read from FITS without a device argument."""
+    import torch
+    import spectral_cube_tpu_torch as T
+    from spectral_cube_tpu_torch import kernels as K
+    from spectral_cube_tpu_torch.io.fits_low import HDU, write_fits
+    from spectral_cube_tpu_torch.kernels import sigma_clip as kc
+    from spectral_cube_tpu_torch.kernels import smooth_interp as ks
+    from spectral_cube_tpu_torch.ops import interpolate as oi
+    from spectral_cube_tpu_torch.ops import smoothing as osm
+    log("phase spectral path (kernels sigma_clip and smooth_interp)")
+    t0 = time.perf_counter()
+    data = add_holes(synth_cube(NCHAN, NY, NX, SEED + 3), SEED + 4)
+    path = os.path.join(workdir, "spectral.fits")
+    write_fits(path, [HDU(data=data, header=synth_header(NCHAN, NY, NX))])
+    del data
+    log(f"  synthesized and wrote {path} in {time.perf_counter() - t0:.1f} s")
+    cube = T.SpectralCube.read(path)
+    if cube.device.type != "cuda":
+        raise AssertionError(f"read without a device gave {cube.device}")
+    log(f"  read with no device argument onto {cube.device}: {cube}")
+    kern = osm.gaussian_kernel1d(SMOOTH_STDDEV)
+    grid = cube.spectral_axis[::2]
+
+    def run():
+        times = {}
+
+        def timed(name, fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            val = fn()
+            torch.cuda.synchronize()
+            times[name] = (time.perf_counter() - t) * 1e3
+            return val
+
+        sm = timed("spectral_smooth", lambda: cube.spectral_smooth(kern))
+        si = timed("spectral_interpolate", lambda: sm.spectral_interpolate(
+            grid, smooth_kernel=kern))
+        sc = timed("sigma_clip_spectrally",
+                   lambda: si.sigma_clip_spectrally(CLIP_SIGMA))
+        return sm, si, sc, times
+
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    sm, si, sc, first = run()
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  spectral path, first call: "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in first.items())
+        + f"; peak device memory {peak / 2**30:.2f} GiB; launches {counts}")
+    if counts["smooth_interp"] <= 0 or counts["sigma_clip"] <= 0:
+        raise AssertionError(f"a kernel of the spectral path never ran: "
+                             f"{counts}")
+    del sm, si, sc
+    sm, si, sc, steady = run()
+    log(f"  spectral path, second call: "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in steady.items())
+        + f" (total {sum(steady.values()):.1f} ms)")
+    nout = (NCHAN + 1) // 2
+    if si.shape != (nout, NY, NX) or sc.shape != (nout, NY, NX):
+        raise AssertionError(f"spectral path shapes {si.shape} {sc.shape}")
+    kept = float(torch.isfinite(sc._data).float().mean())
+    log(f"  interpolated to {si.shape}; sigma clip keeps {kept:.3f} of "
+        f"the voxels")
+    # five 1-sigma clips keep ~8% of a Gaussian's samples
+    if not 0.01 < kept < 0.5:
+        raise AssertionError("sigma clip output implausible")
+    clip623 = {}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cube.sigma_clip_spectrally(CLIP_SIGMA)
+    torch.cuda.synchronize()
+    clip623["sigma_clip_spectrally(623 ch)"] = (time.perf_counter() - t) * 1e3
+    log(f"  sigma_clip_spectrally({CLIP_SIGMA}) on the 623-channel cube: "
+        f"{clip623['sigma_clip_spectrally(623 ch)']:.1f} ms")
+
+    # each stage against the plain functions on the card
+    filled = sm._get_filled_data(fill=np.nan)
+    inaxis = np.asarray(cube.spectral_axis.value, dtype=float)
+    idx, frac = oi.interp_weights(inaxis, np.asarray(grid.value))
+    S, I, M = oi._si_operators(kern / kern.sum(), idx, frac, NCHAN)
+    want = ks.smooth_interp_plain(filled, M, S, I)
+    compare_si("stage spectral_interpolate vs plain", si._data, want,
+               filled, S, I)
+    want = kc.sigma_clip_plain(si._data, CLIP_SIGMA, CLIP_ITERS, False)
+    compare_clip("stage sigma_clip vs plain", sc._data, want, si._data,
+                 CLIP_SIGMA, CLIP_ITERS, False)
+    del want
+
+    # kernel against plain version, clean and with NaN, and timed
+    log("  smooth_interp kernel vs plain")
+    raw = cube._data
+    lib_ms = None
+    for label, x in (("clean", torch.nan_to_num(raw, nan=0.0)),
+                     ("holes (raw cube)", raw), ("main path input", filled)):
+        got = ks.smooth_interp(x, M, S, I)
+        want = ks.smooth_interp_plain(x, M, S, I)
+        err, rel = compare_si(f"smooth_interp {label}", got, want, x, S, I)
+        ms = cuda_ms(lambda: ks.smooth_interp(x, M, S, I), 7)
+        pms = cuda_ms(lambda: ks.smooth_interp_plain(x, M, S, I), 3)
+        if label == "clean":
+            Mt = torch.as_tensor(M, device=dev)
+            flat = x.reshape(NCHAN, -1)
+            lib_ms = cuda_ms(lambda: torch.matmul(Mt, flat), 5)
+            log(f"  smooth_interp clean: torch.matmul(M, flat) "
+                f"{lib_ms:.3f} ms")
+            del Mt, flat
+        bms, by = si_bound(x, M, S, I)
+        log(f"  smooth_interp {label}: kernel {ms:.3f} ms, plain "
+            f"{pms:.3f} ms, bound {bms:.3f} ms ({by})")
+        if label == "main path input":
+            results["smooth_interp"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
+        del got, want, x
+    log("  sigma_clip kernel vs plain")
+    si_data = si._data
+    for label, x in (("623 ch clean", torch.nan_to_num(raw, nan=0.0)),
+                     ("623 ch raw cube", raw),
+                     ("main path input (312 ch)", si_data)):
+        got = kc.sigma_clip(x, CLIP_SIGMA, CLIP_ITERS, False)
+        want = kc.sigma_clip_plain(x, CLIP_SIGMA, CLIP_ITERS, False)
+        err = compare_clip(f"sigma_clip {label}", got, want, x, CLIP_SIGMA,
+                           CLIP_ITERS, False)
+        del got, want
+        ms = cuda_ms(lambda: kc.sigma_clip(x, CLIP_SIGMA, CLIP_ITERS,
+                                           False), 5)
+        pms = cuda_ms(lambda: kc.sigma_clip_plain(x, CLIP_SIGMA, CLIP_ITERS,
+                                                  False), 2)
+        bms, by, smem = clip_bound(x, CLIP_ITERS)
+        log(f"  sigma_clip {label}: kernel {ms:.3f} ms, plain {pms:.3f} ms,"
+            f" bound {bms:.3f} ms ({by}); the sort moves {smem / 1e9:.1f} "
+            f"GB through shared memory, {smem / SMEM_BYTES_PER_S * 1e3:.3f}"
+            f" ms at {SMEM_BYTES_PER_S / 1e12:.1f} TB/s")
+        if label.startswith("main path"):
+            results["sigma_clip"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, library_ms=None)
+        del x
+    del sm, si, sc, cube, raw, filled, si_data
+    torch.cuda.empty_cache()
+    return counts, peak, first, steady, clip623
+
+
 def phase_small_reference(dev):
     """A small pipeline on the card against the same pipeline on the CPU,
     whose plain versions the CPU tests hold against the JAX package."""
@@ -499,6 +869,32 @@ def phase_small_reference(dev):
     compare("small pipeline cube", b["cube"]._data.cpu(), a["cube"]._data,
             1e-5)
 
+    log("phase small reference, spectral path (card vs CPU)")
+    import torch
+    from spectral_cube_tpu_torch.ops.smoothing import gaussian_kernel1d
+    data = add_holes(synth_cube(nchan, ny, nx, SEED + 5), SEED + 6)
+    kern = gaussian_kernel1d(SMOOTH_STDDEV)
+    out = {}
+    for d in ("cpu", dev):
+        cube = T.SpectralCube(data, WCS(header=h), header=h, device=d)
+        cube = cube.with_mask(T.LazyMask(torch.isfinite, cube=cube))
+        sm = cube.spectral_smooth(kern)
+        si = sm.spectral_interpolate(sm.spectral_axis[::2],
+                                     smooth_kernel=kern)
+        out[str(d)] = (si._data.cpu(),
+                       si.sigma_clip_spectrally(CLIP_SIGMA)._data.cpu())
+    (ia, ca), (ib, cb) = out["cpu"], out[str(dev)]
+    compare("small spectral_interpolate", ib, ia, 1e-5)
+    # the devices' smoothing products round differently, so a sample
+    # within rounding of a clip threshold may fall either way
+    flips = int((torch.isnan(ca) != torch.isnan(cb)).sum())
+    both = ~torch.isnan(ca) & ~torch.isnan(cb)
+    err = float((ca[both] - cb[both]).abs().max())
+    log(f"  small sigma clip: {flips} keep/clip flips of {ca.numel()}, "
+        f"max |diff| of kept values {err:.3e}")
+    if flips > 1e-3 * ca.numel() or err > 1e-5 * float(ca[both].abs().max()):
+        raise AssertionError("small spectral path differs")
+
 
 def main():
     import torch
@@ -522,11 +918,19 @@ def main():
         f"(nvcc {_build.last_build['seconds']:.1f} s): "
         f"{_build.last_build['path']}")
 
+    for line in _build.last_build["log"].splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            log(f"  {line.strip()}")
+    no_tf32()
+
     warnings.simplefilter("ignore")
     results = {}
     with tempfile.TemporaryDirectory() as workdir:
         total_ms, warm_ms, peak, counts, stages = phase_pipeline(dev,
                                                                  workdir)
+        (sp_counts, sp_peak, sp_first, sp_steady,
+         clip623) = phase_spectral(dev, workdir, results)
+    counts.update({k: sp_counts[k] for k in SPECTRAL_KERNELS})
     data = torch.as_tensor(synth_cube(NCHAN, NY, NX, SEED), device=dev)
     phase_moments(dev, data, results)
     rank = phase_conv(dev, data, results)
@@ -539,13 +943,20 @@ def main():
         f"(second), peak {peak / 2**30:.2f} GiB, "
         f"conv rank {rank}, stages "
         + ", ".join(f"{k} {v:.1f} ms" for k, v in stages.items()))
+    log(f"summary: spectral path {sum(sp_first.values()):.1f} ms (first "
+        f"call), {sum(sp_steady.values()):.1f} ms (second), peak "
+        f"{sp_peak / 2**30:.2f} GiB, stages "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in sp_steady.items())
+        + "; " + ", ".join(f"{k} {v:.1f} ms" for k, v in clip623.items()))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = results[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": counts[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,19 @@
 """The cube class of the torch port: a single-beam SpectralCube.
 
 Port of the core of ``spectral_cube_tpu/cube.py`` for the analysis path
-(read -> convolve_to -> mask -> moments + statistics -> reproject).  The
-data is a torch tensor on the cube's device, taken from the tensor given
-or from ``device=``; masks are lazy expression trees evaluated on that
-device; WCS, beam and unit metadata stay on the host.  On a CUDA device
-the moments, statistics, convolution and reprojection run in the port's
-kernels (``kernels/``); on the CPU in their plain PyTorch versions.
+(read -> convolve_to -> mask -> moments + statistics -> reproject) and the
+spectral-axis path (spectral/spatial smoothing and median filters,
+sigma clipping, spectral interpolation, downsampling).  The data is a
+torch tensor on the cube's device: the tensor's own device, else
+``device=``, else the CUDA device (a host array never lands on the CPU
+unless asked).  Masks are lazy expression trees evaluated on that device;
+WCS, beam and unit metadata stay on the host.  On a CUDA device the
+moments, statistics, convolution, reprojection, sigma clip and fused
+smooth + interpolation run in the port's kernels (``kernels/``); on the
+CPU in their plain PyTorch versions.
 
-Not ported yet: slicing and subcubes, spectral smoothing and
-interpolation, regions, Stokes and varying-resolution cubes (ROADMAP.md
-Queue 1 items 5, 8, 10).
+Not ported yet: slicing and subcubes, regions, Stokes and
+varying-resolution cubes (ROADMAP.md Queue 1 items 5, 10).
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 
 from .units import Quantity, Unit, UnitConversionError
 from .masks import (BooleanArrayMask, LazyComparisonMask, CompositeMask,
-                    MaskBase, trivial_view)
+                    LazyMask, MaskBase, is_data_local, trivial_view)
 from .beams import Beam, NoBeamError
 from .lower_dimensional_structures import (Projection,
                                            LowerDimensionalObject)
@@ -33,6 +36,8 @@ from .ops import reductions as _red
 from .ops import moments as _mom
 from .ops import convolve as _conv
 from .ops import regrid as _regrid
+from .ops import smoothing as _smooth
+from .ops import interpolate as _interp
 
 __all__ = ["SpectralCube"]
 
@@ -42,11 +47,21 @@ SIGMA2FWHM = _mom.SIGMA2FWHM
 _INHERIT = object()
 
 
+def default_device():
+    """The device a cube lands on when no device is given: the card.
+    Raises where CUDA is absent; the CPU is only ever asked for."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "the port runs on the CUDA device unless asked otherwise, and "
+            "CUDA is not available here: pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
+
+
 def _as_tensor(data, device):
     """Cube data as a tensor on ``device`` (default: the tensor's own
-    device, else the CPU).  A numpy float64 payload becomes float32, as
-    ``jnp.asarray`` stores it in the JAX package (64-bit mode off); a
-    numpy array is copied, never aliased."""
+    device, else :func:`default_device`).  A numpy float64 payload becomes
+    float32, as ``jnp.asarray`` stores it in the JAX package (64-bit mode
+    off); a numpy array is copied, never aliased."""
     if isinstance(data, torch.Tensor):
         return data if device is None else data.to(device)
     arr = np.asarray(data)
@@ -55,7 +70,7 @@ def _as_tensor(data, device):
         arr = arr.astype(arr.dtype.newbyteorder("="))
     if arr.dtype == np.float64:
         arr = arr.astype(np.float32)
-    device = torch.device(device if device is not None else "cpu")
+    device = torch.device(device) if device is not None else default_device()
     if device.type == "cpu":
         return torch.from_numpy(np.array(arr, order="C", copy=True))
     with warnings.catch_warnings():
@@ -63,6 +78,35 @@ def _as_tensor(data, device):
         warnings.filterwarnings("ignore", message="The given NumPy array "
                                 "is not writable")
         return torch.as_tensor(np.ascontiguousarray(arr)).to(device)
+
+
+def _kernel_array(kernel):
+    """Plain float array of a convolution kernel (ndarray or object with
+    ``.array``), rejecting unit-carrying kernels like the reference
+    (tests/test_regrid.py:174-183)."""
+    arr = getattr(kernel, "array", kernel)
+    if getattr(arr, "unit", None) is not None \
+            or getattr(kernel, "unit", None) is not None:
+        from .units import UnitsError
+        raise UnitsError("The convolution kernel should be defined "
+                         "without a unit.")
+    return np.asarray(arr, dtype=float)
+
+
+def _check_parallel_options(parallel, num_cores):
+    """Reference guard (spectral_cube.py:2965-2973): num_cores > 1 with an
+    explicit ``parallel=False`` is contradictory; num_cores == 1 with
+    ``parallel=True`` only warns.  ``parallel=None`` means unspecified."""
+    if num_cores is None:
+        return
+    if parallel is False and num_cores > 1:
+        raise ValueError(
+            "parallel execution was not requested, but multiple cores "
+            "were: these are incompatible options.  Either specify "
+            "num_cores=1 or parallel=True")
+    if parallel and num_cores == 1:
+        warnings.warn("parallel=True was specified but num_cores=1. "
+                      "The task runs as one fused kernel either way.")
 
 
 def _slice_syntax(f):
@@ -196,7 +240,9 @@ class SpectralCube:
             header=self._header, unit=unit,
             allow_huge_operations=self.allow_huge_operations,
             wcs_tolerance=(wcs_tolerance if wcs_tolerance is not None
-                           else self._wcs_tolerance))
+                           else self._wcs_tolerance),
+            # a host array joins the cube's device; a tensor keeps its own
+            device=None if isinstance(data, torch.Tensor) else self.device)
         cube._beam = beam if beam is not None else self._beam
         if cube._beam is not None:
             cube._meta["beam"] = cube._beam
@@ -269,7 +315,8 @@ class SpectralCube:
 
     @classmethod
     def read(cls, filename, format=None, hdu=0, device=None, **kwargs):
-        """Read a 3-D cube onto ``device`` (default CPU)."""
+        """Read a 3-D cube onto ``device`` (default: the CUDA device; raises
+        where CUDA is absent unless ``device='cpu'`` is given)."""
         from .io import read_cube
         return read_cube(filename, format=format, hdu=hdu, device=device,
                          **kwargs)
@@ -612,6 +659,230 @@ class SpectralCube:
             out = out * torch.as_tensor(factors, dtype=out.dtype,
                                         device=out.device)[:, None, None]
         return self._new_cube_with(data=out, beam=beam)
+
+    # ------------------------------------------------------------------
+    # smoothing / filtering family (reference spectral_cube.py:2749-3222)
+    # ------------------------------------------------------------------
+    def spectral_smooth(self, kernel, convolve=None, verbose=0,
+                        parallel=None, num_cores=None, **kwargs):
+        """Smooth along the spectral axis with a 1-D kernel (array or object
+        with ``.array``); reference spectral_cube.py:3146-3184.
+        ``parallel``/``num_cores`` are validated for reference
+        compatibility but do not change the evaluation.  The JAX
+        package's ``save_to_tmp_dir=`` is not ported."""
+        _check_parallel_options(parallel, num_cores)
+        karr = _kernel_array(kernel)
+        data = self._get_filled_data(fill=np.nan)
+        return self._new_cube_with(
+            data=_smooth.spectral_smooth_cube(data, karr))
+
+    def spectral_smooth_median(self, ksize, raise_error_jybm=True,
+                               parallel=None, num_cores=None,
+                               update_function=None, **kwargs):
+        """Median filter of width ``ksize`` along the spectral axis.
+        The JAX package's ``save_to_tmp_dir=`` is not ported."""
+        self._check_jybeam_smoothing(raise_error_jybm)
+        _check_parallel_options(parallel, num_cores)
+        data = self._get_filled_data(fill=np.nan)
+        out = self._new_cube_with(
+            data=_smooth.spectral_median_filter_cube(data, ksize))
+        self._call_per_spaxel(update_function)
+        return out
+
+    def spectral_filter(self, ksize, filter, parallel=None, num_cores=None,
+                        use_memmap=None, update_function=None, **kwargs):
+        """Apply an arbitrary scipy-style spectral filter on the host.
+        The JAX package's ``save_to_tmp_dir=`` is not ported."""
+        _check_parallel_options(parallel, num_cores)
+        data = self._get_filled_data(fill=np.nan).cpu().numpy()
+        out = filter(data, size=(ksize, 1, 1), **kwargs)
+        self._call_per_spaxel(update_function)
+        return self._new_cube_with(data=out)
+
+    def spatial_smooth(self, kernel, convolve=None, raise_error_jybm=True,
+                       **kwargs):
+        """Convolve every channel with a 2-D kernel (the separable
+        convolution kernel for a low-rank kernel).  The JAX package's
+        ``save_to_tmp_dir=`` is not ported."""
+        self._check_jybeam_smoothing(raise_error_jybm)
+        karr = _kernel_array(kernel)
+        data = self._get_filled_data(fill=np.nan)
+        return self._new_cube_with(
+            data=_smooth.spatial_smooth_cube(data, karr))
+
+    def spatial_smooth_median(self, ksize, raise_error_jybm=True, **kwargs):
+        """Median filter of each channel map, ``ksize`` an int or (ky, kx)."""
+        self._check_jybeam_smoothing(raise_error_jybm)
+        data = self._get_filled_data(fill=np.nan)
+        return self._new_cube_with(
+            data=_smooth.spatial_median_filter_cube(data, ksize))
+
+    def spatial_filter(self, ksize, filter, raise_error_jybm=True,
+                       parallel=None, num_cores=None, use_memmap=None,
+                       update_function=None, **kwargs):
+        """Arbitrary scipy.ndimage filter over each spatial plane on the
+        host (reference spectral_cube.py:2776-2806).  The JAX package's
+        ``save_to_tmp_dir=`` is not ported."""
+        self._check_jybeam_smoothing(raise_error_jybm)
+        _check_parallel_options(parallel, num_cores)
+        data = self._get_filled_data(fill=np.nan).cpu().numpy()
+        ky, kx = (ksize, ksize) if np.isscalar(ksize) else tuple(ksize)
+        out = filter(data, size=(1, ky, kx), **kwargs)
+        if update_function is not None:
+            for _ in range(int(self.shape[0])):
+                update_function()
+        return self._new_cube_with(data=out)
+
+    def sigma_clip_spectrally(self, threshold, verbose=0, maxiters=5,
+                              cenfunc="median", stdfunc="std",
+                              parallel=None, num_cores=None,
+                              use_memmap=None, update_function=None,
+                              **kwargs):
+        """Iterative per-spaxel sigma clip (reference
+        spectral_cube.py:3161-3184; the dask docs benchmark workload),
+        through the sigma_clip kernel for float32 data with
+        stdfunc='std'.  ``cenfunc``/``stdfunc`` follow
+        astropy.stats.sigma_clip; unknown kwargs are rejected, never
+        silently dropped.  The JAX package's ``save_to_tmp_dir=`` is not
+        ported."""
+        if kwargs:
+            raise TypeError(
+                f"unsupported sigma_clip keyword(s) {sorted(kwargs)}; "
+                "supported: cenfunc ('median'|'mean'), "
+                "stdfunc ('std'|'mad_std')")
+        _check_parallel_options(parallel, num_cores)
+        data = self._get_filled_data(fill=np.nan)
+        out = _smooth.sigma_clip_spectrally(data, sigma=threshold,
+                                            maxiters=maxiters,
+                                            cenfunc=cenfunc, stdfunc=stdfunc)
+        self._call_per_spaxel(update_function)
+        return self._new_cube_with(data=out)
+
+    def _call_per_spaxel(self, update_function):
+        """Reference parity: a progress hook called once per spaxel (the
+        joblib applicator's, spectral_cube.py:3014-3019)."""
+        if update_function is not None:
+            for _ in range(int(self.shape[1] * self.shape[2])):
+                update_function()
+
+    def check_jybeam_smoothing(self, raise_error_jybm=True):
+        """Public alias (reference base_class.py:116-140)."""
+        return self._check_jybeam_smoothing(raise_error_jybm=raise_error_jybm)
+
+    def _check_jybeam_smoothing(self, raise_error_jybm=True):
+        """Jy/beam data cannot be spatially smoothed without changing the
+        beam (reference base_class.py:116-140)."""
+        from . import units as u
+        if self._unit is not None and raise_error_jybm \
+                and self._unit.dims == (u.Jy / u.beam).dims:
+            from .beams import BeamUnitsError
+            raise BeamUnitsError(
+                "Attempting to smooth a cube in Jy/beam units changes the "
+                "beam; convert to K first (`cube.to('K')`) or pass "
+                "raise_error_jybm=False to override.")
+
+    # ------------------------------------------------------------------
+    # spectral interpolation & downsampling
+    # ------------------------------------------------------------------
+    def spectral_interpolate(self, spectral_grid,
+                             suppress_smooth_warning=False,
+                             fill_value=None, update_function=None,
+                             smooth_kernel=None, **kwargs):
+        """Regrid onto a new (linear) spectral grid (reference
+        spectral_cube.py:3224-3332): weights computed once from the shared
+        axis, applied as one gather + lerp.
+
+        ``smooth_kernel`` (1-D, optional): smooth spectrally before
+        regridding, the anti-aliasing workflow the reference documents as
+        separate ``spectral_smooth`` + ``spectral_interpolate`` calls.
+        Under the finiteness mask of a read cube both run as one pass of
+        the smooth_interp kernel; under another data-local mask the
+        smooth runs first and the mask is evaluated on its result, as the
+        chained calls would; any other mask rides along the fused pass.
+        Suppresses the Nyquist warning.  The JAX package's
+        ``save_to_tmp_dir=`` is not ported."""
+        if isinstance(spectral_grid, Quantity):
+            grid = spectral_grid.to_value(self.spectral_unit)
+        else:
+            grid = np.asarray(spectral_grid, dtype=float)
+        if grid.ndim != 1:
+            raise ValueError("spectral_grid must be 1-dimensional")
+        diffs = np.diff(grid)
+        if grid.size > 2 and not np.allclose(diffs, diffs[0],
+                                             rtol=1e-6, atol=0):
+            raise ValueError("spectral_grid must be linear")
+        inaxis = np.asarray(self.spectral_axis.value, dtype=float)
+        if not suppress_smooth_warning and smooth_kernel is None:
+            _interp.check_nyquist(inaxis, grid)
+        include = self._mask.include(data=self._data, wcs=self._wcs) \
+            if self._mask is not None else None
+        lo, hi = min(inaxis[0], inaxis[-1]), max(inaxis[0], inaxis[-1])
+        oob = torch.as_tensor(np.where((grid < lo) | (grid > hi))[0],
+                              device=self.device)
+        new_wcs = _interp.linear_spectral_wcs(self._wcs, grid)
+        if smooth_kernel is not None:
+            karr = _kernel_array(smooth_kernel)
+            filled = self._get_filled_data(fill=np.nan)
+            if include is not None and isinstance(self._mask, LazyMask) \
+                    and self._mask._function in (torch.isfinite,
+                                                 np.isfinite):
+                # the read mask: finiteness tracks the data, so the
+                # inherited mask evaluated on the fused result gives
+                # exactly the chained calls' filled values
+                out, _ = _interp.smooth_interp_cube(filled, karr, inaxis,
+                                                    grid)
+                if fill_value is not None and oob.numel():
+                    # only finite clamped edges take the fill, so the
+                    # re-bound finiteness mask keeps excluding dead edges
+                    edge = out[oob]
+                    out[oob] = torch.where(torch.isfinite(edge),
+                                           float(fill_value), float("nan")
+                                           ).to(out.dtype)
+                new_mask = LazyMask(self._mask._function, data=out,
+                                    wcs=new_wcs, shape=tuple(out.shape))
+                return self._new_cube_with(data=out, wcs=new_wcs,
+                                           mask=new_mask)
+            if include is not None and is_data_local(self._mask):
+                # chained-call parity: spectral_smooth re-evaluates a
+                # data-local mask on the SMOOTHED data, so the interp step
+                # sees its includes, not the original ones
+                sm = _smooth.spectral_smooth_cube(filled, karr)
+                include = self._mask.include(data=sm, wcs=self._wcs)
+                out, new_include = _interp.interp_cube_spectral(
+                    sm, inaxis, grid, include=include)
+            else:
+                out, new_include = _interp.smooth_interp_cube(
+                    filled, karr, inaxis, grid, include=include)
+        else:
+            out, new_include = _interp.interp_cube_spectral(
+                self._data, inaxis, grid, include=include)
+        if fill_value is not None and oob.numel():
+            out[oob] = float(fill_value)
+        mask = BooleanArrayMask(new_include, wcs=new_wcs,
+                                shape=tuple(out.shape)) \
+            if new_include is not None else None
+        return self._new_cube_with(data=out, wcs=new_wcs, mask=mask)
+
+    def downsample_axis(self, factor, axis, estimator="mean", truncate=False,
+                        use_memmap=None, progressbar=None):
+        """Block-downsample (reference spectral_cube.py:3421-3557).
+        The JAX package's ``save_to_tmp_dir=`` is not ported."""
+        data = self._get_filled_data(fill=np.nan)
+        out = _interp.downsample_axis(data, factor, axis,
+                                      estimator=estimator, truncate=truncate)
+        view = [slice(None)] * 3
+        view[axis] = slice(None, None, int(factor))
+        new_wcs = self._wcs.slice(tuple(view), shape=self.shape)
+        new_mask = None
+        if self._mask is not None:
+            # block-any of the include mask, matching the reference
+            # (spectral_cube.py:3503-3548: np.any over each factor-block)
+            include = self._mask.include(data=self._data, wcs=self._wcs)
+            inc_ds = _interp.downsample_include(include, factor, axis,
+                                                truncate=truncate)
+            new_mask = BooleanArrayMask(inc_ds, wcs=new_wcs,
+                                        shape=tuple(out.shape))
+        return self._new_cube_with(data=out, wcs=new_wcs, mask=new_mask)
 
     def __repr__(self):
         unit = str(self.unit)

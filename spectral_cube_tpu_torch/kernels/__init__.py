@@ -6,14 +6,16 @@ from ``csrc/`` at first use) or raises.  Each wrapper counts its launches in
 ``<wrapper>.launches``.
 """
 
-from . import moments, conv_sep, resample2
+from . import moments, conv_sep, resample2, sigma_clip, smooth_interp
 
-__all__ = ["moments", "conv_sep", "resample2", "WRAPPERS", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["moments", "conv_sep", "resample2", "sigma_clip", "smooth_interp",
+           "WRAPPERS", "launch_counts", "reset_launch_counts"]
 
 #: kernel name -> wrapper
 WRAPPERS = {"moments": moments.moments_planes, "conv_sep": conv_sep.conv_sep,
-            "resample2": resample2.resample2}
+            "resample2": resample2.resample2,
+            "sigma_clip": sigma_clip.sigma_clip,
+            "smooth_interp": smooth_interp.smooth_interp}
 
 
 def launch_counts():

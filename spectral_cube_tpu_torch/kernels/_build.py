@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 The sources in ``spectral_cube_tpu_torch/csrc/`` compile with ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, loaded through
+``sm_90a``, one ``nvcc`` process per source, all started together, and
+link into one shared library with a plain C interface, loaded through
 ``ctypes``.  The build runs at first use, into
 ``spectral_cube_tpu_torch/_build/`` (git-ignored), under a name that hashes
 the sources and flags, so an edited source rebuilds and an unchanged one
@@ -25,14 +26,16 @@ __all__ = ["load_library", "check", "stream_ptr", "ptr", "last_build"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("moments.cu", "conv_sep.cu", "resample2.cu")
+SOURCES = ("moments.cu", "conv_sep.cu", "resample2.cu", "sigma_clip.cu",
+           "smooth_interp.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+              "-std=c++17", "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
 _LIB = None
 #: {"seconds": build wall time (0.0 when the library was already built),
-#:  "path": the library} of the load that ran in this process
+#:  "path": the library, "log": the compiler's report ("" when not
+#:  built)} of the load that ran in this process
 last_build = {}
 
 
@@ -66,7 +69,52 @@ def _declare(lib):
     lib.sct_conv_sep.restype = I
     lib.sct_resample2.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, P, P]
     lib.sct_resample2.restype = I
+    lib.sct_sigma_clip.argtypes = [P, I, LL, F, I, I, P, P]
+    lib.sct_sigma_clip.restype = I
+    lib.sct_smooth_interp.argtypes = [P, I, I, LL, P, P, I, P, P, I, P, P, I,
+                                      P, P]
+    lib.sct_smooth_interp.restype = I
     return lib
+
+
+def _run_all(cmds):
+    """Run the commands in parallel; raise with the output of the first
+    that fails, after every process has ended."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    try:
+        outs = [p.communicate()[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
+                               + out)
+    return "".join(outs)
+
+
+def _build(path):
+    """Compile each source to an object, all at once, then link ``path``.
+    Returns the compiler's report (ptxas registers and shared memory per
+    kernel)."""
+    tag = f"{path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
+    try:
+        log = _run_all([[_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                         str(o), str(CSRC / s)]
+                        for s, o in zip(SOURCES, objs)])
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
+        os.replace(tmp, path)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    return log
 
 
 def load_library():
@@ -79,6 +127,7 @@ def load_library():
         path = _library_path()
         t0 = time.perf_counter()
         built = False
+        log = ""
         if not path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             # one builder at a time across processes; the others wait and
@@ -86,20 +135,11 @@ def load_library():
             with open(BUILD_DIR / "build.lock", "w") as lock:
                 fcntl.flock(lock, fcntl.LOCK_EX)
                 if not path.exists():
-                    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-                    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           *(str(CSRC / s) for s in SOURCES)]
-                    proc = subprocess.run(cmd, capture_output=True,
-                                          text=True)
-                    if proc.returncode != 0:
-                        raise RuntimeError(
-                            "nvcc failed:\n" + " ".join(cmd) + "\n"
-                            + proc.stdout + proc.stderr)
-                    os.replace(tmp, path)
+                    log = _build(path)
                     built = True
         _LIB = _declare(ctypes.CDLL(str(path)))
         last_build.update(seconds=time.perf_counter() - t0 if built else 0.0,
-                          path=str(path))
+                          path=str(path), log=log)
         return _LIB
 
 

@@ -141,9 +141,13 @@ def _finalize_pairs(planes, xbar, dx, with_stats):
                     for v in (dx, xbar))
     mom0 = torch.where(some, s0c * dx32, NAN)
     mom1 = torch.where(some, xbar32 + df_collapse(q1), NAN)
+    # one included channel: the second moment about its own centroid is 0,
+    # as moments_012_pallas gives it; the pair form leaves ~1e-14 of
+    # either sign there, whose square root would be NaN
     mom2 = torch.where(
         some, df_collapse(df_sub(df_div((s2h, s2l), S0), df_mul(q1, q1))),
         NAN)
+    mom2 = torch.where(cntf == 1, 0.0, mom2)
     if not with_stats:
         return mom0, mom1, mom2
     ns = torch.clamp(cntf, min=1.0)

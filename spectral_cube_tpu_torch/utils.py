@@ -8,6 +8,7 @@ transfers and unsharded huge cubes rather than memmap loops.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import warnings
 
@@ -18,7 +19,7 @@ __all__ = [
     "NotImplementedWarning", "StokesWarning", "ExperimentalImplementationWarning",
     "PossiblySlowWarning", "SmoothingWarning", "NonFiniteBeamsWarning",
     "FITSWarning", "BadVelocitiesWarning", "FITSReadError", "NoBeamError",
-    "cached", "warn_slow",
+    "cached", "warn_slow", "ieee_fp32",
 ]
 
 
@@ -112,6 +113,23 @@ def cached(func):
             cache[args] = func(self, *args)
         return cache[args]
     return wrapper
+
+
+@contextlib.contextmanager
+def ieee_fp32():
+    """Float32 matrix products and convolutions in full IEEE float32 inside
+    the block, with TF32 off, as the JAX package runs them at HIGHEST
+    precision; the global flags are restored on exit."""
+    import torch
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
 
 
 # reference policy constant (cube_utils.py:268): ops touching more elements

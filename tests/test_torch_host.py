@@ -127,16 +127,16 @@ def test_fits_roundtrip_and_unported_inputs(tmp_path):
     h["BITPIX"] = -32
     p = str(tmp_path / "c.fits")
     write_fits(p, [HDU(data=data, header=h)])
-    cube = T.SpectralCube.read(p)
+    cube = T.SpectralCube.read(p, device="cpu")
     np.testing.assert_array_equal(cube.unmasked_data[:].value.numpy(), data)
     assert cube.get_mask_array().sum() == np.isfinite(data).sum()
     out = str(tmp_path / "back.fits")
     cube.write(out)
-    back = T.SpectralCube.read(out)
+    back = T.SpectralCube.read(out, device="cpu")
     np.testing.assert_array_equal(back._data.numpy(), data)
     assert back.beam.major_rad == cube.beam.major_rad
     with pytest.raises(OSError, match="overwrite"):
         cube.write(out)
     vr, _ = make_vr_cube_file(tmp_path)
     with pytest.raises(NotImplementedError, match="item 5"):
-        T.SpectralCube.read(vr)
+        T.SpectralCube.read(vr, device="cpu")

@@ -5,7 +5,9 @@ reason, where ``torch.cuda.is_available()`` is false.  The file imports
 neither JAX nor the JAX package, so it also runs on a machine without
 them (the README names the command).  Tolerances: 1e-6 relative between
 the kernel and its plain version of the same numerics (only the order of
-float32 roundings differs), NaN patterns exact.
+float32 roundings differs), NaN patterns exact; the sigma clip exactly
+(its kernel and plain version sum in one order); the fused smooth +
+interpolation 3e-5 / 1e-5 (the JAX kernels' own tolerance).
 """
 
 import numpy as np
@@ -18,8 +20,12 @@ from spectral_cube_tpu_torch.io.fits_low import Header
 from spectral_cube_tpu_torch.kernels import conv_sep as kconv
 from spectral_cube_tpu_torch.kernels import moments as kmom
 from spectral_cube_tpu_torch.kernels import resample2 as kres
+from spectral_cube_tpu_torch.kernels import sigma_clip as kclip
+from spectral_cube_tpu_torch.kernels import smooth_interp as ksi
 from spectral_cube_tpu_torch.ops import convolve as tconv
+from spectral_cube_tpu_torch.ops import interpolate as tinterp
 from spectral_cube_tpu_torch.ops import moments as tmom
+from spectral_cube_tpu_torch.ops import smoothing as tsmooth
 from spectral_cube_tpu_torch.wcs import WCS
 
 pytestmark = pytest.mark.cuda
@@ -161,7 +167,8 @@ def test_pipeline_on_cuda_matches_cpu(cuda):
                   T.Quantity(0.0, "deg"))
     # an SNR threshold in a gap of the convolved values, so no voxel sits
     # within rounding of it in either convolution
-    conv = T.SpectralCube(data, WCS(header=h), header=h).convolve_to(beam)
+    conv = T.SpectralCube(data, WCS(header=h), header=h,
+                         device="cpu").convolve_to(beam)
     v = np.sort(conv._data.numpy()[np.isfinite(conv._data.numpy())])
     lo, hi = np.searchsorted(v, np.percentile(v, [60.0, 80.0]))
     i = lo + int(np.argmax(np.diff(v[lo:hi])))
@@ -174,10 +181,11 @@ def test_pipeline_on_cuda_matches_cpu(cuda):
                                        target_beam=beam, target_header=target,
                                        noise_estimate=noise)
         counts = K.launch_counts()
+        pipeline = [counts[k] for k in ("moments", "conv_sep", "resample2")]
         if str(dev) == "cpu":
-            assert counts == {"moments": 0, "conv_sep": 0, "resample2": 0}
+            assert all(n == 0 for n in counts.values()), counts
         else:
-            assert all(n > 0 for n in counts.values()), counts
+            assert all(n > 0 for n in pipeline), counts
     a, b = out["cpu"], out[str(cuda)]
     for pa, pb in zip(a["moments"], b["moments"]):
         va, vb = np.asarray(pa.value), np.asarray(pb.value)
@@ -186,3 +194,85 @@ def test_pipeline_on_cuda_matches_cpu(cuda):
         np.testing.assert_allclose(vb[both], va[both], rtol=1e-4, atol=1e-4)
     assert a["statistics"]["npts"] == b["statistics"]["npts"]
     _close(b["cube"]._data, a["cube"]._data, rtol=1e-5, atol=1e-5)
+
+
+def _spectra(shape, seed):
+    """Noise with a NaN hole inside some spectra, an all-NaN spectrum and
+    +-inf (missing, like NaN)."""
+    rng = np.random.RandomState(seed)
+    data = (2.0 * rng.randn(*shape)).astype(np.float32)
+    nchan = shape[0]
+    data[nchan // 3:nchan // 3 + 4, 1, 3:9] = np.nan
+    data[:, 2, 7] = np.nan
+    data[nchan // 2, 0, 0] = np.inf
+    data[nchan // 2, 0, 1] = -np.inf
+    return torch.as_tensor(data)
+
+
+@pytest.mark.parametrize("nchan,use_mean", [(623, False), (623, True),
+                                            (37, False), (1, False),
+                                            (4096, False)])
+def test_sigma_clip_kernel_matches_plain(cuda, nchan, use_mean):
+    """Bitwise, at ragged shapes (nx = 100), one channel to 4096."""
+    x = _spectra((nchan, 3, 100), nchan)
+    for sigma, maxiters in ((1.0, 5), (2.5, 3)):
+        want = kclip.sigma_clip_plain(x, sigma, maxiters, use_mean)
+        n0 = kclip.sigma_clip.launches
+        got = kclip.sigma_clip(x.to(cuda), sigma, maxiters, use_mean).cpu()
+        assert kclip.sigma_clip.launches == n0 + 1
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+
+
+@pytest.mark.parametrize("nin,step", [(623, 2), (100, 3), (40, 1)])
+def test_smooth_interp_kernel_matches_plain(cuda, nin, step):
+    x = _spectra((nin, 3, 100), nin)
+    inaxis = np.arange(nin) * 1.5
+    outaxis = inaxis[::step] + 0.4
+    kern = tsmooth.gaussian_kernel1d(2.0)
+    idx, frac = tinterp.interp_weights(inaxis, outaxis)
+    S, I, M = tinterp._si_operators(kern / kern.sum(), idx, frac, nin)
+    want = ksi.smooth_interp_plain(x, M, S, I)
+    n0 = ksi.smooth_interp.launches
+    got = ksi.smooth_interp(x.to(cuda), M, S, I)
+    assert ksi.smooth_interp.launches == n0 + 1
+    _close(got, want, rtol=3e-5, atol=1e-5)
+    flat = ksi.smooth_interp(x.reshape(nin, -1).to(cuda), M, S, I)
+    _close(flat.reshape(got.shape), want, rtol=3e-5, atol=1e-5)
+
+
+def test_spectral_path_on_cuda_matches_cpu(cuda):
+    """spectral_smooth -> spectral_interpolate(smooth_kernel) ->
+    sigma_clip_spectrally on a CUDA cube launches both spectral kernels
+    and agrees with the CPU run (plain versions)."""
+    nchan, ny, nx = 64, 20, 36
+    data = _spectra((nchan, ny, nx), 9).numpy() + np.exp(
+        -0.5 * ((np.arange(nchan)[:, None, None] - 30) / 4.0) ** 2)
+    data[:, :, :2] = np.nan
+    h = _header(nchan, ny, nx)
+    h["BUNIT"] = "K"
+    kern = tsmooth.gaussian_kernel1d(2.0)
+    out = {}
+    for dev in ("cpu", cuda):
+        cube = T.SpectralCube(data, WCS(header=h), header=h, device=dev)
+        cube = cube.with_mask(T.LazyMask(torch.isfinite, cube=cube))
+        K.reset_launch_counts()
+        sm = cube.spectral_smooth(kern)
+        si = sm.spectral_interpolate(sm.spectral_axis[::2],
+                                     smooth_kernel=kern)
+        out[str(dev)] = si.sigma_clip_spectrally(1.0)
+        counts = K.launch_counts()
+        if str(dev) == "cpu":
+            assert all(n == 0 for n in counts.values()), counts
+        else:
+            assert counts["smooth_interp"] == 1, counts
+            assert counts["sigma_clip"] == 1, counts
+    # the two devices' smoothing products round differently, so a sample
+    # within rounding of a clip threshold may fall either way
+    a, b = out["cpu"]._data, out[str(cuda)]._data.cpu()
+    flips = torch.isnan(a) != torch.isnan(b)
+    assert int(flips.sum()) <= 1e-3 * a.numel()
+    both = ~torch.isnan(a) & ~torch.isnan(b)
+    # five 1-sigma clips keep ~8% of a Gaussian's samples
+    assert int(both.sum()) > 0.03 * a.numel()
+    torch.testing.assert_close(b[both], a[both], rtol=1e-5, atol=1e-5)

@@ -96,6 +96,33 @@ def test_kernel_moments_match_pallas_and_oracle(mask_kind, shape):
                                    atol=1e-7, equal_nan=True)
 
 
+def test_one_included_channel_mom2_matches_pallas():
+    """A spaxel with exactly one included channel has mom2 = 0, as
+    moments_012_pallas gives it (so its linewidth is 0, not NaN); a spaxel
+    with none stays NaN."""
+    data = _cube((24, 8, 16), 11) + 0.5
+    inc = np.zeros(data.shape, bool)
+    inc[:, 2:] = True
+    inc[:, 0, 1] = False
+    for y, x, c in ((0, 2, 5), (1, 0, 0), (1, 1, 23), (0, 3, 11)):
+        inc[:, y, x] = False
+        inc[c, y, x] = True
+    coords = np.arange(24) * 0.37 + 2.0
+    got = tmom.moments_012_kernel(torch.as_tensor(data), coords, 0.37,
+                                  include=torch.as_tensor(inc))
+    ref = jmom.moments_012_pallas(jnp.asarray(data), coords, 0.37,
+                                  include=jnp.asarray(inc), interpret=True)
+    one = inc.sum(0) == 1
+    assert one.sum() == 4 and np.isnan(got[2].numpy()[0, 1])
+    assert np.all(got[2].numpy()[one] == 0.0)
+    np.testing.assert_array_equal(np.asarray(ref[2])[one], 0.0)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-6,
+                                   atol=1e-7, equal_nan=True)
+    with np.errstate(invalid="raise"):
+        assert np.all(np.sqrt(got[2].numpy()[one]) == 0.0)
+
+
 def test_plain_moments_012_matches_jax_jnp_path():
     data = _cube((24, 9, 11), 3)
     coords = np.arange(24) * 1.5
@@ -236,7 +263,8 @@ def test_statistics_reference_anchor(tmp_path):
     np.random.seed(96)
     d = np.random.random((4, 3, 2))
     p, _ = make_cube_file(tmp_path, name="anchor.fits", shape=(4, 3, 2))
-    cube = T.SpectralCube.read(str(p))._new_cube_with(data=d, mask=None)
+    cube = T.SpectralCube.read(str(p), device="cpu")._new_cube_with(
+        data=d, mask=None)
     st = cube.statistics()
     expected = {"npts": 24, "mean": 0.4941651776136591,
                 "sigma": 0.3021908870982011, "sum": 11.85996426272782,
