@@ -779,7 +779,7 @@ def phase_spectral(dev, workdir, results):
     filled = sm._get_filled_data(fill=np.nan)
     inaxis = np.asarray(cube.spectral_axis.value, dtype=float)
     idx, frac = oi.interp_weights(inaxis, np.asarray(grid.value))
-    S, I, M = oi._si_operators(kern / kern.sum(), idx, frac, NCHAN)
+    S, I, M, bands = oi._si_operators(kern / kern.sum(), idx, frac, NCHAN)
     want = ks.smooth_interp_plain(filled, M, S, I)
     compare_si("stage spectral_interpolate vs plain", si._data, want,
                filled, S, I)
@@ -794,10 +794,10 @@ def phase_spectral(dev, workdir, results):
     lib_ms = None
     for label, x in (("clean", torch.nan_to_num(raw, nan=0.0)),
                      ("holes (raw cube)", raw), ("main path input", filled)):
-        got = ks.smooth_interp(x, M, S, I)
+        got = ks.smooth_interp(x, M, S, I, bands)
         want = ks.smooth_interp_plain(x, M, S, I)
         err, rel = compare_si(f"smooth_interp {label}", got, want, x, S, I)
-        ms = cuda_ms(lambda: ks.smooth_interp(x, M, S, I), 7)
+        ms = cuda_ms(lambda: ks.smooth_interp(x, M, S, I, bands), 7)
         pms = cuda_ms(lambda: ks.smooth_interp_plain(x, M, S, I), 3)
         if label == "clean":
             Mt = torch.as_tensor(M, device=dev)
@@ -917,10 +917,6 @@ def main():
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {_build.last_build['seconds']:.1f} s): "
         f"{_build.last_build['path']}")
-
-    for line in _build.last_build["log"].splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            log(f"  {line.strip()}")
     no_tf32()
 
     warnings.simplefilter("ignore")

@@ -13,7 +13,9 @@
 // iterations on the sorted values (the median is a direct read s[m], the
 // band statistics warp sums), and the block writes x or NaN for every
 // channel from an unsorted copy it kept in shared memory.  HBM sees the
-// cube read once and written once.
+// cube read once and written once.  A spectrum too long for one spaxel's
+// rows to fit in shared memory (beyond ~25,000 channels) keeps them in a
+// global workspace instead, one spaxel per block, over chunks of spaxels.
 //
 // Semantics (spectral_cube_tpu/ops/smoothing.py:316-392): non-finite
 // samples are missing; the band [i_lo, i_hi) of sorted finite values
@@ -103,19 +105,26 @@ __device__ void bitonic_sort(float* s, int n, int lane) {
   }
 }
 
+// kInWork: the tile's rows live in this block's slice of the global
+// workspace ``work`` instead of shared memory (a compile-time choice, so
+// the shared-memory variant keeps shared-memory loads and stores)
+template <bool kInWork>
 __global__ void sigma_clip_kernel(const float* __restrict__ x, int nchan,
-                                  int npad, long long S, int tile,
-                                  float sigma, int maxiters, int use_mean,
+                                  int npad, long long S, long long p_base,
+                                  int tile, float sigma, int maxiters,
+                                  int use_mean, float* __restrict__ work,
                                   float* __restrict__ out) {
   extern __shared__ float smem[];
   const int pitch = npad + 1;                  // staggers the tile's banks
-  float* sorted = smem;                        // tile x pitch
+  float* sorted = kInWork
+      ? work + (size_t)blockIdx.x * tile * (pitch + nchan)
+      : smem;                                  // tile x pitch
   float* copy = sorted + (size_t)tile * pitch; // tile x nchan, unsorted
-  float* lo_val = copy + (size_t)tile * nchan; // tile
+  float* lo_val = kInWork ? smem : copy + (size_t)tile * nchan;  // tile
   float* hi_val = lo_val + tile;               // tile
   int* keep_any = (int*)(hi_val + tile);       // tile: final cnt > 0
 
-  const long long p0 = (long long)blockIdx.x * tile;
+  const long long p0 = p_base + (long long)blockIdx.x * tile;
   const int nsp = (int)min((long long)tile, S - p0);
 
   for (int idx = threadIdx.x; idx < tile * nchan; idx += blockDim.x) {
@@ -186,29 +195,64 @@ __global__ void sigma_clip_kernel(const float* __restrict__ x, int nchan,
   }
 }
 
-}  // namespace
+static size_t row_floats(int nchan, int npad) {
+  return (size_t)(npad + 1) + nchan;           // sorted row + unsorted copy
+}
 
-// x, out: (nchan, S) float32, contiguous; 1 <= nchan <= 16384.
-extern "C" int sct_sigma_clip(const void* x, int nchan, long long S,
-                              float sigma, int maxiters, int use_mean,
-                              void* out, void* stream) {
-  if (nchan <= 0 || S <= 0) return (int)cudaSuccess;
+static int pad_pow2(int nchan) {
   int npad = 1;
   while (npad < nchan) npad <<= 1;
-  const size_t per = ((size_t)(npad + 1) + nchan) * sizeof(float) +
-                     2 * sizeof(float) + sizeof(int);
+  return npad;
+}
+
+static size_t per_spaxel_shared(int nchan) {
+  return row_floats(nchan, pad_pow2(nchan)) * sizeof(float) +
+         2 * sizeof(float) + sizeof(int);
+}
+
+}  // namespace
+
+// Floats of global workspace per spaxel that sct_sigma_clip needs for
+// spectra of nchan channels: 0 when a spaxel's rows fit in shared memory.
+extern "C" long long sct_sigma_clip_work(int nchan) {
+  if (nchan <= 0 || per_spaxel_shared(nchan) <= kMaxShared) return 0;
+  return (long long)row_floats(nchan, pad_pow2(nchan));
+}
+
+// x, out: (nchan, S) float32, contiguous; nchan >= 1.  work: chunk *
+// sct_sigma_clip_work(nchan) floats, or null when that is 0; the spaxels
+// then run chunk at a time.
+extern "C" int sct_sigma_clip(const void* x, int nchan, long long S,
+                              float sigma, int maxiters, int use_mean,
+                              void* work, long long chunk, void* out,
+                              void* stream) {
+  if (nchan <= 0 || S <= 0) return (int)cudaSuccess;
+  const int npad = pad_pow2(nchan);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (sct_sigma_clip_work(nchan) > 0) {
+    if (work == nullptr || chunk <= 0) return (int)cudaErrorInvalidValue;
+    const size_t bytes = 2 * sizeof(float) + sizeof(int);
+    for (long long p = 0; p < S; p += chunk) {
+      const long long blocks = S - p < chunk ? S - p : chunk;
+      sigma_clip_kernel<true><<<(unsigned)blocks, kLanes, bytes, st>>>(
+          (const float*)x, nchan, npad, S, p, 1, sigma, maxiters, use_mean,
+          (float*)work, (float*)out);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    return (int)cudaSuccess;
+  }
+  const size_t per = per_spaxel_shared(nchan);
   int tile = kMaxTile;
   while (tile > 1 && per * tile > kTileBudget) tile >>= 1;
   const size_t bytes = per * tile;
-  if (bytes > kMaxShared) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      sigma_clip_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sigma_clip_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (S + tile - 1) / tile;
-  sigma_clip_kernel<<<(unsigned)blocks, tile * kLanes, bytes,
-                      (cudaStream_t)stream>>>(
-      (const float*)x, nchan, npad, S, tile, sigma, maxiters, use_mean,
-      (float*)out);
+  sigma_clip_kernel<false><<<(unsigned)blocks, tile * kLanes, bytes, st>>>(
+      (const float*)x, nchan, npad, S, 0, tile, sigma, maxiters, use_mean,
+      nullptr, (float*)out);
   return (int)cudaGetLastError();
 }

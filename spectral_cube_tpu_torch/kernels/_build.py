@@ -34,8 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 _LOCK = threading.Lock()
 _LIB = None
 #: {"seconds": build wall time (0.0 when the library was already built),
-#:  "path": the library, "log": the compiler's report ("" when not
-#:  built)} of the load that ran in this process
+#:  "path": the library} of the load that ran in this process
 last_build = {}
 
 
@@ -69,7 +68,9 @@ def _declare(lib):
     lib.sct_conv_sep.restype = I
     lib.sct_resample2.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, P, P]
     lib.sct_resample2.restype = I
-    lib.sct_sigma_clip.argtypes = [P, I, LL, F, I, I, P, P]
+    lib.sct_sigma_clip_work.argtypes = [I]
+    lib.sct_sigma_clip_work.restype = LL
+    lib.sct_sigma_clip.argtypes = [P, I, LL, F, I, I, P, LL, P, P]
     lib.sct_sigma_clip.restype = I
     lib.sct_smooth_interp.argtypes = [P, I, I, LL, P, P, I, P, P, I, P, P, I,
                                       P, P]
@@ -94,19 +95,16 @@ def _run_all(cmds):
         if p.returncode != 0:
             raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
                                + out)
-    return "".join(outs)
 
 
 def _build(path):
-    """Compile each source to an object, all at once, then link ``path``.
-    Returns the compiler's report (ptxas registers and shared memory per
-    kernel)."""
+    """Compile each source to an object, all at once, then link
+    ``path``."""
     tag = f"{path.stem}.{os.getpid()}"
     objs = [BUILD_DIR / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
     try:
-        log = _run_all([[_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
-                         str(o), str(CSRC / s)]
-                        for s, o in zip(SOURCES, objs)])
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+                  for s, o in zip(SOURCES, objs)])
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
                    *map(str, objs)]])
@@ -114,7 +112,6 @@ def _build(path):
     finally:
         for o in objs:
             o.unlink(missing_ok=True)
-    return log
 
 
 def load_library():
@@ -127,7 +124,6 @@ def load_library():
         path = _library_path()
         t0 = time.perf_counter()
         built = False
-        log = ""
         if not path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             # one builder at a time across processes; the others wait and
@@ -135,11 +131,11 @@ def load_library():
             with open(BUILD_DIR / "build.lock", "w") as lock:
                 fcntl.flock(lock, fcntl.LOCK_EX)
                 if not path.exists():
-                    log = _build(path)
+                    _build(path)
                     built = True
         _LIB = _declare(ctypes.CDLL(str(path)))
         last_build.update(seconds=time.perf_counter() - t0 if built else 0.0,
-                          path=str(path), log=log)
+                          path=str(path))
         return _LIB
 
 

@@ -24,12 +24,10 @@ import torch
 
 from ._build import load_library, check, ptr, stream_ptr
 
-__all__ = ["sigma_clip", "sigma_clip_plain", "MAX_CHANNELS", "LANES",
-           "band_sum"]
+__all__ = ["sigma_clip", "sigma_clip_plain", "LANES", "band_sum"]
 
-#: spectra up to this many channels take the kernel (two rows of
-#: shared memory per spaxel, the sort's padded to a power of two)
-MAX_CHANNELS = 16384
+#: global workspace of the kernel for spectra too long for shared memory
+WORK_BYTES = 256 * 2 ** 20
 
 #: lanes of the summation order (a warp)
 LANES = 32
@@ -46,29 +44,34 @@ def _check_inputs(data, maxiters):
 
 
 def sigma_clip(data, sigma, maxiters, use_mean_center):
-    """Clipped copy of ``data`` (nchan, ny, nx): samples outside the final
-    clip band, and non-finite samples, become NaN.  stdfunc='std'.  A CPU
-    tensor takes the plain version; a CUDA tensor the kernel."""
+    """Clipped copy of ``data`` (nchan, ...), spectral axis first: samples
+    outside the final clip band, and non-finite samples, become NaN.
+    stdfunc='std'.  A CPU tensor takes the plain version; a CUDA tensor
+    the kernel, at any spectrum length."""
     _check_inputs(data, maxiters)
     if data.device.type == "cpu":
         return sigma_clip_plain(data, sigma, maxiters, use_mean_center)
     if data.device.type != "cuda":
         raise ValueError(f"no sigma_clip kernel for device {data.device}")
-    if data.dtype != torch.float32 or data.ndim != 3 \
-            or not data.is_contiguous():
+    if data.dtype != torch.float32 or not data.is_contiguous():
         raise ValueError("the sigma_clip kernel takes contiguous float32 "
-                         "(nchan, ny, nx) data")
-    nchan, ny, nx = data.shape
-    if nchan > MAX_CHANNELS:
-        raise ValueError(f"the sigma_clip kernel takes spectra of at most "
-                         f"{MAX_CHANNELS} channels, got {nchan}")
+                         "data")
     lib = load_library()
     out = torch.empty_like(data)
     if data.numel() == 0:
         return out
-    err = lib.sct_sigma_clip(ptr(data), nchan, ny * nx, float(sigma),
+    nchan = data.shape[0]
+    nspax = data.numel() // nchan
+    per = lib.sct_sigma_clip_work(nchan)
+    work, chunk = None, 0
+    if per:
+        chunk = min(nspax, max(1, WORK_BYTES // (4 * per)))
+        work = torch.empty(chunk * per, dtype=torch.float32,
+                           device=data.device)
+    err = lib.sct_sigma_clip(ptr(data), nchan, nspax, float(sigma),
                              int(maxiters), int(bool(use_mean_center)),
-                             ptr(out), stream_ptr(data.device))
+                             ptr(work), chunk, ptr(out),
+                             stream_ptr(data.device))
     check(err, "sct_sigma_clip")
     sigma_clip.launches += 1
     return out

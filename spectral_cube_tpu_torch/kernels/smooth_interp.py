@@ -22,8 +22,6 @@ still reads (tests/test_banded_pallas.py:180-213).
 
 from __future__ import annotations
 
-import weakref
-
 import numpy as np
 import torch
 
@@ -32,8 +30,6 @@ from ._build import load_library, check, ptr, stream_ptr
 from .conv_sep import DEN_EPS
 
 __all__ = ["smooth_interp", "smooth_interp_plain", "band_rows"]
-
-_BAND_CACHE = {}
 
 
 def band_rows(A):
@@ -64,29 +60,12 @@ def _check_ops(data, M, S, I):
                          f"{S.shape}, {I.shape}")
 
 
-def _device_bands(M, S, I, device):
-    """Band descriptors of (M, S, I) on ``device``, cached by the identity
-    of the operator arrays (ops/interpolate._si_operators returns the
-    same objects for the same arguments)."""
-    key = (id(M), id(S), id(I), str(device))
-    hit = _BAND_CACHE.get(key)
-    if hit is not None and all(r() is a for r, a in zip(hit[0], (M, S, I))):
-        return hit[1]
-    bands = []
-    for A in (M, S, I):
-        start, taps = band_rows(A)
-        bands.append((torch.as_tensor(start, device=device),
-                      torch.as_tensor(taps, device=device), taps.shape[1]))
-    if len(_BAND_CACHE) >= 16:
-        _BAND_CACHE.clear()
-    _BAND_CACHE[key] = (tuple(weakref.ref(a) for a in (M, S, I)), bands)
-    return bands
-
-
-def smooth_interp(data, M, S, I):
+def smooth_interp(data, M, S, I, bands=None):
     """(nout, ...) smooth + interpolation of ``data`` (nin, ...) along axis
     0 with the host float32 operators ``M = I @ S``, ``S`` and ``I``.  A
-    CPU tensor takes the plain version; a CUDA tensor the kernel."""
+    CPU tensor takes the plain version; a CUDA tensor the kernel, which
+    reads ``bands``, the :func:`band_rows` of (M, S, I) (computed here
+    when not given)."""
     M, S, I = (np.asarray(a, dtype=np.float32) for a in (M, S, I))
     _check_ops(data, M, S, I)
     if data.device.type == "cpu":
@@ -102,8 +81,12 @@ def smooth_interp(data, M, S, I):
                       device=data.device)
     if out.numel() == 0:
         return out
-    (ms, mt, wm), (ss, st, ws), (is_, it, wi) = _device_bands(
-        M, S, I, data.device)
+    if bands is None:
+        bands = [band_rows(A) for A in (M, S, I)]
+    (ms, mt), (ss, st), (is_, it) = (
+        (torch.as_tensor(start, device=data.device),
+         torch.as_tensor(taps, device=data.device)) for start, taps in bands)
+    wm, ws, wi = (taps.shape[1] for _, taps in bands)
     lib = load_library()
     err = lib.sct_smooth_interp(ptr(data), nin, nout, ncol, ptr(ms), ptr(mt),
                                 wm, ptr(ss), ptr(st), ws, ptr(is_), ptr(it),

@@ -16,7 +16,7 @@ import warnings
 import numpy as np
 import torch
 
-from ..kernels.smooth_interp import smooth_interp
+from ..kernels.smooth_interp import band_rows, smooth_interp
 from ..utils import SmoothingWarning
 from .smoothing import _banded_conv_matrix, spectral_smooth_cube
 
@@ -138,12 +138,18 @@ def interp_cube_spectral(data, inaxis, outaxis, include=None):
 _SI_OP_CACHE = {}
 
 
+def _nbytes(val):
+    S, Imat, M_host, bands = val
+    return sum(a.nbytes for a in (S, Imat, M_host)) + sum(
+        start.nbytes + taps.nbytes for start, taps in bands)
+
+
 def _si_operators(k, idx, frac, nin):
-    """Host operator triple (S float32 band matrix, I float32 2-tap
-    matrix, M = I @ S float32 composed) for the fused smooth+interp,
-    cached by value of the normalized kernel and the interp weights, and
-    bounded by bytes (interpolate.py:299-330).  The same objects come back
-    for the same arguments, which keys kernel 5's band-descriptor cache."""
+    """Host operators (S float32 band matrix, I float32 2-tap matrix,
+    M = I @ S float32 composed, and kernel 5's band descriptors
+    ``band_rows`` of (M, S, I)) for the fused smooth+interp, cached by
+    value of the normalized kernel and the interp weights, and bounded by
+    bytes (interpolate.py:299-330)."""
     key = (int(nin), k.tobytes(), idx.tobytes(), frac.tobytes())
     hit = _SI_OP_CACHE.get(key)
     if hit is not None:
@@ -151,9 +157,9 @@ def _si_operators(k, idx, frac, nin):
     S = _banded_conv_matrix(nin, k)
     Imat = _interp_matrix(idx, frac, nin)
     M_host = compose_interp_banded(idx, frac, S, dtype=np.float32)
-    val = (S, Imat, M_host)
-    nbytes = sum(a.nbytes for a in val)
-    total = sum(sum(a.nbytes for a in v) for v in _SI_OP_CACHE.values())
+    val = (S, Imat, M_host, [band_rows(A) for A in (M_host, S, Imat)])
+    nbytes = _nbytes(val)
+    total = sum(_nbytes(v) for v in _SI_OP_CACHE.values())
     if len(_SI_OP_CACHE) >= 8 or total + nbytes > 2 * 2 ** 30:
         _SI_OP_CACHE.clear()
     _SI_OP_CACHE[key] = val
@@ -180,8 +186,8 @@ def smooth_interp_cube(data, kernel, inaxis, outaxis, include=None):
     k = np.asarray(kernel, dtype=np.float64)
     k = k / k.sum()
     nin, nout = data.shape[0], idx.shape[0]
-    S, Imat, M_host = _si_operators(k, idx, frac, nin)
-    out = smooth_interp(data.contiguous(), M_host, S, Imat)
+    S, Imat, M_host, bands = _si_operators(k, idx, frac, nin)
+    out = smooth_interp(data.contiguous(), M_host, S, Imat, bands)
     new_include = None
     if include is not None:
         new_include = _interp_include(

@@ -76,7 +76,7 @@ def _apply_rows(mat, x):
     return out.reshape((mat.shape[0],) + tuple(x.shape[1:]))
 
 
-def _block_banded_conv(data, kernel, chunk=512):
+def _block_banded_conv(data, kernel):
     """Overlap-save banded convolution: the channel axis splits into
     chunks of C; every chunk applies the same (C, C+2h) Toeplitz band
     matrix to its haloed window, so the cost is linear in n.  Edge blocks
@@ -88,9 +88,7 @@ def _block_banded_conv(data, kernel, chunk=512):
     half_lo = klen - 1 - (klen - 1) // 2   # taps reaching backward
     half_hi = (klen - 1) // 2              # taps reaching forward
     h = max(half_lo, half_hi)
-    if chunk == 512:
-        chunk = max(64, _round_up(h + 1, 8) * 2)
-    chunk = min(chunk, _round_up(n, 8))
+    chunk = min(max(64, _round_up(h + 1, 8) * 2), _round_up(n, 8))
     nb = -(-n // chunk)
     # W[r, c] over the haloed window: output row r reads window column
     # r + h + d for tap offset d in [-half_lo, half_hi]
@@ -234,9 +232,9 @@ def sigma_clip_spectrally(data, sigma=3.0, maxiters=5, cenfunc="median",
     stdfunc=std|mad_std; clipped values -> NaN); the reference workload
     at docs/dask.rst:188-212 and spectral_cube.py:3161.
 
-    A float32 (nchan, ny, nx) cube with stdfunc='std' goes through
-    kernel 4 (its plain version on the CPU); mad_std and float64 run the
-    sorted-band plain version on every device, as in the JAX package."""
+    float32 data with stdfunc='std' goes through kernel 4 (its plain
+    version on the CPU); mad_std and float64 run the sorted-band plain
+    version on every device, as in the JAX package."""
     if cenfunc in ("median", np.median, np.nanmedian):
         use_mean_center = False
     elif cenfunc in ("mean", np.mean, np.nanmean):
@@ -253,8 +251,7 @@ def sigma_clip_spectrally(data, sigma=3.0, maxiters=5, cenfunc="median",
         raise NotImplementedError(
             "the sorted-band sigma-clip implements stdfunc='std' and "
             f"'mad_std' only (got {stdfunc!r})")
-    if data.dtype == torch.float32 and not use_mad_std and data.ndim == 3 \
-            and data.shape[0] <= _clip.MAX_CHANNELS:
+    if data.dtype == torch.float32 and not use_mad_std:
         return _clip.sigma_clip(data.contiguous(), sigma, maxiters,
                                 use_mean_center)
     return _clip.sigma_clip_plain(data, sigma, maxiters, use_mean_center,

@@ -211,9 +211,11 @@ def _spectra(shape, seed):
 
 @pytest.mark.parametrize("nchan,use_mean", [(623, False), (623, True),
                                             (37, False), (1, False),
-                                            (4096, False)])
+                                            (4096, False), (20000, False),
+                                            (30000, True)])
 def test_sigma_clip_kernel_matches_plain(cuda, nchan, use_mean):
-    """Bitwise, at ragged shapes (nx = 100), one channel to 4096."""
+    """Bitwise, at ragged shapes (nx = 100), one channel to 30000 (past
+    shared memory: the rows then live in the global workspace)."""
     x = _spectra((nchan, 3, 100), nchan)
     for sigma, maxiters in ((1.0, 5), (2.5, 3)):
         want = kclip.sigma_clip_plain(x, sigma, maxiters, use_mean)
@@ -231,14 +233,29 @@ def test_smooth_interp_kernel_matches_plain(cuda, nin, step):
     outaxis = inaxis[::step] + 0.4
     kern = tsmooth.gaussian_kernel1d(2.0)
     idx, frac = tinterp.interp_weights(inaxis, outaxis)
-    S, I, M = tinterp._si_operators(kern / kern.sum(), idx, frac, nin)
+    S, I, M, bands = tinterp._si_operators(kern / kern.sum(), idx, frac,
+                                           nin)
     want = ksi.smooth_interp_plain(x, M, S, I)
     n0 = ksi.smooth_interp.launches
-    got = ksi.smooth_interp(x.to(cuda), M, S, I)
+    got = ksi.smooth_interp(x.to(cuda), M, S, I, bands)
     assert ksi.smooth_interp.launches == n0 + 1
     _close(got, want, rtol=3e-5, atol=1e-5)
     flat = ksi.smooth_interp(x.reshape(nin, -1).to(cuda), M, S, I)
     _close(flat.reshape(got.shape), want, rtol=3e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(30000,), (623, 41)])
+def test_sigma_clip_op_takes_the_kernel_at_any_shape(cuda, shape):
+    """sigma_clip_spectrally on a CUDA float32 array launches the kernel
+    for a single long spectrum and for a 2-D array alike."""
+    rng = np.random.RandomState(len(shape))
+    x = torch.as_tensor(rng.randn(*shape).astype(np.float32))
+    want = tsmooth.sigma_clip_spectrally(x, 1.5)
+    n0 = kclip.sigma_clip.launches
+    got = tsmooth.sigma_clip_spectrally(x.to(cuda), 1.5).cpu()
+    assert kclip.sigma_clip.launches == n0 + 1
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
 
 
 def test_spectral_path_on_cuda_matches_cpu(cuda):

@@ -202,6 +202,30 @@ def test_sigma_clip_options():
     assert K.launch_counts()["sigma_clip"] == 0
 
 
+def test_sigma_clip_routes_every_float32_std_clip_to_the_wrapper(
+        monkeypatch):
+    """float32 data with stdfunc='std' reaches kernel 4's wrapper at any
+    shape and spectrum length (on a CUDA tensor the wrapper launches the
+    kernel or raises); mad_std and float64 stay plain."""
+    calls = []
+    wrapper = kclip.sigma_clip
+
+    def spy(data, *args):
+        calls.append(tuple(data.shape))
+        return wrapper(data, *args)
+
+    monkeypatch.setattr(kclip, "sigma_clip", spy)
+    rng = np.random.RandomState(4)
+    for shape in ((20000,), (40, 3), (16, 2, 3)):
+        x = torch.as_tensor(rng.randn(*shape).astype(np.float32))
+        out = tsm.sigma_clip_spectrally(x, 2.0)
+        assert calls[-1] == shape and out.shape == shape
+    n = len(calls)
+    tsm.sigma_clip_spectrally(x, 2.0, stdfunc="mad_std")
+    tsm.sigma_clip_spectrally(x.double(), 2.0)
+    assert len(calls) == n
+
+
 def _cubes(tmp_path, shape=(20, 9, 11), seed=3, bunit="K"):
     """The same FITS cube read by both packages (NaN border column and a
     NaN hole), with a line on noise."""
