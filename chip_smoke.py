@@ -4,7 +4,7 @@
 
 1. Requires CUDA (exits non-zero without it) and prints the card and its
    power limit.
-2. Builds the five CUDA kernels from ``spectral_cube_tpu_torch/csrc/`` (one
+2. Builds the CUDA kernels from ``spectral_cube_tpu_torch/csrc/`` (one
    ``nvcc`` per source, all at once).
 3. Writes a 623 x 768 x 768 cube (a Gaussian line on noise with a NaN
    border, an elliptical rotated beam) to FITS, reads it onto the card and
@@ -19,12 +19,28 @@
    same smooth kernel (312 channels), ``sigma_clip_spectrally(1.0)``, with
    the counters at 0 before and the smooth_interp and sigma_clip counts > 0
    after; checks each stage against the plain functions on the card.
-5. Holds each kernel against its plain PyTorch version on the card at the
+5. Reads that second cube again with no device argument and reprojects it
+   onto a target with 311 channels at twice the channel width, starting a
+   quarter channel in, on a grid shifted by (0.37, -0.61) pixel
+   (``cube.reproject``: spectral lerp, then the filled resample), with the
+   counters at 0 before and the resample2_filled count > 0 after.
+6. Runs the fused convolve + reproject on two 623 x 768 x 768 cubes, bench
+   config 5's clean synthesis and the pipeline's NaN-bordered cube, with
+   the pipeline's common-beam kernel and axis maps shifted by (0.37, -0.61)
+   pixel (bench config 5's form):
+   ``convolve_reproject_separable``, the clean branch on its own
+   (``plain_strips``) and ``moments_conv_reproject_fused`` with bench
+   config 5's data-local mask (> 0.25), counters at 0 before and the
+   conv_reproject, plain_strips and pipeline_fused counts > 0 after; holds
+   the fused op against the two-kernel chain (moments kernel +
+   ``convolve_reproject_separable``) and runs a target with 1.5x larger
+   pixels at 64 channels.
+7. Holds each kernel against its plain PyTorch version on the card at the
    paths' shapes, with and without NaN, and times the kernel, the plain
    version and, where one exists, a single PyTorch call computing the same
    function (CUDA events).  Each kernel's bound is the larger of its bytes
    over 3.35 TB/s and its float32 operations over 67 TFLOP/s (H100 SXM).
-6. Runs a small pipeline and a small spectral path on the card and on the
+8. Runs a small pipeline and a small spectral path on the card and on the
    CPU and compares them.
 
 Prints one JSON line with each kernel's numbers, the card line, and as the
@@ -54,6 +70,8 @@ SHIFT = (0.37, -0.61)              # CRPIX1, CRPIX2 shift of the target
 # the kernels each path runs
 PIPELINE_KERNELS = ("moments", "conv_sep", "resample2")
 SPECTRAL_KERNELS = ("sigma_clip", "smooth_interp")
+REPROJECT_SPECTRAL_KERNELS = ("resample2_filled",)
+CONV_REPROJECT_KERNELS = ("conv_reproject", "plain_strips", "pipeline_fused")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
 # the tensor cores
@@ -66,6 +84,14 @@ SMEM_BYTES_PER_S = 132 * 32 * 4 * 1.98e9
 SMOOTH_STDDEV = 2.0
 CLIP_SIGMA = 1.0
 CLIP_ITERS = 5
+
+# reprojection onto a new spectral axis: output channels, width and start
+# in input channels
+SPECTRAL_TARGET = (311, 2.0, 0.25)
+# fused convolve + reproject: bench config 5's data-local mask
+# (bench.py:413-414) and the channels of the 1.5x rescaled target
+FUSED_THRESHOLD = 0.25
+RESCALED_NCHAN = 64
 
 # name -> (source, TPU kernels it replaces)
 KERNELS = {
@@ -91,7 +117,22 @@ KERNELS = {
                       "smooth_interp_strips_3d; "
                       "spectral_cube_tpu/ops/banded_pallas.py:266 "
                       "smooth_interp_strips"),
+    "resample2_filled": ("spectral_cube_tpu_torch/csrc/resample2.cu",
+                         "spectral_cube_tpu/ops/banded_pallas.py:809 "
+                         "per_channel_resample_strips"),
+    "conv_reproject": ("spectral_cube_tpu_torch/csrc/conv_reproject.cu",
+                       "spectral_cube_tpu/ops/banded_pallas.py:1043 "
+                       "conv_reproject_raw_strips; "
+                       "spectral_cube_tpu/ops/banded_pallas.py:1599 "
+                       "per_channel_plain_strips"),
+    "pipeline_fused": ("spectral_cube_tpu_torch/csrc/conv_reproject.cu",
+                       "spectral_cube_tpu/ops/banded_pallas.py:1220 "
+                       "pipeline_fused_raw_strips"),
 }
+
+# launch counters summed into each kernel's "launches": the conv_reproject
+# source serves #8 and its clean branch #9 through two wrappers
+COUNTED = {"conv_reproject": ("conv_reproject", "plain_strips")}
 
 
 def log(*args):
@@ -843,6 +884,387 @@ def phase_spectral(dev, workdir, results):
     return counts, peak, first, steady, clip623
 
 
+def spectral_target(header):
+    """The header of a target with SPECTRAL_TARGET's channels (twice the
+    input's width, starting a quarter channel in) on the grid shifted by
+    SHIFT."""
+    nz, step, start = SPECTRAL_TARGET
+    t = shifted_header(header, *SHIFT)
+    t["NAXIS3"] = nz
+    t["CDELT3"] = float(header["CDELT3"]) * step
+    t["CRVAL3"] = float(header["CRVAL3"]) + start * float(header["CDELT3"])
+    return t
+
+
+def filled_bound(fz, wz_any, n_out):
+    """fz read once, wz read for the channels whose weights are not all
+    zero, the output written once; ~12 flops per output value and as many
+    again for each poison test of a flagged channel."""
+    plane = fz.shape[1] * fz.shape[2]
+    flagged = int(wz_any.sum())
+    per_out = n_out // fz.shape[0]
+    return bound((fz.numel() + flagged * plane + n_out) * 4,
+                 12 * n_out + 12 * flagged * per_out)
+
+
+def phase_reproject_spectral(dev, workdir, results):
+    """Reprojection of the hole-bearing 623-channel cube, read from FITS
+    with no device argument, onto a new spectral axis and a shifted grid."""
+    import torch
+    import spectral_cube_tpu_torch as T
+    from spectral_cube_tpu_torch import kernels as K
+    from spectral_cube_tpu_torch.kernels import resample2 as kr
+    from spectral_cube_tpu_torch.ops import regrid as og
+    log("phase reproject onto a new spectral axis (kernel resample2_filled)")
+    cube = T.SpectralCube.read(os.path.join(workdir, "spectral.fits"))
+    if cube.device.type != "cuda":
+        raise AssertionError(f"read without a device gave {cube.device}")
+    # reproject, like the reference, refuses a cube this size unless asked
+    cube.allow_huge_operations = True
+    target = spectral_target(cube.header)
+    nz = SPECTRAL_TARGET[0]
+
+    def run():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = cube.reproject(target)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    rep, first = run()
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  reproject onto {nz} channels: {first:.1f} ms first call, peak "
+        f"device memory {peak / 2**30:.2f} GiB, launches {counts}")
+    if counts["resample2_filled"] <= 0:
+        raise AssertionError(f"the filled resample never ran: {counts}")
+    del rep
+    rep, steady = run()
+    log(f"  reproject again: {steady:.1f} ms")
+    if rep.shape != (nz, NY, NX):
+        raise AssertionError(f"spectral reproject shape {rep.shape}")
+    frac = float(torch.isfinite(rep._data).float().mean())
+    log(f"  finite fraction {frac:.3f}")
+    if not 0.5 < frac < 0.75:
+        raise AssertionError("spectral reproject output implausible")
+
+    # the stage against the plain functions on the card, then the kernel
+    # against its plain version on the path's inputs, timed
+    src = cube._get_filled_data(fill=np.nan)
+    zs, ys, xs, _ = og.reproject_mappings(
+        cube.wcs, target, NCHAN,
+        spectral_values_in=np.asarray(cube.spectral_axis.value))
+    maps = og.bilinear_host_maps(zs, ys, xs, NCHAN, NY, NX, 1)
+    zvalid, z0, zf = maps[:3]
+    if not zvalid.all() or abs(float(zf.min()) - 0.25) > 1e-6:
+        raise AssertionError(f"spectral mapping: zf {zf.min()}..{zf.max()}")
+    taps = og._axis_aligned_taps(ys, xs, NY, NX)
+    valid = maps[4] & maps[5]
+    fz, wz, wz_any = og._zlerp_filled(src, z0, zf)
+    del src
+    want = kr.resample2_filled_plain(fz, wz, *taps, valid, zvalid)
+    compare("stage reproject (new spectral axis) vs plain", rep._data, want,
+            0.0)
+    got = kr.resample2_filled(fz, wz, *taps, valid, zvalid, wz_any=wz_any)
+    err, _ = compare("resample2_filled vs plain", got, want, 0.0)
+    del got, want, rep
+    ms = cuda_ms(lambda: kr.resample2_filled(fz, wz, *taps, valid, zvalid,
+                                             wz_any=wz_any), 7)
+    pms = cuda_ms(lambda: kr.resample2_filled_plain(fz, wz, *taps, valid,
+                                                    zvalid), 3)
+    lib_ms = cuda_ms(grid_sample_call(fz, taps), 3)
+    bms, by = filled_bound(fz, wz_any, nz * valid.size)
+    log(f"  resample2_filled {nz}x{NY}x{NX} ({int(wz_any.sum())} channels "
+        f"with NaN weights): kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+        f"grid_sample {lib_ms:.3f} ms, bound {bms:.3f} ms ({by})")
+    results["resample2_filled"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                       bound_ms=bms, bound_by=by,
+                                       library_ms=lib_ms)
+    del fz, wz, cube
+    torch.cuda.empty_cache()
+    return counts, peak, first, steady
+
+
+def synth_config5(nchan, ny, nx, seed, dev):
+    """bench config 5's clean synthesis (bench.py:392-396) at this size, on
+    the card from a seeded generator: a Gaussian line of 16 channels sigma
+    at the centre channel times a uniform plane, plus 0.1 unit noise."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    v = torch.arange(nchan, dtype=torch.float64, device=dev)
+    line = torch.exp(-0.5 * ((v - nchan / 2) / 16.0) ** 2).float()
+    plane = torch.rand((1, ny, nx), generator=g, device=dev)
+    data = 0.1 * torch.randn((nchan, ny, nx), generator=g, device=dev)
+    data += line[:, None, None] * plane
+    return data
+
+
+def composed_conv2d(kern, ops, x):
+    """One ``F.conv2d`` computing the fused convolve + reproject of clean
+    data ``x`` onto a translated target: the common-beam kernel composed
+    with the target's 2 x 2 bilinear stencil into one (L + 1)^2 weight,
+    the input padded so output (i, j) lands where the fused operator puts
+    it.  Returns the call (the library time's yardstick)."""
+    import torch
+    import torch.nn.functional as F
+    kf = (kern / kern.sum())[::-1, ::-1]
+    L = kf.shape[0]
+    half = L - 1 - (L - 1) // 2
+    sy = int(ops.ry.i0[1]) - 1
+    sx = int(ops.rx.i0[1]) - 1
+    wy = (float(ops.ry.w0[1]), float(ops.ry.w1[1]))
+    wx = (float(ops.rx.w0[1]), float(ops.rx.w1[1]))
+    W = np.zeros((L + 1, L + 1))
+    for a in (0, 1):
+        for b in (0, 1):
+            W[a:a + L, b:b + L] += wy[a] * wx[b] * kf
+    weight = torch.as_tensor(W, dtype=torch.float32,
+                             device=x.device)[None, None]
+    top, left = half - sy, half - sx
+    pad = (left, L - left, top, L - top)
+    return lambda: F.conv2d(F.pad(x[:, None], pad), weight)[:, 0]
+
+
+def conv_reproject_work(x, ops, n_out, chain):
+    """(bytes, flops) of the fused convolve + reproject: input read and
+    output written once; the composed operator's 2 r (Wy nx_in + Wx
+    nx_out) flops per output row of a clean channel; on a NaN channel the
+    normalized convolution's numerator at every input voxel, its
+    denominator where the kernel's footprint holds a NaN, and the 2 x 2
+    resample of value and flag."""
+    import torch
+    import torch.nn.functional as F
+    nchan, ny_in, nx_in = x.shape
+    r = ops.rank
+    ny_out, nx_out = ops.gy.start.shape[1], ops.gx.start.shape[1]
+    wy, wx = ops.gy.taps.shape[3], ops.gx.taps.shape[3]
+    if not chain:
+        flops = 2 * r * nchan * ny_out * (wy * nx_in + wx * nx_out)
+    else:
+        ly, lx = ops.my.taps.shape[1], ops.mx.taps.shape[1]
+        near = 0
+        for c0 in range(0, nchan, 64):
+            bad = torch.isnan(x[c0:c0 + 64])[:, None].float()
+            near += int(F.max_pool2d(bad, (ly, lx), 1,
+                                     (ly // 2, lx // 2)).sum())
+        flops = 2 * r * (ly + lx) * (x.numel() + near) + 24 * n_out
+    return (x.numel() + n_out) * 4, flops
+
+
+def axis_maps(ny_out, nx_out, ay, by, ax, bx):
+    """(ys, xs) of an axis-aligned target: output row i samples input row
+    ay * i + by, column j input column ax * j + bx (the form of bench
+    config 5's maps, bench.py:399-402)."""
+    ys = np.broadcast_to((np.arange(ny_out) * ay + by)[:, None],
+                         (ny_out, nx_out))
+    xs = np.broadcast_to((np.arange(nx_out) * ax + bx)[None, :],
+                         (ny_out, nx_out))
+    return ys.astype(np.float64), xs.astype(np.float64)
+
+
+def compare_moments(name, got, want, rtol):
+    """Moment maps: NaN patterns equal, then each within ``rtol`` of the
+    other's magnitude (floor 1e-3 of the map's scale).  Returns the
+    largest relative error and whether all three maps are bitwise equal."""
+    import torch
+    worst, same = 0.0, True
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = torch.as_tensor(a).float(), torch.as_tensor(b).float()
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            raise AssertionError(f"{name} mom{i}: NaN patterns differ")
+        fin = ~torch.isnan(b)
+        same = same and torch.equal(a[fin], b[fin])
+        if not bool(fin.any()):
+            continue
+        scale = float(b[fin].abs().max())
+        rel = float(((a - b).abs()[fin]
+                     / torch.clamp(b.abs()[fin], min=1e-3 * scale)).max())
+        worst = max(worst, rel)
+    log(f"  {name}: moments max rel {worst:.3e} (tol {rtol:g}), NaN "
+        f"patterns equal, bitwise {same}")
+    if worst > rtol:
+        raise AssertionError(f"{name}: moments differ by {worst:.3e}")
+    return worst, same
+
+
+def phase_conv_reproject(dev, data, results):
+    """Fused convolve + reproject (#8, its clean branch #9) and the
+    whole-pipeline fusion (#10) on bench config 5's clean cube (a) and the
+    pipeline's NaN-bordered cube (b)."""
+    import torch
+    import spectral_cube_tpu_torch as T
+    from spectral_cube_tpu_torch import kernels as K
+    from spectral_cube_tpu_torch.kernels import conv_reproject as kcr
+    from spectral_cube_tpu_torch.kernels import pipeline_fused as kpf
+    from spectral_cube_tpu_torch.ops import moments as om
+    from spectral_cube_tpu_torch.ops import pipeline_fused as opf
+    from spectral_cube_tpu_torch.ops import regrid as og
+    log("phase conv_reproject (kernels conv_reproject, plain_strips, "
+        "pipeline_fused)")
+    cube_beam, target_beam = beams()
+    kern = target_beam.deconvolve(cube_beam).as_kernel(
+        np.radians(PIX_ARCSEC / 3600.0))
+    ys, xs = axis_maps(NY, NX, 1.0, SHIFT[0], 1.0, SHIFT[1])
+    ops = og._conv_reproject_operators(data.shape, kern, ys, xs)
+    if ops is None:
+        raise AssertionError("fused operators declined the pipeline target")
+    log(f"  kernel {kern.shape[0]}x{kern.shape[1]}, rank {ops.rank}, G bands "
+        f"{ops.gy.taps.shape[3]}/{ops.gx.taps.shape[3]} taps")
+    a = synth_config5(NCHAN, NY, NX, SEED + 7, dev)
+    b = data
+    coords = np.arange(NCHAN) * 0.25
+    dx = 0.25
+    mask = T.LazyComparisonMask(torch.gt, FUSED_THRESHOLD, shape=a.shape)
+    gi = np.zeros(NCHAN, np.int32)
+
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep_a = og.convolve_reproject_separable(a, kern, ys, xs)
+    rep_b = og.convolve_reproject_separable(b, kern, ys, xs)
+    strips_a = kcr.plain_strips(a, ops.gy, ops.gx, gi)
+    fused = {label: opf.moments_conv_reproject_fused(
+        x, kern, ys, xs, coords, dx, mask_expr=mask)
+        for label, x in (("a", a), ("b", b))}
+    torch.cuda.synchronize()
+    total = (time.perf_counter() - t0) * 1e3
+    counts = K.launch_counts()
+    log(f"  main path: {total:.1f} ms, launches {counts}")
+    if not all(counts[k] > 0 for k in CONV_REPROJECT_KERNELS):
+        raise AssertionError(f"a kernel of the fused path never ran: "
+                             f"{counts}")
+    for label, rep in (("a", rep_a), ("b", rep_b)):
+        if rep.shape != (NCHAN, NY, NX):
+            raise AssertionError(f"fused output shape {rep.shape}")
+        log(f"  cube ({label}): finite fraction "
+            f"{float(torch.isfinite(rep).float().mean()):.3f}")
+
+    args = (ops.gy, ops.gx, ops.my, ops.mx, ops.ry, ops.rx, ops.valid)
+    # the fused op against the two-kernel chain on the card
+    for label, x in (("a", a), ("b", b)):
+        out, m0, m1, m2, st = fused[label]
+        c0, c1, c2, cst = om.moments_012_kernel(x, coords, dx,
+                                                mask_expr=mask,
+                                                with_stats=True)
+        _, same = compare_moments(f"fused ({label}) vs moments kernel",
+                                  (m0, m1, m2), (c0, c1, c2), 3e-6)
+        for key in ("npts", "mean", "sigma", "min", "max", "sum"):
+            u, v = float(st[key]), float(cst[key])
+            if abs(u - v) > 3e-6 * abs(v):
+                raise AssertionError(f"fused ({label}) statistics {key}: "
+                                     f"{u} vs {v}")
+        rep = rep_a if label == "a" else rep_b
+        compare(f"fused ({label}) cube vs convolve_reproject_separable",
+                out, rep, 0.0)
+        log(f"  fused ({label}) cube bitwise equal to the chain's: "
+            f"{bool(torch.equal(torch.nan_to_num(out), torch.nan_to_num(rep)))}")
+    del fused
+
+    # each kernel against its plain version, timed
+    lib_ms = None
+    for label, x, rep in (("a", a, rep_a), ("b", b, rep_b)):
+        want = kcr.conv_reproject_plain(x, *args)
+        err, _ = compare(f"conv_reproject ({label}) vs plain", rep, want,
+                         1e-5)
+        del want
+        ms = cuda_ms(lambda: kcr.conv_reproject(x, *args), 5)
+        pms = cuda_ms(lambda: kcr.conv_reproject_plain(x, *args), 2)
+        bms, by = bound(*conv_reproject_work(x, ops, rep.numel(),
+                                             label == "b"))
+        if label == "a":
+            with torch.no_grad():
+                lib = composed_conv2d(kern, ops, x)
+                ref = lib()
+                inner = (slice(None), slice(20, -20), slice(20, -20))
+                compare("one conv2d with the composed kernel vs "
+                        "conv_reproject (interior)", ref[inner], rep[inner],
+                        1e-5)
+                del ref
+                lib_ms = cuda_ms(lib, 3)
+            results["conv_reproject"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
+        log(f"  conv_reproject ({label}): kernel {ms:.3f} ms, plain "
+            f"{pms:.3f} ms, bound {bms:.3f} ms ({by})"
+            + (f", conv2d {lib_ms:.3f} ms" if label == "a" else ""))
+    want = kcr.plain_strips_plain(a, ops.gy, ops.gx, gi)
+    compare("plain_strips vs plain", strips_a, want, 1e-5)
+    ok = torch.as_tensor(ops.valid, device=dev)
+    same = bool(torch.equal(strips_a[:, ok], rep_a[:, ok]))
+    log(f"  plain_strips equals conv_reproject's clean branch where valid: "
+        f"{same}")
+    if not same:
+        raise AssertionError("plain_strips and the clean branch differ")
+    del want, strips_a
+    ms = cuda_ms(lambda: kcr.plain_strips(a, ops.gy, ops.gx, gi), 5)
+    log(f"  plain_strips (a): kernel {ms:.3f} ms")
+
+    op, thr = 1, FUSED_THRESHOLD
+    xc = coords - coords.mean()
+    for label, x in (("a", a), ("b", b)):
+        out, planes, cnt = kpf.pipeline_fused(x, *args, xc, op, thr)
+        wout, wplanes, wcnt = kpf.pipeline_fused_plain(x, *args, xc, op, thr)
+        err, _ = compare(f"pipeline_fused ({label}) cube vs plain", out,
+                         wout, 1e-5)
+        if not torch.equal(cnt, wcnt):
+            raise AssertionError("pipeline_fused counts differ from plain")
+        # the planes are the moments kernel's: its tolerances against the
+        # plain planes (phase moments), relative to each map's scale
+        for i, (u, v, tol) in enumerate(zip(
+                om.finalize_planes(planes, cnt, 0.0, dx, True)[:3],
+                om.finalize_planes(wplanes, wcnt, 0.0, dx, True)[:3],
+                (2e-6, 2e-6, 1e-5))):
+            compare(f"pipeline_fused ({label}) mom{i} vs plain", u, v, tol)
+        del out, planes, wout, wplanes
+        ms = cuda_ms(lambda: kpf.pipeline_fused(x, *args, xc, op, thr), 5)
+        pms = cuda_ms(lambda: kpf.pipeline_fused_plain(x, *args, xc, op,
+                                                       thr), 2)
+        nbytes, flops = conv_reproject_work(x, ops, rep_a.numel(),
+                                            label == "b")
+        # plus the planes written and ~8 flops per voxel for the moments
+        bms, by = bound(nbytes + 11 * NY * NX * 4, flops + 8 * x.numel())
+        log(f"  pipeline_fused ({label}): kernel {ms:.3f} ms, plain "
+            f"{pms:.3f} ms, bound {bms:.3f} ms ({by})")
+        if label == "a":
+            results["pipeline_fused"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, library_ms=None)
+    del rep_a, rep_b
+
+    # a target with 1.5x larger pixels over the same field (centres
+    # aligned) at RESCALED_NCHAN channels
+    ys2, xs2 = axis_maps(NY * 2 // 3, NX * 2 // 3, 1.5, 0.25, 1.5, 0.25)
+    for label, x in (("a", a[:RESCALED_NCHAN]), ("b", b[:RESCALED_NCHAN])):
+        x = x.contiguous()
+        ops2 = og._conv_reproject_operators(x.shape, kern, ys2, xs2)
+        if ops2 is None:
+            raise AssertionError("fused operators declined the 1.5x target")
+        args2 = (ops2.gy, ops2.gx, ops2.my, ops2.mx, ops2.ry, ops2.rx,
+                 ops2.valid)
+        got = kcr.conv_reproject(x, *args2)
+        compare(f"conv_reproject 1.5x ({label}) vs plain", got,
+                kcr.conv_reproject_plain(x, *args2), 1e-5)
+        xc2 = xc[:RESCALED_NCHAN] - xc[:RESCALED_NCHAN].mean()
+        out, planes, cnt = kpf.pipeline_fused(x, *args2, xc2, op, thr)
+        kp, kc = K.moments.moments_planes(x, xc2, op, thr, None, True)
+        if not (torch.equal(planes, kp) and torch.equal(cnt, kc)):
+            raise AssertionError("pipeline_fused 1.5x planes differ from "
+                                 "the moments kernel's")
+        compare(f"pipeline_fused 1.5x ({label}) cube vs conv_reproject",
+                out, got, 0.0)
+        ms = cuda_ms(lambda: kcr.conv_reproject(x, *args2), 5)
+        log(f"  conv_reproject 1.5x ({label}) {tuple(got.shape)}: kernel "
+            f"{ms:.3f} ms; pipeline_fused planes bitwise equal to the "
+            f"moments kernel's")
+        del got, out
+    del a
+    torch.cuda.empty_cache()
+    return counts, total
+
+
 def phase_small_reference(dev):
     """A small pipeline on the card against the same pipeline on the CPU,
     whose plain versions the CPU tests hold against the JAX package."""
@@ -926,11 +1348,16 @@ def main():
                                                                  workdir)
         (sp_counts, sp_peak, sp_first, sp_steady,
          clip623) = phase_spectral(dev, workdir, results)
+        rs_counts, rs_peak, rs_first, rs_steady = phase_reproject_spectral(
+            dev, workdir, results)
     counts.update({k: sp_counts[k] for k in SPECTRAL_KERNELS})
+    counts.update({k: rs_counts[k] for k in REPROJECT_SPECTRAL_KERNELS})
     data = torch.as_tensor(synth_cube(NCHAN, NY, NX, SEED), device=dev)
     phase_moments(dev, data, results)
     rank = phase_conv(dev, data, results)
     phase_resample(dev, data, synth_header(NCHAN, NY, NX), results)
+    cr_counts, cr_ms = phase_conv_reproject(dev, data, results)
+    counts.update({k: cr_counts[k] for k in CONV_REPROJECT_KERNELS})
     del data
     torch.cuda.empty_cache()
     phase_small_reference(dev)
@@ -944,11 +1371,16 @@ def main():
         f"{sp_peak / 2**30:.2f} GiB, stages "
         + ", ".join(f"{k} {v:.1f} ms" for k, v in sp_steady.items())
         + "; " + ", ".join(f"{k} {v:.1f} ms" for k, v in clip623.items()))
+    log(f"summary: reproject onto a new spectral axis {rs_first:.1f} ms "
+        f"(first call), {rs_steady:.1f} ms (second), peak "
+        f"{rs_peak / 2**30:.2f} GiB; fused conv_reproject path "
+        f"{cr_ms:.1f} ms (first calls)")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = results[name]
+        launches = sum(counts[k] for k in COUNTED.get(name, (name,)))
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": counts[name],
+                        "replaces": replaces, "launches": launches,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],

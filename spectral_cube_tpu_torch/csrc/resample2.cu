@@ -20,6 +20,23 @@
 // write of the output (~8 bytes per voxel for ~12 flops).  One thread per
 // output pixel, x fastest, so neighbouring threads read neighbouring input
 // columns and the 2x2 footprints of a warp share cache lines.
+//
+// sct_resample2_filled replaces spectral_cube_tpu/ops/banded_pallas.py::
+// per_channel_resample_strips, the staged path of a reprojection onto a new
+// spectral axis (ops/regrid.py:351-408): the data come NaN-filled (fz) with
+// a separate NaN-weight plane (wz, the spectrally lerped NaN mask, so
+// fractional), and
+//
+//   out = sum w * fz,  NaN where sum w * wz > 1e-6, where valid_plane is 0
+//         and where zvalid[channel] is 0
+//
+// with the same taps.  A channel whose wz is all zero (flag 0) never reads
+// wz, as the TPU kernel skips its weight pass (banded_pallas.py:876); the
+// flags come from the caller or from a pre-pass over wz.  Bound by device
+// memory: fz and wz read once, out written once.  Both entries add in the
+// plain version's order with __fmul_rn/__fadd_rn (no FMA contraction), so
+// the filled entry and kernels/resample2.py::resample2_filled_plain agree
+// bit for bit.
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -77,6 +94,80 @@ resample2_kernel(const float* __restrict__ raw, const int* __restrict__ y0,
   out[o] = wn > kPoison ? NAN : v;
 }
 
+// Per-channel flag: 1 where wz holds a nonzero weight.
+__global__ void weight_flags_kernel(const float* __restrict__ wz,
+                                    long long plane, int blocks_per_chan,
+                                    int* __restrict__ flags) {
+  const int c = blockIdx.x / blocks_per_chan;
+  const int b = blockIdx.x - c * blocks_per_chan;
+  const float* w = wz + (long long)c * plane;
+  bool any = false;
+  for (long long i = (long long)b * blockDim.x + threadIdx.x; i < plane;
+       i += (long long)blocks_per_chan * blockDim.x) {
+    if (w[i] != 0.f) {
+      any = true;
+      break;
+    }
+  }
+  any = __syncthreads_or(any);
+  if (any && threadIdx.x == 0) atomicOr(flags + c, 1);
+}
+
+// a * ga + b * fa in the plain version's order: two rounded products, one
+// rounded sum
+__device__ __forceinline__ float lerp_rn(float ga, float a, float fa,
+                                         float b) {
+  return __fadd_rn(__fmul_rn(ga, a), __fmul_rn(fa, b));
+}
+
+__global__ void __launch_bounds__(kTileX * kTileY)
+resample2_filled_kernel(const float* __restrict__ fz,
+                        const float* __restrict__ wz,
+                        const int* __restrict__ wflags,
+                        const int* __restrict__ y0,
+                        const float* __restrict__ wy,
+                        const int* __restrict__ x0,
+                        const float* __restrict__ wx,
+                        const uint8_t* __restrict__ valid_plane,
+                        const uint8_t* __restrict__ zvalid, int ny_in,
+                        int nx_in, int ny_out, int nx_out, int tiles_x,
+                        int tiles_y, float* __restrict__ out) {
+  const int tiles = tiles_x * tiles_y;
+  const int c = blockIdx.x / tiles;
+  const int tile = blockIdx.x - c * tiles;
+  const int x = (tile % tiles_x) * kTileX + threadIdx.x;
+  const int y = (tile / tiles_x) * kTileY + threadIdx.y;
+  if (x >= nx_out || y >= ny_out) return;
+  const long long o = ((long long)c * ny_out + y) * nx_out + x;
+  if (!zvalid[c] || !valid_plane[(long long)y * nx_out + x]) {
+    out[o] = NAN;
+    return;
+  }
+  const int ya = y0[y];
+  const int yb = min(ya + 1, ny_in - 1);
+  const int xa = x0[x];
+  const int xb = min(xa + 1, nx_in - 1);
+  const float fy = wy[y], gy = __fsub_rn(1.f, fy);
+  const float fx = wx[x], gx = __fsub_rn(1.f, fx);
+  const long long base = (long long)c * ny_in * nx_in;
+  const long long iaa = base + (long long)ya * nx_in + xa;
+  const long long iba = base + (long long)yb * nx_in + xa;
+  const long long iab = base + (long long)ya * nx_in + xb;
+  const long long ibb = base + (long long)yb * nx_in + xb;
+  // y taps, then x taps: the order of My @ fz @ Mx^T
+  const float v = lerp_rn(gx, lerp_rn(gy, fz[iaa], fy, fz[iba]), fx,
+                          lerp_rn(gy, fz[iab], fy, fz[ibb]));
+  if (wflags[c]) {
+    const float wn = lerp_rn(gx, lerp_rn(gy, wz[iaa], fy, wz[iba]), fx,
+                             lerp_rn(gy, wz[iab], fy, wz[ibb]));
+    if (wn > kPoison) {
+      out[o] = NAN;
+      return;
+    }
+  }
+  out[o] = v;
+}
+
 }  // namespace
 
 // raw: (nchan, ny_in, nx_in) float32; y0/wy: (ny_out,) int32/float32;
@@ -96,5 +187,40 @@ extern "C" int sct_resample2(const void* raw, const void* y0, const void* wy,
       (const float*)raw, (const int*)y0, (const float*)wy, (const int*)x0,
       (const float*)wx, (const uint8_t*)valid_plane, (const uint8_t*)zvalid,
       ny_in, nx_in, ny_out, nx_out, tiles_x, tiles_y, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// fz/wz: (nchan, ny_in, nx_in) float32, fz NaN-filled, wz its NaN weights;
+// wflags: (nchan,) int32, 1 where wz may be nonzero, or filled here from wz
+// when compute_flags is set; the other arguments as sct_resample2.
+extern "C" int sct_resample2_filled(const void* fz, const void* wz,
+                                    void* wflags, int compute_flags,
+                                    const void* y0, const void* wy,
+                                    const void* x0, const void* wx,
+                                    const void* valid_plane,
+                                    const void* zvalid, int nchan, int ny_in,
+                                    int nx_in, int ny_out, int nx_out,
+                                    void* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nchan <= 0 || ny_out <= 0 || nx_out <= 0) return (int)cudaSuccess;
+  if (compute_flags) {
+    const long long plane = (long long)ny_in * nx_in;
+    cudaError_t err = cudaMemsetAsync(wflags, 0, sizeof(int) * nchan, s);
+    if (err != cudaSuccess) return (int)err;
+    const int per_chan =
+        (int)((plane + 1023) / 1024 < 64 ? (plane + 1023) / 1024 : 64);
+    weight_flags_kernel<<<nchan * per_chan, 256, 0, s>>>(
+        (const float*)wz, plane, per_chan, (int*)wflags);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int tiles_x = (nx_out + kTileX - 1) / kTileX;
+  const int tiles_y = (ny_out + kTileY - 1) / kTileY;
+  const long long blocks = (long long)tiles_x * tiles_y * nchan;
+  resample2_filled_kernel<<<(unsigned)blocks, dim3(kTileX, kTileY), 0, s>>>(
+      (const float*)fz, (const float*)wz, (const int*)wflags,
+      (const int*)y0, (const float*)wy, (const int*)x0, (const float*)wx,
+      (const uint8_t*)valid_plane, (const uint8_t*)zvalid, ny_in, nx_in,
+      ny_out, nx_out, tiles_x, tiles_y, (float*)out);
   return (int)cudaGetLastError();
 }

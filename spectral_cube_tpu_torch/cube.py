@@ -622,9 +622,12 @@ class SpectralCube:
     @warn_slow
     def reproject(self, header, order="bilinear", use_memmap=False,
                   filled=True, **kwargs):
-        """Reproject onto a new spatial WCS (reference
-        spectral_cube.py:2649-2746); axis-aligned bilinear targets with
-        the input's spectral axis only, so far."""
+        """Reproject onto the WCS of ``header`` (reference
+        spectral_cube.py:2649-2746): bilinear, onto an axis-aligned
+        spatial grid (a translation or rescaling of the input's), with the
+        input's spectral axis or a new one (channels lerped, then
+        resampled; ops/regrid.py).  Rotated targets and the other orders
+        raise NotImplementedError so far."""
         return self._reproject(header, order=order, filled=filled)
 
     @property

@@ -6,16 +6,22 @@ from ``csrc/`` at first use) or raises.  Each wrapper counts its launches in
 ``<wrapper>.launches``.
 """
 
-from . import moments, conv_sep, resample2, sigma_clip, smooth_interp
+from . import (moments, conv_sep, resample2, sigma_clip, smooth_interp,
+               conv_reproject, pipeline_fused)
 
 __all__ = ["moments", "conv_sep", "resample2", "sigma_clip", "smooth_interp",
-           "WRAPPERS", "launch_counts", "reset_launch_counts"]
+           "conv_reproject", "pipeline_fused", "WRAPPERS", "launch_counts",
+           "reset_launch_counts"]
 
-#: kernel name -> wrapper
+#: wrapper name -> wrapper
 WRAPPERS = {"moments": moments.moments_planes, "conv_sep": conv_sep.conv_sep,
             "resample2": resample2.resample2,
+            "resample2_filled": resample2.resample2_filled,
             "sigma_clip": sigma_clip.sigma_clip,
-            "smooth_interp": smooth_interp.smooth_interp}
+            "smooth_interp": smooth_interp.smooth_interp,
+            "conv_reproject": conv_reproject.conv_reproject,
+            "plain_strips": conv_reproject.plain_strips,
+            "pipeline_fused": pipeline_fused.pipeline_fused}
 
 
 def launch_counts():

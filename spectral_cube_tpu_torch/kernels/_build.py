@@ -27,7 +27,9 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("moments.cu", "conv_sep.cu", "resample2.cu", "sigma_clip.cu",
-           "smooth_interp.cu")
+           "smooth_interp.cu", "conv_reproject.cu")
+#: headers the sources include (hashed with them)
+HEADERS = ("moments_acc.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC")
 
@@ -48,7 +50,7 @@ def _nvcc():
 
 def _library_path():
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libsct_kernels_{h.hexdigest()[:16]}.so"
@@ -68,6 +70,9 @@ def _declare(lib):
     lib.sct_conv_sep.restype = I
     lib.sct_resample2.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, P, P]
     lib.sct_resample2.restype = I
+    lib.sct_resample2_filled.argtypes = [P, P, P, I, P, P, P, P, P, P, I, I,
+                                         I, I, I, P, P]
+    lib.sct_resample2_filled.restype = I
     lib.sct_sigma_clip_work.argtypes = [I]
     lib.sct_sigma_clip_work.restype = LL
     lib.sct_sigma_clip.argtypes = [P, I, LL, F, I, I, P, LL, P, P]
@@ -75,6 +80,14 @@ def _declare(lib):
     lib.sct_smooth_interp.argtypes = [P, I, I, LL, P, P, I, P, P, I, P, P, I,
                                       P, P]
     lib.sct_smooth_interp.restype = I
+    lib.sct_conv_reproject_smem.argtypes = [P]
+    lib.sct_conv_reproject_smem.restype = LL
+    lib.sct_conv_reproject_smem_limit.argtypes = []
+    lib.sct_conv_reproject_smem_limit.restype = I
+    lib.sct_conv_reproject_threads.argtypes = []
+    lib.sct_conv_reproject_threads.restype = I
+    lib.sct_conv_reproject.argtypes = [P, P]
+    lib.sct_conv_reproject.restype = I
     return lib
 
 

@@ -1,9 +1,12 @@
-"""Kernel 3: axis-aligned 2-tap bilinear resample from raw data.
+"""Kernel 3: axis-aligned 2-tap bilinear resample.
 
-:func:`resample2` launches ``csrc/resample2.cu`` for a CUDA tensor and
-runs :func:`resample2_plain`, the same function in plain PyTorch, for a CPU
-tensor.  Output row i reads input rows ``y0[i]`` and ``y0[i] + 1`` (clipped
-to the plane) with weights ``1 - wy[i]`` and ``wy[i]``; columns likewise.
+:func:`resample2` (from raw, NaN-carrying data) and :func:`resample2_filled`
+(from NaN-filled data with a separate NaN-weight plane) launch
+``csrc/resample2.cu`` for a CUDA tensor and run :func:`resample2_plain` /
+:func:`resample2_filled_plain`, the same functions in plain PyTorch, for a
+CPU tensor.  Output row i reads input rows ``y0[i]`` and ``y0[i] + 1``
+(clipped to the plane) with weights ``1 - wy[i]`` and ``wy[i]``; columns
+likewise.
 """
 
 from __future__ import annotations
@@ -13,7 +16,8 @@ import torch
 
 from ._build import load_library, check, ptr, stream_ptr
 
-__all__ = ["resample2", "resample2_plain", "POISON"]
+__all__ = ["resample2", "resample2_plain", "resample2_filled",
+           "resample2_filled_plain", "POISON"]
 
 #: NaN-weight threshold of the poisoning rule (banded_pallas.py:45)
 POISON = 1e-6
@@ -82,15 +86,9 @@ def resample2(raw, y0, wy, x0, wx, valid_plane, zvalid=None):
 resample2.launches = 0
 
 
-def resample2_plain(raw, y0, wy, x0, wx, valid_plane, zvalid=None):
-    """The kernel's function in plain PyTorch: y taps first, then x taps,
-    for the values and the NaN weights alike."""
-    if raw.ndim != 3:
-        raise ValueError(f"raw must be (nchan, ny, nx), got {tuple(raw.shape)}")
-    y0, wy, x0, wx, valid_plane, zvalid = _host_taps(
-        raw, y0, wy, x0, wx, valid_plane, zvalid)
-    dev = raw.device
-    _, ny_in, nx_in = raw.shape
+def _lerp2(y0, wy, x0, wx, ny_in, nx_in, dev):
+    """The 2-tap lerp of (c, ny_in, nx_in) planes: y taps first, then x
+    taps, each a sum of two rounded products."""
     ya = torch.as_tensor(y0, device=dev)
     yb = torch.clamp(ya + 1, max=ny_in - 1)
     xa = torch.as_tensor(x0, device=dev)
@@ -103,10 +101,101 @@ def resample2_plain(raw, y0, wy, x0, wx, valid_plane, zvalid=None):
         t = gy * a[:, ya, :] + fy * a[:, yb, :]
         return gx * t[:, :, xa] + fx * t[:, :, xb]
 
+    return lerp
+
+
+def _validity(out, valid_plane, zvalid):
+    ok = torch.as_tensor(valid_plane, device=out.device)[None] \
+        & torch.as_tensor(zvalid, device=out.device)[:, None, None]
+    return torch.where(ok, out, float("nan"))
+
+
+def resample2_plain(raw, y0, wy, x0, wx, valid_plane, zvalid=None):
+    """The kernel's function in plain PyTorch: y taps first, then x taps,
+    for the values and the NaN weights alike."""
+    if raw.ndim != 3:
+        raise ValueError(f"raw must be (nchan, ny, nx), got {tuple(raw.shape)}")
+    y0, wy, x0, wx, valid_plane, zvalid = _host_taps(
+        raw, y0, wy, x0, wx, valid_plane, zvalid)
+    _, ny_in, nx_in = raw.shape
+    lerp = _lerp2(y0, wy, x0, wx, ny_in, nx_in, raw.device)
     z = raw.to(torch.float32)
     val = lerp(torch.nan_to_num(z))
     wn = lerp(torch.isnan(z).to(torch.float32))
     out = torch.where(wn > POISON, float("nan"), val)
-    ok = torch.as_tensor(valid_plane, device=dev)[None] \
-        & torch.as_tensor(zvalid, device=dev)[:, None, None]
-    return torch.where(ok, out, float("nan"))
+    return _validity(out, valid_plane, zvalid)
+
+
+def _check_filled(fz, wz):
+    if fz.ndim != 3 or wz.shape != fz.shape:
+        raise ValueError("fz and wz must be (nchan, ny, nx) of one shape, got "
+                         f"{tuple(fz.shape)} and {tuple(wz.shape)}")
+
+
+def resample2_filled(fz, wz, y0, wy, x0, wx, valid_plane, zvalid=None,
+                     wz_any=None):
+    """(nchan, ny_out, nx_out) resample of NaN-filled ``fz`` with its
+    NaN-weight plane ``wz``: out = sum w * fz, NaN where sum w * wz exceeds
+    :data:`POISON`, where ``valid_plane`` is False and where ``zvalid`` is
+    False.  ``wz_any``: optional (nchan,) bool tensor, False where the
+    channel's ``wz`` is all zero (its weight taps are then skipped);
+    computed from ``wz`` on the card when not given.  A CPU tensor takes
+    the plain version; a CUDA tensor the kernel."""
+    _check_filled(fz, wz)
+    taps = _host_taps(fz, y0, wy, x0, wx, valid_plane, zvalid)
+    if fz.device.type == "cpu":
+        return resample2_filled_plain(fz, wz, *taps)
+    if fz.device.type != "cuda":
+        raise ValueError(f"no resample kernel for device {fz.device}")
+    if fz.dtype != torch.float32 or wz.dtype != torch.float32 \
+            or not fz.is_contiguous() or not wz.is_contiguous() \
+            or wz.device != fz.device:
+        raise ValueError("the resample kernel takes contiguous float32 fz "
+                         "and wz on one device")
+    y0, wy, x0, wx, valid_plane, zvalid = taps
+    lib = load_library()
+    dev = fz.device
+    nchan, ny_in, nx_in = fz.shape
+    ny_out, nx_out = valid_plane.shape
+
+    def dev_t(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=dev)
+
+    if wz_any is None:
+        flags = torch.empty(nchan, dtype=torch.int32, device=dev)
+    else:
+        flags = torch.as_tensor(wz_any, device=dev).to(torch.int32)
+        if flags.shape != (nchan,):
+            raise ValueError("wz_any must hold one flag per channel")
+        flags = flags.contiguous()
+    y0_t, x0_t = dev_t(y0, torch.int32), dev_t(x0, torch.int32)
+    wy_t, wx_t = dev_t(wy, torch.float32), dev_t(wx, torch.float32)
+    vp_t = dev_t(valid_plane, torch.uint8)
+    zv_t = dev_t(zvalid, torch.uint8)
+    out = torch.empty((nchan, ny_out, nx_out), dtype=torch.float32,
+                      device=dev)
+    err = lib.sct_resample2_filled(
+        ptr(fz), ptr(wz), ptr(flags), int(wz_any is None), ptr(y0_t),
+        ptr(wy_t), ptr(x0_t), ptr(wx_t), ptr(vp_t), ptr(zv_t), nchan, ny_in,
+        nx_in, ny_out, nx_out, ptr(out), stream_ptr(dev))
+    check(err, "sct_resample2_filled")
+    resample2_filled.launches += 1
+    return out
+
+
+resample2_filled.launches = 0
+
+
+def resample2_filled_plain(fz, wz, y0, wy, x0, wx, valid_plane, zvalid=None):
+    """:func:`resample2_filled` in plain PyTorch, in the kernel's order of
+    roundings."""
+    _check_filled(fz, wz)
+    y0, wy, x0, wx, valid_plane, zvalid = _host_taps(
+        fz, y0, wy, x0, wx, valid_plane, zvalid)
+    _, ny_in, nx_in = fz.shape
+    lerp = _lerp2(y0, wy, x0, wx, ny_in, nx_in, fz.device)
+    val = lerp(fz.to(torch.float32))
+    wn = lerp(wz.to(torch.float32))
+    out = torch.where(wn > POISON, float("nan"), val)
+    return _validity(out, valid_plane, zvalid)

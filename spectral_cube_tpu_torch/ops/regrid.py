@@ -1,29 +1,42 @@
-"""Reprojection onto a new spatial WCS, axis-aligned half.
+"""Reprojection onto a new WCS, axis-aligned half, and the fused
+convolve + reproject.
 
 Port of the axis-aligned part of ``spectral_cube_tpu/ops/regrid.py``.  The
 target-to-source pixel mapping is computed on the host in float64 through
 the standalone WCS stack (shared with the JAX package's derivation,
-:func:`bilinear_host_maps`); the bilinear resample runs on the device in
-kernel 3 (``kernels/resample2.py``) straight from the raw, NaN-carrying
-data: NaN poisoning follows nonzero-weight semantics, so a zero-weight NaN
-neighbour never poisons an output.
+:func:`bilinear_host_maps`).  An untouched spectral axis resamples in
+kernel 3 (``kernels/resample2.py::resample2``) straight from the raw,
+NaN-carrying data; a target whose spectral axis differs from the input's
+first lerps the NaN-filled data and the NaN mask along the spectral axis
+(torch gathers, as XLA does it in the JAX package) and then resamples both
+in ``resample2_filled``.  NaN poisoning follows nonzero-weight semantics,
+so a zero-weight NaN neighbour never poisons an output.
 
-Not ported yet, and raising ``NotImplementedError``: targets whose spectral
-axis differs from the input's (the staged ``_separable_resample`` path,
-ROADMAP.md Queue 1 item 6), rotated targets (the gather path) and the
-nearest/spline orders (ROADMAP.md Queue 1 item 9).
+:func:`convolve_reproject_separable` fuses the common-beam convolution
+with the resample in kernel 6 (``kernels/conv_reproject.py``) on operators
+composed on the host by :func:`_conv_reproject_operators`.
+
+Not ported yet, and raising ``NotImplementedError``: rotated targets (the
+gather path) and the nearest/spline orders (ROADMAP.md Queue 1 item 9).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..wcs import WCS
-from ..kernels.resample2 import resample2
+from ..kernels.conv_reproject import (Bands, ConvTaps, Rows2, bands_of,
+                                      conv_reproject)
+from ..kernels.resample2 import resample2, resample2_filled
+from .convolve import separable_factors, _conv_matrix_1d, _tap_stack
+from .interpolate import _interp_matrix, compose_interp_banded
 
 __all__ = ["spatial_pixel_mapping", "bilinear_host_maps",
-           "reproject_mappings", "reproject_cube"]
+           "reproject_mappings", "reproject_cube", "reproject_image",
+           "mosaic_add", "convolve_reproject_separable"]
 
 _ORDERS = {"nearest-neighbor": 0, "nearest": 0, "bilinear": 1,
            "biquadratic": 2, "bicubic": 3}
@@ -99,10 +112,11 @@ def bilinear_host_maps(zs, ys, xs, nchan_in, ny_in, nx_in, order):
 
 def _bilinear_spatial_then_linear_z(data, zs, ys, xs, order):
     """Separable resample of (nchan, ny_in, nx_in) ``data`` at spectral
-    input coordinates ``zs`` and spatial maps ``ys``/``xs``; the torch
-    port's counterpart of the JAX function for an untouched spectral axis
-    and an axis-aligned bilinear mapping (regrid.py:312-349), where it
-    runs kernel 3."""
+    input coordinates ``zs`` and spatial maps ``ys``/``xs`` for an
+    axis-aligned bilinear mapping (regrid.py:287-408).  An untouched
+    spectral axis runs kernel 3 on the raw data; otherwise the staged
+    branch lerps the NaN-filled data and the NaN mask along the spectral
+    axis and resamples both in ``resample2_filled``."""
     if order != 1:
         raise NotImplementedError(
             "nearest-neighbour and spline reprojection are not ported to "
@@ -111,16 +125,46 @@ def _bilinear_spatial_then_linear_z(data, zs, ys, xs, order):
     (zvalid, z0, zf, z_identity, yvalid, xvalid, y0, y1, wy,
      x0, x1, wx) = bilinear_host_maps(zs, ys, xs, nchan_in, ny_in,
                                       nx_in, order)
-    if not z_identity:
-        raise NotImplementedError(
-            "reprojection onto a different spectral axis is not ported to "
-            "torch yet (ROADMAP.md Queue 1 item 6)")
     taps = _axis_aligned_taps(ys, xs, ny_in, nx_in)
     if taps is None:
         raise NotImplementedError(
             "rotated (non-axis-aligned) reprojection is not ported to "
             "torch yet (ROADMAP.md Queue 1 item 9)")
-    return resample2(data, *taps, yvalid & xvalid, zvalid)
+    if z_identity:
+        return resample2(data, *taps, yvalid & xvalid, zvalid)
+    fz, wz, wz_any = _zlerp_filled(data, z0, zf)
+    return resample2_filled(fz, wz, *taps, yvalid & xvalid, zvalid,
+                            wz_any=wz_any)
+
+
+def _zlerp_filled(data, z0, zf):
+    """The spectral lerp of the staged branch (regrid.py:351-366):
+    ``fz = zlerp(nan_to_num(data))``, ``wz = zlerp(isnan(data))`` with
+    ``zlerp(a) = a[z0] * (1 - zf) + a[z0 + 1] * zf``, and ``wz_any``, the
+    (nz,) flags of the output channels whose ``wz`` is not all zero,
+    derived from the input channels that hold a NaN (a weight of 0 carries
+    no NaN)."""
+    nchan_in = data.shape[0]
+    dev = data.device
+    lo_i = torch.as_tensor(np.asarray(z0, np.int64), device=dev)
+    nanmask = torch.isnan(data)
+    chan_nan = nanmask.flatten(1).any(1)
+    filled = torch.nan_to_num(data)
+    nanmask = nanmask.to(torch.float32)
+    if nchan_in == 1:
+        return (filled.index_select(0, lo_i).contiguous(),
+                nanmask.index_select(0, lo_i).contiguous(), chan_nan[lo_i])
+    hi_i = torch.as_tensor(np.minimum(np.asarray(z0, np.int64) + 1,
+                                      nchan_in - 1), device=dev)
+    f = torch.as_tensor(np.asarray(zf, np.float32), device=dev)
+    g = 1 - f
+    f3, g3 = f[:, None, None], g[:, None, None]
+
+    def zlerp(a):
+        return a.index_select(0, lo_i) * g3 + a.index_select(0, hi_i) * f3
+
+    wz_any = (chan_nan[lo_i] & (g != 0)) | (chan_nan[hi_i] & (f != 0))
+    return zlerp(filled), zlerp(nanmask), wz_any
 
 
 #: how far (pixels) a map may stray from axis alignment; the tolerance of
@@ -180,6 +224,96 @@ def _translation_params(ys, xs, ny_in, nx_in):
     sy = int(np.floor(ty))
     sx = int(np.floor(tx))
     return sy, ty - sy, sx, tx - sx
+
+
+# past this grid size the composed operators are not built (the JAX
+# package's _MATMUL_RESAMPLE_MAX_N, regrid.py:412)
+_MATMUL_RESAMPLE_MAX_N = 4096
+
+
+class ConvReprojectOps(NamedTuple):
+    """Host operators of the fused convolve + reproject: G = R @ M bands
+    per axis (float32, composed in float64), the flipped convolution taps
+    M, the 2-tap resample rows R, the in-range output plane and the
+    rank."""
+    gy: Bands
+    gx: Bands
+    my: ConvTaps
+    mx: ConvTaps
+    ry: Rows2
+    rx: Rows2
+    valid: np.ndarray
+    rank: int
+
+
+def _conv_reproject_operators(shape, kernel, ys, xs):
+    """The operators of :func:`convolve_reproject_separable` and the
+    whole-pipeline fusion (``ops/pipeline_fused``), as
+    :class:`ConvReprojectOps`, or None where the JAX function
+    (regrid.py:513-567) returns None: a kernel that does not SVD-separate,
+    a mapping that is not exactly axis-aligned (``ptp == 0`` of the taps
+    along the other axis), a grid above 4096, or a singleton spatial input
+    axis.  The JAX function's TPU-backend gate is dropped: the kernel runs
+    wherever the port does."""
+    nchan, ny_in, nx_in = shape
+    ys, xs = np.asarray(ys), np.asarray(xs)
+    ny, nx = ys.shape
+    if max(ny, nx, ny_in, nx_in) > _MATMUL_RESAMPLE_MAX_N:
+        return None
+    k64 = np.asarray(kernel, dtype=np.float64)
+    factors = separable_factors(k64 / k64.sum())
+    if factors is None:
+        return None
+    yvalid = np.isfinite(ys) & (ys >= -1e-3) & (ys <= ny_in - 1 + 1e-3)
+    xvalid = np.isfinite(xs) & (xs >= -1e-3) & (xs <= nx_in - 1 + 1e-3)
+    ycl = np.clip(np.nan_to_num(ys), 0, ny_in - 1)
+    xcl = np.clip(np.nan_to_num(xs), 0, nx_in - 1)
+    y0 = np.clip(ycl.astype(np.int64), 0, max(ny_in - 2, 0))
+    x0 = np.clip(xcl.astype(np.int64), 0, max(nx_in - 2, 0))
+    wy = ycl - y0
+    wx = xcl - x0
+    ysep = np.ptp(y0, axis=1).max() == 0 and np.ptp(wy, axis=1).max() == 0
+    xsep = np.ptp(x0, axis=0).max() == 0 and np.ptp(wx, axis=0).max() == 0
+    if not (ysep and xsep):
+        return None
+    if ny_in < 2 or nx_in < 2:
+        return None
+    ytaps, xtaps = factors
+    r = ytaps.shape[1]
+
+    def axis(i0, w, n_in, taps):
+        G = np.stack([compose_interp_banded(i0, w, _conv_matrix_1d(
+            n_in, taps[:, i])).astype(np.float32) for i in range(r)])
+        R = _interp_matrix(i0, w, n_in)
+        rows = np.arange(i0.size)
+        flipped, half = _tap_stack([taps])
+        return (bands_of(G[None]), ConvTaps(flipped[0], half),
+                Rows2(i0, R[rows, i0], R[rows, i0 + 1]))
+
+    gy, my, ry = axis(y0[:, 0], wy[:, 0], ny_in, ytaps)
+    gx, mx, rx = axis(x0[0, :], wx[0, :], nx_in, xtaps)
+    return ConvReprojectOps(gy, gx, my, mx, ry, rx, yvalid & xvalid, r)
+
+
+def convolve_reproject_separable(data, kernel, ys, xs):
+    """Fused common-beam convolve + axis-aligned reproject of a (nchan,
+    ny_in, nx_in) cube through kernel 6 (``kernels/conv_reproject.py``):
+    clean channels apply the host-composed G = R @ M per rank, channels
+    holding NaN the exact normalized-convolution chain and the poisoned
+    resample, all-NaN channels give NaN, and out-of-range outputs NaN.
+    The JAX function tests ``~isfinite`` over the whole cube to pick the
+    chain for every channel (regrid.py:632); the port follows the TPU
+    kernel's per-channel ``isnan`` instead (banded_pallas.py:1159).
+
+    Returns None where the JAX function does with its TPU backend gate
+    true (see :func:`_conv_reproject_operators`), so callers take the
+    two-stage path."""
+    ops = _conv_reproject_operators(data.shape, kernel, ys, xs)
+    if ops is None:
+        return None
+    out = conv_reproject(data, ops.gy, ops.gx, ops.my, ops.mx, ops.ry,
+                         ops.rx, ops.valid)
+    return out.to(data.dtype)
 
 
 def reproject_mappings(wcs_in: WCS, target_header, nchan_in,
@@ -248,3 +382,42 @@ def reproject_cube(data, wcs_in: WCS, target_header, order="bilinear",
                                           np.asarray(ys), np.asarray(xs),
                                           _order_int(order))
     return out, torch.isfinite(out), wcs_out
+
+
+def _resample_planes(data, ys, xs, order):
+    """Resample (nchan, ny_in, nx_in) or (ny_in, nx_in) planes at the
+    fractional maps ``ys``/``xs``; NaN outside (regrid.py:638-648)."""
+    single = data.ndim == 2
+    if single:
+        data = data[None]
+    zs = np.arange(data.shape[0], dtype=np.float64)
+    out = _bilinear_spatial_then_linear_z(data, zs, np.asarray(ys),
+                                          np.asarray(xs), order)
+    return out[0] if single else out
+
+
+def reproject_image(data, wcs_in: WCS, target_header, order="bilinear"):
+    """Reproject a 2-D image onto the celestial WCS of ``target_header``
+    (regrid.py:651-659).  Returns ``(image, wcs)``, the image a tensor on
+    the data's device (a numpy array goes to the CPU)."""
+    wcs_out = WCS(header=target_header)
+    ny = int(target_header["NAXIS2"])
+    nx = int(target_header["NAXIS1"])
+    ys, xs = spatial_pixel_mapping(wcs_in, wcs_out, (ny, nx))
+    data = torch.as_tensor(np.asarray(data, dtype=np.float32)) \
+        if not isinstance(data, torch.Tensor) else data
+    out = _resample_planes(data, ys, xs, _order_int(order))
+    return out, wcs_out.celestial if wcs_out.naxis > 2 else wcs_out
+
+
+def mosaic_add(accum, weights, cube_data, wcs_in, target_header,
+               order="bilinear", spectral_values_in=None):
+    """Add one reprojected cube into a mosaic accumulator (reference
+    mosaic_cubes, cube_utils.py:791-856; regrid.py:739-750): accum +=
+    data * w, weights += w, with w the reprojection footprint.  Returns
+    the new ``(accum, weights)``."""
+    out, foot, _ = reproject_cube(cube_data, wcs_in, target_header,
+                                  order=order,
+                                  spectral_values_in=spectral_values_in)
+    w = foot.to(accum.dtype)
+    return accum + torch.where(foot, out, 0.0), weights + w

@@ -1,0 +1,227 @@
+"""Torch port, kernel 6 (fused convolve + axis-aligned reproject, and its
+clean branch, the per-channel banded apply) against the JAX package.
+
+The same numpy inputs go through the JAX functions (the Pallas
+``conv_reproject_raw_strips`` and ``per_channel_plain_strips`` kernels in
+interpret mode, and ``convolve_reproject_separable`` with its TPU gate
+forced open, which then runs its jnp branches on the CPU) and through the
+port on CPU tensors, where the kernel's wrappers run their plain PyTorch
+versions.  Tolerances are the JAX tests' own: atol 2e-5 after an exact NaN
+pattern for the fused kernel (test_banded_pallas.py:440-492), rtol 3e-5 /
+atol 1e-5 for the banded apply (:316-338), rtol 2e-5 / atol 1e-6 for
+``convolve_reproject_separable`` (test_regrid.py:374-407).
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from spectral_cube_tpu.ops import regrid as jrg
+from spectral_cube_tpu.ops.banded_pallas import (conv_reproject_raw_strips,
+                                                 per_channel_plain_strips)
+from spectral_cube_tpu.ops.convolve import _conv_matrix_1d as j_conv_matrix
+from spectral_cube_tpu.ops.interpolate import _interp_matrix as j_interp
+
+from spectral_cube_tpu_torch import kernels as K
+from spectral_cube_tpu_torch.kernels import conv_reproject as kcr
+from spectral_cube_tpu_torch.ops import regrid as trg
+
+
+def _gauss2d(sig_y, sig_x, theta=0.0, size=15):
+    x = np.arange(size) - size // 2
+    yy, xx = np.meshgrid(x, x, indexing="ij")
+    yr = yy * np.cos(theta) + xx * np.sin(theta)
+    xr = -yy * np.sin(theta) + xx * np.cos(theta)
+    k = np.exp(-0.5 * ((yr / sig_y) ** 2 + (xr / sig_x) ** 2))
+    return k / k.sum()
+
+
+def _shift_maps(ny, nx, ty=0.37, tx=0.61):
+    ys = np.broadcast_to(np.arange(ny, dtype=np.float64)[:, None] + ty,
+                         (ny, nx)).copy()
+    xs = np.broadcast_to(np.arange(nx, dtype=np.float64)[None, :] + tx,
+                         (ny, nx)).copy()
+    return ys, xs
+
+
+def _run(data, ops):
+    return kcr.conv_reproject(torch.as_tensor(data), ops.gy, ops.gx, ops.my,
+                              ops.mx, ops.ry, ops.rx, ops.valid).numpy()
+
+
+@pytest.mark.parametrize("theta", [0.0, 0.2])
+def test_conv_reproject_matches_pallas_kernel(theta):
+    """Clean channels (composed G), a channel with one NaN voxel (the exact
+    chain) and an all-NaN channel, isotropic (rank 1) and rotated (rank >
+    1) kernels; the port's host operators equal the JAX ones bitwise."""
+    rng = np.random.RandomState(9)
+    nchan, ny, nx = 4, 128, 128
+    k = _gauss2d(3.0, 1.5, theta=theta, size=15)
+    data = rng.randn(nchan, ny, nx).astype(np.float32)
+    data[1, 60, 60] = np.nan
+    data[2, :, :] = np.nan
+    ys, xs = _shift_maps(ny, nx)
+    ops = trg._conv_reproject_operators(data.shape, k, ys, xs)
+    jops = jrg._conv_reproject_operators(data.shape, k, ys, xs, force=True)
+    assert ops.rank == jops[7] == (1 if theta == 0.0 else ops.rank)
+    np.testing.assert_array_equal(ops.gy.dense(ny), jops[0])
+    np.testing.assert_array_equal(ops.gx.dense(nx), jops[1])
+    np.testing.assert_array_equal(ops.valid, jops[6])
+    for rows, R in ((ops.ry, jops[4][0, 0]), (ops.rx, jops[5][0, 0])):
+        n = np.arange(R.shape[0])
+        np.testing.assert_array_equal(R[n, rows.i0], rows.w0)
+        np.testing.assert_array_equal(R[n, rows.i0 + 1], rows.w1)
+    ref = np.asarray(conv_reproject_raw_strips(jnp.asarray(data), *jops[:7],
+                                               interpret=True))
+    got = _run(data, ops)
+    assert np.array_equal(np.isnan(got), np.isnan(ref))
+    assert np.isnan(got[2]).all() and np.isnan(got[1]).any()
+    fin = ~np.isnan(ref)
+    np.testing.assert_allclose(got[fin], ref[fin], atol=2e-5)
+
+
+@pytest.mark.parametrize("dense_x", [True, False])
+def test_plain_strips_matches_pallas_kernel(dense_x):
+    """The clean branch on a rank-2 composed convolve + resample operator,
+    against the Pallas apply and a float64 oracle."""
+    rng = np.random.RandomState(6)
+    nz, n = 4, 128
+    data = rng.randn(nz, n, n).astype(np.float32)
+    k1 = np.exp(-0.5 * ((np.arange(9) - 4) / 1.5) ** 2)
+    k2 = np.exp(-0.5 * ((np.arange(9) - 4) / 2.5) ** 2)
+    R = j_interp(np.arange(n, dtype=np.int64).clip(0, n - 2),
+                 np.full(n, 0.25), n).astype(np.float64)
+    Gy = np.stack([(R @ j_conv_matrix(n, k).astype(np.float64))
+                   .astype(np.float32) for k in (k1, k2)])[None]
+    Gx = np.stack([(R @ j_conv_matrix(n, k).astype(np.float64))
+                   .astype(np.float32) for k in (k2, k1)])[None]
+    ref = np.asarray(per_channel_plain_strips(
+        jnp.asarray(data), Gy, Gx, np.zeros(nz, np.int32), interpret=True,
+        dense_x=dense_x))
+    got = kcr.plain_strips(torch.as_tensor(data), kcr.bands_of(Gy),
+                           kcr.bands_of(Gx), np.zeros(nz, np.int32)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=3e-5, atol=1e-5)
+    exp = sum(np.einsum("ab,cbx,vx->cav", Gy[0, i].astype(np.float64),
+                        data.astype(np.float64),
+                        Gx[0, i].astype(np.float64)) for i in range(2))
+    np.testing.assert_allclose(got, exp, rtol=3e-5, atol=1e-5)
+
+
+def test_plain_strips_two_groups_and_rectangular():
+    """Channels interleaved over two groups of rectangular operators (one
+    with an empty row), against a float64 oracle."""
+    rng = np.random.RandomState(3)
+    nchan, ny, nx, ny_out, nx_out = 5, 40, 70, 30, 50
+    data = rng.randn(nchan, ny, nx).astype(np.float32)
+    band_y = np.abs(np.arange(ny_out)[:, None] * 1.2
+                    - np.arange(ny)[None]) < 3
+    band_x = np.abs(np.arange(nx_out)[:, None] * 1.3
+                    - np.arange(nx)[None]) < 4
+    My = (rng.rand(2, 2, ny_out, ny) * band_y).astype(np.float32)
+    Mx = (rng.rand(2, 2, nx_out, nx) * band_x).astype(np.float32)
+    My[1, :, 5] = 0.0
+    gi = np.array([1, 0, 1, 1, 0], np.int32)
+    yb = kcr.bands_of(My)
+    assert yb.start[1, 5] == -1
+    np.testing.assert_array_equal(yb.dense(ny), My)
+    got = kcr.plain_strips(torch.as_tensor(data), yb, kcr.bands_of(Mx),
+                           gi).numpy()
+    exp = np.stack([sum(My[g, i].astype(np.float64) @ data[c].astype(
+        np.float64) @ Mx[g, i].T.astype(np.float64) for i in range(2))
+        for c, g in enumerate(gi)])
+    np.testing.assert_allclose(got, exp, rtol=3e-5, atol=1e-5)
+    assert (got[[0, 2, 3], 5] == 0).all()
+
+
+def _matmul_on(monkeypatch):
+    monkeypatch.setattr(jrg, "_use_matmul_resample", lambda: True)
+
+
+@pytest.mark.parametrize("poke_nan", [False, True])
+def test_convolve_reproject_separable_matches_jax(monkeypatch, poke_nan):
+    """A rescaled, offset target on a non-square input (test_regrid.py:
+    374-407), all-finite and with NaN in two channels, against the JAX
+    function with its TPU gate open."""
+    _matmul_on(monkeypatch)
+    rng = np.random.RandomState(13)
+    x1 = np.arange(9) - 4
+    kern = np.exp(-0.5 * np.add.outer(x1 ** 2, x1 ** 2) / 1.5 ** 2)
+    ny_in, nx_in = 20, 18
+    ys = np.broadcast_to(np.linspace(-0.4, ny_in - 0.7, 16)[:, None],
+                         (16, 14)).copy()
+    xs = np.broadcast_to(np.linspace(0.3, nx_in - 0.2, 14)[None, :],
+                         (16, 14)).copy()
+    if poke_nan:
+        rng.rand(4, ny_in, nx_in)
+    data = rng.rand(4, ny_in, nx_in).astype("f4")
+    if poke_nan:
+        data[0, 3, 3] = np.nan
+        data[2, 10:12, 5] = np.nan
+    ref = np.asarray(jrg.convolve_reproject_separable(jnp.asarray(data), kern,
+                                                      ys, xs))
+    got = trg.convolve_reproject_separable(torch.as_tensor(data), kern, ys,
+                                           xs)
+    assert got is not None and got.dtype == torch.float32
+    got = got.numpy()
+    assert np.array_equal(np.isnan(got), np.isnan(ref))
+    assert np.isnan(got).any()     # the first output row is out of range
+    np.testing.assert_allclose(got, ref, rtol=2e-5, atol=1e-6,
+                               equal_nan=True)
+
+
+def _kern9():
+    x1 = np.arange(9) - 4
+    return np.exp(-0.5 * np.add.outer(x1 ** 2, x1 ** 2) / 1.5 ** 2)
+
+
+@pytest.mark.parametrize("case", ["rotated", "non_separable", "too_large",
+                                  "singleton_axis"])
+def test_convolve_reproject_separable_declines_where_jax_does(monkeypatch,
+                                                              case):
+    _matmul_on(monkeypatch)
+    rng = np.random.RandomState(1)
+    kern = _kern9()
+    shape, (ys, xs) = (4, 20, 18), _shift_maps(16, 14, 0.2, 0.3)
+    if case == "rotated":
+        ys = ys + 0.01 * np.arange(14)[None, :]
+    elif case == "non_separable":
+        kern = rng.rand(15, 15)      # full rank: no SVD-separable form
+    elif case == "too_large":
+        shape, (ys, xs) = (1, 4100, 3), _shift_maps(4100, 2, 0.2, 0.3)
+    else:
+        shape, (ys, xs) = (2, 1, 18), _shift_maps(1, 14, 0.0, 0.3)
+    data = rng.rand(*shape).astype("f4")
+    want = jrg.convolve_reproject_separable(jnp.asarray(data), kern, ys, xs)
+    got = trg.convolve_reproject_separable(torch.as_tensor(data), kern, ys,
+                                           xs)
+    assert want is None and got is None
+
+
+def test_bands_keep_the_composed_values():
+    """G bands hold exactly the host-composed float32 values, K + 1 taps
+    per row and rank, and the chain's taps are conv_sep's."""
+    k = _gauss2d(2.0, 1.2, 0.3, 11)
+    ys, xs = _shift_maps(40, 52, 0.37, -0.61)
+    ops = trg._conv_reproject_operators((3, 40, 52), k, ys, xs)
+    assert ops.gy.taps.shape == (1, ops.rank, 40, 12)
+    assert ops.gx.taps.shape == (1, ops.rank, 52, 12)
+    assert ops.my.taps.shape == (ops.rank, 11) and ops.my.half == 5
+    kb = kcr.bands_of(ops.gy.dense(40))
+    np.testing.assert_array_equal(kb.taps, ops.gy.taps)
+    # x starts 0.61 px before the plane, y ends 0.37 px past it
+    assert not ops.valid[:, 0].any() and not ops.valid[-1].any()
+    assert ops.valid[:-1, 1:].all()
+
+
+def test_plain_versions_leave_the_counters_alone():
+    K.reset_launch_counts()
+    rng = np.random.RandomState(2)
+    data = rng.randn(3, 24, 30).astype(np.float32)
+    data[1, 4, 4] = np.nan
+    ys, xs = _shift_maps(24, 30)
+    ops = trg._conv_reproject_operators(data.shape, _kern9(), ys, xs)
+    _run(data, ops)
+    kcr.plain_strips(torch.as_tensor(data), ops.gy, ops.gx,
+                     np.zeros(3, np.int32))
+    assert all(n == 0 for n in K.launch_counts().values())

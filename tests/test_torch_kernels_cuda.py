@@ -7,7 +7,11 @@ them (the README names the command).  Tolerances: 1e-6 relative between
 the kernel and its plain version of the same numerics (only the order of
 float32 roundings differs), NaN patterns exact; the sigma clip exactly
 (its kernel and plain version sum in one order); the fused smooth +
-interpolation 3e-5 / 1e-5 (the JAX kernels' own tolerance).
+interpolation 3e-5 / 1e-5 (the JAX kernels' own tolerance); the filled
+resample and the NaN chain of the fused convolve + reproject bitwise (they
+round in the plain version's order), its composed-operator branch 1e-5;
+the pipeline mode's planes bitwise equal to the moments kernel's and its
+cube to the fused convolve + reproject's.
 """
 
 import numpy as np
@@ -17,14 +21,18 @@ import torch
 import spectral_cube_tpu_torch as T
 from spectral_cube_tpu_torch import kernels as K
 from spectral_cube_tpu_torch.io.fits_low import Header
+from spectral_cube_tpu_torch.kernels import conv_reproject as kcr
 from spectral_cube_tpu_torch.kernels import conv_sep as kconv
 from spectral_cube_tpu_torch.kernels import moments as kmom
+from spectral_cube_tpu_torch.kernels import pipeline_fused as kpf
 from spectral_cube_tpu_torch.kernels import resample2 as kres
 from spectral_cube_tpu_torch.kernels import sigma_clip as kclip
 from spectral_cube_tpu_torch.kernels import smooth_interp as ksi
 from spectral_cube_tpu_torch.ops import convolve as tconv
 from spectral_cube_tpu_torch.ops import interpolate as tinterp
 from spectral_cube_tpu_torch.ops import moments as tmom
+from spectral_cube_tpu_torch.ops import pipeline_fused as tpf
+from spectral_cube_tpu_torch.ops import regrid as tregrid
 from spectral_cube_tpu_torch.ops import smoothing as tsmooth
 from spectral_cube_tpu_torch.wcs import WCS
 
@@ -293,3 +301,198 @@ def test_spectral_path_on_cuda_matches_cpu(cuda):
     # five 1-sigma clips keep ~8% of a Gaussian's samples
     assert int(both.sum()) > 0.03 * a.numel()
     torch.testing.assert_close(b[both], a[both], rtol=1e-5, atol=1e-5)
+
+
+def _equal(got, want):
+    got, want = got.cpu(), want.cpu()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+
+
+@pytest.mark.parametrize("ay,by,ax,bx", [(1.0, 0.37, 1.0, -1.61),
+                                         (0.93, 3.2, 1.07, -2.6)])
+@pytest.mark.parametrize("flags_given", [False, True])
+def test_filled_resample_kernel_matches_plain(cuda, ay, by, ax, bx,
+                                              flags_given):
+    """Bitwise, with fractional NaN weights, a channel whose weights are
+    all zero, the validity plane and zvalid."""
+    rng = np.random.RandomState(4)
+    fz = torch.as_tensor(rng.randn(5, 40, 67).astype(np.float32))
+    wz = torch.zeros_like(fz)
+    wz[1, 10, 20] = 0.25
+    wz[2, 3:9, 30:40] = 1.0
+    wz[4, 39, 66] = 0.75
+    ny, nx = 36, 70
+    ys = np.clip(np.arange(ny) * ay + by, 0, 39)
+    xs = np.clip(np.arange(nx) * ax + bx, 0, 66)
+    y0 = np.clip(np.floor(ys).astype(np.int64), 0, 38)
+    x0 = np.clip(np.floor(xs).astype(np.int64), 0, 65)
+    wy, wx = (ys - y0).astype(np.float32), (xs - x0).astype(np.float32)
+    valid = np.ones((ny, nx), bool)
+    valid[:2] = False
+    zvalid = np.array([1, 1, 1, 0, 1], bool)
+    want = kres.resample2_filled_plain(fz, wz, y0, wy, x0, wx, valid, zvalid)
+    wz_any = (wz != 0).flatten(1).any(1) if flags_given else None
+    n0 = kres.resample2_filled.launches
+    got = kres.resample2_filled(fz.to(cuda), wz.to(cuda), y0, wy, x0, wx,
+                                valid, zvalid, wz_any=wz_any)
+    assert kres.resample2_filled.launches == n0 + 1
+    _equal(got, want)
+    assert torch.isnan(want[2]).sum() > torch.isnan(want[0]).sum()
+
+
+def _gauss2d(sy, sx, theta, size):
+    x = np.arange(size) - size // 2
+    yy, xx = np.meshgrid(x, x, indexing="ij")
+    yr = yy * np.cos(theta) + xx * np.sin(theta)
+    xr = -yy * np.sin(theta) + xx * np.cos(theta)
+    k = np.exp(-0.5 * ((yr / sy) ** 2 + (xr / sx) ** 2))
+    return k / k.sum()
+
+
+def _axis_maps(n_out_y, n_out_x, ay, by, ax, bx):
+    ys = np.broadcast_to((np.arange(n_out_y) * ay + by)[:, None],
+                         (n_out_y, n_out_x)).astype(np.float64)
+    xs = np.broadcast_to((np.arange(n_out_x) * ax + bx)[None, :],
+                         (n_out_y, n_out_x)).astype(np.float64)
+    return ys.copy(), xs.copy()
+
+
+#: (ny_out, nx_out, ay, by, ax, bx) on a 45 x 70 input: a translation, a
+#: target with 1.5x larger pixels, one with 2x smaller pixels, a flipped y
+_MAPPINGS = {"shift": (45, 70, 1.0, 0.37, 1.0, -0.61),
+             "coarser": (31, 47, 1.5, 0.2, 1.5, -0.3),
+             "finer": (90, 140, 0.5, 0.1, 0.5, 0.3),
+             "flipped": (45, 70, -1.0, 43.7, 1.0, 0.4)}
+
+
+def _fused_case(mapping, nchan=6, theta=0.3, size=11):
+    rng = np.random.RandomState(7)
+    data = rng.randn(nchan, 45, 70).astype(np.float32) + 0.5
+    data[1, 3:7, 10:30] = np.nan          # a NaN channel
+    data[1, 0, 0] = np.nan
+    data[3] = np.nan                      # an all-NaN channel
+    data[4, 44, 69] = np.nan              # a NaN in a corner
+    ys, xs = _axis_maps(*_MAPPINGS[mapping])
+    k = _gauss2d(2.0, 1.2, theta, size)
+    return torch.as_tensor(data), k, ys, xs
+
+
+@pytest.mark.parametrize("mapping", list(_MAPPINGS))
+def test_conv_reproject_kernel_matches_plain(cuda, mapping):
+    """Clean channels within 1e-5 of the dense composed products, NaN
+    channels bitwise equal to the plain chain, an all-NaN channel NaN."""
+    x, k, ys, xs = _fused_case(mapping)
+    ops = tregrid._conv_reproject_operators(x.shape, k, ys, xs)
+    assert ops is not None
+    args = (ops.gy, ops.gx, ops.my, ops.mx, ops.ry, ops.rx, ops.valid)
+    want = kcr.conv_reproject_plain(x, *args)
+    n0 = kcr.conv_reproject.launches
+    got = kcr.conv_reproject(x.to(cuda), *args)
+    assert kcr.conv_reproject.launches == n0 + 1
+    _close(got, want, rtol=1e-5, atol=1e-5)
+    _equal(got[[1, 3, 4]], want[[1, 3, 4]])
+    assert torch.isnan(got[3]).all().item()
+    # the op on the card: the same kernel through convolve_reproject
+    op = tregrid.convolve_reproject_separable(x.to(cuda), k, ys, xs)
+    _equal(op, got)
+
+
+def test_plain_strips_kernel_two_groups(cuda):
+    rng = np.random.RandomState(3)
+    nchan, ny, nx, ny_out, nx_out = 7, 40, 70, 30, 50
+    x = torch.as_tensor(rng.randn(nchan, ny, nx).astype(np.float32))
+    band_y = np.abs(np.arange(ny_out)[:, None] * 1.2
+                    - np.arange(ny)[None]) < 3
+    band_x = np.abs(np.arange(nx_out)[:, None] * 1.3
+                    - np.arange(nx)[None]) < 4
+    My = (rng.rand(2, 3, ny_out, ny) * band_y).astype(np.float32)
+    Mx = (rng.rand(2, 3, nx_out, nx) * band_x).astype(np.float32)
+    My[1, :, 5] = 0.0
+    gi = np.array([1, 0, 1, 1, 0, 0, 1], np.int32)
+    yb, xb = kcr.bands_of(My), kcr.bands_of(Mx)
+    want = kcr.plain_strips_plain(x, yb, xb, gi)
+    n0 = kcr.plain_strips.launches
+    got = kcr.plain_strips(x.to(cuda), yb, xb, gi)
+    assert kcr.plain_strips.launches == n0 + 1
+    _close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mapping", ["shift", "coarser", "finer"])
+@pytest.mark.parametrize("mask", ["fused", "include"])
+def test_pipeline_fused_kernel_equals_the_chain_kernels(cuda, mapping, mask):
+    """Planes bitwise equal to the moments kernel's, the cube bitwise equal
+    to the fused convolve + reproject kernel's, both on the card, with the
+    mask fused (> 0.25) or as an include array (a data-local mask the
+    kernel does not fuse); and within tolerance of the plain versions."""
+    x, k, ys, xs = _fused_case(mapping, nchan=70)
+    xc = np.linspace(-3.0, 5.0, x.shape[0])
+    ops = tregrid._conv_reproject_operators(x.shape, k, ys, xs)
+    args = (ops.gy, ops.gx, ops.my, ops.mx, ops.ry, ops.rx, ops.valid)
+    op, thr, inc = (1, 0.25, None) if mask == "fused" else (
+        0, 0.0, (x > 0.25) & (x < 1.5))
+    xg = x.to(cuda)
+    incg = None if inc is None else inc.to(cuda)
+    n0 = kpf.pipeline_fused.launches
+    out, planes, cnt = kpf.pipeline_fused(xg, *args, xc, op, thr, incg)
+    assert kpf.pipeline_fused.launches == n0 + 1
+    kplanes, kcnt = kmom.moments_planes(xg, xc, op, thr, incg, True)
+    assert torch.equal(cnt, kcnt)
+    assert torch.equal(planes, kplanes)
+    _equal(out, kcr.conv_reproject(xg, *args))
+    wout, wplanes, wcnt = kpf.pipeline_fused_plain(x, *args, xc, op, thr,
+                                                   inc)
+    _close(out, wout, rtol=1e-5, atol=1e-5)
+    assert torch.equal(cnt.cpu(), wcnt)
+    fin_g = tmom.finalize_planes(planes.cpu(), cnt.cpu(), 0.0, 1.0, True)
+    fin_w = tmom.finalize_planes(wplanes, wcnt, 0.0, 1.0, True)
+    for a, b in zip(fin_g[:3], fin_w[:3]):
+        _close(a, b, rtol=3e-6, atol=1e-6)
+
+
+def test_fused_pipeline_op_on_cuda_matches_cpu(cuda):
+    """moments_conv_reproject_fused on a CUDA cube launches the pipeline
+    kernel only and agrees with the CPU run (plain versions)."""
+    x, k, ys, xs = _fused_case("shift", nchan=40)
+    coords = np.arange(40) * 0.5
+    mask = T.LazyComparisonMask(torch.gt, 0.25, shape=tuple(x.shape))
+    want = tpf.moments_conv_reproject_fused(x, k, ys, xs, coords, 0.5,
+                                            mask_expr=mask)
+    K.reset_launch_counts()
+    got = tpf.moments_conv_reproject_fused(x.to(cuda), k, ys, xs, coords,
+                                           0.5, mask_expr=mask)
+    counts = K.launch_counts()
+    assert counts["pipeline_fused"] == 1 and counts["moments"] == 0, counts
+    _close(got[0], want[0], rtol=1e-5, atol=1e-5)
+    for a, b in zip(got[1:4], want[1:4]):
+        _close(a, b, rtol=3e-6, atol=1e-6)
+    for key in ("npts", "mean", "sigma", "min", "max"):
+        np.testing.assert_allclose(float(got[4][key]), float(want[4][key]),
+                                   rtol=3e-6)
+
+
+def test_reproject_new_spectral_axis_on_cuda_matches_cpu(cuda):
+    """cube.reproject onto a coarser, offset spectral axis and a shifted
+    grid launches the filled resample once and agrees bitwise with the
+    CPU run."""
+    nchan, ny, nx = 40, 30, 36
+    rng = np.random.RandomState(2)
+    data = rng.randn(nchan, ny, nx).astype(np.float32)
+    data[7, 4:9, 5] = np.nan
+    data[:, 0, :3] = np.nan
+    h = _header(nchan, ny, nx)
+    t = Header(h)
+    t["NAXIS3"] = 19
+    t["CDELT3"] = 2 * h["CDELT3"]
+    t["CRVAL3"] = h["CRVAL3"] + 0.25 * h["CDELT3"]
+    t["CRPIX1"] = h["CRPIX1"] + 0.37
+    t["CRPIX2"] = h["CRPIX2"] - 0.61
+    out = {}
+    for dev in ("cpu", cuda):
+        cube = T.SpectralCube(data, WCS(header=h), header=h, device=dev)
+        K.reset_launch_counts()
+        out[str(dev)] = cube.reproject(t)._data
+        counts = K.launch_counts()
+        if str(dev) != "cpu":
+            assert counts["resample2_filled"] == 1, counts
+    _equal(out[str(cuda)], out["cpu"])

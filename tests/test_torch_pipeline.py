@@ -147,9 +147,9 @@ def test_run_pipeline_matches_jax(fits_path):
                                    rtol=2e-5, atol=1e-7)
     _assert_cubes(tres["cube"]._data.numpy(), jres["cube"]._data, 1e-5)
     assert str(tres["moments"][0].unit) == str(jres["moments"][0].unit)
-    assert K.launch_counts() == {"moments": 0, "conv_sep": 0,
-                                 "resample2": 0, "sigma_clip": 0,
-                                 "smooth_interp": 0}
+    counts = K.launch_counts()
+    assert {"moments", "conv_sep", "resample2"} <= set(counts)
+    assert all(n == 0 for n in counts.values()), counts
 
 
 def test_run_pipeline_noise_from_mad_std(fits_path):
