@@ -968,11 +968,11 @@ def phase_reproject_spectral(dev, workdir, results):
     want = kr.resample2_filled_plain(fz, wz, *taps, valid, zvalid)
     compare("stage reproject (new spectral axis) vs plain", rep._data, want,
             0.0)
-    got = kr.resample2_filled(fz, wz, *taps, valid, zvalid, wz_any=wz_any)
+    got = kr.resample2_filled(fz, wz, wz_any, *taps, valid, zvalid)
     err, _ = compare("resample2_filled vs plain", got, want, 0.0)
     del got, want, rep
-    ms = cuda_ms(lambda: kr.resample2_filled(fz, wz, *taps, valid, zvalid,
-                                             wz_any=wz_any), 7)
+    ms = cuda_ms(lambda: kr.resample2_filled(fz, wz, wz_any, *taps, valid,
+                                             zvalid), 7)
     pms = cuda_ms(lambda: kr.resample2_filled_plain(fz, wz, *taps, valid,
                                                     zvalid), 3)
     lib_ms = cuda_ms(grid_sample_call(fz, taps), 3)

@@ -74,7 +74,8 @@ struct SctAxis {
   const int* off;     // (tiles + 1,) tile t holds perm[off[t] .. off[t+1])
   const int* win0;    // (groups, tiles) first input index of each window
   const int* start;   // (groups, n_out) first input index of each G band
-  const float* taps;  // (groups, rank, n_out, width) G band weights
+  const float* taps;  // G band weights: (groups, rank, n_out, width) for
+                      // y, tap-major (groups, rank, width, n_out) for x
   const float* ktaps; // (rank, klen) flipped convolution taps (modes 0, 2)
   const int* i0;      // (n_out,) resample row: weights w0 at i0, w1 at i0+1
   const float* w0;
@@ -164,11 +165,14 @@ __global__ void chan_flags_kernel(const float* __restrict__ data,
 }
 
 // The clean branch for the block's outputs: rows[0..nr) x cols[0..nc),
-// sum over ranks of the y pass into t and the x pass into registers.
+// sum over ranks of the y pass into t (a warp per output row, the lanes
+// along the window's columns, the row's taps broadcast) and the x pass
+// into registers (the x taps stored tap-major, so the lanes' loads of
+// neighbouring columns' taps coalesce).
 __device__ __forceinline__ void clean_branch(
     const SctConvReproject& a, const Layout& L, float* sm, int g, int wy0,
     int wx0, int nr, int nc, float* __restrict__ O) {
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int* rows = (const int*)sm + L.rows;
   const int* cols = (const int*)sm + L.cols;
   const float* vin = sm + L.vin;
@@ -178,35 +182,45 @@ __device__ __forceinline__ void clean_branch(
   const int ny_out = a.y.n_out, nx_out = a.x.n_out;
   for (int k0 = 0; k0 < nr; k0 += L.rpp) {
     const int nk = min(L.rpp, nr - k0);
+    // this thread's outputs of the pass: t offset and column
     float acc[kMaxOut];
+    int toff[kMaxOut], col[kMaxOut];
 #pragma unroll
-    for (int m = 0; m < kMaxOut; ++m) acc[m] = 0.f;
+    for (int m = 0; m < kMaxOut; ++m) {
+      acc[m] = 0.f;
+      toff[m] = col[m] = -1;
+      const int e = tid + m * kThreads;
+      if (e < nk * nc) {
+        const int kk = e / nc;
+        col[m] = cols[e - kk * nc];
+        toff[m] = kk * sx + a.x.start[(long long)g * nx_out + col[m]] - wx0;
+      }
+    }
     for (int i = 0; i < a.rank; ++i) {
-      for (int e = tid; e < nk * sx; e += kThreads) {
-        const int kk = e / sx;
-        const int q = e - kk * sx;
+      for (int kk = warp; kk < nk; kk += kThreads / 32) {
         const int row = rows[k0 + kk];
-        const int s = a.y.start[(long long)g * ny_out + row] - wy0;
+        const float* base =
+            vin + (a.y.start[(long long)g * ny_out + row] - wy0) * sx;
         const float* tp =
             a.y.taps + (((long long)g * a.rank + i) * ny_out + row) * wy;
-        float v = 0.f;
-        for (int o = 0; o < wy; ++o)
-          v = fmaf(__ldg(tp + o), vin[(s + o) * sx + q], v);
-        t[e] = v;
+        for (int q = lane; q < sx; q += 32) {
+          float v = 0.f;
+          for (int o = 0; o < wy; ++o)
+            v = fmaf(__ldg(tp + o), base[o * sx + q], v);
+          t[kk * sx + q] = v;
+        }
       }
       __syncthreads();
+      const float* taps =
+          a.x.taps + ((long long)g * a.rank + i) * wx * nx_out;
 #pragma unroll
       for (int m = 0; m < kMaxOut; ++m) {
-        const int e = tid + m * kThreads;
-        if (e < nk * nc) {
-          const int kk = e / nc;
-          const int col = cols[e - kk * nc];
-          const int s = a.x.start[(long long)g * nx_out + col] - wx0;
-          const float* tp =
-              a.x.taps + (((long long)g * a.rank + i) * nx_out + col) * wx;
-          const float* tr = t + kk * sx + s;
+        if (toff[m] >= 0) {
+          const float* tr = t + toff[m];
+          const float* tp = taps + col[m];
           float v = 0.f;
-          for (int o = 0; o < wx; ++o) v = fmaf(__ldg(tp + o), tr[o], v);
+          for (int o = 0; o < wx; ++o)
+            v = fmaf(__ldg(tp + (long long)o * nx_out), tr[o], v);
           acc[m] += v;
         }
       }
@@ -214,12 +228,9 @@ __device__ __forceinline__ void clean_branch(
     }
 #pragma unroll
     for (int m = 0; m < kMaxOut; ++m) {
-      const int e = tid + m * kThreads;
-      if (e < nk * nc) {
-        const int kk = e / nc;
-        const int row = rows[k0 + kk];
-        const int col = cols[e - kk * nc];
-        const long long p = (long long)row * nx_out + col;
+      if (toff[m] >= 0) {
+        const int kk = (tid + m * kThreads) / nc;
+        const long long p = (long long)rows[k0 + kk] * nx_out + col[m];
         const bool ok = a.valid == nullptr || a.valid[p] != 0;
         O[p] = ok ? acc[m] : NAN;
       }
@@ -362,7 +373,8 @@ conv_reproject_kernel(const SctConvReproject a) {
       }
       continue;
     }
-    // stage the window: values with NaN as 0, and the NaN flags
+    // stage the window: values with NaN as 0, and, for a channel that
+    // holds NaN, the NaN flags
     bool bad = false;
     for (int e = tid; e < sy * sx; e += kThreads) {
       const int r = e / sx;
@@ -371,7 +383,7 @@ conv_reproject_kernel(const SctConvReproject a) {
       float v = 0.f, b = 0.f;
       if (gy >= 0 && gy < ny_in && gx >= 0 && gx < nx_in) {
         const float d = Z[(long long)gy * nx_in + gx];
-        if (kMode != 1 && isnan(d)) {
+        if (kMode != 1 && dirty && isnan(d)) {
           b = 1.f;
           bad = true;
         } else {
@@ -379,7 +391,7 @@ conv_reproject_kernel(const SctConvReproject a) {
         }
       }
       vin[e] = v;
-      bin[e] = b;
+      if (dirty) bin[e] = b;
     }
     const bool has_bad = __syncthreads_or(bad);
     if (kMode == 2) {
@@ -387,7 +399,7 @@ conv_reproject_kernel(const SctConvReproject a) {
       if (j == 0) acc.begin_chunk();
       if (mine) {
         const int w = (my - wy0) * sx + (mx - wx0);
-        const float v = bin[w] != 0.f ? NAN : vin[w];
+        const float v = dirty && bin[w] != 0.f ? NAN : vin[w];
         bool ok = isfinite(v) && sct::passes(v, a.cmp_op, a.thr);
         if (a.include != nullptr)
           ok = ok && a.include[(long long)c * plane +

@@ -30,9 +30,9 @@
 //   out = sum w * fz,  NaN where sum w * wz > 1e-6, where valid_plane is 0
 //         and where zvalid[channel] is 0
 //
-// with the same taps.  A channel whose wz is all zero (flag 0) never reads
-// wz, as the TPU kernel skips its weight pass (banded_pallas.py:876); the
-// flags come from the caller or from a pre-pass over wz.  Bound by device
+// with the same taps.  A channel whose wz is all zero (flag 0, from the
+// caller) never reads wz, as the TPU kernel skips its weight pass
+// (banded_pallas.py:876).  Bound by device
 // memory: fz and wz read once, out written once.  Both entries add in the
 // plain version's order with __fmul_rn/__fadd_rn (no FMA contraction), so
 // the filled entry and kernels/resample2.py::resample2_filled_plain agree
@@ -92,25 +92,6 @@ resample2_kernel(const float* __restrict__ raw, const int* __restrict__ y0,
   const float nb = gy * (float)isnan(zab) + fy * (float)isnan(zbb);
   const float wn = gx * na + fx * nb;
   out[o] = wn > kPoison ? NAN : v;
-}
-
-// Per-channel flag: 1 where wz holds a nonzero weight.
-__global__ void weight_flags_kernel(const float* __restrict__ wz,
-                                    long long plane, int blocks_per_chan,
-                                    int* __restrict__ flags) {
-  const int c = blockIdx.x / blocks_per_chan;
-  const int b = blockIdx.x - c * blocks_per_chan;
-  const float* w = wz + (long long)c * plane;
-  bool any = false;
-  for (long long i = (long long)b * blockDim.x + threadIdx.x; i < plane;
-       i += (long long)blocks_per_chan * blockDim.x) {
-    if (w[i] != 0.f) {
-      any = true;
-      break;
-    }
-  }
-  any = __syncthreads_or(any);
-  if (any && threadIdx.x == 0) atomicOr(flags + c, 1);
 }
 
 // a * ga + b * fa in the plain version's order: two rounded products, one
@@ -191,33 +172,21 @@ extern "C" int sct_resample2(const void* raw, const void* y0, const void* wy,
 }
 
 // fz/wz: (nchan, ny_in, nx_in) float32, fz NaN-filled, wz its NaN weights;
-// wflags: (nchan,) int32, 1 where wz may be nonzero, or filled here from wz
-// when compute_flags is set; the other arguments as sct_resample2.
+// wflags: (nchan,) int32, 0 where the channel's wz is all zero; the other
+// arguments as sct_resample2.
 extern "C" int sct_resample2_filled(const void* fz, const void* wz,
-                                    void* wflags, int compute_flags,
-                                    const void* y0, const void* wy,
-                                    const void* x0, const void* wx,
-                                    const void* valid_plane,
+                                    const void* wflags, const void* y0,
+                                    const void* wy, const void* x0,
+                                    const void* wx, const void* valid_plane,
                                     const void* zvalid, int nchan, int ny_in,
                                     int nx_in, int ny_out, int nx_out,
                                     void* out, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
   if (nchan <= 0 || ny_out <= 0 || nx_out <= 0) return (int)cudaSuccess;
-  if (compute_flags) {
-    const long long plane = (long long)ny_in * nx_in;
-    cudaError_t err = cudaMemsetAsync(wflags, 0, sizeof(int) * nchan, s);
-    if (err != cudaSuccess) return (int)err;
-    const int per_chan =
-        (int)((plane + 1023) / 1024 < 64 ? (plane + 1023) / 1024 : 64);
-    weight_flags_kernel<<<nchan * per_chan, 256, 0, s>>>(
-        (const float*)wz, plane, per_chan, (int*)wflags);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
   const int tiles_x = (nx_out + kTileX - 1) / kTileX;
   const int tiles_y = (ny_out + kTileY - 1) / kTileY;
   const long long blocks = (long long)tiles_x * tiles_y * nchan;
-  resample2_filled_kernel<<<(unsigned)blocks, dim3(kTileX, kTileY), 0, s>>>(
+  resample2_filled_kernel<<<(unsigned)blocks, dim3(kTileX, kTileY), 0,
+                            (cudaStream_t)stream>>>(
       (const float*)fz, (const float*)wz, (const int*)wflags,
       (const int*)y0, (const float*)wy, (const int*)x0, (const float*)wx,
       (const uint8_t*)valid_plane, (const uint8_t*)zvalid, ny_in, nx_in,

@@ -70,8 +70,8 @@ def _declare(lib):
     lib.sct_conv_sep.restype = I
     lib.sct_resample2.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, P, P]
     lib.sct_resample2.restype = I
-    lib.sct_resample2_filled.argtypes = [P, P, P, I, P, P, P, P, P, P, I, I,
-                                         I, I, I, P, P]
+    lib.sct_resample2_filled.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I,
+                                         I, I, P, P]
     lib.sct_resample2_filled.restype = I
     lib.sct_sigma_clip_work.argtypes = [I]
     lib.sct_sigma_clip_work.restype = LL

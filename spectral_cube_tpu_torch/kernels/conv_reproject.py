@@ -34,7 +34,7 @@ import torch
 from ..utils import ieee_fp32
 from ._build import load_library, check, ptr, stream_ptr
 from .conv_sep import DEN_EPS, _apply
-from .resample2 import POISON
+from .resample2 import POISON, lerp2
 
 __all__ = ["Bands", "ConvTaps", "Rows2", "bands_of", "conv_reproject",
            "conv_reproject_plain", "plain_strips", "plain_strips_plain",
@@ -244,7 +244,11 @@ def _axis_plan(n_in, bands, tile, conv=None, i0=None, by_input=False):
                 max_count=int(np.diff(off).max()) if n_out else 0)
 
 
-def _axis_struct(plan, n_in, n_out, bands, conv, rows, keep, dev):
+def _axis_struct(plan, n_in, n_out, bands, conv, rows, keep, dev,
+                 tap_major=False):
+    """The :class:`_Axis` of one axis, its arrays copied to ``dev`` (and
+    kept alive in ``keep``); ``tap_major`` stores the G taps (G, r, W,
+    n_out), as the kernel reads the x axis's."""
     def t(a, dtype):
         v = torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
         keep.append(v)
@@ -255,7 +259,8 @@ def _axis_struct(plan, n_in, n_out, bands, conv, rows, keep, dev):
     s.off = t(plan["off"], torch.int32)
     s.win0 = t(plan["win0"], torch.int32)
     s.start = t(plan["start"], torch.int32)
-    s.taps = t(bands.taps, torch.float32)
+    s.taps = t(np.transpose(bands.taps, (0, 1, 3, 2)) if tap_major
+               else bands.taps, torch.float32)
     s.n_in, s.n_out = n_in, n_out
     s.tiles, s.span, s.max_count = (plan["tiles"], plan["span"],
                                     plan["max_count"])
@@ -332,7 +337,8 @@ def _launch(mode, raw, gy, gx, chain, valid_plane, group_idx=None,
             "the conv_reproject kernel's input window does not fit one "
             "block's shared memory at this rescaling")
     a.y = _axis_struct(py, ny_in, ny_out, gy, my, ry, keep, dev)
-    a.x = _axis_struct(px, nx_in, nx_out, gx, mx, rx, keep, dev)
+    a.x = _axis_struct(px, nx_in, nx_out, gx, mx, rx, keep, dev,
+                       tap_major=True)
     a.raw = ptr(raw)
     if group_idx is not None:
         gi = torch.as_tensor(group_idx, dtype=torch.int32, device=dev)
@@ -402,23 +408,6 @@ def plain_strips_plain(x, ybands, xbands, group_idx):
                         np.asarray(group_idx, dtype=np.int64))
 
 
-def _lerp_rows(a, ry, rx):
-    """The 2-tap resample of (c, ny_in, nx_in) planes: y taps, then x
-    taps, each a sum of two rounded products (the kernel's order)."""
-    dev = a.device
-    _, ny_in, nx_in = a.shape
-    ya = torch.as_tensor(np.asarray(ry.i0, np.int64), device=dev)
-    yb = torch.clamp(ya + 1, max=ny_in - 1)
-    xa = torch.as_tensor(np.asarray(rx.i0, np.int64), device=dev)
-    xb = torch.clamp(xa + 1, max=nx_in - 1)
-    gy = torch.as_tensor(np.asarray(ry.w0, np.float32), device=dev)[:, None]
-    fy = torch.as_tensor(np.asarray(ry.w1, np.float32), device=dev)[:, None]
-    gx = torch.as_tensor(np.asarray(rx.w0, np.float32), device=dev)
-    fx = torch.as_tensor(np.asarray(rx.w1, np.float32), device=dev)
-    t = gy * a[:, ya, :] + fy * a[:, yb, :]
-    return gx * t[:, :, xa] + fx * t[:, :, xb]
-
-
 def _chain(x, my, mx, ry, rx):
     """The exact chain on channels that hold NaN: normalized convolution
     (conv_sep's ``_apply``, y taps, x taps, ranks in order), 0 where den
@@ -433,8 +422,8 @@ def _chain(x, my, mx, ry, rx):
                        int(mx.half))
     nanc = den <= DEN_EPS
     c = torch.where(nanc, 0.0, num / torch.where(nanc, 1.0, den))
-    val = _lerp_rows(c, ry, rx)
-    wn = _lerp_rows(nanc.to(torch.float32), ry, rx)
+    val = lerp2(c, ry, rx)
+    wn = lerp2(nanc.to(torch.float32), ry, rx)
     return torch.where(wn > POISON, float("nan"), val)
 
 

@@ -17,7 +17,7 @@ import torch
 from ._build import load_library, check, ptr, stream_ptr
 
 __all__ = ["resample2", "resample2_plain", "resample2_filled",
-           "resample2_filled_plain", "POISON"]
+           "resample2_filled_plain", "lerp2", "POISON"]
 
 #: NaN-weight threshold of the poisoning rule (banded_pallas.py:45)
 POISON = 1e-6
@@ -86,22 +86,31 @@ def resample2(raw, y0, wy, x0, wx, valid_plane, zvalid=None):
 resample2.launches = 0
 
 
-def _lerp2(y0, wy, x0, wx, ny_in, nx_in, dev):
-    """The 2-tap lerp of (c, ny_in, nx_in) planes: y taps first, then x
-    taps, each a sum of two rounded products."""
-    ya = torch.as_tensor(y0, device=dev)
-    yb = torch.clamp(ya + 1, max=ny_in - 1)
-    xa = torch.as_tensor(x0, device=dev)
-    xb = torch.clamp(xa + 1, max=nx_in - 1)
-    fy = torch.as_tensor(wy, device=dev)[None, :, None]
-    fx = torch.as_tensor(wx, device=dev)
-    gy, gx = 1.0 - fy, 1.0 - fx
+def lerp2(a, ry, rx):
+    """The 2-tap resample of (c, ny_in, nx_in) planes ``a``: y taps, then x
+    taps, each a sum of two rounded products, in the kernels' order.
+    ``ry``/``rx``: ``(i0, w0, w1)``, weight ``w0`` at ``i0`` and ``w1`` at
+    ``i0 + 1`` (clipped to the plane)."""
+    dev = a.device
+    _, ny_in, nx_in = a.shape
 
-    def lerp(a):
-        t = gy * a[:, ya, :] + fy * a[:, yb, :]
-        return gx * t[:, :, xa] + fx * t[:, :, xb]
+    def taps(rows, n_in, shape):
+        i0 = torch.as_tensor(np.asarray(rows[0], np.int64), device=dev)
+        w0, w1 = (torch.as_tensor(np.asarray(w, np.float32),
+                                  device=dev).reshape(shape)
+                  for w in rows[1:])
+        return i0, torch.clamp(i0 + 1, max=n_in - 1), w0, w1
 
-    return lerp
+    ya, yb, gy, fy = taps(ry, ny_in, (-1, 1))
+    xa, xb, gx, fx = taps(rx, nx_in, (-1,))
+    t = gy * a[:, ya, :] + fy * a[:, yb, :]
+    return gx * t[:, :, xa] + fx * t[:, :, xb]
+
+
+def _rows(i0, w):
+    """``(i0, 1 - w, w)`` in float32, as the kernels form the weights."""
+    w = np.asarray(w, np.float32)
+    return i0, np.float32(1.0) - w, w
 
 
 def _validity(out, valid_plane, zvalid):
@@ -117,11 +126,10 @@ def resample2_plain(raw, y0, wy, x0, wx, valid_plane, zvalid=None):
         raise ValueError(f"raw must be (nchan, ny, nx), got {tuple(raw.shape)}")
     y0, wy, x0, wx, valid_plane, zvalid = _host_taps(
         raw, y0, wy, x0, wx, valid_plane, zvalid)
-    _, ny_in, nx_in = raw.shape
-    lerp = _lerp2(y0, wy, x0, wx, ny_in, nx_in, raw.device)
+    ry, rx = _rows(y0, wy), _rows(x0, wx)
     z = raw.to(torch.float32)
-    val = lerp(torch.nan_to_num(z))
-    wn = lerp(torch.isnan(z).to(torch.float32))
+    val = lerp2(torch.nan_to_num(z), ry, rx)
+    wn = lerp2(torch.isnan(z).to(torch.float32), ry, rx)
     out = torch.where(wn > POISON, float("nan"), val)
     return _validity(out, valid_plane, zvalid)
 
@@ -132,17 +140,18 @@ def _check_filled(fz, wz):
                          f"{tuple(fz.shape)} and {tuple(wz.shape)}")
 
 
-def resample2_filled(fz, wz, y0, wy, x0, wx, valid_plane, zvalid=None,
-                     wz_any=None):
+def resample2_filled(fz, wz, wz_any, y0, wy, x0, wx, valid_plane,
+                     zvalid=None):
     """(nchan, ny_out, nx_out) resample of NaN-filled ``fz`` with its
     NaN-weight plane ``wz``: out = sum w * fz, NaN where sum w * wz exceeds
     :data:`POISON`, where ``valid_plane`` is False and where ``zvalid`` is
-    False.  ``wz_any``: optional (nchan,) bool tensor, False where the
-    channel's ``wz`` is all zero (its weight taps are then skipped);
-    computed from ``wz`` on the card when not given.  A CPU tensor takes
-    the plain version; a CUDA tensor the kernel."""
+    False.  ``wz_any``: (nchan,) bool, False only where the channel's
+    ``wz`` is all zero (the kernel then skips its weight taps).  A CPU
+    tensor takes the plain version; a CUDA tensor the kernel."""
     _check_filled(fz, wz)
     taps = _host_taps(fz, y0, wy, x0, wx, valid_plane, zvalid)
+    if tuple(wz_any.shape) != (fz.shape[0],):
+        raise ValueError("wz_any must hold one flag per channel")
     if fz.device.type == "cpu":
         return resample2_filled_plain(fz, wz, *taps)
     if fz.device.type != "cuda":
@@ -162,13 +171,7 @@ def resample2_filled(fz, wz, y0, wy, x0, wx, valid_plane, zvalid=None,
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                device=dev)
 
-    if wz_any is None:
-        flags = torch.empty(nchan, dtype=torch.int32, device=dev)
-    else:
-        flags = torch.as_tensor(wz_any, device=dev).to(torch.int32)
-        if flags.shape != (nchan,):
-            raise ValueError("wz_any must hold one flag per channel")
-        flags = flags.contiguous()
+    flags = torch.as_tensor(wz_any, device=dev).to(torch.int32).contiguous()
     y0_t, x0_t = dev_t(y0, torch.int32), dev_t(x0, torch.int32)
     wy_t, wx_t = dev_t(wy, torch.float32), dev_t(wx, torch.float32)
     vp_t = dev_t(valid_plane, torch.uint8)
@@ -176,9 +179,9 @@ def resample2_filled(fz, wz, y0, wy, x0, wx, valid_plane, zvalid=None,
     out = torch.empty((nchan, ny_out, nx_out), dtype=torch.float32,
                       device=dev)
     err = lib.sct_resample2_filled(
-        ptr(fz), ptr(wz), ptr(flags), int(wz_any is None), ptr(y0_t),
-        ptr(wy_t), ptr(x0_t), ptr(wx_t), ptr(vp_t), ptr(zv_t), nchan, ny_in,
-        nx_in, ny_out, nx_out, ptr(out), stream_ptr(dev))
+        ptr(fz), ptr(wz), ptr(flags), ptr(y0_t), ptr(wy_t), ptr(x0_t),
+        ptr(wx_t), ptr(vp_t), ptr(zv_t), nchan, ny_in, nx_in, ny_out, nx_out,
+        ptr(out), stream_ptr(dev))
     check(err, "sct_resample2_filled")
     resample2_filled.launches += 1
     return out
@@ -193,9 +196,8 @@ def resample2_filled_plain(fz, wz, y0, wy, x0, wx, valid_plane, zvalid=None):
     _check_filled(fz, wz)
     y0, wy, x0, wx, valid_plane, zvalid = _host_taps(
         fz, y0, wy, x0, wx, valid_plane, zvalid)
-    _, ny_in, nx_in = fz.shape
-    lerp = _lerp2(y0, wy, x0, wx, ny_in, nx_in, fz.device)
-    val = lerp(fz.to(torch.float32))
-    wn = lerp(wz.to(torch.float32))
+    ry, rx = _rows(y0, wy), _rows(x0, wx)
+    val = lerp2(fz.to(torch.float32), ry, rx)
+    wn = lerp2(wz.to(torch.float32), ry, rx)
     out = torch.where(wn > POISON, float("nan"), val)
     return _validity(out, valid_plane, zvalid)

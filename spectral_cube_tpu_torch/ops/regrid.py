@@ -133,8 +133,7 @@ def _bilinear_spatial_then_linear_z(data, zs, ys, xs, order):
     if z_identity:
         return resample2(data, *taps, yvalid & xvalid, zvalid)
     fz, wz, wz_any = _zlerp_filled(data, z0, zf)
-    return resample2_filled(fz, wz, *taps, yvalid & xvalid, zvalid,
-                            wz_any=wz_any)
+    return resample2_filled(fz, wz, wz_any, *taps, yvalid & xvalid, zvalid)
 
 
 def _zlerp_filled(data, z0, zf):

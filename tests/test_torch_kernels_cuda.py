@@ -311,11 +311,12 @@ def _equal(got, want):
 
 @pytest.mark.parametrize("ay,by,ax,bx", [(1.0, 0.37, 1.0, -1.61),
                                          (0.93, 3.2, 1.07, -2.6)])
-@pytest.mark.parametrize("flags_given", [False, True])
+@pytest.mark.parametrize("flag_all", [False, True])
 def test_filled_resample_kernel_matches_plain(cuda, ay, by, ax, bx,
-                                              flags_given):
-    """Bitwise, with fractional NaN weights, a channel whose weights are
-    all zero, the validity plane and zvalid."""
+                                              flag_all):
+    """Bitwise, with fractional NaN weights, channels whose weights are all
+    zero (flagged as such, or flagged like the others), the validity plane
+    and zvalid."""
     rng = np.random.RandomState(4)
     fz = torch.as_tensor(rng.randn(5, 40, 67).astype(np.float32))
     wz = torch.zeros_like(fz)
@@ -332,10 +333,12 @@ def test_filled_resample_kernel_matches_plain(cuda, ay, by, ax, bx,
     valid[:2] = False
     zvalid = np.array([1, 1, 1, 0, 1], bool)
     want = kres.resample2_filled_plain(fz, wz, y0, wy, x0, wx, valid, zvalid)
-    wz_any = (wz != 0).flatten(1).any(1) if flags_given else None
+    wz_any = (wz != 0).flatten(1).any(1)
+    if flag_all:
+        wz_any[:] = True
     n0 = kres.resample2_filled.launches
-    got = kres.resample2_filled(fz.to(cuda), wz.to(cuda), y0, wy, x0, wx,
-                                valid, zvalid, wz_any=wz_any)
+    got = kres.resample2_filled(fz.to(cuda), wz.to(cuda), wz_any, y0, wy,
+                                x0, wx, valid, zvalid)
     assert kres.resample2_filled.launches == n0 + 1
     _equal(got, want)
     assert torch.isnan(want[2]).sum() > torch.isnan(want[0]).sum()

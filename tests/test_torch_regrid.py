@@ -183,7 +183,8 @@ def test_filled_resample_matches_pallas_kernel(dense_x):
         jnp.asarray(fz), jnp.asarray(wz), my[None, None], mx[None, None],
         np.zeros(nz, np.int32), interpret=True, dense_x=dense_x))
     valid = np.ones((ny_out, nx_out), bool)
-    got = kres.resample2_filled(torch.as_tensor(fz), torch.as_tensor(wz), y0,
+    got = kres.resample2_filled(torch.as_tensor(fz), torch.as_tensor(wz),
+                                torch.as_tensor((wz != 0).any((1, 2))), y0,
                                 wy, x0, wx, valid).numpy()
     exp = np.einsum("ab,cbx,vx->cav", my.astype(np.float64),
                     fz.astype(np.float64), mx.astype(np.float64))
