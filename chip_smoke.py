@@ -965,7 +965,11 @@ def phase_reproject_spectral(dev, workdir, results):
     valid = maps[4] & maps[5]
     fz, wz, wz_any = og._zlerp_filled(src, z0, zf)
     del src
-    want = kr.resample2_filled_plain(fz, wz, *taps, valid, zvalid)
+    # the kernel reads wz only in flagged channels: the flags must be
+    # exactly the channels whose weight plane is not all zero
+    if not torch.equal(wz_any, (wz != 0).flatten(1).any(1)):
+        raise AssertionError("weight flags differ from the weight planes")
+    want = kr.resample2_filled_plain(fz, wz, wz_any, *taps, valid, zvalid)
     compare("stage reproject (new spectral axis) vs plain", rep._data, want,
             0.0)
     got = kr.resample2_filled(fz, wz, wz_any, *taps, valid, zvalid)
@@ -973,8 +977,8 @@ def phase_reproject_spectral(dev, workdir, results):
     del got, want, rep
     ms = cuda_ms(lambda: kr.resample2_filled(fz, wz, wz_any, *taps, valid,
                                              zvalid), 7)
-    pms = cuda_ms(lambda: kr.resample2_filled_plain(fz, wz, *taps, valid,
-                                                    zvalid), 3)
+    pms = cuda_ms(lambda: kr.resample2_filled_plain(fz, wz, wz_any, *taps,
+                                                    valid, zvalid), 3)
     lib_ms = cuda_ms(grid_sample_call(fz, taps), 3)
     bms, by = filled_bound(fz, wz_any, nz * valid.size)
     log(f"  resample2_filled {nz}x{NY}x{NX} ({int(wz_any.sum())} channels "

@@ -30,9 +30,11 @@
 //   out = sum w * fz,  NaN where sum w * wz > 1e-6, where valid_plane is 0
 //         and where zvalid[channel] is 0
 //
-// with the same taps.  A channel whose wz is all zero (flag 0, from the
-// caller) never reads wz, as the TPU kernel skips its weight pass
-// (banded_pallas.py:876).  Bound by device
+// with the same taps, the poison test only in channels whose flag is 1.
+// The caller flags every channel whose wz is not all zero; an unflagged
+// channel never reads wz, as the TPU kernel skips its weight pass for an
+// all-zero block (banded_pallas.py:876), and the plain version skips the
+// test in the same channels.  Bound by device
 // memory: fz and wz read once, out written once.  Both entries add in the
 // plain version's order with __fmul_rn/__fadd_rn (no FMA contraction), so
 // the filled entry and kernels/resample2.py::resample2_filled_plain agree
@@ -172,7 +174,8 @@ extern "C" int sct_resample2(const void* raw, const void* y0, const void* wy,
 }
 
 // fz/wz: (nchan, ny_in, nx_in) float32, fz NaN-filled, wz its NaN weights;
-// wflags: (nchan,) int32, 0 where the channel's wz is all zero; the other
+// wflags: (nchan,) int32, 1 where the channel's wz takes the poison test
+// (at least wherever wz is not all zero); the other
 // arguments as sct_resample2.
 extern "C" int sct_resample2_filled(const void* fz, const void* wz,
                                     const void* wflags, const void* y0,

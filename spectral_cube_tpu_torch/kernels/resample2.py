@@ -134,26 +134,30 @@ def resample2_plain(raw, y0, wy, x0, wx, valid_plane, zvalid=None):
     return _validity(out, valid_plane, zvalid)
 
 
-def _check_filled(fz, wz):
+def _check_filled(fz, wz, wz_any):
     if fz.ndim != 3 or wz.shape != fz.shape:
         raise ValueError("fz and wz must be (nchan, ny, nx) of one shape, got "
                          f"{tuple(fz.shape)} and {tuple(wz.shape)}")
+    if tuple(np.shape(wz_any)) != (fz.shape[0],):
+        raise ValueError("wz_any must hold one flag per channel")
 
 
 def resample2_filled(fz, wz, wz_any, y0, wy, x0, wx, valid_plane,
                      zvalid=None):
     """(nchan, ny_out, nx_out) resample of NaN-filled ``fz`` with its
     NaN-weight plane ``wz``: out = sum w * fz, NaN where sum w * wz exceeds
-    :data:`POISON`, where ``valid_plane`` is False and where ``zvalid`` is
-    False.  ``wz_any``: (nchan,) bool, False only where the channel's
-    ``wz`` is all zero (the kernel then skips its weight taps).  A CPU
-    tensor takes the plain version; a CUDA tensor the kernel."""
-    _check_filled(fz, wz)
+    :data:`POISON` in a channel flagged by ``wz_any``, where
+    ``valid_plane`` is False and where ``zvalid`` is False.  ``wz_any``:
+    (nchan,) bool; an unflagged channel's ``wz`` is never read, so the
+    flags must be True wherever ``wz`` is not all zero, as
+    ``ops/regrid.py::_zlerp_filled`` derives them from the input channels'
+    NaNs.  The TPU kernel tests its weight block for a nonzero instead
+    (banded_pallas.py:876); taking the flags saves reading ``wz`` here.
+    A CPU tensor takes the plain version; a CUDA tensor the kernel."""
+    _check_filled(fz, wz, wz_any)
     taps = _host_taps(fz, y0, wy, x0, wx, valid_plane, zvalid)
-    if tuple(wz_any.shape) != (fz.shape[0],):
-        raise ValueError("wz_any must hold one flag per channel")
     if fz.device.type == "cpu":
-        return resample2_filled_plain(fz, wz, *taps)
+        return resample2_filled_plain(fz, wz, wz_any, *taps)
     if fz.device.type != "cuda":
         raise ValueError(f"no resample kernel for device {fz.device}")
     if fz.dtype != torch.float32 or wz.dtype != torch.float32 \
@@ -190,14 +194,17 @@ def resample2_filled(fz, wz, wz_any, y0, wy, x0, wx, valid_plane,
 resample2_filled.launches = 0
 
 
-def resample2_filled_plain(fz, wz, y0, wy, x0, wx, valid_plane, zvalid=None):
+def resample2_filled_plain(fz, wz, wz_any, y0, wy, x0, wx, valid_plane,
+                           zvalid=None):
     """:func:`resample2_filled` in plain PyTorch, in the kernel's order of
-    roundings."""
-    _check_filled(fz, wz)
+    roundings: the poison test only in the channels ``wz_any`` flags."""
+    _check_filled(fz, wz, wz_any)
     y0, wy, x0, wx, valid_plane, zvalid = _host_taps(
         fz, y0, wy, x0, wx, valid_plane, zvalid)
     ry, rx = _rows(y0, wy), _rows(x0, wx)
     val = lerp2(fz.to(torch.float32), ry, rx)
     wn = lerp2(wz.to(torch.float32), ry, rx)
-    out = torch.where(wn > POISON, float("nan"), val)
+    flagged = torch.as_tensor(wz_any, device=fz.device).to(torch.bool)
+    out = torch.where((wn > POISON) & flagged[:, None, None], float("nan"),
+                      val)
     return _validity(out, valid_plane, zvalid)

@@ -395,16 +395,19 @@ def _resample_planes(data, ys, xs, order):
     return out[0] if single else out
 
 
-def reproject_image(data, wcs_in: WCS, target_header, order="bilinear"):
+def reproject_image(data, wcs_in: WCS, target_header, order="bilinear",
+                    device=None):
     """Reproject a 2-D image onto the celestial WCS of ``target_header``
     (regrid.py:651-659).  Returns ``(image, wcs)``, the image a tensor on
-    the data's device (a numpy array goes to the CPU)."""
+    ``device``: by default a tensor's own device, and the CUDA device for
+    an array (raising where CUDA is absent), as the cube entry points
+    place their data."""
+    from ..cube import _as_tensor
     wcs_out = WCS(header=target_header)
     ny = int(target_header["NAXIS2"])
     nx = int(target_header["NAXIS1"])
     ys, xs = spatial_pixel_mapping(wcs_in, wcs_out, (ny, nx))
-    data = torch.as_tensor(np.asarray(data, dtype=np.float32)) \
-        if not isinstance(data, torch.Tensor) else data
+    data = _as_tensor(data, device).to(torch.float32)
     out = _resample_planes(data, ys, xs, _order_int(order))
     return out, wcs_out.celestial if wcs_out.naxis > 2 else wcs_out
 

@@ -311,11 +311,11 @@ def _equal(got, want):
 
 @pytest.mark.parametrize("ay,by,ax,bx", [(1.0, 0.37, 1.0, -1.61),
                                          (0.93, 3.2, 1.07, -2.6)])
-@pytest.mark.parametrize("flag_all", [False, True])
-def test_filled_resample_kernel_matches_plain(cuda, ay, by, ax, bx,
-                                              flag_all):
+@pytest.mark.parametrize("flags", ["exact", "all", "none"])
+def test_filled_resample_kernel_matches_plain(cuda, ay, by, ax, bx, flags):
     """Bitwise, with fractional NaN weights, channels whose weights are all
-    zero (flagged as such, or flagged like the others), the validity plane
+    zero (flagged as such, flagged like the others, or every channel
+    unflagged, which skips the poison test in both), the validity plane
     and zvalid."""
     rng = np.random.RandomState(4)
     fz = torch.as_tensor(rng.randn(5, 40, 67).astype(np.float32))
@@ -332,16 +332,18 @@ def test_filled_resample_kernel_matches_plain(cuda, ay, by, ax, bx,
     valid = np.ones((ny, nx), bool)
     valid[:2] = False
     zvalid = np.array([1, 1, 1, 0, 1], bool)
-    want = kres.resample2_filled_plain(fz, wz, y0, wy, x0, wx, valid, zvalid)
     wz_any = (wz != 0).flatten(1).any(1)
-    if flag_all:
-        wz_any[:] = True
+    if flags != "exact":
+        wz_any[:] = flags == "all"
+    want = kres.resample2_filled_plain(fz, wz, wz_any, y0, wy, x0, wx, valid,
+                                       zvalid)
     n0 = kres.resample2_filled.launches
     got = kres.resample2_filled(fz.to(cuda), wz.to(cuda), wz_any, y0, wy,
                                 x0, wx, valid, zvalid)
     assert kres.resample2_filled.launches == n0 + 1
     _equal(got, want)
-    assert torch.isnan(want[2]).sum() > torch.isnan(want[0]).sum()
+    assert (torch.isnan(want[2]).sum() > torch.isnan(want[0]).sum()) \
+        == (flags != "none")
 
 
 def _gauss2d(sy, sx, theta, size):

@@ -28,6 +28,7 @@ from spectral_cube_tpu.io.fits_low import HDU, write_fits
 import spectral_cube_tpu_torch as T
 from spectral_cube_tpu_torch import kernels as K
 from spectral_cube_tpu_torch.interop import cube_from_arrays
+from spectral_cube_tpu_torch.ops.regrid import reproject_image
 
 from conftest import base_header
 
@@ -305,6 +306,8 @@ def test_entry_points_default_to_cuda(fits_path, monkeypatch):
         cube_from_arrays(data, h)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         T.SpectralCube(data, T.WCS(header=h), header=h)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        reproject_image(data[0], T.WCS(header=h), h)
     cube = T.SpectralCube(torch.as_tensor(data), T.WCS(header=h), header=h)
     assert cube.device == torch.device("cpu")
     assert cube._new_cube_with(data=data + 1).device == torch.device("cpu")

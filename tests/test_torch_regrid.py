@@ -274,14 +274,48 @@ def test_staged_weight_flags_are_the_weight_planes():
     assert not torch.isnan(fz).any()
 
 
+@pytest.mark.parametrize("flagged", [True, False])
+def test_filled_resample_poisons_only_flagged_channels(flagged):
+    """The filled resample's function, in its plain version as in the
+    kernel: the poison test runs in the channels the flags name, and an
+    unflagged channel's weight plane is not read."""
+    rng = np.random.RandomState(6)
+    fz = torch.as_tensor(rng.randn(2, 6, 7).astype(np.float32))
+    wz = torch.zeros_like(fz)
+    wz[1, 2, 3] = 0.5
+    y0, x0 = np.arange(5), np.arange(6)
+    wy = np.full(5, 0.25, np.float32)
+    wx = np.full(6, 0.5, np.float32)
+    valid = np.ones((5, 6), bool)
+    wz_any = torch.tensor([False, flagged])
+    got = kres.resample2_filled(fz, wz, wz_any, y0, wy, x0, wx, valid)
+    plain = kres.resample2_filled_plain(fz, wz, wz_any, y0, wy, x0, wx, valid)
+    assert torch.equal(torch.isnan(got), torch.isnan(plain))
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(plain))
+    assert not torch.isnan(got[0]).any()
+    assert bool(torch.isnan(got[1]).any()) == flagged
+    unread = wz.clone()
+    unread[0] = 1.0
+    assert torch.equal(
+        kres.resample2_filled(fz, unread, wz_any, y0, wy, x0, wx,
+                              valid).isnan(), got.isnan())
+    with pytest.raises(ValueError, match="one flag per channel"):
+        kres.resample2_filled(fz, wz, wz_any[:1], y0, wy, x0, wx, valid)
+
+
 def test_reproject_image_and_mosaic_add_match_jax():
     rng = np.random.RandomState(8)
     h = base_header(nx=14, ny=11, nchan=3)
     img = rng.randn(11, 14).astype(np.float32)
     img[4, 5] = np.nan
     t2 = _target(h, 3, 1.0, 0.0, 0.4, -1.3)
-    got, gw = tregrid.reproject_image(img, T.WCS(header=h), t2)
+    got, gw = tregrid.reproject_image(img, T.WCS(header=h), t2, device="cpu")
     ref, jw = jregrid.reproject_image(img, J.WCS(header=h), t2)
+    assert got.device == torch.device("cpu")
+    same, _ = tregrid.reproject_image(torch.as_tensor(img), T.WCS(header=h),
+                                      t2)
+    assert torch.equal(torch.isnan(same), torch.isnan(got))
+    assert torch.equal(torch.nan_to_num(same), torch.nan_to_num(got))
     assert got.shape == (11, 14) and gw.naxis == jw.naxis == 2
     assert np.array_equal(np.isnan(got.numpy()), np.isnan(ref))
     fin = ~np.isnan(ref)
