@@ -35,13 +35,31 @@
    the fused op against the two-kernel chain (moments kernel +
    ``convolve_reproject_separable``) and runs a target with 1.5x larger
    pixels at 64 channels.
-7. Holds each kernel against its plain PyTorch version on the card at the
+7. Varying-resolution cubes: writes a third 623 x 768 x 768 cube of the
+   pipeline's kind as 4-D FITS with a degenerate STOKES axis and a
+   CASA-layout BEAMS table (beams drifting 6.0"->6.6" by 4.5"->4.95" at
+   PA 30->34 deg, channels 100-101 flagged with NaN beams), reads it with
+   no device argument and runs (a) ``run_pipeline`` (common beam, SNR
+   mask, moments, statistics, reproject onto the grid rotated by 3 deg:
+   the FFT route and the four-corner gather), flagged planes NaN in the
+   output; and (b) the same data with PA 0 beams in 4-channel groups
+   (156 beam groups), ``convolve_to`` a 12" beam (the per-channel
+   separable route, conv_sep count > 0), held against conv_sep's plain
+   version.  Logs each route, the host time of the beam grouping and
+   kernels, the transfers' build on the card, the stages' times (first
+   and second call) and the peak memory.
+8. Runs ``banded_matmul_strips`` (#14) with bench config 2's composed
+   operator (17-tap Gaussian, then every second channel, 512 -> 256) on a
+   512 x 768 x 768 cube viewed as (512, 589824), counters at 0 before and
+   the banded_matmul count > 0 after.
+9. Holds each kernel against its plain PyTorch version on the card at the
    paths' shapes, with and without NaN, and times the kernel, the plain
    version and, where one exists, a single PyTorch call computing the same
    function (CUDA events).  Each kernel's bound is the larger of its bytes
    over 3.35 TB/s and its float32 operations over 67 TFLOP/s (H100 SXM).
-8. Runs a small pipeline and a small spectral path on the card and on the
-   CPU and compares them.
+10. Runs a small pipeline, a small varying-resolution pipeline on both
+    convolution routes and a small spectral path on the card and on the
+    CPU and compares them.
 
 Prints one JSON line with each kernel's numbers, the card line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises.
@@ -72,6 +90,19 @@ PIPELINE_KERNELS = ("moments", "conv_sep", "resample2")
 SPECTRAL_KERNELS = ("sigma_clip", "smooth_interp")
 REPROJECT_SPECTRAL_KERNELS = ("resample2_filled",)
 CONV_REPROJECT_KERNELS = ("conv_reproject", "plain_strips", "pipeline_fused")
+VRSC_KERNELS = ("moments", "conv_sep")
+BANDED_MATMUL_KERNELS = ("banded_matmul",)
+
+# varying-resolution cell: beams drifting linearly over the channels
+# (arcsec, arcsec, deg: start, end), the flagged planes (NaN beams), the
+# rotation of the reprojection target (bench config 7, bench.py:564-633)
+# and the channels a beam holds for in the separable case (b)
+VR_MAJOR, VR_MINOR, VR_PA = (6.0, 6.6), (4.5, 4.95), (30.0, 34.0)
+VR_FLAGGED = (100, 101)
+VR_ROTATION = 3.0
+VR_GROUP = 4
+# bench config 2's composed operator, 512 -> 256 channels (bench.py:178-211)
+BM_NIN = 512
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
 # the tensor cores
@@ -128,6 +159,9 @@ KERNELS = {
     "pipeline_fused": ("spectral_cube_tpu_torch/csrc/conv_reproject.cu",
                        "spectral_cube_tpu/ops/banded_pallas.py:1220 "
                        "pipeline_fused_raw_strips"),
+    "banded_matmul": ("spectral_cube_tpu_torch/csrc/banded_matmul.cu",
+                      "spectral_cube_tpu/ops/banded_pallas.py:222 "
+                      "banded_matmul_strips"),
 }
 
 # launch counters summed into each kernel's "launches": the conv_reproject
@@ -1269,9 +1303,320 @@ def phase_conv_reproject(dev, data, results):
     return counts, total
 
 
+def vr_beams(nchan, pa=VR_PA, group=1, flagged=()):
+    """(major, minor, pa) columns of a BEAMS table: the beams drift
+    linearly from the first to the last channel, constant over runs of
+    ``group`` channels, NaN in the ``flagged`` planes."""
+    t = (np.arange(nchan) // group) * group / (nchan - 1)
+    cols = [np.asarray(a + (b - a) * t, np.float32)
+            for a, b in (VR_MAJOR, VR_MINOR, pa)]
+    for c in flagged:
+        cols[0][c] = cols[1][c] = np.nan
+    return cols
+
+
+def write_vr_fits(path, data, beam_cols):
+    """``data`` as a 4-D FITS cube with a degenerate STOKES axis and a
+    CASA-layout BEAMS table (BMAJ/BMIN in arcsec, BPA in deg, CHAN, POL;
+    NCHAN, NPOL = 1), as CASA ``tclean`` writes per-plane beams."""
+    from collections import OrderedDict
+    from spectral_cube_tpu_torch.io.fits_low import (HDU, BinTableHDU,
+                                                      write_fits)
+    nchan, ny, nx = data.shape
+    h = synth_header(nchan, ny, nx)
+    for key in ("BMAJ", "BMIN", "BPA"):
+        del h[key]
+    h["NAXIS"] = 4
+    h["NAXIS4"] = 1
+    h["CTYPE4"], h["CRVAL4"], h["CDELT4"], h["CRPIX4"] = \
+        "STOKES", 1.0, 1.0, 1.0
+    h["CASAMBM"] = True
+    major, minor, pa = beam_cols
+    bt = BinTableHDU(columns=OrderedDict(
+        BMAJ=major, BMIN=minor, BPA=pa,
+        CHAN=np.arange(nchan, dtype=np.int32),
+        POL=np.zeros(nchan, dtype=np.int32)), name="BEAMS",
+        units={"BMAJ": "arcsec", "BMIN": "arcsec", "BPA": "deg"})
+    bt.header["NCHAN"] = nchan
+    bt.header["NPOL"] = 1
+    write_fits(path, [HDU(data=data[None], header=h), bt])
+
+
+def rotated_header(h, deg):
+    """``h`` with its celestial grid rotated by ``deg`` about its centre
+    (CRPIX): the same projection and pixel size."""
+    t = h.__class__(h)
+    th = np.deg2rad(deg)
+    c, s = float(np.cos(th)), float(np.sin(th))
+    t["PC1_1"], t["PC1_2"], t["PC2_1"], t["PC2_2"] = c, -s, s, c
+    return t
+
+
+def phase_vrsc(dev, workdir, results):
+    """Varying-resolution cubes at 623 x 768 x 768: (a) run_pipeline on a
+    4-D file with per-plane beams at PA 30-34 deg (FFT route) onto a
+    rotated grid; (b) convolve_to a 12" beam with PA 0 beams in 4-channel
+    groups (per-channel separable route, kernel conv_sep)."""
+    import torch
+    import spectral_cube_tpu_torch as T
+    from spectral_cube_tpu_torch import kernels as K
+    from spectral_cube_tpu_torch.kernels import conv_sep as kc
+    from spectral_cube_tpu_torch.ops import convolve as oc
+    from spectral_cube_tpu_torch.ops import moments as om
+    from spectral_cube_tpu_torch.ops import regrid as og
+    log("phase varying-resolution pipeline")
+    t0 = time.perf_counter()
+    data = synth_cube(NCHAN, NY, NX, SEED + 9)
+    path_a = os.path.join(workdir, "vr_a.fits")
+    path_b = os.path.join(workdir, "vr_b.fits")
+    write_vr_fits(path_a, data, vr_beams(NCHAN, flagged=VR_FLAGGED))
+    write_vr_fits(path_b, data, vr_beams(NCHAN, pa=(0.0, 0.0),
+                                         group=VR_GROUP))
+    del data
+    log(f"  synthesized and wrote two 4-D files with BEAMS tables in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {}
+
+    def timed(times, name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        val = fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t) * 1e3
+        return val
+
+    # (a): the FFT route, onto the grid rotated by VR_ROTATION deg
+    t0 = time.perf_counter()
+    cube = T.SpectralCube.read(path_a)
+    torch.cuda.synchronize()
+    if not isinstance(cube, T.VaryingResolutionSpectralCube) \
+            or cube.device.type != "cuda" or cube.shape != (NCHAN, NY, NX):
+        raise AssertionError(f"read without a device gave {cube!r}")
+    log(f"  (a) read with no device argument in "
+        f"{time.perf_counter() - t0:.2f} s: {cube}, "
+        f"{int((~cube.goodbeams_mask).sum())} flagged planes")
+    target = rotated_header(cube.header, VR_ROTATION)
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = T.run_pipeline(cube, snr_threshold=SNR, target_header=target)
+    torch.cuda.synchronize()
+    first = (time.perf_counter() - t0) * 1e3
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    last = dict(oc.convolve_cube_to_beam.last)
+    log(f"  (a) run_pipeline: {first:.1f} ms first call, peak device memory "
+        f"{peak / 2**30:.2f} GiB, launches {counts}; convolution route "
+        f"{last['route']}, {last['groups']} beam groups, host grouping "
+        f"{last['grouping_s'] * 1e3:.1f} ms, kernels and route choice "
+        f"{last['kernels_s'] * 1e3:.1f} ms")
+    if last["route"] != "fft" or counts["moments"] <= 0:
+        raise AssertionError(f"(a) route {last['route']}, counts {counts}")
+    t0 = time.perf_counter()
+    T.run_pipeline(cube, snr_threshold=SNR, target_header=target)
+    torch.cuda.synchronize()
+    second = (time.perf_counter() - t0) * 1e3
+    log(f"  (a) run_pipeline again: {second:.1f} ms")
+    m0, m1, _ = (np.asarray(p.value) for p in res["moments"])
+    rep = res["cube"]._data
+    if rep.shape != (NCHAN, NY, NX) or m0.shape != (NY, NX):
+        raise AssertionError("(a) output shapes")
+    for c in VR_FLAGGED:
+        if not bool(torch.isnan(rep[c]).all()):
+            raise AssertionError(f"(a) flagged plane {c} is not NaN")
+    frac = float(np.isfinite(m0).mean())
+    log(f"  (a) mom0 finite fraction {frac:.3f}, statistics npts="
+        f"{res['statistics']['npts']}; flagged planes NaN in the output")
+    if not 0.05 < frac < 0.95:
+        raise AssertionError("(a) outputs implausible")
+
+    stages = {}
+    for call in ("first", "second"):
+        times = {}
+        cb = timed(times, "common_beam", cube.common_beam)
+        conv = timed(times, "convolve_to", lambda: cube.convolve_to(cb))
+        noise = timed(times, "mad_std", lambda: float(conv.mad_std().value))
+        masked = conv.with_mask(conv > T.Quantity(SNR * noise, conv.unit))
+        mom = timed(times, "moments", masked._moments012)
+        timed(times, "statistics", masked.statistics)
+        timed(times, "reproject", lambda: masked._reproject(target))
+        stages[call] = times
+        log(f"  (a) stages, {call} call: "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in times.items()))
+    # the FFT route's parts, each timed on its own
+    vbeams = [b if g else cb for b, g in zip(cube.unmasked_beams,
+                                            cube.goodbeams_mask)]
+    pix = np.radians(PIX_ARCSEC / 3600.0)
+    tr_times = {}
+    groups, gidx = timed(tr_times, "grouping",
+                         lambda: oc.beam_groups(vbeams))
+    kernels = timed(tr_times, "kernels", lambda: [
+        None if cb.deconvolve(b).major_rad <= 0
+        else cb.deconvolve(b).as_kernel(pix) for b in groups])
+    shapes = [k.shape for k in kernels if k is not None] or [(1, 1)]
+    fy, fx = oc._padded_shape((NY, NX), tuple(np.max(shapes, axis=0)))
+    transfers = timed(tr_times, "transfers", lambda: oc._transfers(
+        kernels, fy, fx, dev))
+    filled = cube._get_filled_data(fill=np.nan)
+    timed(tr_times, "fft_convolution", lambda: oc._convolve_planes(
+        filled, transfers, gidx))
+    del transfers, filled
+    # the rotated reprojection's parts: the host WCS maps, then the
+    # four-corner gather on the card with its peak memory above the input
+    src = masked._get_filled_data(fill=np.nan)
+    zs, ysm, xsm, _ = timed(tr_times, "reproject_maps", lambda: (
+        og.reproject_mappings(masked.wcs, target, NCHAN,
+                              spectral_values_in=np.asarray(
+                                  masked.spectral_axis.value))))
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    timed(tr_times, "gather", lambda: og._bilinear_spatial_then_linear_z(
+        src, zs, ysm, xsm, 1))
+    gather_peak = torch.cuda.max_memory_allocated() - base
+    del src
+    log(f"  (a) rotated reprojection: host WCS maps "
+        f"{tr_times['reproject_maps']:.1f} ms, four-corner gather on the "
+        f"card {tr_times['gather']:.1f} ms, its peak "
+        f"{gather_peak / 2**30:.2f} GiB above its input "
+        f"({gather_peak / (NCHAN * NY * NX * 4):.2f} cubes)")
+    log(f"  (a) FFT route: beam grouping {tr_times['grouping']:.1f} ms, "
+        f"{len(kernels)} kernels on the host {tr_times['kernels']:.1f} ms, "
+        f"transfers {len(kernels)} x {fy} x {fx // 2 + 1} built on the card "
+        f"{tr_times['transfers']:.1f} ms (float64 rfft2, cast), batched "
+        f"rfft2/irfft2 convolution {tr_times['fft_convolution']:.1f} ms")
+    include = masked.mask.include(data=masked._data)
+    pm = om.moments_012(masked._data, masked._spectral_offsets(),
+                        masked._spectral_pix_size(), include=include)
+    del include
+    sv0 = float(np.asarray(masked.spectral_axis.value)[0])
+    for i, (a, b) in enumerate(zip(mom, pm)):
+        compare(f"(a) moment{i} vs plain expression", torch.as_tensor(a),
+                (b + sv0 if i == 1 else b).cpu(), 3e-6 if i < 2 else 5e-5)
+    compare("(a) stage moment0 vs run_pipeline", torch.as_tensor(mom[0]),
+            torch.as_tensor(m0), 1e-6)
+    out["a"] = dict(first=first, second=second, peak=peak, counts=counts,
+                    route=last, stages=stages, fft_parts=tr_times,
+                    gather_peak=gather_peak)
+    del res, rep, conv, masked, cube, pm
+    torch.cuda.empty_cache()
+
+    # (b): the per-channel separable route, 12" circular target
+    cube = T.SpectralCube.read(path_b)
+    _, target_beam = beams()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    times = {}
+    conv = timed(times, "first", lambda: cube.convolve_to(target_beam))
+    counts_b = K.launch_counts()
+    peak_b = torch.cuda.max_memory_allocated()
+    last = dict(oc.convolve_cube_to_beam.last)
+    timed(times, "second", lambda: cube.convolve_to(target_beam))
+    log(f"  (b) convolve_to 12\": {times['first']:.1f} ms first call, "
+        f"{times['second']:.1f} ms second, peak {peak_b / 2**30:.2f} GiB, "
+        f"route {last['route']}, {last['groups']} beam groups, host "
+        f"grouping {last['grouping_s'] * 1e3:.1f} ms, kernels and SVDs "
+        f"{last['kernels_s'] * 1e3:.1f} ms, launches {counts_b}")
+    ngroups = -(-NCHAN // VR_GROUP)
+    if last["route"] != "per_channel_separable" \
+            or last["groups"] != ngroups or counts_b["conv_sep"] <= 0:
+        raise AssertionError(f"(b) route {last}, counts {counts_b}")
+    ytaps, xtaps, gidx = [], [], np.zeros(NCHAN, np.int32)
+    for g in range(ngroups):
+        b = cube.unmasked_beams[g * VR_GROUP]
+        yt, xt = oc.separable_factors(target_beam.deconvolve(b).as_kernel(
+            pix), max_rank=4)
+        ytaps.append(yt)
+        xtaps.append(xt)
+        gidx[g * VR_GROUP:(g + 1) * VR_GROUP] = g
+    ys, hy = oc._tap_stack(ytaps)
+    xs, hx = oc._tap_stack(xtaps)
+    ys, xs = torch.as_tensor(ys, device=dev), torch.as_tensor(xs, device=dev)
+    gi = torch.as_tensor(gidx, device=dev)
+    filled = cube._get_filled_data(fill=np.nan)
+    plain = kc.conv_sep_plain(filled, ys, xs, hy, hx, gi)
+    factors = torch.as_tensor([oc.beam_unit_factor(cube.unit, b, target_beam)
+                               for b in cube.unmasked_beams],
+                              dtype=torch.float32, device=dev)
+    plain *= factors[:, None, None]
+    compare_conv("(b) convolve_to vs conv_sep_plain", conv._data, plain,
+                 filled, ys, xs, hy, hx, 1e-5)
+    out["b"] = dict(first=times["first"], second=times["second"],
+                    peak=peak_b, counts=counts_b, route=last)
+    del plain, filled, conv, cube
+    torch.cuda.empty_cache()
+    return out
+
+
+def config2_operator(nchan):
+    """bench config 2's composed operator (bench.py:205-211): a 17-tap
+    Gaussian (sigma 2 channels), then every second channel; float64
+    composition cast to float32."""
+    from spectral_cube_tpu_torch.ops import interpolate as oi
+    from spectral_cube_tpu_torch.ops import smoothing as osm
+    coords = np.arange(nchan, dtype=np.float64)
+    k = osm.gaussian_kernel1d(SMOOTH_STDDEV)
+    M = (oi._interp_matrix(*oi.interp_weights(coords, coords[::2]), nchan)
+         .astype(np.float64)
+         @ osm._banded_conv_matrix(nchan, k / k.sum()).astype(np.float64))
+    return M.astype(np.float32)
+
+
+def phase_banded_matmul(dev, data, results):
+    """Kernel banded_matmul (#14) at bench config 2's size: its operator
+    on a 512 x 768 x 768 cube viewed as (512, 589824).  The JAX package
+    calls #14 from no path, so its path here is its public function,
+    ``banded_matmul_strips``, called as a user would."""
+    import torch
+    from spectral_cube_tpu_torch import kernels as K
+    from spectral_cube_tpu_torch.kernels import banded_matmul as kb
+    log("phase banded_matmul (kernel banded_matmul)")
+    M = config2_operator(BM_NIN)
+    bands = kb.row_bands(M)
+    x = torch.nan_to_num(data[:BM_NIN], nan=0.0).reshape(BM_NIN, -1)
+    S = x.shape[1]
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    got = kb.banded_matmul_strips(M, x)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    log(f"  banded_matmul_strips({M.shape[0]}x{M.shape[1]} operator, "
+        f"{BM_NIN}x{S}): launches {counts}")
+    if got is None or counts["banded_matmul"] <= 0:
+        raise AssertionError(f"banded_matmul never ran: {counts}")
+    want = kb.banded_matmul_plain(x, bands)
+    err, _ = compare("banded_matmul vs plain (finite)", got, want, 2e-6)
+    Mt = torch.as_tensor(M, device=dev)
+    dense = torch.matmul(Mt, x)
+    compare("banded_matmul vs torch.matmul (finite)", got, dense, 2e-6)
+    del got, want, dense
+    raw = data[:BM_NIN].reshape(BM_NIN, -1)
+    compare("banded_matmul vs plain (NaN border)", kb.banded_matmul(
+        raw, bands), kb.banded_matmul_plain(raw, bands), 2e-6)
+    del raw
+    ms = cuda_ms(lambda: kb.banded_matmul(x, bands), 7)
+    pms = cuda_ms(lambda: kb.banded_matmul_plain(x, bands), 3)
+    lib_ms = cuda_ms(lambda: torch.matmul(Mt, x), 5)
+    # each input read once, each output written once; 2 flops per tap of
+    # each row's band per column
+    bms, by = bound((BM_NIN + M.shape[0]) * S * 4,
+                    2 * int(bands.length.sum()) * S)
+    log(f"  banded_matmul {M.shape[0]}x{BM_NIN} on {S} columns: kernel "
+        f"{ms:.3f} ms, plain {pms:.3f} ms, torch.matmul {lib_ms:.3f} ms, "
+        f"bound {bms:.3f} ms ({by})")
+    results["banded_matmul"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                    bound_ms=bms, bound_by=by,
+                                    library_ms=lib_ms)
+    del x, Mt
+    torch.cuda.empty_cache()
+    return counts
+
+
 def phase_small_reference(dev):
-    """A small pipeline on the card against the same pipeline on the CPU,
-    whose plain versions the CPU tests hold against the JAX package."""
+    """A small pipeline, a small varying-resolution pipeline on both
+    convolution routes and a small spectral path, each on the card against
+    the same run on the CPU, whose plain versions the CPU tests hold
+    against the JAX package."""
     import spectral_cube_tpu_torch as T
     from spectral_cube_tpu_torch.wcs import WCS
     log("phase small reference (card vs CPU)")
@@ -1294,6 +1639,49 @@ def phase_small_reference(dev):
                 torch.as_tensor(np.asarray(pa.value)), 1e-4)
     compare("small pipeline cube", b["cube"]._data.cpu(), a["cube"]._data,
             1e-5)
+
+    import torch
+    for route, pa, group in (("fft", VR_PA, 1),
+                             ("per_channel_separable", (0.0, 0.0), 2)):
+        log(f"phase small reference, varying-resolution pipeline ({route})")
+        data = synth_cube(nchan, ny, nx, SEED + 8, cutoff=False)
+        flagged = ()
+        if route == "fft":
+            # no NaN frame: the common beam's sub-pixel kernels divide by a
+            # denominator near its 1e-6 floor there, where cuFFT's and the
+            # CPU FFT's roundings part; a flagged plane instead
+            data = np.nan_to_num(data, nan=0.0)
+            flagged = (5,)
+        major, minor, bpa = vr_beams(nchan, pa=pa, group=group,
+                                     flagged=flagged)
+        vb = T.Beams(major=T.Quantity(major, "arcsec"),
+                     minor=T.Quantity(minor, "arcsec"),
+                     pa=T.Quantity(bpa, "deg"))
+        hv = h.__class__(h)
+        for key in ("BMAJ", "BMIN", "BPA"):
+            del hv[key]
+        out = {}
+        for d in ("cpu", dev):
+            cube = T.VaryingResolutionSpectralCube(data, WCS(header=hv),
+                                                   header=hv, beams=vb,
+                                                   device=d)
+            cube = cube.with_mask(T.LazyMask(torch.isfinite, cube=cube))
+            out[str(d)] = T.run_pipeline(
+                cube, snr_threshold=SNR,
+                target_header=rotated_header(hv, VR_ROTATION))
+            from spectral_cube_tpu_torch.ops import convolve as oc
+            if oc.convolve_cube_to_beam.last["route"] != route:
+                raise AssertionError(f"small VRSC route "
+                                     f"{oc.convolve_cube_to_beam.last}")
+        a, b = out["cpu"], out[str(dev)]
+        if a["statistics"]["npts"] != b["statistics"]["npts"]:
+            raise AssertionError("small VRSC pipeline npts differ")
+        for pa_, pb in zip(a["moments"][:2], b["moments"][:2]):
+            compare(f"small VRSC ({route}) moment",
+                    torch.as_tensor(np.asarray(pb.value)),
+                    torch.as_tensor(np.asarray(pa_.value)), 1e-4)
+        compare(f"small VRSC ({route}) cube", b["cube"]._data.cpu(),
+                a["cube"]._data, 1e-5)
 
     log("phase small reference, spectral path (card vs CPU)")
     import torch
@@ -1354,6 +1742,7 @@ def main():
          clip623) = phase_spectral(dev, workdir, results)
         rs_counts, rs_peak, rs_first, rs_steady = phase_reproject_spectral(
             dev, workdir, results)
+        vr = phase_vrsc(dev, workdir, results)
     counts.update({k: sp_counts[k] for k in SPECTRAL_KERNELS})
     counts.update({k: rs_counts[k] for k in REPROJECT_SPECTRAL_KERNELS})
     data = torch.as_tensor(synth_cube(NCHAN, NY, NX, SEED), device=dev)
@@ -1362,6 +1751,8 @@ def main():
     phase_resample(dev, data, synth_header(NCHAN, NY, NX), results)
     cr_counts, cr_ms = phase_conv_reproject(dev, data, results)
     counts.update({k: cr_counts[k] for k in CONV_REPROJECT_KERNELS})
+    bm_counts = phase_banded_matmul(dev, data, results)
+    counts.update({k: bm_counts[k] for k in BANDED_MATMUL_KERNELS})
     del data
     torch.cuda.empty_cache()
     phase_small_reference(dev)
@@ -1379,6 +1770,18 @@ def main():
         f"(first call), {rs_steady:.1f} ms (second), peak "
         f"{rs_peak / 2**30:.2f} GiB; fused conv_reproject path "
         f"{cr_ms:.1f} ms (first calls)")
+    va, vb = vr["a"], vr["b"]
+    log(f"summary: varying-resolution (a) run_pipeline {va['first']:.1f} ms "
+        f"(first call), {va['second']:.1f} ms (second), peak "
+        f"{va['peak'] / 2**30:.2f} GiB, route {va['route']['route']} with "
+        f"{va['route']['groups']} groups ("
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in va["fft_parts"].items())
+        + "), stages (second call) "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in va["stages"]["second"]
+                    .items())
+        + f"; (b) convolve_to {vb['first']:.1f} / {vb['second']:.1f} ms, "
+        f"route {vb['route']['route']} with {vb['route']['groups']} groups, "
+        f"conv_sep launches {vb['counts']['conv_sep']}")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = results[name]

@@ -1,4 +1,5 @@
-"""The cube class of the torch port: a single-beam SpectralCube.
+"""The cube classes of the torch port: BaseSpectralCube, the single-beam
+SpectralCube and the VaryingResolutionSpectralCube.
 
 Port of the core of ``spectral_cube_tpu/cube.py`` for the analysis path
 (read -> convolve_to -> mask -> moments + statistics -> reproject) and the
@@ -12,8 +13,8 @@ moments, statistics, convolution, reprojection, sigma clip and fused
 smooth + interpolation run in the port's kernels (``kernels/``); on the
 CPU in their plain PyTorch versions.
 
-Not ported yet: slicing and subcubes, regions, Stokes and
-varying-resolution cubes (ROADMAP.md Queue 1 items 5, 10).
+Not ported yet: slicing and subcubes, regions, Stokes cubes and
+``jtok_factors`` (ROADMAP.md Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -28,10 +29,11 @@ import torch
 from .units import Quantity, Unit, UnitConversionError
 from .masks import (BooleanArrayMask, LazyComparisonMask, CompositeMask,
                     LazyMask, MaskBase, is_data_local, trivial_view)
-from .beams import Beam, NoBeamError
+from .beams import Beam, Beams, BeamError, NoBeamError
 from .lower_dimensional_structures import (Projection,
                                            LowerDimensionalObject)
-from .utils import cached, warn_slow, VarianceWarning
+from .utils import (cached, warn_slow, VarianceWarning, BeamAverageWarning,
+                    NonFiniteBeamsWarning)
 from .ops import reductions as _red
 from .ops import moments as _mom
 from .ops import convolve as _conv
@@ -39,12 +41,35 @@ from .ops import regrid as _regrid
 from .ops import smoothing as _smooth
 from .ops import interpolate as _interp
 
-__all__ = ["SpectralCube"]
+__all__ = ["BaseSpectralCube", "SpectralCube",
+           "VaryingResolutionSpectralCube"]
 
 SIGMA2FWHM = _mom.SIGMA2FWHM
 
-#: Sentinel for :meth:`SpectralCube._new_cube_with`: keep the current mask
+#: Sentinel for :meth:`BaseSpectralCube._new_cube_with`: keep the current
+#: mask
 _INHERIT = object()
+
+
+def _beams_from_columns(columns, units):
+    """Beams from BEAMS-table columns (a mapping with BMAJ/BMIN/BPA),
+    honoring the table's TUNITn units: AIPS writes degrees (reference
+    regression #737, tests/test_io.py:139-149); unitless tables default to
+    the CASA convention arcsec/arcsec/deg."""
+    units = units or {}
+    return Beams(
+        major=Quantity(np.asarray(columns["BMAJ"], dtype=float),
+                       units.get("BMAJ", "arcsec")),
+        minor=Quantity(np.asarray(columns["BMIN"], dtype=float),
+                       units.get("BMIN", "arcsec")),
+        pa=Quantity(np.asarray(columns["BPA"], dtype=float),
+                    units.get("BPA", "deg")))
+
+
+def _beams_from_bintable(beam_table):
+    """Beams from a FITS BEAMS bintable (the JAX package's cube.py:63-75)."""
+    return _beams_from_columns(beam_table.columns,
+                               getattr(beam_table, "units", None))
 
 
 def default_device():
@@ -124,13 +149,13 @@ def _slice_syntax(f):
     return prop
 
 
-class SpectralCube:
-    """A masked, unit- and WCS-aware [spec, lat, lon] cube with one beam
-    (reference spectral_cube.py:3689-3781)."""
+class BaseSpectralCube:
+    """A masked, unit- and WCS-aware [spec, lat, lon] cube on a torch
+    device (the JAX package's cube.py:212)."""
 
     def __init__(self, data, wcs, mask=None, meta=None, fill_value=np.nan,
-                 header=None, allow_huge_operations=False, beam=None,
-                 wcs_tolerance=0.0, unit=None, device=None):
+                 header=None, allow_huge_operations=False, wcs_tolerance=0.0,
+                 unit=None, device=None):
         if isinstance(data, Quantity):
             if unit is None:
                 unit = data.unit
@@ -163,14 +188,6 @@ class SpectralCube:
         if wcs is not None and wcs.spec != 2:
             raise ValueError("WCS must be oriented [lon, lat, spec] "
                              "(use spectral_cube_tpu_torch.cube_utils.orient)")
-        if beam is None:
-            if header is not None:
-                beam = Beam.from_header(header)
-            if beam is None and "beam" in self._meta:
-                beam = self._meta["beam"]
-        self._beam = beam
-        if beam is not None:
-            self._meta["beam"] = beam
 
     # ------------------------------------------------------------------
     # basic properties
@@ -225,8 +242,9 @@ class SpectralCube:
 
     def _new_cube_with(self, data=None, wcs=None, mask=_INHERIT, meta=None,
                        fill_value=None, unit=None, wcs_tolerance=None,
-                       beam=None):
-        """Copy with overrides (reference spectral_cube.py:244-289)."""
+                       **kwargs):
+        """Copy with overrides (reference spectral_cube.py:244-289);
+        ``kwargs`` go to the subclass's constructor."""
         meta = dict(meta) if meta is not None else dict(self._meta)
         unit = unit if unit is not None else self._unit
         if unit is not None:
@@ -242,10 +260,8 @@ class SpectralCube:
             wcs_tolerance=(wcs_tolerance if wcs_tolerance is not None
                            else self._wcs_tolerance),
             # a host array joins the cube's device; a tensor keeps its own
-            device=None if isinstance(data, torch.Tensor) else self.device)
-        cube._beam = beam if beam is not None else self._beam
-        if cube._beam is not None:
-            cube._meta["beam"] = cube._beam
+            device=None if isinstance(data, torch.Tensor) else self.device,
+            **kwargs)
         return cube
 
     # ------------------------------------------------------------------
@@ -295,8 +311,6 @@ class SpectralCube:
         if self._unit is not None:
             h["BUNIT"] = self._unit.to_string()
         h.add_history("Written by spectral_cube_tpu_torch")
-        if self._beam is not None:
-            h.update(self._beam.to_header_keywords())
         return h
 
     @property
@@ -315,11 +329,14 @@ class SpectralCube:
 
     @classmethod
     def read(cls, filename, format=None, hdu=0, device=None, **kwargs):
-        """Read a 3-D cube onto ``device`` (default: the CUDA device; raises
-        where CUDA is absent unless ``device='cpu'`` is given)."""
+        """Read a cube onto ``device`` (default: the CUDA device; raises
+        where CUDA is absent unless ``device='cpu'`` is given).  A BEAMS
+        table gives a :class:`VaryingResolutionSpectralCube`.  A 4-D Stokes
+        file gives its I component with a :class:`StokesWarning` (reference
+        io/core.py:175-192); a file without one raises ``ValueError``."""
         from .io import read_cube
         return read_cube(filename, format=format, hdu=hdu, device=device,
-                         **kwargs)
+                         stokes_to_i=True, **kwargs)
 
     # ------------------------------------------------------------------
     # masking API (reference spectral_cube.py:1259-1306, :2263-2296)
@@ -381,17 +398,34 @@ class SpectralCube:
         return self._comparison_mask(torch.le, value)
 
     def __eq__(self, value):
-        if isinstance(value, SpectralCube):
+        if isinstance(value, BaseSpectralCube):
             return NotImplemented
         return self._comparison_mask(torch.eq, value)
 
     def __ne__(self, value):
-        if isinstance(value, SpectralCube):
+        if isinstance(value, BaseSpectralCube):
             return NotImplemented
         return self._comparison_mask(torch.ne, value)
 
     def __hash__(self):
         return id(self)
+
+    def __getitem__(self, view):
+        raise NotImplementedError(
+            "cube slicing is not ported to torch yet (ROADMAP.md Queue 1 "
+            "item 10)")
+
+    def mask_channels(self, goodchannels):
+        """Mask out channels where goodchannels is False (reference
+        spectral_cube.py:3394-3419)."""
+        goodchannels = np.asarray(goodchannels, dtype=bool)
+        if goodchannels.ndim != 1:
+            raise ValueError("goodchannels must be one-dimensional")
+        if goodchannels.size != self.shape[0]:
+            raise ValueError("goodchannels must have a length equal to the "
+                             "cube's spectral dimension.")
+        return self.with_mask(BooleanArrayMask(goodchannels,
+                                               shape=self.shape))
 
     # ------------------------------------------------------------------
     # spectral axis
@@ -428,15 +462,22 @@ class SpectralCube:
             return Quantity(out.item(), unit)
         return self._wrap_projection(out.cpu().numpy(), axis, unit)
 
+    def _result_beam(self):
+        """Beam attached to spectral-reduction results (the reference's
+        _handle_beam_areas_wrapper, base_class.py:673-719): a single-beam
+        cube's beam; see VaryingResolutionSpectralCube._result_beam."""
+        return getattr(self, "_beam", None)
+
     def _wrap_projection(self, out, axis, unit):
         new_wcs = self._wcs.dropaxis(2 - axis)
         meta = {"collapse_axis": axis}
         meta.update(self._meta)
         if axis == 0:
-            if self._beam is not None:
-                meta["beam"] = self._beam
+            beam = self._result_beam()
+            if beam is not None:
+                meta["beam"] = beam
             return Projection(out, unit=unit, wcs=new_wcs, meta=meta,
-                              header=self._nowcs_header, beam=self._beam)
+                              header=self._nowcs_header, beam=beam)
         return LowerDimensionalObject(out, unit=unit, wcs=new_wcs, meta=meta,
                                       header=self._nowcs_header)
 
@@ -512,7 +553,7 @@ class SpectralCube:
         meta = {"moment_order": order, "moment_axis": axis,
                 "moment_method": how}
         meta.update(self._meta)
-        beam = self._beam if axis == 0 else None
+        beam = self._result_beam() if axis == 0 else None
         if beam is not None:
             meta["beam"] = beam
         return Projection(out, unit=unit, wcs=self._wcs.dropaxis(2 - axis),
@@ -626,42 +667,10 @@ class SpectralCube:
         spectral_cube.py:2649-2746): bilinear, onto an axis-aligned
         spatial grid (a translation or rescaling of the input's), with the
         input's spectral axis or a new one (channels lerped, then
-        resampled; ops/regrid.py).  Rotated targets and the other orders
-        raise NotImplementedError so far."""
+        resampled; ops/regrid.py).  Rotated targets and nearest-neighbour
+        resampling take the four-corner gather; the spline orders raise
+        NotImplementedError so far (ROADMAP.md Queue 1 item 9)."""
         return self._reproject(header, order=order, filled=filled)
-
-    @property
-    def beam(self):
-        if self._beam is None:
-            raise NoBeamError(
-                "No beam is defined for this SpectralCube; use with_beam "
-                "to attach one (reference base_class.py:486-497)")
-        return self._beam
-
-    def with_beam(self, beam, raise_error_jybm=True):
-        return self._new_cube_with(beam=beam)
-
-    @property
-    def pixels_per_beam(self):
-        return float(self.beam.sr.value /
-                     (self._wcs.proj_plane_pixel_area()
-                      * (np.pi / 180.0) ** 2))
-
-    def convolve_to(self, beam, convolve=None, update_function=None,
-                    **kwargs):
-        """Convolve every channel to a common target beam (reference
-        spectral_cube.py:3334-3392)."""
-        if self._beam is None:
-            raise NoBeamError("The cube has no beam; use with_beam first")
-        pixscale = float(np.mean(np.abs(
-            self._wcs.celestial.proj_plane_pixel_scales()))) * np.pi / 180.0
-        out, factors = _conv.convolve_cube_to_beam(
-            self._get_filled_data(fill=np.nan), self._beam, beam, pixscale,
-            unit=self.unit)
-        if not np.allclose(factors, 1.0):
-            out = out * torch.as_tensor(factors, dtype=out.dtype,
-                                        device=out.device)[:, None, None]
-        return self._new_cube_with(data=out, beam=beam)
 
     # ------------------------------------------------------------------
     # smoothing / filtering family (reference spectral_cube.py:2749-3222)
@@ -892,3 +901,337 @@ class SpectralCube:
         head = f"{type(self).__name__} with shape={self.shape}"
         head += f" and unit={unit}" if unit else ""
         return head + f" on {self.device}"
+
+
+class SpectralCube(BaseSpectralCube):
+    """A cube with one beam (reference spectral_cube.py:3689-3781)."""
+
+    def __init__(self, data, wcs, mask=None, meta=None, fill_value=np.nan,
+                 header=None, allow_huge_operations=False, beam=None,
+                 wcs_tolerance=0.0, unit=None, device=None):
+        super().__init__(data=data, wcs=wcs, mask=mask, meta=meta,
+                         fill_value=fill_value, header=header,
+                         allow_huge_operations=allow_huge_operations,
+                         wcs_tolerance=wcs_tolerance, unit=unit,
+                         device=device)
+        if beam is None:
+            if header is not None:
+                beam = Beam.from_header(header)
+            if beam is None and "beam" in self._meta:
+                beam = self._meta["beam"]
+        self._beam = beam
+        if beam is not None:
+            self._meta["beam"] = beam
+
+    def _new_cube_with(self, beam=None, **kwargs):
+        cube = super()._new_cube_with(**kwargs)
+        cube._beam = beam if beam is not None else self._beam
+        if cube._beam is not None:
+            cube._meta["beam"] = cube._beam
+        return cube
+
+    @property
+    def header(self):
+        h = super().header
+        if self._beam is not None:
+            h.update(self._beam.to_header_keywords())
+        return h
+
+    @property
+    def beam(self):
+        if self._beam is None:
+            raise NoBeamError(
+                "No beam is defined for this SpectralCube; use with_beam "
+                "to attach one (reference base_class.py:486-497)")
+        return self._beam
+
+    def with_beam(self, beam, raise_error_jybm=True):
+        return self._new_cube_with(beam=beam)
+
+    @property
+    def pixels_per_beam(self):
+        return float(self.beam.sr.value /
+                     (self._wcs.proj_plane_pixel_area()
+                      * (np.pi / 180.0) ** 2))
+
+    def convolve_to(self, beam, convolve=None, update_function=None,
+                    **kwargs):
+        """Convolve every channel to a common target beam (reference
+        spectral_cube.py:3334-3392)."""
+        if self._beam is None:
+            raise NoBeamError("The cube has no beam; use with_beam first")
+        pixscale = float(np.mean(np.abs(
+            self._wcs.celestial.proj_plane_pixel_scales()))) * np.pi / 180.0
+        out, factors = _conv.convolve_cube_to_beam(
+            self._get_filled_data(fill=np.nan), self._beam, beam, pixscale,
+            unit=self.unit)
+        if not np.allclose(factors, 1.0):
+            out = out * torch.as_tensor(factors, dtype=out.dtype,
+                                        device=out.device)[:, None, None]
+        return self._new_cube_with(data=out, beam=beam)
+
+
+
+class VaryingResolutionSpectralCube(BaseSpectralCube):
+    """A cube with one beam per channel (reference
+    spectral_cube.py:3784-4315; the JAX package's cube.py:2199-2560).
+    Slicing and ``jtok_factors`` are not ported yet (ROADMAP.md Queue 1
+    item 10)."""
+
+    def __init__(self, data, wcs, mask=None, meta=None, fill_value=np.nan,
+                 header=None, allow_huge_operations=False, beams=None,
+                 beam_table=None, goodbeams_mask=None, wcs_tolerance=0.0,
+                 beam_threshold=0.01, unit=None, device=None):
+        super().__init__(data=data, wcs=wcs, mask=mask, meta=meta,
+                         fill_value=fill_value, header=header,
+                         allow_huge_operations=allow_huge_operations,
+                         wcs_tolerance=wcs_tolerance, unit=unit,
+                         device=device)
+        if beams is None and beam_table is not None:
+            beams = _beams_from_bintable(beam_table)
+        if beams is None:
+            raise ValueError("VaryingResolutionSpectralCube requires beams")
+        if len(beams) != self.shape[0]:
+            raise ValueError(
+                f"beam list length ({len(beams)}) does not match cube "
+                f"spectral dimension ({self.shape[0]})")
+        self._beams = beams
+        self.beam_threshold = beam_threshold
+        finite = beams.isfinite
+        if goodbeams_mask is not None:
+            self._goodbeams_mask = np.asarray(goodbeams_mask) & finite
+        else:
+            self._goodbeams_mask = finite
+        # mask the channels and warn only for NEWLY bad beams: channels the
+        # given goodbeams_mask still marks good whose beams are not finite.
+        # Derived cubes pass a goodbeams_mask that already reflects the
+        # exclusions and carry the channel mask.
+        newly_bad = ~finite if goodbeams_mask is None \
+            else (~finite) & np.asarray(goodbeams_mask)
+        if newly_bad.any():
+            warnings.warn("Non-finite beams were automatically masked out",
+                          NonFiniteBeamsWarning)
+            chan_mask = BooleanArrayMask(self._goodbeams_mask,
+                                         shape=self.shape)
+            self._mask = CompositeMask(self._mask, chan_mask, "and") \
+                if self._mask is not None else chan_mask
+
+    # -- beams -----------------------------------------------------------
+    @property
+    def beams(self) -> Beams:
+        return self._beams[self._goodbeams_mask]
+
+    @property
+    def unmasked_beams(self) -> Beams:
+        return self._beams
+
+    @property
+    def goodbeams_mask(self):
+        return self._goodbeams_mask
+
+    def identify_bad_beams(self, threshold, reference_beam=None,
+                           criteria=("sr", "major", "minor")):
+        """Flag channels whose beam deviates from the median by more than
+        ``threshold`` fractionally (reference base_class.py:544-597)."""
+        if reference_beam is None:
+            ref = Beam.make(Quantity(np.median(self._beams.major.value),
+                                     "deg"),
+                            Quantity(np.median(self._beams.minor.value),
+                                     "deg"),
+                            Quantity(0, "deg"))
+        else:
+            ref = reference_beam
+        good = np.ones(len(self._beams), dtype=bool)
+        for i, b in enumerate(self._beams):
+            if not b.isfinite:
+                good[i] = False
+                continue
+            checks = {"sr": abs(b.sr.value - ref.sr.value) / ref.sr.value,
+                      "major": abs(b.major_rad - ref.major_rad)
+                      / ref.major_rad,
+                      "minor": abs(b.minor_rad - ref.minor_rad)
+                      / ref.minor_rad}
+            if any(checks[c] > threshold for c in criteria):
+                good[i] = False
+        return good
+
+    def mask_out_bad_beams(self, threshold, reference_beam=None,
+                           criteria=("sr", "major", "minor")):
+        good = self.identify_bad_beams(threshold, reference_beam, criteria)
+        chan = BooleanArrayMask(good, shape=self.shape)
+        new = self._new_cube_with(
+            mask=CompositeMask(self._mask, chan, "and")
+            if self._mask is not None else chan)
+        new._goodbeams_mask = self._goodbeams_mask & good
+        return new
+
+    def with_beams(self, beams, goodbeams_mask=None, raise_error_jybm=True):
+        """Replace the per-channel beams.  Changing beams under Jy/beam
+        units silently rescales the data's meaning, so it raises unless
+        raise_error_jybm=False (reference spectral_cube.py:4096-4124)."""
+        if raise_error_jybm:
+            self._check_jybeam_smoothing(raise_error_jybm=True)
+        if len(beams) != self.shape[0]:
+            raise ValueError(
+                f"The Beams object must have the same size as the "
+                f"spectral axis ({len(beams)} vs {self.shape[0]})")
+        return self._new_cube_with(beams=beams,
+                                   goodbeams_mask=goodbeams_mask)
+
+    @property
+    def pixels_per_beam(self):
+        """Per-channel beam areas in pixels, over the good beams only
+        (reference base_class.py:552-560)."""
+        pix_area = (self._wcs.proj_plane_pixel_area()
+                    * (np.pi / 180.0) ** 2)
+        return np.array([float(b.sr.value) / pix_area for b in self.beams])
+
+    def average_beams(self, threshold=None, mask="compute", warn=False):
+        """Average beam of the good channels that hold an included value
+        (``mask='compute'``), checking homogeneity when ``threshold`` is
+        given (reference base_class.py:599-670)."""
+        if mask == "compute" and self._mask is not None:
+            include = self._mask.include(data=self._data, wcs=self._wcs) \
+                .expand(self.shape).flatten(1).any(1).cpu().numpy()
+            beam_mask = include & self._goodbeams_mask
+        else:
+            beam_mask = self._goodbeams_mask
+        if threshold is not None:
+            self._check_beam_areas(threshold, mask=beam_mask)
+        if warn:
+            warnings.warn("Arithmetic beam averaging is being performed.",
+                          BeamAverageWarning)
+        return self._beams.average_beam(include_mask=beam_mask)
+
+    def _check_beam_areas(self, threshold=None, mask=None):
+        """Raise if the beams' areas differ from their mean by more than
+        the threshold (reference base_class.py:721-759)."""
+        threshold = threshold if threshold is not None else \
+            self.beam_threshold
+        mask = mask if mask is not None else self._goodbeams_mask
+        srs = np.array([b.sr.value for b in self._beams])[mask]
+        if srs.size == 0:
+            return
+        mean_sr = srs.mean()
+        if np.any(np.abs(srs - mean_sr) / mean_sr > threshold):
+            raise ValueError(
+                "Beams do not match within the threshold; convolve to a "
+                "common beam first (convolve_to) or raise beam_threshold.")
+
+    def _new_cube_with(self, beams=None, goodbeams_mask=None, **kwargs):
+        return super()._new_cube_with(
+            beams=beams if beams is not None else self._beams,
+            goodbeams_mask=(goodbeams_mask if goodbeams_mask is not None
+                            else self._goodbeams_mask),
+            beam_threshold=self.beam_threshold, **kwargs)
+
+    # -- beam-coupled overrides ----------------------------------------------
+    def _result_beam(self):
+        """Spectral reductions of a varying-resolution cube carry the
+        arithmetic-average beam, with the reference's warning
+        (base_class.py:599-670 via _handle_beam_areas_wrapper)."""
+        try:
+            return self.average_beams(warn=True)
+        except (ValueError, NoBeamError):
+            return None
+
+    def _reduce(self, fn, axis=None, **kwargs):
+        """Spectral reductions require matched beams (reference
+        __getattribute__ hook, spectral_cube.py:4077-4095)."""
+        if axis is None or int(axis) % 3 == 0:
+            self._check_beam_areas()
+        return super()._reduce(fn, axis=axis, **kwargs)
+
+    def moment(self, order=0, axis=0, **kwargs):
+        if int(axis) % 3 == 0:
+            self._check_beam_areas()
+        return super().moment(order=order, axis=axis, **kwargs)
+
+    @property
+    def header(self):
+        h = super().header
+        h["CASAMBM"] = True  # multi-beam marker (reference :4097-4104)
+        return h
+
+    @property
+    def hdulist(self):
+        from .io.fits_low import BinTableHDU
+        bt = BinTableHDU(columns=self._beams.to_table_columns(),
+                         name="BEAMS",
+                         units={"BMAJ": "arcsec", "BMIN": "arcsec",
+                                "BPA": "deg"})
+        bt.header["NCHAN"] = self.shape[0]
+        bt.header["NPOL"] = 1
+        return super().hdulist + [bt]
+
+    def common_beam(self, **kwargs):
+        return self.beams.common_beam(**kwargs)
+
+    def convolve_to(self, beam, allow_smaller=False, convolve=None,
+                    update_function=None, **kwargs):
+        """Per-channel convolution to one common beam (reference
+        spectral_cube.py:4126-4240), channels grouped by equal beams.
+        Channels whose beam is bad give NaN; with ``allow_smaller``,
+        channels whose beam cannot be deconvolved from ``beam`` pass
+        through unconvolved.  Returns a :class:`SpectralCube`."""
+        pixscale = float(np.mean(np.abs(
+            self._wcs.celestial.proj_plane_pixel_scales()))) * np.pi / 180.0
+        # a bad channel's output is NaN (goodchannels): the target beam
+        # stands in for its beam so that no convolution kernel is made
+        # from a NaN or oversized beam (reference spectral_cube.py:4216-4231)
+        beams = [b if good else beam
+                 for b, good in zip(self._beams, self._goodbeams_mask)]
+        if not allow_smaller:
+            for b, good in zip(beams, self._goodbeams_mask):
+                if good:
+                    beam.deconvolve(b)  # raises BeamError if impossible
+        else:
+            # reference spectral_cube.py:4195-4204: a channel whose beam
+            # cannot be deconvolved from the target passes through with
+            # factor 1, which the target beam standing in gives exactly
+            def _deconvolvable(b):
+                try:
+                    beam.deconvolve(b)
+                    return True
+                except BeamError:
+                    return False
+            beams = [b if not good or _deconvolvable(b) else beam
+                     for b, good in zip(beams, self._goodbeams_mask)]
+        out, factors = _conv.convolve_cube_to_beam(
+            self._get_filled_data(fill=np.nan), beams, beam, pixscale,
+            unit=self.unit, goodchannels=self._goodbeams_mask)
+        if not np.allclose(factors, 1.0):
+            out = out * torch.as_tensor(factors, dtype=out.dtype,
+                                        device=out.device)[:, None, None]
+        meta = dict(self._meta)
+        meta["beam"] = beam
+        return SpectralCube(data=out, wcs=self._wcs, mask=self._mask,
+                            meta=meta, fill_value=self._fill_value,
+                            unit=self._unit, beam=beam,
+                            allow_huge_operations=self.allow_huge_operations)
+
+    def mask_channels(self, goodchannels):
+        """Mask channels and exempt their beams from the beam checks
+        (reference spectral_cube.py:4270-4300)."""
+        goodchannels = np.asarray(goodchannels, dtype=bool)
+        out = super().mask_channels(goodchannels)
+        out._goodbeams_mask = self._goodbeams_mask & goodchannels
+        return out
+
+    def spectral_interpolate(self, *args, **kwargs):
+        raise AttributeError(
+            "VaryingResolutionSpectralCubes can't be spectrally "
+            "interpolated.  Convolve to a common resolution with "
+            "`convolve_to` before spectral interpolation. "
+            "(reference spectral_cube.py:4302-4307)")
+
+    def spectral_smooth(self, *args, **kwargs):
+        raise AttributeError(
+            "VaryingResolutionSpectralCubes can't be spectrally smoothed. "
+            "Convolve to a common resolution with `convolve_to` before "
+            "spectral smoothing. (reference spectral_cube.py:4308-4312)")
+
+    def jtok_factors(self, equivalencies=()):
+        raise NotImplementedError(
+            "jtok_factors needs with_spectral_unit, which is not ported to "
+            "torch yet (ROADMAP.md Queue 1 item 10)")

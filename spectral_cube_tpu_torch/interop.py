@@ -7,6 +7,12 @@ compared::
     cube_from_arrays(np.asarray(jcube._data), jcube.header,
                      mask=np.asarray(jcube.get_mask_array()),
                      beam=jcube.beam, device="cuda")
+
+A varying-resolution cube crosses with its per-channel beams::
+
+    cube_from_arrays(np.asarray(jvr._data), jvr.header,
+                     beams=jvr.unmasked_beams,
+                     goodbeams_mask=jvr.goodbeams_mask, device="cuda")
 """
 
 from __future__ import annotations
@@ -14,11 +20,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .beams import Beam
+from .beams import Beam, Beams
 from .io.fits_low import Header
 from .masks import BooleanArrayMask, LazyMask
 from .wcs import WCS
-from .cube import SpectralCube
+from .cube import SpectralCube, VaryingResolutionSpectralCube, _as_tensor
 
 __all__ = ["cube_from_arrays"]
 
@@ -29,24 +35,37 @@ def _header(cards):
     return Header([(k, cards[k]) for k in cards])
 
 
-def cube_from_arrays(data, header_cards, mask=None, beam=None, device=None):
+def _beam(b):
+    return Beam(float(b.major_rad), float(b.minor_rad), float(b.pa_rad))
+
+
+def cube_from_arrays(data, header_cards, mask=None, beam=None, beams=None,
+                     goodbeams_mask=None, device=None):
     """A :class:`SpectralCube` on ``device`` from oriented (spec, lat, lon)
     ``data``, the FITS cards of its header (a mapping or (key, value)
     pairs, WCS axes in [lon, lat, spec] order), an optional include
     ``mask`` broadcastable to the data, and an optional beam (any object
     with ``major_rad``/``minor_rad``/``pa_rad``; default: the header's
     BMAJ/BMIN/BPA).  Without a mask, non-finite voxels are excluded, as a
-    cube read from FITS has it."""
+    cube read from FITS has it.
+
+    ``beams`` (a sequence of such objects, one per channel) makes a
+    :class:`VaryingResolutionSpectralCube` instead, with the optional
+    ``goodbeams_mask`` of its channels."""
     header = _header(header_cards)
     wcs = WCS(header=header)
-    if beam is not None:
-        beam = Beam(float(beam.major_rad), float(beam.minor_rad),
-                    float(beam.pa_rad))
     meta = {"BUNIT": str(header["BUNIT"]).strip()} if "BUNIT" in header \
         else {}
-    cube = SpectralCube(np.asarray(data), wcs, meta=meta, header=header,
-                        beam=beam, device=device)
-    cube._mask = BooleanArrayMask(np.asarray(mask, dtype=bool), wcs=wcs,
-                                  shape=cube.shape) if mask is not None \
-        else LazyMask(torch.isfinite, data=cube._data, wcs=wcs)
-    return cube
+    tensor = _as_tensor(np.asarray(data), device)
+    cube_mask = BooleanArrayMask(np.asarray(mask, dtype=bool), wcs=wcs,
+                                 shape=tuple(tensor.shape)) \
+        if mask is not None else LazyMask(torch.isfinite, data=tensor,
+                                          wcs=wcs)
+    if beams is not None:
+        return VaryingResolutionSpectralCube(
+            tensor, wcs, mask=cube_mask, meta=meta, header=header,
+            beams=Beams(beams=[_beam(b) for b in beams]),
+            goodbeams_mask=goodbeams_mask)
+    return SpectralCube(tensor, wcs, mask=cube_mask, meta=meta,
+                        header=header,
+                        beam=_beam(beam) if beam is not None else None)

@@ -12,6 +12,9 @@ __all__ = ["read_cube", "write_cube", "Header", "HDU", "BinTableHDU"]
 
 
 def read_cube(filename, format=None, hdu=0, device=None, **kwargs):
+    """A cube from a FITS file or parsed HDUs (``io/fits.cube_from_hdus``,
+    whose ``stokes_to_i=`` picks the I component of a multi-Stokes
+    file)."""
     if isinstance(filename, (HDU, list)):
         hdus = filename if isinstance(filename, list) else [filename]
         return cube_from_hdus(hdus, hdu=hdu, device=device, **kwargs)

@@ -7,11 +7,11 @@ from ``csrc/`` at first use) or raises.  Each wrapper counts its launches in
 """
 
 from . import (moments, conv_sep, resample2, sigma_clip, smooth_interp,
-               conv_reproject, pipeline_fused)
+               conv_reproject, pipeline_fused, banded_matmul)
 
 __all__ = ["moments", "conv_sep", "resample2", "sigma_clip", "smooth_interp",
-           "conv_reproject", "pipeline_fused", "WRAPPERS", "launch_counts",
-           "reset_launch_counts"]
+           "conv_reproject", "pipeline_fused", "banded_matmul", "WRAPPERS",
+           "launch_counts", "reset_launch_counts"]
 
 #: wrapper name -> wrapper
 WRAPPERS = {"moments": moments.moments_planes, "conv_sep": conv_sep.conv_sep,
@@ -21,7 +21,8 @@ WRAPPERS = {"moments": moments.moments_planes, "conv_sep": conv_sep.conv_sep,
             "smooth_interp": smooth_interp.smooth_interp,
             "conv_reproject": conv_reproject.conv_reproject,
             "plain_strips": conv_reproject.plain_strips,
-            "pipeline_fused": pipeline_fused.pipeline_fused}
+            "pipeline_fused": pipeline_fused.pipeline_fused,
+            "banded_matmul": banded_matmul.banded_matmul}
 
 
 def launch_counts():

@@ -27,7 +27,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("moments.cu", "conv_sep.cu", "resample2.cu", "sigma_clip.cu",
-           "smooth_interp.cu", "conv_reproject.cu")
+           "smooth_interp.cu", "conv_reproject.cu", "banded_matmul.cu")
 #: headers the sources include (hashed with them)
 HEADERS = ("moments_acc.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -88,6 +88,10 @@ def _declare(lib):
     lib.sct_conv_reproject_threads.restype = I
     lib.sct_conv_reproject.argtypes = [P, P]
     lib.sct_conv_reproject.restype = I
+    lib.sct_banded_matmul_smem.argtypes = [I, I, I]
+    lib.sct_banded_matmul_smem.restype = LL
+    lib.sct_banded_matmul.argtypes = [P, I, LL, P, P, P, I, P, P, I, I, P, P]
+    lib.sct_banded_matmul.restype = I
     return lib
 
 

@@ -2,8 +2,9 @@
 
 Port of the parts of ``spectral_cube_tpu/lower_dimensional_structures.py``
 the analysis path returns.  ``.value`` stays a host numpy array, as in the
-JAX package, so results of the two compare like with like.  Spectra,
-slices, and the projections' own convolve/reproject follow in ROADMAP.md
+JAX package, so results of the two compare like with like; a projection's
+``convolve_to`` and ``reproject`` run on a device (the CUDA device unless
+the caller asks for another).  Spectra and slices follow in ROADMAP.md
 Queue 1 item 10.
 """
 
@@ -243,3 +244,24 @@ class Projection(LowerDimensionalObject):
 
     def with_beam(self, beam):
         return self._new_with(self.value, beam=beam)
+
+    def convolve_to(self, beam, convolve=None, device=None, **kwargs):
+        """Convolve to a new beam on ``device`` (the FFT route, the JAX
+        package's lower_dimensional_structures.py:318-328); Jy/beam values
+        scale by the beam-area ratio (reference
+        lower_dimensional_structures.py:450-494)."""
+        from .ops.convolve import convolve_image_to_beam
+        out, factor = convolve_image_to_beam(
+            np.asarray(self.value, dtype=float), self.beam, beam, self._wcs,
+            self.unit, device=device)
+        return self._new_with(out * factor, beam=beam)
+
+    def reproject(self, header, order="bilinear", device=None):
+        """Reproject onto the celestial WCS of ``header`` on ``device``
+        (``ops/regrid.reproject_image``)."""
+        from .ops.regrid import reproject_image
+        out, new_wcs = reproject_image(np.asarray(self.value, dtype=float),
+                                       self._wcs, header, order=order,
+                                       device=device)
+        return Projection(out.cpu().numpy(), unit=self.unit, wcs=new_wcs,
+                          meta=self._meta, beam=self._beam)

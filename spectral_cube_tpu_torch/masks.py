@@ -238,9 +238,12 @@ class BooleanArrayMask(MaskBase):
             else tuple(mask.shape)
 
     def _include(self, data=None, view=()):
-        m = self._mask.expand(self._shape)
+        m = self._mask
         if data is not None and m.device != data.device:
+            # move the compact array, then broadcast on the data's device:
+            # a broadcast view copied across would materialize the cube
             m = m.to(data.device)
+        m = m.expand(self._shape)
         return m if trivial_view(view) else m[view]
 
 

@@ -1,17 +1,28 @@
-"""Beam convolution of cubes through SVD-separable taps.
+"""Beam convolution of cubes: SVD-separable taps, or batched FFTs.
 
-Port of ``spectral_cube_tpu/ops/convolve.py`` for separable kernels.
-Semantics matched: astropy ``convolve`` with boundary zero-fill,
-``nan_treatment='interpolate'`` (normalized convolution),
-``normalize_kernel=True``; Jy/beam data are rescaled by the beam-area
-ratio (reference spectral_cube.py:3374-3378).  A Gaussian kernel, even a
-rotated elliptical one, has small numerical rank, so it splits into r
-pairs of 1-D taps that kernel 2 (``kernels/conv_sep.py``) applies per
-channel.  Kernels that do not separate take the FFT path of the JAX
-package, which this port does not have yet: they raise.
+Port of ``spectral_cube_tpu/ops/convolve.py``.  Semantics matched:
+astropy ``convolve`` with boundary zero-fill, ``nan_treatment=
+'interpolate'`` (normalized convolution), ``normalize_kernel=True``;
+Jy/beam data are rescaled by the beam-area ratio (reference
+spectral_cube.py:3374-3378).  A Gaussian kernel, even a rotated elliptical
+one, has small numerical rank, so it splits into r pairs of 1-D taps that
+kernel 2 (``kernels/conv_sep.py``) applies per channel.  The JAX package's
+route rules hold: one beam group takes the separable route at rank <= 8,
+several groups the per-channel separable route at rank <= 4, and anything
+else the FFT route, batched ``torch.fft.rfft2``/``irfft2`` with one
+transfer function per beam group (cuFFT on the card, as ``jnp.fft`` is
+XLA's FFT in the JAX package).
+
+Not ported: the DFT-as-matmul branch of the FFT route
+(``_use_dft_matmul``, ``_spectral_apply_rdft``), which the JAX package
+takes on a TPU backend only, and its ``max_plane=1024`` gate on the
+per-channel separable route, which bounds TPU memory for a matrix gather
+that kernel 2 does not make (ROADMAP.md Queue 1 item 5).
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -23,10 +34,132 @@ from .smoothing import _banded_conv_matrix, banded_tap_offset
 
 __all__ = ["separable_factors", "convolve2d_separable",
            "convolve_per_channel_separable", "convolve_cube_to_beam",
-           "beam_unit_factor"]
+           "convolve2d_nan_fft", "convolve_image_to_beam",
+           "beam_unit_factor", "beam_groups", "fft_shape"]
 
-_FFT_PATH = ("non-separable kernels take the FFT path, which the torch "
-             "port does not have yet (ROADMAP.md Queue 1 item 5)")
+# normalized-convolution denominator floor shared with every route
+# (the JAX package's ops/convolve.py:303)
+_DEN_EPS = 1e-6
+
+# float32 bytes of one padded plane batch of the FFT route; larger cubes
+# run in channel chunks
+_FFT_CHUNK_BYTES = 2 ** 28
+
+
+def fft_shape(n):
+    """Next fast EVEN FFT size >= n (2 * products of 2/3/5).  Must be
+    even: the rfft2-format transfers carry fx//2+1 columns, from which
+    :func:`_convolve_planes` reconstructs fx = 2*(half-1)."""
+    best = 1 << max((int(n) - 1).bit_length(), 1)
+    m = 2
+    while m < n * 2:
+        for f in (1, 3, 5, 9, 15):
+            c = m * f
+            if c >= n and c < best:
+                best = c
+        m *= 2
+    return best
+
+
+def _padded_shape(img_shape, kernel_shape):
+    ny, nx = img_shape
+    ky, kx = kernel_shape
+    return fft_shape(ny + ky - 1), fft_shape(nx + kx - 1)
+
+
+def _complex_of(dtype):
+    return torch.complex128 if dtype == torch.float64 else torch.complex64
+
+
+def _transfers(kernels, fy, fx, device, dtype=torch.complex64):
+    """(ngroup, fy, fx//2+1) transfers of ``kernels`` (None is the
+    identity) in ``dtype``: the rfft2 of each kernel zero-padded to
+    (fy, fx) with its (k-1)//2 entry at (0, 0), so that the convolution
+    does not translate the image (the JAX package's ``_kernel_transfer``,
+    ops/convolve.py:67-77), computed on ``device``.  The host stacks the kernels, each placed so that its
+    (k-1)//2 entry sits at a shared centre, in a box as small as the
+    largest kernel; the device zero-pads the box to (fy, fx), rolls the
+    centre to (0, 0), transforms in float64 and casts, in group chunks (the JAX package builds complex128 transfers on the host
+    and casts them in ``_convolve_planes``)."""
+    ks = [np.ones((1, 1)) if k is None else np.asarray(k, np.float64)
+          for k in kernels]
+    cy = max((k.shape[0] - 1) // 2 for k in ks)
+    cx = max((k.shape[1] - 1) // 2 for k in ks)
+    by = max(cy - (k.shape[0] - 1) // 2 + k.shape[0] for k in ks)
+    bx = max(cx - (k.shape[1] - 1) // 2 + k.shape[1] for k in ks)
+    box = np.zeros((len(ks), by, bx), np.float64)
+    for g, k in enumerate(ks):
+        oy, ox = cy - (k.shape[0] - 1) // 2, cx - (k.shape[1] - 1) // 2
+        box[g, oy:oy + k.shape[0], ox:ox + k.shape[1]] = k
+    box = torch.as_tensor(box, device=device)
+    out = torch.empty((len(ks), fy, fx // 2 + 1), dtype=dtype,
+                      device=device)
+    step = max(1, _FFT_CHUNK_BYTES // (fy * fx * 8))
+    for g0 in range(0, len(ks), step):
+        pad = torch.zeros((min(step, len(ks) - g0), fy, fx),
+                          dtype=torch.float64, device=device)
+        pad[:, :by, :bx] = box[g0:g0 + step]
+        pad = torch.roll(pad, (-cy, -cx), dims=(1, 2))
+        out[g0:g0 + step] = torch.fft.rfft2(pad).to(dtype)
+    return out
+
+
+def _convolve_planes(data, transfers, group_idx):
+    """Convolve each channel of (nchan, ny, nx) ``data`` with its group's
+    transfer (the JAX package's ops/convolve.py:244-310, rfft2 branch):
+    ``transfers`` (ngroup, fy, fx//2+1) complex, ``group_idx`` (nchan,).
+
+    NaN-interpolating normalized convolution: num = conv(where(finite, x,
+    0)), den = 1 - conv(~finite), NaN where den <= 1e-6, all-NaN planes
+    NaN.  A channel with no non-finite value returns num: its den is 1
+    exactly, so the JAX package's all-or-nothing shortcut and this
+    per-channel one give the same values.  Channels run in chunks of
+    :data:`_FFT_CHUNK_BYTES`."""
+    nchan, ny, nx = data.shape
+    fy = transfers.shape[1]
+    fx = 2 * (transfers.shape[2] - 1)
+    real = torch.float64 if data.dtype == torch.float64 else torch.float32
+    tr = transfers.to(_complex_of(real))
+    gidx = torch.as_tensor(np.asarray(group_idx, np.int64),
+                           device=data.device)
+    out = torch.empty((nchan, ny, nx), dtype=real, device=data.device)
+    step = max(1, _FFT_CHUNK_BYTES // (fy * fx * 4))
+    for c0 in range(0, nchan, step):
+        x = data[c0:c0 + step]
+        t = tr.index_select(0, gidx[c0:c0 + step])
+
+        def conv2(a):
+            return torch.fft.irfft2(torch.fft.rfft2(a, s=(fy, fx)) * t,
+                                    s=(fy, fx))[:, :ny, :nx]
+
+        valid = torch.isfinite(x)
+        num = conv2(torch.where(valid, x, 0).to(real))
+        dirty = ~valid.flatten(1).all(1)
+        if bool(dirty.any()):
+            den = 1.0 - conv2((~valid).to(real))
+            ok = den > _DEN_EPS
+            o = torch.where(ok, num / torch.where(ok, den, 1.0),
+                            float("nan"))
+            any_valid = valid.flatten(1).any(1)[:, None, None]
+            o = torch.where(any_valid, o, float("nan"))
+            num = torch.where(dirty[:, None, None], o, num)
+        out[c0:c0 + step] = num
+    return out.to(data.dtype)
+
+
+def convolve2d_nan_fft(data, kernel):
+    """NaN-interpolating normalized FFT convolution of (ny, nx) or
+    (nchan, ny, nx) ``data`` with one 2-D kernel, normalized to sum 1."""
+    k = np.asarray(kernel, dtype=float)
+    single = data.ndim == 2
+    if single:
+        data = data[None]
+    fy, fx = _padded_shape(data.shape[1:], k.shape)
+    out = _convolve_planes(data, _transfers([k / k.sum()], fy, fx,
+                                            data.device,
+                                            _complex_of(data.dtype)),
+                           np.zeros(data.shape[0], np.int64))
+    return out[0] if single else out
 
 
 def _conv_matrix_1d(n, taps):
@@ -106,6 +239,47 @@ def convolve_per_channel_separable(data, kernels, group_idx, max_rank=4):
     return _convolve_groups(data, ytaps_g, xtaps_g, group_idx)
 
 
+def beam_groups(beam_list):
+    """``(groups, group_idx)``: channel i joins the first group whose
+    beam equals its own (``Beam.__eq__``), else opens a new one, as the
+    JAX package's pairwise scan groups them (ops/convolve.py:572-582).
+    ``Beam.__eq__`` is evaluated here with numpy against all groups at
+    once, in the same float64 arithmetic, so the groups are the scan's
+    without its O(groups^2) Python comparisons (0.8 s for 623 distinct
+    beams, PERF.md)."""
+    maj = np.array([b.major_rad for b in beam_list], np.float64)
+    mnr = np.array([b.minor_rad for b in beam_list], np.float64)
+    pa = np.array([b.pa_rad for b in beam_list], np.float64)
+    fin = np.array([b.isfinite for b in beam_list], bool)
+    reps = np.zeros(len(beam_list), np.int64)
+    group_idx = np.zeros(len(beam_list), dtype=np.int32)
+    ngroups = 0
+    with np.errstate(invalid="ignore"):
+        for i in range(len(beam_list)):
+            r = reps[:ngroups]
+            if fin[i]:
+                circ = maj[i] - mnr[i] < 1e-12 * maj[i]
+                pa_match = circ | (np.abs(np.mod(
+                    pa[i] - pa[r] + np.pi / 2, np.pi) - np.pi / 2) < 1e-8)
+                eq = fin[r] & pa_match & _isclose(maj[i], maj[r]) \
+                    & _isclose(mnr[i], mnr[r])
+            else:
+                eq = ~fin[r]
+            hit = np.flatnonzero(eq)
+            if hit.size:
+                group_idx[i] = hit[0]
+            else:
+                reps[ngroups] = i
+                group_idx[i] = ngroups
+                ngroups += 1
+    return [beam_list[k] for k in reps[:ngroups]], group_idx
+
+
+def _isclose(a, b, rel_tol=1e-10):
+    """``math.isclose(a, b, rel_tol=rel_tol)`` for finite values."""
+    return np.abs(a - b) <= rel_tol * np.maximum(np.abs(a), np.abs(b))
+
+
 def beam_unit_factor(unit: Unit, current: Beam, target: Beam) -> float:
     """Jy/beam rescaling under a beam change (reference
     spectral_cube.py:3374-3378)."""
@@ -121,38 +295,51 @@ def convolve_cube_to_beam(data, beams, target: Beam, pixscale_rad,
 
     ``beams``: one Beam or a per-channel sequence; channels sharing a beam
     share one kernel.  Returns (out, factors), ``factors`` the per-channel
-    Jy/beam rescale (ones if not applicable)."""
+    Jy/beam rescale (ones if not applicable).
+
+    ``convolve_cube_to_beam.last`` describes the latest call: its
+    ``route`` ('identity', 'separable', 'per_channel_separable' or
+    'fft'), the number of beam ``groups``, and the host seconds of the
+    pairwise grouping (``grouping_s``) and of the kernels and the route
+    choice (``kernels_s``)."""
     nchan, ny, nx = data.shape
+    t0 = time.perf_counter()
     beam_list = [beams] * nchan if isinstance(beams, Beam) else list(beams)
-    groups = []
-    group_idx = np.zeros(nchan, dtype=np.int32)
-    for i, b in enumerate(beam_list):
-        for gi, gb in enumerate(groups):
-            if b == gb:
-                group_idx[i] = gi
-                break
-        else:
-            groups.append(b)
-            group_idx[i] = len(groups) - 1
+    groups, group_idx = beam_groups(beam_list)
+    t1 = time.perf_counter()
 
     kernels = []
+    max_k = (1, 1)
     for b in groups:
         conv_beam = target.deconvolve(b)
-        kernels.append(None if conv_beam.major_rad <= 0
-                       else conv_beam.as_kernel(pixscale_rad))
+        if conv_beam.major_rad <= 0:
+            kernels.append(None)
+            continue
+        k = conv_beam.as_kernel(pixscale_rad)
+        kernels.append(k)
+        max_k = (max(max_k[0], k.shape[0]), max(max_k[1], k.shape[1]))
 
-    out = None
+    out, route = None, None
     if len(groups) == 1:
         k = kernels[0]
         if k is None:
-            out = data
+            out, route = data, "identity"
         elif k.shape[0] <= 2 * ny:
-            out = convolve2d_separable(data, k)
+            out, route = convolve2d_separable(data, k), "separable"
     if out is None and all(k is None or k.shape[0] <= 2 * ny
                            for k in kernels):
         out = convolve_per_channel_separable(data, kernels, group_idx)
+        route = "per_channel_separable"
+    t2 = time.perf_counter()
     if out is None:
-        raise NotImplementedError(_FFT_PATH)
+        fy, fx = _padded_shape((ny, nx), max_k)
+        out = _convolve_planes(data, _transfers(kernels, fy, fx, data.device,
+                                                _complex_of(data.dtype)),
+                               group_idx)
+        route = "fft"
+    convolve_cube_to_beam.last = {"route": route, "groups": len(groups),
+                                  "grouping_s": t1 - t0,
+                                  "kernels_s": t2 - t1}
 
     factors = np.ones(nchan)
     if unit is not None:
@@ -165,3 +352,27 @@ def convolve_cube_to_beam(data, beams, target: Beam, pixscale_rad,
             out[torch.as_tensor(np.where(bad)[0], device=out.device)] = \
                 float("nan")
     return out, factors
+
+
+convolve_cube_to_beam.last = {}
+
+
+def convolve_image_to_beam(img, current: Beam, target: Beam, wcs,
+                           unit: Unit = None, device=None):
+    """2-D Projection convolution (reference
+    lower_dimensional_structures.py:450-494) on the FFT route, as the JAX
+    package's ops/convolve.py:640-654.  ``img`` lands on ``device`` as the
+    cube entry points place an array (the CUDA device by default).
+    Returns (host float32 image, Jy/beam factor)."""
+    from ..cube import _as_tensor
+    pixscale = float(np.mean(np.abs(
+        wcs.celestial.proj_plane_pixel_scales()))) * np.pi / 180.0
+    data = _as_tensor(img, device)
+    conv_beam = target.deconvolve(current)
+    if conv_beam.major_rad <= 0:
+        out = data
+    else:
+        out = convolve2d_nan_fft(data, conv_beam.as_kernel(pixscale))
+    factor = beam_unit_factor(unit, current, target) if unit is not None \
+        else 1.0
+    return out.cpu().numpy(), factor

@@ -1,23 +1,26 @@
-"""Reprojection onto a new WCS, axis-aligned half, and the fused
-convolve + reproject.
+"""Reprojection onto a new WCS, and the fused convolve + reproject.
 
-Port of the axis-aligned part of ``spectral_cube_tpu/ops/regrid.py``.  The
+Port of ``spectral_cube_tpu/ops/regrid.py`` for orders 0 and 1.  The
 target-to-source pixel mapping is computed on the host in float64 through
 the standalone WCS stack (shared with the JAX package's derivation,
-:func:`bilinear_host_maps`).  An untouched spectral axis resamples in
-kernel 3 (``kernels/resample2.py::resample2``) straight from the raw,
-NaN-carrying data; a target whose spectral axis differs from the input's
-first lerps the NaN-filled data and the NaN mask along the spectral axis
-(torch gathers, as XLA does it in the JAX package) and then resamples both
-in ``resample2_filled``.  NaN poisoning follows nonzero-weight semantics,
-so a zero-weight NaN neighbour never poisons an output.
+:func:`bilinear_host_maps`).  A bilinear, axis-aligned target with an
+untouched spectral axis resamples in kernel 3
+(``kernels/resample2.py::resample2``) straight from the raw, NaN-carrying
+data; a target whose spectral axis differs from the input's first lerps
+the NaN-filled data and the NaN mask along the spectral axis (torch
+gathers, as XLA does it in the JAX package) and then resamples both in
+``resample2_filled``.  A rotated target, and nearest-neighbour resampling
+(order 0), take the four-corner gather of the JAX package
+(regrid.py:351-408), plain torch as there: outside any kernel.  NaN
+poisoning follows nonzero-weight semantics, so a zero-weight NaN
+neighbour never poisons an output.
 
 :func:`convolve_reproject_separable` fuses the common-beam convolution
 with the resample in kernel 6 (``kernels/conv_reproject.py``) on operators
 composed on the host by :func:`_conv_reproject_operators`.
 
-Not ported yet, and raising ``NotImplementedError``: rotated targets (the
-gather path) and the nearest/spline orders (ROADMAP.md Queue 1 item 9).
+Not ported yet, and raising ``NotImplementedError``: the spline orders
+2 and 3 (ROADMAP.md Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -112,28 +115,89 @@ def bilinear_host_maps(zs, ys, xs, nchan_in, ny_in, nx_in, order):
 
 def _bilinear_spatial_then_linear_z(data, zs, ys, xs, order):
     """Separable resample of (nchan, ny_in, nx_in) ``data`` at spectral
-    input coordinates ``zs`` and spatial maps ``ys``/``xs`` for an
-    axis-aligned bilinear mapping (regrid.py:287-408).  An untouched
-    spectral axis runs kernel 3 on the raw data; otherwise the staged
-    branch lerps the NaN-filled data and the NaN mask along the spectral
-    axis and resamples both in ``resample2_filled``."""
-    if order != 1:
+    input coordinates ``zs`` and spatial maps ``ys``/``xs``
+    (regrid.py:287-408), order 0 (nearest) or 1 (bilinear).  A bilinear,
+    axis-aligned mapping runs kernel 3: on the raw data for an untouched
+    spectral axis, else after the staged spectral lerp of the NaN-filled
+    data and the NaN mask (``resample2_filled``).  A rotated mapping and
+    order 0 take :func:`_gather_resample`."""
+    if order not in (0, 1):
         raise NotImplementedError(
-            "nearest-neighbour and spline reprojection are not ported to "
+            "spline (biquadratic/bicubic) reprojection is not ported to "
             "torch yet (ROADMAP.md Queue 1 item 9)")
     nchan_in, ny_in, nx_in = data.shape
-    (zvalid, z0, zf, z_identity, yvalid, xvalid, y0, y1, wy,
-     x0, x1, wx) = bilinear_host_maps(zs, ys, xs, nchan_in, ny_in,
-                                      nx_in, order)
-    taps = _axis_aligned_taps(ys, xs, ny_in, nx_in)
+    maps = bilinear_host_maps(zs, ys, xs, nchan_in, ny_in, nx_in, order)
+    zvalid, z0, zf, z_identity, yvalid, xvalid = maps[:6]
+    taps = _axis_aligned_taps(ys, xs, ny_in, nx_in) if order == 1 else None
     if taps is None:
-        raise NotImplementedError(
-            "rotated (non-axis-aligned) reprojection is not ported to "
-            "torch yet (ROADMAP.md Queue 1 item 9)")
+        return _gather_resample(data, maps, order)
     if z_identity:
         return resample2(data, *taps, yvalid & xvalid, zvalid)
     fz, wz, wz_any = _zlerp_filled(data, z0, zf)
     return resample2_filled(fz, wz, wz_any, *taps, yvalid & xvalid, zvalid)
+
+
+def _gather_resample(data, maps, order):
+    """The JAX package's four-corner gather (regrid.py:351-408): the
+    spectral lerp of the NaN-filled data (none on an untouched axis), then
+    per output pixel the weighted sum of its 2 x 2 input corners (the
+    nearest one for order 0), gathered as rows of the (ny_in * nx_in, nz)
+    channels-minor view so that each gather reads whole spectra.  Only a
+    cube that holds NaN gathers its NaN weights too, and an output whose
+    NaN weight is above 1e-6 becomes NaN; outputs outside the input's
+    footprint are NaN.  The gathers accumulate in place into one buffer,
+    so the peak is about four cubes (the transposed input, the
+    accumulator, one gathered corner and the output)."""
+    (zvalid, z0, zf, z_identity, yvalid, xvalid, y0, y1, wy,
+     x0, x1, wx) = maps
+    nchan_in, ny_in, nx_in = data.shape
+    nz = zf.shape[0]
+    ny, nx = wy.shape
+    dev = data.device
+    corners = ((y0, x0, (1 - wy) * (1 - wx)), (y0, x1, (1 - wy) * wx),
+               (y1, x0, wy * (1 - wx)), (y1, x1, wy * wx))
+    if order == 0:
+        corners = corners[:1]
+    corners = [(torch.as_tensor((yy * nx_in + xx).ravel(), device=dev),
+                torch.as_tensor(np.ascontiguousarray(w.ravel()),
+                                device=dev)[:, None])
+               for yy, xx, w in corners]
+    lo = torch.as_tensor(np.asarray(z0, np.int64), device=dev)
+    hi = torch.as_tensor(np.minimum(np.asarray(z0, np.int64) + 1,
+                                    nchan_in - 1), device=dev)
+    f3 = torch.as_tensor(np.asarray(zf, np.float32), device=dev)[:, None,
+                                                                 None]
+
+    def zlerp(a):
+        if z_identity:
+            return a
+        if order == 0 or nchan_in == 1:
+            return a.index_select(0, lo)
+        return a.index_select(0, lo) * (1 - f3) + a.index_select(0, hi) * f3
+
+    def gathers(make):
+        # ``make`` builds the (nz, ny_in, nx_in) cube to gather from, so
+        # that only its channels-minor copy stays alive
+        flat = make().reshape(nz, ny_in * nx_in).t().contiguous()
+        acc = None
+        for idx, w in corners:
+            part = flat.index_select(0, idx)
+            if acc is None:
+                acc = part.mul_(w)
+            else:
+                acc.addcmul_(part, w)
+            del part
+        return acc
+
+    out = gathers(lambda: zlerp(torch.nan_to_num(data)))
+    if bool(torch.isnan(data).any()):
+        weight = gathers(lambda: zlerp(torch.isnan(data).to(torch.float32)))
+        out.masked_fill_(weight > 1e-6, float("nan"))
+        del weight
+    out = out.t().reshape(nz, ny, nx)
+    valid = torch.as_tensor((yvalid & xvalid)[None], device=dev) \
+        & torch.as_tensor(np.asarray(zvalid), device=dev)[:, None, None]
+    return out.masked_fill_(~valid, float("nan")).to(data.dtype)
 
 
 def _zlerp_filled(data, z0, zf):

@@ -4,7 +4,10 @@
 the chain the JAX package's ``run_pipeline`` runs over a device mesh, here
 through the cube methods on the cube's own device: on a CUDA device every
 heavy step runs in the port's kernels (moments and statistics in kernel 1,
-the convolution in kernel 2, the reprojection in kernel 3).
+a separable convolution in kernel 2, an axis-aligned reprojection in
+kernel 3).  A varying-resolution cube first converges to its common beam;
+kernels that do not separate take the FFT route (cuFFT), rotated targets
+the four-corner gather (torch).
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import warnings
 
 import numpy as np
 
+from .cube_utils import _has_beams
 from .units import Quantity
 from .utils import VarianceWarning
 
@@ -25,13 +29,14 @@ def run_pipeline(cube, cmesh=None, snr_threshold=None, target_beam=None,
 
     Parameters
     ----------
-    cube : SpectralCube
+    cube : SpectralCube or VaryingResolutionSpectralCube
     cmesh : must be None; a multi-device mesh is not ported to torch yet
         (ROADMAP.md Queue 1 item 12).
     snr_threshold : float, optional -- mask voxels at or below
         ``snr_threshold * noise`` before the moments, the noise from
         ``cube.mad_std()`` unless ``noise_estimate`` is given.
-    target_beam : Beam, optional -- convolve to this beam first.
+    target_beam : Beam, optional -- convolve to this beam first (default:
+        the common beam of a varying-resolution cube, else no convolution).
     target_header : optional -- reproject the convolved, masked cube onto
         this WCS last.
 
@@ -43,6 +48,10 @@ def run_pipeline(cube, cmesh=None, snr_threshold=None, target_beam=None,
         raise NotImplementedError(
             "multi-device execution is not ported to torch yet "
             "(ROADMAP.md Queue 1 item 12)")
+    # a varying-resolution cube reaches a common beam before any spectral
+    # reduction (the reference's beam-sameness guard)
+    if target_beam is None and _has_beams(cube):
+        target_beam = cube.common_beam()
     if target_beam is not None:
         cube = cube.convolve_to(target_beam)
 

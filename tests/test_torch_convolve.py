@@ -1,5 +1,5 @@
 """Torch port, kernel 2 (per-channel separable normalized convolution)
-against the JAX package.
+and the FFT route against the JAX package.
 
 The same numpy inputs go through the JAX function (its Pallas strips
 kernels in interpret mode, or its dense einsum path) and through the port
@@ -9,6 +9,9 @@ rtol 3e-5 / atol 1e-5 against float64 for unit-variance noise data, the
 JAX strips-kernel tests' own (test_banded_pallas.py:268); 1e-6 relative to
 the data scale between two f32 implementations, and on smooth positive
 data against float64 (CLAUDE.md's 1e-6 contract); NaN pattern exact first.
+The FFT route: rtol 1e-5 with atol 1e-6 * max|x| where the normalized
+convolution's denominator is at least 0.1, den-weighted below it
+(:func:`assert_fft_close`).
 """
 
 import numpy as np
@@ -199,21 +202,172 @@ def test_convolve_cube_to_beam_matches_jax_several_groups():
     np.testing.assert_allclose(got[ok], ref[ok], rtol=3e-5, atol=1e-5)
 
 
+def _den64(data, kernels, group_idx):
+    """float64 denominator 1 - K*~isfinite of each channel: the valid
+    fraction of the kernel's footprint, by which the normalized
+    convolution divides."""
+    den = np.ones(data.shape, np.float64)
+    for c in range(data.shape[0]):
+        k = kernels[group_idx[c]]
+        if k is None:
+            continue
+        k = np.asarray(k, np.float64)
+        cy, cx = (k.shape[0] - 1) // 2, (k.shape[1] - 1) // 2
+        ny, nx = data.shape[1:]
+        bad = (~np.isfinite(data[c])).astype(np.float64)
+        den[c] = 1.0 - scipy.signal.convolve2d(bad, k, mode="full")[
+            cy:cy + ny, cx:cx + nx]
+    return den
+
+
+def assert_fft_close(got, ref, den, scale):
+    """The FFT route's tolerance: NaN patterns equal; rtol 1e-5 with atol
+    1e-6 * max|x| where den >= 0.1; elsewhere the division by den
+    amplifies float32 rounding, so |got - ref| * den must stay within
+    1e-6 * max|x|."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    assert np.array_equal(np.isnan(got), np.isnan(ref))
+    fin = ~np.isnan(ref)
+    strong = fin & (den >= 0.1)
+    np.testing.assert_allclose(got[strong], ref[strong], rtol=1e-5,
+                               atol=1e-6 * scale)
+    weak = fin & (den < 0.1)
+    assert (np.abs(got[weak] - ref[weak]) * den[weak]).max(initial=0.0) \
+        <= 1e-6 * scale
+
+
+def _nan_data(shape, seed):
+    rng = np.random.RandomState(seed)
+    data = rng.randn(*shape).astype(np.float32)
+    ny, nx = shape[1:]
+    data[1, 1:4, 2:6] = np.nan         # a flagged patch
+    data[1, ny // 2, 3] = np.nan
+    data[2] = np.nan                   # an all-NaN channel
+    data[-1, ny - 2, nx // 3] = np.inf  # inf is invalid like NaN
+    return data
+
+
 def test_non_separable_kernel_raises(monkeypatch):
-    """Kernels that do not SVD-separate take the JAX package's FFT path;
-    the port raises instead of degrading."""
+    """Kernels that do not SVD-separate decline both separable routes and
+    take the FFT route, as in the JAX package: with ``separable_factors``
+    declining in both packages, ``convolve_cube_to_beam`` convolves by
+    FFT and matches the JAX package's FFT route."""
     rng = np.random.RandomState(1)
     k = rng.rand(9, 9)
-    data = torch.zeros((2, 16, 16))
-    assert tconv.convolve2d_separable(data, k) is None
+    data = _nan_data((4, 16, 18), 2)
+    td = torch.as_tensor(data)
+    assert tconv.convolve2d_separable(td, k) is None
     assert tconv.convolve_per_channel_separable(
-        data, [k], np.zeros(2, np.int32)) is None
-    monkeypatch.setattr(tconv, "separable_factors",
-                        lambda *a, **kw: None)
-    b = TBeam(TQ(2.0, "arcsec"), TQ(2.0, "arcsec"), TQ(0, "deg"))
-    t = TBeam(TQ(5.0, "arcsec"), TQ(5.0, "arcsec"), TQ(0, "deg"))
-    with pytest.raises(NotImplementedError, match="FFT"):
-        tconv.convolve_cube_to_beam(data, b, t, np.radians(1 / 3600.0))
+        td, [k], np.zeros(4, np.int32)) is None
+    for mod in (tconv, jconv):
+        monkeypatch.setattr(mod, "separable_factors", lambda *a, **kw: None)
+    pix = np.radians(1 / 3600.0)
+    tb, tt = (TBeam(TQ(v, "arcsec"), TQ(v, "arcsec"), TQ(0, "deg"))
+              for v in (2.0, 5.0))
+    jb, jt = (JBeam(JQ(v, "arcsec"), JQ(v, "arcsec"), JQ(0, "deg"))
+              for v in (2.0, 5.0))
+    got, _ = tconv.convolve_cube_to_beam(td, tb, tt, pix)
+    assert tconv.convolve_cube_to_beam.last["route"] == "fft"
+    ref, _ = jconv.convolve_cube_to_beam(jnp.asarray(data), jb, jt, pix)
+    kern = tt.deconvolve(tb).as_kernel(pix)
+    assert_fft_close(got.numpy(), ref,
+                     _den64(data, [kern], np.zeros(4, np.int32)),
+                     float(np.nanmax(np.abs(np.where(np.isinf(data), 0,
+                                                     data)))))
+
+
+def _drift_beams(n, pa0, pa1, pkg):
+    B, Q = (TBeam, TQ) if pkg == "t" else (JBeam, JQ)
+    return [B(Q(a, "arcsec"), Q(b, "arcsec"), Q(c, "deg"))
+            for a, b, c in zip(np.linspace(6.0, 6.6, n),
+                               np.linspace(4.5, 4.95, n),
+                               np.linspace(pa0, pa1, n))]
+
+
+@pytest.mark.parametrize("target", ["common", "circular12"])
+def test_fft_route_matches_jax_drifting_beams(target):
+    """Per-channel elliptical beams at PA 30-34 deg drifting 6.0"->6.6" by
+    4.5"->4.95" (the varying-resolution cell's beams): their deconvolution
+    kernels have SVD rank 5, above the per-channel separable route's 4, so
+    both packages take the FFT route, with one transfer per beam group."""
+    n = 6
+    data = _nan_data((n, 40, 44), 0)
+    data[4, 30:, :] = np.nan          # a primary-beam-like border
+    pix = np.radians(2 / 3600.0)
+    tb, jb = _drift_beams(n, 30, 34, "t"), _drift_beams(n, 30, 34, "j")
+    if target == "common":
+        from spectral_cube_tpu_torch.beams import Beams as TBeams
+        from spectral_cube_tpu.beams import Beams as JBeams
+        tt, jt = TBeams(beams=tb).common_beam(), JBeams(beams=jb).common_beam()
+        assert tt.major_rad == jt.major_rad
+    else:
+        tt = TBeam(TQ(12.0, "arcsec"), TQ(12.0, "arcsec"), TQ(0, "deg"))
+        jt = JBeam(JQ(12.0, "arcsec"), JQ(12.0, "arcsec"), JQ(0, "deg"))
+    got, tf = tconv.convolve_cube_to_beam(torch.as_tensor(data), tb, tt, pix)
+    last = tconv.convolve_cube_to_beam.last
+    assert last["route"] == "fft" and last["groups"] == n
+    ref, jf = jconv.convolve_cube_to_beam(jnp.asarray(data), jb, jt, pix)
+    np.testing.assert_array_equal(tf, jf)
+    kernels = [None if tt.deconvolve(b).major_rad <= 0
+               else tt.deconvolve(b).as_kernel(pix) for b in tb]
+    scale = float(np.nanmax(np.abs(np.where(np.isinf(data), 0, data))))
+    assert_fft_close(got.numpy(), ref, _den64(data, kernels, np.arange(n)),
+                     scale)
+
+
+@pytest.mark.parametrize("ndim", [2, 3])
+def test_convolve2d_nan_fft_matches_jax(ndim):
+    data = _nan_data((4, 24, 20), 5)
+    k = _gauss2d(1.8, 1.1, theta=0.5, size=11) * 3.0   # not normalized
+    x = data[1] if ndim == 2 else data
+    got = tconv.convolve2d_nan_fft(torch.as_tensor(x), k).numpy()
+    ref = np.asarray(jconv.convolve2d_nan_fft(jnp.asarray(x), k))
+    assert got.shape == x.shape
+    x3 = x[None] if ndim == 2 else x
+    den = _den64(x3, [k / k.sum()], np.zeros(x3.shape[0], np.int64))
+    assert_fft_close(got, ref, den.reshape(x.shape),
+                     float(np.nanmax(np.abs(np.where(np.isinf(x), 0, x)))))
+
+
+def test_fft_shape_and_transfers_match_jax():
+    """fft_shape equals the JAX package's; the transfers built on the
+    device equal the JAX package's host float64 rfft2 cast to complex64,
+    for kernels of several sizes, odd and even, and the identity."""
+    for n in (1, 7, 100, 772, 1000, 1537):
+        assert tconv.fft_shape(n) == jconv.fft_shape(n)
+    rng = np.random.RandomState(4)
+    kernels = [rng.rand(5, 5), rng.rand(3, 7), None, rng.rand(4, 6)]
+    fy, fx = 24, 30
+    got = tconv._transfers(kernels, fy, fx, torch.device("cpu")).numpy()
+    for g, k in enumerate(kernels):
+        want = np.ones((fy, fx // 2 + 1)) if k is None \
+            else jconv._kernel_transfer(k, fy, fx)
+        np.testing.assert_allclose(got[g], want.astype(np.complex64),
+                                   rtol=0, atol=1e-6)
+
+
+def test_dropped_max_plane_gate_routes_agree():
+    """The JAX package sends planes above 1024 pixels from the per-channel
+    separable route to the FFT route (a TPU memory gate); the port keeps
+    the separable route there.  Both routes agree on such a plane."""
+    n, ny, nx = 4, 8, 1030
+    data = _nan_data((n, ny, nx), 7)
+    data[1, 2, 500] = np.nan
+    pix = np.radians(1 / 3600.0)
+    tb = [TBeam(TQ(v, "arcsec"), TQ(v * 0.8, "arcsec"), TQ(0, "deg"))
+          for v in (2.0, 2.2, 2.4, 2.6)]
+    jb = [JBeam(JQ(v, "arcsec"), JQ(v * 0.8, "arcsec"), JQ(0, "deg"))
+          for v in (2.0, 2.2, 2.4, 2.6)]
+    tt = TBeam(TQ(4.0, "arcsec"), TQ(4.0, "arcsec"), TQ(0, "deg"))
+    jt = JBeam(JQ(4.0, "arcsec"), JQ(4.0, "arcsec"), JQ(0, "deg"))
+    got, _ = tconv.convolve_cube_to_beam(torch.as_tensor(data), tb, tt, pix)
+    assert tconv.convolve_cube_to_beam.last["route"] == \
+        "per_channel_separable"
+    ref, _ = jconv.convolve_cube_to_beam(jnp.asarray(data), jb, jt, pix)
+    kernels = [tt.deconvolve(b).as_kernel(pix) for b in tb]
+    scale = float(np.nanmax(np.abs(np.where(np.isinf(data), 0, data))))
+    assert_fft_close(got.numpy(), ref, _den64(data, kernels, np.arange(n)),
+                     scale)
 
 
 def test_plain_clean_channels_skip_the_denominator():
@@ -231,3 +385,53 @@ def test_plain_clean_channels_skip_the_denominator():
     assert torch.equal(clean[2], mixed[2])
     assert not torch.equal(clean[1], mixed[1])
     assert kconv.conv_sep.launches == 0
+
+
+def _pairwise_groups(beams):
+    """The JAX package's grouping scan (ops/convolve.py:572-582)."""
+    groups, idx = [], np.zeros(len(beams), np.int32)
+    for i, b in enumerate(beams):
+        for g, gb in enumerate(groups):
+            if b == gb:
+                idx[i] = g
+                break
+        else:
+            groups.append(b)
+            idx[i] = len(groups) - 1
+    return groups, idx
+
+
+@pytest.mark.parametrize("case", ["drift", "edge", "random"])
+def test_beam_groups_equal_the_pairwise_scan(case):
+    """beam_groups gives the scan's groups: equal beams within 1e-10
+    relative, position angles equal modulo pi or ignored for circular
+    beams, non-finite and zero-size beams one group, first match wins."""
+    rad = np.radians(1 / 3600.0)
+    if case == "drift":
+        t = np.repeat(np.arange(40) / 39.0, 3)
+        beams = [TBeam(6 * rad * (1 + 0.1 * x), 4.5 * rad * (1 + 0.1 * x),
+                       np.radians(30 + 4 * x)) for x in t]
+        beams[5] = TBeam(np.nan, np.nan, 0.0)
+    elif case == "edge":
+        b = 6 * rad
+        beams = [TBeam(b, b, 0.1), TBeam(b, b, 1.3),            # circular
+                 TBeam(b, 0.8 * b, 0.2), TBeam(b, 0.8 * b, 0.2 + np.pi),
+                 TBeam(b, 0.8 * b, 0.2 - np.pi),
+                 TBeam(b * (1 + 5e-11), 0.8 * b, 0.2),          # within
+                 TBeam(b * (1 + 3e-10), 0.8 * b, 0.2),          # outside
+                 TBeam(b, 0.8 * b, 0.2 + 5e-9),
+                 TBeam(b, 0.8 * b, 0.2 + 5e-8),
+                 TBeam(np.nan, b, 0.0), TBeam(0.0, 0.0, 0.0),
+                 TBeam(b, b * (1 - 5e-13), 2.0),                # ~circular
+                 TBeam(b, b * (1 + 6e-11), 0.7)]
+    else:
+        rng = np.random.RandomState(5)
+        base = [TBeam(rng.uniform(4, 8) * rad, rng.uniform(2, 4) * rad,
+                      rng.uniform(-3, 3)) for _ in range(12)]
+        beams = [base[k] for k in rng.randint(0, 12, 200)]
+        beams = [TBeam(b.major_rad * (1 + rng.choice([0, 1e-11, 1e-9])),
+                       b.minor_rad, b.pa_rad) for b in beams]
+    groups, idx = tconv.beam_groups(beams)
+    want_groups, want_idx = _pairwise_groups(beams)
+    np.testing.assert_array_equal(idx, want_idx)
+    assert [id(g) for g in groups] == [id(g) for g in want_groups]

@@ -119,7 +119,9 @@ def test_unit_conversions_match_jax(src, dst, value):
 def test_fits_roundtrip_and_unported_inputs(tmp_path):
     """A cube written by the JAX package reads into the port (orientation,
     mask, beam), writes back, and re-reads unchanged; a varying-beam file
-    raises, naming the ROADMAP item."""
+    reads as a VaryingResolutionSpectralCube with the JAX package's beams,
+    and a 4-D file with several Stokes components raises through
+    ``io.read_cube``, naming the ROADMAP item."""
     rng = np.random.RandomState(1)
     data = rng.rand(4, 5, 6).astype(np.float32)
     data[1, 2, 3] = np.nan
@@ -137,6 +139,18 @@ def test_fits_roundtrip_and_unported_inputs(tmp_path):
     assert back.beam.major_rad == cube.beam.major_rad
     with pytest.raises(OSError, match="overwrite"):
         cube.write(out)
-    vr, _ = make_vr_cube_file(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        T.SpectralCube.read(vr, device="cpu")
+    vr, vdata = make_vr_cube_file(tmp_path)
+    tvr = T.SpectralCube.read(vr, device="cpu")
+    jvr = J.SpectralCube.read(vr)
+    assert isinstance(tvr, T.VaryingResolutionSpectralCube)
+    np.testing.assert_array_equal(tvr._data.numpy(), np.asarray(jvr._data))
+    np.testing.assert_array_equal(tvr.unmasked_beams.major.value,
+                                  jvr.unmasked_beams.major.value)
+    h = base_header(nx=6, ny=5, nchan=4)
+    h["NAXIS"], h["NAXIS4"], h["CTYPE4"] = 4, 2, "STOKES"
+    h["CRVAL4"], h["CDELT4"], h["CRPIX4"] = 1.0, 1.0, 1.0
+    p4 = str(tmp_path / "iq.fits")
+    write_fits(p4, [HDU(data=np.stack([data, data]), header=h)])
+    from spectral_cube_tpu_torch.io import read_cube
+    with pytest.raises(NotImplementedError, match="item 10"):
+        read_cube(p4, device="cpu")

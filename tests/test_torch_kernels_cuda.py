@@ -501,3 +501,157 @@ def test_reproject_new_spectral_axis_on_cuda_matches_cpu(cuda):
         if str(dev) != "cpu":
             assert counts["resample2_filled"] == 1, counts
     _equal(out[str(cuda)], out["cpu"])
+
+
+def _config2_operator(nchan=512):
+    """Bench config 2's composed operator (bench.py:205-211): a 17-tap
+    Gaussian smooth (sigma = 2 channels) then interpolation onto every
+    second channel, composed in float64, cast to float32."""
+    from spectral_cube_tpu_torch.kernels.banded_matmul import row_bands
+    coords = np.arange(nchan, dtype=np.float64)
+    k = tsmooth.gaussian_kernel1d(2.0)
+    M = (tinterp._interp_matrix(*tinterp.interp_weights(coords, coords[::2]),
+                                nchan).astype(np.float64)
+         @ tsmooth._banded_conv_matrix(nchan, k / k.sum()).astype(
+             np.float64)).astype(np.float32)
+    return M, row_bands(M)
+
+
+@pytest.mark.parametrize("S", [1000, 4096])
+@pytest.mark.parametrize("nonfinite", [False, True])
+def test_banded_matmul_kernel_matches_plain(cuda, S, nonfinite):
+    """Kernel 7 against its plain version on bench config 2's operator
+    (512 -> 256 channels), a ragged column tile included; with NaN and inf
+    the NaN patterns agree (a non-finite value reaches the rows whose span
+    covers it).  Finite results also agree with the dense float64
+    product."""
+    from spectral_cube_tpu_torch.kernels import banded_matmul as kbm
+    M, bands = _config2_operator()
+    rng = np.random.RandomState(9)
+    x = rng.randn(512, S).astype(np.float32)
+    if nonfinite:
+        x[100, 45] = np.nan
+        x[0, 7] = np.inf
+        x[511, :40] = np.nan
+    xt = torch.as_tensor(x, device=cuda)
+    kbm.banded_matmul.launches = 0
+    got = kbm.banded_matmul(xt, bands)
+    torch.cuda.synchronize()
+    assert kbm.banded_matmul.launches == 1
+    want = kbm.banded_matmul_plain(xt, bands)
+    assert kbm.banded_matmul.launches == 1
+    _close(got, want, rtol=2e-6, atol=1e-6)
+    if not nonfinite:
+        _close(got, torch.as_tensor(M.astype(np.float64) @ x), rtol=2e-6,
+               atol=1e-6)
+    else:
+        g = got.cpu().numpy()
+        rows = np.nonzero(M[:, 100])[0]
+        assert np.isnan(g[rows, 45]).all()
+        assert np.isfinite(np.delete(g[:, 45], rows)).all()
+
+
+def test_banded_matmul_strips_on_cuda(cuda):
+    """banded_matmul_strips launches the kernel where the JAX function
+    runs, and returns None where it declines (nin < 128)."""
+    from spectral_cube_tpu_torch.kernels import banded_matmul as kbm
+    M, _ = _config2_operator(256)
+    x = torch.randn(256, 640, device=cuda)
+    kbm.banded_matmul.launches = 0
+    out = kbm.banded_matmul_strips(M, x)
+    assert out.device.type == "cuda" and kbm.banded_matmul.launches == 1
+    _close(out, torch.as_tensor(M.astype(np.float64)
+                                @ x.cpu().numpy().astype(np.float64)),
+           rtol=2e-6, atol=1e-6)
+    small = tsmooth._banded_conv_matrix(64, np.ones(5) / 5.0)
+    assert kbm.banded_matmul_strips(small, torch.zeros(64, 256,
+                                                       device=cuda)) is None
+
+
+def _vr_cube(dev, pa, groups, border, nchan=12, ny=40, nx=44):
+    """Beams drifting 6.0"->6.6" by 4.5"->4.95" in runs of ``groups``
+    channels, at PA 0 or, from ``pa`` != 0, turning by 4 deg; a NaN pixel
+    and (``border``) three NaN rows."""
+    rng = np.random.RandomState(4)
+    v = np.arange(nchan)
+    data = (2.0 * np.exp(-0.5 * ((v - nchan / 2) / 2.0) ** 2)[:, None, None]
+            + 0.3 * rng.randn(nchan, ny, nx)).astype(np.float32)
+    if border:
+        data[:, :3] = np.nan
+    data[3, 20, 20] = np.nan
+    h = _header(nchan, ny, nx)
+    t = (np.arange(nchan) // groups) * groups / (nchan - 1)
+    beams = T.Beams(major=T.Quantity(6.0 + 0.6 * t, "arcsec"),
+                    minor=T.Quantity(4.5 + 0.45 * t, "arcsec"),
+                    pa=T.Quantity(pa + (4.0 * t if pa else 0.0), "deg"))
+    cube = T.VaryingResolutionSpectralCube(data, WCS(header=h), header=h,
+                                           beams=beams, device=dev)
+    return cube.with_mask(T.LazyMask(torch.isfinite, cube=cube)), h
+
+
+@pytest.mark.parametrize("route", ["per_channel_separable", "fft"])
+def test_vrsc_pipeline_on_cuda_matches_cpu(cuda, route):
+    """run_pipeline on a varying-resolution CUDA cube (common beam, SNR
+    mask, moments, a target rotated by 3 deg) agrees with the CPU run; the
+    separable route launches conv_sep, the FFT route no convolution
+    kernel (cuFFT).  The FFT case has no NaN border: its sub-pixel kernels
+    divide by a denominator near the 1e-6 floor there, where cuFFT's and
+    the CPU FFT's roundings part by more than the tolerance."""
+    pa, groups = (0.0, 2) if route != "fft" else (30.0, 1)
+    out = {}
+    for dev in ("cpu", cuda):
+        cube, h = _vr_cube(dev, pa, groups, border=route != "fft")
+        target = Header(h)
+        th = np.deg2rad(3.0)
+        target["PC1_1"], target["PC1_2"] = np.cos(th), -np.sin(th)
+        target["PC2_1"], target["PC2_2"] = np.sin(th), np.cos(th)
+        K.reset_launch_counts()
+        out[str(dev)] = T.run_pipeline(cube, snr_threshold=2.0,
+                                       target_header=target,
+                                       noise_estimate=0.3)
+        assert tconv.convolve_cube_to_beam.last["route"] == route
+        counts = K.launch_counts()
+        if str(dev) != "cpu":
+            assert counts["moments"] > 0, counts
+            assert (counts["conv_sep"] > 0) == (route != "fft"), counts
+    a, b = out["cpu"], out[str(cuda)]
+    for pa_, pb in zip(a["moments"][:2], b["moments"][:2]):
+        va, vb = np.asarray(pa_.value), np.asarray(pb.value)
+        both = np.isfinite(va) & np.isfinite(vb)
+        assert both.sum() > 0.5 * va.size
+        np.testing.assert_allclose(vb[both], va[both], rtol=1e-4, atol=1e-4)
+    assert a["statistics"]["npts"] == b["statistics"]["npts"]
+    _close(b["cube"]._data, a["cube"]._data, rtol=1e-5, atol=1e-5)
+
+
+def test_rotated_gather_on_cuda_matches_cpu(cuda):
+    """The four-corner gather (a rotated target, orders 1 and 0) on the
+    card agrees with the CPU run; NaN patterns equal."""
+    data = _noise_cube((6, 40, 44), 3)
+    yy, xx = np.mgrid[0:42, 0:46].astype(np.float64)
+    th = np.deg2rad(3.0)
+    ys = np.cos(th) * (yy - 19.5) - np.sin(th) * (xx - 21.5) + 19.5
+    xs = np.sin(th) * (yy - 19.5) + np.cos(th) * (xx - 21.5) + 21.5
+    zs = np.array([0.0, 1.5, 2.25, 4.0])
+    for order in (0, 1):
+        want = tregrid._bilinear_spatial_then_linear_z(
+            torch.as_tensor(data), zs, ys, xs, order)
+        got = tregrid._bilinear_spatial_then_linear_z(
+            torch.as_tensor(data, device=cuda), zs, ys, xs, order)
+        assert got.device.type == "cuda"
+        _close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_spectral_array_mask_broadcasts_on_the_card(cuda):
+    """A 1-D channel mask (the flagged planes of a varying-resolution
+    cube) evaluated against CUDA data moves as its (n,) array and
+    broadcasts there: the include is a stride-0 view, not a cube-sized
+    copy made on the host and moved across."""
+    data = torch.zeros((6, 40, 44), device=cuda)
+    m = T.BooleanArrayMask(np.array([True, False, True, True, False, True]),
+                           shape=tuple(data.shape))
+    inc = m.include(data=data)
+    assert inc.device.type == "cuda"
+    assert inc.stride()[1:] == (0, 0)
+    assert inc.cpu().numpy()[:, 3, 5].tolist() == [True, False, True, True,
+                                                   False, True]

@@ -1,6 +1,7 @@
 """Torch port, kernel 3 (axis-aligned 2-tap resample, from raw data and
-from NaN-filled data with a NaN-weight plane) and reprojection onto a new
-spectral axis, against the JAX package.
+from NaN-filled data with a NaN-weight plane), reprojection onto a new
+spectral axis, and the four-corner gather (rotated targets, order 0),
+against the JAX package.
 
 The same numpy inputs go through the JAX functions (the Pallas
 ``per_channel_shift_lerp`` / ``per_channel_resample_raw_strips`` /
@@ -39,6 +40,18 @@ def _data(shape, seed):
     data[1, 3, 40] = np.nan
     data[1, 10, 7] = np.inf            # inf clamps, only NaN poisons
     data[-1] = np.nan                  # all-NaN channel
+    return data
+
+
+def _small_data(shape, seed):
+    """_data's pattern at any shape: one NaN, one inf, an all-NaN last
+    channel."""
+    rng = np.random.RandomState(seed)
+    data = rng.randn(*shape).astype(np.float32)
+    _, ny, nx = shape
+    data[1, 2, 3] = np.nan
+    data[1, ny - 3, nx // 2] = np.inf
+    data[-1] = np.nan
     return data
 
 
@@ -144,21 +157,137 @@ def test_host_maps_are_the_jax_maps():
 
 
 def test_unported_reprojections_raise():
-    """Order 0 and rotated targets still raise; a new spectral axis now
-    runs, and agrees with the JAX package's staged path."""
-    data = torch.zeros((3, 6, 6))
+    """Order 0, rotated targets and a new spectral axis run and agree with
+    the JAX package; the spline orders still raise."""
+    data = _small_data((3, 6, 6), 3)
+    td = torch.as_tensor(data)
     ys, xs = _maps(6, 6, 1.0, 0.2, 1.0, 0.3)
     zs = np.arange(3, dtype=np.float64)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tregrid._bilinear_spatial_then_linear_z(data, zs, ys, xs, 0)
-    got = tregrid._bilinear_spatial_then_linear_z(data, zs * 0.5, ys, xs, 1)
-    ref = np.asarray(jregrid._bilinear_spatial_then_linear_z(
-        jnp.asarray(data.numpy()), zs * 0.5, ys, xs, 1))
-    assert got.shape == (3, 6, 6)
-    np.testing.assert_array_equal(got.numpy(), ref)
     rot_y = ys + 0.1 * np.arange(6)[None, :]
-    with pytest.raises(NotImplementedError, match="rotated"):
-        tregrid._bilinear_spatial_then_linear_z(data, zs, rot_y, xs, 1)
+    for z, y, order in ((zs, ys, 0), (zs * 0.5, ys, 1), (zs, rot_y, 1),
+                        (zs * 0.5, rot_y, 0)):
+        got = tregrid._bilinear_spatial_then_linear_z(td, z, y, xs, order)
+        ref = np.asarray(jregrid._bilinear_spatial_then_linear_z(
+            jnp.asarray(data), z, y, xs, order))
+        assert got.shape == (3, 6, 6)
+        assert np.array_equal(np.isnan(got.numpy()), np.isnan(ref))
+        fin = ~np.isnan(ref)
+        np.testing.assert_allclose(got.numpy()[fin], ref[fin], atol=5e-6)
+    for order in (2, 3):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            tregrid._bilinear_spatial_then_linear_z(td, zs, ys, xs, order)
+
+
+def _rotation_maps(ny_out, nx_out, ny_in, nx_in, deg, shift=(0.0, 0.0)):
+    """Maps of a target rotated by ``deg`` about the input's centre (bench
+    config 7's form, bench.py:575-582), optionally shifted."""
+    th = np.deg2rad(deg)
+    c, s = np.cos(th), np.sin(th)
+    yy, xx = np.mgrid[0:ny_out, 0:nx_out].astype(np.float64)
+    cy, cx = (ny_in - 1) / 2.0, (nx_in - 1) / 2.0
+    ys = c * (yy - cy) - s * (xx - cx) + cy + shift[0]
+    xs = s * (yy - cy) + c * (xx - cx) + cx + shift[1]
+    return ys, xs
+
+
+@pytest.mark.parametrize("order", [0, 1])
+@pytest.mark.parametrize("spectral", ["identity", "lerp", "clean"])
+def test_rotated_gather_matches_jax(order, spectral):
+    """The four-corner gather (rotated targets, and order 0) against the
+    JAX package's gather path (regrid.py:351-408), on data with NaN (the
+    poison gathers run), an inf (clamped, never poisons) and an all-NaN
+    channel, and on all-finite data (the poison gathers skipped); the
+    output grid is larger than the input so some outputs fall outside."""
+    nchan, ny, nx = 4, 20, 24
+    data = _small_data((nchan, ny, nx), 11)
+    if spectral == "clean":
+        data = np.random.RandomState(2).randn(nchan, ny, nx).astype(
+            np.float32)
+    zs = np.arange(nchan, dtype=np.float64)
+    if spectral == "lerp":
+        zs = np.array([0.0, 0.6, 1.25, 2.9, 3.0, 3.5])
+    ys, xs = _rotation_maps(22, 26, ny, nx, 3.0, (0.4, -0.7))
+    got = tregrid._bilinear_spatial_then_linear_z(torch.as_tensor(data), zs,
+                                                  ys, xs, order).numpy()
+    ref = np.asarray(jregrid._bilinear_spatial_then_linear_z(
+        jnp.asarray(data), zs, ys, xs, order))
+    assert got.shape == ref.shape == (zs.size, 22, 26)
+    assert np.array_equal(np.isnan(got), np.isnan(ref))
+    assert 0 < np.isnan(ref).sum() < ref.size
+    fin = ~np.isnan(ref)
+    np.testing.assert_allclose(got[fin], ref[fin], atol=5e-6)
+
+
+def test_rotated_gather_poisons_like_the_staged_oracle():
+    """The poison branch against an independent float64 corner-gather
+    replicate (tests/test_regrid.py:1081-1127's case)."""
+    rng = np.random.RandomState(21)
+    n = 32
+    data = rng.rand(3, n, n).astype(np.float32)
+    data[1, 10:13, 20] = np.nan
+    data[2] = np.nan
+    zs = np.arange(3, dtype=np.float64)
+    yy, xx = np.mgrid[0:n, 0:n].astype(np.float64)
+    th, c0 = 0.1, (n - 1) / 2.0
+    ys = c0 + np.cos(th) * (yy - c0) + np.sin(th) * (xx - c0)
+    xs = c0 - np.sin(th) * (yy - c0) + np.cos(th) * (xx - c0)
+    got = tregrid._bilinear_spatial_then_linear_z(torch.as_tensor(data), zs,
+                                                  ys, xs, 1).numpy()
+    yv = (ys >= -1e-3) & (ys <= n - 1 + 1e-3)
+    xv = (xs >= -1e-3) & (xs <= n - 1 + 1e-3)
+    ycl, xcl = np.clip(ys, 0, n - 1), np.clip(xs, 0, n - 1)
+    y0 = np.clip(ycl.astype(np.int64), 0, n - 2)
+    x0 = np.clip(xcl.astype(np.int64), 0, n - 2)
+    wy, wx = ycl - y0, xcl - x0
+    exp = np.empty((3, n, n))
+    for c in range(3):
+        d = data[c].astype(np.float64)
+        f, w = np.nan_to_num(d), np.isnan(d).astype(np.float64)
+        acc = np.zeros((n, n))
+        wn = np.zeros((n, n))
+        for dy, dx, wt in ((0, 0, (1 - wy) * (1 - wx)), (0, 1, (1 - wy) * wx),
+                           (1, 0, wy * (1 - wx)), (1, 1, wy * wx)):
+            acc += f[y0 + dy, x0 + dx] * wt
+            wn += w[y0 + dy, x0 + dx] * wt
+        exp[c] = np.where((wn > 1e-6) | ~(yv & xv), np.nan, acc)
+    assert np.array_equal(np.isnan(got), np.isnan(exp))
+    fin = ~np.isnan(exp)
+    np.testing.assert_allclose(got[fin], exp[fin], rtol=1e-6, atol=1e-6)
+
+
+def _rotated_header(h, deg):
+    """``h`` with its celestial grid rotated by ``deg`` about CRPIX (same
+    projection, pixel size and reference point)."""
+    t = h.__class__(h)
+    th = np.deg2rad(deg)
+    c, s = np.cos(th), np.sin(th)
+    t["PC1_1"], t["PC1_2"], t["PC2_1"], t["PC2_2"] = c, -s, s, c
+    return t
+
+
+@pytest.mark.parametrize("order", ["bilinear", "nearest-neighbor"])
+def test_cube_reproject_rotated_matches_jax(tmp_path, order):
+    """``cube.reproject`` onto a rotated target, through both packages'
+    cube API (tests/test_regrid.py:1081's gather path end to end)."""
+    nchan, ny, nx = 3, 18, 20
+    data = _small_data((nchan, ny, nx), 17)
+    h = base_header(nx=nx, ny=ny, nchan=nchan)
+    h["BITPIX"] = -32
+    h["CRPIX1"], h["CRPIX2"] = nx / 2, ny / 2
+    path = str(tmp_path / "c.fits")
+    write_fits(path, [HDU(data=data, header=h)])
+    tcube = T.SpectralCube.read(path, device="cpu")
+    jcube = J.SpectralCube.read(path)
+    target = _rotated_header(tcube.header, 3.0)
+    tr = tcube.reproject(target, order=order)
+    jr = jcube.reproject(_rotated_header(jcube.header, 3.0), order=order)
+    got, ref = tr._data.numpy(), np.asarray(jr._data)
+    assert np.array_equal(np.isnan(got), np.isnan(ref))
+    fin = ~np.isnan(ref)
+    assert fin.mean() > 0.5
+    np.testing.assert_allclose(got[fin], ref[fin], atol=5e-6)
+    np.testing.assert_array_equal(tr.get_mask_array(),
+                                  np.asarray(jr.get_mask_array()))
 
 
 @pytest.mark.parametrize("dense_x", [True, False])
