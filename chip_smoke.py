@@ -34,7 +34,11 @@
    conv_reproject, plain_strips and pipeline_fused counts > 0 after; holds
    the fused op against the two-kernel chain (moments kernel +
    ``convolve_reproject_separable``) and runs a target with 1.5x larger
-   pixels at 64 channels.
+   pixels at 64 channels.  Then the plan the fused kernel declines: a
+   100" target beam (171 taps) on 64 channels of the NaN-bordered cube,
+   counters at 0 before, after them conv_sep and resample2 once and
+   conv_reproject never (the two-stage chain), and
+   ``moments_conv_reproject_fused`` returns None.
 7. Varying-resolution cubes: writes a third 623 x 768 x 768 cube of the
    pipeline's kind as 4-D FITS with a degenerate STOKES axis and a
    CASA-layout BEAMS table (beams drifting 6.0"->6.6" by 4.5"->4.95" at
@@ -55,7 +59,8 @@
 9. Holds each kernel against its plain PyTorch version on the card at the
    paths' shapes, with and without NaN, and times the kernel, the plain
    version and, where one exists, a single PyTorch call computing the same
-   function (CUDA events).  Each kernel's bound is the larger of its bytes
+   function (CUDA events); conv_sep also at 153 taps (the cube beam to a
+   90" beam) on the NaN-bordered cube.  Each kernel's bound is the larger of its bytes
    over 3.35 TB/s and its float32 operations over 67 TFLOP/s (H100 SXM).
 10. Runs a small pipeline, a small varying-resolution pipeline on both
     convolution routes and a small spectral path on the card and on the
@@ -123,6 +128,12 @@ SPECTRAL_TARGET = (311, 2.0, 0.25)
 # (bench.py:413-414) and the channels of the 1.5x rescaled target
 FUSED_THRESHOLD = 0.25
 RESCALED_NCHAN = 64
+# long taps: the target beam (arcsec) of kernel 2's long-tap case (153
+# taps at 2" pixels) and of the fused convolve + reproject's declined plan
+# (171 taps, past what one block's window holds), at RESCALED_NCHAN
+# channels
+F1_BEAM = 90.0
+F2_BEAM = 100.0
 
 # name -> (source, TPU kernels it replaces)
 KERNELS = {
@@ -442,7 +453,44 @@ def phase_conv(dev, data, results):
             log(f"  conv 623x768x768 clean: kernel {ms:.3f} ms, plain "
                 f"{pms:.3f} ms, conv2d {kx}x{ky} {lib_ms:.3f} ms")
         del x
-    return yt.shape[1]
+    f1 = phase_conv_long_taps(dev, data, cube_beam, pix, gi)
+    return yt.shape[1], f1
+
+
+def phase_conv_long_taps(dev, data, cube_beam, pix, gi):
+    """Kernel 2 at long taps: the NaN-bordered cube convolved from the cube
+    beam to F1_BEAM (153 taps at 2" pixels) through
+    ``convolve2d_separable``, one launch, held against the plain version
+    and timed.  Returns (taps, rank, ms, bound_ms, max_abs_err)."""
+    import torch
+    import spectral_cube_tpu_torch as T
+    from spectral_cube_tpu_torch.kernels import conv_sep as kc
+    from spectral_cube_tpu_torch.ops import convolve as oc
+    target = T.Beam(T.Quantity(F1_BEAM, "arcsec"),
+                    T.Quantity(F1_BEAM, "arcsec"), T.Quantity(0, "deg"))
+    kern = target.deconvolve(cube_beam).as_kernel(pix)
+    yt, xt = oc.separable_factors(kern)
+    ys, hy = oc._tap_stack([yt])
+    xs, hx = oc._tap_stack([xt])
+    ys, xs = torch.as_tensor(ys, device=dev), torch.as_tensor(xs, device=dev)
+    n0 = kc.conv_sep.launches
+    got = oc.convolve2d_separable(data, kern)
+    torch.cuda.synchronize()
+    if kc.conv_sep.launches != n0 + 1:
+        raise AssertionError("convolve2d_separable did not launch conv_sep "
+                             "at long taps")
+    want = kc.conv_sep_plain(data, ys, xs, hy, hx, gi)
+    err, _ = compare_conv(f"conv {kern.shape[0]} taps (F1 input)", got, want,
+                          data, ys, xs, hy, hx, 1e-5)
+    del got, want
+    ms = cuda_ms(lambda: kc.conv_sep(data, ys, xs, hy, hx, gi), 3)
+    bms, by = bound(2 * data.numel() * 4, 2 * ys.shape[1]
+                    * (ys.shape[2] + xs.shape[2]) * data.numel())
+    log(f"  conv {'x'.join(map(str, data.shape))} {kern.shape[0]}x"
+        f"{kern.shape[1]} taps r={yt.shape[1]} with NaN: kernel {ms:.3f} ms, "
+        f"bound {bms:.3f} ms ({by})")
+    torch.cuda.empty_cache()
+    return kern.shape[0], yt.shape[1], ms, bms, err
 
 
 def grid_sample_call(x, taps):
@@ -1299,8 +1347,69 @@ def phase_conv_reproject(dev, data, results):
             f"moments kernel's")
         del got, out
     del a
+    declined = phase_fused_declined(dev, b, cube_beam, ys, xs)
     torch.cuda.empty_cache()
-    return counts, total
+    return counts, total, declined
+
+
+def phase_fused_declined(dev, data, cube_beam, ys, xs):
+    """The fused convolve + reproject where its plan does not fit: the
+    NaN-bordered cube's first RESCALED_NCHAN channels with the F2_BEAM
+    kernel (171 taps).  ``convolve_reproject_separable`` takes the
+    two-stage chain (conv_sep, then resample2; no conv_reproject launch)
+    and ``moments_conv_reproject_fused`` returns None.  The chain's
+    convolution is held against conv_sep's plain version and its result
+    against resample2's plain version of that convolution.  Returns the
+    chain's milliseconds."""
+    import torch
+    import spectral_cube_tpu_torch as T
+    from spectral_cube_tpu_torch import kernels as K
+    from spectral_cube_tpu_torch.kernels import conv_sep as kc
+    from spectral_cube_tpu_torch.kernels import resample2 as kr
+    from spectral_cube_tpu_torch.ops import convolve as oc
+    from spectral_cube_tpu_torch.ops import pipeline_fused as opf
+    from spectral_cube_tpu_torch.ops import regrid as og
+    target = T.Beam(T.Quantity(F2_BEAM, "arcsec"),
+                    T.Quantity(F2_BEAM, "arcsec"), T.Quantity(0, "deg"))
+    kern = target.deconvolve(cube_beam).as_kernel(
+        np.radians(PIX_ARCSEC / 3600.0))
+    x = data[:RESCALED_NCHAN].contiguous()
+    nchan = x.shape[0]
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = og.convolve_reproject_separable(x, kern, ys, xs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = K.launch_counts()
+    route = og.convolve_reproject_separable.last["route"]
+    log(f"  declined plan, {kern.shape[0]}x{kern.shape[1]} kernel on "
+        f"{tuple(x.shape)}: route {route}, {ms:.1f} ms, launches {counts}")
+    if route != "chain" or counts["conv_reproject"] != 0 \
+            or counts["conv_sep"] != 1 or counts["resample2"] != 1:
+        raise AssertionError(f"declined plan: route {route}, {counts}")
+    if opf.moments_conv_reproject_fused(
+            x, kern, ys, xs, np.arange(nchan) * 0.25, 0.25) is not None:
+        raise AssertionError("moments_conv_reproject_fused took a plan that "
+                             "does not fit")
+    if rep.shape != (nchan, NY, NX):
+        raise AssertionError(f"declined plan: shape {tuple(rep.shape)}")
+    yt, xt = oc.separable_factors(kern / kern.sum())
+    fy, hy = oc._tap_stack([yt])
+    fx, hx = oc._tap_stack([xt])
+    fy, fx = torch.as_tensor(fy, device=dev), torch.as_tensor(fx, device=dev)
+    gi = torch.zeros(nchan, dtype=torch.int32, device=dev)
+    conv = kc.conv_sep(x, fy, fx, hy, hx, gi)
+    compare_conv("declined plan: convolution vs plain", conv,
+                 kc.conv_sep_plain(x, fy, fx, hy, hx, gi), x, fy, fx, hy, hx,
+                 1e-5)
+    maps = og.bilinear_host_maps(np.arange(nchan, dtype=np.float64), ys, xs,
+                                 nchan, NY, NX, 1)
+    taps = og._axis_aligned_taps(ys, xs, NY, NX)
+    compare("declined plan: result vs resample2_plain of the convolution",
+            rep, kr.resample2_plain(conv, *taps, maps[4] & maps[5], maps[0]),
+            1e-6)
+    return ms
 
 
 def vr_beams(nchan, pa=VR_PA, group=1, flagged=()):
@@ -1747,9 +1856,9 @@ def main():
     counts.update({k: rs_counts[k] for k in REPROJECT_SPECTRAL_KERNELS})
     data = torch.as_tensor(synth_cube(NCHAN, NY, NX, SEED), device=dev)
     phase_moments(dev, data, results)
-    rank = phase_conv(dev, data, results)
+    rank, f1 = phase_conv(dev, data, results)
     phase_resample(dev, data, synth_header(NCHAN, NY, NX), results)
-    cr_counts, cr_ms = phase_conv_reproject(dev, data, results)
+    cr_counts, cr_ms, declined_ms = phase_conv_reproject(dev, data, results)
     counts.update({k: cr_counts[k] for k in CONV_REPROJECT_KERNELS})
     bm_counts = phase_banded_matmul(dev, data, results)
     counts.update({k: bm_counts[k] for k in BANDED_MATMUL_KERNELS})
@@ -1769,7 +1878,11 @@ def main():
     log(f"summary: reproject onto a new spectral axis {rs_first:.1f} ms "
         f"(first call), {rs_steady:.1f} ms (second), peak "
         f"{rs_peak / 2**30:.2f} GiB; fused conv_reproject path "
-        f"{cr_ms:.1f} ms (first calls)")
+        f"{cr_ms:.1f} ms (first calls), its declined plan through the "
+        f"chain {declined_ms:.1f} ms (first call)")
+    log(f"summary: conv_sep at {f1[0]} taps, rank {f1[1]}, NaN border: "
+        f"{f1[2]:.3f} ms, bound {f1[3]:.3f} ms, max_abs_err(den >= 0.1) "
+        f"{f1[4]:.3e}")
     va, vb = vr["a"], vr["b"]
     log(f"summary: varying-resolution (a) run_pipeline {va['first']:.1f} ms "
         f"(first call), {va['second']:.1f} ms (second), peak "

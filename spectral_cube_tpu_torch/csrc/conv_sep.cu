@@ -14,31 +14,68 @@
 // builds them (tap o reads input index y + o - half).  Normalized
 // convolution: num = conv(X with non-finite values set to 0), den = 1 -
 // conv(isnan-or-inf flags), out = num / den where den > 1e-6, else NaN;
-// a channel with no finite value is NaN (banded_pallas.py:586-594).  A
-// tile whose halo holds only finite values has den == 1 exactly, so it
-// skips the denominator pass, as the TPU kernel's pl.when skips clean
-// channels.
+// a channel with no finite value is NaN (banded_pallas.py:586-594).  The
+// zero fill outside the plane counts as valid weight.  A tile whose halo
+// holds only finite values has den == 1 exactly, so it skips the
+// denominator pass, as the TPU kernel's pl.when skips clean channels.
 //
-// What bounds it on an H100: arithmetic and shared-memory traffic, about
-// rank * (ky * (1 + (kx - 1) / 32) + kx) FMAs per voxel (twice that in
-// tiles that hold NaN), each reading one shared-memory operand; device
-// memory sees each voxel about (1 + halo) times, mostly from L2.  The design
-// stages one output tile plus its halo in shared memory once, runs the y
-// pass into a shared (tile rows x halo width) buffer and the x pass into
-// registers, summed over ranks, with fp32 FMA only (no TF32).  A small
-// first kernel marks the channels that hold any finite value.
+// What bounds it on an H100: float32 FMA issue.  A voxel needs about
+// rank * (ly * W / TX + lx) FMAs (W = TX + lx - 1 the y pass's halo width),
+// twice that in tiles whose halo holds a non-finite value; device memory
+// sees each voxel about (1 + halo) times, mostly from L2.  An SM issues
+// four warp-wide FMAs per cycle but one warp-wide shared-memory load, so
+// the design keeps at most about one shared load per four FMAs:
+//
+// - A block owns a 32-row by TX-column output tile (TX a multiple of 8 up
+//   to 120, chosen on the host so that W stays within 127 columns).
+// - The y pass: a thread computes 8 consecutive rows of one column for
+//   every rank at once, from a sliding window of 11 input rows held in
+//   registers; each input load feeds 8 * RANK FMAs and each tap, read as
+//   a block-uniform float4 broadcast, 8 FMAs.  Its results go to a shared
+//   (RANK, 32, W) buffer.
+// - The x pass: a thread (lane = output row) computes 8 consecutive
+//   columns from a sliding window along its row, per rank, into registers
+//   summed over ranks; 4 taps per float4 broadcast, one load per 8 FMAs.
+// - The taps and the halo stream through shared memory in fixed chunks
+//   (y taps in chunks of 24 or 32, x taps in chunks of 64, the halo rows
+//   and columns each chunk reads), accumulating partial sums, so shared
+//   memory depends on the rank only and every tap length runs.
+// - The halo is staged with 16-byte loads from a 4-aligned column (the
+//   plane's row length a multiple of 4), masked at the plane's edges.
+// - No integer division in the FMA loops.  fp32 FMA only (no TF32).
+//
+// A small first kernel marks the channels that hold any finite value.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kTileX = 32;     // output tile width: one warp
-constexpr int kRowsPerPass = 8;
-constexpr int kMaxRowTiles = 4;  // tile height <= 32
-constexpr int kThreads = kTileX * kRowsPerPass;
-constexpr int kSmemLimit = 232448;  // bytes a block may use on sm_90
-constexpr float kDenEps = 1e-6f;    // banded_pallas.py:45
+constexpr int kThreads = 256;
+constexpr int kTileY = 32;       // output rows of a tile: one per lane
+constexpr int kBlk = 8;          // outputs per thread along a pass
+constexpr int kMaxW = 127;       // y-pass columns of one chunk, at most
+constexpr int kPitchT = 127;     // odd: lanes on rows read distinct banks
+constexpr int kPitchIn = 132;    // staged columns: kMaxW + 3 alignment, x4
+constexpr int kChunkX = 64;      // x taps per chunk
+constexpr int kMaxTileX = 120;
+constexpr float kDenEps = 1e-6f;  // banded_pallas.py:45
+
+__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
+
+// y taps per chunk: 24 at rank 5, so that two blocks share an SM (ranks
+// up to 4 fit two blocks at 32; ranks 6 to 8 take one block for their
+// registers), else 32
+template <int RANK>
+__host__ __device__ constexpr int chunk_y() { return RANK == 5 ? 24 : 32; }
+
+template <int RANK>
+__host__ __device__ constexpr int smem_floats() {
+  return chunk_y<RANK>() * round4(RANK)            // y taps, [o][rank]
+         + RANK * kChunkX                          // x taps, [rank][o]
+         + (kTileY + chunk_y<RANK>() - 1) * kPitchIn  // staged halo
+         + RANK * kTileY * kPitchT;                // y-pass results
+}
 
 __global__ void channel_flags_kernel(const float* __restrict__ data,
                                      long long plane, int blocks_per_chan,
@@ -58,143 +95,283 @@ __global__ void channel_flags_kernel(const float* __restrict__ data,
   if (fin && threadIdx.x == 0) atomicOr(flags + c, 1);
 }
 
+struct Tile {
+  const float* X;   // the channel's plane
+  int ny, nx, y0, x0, hy, hx, tx;
+};
+
+// Stage rows [0, nrows) x columns [0, ncols) of the chunk's halo, whose
+// (0, 0) is input (gy0, gx0), as values (non-finite -> 0) or as
+// non-finite flags; zero outside the plane and outside the chunk's true
+// window (rows >= vrows, columns >= vcols: read only through zero taps).
+// Shared column k holds input column gxa + k, gxa = gx0 rounded down to a
+// multiple of 4.  Returns whether a staged value was non-finite.
+__device__ __forceinline__ bool stage(const Tile& t, float* __restrict__ in,
+                                      int gy0, int gx0, int nrows, int vrows,
+                                      int ncols, int vcols, bool flags) {
+  const int gxa = gx0 - (gx0 & 3);
+  const int s = gx0 - gxa;
+  const int nq = (s + ncols + 3) >> 2;  // float4s per row
+  const bool vec = (t.nx & 3) == 0;
+  bool bad = false;
+  for (int e = threadIdx.x; e < nrows * nq; e += kThreads) {
+    const int r = e / nq;
+    const int m = e - r * nq;
+    const int gy = gy0 + r;
+    const int gx = gxa + 4 * m;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    if (gy >= 0 && gy < t.ny && r < vrows) {
+      const float* row = t.X + (long long)gy * t.nx;
+      if (vec && gx >= 0 && gx + 3 < t.nx) {
+        const float4 q = __ldg(reinterpret_cast<const float4*>(row + gx));
+        v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (gx + k >= 0 && gx + k < t.nx) v[k] = __ldg(row + gx + k);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int col = 4 * m + k - s;
+      const bool inside = col >= 0 && col < vcols;
+      const bool fin = isfinite(v[k]);
+      bad |= inside && !fin;
+      v[k] = !inside ? 0.f : flags ? (fin ? 0.f : 1.f) : (fin ? v[k] : 0.f);
+    }
+    *reinterpret_cast<float4*>(in + r * kPitchIn + 4 * m) =
+        make_float4(v[0], v[1], v[2], v[3]);
+  }
+  return bad;
+}
+
+// y pass of one chunk of nt4 taps (a multiple of 4) over W columns:
+// t[i][row][q] (+)= sum_o ky[o][i] * in[row + o][s + q] for the 32 rows,
+// a thread taking rows 8g .. 8g + 7 of column q.
+template <int RANK>
+__device__ __forceinline__ void y_pass(const float* __restrict__ in,
+                                       const float* __restrict__ kys,
+                                       float* __restrict__ tb, int s, int W,
+                                       int nt4, bool first) {
+  constexpr int RP = round4(RANK);
+  const int q = threadIdx.x & 127;
+  if (q >= W) return;
+  for (int g = threadIdx.x >> 7; g < kTileY / kBlk; g += kThreads / 128) {
+    float acc[RANK][kBlk];
+#pragma unroll
+    for (int i = 0; i < RANK; ++i)
+#pragma unroll
+      for (int k = 0; k < kBlk; ++k) acc[i][k] = 0.f;
+    const float* col = in + g * kBlk * kPitchIn + s + q;
+    float w[kBlk + 3];
+#pragma unroll
+    for (int k = 0; k < kBlk - 1; ++k) w[k] = col[k * kPitchIn];
+    for (int o = 0; o < nt4; o += 4) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) w[kBlk - 1 + k] = col[(o + kBlk - 1 + k) * kPitchIn];
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        float tap[RP];
+#pragma unroll
+        for (int j = 0; j < RP; j += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(kys + (o + p) * RP + j);
+          tap[j] = v.x; tap[j + 1] = v.y; tap[j + 2] = v.z; tap[j + 3] = v.w;
+        }
+#pragma unroll
+        for (int i = 0; i < RANK; ++i)
+#pragma unroll
+          for (int k = 0; k < kBlk; ++k)
+            acc[i][k] = fmaf(tap[i], w[p + k], acc[i][k]);
+      }
+#pragma unroll
+      for (int k = 0; k < kBlk - 1; ++k) w[k] = w[k + 4];
+    }
+#pragma unroll
+    for (int i = 0; i < RANK; ++i)
+#pragma unroll
+      for (int k = 0; k < kBlk; ++k) {
+        float* d = tb + (i * kTileY + g * kBlk + k) * kPitchT + q;
+        *d = first ? acc[i][k] : *d + acc[i][k];
+      }
+  }
+}
+
+// x pass of one chunk of ncx4 taps: acc[h][k] += sum_i sum_p kx[i][p] *
+// t[i][lane][8 jb + k + p], jb = warp + 8 h, each rank's sum taken on its
+// own and then added, in the plain version's order.
+template <int RANK>
+__device__ __forceinline__ void x_pass(const float* __restrict__ tb,
+                                       const float* __restrict__ kxs,
+                                       int ncx4, int tx,
+                                       float (&acc)[2][kBlk]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int jb = warp + (kThreads / 32) * h;
+    if (jb * kBlk < tx) {
+      for (int i = 0; i < RANK; ++i) {
+        const float* row = tb + (i * kTileY + lane) * kPitchT + jb * kBlk;
+        const float* kx = kxs + i * kChunkX;
+        float w[kBlk + 3], a[kBlk];
+#pragma unroll
+        for (int k = 0; k < kBlk; ++k) a[k] = 0.f;
+#pragma unroll
+        for (int k = 0; k < kBlk - 1; ++k) w[k] = row[k];
+        for (int p0 = 0; p0 < ncx4; p0 += 4) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) w[kBlk - 1 + k] = row[p0 + kBlk - 1 + k];
+          const float4 v = *reinterpret_cast<const float4*>(kx + p0);
+          const float tap[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int p = 0; p < 4; ++p)
+#pragma unroll
+            for (int k = 0; k < kBlk; ++k) a[k] = fmaf(tap[p], w[p + k], a[k]);
+#pragma unroll
+          for (int k = 0; k < kBlk - 1; ++k) w[k] = w[k + 4];
+        }
+#pragma unroll
+        for (int k = 0; k < kBlk; ++k) acc[h][k] += a[k];
+      }
+    }
+  }
+}
+
+// The whole convolution of one tile, numerator or denominator: x-tap
+// chunks outside, y-tap chunks inside, into acc.  Returns whether a
+// staged value was non-finite (this thread's part).
+template <int RANK>
+__device__ __forceinline__ bool convolve_tile(const Tile& t, float* __restrict__ sm,
+                              const float* __restrict__ yt,
+                              const float* __restrict__ xt, int ly, int lx,
+                              bool flags, float (&acc)[2][kBlk]) {
+  constexpr int CY = chunk_y<RANK>();
+  constexpr int RP = round4(RANK);
+  float* kys = sm;
+  float* kxs = kys + CY * RP;
+  float* in = kxs + RANK * kChunkX;
+  float* tb = in + (kTileY + CY - 1) * kPitchIn;
+  bool bad = false;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int k = 0; k < kBlk; ++k) acc[h][k] = 0.f;
+  for (int ox = 0; ox < lx; ox += kChunkX) {
+    const int ncx = min(kChunkX, lx - ox), ncx4 = round4(ncx);
+    const int W = t.tx + ncx4 - 1;      // y-pass columns the x pass reads
+    const int gx0 = t.x0 - t.hx + ox;
+    for (int oy = 0; oy < ly; oy += CY) {
+      const int nt = min(CY, ly - oy), nt4 = round4(nt);
+      __syncthreads();  // the previous passes are done with in, kxs, tb
+      for (int e = threadIdx.x; e < CY * RP; e += kThreads) {
+        const int o = e / RP, i = e - o * RP;
+        kys[e] = (o < nt && i < RANK) ? yt[i * ly + oy + o] : 0.f;
+      }
+      if (oy == 0) {
+        for (int e = threadIdx.x; e < RANK * kChunkX; e += kThreads) {
+          const int i = e / kChunkX, p = e - i * kChunkX;
+          kxs[e] = p < ncx ? xt[i * lx + ox + p] : 0.f;
+        }
+      }
+      bad |= stage(t, in, t.y0 - t.hy + oy, gx0, kTileY + nt4 - 1,
+                   kTileY + nt - 1, W, t.tx + ncx - 1, flags);
+      __syncthreads();
+      y_pass<RANK>(in, kys, tb, gx0 & 3, W, nt4, oy == 0);
+    }
+    __syncthreads();
+    x_pass<RANK>(tb, kxs, ncx4, t.tx, acc);
+  }
+  return bad;
+}
+
+template <int RANK>
 __global__ void __launch_bounds__(kThreads)
 conv_sep_kernel(const float* __restrict__ data,
                 const float* __restrict__ ytaps,
                 const float* __restrict__ xtaps,
                 const int* __restrict__ group_idx,
-                const int* __restrict__ flags, int ny, int nx, int rank,
-                int ly, int lx, int hy, int hx, int tile_y, int tiles_x,
-                int tiles_y, float* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int tiles = tiles_x * tiles_y;
-  const int c = blockIdx.x / tiles;
-  const int tile = blockIdx.x - c * tiles;
-  const int x0 = (tile % tiles_x) * kTileX;
-  const int y0 = (tile / tiles_x) * tile_y;
-  const int tid = threadIdx.y * kTileX + threadIdx.x;
-  const int hrows = tile_y + ly - 1;
-  const int width = kTileX + lx - 1;
-  const int nk = tile_y / kRowsPerPass;
+                const int* __restrict__ flags, int nchan, int ny, int nx,
+                int ly, int lx, int hy, int hx, int tx,
+                float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
   const long long plane = (long long)ny * nx;
-  const float* X = data + (long long)c * plane;
-  float* O = out + (long long)c * plane;
-
-  if (!(flags[c] & 1)) {
-    for (int k = 0; k < nk; ++k) {
-      const int y = y0 + threadIdx.y + kRowsPerPass * k;
-      const int x = x0 + threadIdx.x;
-      if (y < ny && x < nx) O[(long long)y * nx + x] = NAN;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int y = blockIdx.y * kTileY + lane;
+  for (int c = blockIdx.z; c < nchan; c += gridDim.z) {
+    Tile t{data + (long long)c * plane, ny, nx, (int)blockIdx.y * kTileY,
+           (int)blockIdx.x * tx, hy, hx, tx};
+    float* O = out + (long long)c * plane;
+    float num[2][kBlk], nbad[2][kBlk];
+    bool has_bad = false;
+    const bool some = flags[c] & 1;
+    if (some) {
+      const int g = group_idx[c];
+      const float* yt = ytaps + (long long)g * RANK * ly;
+      const float* xt = xtaps + (long long)g * RANK * lx;
+      has_bad = __syncthreads_or(
+          convolve_tile<RANK>(t, sm, yt, xt, ly, lx, false, num));
+      if (has_bad) convolve_tile<RANK>(t, sm, yt, xt, ly, lx, true, nbad);
     }
-    return;
-  }
-
-  float* fy = smem;                  // rank * ly, flipped y taps
-  float* fx = fy + rank * ly;        // rank * lx, flipped x taps
-  float* vin = fx + rank * lx;       // hrows * width, filled values
-  float* bin = vin + hrows * width;  // hrows * width, non-finite flags
-  float* tv = bin + hrows * width;   // tile_y * width, y-pass of vin
-  float* tb = tv + tile_y * width;   // tile_y * width, y-pass of bin
-
-  const int g = group_idx[c];
-  for (int i = tid; i < rank * ly; i += kThreads)
-    fy[i] = ytaps[(long long)g * rank * ly + i];
-  for (int i = tid; i < rank * lx; i += kThreads)
-    fx[i] = xtaps[(long long)g * rank * lx + i];
-
-  bool bad = false;
-  for (int i = tid; i < hrows * width; i += kThreads) {
-    const int r = i / width;
-    const int q = i - r * width;
-    const int gy = y0 - hy + r;
-    const int gx = x0 - hx + q;
-    float v = 0.f, b = 0.f;
-    if (gy >= 0 && gy < ny && gx >= 0 && gx < nx) {
-      const float d = X[(long long)gy * nx + gx];
-      if (isfinite(d)) {
-        v = d;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int x = t.x0 + (warp + (kThreads / 32) * h) * kBlk;
+      if ((warp + (kThreads / 32) * h) * kBlk >= tx || y >= ny || x >= nx)
+        continue;
+      float o[kBlk];
+#pragma unroll
+      for (int k = 0; k < kBlk; ++k) {
+        o[k] = NAN;
+        if (some) {
+          o[k] = num[h][k];
+          if (has_bad) {
+            const float den = 1.f - nbad[h][k];
+            o[k] = den > kDenEps ? o[k] / den : NAN;
+          }
+        }
+      }
+      float* dst = O + (long long)y * nx + x;
+      if ((nx & 3) == 0 && x + kBlk <= nx) {
+        reinterpret_cast<float4*>(dst)[0] = make_float4(o[0], o[1], o[2], o[3]);
+        reinterpret_cast<float4*>(dst)[1] = make_float4(o[4], o[5], o[6], o[7]);
       } else {
-        b = 1.f;
-        bad = true;
-      }
-    }
-    vin[i] = v;
-    bin[i] = b;
-  }
-  const bool has_bad = __syncthreads_or(bad);
-
-  float num[kMaxRowTiles] = {0.f, 0.f, 0.f, 0.f};
-  float nbad[kMaxRowTiles] = {0.f, 0.f, 0.f, 0.f};
-  for (int i = 0; i < rank; ++i) {
-    const float* ky = fy + i * ly;
-    const float* kx = fx + i * lx;
-    for (int e = tid; e < tile_y * width; e += kThreads) {
-      const int r = e / width;
-      const int q = e - r * width;
-      float a = 0.f;
-      for (int o = 0; o < ly; ++o) a = fmaf(ky[o], vin[(r + o) * width + q], a);
-      tv[e] = a;
-      if (has_bad) {
-        float ab = 0.f;
-        for (int o = 0; o < ly; ++o)
-          ab = fmaf(ky[o], bin[(r + o) * width + q], ab);
-        tb[e] = ab;
-      }
-    }
-    __syncthreads();
 #pragma unroll
-    for (int k = 0; k < kMaxRowTiles; ++k) {
-      if (k < nk) {
-        const int row = (threadIdx.y + kRowsPerPass * k) * width + threadIdx.x;
-        float a = 0.f;
-        for (int o = 0; o < lx; ++o) a = fmaf(kx[o], tv[row + o], a);
-        num[k] += a;
-        if (has_bad) {
-          float ab = 0.f;
-          for (int o = 0; o < lx; ++o) ab = fmaf(kx[o], tb[row + o], ab);
-          nbad[k] += ab;
-        }
+        for (int k = 0; k < kBlk; ++k)
+          if (x + k < nx) dst[k] = o[k];
       }
     }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int k = 0; k < kMaxRowTiles; ++k) {
-    if (k < nk) {
-      const int y = y0 + threadIdx.y + kRowsPerPass * k;
-      const int x = x0 + threadIdx.x;
-      if (y < ny && x < nx) {
-        float o = num[k];
-        if (has_bad) {
-          const float den = 1.f - nbad[k];
-          o = den > kDenEps ? o / den : NAN;
-        }
-        O[(long long)y * nx + x] = o;
-      }
-    }
+    __syncthreads();  // shared memory is reused by the next channel
   }
 }
 
-long long smem_bytes(int rank, int ly, int lx, int tile_y) {
-  const long long width = kTileX + lx - 1;
-  return 4LL * (rank * (ly + lx) + 2LL * (tile_y + ly - 1) * width +
-                2LL * tile_y * width);
+template <int RANK>
+cudaError_t launch(const float* data, const float* yt, const float* xt,
+                   const int* gi, const int* flags, int nchan, int ny, int nx,
+                   int ly, int lx, int hy, int hx, float* out,
+                   cudaStream_t s) {
+  const int bytes = 4 * smem_floats<RANK>();
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_sep_kernel<RANK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return err;
+  // the widest tile (a multiple of 8) whose first x chunk's y-pass width
+  // TX + round4(taps) - 1 stays within kMaxW
+  const int c4 = round4(lx < kChunkX ? lx : kChunkX);
+  int tx = (kMaxW + 1 - c4) / kBlk * kBlk;
+  if (tx > kMaxTileX) tx = kMaxTileX;
+  const dim3 grid((unsigned)((nx + tx - 1) / tx),
+                  (unsigned)((ny + kTileY - 1) / kTileY),
+                  (unsigned)(nchan < 65535 ? nchan : 65535));
+  conv_sep_kernel<RANK><<<grid, kThreads, bytes, s>>>(
+      data, yt, xt, gi, flags, nchan, ny, nx, ly, lx, hy, hx, tx, out);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Tile height the launcher will use for these tap lengths, or 0 when no
-// tile fits the shared memory of one block.
-extern "C" int sct_conv_sep_tile_y(int rank, int ly, int lx) {
-  for (int t = kTileX; t >= kRowsPerPass; t /= 2)
-    if (smem_bytes(rank, ly, lx, t) <= kSmemLimit) return t;
-  return 0;
-}
-
 // data/out: (nchan, ny, nx) float32; ytaps: (G, rank, ly) and xtaps:
 // (G, rank, lx) float32, already flipped; group_idx: (nchan,) int32;
-// flags: (nchan,) int32 scratch.  hy/hx: the taps' centre offsets.
+// flags: (nchan,) int32 scratch.  hy/hx: the taps' centre offsets.  Any
+// tap lengths; rank 1 to 8.
 extern "C" int sct_conv_sep(const void* data, const void* ytaps,
                             const void* xtaps, const void* group_idx,
                             void* flags, int nchan, int ny, int nx, int rank,
@@ -202,8 +379,8 @@ extern "C" int sct_conv_sep(const void* data, const void* ytaps,
                             void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (nchan <= 0 || ny <= 0 || nx <= 0) return (int)cudaSuccess;
-  const int tile_y = sct_conv_sep_tile_y(rank, ly, lx);
-  if (tile_y == 0) return (int)cudaErrorInvalidValue;
+  if (rank < 1 || rank > 8 || ly < 1 || lx < 1)
+    return (int)cudaErrorInvalidValue;
   const long long plane = (long long)ny * nx;
   cudaError_t err = cudaMemsetAsync(flags, 0, sizeof(int) * nchan, s);
   if (err != cudaSuccess) return (int)err;
@@ -213,18 +390,26 @@ extern "C" int sct_conv_sep(const void* data, const void* ytaps,
       (const float*)data, plane, per_chan, (int*)flags);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-
-  const long long bytes = smem_bytes(rank, ly, lx, tile_y);
-  err = cudaFuncSetAttribute(conv_sep_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles_x = (nx + kTileX - 1) / kTileX;
-  const int tiles_y = (ny + tile_y - 1) / tile_y;
-  const long long blocks = (long long)tiles_x * tiles_y * nchan;
-  conv_sep_kernel<<<(unsigned)blocks, dim3(kTileX, kRowsPerPass), bytes, s>>>(
-      (const float*)data, (const float*)ytaps, (const float*)xtaps,
-      (const int*)group_idx, (const int*)flags, ny, nx, rank, ly, lx, hy, hx,
-      tile_y, tiles_x, tiles_y, (float*)out);
-  return (int)cudaGetLastError();
+  const float* d = (const float*)data;
+  const float* yt = (const float*)ytaps;
+  const float* xt = (const float*)xtaps;
+  const int* gi = (const int*)group_idx;
+  const int* fl = (const int*)flags;
+  float* o = (float*)out;
+#define SCT_CONV_SEP_RANK(R)                                              \
+  case R:                                                                 \
+    return (int)launch<R>(d, yt, xt, gi, fl, nchan, ny, nx, ly, lx, hy, hx, \
+                          o, s);
+  switch (rank) {
+    SCT_CONV_SEP_RANK(1)
+    SCT_CONV_SEP_RANK(2)
+    SCT_CONV_SEP_RANK(3)
+    SCT_CONV_SEP_RANK(4)
+    SCT_CONV_SEP_RANK(5)
+    SCT_CONV_SEP_RANK(6)
+    SCT_CONV_SEP_RANK(7)
+    SCT_CONV_SEP_RANK(8)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SCT_CONV_SEP_RANK
 }

@@ -63,8 +63,6 @@ def _declare(lib):
     lib.sct_moments_chunk.restype = I
     lib.sct_moments.argtypes = [P, P, P, I, LL, I, F, I, P, P, P]
     lib.sct_moments.restype = I
-    lib.sct_conv_sep_tile_y.argtypes = [I, I, I]
-    lib.sct_conv_sep_tile_y.restype = I
     lib.sct_conv_sep.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, I, P,
                                  P]
     lib.sct_conv_sep.restype = I

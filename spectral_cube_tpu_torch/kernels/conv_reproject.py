@@ -38,7 +38,7 @@ from .resample2 import POISON, lerp2
 
 __all__ = ["Bands", "ConvTaps", "Rows2", "bands_of", "conv_reproject",
            "conv_reproject_plain", "plain_strips", "plain_strips_plain",
-           "MOMENT_TILE"]
+           "plan", "MOMENT_TILE"]
 
 #: input tile (rows, columns) whose spaxels one block of the fused pipeline
 #: kernel accumulates, one per thread
@@ -51,6 +51,15 @@ _OUTPUT_TILES = ((16, 64), (16, 32), (8, 32), (8, 16), (4, 16), (2, 16),
 
 #: channels per block of the conv + reproject launch
 _CHANNELS_PER_BLOCK = 8
+
+#: the kernel's threads per block, outputs one block takes per pass, and
+#: shared memory one block may use (csrc/conv_reproject.cu kThreads,
+#: kOutPerPass, kSmemLimit), and the channels of a moments chunk
+#: (csrc/moments_acc.cuh kChunk); _launch checks the library agrees
+_THREADS = 256
+_OUT_PER_PASS = 4 * _THREADS
+_SMEM_LIMIT = 232448
+_MOMENT_CHUNK = 32
 
 
 class Bands(NamedTuple):
@@ -275,6 +284,54 @@ def _axis_struct(plan, n_in, n_out, bands, conv, rows, keep, dev,
     return s
 
 
+def _smem_bytes(mode, py, px, klen_y, klen_x):
+    """Shared memory one block of the launch takes, or None where the
+    tiling is not one the kernel takes: ``layout()`` of
+    ``csrc/conv_reproject.cu`` in Python."""
+    sy, sx = py["span"], px["span"]
+    if px["max_count"] > _OUT_PER_PASS or sy <= 0 or sx <= 0:
+        return None
+    rpp = min(max(py["max_count"], 1),
+              _OUT_PER_PASS // max(px["max_count"], 1))
+    cy = cx = 0
+    if mode != 1:
+        cy, cx = sy - klen_y + 1, sx - klen_x + 1
+        if cy < 1 or cx < 1:
+            return None
+    words = (py["max_count"] + px["max_count"] + 2 * sy * sx + rpp * sx
+             + 2 * cy * sx + 2 * cy * cx
+             + (_MOMENT_CHUNK * _THREADS if mode == 2 else 0))
+    return 4 * words
+
+
+def plan(mode, shape, gy, gx, chain=None):
+    """The tiling of one launch of ``csrc/conv_reproject.cu`` in ``mode``
+    (0: conv + reproject, 1: clean only, 2: with the moment planes) on a
+    (nchan, ny_in, nx_in) ``shape``: ``(py, px)``, the axis plans of the
+    first output tile (of ``_OUTPUT_TILES``; mode 2: ``MOMENT_TILE``) whose
+    input window fits one block's shared memory, or None where none fits,
+    as the TPU kernels' planners decline.  ``chain``: ``(my, mx, ry, rx)``
+    for modes 0 and 2.  Decided from the operators' shapes alone, before
+    any launch."""
+    _, ny_in, nx_in = shape
+    my = mx = ry = rx = None
+    if chain is not None:
+        my, mx, ry, rx = chain
+    conv_y = None if my is None else (my.taps.shape[1], int(my.half))
+    conv_x = None if mx is None else (mx.taps.shape[1], int(mx.half))
+    for ty, tx in [MOMENT_TILE] if mode == 2 else _OUTPUT_TILES:
+        py = _axis_plan(ny_in, gy, ty, conv_y,
+                        None if ry is None else ry.i0, mode == 2)
+        px = _axis_plan(nx_in, gx, tx, conv_x,
+                        None if rx is None else rx.i0, mode == 2)
+        nbytes = _smem_bytes(mode, py, px, 0 if conv_y is None else conv_y[0],
+                             0 if conv_x is None else conv_x[0])
+        if nbytes is not None and nbytes <= _SMEM_LIMIT:
+            py["smem"] = nbytes
+            return py, px
+    return None
+
+
 def _launch(mode, raw, gy, gx, chain, valid_plane, group_idx=None,
             moments=None):
     """One launch of ``csrc/conv_reproject.cu`` in ``mode`` (0: conv +
@@ -286,7 +343,18 @@ def _launch(mode, raw, gy, gx, chain, valid_plane, group_idx=None,
     if raw.dtype != torch.float32 or not raw.is_contiguous():
         raise ValueError("the conv_reproject kernel takes contiguous float32 "
                          "data")
+    tiling = plan(mode, raw.shape, gy, gx, chain)
+    if tiling is None:
+        raise ValueError("the conv_reproject kernel's input window does not "
+                         "fit one block's shared memory at this rescaling "
+                         "(plan() is None)")
+    py, px = tiling
     lib = load_library()
+    if lib.sct_conv_reproject_threads() != _THREADS \
+            or lib.sct_conv_reproject_smem_limit() != _SMEM_LIMIT:
+        raise RuntimeError("csrc/conv_reproject.cu and "
+                           "kernels/conv_reproject.py disagree on the "
+                           "block's threads or shared memory")
     dev = raw.device
     nchan, ny_in, nx_in = raw.shape
     ny_out, nx_out = gy.start.shape[1], gx.start.shape[1]
@@ -295,50 +363,17 @@ def _launch(mode, raw, gy, gx, chain, valid_plane, group_idx=None,
     if chain is not None:
         my, mx, ry, rx = chain
     keep = []
-
-    def args_for(ty, tx):
-        by_input = mode == 2
-        conv_y = None if my is None else (my.taps.shape[1], int(my.half))
-        conv_x = None if mx is None else (mx.taps.shape[1], int(mx.half))
-        py = _axis_plan(ny_in, gy, ty, conv_y,
-                        None if ry is None else ry.i0, by_input)
-        px = _axis_plan(nx_in, gx, tx, conv_x,
-                        None if rx is None else rx.i0, by_input)
-        a = _Args()
-        a.nchan, a.rank, a.groups, a.mode = nchan, r, G, mode
-        a.chan_per_block = nchan if mode == 2 else _CHANNELS_PER_BLOCK
-        a.mom_ty, a.mom_tx = MOMENT_TILE
-        for name, plan, n_in, n_out in (("y", py, ny_in, ny_out),
-                                        ("x", px, nx_in, nx_out)):
-            ax = getattr(a, name)
-            ax.n_in, ax.n_out = n_in, n_out
-            ax.tiles, ax.span = plan["tiles"], plan["span"]
-            ax.max_count = plan["max_count"]
-            ax.width = (gy if name == "y" else gx).taps.shape[3]
-            conv = my if name == "y" else mx
-            ax.klen = 0 if conv is None else conv.taps.shape[1]
-        return a, py, px
-
-    if mode == 2:
-        candidates = [MOMENT_TILE]
-        if lib.sct_conv_reproject_threads() != MOMENT_TILE[0] * MOMENT_TILE[1]:
-            raise RuntimeError("csrc/conv_reproject.cu and "
-                               "kernels/conv_reproject.py disagree on the "
-                               "moment tile")
-    else:
-        candidates = _OUTPUT_TILES
-    limit = lib.sct_conv_reproject_smem_limit()
-    for ty, tx in candidates:
-        a, py, px = args_for(ty, tx)
-        if 0 < lib.sct_conv_reproject_smem(ctypes.byref(a)) <= limit:
-            break
-    else:
-        raise NotImplementedError(
-            "the conv_reproject kernel's input window does not fit one "
-            "block's shared memory at this rescaling")
+    a = _Args()
+    a.nchan, a.rank, a.groups, a.mode = nchan, r, G, mode
+    a.chan_per_block = nchan if mode == 2 else _CHANNELS_PER_BLOCK
+    a.mom_ty, a.mom_tx = MOMENT_TILE
     a.y = _axis_struct(py, ny_in, ny_out, gy, my, ry, keep, dev)
     a.x = _axis_struct(px, nx_in, nx_out, gx, mx, rx, keep, dev,
                        tap_major=True)
+    if lib.sct_conv_reproject_smem(ctypes.byref(a)) != py["smem"]:
+        raise RuntimeError("csrc/conv_reproject.cu and "
+                           "kernels/conv_reproject.py disagree on the "
+                           "shared-memory layout")
     a.raw = ptr(raw)
     if group_idx is not None:
         gi = torch.as_tensor(group_idx, dtype=torch.int32, device=dev)

@@ -5,7 +5,9 @@
 tensor.  The operator is given as flipped 1-D taps per group and rank,
 ``ytaps`` (G, r, ly) and ``xtaps`` (G, r, lx), with centre offsets
 ``hy``/``hx``: output index i reads input index i + o - h through tap o,
-zero outside the plane (ops/smoothing._banded_conv_matrix).
+zero outside the plane (ops/smoothing._banded_conv_matrix).  Any tap
+lengths run: the kernel streams the taps and the halo through shared
+memory in fixed chunks.
 """
 
 from __future__ import annotations
@@ -18,6 +20,9 @@ __all__ = ["conv_sep", "conv_sep_plain", "DEN_EPS"]
 
 #: normalized-convolution denominator floor (banded_pallas.py:45)
 DEN_EPS = 1e-6
+#: the largest rank the kernel takes: ``ops/convolve.separable_factors``'
+#: cap for one beam group
+MAX_RANK = 8
 
 
 def _check_inputs(data, ytaps, xtaps, hy, hx, group_idx):
@@ -44,15 +49,13 @@ def conv_sep(data, ytaps, xtaps, hy, hx, group_idx):
     if data.dtype != torch.float32 or not data.is_contiguous():
         raise ValueError("the convolution kernel takes contiguous float32 "
                          "data")
-    lib = load_library()
     nchan, ny, nx = data.shape
     G, r, ly = ytaps.shape
     lx = xtaps.shape[2]
-    if lib.sct_conv_sep_tile_y(r, ly, lx) == 0:
-        raise NotImplementedError(
-            f"taps of {ly}x{lx} at rank {r} exceed one block's shared "
-            "memory; such kernels take the FFT path (ROADMAP.md Queue 1 "
-            "item 5)")
+    if not 1 <= r <= MAX_RANK:
+        raise ValueError(f"the convolution kernel takes rank 1 to {MAX_RANK}, "
+                         f"got {r}")
+    lib = load_library()
     dev = data.device
     yt = ytaps.to(device=dev, dtype=torch.float32).contiguous()
     xt = xtaps.to(device=dev, dtype=torch.float32).contiguous()

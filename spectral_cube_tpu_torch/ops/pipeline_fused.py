@@ -20,7 +20,7 @@ from __future__ import annotations
 from ..kernels.pipeline_fused import pipeline_fused
 from ..masks import is_data_local
 from .moments import _center, _kernel_inputs, finalize_planes
-from .regrid import _conv_reproject_operators
+from .regrid import _conv_reproject_operators, fused_plan_fits
 
 __all__ = ["moments_conv_reproject_fused"]
 
@@ -36,14 +36,16 @@ def moments_conv_reproject_fused(data, kernel, ys, xs, coords, dx,
 
     Returns ``(reprojected, mom0, mom1, mom2, stats)``, or None where the
     JAX function does (a mask that is not data-local, a kernel that does
-    not separate, a mapping that is not axis-aligned; its TPU backend gate
-    is dropped), so callers take the two-kernel chain."""
+    not separate, a mapping that is not axis-aligned, a plan that does not
+    fit the kernel: :func:`~.regrid.fused_plan_fits` in mode 2, as the
+    JAX kernel's VMEM planner declines; its TPU backend gate is dropped),
+    so callers take the two-kernel chain."""
     if data.ndim != 3:
         return None
     if mask_expr is not None and not is_data_local(mask_expr):
         return None
     ops = _conv_reproject_operators(data.shape, kernel, ys, xs)
-    if ops is None:
+    if ops is None or not fused_plan_fits(data.shape, ops, mode=2):
         return None
     coords_c, xbar = _center(coords)
     op, thr, include = _kernel_inputs(data, mask_expr, None)

@@ -17,7 +17,8 @@ neighbour never poisons an output.
 
 :func:`convolve_reproject_separable` fuses the common-beam convolution
 with the resample in kernel 6 (``kernels/conv_reproject.py``) on operators
-composed on the host by :func:`_conv_reproject_operators`.
+composed on the host by :func:`_conv_reproject_operators`, or, where
+kernel 6's plan does not fit, runs the two-stage chain.
 
 Not ported yet, and raising ``NotImplementedError``: the spline orders
 2 and 3 (ROADMAP.md Queue 1 item 9).
@@ -32,14 +33,15 @@ import torch
 
 from ..wcs import WCS
 from ..kernels.conv_reproject import (Bands, ConvTaps, Rows2, bands_of,
-                                      conv_reproject)
+                                      conv_reproject, plan)
 from ..kernels.resample2 import resample2, resample2_filled
-from .convolve import separable_factors, _conv_matrix_1d, _tap_stack
+from .convolve import (convolve2d_separable, separable_factors,
+                       _conv_matrix_1d, _tap_stack)
 from .interpolate import _interp_matrix, compose_interp_banded
 
 __all__ = ["spatial_pixel_mapping", "bilinear_host_maps",
            "reproject_mappings", "reproject_cube", "reproject_image",
-           "mosaic_add", "convolve_reproject_separable"]
+           "mosaic_add", "convolve_reproject_separable", "fused_plan_fits"]
 
 _ORDERS = {"nearest-neighbor": 0, "nearest": 0, "bilinear": 1,
            "biquadratic": 2, "bicubic": 3}
@@ -358,6 +360,17 @@ def _conv_reproject_operators(shape, kernel, ys, xs):
     return ConvReprojectOps(gy, gx, my, mx, ry, rx, yvalid & xvalid, r)
 
 
+def fused_plan_fits(shape, ops, mode=0):
+    """Whether kernel 6 takes ``ops`` (:class:`ConvReprojectOps`) on a cube
+    of ``shape`` in ``mode`` (0: conv + reproject, 2: with the moment
+    planes): a tile whose input window fits one block's shared memory
+    (``kernels/conv_reproject.plan``), as the TPU kernels' planners decline
+    a window that does not fit VMEM.  A predicate on shapes, decided before
+    any launch and the same on either device."""
+    return plan(mode, shape, ops.gy, ops.gx,
+                (ops.my, ops.mx, ops.ry, ops.rx)) is not None
+
+
 def convolve_reproject_separable(data, kernel, ys, xs):
     """Fused common-beam convolve + axis-aligned reproject of a (nchan,
     ny_in, nx_in) cube through kernel 6 (``kernels/conv_reproject.py``):
@@ -368,15 +381,34 @@ def convolve_reproject_separable(data, kernel, ys, xs):
     chain for every channel (regrid.py:632); the port follows the TPU
     kernel's per-channel ``isnan`` instead (banded_pallas.py:1159).
 
+    Where kernel 6's plan does not fit (:func:`fused_plan_fits`: a wide
+    kernel or a strong rescaling), the two-stage chain of the JAX
+    function's fallback (regrid.py:619-626): ``convolve2d_separable`` with
+    the normalized kernel (kernel 2), then the bilinear resample (kernel
+    3), out-of-range outputs NaN.  ``convolve_reproject_separable.last``
+    names the route of the latest call: 'fused', 'chain' or None.
+
     Returns None where the JAX function does with its TPU backend gate
     true (see :func:`_conv_reproject_operators`), so callers take the
     two-stage path."""
     ops = _conv_reproject_operators(data.shape, kernel, ys, xs)
+    convolve_reproject_separable.last = {"route": None}
     if ops is None:
         return None
+    if not fused_plan_fits(data.shape, ops):
+        convolve_reproject_separable.last = {"route": "chain"}
+        k64 = np.asarray(kernel, dtype=np.float64)
+        conv = convolve2d_separable(data, k64 / k64.sum())
+        zs = np.arange(data.shape[0], dtype=np.float64)
+        return _bilinear_spatial_then_linear_z(conv, zs, np.asarray(ys),
+                                               np.asarray(xs), 1)
+    convolve_reproject_separable.last = {"route": "fused"}
     out = conv_reproject(data, ops.gy, ops.gx, ops.my, ops.mx, ops.ry,
                          ops.rx, ops.valid)
     return out.to(data.dtype)
+
+
+convolve_reproject_separable.last = {}
 
 
 def reproject_mappings(wcs_in: WCS, target_header, nchan_in,

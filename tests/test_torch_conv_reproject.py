@@ -225,3 +225,84 @@ def test_plain_versions_leave_the_counters_alone():
     kcr.plain_strips(torch.as_tensor(data), ops.gy, ops.gx,
                      np.zeros(3, np.int32))
     assert all(n == 0 for n in K.launch_counts().values())
+
+
+def _wide_gauss(size):
+    """A circular Gaussian of ``size`` taps, sigma size / 8 (rank 1)."""
+    x = np.arange(size) - size // 2
+    g = np.exp(-0.5 * (x / (size / 8.0)) ** 2)
+    k = np.outer(g, g)
+    return k / k.sum()
+
+
+@pytest.mark.parametrize("size,fits", [(9, True), (167, True), (169, False),
+                                       (171, False)])
+def test_fused_plan_fits_up_to_the_widest_window(size, fits):
+    """Kernel 6's plan, decided from the operators' shapes: at the last
+    output tile (1 x 1) the chain's window spans L + 1 input rows and
+    columns, and 2 S^2 + 5 S + 10 words fit 232448 bytes up to S = 168,
+    so kernels of 169 taps and more decline, on any plane.  The moments
+    mode (2) stages a whole 8 x 32 input tile's window and a moment chunk
+    and declines earlier."""
+    shape = (3, 30, 34)
+    ys, xs = _shift_maps(30, 34, 0.37, -0.61)
+    ops = trg._conv_reproject_operators(shape, _wide_gauss(size), ys, xs)
+    assert ops is not None and ops.rank == 1
+    assert trg.fused_plan_fits(shape, ops) == fits
+    assert trg.fused_plan_fits(shape, ops, mode=2) == (size == 9)
+    tiling = kcr.plan(0, shape, ops.gy, ops.gx,
+                      (ops.my, ops.mx, ops.ry, ops.rx))
+    assert (tiling is not None) == fits
+    if fits:
+        assert tiling[0]["smem"] <= 232448
+
+
+def test_fused_plan_declines_a_strong_upsampling_in_moments_mode():
+    """Mode 2 groups the outputs by the input tile that holds their
+    sample: 1100 output columns from an 8-column plane put more than the
+    kernel's 1024 outputs per pass on one tile, so the moments mode
+    declines while mode 0, which tiles the outputs, fits."""
+    shape = (3, 12, 8)
+    ys = np.broadcast_to(np.arange(12, dtype=np.float64)[:, None],
+                         (12, 1100)).copy()
+    xs = np.broadcast_to(np.linspace(0.0, 7.0, 1100)[None, :],
+                         (12, 1100)).copy()
+    ops = trg._conv_reproject_operators(shape, _kern9(), ys, xs)
+    assert trg.fused_plan_fits(shape, ops)
+    assert not trg.fused_plan_fits(shape, ops, mode=2)
+
+
+def test_declined_plan_takes_the_jax_chain():
+    """Where kernel 6's plan does not fit (a 171-tap kernel),
+    convolve_reproject_separable computes the JAX function's two-stage
+    chain (regrid.py:619-626: convolve2d_separable with the normalized
+    kernel, then the bilinear resample, out-of-range outputs NaN) and
+    moments_conv_reproject_fused returns None, as the JAX function does
+    when its planner declines; a 9-tap kernel keeps the fused route.
+    Tolerance: test_convolve_reproject_separable_matches_jax's."""
+    from spectral_cube_tpu.ops import convolve as jconv
+    from spectral_cube_tpu_torch.ops import pipeline_fused as tpf
+    rng = np.random.RandomState(5)
+    data = (1.0 + rng.rand(3, 30, 34)).astype(np.float32)
+    data[1, 10:13, 4:9] = np.nan
+    data[2, :, -2:] = np.nan
+    ys, xs = _shift_maps(30, 34, 0.37, -0.61)
+    kern = _wide_gauss(171)
+    K.reset_launch_counts()
+    got = trg.convolve_reproject_separable(torch.as_tensor(data), kern, ys,
+                                           xs)
+    assert trg.convolve_reproject_separable.last == {"route": "chain"}
+    assert all(n == 0 for n in K.launch_counts().values())
+    conv = jconv.convolve2d_separable(jnp.asarray(data), kern / kern.sum())
+    ref = np.asarray(jrg._bilinear_spatial_then_linear_z(
+        conv, np.arange(3, dtype=np.float64), ys, xs, 1))
+    got = got.numpy()
+    assert np.array_equal(np.isnan(got), np.isnan(ref))
+    assert np.isnan(got[:, :, 0]).all() and np.isfinite(got[0, :-1, 1:]).all()
+    np.testing.assert_allclose(got, ref, rtol=2e-5, atol=1e-6,
+                               equal_nan=True)
+    coords = np.arange(3, dtype=np.float64)
+    assert tpf.moments_conv_reproject_fused(torch.as_tensor(data), kern, ys,
+                                            xs, coords, 1.0) is None
+    trg.convolve_reproject_separable(torch.as_tensor(data), _kern9(), ys, xs)
+    assert trg.convolve_reproject_separable.last == {"route": "fused"}

@@ -435,3 +435,54 @@ def test_beam_groups_equal_the_pairwise_scan(case):
     want_groups, want_idx = _pairwise_groups(beams)
     np.testing.assert_array_equal(idx, want_idx)
     assert [id(g) for g in groups] == [id(g) for g in want_groups]
+
+
+def _two_gauss(size, s1, s2):
+    """A rank-2 kernel of ``size`` x ``size`` taps: two axis-aligned
+    elliptical Gaussians, (sigma_y, sigma_x) ``s1`` and ``s2``, summed."""
+    x = np.arange(size) - size // 2
+
+    def g(s):
+        return np.exp(-0.5 * (x / s) ** 2)
+    k = np.outer(g(s1[0]), g(s1[1])) + 0.5 * np.outer(g(s2[0]), g(s2[1]))
+    return k / k.sum()
+
+
+#: (cube shape, kernel taps): 161 taps, past the 147 that one block's
+#: shared memory held before the kernel streamed its taps, and 75 taps on
+#: a 40 x 44 plane, longer than the plane but within the routes' 2 n
+_LONG_TAPS = {"161_taps": ((3, 90, 96), 161),
+              "longer_than_plane": ((3, 40, 44), 75)}
+
+
+@pytest.mark.parametrize("case", list(_LONG_TAPS))
+@pytest.mark.parametrize("route", ["separable", "per_channel_separable"])
+def test_long_taps_match_jax(case, route):
+    """Both separable routes with long rank-2 taps on positive data with a
+    NaN border at the plane's edge (there den > 0: the zero fill outside
+    the plane counts as valid), a NaN patch and an all-NaN channel,
+    against the JAX functions; the tolerance of
+    test_convolve2d_separable_matches_jax_and_scipy."""
+    shape, size = _LONG_TAPS[case]
+    rng = np.random.RandomState(size)
+    data = (1.0 + rng.rand(*shape)).astype(np.float32)
+    data[:, :3] = np.nan
+    data[:, :, -2:] = np.nan
+    data[1, 20:25, 30:33] = np.nan
+    data[2] = np.nan
+    k = _two_gauss(size, (size / 8.0, size / 12.0), (size / 14.0, size / 7.0))
+    assert jconv.separable_factors(k)[0].shape[1] == 2
+    td, jd = torch.as_tensor(data), jnp.asarray(data)
+    if route == "separable":
+        got = tconv.convolve2d_separable(td, k)
+        ref = jconv.convolve2d_separable(jd, k)
+    else:
+        small = _gauss2d(2.0, 1.5, size=9)
+        gi = np.array([0, 1, 0], np.int32)
+        got = tconv.convolve_per_channel_separable(td, [k, small], gi)
+        ref = jconv.convolve_per_channel_separable(jd, [k, small], gi)
+    got, ref = got.numpy(), np.asarray(ref)
+    assert np.array_equal(np.isnan(got), np.isnan(ref))
+    assert np.isnan(got[2]).all() and np.isfinite(got[0]).all()
+    ok = np.isfinite(ref)
+    np.testing.assert_allclose(got[ok], ref[ok], rtol=1e-6, atol=1e-6)

@@ -121,6 +121,155 @@ def test_conv_kernel_groups_interleaved(cuda):
     torch.testing.assert_close(got[5].cpu(), x[5], equal_nan=True)
 
 
+def _close_conv(got, want, x, ytaps, xtaps, hy, hx, gi, rtol=1e-5):
+    """The normalized convolution's tolerance: den = 1 - K*~isfinite (the
+    valid fraction of the footprint, float64 here) divides float32
+    rounding, so NaN patterns must agree where den > 1e-5 and |got - want|
+    * min(den, 1) stay within ``rtol`` of the largest |want|; where den >=
+    0.1, rtol 1e-5 with atol 2e-6 of that scale."""
+    from spectral_cube_tpu_torch.kernels.conv_sep import _apply
+    got, want, x = got.cpu().double(), want.cpu().double(), x.cpu()
+    yt, xt = torch.as_tensor(ytaps).double(), torch.as_tensor(xtaps).double()
+    gi = torch.as_tensor(np.asarray(gi, np.int64))
+    den = torch.ones_like(want)
+    for g in range(yt.shape[0]):
+        sel = torch.nonzero(gi == g).flatten()
+        if sel.numel():
+            den[sel] = 1.0 - _apply((~torch.isfinite(x[sel])).double(),
+                                    yt[g], xt[g], hy, hx)
+    flip = torch.isnan(got) != torch.isnan(want)
+    assert not bool((flip & (den > 1e-5)).any())
+    both = ~torch.isnan(got) & ~torch.isnan(want)
+    scale = float(torch.where(both, want.abs(), 0.0).max())
+    diff = torch.where(both, (got - want).abs(), 0.0)
+    assert float((diff * den.clamp(max=1.0)).max()) <= rtol * scale
+    strong = both & (den >= 0.1)
+    np.testing.assert_allclose(got[strong].numpy(), want[strong].numpy(),
+                               rtol=rtol, atol=2e-6 * scale)
+
+
+def _conv_case(shape, ly, lx, rank, groups=1, seed=0):
+    """Noise with an inf, a NaN patch, a NaN band at the plane's right edge
+    (den > 0 there: the zero fill counts as valid) and an all-NaN
+    channel; positive random taps (G, rank, L) whose 2-D kernels sum to
+    1, centred as _tap_stack centres them."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(*shape).astype(np.float32)
+    x[0, 1, 1] = np.inf
+    x[1, 2:5, 3:9] = np.nan
+    x[:, :, -3:] = np.nan
+    x[-1] = np.nan
+    yt = (0.2 + rng.rand(groups, rank, ly)).astype(np.float64)
+    xt = (0.2 + rng.rand(groups, rank, lx)).astype(np.float64)
+    norm = np.einsum("gry,grx->g", yt, xt)
+    yt /= norm[:, None, None]
+    gi = np.arange(shape[0], dtype=np.int32) % groups
+    return (torch.as_tensor(x), torch.as_tensor(yt.astype(np.float32)),
+            torch.as_tensor(xt.astype(np.float32)), (ly - 1) // 2,
+            (lx - 1) // 2, torch.as_tensor(gi))
+
+
+@pytest.mark.parametrize("shape", [(3, 45, 77), (3, 70, 132)])
+@pytest.mark.parametrize("rank", [1, 5, 8])
+@pytest.mark.parametrize("taps", [1, 2, 8, 19, 41, 148, 161, 88])
+def test_conv_kernel_every_tap_length(cuda, shape, rank, taps):
+    """The streamed kernel at every tap length up to the routes' 2 n (88
+    taps: longer than the 45-row plane), ranks 1, 5 and 8, on planes that
+    are no multiple of the tile (one whose rows are no multiple of 4, so
+    the halo is staged element by element), x taps one shorter than y."""
+    x, yt, xt, hy, hx, gi = _conv_case(shape, taps, max(taps - 1, 1), rank,
+                                       seed=taps)
+    want = kconv.conv_sep_plain(x.to(cuda), yt, xt, hy, hx, gi)
+    n0 = kconv.conv_sep.launches
+    got = kconv.conv_sep(x.to(cuda), yt, xt, hy, hx, gi)
+    torch.cuda.synchronize()
+    assert kconv.conv_sep.launches == n0 + 1
+    assert torch.isnan(got[-1]).all().item()
+    _close_conv(got, want, x, yt, xt, hy, hx, gi)
+
+
+def test_conv_kernel_groups_of_different_rank_and_length(cuda):
+    """Interleaved groups of rank 2, 5 and 1 with 5, 161 and 1 taps: one
+    (G, 5, 161) tap stack, zero-padded as _tap_stack pads it."""
+    x = _noise_cube((6, 50, 96), 4)
+    rng = np.random.RandomState(1)
+    ytaps = [rng.rand(5, 2), 0.2 + rng.rand(161, 5), np.ones((1, 1))]
+    xtaps = [rng.rand(7, 2), 0.2 + rng.rand(150, 5), np.ones((1, 1))]
+    gi = np.array([1, 0, 2, 1, 0, 2], np.int32)
+    ys, hy = tconv._tap_stack(ytaps)
+    xs, hx = tconv._tap_stack(xtaps)
+    want = tconv._convolve_groups(x, ytaps, xtaps, gi)
+    got = tconv._convolve_groups(x.to(cuda), ytaps, xtaps, gi)
+    _close_conv(got, want, x, ys, xs, hy, hx, gi)
+    torch.testing.assert_close(got[2].cpu(), x[2], equal_nan=True)
+
+
+def _cutoff_cube(nchan, ny, nx, seed):
+    """Unit noise, NaN outside a circular primary-beam cutoff."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:ny, 0:nx]
+    cut = ((yy - ny / 2) / (0.47 * ny)) ** 2 \
+        + ((xx - nx / 2) / (0.47 * nx)) ** 2 > 1.0
+    data = rng.randn(nchan, ny, nx).astype(np.float32)
+    data[:, cut] = np.nan
+    return data
+
+
+def test_convolve_to_153_taps_on_cuda_matches_cpu(cuda):
+    """convolve_to from the 6" x 4.5" beam to 90" at 2" pixels (153 taps,
+    rank 3) on a 4 x 768 x 768 NaN-bordered cube: the separable route,
+    one conv_sep launch on the card, against the same call on the CPU."""
+    data = _cutoff_cube(4, 768, 768, 3)
+    h = _header(4, 768, 768)
+    beam = T.Beam(T.Quantity(90.0, "arcsec"), T.Quantity(90.0, "arcsec"),
+                  T.Quantity(0.0, "deg"))
+    out = {}
+    for dev in ("cpu", cuda):
+        cube = T.SpectralCube(data, WCS(header=h), header=h, device=dev)
+        K.reset_launch_counts()
+        out[str(dev)] = cube.convolve_to(beam)._data
+        assert tconv.convolve_cube_to_beam.last["route"] == "separable"
+        assert K.launch_counts()["conv_sep"] == (0 if dev == "cpu" else 1)
+    kern = beam.deconvolve(T.Beam(T.Quantity(6.0, "arcsec"),
+                                  T.Quantity(4.5, "arcsec"),
+                                  T.Quantity(30.0, "deg"))).as_kernel(
+        np.radians(2.0 / 3600.0))
+    assert kern.shape == (153, 153)
+    yt, xt = tconv.separable_factors(kern)
+    ys, hy = tconv._tap_stack([yt])
+    xs, hx = tconv._tap_stack([xt])
+    _close_conv(out[str(cuda)], out["cpu"], torch.as_tensor(data), ys, xs,
+                hy, hx, np.zeros(4, np.int32))
+
+
+def test_fused_convolve_reproject_declines_on_cuda(cuda):
+    """A 171-tap kernel: kernel 6's plan does not fit, so
+    convolve_reproject_separable runs conv_sep then resample2 on the card
+    (no conv_reproject launch) and agrees with the CPU chain, and
+    moments_conv_reproject_fused returns None."""
+    rng = np.random.RandomState(5)
+    data = (1.0 + rng.rand(3, 30, 34)).astype(np.float32)
+    data[1, 10:13, 4:9] = np.nan
+    data[2, :, -2:] = np.nan
+    ys, xs = _axis_maps(30, 34, 1.0, 0.37, 1.0, -0.61)
+    g = np.exp(-0.5 * ((np.arange(171) - 85) / (171 / 8.0)) ** 2)
+    kern = np.outer(g, g) / np.outer(g, g).sum()
+    want = tregrid.convolve_reproject_separable(torch.as_tensor(data), kern,
+                                                ys, xs)
+    K.reset_launch_counts()
+    got = tregrid.convolve_reproject_separable(torch.as_tensor(data,
+                                                               device=cuda),
+                                               kern, ys, xs)
+    counts = K.launch_counts()
+    assert tregrid.convolve_reproject_separable.last == {"route": "chain"}
+    assert counts["conv_sep"] == 1 and counts["resample2"] == 1, counts
+    assert counts["conv_reproject"] == 0, counts
+    _close(got, want, rtol=1e-5, atol=1e-6)
+    assert tpf.moments_conv_reproject_fused(
+        torch.as_tensor(data, device=cuda), kern, ys, xs,
+        np.arange(3, dtype=np.float64), 1.0) is None
+
+
 @pytest.mark.parametrize("ay,by,ax,bx", [(1.0, 0.37, 1.0, -1.61),
                                          (0.93, 3.2, 1.07, -2.6),
                                          (1.0, 2.0, 1.0, 0.0)])
