@@ -100,6 +100,11 @@ struct MomentAcc {
   __device__ __forceinline__ void add(float v, bool ok, float x,
                                       float* slot) {
     *slot = ok ? v : NAN;
+    add(v, ok, x);
+  }
+
+  // pass 1 without a slot: the caller re-reads the chunk for pass 2
+  __device__ __forceinline__ void add(float v, bool ok, float x) {
     if (ok) {
       s0 += v;
       s1 += v * x;
@@ -117,12 +122,21 @@ struct MomentAcc {
                                             int cc,
                                             const float* __restrict__ xc,
                                             bool with_stats) {
+    end_chunk_of([=](int j) { return slots[j * stride]; }, cc, xc,
+                 with_stats);
+  }
+
+  // pass 2 with slot j given by slot(j): the included value, or NaN
+  template <class Slot>
+  __device__ __forceinline__ void end_chunk_of(Slot slot, int cc,
+                                               const float* __restrict__ xc,
+                                               bool with_stats) {
     const float safe = (s0 == 0.f) ? 1.f : s0;
     const float m1 = s1 / safe;
     const float mi = s0 / (float)max(n, 1);
     float r1 = 0.f, s2c = 0.f, d2 = 0.f;
     for (int j = 0; j < cc; ++j) {
-      const float v = slots[j * stride];
+      const float v = slot(j);
       if (isnan(v)) continue;
       const float d = __ldg(xc + j) - m1;
       r1 += v * d;

@@ -26,6 +26,7 @@ The operators come as host arrays:
 from __future__ import annotations
 
 import ctypes
+import hashlib
 from typing import NamedTuple
 
 import numpy as np
@@ -41,25 +42,35 @@ __all__ = ["Bands", "ConvTaps", "Rows2", "bands_of", "conv_reproject",
            "plan", "MOMENT_TILE"]
 
 #: input tile (rows, columns) whose spaxels one block of the fused pipeline
-#: kernel accumulates, one per thread
-MOMENT_TILE = (8, 32)
+#: kernel accumulates, three per thread (csrc/conv_reproject.cu kMomTY,
+#: kMomTX)
+MOMENT_TILE = (32, 24)
 
-#: output tiles (rows, columns) tried in turn until one block's window fits
-#: in shared memory
-_OUTPUT_TILES = ((16, 64), (16, 32), (8, 32), (8, 16), (4, 16), (2, 16),
-                 (1, 16), (1, 4), (1, 1))
+#: output tiles (rows, columns) tried in turn: the first whose block fits
+#: twice in an SM's shared memory, else the first that fits once.  128 and
+#: 64 columns come first: the x pass gives each of the 8 warps 8 columns,
+#: so they keep every warp busy
+_OUTPUT_TILES = ((32, 128),) + tuple((32, tx) for tx in range(64, 0, -8)) \
+    + ((16, 8), (8, 8), (1, 8))
 
 #: channels per block of the conv + reproject launch
 _CHANNELS_PER_BLOCK = 8
 
-#: the kernel's threads per block, outputs one block takes per pass, and
-#: shared memory one block may use (csrc/conv_reproject.cu kThreads,
-#: kOutPerPass, kSmemLimit), and the channels of a moments chunk
-#: (csrc/moments_acc.cuh kChunk); _launch checks the library agrees
+#: the kernel's threads per block and shared memory one block may use
+#: (csrc/conv_reproject.cu kThreads, kSmemLimit; _launch checks the library
+#: agrees), the most a block may take for two blocks to share an SM (228
+#: KB less 1 KB reserved per block), a block's output columns at most
+#: (kMaxCols), the ranks the kernel is built for, the outputs and ints of
+#: one tap descriptor (kBlk, kDesc) and the words of one spaxel's moment
+#: state (sizeof(sct::MomentAcc) / 4)
 _THREADS = 256
-_OUT_PER_PASS = 4 * _THREADS
 _SMEM_LIMIT = 232448
-_MOMENT_CHUNK = 32
+_TWO_BLOCKS = 233472 // 2 - 1024
+_MAX_COLS = 128
+_MAX_RANK = 8
+_BLK = 8
+_DESC = 12
+_MOMENT_WORDS = 14
 
 
 class Bands(NamedTuple):
@@ -182,13 +193,13 @@ plain_strips.launches = 0
 
 class _Axis(ctypes.Structure):
     _fields_ = [("perm", ctypes.c_void_p), ("off", ctypes.c_void_p),
-                ("win0", ctypes.c_void_p), ("start", ctypes.c_void_p),
-                ("taps", ctypes.c_void_p), ("ktaps", ctypes.c_void_p),
+                ("win0", ctypes.c_void_p), ("blob", ctypes.c_void_p),
+                ("blob_off", ctypes.c_void_p), ("ktaps", ctypes.c_void_p),
                 ("i0", ctypes.c_void_p), ("w0", ctypes.c_void_p),
                 ("w1", ctypes.c_void_p)] + [
         (name, ctypes.c_int) for name in
         ("n_in", "n_out", "tiles", "span", "width", "klen", "khalf",
-         "max_count")]
+         "max_count", "blob_max", "reach")]
 
 
 class _Args(ctypes.Structure):
@@ -200,6 +211,14 @@ class _Args(ctypes.Structure):
         ("nchan", "rank", "groups", "mode", "chan_per_block", "cmp_op")] + [
         ("thr", ctypes.c_float), ("mom_ty", ctypes.c_int),
         ("mom_tx", ctypes.c_int)]
+
+
+def _r4(n):
+    return (n + 3) & ~3
+
+
+def _r8(n):
+    return (n + 7) & ~7
 
 
 def _axis_plan(n_in, bands, tile, conv=None, i0=None, by_input=False):
@@ -248,32 +267,87 @@ def _axis_plan(n_in, bands, tile, conv=None, i0=None, by_input=False):
     tile_of[perm] = np.repeat(np.arange(tiles), np.diff(off))
     start = np.where(empty, win0[:, tile_of] if n_out else start, start)
     return dict(perm=perm.astype(np.int32), off=off.astype(np.int32),
-                win0=win0.astype(np.int32), start=start.astype(np.int32),
-                tiles=tiles, span=span,
-                max_count=int(np.diff(off).max()) if n_out else 0)
+                win0=win0.astype(np.int32), start=start, tiles=tiles,
+                span=span, max_count=int(np.diff(off).max()) if n_out else 0)
 
 
-def _axis_struct(plan, n_in, n_out, bands, conv, rows, keep, dev,
-                 tap_major=False):
-    """The :class:`_Axis` of one axis, its arrays copied to ``dev`` (and
-    kept alive in ``keep``); ``tap_major`` stores the G taps (G, r, W,
-    n_out), as the kernel reads the x axis's."""
+def _blobs(ap, bands, y_axis):
+    """The G taps of one axis as the kernel stages them: per (group, tile)
+    a blob of int32 words, one descriptor of ``_DESC`` ints per 8
+    consecutive outputs of the tile (first input index ``s0``, uniform flag,
+    word offset of its taps in the blob, count, each output's start minus
+    ``s0``), then the taps, zero-padded to ``W4`` (a multiple of 4) and to
+    a rank multiple of 4 along y.  A descriptor is uniform where its bands
+    are one band shifted by one index per output, bit for bit; it keeps
+    that band alone, as (W4, RP) taps along y and (r, W4) along x.  Any
+    other keeps every output's: (8, W4, RP) along y, (8, r, W4) along x.
+    Returns ``blob``, ``blob_off`` ((groups * tiles + 1,) word offsets),
+    ``blob_max`` (the longest blob), ``reach`` (one past the furthest
+    window index the clean branch reads, over every tile: rows along y,
+    y-pass columns along x) and ``width`` (W4)."""
+    start = ap["start"]
+    taps = np.asarray(bands.taps, np.float32)
+    G, r, _, W = taps.shape
+    W4, RP = _r4(W), _r4(r)
+    perm, off, win0 = ap["perm"], ap["off"], ap["win0"]
+    parts, sizes, reach = [], [], 1
+    for g in range(G):
+        for t in range(ap["tiles"]):
+            outs = perm[off[t]:off[t + 1]]
+            n8 = -(-outs.size // _BLK)
+            desc = np.zeros((n8, _DESC), np.int32)
+            body, pos = [], _DESC * n8
+            for b in range(n8):
+                o = outs[_BLK * b:_BLK * (b + 1)]
+                s = start[g, o]
+                s0 = int(s.min())
+                d = s - s0
+                tp = taps[g][:, o, :]                      # (r, n, W)
+                uniform = bool((d == np.arange(o.size)).all()
+                               and (tp == tp[:, :1]).all())
+                if uniform:
+                    shape = (W4, RP) if y_axis else (r, W4)
+                    blk = np.zeros(shape, np.float32)
+                    if y_axis:
+                        blk[:W, :r] = tp[:, 0, :].T
+                    else:
+                        blk[:, :W] = tp[:, 0, :]
+                    far = s0 + W4 + _BLK - 1
+                else:
+                    shape = (_BLK, W4, RP) if y_axis else (_BLK, r, W4)
+                    blk = np.zeros(shape, np.float32)
+                    if y_axis:
+                        blk[:o.size, :W, :r] = tp.transpose(1, 2, 0)
+                    else:
+                        blk[:o.size, :, :W] = tp.transpose(1, 0, 2)
+                    far = s0 + int(d.max()) + W4
+                reach = max(reach, far - int(win0[g, t]))
+                desc[b, :4] = (s0, uniform, pos, o.size)
+                desc[b, 4:4 + o.size] = d
+                body.append(blk.ravel().view(np.int32))
+                pos += blk.size
+            parts += [desc.ravel()] + body
+            sizes.append(pos)
+    return dict(blob=np.concatenate(parts).astype(np.int32),
+                blob_off=np.concatenate([[0], np.cumsum(sizes)]).astype(
+                    np.int32),
+                blob_max=max(sizes), reach=reach, width=W4)
+
+
+def _axis_struct(ap, n_in, n_out, conv, rows, keep, dev):
+    """The :class:`_Axis` of one axis plan ``ap``, its arrays copied to
+    ``dev`` (and kept alive in ``keep``)."""
     def t(a, dtype):
         v = torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
         keep.append(v)
         return ptr(v)
 
     s = _Axis()
-    s.perm = t(plan["perm"], torch.int32)
-    s.off = t(plan["off"], torch.int32)
-    s.win0 = t(plan["win0"], torch.int32)
-    s.start = t(plan["start"], torch.int32)
-    s.taps = t(np.transpose(bands.taps, (0, 1, 3, 2)) if tap_major
-               else bands.taps, torch.float32)
+    for name in ("perm", "off", "win0", "blob", "blob_off"):
+        setattr(s, name, t(ap[name], torch.int32))
     s.n_in, s.n_out = n_in, n_out
-    s.tiles, s.span, s.max_count = (plan["tiles"], plan["span"],
-                                    plan["max_count"])
-    s.width = bands.taps.shape[3]
+    for name in ("tiles", "span", "width", "max_count", "blob_max", "reach"):
+        setattr(s, name, ap[name])
     s.klen = s.khalf = 0
     if conv is not None:
         s.ktaps = t(conv.taps, torch.float32)
@@ -284,52 +358,99 @@ def _axis_struct(plan, n_in, n_out, bands, conv, rows, keep, dev,
     return s
 
 
-def _smem_bytes(mode, py, px, klen_y, klen_x):
+def _smem_bytes(mode, rank, py, px, klen_y, klen_x):
     """Shared memory one block of the launch takes, or None where the
     tiling is not one the kernel takes: ``layout()`` of
     ``csrc/conv_reproject.cu`` in Python."""
     sy, sx = py["span"], px["span"]
-    if px["max_count"] > _OUT_PER_PASS or sy <= 0 or sx <= 0:
+    if not 1 <= rank <= _MAX_RANK or sy <= 0 or sx <= 0 \
+            or px["max_count"] > _MAX_COLS:
         return None
-    rpp = min(max(py["max_count"], 1),
-              _OUT_PER_PASS // max(px["max_count"], 1))
-    cy = cx = 0
+    cy = pcx = qc = rows_c = 0
     if mode != 1:
         cy, cx = sy - klen_y + 1, sx - klen_x + 1
-        if cy < 1 or cx < 1:
+        if cy < 1 or cx < 1 or klen_y < 1 or klen_x < 1:
             return None
-    words = (py["max_count"] + px["max_count"] + 2 * sy * sx + rpp * sx
-             + 2 * cy * sx + 2 * cy * cx
-             + (_MOMENT_CHUNK * _THREADS if mode == 2 else 0))
+        pcx = cx | 1
+        qc = _r8(cx) + _r4(klen_x) - 1
+        rows_c = _r8(cy) + _r4(klen_y) - 1
+    qy = px["reach"]
+    pt = max(qy, qc) | 1
+    pin = _r4(max(qy, qc) + 3)
+    words = (_r4(py["max_count"]) + _r4(px["max_count"])
+             + _r4(py["blob_max"]) + _r4(px["blob_max"])
+             + (rank * (_r4(klen_y) + _r4(klen_x)) if mode != 1 else 0)
+             + max(py["reach"], rows_c) * pin
+             + _r4(32 * (_r8(px["max_count"]) | 1)))
+    clean = rank * 32 * pt
+    chain = _r4(_r8(cy) * pt) + 2 * _r4(cy * pcx) if mode != 1 else 0
+    words += _r4(max(clean, chain))
+    if mode == 2:
+        words += _MOMENT_WORDS * MOMENT_TILE[0] * MOMENT_TILE[1]
     return 4 * words
+
+
+#: plans by the digest of their operators, and the device copies of a
+#: plan's axis arrays by (digest, device)
+_PLANS = {}
+_DEVICE = {}
+
+
+def _plan_key(mode, shape, gy, gx, chain):
+    h = hashlib.sha1(repr((mode, tuple(shape))).encode())
+    for a in (gy.start, gy.taps, gx.start, gx.taps):
+        h.update(np.ascontiguousarray(a).tobytes())
+    for c in chain or ():
+        for a in (c if isinstance(c, tuple) else (c,)):
+            h.update(np.ascontiguousarray(a).tobytes())
+    return h.digest()
 
 
 def plan(mode, shape, gy, gx, chain=None):
     """The tiling of one launch of ``csrc/conv_reproject.cu`` in ``mode``
     (0: conv + reproject, 1: clean only, 2: with the moment planes) on a
-    (nchan, ny_in, nx_in) ``shape``: ``(py, px)``, the axis plans of the
-    first output tile (of ``_OUTPUT_TILES``; mode 2: ``MOMENT_TILE``) whose
-    input window fits one block's shared memory, or None where none fits,
-    as the TPU kernels' planners decline.  ``chain``: ``(my, mx, ry, rx)``
-    for modes 0 and 2.  Decided from the operators' shapes alone, before
-    any launch."""
+    (nchan, ny_in, nx_in) ``shape``: ``(py, px)``, the axis plans (with
+    their tap blobs) of the first output tile of ``_OUTPUT_TILES`` (mode
+    2: ``MOMENT_TILE``) whose block fits twice in an SM's shared memory,
+    else of the first that fits once, or None where none fits, as the TPU
+    kernels' planners decline.  ``py["smem"]`` holds the block's bytes.
+    ``chain``: ``(my, mx, ry, rx)`` for modes 0 and 2.  Decided from the
+    operators alone, before any launch; kept for the operators' bytes."""
+    key = _plan_key(mode, shape, gy, gx, chain)
+    if key in _PLANS:
+        return _PLANS[key]
     _, ny_in, nx_in = shape
+    rank = gy.taps.shape[1]
     my = mx = ry = rx = None
     if chain is not None:
         my, mx, ry, rx = chain
     conv_y = None if my is None else (my.taps.shape[1], int(my.half))
     conv_x = None if mx is None else (mx.taps.shape[1], int(mx.half))
+    ky = 0 if conv_y is None else conv_y[0]
+    kx = 0 if conv_x is None else conv_x[0]
+    found = None
     for ty, tx in [MOMENT_TILE] if mode == 2 else _OUTPUT_TILES:
-        py = _axis_plan(ny_in, gy, ty, conv_y,
-                        None if ry is None else ry.i0, mode == 2)
         px = _axis_plan(nx_in, gx, tx, conv_x,
                         None if rx is None else rx.i0, mode == 2)
-        nbytes = _smem_bytes(mode, py, px, 0 if conv_y is None else conv_y[0],
-                             0 if conv_x is None else conv_x[0])
-        if nbytes is not None and nbytes <= _SMEM_LIMIT:
-            py["smem"] = nbytes
-            return py, px
-    return None
+        if px["max_count"] > _MAX_COLS:
+            continue
+        py = _axis_plan(ny_in, gy, ty, conv_y,
+                        None if ry is None else ry.i0, mode == 2)
+        py.update(_blobs(py, gy, True))
+        px.update(_blobs(px, gx, False))
+        nbytes = _smem_bytes(mode, rank, py, px, ky, kx)
+        if nbytes is None or nbytes > _SMEM_LIMIT:
+            continue
+        py["smem"], py["key"] = nbytes, key
+        if nbytes <= _TWO_BLOCKS:
+            found = (py, px)
+            break
+        if found is None:
+            found = (py, px)
+    if len(_PLANS) >= 32:
+        _PLANS.clear()
+    _PLANS[key] = found
+    return found
 
 
 def _launch(mode, raw, gy, gx, chain, valid_plane, group_idx=None,
@@ -347,7 +468,7 @@ def _launch(mode, raw, gy, gx, chain, valid_plane, group_idx=None,
     if tiling is None:
         raise ValueError("the conv_reproject kernel's input window does not "
                          "fit one block's shared memory at this rescaling "
-                         "(plan() is None)")
+                         "or rank (plan() is None)")
     py, px = tiling
     lib = load_library()
     if lib.sct_conv_reproject_threads() != _THREADS \
@@ -367,9 +488,15 @@ def _launch(mode, raw, gy, gx, chain, valid_plane, group_idx=None,
     a.nchan, a.rank, a.groups, a.mode = nchan, r, G, mode
     a.chan_per_block = nchan if mode == 2 else _CHANNELS_PER_BLOCK
     a.mom_ty, a.mom_tx = MOMENT_TILE
-    a.y = _axis_struct(py, ny_in, ny_out, gy, my, ry, keep, dev)
-    a.x = _axis_struct(px, nx_in, nx_out, gx, mx, rx, keep, dev,
-                       tap_major=True)
+    dkey = (py["key"], str(dev))
+    if dkey not in _DEVICE:
+        if len(_DEVICE) >= 32:
+            _DEVICE.clear()
+        held = []
+        _DEVICE[dkey] = (_axis_struct(py, ny_in, ny_out, my, ry, held, dev),
+                         _axis_struct(px, nx_in, nx_out, mx, rx, held, dev),
+                         held)
+    a.y, a.x, _ = _DEVICE[dkey]
     if lib.sct_conv_reproject_smem(ctypes.byref(a)) != py["smem"]:
         raise RuntimeError("csrc/conv_reproject.cu and "
                            "kernels/conv_reproject.py disagree on the "

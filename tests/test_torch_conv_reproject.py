@@ -235,21 +235,25 @@ def _wide_gauss(size):
     return k / k.sum()
 
 
-@pytest.mark.parametrize("size,fits", [(9, True), (167, True), (169, False),
-                                       (171, False)])
-def test_fused_plan_fits_up_to_the_widest_window(size, fits):
-    """Kernel 6's plan, decided from the operators' shapes: at the last
-    output tile (1 x 1) the chain's window spans L + 1 input rows and
-    columns, and 2 S^2 + 5 S + 10 words fit 232448 bytes up to S = 168,
-    so kernels of 169 taps and more decline, on any plane.  The moments
-    mode (2) stages a whole 8 x 32 input tile's window and a moment chunk
-    and declines earlier."""
+@pytest.mark.parametrize("size,fits,fits2", [(9, True, True),
+                                             (147, True, True),
+                                             (149, True, False),
+                                             (207, True, False),
+                                             (209, False, False),
+                                             (221, False, False)])
+def test_fused_plan_fits_up_to_the_widest_window(size, fits, fits2):
+    """Kernel 6's plan, decided from the operators' shapes: the chain's
+    window spans L + 1 input rows and columns beyond the output tile, so a
+    rank-1 kernel of up to 207 taps fits at some tile of _OUTPUT_TILES on
+    this plane and 209 taps and more decline.  The moments mode (2) keeps
+    its 32 x 24 input tile and a 14-word moment state per spaxel, and
+    declines from 149 taps."""
     shape = (3, 30, 34)
     ys, xs = _shift_maps(30, 34, 0.37, -0.61)
     ops = trg._conv_reproject_operators(shape, _wide_gauss(size), ys, xs)
     assert ops is not None and ops.rank == 1
     assert trg.fused_plan_fits(shape, ops) == fits
-    assert trg.fused_plan_fits(shape, ops, mode=2) == (size == 9)
+    assert trg.fused_plan_fits(shape, ops, mode=2) == fits2
     tiling = kcr.plan(0, shape, ops.gy, ops.gx,
                       (ops.my, ops.mx, ops.ry, ops.rx))
     assert (tiling is not None) == fits
@@ -273,7 +277,7 @@ def test_fused_plan_declines_a_strong_upsampling_in_moments_mode():
 
 
 def test_declined_plan_takes_the_jax_chain():
-    """Where kernel 6's plan does not fit (a 171-tap kernel),
+    """Where kernel 6's plan does not fit (a 221-tap kernel),
     convolve_reproject_separable computes the JAX function's two-stage
     chain (regrid.py:619-626: convolve2d_separable with the normalized
     kernel, then the bilinear resample, out-of-range outputs NaN) and
@@ -287,7 +291,7 @@ def test_declined_plan_takes_the_jax_chain():
     data[1, 10:13, 4:9] = np.nan
     data[2, :, -2:] = np.nan
     ys, xs = _shift_maps(30, 34, 0.37, -0.61)
-    kern = _wide_gauss(171)
+    kern = _wide_gauss(221)
     K.reset_launch_counts()
     got = trg.convolve_reproject_separable(torch.as_tensor(data), kern, ys,
                                            xs)
@@ -306,3 +310,164 @@ def test_declined_plan_takes_the_jax_chain():
                                             xs, coords, 1.0) is None
     trg.convolve_reproject_separable(torch.as_tensor(data), _kern9(), ys, xs)
     assert trg.convolve_reproject_separable.last == {"route": "fused"}
+
+
+def _dense_from_blobs(ap, n_in, n_out, G, r, y_axis):
+    """Every output's G row as the kernel reads it from the tap blobs of
+    the axis plan ``ap`` ((G, r, n_out, n_in) float32), checking on the
+    way that each read lies in the tile's window ``[win0, win0 + reach)``
+    and that padded taps are zero."""
+    W4, RP = ap["width"], -(-r // 4) * 4
+    out = np.zeros((G, r, n_out, n_in), np.float32)
+    seen = np.zeros((G, n_out), int)
+    tiles = ap["tiles"]
+    for g in range(G):
+        for t in range(tiles):
+            b = ap["blob"][ap["blob_off"][g * tiles + t]:
+                           ap["blob_off"][g * tiles + t + 1]]
+            f = b.view(np.float32)
+            outs = ap["perm"][ap["off"][t]:ap["off"][t + 1]]
+            w0 = int(ap["win0"][g, t])
+            for k in range(-(-outs.size // 8)):
+                s0, uni, pos, cnt = (int(v) for v in b[12 * k:12 * k + 4])
+                d = b[12 * k + 4:12 * k + 12]
+                assert cnt == min(8, outs.size - 8 * k) and pos % 4 == 0
+                for m in range(cnt):
+                    if uni:
+                        assert d[m] == m
+                        taps = (f[pos:pos + W4 * RP].reshape(W4, RP)[:, :r].T
+                                if y_axis else
+                                f[pos:pos + r * W4].reshape(r, W4))
+                        first, last = s0 + m, s0 + W4 + 7
+                    else:
+                        taps = (f[pos:pos + 8 * W4 * RP].reshape(
+                            8, W4, RP)[m, :, :r].T if y_axis else
+                            f[pos:pos + 8 * r * W4].reshape(8, r, W4)[m])
+                        first = s0 + int(d[m])
+                        last = first + W4
+                    assert w0 <= first and last <= w0 + ap["reach"]
+                    cols = first + np.arange(W4)
+                    inside = (cols >= 0) & (cols < n_in)
+                    assert (taps[:, ~inside] == 0).all()
+                    o = outs[8 * k + m]
+                    out[g, :, o][:, cols[inside]] = taps[:, inside]
+                    seen[g, o] += 1
+    assert (seen == 1).all()
+    return out
+
+
+_MAPPINGS = {"shift": (45, 70, 1.0, 0.37, 1.0, -0.61),
+             "coarser": (31, 47, 1.5, 0.2, 1.5, -0.3),
+             "finer": (90, 140, 0.5, 0.1, 0.5, 0.3),
+             "flipped": (45, 70, -1.0, 43.7, 1.0, 0.4)}
+
+
+def _axis_maps(ny, nx, ay, by, ax, bx):
+    ys = np.broadcast_to((np.arange(ny) * ay + by)[:, None], (ny, nx))
+    xs = np.broadcast_to((np.arange(nx) * ax + bx)[None, :], (ny, nx))
+    return ys.astype(np.float64), xs.astype(np.float64)
+
+
+@pytest.mark.parametrize("mode", [0, 2])
+@pytest.mark.parametrize("mapping", list(_MAPPINGS))
+def test_tap_blobs_reproduce_the_dense_operators(mapping, mode):
+    """The kernel's tap layout (descriptors of 8 outputs, uniform or per
+    output) holds exactly ``Bands.dense()`` of both axes, for a
+    translation, a coarser and a finer target and a flipped y axis, in the
+    output tiling (mode 0) and the input tiling (mode 2); every read lies
+    in the staged window."""
+    ny, nx = 45, 70
+    ys, xs = _axis_maps(*_MAPPINGS[mapping])
+    ops = trg._conv_reproject_operators((6, ny, nx),
+                                        _gauss2d(2.0, 1.2, 0.3, 11), ys, xs)
+    py, px = kcr.plan(mode, (6, ny, nx), ops.gy, ops.gx,
+                      (ops.my, ops.mx, ops.ry, ops.rx))
+    r = ops.rank
+    assert r > 1
+    for ap, bands, n_in, y_axis in ((py, ops.gy, ny, True),
+                                    (px, ops.gx, nx, False)):
+        n_out = bands.start.shape[1]
+        got = _dense_from_blobs(ap, n_in, n_out, 1, r, y_axis)
+        np.testing.assert_array_equal(got, bands.dense(n_in))
+
+
+def test_tap_blobs_two_groups_with_an_empty_row():
+    """Two groups of rectangular operators, one with a row that has no
+    taps (it reads zeros from its tile's window), in the clean-only
+    tiling."""
+    rng = np.random.RandomState(3)
+    ny, nx, ny_out, nx_out = 40, 70, 30, 50
+    band_y = np.abs(np.arange(ny_out)[:, None] * 1.2
+                    - np.arange(ny)[None]) < 3
+    band_x = np.abs(np.arange(nx_out)[:, None] * 1.3
+                    - np.arange(nx)[None]) < 4
+    My = (rng.rand(2, 3, ny_out, ny) * band_y).astype(np.float32)
+    Mx = (rng.rand(2, 3, nx_out, nx) * band_x).astype(np.float32)
+    My[1, :, 5] = 0.0
+    yb, xb = kcr.bands_of(My), kcr.bands_of(Mx)
+    py, px = kcr.plan(1, (7, ny, nx), yb, xb)
+    np.testing.assert_array_equal(
+        _dense_from_blobs(py, ny, ny_out, 2, 3, True), My)
+    np.testing.assert_array_equal(
+        _dense_from_blobs(px, nx, nx_out, 2, 3, False), Mx)
+
+
+def _pipeline_ops(n=768):
+    """The pipeline's shape: the 19 x 19 kernel from a 6" x 4.5" beam at
+    PA 30 deg to 12" on 2" pixels (rank 5) and a grid shifted by (0.37,
+    -0.61) px on an n x n plane."""
+    import spectral_cube_tpu_torch as T
+    arcsec = lambda v: T.Quantity(v, "arcsec")  # noqa: E731
+    cube = T.Beam(arcsec(6.0), arcsec(4.5), T.Quantity(30.0, "deg"))
+    target = T.Beam(arcsec(12.0), arcsec(12.0), T.Quantity(0.0, "deg"))
+    k = target.deconvolve(cube).as_kernel(np.radians(2.0 / 3600.0))
+    ys, xs = _shift_maps(n, n, 0.37, -0.61)
+    ops = trg._conv_reproject_operators((4, n, n), k, ys, xs)
+    assert ops.rank == 5 and ops.gy.taps.shape[3] == 20
+    return ops
+
+
+def test_tap_blobs_at_the_pipeline_shape():
+    """768 x 768, rank 5, 20 G taps per row: the blobs reproduce the dense
+    operators, and every descriptor is uniform but those whose bands the
+    plane's edges clip (two at each end of each axis)."""
+    ops = _pipeline_ops()
+    py, px = kcr.plan(0, (4, 768, 768), ops.gy, ops.gx,
+                      (ops.my, ops.mx, ops.ry, ops.rx))
+    for ap, bands, y_axis in ((py, ops.gy, True), (px, ops.gx, False)):
+        np.testing.assert_array_equal(
+            _dense_from_blobs(ap, 768, 768, 1, 5, y_axis), bands.dense(768))
+        uniform = []
+        for t in range(ap["tiles"]):
+            b = ap["blob"][ap["blob_off"][t]:ap["blob_off"][t + 1]]
+            n8 = -(-(ap["off"][t + 1] - ap["off"][t]) // 8)
+            uniform += list(b[1:12 * n8:12])
+        assert len(uniform) == 96 and sum(uniform) == 92
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_plan_mirrors_the_kernel_layout(mode):
+    """plan() picks the first tile of its list whose block fits twice in
+    an SM's shared memory, and its bytes are layout()'s arithmetic
+    (_smem_bytes, which _launch holds against sct_conv_reproject_smem):
+    at the pipeline's shape every mode fits two blocks, 32 output rows
+    deep; modes 0 and 1 take 64 columns, since the 128-column tile before
+    it in the list does not fit twice, and mode 2 its 32 x 24 input
+    tile."""
+    ops = _pipeline_ops()
+    shape = (4, 768, 768)
+    chain = None if mode == 1 else (ops.my, ops.mx, ops.ry, ops.rx)
+    py, px = kcr.plan(mode, shape, ops.gy, ops.gx, chain)
+    ky = 0 if mode == 1 else 19
+    assert py["smem"] == kcr._smem_bytes(mode, 5, py, px, ky, ky)
+    assert py["smem"] <= kcr._TWO_BLOCKS
+    assert py["max_count"] == 32
+    if mode == 2:
+        assert (py["tiles"], px["tiles"]) == (24, 32)
+        return
+    assert kcr._OUTPUT_TILES[:2] == ((32, 128), (32, 64))
+    assert (py["tiles"], px["tiles"], px["max_count"]) == (24, 12, 64)
+    wide = kcr._axis_plan(768, ops.gx, 128, chain and (19, int(ops.mx.half)),
+                          chain and ops.rx.i0)
+    wide.update(kcr._blobs(wide, ops.gx, False))
+    assert kcr._smem_bytes(mode, 5, py, wide, ky, ky) > kcr._TWO_BLOCKS

@@ -243,7 +243,7 @@ def test_convolve_to_153_taps_on_cuda_matches_cpu(cuda):
 
 
 def test_fused_convolve_reproject_declines_on_cuda(cuda):
-    """A 171-tap kernel: kernel 6's plan does not fit, so
+    """A 221-tap kernel: kernel 6's plan does not fit, so
     convolve_reproject_separable runs conv_sep then resample2 on the card
     (no conv_reproject launch) and agrees with the CPU chain, and
     moments_conv_reproject_fused returns None."""
@@ -252,7 +252,7 @@ def test_fused_convolve_reproject_declines_on_cuda(cuda):
     data[1, 10:13, 4:9] = np.nan
     data[2, :, -2:] = np.nan
     ys, xs = _axis_maps(30, 34, 1.0, 0.37, 1.0, -0.61)
-    g = np.exp(-0.5 * ((np.arange(171) - 85) / (171 / 8.0)) ** 2)
+    g = np.exp(-0.5 * ((np.arange(221) - 110) / (221 / 8.0)) ** 2)
     kern = np.outer(g, g) / np.outer(g, g).sum()
     want = tregrid.convolve_reproject_separable(torch.as_tensor(data), kern,
                                                 ys, xs)
@@ -550,6 +550,62 @@ def test_conv_reproject_kernel_matches_plain(cuda, mapping):
     # the op on the card: the same kernel through convolve_reproject
     op = tregrid.convolve_reproject_separable(x.to(cuda), k, ys, xs)
     _equal(op, got)
+
+
+#: (ny_out, nx_out, ay, by, ax, bx) on a 100 x 260 input: more than one
+#: tile of every mode along both axes, with partial tiles at the edges
+_WIDE = {"shift": (100, 260, 1.0, 0.37, 1.0, -0.61),
+         "coarser": (66, 173, 1.5, 0.2, 1.5, -0.3),
+         "finer": (198, 518, 0.5, 0.1, 0.5, 0.3),
+         "flipped": (100, 260, -1.0, 98.7, 1.0, 0.4)}
+
+
+def _wide_case(mapping, nchan=40):
+    rng = np.random.RandomState(11)
+    data = rng.randn(nchan, 100, 260).astype(np.float32) + 0.5
+    data[1, 30:36, 100:140] = np.nan      # a NaN channel
+    data[1, 0, 0] = np.nan
+    data[3] = np.nan                      # an all-NaN channel
+    data[4, 99, 259] = np.nan             # a NaN in a corner
+    ys, xs = _axis_maps(*_WIDE[mapping])
+    return torch.as_tensor(data), _gauss2d(2.0, 1.2, 0.3, 11), ys, xs
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("mapping", list(_WIDE))
+def test_fused_kernel_on_a_plane_of_many_tiles(cuda, mapping, mode):
+    """Every mode on a 100 x 260 plane, 40 channels (two moment chunks):
+    mode 0 within 1e-5 of the plain version, NaN channels bitwise; mode 1
+    (finite data) within 1e-5 and bitwise equal to mode 0's clean branch
+    where valid; mode 2's planes bitwise equal to the moments kernel's and
+    its cube to mode 0's."""
+    x, k, ys, xs = _wide_case(mapping)
+    ops = tregrid._conv_reproject_operators(x.shape, k, ys, xs)
+    assert ops is not None
+    args = (ops.gy, ops.gx, ops.my, ops.mx, ops.ry, ops.rx, ops.valid)
+    xg = x.to(cuda)
+    if mode == 0:
+        want = kcr.conv_reproject_plain(x, *args)
+        got = kcr.conv_reproject(xg, *args)
+        _close(got, want, rtol=1e-5, atol=1e-5)
+        _equal(got[[1, 3, 4]], want[[1, 3, 4]])
+    elif mode == 1:
+        xf = torch.nan_to_num(x)
+        gi = np.zeros(x.shape[0], np.int32)
+        got = kcr.plain_strips(xf.to(cuda), ops.gy, ops.gx, gi)
+        _close(got, kcr.plain_strips_plain(xf, ops.gy, ops.gx, gi),
+                 rtol=1e-5, atol=1e-5)
+        rep = kcr.conv_reproject(xf.to(cuda), *args)
+        ok = torch.as_tensor(ops.valid, device=cuda)
+        assert torch.equal(got[:, ok], rep[:, ok])
+    else:
+        xc = np.linspace(-3.0, 5.0, x.shape[0])
+        out, planes, cnt = kpf.pipeline_fused(xg, *args, xc, 1, 0.25)
+        kplanes, kcnt = kmom.moments_planes(xg, xc, 1, 0.25, None, True)
+        assert torch.equal(cnt, kcnt) and torch.equal(planes, kplanes)
+        _equal(out, kcr.conv_reproject(xg, *args))
+        _close(out, kcr.conv_reproject_plain(x, *args), rtol=1e-5,
+               atol=1e-5)
 
 
 def test_plain_strips_kernel_two_groups(cuda):
