@@ -113,8 +113,6 @@ BM_NIN = 512
 # the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
-# shared memory, all SMs: 132 SMs x 32 banks x 4 bytes x 1.98 GHz boost
-SMEM_BYTES_PER_S = 132 * 32 * 4 * 1.98e9
 
 # spectral path: Gaussian smoothing kernel (stddev in channels), clip
 SMOOTH_STDDEV = 2.0
@@ -764,18 +762,14 @@ def clip_bound(x, maxiters):
     """One read and one write of the cube; the operations of a bitonic
     sort padded to a power of two (a min and a max per compare-exchange)
     and of the band iterations (~3 per sample each), for the spectra
-    that hold a finite value.  Also returns the shared-memory bytes the
-    kernel's sort moves (two 4-byte loads and stores per
-    compare-exchange), the floor of its design rather than of the
-    function."""
+    that hold a finite value."""
     import torch
     nchan = x.shape[0]
     npad = 1 << max(int(np.ceil(np.log2(max(nchan, 1)))), 0)
     stages = int(np.log2(npad)) * (int(np.log2(npad)) + 1) // 2
     live = int(torch.isfinite(x).any(0).sum())
     flops = live * (stages * npad + 3 * maxiters * nchan)
-    smem_bytes = live * stages * (npad // 2) * 16
-    return bound(2 * x.numel() * 4, flops) + (smem_bytes,)
+    return bound(2 * x.numel() * 4, flops)
 
 
 def si_bound(x, M, S, I):
@@ -899,7 +893,11 @@ def phase_spectral(dev, workdir, results):
         f"{clip623['sigma_clip_spectrally(623 ch)']:.1f} ms")
 
     # each stage against the plain functions on the card
+    torch.cuda.synchronize()
+    t = time.perf_counter()
     filled = sm._get_filled_data(fill=np.nan)
+    torch.cuda.synchronize()
+    fill_ms = (time.perf_counter() - t) * 1e3
     inaxis = np.asarray(cube.spectral_axis.value, dtype=float)
     idx, frac = oi.interp_weights(inaxis, np.asarray(grid.value))
     S, I, M, bands = oi._si_operators(kern / kern.sum(), idx, frac, NCHAN)
@@ -931,11 +929,18 @@ def phase_spectral(dev, workdir, results):
             del Mt, flat
         bms, by = si_bound(x, M, S, I)
         log(f"  smooth_interp {label}: kernel {ms:.3f} ms, plain "
-            f"{pms:.3f} ms, bound {bms:.3f} ms ({by})")
+            f"{pms:.3f} ms, bound {bms:.3f} ms ({by}); plan "
+            f"{ks.plan(NCHAN, x.numel() // NCHAN, x.data_ptr() % 16 == 0)}")
         if label == "main path input":
             results["smooth_interp"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms)
+            stage = steady["spectral_interpolate"]
+            log(f"  spectral_interpolate stage (second call) {stage:.1f} ms: "
+                f"the smooth_interp kernel {ms:.3f} ms (CUDA events, the "
+                f"stage's input), the filled copy {fill_ms:.3f} ms (host "
+                f"clock), the rest {stage - ms - fill_ms:.1f} ms (host "
+                f"operators, band uploads, mask)")
         del got, want, x
     log("  sigma_clip kernel vs plain")
     si_data = si._data
@@ -951,11 +956,9 @@ def phase_spectral(dev, workdir, results):
                                            False), 5)
         pms = cuda_ms(lambda: kc.sigma_clip_plain(x, CLIP_SIGMA, CLIP_ITERS,
                                                   False), 2)
-        bms, by, smem = clip_bound(x, CLIP_ITERS)
+        bms, by = clip_bound(x, CLIP_ITERS)
         log(f"  sigma_clip {label}: kernel {ms:.3f} ms, plain {pms:.3f} ms,"
-            f" bound {bms:.3f} ms ({by}); the sort moves {smem / 1e9:.1f} "
-            f"GB through shared memory, {smem / SMEM_BYTES_PER_S * 1e3:.3f}"
-            f" ms at {SMEM_BYTES_PER_S / 1e12:.1f} TB/s")
+            f" bound {bms:.3f} ms ({by}); plan {kc.plan(x.shape[0])}")
         if label.startswith("main path"):
             results["sigma_clip"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,

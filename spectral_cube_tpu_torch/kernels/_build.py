@@ -73,10 +73,14 @@ def _declare(lib):
     lib.sct_resample2_filled.restype = I
     lib.sct_sigma_clip_work.argtypes = [I]
     lib.sct_sigma_clip_work.restype = LL
-    lib.sct_sigma_clip.argtypes = [P, I, LL, F, I, I, P, LL, P, P]
+    lib.sct_sigma_clip_smem.argtypes = [I, I, I, I]
+    lib.sct_sigma_clip_smem.restype = LL
+    lib.sct_sigma_clip.argtypes = [P, I, LL, F, I, I, I, I, I, P, LL, P, P]
     lib.sct_sigma_clip.restype = I
-    lib.sct_smooth_interp.argtypes = [P, I, I, LL, P, P, I, P, P, I, P, P, I,
-                                      P, P]
+    lib.sct_smooth_interp_smem.argtypes = [I, LL, I, I, I]
+    lib.sct_smooth_interp_smem.restype = LL
+    lib.sct_smooth_interp.argtypes = [P, I, I, LL, I, I, I, P, P, I, P, P, I,
+                                      P, P, I, P, P]
     lib.sct_smooth_interp.restype = I
     lib.sct_conv_reproject_smem.argtypes = [P]
     lib.sct_conv_reproject_smem.restype = LL

@@ -16,15 +16,21 @@ of a warp adds the band's values at sorted positions ``l, l + 32, ...`` in
 turn, then the 32 partial sums meet in an xor butterfly.  The plain
 version adds in that same order, so on the same input the two agree
 bitwise, thresholds included.
+
+:func:`plan` decides the kernel's launch from the spectrum length: up to
+1024 channels each warp sorts a spectrum in registers (``R`` values a
+lane), longer spectra take the shared-memory network (``R = 0``).
 """
 
 from __future__ import annotations
+
+from collections import namedtuple
 
 import torch
 
 from ._build import load_library, check, ptr, stream_ptr
 
-__all__ = ["sigma_clip", "sigma_clip_plain", "LANES", "band_sum"]
+__all__ = ["sigma_clip", "sigma_clip_plain", "LANES", "band_sum", "plan"]
 
 #: global workspace of the kernel for spectra too long for shared memory
 WORK_BYTES = 256 * 2 ** 20
@@ -34,6 +40,55 @@ LANES = 32
 
 #: astropy.stats.mad_std's scale, 1 / Phi^-1(3/4)
 MAD_TO_STD = 1.482602218505602
+
+#: the register path's longest padded spectrum (32 values a lane)
+REG_CHANNELS = 1024
+#: warps of a register-path block, and the spaxels a block may stage
+REG_WARPS = 8
+REG_SPAXELS = (32, 16, 8)
+#: H100: shared memory of an SM, and what the runtime keeps per block
+SMEM_SM = 233472
+SMEM_RESERVED = 1024
+#: resident warps an SM the plan aims for: enough to hide the sort's
+#: shuffle and shared-memory latency
+WARPS_TARGET = 24
+
+#: the launch of ``csrc/sigma_clip.cu``: ``R`` values a lane (0: the
+#: shared-memory network for spectra past REG_CHANNELS, whose other
+#: fields are 0), warps and spaxels a block, the block's shared bytes
+Plan = namedtuple("Plan", "R warps spaxels smem")
+
+
+def _reg_smem(nchan, R, warps, spaxels):
+    """Shared bytes of a register-path block: the staged tile (spaxels
+    rows of odd pitch), one sorted row of 33 R floats a warp, and lo, hi
+    and keep_any per spaxel (``reg_shared_bytes`` in the source)."""
+    return 4 * (spaxels * (nchan | 1) + warps * 33 * R + 3 * spaxels)
+
+
+def plan(nchan):
+    """The kernel's launch for spectra of ``nchan`` channels: the register
+    class ``R = max(1, npad / 32)`` (npad the power of two at or above
+    nchan) up to 1024 channels, else ``R = 0``; and the most spaxels a
+    block (of 32, 16, 8) that leave WARPS_TARGET warps resident on an SM,
+    or failing that the choice with the most."""
+    nchan = int(nchan)
+    if nchan < 1:
+        raise ValueError(f"nchan must be >= 1, got {nchan}")
+    npad = 1 << (nchan - 1).bit_length()
+    if npad > REG_CHANNELS:
+        return Plan(0, 0, 0, 0)
+    R = max(1, npad // LANES)
+    best = None
+    for spaxels in REG_SPAXELS:
+        smem = _reg_smem(nchan, R, REG_WARPS, spaxels)
+        resident = REG_WARPS * (SMEM_SM // (smem + SMEM_RESERVED))
+        choice = Plan(R, REG_WARPS, spaxels, smem)
+        if resident >= WARPS_TARGET:
+            return choice
+        if best is None or resident > best[0]:
+            best = (resident, choice)
+    return best[1]
 
 
 def _check_inputs(data, maxiters):
@@ -62,6 +117,11 @@ def sigma_clip(data, sigma, maxiters, use_mean_center):
         return out
     nchan = data.shape[0]
     nspax = data.numel() // nchan
+    p = plan(nchan)
+    if p.R and lib.sct_sigma_clip_smem(nchan, p.R, p.warps,
+                                       p.spaxels) != p.smem:
+        raise RuntimeError("csrc/sigma_clip.cu and kernels/sigma_clip.py "
+                           "disagree on the register path's plan")
     per = lib.sct_sigma_clip_work(nchan)
     work, chunk = None, 0
     if per:
@@ -70,8 +130,8 @@ def sigma_clip(data, sigma, maxiters, use_mean_center):
                            device=data.device)
     err = lib.sct_sigma_clip(ptr(data), nchan, nspax, float(sigma),
                              int(maxiters), int(bool(use_mean_center)),
-                             ptr(work), chunk, ptr(out),
-                             stream_ptr(data.device))
+                             p.R, p.warps, p.spaxels, ptr(work), chunk,
+                             ptr(out), stream_ptr(data.device))
     check(err, "sct_sigma_clip")
     sigma_clip.launches += 1
     return out

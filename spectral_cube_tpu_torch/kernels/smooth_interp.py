@@ -18,9 +18,15 @@ own finiteness:
 Dirtiness comes from the input's finiteness, never from M's nonzero
 pattern: a negative-tap kernel can cancel entries of M that the chain
 still reads (tests/test_banded_pallas.py:180-213).
+
+:func:`plan` decides the kernel's launch from the shapes: how many
+spectra a tile holds, whether its slab arrives in 16-byte or 4-byte
+asynchronous copies, and whether a block rings two slabs.
 """
 
 from __future__ import annotations
+
+from collections import namedtuple
 
 import numpy as np
 import torch
@@ -29,7 +35,38 @@ from ..utils import ieee_fp32
 from ._build import load_library, check, ptr, stream_ptr
 from .conv_sep import DEN_EPS
 
-__all__ = ["smooth_interp", "smooth_interp_plain", "band_rows"]
+__all__ = ["smooth_interp", "smooth_interp_plain", "band_rows", "plan"]
+
+#: widest tile of spectra
+MAX_TILE = 32
+#: shared bytes a block may take on an H100, less the kernel's static ones
+SMEM_MAX = 232448 - 1024
+
+#: the launch of ``csrc/smooth_interp.cu``: spectra a tile, the copies
+#: that stage its slab ("cp.async16" or "cp.async4"), the slabs in a
+#: block's ring (2: the next tile loads while this one computes; 1 where
+#: two do not fit), the block's shared bytes
+Plan = namedtuple("Plan", "tile staging stages smem")
+
+
+def plan(nin, ncol, aligned=True):
+    """The kernel's launch for a (nin, ncol) view: the widest power-of-two
+    tile up to MAX_TILE spectra whose ring of two nin x tile slabs fits a
+    block's shared memory, else one slab of the widest tile that fits;
+    staged in 16-byte copies where the rows are 16-byte aligned (``ncol``
+    a multiple of 4, the tile a multiple of 4 and the base ``aligned``),
+    else in 4-byte copies.  None where one spectrum does not fit."""
+    nin, ncol = int(nin), int(ncol)
+    for stages in (2, 1):
+        tile = MAX_TILE
+        while tile > 1 and stages * nin * tile * 4 > SMEM_MAX:
+            tile //= 2
+        smem = stages * nin * tile * 4
+        if smem <= SMEM_MAX:
+            vec = aligned and tile % 4 == 0 and ncol % 4 == 0
+            return Plan(tile, "cp.async16" if vec else "cp.async4", stages,
+                        smem)
+    return None
 
 
 def band_rows(A):
@@ -83,14 +120,27 @@ def smooth_interp(data, M, S, I, bands=None):
         return out
     if bands is None:
         bands = [band_rows(A) for A in (M, S, I)]
+    wm, ws, wi = (taps.shape[1] for _, taps in bands)
+    # the kernel reads M's taps 4 at a time: rows padded to 4 taps
+    m_start, m_taps = bands[0]
+    bands = [(m_start, np.pad(m_taps, ((0, 0), (0, -wm % 4))))] + bands[1:]
     (ms, mt), (ss, st), (is_, it) = (
         (torch.as_tensor(start, device=data.device),
          torch.as_tensor(taps, device=data.device)) for start, taps in bands)
-    wm, ws, wi = (taps.shape[1] for _, taps in bands)
+    p = plan(nin, ncol, data.data_ptr() % 16 == 0)
+    if p is None:
+        raise ValueError(f"the smooth_interp kernel stages whole spectra in "
+                         f"shared memory: {nin} channels do not fit")
+    vec = int(p.staging == "cp.async16")
     lib = load_library()
-    err = lib.sct_smooth_interp(ptr(data), nin, nout, ncol, ptr(ms), ptr(mt),
-                                wm, ptr(ss), ptr(st), ws, ptr(is_), ptr(it),
-                                wi, ptr(out), stream_ptr(data.device))
+    if lib.sct_smooth_interp_smem(nin, ncol, p.tile, vec,
+                                  p.stages) != p.smem:
+        raise RuntimeError("csrc/smooth_interp.cu and "
+                           "kernels/smooth_interp.py disagree on the plan")
+    err = lib.sct_smooth_interp(ptr(data), nin, nout, ncol, p.tile, vec,
+                                p.stages, ptr(ms), ptr(mt), wm, ptr(ss),
+                                ptr(st), ws, ptr(is_), ptr(it), wi,
+                                ptr(out), stream_ptr(data.device))
     check(err, "sct_smooth_interp")
     smooth_interp.launches += 1
     return out

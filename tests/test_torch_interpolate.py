@@ -161,6 +161,33 @@ def test_band_rows_cover_every_nonzero():
         assert ksi.band_rows(I)[1].shape[1] == width
 
 
+@pytest.mark.parametrize("nin,ncol,aligned,tile,staging,stages", [
+    (623, 768 * 768, True, 32, "cp.async16", 2),   # the spectral path's view
+    (623, 41, True, 32, "cp.async4", 2),           # rows of 164 bytes
+    (623, 300, False, 32, "cp.async4", 2),         # a base off 16 bytes
+    (40, 300, True, 32, "cp.async16", 2),
+    (904, 300, True, 32, "cp.async16", 2),         # the widest ring's last
+    (905, 300, True, 16, "cp.async16", 2),
+    (2000, 300, True, 8, "cp.async16", 2),
+    (2000, 41, True, 8, "cp.async4", 2),
+    (7300, 300, True, 2, "cp.async4", 2),          # 8-byte rows
+    (28928, 8, True, 1, "cp.async4", 2),
+    (28929, 8, True, 1, "cp.async4", 1),           # one slab: no ring
+])
+def test_smooth_interp_plan(nin, ncol, aligned, tile, staging, stages):
+    """The widest tile whose ring of two slabs fits a block, one slab where
+    two do not; 16-byte copies only where every row of the view is 16-byte
+    aligned."""
+    p = ksi.plan(nin, ncol, aligned)
+    assert (p.tile, p.staging, p.stages) == (tile, staging, stages)
+    assert p.smem == stages * nin * tile * 4 <= ksi.SMEM_MAX
+
+
+def test_smooth_interp_plan_declines_spectra_past_shared_memory():
+    assert ksi.plan(57856, 8).stages == 1
+    assert ksi.plan(57857, 8) is None
+
+
 @pytest.mark.parametrize("descending", [False, True])
 def test_interp_weights_and_compose_match_jax(descending):
     inaxis = np.linspace(-3.0, 40.0, 37)

@@ -383,6 +383,75 @@ def test_sigma_clip_kernel_matches_plain(cuda, nchan, use_mean):
         assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
 
 
+def _clip_edges(nchan, seed):
+    """(nchan, 5, 67) spectra for the register classes' edges: noise,
+    every second row quantized to a few levels (heavy ties), +-inf, an
+    all-NaN spaxel and a spaxel with one finite sample."""
+    rng = np.random.RandomState(seed)
+    data = (2.0 * rng.randn(nchan, 5, 67)).astype(np.float32)
+    data[:, 1::2] = np.round(data[:, 1::2] / 2.0)
+    data[nchan // 2, 0, 0] = np.inf
+    data[(nchan - 1) // 3, 0, 1] = -np.inf
+    data[:, 2, 7] = np.nan
+    data[:, 3, 8] = np.nan
+    data[nchan - 1, 3, 8] = 1.5
+    return torch.as_tensor(data)
+
+
+@pytest.mark.parametrize("use_mean", [False, True])
+@pytest.mark.parametrize("nchan", [1, 2, 31, 32, 33, 63, 64, 65, 312, 512,
+                                   513, 623, 1024, 1025])
+def test_sigma_clip_kernel_register_class_edges(cuda, nchan, use_mean):
+    """Bitwise against the plain version on both sides of every register
+    class (R = 1 .. 32 values a lane) and of the shared-memory network.
+    The plain version runs on the card too: its float32 sqrt there is
+    correctly rounded, as the kernel's is, while the CPU's can differ by
+    an ulp (sqrt(3.2218385) in the 2-channel case), which moves a clip
+    threshold."""
+    x = _clip_edges(nchan, nchan + 7).to(cuda)
+    for sigma, maxiters in ((1.0, 5), (2.0, 3)):
+        want = kclip.sigma_clip_plain(x, sigma, maxiters, use_mean).cpu()
+        n0 = kclip.sigma_clip.launches
+        got = kclip.sigma_clip(x, sigma, maxiters, use_mean).cpu()
+        assert kclip.sigma_clip.launches == n0 + 1
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    assert torch.isnan(got[:, 2, 7]).all()
+
+
+@pytest.mark.parametrize("ncol", [41, 300, "offset"])
+@pytest.mark.parametrize("nin", [40, 623, 2000])
+def test_smooth_interp_kernel_both_stagings(cuda, nin, ncol):
+    """16-byte copies (ncol 300) and 4-byte ones (ncol 41, or a base off
+    16 bytes), NaN at the first and last channel, a hole, an all-NaN
+    spectrum."""
+    n = 300 if ncol == "offset" else ncol
+    rng = np.random.RandomState(nin + n)
+    data = rng.randn(nin, n).astype(np.float32)
+    data[0, 3] = data[-1, 5] = np.nan
+    data[nin // 2:nin // 2 + 3, 9] = np.nan
+    data[:, 11] = np.nan
+    x = torch.as_tensor(data)
+    inaxis = np.arange(nin, dtype=np.float64)
+    kern = tsmooth.gaussian_kernel1d(2.0)
+    idx, frac = tinterp.interp_weights(inaxis, inaxis[::2] + 0.25)
+    S, I, M, bands = tinterp._si_operators(kern / kern.sum(), idx, frac,
+                                           nin)
+    want = ksi.smooth_interp_plain(x, M, S, I)
+    xd = x.to(cuda)
+    if ncol == "offset":
+        buf = torch.empty(x.numel() + 1, device=cuda)
+        xd = buf[1:].view(nin, n)
+        xd.copy_(x)
+    expect = ksi.plan(nin, n, xd.data_ptr() % 16 == 0).staging
+    assert expect == ("cp.async16" if ncol == 300 else "cp.async4")
+    n0 = ksi.smooth_interp.launches
+    got = ksi.smooth_interp(xd, M, S, I, bands)
+    assert ksi.smooth_interp.launches == n0 + 1
+    _close(got, want, rtol=3e-5, atol=1e-5)
+    assert torch.isnan(got[:, 11]).all().item()
+
+
 @pytest.mark.parametrize("nin,step", [(623, 2), (100, 3), (40, 1)])
 def test_smooth_interp_kernel_matches_plain(cuda, nin, step):
     x = _spectra((nin, 3, 100), nin)

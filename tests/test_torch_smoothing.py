@@ -188,6 +188,39 @@ def test_band_sum_runs_in_the_kernels_order():
         assert got[col].item() == lanes[0]
 
 
+@pytest.mark.parametrize("nchan,R", [(1, 1), (32, 1), (33, 2), (512, 16),
+                                     (513, 32), (1024, 32), (1025, 0)])
+def test_sigma_clip_plan_register_classes(nchan, R):
+    """The kernel sorts up to 1024 channels in registers, R = npad / 32
+    values a lane (npad the power of two at or above nchan, at least 32);
+    longer spectra take the shared-memory network (R = 0)."""
+    p = kclip.plan(nchan)
+    assert p.R == R
+    if R == 0:
+        assert p == kclip.Plan(0, 0, 0, 0)
+        return
+    assert p.warps == kclip.REG_WARPS and p.spaxels in kclip.REG_SPAXELS
+    pitch = nchan | 1
+    assert p.smem == 4 * (p.spaxels * pitch + p.warps * 33 * R
+                          + 3 * p.spaxels)
+    assert p.smem + kclip.SMEM_RESERVED <= kclip.SMEM_SM
+
+
+@pytest.mark.parametrize("nchan,spaxels", [(312, 32), (623, 16), (1024, 8)])
+def test_sigma_clip_plan_keeps_warps_resident(nchan, spaxels):
+    """At the spectral path's lengths the plan takes the most spaxels a
+    block that still leave 24 warps resident on an SM."""
+    p = kclip.plan(nchan)
+    assert p.spaxels == spaxels
+    blocks = kclip.SMEM_SM // (p.smem + kclip.SMEM_RESERVED)
+    assert blocks * p.warps >= kclip.WARPS_TARGET
+
+
+def test_sigma_clip_plan_rejects_empty_spectra():
+    with pytest.raises(ValueError, match="nchan"):
+        kclip.plan(0)
+
+
 def test_sigma_clip_options():
     data = torch.as_tensor(_clip_case(16, 2))
     with pytest.raises(NotImplementedError, match="cenfunc"):
