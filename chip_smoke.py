@@ -60,8 +60,11 @@
    paths' shapes, with and without NaN, and times the kernel, the plain
    version and, where one exists, a single PyTorch call computing the same
    function (CUDA events); conv_sep also at 153 taps (the cube beam to a
-   90" beam) on the NaN-bordered cube.  Each kernel's bound is the larger of its bytes
-   over 3.35 TB/s and its float32 operations over 67 TFLOP/s (H100 SXM).
+   90" beam) on the NaN-bordered cube; moments also with a bool include
+   mask in place of the fused comparison; resample2 (held bit for bit)
+   also as its launch alone, its packed taps already on the card.  Each
+   kernel's bound is the larger of its bytes over 3.35 TB/s and its
+   float32 operations over 67 TFLOP/s (H100 SXM).
 10. Runs a small pipeline, a small varying-resolution pipeline on both
     convolution routes and a small spectral path on the card and on the
     CPU and compares them.
@@ -381,7 +384,9 @@ def phase_moments(dev, data, results):
                         plain_ms=pms, bound_ms=bms, bound_by=by,
                         library_ms=None)
                     log(f"  moments 623x768x768 masked: kernel {ms:.3f} ms,"
-                        f" plain {pms:.3f} ms")
+                        f" plain {pms:.3f} ms, bound {bms:.3f} ms ({by}), "
+                        f"plan {km.plan(NY * NX, True, False)}")
+                    phase_moments_include(x, coords)
                 if label == "1024ch" and nan and not stats:
                     ms = cuda_ms(lambda: km.moments_planes(
                         x, coords, 1, 0.75, None, False), 5)
@@ -392,6 +397,27 @@ def phase_moments(dev, data, results):
                     log(f"  moments 1024x768x768 masked: kernel {ms:.3f} ms,"
                         f" plain {pms:.3f} ms, bound {bms:.3f} ms ({by})")
     del cube
+
+
+def phase_moments_include(x, coords):
+    """Kernel 1 with an include mask (a bool array, read as its bytes) in
+    place of the fused comparison: held against the plain version and
+    timed; its bound reads 5 bytes a voxel."""
+    import torch
+    from spectral_cube_tpu_torch.kernels import moments as km
+    inc = x > 0.75
+    want = km.moments_planes_plain(x, coords, 0, 0.0, inc, False)
+    got = km.moments_planes(x, coords, 0, 0.0, inc, False)
+    if not torch.equal(got[1], want[1]):
+        raise AssertionError("moments with an include mask: counts differ")
+    for i, (a, b) in enumerate(zip(_finalize(got, False)[:3],
+                                   _finalize(want, False)[:3])):
+        compare(f"moments include mom{i}", a, b, 2e-6 if i < 2 else 1e-5)
+    ms = cuda_ms(lambda: km.moments_planes(x, coords, 0, 0.0, inc, False), 7)
+    bms, by = bound(x.numel() * 5 + 28 * NY * NX, 8 * x.numel())
+    log(f"  moments 623x768x768 include mask: kernel {ms:.3f} ms, bound "
+        f"{bms:.3f} ms ({by}), plan "
+        f"{km.plan(NY * NX, True, True, inc.data_ptr() % 16 == 0)}")
 
 
 def _finalize(res, stats):
@@ -509,13 +535,12 @@ def grid_sample_call(x, taps):
                                  padding_mode="zeros", align_corners=True)
 
 
-def phase_resample(dev, data, header, results):
-    import torch
-    from spectral_cube_tpu_torch.kernels import resample2 as kr
+def resample_cases(header):
+    """Kernel 3's two targets for the cube of ``header``: the pipeline's
+    CRPIX shift (a translation) and a 700 x 700 grid of 1.07x larger
+    pixels.  Yields (label, taps (y0, wy, x0, wx), valid plane, maps)."""
     from spectral_cube_tpu_torch.ops import regrid as og
     from spectral_cube_tpu_torch.wcs import WCS
-    log("phase reproject (kernel 3)")
-    lib_ms = None
     wcs = WCS(header=header)
     scaled = header.__class__(header)
     scaled["NAXIS1"] = scaled["NAXIS2"] = 700
@@ -532,18 +557,35 @@ def phase_resample(dev, data, header, results):
         taps = og._axis_aligned_taps(ys, xs, NY, NX)
         if taps is None:
             raise AssertionError(f"{label}: target not axis-aligned")
-        valid = maps[4] & maps[5]
+        yield label, taps, maps[4] & maps[5], maps
+
+
+def phase_resample(dev, data, header, results):
+    import torch
+    from spectral_cube_tpu_torch.kernels import resample2 as kr
+    log("phase reproject (kernel 3)")
+    lib_ms = None
+    for label, taps, valid, maps in resample_cases(header):
         for nan in (False, True):
             x = torch.nan_to_num(data, nan=0.0) if not nan else data
             got = kr.resample2(x, *taps, valid, maps[0])
             want = kr.resample2_plain(x, *taps, valid, maps[0])
             err, _ = compare(f"resample {label} nan={nan}", got, want, 1e-6)
+            # the raw kernel adds in the plain version's order: bit for bit
+            if not torch.equal(torch.nan_to_num(got),
+                               torch.nan_to_num(want)):
+                raise AssertionError(f"resample {label} nan={nan}: not "
+                                     "bitwise equal to the plain version")
             del got, want
             ms = cuda_ms(lambda: kr.resample2(x, *taps, valid, maps[0]), 7)
             pms = cuda_ms(lambda: kr.resample2_plain(x, *taps, valid,
                                                      maps[0]), 3)
-            log(f"  resample {label} nan={nan}: kernel {ms:.3f} ms, plain "
-                f"{pms:.3f} ms")
+            # the launch alone, its taps already on the card
+            prep = kr.prepare(x, *taps, valid, maps[0])
+            lms = cuda_ms(lambda: kr.launch(x, prep), 7)
+            log(f"  resample {label} nan={nan}: kernel {ms:.3f} ms (launch "
+                f"alone {lms:.3f} ms), plain {pms:.3f} ms, plan "
+                f"{prep.packed.plan}")
             if not nan:
                 lib_ms = cuda_ms(grid_sample_call(x, taps), 3)
                 log(f"  resample {label}: grid_sample bilinear "

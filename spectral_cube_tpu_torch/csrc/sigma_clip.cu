@@ -59,6 +59,11 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "cp_async.cuh"
+
+using sct::cp_async4;
+using sct::cp_async_wait_all;
+
 namespace {
 
 constexpr int kLanes = 32;
@@ -170,17 +175,6 @@ __device__ void clip_band(S s, int nfin, float sigma, int maxiters,
     lo_val[k] = some ? s[i_lo] : 0.f;
     hi_val[k] = some ? s[i_hi - 1] : 0.f;
   }
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 __host__ __device__ constexpr int ilog2(int n) {

@@ -48,6 +48,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
+using sct::cp_async16;
+using sct::cp_async4;
+using sct::cp_async_commit;
+using sct::cp_async_wait;
+
 namespace {
 
 constexpr int kThreads = 512;
@@ -78,30 +85,6 @@ __device__ float smooth_at(const float* xs, int pitch, int col, Band s,
   }
   const float den = 1.f - bad;
   return den > kDenEps ? num / den : NAN;
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most n of this thread's committed copy groups are pending
-template <int n>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
 }
 
 // kN clean outputs o, o + step, ... of spectrum `col`: sum_t M[o, t] x[t]

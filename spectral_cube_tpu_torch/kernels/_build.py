@@ -29,7 +29,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("moments.cu", "conv_sep.cu", "resample2.cu", "sigma_clip.cu",
            "smooth_interp.cu", "conv_reproject.cu", "banded_matmul.cu")
 #: headers the sources include (hashed with them)
-HEADERS = ("moments_acc.cuh",)
+HEADERS = ("moments_acc.cuh", "cp_async.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC")
 
@@ -61,12 +61,18 @@ def _declare(lib):
                    ctypes.c_float)
     lib.sct_moments_chunk.argtypes = []
     lib.sct_moments_chunk.restype = I
-    lib.sct_moments.argtypes = [P, P, P, I, LL, I, F, I, P, P, P]
+    lib.sct_moments_smem.argtypes = [LL, I, I, I]
+    lib.sct_moments_smem.restype = LL
+    lib.sct_moments.argtypes = [P, P, P, I, LL, I, F, I, I, I, I, P, P, P]
     lib.sct_moments.restype = I
     lib.sct_conv_sep.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, I, P,
                                  P]
     lib.sct_conv_sep.restype = I
-    lib.sct_resample2.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, P, P]
+    lib.sct_resample2_step_rows.argtypes = []
+    lib.sct_resample2_step_rows.restype = I
+    lib.sct_resample2_smem.argtypes = [P]
+    lib.sct_resample2_smem.restype = LL
+    lib.sct_resample2.argtypes = [P, P]
     lib.sct_resample2.restype = I
     lib.sct_resample2_filled.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I,
                                          I, I, P, P]

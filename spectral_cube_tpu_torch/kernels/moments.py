@@ -8,9 +8,15 @@ a CPU tensor.  Both return the compensated-pair sufficient planes that
     planes[0:6]  = s0h, s0l, s1h, s1l, s2h, s2l
     planes[6:10] = qh, ql, min, max             (with_stats only)
     count        = included finite voxels per spaxel (int32)
+
+:func:`plan` decides the kernel's launch from the shapes and alignments:
+the depth of its ring of chunk tiles and the copies that stage the data
+and the include mask.
 """
 
 from __future__ import annotations
+
+from collections import OrderedDict, namedtuple
 
 import numpy as np
 import torch
@@ -18,13 +24,79 @@ import torch
 from ..ops.df32 import two_sum, two_prod, df_div
 from ._build import load_library, check, ptr, stream_ptr
 
-__all__ = ["moments_planes", "moments_planes_plain", "CHUNK", "CMP_OPS"]
+__all__ = ["moments_planes", "moments_planes_plain", "plan", "CHUNK",
+           "CMP_OPS"]
 
 #: channels per chunk; kChunk in csrc/moments.cu
 CHUNK = 32
+#: spaxels a block (one a thread); kThreads in csrc/moments.cu
+THREADS = 128
+#: chunk tiles in a block's ring: chunk k + 1 loads while chunk k computes
+#: (two stages of 16 KB keep six blocks on an SM; more stages, fewer
+#: blocks, measured slower on an H100)
+STAGES = 2
 
 #: fused comparison op codes (csrc/moments.cu) -> torch comparison
 CMP_OPS = {1: torch.gt, 2: torch.ge, 3: torch.lt, 4: torch.le}
+
+#: include-mask forms, their codes in csrc/moments.cu: none; its bytes
+#: staged with the data in 16-byte or 4-byte copies; read directly in
+#: pass 1 (rows not 4-byte aligned)
+MASK_FORMS = {"none": 0, "cp.async16": 1, "cp.async4": 2, "direct": 3}
+
+#: the launch of ``csrc/moments.cu``: blocks of THREADS spaxels (the last
+#: a tail where THREADS does not divide npix), the ring's stages, the
+#: data's copies ("cp.async16" or "cp.async4"), the mask's form (a key of
+#: MASK_FORMS), the block's shared bytes
+Plan = namedtuple("Plan", "blocks stages staging mask smem")
+
+
+def plan(npix, data_aligned=True, mask=False, mask_aligned=True):
+    """The kernel's launch for ``npix`` spaxels a plane: a ring of
+    :data:`STAGES` tiles of CHUNK channels x THREADS spaxels; the data in
+    16-byte copies where a plane's rows of spaxels are 16-byte aligned
+    (``npix % 4 == 0`` and the base ``data_aligned``), else 4-byte copies;
+    an include ``mask`` (uint8) staged beside it in 16-byte copies where
+    ``npix % 16 == 0`` and its base is ``mask_aligned`` to 16 bytes,
+    4-byte copies where ``npix % 4 == 0`` (and 4-byte aligned), else read
+    directly."""
+    npix = int(npix)
+    if npix < 1:
+        raise ValueError(f"npix must be >= 1, got {npix}")
+    vec = data_aligned and npix % 4 == 0
+    if not mask:
+        form = "none"
+    elif mask_aligned and npix % 16 == 0:
+        form = "cp.async16"
+    elif npix % 4 == 0:
+        form = "cp.async4"
+    else:
+        form = "direct"
+    staged = form in ("cp.async16", "cp.async4")
+    smem = STAGES * CHUNK * THREADS * (4 + (1 if staged else 0))
+    return Plan(-(-npix // THREADS), STAGES,
+                "cp.async16" if vec else "cp.async4", form, smem)
+
+
+#: device copies of centred coordinates, keyed by device and bytes
+_XC_CACHE = OrderedDict()
+_XC_CACHE_SIZE = 16
+
+
+def _device_coords(xc, dev):
+    """``xc`` as float32 on ``dev``, uploaded once per device and value: a
+    later call with the same coordinates queues no host copy."""
+    a = np.ascontiguousarray(np.asarray(xc, dtype=np.float32))
+    key = (str(dev), a.shape, a.tobytes())
+    t = _XC_CACHE.get(key)
+    if t is None:
+        t = torch.from_numpy(a).pin_memory().to(dev, non_blocking=True)
+        _XC_CACHE[key] = t
+        if len(_XC_CACHE) > _XC_CACHE_SIZE:
+            _XC_CACHE.popitem(last=False)
+    else:
+        _XC_CACHE.move_to_end(key)
+    return t
 
 
 def _acc2(h, l, vh, vl):
@@ -63,16 +135,29 @@ def moments_planes(data, xc, cmp_op=0, threshold=0.0, include=None,
                            "on the chunk length")
     nchan, ny, nx = data.shape
     dev = data.device
-    xc_t = torch.as_tensor(np.asarray(xc, dtype=np.float32), device=dev)
+    xc_t = _device_coords(xc, dev)
     inc = None
     if include is not None:
-        inc = include.to(device=dev, dtype=torch.uint8).contiguous()
+        # a bool mask is read as its own bytes (0/1): no copy of the cube
+        inc = include.view(torch.uint8) if include.dtype == torch.bool \
+            else include.to(torch.uint8)
+        inc = inc.to(dev).contiguous()
     planes = torch.empty((10 if with_stats else 6, ny, nx),
                          dtype=torch.float32, device=dev)
     count = torch.empty((ny, nx), dtype=torch.int32, device=dev)
+    if planes.numel() == 0:
+        return planes, count
+    p = plan(ny * nx, data.data_ptr() % 16 == 0, inc is not None,
+             inc is not None and inc.data_ptr() % 16 == 0)
+    vec = int(p.staging == "cp.async16")
+    mask = MASK_FORMS[p.mask]
+    if lib.sct_moments_smem(ny * nx, p.stages, vec, mask) != p.smem:
+        raise RuntimeError("csrc/moments.cu and kernels/moments.py disagree "
+                           "on the plan")
     err = lib.sct_moments(ptr(data), ptr(xc_t), ptr(inc), nchan, ny * nx,
                           int(cmp_op), float(threshold), int(with_stats),
-                          ptr(planes), ptr(count), stream_ptr(dev))
+                          p.stages, vec, mask, ptr(planes), ptr(count),
+                          stream_ptr(dev))
     check(err, "sct_moments")
     moments_planes.launches += 1
     return planes, count

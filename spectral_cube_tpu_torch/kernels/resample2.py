@@ -7,9 +7,22 @@
 CPU tensor.  Output row i reads input rows ``y0[i]`` and ``y0[i] + 1``
 (clipped to the plane) with weights ``1 - wy[i]`` and ``wy[i]``; columns
 likewise.
+
+The raw entry's launch is laid out on the host.  :func:`plan` picks the
+strip width, the rows a block walks, the staging form and the ring of
+input rows in shared memory from the shapes and the taps;
+:func:`pack_taps` writes the plan's tables, the taps, the validity bits and
+the channel flags into one int32 buffer, which :func:`prepare` uploads with
+one non-blocking copy from pinned memory (and keeps, keyed by its bytes,
+so a later call with the same taps uploads nothing); :func:`launch` runs
+the kernel on a prepared layout.
 """
 
 from __future__ import annotations
+
+import ctypes
+import hashlib
+from collections import OrderedDict, namedtuple
 
 import numpy as np
 import torch
@@ -17,10 +30,44 @@ import torch
 from ._build import load_library, check, ptr, stream_ptr
 
 __all__ = ["resample2", "resample2_plain", "resample2_filled",
-           "resample2_filled_plain", "lerp2", "POISON"]
+           "resample2_filled_plain", "lerp2", "POISON", "plan", "pack_taps",
+           "prepare", "launch"]
 
 #: NaN-weight threshold of the poisoning rule (banded_pallas.py:45)
 POISON = 1e-6
+
+#: warps of a raw-kernel block; output rows a step (two a warp),
+#: kStepRows in csrc/resample2.cu
+WARPS = 8
+STEP_ROWS = 2 * WARPS
+#: steps whose copies are in flight while a step computes
+DEPTH = 2
+#: strip widths, widest first: 4, 2 or 1 outputs a lane
+WIDTHS = (128, 64, 32)
+#: shared bytes a span plan may take (two blocks an SM at least); past it
+#: the plan narrows the strip, and past the narrowest it lists columns
+SMEM_SPAN = 100 * 1024
+#: shared bytes a block may take on an H100, less static ones
+SMEM_MAX = 232448 - 1024
+#: blocks that fill the card several times over (132 SMs)
+TARGET_BLOCKS = 132 * 8
+#: steps a row tile walks at least
+MIN_TILE_STEPS = 4
+#: staging forms of the raw kernel, their codes in csrc/resample2.cu: the
+#: strip's contiguous input span in 16-byte or 4-byte copies, or its
+#: listed input columns in 4-byte copies
+FORMS = {"span16": 0, "span4": 1, "list": 2}
+
+#: output rows a tile holds at most (its tables sit in shared memory)
+MAX_TILE_ROWS = 1024
+
+#: the raw kernel's launch: strip ``width`` (columns), 16-byte stores of
+#: 4 adjacent outputs, staging ``form`` (a key of FORMS), output rows a
+#: block walks, row tiles, ring ``depth`` (steps in flight), ring
+#: ``slots`` (input rows) of ``pitch`` floats, the most row loads a tile
+#: lists, shared bytes (ring, store buffers and the tile's tables)
+Plan = namedtuple("Plan", "width store16 form tile_rows tiles depth slots "
+                  "pitch max_loads smem")
 
 
 def _host_taps(raw, y0, wy, x0, wx, valid_plane, zvalid):
@@ -45,6 +92,294 @@ def _host_taps(raw, y0, wy, x0, wx, valid_plane, zvalid):
     return y0, wy, x0, wx, valid_plane, zvalid
 
 
+def _needed(y0, ny_in, tile_rows, tiles):
+    """Per row tile, per step of STEP_ROWS output rows: the sorted input
+    rows the step reads (y0 and y0 + 1, clipped to the plane)."""
+    ya = np.asarray(y0, np.int64)
+    yb = np.minimum(ya + 1, ny_in - 1)
+    out = []
+    for t in range(tiles):
+        steps = []
+        for s in range(tile_rows // STEP_ROWS):
+            i = t * tile_rows + s * STEP_ROWS
+            r = slice(i, min(i + STEP_ROWS, ya.size))
+            steps.append(np.unique(np.concatenate([ya[r], yb[r]]))
+                         if i < ya.size else np.zeros(0, np.int64))
+        out.append(steps)
+    return out
+
+
+def _ring_slots(needed, depth):
+    """(slots, loads): the slots a ring needs, the most input rows that
+    any step and the ``depth`` steps before it read together (the copies
+    of a step go in while those steps may still read their rows); and a
+    bound on the loads a tile lists, each step's rows that the step before
+    did not read (a row two steps read stays in its slot)."""
+    most, loads = 1, 0
+    for steps in needed:
+        n = 0
+        for s in range(len(steps)):
+            live = np.unique(np.concatenate(steps[max(0, s - depth):s + 1]))
+            most = max(most, live.size)
+            n += steps[s].size if s == 0 else np.setdiff1d(
+                steps[s], steps[s - 1], assume_unique=True).size
+        loads = max(loads, n)
+    return most, loads
+
+
+def _tiling(ny_out, nchan, nstrips):
+    """(tile_rows, tiles): the whole plane a block where the channels and
+    strips alone fill the card, else row tiles until they do, each of
+    MIN_TILE_STEPS steps at least (the ring's copies run ahead within a
+    tile)."""
+    steps = -(-ny_out // STEP_ROWS)
+    want = -(-TARGET_BLOCKS // max(1, nchan * nstrips))
+    tiles = max(1, min(-(-steps // MIN_TILE_STEPS), want),
+                -(-ny_out // MAX_TILE_ROWS))
+    tile_rows = -(-steps // tiles) * STEP_ROWS
+    return tile_rows, -(-ny_out // tile_rows)
+
+
+def _strips(x0, nx_in, width, form):
+    """Per strip of ``width`` output columns: (first staged column, staged
+    count), the staged positions of each column's two taps, and for the
+    list form the staged columns (ns, count) padded with the last."""
+    xa = np.asarray(x0, np.int64)
+    ns = -(-xa.size // width)
+    xa = np.pad(xa, (0, ns * width - xa.size), mode="edge").reshape(ns,
+                                                                     width)
+    xb = np.minimum(xa + 1, nx_in - 1)
+    if form == "list":
+        lists = [np.unique(np.concatenate([a, b])) for a, b in zip(xa, xb)]
+        pa = np.stack([np.searchsorted(l, a) for l, a in zip(lists, xa)])
+        pb = np.stack([np.searchsorted(l, b) for l, b in zip(lists, xb)])
+        count = np.array([l.size for l in lists], np.int64)
+        cols = np.stack([np.pad(l, (0, width * 2 - l.size), mode="edge")
+                         for l in lists])
+        return np.stack([np.zeros(ns, np.int64), count], 1), pa, pb, cols
+    lo, hi = xa.min(1), xb.max(1)
+    if form == "span16":
+        lo = lo & ~3
+        count = ((hi + 4) & ~3) - lo
+    else:
+        count = hi - lo + 1
+    return (np.stack([lo, count], 1), xa - lo[:, None], xb - lo[:, None],
+            None)
+
+
+def plan(y0, x0, ny_in, nx_in, nchan, aligned=True):
+    """The raw kernel's launch for taps ``y0`` (ny_out,) and ``x0``
+    (nx_out,) on (nchan, ny_in, nx_in) data: the widest strip (128, 64 or
+    32 columns) whose ring of input-row spans fits SMEM_SPAN, staged in
+    16-byte copies where the input rows are 16-byte aligned (``nx_in % 4
+    == 0`` and the base ``aligned``), else 4-byte copies; where no width's
+    spans fit (columns far apart), 128 columns whose listed input columns
+    are staged instead.  The ring holds the input rows of DEPTH + 1
+    steps; row tiles split the plane only where the channels and strips
+    give too few blocks."""
+    y0 = np.asarray(y0, np.int64)
+    x0 = np.asarray(x0, np.int64)
+    ny_out, nx_out = y0.size, x0.size
+    if ny_out < 1 or nx_out < 1:
+        raise ValueError("the resample has no output")
+    span = "span16" if aligned and nx_in % 4 == 0 else "span4"
+    cache = {}
+
+    def choice(width, form):
+        tiling = _tiling(ny_out, nchan, -(-nx_out // width))
+        if tiling not in cache:
+            cache[tiling] = _ring_slots(_needed(y0, ny_in, *tiling), DEPTH)
+        slots, loads = cache[tiling]
+        count = _strips(x0, nx_in, width, form)[0][:, 1]
+        pitch = max(4, int(-(-count.max() // 4) * 4))
+        store16 = width == 128 and nx_out % 4 == 0
+        tile_rows = tiling[0]
+        tables = ((2 + width // 32) * tile_rows
+                  + ((tile_rows // STEP_ROWS + 2) & ~1) + 2 * loads)
+        smem = (slots * pitch + (WARPS * 128 if store16 else 0) + tables) * 4
+        return Plan(width, store16, form, *tiling, DEPTH, slots, pitch,
+                    loads, smem)
+
+    for width in WIDTHS:
+        p = choice(width, span)
+        if p.smem <= SMEM_SPAN:
+            return p
+    return choice(WIDTHS[0], "list")
+
+
+def _schedule(needed, slots, depth):
+    """The ring's loads: per step (all tiles in turn) the (input row,
+    slot) pairs to copy, and for each step the slot of every input row it
+    reads.  A row stays in its slot while later steps read it; new rows
+    take slots that no step from ``depth`` steps back up to this one
+    reads, empty ones first, then the least recently read."""
+    loads, step_off, where = [], [0], []
+    for steps in needed:
+        slot_row = np.full(slots, -1, np.int64)
+        last = np.full(slots, -1, np.int64)
+        row_slot = {}
+        for s, rows in enumerate(steps):
+            live = np.unique(np.concatenate(steps[max(0, s - depth):s + 1]))
+            new = [r for r in rows.tolist() if r not in row_slot]
+            if new:
+                free = np.flatnonzero(~np.isin(slot_row, live))
+                order = np.lexsort((free, last[free], slot_row[free] >= 0))
+                for r, q in zip(new, free[order][:len(new)].tolist()):
+                    if slot_row[q] >= 0:
+                        del row_slot[int(slot_row[q])]
+                    slot_row[q] = r
+                    row_slot[r] = q
+                    loads.append((r, q))
+            for r in rows.tolist():
+                last[row_slot[r]] = s
+            where.append({r: row_slot[r] for r in rows.tolist()})
+            step_off.append(len(loads))
+    return (np.asarray(loads, np.int64).reshape(-1, 2),
+            np.asarray(step_off, np.int64), where)
+
+
+#: int32 words of the packed taps: each section starts on 16 bytes
+_SECTIONS = ("rows", "cols", "strips", "list", "step_off", "loads", "valid",
+             "zvalid")
+
+#: what :func:`pack_taps` returns: the plan, the int32 words and each
+#: section's word offset
+Packed = namedtuple("Packed", "plan words offsets")
+
+
+def pack_taps(shape, y0, wy, x0, wx, valid_plane, zvalid, aligned=True):
+    """The raw kernel's tables for (nchan, ny_in, nx_in) ``shape`` and
+    checked taps (:func:`_host_taps`), in one int32 buffer: per output row
+    its two ring slots (``a | b << 16``) and ``wy``; per strip column its
+    two staged positions and ``wx``; per strip its first staged column and
+    count; the list form's staged columns; the ring's loads per step;
+    validity bits (bit j % 32 of word j // 32 of row i); one word per
+    channel's ``zvalid``."""
+    nchan, ny_in, nx_in = shape
+    p = plan(y0, x0, ny_in, nx_in, nchan, aligned)
+    needed = _needed(y0, ny_in, p.tile_rows, p.tiles)
+    loads, step_off, where = _schedule(needed, p.slots, p.depth)
+    steps = p.tile_rows // STEP_ROWS
+    if np.diff(step_off[::steps]).max() > p.max_loads:
+        raise RuntimeError("a tile lists more loads than its plan holds")
+    ya = np.asarray(y0, np.int64)
+    yb = np.minimum(ya + 1, ny_in - 1)
+    slot_a = np.empty(ya.size, np.int64)
+    slot_b = np.empty(ya.size, np.int64)
+    for i in range(ya.size):
+        w = where[i // STEP_ROWS]
+        slot_a[i], slot_b[i] = w[int(ya[i])], w[int(yb[i])]
+    f32 = lambda a: np.asarray(a, np.float32).view(np.int32)  # noqa: E731
+    rows = np.stack([slot_a | slot_b << 16,
+                     f32(wy).astype(np.int64)], 1)
+    strips, pa, pb, lists = _strips(x0, nx_in, p.width, p.form)
+    wxp = np.pad(np.asarray(wx, np.float32), (0, pa.size - len(wx)))
+    cols = np.stack([(pa | pb << 16).ravel(), f32(wxp).astype(np.int64)], 1)
+    if lists is None:
+        lists = np.zeros(0, np.int64)
+    else:
+        lists = lists[:, :p.pitch]             # pitch <= 2 * width
+    bits = np.packbits(np.asarray(valid_plane, bool), axis=1,
+                       bitorder="little")
+    bits = np.pad(bits, ((0, 0), (0, -bits.shape[1] % 4)))
+    valid = np.ascontiguousarray(bits).view("<u4").view(np.int32)
+    parts = dict(rows=rows, cols=cols, strips=strips, list=lists,
+                 step_off=step_off, loads=loads, valid=valid,
+                 zvalid=np.asarray(zvalid, np.int64))
+    offsets, n = {}, 0
+    for name in _SECTIONS:
+        offsets[name] = n
+        n += -(-np.asarray(parts[name]).size // 4) * 4
+    words = np.zeros(max(n, 4), np.int32)
+    for name in _SECTIONS:
+        a = np.asarray(parts[name]).ravel()
+        words[offsets[name]:offsets[name] + a.size] = a
+    return Packed(p, words, offsets)
+
+
+class _Args(ctypes.Structure):
+    """struct SctResample2 of csrc/resample2.cu."""
+    _fields_ = [(name, ctypes.c_void_p) for name in ("raw", "out")
+                + _SECTIONS] + [
+        (name, ctypes.c_int) for name in (
+            "nchan", "ny_in", "nx_in", "ny_out", "nx_out", "width",
+            "tile_rows", "tiles", "steps", "depth", "slots", "pitch",
+            "form", "store16", "vwords", "max_loads")]
+
+
+#: taps prepared on a device: the data's shape and alignment they were
+#: packed for, the output's (ny_out, nx_out), the Packed, its device copy
+Prepared = namedtuple("Prepared", "shape aligned out_shape packed words")
+
+_PREPARED = OrderedDict()
+_PREPARED_SIZE = 8
+
+
+def prepare(raw, y0, wy, x0, wx, valid_plane, zvalid=None):
+    """The raw kernel's packed taps for ``raw`` (a CUDA tensor) on its
+    device: checked and packed on the host, then one non-blocking copy from
+    pinned memory.  Kept by the taps' bytes, so a later call with the same
+    taps and shape queues no copy."""
+    y0, wy, x0, wx, valid_plane, zvalid = _host_taps(
+        raw, y0, wy, x0, wx, valid_plane, zvalid)
+    aligned = raw.data_ptr() % 16 == 0
+    h = hashlib.sha256()
+    for a in (y0, wy, x0, wx, np.packbits(valid_plane, axis=None), zvalid):
+        h.update(str(a.shape).encode())
+        h.update(np.ascontiguousarray(a).tobytes())
+    key = (str(raw.device), tuple(raw.shape), aligned, valid_plane.shape,
+           h.hexdigest())
+    got = _PREPARED.get(key)
+    if got is not None:
+        _PREPARED.move_to_end(key)
+        return got
+    packed = pack_taps(tuple(raw.shape), y0, wy, x0, wx, valid_plane,
+                       zvalid, aligned)
+    words = torch.from_numpy(packed.words).pin_memory().to(
+        raw.device, non_blocking=True)
+    got = Prepared(tuple(raw.shape), aligned, valid_plane.shape, packed,
+                   words)
+    _PREPARED[key] = got
+    if len(_PREPARED) > _PREPARED_SIZE:
+        _PREPARED.popitem(last=False)
+    return got
+
+
+def launch(raw, prep):
+    """The raw kernel on ``raw`` with taps from :func:`prepare`."""
+    if tuple(raw.shape) != prep.shape or raw.device != prep.words.device:
+        raise ValueError("the prepared taps are for another shape or device")
+    if raw.dtype != torch.float32 or not raw.is_contiguous():
+        raise ValueError("the resample kernel takes contiguous float32 data")
+    if prep.aligned and raw.data_ptr() % 16 != 0:
+        raise ValueError("the prepared taps are for 16-byte aligned data")
+    lib = load_library()
+    if lib.sct_resample2_step_rows() != STEP_ROWS:
+        raise RuntimeError("csrc/resample2.cu and kernels/resample2.py "
+                           "disagree on the rows of a step")
+    p, off = prep.packed.plan, prep.packed.offsets
+    nchan, ny_in, nx_in = raw.shape
+    ny_out, nx_out = prep.out_shape
+    out = torch.empty((nchan, ny_out, nx_out), dtype=torch.float32,
+                      device=raw.device)
+    base = prep.words.data_ptr()
+    args = _Args(raw=raw.data_ptr(), out=out.data_ptr(),
+                 **{name: base + 4 * off[name] for name in _SECTIONS},
+                 nchan=nchan, ny_in=ny_in, nx_in=nx_in, ny_out=ny_out,
+                 nx_out=nx_out, width=p.width, tile_rows=p.tile_rows,
+                 tiles=p.tiles, steps=p.tile_rows // STEP_ROWS,
+                 depth=p.depth, slots=p.slots, pitch=p.pitch,
+                 form=FORMS[p.form], store16=int(p.store16),
+                 vwords=-(-nx_out // 32), max_loads=p.max_loads)
+    if lib.sct_resample2_smem(ctypes.byref(args)) != p.smem:
+        raise RuntimeError("csrc/resample2.cu and kernels/resample2.py "
+                           "disagree on the plan")
+    check(lib.sct_resample2(ctypes.byref(args), stream_ptr(raw.device)),
+          "sct_resample2")
+    resample2.launches += 1
+    return out
+
+
 def resample2(raw, y0, wy, x0, wx, valid_plane, zvalid=None):
     """(nchan, ny_out, nx_out) resample of ``raw``: out = sum w *
     nan_to_num(Z), NaN where the NaN weight exceeds :data:`POISON`, where
@@ -52,35 +387,13 @@ def resample2(raw, y0, wy, x0, wx, valid_plane, zvalid=None):
     takes the plain version; a CUDA tensor the kernel."""
     if raw.ndim != 3:
         raise ValueError(f"raw must be (nchan, ny, nx), got {tuple(raw.shape)}")
-    taps = _host_taps(raw, y0, wy, x0, wx, valid_plane, zvalid)
     if raw.device.type == "cpu":
-        return resample2_plain(raw, *taps)
+        return resample2_plain(raw, y0, wy, x0, wx, valid_plane, zvalid)
     if raw.device.type != "cuda":
         raise ValueError(f"no resample kernel for device {raw.device}")
     if raw.dtype != torch.float32 or not raw.is_contiguous():
         raise ValueError("the resample kernel takes contiguous float32 data")
-    y0, wy, x0, wx, valid_plane, zvalid = taps
-    lib = load_library()
-    dev = raw.device
-    nchan, ny_in, nx_in = raw.shape
-    ny_out, nx_out = valid_plane.shape
-
-    def dev_t(a, dtype):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                               device=dev)
-
-    y0_t, x0_t = dev_t(y0, torch.int32), dev_t(x0, torch.int32)
-    wy_t, wx_t = dev_t(wy, torch.float32), dev_t(wx, torch.float32)
-    vp_t = dev_t(valid_plane, torch.uint8)
-    zv_t = dev_t(zvalid, torch.uint8)
-    out = torch.empty((nchan, ny_out, nx_out), dtype=torch.float32,
-                      device=dev)
-    err = lib.sct_resample2(ptr(raw), ptr(y0_t), ptr(wy_t), ptr(x0_t),
-                            ptr(wx_t), ptr(vp_t), ptr(zv_t), nchan, ny_in,
-                            nx_in, ny_out, nx_out, ptr(out), stream_ptr(dev))
-    check(err, "sct_resample2")
-    resample2.launches += 1
-    return out
+    return launch(raw, prepare(raw, y0, wy, x0, wx, valid_plane, zvalid))
 
 
 resample2.launches = 0

@@ -213,7 +213,11 @@ def sigma_clip_plain(data, sigma, maxiters, use_mean_center,
             std = mad * MAD_TO_STD
         else:
             d = s - mean[None]
-            std = torch.sqrt(band_sum(d * d, in_band) / safe)
+            var = band_sum(d * d, in_band) / safe
+            # torch's CPU float32 sqrt is not correctly rounded; the float64
+            # root rounded to float32 is, as numpy's, JAX's and the card's
+            std = torch.sqrt(var.double()).to(comp) \
+                if comp == torch.float32 else torch.sqrt(var)
         lo_v = center - sigma * std
         hi_v = center + sigma * std
         # NaN compares False, so the missing tail never counts

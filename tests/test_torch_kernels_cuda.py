@@ -8,10 +8,10 @@ the kernel and its plain version of the same numerics (only the order of
 float32 roundings differs), NaN patterns exact; the sigma clip exactly
 (its kernel and plain version sum in one order); the fused smooth +
 interpolation 3e-5 / 1e-5 (the JAX kernels' own tolerance); the filled
-resample and the NaN chain of the fused convolve + reproject bitwise (they
-round in the plain version's order), its composed-operator branch 1e-5;
-the pipeline mode's planes bitwise equal to the moments kernel's and its
-cube to the fused convolve + reproject's.
+resample, the raw resample and the NaN chain of the fused convolve +
+reproject bitwise (they round in the plain version's order), its
+composed-operator branch 1e-5; the pipeline mode's planes bitwise equal
+to the moments kernel's and its cube to the fused convolve + reproject's.
 """
 
 import numpy as np
@@ -289,7 +289,112 @@ def test_resample_kernel_matches_plain(cuda, ay, by, ax, bx):
     n0 = kres.resample2.launches
     got = kres.resample2(x.to(cuda), y0, wy, x0, wx, valid, zvalid)
     assert kres.resample2.launches == n0 + 1
-    _close(got, want)
+    _equal(got, want)
+
+
+def _axis_taps(n_out, n_in, a, b):
+    s = np.clip(np.arange(n_out) * a + b, 0, n_in - 1)
+    i0 = np.clip(np.floor(s).astype(np.int64), 0, n_in - 2)
+    return i0, (s - i0).astype(np.float32)
+
+
+# (input shape, output shape, y map, x map): maps a * i + b; "perm" draws
+# far-apart columns in random order
+_RAW_LAYOUTS = {
+    "nx_out_129_pitch_131": ((3, 37, 131), (41, 129), (0.93, 3.2),
+                             (1.07, -2.6)),
+    "flipped_y": ((3, 70, 132), (70, 132), (-1.0, 69.3), (1.0, -1.6)),
+    "repeated_y": ((3, 40, 67), (50, 70), (0.5, -4.0), (1.0, 2.0)),
+    "narrowed": ((2, 195, 400), (64, 130), (3.0, 0.5), (3.0, 0.5)),
+    "listed_columns": ((2, 33, 3000), (20, 150), (1.6, 0.2), "perm"),
+    "many_strips": ((4, 300, 700), (300, 700), (1.0, 0.25), (1.0, -0.5)),
+    "no_valid_channel": ((3, 20, 40), (20, 40), (1.0, 0.5), (1.0, 0.5)),
+}
+
+
+@pytest.mark.parametrize("layout", list(_RAW_LAYOUTS))
+def test_resample_kernel_layouts_bitwise(cuda, layout):
+    """The raw resample bit for bit against its plain version on the
+    layouts its plan treats apart: a row of outputs that is no multiple
+    of 4 on input rows that are not 16-byte aligned, a flipped and a
+    repeating y0, a downsampling that narrows the strip, columns only a
+    list stages, a plane of many strips, every channel invalid; and on a
+    base that is not 16-byte aligned (4-byte copies)."""
+    shape, (ny, nx), (ay, by), xmap = _RAW_LAYOUTS[layout]
+    rng = np.random.RandomState(21)
+    x = _noise_cube(shape, 8)
+    x[0, :, 5] = np.nan
+    y0, wy = _axis_taps(ny, shape[1], ay, by)
+    if xmap == "perm":
+        x0 = rng.permutation(shape[2] - 1)[:nx]
+        wx = rng.rand(nx).astype(np.float32)
+    else:
+        x0, wx = _axis_taps(nx, shape[2], *xmap)
+    wy[::7] = 0.0
+    valid = rng.rand(ny, nx) > 0.1
+    zvalid = np.ones(shape[0], bool)
+    zvalid[1] = False
+    if layout == "no_valid_channel":
+        zvalid[:] = False
+    want = kres.resample2_plain(x, y0, wy, x0, wx, valid, zvalid)
+    p = kres.plan(y0, x0, shape[1], shape[2], shape[0])
+    if layout == "narrowed":
+        assert p.width < 128 and p.form == "span16"
+    if layout == "listed_columns":
+        assert p.form == "list"
+    n0 = kres.resample2.launches
+    got = kres.resample2(x.to(cuda), y0, wy, x0, wx, valid, zvalid)
+    torch.cuda.synchronize()
+    assert kres.resample2.launches == n0 + 1
+    _equal(got, want)
+    buf = torch.empty(x.numel() + 1, device=cuda)
+    xs = buf[1:].view(x.shape)
+    xs.copy_(x.to(cuda))
+    _equal(kres.resample2(xs, y0, wy, x0, wx, valid, zvalid), want)
+
+
+def test_resample_launch_alone_equals_the_wrapper(cuda):
+    """prepare + launch (the taps already on the card) is the wrapper's
+    own launch, and a second prepare of the same taps reuses the upload."""
+    x = _noise_cube((3, 64, 96), 2).to(cuda)
+    y0, wy = _axis_taps(64, 64, 1.0, 0.37)
+    x0, wx = _axis_taps(96, 96, 1.0, -0.61)
+    valid = np.ones((64, 96), bool)
+    prep = kres.prepare(x, y0, wy, x0, wx, valid)
+    assert kres.prepare(x, y0, wy, x0, wx, valid) is prep
+    _equal(kres.launch(x, prep), kres.resample2(x, y0, wy, x0, wx, valid))
+
+
+@pytest.mark.parametrize("npix", [(16, 41), (4, 35), (13, 45)])
+@pytest.mark.parametrize("nchan", [1, 31, 32, 33, 1100])
+def test_moments_kernel_ring_layouts(cuda, nchan, npix):
+    """The moments ring on planes whose spaxels take 16-byte copies and a
+    tail block (16 x 41), 16-byte data but 4-byte mask copies (4 x 35)
+    and 4-byte data with a mask read directly (13 x 45), at 1 to 1100
+    channels (partial, whole and many chunks): exact counts, finalized
+    moments within 2e-6 of the plain version, and a bool include mask
+    (passed as its own bytes) giving the same planes as a uint8 one."""
+    rng = np.random.RandomState(nchan + 3)
+    data = rng.randn(nchan, *npix).astype(np.float32) + 2.0
+    data[nchan // 2, 0, :3] = np.nan
+    data[:, 1, 2] = np.nan
+    data[0, 2, 1] = np.inf
+    x = torch.as_tensor(data)
+    coords = np.linspace(-3.0, 7.0, nchan)
+    inc = x > 1.5
+    for with_stats in (False, True):
+        want = kmom.moments_planes_plain(x, coords, 1, 1.7, inc, with_stats)
+        got = kmom.moments_planes(x.to(cuda), coords, 1, 1.7, inc.to(cuda),
+                                  with_stats)
+        same = kmom.moments_planes(x.to(cuda), coords, 1, 1.7,
+                                   inc.to(cuda).to(torch.uint8), with_stats)
+        assert torch.equal(got[0], same[0]) and torch.equal(got[1], same[1])
+        assert torch.equal(got[1].cpu(), want[1])
+        fin_w = tmom.finalize_planes(*want, 0.0, 1.0, with_stats)
+        fin_g = tmom.finalize_planes(got[0].cpu(), got[1].cpu(), 0.0, 1.0,
+                                     with_stats)
+        for a, b in zip(fin_g[:3], fin_w[:3]):
+            _close(a, b, rtol=2e-6, atol=1e-6)
 
 
 def _header(nchan, ny, nx):

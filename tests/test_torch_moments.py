@@ -325,3 +325,27 @@ def test_plain_planes_chunk_boundaries_and_counter():
         got = tmom.moments_012_kernel(torch.as_tensor(data), coords, 2.0)
         assert_moments(got, np_moments(data, coords, 2.0))
     assert kmom.moments_planes.launches == 0
+
+
+@pytest.mark.parametrize("npix,data_aligned,mask,mask_aligned,staging,form", [
+    (768 * 768, True, False, True, "cp.async16", "none"),
+    (768 * 768, True, True, True, "cp.async16", "cp.async16"),
+    (768 * 768, True, True, False, "cp.async16", "cp.async4"),
+    (13 * 45, True, True, True, "cp.async4", "direct"),
+    (4 * 35, True, True, True, "cp.async16", "cp.async4"),
+    (4 * 35, False, False, True, "cp.async4", "none"),
+    (1, True, True, True, "cp.async4", "direct")])
+def test_kernel_plan(npix, data_aligned, mask, mask_aligned, staging, form):
+    """The moments kernel's launch: 16-byte copies of the data only where
+    a plane's rows of spaxels are 16-byte aligned, the include mask's
+    bytes staged 16 or 4 at a time where its rows allow and read directly
+    otherwise, a ring of STAGES chunk tiles (the mask's bytes beside them
+    when staged), one block per THREADS spaxels with a tail block."""
+    p = kmom.plan(npix, data_aligned, mask, mask_aligned)
+    assert (p.staging, p.mask, p.stages) == (staging, form, kmom.STAGES)
+    assert p.blocks == -(-npix // kmom.THREADS)
+    assert (p.blocks * kmom.THREADS == npix) == (npix % kmom.THREADS == 0)
+    tile = kmom.CHUNK * kmom.THREADS
+    staged = form in ("cp.async16", "cp.async4")
+    assert p.smem == kmom.STAGES * tile * (5 if staged else 4)
+    assert p.smem <= 232448 - 1024

@@ -470,3 +470,226 @@ def test_plain_version_leaves_the_counter_alone():
     ys, xs = _maps(16, 48, 1.0, 0.5, 1.0, 0.5)
     _both(data, ys, xs)
     assert kres.resample2.launches == 0
+
+
+def _axis_taps(n_out, n_in, a, b):
+    """(i0, w) of a linear axis map a * i + b, clipped to the plane: the
+    form ``ops/regrid.py::_axis_aligned_taps`` gives the kernel."""
+    s = np.clip(np.arange(n_out) * a + b, 0, n_in - 1)
+    i0 = np.clip(np.floor(s).astype(np.int64), 0, n_in - 2)
+    return i0, (s - i0).astype(np.float32)
+
+
+def _unpack(packed, shape, ny_out, nx_out):
+    """The sections of :func:`kres.pack_taps`'s buffer as arrays."""
+    p, words, off = packed
+    nchan = shape[0]
+    ns = -(-nx_out // p.width)
+    steps = p.tile_rows // kres.STEP_ROWS
+
+    def sec(name, n):
+        return words[off[name]:off[name] + n]
+
+    step_off = sec("step_off", p.tiles * steps + 1)
+    vwords = -(-nx_out // 32)
+    return dict(
+        rows=sec("rows", 2 * ny_out).reshape(-1, 2),
+        cols=sec("cols", 2 * ns * p.width).reshape(-1, 2),
+        strips=sec("strips", 2 * ns).reshape(-1, 2),
+        list=(sec("list", ns * p.pitch).reshape(ns, p.pitch)
+              if p.form == "list" else None),
+        step_off=step_off, steps=steps,
+        loads=sec("loads", 2 * int(step_off[-1])).reshape(-1, 2),
+        valid=sec("valid", ny_out * vwords).view(np.uint32)
+        .reshape(ny_out, vwords),
+        zvalid=sec("zvalid", nchan))
+
+
+def _emulate_raw_kernel(raw, y0, packed, ny_out, nx_out):
+    """csrc/resample2.cu's raw kernel on the CPU from the packed buffer
+    alone, every block in turn, in float32 with its order of roundings.
+    Each step's copies land in the ring as soon as they are issued (the
+    earliest the card may land them), so a slot that a step still reads
+    and a later step's copy overwrites gives a wrong value; the ring's
+    tags also check that every output row reads its own two input rows."""
+    p = packed.plan
+    nchan, ny_in, nx_in = raw.shape
+    t = _unpack(packed, raw.shape, ny_out, nx_out)
+    ya = np.asarray(y0, np.int64)
+    yb = np.minimum(ya + 1, ny_in - 1)
+    f32 = np.float32
+    out = np.full((nchan, ny_out, nx_out), 7.0e30, f32)
+    for st in range(-(-nx_out // p.width)):
+        j = st * p.width + np.arange(p.width)
+        inr = j < nx_out
+        ct = t["cols"][j]
+        pa, pb = ct[:, 0] & 0xffff, ct[:, 0] >> 16
+        fx = ct[:, 1].view(f32)
+        gx = f32(1) - fx
+        s_lo, span = t["strips"][st]
+        for tile in range(p.tiles):
+            ring = np.full((nchan, p.slots, p.pitch), 3.0e30, f32)
+            tag = np.full(p.slots, -1)
+            so = t["step_off"][tile * t["steps"]:]
+
+            def issue(s):
+                if s >= t["steps"]:
+                    return
+                for row, slot in t["loads"][so[s]:so[s + 1]]:
+                    cols = (t["list"][st, :span] if p.form == "list"
+                            else s_lo + np.arange(span))
+                    ring[:, slot, :span] = raw[:, row, cols]
+                    tag[slot] = row
+
+            for s in range(p.depth):
+                issue(s)
+            for s in range(t["steps"]):
+                issue(s + p.depth)
+                for i in range(tile * p.tile_rows + s * kres.STEP_ROWS,
+                               min(tile * p.tile_rows + (s + 1)
+                                   * kres.STEP_ROWS,
+                                   (tile + 1) * p.tile_rows, ny_out)):
+                    ra, rb = t["rows"][i, 0] & 0xffff, t["rows"][i, 0] >> 16
+                    assert (tag[ra], tag[rb]) == (ya[i], yb[i])
+                    fy = t["rows"][i, 1:2].view(f32)[0]
+                    gy = f32(1) - fy
+                    A, B = ring[:, ra], ring[:, rb]
+                    za, zb = A[:, pa], A[:, pb]
+                    zc, zd = B[:, pa], B[:, pb]
+                    nz = np.nan_to_num
+                    ta = gy * nz(za) + fy * nz(zc)
+                    tb = gy * nz(zb) + fy * nz(zd)
+                    na = gy * np.isnan(za).astype(f32) \
+                        + fy * np.isnan(zc).astype(f32)
+                    nb = gy * np.isnan(zb).astype(f32) \
+                        + fy * np.isnan(zd).astype(f32)
+                    wn = gx * na + fx * nb
+                    jj = np.minimum(j, nx_out - 1)
+                    bit = (t["valid"][i, jj >> 5] >> (jj & 31)) & 1
+                    v = np.where((bit == 1) & ~(wn > f32(kres.POISON)),
+                                 gx * ta + fx * tb, f32(np.nan))
+                    out[:, i, j[inr]] = v[:, inr]
+    out[t["zvalid"] == 0] = np.nan
+    return out
+
+
+def _raw_case(case):
+    """(data, y0, wy, x0, wx, valid, zvalid, aligned) of one layout."""
+    rng = np.random.RandomState(17)
+    zvalid = None
+    aligned = True
+    if case == "translation":
+        shape, out = (3, 64, 300), (64, 300)
+        y0, wy = _axis_taps(64, 64, 1.0, -0.61)
+        x0, wx = _axis_taps(300, 300, 1.0, 0.37)
+    elif case == "flip":
+        shape, out = (3, 70, 132), (70, 132)
+        y0, wy = _axis_taps(70, 70, -1.0, 69.3)
+        x0, wx = _axis_taps(132, 132, 1.0, -1.6)
+    elif case == "repeat":
+        # clipped rows: the edges repeat one input row; equal y0 runs
+        shape, out = (3, 40, 67), (50, 70)
+        y0, wy = _axis_taps(50, 40, 0.5, -4.0)
+        x0, wx = _axis_taps(70, 67, 1.0, 2.0)
+    elif case == "unaligned":
+        # nx_out % 4 != 0, an input pitch that is not 16-byte aligned
+        shape, out = (3, 37, 131), (41, 129)
+        y0, wy = _axis_taps(41, 37, 0.93, 3.2)
+        x0, wx = _axis_taps(129, 131, 1.07, -2.6)
+        aligned = False
+    elif case == "narrowed":
+        # a threefold downsampling: 128 columns' spans overflow the ring
+        shape, out = (2, 195, 400), (64, 130)
+        y0, wy = _axis_taps(64, 195, 3.0, 0.5)
+        x0, wx = _axis_taps(130, 400, 3.0, 0.5)
+    elif case == "listed":
+        # columns far apart in random order: no span fits, listed columns
+        shape, out = (2, 33, 3000), (20, 150)
+        y0, wy = _axis_taps(20, 33, 1.6, 0.2)
+        x0 = rng.permutation(2999)[:150]
+        wx = rng.rand(150).astype(np.float32)
+    elif case == "many_strips":
+        shape, out = (2, 300, 700), (300, 700)
+        y0, wy = _axis_taps(300, 300, 1.0, 0.25)
+        x0, wx = _axis_taps(700, 700, 1.0, -0.5)
+    else:                                   # every channel invalid
+        shape, out = (2, 20, 40), (20, 40)
+        y0, wy = _axis_taps(20, 20, 1.0, 0.5)
+        x0, wx = _axis_taps(40, 40, 1.0, 0.5)
+        zvalid = np.zeros(2, bool)
+    data = _small_data(shape, 5)
+    valid = rng.rand(*out) > 0.1
+    if zvalid is None:
+        zvalid = np.ones(shape[0], bool)
+        zvalid[shape[0] // 2] = shape[0] < 3
+    return data, y0, wy, x0, wx, valid, zvalid, aligned
+
+
+_RAW_CASES = ("translation", "flip", "repeat", "unaligned", "narrowed",
+              "listed", "many_strips", "none_valid")
+
+
+@pytest.mark.parametrize("case", _RAW_CASES)
+def test_raw_kernel_layout_reproduces_the_plain_resample(case):
+    """The raw kernel's packed taps hold the wrapper's arrays (y and x
+    weights, validity, channel flags), and the kernel's walk over them
+    (emulated on the CPU with its copies landing as early as the card
+    may land them) equals resample2_plain bit for bit."""
+    data, y0, wy, x0, wx, valid, zvalid, aligned = _raw_case(case)
+    packed = kres.pack_taps(data.shape, y0, wy, x0, wx, valid, zvalid,
+                            aligned)
+    t = _unpack(packed, data.shape, *valid.shape)
+    np.testing.assert_array_equal(t["rows"][:, 1].view(np.float32), wy)
+    np.testing.assert_array_equal(
+        t["cols"][:len(wx), 1].view(np.float32), wx)
+    bits = (t["valid"][:, np.arange(valid.shape[1]) >> 5]
+            >> (np.arange(valid.shape[1]) & 31)) & 1
+    np.testing.assert_array_equal(bits == 1, valid)
+    np.testing.assert_array_equal(t["zvalid"] != 0, zvalid)
+    got = _emulate_raw_kernel(data, y0, packed, *valid.shape)
+    want = kres.resample2_plain(torch.as_tensor(data), y0, wy, x0, wx, valid,
+                                zvalid).numpy()
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.nan_to_num(got), np.nan_to_num(want))
+
+
+@pytest.mark.parametrize("case,width,form,store16", [
+    ("path", 128, "span16", True), ("scaled", 128, "span16", True),
+    ("flip", 128, "span16", True), ("unaligned", 128, "span4", False),
+    ("narrowed", 64, "span16", False), ("listed", 128, "list", False)])
+def test_raw_kernel_plan(case, width, form, store16):
+    """The plan on the path's shapes (623 x 768 x 768 onto a shifted or a
+    1.07x scaled 700^2 grid), a flip, an unaligned plane, a downsampling
+    that narrows the strip and columns that only a list stages: every
+    input row of a monotone walk is copied once per tile, the ring holds
+    the rows of DEPTH + 1 steps, and a block fits its shared memory."""
+    if case in ("path", "scaled", "flip"):
+        nchan, ny_in, nx_in = 623, 768, 768
+        n_out, a, b = {"path": (768, 1.0, -0.61), "scaled": (700, 1.07, 9.0),
+                       "flip": (768, -1.0, 767.3)}[case]
+        y0, _ = _axis_taps(n_out, ny_in, a, b)
+        x0, _ = _axis_taps(n_out, nx_in, abs(a), 0.37)
+        aligned = True
+    else:
+        _, y0, _, x0, _, _, zv, aligned = _raw_case(case)
+        nchan = zv.size
+        ny_in, nx_in = {"unaligned": (37, 131), "narrowed": (195, 400),
+                        "listed": (33, 3000)}[case]
+    p = kres.plan(y0, x0, ny_in, nx_in, nchan, aligned)
+    assert (p.width, p.form, p.store16) == (width, form, store16)
+    assert p.smem <= kres.SMEM_MAX and p.pitch % 4 == 0
+    if form != "list":
+        assert p.smem <= kres.SMEM_SPAN
+    if case in ("path", "scaled", "flip"):
+        assert (p.tiles, p.depth) == (1, kres.DEPTH)
+        # a translation's ring: 3 steps of 16 rows and the row below
+        assert p.slots == (49 if case != "scaled" else 53)
+        packed = kres.pack_taps((nchan, ny_in, nx_in), y0,
+                                np.zeros(y0.size, np.float32), x0,
+                                np.zeros(x0.size, np.float32),
+                                np.ones((y0.size, x0.size), bool),
+                                np.ones(nchan, bool))
+        t = _unpack(packed, (nchan, ny_in, nx_in), y0.size, x0.size)
+        rows = np.unique(np.concatenate([y0, np.minimum(y0 + 1,
+                                                         ny_in - 1)]))
+        assert t["loads"].shape[0] == rows.size

@@ -146,6 +146,28 @@ def test_sigma_clip_plain_matches_fused_pallas(use_mean, nchan):
     assert 0.3 < np.isnan(got).mean() < 0.99
 
 
+@pytest.mark.parametrize("reference", ["fused_pallas", "jnp_band"])
+def test_sigma_clip_plain_keeps_a_spectrum_at_a_rounded_threshold(reference):
+    """A 2-channel spectrum whose clip band edge depends on the last bit
+    of a float32 square root: the correctly rounded root keeps both
+    samples, as the JAX package and the card do (the CPU's float32
+    torch.sqrt, not correctly rounded, clipped both)."""
+    spectrum = np.array([-3.6108625, -0.02096638], np.float32)
+    # every spaxel of the (8, 128) tile the fused kernel takes
+    data = np.ascontiguousarray(np.broadcast_to(spectrum[:, None, None],
+                                                (2, 8, 128)))
+    got = kclip.sigma_clip_plain(torch.as_tensor(data), 1.0, 5,
+                                 False).numpy()
+    if reference == "fused_pallas":
+        want = np.asarray(sigma_clip_fused(data, 1.0, 5, False,
+                                           interpret=True))
+    else:
+        want = np.asarray(jsm.sigma_clip_spectrally(
+            jnp.asarray(data), sigma=1.0, maxiters=5, cenfunc="median"))
+    _assert_same(got, want)
+    _assert_same(got, data)
+
+
 @pytest.mark.parametrize("stdfunc", ["std", "mad_std"])
 @pytest.mark.parametrize("cenfunc", ["median", "mean"])
 def test_sigma_clip_spectrally_matches_jax_ragged(stdfunc, cenfunc):
