@@ -61,8 +61,9 @@
    version and, where one exists, a single PyTorch call computing the same
    function (CUDA events); conv_sep also at 153 taps (the cube beam to a
    90" beam) on the NaN-bordered cube; moments also with a bool include
-   mask in place of the fused comparison; resample2 (held bit for bit)
-   also as its launch alone, its packed taps already on the card.  Each
+   mask in place of the fused comparison; resample2 and
+   resample2_filled (held bit for bit) and banded_matmul also as their
+   launches alone, their packed taps or step tables already on the card.  Each
    kernel's bound is the larger of its bytes over 3.35 TB/s and its
    float32 operations over 67 TFLOP/s (H100 SXM).
 10. Runs a small pipeline, a small varying-resolution pipeline on both
@@ -1034,6 +1035,25 @@ def filled_bound(fz, wz_any, n_out):
                  12 * n_out + 12 * flagged * per_out)
 
 
+def filled_inputs(cube, target):
+    """The filled resample's inputs on ``cube``'s path onto ``target``, as
+    ``cube.reproject`` forms them: (fz, wz, wz_any, taps, valid plane,
+    zvalid)."""
+    from spectral_cube_tpu_torch.ops import regrid as og
+    nchan, ny, nx = cube.shape
+    src = cube._get_filled_data(fill=np.nan)
+    zs, ys, xs, _ = og.reproject_mappings(
+        cube.wcs, target, nchan,
+        spectral_values_in=np.asarray(cube.spectral_axis.value))
+    maps = og.bilinear_host_maps(zs, ys, xs, nchan, ny, nx, 1)
+    zvalid, z0, zf = maps[:3]
+    if not zvalid.all() or abs(float(zf.min()) - 0.25) > 1e-6:
+        raise AssertionError(f"spectral mapping: zf {zf.min()}..{zf.max()}")
+    taps = og._axis_aligned_taps(ys, xs, ny, nx)
+    fz, wz, wz_any = og._zlerp_filled(src, z0, zf)
+    return fz, wz, wz_any, taps, maps[4] & maps[5], zvalid
+
+
 def phase_reproject_spectral(dev, workdir, results):
     """Reprojection of the hole-bearing 623-channel cube, read from FITS
     with no device argument, onto a new spectral axis and a shifted grid."""
@@ -1041,7 +1061,6 @@ def phase_reproject_spectral(dev, workdir, results):
     import spectral_cube_tpu_torch as T
     from spectral_cube_tpu_torch import kernels as K
     from spectral_cube_tpu_torch.kernels import resample2 as kr
-    from spectral_cube_tpu_torch.ops import regrid as og
     log("phase reproject onto a new spectral axis (kernel resample2_filled)")
     cube = T.SpectralCube.read(os.path.join(workdir, "spectral.fits"))
     if cube.device.type != "cuda":
@@ -1080,18 +1099,7 @@ def phase_reproject_spectral(dev, workdir, results):
 
     # the stage against the plain functions on the card, then the kernel
     # against its plain version on the path's inputs, timed
-    src = cube._get_filled_data(fill=np.nan)
-    zs, ys, xs, _ = og.reproject_mappings(
-        cube.wcs, target, NCHAN,
-        spectral_values_in=np.asarray(cube.spectral_axis.value))
-    maps = og.bilinear_host_maps(zs, ys, xs, NCHAN, NY, NX, 1)
-    zvalid, z0, zf = maps[:3]
-    if not zvalid.all() or abs(float(zf.min()) - 0.25) > 1e-6:
-        raise AssertionError(f"spectral mapping: zf {zf.min()}..{zf.max()}")
-    taps = og._axis_aligned_taps(ys, xs, NY, NX)
-    valid = maps[4] & maps[5]
-    fz, wz, wz_any = og._zlerp_filled(src, z0, zf)
-    del src
+    fz, wz, wz_any, taps, valid, zvalid = filled_inputs(cube, target)
     # the kernel reads wz only in flagged channels: the flags must be
     # exactly the channels whose weight plane is not all zero
     if not torch.equal(wz_any, (wz != 0).flatten(1).any(1)):
@@ -1104,16 +1112,20 @@ def phase_reproject_spectral(dev, workdir, results):
     del got, want, rep
     ms = cuda_ms(lambda: kr.resample2_filled(fz, wz, wz_any, *taps, valid,
                                              zvalid), 7)
+    # the launch alone, its packed taps and flags already on the card
+    prep = kr.prepare(fz, *taps, valid, zvalid, wz=wz, wz_any=wz_any)
+    lms = cuda_ms(lambda: kr.launch(fz, prep, wz), 7)
     pms = cuda_ms(lambda: kr.resample2_filled_plain(fz, wz, wz_any, *taps,
                                                     valid, zvalid), 3)
     lib_ms = cuda_ms(grid_sample_call(fz, taps), 3)
     bms, by = filled_bound(fz, wz_any, nz * valid.size)
     log(f"  resample2_filled {nz}x{NY}x{NX} ({int(wz_any.sum())} channels "
-        f"with NaN weights): kernel {ms:.3f} ms, plain {pms:.3f} ms, "
-        f"grid_sample {lib_ms:.3f} ms, bound {bms:.3f} ms ({by})")
+        f"with NaN weights): kernel {ms:.3f} ms (launch alone {lms:.3f} "
+        f"ms), plain {pms:.3f} ms, grid_sample {lib_ms:.3f} ms, bound "
+        f"{bms:.3f} ms ({by}), plan {prep.packed.plan}")
     results["resample2_filled"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
                                        bound_ms=bms, bound_by=by,
-                                       library_ms=lib_ms)
+                                       library_ms=lib_ms, launch_ms=lms)
     del fz, wz, cube
     torch.cuda.empty_cache()
     return counts, peak, first, steady
@@ -1749,6 +1761,9 @@ def phase_banded_matmul(dev, data, results):
         raw, bands), kb.banded_matmul_plain(raw, bands), 2e-6)
     del raw
     ms = cuda_ms(lambda: kb.banded_matmul(x, bands), 7)
+    # the launch alone, its step tables already on the card
+    prep = kb.prepare(x, bands)
+    lms = cuda_ms(lambda: kb.launch(x, prep), 7)
     pms = cuda_ms(lambda: kb.banded_matmul_plain(x, bands), 3)
     lib_ms = cuda_ms(lambda: torch.matmul(Mt, x), 5)
     # each input read once, each output written once; 2 flops per tap of
@@ -1756,11 +1771,12 @@ def phase_banded_matmul(dev, data, results):
     bms, by = bound((BM_NIN + M.shape[0]) * S * 4,
                     2 * int(bands.length.sum()) * S)
     log(f"  banded_matmul {M.shape[0]}x{BM_NIN} on {S} columns: kernel "
-        f"{ms:.3f} ms, plain {pms:.3f} ms, torch.matmul {lib_ms:.3f} ms, "
-        f"bound {bms:.3f} ms ({by})")
+        f"{ms:.3f} ms (launch alone {lms:.3f} ms), plain {pms:.3f} ms, "
+        f"torch.matmul {lib_ms:.3f} ms, bound {bms:.3f} ms ({by}), plan "
+        f"{prep.packed.plan}")
     results["banded_matmul"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
                                     bound_ms=bms, bound_by=by,
-                                    library_ms=lib_ms)
+                                    library_ms=lib_ms, launch_ms=lms)
     del x, Mt
     torch.cuda.empty_cache()
     return counts
@@ -1950,6 +1966,10 @@ def main():
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
+    log("summary: launch alone against the wrapper call: "
+        + ", ".join(f"{k} {results[k]['launch_ms']:.3f} / "
+                    f"{results[k]['ms']:.3f} ms"
+                    for k in ("resample2_filled", "banded_matmul")))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -51,11 +51,12 @@
 // in the plain version's order with __fmul_rn/__fadd_rn, so it equals
 // kernels/resample2.py::resample2_plain bit for bit.
 //
-// sct_resample2_filled replaces spectral_cube_tpu/ops/banded_pallas.py::
-// per_channel_resample_strips, the staged path of a reprojection onto a new
-// spectral axis (ops/regrid.py:351-408): the data come NaN-filled (fz) with
-// a separate NaN-weight plane (wz, the spectrally lerped NaN mask, so
-// fractional), and
+// The filled entry (sct_resample2 with wz set) replaces
+// spectral_cube_tpu/ops/banded_pallas.py::per_channel_resample_strips, the
+// staged path of a reprojection onto a new spectral axis
+// (ops/regrid.py:351-408): the data come NaN-filled (fz) with a separate
+// NaN-weight plane (wz, the spectrally lerped NaN mask, so fractional),
+// and
 //
 //   out = sum w * fz,  NaN where sum w * wz > 1e-6, where valid_plane is 0
 //         and where zvalid[channel] is 0
@@ -64,10 +65,17 @@
 // The caller flags every channel whose wz is not all zero; an unflagged
 // channel never reads wz, as the TPU kernel skips its weight pass for an
 // all-zero block (banded_pallas.py:876), and the plain version skips the
-// test in the same channels.  Bound by device
-// memory: fz and wz read once, out written once.  It keeps one thread per
-// output pixel, x fastest.  Both entries add in the plain version's order
-// with __fmul_rn/__fadd_rn (no FMA contraction), so the filled entry and
+// test in the same channels.  Bound by device memory: fz read once, wz
+// once in each flagged channel, out written once.  It is the raw entry's
+// kernel (kFilled): the same host-planned ring, with a second plane of
+// slots for wz (kernels/resample2.py plans it where any channel is
+// flagged), so a staged row's span of fz, and in a flagged channel the
+// same span of wz, is copied once per strip by the same cp.async forms;
+// an unflagged channel issues no wz copy and runs no poison test, and the
+// channel flags travel in the one packed taps buffer.  Values take the
+// raw entry's finite fast path (fz holds no NaN to drop).  Both entries
+// add in the plain version's order with __fmul_rn/__fadd_rn (no FMA
+// contraction), so the filled entry and
 // kernels/resample2.py::resample2_filled_plain agree bit for bit.
 
 #include <cuda_runtime.h>
@@ -81,10 +89,12 @@ using sct::cp_async4;
 using sct::cp_async_commit;
 using sct::cp_async_wait;
 
-// The raw entry's launch: the packed taps (one device buffer laid out by
-// kernels/resample2.py::pack_taps) and the plan.
+// A launch of either entry: the packed taps (one device buffer laid out by
+// kernels/resample2.py::pack_taps) and the plan.  The filled entry sets wz
+// (and planes to 2 where a channel is flagged).
 struct SctResample2 {
-  const float* raw;       // (nchan, ny_in, nx_in)
+  const float* raw;       // (nchan, ny_in, nx_in): raw data, or fz
+  const float* wz;        // fz's NaN weights (filled entry), else null
   float* out;             // (nchan, ny_out, nx_out)
   const int* rows;        // (ny_out, 2): slot_a | slot_b << 16, wy bits
   const int* cols;        // (strips * width, 2): pos_a | pos_b << 16, wx
@@ -94,15 +104,15 @@ struct SctResample2 {
   const int* loads;       // (loads, 2): input row, slot
   const unsigned* valid;  // (ny_out, vwords): validity bits
   const int* zvalid;      // (nchan,)
+  const int* wflags;      // (nchan,): 1 where wz takes the poison test
   int nchan, ny_in, nx_in, ny_out, nx_out;
   int width, tile_rows, tiles, steps, depth, slots, pitch, form, store16,
       vwords, max_loads;  // max_loads: the most loads a tile lists
+  int planes;             // planes of ring slots: 2 holds wz beside fz
 };
 
 namespace {
 
-constexpr int kTileX = 32;
-constexpr int kTileY = 8;
 constexpr float kPoison = 1e-6f;   // banded_pallas.py:45
 
 __device__ __forceinline__ float nan_to_num(float v) {
@@ -118,7 +128,7 @@ __device__ __forceinline__ float lerp_rn(float ga, float a, float fa,
   return __fadd_rn(__fmul_rn(ga, a), __fmul_rn(fa, b));
 }
 
-// staging forms of the raw entry (kernels/resample2.py FORMS)
+// staging forms (kernels/resample2.py FORMS)
 constexpr int kSpan16 = 0, kSpan4 = 1, kList = 2;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -129,11 +139,12 @@ constexpr int kMaxSlots = 2 * kStepRows * (kMaxDepth + 1);
 constexpr long long kMaxShared = 232448 - 1024;  // per block, sm_90
 
 // kW outputs a lane (columns lane + 32 k of the strip); kStore16: they
-// leave as one 16-byte store of 4 adjacent outputs (kW == 4)
-template <int kW, bool kStore16>
+// leave as one 16-byte store of 4 adjacent outputs (kW == 4); kFilled: the
+// filled entry (fz in a.raw, wz beside it), else the raw entry
+template <int kW, bool kStore16, bool kFilled>
 __global__ void __launch_bounds__(kThreads, 4)
 resample2_kernel(const SctResample2 a) {
-  extern __shared__ __align__(16) float ring[];  // slots x pitch, buffers
+  extern __shared__ __align__(16) float ring[];  // planes x slots x pitch
   constexpr int W = 32 * kW;
   const int nstrips = (a.nx_out + W - 1) / W;
   int b = blockIdx.x;
@@ -156,6 +167,8 @@ resample2_kernel(const SctResample2 a) {
       }
     return;
   }
+  // the filled entry's channel flag: stage wz and test the NaN weight
+  const bool wflag = kFilled && __ldg(a.wflags + c) != 0;
 
   // the strip's x taps: staged positions and weights, once per block
   int pa[kW], pb[kW];
@@ -168,16 +181,20 @@ resample2_kernel(const SctResample2 a) {
     pb[k] = ct.x >> 16;
     fx[k] = __int_as_float(ct.y);
   }
-  const float* Z = a.raw + (long long)c * a.ny_in * a.nx_in;
+  const long long plane = (long long)a.ny_in * a.nx_in;
+  const float* Z = a.raw + c * plane;
+  const float* WZ = kFilled ? a.wz + c * plane : nullptr;
   const int s_lo = __ldg(a.strips + 2 * strip);
   const int span = __ldg(a.strips + 2 * strip + 1);
   const int* lst = a.list + (long long)strip * a.pitch;
+  // wz's slots: the second plane of the ring
+  float* wring = ring + a.slots * a.pitch;
 
   // the tile's tables in shared memory, once per block, so that a step's
   // chain of dependent reads stays on the SM: each row's slots and wy, the
   // strip's validity words, the steps' load offsets and the loads
   int* trows = reinterpret_cast<int*>(
-      ring + a.slots * a.pitch + (kStore16 ? kWarps * 128 : 0));
+      ring + a.planes * a.slots * a.pitch + (kStore16 ? kWarps * 128 : 0));
   unsigned* tvalid = reinterpret_cast<unsigned*>(trows + 2 * a.tile_rows);
   int* tstep = reinterpret_cast<int*>(tvalid + kW * a.tile_rows);
   int* tloads = tstep + ((a.steps + 2) & ~1);
@@ -201,31 +218,35 @@ resample2_kernel(const SctResample2 a) {
     __syncthreads();
   }
 
+  // one staged row's span (or listed columns) from src into dst, by lane
+  auto stage = [&](float* dst, const float* src) {
+    if (a.form == kSpan16) {
+      for (int q = 4 * lane; q < span; q += 128)
+        cp_async16(dst + q, src + s_lo + q);
+    } else if (a.form == kSpan4) {
+      for (int q = lane; q < span; q += 32)
+        cp_async4(dst + q, src + s_lo + q);
+    } else {
+      for (int q = lane; q < span; q += 32)
+        cp_async4(dst + q, src + __ldg(lst + q));
+    }
+  };
   // issue the copies of step s: each warp one listed row at a time
   auto issue = [&](int s) {
     if (s < a.steps) {
       const int e1 = tstep[s + 1];
       for (int e = tstep[s] + warp; e < e1; e += kWarps) {
         const int2 ld = reinterpret_cast<const int2*>(tloads)[e];
-        float* dst = ring + ld.y * a.pitch;
-        const float* src = Z + (long long)ld.x * a.nx_in;
-        if (a.form == kSpan16) {
-          for (int q = 4 * lane; q < span; q += 128)
-            cp_async16(dst + q, src + s_lo + q);
-        } else if (a.form == kSpan4) {
-          for (int q = lane; q < span; q += 32)
-            cp_async4(dst + q, src + s_lo + q);
-        } else {
-          for (int q = lane; q < span; q += 32)
-            cp_async4(dst + q, src + __ldg(lst + q));
-        }
+        const long long row = (long long)ld.x * a.nx_in;
+        stage(ring + ld.y * a.pitch, Z + row);
+        if (kFilled && wflag) stage(wring + ld.y * a.pitch, WZ + row);
       }
     }
     cp_async_commit();
   };
 
   for (int s = 0; s < a.depth; ++s) issue(s);
-  float* buf = ring + a.slots * a.pitch + warp * 128;
+  float* buf = ring + a.planes * a.slots * a.pitch + warp * 128;
   for (int s = 0; s < a.steps; ++s) {
     cp_async_wait(a.depth - 1);  // this thread's copies of step s landed
     __syncthreads();             // everyone's; and step s - 1 is done
@@ -236,8 +257,9 @@ resample2_kernel(const SctResample2 a) {
       const int i = i0 + s * kStepRows + warp + kWarps * r;
       if (i >= i1) break;
       const int2 rw = reinterpret_cast<const int2*>(trows)[i - i0];
-      const float* A = ring + (rw.x & 0xffff) * a.pitch;
-      const float* B = ring + (rw.x >> 16) * a.pitch;
+      const int sa = rw.x & 0xffff, sb = rw.x >> 16;
+      const float* A = ring + sa * a.pitch;
+      const float* B = ring + sb * a.pitch;
       const float fy = __int_as_float(rw.y), gy = __fsub_rn(1.f, fy);
       const unsigned* vrow = tvalid + (i - i0) * kW;
       // first without NaN weights: y taps, then x taps (the order of My @
@@ -254,7 +276,22 @@ resample2_kernel(const SctResample2 a) {
                        lerp_rn(gy, A[pb[k]], fy, B[pb[k]]));
         finite = finite && isfinite(v[k]);
       }
-      if (!__all_sync(0xffffffffu, finite)) {
+      if (kFilled) {
+        // fz is NaN-filled: the values stand; a flagged channel's NaN
+        // weight, summed in the same order, poisons past kPoison
+        if (wflag) {
+          const float* WA = wring + sa * a.pitch;
+          const float* WB = wring + sb * a.pitch;
+#pragma unroll
+          for (int k = 0; k < kW; ++k) {
+            const float wn =
+                lerp_rn(__fsub_rn(1.f, fx[k]),
+                        lerp_rn(gy, WA[pa[k]], fy, WB[pa[k]]), fx[k],
+                        lerp_rn(gy, WA[pb[k]], fy, WB[pb[k]]));
+            if (wn > kPoison) v[k] = NAN;
+          }
+        }
+      } else if (!__all_sync(0xffffffffu, finite)) {
 #pragma unroll
         for (int k = 0; k < kW; ++k) {
           const float zaa = A[pa[k]], zab = A[pb[k]];
@@ -295,12 +332,12 @@ resample2_kernel(const SctResample2 a) {
   cp_async_wait(0);
 }
 
-// shared bytes of the raw entry's plan; -1 where the library does not
-// launch it (width not 32/64/128, 16-byte stores off 128 columns or on
-// rows that are not 16-byte aligned, depth not 1..kMaxDepth, slots past
-// what a step's rows need, span copies off a pitch of whole 16-byte
-// words, or past one block's shared memory)
-__host__ long long raw_smem(const SctResample2& a) {
+// shared bytes of a plan; -1 where the library does not launch it (width
+// not 32/64/128, 16-byte stores off 128 columns or on rows that are not
+// 16-byte aligned, depth not 1..kMaxDepth, slots past what a step's rows
+// need, span copies off a pitch of whole 16-byte words, a second plane of
+// slots without wz, or past one block's shared memory)
+__host__ long long plan_smem(const SctResample2& a) {
   if ((a.width != 32 && a.width != 64 && a.width != 128) ||
       (a.store16 && (a.width != 128 || a.nx_out % 4 != 0)) ||
       a.depth < 1 || a.depth > kMaxDepth || a.slots < 1 ||
@@ -309,19 +346,21 @@ __host__ long long raw_smem(const SctResample2& a) {
       (a.form == kSpan16 && a.nx_in % 4 != 0) || a.tile_rows < 1 ||
       a.tile_rows % kStepRows != 0 || a.steps != a.tile_rows / kStepRows ||
       a.tiles != (a.ny_out + a.tile_rows - 1) / a.tile_rows ||
-      a.vwords != (a.nx_out + 31) / 32 || a.max_loads < 0)
+      a.vwords != (a.nx_out + 31) / 32 || a.max_loads < 0 ||
+      a.planes < 1 || a.planes > 2 || (a.planes == 2 && !a.wz))
     return -1;
   // the ring, the store buffers, the tile's tables (kernel's layout)
   const long long bytes =
-      ((long long)a.slots * a.pitch + (a.store16 ? kWarps * 128 : 0) +
+      ((long long)a.planes * a.slots * a.pitch +
+       (a.store16 ? kWarps * 128 : 0) +
        (2 + a.width / 32) * (long long)a.tile_rows + ((a.steps + 2) & ~1) +
        2LL * a.max_loads) * 4;
   return bytes <= kMaxShared ? bytes : -1;
 }
 
-template <int kW, bool kStore16>
-int launch_raw(const SctResample2& a, long long smem, cudaStream_t st) {
-  auto kernel = resample2_kernel<kW, kStore16>;
+template <int kW, bool kStore16, bool kFilled>
+int launch_plan(const SctResample2& a, long long smem, cudaStream_t st) {
+  auto kernel = resample2_kernel<kW, kStore16, kFilled>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -331,104 +370,44 @@ int launch_raw(const SctResample2& a, long long smem, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-__global__ void __launch_bounds__(kTileX * kTileY)
-resample2_filled_kernel(const float* __restrict__ fz,
-                        const float* __restrict__ wz,
-                        const int* __restrict__ wflags,
-                        const int* __restrict__ y0,
-                        const float* __restrict__ wy,
-                        const int* __restrict__ x0,
-                        const float* __restrict__ wx,
-                        const uint8_t* __restrict__ valid_plane,
-                        const uint8_t* __restrict__ zvalid, int ny_in,
-                        int nx_in, int ny_out, int nx_out, int tiles_x,
-                        int tiles_y, float* __restrict__ out) {
-  const int tiles = tiles_x * tiles_y;
-  const int c = blockIdx.x / tiles;
-  const int tile = blockIdx.x - c * tiles;
-  const int x = (tile % tiles_x) * kTileX + threadIdx.x;
-  const int y = (tile / tiles_x) * kTileY + threadIdx.y;
-  if (x >= nx_out || y >= ny_out) return;
-  const long long o = ((long long)c * ny_out + y) * nx_out + x;
-  if (!zvalid[c] || !valid_plane[(long long)y * nx_out + x]) {
-    out[o] = NAN;
-    return;
+template <bool kFilled>
+int launch_width(const SctResample2& a, long long smem, cudaStream_t st) {
+  switch (a.width) {
+    case 128:
+      return a.store16 ? launch_plan<4, true, kFilled>(a, smem, st)
+                       : launch_plan<4, false, kFilled>(a, smem, st);
+    case 64: return launch_plan<2, false, kFilled>(a, smem, st);
+    default: return launch_plan<1, false, kFilled>(a, smem, st);
   }
-  const int ya = y0[y];
-  const int yb = min(ya + 1, ny_in - 1);
-  const int xa = x0[x];
-  const int xb = min(xa + 1, nx_in - 1);
-  const float fy = wy[y], gy = __fsub_rn(1.f, fy);
-  const float fx = wx[x], gx = __fsub_rn(1.f, fx);
-  const long long base = (long long)c * ny_in * nx_in;
-  const long long iaa = base + (long long)ya * nx_in + xa;
-  const long long iba = base + (long long)yb * nx_in + xa;
-  const long long iab = base + (long long)ya * nx_in + xb;
-  const long long ibb = base + (long long)yb * nx_in + xb;
-  // y taps, then x taps: the order of My @ fz @ Mx^T
-  const float v = lerp_rn(gx, lerp_rn(gy, fz[iaa], fy, fz[iba]), fx,
-                          lerp_rn(gy, fz[iab], fy, fz[ibb]));
-  if (wflags[c]) {
-    const float wn = lerp_rn(gx, lerp_rn(gy, wz[iaa], fy, wz[iba]), fx,
-                             lerp_rn(gy, wz[iab], fy, wz[ibb]));
-    if (wn > kPoison) {
-      out[o] = NAN;
-      return;
-    }
-  }
-  out[o] = v;
 }
 
 }  // namespace
 
 extern "C" int sct_resample2_step_rows() { return kStepRows; }
 
-// Shared bytes of the raw entry's plan, -1 where it is not one this
-// library launches.
+// Shared bytes of a plan, -1 where it is not one this library launches.
 extern "C" long long sct_resample2_smem(const SctResample2* a) {
-  return raw_smem(*a);
+  return plan_smem(*a);
 }
 
-// The raw entry: out = sum w * nan_to_num(raw), NaN by the poison rule,
-// validity and zvalid, with the taps and ring laid out in *a.  Returns the
-// launch's cudaGetLastError().
+// Either entry, with the taps and ring laid out in *a.  The raw entry (wz
+// null): out = sum w * nan_to_num(raw), NaN by the poison rule, validity
+// and zvalid.  The filled entry (wz set; raw holds fz, NaN-filled, and wz
+// its NaN weights, both (nchan, ny_in, nx_in) float32; wflags (nchan,)
+// int32, 1 where the channel's wz takes the poison test, at least wherever
+// wz is not all zero): out = sum w * fz, NaN where a flagged channel's
+// sum w * wz exceeds kPoison, validity and zvalid.  Returns the launch's
+// cudaGetLastError().
 extern "C" int sct_resample2(const SctResample2* a, void* stream) {
   if (a->nchan <= 0 || a->ny_out <= 0 || a->nx_out <= 0)
     return (int)cudaSuccess;
-  const long long smem = raw_smem(*a);
-  if (smem < 0 || (a->form == kSpan16 && ((uintptr_t)a->raw & 15) != 0) ||
-      ((uintptr_t)a->out & 15) != 0)
+  const long long smem = plan_smem(*a);
+  const bool span16 = a->form == kSpan16;
+  if (smem < 0 || (span16 && ((uintptr_t)a->raw & 15) != 0) ||
+      (span16 && a->wz && ((uintptr_t)a->wz & 15) != 0) ||
+      (a->wz && !a->wflags) || ((uintptr_t)a->out & 15) != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (a->width) {
-    case 128:
-      return a->store16 ? launch_raw<4, true>(*a, smem, st)
-                        : launch_raw<4, false>(*a, smem, st);
-    case 64: return launch_raw<2, false>(*a, smem, st);
-    default: return launch_raw<1, false>(*a, smem, st);
-  }
-}
-
-// fz/wz: (nchan, ny_in, nx_in) float32, fz NaN-filled, wz its NaN weights;
-// wflags: (nchan,) int32, 1 where the channel's wz takes the poison test
-// (at least wherever wz is not all zero); the other
-// arguments as sct_resample2.
-extern "C" int sct_resample2_filled(const void* fz, const void* wz,
-                                    const void* wflags, const void* y0,
-                                    const void* wy, const void* x0,
-                                    const void* wx, const void* valid_plane,
-                                    const void* zvalid, int nchan, int ny_in,
-                                    int nx_in, int ny_out, int nx_out,
-                                    void* out, void* stream) {
-  if (nchan <= 0 || ny_out <= 0 || nx_out <= 0) return (int)cudaSuccess;
-  const int tiles_x = (nx_out + kTileX - 1) / kTileX;
-  const int tiles_y = (ny_out + kTileY - 1) / kTileY;
-  const long long blocks = (long long)tiles_x * tiles_y * nchan;
-  resample2_filled_kernel<<<(unsigned)blocks, dim3(kTileX, kTileY), 0,
-                            (cudaStream_t)stream>>>(
-      (const float*)fz, (const float*)wz, (const int*)wflags,
-      (const int*)y0, (const float*)wy, (const int*)x0, (const float*)wx,
-      (const uint8_t*)valid_plane, (const uint8_t*)zvalid, ny_in, nx_in,
-      ny_out, nx_out, tiles_x, tiles_y, (float*)out);
-  return (int)cudaGetLastError();
+  return a->wz ? launch_width<true>(*a, smem, st)
+               : launch_width<false>(*a, smem, st);
 }

@@ -74,9 +74,6 @@ def _declare(lib):
     lib.sct_resample2_smem.restype = LL
     lib.sct_resample2.argtypes = [P, P]
     lib.sct_resample2.restype = I
-    lib.sct_resample2_filled.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I,
-                                         I, I, P, P]
-    lib.sct_resample2_filled.restype = I
     lib.sct_sigma_clip_work.argtypes = [I]
     lib.sct_sigma_clip_work.restype = LL
     lib.sct_sigma_clip_smem.argtypes = [I, I, I, I]
@@ -96,9 +93,11 @@ def _declare(lib):
     lib.sct_conv_reproject_threads.restype = I
     lib.sct_conv_reproject.argtypes = [P, P]
     lib.sct_conv_reproject.restype = I
-    lib.sct_banded_matmul_smem.argtypes = [I, I, I]
+    lib.sct_banded_matmul_warps.argtypes = []
+    lib.sct_banded_matmul_warps.restype = I
+    lib.sct_banded_matmul_smem.argtypes = [P]
     lib.sct_banded_matmul_smem.restype = LL
-    lib.sct_banded_matmul.argtypes = [P, I, LL, P, P, P, I, P, P, I, I, P, P]
+    lib.sct_banded_matmul.argtypes = [P, P]
     lib.sct_banded_matmul.restype = I
     return lib
 

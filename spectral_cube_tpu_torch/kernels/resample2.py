@@ -8,14 +8,15 @@ CPU tensor.  Output row i reads input rows ``y0[i]`` and ``y0[i] + 1``
 (clipped to the plane) with weights ``1 - wy[i]`` and ``wy[i]``; columns
 likewise.
 
-The raw entry's launch is laid out on the host.  :func:`plan` picks the
-strip width, the rows a block walks, the staging form and the ring of
-input rows in shared memory from the shapes and the taps;
-:func:`pack_taps` writes the plan's tables, the taps, the validity bits and
-the channel flags into one int32 buffer, which :func:`prepare` uploads with
-one non-blocking copy from pinned memory (and keeps, keyed by its bytes,
-so a later call with the same taps uploads nothing); :func:`launch` runs
-the kernel on a prepared layout.
+Both entries launch one kernel, laid out on the host.  :func:`plan` picks
+the strip width, the rows a block walks, the staging form and the ring of
+input rows in shared memory from the shapes and the taps (two planes of
+slots for the filled entry where a channel's NaN weights are staged
+beside its values); :func:`pack_taps` writes the plan's tables, the taps,
+the validity bits and the channel flags into one int32 buffer, which
+:func:`prepare` uploads with one non-blocking copy from pinned memory (and
+keeps, keyed by its bytes, so a later call with the same taps uploads
+nothing); :func:`launch` runs the kernel on a prepared layout.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from collections import OrderedDict, namedtuple
 import numpy as np
 import torch
 
-from ._build import load_library, check, ptr, stream_ptr
+from ._build import load_library, check, stream_ptr
 
 __all__ = ["resample2", "resample2_plain", "resample2_filled",
            "resample2_filled_plain", "lerp2", "POISON", "plan", "pack_taps",
@@ -61,13 +62,14 @@ FORMS = {"span16": 0, "span4": 1, "list": 2}
 #: output rows a tile holds at most (its tables sit in shared memory)
 MAX_TILE_ROWS = 1024
 
-#: the raw kernel's launch: strip ``width`` (columns), 16-byte stores of
-#: 4 adjacent outputs, staging ``form`` (a key of FORMS), output rows a
-#: block walks, row tiles, ring ``depth`` (steps in flight), ring
-#: ``slots`` (input rows) of ``pitch`` floats, the most row loads a tile
+#: the kernel's launch: strip ``width`` (columns), 16-byte stores of 4
+#: adjacent outputs, staging ``form`` (a key of FORMS), output rows a block
+#: walks, row tiles, ring ``depth`` (steps in flight), ring ``slots``
+#: (input rows) of ``pitch`` floats in each of ``planes`` (2: the filled
+#: entry's NaN weights beside its values), the most row loads a tile
 #: lists, shared bytes (ring, store buffers and the tile's tables)
 Plan = namedtuple("Plan", "width store16 form tile_rows tiles depth slots "
-                  "pitch max_loads smem")
+                  "pitch max_loads smem planes")
 
 
 def _host_taps(raw, y0, wy, x0, wx, valid_plane, zvalid):
@@ -167,10 +169,11 @@ def _strips(x0, nx_in, width, form):
             None)
 
 
-def plan(y0, x0, ny_in, nx_in, nchan, aligned=True):
-    """The raw kernel's launch for taps ``y0`` (ny_out,) and ``x0``
-    (nx_out,) on (nchan, ny_in, nx_in) data: the widest strip (128, 64 or
-    32 columns) whose ring of input-row spans fits SMEM_SPAN, staged in
+def plan(y0, x0, ny_in, nx_in, nchan, aligned=True, planes=1):
+    """The kernel's launch for taps ``y0`` (ny_out,) and ``x0`` (nx_out,)
+    on (nchan, ny_in, nx_in) data: the widest strip (128, 64 or 32
+    columns) whose ring of input-row spans, ``planes`` of them (2 where
+    the filled entry stages NaN weights too), fits SMEM_SPAN, staged in
     16-byte copies where the input rows are 16-byte aligned (``nx_in % 4
     == 0`` and the base ``aligned``), else 4-byte copies; where no width's
     spans fit (columns far apart), 128 columns whose listed input columns
@@ -196,9 +199,10 @@ def plan(y0, x0, ny_in, nx_in, nchan, aligned=True):
         tile_rows = tiling[0]
         tables = ((2 + width // 32) * tile_rows
                   + ((tile_rows // STEP_ROWS + 2) & ~1) + 2 * loads)
-        smem = (slots * pitch + (WARPS * 128 if store16 else 0) + tables) * 4
+        smem = (planes * slots * pitch + (WARPS * 128 if store16 else 0)
+                + tables) * 4
         return Plan(width, store16, form, *tiling, DEPTH, slots, pitch,
-                    loads, smem)
+                    loads, smem, planes)
 
     for width in WIDTHS:
         p = choice(width, span)
@@ -240,23 +244,27 @@ def _schedule(needed, slots, depth):
 
 #: int32 words of the packed taps: each section starts on 16 bytes
 _SECTIONS = ("rows", "cols", "strips", "list", "step_off", "loads", "valid",
-             "zvalid")
+             "zvalid", "wflags")
 
 #: what :func:`pack_taps` returns: the plan, the int32 words and each
 #: section's word offset
 Packed = namedtuple("Packed", "plan words offsets")
 
 
-def pack_taps(shape, y0, wy, x0, wx, valid_plane, zvalid, aligned=True):
-    """The raw kernel's tables for (nchan, ny_in, nx_in) ``shape`` and
-    checked taps (:func:`_host_taps`), in one int32 buffer: per output row
-    its two ring slots (``a | b << 16``) and ``wy``; per strip column its
-    two staged positions and ``wx``; per strip its first staged column and
+def pack_taps(shape, y0, wy, x0, wx, valid_plane, zvalid, aligned=True,
+              wflags=None):
+    """The kernel's tables for (nchan, ny_in, nx_in) ``shape`` and checked
+    taps (:func:`_host_taps`), in one int32 buffer: per output row its two
+    ring slots (``a | b << 16``) and ``wy``; per strip column its two
+    staged positions and ``wx``; per strip its first staged column and
     count; the list form's staged columns; the ring's loads per step;
     validity bits (bit j % 32 of word j // 32 of row i); one word per
-    channel's ``zvalid``."""
+    channel's ``zvalid``; for the filled entry one word per channel's
+    ``wflags`` (None for the raw entry: no section), whose planes the plan
+    doubles where any channel is flagged."""
     nchan, ny_in, nx_in = shape
-    p = plan(y0, x0, ny_in, nx_in, nchan, aligned)
+    planes = 2 if wflags is not None and np.any(wflags) else 1
+    p = plan(y0, x0, ny_in, nx_in, nchan, aligned, planes)
     needed = _needed(y0, ny_in, p.tile_rows, p.tiles)
     loads, step_off, where = _schedule(needed, p.slots, p.depth)
     steps = p.tile_rows // STEP_ROWS
@@ -285,7 +293,9 @@ def pack_taps(shape, y0, wy, x0, wx, valid_plane, zvalid, aligned=True):
     valid = np.ascontiguousarray(bits).view("<u4").view(np.int32)
     parts = dict(rows=rows, cols=cols, strips=strips, list=lists,
                  step_off=step_off, loads=loads, valid=valid,
-                 zvalid=np.asarray(zvalid, np.int64))
+                 zvalid=np.asarray(zvalid, np.int64),
+                 wflags=np.zeros(0, np.int64) if wflags is None
+                 else np.asarray(wflags, np.int64))
     offsets, n = {}, 0
     for name in _SECTIONS:
         offsets[name] = n
@@ -299,59 +309,81 @@ def pack_taps(shape, y0, wy, x0, wx, valid_plane, zvalid, aligned=True):
 
 class _Args(ctypes.Structure):
     """struct SctResample2 of csrc/resample2.cu."""
-    _fields_ = [(name, ctypes.c_void_p) for name in ("raw", "out")
+    _fields_ = [(name, ctypes.c_void_p) for name in ("raw", "wz", "out")
                 + _SECTIONS] + [
         (name, ctypes.c_int) for name in (
             "nchan", "ny_in", "nx_in", "ny_out", "nx_out", "width",
             "tile_rows", "tiles", "steps", "depth", "slots", "pitch",
-            "form", "store16", "vwords", "max_loads")]
+            "form", "store16", "vwords", "max_loads", "planes")]
 
 
 #: taps prepared on a device: the data's shape and alignment they were
-#: packed for, the output's (ny_out, nx_out), the Packed, its device copy
-Prepared = namedtuple("Prepared", "shape aligned out_shape packed words")
+#: packed for, the output's (ny_out, nx_out), the Packed, its device copy,
+#: and whether they are the filled entry's (channel flags packed)
+Prepared = namedtuple("Prepared", "shape aligned out_shape packed words "
+                      "filled")
 
 _PREPARED = OrderedDict()
 _PREPARED_SIZE = 8
 
 
-def prepare(raw, y0, wy, x0, wx, valid_plane, zvalid=None):
-    """The raw kernel's packed taps for ``raw`` (a CUDA tensor) on its
-    device: checked and packed on the host, then one non-blocking copy from
-    pinned memory.  Kept by the taps' bytes, so a later call with the same
-    taps and shape queues no copy."""
+def _host_flags(wz_any):
+    """The filled entry's channel flags on the host (one small read where
+    they lie on the card)."""
+    if isinstance(wz_any, torch.Tensor):
+        wz_any = wz_any.cpu()
+    return np.asarray(wz_any, dtype=bool)
+
+
+def prepare(raw, y0, wy, x0, wx, valid_plane, zvalid=None, wz=None,
+            wz_any=None):
+    """The kernel's packed taps for ``raw`` (a CUDA tensor; the filled
+    entry's ``fz``, with its NaN weights ``wz`` and channel flags
+    ``wz_any``) on its device: checked and packed on the host, then one
+    non-blocking copy from pinned memory.  Kept by the taps' bytes, so a
+    later call with the same taps and shape queues no copy."""
     y0, wy, x0, wx, valid_plane, zvalid = _host_taps(
         raw, y0, wy, x0, wx, valid_plane, zvalid)
-    aligned = raw.data_ptr() % 16 == 0
+    filled = wz is not None
+    flags = _host_flags(wz_any) if filled else None
+    aligned = raw.data_ptr() % 16 == 0 and (
+        not filled or wz.data_ptr() % 16 == 0)
     h = hashlib.sha256()
-    for a in (y0, wy, x0, wx, np.packbits(valid_plane, axis=None), zvalid):
+    for a in (y0, wy, x0, wx, np.packbits(valid_plane, axis=None), zvalid) \
+            + ((flags,) if filled else ()):
         h.update(str(a.shape).encode())
         h.update(np.ascontiguousarray(a).tobytes())
     key = (str(raw.device), tuple(raw.shape), aligned, valid_plane.shape,
-           h.hexdigest())
+           filled, h.hexdigest())
     got = _PREPARED.get(key)
     if got is not None:
         _PREPARED.move_to_end(key)
         return got
     packed = pack_taps(tuple(raw.shape), y0, wy, x0, wx, valid_plane,
-                       zvalid, aligned)
+                       zvalid, aligned, flags)
     words = torch.from_numpy(packed.words).pin_memory().to(
         raw.device, non_blocking=True)
     got = Prepared(tuple(raw.shape), aligned, valid_plane.shape, packed,
-                   words)
+                   words, filled)
     _PREPARED[key] = got
     if len(_PREPARED) > _PREPARED_SIZE:
         _PREPARED.popitem(last=False)
     return got
 
 
-def launch(raw, prep):
-    """The raw kernel on ``raw`` with taps from :func:`prepare`."""
+def launch(raw, prep, wz=None):
+    """The kernel on ``raw`` (the filled entry's ``fz``, with ``wz``) with
+    taps from :func:`prepare`."""
     if tuple(raw.shape) != prep.shape or raw.device != prep.words.device:
         raise ValueError("the prepared taps are for another shape or device")
-    if raw.dtype != torch.float32 or not raw.is_contiguous():
-        raise ValueError("the resample kernel takes contiguous float32 data")
-    if prep.aligned and raw.data_ptr() % 16 != 0:
+    if (wz is not None) != prep.filled:
+        raise ValueError("the prepared taps are for the other entry")
+    data = (raw,) if wz is None else (raw, wz)
+    if any(t.dtype != torch.float32 or not t.is_contiguous()
+           or t.shape != raw.shape or t.device != raw.device for t in data):
+        raise ValueError("the resample kernel takes contiguous float32 data "
+                         "of one shape on one device")
+    if prep.aligned and any(t.data_ptr() % 16 != 0 for t in data):
         raise ValueError("the prepared taps are for 16-byte aligned data")
     lib = load_library()
     if lib.sct_resample2_step_rows() != STEP_ROWS:
@@ -363,20 +395,26 @@ def launch(raw, prep):
     out = torch.empty((nchan, ny_out, nx_out), dtype=torch.float32,
                       device=raw.device)
     base = prep.words.data_ptr()
-    args = _Args(raw=raw.data_ptr(), out=out.data_ptr(),
+    args = _Args(raw=raw.data_ptr(),
+                 wz=None if wz is None else wz.data_ptr(),
+                 out=out.data_ptr(),
                  **{name: base + 4 * off[name] for name in _SECTIONS},
                  nchan=nchan, ny_in=ny_in, nx_in=nx_in, ny_out=ny_out,
                  nx_out=nx_out, width=p.width, tile_rows=p.tile_rows,
                  tiles=p.tiles, steps=p.tile_rows // STEP_ROWS,
                  depth=p.depth, slots=p.slots, pitch=p.pitch,
                  form=FORMS[p.form], store16=int(p.store16),
-                 vwords=-(-nx_out // 32), max_loads=p.max_loads)
+                 vwords=-(-nx_out // 32), max_loads=p.max_loads,
+                 planes=p.planes)
     if lib.sct_resample2_smem(ctypes.byref(args)) != p.smem:
         raise RuntimeError("csrc/resample2.cu and kernels/resample2.py "
                            "disagree on the plan")
     check(lib.sct_resample2(ctypes.byref(args), stream_ptr(raw.device)),
           "sct_resample2")
-    resample2.launches += 1
+    if wz is None:
+        resample2.launches += 1
+    else:
+        resample2_filled.launches += 1
     return out
 
 
@@ -466,42 +504,15 @@ def resample2_filled(fz, wz, wz_any, y0, wy, x0, wx, valid_plane,
     ``ops/regrid.py::_zlerp_filled`` derives them from the input channels'
     NaNs.  The TPU kernel tests its weight block for a nonzero instead
     (banded_pallas.py:876); taking the flags saves reading ``wz`` here.
-    A CPU tensor takes the plain version; a CUDA tensor the kernel."""
+    A CPU tensor takes the plain version; a CUDA tensor the kernel, whose
+    taps, plan and flags :func:`prepare` packs into one upload."""
     _check_filled(fz, wz, wz_any)
     taps = _host_taps(fz, y0, wy, x0, wx, valid_plane, zvalid)
     if fz.device.type == "cpu":
         return resample2_filled_plain(fz, wz, wz_any, *taps)
     if fz.device.type != "cuda":
         raise ValueError(f"no resample kernel for device {fz.device}")
-    if fz.dtype != torch.float32 or wz.dtype != torch.float32 \
-            or not fz.is_contiguous() or not wz.is_contiguous() \
-            or wz.device != fz.device:
-        raise ValueError("the resample kernel takes contiguous float32 fz "
-                         "and wz on one device")
-    y0, wy, x0, wx, valid_plane, zvalid = taps
-    lib = load_library()
-    dev = fz.device
-    nchan, ny_in, nx_in = fz.shape
-    ny_out, nx_out = valid_plane.shape
-
-    def dev_t(a, dtype):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                               device=dev)
-
-    flags = torch.as_tensor(wz_any, device=dev).to(torch.int32).contiguous()
-    y0_t, x0_t = dev_t(y0, torch.int32), dev_t(x0, torch.int32)
-    wy_t, wx_t = dev_t(wy, torch.float32), dev_t(wx, torch.float32)
-    vp_t = dev_t(valid_plane, torch.uint8)
-    zv_t = dev_t(zvalid, torch.uint8)
-    out = torch.empty((nchan, ny_out, nx_out), dtype=torch.float32,
-                      device=dev)
-    err = lib.sct_resample2_filled(
-        ptr(fz), ptr(wz), ptr(flags), ptr(y0_t), ptr(wy_t), ptr(x0_t),
-        ptr(wx_t), ptr(vp_t), ptr(zv_t), nchan, ny_in, nx_in, ny_out, nx_out,
-        ptr(out), stream_ptr(dev))
-    check(err, "sct_resample2_filled")
-    resample2_filled.launches += 1
-    return out
+    return launch(fz, prepare(fz, *taps, wz=wz, wz_any=wz_any), wz)
 
 
 resample2_filled.launches = 0

@@ -147,3 +147,149 @@ def test_wrapper_checks_its_input():
         kbm.banded_matmul(torch.zeros(128, 4), bands)
     with pytest.raises(ValueError, match="device"):
         kbm.banded_matmul(torch.zeros(256, 4, device="meta"), bands)
+
+
+def _irregular_operator():
+    """A banded (45, 70) operator of uneven rows: spans of 1 to 12
+    columns whose starts are not monotone, an all-zero row, rows of one
+    column, and a zero tap inside row 9's span."""
+    rng = np.random.RandomState(11)
+    nout, nin = 45, 70
+    M = np.zeros((nout, nin), np.float32)
+    for i in range(nout):
+        n = int(rng.randint(1, 13))
+        s = int(rng.randint(0, nin - n + 1))
+        M[i, s:s + n] = rng.randn(n).astype(np.float32) + 2.0
+    M[7] = 0.0
+    M[3] = 0.0
+    M[3, 60] = 1.5
+    M[20] = 0.0
+    M[20, 0] = -0.75
+    nz = np.flatnonzero(M[9])
+    if nz.size < 3:
+        M[9, 30:36] = 1.0
+        nz = np.flatnonzero(M[9])
+    M[9, nz[1]] = 0.0
+    return M
+
+
+_OPERATORS = {"config2": lambda: _config2_operator().astype(np.float32),
+              "irregular": _irregular_operator}
+
+
+def _emulate_kernel(x, bands, packed):
+    """csrc/banded_matmul.cu on the CPU from the packed step tables alone,
+    over all columns at once: each step's row copies land in the ring as
+    soon as they are issued (the earliest the card may land them), each
+    group's records read the ring, and a ring tag checks that the row a
+    record reads is resident in its slot at the step that reads it (the
+    group's first spanned input row plus the record's index).  FMAs in
+    float64 rounded to float32 (an fmaf up to a double rounding).
+    Returns the output and how often each input row was copied."""
+    p = packed.plan
+    f32 = np.float32
+    tables = packed.words.reshape(p.steps, p.table_words)
+    nout = bands.start.shape[0]
+    S = x.shape[1]
+    ring = np.full((p.slots, S), 3.0e30, f32)
+    tag = np.full(p.slots, -1)
+    copies = np.zeros(x.shape[0], np.int64)
+    rec_w = 2 if p.rows == 1 else 4 + p.rows
+    goff = 4 + -(-2 * p.max_loads // 4) * 4
+    end = bands.start + bands.length
+    out = np.full((nout, S), 7.0e30, f32)
+
+    def issue(k):
+        if k >= p.steps:
+            return
+        n = tables[k, 0]
+        assert n <= p.max_loads
+        for row, slot in tables[k, 4:4 + 2 * n].reshape(n, 2):
+            ring[slot] = x[row]
+            tag[slot] = row
+            copies[row] += 1
+
+    for k in range(p.depth):
+        issue(k)
+    for s in range(p.steps):
+        issue(s + p.depth)
+        for w in range(kbm.WARPS):
+            g = s * kbm.WARPS + w
+            rows = np.arange(g * p.rows, min((g + 1) * p.rows, nout))
+            live = rows[bands.length[rows] > 0]
+            at = goff + w * p.group_words
+            n = tables[s, at]
+            rec = tables[s, at + 4:at + 4 + n * rec_w].reshape(n, rec_w)
+            acc = np.zeros((p.rows, S), f32)
+            for u in range(n):
+                if p.rows == 1:
+                    mask, taps = 1, rec[u, 1:2].view(f32)
+                else:
+                    mask, taps = rec[u, 1], rec[u, 4:].view(f32)
+                j = bands.start[live].min() + u
+                for r in range(p.rows):
+                    if (mask >> r) & 1:
+                        i = g * p.rows + r
+                        assert bands.start[i] <= j < end[i]
+                        assert tag[rec[u, 0]] == j
+                        acc[r] = (np.float64(taps[r]) * ring[rec[u, 0]]
+                                  + acc[r]).astype(f32)
+            out[rows] = acc[:rows.size]
+    return out, copies
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+@pytest.mark.parametrize("shape", kbm.SHAPES)
+@pytest.mark.parametrize("which,S", [("config2", 300), ("irregular", 37)])
+def test_kernel_plan_reproduces_the_plain_product(monkeypatch, which, S,
+                                                  shape, depth):
+    """The kernel's walk over its packed step tables, emulated on the CPU
+    for each shape and depth of its plan, on bench config 2's operator
+    and on an irregular one (uneven and non-monotone spans, an empty row,
+    rows of one column, a zero tap inside a span, S not a multiple of
+    4): every record's input row is resident at the step that reads it,
+    each staged row is copied once a strip (a monotone band) or at least
+    once, and the output agrees with the plain version within 2e-6 under
+    the NaN rule, NaN and inf on span edges included."""
+    monkeypatch.setattr(kbm, "SHAPES", (shape,))
+    monkeypatch.setattr(kbm, "DEPTHS", (depth,))
+    M = _OPERATORS[which]()
+    bands = kbm.row_bands(M)
+    packed = kbm.pack(bands)
+    assert (packed.plan.rows, packed.plan.cols, packed.plan.depth) == \
+        (*shape, depth)
+    x = np.random.RandomState(5).randn(M.shape[1], S).astype(np.float32)
+    i = 9
+    lo, hi = int(bands.start[i]), int(bands.start[i] + bands.length[i])
+    x[lo, 3] = np.nan                   # the first column of row 9's span
+    x[hi - 1, 4] = np.inf               # its last
+    x[lo - 1 if lo else hi, 5] = np.nan  # just outside it
+    got, copies = _emulate_kernel(x, bands, packed)
+    want = kbm.banded_matmul_plain(torch.as_tensor(x), bands).numpy()
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    assert np.array_equal(np.isinf(got), np.isinf(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=2e-6, atol=1e-6)
+    span = (bands.start[:, None] <= np.arange(M.shape[1])) \
+        & (np.arange(M.shape[1]) < (bands.start + bands.length)[:, None])
+    assert np.array_equal(~np.isfinite(got[:, 3]), span[:, lo])
+    assert not np.isfinite(got[i, 4])
+    assert np.isfinite(got[i, 5]) == (not span[i, lo - 1 if lo else hi])
+    assert np.array_equal(got[bands.length == 0], 0 * got[bands.length == 0])
+    needed = span.any(0)
+    assert (copies[needed] >= 1).all() and not copies[~needed].any()
+    if which == "config2":
+        assert (copies[needed] == 1).all()
+
+
+def test_plan_on_config2_and_spans_too_wide():
+    """Bench config 2's operator takes 8 rows a warp on 128-column strips
+    with one step in flight, two blocks an SM; a span wider than any ring
+    the card's shared memory holds is refused with ValueError."""
+    p = kbm.plan(kbm.row_bands(_config2_operator().astype(np.float32)))
+    assert (p.rows, p.cols, p.depth, p.steps) == (8, 4, 1, 8)
+    assert p.smem <= kbm.SMEM_TWO
+    wide = np.zeros((8, 60000), np.float32)
+    wide[:, 0] = wide[:, -1] = 1.0
+    with pytest.raises(ValueError, match="too wide"):
+        kbm.plan(kbm.row_bands(wide))

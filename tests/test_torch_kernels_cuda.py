@@ -669,6 +669,72 @@ def test_filled_resample_kernel_matches_plain(cuda, ay, by, ax, bx, flags):
         == (flags != "none")
 
 
+# (input shape, output shape, y map, x map, the filled plan's width and
+# form with a second plane of slots); maps as _RAW_LAYOUTS
+_FILLED_LAYOUTS = {
+    "width128": _RAW_LAYOUTS["many_strips"] + (128, "span16"),
+    "width64": ((2, 99, 264), (64, 130), (1.5, 0.5), (2.0, 0.5), 64,
+                "span16"),
+    "width32": _RAW_LAYOUTS["narrowed"] + (32, "span16"),
+    "listed": _RAW_LAYOUTS["listed_columns"] + (128, "list"),
+    "pitch_131": _RAW_LAYOUTS["nx_out_129_pitch_131"] + (128, "span4"),
+    "flipped": _RAW_LAYOUTS["flipped_y"] + (128, "span16"),
+}
+
+
+@pytest.mark.parametrize("flags", ["mixed", "none"])
+@pytest.mark.parametrize("layout", list(_FILLED_LAYOUTS))
+def test_filled_resample_kernel_layouts_bitwise(cuda, layout, flags):
+    """The filled resample bit for bit against its plain version at each
+    width and staging form its plan takes with two planes of slots (128,
+    64, 32 columns, listed columns, 4-byte copies on rows that are not
+    16-byte aligned, a flip), with fractional NaN weights, a zvalid-0
+    channel and an unflagged channel, or every channel unflagged (one
+    plane); and on fz and wz whose base is 4-byte but not 16-byte aligned
+    (4-byte copies)."""
+    shape, (ny, nx), (ay, by), xmap, width, form = _FILLED_LAYOUTS[layout]
+    rng = np.random.RandomState(31)
+    fz = torch.as_tensor(rng.randn(*shape).astype(np.float32))
+    wz = torch.zeros_like(fz)
+    hit = torch.as_tensor(rng.rand(*shape[1:]) < 0.02)
+    wz[0][hit] = torch.as_tensor(
+        rng.choice([0.25, 1.0, 1e-7], int(hit.sum())).astype(np.float32))
+    wz[-1] = 1.0               # unflagged: its weights are never read
+    y0, wy = _axis_taps(ny, shape[1], ay, by)
+    if xmap == "perm":
+        x0 = rng.permutation(shape[2] - 1)[:nx]
+        wx = rng.rand(nx).astype(np.float32)
+    else:
+        x0, wx = _axis_taps(nx, shape[2], *xmap)
+    valid = rng.rand(ny, nx) > 0.1
+    zvalid = np.ones(shape[0], bool)
+    if shape[0] > 2:
+        zvalid[1] = False
+    wz_any = torch.zeros(shape[0], dtype=torch.bool)
+    if flags == "mixed":
+        wz_any[:-1] = True
+    planes = 2 if flags == "mixed" else 1
+    p = kres.plan(y0, x0, shape[1], shape[2], shape[0], True, planes)
+    if planes == 2:
+        assert (p.width, p.form) == (width, form)
+    want = kres.resample2_filled_plain(fz, wz, wz_any, y0, wy, x0, wx, valid,
+                                       zvalid)
+    assert bool(torch.isnan(want[0][torch.as_tensor(valid)]).any()) \
+        == (flags == "mixed")
+    n0 = kres.resample2_filled.launches
+    got = kres.resample2_filled(fz.to(cuda), wz.to(cuda), wz_any.to(cuda),
+                                y0, wy, x0, wx, valid, zvalid)
+    torch.cuda.synchronize()
+    assert kres.resample2_filled.launches == n0 + 1
+    _equal(got, want)
+    bufs = [torch.empty(fz.numel() + 1, device=cuda) for _ in range(2)]
+    fzs, wzs = (b[1:].view(fz.shape) for b in bufs)
+    fzs.copy_(fz.to(cuda))
+    wzs.copy_(wz.to(cuda))
+    _equal(kres.resample2_filled(fzs, wzs, wz_any, y0, wy, x0, wx, valid,
+                                 zvalid), want)
+
+
 def _gauss2d(sy, sx, theta, size):
     x = np.arange(size) - size // 2
     yy, xx = np.meshgrid(x, x, indexing="ij")
@@ -928,6 +994,78 @@ def test_banded_matmul_kernel_matches_plain(cuda, S, nonfinite):
         rows = np.nonzero(M[:, 100])[0]
         assert np.isnan(g[rows, 45]).all()
         assert np.isfinite(np.delete(g[:, 45], rows)).all()
+
+
+def _irregular_operator():
+    """A banded (45, 70) operator of uneven rows (as
+    tests/test_torch_banded_matmul.py's): spans of 1 to 12 columns whose
+    starts are not monotone, all-zero row 7, one-column rows 3 and 20, a
+    zero tap inside row 9's span."""
+    rng = np.random.RandomState(11)
+    M = np.zeros((45, 70), np.float32)
+    for i in range(45):
+        n = int(rng.randint(1, 13))
+        s = int(rng.randint(0, 70 - n + 1))
+        M[i, s:s + n] = rng.randn(n).astype(np.float32) + 2.0
+    M[7] = 0.0
+    M[3] = 0.0
+    M[3, 60] = 1.5
+    M[20] = 0.0
+    M[20, 0] = -0.75
+    M[9] = 0.0
+    M[9, 30:36] = 1.0
+    M[9, 31] = 0.0
+    return M
+
+
+@pytest.mark.parametrize("S", [1000, 4096, "offset"])
+@pytest.mark.parametrize("shape", [(8, 4), (1, 4), (1, 1)])
+@pytest.mark.parametrize("which", ["config2", "irregular"])
+def test_banded_matmul_kernel_plans_and_edges(cuda, monkeypatch, which,
+                                              shape, S):
+    """Kernel 7 in each shape of its plan (8 rows a warp on 128-column
+    strips, one row a warp, 32-column strips) on bench config 2's operator
+    and an irregular one (uneven, non-monotone spans, an empty row, rows
+    of one column), S of 1000 (4-byte copies, scalar stores) and 4096
+    (16-byte), and 4096 columns on a base one float off (4-byte copies):
+    within 2e-6 of its plain version, the same NaN and inf patterns with
+    NaN and inf on the edges of row 9's span and just outside it, the
+    empty row 0."""
+    from spectral_cube_tpu_torch.kernels import banded_matmul as kbm
+    monkeypatch.setattr(kbm, "SHAPES", (shape,))
+    monkeypatch.setattr(kbm, "_PREPARED", type(kbm._PREPARED)())
+    M = _config2_operator()[0] if which == "config2" \
+        else _irregular_operator()
+    bands = kbm.row_bands(M)
+    ncol = 4096 if S == "offset" else S
+    x = np.random.RandomState(13).randn(M.shape[1], ncol).astype(np.float32)
+    lo, hi = int(bands.start[9]), int(bands.start[9] + bands.length[9])
+    x[lo, 3] = np.nan
+    x[hi - 1, 4] = np.inf
+    x[hi, 5] = np.nan
+    x[lo, ncol - 1] = np.inf
+    if S == "offset":
+        buf = torch.empty(x.size + 1, device=cuda)
+        xt = buf[1:].view(x.shape)
+        xt.copy_(torch.as_tensor(x))
+    else:
+        xt = torch.as_tensor(x, device=cuda)
+    kbm.banded_matmul.launches = 0
+    got = kbm.banded_matmul(xt, bands)
+    torch.cuda.synchronize()
+    assert kbm.banded_matmul.launches == 1
+    assert kbm.prepare(xt, bands).packed.plan[:2] == shape
+    want = kbm.banded_matmul_plain(xt, bands)
+    _close(got, want, rtol=2e-6, atol=1e-6)
+    g = got.cpu().numpy()
+    assert np.array_equal(np.isinf(g), np.isinf(want.cpu().numpy()))
+    span = (bands.start[:, None] <= np.arange(M.shape[1])) \
+        & (np.arange(M.shape[1]) < (bands.start + bands.length)[:, None])
+    assert np.array_equal(~np.isfinite(g[:, 3]), span[:, lo])
+    assert np.array_equal(~np.isfinite(g[:, 5]), span[:, hi])
+    assert not np.isfinite(g[9, [3, 4, ncol - 1]]).any()
+    if which == "irregular":
+        assert not g[7].any()
 
 
 def test_banded_matmul_strips_on_cuda(cuda):

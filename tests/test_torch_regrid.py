@@ -502,19 +502,33 @@ def _unpack(packed, shape, ny_out, nx_out):
         loads=sec("loads", 2 * int(step_off[-1])).reshape(-1, 2),
         valid=sec("valid", ny_out * vwords).view(np.uint32)
         .reshape(ny_out, vwords),
-        zvalid=sec("zvalid", nchan))
+        zvalid=sec("zvalid", nchan),
+        wflags=(sec("wflags", nchan) if p.planes == 2
+                else np.zeros(nchan, np.int32)))
 
 
-def _emulate_raw_kernel(raw, y0, packed, ny_out, nx_out):
-    """csrc/resample2.cu's raw kernel on the CPU from the packed buffer
-    alone, every block in turn, in float32 with its order of roundings.
-    Each step's copies land in the ring as soon as they are issued (the
-    earliest the card may land them), so a slot that a step still reads
-    and a later step's copy overwrites gives a wrong value; the ring's
-    tags also check that every output row reads its own two input rows."""
+def _emulate_kernel(raw, y0, packed, ny_out, nx_out, wz=None,
+                    channels=None, nplan=None):
+    """csrc/resample2.cu's kernel on the CPU from the packed buffer alone,
+    every block in turn, in float32 with its order of roundings: the raw
+    entry on ``raw``, or with ``wz`` the filled entry on ``raw`` = fz.
+    ``channels``: the plan's channels (of ``nplan``) that the data's
+    channels are (all of them by default).  Each step's copies land in the ring as soon as they
+    are issued (the earliest the card may land them), so a slot that a
+    step still reads and a later step's copy overwrites gives a wrong
+    value; the ring's tags also check that every output row reads its own
+    two input rows.  Returns the output and, per data channel, the rows
+    of fz and of wz that its blocks copied."""
     p = packed.plan
     nchan, ny_in, nx_in = raw.shape
-    t = _unpack(packed, raw.shape, ny_out, nx_out)
+    if channels is None:
+        channels, nplan = np.arange(nchan), nchan
+    t = _unpack(packed, (nplan,) + raw.shape[1:], ny_out, nx_out)
+    live = t["zvalid"][channels] != 0        # a zvalid-0 block reads nothing
+    flagged = live & (t["wflags"][channels] != 0)
+    live_at, flagged_at = np.flatnonzero(live), np.flatnonzero(flagged)
+    copies = {"fz": np.zeros(nchan, np.int64), "wz": np.zeros(nchan,
+                                                              np.int64)}
     ya = np.asarray(y0, np.int64)
     yb = np.minimum(ya + 1, ny_in - 1)
     f32 = np.float32
@@ -528,7 +542,7 @@ def _emulate_raw_kernel(raw, y0, packed, ny_out, nx_out):
         gx = f32(1) - fx
         s_lo, span = t["strips"][st]
         for tile in range(p.tiles):
-            ring = np.full((nchan, p.slots, p.pitch), 3.0e30, f32)
+            ring = np.full((p.planes, nchan, p.slots, p.pitch), 3.0e30, f32)
             tag = np.full(p.slots, -1)
             so = t["step_off"][tile * t["steps"]:]
 
@@ -538,7 +552,12 @@ def _emulate_raw_kernel(raw, y0, packed, ny_out, nx_out):
                 for row, slot in t["loads"][so[s]:so[s + 1]]:
                     cols = (t["list"][st, :span] if p.form == "list"
                             else s_lo + np.arange(span))
-                    ring[:, slot, :span] = raw[:, row, cols]
+                    ring[0, live, slot, :span] = raw[live_at, row][:, cols]
+                    copies["fz"][live] += 1
+                    if wz is not None and flagged.any():
+                        ring[1, flagged, slot, :span] = \
+                            wz[flagged_at, row][:, cols]
+                        copies["wz"][flagged] += 1
                     tag[slot] = row
 
             for s in range(p.depth):
@@ -553,24 +572,34 @@ def _emulate_raw_kernel(raw, y0, packed, ny_out, nx_out):
                     assert (tag[ra], tag[rb]) == (ya[i], yb[i])
                     fy = t["rows"][i, 1:2].view(f32)[0]
                     gy = f32(1) - fy
-                    A, B = ring[:, ra], ring[:, rb]
+                    A, B = ring[0][:, ra], ring[0][:, rb]
                     za, zb = A[:, pa], A[:, pb]
                     zc, zd = B[:, pa], B[:, pb]
-                    nz = np.nan_to_num
-                    ta = gy * nz(za) + fy * nz(zc)
-                    tb = gy * nz(zb) + fy * nz(zd)
-                    na = gy * np.isnan(za).astype(f32) \
-                        + fy * np.isnan(zc).astype(f32)
-                    nb = gy * np.isnan(zb).astype(f32) \
-                        + fy * np.isnan(zd).astype(f32)
-                    wn = gx * na + fx * nb
+                    if wz is None:
+                        nz = np.nan_to_num
+                        ta = gy * nz(za) + fy * nz(zc)
+                        tb = gy * nz(zb) + fy * nz(zd)
+                        na = gy * np.isnan(za).astype(f32) \
+                            + fy * np.isnan(zc).astype(f32)
+                        nb = gy * np.isnan(zb).astype(f32) \
+                            + fy * np.isnan(zd).astype(f32)
+                        poison = gx * na + fx * nb > f32(kres.POISON)
+                    else:
+                        ta, tb = gy * za + fy * zc, gy * zb + fy * zd
+                        poison = np.zeros((nchan, p.width), bool)
+                        if flagged.any():           # the second plane
+                            WA, WB = ring[1][:, ra], ring[1][:, rb]
+                            wn = gx * (gy * WA[:, pa] + fy * WB[:, pa]) \
+                                + fx * (gy * WA[:, pb] + fy * WB[:, pb])
+                            poison = flagged[:, None] \
+                                & (wn > f32(kres.POISON))
                     jj = np.minimum(j, nx_out - 1)
                     bit = (t["valid"][i, jj >> 5] >> (jj & 31)) & 1
-                    v = np.where((bit == 1) & ~(wn > f32(kres.POISON)),
-                                 gx * ta + fx * tb, f32(np.nan))
+                    v = np.where((bit == 1) & ~poison, gx * ta + fx * tb,
+                                 f32(np.nan))
                     out[:, i, j[inr]] = v[:, inr]
-    out[t["zvalid"] == 0] = np.nan
-    return out
+    out[~live] = np.nan
+    return out, copies
 
 
 def _raw_case(case):
@@ -646,11 +675,101 @@ def test_raw_kernel_layout_reproduces_the_plain_resample(case):
             >> (np.arange(valid.shape[1]) & 31)) & 1
     np.testing.assert_array_equal(bits == 1, valid)
     np.testing.assert_array_equal(t["zvalid"] != 0, zvalid)
-    got = _emulate_raw_kernel(data, y0, packed, *valid.shape)
+    got, copies = _emulate_kernel(data, y0, packed, *valid.shape)
+    np.testing.assert_array_equal(copies["fz"] == 0, ~zvalid)
+    assert not copies["wz"].any()
     want = kres.resample2_plain(torch.as_tensor(data), y0, wy, x0, wx, valid,
                                 zvalid).numpy()
     assert np.array_equal(np.isnan(got), np.isnan(want))
     np.testing.assert_array_equal(np.nan_to_num(got), np.nan_to_num(want))
+
+
+def _filled_case(case):
+    """(fz, wz, wz_any, y0, wy, x0, wx, valid, zvalid, aligned, channels,
+    nplan) of one filled layout: the data's channels are the plan's
+    ``channels`` of ``nplan``; channel 1 of the data is unflagged with a
+    weight plane of ones (never read), the others hold fractional NaN
+    weights."""
+    rng = np.random.RandomState(23)
+    if case.startswith("path") or case in ("scaled", "flip"):
+        # the path's 311 channels on 768^2, onto the shifted grid, a 1.07x
+        # scaled 700^2 grid or a flip; data for three of the channels:
+        # flagged, unflagged and zvalid 0
+        nplan, ny_in, nx_in = 311, 768, 768
+        n_out, a, b = {"scaled": (700, 1.07, 9.0),
+                       "flip": (768, -1.0, 767.3)}.get(case,
+                                                       (768, 1.0, -0.61))
+        y0, wy = _axis_taps(n_out, ny_in, a, b)
+        x0, wx = _axis_taps(n_out, nx_in, abs(a), 0.37)
+        channels = np.array([0, 5, 9])
+        flags = np.ones(nplan, bool)
+        flags[5] = False
+        if case == "path_unflagged":
+            flags[:] = False
+        zvalid = np.ones(nplan, bool)
+        zvalid[9] = False
+        valid = rng.rand(n_out, n_out) > 0.1
+        aligned = True
+    else:
+        data, y0, wy, x0, wx, valid, zvalid, aligned = _raw_case(case)
+        nplan, ny_in, nx_in = data.shape
+        channels = np.arange(nplan)
+        flags = np.ones(nplan, bool)
+        flags[1] = False
+    fz = rng.randn(len(channels), ny_in, nx_in).astype(np.float32)
+    wz = np.zeros_like(fz)
+    for c in range(len(channels)):
+        if flags[channels[c]]:
+            hit = rng.rand(ny_in, nx_in) < 0.01
+            wz[c][hit] = rng.choice([0.25, 0.5, 1.0, 1e-7], hit.sum())
+        else:
+            wz[c] = 1.0
+    return (fz, wz, flags, y0, wy, x0, wx, valid, zvalid, aligned, channels,
+            nplan)
+
+
+@pytest.mark.parametrize("case", ["path", "path_unflagged", "scaled", "flip",
+                                  "unaligned", "listed"])
+def test_filled_kernel_layout_reproduces_the_plain_resample(case):
+    """The filled entry's packed taps (flags included) and the kernel's
+    walk over them, emulated on the CPU with copies landing as early as
+    the card may land them, on the path's shape (311 x 768 x 768 onto the
+    shifted grid, flagged or not), a scaled grid, a flip, an unaligned
+    plane and listed columns: an unflagged channel copies no wz row, a
+    zvalid-0 channel copies nothing, a flagged one copies each staged row
+    of both planes once, and the output equals resample2_filled_plain bit
+    for bit."""
+    (fz, wz, flags, y0, wy, x0, wx, valid, zvalid, aligned, channels,
+     nplan) = _filled_case(case)
+    shape = (nplan,) + fz.shape[1:]
+    packed = kres.pack_taps(shape, y0, wy, x0, wx, valid, zvalid, aligned,
+                            flags)
+    p = packed.plan
+    assert p.planes == (2 if flags.any() else 1)
+    t = _unpack(packed, shape, *valid.shape)
+    if flags.any():
+        np.testing.assert_array_equal(t["wflags"] != 0, flags)
+    if case.startswith("path"):
+        # two planes of a translation's 49 slots fit two blocks an SM
+        assert (p.width, p.form, p.store16, p.slots) == (128, "span16",
+                                                          True, 49)
+        assert p.smem <= kres.SMEM_SPAN
+    got, copies = _emulate_kernel(fz, y0, packed, *valid.shape, wz=wz,
+                                  channels=channels, nplan=nplan)
+    live = zvalid[channels]
+    flagged = live & flags[channels]
+    np.testing.assert_array_equal(copies["fz"] == 0, ~live)
+    np.testing.assert_array_equal(copies["wz"] == 0, ~flagged)
+    np.testing.assert_array_equal(copies["wz"][flagged],
+                                  copies["fz"][flagged])
+    want = kres.resample2_filled_plain(
+        torch.as_tensor(fz), torch.as_tensor(wz),
+        torch.as_tensor(flags[channels]), y0, wy, x0, wx, valid,
+        zvalid[channels]).numpy()
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.nan_to_num(got), np.nan_to_num(want))
+    # the weights poison the first channel only where it is flagged
+    assert (np.isnan(want[0]).mean() > (~valid).mean()) == flags.any()
 
 
 @pytest.mark.parametrize("case,width,form,store16", [

@@ -1,39 +1,53 @@
-"""Time two versions of run_pipeline's memory-bound kernels (moments and
-the raw resample) in turns on one GPU.
+"""Time two versions of the port's memory-bound kernels (moments, the raw
+and the filled resample, and the banded product) in turns on one GPU.
 
     git archive REV | tar -x -C OLD      # OLD listed in .gitignore
     python3 tools/memory_ab.py --parent OLD [--ptxas] [--only KERNEL]
-    python3 tools/memory_ab.py --probe [--ptxas]
+    python3 tools/memory_ab.py --probe [--ptxas] [--only KERNEL]
 
+KERNEL is one of moments, resample2, resample2_filled, banded_matmul.
 ``OLD`` is an unpacked checkout of another commit (for example the parent
-of a change to ``csrc/moments.cu`` or ``csrc/resample2.cu``).  Its kernels
-are driven through its own wrappers (``kernels/moments.py`` and
-``kernels/resample2.py`` of that tree, built there as that package
+of a change to ``csrc/moments.cu``, ``csrc/resample2.cu`` or
+``csrc/banded_matmul.cu``).  Its kernels are driven through its own
+wrappers (``kernels/*.py`` of that tree, built there as that package
 builds), in a worker process whose import path starts at ``OLD``, since
 the C interfaces of the two versions may differ.  This process drives the
 package it belongs to.  Both make ``chip_smoke.py``'s inputs on the card
-from its seeds: the 623 x 768 x 768 cube with its NaN border ("nan") and
-with every NaN set to 0 ("clean"), resampled onto the pipeline's shifted
-grid (a translation) and onto the 700 x 700 grid of 1.07x pixels; and
-the moments phase's masked cubes (the border plus 40 NaN rows and one NaN
-plane) at 623 and 1024 channels, with the fused comparison (> 0.75) or the
-same predicate as a bool include mask, with and without statistics.
+from its seeds, each kernel's only when it runs: the 623 x 768 x 768 cube
+with its NaN border ("nan") and with every NaN set to 0 ("clean"),
+resampled onto the pipeline's shifted grid (a translation) and onto the
+700 x 700 grid of 1.07x pixels; the moments phase's masked cubes (the
+border plus 40 NaN rows and one NaN plane) at 623 and 1024 channels, with
+the fused comparison (> 0.75) or the same predicate as a bool include
+mask, with and without statistics; the filled resample of the spectral
+cube (NaN border and holes) onto 311 channels and the shifted grid, as
+``cube.reproject`` forms its inputs (every channel flagged); and bench
+config 2's banded operator (512 -> 256) on the first 512 channels of the
+cube viewed as (512, 589824), clean, with its NaN border, and with every
+row cut to its first tap ("len1": a row's copies and stores with one FMA,
+though a row then spans fewer input rows).
 
 For each case it times the parent and the package with CUDA events in the
 order parent, package, package, parent (each time a wrapper call, host
 work included), then each one's kernel alone (its device time in a
-torch.profiler trace), checks that the moments planes and counts are
-bitwise equal between the two and that the resample's NaN patterns are
-equal, and prints the resample's largest value difference from the
-parent.  Exits 1
-if a bitwise check fails.  ``--ptxas`` prints the registers, spills and
+torch.profiler trace), checks that the moments planes and counts and the
+filled resample are bitwise equal between the two and that the raw
+resample's and the banded product's NaN patterns are equal, and prints
+their largest value difference from the parent.  Exits 1 if a check
+fails.  ``--ptxas`` prints the registers, spills and
 shared memory of both versions' kernels first (``nvcc -Xptxas -v``) and
 the package's SASS instruction counts per kernel.
 ``--probe`` times only the package's kernels on inputs and plans that take
-parts of their work away: the resample's wrapper against its launch alone
-(taps already on the card), every channel invalid (writes only), one
+parts of their work away: the raw resample's wrapper against its launch
+alone (taps already on the card), every channel invalid (writes only), one
 output column (the whole compute, almost nothing staged or written),
 scalar against 16-byte stores, and rings of 1 to 3 steps in flight; the
+filled resample's wrapper against its launch alone, every channel
+unflagged (no wz staged), every channel invalid, one output column, rings
+of 1 and 3 steps and 64-column strips; the banded product's wrapper
+against its launch alone, its tables cut to one record a group (the same
+copies and stores, one FMA a row), one output row stored (the same copies
+and FMAs), a ring of 2 steps (one block an SM) and its other shapes; the
 moments kernel on an all-NaN cube (copies and stores only), with the mask
 fused or as an include array, with 4-byte copies and with rings of 3 and
 4 stages.  Each probe time is given three ways: single calls between CUDA
@@ -62,10 +76,19 @@ CASES = tuple(
      for mask in ("fused", "include") for stats in ("nostats", "stats")]
     + [("resample2", label, kind, "-") for label in ("translation",
                                                       "scaled")
-       for kind in ("nan", "clean")])
-SOURCES = ("moments.cu", "resample2.cu")
-#: each case's kernel, as the profiler names it
-KERNEL_NAMES = {"moments": "moments_kernel", "resample2": "resample2_kernel"}
+       for kind in ("nan", "clean")]
+    + [("resample2_filled", "spectral", "nan", "-")]
+    + [("banded_matmul", "config2", kind, "-")
+       for kind in ("clean", "nan", "len1")])
+KERNELS = ("moments", "resample2", "resample2_filled", "banded_matmul")
+SOURCES = ("moments.cu", "resample2.cu", "banded_matmul.cu")
+#: each case's kernel, as the profiler names it (a name the kernels of
+#: both versions hold)
+KERNEL_NAMES = {"moments": "moments_kernel", "resample2": "resample2_kernel",
+                "resample2_filled": "resample2",
+                "banded_matmul": "banded_matmul_kernel"}
+#: kernels whose outputs must be bitwise equal to the parent's
+BITWISE = ("moments", "resample2_filled")
 
 
 def _chip_smoke():
@@ -78,32 +101,97 @@ def _chip_smoke():
 
 
 class Inputs:
-    """The cases' inputs, on the card."""
+    """The cases' inputs, made on the card at first use."""
 
     def __init__(self, cs):
-        import torch
-        dev = torch.device("cuda", 0)
-        nan = torch.as_tensor(cs.synth_cube(cs.NCHAN, cs.NY, cs.NX, cs.SEED),
-                              device=dev)
-        self.raw = {"nan": nan, "clean": torch.nan_to_num(nan, nan=0.0)}
-        masked = nan.clone()
-        big = torch.as_tensor(cs.synth_cube(1024, cs.NY, cs.NX, cs.SEED + 2),
-                              device=dev)
-        self.mom = {}
-        for n, x in ((623, masked), (1024, big)):
-            x[:, :40] = float("nan")
-            x[7] = float("nan")
-            self.mom[n] = x
-        self.inc = {n: x > 0.75 for n, x in self.mom.items()}
-        self.coords = {n: np.arange(x.shape[0]) * 0.25
-                       for n, x in self.mom.items()}
-        header = cs.synth_header(cs.NCHAN, cs.NY, cs.NX)
-        self.targets = {label: (taps, valid, maps[0]) for label, taps, valid,
-                        maps in cs.resample_cases(header)}
         self.cs = cs
+        self._made = {}
+
+    def _get(self, name, make):
+        if name not in self._made:
+            self._made[name] = make()
+        return self._made[name]
+
+    @property
+    def raw(self):
+        import torch
+        cs = self.cs
+
+        def make():
+            nan = torch.as_tensor(cs.synth_cube(cs.NCHAN, cs.NY, cs.NX,
+                                                cs.SEED), device="cuda")
+            return {"nan": nan, "clean": torch.nan_to_num(nan, nan=0.0)}
+        return self._get("raw", make)
+
+    @property
+    def targets(self):
+        cs = self.cs
+        return self._get("targets", lambda: {
+            label: (taps, valid, maps[0]) for label, taps, valid, maps
+            in cs.resample_cases(cs.synth_header(cs.NCHAN, cs.NY, cs.NX))})
+
+    @property
+    def mom(self):
+        import torch
+        cs = self.cs
+
+        def make():
+            masked = self.raw["nan"].clone()
+            big = torch.as_tensor(cs.synth_cube(1024, cs.NY, cs.NX,
+                                                cs.SEED + 2), device="cuda")
+            for x in (masked, big):
+                x[:, :40] = float("nan")
+                x[7] = float("nan")
+            return {623: masked, 1024: big}
+        return self._get("mom", make)
+
+    @property
+    def inc(self):
+        return self._get("inc", lambda: {n: x > 0.75
+                                         for n, x in self.mom.items()})
+
+    @property
+    def coords(self):
+        return {n: np.arange(x.shape[0]) * 0.25 for n, x in self.mom.items()}
+
+    @property
+    def filled(self):
+        """(fz, wz, wz_any, taps, valid, zvalid) of the spectral cube onto
+        chip_smoke.py's 311-channel target."""
+        cs = self.cs
+
+        def make():
+            import spectral_cube_tpu_torch as T
+            from spectral_cube_tpu_torch.wcs import WCS
+            h = cs.synth_header(cs.NCHAN, cs.NY, cs.NX)
+            data = cs.add_holes(cs.synth_cube(cs.NCHAN, cs.NY, cs.NX,
+                                              cs.SEED + 3), cs.SEED + 4)
+            cube = T.SpectralCube(data, WCS(header=h), header=h,
+                                  device="cuda")
+            return cs.filled_inputs(cube, cs.spectral_target(h))
+        return self._get("filled", make)
+
+    @property
+    def banded(self):
+        """bench config 2's operator: its bands, the bands cut to one tap
+        a row, and the (512, 589824) clean and NaN-border data."""
+        import torch
+        cs = self.cs
+
+        def make():
+            from spectral_cube_tpu_torch.kernels import banded_matmul as kb
+            bands = kb.row_bands(cs.config2_operator(cs.BM_NIN))
+            one = kb.RowBands(bands.start, np.minimum(bands.length, 1),
+                              np.ascontiguousarray(bands.taps[:, :1]),
+                              bands.nin)
+            nan = self.raw["nan"][:cs.BM_NIN].reshape(cs.BM_NIN, -1)
+            return {"bands": bands, "len1": one, "nan": nan,
+                    "clean": torch.nan_to_num(nan, nan=0.0)}
+        return self._get("banded", make)
 
     def call(self, kernel, a, b, c):
         """The case's launch through this process's package."""
+        from spectral_cube_tpu_torch.kernels import banded_matmul as kb
         from spectral_cube_tpu_torch.kernels import moments as km
         from spectral_cube_tpu_torch.kernels import resample2 as kr
         if kernel == "moments":
@@ -113,6 +201,15 @@ class Inputs:
                 return lambda: km.moments_planes(x, xc, 1, 0.75, None, stats)
             inc = self.inc[n]
             return lambda: km.moments_planes(x, xc, 0, 0.0, inc, stats)
+        if kernel == "resample2_filled":
+            fz, wz, wz_any, taps, valid, zvalid = self.filled
+            return lambda: kr.resample2_filled(fz, wz, wz_any, *taps, valid,
+                                               zvalid)
+        if kernel == "banded_matmul":
+            d = self.banded
+            bands = d["len1"] if b == "len1" else d["bands"]
+            x = d["clean" if b == "len1" else b]
+            return lambda: kb.banded_matmul(x, bands)
         taps, valid, zvalid = self.targets[a]
         x = self.raw[b]
         return lambda: kr.resample2(x, *taps, valid, zvalid)
@@ -183,8 +280,9 @@ class Parent:
 
 
 def compare(kernel, out, want, path):
-    """(bitwise checks passed, note) for one case: the package's output
-    against the parent's summary."""
+    """(checks passed, note) for one case: the package's output against
+    the parent's summary (bits for BITWISE kernels, else the NaN
+    pattern)."""
     import torch
     if kernel == "moments":
         same = _digest(out[0]) == want["bits"]
@@ -199,7 +297,8 @@ def compare(kernel, out, want, path):
     diff = torch.nan_to_num(out) - torch.nan_to_num(old)
     worst = float(diff.abs().max())
     scale = float(torch.nan_to_num(old).abs().max())
-    return nan_same, (f"NaN patterns equal {nan_same}, bitwise equal "
+    passed = same if kernel in BITWISE else nan_same
+    return passed, (f"NaN patterns equal {nan_same}, bitwise equal "
                       f"{same}, max |diff| {worst:.3e} ({worst / scale:.2e}"
                       f" of the largest value)")
 
@@ -242,23 +341,25 @@ def device_ms(fn, name, n=5):
     return us / count / 1e3 if count else None
 
 
-def probe(cs, inp):
-    """Times of the package's kernels on partial work (see the module's
-    docstring): each as the median of single calls between two CUDA
-    events (host work included), queued back to back, and the kernel's
-    device time in a profiler trace."""
-    import torch
-    from spectral_cube_tpu_torch.kernels import moments as km
-    from spectral_cube_tpu_torch.kernels import resample2 as kr
-    (y0, wy, x0, wx), valid, zvalid = inp.targets["translation"]
-    x = inp.raw["nan"]
-
+def _timer(cs):
+    """``timed(label, fn)``: logs ``fn``'s time as the median of single
+    calls between two CUDA events (host work included), queued back to
+    back, and the kernel's device time in a profiler trace (the kernel
+    named by the label's first word)."""
     def timed(label, fn):
         dev = device_ms(fn, KERNEL_NAMES[label.split()[0]])
         cs.log(f"  probe {label}: {cs.cuda_ms(fn, 7):.3f} ms, queued "
                f"{queued_ms(fn):.3f} ms, device "
                + ("not in the trace" if dev is None else f"{dev:.3f} ms"))
+    return timed
 
+
+def probe_resample2(cs, inp):
+    """The raw resample on partial work (see the module's docstring)."""
+    from spectral_cube_tpu_torch.kernels import resample2 as kr
+    timed = _timer(cs)
+    (y0, wy, x0, wx), valid, zvalid = inp.targets["translation"]
+    x = inp.raw["nan"]
     timed("resample2 translation nan, wrapper",
           lambda: kr.resample2(x, y0, wy, x0, wx, valid, zvalid))
     timed("resample2 translation clean, wrapper",
@@ -294,6 +395,13 @@ def probe(cs, inp):
         finally:
             kr.plan, kr.DEPTH = chosen, depth
             kr._PREPARED.clear()
+
+
+def probe_moments(cs, inp):
+    """The moments kernel on partial work (see the module's docstring)."""
+    import torch
+    from spectral_cube_tpu_torch.kernels import moments as km
+    timed = _timer(cs)
     m, xc = inp.mom[623], inp.coords[623]
     allnan = torch.full_like(m, float("nan"))
     timed("moments 623 fused", lambda: km.moments_planes(m, xc, 1, 0.75))
@@ -321,6 +429,96 @@ def probe(cs, inp):
                   lambda: km.moments_planes(m, xc, 1, 0.75))
         finally:
             km.plan, km.STAGES = chosen, stages
+
+
+def probe_resample2_filled(cs, inp):
+    """The filled resample on partial work (see the module's docstring)."""
+    import torch
+    from spectral_cube_tpu_torch.kernels import resample2 as kr
+    timed = _timer(cs)
+    fz, wz, wz_any, (y0, wy, x0, wx), valid, zvalid = inp.filled
+    cs.log(f"  probe resample2_filled: {int(wz_any.sum())} of "
+           f"{wz_any.numel()} channels flagged")
+    timed("resample2_filled path, wrapper",
+          lambda: kr.resample2_filled(fz, wz, wz_any, y0, wy, x0, wx, valid,
+                                      zvalid))
+
+    def alone(label, yx=(y0, wy, x0, wx), vp=valid, zv=zvalid,
+              flags=wz_any):
+        p = kr.prepare(fz, *yx, vp, zv, wz=wz, wz_any=flags)
+        timed(f"resample2_filled {label} ({p.packed.plan}), launch alone",
+              lambda: kr.launch(fz, p, wz))
+
+    alone("path")
+    alone("every channel unflagged (fz only)",
+          flags=torch.zeros_like(wz_any))
+    alone("every channel invalid (writes only)", zv=np.zeros_like(zvalid))
+    alone("one output column", yx=(y0, wy, x0[:1], wx[:1]),
+          vp=valid[:, :1])
+    chosen, depth = kr.plan, kr.DEPTH
+
+    def width64(y0_, x0_, ny_in, nx_in, nchan, aligned=True, planes=1):
+        saved = kr.WIDTHS
+        kr.WIDTHS = (64,)
+        try:
+            return chosen(y0_, x0_, ny_in, nx_in, nchan, aligned, planes)
+        finally:
+            kr.WIDTHS = saved
+
+    for label, plan, d in (("depth 1", chosen, 1), ("depth 3", chosen, 3),
+                           ("64-column strips", width64, depth)):
+        kr.plan, kr.DEPTH = plan, d
+        kr._PREPARED.clear()
+        try:
+            alone(label)
+        finally:
+            kr.plan, kr.DEPTH = chosen, depth
+            kr._PREPARED.clear()
+
+
+def probe_banded_matmul(cs, inp):
+    """The banded product on partial work (see the module's docstring)."""
+    import torch
+    from spectral_cube_tpu_torch.kernels import banded_matmul as kb
+    timed = _timer(cs)
+    d = inp.banded
+    bands, x = d["bands"], d["clean"]
+    timed("banded_matmul config2, wrapper",
+          lambda: kb.banded_matmul(x, bands))
+    prep = kb.prepare(x, bands)
+    p = prep.packed.plan
+    timed(f"banded_matmul config2 ({p}), launch alone",
+          lambda: kb.launch(x, prep))
+    # one record a group: the same copies and stores, one FMA a row
+    words = prep.packed.words.reshape(p.steps, p.table_words).copy()
+    goff = 4 + -(-2 * p.max_loads // 4) * 4
+    for w in range(kb.WARPS):
+        at = goff + w * p.group_words
+        words[:, at] = np.minimum(words[:, at], 1)
+    one = prep._replace(words=torch.from_numpy(words.ravel()).to(x.device))
+    timed("banded_matmul one record a group (copies and stores), launch "
+          "alone", lambda: kb.launch(x, one))
+    # one output row stored: the same copies and FMAs
+    timed("banded_matmul one output row stored (copies and FMAs), launch "
+          "alone", lambda: kb.launch(x, prep._replace(nout=1)))
+    shapes, depths = kb.SHAPES, kb.DEPTHS
+    for label, sh, dp in (("depth 2", shapes[:1], (2,)),
+                          ("rows 1, 128 columns", ((1, 4),), depths),
+                          ("rows 1, 32 columns", ((1, 1),), depths)):
+        kb.SHAPES, kb.DEPTHS = sh, dp
+        kb._PREPARED.clear()
+        try:
+            q = kb.prepare(x, bands)
+            timed(f"banded_matmul {label} ({q.packed.plan}), launch alone",
+                  lambda: kb.launch(x, q))
+        finally:
+            kb.SHAPES, kb.DEPTHS = shapes, depths
+            kb._PREPARED.clear()
+
+
+PROBES = {"moments": probe_moments, "resample2": probe_resample2,
+          "resample2_filled": probe_resample2_filled,
+          "banded_matmul": probe_banded_matmul}
 
 
 def ab(cs, inp, tree, only=None):
@@ -370,8 +568,8 @@ def main():
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--probe", action="store_true",
                     help="time the package's kernels on partial work only")
-    ap.add_argument("--only", choices=("moments", "resample2"),
-                    help="compare one kernel's cases only")
+    ap.add_argument("--only", choices=KERNELS,
+                    help="compare or probe one kernel's cases only")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
@@ -402,7 +600,9 @@ def main():
     ok = ab(cs, inp, args.parent, args.only) if args.parent else True
     # the probe's profiler sessions come after the worker's have ended
     if args.probe:
-        probe(cs, inp)
+        for name in KERNELS:
+            if args.only in (None, name):
+                PROBES[name](cs, inp)
     print(cs.card_line())
     return 0 if ok else 1
 
