@@ -52,11 +52,29 @@
    version.  Logs each route, the host time of the beam grouping and
    kernels, the transfers' build on the card, the stages' times (first
    and second call) and the peak memory.
-8. Runs ``banded_matmul_strips`` (#14) with bench config 2's composed
+8. The cube's everyday API on the pipeline's FITS file (623 x 768 x 768,
+   nothing cut) and on the varying-resolution file (a): the spectral
+   axis converted to km/s and to GHz (radio), WCS cards as a small CPU
+   cube's; a 300-channel velocity slab cut spatially to 640 x 576 (a
+   copy into a contiguous tensor), masked at 3 sigma (``mad_std`` of the
+   whole cube), its moments through the moments kernel (the plain
+   versions refused while it runs), equal to the same crop of the
+   slab's; ``cube[::-1]``'s moment 1 as the forward cube's; ``to(K)`` and
+   back, ``cube - cube``, ``(cube * 2) / 2``, ``argmax`` and
+   ``argmax_world`` against a float64 numpy argmax on the host (and
+   ``torch.argmax`` on the card against the CPU on ties and all -inf);
+   a spectrum, a channel map and ``minimal_subcube``; channels 100-399 of
+   the varying-resolution cube with their beams, ``jtok_factors``,
+   ``to(K)`` and moments; a StokesSpectralCube of four such cubes made on
+   the card, ``transform_basis`` to linear feeds and back, its I
+   moment 0, and a 4-D FITS round trip of 64 of its channels (cut for
+   the host's write time).  Logs each step's time (second call), the
+   peak memory and the time of the spatial cut's copy.
+9. Runs ``banded_matmul_strips`` (#14) with bench config 2's composed
    operator (17-tap Gaussian, then every second channel, 512 -> 256) on a
    512 x 768 x 768 cube viewed as (512, 589824), counters at 0 before and
    the banded_matmul count > 0 after.
-9. Holds each kernel against its plain PyTorch version on the card at the
+10. Holds each kernel against its plain PyTorch version on the card at the
    paths' shapes, with and without NaN, and times the kernel, the plain
    version and, where one exists, a single PyTorch call computing the same
    function (CUDA events); conv_sep also at 153 taps (the cube beam to a
@@ -66,7 +84,7 @@
    launches alone, their packed taps or step tables already on the card.  Each
    kernel's bound is the larger of its bytes over 3.35 TB/s and its
    float32 operations over 67 TFLOP/s (H100 SXM).
-10. Runs a small pipeline, a small varying-resolution pipeline on both
+11. Runs a small pipeline, a small varying-resolution pipeline on both
     convolution routes and a small spectral path on the card and on the
     CPU and compares them.
 
@@ -112,6 +130,16 @@ VR_ROTATION = 3.0
 VR_GROUP = 4
 # bench config 2's composed operator, 512 -> 256 channels (bench.py:178-211)
 BM_NIN = 512
+# cube API phase: the velocity slab's first and last channel (300
+# channels), the spatial cut (xlo, xhi, ylo, yhi), the channel map, the
+# channel range cut from the varying-resolution cube, and the channels of
+# the Stokes FITS round trip (cut for the host's write time)
+API_SLAB = (160, 459)
+API_CUT = (64, 704, 96, 672)
+API_PLANE = 300
+API_VR_CUT = (100, 400)
+API_VR_THRESHOLD = 0.1
+API_STOKES_NCHAN = 64
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
 # the tensor cores
@@ -1714,6 +1742,306 @@ def phase_vrsc(dev, workdir, results):
     return out
 
 
+class _Refused:
+    """Stands in for a plain version that must not run."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __call__(self, *args, **kwargs):
+        raise AssertionError(f"{self.name}, the plain version, ran on a "
+                             "path that must take the kernel")
+
+
+def phase_cube_api(dev, workdir):
+    """The cube's everyday API at 623 x 768 x 768 on the pipeline phase's
+    FITS file and the varying-resolution phase's file (a), nothing cut.
+    Returns (step times of the second call in ms, peak device memory,
+    the spatial cut's copy time in ms, moments launches per step)."""
+    import torch
+    import spectral_cube_tpu_torch as T
+    from spectral_cube_tpu_torch import kernels as K
+    from spectral_cube_tpu_torch import units as u
+    from spectral_cube_tpu_torch.kernels import moments as km
+    from spectral_cube_tpu_torch.masks import fused_predicate
+    from spectral_cube_tpu_torch.ops import moments as om
+    from spectral_cube_tpu_torch.ops import reductions as rd
+    from spectral_cube_tpu_torch.wcs import WCS
+    log("phase cube API")
+    times, launches = {}, {}
+
+    def timed(name, fn):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        val = fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t) * 1e3
+        return val
+
+    def counted(name, fn):
+        """``fn`` once with the counters at 0 before and the plain
+        moments versions refused; the moments launches after."""
+        K.reset_launch_counts()
+        saved = km.moments_planes_plain, om.moments_012
+        km.moments_planes_plain = _Refused("moments_planes_plain")
+        om.moments_012 = _Refused("ops.moments.moments_012")
+        try:
+            val = fn()
+        finally:
+            km.moments_planes_plain, om.moments_012 = saved
+        launches[name] = K.launch_counts()["moments"]
+        if launches[name] < 1:
+            raise AssertionError(f"{name}: the moments kernel never ran")
+        return val
+
+    def moments(c):
+        return tuple(np.asarray(m.value) for m in
+                     (c.moment0(), c.moment1(), c.moment2()))
+
+    cube = T.SpectralCube.read(os.path.join(workdir, "cube.fits"))
+    if cube.device.type != "cuda" or cube.shape != (NCHAN, NY, NX):
+        raise AssertionError(f"read without a device gave {cube!r}")
+    cube.allow_huge_operations = True
+    x = cube._data
+    fin = torch.isfinite(x)
+    torch.cuda.reset_peak_memory_stats()
+
+    # 1. the spectral axis, both ways; the cards as a small CPU cube's
+    vc, fc = timed("with_spectral_unit", lambda: (
+        cube.with_spectral_unit(u.km_s),
+        cube.with_spectral_unit(u.GHz, velocity_convention="radio")))
+    small = T.SpectralCube(np.zeros((NCHAN, 2, 2), np.float32),
+                           WCS(header=synth_header(NCHAN, NY, NX)),
+                           device="cpu")
+    for got, unit, conv in ((vc, u.km_s, None), (fc, u.GHz, "radio")):
+        want = small.with_spectral_unit(unit, velocity_convention=conv)
+        if got.wcs.to_header() != want.wcs.to_header():
+            raise AssertionError(f"{unit} WCS cards differ from the CPU's")
+    sv = np.asarray(cube.spectral_axis.value)
+    back = np.asarray(fc.with_spectral_unit(
+        u.m_s, velocity_convention="radio").spectral_axis.value)
+    kms = np.asarray(vc.spectral_axis.value) * 1e3
+    err = max(np.abs(back - sv).max(), np.abs(kms - sv).max()) \
+        / np.abs(sv).max()
+    log(f"  spectral axis m/s -> GHz -> m/s and km/s: max rel err "
+        f"{err:.2e} (tol 1e-10)")
+    if err > 1e-10:
+        raise AssertionError("spectral axis conversion")
+
+    # 2. a velocity slab, cut spatially, masked at 3 sigma; its moments
+    # through the kernel against the same crop of the whole slab's
+    lo, hi = API_SLAB
+    svk = vc.spectral_axis
+    xlo, xhi, ylo, yhi = API_CUT
+
+    def cut():
+        slab = vc.spectral_slab(svk[lo], svk[hi])
+        return slab, slab.subcube(xlo=xlo, xhi=xhi, ylo=ylo, yhi=yhi)
+
+    slab, sub = timed("spectral_slab + subcube", cut)
+    if slab.shape != (hi - lo + 1, NY, NX) \
+            or slab._data.data_ptr() != x[lo].data_ptr() \
+            or sub.shape != (hi - lo + 1, yhi - ylo, xhi - xlo) \
+            or not sub._data.is_contiguous():
+        raise AssertionError(f"slab {slab.shape}, subcube {sub.shape}")
+    copy_ms = cuda_ms(lambda: slab._data[:, ylo:yhi, xlo:xhi].contiguous(),
+                      10)
+    copy_bytes = 2 * sub._data.numel() * 4
+    log(f"  spatial cut {sub.shape}: copy {copy_ms:.3f} ms "
+        f"({copy_bytes / copy_ms / 1e6:.0f} GB/s read + written)")
+    sigma = float(cube.mad_std().value)
+    thr = T.Quantity(SNR * sigma, cube.unit)
+    masked_sub = sub.with_mask(sub > thr)
+    if fused_predicate(masked_sub.mask) is None:
+        raise AssertionError("the subcube's mask is not fused")
+    msub = counted("subcube moments", lambda: moments(masked_sub))
+    timed("mask + moments (subcube)",
+          lambda: counted("subcube moments",
+                          lambda: moments(sub.with_mask(sub > thr))))
+    whole = vc[lo:hi + 1]
+    mslab = moments(whole.with_mask(whole > thr))
+    for i, (a, b) in enumerate(zip(msub, mslab)):
+        compare(f"subcube moment{i} vs the slab's crop", torch.as_tensor(a),
+                torch.as_tensor(b[ylo:yhi, xlo:xhi]), 1e-6)
+    del slab, sub, masked_sub, whole, mslab
+
+    # 3. the reversed cube's moment 1
+    masked = cube.with_mask(cube > thr)
+    fwd = masked.moment1().value
+    rev = timed("cube[::-1] + moment1",
+                lambda: counted("reversed moments",
+                                lambda: masked[::-1].moment1().value))
+    compare("cube[::-1] moment1 vs forward", torch.as_tensor(rev),
+            torch.as_tensor(fwd), 1e-6)
+
+    # 4. brightness units and arithmetic
+    kc, kb = timed("to(K) and back", lambda: (
+        lambda k: (k, k.to(cube.unit)))(cube.to(u.K)))
+    if kc.unit != u.K or kb._data.dtype != torch.float32:
+        raise AssertionError("to(K)")
+    nz = fin & (x != 0)
+    rel = float(((kb._data - x).abs()[nz] / x.abs()[nz]).max())
+    c = (NCHAN // 2, NY // 2, NX // 2)
+    log(f"  to(K) and back: max rel err {rel:.2e} (tol 1e-6), K factor "
+        f"{float(kc._data[c] / x[c]):.6g}")
+    if rel > 1e-6 or not torch.equal(torch.isnan(kb._data), ~fin):
+        raise AssertionError("to(K) and back")
+    del kc, kb
+    diff = timed("cube - cube", lambda: cube - cube)
+    if not bool((diff._data[fin] == 0).all()) \
+            or not bool(torch.isnan(diff._data[~fin]).all()):
+        raise AssertionError("cube - cube is not zero where finite")
+    del diff
+    twice = timed("(cube * 2) / 2", lambda: (cube * 2) / 2)
+    if not torch.equal(twice._data[fin], x[fin]) \
+            or not bool(torch.isnan(twice._data[~fin]).all()):
+        raise AssertionError("(cube * 2) / 2 is not the input")
+    del twice
+    am = timed("argmax(axis=0)", lambda: cube.argmax(axis=0))
+    amw = timed("argmax_world(axis=0)", lambda: cube.argmax_world(axis=0))
+    host = x.cpu().numpy().astype(np.float64)
+    ok = np.isfinite(host)
+    idx = np.where(ok, host, -np.inf).argmax(axis=0)
+    any_ok = ok.any(axis=0)
+    del host, ok
+    world = sv[idx]
+    world[~any_ok] = np.nan
+    if not np.array_equal(am, idx) \
+            or not np.array_equal(np.asarray(amw.value), world,
+                                  equal_nan=True):
+        raise AssertionError("argmax / argmax_world differ from numpy")
+    log(f"  argmax(axis=0), argmax_world(axis=0): equal to numpy's "
+        f"float64 argmax ({int((~any_ok).sum())} spaxels without data)")
+    ties = torch.tensor([[1.0, 3.0, 3.0, 2.0], [np.nan] * 4, [5.0] * 4,
+                         [-np.inf, 2.0, np.nan, 2.0], [np.inf, np.inf, 1.0,
+                                                      np.inf]]).T
+    for fn in (rd.masked_argmax, rd.masked_argmin):
+        for axis in (0, 1):
+            a = fn(ties, torch.isfinite(ties), axis=axis)
+            b = fn(ties.to(dev), torch.isfinite(ties).to(dev), axis=axis)
+            if not torch.equal(a, b.cpu()):
+                raise AssertionError(f"{fn.__name__} card {b} vs CPU {a}")
+    log("  masked_argmax/argmin on ties and all -inf: card equals CPU")
+
+    # 5. results of lower dimension
+    spec = timed("cube[:, y, x]", lambda: cube[:, NY // 2, NX // 2])
+    plane = timed("cube[c]", lambda: cube[API_PLANE])
+    mini = timed("minimal_subcube", masked.minimal_subcube)
+    if not isinstance(spec, T.OneDSpectrum) \
+            or not isinstance(plane, T.Slice) \
+            or not isinstance(mini, T.SpectralCube) \
+            or not np.array_equal(spec.value,
+                                  x[:, NY // 2, NX // 2].cpu().numpy(),
+                                  equal_nan=True) \
+            or not np.array_equal(plane.value, x[API_PLANE].cpu().numpy(),
+                                  equal_nan=True) \
+            or int(mini._valid_view().sum()) \
+            != int(masked._valid_view().sum()):
+        raise AssertionError("spectrum, channel map or minimal_subcube")
+    log(f"  minimal_subcube of the 3 sigma mask: {mini.shape}")
+    del mini, masked
+
+    # 6. a cut of the varying-resolution cube
+    vr = T.SpectralCube.read(os.path.join(workdir, "vr_a.fits"))
+    vr.allow_huge_operations = True
+    vlo, vhi = API_VR_CUT
+    vcut = timed(f"VRSC[{vlo}:{vhi}]", lambda: vr[vlo:vhi])
+    mj = vr.unmasked_beams.major.value
+    if not isinstance(vcut, T.VaryingResolutionSpectralCube) \
+            or not np.array_equal(vcut.unmasked_beams.major.value,
+                                  mj[vlo:vhi], equal_nan=True) \
+            or not np.array_equal(vcut.goodbeams_mask,
+                                  vr.goodbeams_mask[vlo:vhi]):
+        raise AssertionError("the beams were not cut with the data")
+    jt = timed("jtok_factors", vcut.jtok_factors)
+    if not np.array_equal(jt, vr.jtok_factors()[vlo:vhi], equal_nan=True):
+        raise AssertionError("jtok_factors of the cut")
+    kv = timed("VRSC to(K)", lambda: vcut.to(u.K))
+    # a flagged plane's NaN beam gives a NaN factor, as in the JAX package
+    want = vcut._data * torch.as_tensor(jt, dtype=torch.float32,
+                                        device=dev)[:, None, None]
+    wfin = torch.isfinite(want) & (want != 0)
+    rel = float(((kv._data - want).abs()[wfin] / want.abs()[wfin]).max())
+    log(f"  VRSC to(K): per-channel factors {jt[2]:.6g}..{jt[-1]:.6g}, "
+        f"max rel err {rel:.2e} (tol 1e-6)")
+    if kv._data.dtype != torch.float32 or rel > 1e-6 or not torch.equal(
+            torch.isfinite(kv._data), torch.isfinite(want)):
+        raise AssertionError("per-channel to(K)")
+    del kv, want, wfin
+    # the beams of channels 100-399 differ by ~10% in area: the moments'
+    # beam check is loosened as a user would; the 3 sigma mask keeps the
+    # moment-1 denominators away from 0, where the plain float32
+    # expression loses its digits
+    vcut.beam_threshold = API_VR_THRESHOLD
+    vthr = T.Quantity(SNR * float(vcut.mad_std().value), vcut.unit)
+    vm = timed("VRSC cut moments", lambda: counted(
+        "VRSC cut moments", lambda: moments(vcut.with_mask(vcut > vthr))))
+    vmasked = vcut.with_mask(vcut > vthr)
+    include = vmasked.mask.include(data=vcut._data)
+    pm = om.moments_012(vcut._data, vcut._spectral_offsets(),
+                        vcut._spectral_pix_size(), include=include)
+    sv0 = float(vcut.spectral_axis.value[0])
+    for i, (a, b) in enumerate(zip(vm, pm)):
+        compare(f"VRSC cut moment{i} vs plain expression",
+                torch.as_tensor(a), (b + sv0 if i == 1 else b).cpu(),
+                3e-6 if i < 2 else 5e-5)
+    del vr, vcut, vmasked, include, pm
+
+    # 7. a Stokes cube of four cubes made on the card
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 11)
+
+    def component(data):
+        return T.SpectralCube(data, cube.wcs, header=cube._header,
+                              mask=T.LazyMask(torch.isfinite, data=data,
+                                              wcs=cube.wcs),
+                              allow_huge_operations=True)
+
+    comps = {"I": component(x)}
+    for name, scale in (("Q", 0.2), ("U", 0.1), ("V", 0.05)):
+        comps[name] = component(scale * x + torch.randn(
+            x.shape, generator=gen, device=dev))
+    st = T.StokesSpectralCube(comps)
+    lin = timed("transform_basis Linear", lambda: st.transform_basis(
+        "Linear"))
+    sky = timed("transform_basis Sky", lambda: lin.transform_basis("Sky"))
+    for name in "IQUV":
+        compare(f"Stokes {name}: Sky(Linear(x)) vs x / 2", sky[name]._data,
+                0.5 * st[name]._data, 1e-6)
+    del lin, sky
+    m0 = counted("stokes.I.moment0()", lambda: st.I.moment0())
+    compare("stokes.I.moment0() vs the cube's", torch.as_tensor(m0.value),
+            torch.as_tensor(cube.moment0().value), 0.0)
+    common = st.with_mask(T.LazyMask(torch.isfinite, data=x))
+    timed("stokes.I.moment0()", lambda: counted(
+        "stokes.I.moment0()", lambda: common.I.moment0()))
+    part = st[:API_STOKES_NCHAN]
+    path = os.path.join(workdir, "iquv.fits")
+
+    def roundtrip():
+        part.write(path, overwrite=True)
+        return T.StokesSpectralCube.read(path)
+
+    rt = timed(f"Stokes FITS write + read (4 x {API_STOKES_NCHAN} ch)",
+               roundtrip)
+    for name in "IQUV":
+        got, want = rt[name]._data, part[name]._get_filled_data()
+        nan = torch.isnan(want)
+        if got.device.type != "cuda" \
+                or not torch.equal(torch.isnan(got), nan) \
+                or not torch.equal(got[~nan], want[~nan]):
+            raise AssertionError(f"Stokes FITS round trip, {name}")
+    log(f"  Stokes FITS round trip ({os.path.getsize(path) / 2**20:.0f} "
+        "MiB): bitwise equal")
+    peak = torch.cuda.max_memory_allocated()
+    del rt, part, common, st, comps, cube, vc, fc, x, fin
+    torch.cuda.empty_cache()
+    for name, ms in times.items():
+        log(f"  step {name}: {ms:.1f} ms")
+    return times, peak, copy_ms, launches
+
+
 def config2_operator(nchan):
     """bench config 2's composed operator (bench.py:205-211): a 17-tap
     Gaussian (sigma 2 channels), then every second channel; float64
@@ -1905,27 +2233,42 @@ def main():
 
     warnings.simplefilter("ignore")
     results = {}
+    walls = {}
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        val = fn(*args)
+        walls[name] = time.perf_counter() - t
+        return val
+
     with tempfile.TemporaryDirectory() as workdir:
-        total_ms, warm_ms, peak, counts, stages = phase_pipeline(dev,
-                                                                 workdir)
+        total_ms, warm_ms, peak, counts, stages = phase(
+            "pipeline", phase_pipeline, dev, workdir)
         (sp_counts, sp_peak, sp_first, sp_steady,
-         clip623) = phase_spectral(dev, workdir, results)
-        rs_counts, rs_peak, rs_first, rs_steady = phase_reproject_spectral(
-            dev, workdir, results)
-        vr = phase_vrsc(dev, workdir, results)
+         clip623) = phase("spectral", phase_spectral, dev, workdir, results)
+        rs_counts, rs_peak, rs_first, rs_steady = phase(
+            "reproject spectral", phase_reproject_spectral, dev, workdir,
+            results)
+        vr = phase("varying-resolution", phase_vrsc, dev, workdir, results)
+        api = phase("cube API", phase_cube_api, dev, workdir)
     counts.update({k: sp_counts[k] for k in SPECTRAL_KERNELS})
     counts.update({k: rs_counts[k] for k in REPROJECT_SPECTRAL_KERNELS})
     data = torch.as_tensor(synth_cube(NCHAN, NY, NX, SEED), device=dev)
-    phase_moments(dev, data, results)
-    rank, f1 = phase_conv(dev, data, results)
-    phase_resample(dev, data, synth_header(NCHAN, NY, NX), results)
-    cr_counts, cr_ms, declined_ms = phase_conv_reproject(dev, data, results)
+    phase("moments", phase_moments, dev, data, results)
+    rank, f1 = phase("conv", phase_conv, dev, data, results)
+    phase("resample", phase_resample, dev, data,
+          synth_header(NCHAN, NY, NX), results)
+    cr_counts, cr_ms, declined_ms = phase(
+        "conv_reproject", phase_conv_reproject, dev, data, results)
     counts.update({k: cr_counts[k] for k in CONV_REPROJECT_KERNELS})
-    bm_counts = phase_banded_matmul(dev, data, results)
+    bm_counts = phase("banded_matmul", phase_banded_matmul, dev, data,
+                      results)
     counts.update({k: bm_counts[k] for k in BANDED_MATMUL_KERNELS})
     del data
     torch.cuda.empty_cache()
-    phase_small_reference(dev)
+    phase("small reference", phase_small_reference, dev)
+    log("summary: phase wall times "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
 
     log(f"summary: pipeline {total_ms:.1f} ms (first call), {warm_ms:.1f} ms "
         f"(second), peak {peak / 2**30:.2f} GiB, "
@@ -1970,6 +2313,12 @@ def main():
         + ", ".join(f"{k} {results[k]['launch_ms']:.3f} / "
                     f"{results[k]['ms']:.3f} ms"
                     for k in ("resample2_filled", "banded_matmul")))
+    api_times, api_peak, api_copy, api_launches = api
+    log("summary: cube API (second call, CUDA-synchronized): "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in api_times.items())
+        + f"; peak {api_peak / 2**30:.2f} GiB; spatial cut copy "
+        f"{api_copy:.3f} ms; moments launches "
+        + ", ".join(f"{k} {v}" for k, v in api_launches.items()))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -3,20 +3,26 @@ hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The port of ``spectral_cube_tpu`` (JAX and Pallas on a TPU), module for
 module.  This package imports neither JAX nor the JAX package.  It covers
-the single-device analysis path so far: FITS read/write (3-D and
-degenerate-Stokes 4-D files, BEAMS tables), masks, moments, statistics,
-common-beam convolution of single-beam and varying-resolution cubes,
-reprojection, the spectral-axis path, and ``run_pipeline``.  A CPU tensor runs each kernel's plain PyTorch version;
-a CUDA tensor runs the kernel, built from ``csrc/`` at first use.
+the single-device analysis path so far: FITS read/write (3-D and 4-D
+Stokes files, BEAMS tables), masks, moments, statistics, common-beam
+convolution of single-beam and varying-resolution cubes, reprojection,
+the spectral-axis path, ``run_pipeline``, and the cube's everyday API:
+indexing and subcubes, spectral-unit and brightness-unit conversion,
+arithmetic, 1-D and 2-D results, and Stokes cubes.  A CPU tensor runs
+each kernel's plain PyTorch version; a CUDA tensor runs the kernel, built
+from ``csrc/`` at first use.
 """
 
 from .units import Quantity, Unit
 from .masks import (MaskBase, InvertedMask, CompositeMask, BooleanArrayMask,
-                    LazyMask, LazyComparisonMask)
+                    LazyMask, LazyComparisonMask, FunctionMask)
 from .beams import Beam, Beams
 from .cube import (BaseSpectralCube, SpectralCube,
                    VaryingResolutionSpectralCube)
-from .lower_dimensional_structures import Projection, LowerDimensionalObject
+from .lower_dimensional_structures import (Projection, Slice, OneDSpectrum,
+                                           VaryingResolutionOneDSpectrum,
+                                           LowerDimensionalObject)
+from .stokes import StokesSpectralCube
 from .wcs import WCS
 from .pipeline import run_pipeline
 from .interop import cube_from_arrays
@@ -24,7 +30,9 @@ from .interop import cube_from_arrays
 __version__ = "0.1.0"
 
 __all__ = ["BaseSpectralCube", "SpectralCube",
-           "VaryingResolutionSpectralCube", "Projection", "LowerDimensionalObject",
+           "VaryingResolutionSpectralCube", "StokesSpectralCube",
+           "Projection", "Slice", "OneDSpectrum",
+           "VaryingResolutionOneDSpectrum", "LowerDimensionalObject",
            "MaskBase", "InvertedMask", "CompositeMask", "BooleanArrayMask",
-           "LazyMask", "LazyComparisonMask", "Beam", "Beams", "WCS",
-           "Quantity", "Unit", "run_pipeline", "cube_from_arrays"]
+           "LazyMask", "LazyComparisonMask", "FunctionMask", "Beam", "Beams",
+           "WCS", "Quantity", "Unit", "run_pipeline", "cube_from_arrays"]

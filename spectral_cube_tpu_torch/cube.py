@@ -13,8 +13,16 @@ moments, statistics, convolution, reprojection, sigma clip and fused
 smooth + interpolation run in the port's kernels (``kernels/``); on the
 CPU in their plain PyTorch versions.
 
-Not ported yet: slicing and subcubes, regions, Stokes cubes and
-``jtok_factors`` (ROADMAP.md Queue 1 item 10).
+The everyday API is ported too: indexing and subcubes (a spatial cut is
+copied once into a contiguous tensor, since every kernel takes contiguous
+data; a channel range shares its parent's storage), ``with_spectral_unit``,
+brightness-unit conversion and arithmetic (array operands are cast to the
+data's dtype, as JAX keeps float32 with 64-bit mode off), argmax/argmin
+and world coordinates (host float64, as in the JAX package).
+
+Not ported yet: the ``apply_function*`` / ``apply_numpy_function``
+transform engine (ROADMAP.md Queue 1 item 10c), region subcubes (item
+10d) and the exporters and viewers.
 """
 
 from __future__ import annotations
@@ -26,14 +34,19 @@ import warnings
 import numpy as np
 import torch
 
+from . import units as u
 from .units import Quantity, Unit, UnitConversionError
 from .masks import (BooleanArrayMask, LazyComparisonMask, CompositeMask,
-                    LazyMask, MaskBase, is_data_local, trivial_view)
+                    LazyMask, MaskBase, is_data_local, index_view,
+                    view_shape, is_broadcastable_and_smaller,
+                    _is_index as _is_int)
 from .beams import Beam, Beams, BeamError, NoBeamError
-from .lower_dimensional_structures import (Projection,
+from .lower_dimensional_structures import (Projection, Slice, OneDSpectrum,
+                                           VaryingResolutionOneDSpectrum,
                                            LowerDimensionalObject)
 from .utils import (cached, warn_slow, VarianceWarning, BeamAverageWarning,
-                    NonFiniteBeamsWarning)
+                    NonFiniteBeamsWarning, WCSMismatchWarning)
+from .wcs import convert_spectral_axis, determine_ctype_from_vconv
 from .ops import reductions as _red
 from .ops import moments as _mom
 from .ops import convolve as _conv
@@ -134,19 +147,99 @@ def _check_parallel_options(parallel, num_cores):
                       "The task runs as one fused kernel either way.")
 
 
-def _slice_syntax(f):
-    """``cube.attr[view]`` access (reference cube_utils.py:203-240)."""
-    class _Indexer:
-        def __init__(self, cube):
-            self._cube = cube
+def _world_to_pixel_range(wcs, axis, lo, hi, n, n_other=None):
+    """Resolve mixed pixel/world bounds to a pixel slice along a celestial
+    axis (reference find_spatial_pixel_index, wcs_utils.py:517-700).
 
-        def __getitem__(self, view):
-            return f(self._cube, view if isinstance(view, tuple)
-                     else (view,))
+    World bounds are solved by nearest-pixel search along a spine through
+    the center of the *cube* (``n_other``), not through crpix: reference
+    headers routinely describe a cutout of a much larger map, leaving
+    crpix hundreds of pixels outside the data where projection curvature
+    shifts world coordinates by whole pixels.  The resolved range is
+    inclusive of both bounding pixels and insensitive to the axis
+    direction (RA typically *decreases* with pixel index)."""
+    if isinstance(lo, str) and lo == "min":
+        lo_p = 0
+    elif isinstance(lo, Quantity):
+        lo_p = None
+    else:
+        lo_p = int(lo)
+    if isinstance(hi, str) and hi == "max":
+        hi_p = n
+    elif isinstance(hi, Quantity):
+        hi_p = None
+    else:
+        hi_p = int(hi)
+    if lo_p is not None and hi_p is not None:
+        return lo_p, hi_p
+    cel = wcs.celestial
+    other = 1 - axis
+    probe = np.arange(n, dtype=float)
+    coords = [None, None]
+    coords[axis] = probe
+    coords[other] = np.full(n, (n_other - 1) / 2.0 if n_other is not None
+                            else cel.crpix[other] - 1.0)
+    world = np.asarray(cel.pix2world(coords[0], coords[1])[axis])
+    unit = cel.cunit[axis]
 
-    prop = property(lambda self: _Indexer(self))
-    prop.__doc__ = f.__doc__
-    return prop
+    def solve(q):
+        val = q.to_value(unit.to_string() or "deg")
+        return int(np.argmin(np.abs(world - val)))
+
+    if lo_p is None and hi_p is None:
+        pa, pb = solve(lo), solve(hi)
+        return min(pa, pb), max(pa, pb) + 1
+    if lo_p is None:
+        lo_p = solve(lo)
+    if hi_p is None:
+        hi_p = solve(hi) + 1
+    if lo_p > hi_p - 1:
+        lo_p, hi_p = hi_p - 1, lo_p + 1
+    return lo_p, hi_p
+
+
+class _SliceSyntax:
+    """Makes ``cube.filled_data[0:3, :, :]`` style access work (reference
+    ``slice_syntax`` decorator, cube_utils.py:203-240)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __getitem__(self, view):
+        if not isinstance(view, tuple):
+            view = (view,)
+        return self.fn(view)
+
+    def __iter__(self):
+        raise TypeError("use slice syntax: obj.attr[...] ")
+
+
+def slice_syntax(f):
+    @property
+    def wrapper(self):
+        return _SliceSyntax(lambda view: f(self, view))
+    wrapper.__doc__ = f.__doc__
+    return wrapper
+
+
+def _broadcastable(shape1, shape2):
+    return is_broadcastable_and_smaller(tuple(shape1), tuple(shape2))
+
+
+def _operand(value, like):
+    """A non-Python-scalar operand as a tensor of ``like``'s dtype on its
+    device: with 64-bit mode off JAX computes float32 data with a float64
+    array in float32, where torch would promote to float64.  Python
+    scalars pass as they are (torch, like JAX, keeps the data's dtype)."""
+    if isinstance(value, (int, float)):
+        return value
+    if not isinstance(value, torch.Tensor):
+        value = np.asarray(value)
+    return torch.as_tensor(value, dtype=like.dtype, device=like.device)
+
+
+_ARITH = {"add": torch.add, "sub": torch.sub, "mul": torch.mul,
+          "truediv": torch.div}
 
 
 class BaseSpectralCube:
@@ -237,8 +330,33 @@ class BaseSpectralCube:
     def fill_value(self):
         return Quantity(self._fill_value, self.unit)
 
+    @property
+    def velocity_convention(self):
+        from .wcs.spectral import determine_vconv_from_ctype
+        return determine_vconv_from_ctype(self._wcs.ctype[2])
+
     def __len__(self):
         return self.shape[0]
+
+    # -- pickling ----------------------------------------------------------
+    def __getstate__(self):
+        """A cube pickles with host data and the name of its device; the
+        per-instance caches are dropped (the JAX package's cube.py:
+        325-335)."""
+        state = {k: v for k, v in self.__dict__.items()
+                 if not k.startswith("_cache_")}
+        state["_data"] = self._data.cpu().numpy()
+        state["_device"] = str(self._data.device)
+        return state
+
+    def __setstate__(self, state):
+        device = state.pop("_device")
+        state["_data"] = _as_tensor(state["_data"], device)
+        self.__dict__.update(state)
+
+    @property
+    def base(self):
+        return self._data
 
     def _new_cube_with(self, data=None, wcs=None, mask=_INHERIT, meta=None,
                        fill_value=None, unit=None, wcs_tolerance=None,
@@ -267,24 +385,63 @@ class BaseSpectralCube:
     # ------------------------------------------------------------------
     # masked data access
     # ------------------------------------------------------------------
+    def _include_view(self, view=()):
+        """Bool include tensor for a view, on the cube's device."""
+        if self._mask is None:
+            return torch.ones(view_shape(self.shape, view), dtype=torch.bool,
+                              device=self.device)
+        return self._mask.include(data=self._data, wcs=self._wcs,
+                                  view=view).to(self.device)
+
+    def _valid_view(self, view=()):
+        """Included and finite, for a view."""
+        d = index_view(self._data, view)
+        return _red.valid_mask(d, None if self._mask is None
+                               else self._include_view(view))
+
     def _get_filled_data(self, view=(), fill=None):
         fill = self._fill_value if fill is None else fill
-        d = self._data if trivial_view(view) else self._data[view]
+        d = index_view(self._data, view)
         if self._mask is None:
             return d
-        inc = self._mask.include(data=self._data, view=view, wcs=self._wcs)
-        return torch.where(inc, d, torch.as_tensor(fill, dtype=d.dtype,
-                                                   device=d.device))
+        return torch.where(self._include_view(view), d,
+                           torch.as_tensor(fill, dtype=d.dtype,
+                                           device=d.device))
 
-    @_slice_syntax
+    @slice_syntax
+    def filled_data(self, view):
+        """Quantity of the mask-filled data: ``cube.filled_data[:]``."""
+        return Quantity(self._get_filled_data(view), self.unit)
+
+    @slice_syntax
+    def unitless_filled_data(self, view):
+        """Host array of the mask-filled data, as the JAX package's."""
+        return self._get_filled_data(view).cpu().numpy()
+
+    @slice_syntax
     def unmasked_data(self, view):
-        return Quantity(self._data[view], self.unit)
+        return Quantity(index_view(self._data, view), self.unit)
+
+    @warn_slow
+    def filled(self, fill_value=None):
+        return Quantity(self._get_filled_data(fill=fill_value).cpu().numpy(),
+                        self.unit)
+
+    @warn_slow
+    def flattened(self, slice=(), weights=None):
+        """1-D host Quantity of the included values, as they are (NaN
+        included values stay; reference masks.py:165-195), optionally
+        times ``weights`` cut by the same view and mask."""
+        data = index_view(self._data, slice)
+        inc = self._include_view(slice).expand(data.shape)
+        flat = data[inc]
+        if weights is not None:
+            w = index_view(torch.as_tensor(np.asarray(weights)), slice)
+            flat = flat * w.to(flat.device).expand(data.shape)[inc]
+        return Quantity(flat.cpu().numpy(), self.unit)
 
     def get_mask_array(self):
-        if self._mask is None:
-            return np.ones(self.shape, dtype=bool)
-        return np.array(self._mask.include(data=self._data).expand(
-            self.shape).cpu().numpy())
+        return np.array(self._include_view().expand(self.shape).cpu().numpy())
 
     @property
     def _nowcs_header(self):
@@ -343,10 +500,8 @@ class BaseSpectralCube:
     # ------------------------------------------------------------------
     def with_mask(self, mask, inherit_mask=True, wcs_tolerance=None):
         if isinstance(mask, (np.ndarray, torch.Tensor)):
-            from .masks import is_broadcastable_and_smaller
             if tuple(mask.shape) != self.shape and not \
-                    is_broadcastable_and_smaller(tuple(mask.shape),
-                                                 self.shape):
+                    _broadcastable(mask.shape, self.shape):
                 raise ValueError("Mask shape is not broadcastable to data "
                                  f"shape: {tuple(mask.shape)} vs "
                                  f"{self.shape}")
@@ -410,10 +565,14 @@ class BaseSpectralCube:
     def __hash__(self):
         return id(self)
 
-    def __getitem__(self, view):
-        raise NotImplementedError(
-            "cube slicing is not ported to torch yet (ROADMAP.md Queue 1 "
-            "item 10)")
+    def sigma_clip(self, threshold):
+        """Mask out |data - median| > threshold * mad_std, both tails (the
+        JAX package's cube.py:606)."""
+        s = float(self.mad_std().value)
+        med = float(self.median().value)
+        lo = Quantity(med - threshold * s, self.unit)
+        hi = Quantity(med + threshold * s, self.unit)
+        return self.with_mask((self > lo) & (self < hi))
 
     def mask_channels(self, goodchannels):
         """Mask out channels where goodchannels is False (reference
@@ -440,12 +599,187 @@ class BaseSpectralCube:
         return Quantity(self._wcs.spectral_axis_values(self.shape[0]),
                         self._wcs.spectral_unit)
 
+    def with_spectral_unit(self, unit, velocity_convention=None,
+                           rest_value=None):
+        """Convert the spectral axis (reference spectral_cube.py:1390-1430;
+        the conversion is the WCS's, ``wcs/spectral.py``)."""
+        unit = Unit.parse(unit) if isinstance(unit, str) else unit
+        out_ctype = determine_ctype_from_vconv(
+            self._wcs.ctype[2], unit,
+            velocity_convention=velocity_convention)
+        new_wcs = convert_spectral_axis(self._wcs, unit, out_ctype,
+                                        rest_value=rest_value)
+        return self._new_cube_with(wcs=new_wcs)
+
+    @property
+    def spectral_extrema(self):
+        sv = np.asarray(self.spectral_axis.value)
+        return Quantity(np.array([sv.min(), sv.max()]), self.spectral_unit)
+
+    def unmasked_copy(self):
+        """Copy with no mask: all data included (reference
+        spectral_cube.py:1447-1453)."""
+        return self._new_cube_with(mask=None)
+
+    def chunked(self, chunksize=1000):
+        """Not implemented, as in the reference (spectral_cube.py:891-897)."""
+        raise NotImplementedError()
+
+    def closest_spectral_channel(self, value: Quantity) -> int:
+        sv = self.spectral_axis
+        try:
+            val = value.to_value(sv.unit)
+        except UnitConversionError:
+            eqv = list(u.spectral())
+            rest, _ = self._wcs._rest_value_si()
+            if rest is not None:
+                eqv += u.doppler_radio(rest) + u.doppler_optical(rest) \
+                    + u.doppler_relativistic(rest)
+            val = value.to_value(sv.unit, equivalencies=eqv)
+        return int(np.argmin(np.abs(np.asarray(sv.value) - val)))
+
+    def spectral_slab(self, lo: Quantity, hi: Quantity):
+        """The channel range covering [lo, hi] (reference
+        spectral_cube.py:1823-1879): a view sharing the cube's storage."""
+        ilo = self.closest_spectral_channel(lo)
+        ihi = self.closest_spectral_channel(hi)
+        if ilo > ihi:
+            ilo, ihi = ihi, ilo
+        return self[ilo:ihi + 1, :, :]
+
+    @slice_syntax
+    def world(self, view):
+        """World coordinate arrays (spectral, lat, lon) broadcast over a
+        view, host float64 (reference base_class.py:179-241)."""
+        nchan, ny, nx = self.shape
+        yy, xx = np.mgrid[0:ny, 0:nx].astype(np.float64)
+        cel = self._wcs.celestial
+        lon, lat = cel.pix2world(xx.ravel(), yy.ravel())
+        lon = np.asarray(lon).reshape(ny, nx)
+        lat = np.asarray(lat).reshape(ny, nx)
+        spec = np.asarray(self.spectral_axis.value)
+        spec_b, lat_b, lon_b = np.broadcast_arrays(
+            spec[:, None, None], lat[None, :, :], lon[None, :, :])
+        return (Quantity(spec_b[view], self.spectral_unit),
+                Quantity(lat_b[view], cel.cunit[1]),
+                Quantity(lon_b[view], cel.cunit[0]))
+
+    @property
+    def spatial_coordinate_map(self):
+        return self.world[0, :, :][1:]
+
+    def world_spines(self):
+        """1-D world coordinates along each pixel axis (spec, lat, lon),
+        through the first pixel of the other axes; raises
+        WCSCelestialError where a pixel axis maps to several world axes
+        (the JAX package's cube.py:737-759)."""
+        from .utils import WCSCelestialError
+        for ax in range(3):
+            if self._wcs.is_pixel_axis_correlated(2 - ax):
+                raise WCSCelestialError(
+                    "world_spines is ill-posed for correlated pixel/world "
+                    "axes (rotated or projected celestial coordinates); "
+                    "use `world` instead.")
+        spines = []
+        for ax in range(3):
+            view = [0, 0, 0]
+            view[ax] = slice(None)
+            q = self.world[tuple(view)][ax]
+            spines.append(Quantity(np.asarray(q.value), q.unit))
+        return spines
+
+    @warn_slow
+    def flattened_world(self, view=()):
+        """1-D world coordinates of every voxel of a view (reference
+        base_class.py:243-270)."""
+        spec, lat, lon = self.world[view if view else (slice(None),) * 3]
+        return [Quantity(np.asarray(q.value).ravel(), q.unit)
+                for q in (spec, lat, lon)]
+
+    @property
+    @cached
+    def world_extrema(self):
+        _, lat, lon = self.world[0, :, :]
+        latv = lat.to(lon.unit) if lat.unit != lon.unit else lat
+        return Quantity(np.array(
+            [[float(lon.value.min()), float(lon.value.max())],
+             [float(latv.value.min()), float(latv.value.max())]]),
+            lon.unit)
+
+    @property
+    def longitude_extrema(self):
+        return self.world_extrema[0]
+
+    @property
+    def latitude_extrema(self):
+        return self.world_extrema[1]
+
+    @property
+    def velocity(self):
+        return self.with_spectral_unit(u.km_s, velocity_convention="radio")
+
     def _spectral_offsets(self):
         sv = np.asarray(self.spectral_axis.value, dtype=np.float64)
         return sv - sv[0]
 
     def _spectral_pix_size(self):
         return abs(float(self._wcs.pixel_scale_matrix[2, 2]))
+
+    def _pix_size_slice(self, axis):
+        """Positive pixel size along cube axis 0/1/2 (reference
+        spectral_cube.py:1511-1535: spectral size from the scale matrix,
+        spatial sizes as the projected row norm, always > 0 regardless of
+        cdelt/pc sign)."""
+        psm = np.asarray(self._wcs.pixel_scale_matrix)
+        if axis == 0:
+            return abs(float(psm[2, 2]))
+        if axis in (1, 2):
+            return float(np.sum(psm[2 - axis, :] ** 2) ** 0.5)
+        raise ValueError("Cubes have 3 axes.")
+
+    def _pix_cen(self):
+        """World coordinates of every pixel center: (spectral 1-D, lat 2-D,
+        lon 2-D) like the reference's cached _pix_cen
+        (spectral_cube.py:1547-1580)."""
+        lat, lon = (np.asarray(q.value) for q in self.spatial_coordinate_map)
+        return np.asarray(self.spectral_axis.value), lat, lon
+
+    def _pix_size(self):
+        """Per-pixel world sizes (dv 1-D, dy 2-D, dx 2-D), computed from
+        pixel-edge world coordinates like the reference's _pix_size
+        (spectral_cube.py:1537-1607): spatial sizes are on-sky angular
+        separations between facing pixel edges."""
+        nchan, ny, nx = self.shape
+        # spectral: |diff| of edge world values
+        i = self._wcs.spec
+        edges = np.arange(nchan + 1, dtype=float) - 0.5
+        pix = [np.zeros(nchan + 1)] * 3
+        pix[i] = edges
+        sv = np.asarray(self._wcs.pix2world(*pix)[i])
+        dv = np.abs(np.diff(sv))
+
+        cel = self._wcs.celestial
+        yy, xx = np.mgrid[0:ny, 0:nx].astype(float)
+
+        def sky(px, py):
+            lon, lat = cel.pix2world(px.ravel(), py.ravel())
+            return (np.radians(np.asarray(lon)).reshape(px.shape),
+                    np.radians(np.asarray(lat)).reshape(px.shape))
+
+        def ang_sep(l1, b1, l2, b2):
+            # wrap the longitude difference into (-pi, pi] so a pixel
+            # straddling lon=0 doesn't measure ~360 deg wide
+            dl = (l2 - l1 + np.pi) % (2 * np.pi) - np.pi
+            return np.sqrt((dl * np.cos(0.5 * (b1 + b2))) ** 2
+                           + (b2 - b1) ** 2)
+
+        lon_l, lat_l = sky(xx - 0.5, yy)
+        lon_r, lat_r = sky(xx + 0.5, yy)
+        dx = np.degrees(ang_sep(lon_l, lat_l, lon_r, lat_r))
+        lon_b, lat_b = sky(xx, yy - 0.5)
+        lon_t, lat_t = sky(xx, yy + 0.5)
+        dy = np.degrees(ang_sep(lon_b, lat_b, lon_t, lat_t))
+        return dv, dy, dx
 
     # ------------------------------------------------------------------
     # reductions (reference spectral_cube.py:361-819)
@@ -505,6 +839,60 @@ class BaseSpectralCube:
     def percentile(self, q, axis=None, how=None, **kwargs):
         return self._reduce(lambda d, v, axis: _red.masked_percentile(
             d, v, q, axis=axis), axis=axis)
+
+    def _arg_extremum(self, fn, axis, valid):
+        """Indices from ``fn`` (masked_argmax / masked_argmin) along
+        ``axis``, or the unravelled flat index where ``axis`` is None."""
+        if axis is None:
+            flat = fn(self._data.reshape(-1), valid.reshape(-1), axis=0)
+            return np.unravel_index(int(flat), self.shape)
+        return fn(self._data, valid, axis=axis).cpu().numpy()
+
+    def argmax(self, axis=None, how=None, **kwargs):
+        return self._arg_extremum(_red.masked_argmax, axis,
+                                  self._valid_view())
+
+    def argmin(self, axis=None, how=None, **kwargs):
+        return self._arg_extremum(_red.masked_argmin, axis,
+                                  self._valid_view())
+
+    def _argmaxmin_world(self, axis, method, **kwargs):
+        """World coordinate of the max/min along ``axis`` (reference
+        _argmaxmin_world, spectral_cube.py:820-889); raises
+        WCSCelestialError where the pixel axis couples to more than one
+        world axis.  The validity cube is made once and reduced on the
+        device: only the index and any-valid planes reach the host."""
+        from .cube_utils import world_take_along_axis
+        from .utils import WCSCelestialError
+        if self._wcs.is_pixel_axis_correlated(2 - axis):
+            raise WCSCelestialError(
+                f"{method}_world requires the celestial axes to be "
+                "aligned along image axes.")
+        valid = self._valid_view()
+        fn = _red.masked_argmax if method == "argmax" else _red.masked_argmin
+        idx = self._arg_extremum(fn, axis, valid)
+        any_valid = valid.any(dim=axis).cpu().numpy()
+        out = world_take_along_axis(self, idx, axis)
+        vals = np.asarray(out.value, dtype=float).copy()
+        vals[~any_valid] = np.nan
+        meta = {"collapse_axis": axis}
+        meta.update(self._meta)
+        new_wcs = self._wcs.dropaxis(2 - axis)
+        if axis == 0:
+            return Projection(vals, unit=out.unit, wcs=new_wcs, meta=meta,
+                              header=self._nowcs_header)
+        return LowerDimensionalObject(vals, unit=out.unit, wcs=new_wcs,
+                                      meta=meta, header=self._nowcs_header)
+
+    def argmax_world(self, axis=0, **kwargs):
+        """World coordinate of the maximum along ``axis`` (reference
+        spectral_cube.py:857-873)."""
+        return self._argmaxmin_world(axis, "argmax", **kwargs)
+
+    def argmin_world(self, axis=0, **kwargs):
+        """World coordinate of the minimum along ``axis`` (reference
+        spectral_cube.py:875-889)."""
+        return self._argmaxmin_world(axis, "argmin", **kwargs)
 
     def statistics(self):
         """One-pass global statistics, CASA ia.statistics naming
@@ -644,6 +1032,285 @@ class BaseSpectralCube:
         return Projection(np.asarray(sig.value) * SIGMA2FWHM, unit=sig.unit,
                           wcs=sig.wcs, meta=sig.meta, header=sig._header,
                           beam=sig._beam)
+
+    # ------------------------------------------------------------------
+    # slicing & subcubes (reference spectral_cube.py:1308-1381, 1881-2036)
+    # ------------------------------------------------------------------
+    def __getitem__(self, view):
+        """Index like the data: slices give a cube, one integer a
+        :class:`Slice` (spectral) or a 2-D object, two spatial integers a
+        spectrum, three a scalar.  A cut cube's data is contiguous: a
+        channel range shares this cube's storage, a spatial cut or a
+        negative step is copied once (the kernels take contiguous data
+        only).  The mask is cut with the data."""
+        if not isinstance(view, tuple):
+            view = (view,)
+        view = view + (slice(None),) * (3 - len(view))
+        if len(view) != 3:
+            raise IndexError("too many indices for a 3-D cube")
+        ints = [i for i, v in enumerate(view) if _is_int(v)]
+        meta = dict(self._meta)
+        meta["slice"] = [(v.start, v.stop, v.step) if isinstance(v, slice)
+                         else int(v) for v in view]
+        if not ints:
+            from .cube_utils import canon_view
+            view = canon_view(view, self.shape)
+            new_wcs = self._wcs.slice(view, shape=self.shape)
+            newmask = self._mask[view] if self._mask is not None else None
+            return self._new_cube_with(
+                data=index_view(self._data, view).contiguous(), wcs=new_wcs,
+                mask=newmask, meta=meta)
+        if len(ints) == 3:
+            return Quantity(index_view(self._data, view).item(), self.unit)
+        norm = [v if isinstance(v, slice) else int(v) for v in view]
+        slview = tuple(v if isinstance(v, slice) else slice(v, v + 1)
+                       for v in norm)
+        wcs_full = self._wcs.slice(slview, shape=self.shape)
+        keep = [i for i in range(3) if not isinstance(norm[i], int)]
+        new_wcs = wcs_full.reindex(sorted(2 - i for i in keep))
+        mask = self._mask[view] if self._mask is not None else None
+        arr = self._get_filled_data(view).cpu().numpy()
+        if len(ints) == 1 and ints[0] == 0:
+            return Slice(arr, unit=self.unit, wcs=new_wcs, meta=meta,
+                         mask=mask, header=self._nowcs_header,
+                         beam=getattr(self, "_beam", None))
+        if len(ints) == 2 and 0 not in ints:
+            return self._1d_spectrum(arr, new_wcs, meta, mask,
+                                     spec_view=norm[0])
+        return LowerDimensionalObject(arr, unit=self.unit, wcs=new_wcs,
+                                      meta=meta, mask=mask,
+                                      header=self._nowcs_header)
+
+    def _1d_spectrum(self, arr, wcs, meta, mask, spec_view=slice(None)):
+        return OneDSpectrum(arr, unit=self.unit, wcs=wcs, meta=meta,
+                            mask=mask, header=self._nowcs_header,
+                            beam=getattr(self, "_beam", None))
+
+    def subcube_slices_from_mask(self, region_mask, spatial_only=False):
+        """Bounding-box slices of a mask's included region (reference
+        spectral_cube.py:1908-1945).  The include cube is reduced on the
+        device; only its three 1-D profiles reach the host."""
+        include = region_mask.include(data=self._data).to(self.device) \
+            .expand(self.shape)
+        plane = include.any(dim=0)
+        profiles = (include.any(dim=2).any(dim=1), plane.any(dim=1),
+                    plane.any(dim=0))
+        slices = []
+        for ax, prof in enumerate(profiles):
+            w = np.flatnonzero(prof.cpu().numpy())
+            if not w.size:
+                slices.append(slice(0, 0))
+            elif spatial_only and ax == 0:
+                slices.append(slice(None))
+            else:
+                slices.append(slice(int(w[0]), int(w[-1]) + 1))
+        return tuple(slices)
+
+    def minimal_subcube(self, spatial_only=False):
+        if self._mask is None:
+            return self[:]
+        return self[self.subcube_slices_from_mask(self._mask,
+                                                  spatial_only=spatial_only)]
+
+    def subcube_from_mask(self, region_mask):
+        return self.with_mask(region_mask).minimal_subcube()
+
+    def subcube(self, xlo="min", xhi="max", ylo="min", yhi="max", zlo="min",
+                zhi="max", rest_value=None):
+        """Cut by pixel or world bounds (reference
+        spectral_cube.py:1947-2036)."""
+        nchan, ny, nx = self.shape
+        xlo, xhi = _world_to_pixel_range(self._wcs, 0, xlo, xhi, nx,
+                                         n_other=ny)
+        ylo, yhi = _world_to_pixel_range(self._wcs, 1, ylo, yhi, ny,
+                                         n_other=nx)
+        if isinstance(zlo, Quantity) or isinstance(zhi, Quantity):
+            zl = self.closest_spectral_channel(zlo) \
+                if isinstance(zlo, Quantity) else (
+                    0 if zlo == "min" else int(zlo))
+            zh = self.closest_spectral_channel(zhi) + 1 \
+                if isinstance(zhi, Quantity) else (
+                    nchan if zhi == "max" else int(zhi))
+            if zl > zh:
+                zl, zh = zh - 1, zl + 1
+        else:
+            zl = 0 if zlo == "min" else int(zlo)
+            zh = nchan if zhi == "max" else int(zhi)
+        return self[zl:zh, ylo:yhi, xlo:xhi]
+
+    # ------------------------------------------------------------------
+    # unit conversion & arithmetic
+    # ------------------------------------------------------------------
+    @warn_slow
+    def to(self, unit, equivalencies=()):
+        """Brightness-unit conversion, with per-channel factors where the
+        conversion depends on frequency or the beams vary (reference
+        spectral_cube.py:2576-2601 via cube_utils.bunit_converters)."""
+        from .cube_utils import bunit_converters
+        unit = Unit.parse(unit) if isinstance(unit, str) else unit
+        factors = bunit_converters(self, unit, equivalencies=equivalencies)
+        if factors.size == 1:
+            new_data = self._data * float(factors[0])
+        else:
+            new_data = self._data * _operand(factors, self._data)[:, None,
+                                                                   None]
+        return self._new_cube_with(data=new_data, unit=unit)
+
+    @property
+    def unitless(self):
+        return self._new_cube_with(unit=Unit.parse(""))
+
+    def _cube_op_scalar(self, op, value, new_unit=None):
+        if isinstance(value, Quantity):
+            if op in ("add", "sub"):
+                val = value.to_value(self.unit)
+                unit = self.unit
+            else:
+                val = value.value
+                unit = {"mul": self.unit * value.unit,
+                        "truediv": self.unit / value.unit}[op]
+        else:
+            if op in ("add", "sub") and not self.unit.dimensionless:
+                raise ValueError(
+                    "Can only add/subtract Quantity values with units "
+                    "matching the cube's (reference _val_to_own_unit, "
+                    "spectral_cube.py:2240-2261)")
+            val = value
+            unit = self.unit
+        data = self._get_filled_data(fill=np.nan)
+        return self._new_cube_with(
+            data=_ARITH[op](data, _operand(val, data)),
+            unit=new_unit or unit, mask=self._mask)
+
+    def _cube_on_cube(self, op, other):
+        if self.shape != other.shape:
+            raise ValueError("cube shapes do not match")
+        if not self._wcs.check_equality(other._wcs,
+                                        wcs_tolerance=self._wcs_tolerance):
+            warnings.warn("WCS mismatch in cube arithmetic",
+                          WCSMismatchWarning)
+        if op in ("add", "sub"):
+            factor = other.unit.to(self.unit)
+            unit = self.unit
+        else:
+            factor = 1.0
+            unit = {"mul": self.unit * other.unit,
+                    "truediv": self.unit / other.unit}[op]
+        mine = self._get_filled_data(fill=np.nan)
+        theirs = _operand(other._get_filled_data(fill=np.nan), mine)
+        data = _ARITH[op](mine, theirs * factor)
+        if self._mask is not None and other._mask is not None:
+            mask = CompositeMask(self._mask, other._mask, "and")
+        else:
+            mask = self._mask or other._mask
+        return self._new_cube_with(data=data, unit=unit, mask=mask)
+
+    def _check_huge_materialization(self, what):
+        """Reference guard (spectral_cube.py:911-921): whole-cube
+        elementwise operations on a huge cube raise unless
+        allow_huge_operations is set."""
+        if self._is_huge and not self.allow_huge_operations:
+            raise ValueError(
+                f"This {what} requires loading the entire cube into "
+                "memory and may slow down or crash. Set "
+                "`cube.allow_huge_operations=True` to override.")
+
+    def _arith(self, op, other, reflected=False):
+        self._check_huge_materialization("arithmetic operation")
+        if isinstance(other, Unit) and op in ("mul", "truediv"):
+            other = Quantity(1.0, other)
+        if isinstance(other, BaseSpectralCube):
+            if reflected:
+                return NotImplemented
+            return self._cube_on_cube(op, other)
+        if isinstance(other, (int, float, Quantity, np.ndarray,
+                              torch.Tensor)):
+            if reflected and op in ("sub", "truediv"):
+                if op == "sub":
+                    return self._cube_op_scalar(op, other) \
+                        ._cube_op_scalar("mul", -1.0)
+                # value / cube: a true division (torch's reflected
+                # operator multiplies by the reciprocal)
+                data = self._get_filled_data(fill=np.nan)
+                num = other.value if isinstance(other, Quantity) else other
+                unit = (other.unit if isinstance(other, Quantity)
+                        else Unit.parse("")) / self.unit
+                return self._new_cube_with(
+                    data=torch.div(_operand(num, data), data), unit=unit)
+            return self._cube_op_scalar(op, other)
+        return NotImplemented
+
+    def __add__(self, other):
+        return self._arith("add", other)
+
+    def __radd__(self, other):
+        return self._arith("add", other)
+
+    def __sub__(self, other):
+        return self._arith("sub", other)
+
+    def __rsub__(self, other):
+        return self._arith("sub", other, reflected=True)
+
+    def __mul__(self, other):
+        return self._arith("mul", other)
+
+    def __rmul__(self, other):
+        return self._arith("mul", other)
+
+    def __truediv__(self, other):
+        return self._arith("truediv", other)
+
+    def __rtruediv__(self, other):
+        return self._arith("truediv", other, reflected=True)
+
+    def __pow__(self, p):
+        data = self._get_filled_data(fill=np.nan) ** p
+        return self._new_cube_with(data=data, unit=self.unit ** p)
+
+    def __floordiv__(self, other):
+        raise NotImplementedError(
+            "Floor-division (rounding to integer) is not supported "
+            "(reference spectral_cube.py:2334)")
+
+    __rfloordiv__ = __floordiv__
+
+    def __abs__(self):
+        return self._new_cube_with(data=torch.abs(self._data))
+
+    def _apply_everywhere(self, function, *args, check_units=True):
+        """Reference-private spelling (spectral_cube.py:911-957): with
+        check_units=False the raw values are operated on and the cube's
+        unit is kept."""
+        if not check_units:
+            vals = [a.value if isinstance(a, Quantity) else a
+                    for a in args]
+            data = function(self._get_filled_data(fill=np.nan), *vals)
+            return self._new_cube_with(data=data, unit=self.unit)
+        return self.apply_everywhere(function, *args, check_units=True)
+
+    def apply_everywhere(self, function, *args, check_units=True):
+        """Apply an elementwise function to the filled data (reference
+        _apply_everywhere, spectral_cube.py:911-957); the function gets a
+        Quantity whose value is the data tensor."""
+        self._check_huge_materialization("operation")
+        if check_units:
+            try:
+                test = function(Quantity(np.ones((1, 1, 1)), self.unit),
+                                *args)
+                unit = test.unit if isinstance(test, Quantity) else \
+                    Unit.parse("")
+            except Exception as exc:
+                raise ValueError(
+                    f"function {function} does not accept Quantity "
+                    f"input: {exc}")
+            out = function(Quantity(self._get_filled_data(fill=np.nan),
+                                    self.unit), *args)
+            if isinstance(out, Quantity):
+                return self._new_cube_with(data=out.value, unit=out.unit)
+            return self._new_cube_with(data=out, unit=unit)
+        data = function(self._get_filled_data(fill=np.nan), *args)
+        return self._new_cube_with(data=data)
 
     # ------------------------------------------------------------------
     # reprojection and convolution
@@ -975,8 +1642,7 @@ class SpectralCube(BaseSpectralCube):
 class VaryingResolutionSpectralCube(BaseSpectralCube):
     """A cube with one beam per channel (reference
     spectral_cube.py:3784-4315; the JAX package's cube.py:2199-2560).
-    Slicing and ``jtok_factors`` are not ported yet (ROADMAP.md Queue 1
-    item 10)."""
+    Cutting the spectral axis cuts the beams with it."""
 
     def __init__(self, data, wcs, mask=None, meta=None, fill_value=np.nan,
                  header=None, allow_huge_operations=False, beams=None,
@@ -1231,7 +1897,51 @@ class VaryingResolutionSpectralCube(BaseSpectralCube):
             "Convolve to a common resolution with `convolve_to` before "
             "spectral smoothing. (reference spectral_cube.py:4308-4312)")
 
+    def __getitem__(self, view):
+        if not isinstance(view, tuple):
+            view = (view,)
+        view = view + (slice(None),) * (3 - len(view))
+        spec_idx = view[0]
+        if _is_int(spec_idx):
+            # one channel: the single-beam objects, with that channel's beam
+            out = super().__getitem__(view)
+            if isinstance(out, (Slice, Projection)):
+                out._beam = self._beams[int(spec_idx)]
+            return out
+        if sum(_is_int(v) for v in view[1:]) == 1:
+            raise NotImplementedError(
+                "Slicing a VaryingResolutionSpectralCube to a 2D plane "
+                "along the spectral axis is not supported "
+                "(reference spectral_cube.py:3937-3943)")
+        if all(isinstance(v, slice) for v in view):
+            # data, WCS, mask and beams are cut together, so the
+            # constructor's length check sees consistent inputs
+            from .cube_utils import canon_view
+            view = canon_view(view, self.shape)
+            meta = dict(self._meta)
+            meta["slice"] = [(v.start, v.stop, v.step) for v in view]
+            return self._new_cube_with(
+                data=index_view(self._data, view).contiguous(),
+                wcs=self._wcs.slice(view, shape=self.shape),
+                mask=self._mask[view] if self._mask is not None else None,
+                meta=meta, beams=self._beams[view[0]],
+                goodbeams_mask=self._goodbeams_mask[view[0]])
+        out = super().__getitem__(view)
+        if isinstance(out, VaryingResolutionOneDSpectrum):
+            out._beams = self._beams[spec_idx]
+        return out
+
+    def _1d_spectrum(self, arr, wcs, meta, mask, spec_view=slice(None)):
+        # the beams are cut with the spectral view (reference
+        # lower_dimensional_structures.py:765-772)
+        return VaryingResolutionOneDSpectrum(
+            arr, unit=self.unit, wcs=wcs, meta=meta, mask=mask,
+            header=self._nowcs_header, beams=self._beams[spec_view],
+            goodbeams_mask=self._goodbeams_mask[spec_view])
+
     def jtok_factors(self, equivalencies=()):
-        raise NotImplementedError(
-            "jtok_factors needs with_spectral_unit, which is not ported to "
-            "torch yet (ROADMAP.md Queue 1 item 10)")
+        """Per-channel K/(Jy/beam) factors (reference base_class.py:481)."""
+        freqs = self.with_spectral_unit(u.Hz).spectral_axis
+        return np.array([b.jtok(Quantity(f, "Hz")).value
+                         for b, f in zip(self._beams,
+                                         np.asarray(freqs.value))])

@@ -13,6 +13,15 @@ A varying-resolution cube crosses with its per-channel beams::
     cube_from_arrays(np.asarray(jvr._data), jvr.header,
                      beams=jvr.unmasked_beams,
                      goodbeams_mask=jvr.goodbeams_mask, device="cuda")
+
+A StokesSpectralCube crosses as a mapping of its components (each
+component's mask holds the common mask)::
+
+    cube_from_arrays({k: np.asarray(js.stokes_data[k]._data)
+                      for k in js.components},
+                     js[js.components[0]].header,
+                     mask={k: js[k].get_mask_array() for k in js.components},
+                     device="cuda")
 """
 
 from __future__ import annotations
@@ -51,7 +60,20 @@ def cube_from_arrays(data, header_cards, mask=None, beam=None, beams=None,
 
     ``beams`` (a sequence of such objects, one per channel) makes a
     :class:`VaryingResolutionSpectralCube` instead, with the optional
-    ``goodbeams_mask`` of its channels."""
+    ``goodbeams_mask`` of its channels.
+
+    ``data`` as a mapping of Stokes component names to arrays (and
+    ``mask``, if given, a mapping of the same names) makes a
+    :class:`~.stokes.StokesSpectralCube` of such cubes, sharing the
+    header."""
+    if isinstance(data, dict):
+        from .stokes import StokesSpectralCube
+        return StokesSpectralCube({
+            name: cube_from_arrays(
+                arr, header_cards, mask=None if mask is None else mask[name],
+                beam=beam, beams=beams, goodbeams_mask=goodbeams_mask,
+                device=device)
+            for name, arr in data.items()})
     header = _header(header_cards)
     wcs = WCS(header=header)
     meta = {"BUNIT": str(header["BUNIT"]).strip()} if "BUNIT" in header \

@@ -4,12 +4,12 @@ Port of ``spectral_cube_tpu/io/fits.py``: a 3-D image HDU loads as a
 :class:`~..cube.SpectralCube` on the requested device, with a finiteness
 mask (reference io/fits.py:214); a ``BEAMS`` table makes it a
 :class:`~..cube.VaryingResolutionSpectralCube` (reference io/fits.py:96-131);
-a 4-D file splits per Stokes component (reference io/fits.py:229-253) and
-one component returns that cube.  Several components would make a
-``StokesSpectralCube``, which is not ported yet (ROADMAP.md Queue 1 item
-10): :func:`cube_from_hdus` raises there unless asked for the I component,
-as ``SpectralCube.read`` asks.  Writing stamps a history card (reference
-io/fits.py:263-282) and appends a varying-resolution cube's BEAMS table.
+a 4-D file splits per Stokes component (reference io/fits.py:229-253):
+one component returns that cube, several a
+:class:`~..stokes.StokesSpectralCube` (or its I component, when
+``SpectralCube.read`` asks).  Writing stamps a history card (reference
+io/fits.py:263-282) and appends a varying-resolution cube's BEAMS table;
+a StokesSpectralCube writes as one 4-D file.
 """
 
 from __future__ import annotations
@@ -20,13 +20,14 @@ import warnings
 import numpy as np
 import torch
 
-from .fits_low import read_fits, write_fits, is_fits, BinTableHDU
+from .fits_low import read_fits, write_fits, is_fits, BinTableHDU, HDU
 from ..wcs import WCS
 from ..masks import LazyMask
 from ..utils import FITSReadError, StokesWarning
 from ..cube_utils import orient, split_stokes
 
-__all__ = ["load_fits_cube", "cube_from_hdus", "write_fits_cube", "is_fits"]
+__all__ = ["load_fits_cube", "cube_from_hdus", "write_fits_cube",
+           "write_fits_stokes", "is_fits"]
 
 
 def _find_image_hdu(hdus, hdu_index=0):
@@ -78,12 +79,13 @@ def cube_from_hdus(hdus, hdu=0, meta=None, device=None, stokes_to_i=False,
                    **kwargs):
     """Build a cube from parsed HDU objects.
 
-    A 4-D file with several Stokes components raises
-    ``NotImplementedError`` (a ``StokesSpectralCube``, ROADMAP.md Queue 1
-    item 10) unless ``stokes_to_i``: then the I component is returned with
-    a :class:`StokesWarning`, and a file without one raises ``ValueError``
-    (reference io/core.py:175-192, the JAX package's cube.py:485-512)."""
+    A 4-D file with several Stokes components gives a
+    :class:`~..stokes.StokesSpectralCube`, or with ``stokes_to_i`` its I
+    component and a :class:`StokesWarning`; a file without one then
+    raises ``ValueError`` (reference io/core.py:175-192, the JAX package's
+    cube.py:485-512)."""
     from ..cube import _beams_from_bintable, _beams_from_columns
+    from ..stokes import StokesSpectralCube
 
     ihdu = _find_image_hdu(hdus, hdu)
     header = ihdu.header
@@ -107,23 +109,20 @@ def cube_from_hdus(hdus, hdu=0, meta=None, device=None, stokes_to_i=False,
     else:
         (arrays, wcs3), tables = split_stokes(data, wcs), None
     names = list(arrays)
-    if len(names) > 1:
-        if not stokes_to_i:
-            raise NotImplementedError(
-                f"a 4-D file with Stokes components {names} makes a "
-                "StokesSpectralCube, which is not ported to torch yet "
-                "(ROADMAP.md Queue 1 item 10); SpectralCube.read returns "
-                "its I component")
+    if len(names) > 1 and stokes_to_i:
         if "I" not in names:
             raise ValueError("Spectral cube is a Stokes cube that does not "
                              "have an I component")
         warnings.warn("Cube is a Stokes cube, returning spectral cube for I "
                       "component", StokesWarning)
         names = ["I"]
-    name = names[0]
-    beams = _beams_from_columns(tables[name], beam_table.units) \
-        if tables is not None else None
-    return _component_cube(arrays[name], wcs3, meta, header, beams, device)
+    cubes = {name: _component_cube(
+        arrays[name], wcs3, meta, header,
+        _beams_from_columns(tables[name], beam_table.units)
+        if tables is not None else None, device) for name in names}
+    if len(cubes) == 1:
+        return next(iter(cubes.values()))
+    return StokesSpectralCube(cubes, meta=meta)
 
 
 def write_fits_cube(cube, filename, overwrite=False,
@@ -136,3 +135,35 @@ def write_fits_cube(cube, filename, overwrite=False,
     if include_origin_notes:
         hdus[0].header.add_history("Written by spectral_cube_tpu_torch")
     write_fits(filename, hdus)
+
+
+def write_fits_stokes(stokes_cube, filename, overwrite=False):
+    """Write a StokesSpectralCube as a 4-D FITS file."""
+    if os.path.exists(filename) and not overwrite:
+        raise OSError(f"{filename} exists; use overwrite=True")
+    comps = stokes_cube.components
+    ref = stokes_cube[comps[0]]
+    data4 = np.stack([stokes_cube[c]._get_filled_data().cpu().numpy()
+                      for c in comps], axis=0)
+    h = ref.header
+    h["NAXIS"] = 4
+    h["WCSAXES"] = 4
+    h["NAXIS4"] = len(comps)
+    h["CTYPE4"] = "STOKES"
+    from ..stokes import STOKES_SYMBOLS
+    sym_by_name = {v: k for k, v in STOKES_SYMBOLS.items()}
+    codes = [float(sym_by_name.get(c, 1)) for c in comps]
+    # a FITS STOKES axis is linear (code = CRVAL4 + CDELT4*(i+1-CRPIX4));
+    # non-arithmetic component sets (e.g. {I, V}) cannot be labeled on one
+    # axis — refuse rather than silently relabel them on read-back
+    steps = np.diff(codes)
+    if len(codes) > 1 and not np.all(steps == steps[0]):
+        raise ValueError(
+            f"Stokes components {comps} have codes {codes} that do not "
+            "form an arithmetic sequence and cannot share a linear FITS "
+            "STOKES axis; write the components separately")
+    h["CRVAL4"] = codes[0]
+    h["CDELT4"] = float(steps[0]) if len(codes) > 1 else 1.0
+    h["CRPIX4"] = 1.0
+    h["CUNIT4"] = ""
+    write_fits(filename, [HDU(data=data4, header=h)])

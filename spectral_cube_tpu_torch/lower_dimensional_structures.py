@@ -1,11 +1,14 @@
-"""Lower-dimensional results: 2-D projections such as moment maps.
+"""Lower-dimensional results: 2-D projections and channel slices, and
+1-D spectra.
 
-Port of the parts of ``spectral_cube_tpu/lower_dimensional_structures.py``
-the analysis path returns.  ``.value`` stays a host numpy array, as in the
-JAX package, so results of the two compare like with like; a projection's
-``convolve_to`` and ``reproject`` run on a device (the CUDA device unless
-the caller asks for another).  Spectra and slices follow in ROADMAP.md
-Queue 1 item 10.
+Port of ``spectral_cube_tpu/lower_dimensional_structures.py``.  ``.value``
+stays a host numpy array, as in the JAX package, so results of the two
+compare like with like; a mask taken from a cube is evaluated on the
+host copy of the values.  A projection's ``convolve_to`` and
+``reproject`` run on a device (the CUDA device unless the caller asks for
+another).  ``from_hdu``/``read``, the 1-D ``spectral_interpolate`` and
+``spectral_smooth``, and ``quicklook`` follow in ROADMAP.md Queue 1 item
+10c.
 """
 
 from __future__ import annotations
@@ -13,11 +16,23 @@ from __future__ import annotations
 import warnings
 
 import numpy as np
+import torch
 
-from .units import Quantity
-from .utils import SliceWarning
+from .units import Quantity, Unit
+from .beams import Beams
+from .utils import SliceWarning, cached
+from .wcs import convert_spectral_axis, determine_ctype_from_vconv
 
-__all__ = ["LowerDimensionalObject", "Projection"]
+__all__ = ["LowerDimensionalObject", "Projection", "Slice", "OneDSpectrum",
+           "VaryingResolutionOneDSpectrum"]
+
+
+def _host_include(mask, value, view=()):
+    """A mask's include array for ``value[view]`` (host values) as a numpy
+    array: the mask is evaluated on a host tensor of the values, wherever
+    the cube it came from lives."""
+    inc = mask.include(data=torch.as_tensor(np.asarray(value)), view=view)
+    return np.asarray(inc.cpu())
 
 
 class LowerDimensionalObject(Quantity):
@@ -93,6 +108,24 @@ class LowerDimensionalObject(Quantity):
             raise OSError(f"{filename} exists; use overwrite=True")
         from .io.fits_low import write_fits
         write_fits(filename, getattr(self, "hdulist", [self.hdu]))
+
+    def to(self, unit, equivalencies=(), freq=None):
+        """Brightness-unit-aware conversion (reference LDO.to at
+        lower_dimensional_structures.py:157-192)."""
+        from .cube_utils import bunit_converters
+        unit = Unit.parse(unit) if isinstance(unit, str) else unit
+        if freq is None and not hasattr(self, "with_spectral_unit"):
+            # 2-D plane: fall back to the rest frequency recorded in the
+            # header (reference lower_dimensional_structures.py:174-176)
+            hdr = self.header
+            for key in ("RESTFRQ", "RESTFREQ"):
+                if hdr is not None and key in hdr:
+                    freq = Quantity(float(hdr[key]), "Hz")
+                    break
+        factors = bunit_converters(self, unit, equivalencies=equivalencies,
+                                   freq=freq)
+        factor = factors if factors.size > 1 else float(factors[0])
+        return self._new_with(self.value * factor, unit=unit)
 
     def _new_with(self, value, unit=None, wcs=None, mask=None, beam=None):
         return type(self)(value,
@@ -218,6 +251,14 @@ class LowerDimensionalObject(Quantity):
         new.fill_value = fill_value
         return new
 
+    def shrink_mask(self):
+        """Drop the mask when it excludes nothing (matplotlib display hack;
+        reference lower_dimensional_structures.py:207-215)."""
+        m = self._mask
+        if m is not None and _host_include(m, self.value).all():
+            self._mask = None
+        return self
+
     def __repr__(self):
         return (f"<{type(self).__name__} {self.value.shape} "
                 f"unit={self.unit}>")
@@ -265,3 +306,288 @@ class Projection(LowerDimensionalObject):
                                        device=device)
         return Projection(out.cpu().numpy(), unit=self.unit, wcs=new_wcs,
                           meta=self._meta, beam=self._beam)
+
+    def subimage(self, xlo="min", xhi="max", ylo="min", yhi="max"):
+        """Extract a sub-image by pixel or world bounds (reference
+        Projection.subimage at lower_dimensional_structures.py:540-565)."""
+        from .cube import _world_to_pixel_range
+        from .wcs import WCSCelestialError
+        if self._wcs is None or not self._wcs.has_celestial:
+            raise WCSCelestialError(
+                "WCS does not contain two spatial axes.")
+        ny, nx = self.shape
+        xlo, xhi = _world_to_pixel_range(self._wcs, 0, xlo, xhi, nx,
+                                         n_other=ny)
+        ylo, yhi = _world_to_pixel_range(self._wcs, 1, ylo, yhi, ny,
+                                         n_other=nx)
+        view = (slice(ylo, yhi), slice(xlo, xhi))
+        return self[view]
+
+    def _world_planes(self, view=()):
+        """(lat, lon) planes for a view — pix2world runs only over the
+        viewed pixels, not the whole plane."""
+        ny, nx = self.shape
+        yy, xx = np.mgrid[0:ny, 0:nx].astype(np.float64)
+        from .masks import trivial_view
+        if not trivial_view(view):
+            yy, xx = yy[view], xx[view]
+        cel = self._wcs.celestial
+        lon, lat = cel.pix2world(xx.ravel(), yy.ravel())
+        return (np.asarray(lat).reshape(yy.shape),
+                np.asarray(lon).reshape(xx.shape), cel)
+
+    @property
+    def world(self):
+        """``plane.world[view]`` -> (lat, lon) Quantity planes, matching
+        the cube mixin's slice syntax (reference SpatialCoordMixinClass
+        on 2-D LDOs, base_class.py:179-241)."""
+        def get(view):
+            lat, lon, cel = self._world_planes(view)
+            return (Quantity(lat, cel.cunit[1]),
+                    Quantity(lon, cel.cunit[0]))
+
+        class _Indexer:
+            def __getitem__(_self, view):
+                return get(view)
+        return _Indexer()
+
+    def flattened_world(self, view=()):
+        lat, lon, cel = self._world_planes(view)
+        return [Quantity(lat.ravel(), cel.cunit[1]),
+                Quantity(lon.ravel(), cel.cunit[0])]
+
+    @property
+    @cached
+    def world_extrema(self):
+        """[[lon_min, lon_max], [lat_min, lat_max]] in the longitude
+        CUNIT (cached: the full-plane transform runs once); a
+        different-unit latitude axis converts to it."""
+        lat, lon, cel = self._world_planes()
+        lon_u = cel.cunit[0]
+        if cel.cunit[1] != lon_u:
+            lat = Quantity(lat, cel.cunit[1]).to_value(lon_u)
+        return Quantity(np.array(
+            [[float(lon.min()), float(lon.max())],
+             [float(lat.min()), float(lat.max())]]), lon_u)
+
+    @property
+    def longitude_extrema(self):
+        return self.world_extrema[0]
+
+    @property
+    def latitude_extrema(self):
+        return self.world_extrema[1]
+
+
+class Slice(Projection):
+    """A single channel map (reference class at
+    lower_dimensional_structures.py:578)."""
+
+
+class BaseOneDSpectrum(LowerDimensionalObject):
+    """A 1-D spectrum with a spectral WCS.
+
+    Like the reference (BaseOneDSpectrum mixes in
+    MaskableArrayMixinClass, lower_dimensional_structures.py:582) this
+    exposes the mask-filled access path: ``filled_data[:]``,
+    ``unitless_filled_data[:]``."""
+
+    def __init__(self, value, unit=None, wcs=None, meta=None, mask=None,
+                 header=None, beam=None, spectral_unit=None, copy=True):
+        super().__init__(value, unit=unit, wcs=wcs, meta=meta, mask=mask,
+                         header=header, beam=beam, copy=copy)
+        if self.ndim != 1:
+            raise ValueError("OneDSpectrum must be 1-dimensional")
+        self._spectral_unit = spectral_unit
+
+    def _new_with(self, value, unit=None, wcs=None, mask=None, beam=None):
+        out = type(self)(value,
+                         unit=unit if unit is not None else self.unit,
+                         wcs=wcs if wcs is not None else self._wcs,
+                         meta=self._meta,
+                         mask=mask if mask is not None else self._mask,
+                         header=self._header,
+                         beam=beam if beam is not None
+                         else getattr(self, "_beam", None),
+                         spectral_unit=self._spectral_unit)
+        # the display spectral unit survives to()/smooth/arithmetic (the
+        # base _new_with dropped it, reverting spectral_axis to the
+        # WCS-native unit), and so does the beam
+        return out
+
+    def _get_filled_data(self, view=(), fill=None):
+        data = np.asarray(self.value)
+        if fill is None:
+            fill = getattr(self, "fill_value", np.nan)
+        from .masks import trivial_view
+        trivial = trivial_view(view)
+        if self._mask is None:
+            return data if trivial else data[view]
+        inc = _host_include(self._mask, data, view)
+        sub = data if trivial else data[view]
+        return np.where(inc, sub, fill)
+
+    @property
+    def filled_data(self):
+        """``spec.filled_data[:]`` — mask applied, fill elsewhere
+        (reference base_class.py:419-450 slice syntax)."""
+        outer = self
+
+        class _Indexer:
+            def __getitem__(_self, view):
+                return Quantity(outer._get_filled_data(view=view),
+                                outer.unit)
+        return _Indexer()
+
+    @property
+    def unitless_filled_data(self):
+        outer = self
+
+        class _Indexer:
+            def __getitem__(_self, view):
+                return outer._get_filled_data(view=view)
+        return _Indexer()
+
+    @property
+    def spectral_axis(self) -> Quantity:
+        """World coordinates of each channel."""
+        vals = self._wcs.spectral_axis_values(len(self.value))
+        unit = self._wcs.spectral_unit
+        if self._spectral_unit is not None and \
+                self._spectral_unit != unit:
+            return Quantity(vals, unit).to(self._spectral_unit)
+        return Quantity(vals, unit)
+
+    def with_spectral_unit(self, unit, velocity_convention=None,
+                           rest_value=None):
+        unit = Unit.parse(unit) if isinstance(unit, str) else unit
+        out_ctype = determine_ctype_from_vconv(
+            self._wcs.ctype[self._wcs.spec], unit,
+            velocity_convention=velocity_convention)
+        new_wcs = convert_spectral_axis(self._wcs, unit, out_ctype,
+                                        rest_value=rest_value)
+        new = self._new_with(self.value, wcs=new_wcs)
+        new._spectral_unit = unit
+        return new
+
+    def __getitem__(self, view):
+        out = super().__getitem__(view)
+        if isinstance(out, BaseOneDSpectrum):
+            out._spectral_unit = self._spectral_unit
+        return out
+
+
+class OneDSpectrum(BaseOneDSpectrum):
+    """1-D spectrum with a single beam (reference
+    lower_dimensional_structures.py:1004-1052)."""
+
+    @property
+    def beam(self):
+        if self._beam is None:
+            raise ValueError("No beam is defined for this OneDSpectrum.")
+        return self._beam
+
+    def with_beam(self, beam):
+        return self._new_with(self.value, beam=beam)
+
+
+class VaryingResolutionOneDSpectrum(BaseOneDSpectrum):
+    """1-D spectrum with per-channel beams (reference
+    lower_dimensional_structures.py:1055-1141)."""
+
+    def __init__(self, value, unit=None, wcs=None, meta=None, mask=None,
+                 header=None, beams=None, spectral_unit=None, beam=None,
+                 copy=True, goodbeams_mask=None):
+        super().__init__(value, unit=unit, wcs=wcs, meta=meta, mask=mask,
+                         header=header, spectral_unit=spectral_unit,
+                         copy=copy)
+        if beams is not None and len(beams) != len(np.atleast_1d(self.value)):
+            raise ValueError(
+                "The Beams object must have the same size as the data. "
+                f"Found a size of {len(beams)} and the data have a size "
+                f"of {len(np.atleast_1d(self.value))} (reference "
+                "base_class.py:509-512)")
+        self._beams = beams
+        self._goodbeams_mask = goodbeams_mask
+
+    @property
+    def goodbeams_mask(self):
+        """Per-channel good-beam flags (reference
+        lower_dimensional_structures.py:1089-1098); all-True when unset."""
+        if self._goodbeams_mask is None:
+            return np.ones(len(np.atleast_1d(self.value)), dtype=bool)
+        return self._goodbeams_mask
+
+    def with_beams(self, beams, goodbeams_mask=None,
+                   raise_error_jybm=True):
+        """Replace the per-channel beams (reference
+        lower_dimensional_structures.py:1146-1161).  An explicit
+        goodbeams_mask replaces the current one; otherwise the existing
+        mask is kept when its length still matches."""
+        gbm = goodbeams_mask
+        if gbm is None and self._goodbeams_mask is not None \
+                and len(self._goodbeams_mask) == len(beams):
+            gbm = self._goodbeams_mask
+        return type(self)(self.value, unit=self.unit, wcs=self._wcs,
+                          meta=self._meta, mask=self._mask,
+                          header=self._header, beams=beams,
+                          goodbeams_mask=gbm,
+                          spectral_unit=self._spectral_unit)
+
+    @property
+    def beams(self) -> Beams:
+        if self._beams is None:
+            raise ValueError("No beams are defined")
+        if self._goodbeams_mask is not None:
+            return self._beams[self._goodbeams_mask]
+        return self._beams
+
+    @property
+    def unmasked_beams(self) -> Beams:
+        return self._beams
+
+    @property
+    def hdulist(self):
+        """Data HDU + BEAMS bintable, like the reference's VR 1-D
+        hdulist (lower_dimensional_structures.py:1100-1141); write() and
+        from_hdu round-trip the beams through it."""
+        from .io.fits_low import BinTableHDU
+        bt = BinTableHDU(columns=self._beams.to_table_columns(),
+                         name="BEAMS",
+                         units={"BMAJ": "arcsec", "BMIN": "arcsec",
+                                "BPA": "deg"})
+        bt.header["NCHAN"] = len(np.atleast_1d(self.value))
+        bt.header["NPOL"] = 1
+        return [self.hdu, bt]
+
+    def _new_with(self, value, unit=None, wcs=None, mask=None, beam=None):
+        beams = self._beams
+        gbm = self._goodbeams_mask
+        view = getattr(self, "_beams_view", None)
+        if view is not None:
+            if beams is not None:
+                beams = beams[view]
+            if gbm is not None:
+                gbm = gbm[view]
+        out = type(self)(value,
+                         unit=unit if unit is not None else self.unit,
+                         wcs=wcs if wcs is not None else self._wcs,
+                         meta=self._meta,
+                         mask=mask if mask is not None else self._mask,
+                         header=self._header,
+                         beams=beams,
+                         goodbeams_mask=gbm,
+                         spectral_unit=self._spectral_unit)
+        return out
+
+    def __getitem__(self, view):
+        # slice the beams in lockstep with the data (the base __getitem__
+        # constructs through _new_with, which picks up _beams_view; the
+        # reference pre-slices via kwargs the same way,
+        # lower_dimensional_structures.py:765-772)
+        self._beams_view = view
+        try:
+            out = super().__getitem__(view)
+        finally:
+            self._beams_view = None
+        return out

@@ -14,7 +14,8 @@ import math
 import torch
 
 __all__ = ["valid_mask", "masked_sum", "masked_mean", "masked_std",
-           "masked_max", "masked_min", "masked_median", "masked_percentile",
+           "masked_max", "masked_min", "masked_argmax", "masked_argmin",
+           "masked_median", "masked_percentile",
            "masked_mad_std", "masked_statistics", "MAD_STD_FACTOR"]
 
 NAN = float("nan")
@@ -73,6 +74,18 @@ def masked_min(data, valid, axis=None):
     filled = _fill(data, valid, math.inf)
     m = filled.min() if axis is None else filled.amin(axis)
     return torch.where(_count(valid, axis) > 0, m, NAN)
+
+
+def masked_argmax(data, valid, axis=0):
+    """nanargmax with invalid values filled with -inf (reference
+    spectral_cube.py:771-795): ties break to the first index, as
+    ``torch.argmax`` documents on every device, and a position with no
+    valid value along ``axis`` gives 0."""
+    return torch.argmax(_fill(data, valid, -math.inf), dim=axis)
+
+
+def masked_argmin(data, valid, axis=0):
+    return torch.argmin(_fill(data, valid, math.inf), dim=axis)
 
 
 def _lerp_sorted(lo_v, hi_v, frac):

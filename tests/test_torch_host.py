@@ -120,8 +120,8 @@ def test_fits_roundtrip_and_unported_inputs(tmp_path):
     """A cube written by the JAX package reads into the port (orientation,
     mask, beam), writes back, and re-reads unchanged; a varying-beam file
     reads as a VaryingResolutionSpectralCube with the JAX package's beams,
-    and a 4-D file with several Stokes components raises through
-    ``io.read_cube``, naming the ROADMAP item."""
+    and a 4-D file with several Stokes components reads through
+    ``io.read_cube`` as the JAX package's StokesSpectralCube."""
     rng = np.random.RandomState(1)
     data = rng.rand(4, 5, 6).astype(np.float32)
     data[1, 2, 3] = np.nan
@@ -152,5 +152,9 @@ def test_fits_roundtrip_and_unported_inputs(tmp_path):
     p4 = str(tmp_path / "iq.fits")
     write_fits(p4, [HDU(data=np.stack([data, data]), header=h)])
     from spectral_cube_tpu_torch.io import read_cube
-    with pytest.raises(NotImplementedError, match="item 10"):
-        read_cube(p4, device="cpu")
+    ts, js = read_cube(p4, device="cpu"), J.io.read_cube(p4)
+    assert isinstance(ts, T.StokesSpectralCube)
+    assert ts.components == js.components == ["I", "Q"]
+    for k in ts.components:
+        np.testing.assert_array_equal(ts[k]._data.numpy(),
+                                      np.asarray(js[k]._data))

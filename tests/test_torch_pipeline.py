@@ -317,6 +317,11 @@ def test_entry_points_default_to_cuda(fits_path, monkeypatch):
 
 def test_port_imports_no_jax():
     code = ("import sys, spectral_cube_tpu_torch; "
+            "import spectral_cube_tpu_torch.stokes, "
+            "spectral_cube_tpu_torch.lower_dimensional_structures, "
+            "spectral_cube_tpu_torch.cube_utils, "
+            "spectral_cube_tpu_torch.interop, "
+            "spectral_cube_tpu_torch.io.fits; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'spectral_cube_tpu.'))"
             " or m == 'spectral_cube_tpu']; "

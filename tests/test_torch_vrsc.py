@@ -162,13 +162,36 @@ def test_nonfinite_beams_masked(tmp_path):
     assert len(tc.beams) == 3
 
 
-def test_slicing_and_jtok_factors_raise(vr_pair):
-    tc, _, _ = vr_pair
-    for view in (slice(1, 3), 2, (slice(None), 1, 1)):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            tc[view]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tc.jtok_factors()
+@pytest.mark.parametrize("view", [slice(1, 3), 2, (slice(None), 1, 1)],
+                         ids=["slab", "channel", "spectrum"])
+def test_slicing_matches_jax(vr_pair, view):
+    """A channel range cuts the beams with the data; one channel is a
+    Slice with that channel's beam; a spectrum carries the beams (the
+    JAX package's cube.py:2423-2470)."""
+    tc, jc, _ = vr_pair
+    t, j = tc[view], jc[view]
+    assert type(t).__name__ == type(j).__name__
+    if isinstance(t, T.VaryingResolutionSpectralCube):
+        np.testing.assert_array_equal(t._data.numpy(), np.asarray(j._data))
+        np.testing.assert_array_equal(t.goodbeams_mask, j.goodbeams_mask)
+        assert t.wcs.to_header() == j.wcs.to_header()
+        _same_beams(t.unmasked_beams, j.unmasked_beams)
+    elif isinstance(t, T.Slice):
+        np.testing.assert_array_equal(t.value, np.asarray(j.value))
+        _same_beams([t.beam], [j.beam])
+    else:
+        np.testing.assert_array_equal(t.value, np.asarray(j.value))
+        _same_beams(t.unmasked_beams, j.unmasked_beams)
+
+
+def test_jtok_factors_match_jax(vr_pair):
+    tc, jc, _ = vr_pair
+    np.testing.assert_array_equal(tc.jtok_factors(), jc.jtok_factors())
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        tk, jk = tc.to("K"), jc.to("K")
+    np.testing.assert_array_equal(tk._data.numpy(), np.asarray(jk._data))
+    assert tk.unit.to_string() == jk.unit.to_string()
 
 
 def test_moment_requires_matched_beams(vr_pair):
@@ -373,15 +396,20 @@ def _stokes_file(tmp_path, crval4, cdelt4=1.0, beam_rows=None):
 
 def test_read_stokes_extracts_I_with_warning(tmp_path):
     """SpectralCube.read of a 4-D Stokes file returns the I component with
-    a StokesWarning (reference io/core.py:175-192); io.read_cube raises,
-    since a StokesSpectralCube is not ported (item 10)."""
+    a StokesWarning (reference io/core.py:175-192); io.read_cube returns
+    the StokesSpectralCube, as the JAX package's does."""
     from spectral_cube_tpu_torch.io import read_cube
+    from spectral_cube_tpu.io import read_cube as jread_cube
     path, data4 = _stokes_file(tmp_path, 1.0)
     with pytest.warns(StokesWarning, match="I component"):
         tc = T.SpectralCube.read(path, device="cpu")
     np.testing.assert_array_equal(tc._data.numpy(), data4[0])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        read_cube(path, device="cpu")
+    ts, js = read_cube(path, device="cpu"), jread_cube(path)
+    assert isinstance(ts, T.StokesSpectralCube)
+    assert ts.components == js.components == ["I", "Q"]
+    for k in ts.components:
+        np.testing.assert_array_equal(ts[k]._data.numpy(),
+                                      np.asarray(js[k]._data))
 
 
 def test_read_stokes_without_I_raises(tmp_path):
