@@ -20,13 +20,22 @@ brightness-unit conversion and arithmetic (array operands are cast to the
 data's dtype, as JAX keeps float32 with 64-bit mode off), argmax/argmin
 and world coordinates (host float64, as in the JAX package).
 
-Not ported yet: the ``apply_function*`` / ``apply_numpy_function``
-transform engine (ROADMAP.md Queue 1 item 10c), region subcubes (item
-10d) and the exporters and viewers.
+The transform engine runs a user's function over every spectrum or
+channel map with ``torch.func.vmap`` on the cube's device
+(``apply_function_parallel_spectral`` / ``_spatial``), or on the host per
+ray (``apply_function``) or on the whole filled array
+(``apply_numpy_function``).  Cube-returning operations take
+``save_to_tmp_dir=True``, which writes the result to a temporary store
+and loads it back (``persistence.py``).
+
+Not ported yet: region subcubes (ROADMAP.md Queue 1 item 10d) and the
+exporters and viewers.
 """
 
 from __future__ import annotations
 
+import functools
+import inspect
 import re
 import sys
 import warnings
@@ -45,7 +54,8 @@ from .lower_dimensional_structures import (Projection, Slice, OneDSpectrum,
                                            VaryingResolutionOneDSpectrum,
                                            LowerDimensionalObject)
 from .utils import (cached, warn_slow, VarianceWarning, BeamAverageWarning,
-                    NonFiniteBeamsWarning, WCSMismatchWarning)
+                    NonFiniteBeamsWarning, WCSMismatchWarning, SliceWarning,
+                    ProgressBar)
 from .wcs import convert_spectral_axis, determine_ctype_from_vconv
 from .ops import reductions as _red
 from .ops import moments as _mom
@@ -212,6 +222,67 @@ class _SliceSyntax:
 
     def __iter__(self):
         raise TypeError("use slice syntax: obj.attr[...] ")
+
+
+def _dask_block_info(shape):
+    """A dask-style block_info dict of one block spanning ``shape`` (the
+    reference's map_blocks passthrough, dask_spectral_cube.py:596-610)."""
+    return {0: {
+        "shape": tuple(shape),
+        "num-chunks": (1,) * len(shape),
+        "chunk-location": (0,) * len(shape),
+        "array-location": [(0, n) for n in shape],
+        "chunk-shape": tuple(shape),
+    }}
+
+
+def _tmp_dir_option(function):
+    """The reference's ``save_to_tmp_dir=`` option of cube-returning
+    operations (dask_spectral_cube.py:85-116): with True, the resulting
+    cube is written to a temporary store and loaded back
+    (:meth:`BaseSpectralCube.checkpoint`)."""
+    @functools.wraps(function)
+    def wrapper(self, *args, **kwargs):
+        save = kwargs.pop("save_to_tmp_dir", False)
+        out = function(self, *args, **kwargs)
+        if save and isinstance(out, BaseSpectralCube):
+            out = out.checkpoint()
+        return out
+    return wrapper
+
+
+#: dask.map_blocks options that describe the output's chunk layout; the
+#: transform engine has one block, so it consumes them
+_DASK_LAYOUT_OPTIONS = ("drop_axis", "new_axis", "chunks", "dtype", "meta")
+
+
+def _engine_kwargs(function, shape, kwargs):
+    """The user's kwargs for the transform engine: the dask layout options
+    dropped, and ``block_info`` added where ``function`` takes it."""
+    for name in _DASK_LAYOUT_OPTIONS:
+        kwargs.pop(name, None)
+    try:
+        params = inspect.signature(function).parameters
+    except (TypeError, ValueError):
+        params = {}
+    if "block_info" in params:
+        kwargs["block_info"] = _dask_block_info(shape)
+    return kwargs
+
+
+def _vmapped(function, data, in_dims, out_dims):
+    """``torch.func.vmap(function)`` over ``data``, or None where the
+    user's function cannot be vmapped (in-place updates, data-dependent
+    shapes, numpy calls): the caller then loops on the host, as the JAX
+    package does for functions JAX cannot trace (cube.py:1530-1535).  Only
+    the call of the user's function is inside the ``try``; what it raises
+    is arbitrary user code, so any Exception means "not vmappable", and a
+    genuine fault raises again from the host loop."""
+    try:
+        return torch.func.vmap(function, in_dims=in_dims,
+                               out_dims=out_dims)(data)
+    except Exception:
+        return None
 
 
 def slice_syntax(f):
@@ -785,7 +856,11 @@ class BaseSpectralCube:
     # reductions (reference spectral_cube.py:361-819)
     # ------------------------------------------------------------------
     def _reduce(self, fn, axis=None, unit=None, **kwargs):
-        if axis is not None:
+        if isinstance(axis, (tuple, list)):
+            axis = tuple(sorted(int(a) % 3 for a in axis))
+            if axis == (0, 1, 2):
+                axis = None
+        elif axis is not None:
             axis = int(axis) % 3
         data = self._data
         include = self._mask.include(data=data) if self._mask is not None \
@@ -803,6 +878,23 @@ class BaseSpectralCube:
         return getattr(self, "_beam", None)
 
     def _wrap_projection(self, out, axis, unit):
+        if isinstance(axis, (tuple, list)):
+            # the JAX package's cube.py:879-905: a sky collapse is a
+            # spectrum, a spatial + spectral pair a bare 1-D result
+            axes = tuple(sorted(int(a) % 3 for a in axis))
+            meta = {"collapse_axis": axes}
+            meta.update(self._meta)
+            if axes == (1, 2):
+                return self._1d_spectrum(out, self._wcs.spectral, meta,
+                                         None)
+            kept = [i for i in range(3) if i not in axes][0]
+            warnings.warn("Averaging over a spatial and a spectral "
+                          "dimension cannot produce a Projection quantity "
+                          "(reference spectral_cube.py:483); returning a "
+                          "1-D LowerDimensionalObject.", SliceWarning)
+            return LowerDimensionalObject(
+                out, unit=unit, wcs=self._wcs.reindex([2 - kept]), meta=meta,
+                header=self._nowcs_header)
         new_wcs = self._wcs.dropaxis(2 - axis)
         meta = {"collapse_axis": axis}
         meta.update(self._meta)
@@ -1313,6 +1405,167 @@ class BaseSpectralCube:
         return self._new_cube_with(data=data)
 
     # ------------------------------------------------------------------
+    # the transform engine (reference spectral_cube.py:1005-1105, 2900-3222)
+    # ------------------------------------------------------------------
+    @_tmp_dir_option
+    def apply_function_parallel_spectral(self, function, *args,
+                                         accepts_chunks=False,
+                                         return_new_cube=True,
+                                         use_memmap=None, parallel=None,
+                                         num_cores=None, verbose=0,
+                                         progressbar=False,
+                                         update_function=None, **kwargs):
+        """Apply ``function`` to every spectrum of the NaN-filled data (the
+        JAX package's cube.py:1486-1543): ``torch.func.vmap`` over the
+        spaxels of the (nchan, ny * nx) view on the cube's device, or,
+        with ``accepts_chunks=True``, one call on the whole (nchan, ny,
+        nx) block.  A function that takes ``block_info`` gets a dask-style
+        dict of one block; ``return_new_cube=False`` returns the output
+        as it is.  A function that cannot be vmapped runs per spectrum on
+        the host, and its result returns to the cube's device."""
+        _check_parallel_options(parallel, num_cores)
+        kwargs = _engine_kwargs(function, self.shape, kwargs)
+        data = self._get_filled_data(fill=np.nan)
+        if accepts_chunks:
+            out = function(data, *args, **kwargs)
+        else:
+            nchan, ny, nx = data.shape
+            out = _vmapped(lambda spec: function(spec, *args, **kwargs),
+                           data.reshape(nchan, ny * nx), 1, 1)
+            if out is not None:
+                out = out.reshape(out.shape[0], ny, nx)
+            else:
+                out = _as_tensor(np.apply_along_axis(
+                    lambda spec: np.asarray(function(spec, *args, **kwargs)),
+                    0, data.cpu().numpy()), self.device)
+        if not return_new_cube:
+            return out
+        return self._new_cube_with(data=out)
+
+    @_tmp_dir_option
+    def apply_function_parallel_spatial(self, function, *args,
+                                        accepts_chunks=False,
+                                        return_new_cube=True,
+                                        use_memmap=None, parallel=None,
+                                        num_cores=None, verbose=0,
+                                        progressbar=False,
+                                        update_function=None, **kwargs):
+        """Apply ``function`` to every channel map of the NaN-filled data,
+        vmapped over the channels (the JAX package's cube.py:1545-1584),
+        with the options of :meth:`apply_function_parallel_spectral`."""
+        _check_parallel_options(parallel, num_cores)
+        kwargs = _engine_kwargs(function, self.shape, kwargs)
+        data = self._get_filled_data(fill=np.nan)
+        if accepts_chunks:
+            out = function(data, *args, **kwargs)
+        else:
+            out = _vmapped(lambda img: function(img, *args, **kwargs), data,
+                           0, 0)
+            if out is None:
+                arr = data.cpu().numpy()
+                out = _as_tensor(np.stack([
+                    np.asarray(function(arr[i], *args, **kwargs))
+                    for i in range(arr.shape[0])]), self.device)
+        if not return_new_cube:
+            return out
+        return self._new_cube_with(data=out)
+
+    @_tmp_dir_option
+    def apply_function(self, function, axis=None, weights=None, unit=None,
+                       projection=False, progressbar=False,
+                       update_function=None, keep_shape=False, **kwargs):
+        """Apply ``function`` to each ray's included values along ``axis``
+        on the host (the JAX package's cube.py:1586-1662, reference
+        spectral_cube.py:1005-1105), the data and the mask copied to the
+        host once: ``weights`` multiplies the values, an empty ray stays
+        NaN (0 where a probe shows the function returns integers), a
+        Quantity result gives its value.  ``axis=None`` applies the
+        function to all included values, ignoring ``weights`` as the
+        reference does, and returns its result."""
+        if axis is None:
+            out = function(self.flattened(), **kwargs)
+            if unit is not None:
+                return Quantity(out, unit)
+            return out
+        if hasattr(axis, "__len__"):
+            raise NotImplementedError(
+                "`apply_function` does not support function application "
+                "across multiple axes.  Try `apply_numpy_function`.")
+        axis = int(axis) % 3
+
+        data = self._data.cpu().numpy()
+        inc = np.broadcast_to(self._include_view(()).cpu().numpy(),
+                              data.shape)
+        w = (np.broadcast_to(np.asarray(weights), data.shape)
+             if weights is not None else None)
+        rem = [i for i in range(3) if i != axis]
+        ny_, nx_ = self.shape[rem[0]], self.shape[rem[1]]
+        nz = self.shape[axis] if keep_shape else 1
+
+        # integer results (argmax-like) must not start as NaN (reference
+        # spectral_cube.py:1066-1071)
+        proberes = function(np.arange(3, dtype=data.dtype), **kwargs)
+        if "int" in str(getattr(proberes, "dtype", "")):
+            out = np.zeros([nz, ny_, nx_], dtype=proberes.dtype)
+        else:
+            out = np.full([nz, ny_, nx_], np.nan)
+
+        if progressbar:
+            pbu = ProgressBar(ny_ * nx_).update
+        elif update_function is not None:
+            pbu = update_function
+        else:
+            def pbu():
+                return True
+
+        for y in range(ny_):
+            for x in range(nx_):
+                slc = [y, x]
+                slc.insert(axis, slice(None))
+                slc = tuple(slc)
+                vals = data[slc][inc[slc]]
+                if w is not None:
+                    vals = vals * w[slc][inc[slc]]
+                if len(vals) != 0:
+                    result = function(Quantity(vals, self.unit), **kwargs)
+                    out[:, y, x] = getattr(result, "value", result)
+                pbu()
+
+        if not keep_shape:
+            out = out[0, :, :]
+        if projection and out.ndim == 2:
+            return self._wrap_projection(out, axis,
+                                         unit if unit is not None
+                                         else self.unit)
+        return out
+
+    @warn_slow
+    @_tmp_dir_option
+    def apply_numpy_function(self, function, fill=np.nan, projection=False,
+                             unit=None, check_endian=False, axis=None,
+                             how="cube", **kwargs):
+        """Apply a numpy function to the filled data on the host (the JAX
+        package's cube.py:1664-1680, reference spectral_cube.py:361-497)."""
+        data = self._get_filled_data(fill=fill).cpu().numpy()
+        out = function(data, axis=axis, **kwargs) if axis is not None \
+            else function(data, **kwargs)
+        if projection and axis is not None and np.ndim(out) == 2:
+            return self._wrap_projection(np.asarray(out), axis,
+                                         unit if unit is not None
+                                         else self.unit)
+        if unit is not None:
+            return Quantity(out, unit)
+        return out
+
+    def checkpoint(self, tmp_dir=None):
+        """The cube's current (masked) state written to a temporary store
+        and loaded back on its device; the store lives as long as the
+        returned cube (the JAX package's cube.py:1978-1984, the
+        reference's ``save_to_tmp_dir=True``)."""
+        from .persistence import checkpoint_to_tmp_dir
+        return checkpoint_to_tmp_dir(self, tmp_dir=tmp_dir)
+
+    # ------------------------------------------------------------------
     # reprojection and convolution
     # ------------------------------------------------------------------
     def _reproject(self, header, order="bilinear", filled=True):
@@ -1335,31 +1588,31 @@ class BaseSpectralCube:
         spatial grid (a translation or rescaling of the input's), with the
         input's spectral axis or a new one (channels lerped, then
         resampled; ops/regrid.py).  Rotated targets and nearest-neighbour
-        resampling take the four-corner gather; the spline orders raise
-        NotImplementedError so far (ROADMAP.md Queue 1 item 9)."""
+        resampling take the four-corner gather; biquadratic and bicubic take
+        the spline path."""
         return self._reproject(header, order=order, filled=filled)
 
     # ------------------------------------------------------------------
     # smoothing / filtering family (reference spectral_cube.py:2749-3222)
     # ------------------------------------------------------------------
+    @_tmp_dir_option
     def spectral_smooth(self, kernel, convolve=None, verbose=0,
                         parallel=None, num_cores=None, **kwargs):
         """Smooth along the spectral axis with a 1-D kernel (array or object
         with ``.array``); reference spectral_cube.py:3146-3184.
         ``parallel``/``num_cores`` are validated for reference
-        compatibility but do not change the evaluation.  The JAX
-        package's ``save_to_tmp_dir=`` is not ported."""
+        compatibility but do not change the evaluation."""
         _check_parallel_options(parallel, num_cores)
         karr = _kernel_array(kernel)
         data = self._get_filled_data(fill=np.nan)
         return self._new_cube_with(
             data=_smooth.spectral_smooth_cube(data, karr))
 
+    @_tmp_dir_option
     def spectral_smooth_median(self, ksize, raise_error_jybm=True,
                                parallel=None, num_cores=None,
                                update_function=None, **kwargs):
-        """Median filter of width ``ksize`` along the spectral axis.
-        The JAX package's ``save_to_tmp_dir=`` is not ported."""
+        """Median filter of width ``ksize`` along the spectral axis."""
         self._check_jybeam_smoothing(raise_error_jybm)
         _check_parallel_options(parallel, num_cores)
         data = self._get_filled_data(fill=np.nan)
@@ -1368,21 +1621,21 @@ class BaseSpectralCube:
         self._call_per_spaxel(update_function)
         return out
 
+    @_tmp_dir_option
     def spectral_filter(self, ksize, filter, parallel=None, num_cores=None,
                         use_memmap=None, update_function=None, **kwargs):
-        """Apply an arbitrary scipy-style spectral filter on the host.
-        The JAX package's ``save_to_tmp_dir=`` is not ported."""
+        """Apply an arbitrary scipy-style spectral filter on the host."""
         _check_parallel_options(parallel, num_cores)
         data = self._get_filled_data(fill=np.nan).cpu().numpy()
         out = filter(data, size=(ksize, 1, 1), **kwargs)
         self._call_per_spaxel(update_function)
         return self._new_cube_with(data=out)
 
+    @_tmp_dir_option
     def spatial_smooth(self, kernel, convolve=None, raise_error_jybm=True,
                        **kwargs):
         """Convolve every channel with a 2-D kernel (the separable
-        convolution kernel for a low-rank kernel).  The JAX package's
-        ``save_to_tmp_dir=`` is not ported."""
+        convolution kernel for a low-rank kernel)."""
         self._check_jybeam_smoothing(raise_error_jybm)
         karr = _kernel_array(kernel)
         data = self._get_filled_data(fill=np.nan)
@@ -1396,12 +1649,12 @@ class BaseSpectralCube:
         return self._new_cube_with(
             data=_smooth.spatial_median_filter_cube(data, ksize))
 
+    @_tmp_dir_option
     def spatial_filter(self, ksize, filter, raise_error_jybm=True,
                        parallel=None, num_cores=None, use_memmap=None,
                        update_function=None, **kwargs):
         """Arbitrary scipy.ndimage filter over each spatial plane on the
-        host (reference spectral_cube.py:2776-2806).  The JAX package's
-        ``save_to_tmp_dir=`` is not ported."""
+        host (reference spectral_cube.py:2776-2806)."""
         self._check_jybeam_smoothing(raise_error_jybm)
         _check_parallel_options(parallel, num_cores)
         data = self._get_filled_data(fill=np.nan).cpu().numpy()
@@ -1412,6 +1665,7 @@ class BaseSpectralCube:
                 update_function()
         return self._new_cube_with(data=out)
 
+    @_tmp_dir_option
     def sigma_clip_spectrally(self, threshold, verbose=0, maxiters=5,
                               cenfunc="median", stdfunc="std",
                               parallel=None, num_cores=None,
@@ -1422,8 +1676,7 @@ class BaseSpectralCube:
         through the sigma_clip kernel for float32 data with
         stdfunc='std'.  ``cenfunc``/``stdfunc`` follow
         astropy.stats.sigma_clip; unknown kwargs are rejected, never
-        silently dropped.  The JAX package's ``save_to_tmp_dir=`` is not
-        ported."""
+        silently dropped."""
         if kwargs:
             raise TypeError(
                 f"unsupported sigma_clip keyword(s) {sorted(kwargs)}; "
@@ -1463,6 +1716,7 @@ class BaseSpectralCube:
     # ------------------------------------------------------------------
     # spectral interpolation & downsampling
     # ------------------------------------------------------------------
+    @_tmp_dir_option
     def spectral_interpolate(self, spectral_grid,
                              suppress_smooth_warning=False,
                              fill_value=None, update_function=None,
@@ -1478,8 +1732,7 @@ class BaseSpectralCube:
         the smooth_interp kernel; under another data-local mask the
         smooth runs first and the mask is evaluated on its result, as the
         chained calls would; any other mask rides along the fused pass.
-        Suppresses the Nyquist warning.  The JAX package's
-        ``save_to_tmp_dir=`` is not ported."""
+        Suppresses the Nyquist warning."""
         if isinstance(spectral_grid, Quantity):
             grid = spectral_grid.to_value(self.spectral_unit)
         else:
@@ -1542,10 +1795,10 @@ class BaseSpectralCube:
             if new_include is not None else None
         return self._new_cube_with(data=out, wcs=new_wcs, mask=mask)
 
+    @_tmp_dir_option
     def downsample_axis(self, factor, axis, estimator="mean", truncate=False,
                         use_memmap=None, progressbar=None):
-        """Block-downsample (reference spectral_cube.py:3421-3557).
-        The JAX package's ``save_to_tmp_dir=`` is not ported."""
+        """Block-downsample (reference spectral_cube.py:3421-3557)."""
         data = self._get_filled_data(fill=np.nan)
         out = _interp.downsample_axis(data, factor, axis,
                                       estimator=estimator, truncate=truncate)
@@ -1621,6 +1874,7 @@ class SpectralCube(BaseSpectralCube):
                      (self._wcs.proj_plane_pixel_area()
                       * (np.pi / 180.0) ** 2))
 
+    @_tmp_dir_option
     def convolve_to(self, beam, convolve=None, update_function=None,
                     **kwargs):
         """Convolve every channel to a common target beam (reference
@@ -1803,8 +2057,9 @@ class VaryingResolutionSpectralCube(BaseSpectralCube):
 
     def _reduce(self, fn, axis=None, **kwargs):
         """Spectral reductions require matched beams (reference
-        __getattribute__ hook, spectral_cube.py:4077-4095)."""
-        if axis is None or int(axis) % 3 == 0:
+        __getattribute__ hook, spectral_cube.py:4077-4095); tuple axes
+        that include the spectral axis count."""
+        if axis is None or 0 in [int(a) % 3 for a in np.atleast_1d(axis)]:
             self._check_beam_areas()
         return super()._reduce(fn, axis=axis, **kwargs)
 
@@ -1812,6 +2067,26 @@ class VaryingResolutionSpectralCube(BaseSpectralCube):
         if int(axis) % 3 == 0:
             self._check_beam_areas()
         return super().moment(order=order, axis=axis, **kwargs)
+
+    def _check_beams_for_axis(self, axis):
+        """Operating over the spectral axis requires matching beams (the
+        reference wraps apply_numpy_function and apply_function in
+        _handle_beam_areas_wrapper, spectral_cube.py:4077-4095)."""
+        if axis is not None \
+                and 0 in [int(a) % 3 for a in np.atleast_1d(axis)]:
+            self._check_beam_areas()
+
+    def apply_numpy_function(self, function, *args, **kwargs):
+        # axis is the 6th positional parameter of the base signature
+        axis = kwargs.get("axis", args[4] if len(args) > 4 else None)
+        self._check_beams_for_axis(axis)
+        return super().apply_numpy_function(function, *args, **kwargs)
+
+    def apply_function(self, function, *args, **kwargs):
+        # axis is the 2nd positional parameter of the base signature
+        axis = kwargs.get("axis", args[0] if args else None)
+        self._check_beams_for_axis(axis)
+        return super().apply_function(function, *args, **kwargs)
 
     @property
     def header(self):
@@ -1833,6 +2108,7 @@ class VaryingResolutionSpectralCube(BaseSpectralCube):
     def common_beam(self, **kwargs):
         return self.beams.common_beam(**kwargs)
 
+    @_tmp_dir_option
     def convolve_to(self, beam, allow_smaller=False, convolve=None,
                     update_function=None, **kwargs):
         """Per-channel convolution to one common beam (reference

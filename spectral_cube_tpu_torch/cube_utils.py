@@ -1,11 +1,10 @@
 """Cube helpers: axis orientation, Stokes splitting, brightness-unit
-conversion factors, world coordinates of per-axis indices and the
-huge-operation policy.
+conversion factors, world coordinates of per-axis indices, the
+huge-operation policy, mosaics and the beam-table helpers.
 
-Port of the parts of ``spectral_cube_tpu/cube_utils.py`` the FITS reader,
-the cube and its lower-dimensional results need; ``mosaic_cubes``,
-``combine_headers`` and the beam-table helpers follow in ROADMAP.md
-Queue 1 item 10c.
+Port of ``spectral_cube_tpu/cube_utils.py``.  :func:`mosaic_cubes`
+reprojects each cube through ``ops/regrid.mosaic_add`` into accumulators
+on the first cube's device.
 """
 
 from __future__ import annotations
@@ -19,7 +18,10 @@ from .wcs import WCS
 
 __all__ = ["orient", "split_stokes", "canon_view", "is_huge",
            "bunit_converters", "world_take_along_axis", "convert_bunit",
-           "STOKES_SYMBOLS"]
+           "STOKES_SYMBOLS", "mosaic_cubes", "combine_headers",
+           "largest_beam", "smallest_beam", "iterator_strategy",
+           "try_load_beam", "try_load_beams", "beams_to_bintable",
+           "beam_props"]
 
 # FITS/CASA Stokes axis symbols (the JAX package's stokes.py:19-30,
 # reference stokes_spectral_cube.py:21-42)
@@ -293,3 +295,182 @@ def is_huge(cube) -> bool:
     """True if the cube is large enough that whole-cube host
     materialization should be guarded (reference cube_utils.py:270-275)."""
     return cube.size >= MEMORY_THRESHOLD
+
+
+def iterator_strategy(cube, axis=None) -> str:
+    """The reference's ``how=`` recommendation (cube_utils.py:277-301),
+    kept for API compatibility: every reduction here is one pass over the
+    device tensor, whatever the answer."""
+    if cube.size < MEMORY_THRESHOLD:
+        return "cube"
+    return "slice"
+
+
+def mosaic_cubes(cubes, target_header=None, order="bilinear",
+                 combine="mean"):
+    """Mosaic cubes onto a common celestial grid (the JAX package's
+    cube_utils.py:270-305; reference cube_utils.py:791-856): each cube is
+    reprojected onto ``target_header`` (by default the
+    :func:`combine_headers` of all of them) and added with its footprint
+    as weight into float32 accumulators on the first cube's device; the
+    result is their ratio where any weight is positive, NaN elsewhere."""
+    import torch
+    from .ops.regrid import mosaic_add
+    from .masks import BooleanArrayMask
+    from .cube import SpectralCube
+
+    if len(cubes) < 1:
+        raise ValueError("need at least one cube")
+    if target_header is None:
+        target_header = cubes[0].header
+        for c in cubes[1:]:
+            target_header = combine_headers(target_header, c.header)
+    nz = int(target_header.get("NAXIS3", cubes[0].shape[0]))
+    ny = int(target_header["NAXIS2"])
+    nx = int(target_header["NAXIS1"])
+    dev = cubes[0].device
+    accum = torch.zeros((nz, ny, nx), dtype=torch.float32, device=dev)
+    weights = torch.zeros_like(accum)
+    for c in cubes:
+        accum, weights = mosaic_add(
+            accum, weights, c._get_filled_data(fill=np.nan).to(dev), c.wcs,
+            target_header, order=order,
+            spectral_values_in=np.asarray(c.spectral_axis.value))
+    covered = weights > 0
+    out = torch.where(covered, accum / torch.where(covered, weights, 1.0),
+                      float("nan"))
+    del accum, weights
+    out_wcs = WCS(header=target_header)
+    return SpectralCube(out, out_wcs,
+                        mask=BooleanArrayMask(covered, wcs=out_wcs,
+                                              shape=tuple(out.shape)),
+                        meta=dict(cubes[0].meta), unit=cubes[0].unit,
+                        beam=getattr(cubes[0], "_beam", None))
+
+
+def combine_headers(header1, header2):
+    """The celestial header covering both inputs' footprints (the JAX
+    package's cube_utils.py:308-373, a simplified analog of the
+    reference's ``reproject.find_optimal_celestial_wcs``): the pixel-edge
+    corners of both, in a candidate projection centred on their extent, at
+    the finer pixel size; the spectral cards come from ``header1``."""
+    from .io.fits_low import Header
+    w1, w2 = WCS(header=header1), WCS(header=header2)
+    lons, lats = [], []
+    for w, h in ((w1, header1), (w2, header2)):
+        nx = int(h["NAXIS1"])
+        ny = int(h["NAXIS2"])
+        xs = np.array([-0.5, nx - 0.5, -0.5, nx - 0.5])
+        ys = np.array([-0.5, -0.5, ny - 0.5, ny - 0.5])
+        lon, lat = w.celestial.pix2world(xs, ys)
+        lons.append(np.asarray(lon))
+        lats.append(np.asarray(lat))
+    lon_all = np.concatenate(lons)
+    lat_all = np.concatenate(lats)
+    # unwrap longitudes about the first cube's centre
+    lon0 = lons[0].mean()
+    lon_all = (lon_all - lon0 + 180.0) % 360.0 - 180.0 + lon0
+    cd = min(abs(w1.cdelt[0]), abs(w2.cdelt[0]))
+    cd_lat = min(abs(w1.cdelt[1]), abs(w2.cdelt[1]))
+    tmp = WCS(naxis=2)
+    tmp.ctype = [w1.ctype[0], w1.ctype[1]]
+    tmp.crval = np.array([(lon_all.min() + lon_all.max()) / 2,
+                          (lat_all.min() + lat_all.max()) / 2])
+    tmp.cdelt = np.array([-cd, cd_lat])
+    tmp.crpix = np.array([1.0, 1.0])
+    tmp.cunit = [Unit.parse("deg"), Unit.parse("deg")]
+    px, py = (np.asarray(a) for a in tmp.world2pix(lon_all, lat_all))
+    # milli-pixel slack: inputs that tile a grid reproduce its size
+    nx = max(1, int(np.ceil(px.max() - px.min() - 1e-3)))
+    ny = max(1, int(np.ceil(py.max() - py.min() - 1e-3)))
+    out = Header()
+    for key in ("NAXIS3", "CTYPE3", "CRVAL3", "CDELT3", "CRPIX3", "CUNIT3",
+                "RESTFRQ", "SPECSYS", "BUNIT"):
+        if key in header1:
+            out[key] = header1[key]
+    out["NAXIS"] = 3
+    out["NAXIS1"] = nx
+    out["NAXIS2"] = ny
+    out["CTYPE1"] = w1.ctype[0]
+    out["CTYPE2"] = w1.ctype[1]
+    out["CUNIT1"] = "deg"
+    out["CUNIT2"] = "deg"
+    out["CRVAL1"] = float(tmp.crval[0])
+    out["CRVAL2"] = float(tmp.crval[1])
+    out["CDELT1"] = -cd
+    out["CDELT2"] = cd_lat
+    # the first output pixel centre sits half a pixel inside the corner
+    out["CRPIX1"] = 1.0 - (float(px.min()) + 0.5)
+    out["CRPIX2"] = 1.0 - (float(py.min()) + 0.5)
+    return out
+
+
+def _as_beams(beams):
+    from .beams import Beams
+    return beams if isinstance(beams, Beams) else Beams(beams=list(beams))
+
+
+def largest_beam(beams, include_mask=None):
+    """Largest beam by area (reference cube_utils.largest_beam)."""
+    return _as_beams(beams).largest_beam(include_mask)
+
+
+def smallest_beam(beams, include_mask=None):
+    """Smallest beam by area (reference cube_utils.smallest_beam)."""
+    return _as_beams(beams).smallest_beam(include_mask)
+
+
+def try_load_beam(header):
+    """A single beam from a FITS header, or None where it holds none or
+    a malformed one (reference cube_utils.py:304-325)."""
+    from .beams import Beam
+    try:
+        return Beam.from_header(header)
+    except (KeyError, ValueError, TypeError):
+        return None
+
+
+def try_load_beams(data):
+    """A beam or the beams of a BEAMS table from a header, an HDU or a list
+    of HDUs (reference cube_utils.py:327-378): a BEAMS table wins (BMAJ and
+    BMIN in arcsec, BPA in degrees), else the first header's beam.  The
+    table's columns are read from its ``data`` where it has one (an
+    astropy HDU, as the JAX package reads them) and else from the table
+    itself (this package's ``BinTableHDU``, which the JAX function cannot
+    read)."""
+    from .beams import Beams
+    if hasattr(data, "header") and not hasattr(data, "__iter__"):
+        data = [data]
+    if hasattr(data, "keys") or not hasattr(data, "__iter__"):
+        return try_load_beam(data)
+    beams = None
+    for hdu in data:
+        hdr = getattr(hdu, "header", None)
+        if hdr is None:
+            continue
+        if str(hdr.get("EXTNAME", "")).strip() == "BEAMS":
+            t = getattr(hdu, "data", hdu)
+            return Beams(
+                major=Quantity(np.asarray(t["BMAJ"], dtype=float), "arcsec"),
+                minor=Quantity(np.asarray(t["BMIN"], dtype=float), "arcsec"),
+                pa=Quantity(np.asarray(t["BPA"], dtype=float), "deg"))
+        if beams is None and "BMAJ" in hdr:
+            beams = try_load_beam(hdr)
+    return beams
+
+
+def beams_to_bintable(beams, pols=None):
+    """Beams as a FITS BEAMS table HDU (reference cube_utils.py:380-398)."""
+    from . import beams as _beams_mod
+    return _beams_mod.beams_to_bintable(beams, pols=pols)
+
+
+def beam_props(beams, includemask=None):
+    """(major, minor, pa) Quantity arrays in degrees of the beams that
+    ``includemask`` keeps (reference cube_utils.py:401-417)."""
+    if includemask is None:
+        includemask = [True] * len(beams)
+    kept = [b for b, m in zip(beams, includemask) if m]
+    return tuple(Quantity(np.array([getattr(b, k).to_value("deg")
+                                    for b in kept]), "deg")
+                 for k in ("major", "minor", "pa"))

@@ -44,7 +44,7 @@ from ._build import load_library, check, stream_ptr
 
 __all__ = ["plan_strips", "strip_blocks", "row_bands", "RowBands",
            "banded_matmul", "banded_matmul_plain", "banded_matmul_strips",
-           "plan", "pack", "prepare", "launch"]
+           "plan", "fits", "pack", "prepare", "launch"]
 
 def plan_strips(profile, max_m=256):
     """Choose (m, K) so every m-row strip of the banded operator touches
@@ -239,6 +239,21 @@ def plan(bands):
     """The kernel's launch for :class:`RowBands` ``bands``: the first shape of SHAPES and depth of DEPTHS whose rings fit
     two blocks an SM (SMEM_TWO), else one block (SMEM_MAX).  Raises
     ValueError where no plan fits (spans too wide for shared memory)."""
+    p = _plan_or_none(bands)
+    if p is None:
+        raise ValueError("the operator's row spans are too wide for the "
+                         "banded_matmul kernel's shared memory")
+    return p
+
+
+def fits(bands):
+    """Whether :func:`plan` finds a launch for ``bands``: a predicate on
+    the operator alone, the same on either device, for callers that
+    decide their route before any launch."""
+    return _plan_or_none(bands) is not None
+
+
+def _plan_or_none(bands):
     cache = {}
     for budget in (SMEM_TWO, SMEM_MAX):
         for rows, cols in SHAPES:
@@ -255,8 +270,7 @@ def plan(bands):
                 if smem <= budget:
                     return Plan(rows, cols, depth, slots, len(needed),
                                 max_loads, gw, tw, smem)
-    raise ValueError("the operator's row spans are too wide for the "
-                     "banded_matmul kernel's shared memory")
+    return None
 
 
 def pack(bands):

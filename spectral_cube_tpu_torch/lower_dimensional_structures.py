@@ -6,9 +6,8 @@ stays a host numpy array, as in the JAX package, so results of the two
 compare like with like; a mask taken from a cube is evaluated on the
 host copy of the values.  A projection's ``convolve_to`` and
 ``reproject`` run on a device (the CUDA device unless the caller asks for
-another).  ``from_hdu``/``read``, the 1-D ``spectral_interpolate`` and
-``spectral_smooth``, and ``quicklook`` follow in ROADMAP.md Queue 1 item
-10c.
+another), and so does a spectrum's ``spectral_smooth``; a spectrum's
+``spectral_interpolate`` runs on the host, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -18,10 +17,11 @@ import warnings
 import numpy as np
 import torch
 
+from . import units as u
 from .units import Quantity, Unit
-from .beams import Beams
-from .utils import SliceWarning, cached
-from .wcs import convert_spectral_axis, determine_ctype_from_vconv
+from .beams import Beam, Beams
+from .utils import SliceWarning, BeamWarning, cached
+from .wcs import WCS, convert_spectral_axis, determine_ctype_from_vconv
 
 __all__ = ["LowerDimensionalObject", "Projection", "Slice", "OneDSpectrum",
            "VaryingResolutionOneDSpectrum"]
@@ -108,6 +108,43 @@ class LowerDimensionalObject(Quantity):
             raise OSError(f"{filename} exists; use overwrite=True")
         from .io.fits_low import write_fits
         write_fits(filename, getattr(self, "hdulist", [self.hdu]))
+
+    @classmethod
+    def from_hdu(cls, hdu):
+        """Build from an HDU or a list of HDUs (the JAX package's
+        lower_dimensional_structures.py:102-128): a list's first image
+        with a shape is used, and a 1-D image beside a BEAMS table makes
+        a :class:`VaryingResolutionOneDSpectrum`."""
+        if isinstance(hdu, (list, tuple)):
+            from .io.fits import _find_beam_table
+            beam_table = _find_beam_table(hdu)
+            image = next((h for h in hdu
+                          if getattr(h, "is_image", False) and h.shape),
+                         None)
+            if image is None:
+                raise IOError("no image HDU found in the HDU list")
+            if beam_table is not None and len(image.shape) == 1:
+                from .cube import _beams_from_bintable
+                return VaryingResolutionOneDSpectrum(
+                    image.data, unit=u.parse_bunit(
+                        image.header.get("BUNIT", "")),
+                    wcs=WCS(header=image.header),
+                    meta={"header": image.header},
+                    beams=_beams_from_bintable(beam_table))
+            hdu = image
+        return cls(hdu.data, unit=u.parse_bunit(hdu.header.get("BUNIT", "")),
+                   wcs=WCS(header=hdu.header), meta={"header": hdu.header},
+                   beam=Beam.from_header(hdu.header))
+
+    @classmethod
+    def read(cls, filename, **kwargs):
+        """Read a FITS file through :meth:`from_hdu` (the whole HDU list, so
+        that a BEAMS table upgrades the class)."""
+        from .io.fits_low import read_fits
+        hdus = read_fits(str(filename))
+        if not any(getattr(h, "is_image", False) and h.shape for h in hdus):
+            raise IOError(f"no image HDU found in {filename}")
+        return cls.from_hdu(hdus)
 
     def to(self, unit, equivalencies=(), freq=None):
         """Brightness-unit-aware conversion (reference LDO.to at
@@ -469,6 +506,57 @@ class BaseOneDSpectrum(LowerDimensionalObject):
         new = self._new_with(self.value, wcs=new_wcs)
         new._spectral_unit = unit
         return new
+
+    def spectral_interpolate(self, spectral_grid,
+                             suppress_smooth_warning=False,
+                             fill_value=None):
+        """Linear interpolation onto ``spectral_grid`` on the host (the JAX
+        package's lower_dimensional_structures.py:514-551); the mask
+        follows as the cube path's does.  Per-channel beams survive only
+        a grid of the same length, and are dropped with a BeamWarning
+        otherwise."""
+        from .ops.interpolate import interp_spectrum
+        from .masks import BooleanArrayMask
+        grid = spectral_grid.to_value(self.spectral_axis.unit) \
+            if isinstance(spectral_grid, Quantity) \
+            else np.asarray(spectral_grid)
+        inaxis = np.asarray(self.spectral_axis.value, dtype=float)
+        include = _host_include(self._mask, self.value) \
+            if self._mask is not None else None
+        newval, new_wcs, new_include = interp_spectrum(
+            np.asarray(self.value, dtype=float), inaxis, grid, self._wcs,
+            suppress_smooth_warning=suppress_smooth_warning,
+            fill_value=fill_value, include=include)
+        new_mask = BooleanArrayMask(new_include, wcs=new_wcs,
+                                    shape=newval.shape) \
+            if new_include is not None else None
+        kw = {}
+        beams = getattr(self, "_beams", None)
+        if beams is not None:
+            if len(beams) == len(newval):
+                kw["beams"] = beams
+                gbm = getattr(self, "_goodbeams_mask", None)
+                if gbm is not None and len(gbm) == len(newval):
+                    kw["goodbeams_mask"] = gbm
+            else:
+                warnings.warn("spectral_interpolate onto a different-"
+                              "length grid drops the per-channel beams",
+                              BeamWarning)
+        out = type(self)(newval, unit=self.unit, wcs=new_wcs,
+                         meta=self._meta, mask=new_mask,
+                         header=self._header, beam=self._beam, **kw)
+        out._spectral_unit = self._spectral_unit
+        return out
+
+    def spectral_smooth(self, kernel, device=None, **kwargs):
+        """Convolve with a 1-D kernel, NaNs interpolated over
+        (``ops/smoothing.convolve1d_nan``), on ``device``: the CUDA device
+        unless the caller asks for another."""
+        from .ops.smoothing import convolve1d_nan
+        from .cube import _as_tensor, _kernel_array
+        x = _as_tensor(np.asarray(self.value, dtype=np.float32), device)
+        out = convolve1d_nan(x, _kernel_array(kernel))
+        return self._new_with(out.cpu().numpy())
 
     def __getitem__(self, view):
         out = super().__getitem__(view)

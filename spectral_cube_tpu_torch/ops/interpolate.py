@@ -7,6 +7,7 @@ and a lerp over the whole cube.  The fused spectral smooth + regrid
 its plain version on the CPU) with the host operators S (smoothing band),
 I (2-tap interpolation) and M = I @ S.  ``downsample_axis`` reproduces the
 block-estimator reduce of the reference (spectral_cube.py:3421-3557).
+:func:`interp_spectrum` is the 1-D case of a spectrum held on the host.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ from .smoothing import _banded_conv_matrix, spectral_smooth_cube
 
 __all__ = ["interp_weights", "interp_cube_spectral", "smooth_interp_cube",
            "compose_interp_banded", "linear_spectral_wcs", "check_nyquist",
-           "downsample_axis", "downsample_include", "_interp_matrix"]
+           "downsample_axis", "downsample_include", "_interp_matrix",
+           "interp_spectrum"]
 
 
 def interp_weights(inaxis, outaxis):
@@ -224,6 +226,34 @@ def linear_spectral_wcs(wcs, outaxis, unit=None):
     if len(ct) > 4:
         new.ctype[i] = ct[:4]
     return new
+
+
+def interp_spectrum(value, inaxis, outaxis, wcs,
+                    suppress_smooth_warning=False, fill_value=None,
+                    include=None):
+    """The 1-D case of ``OneDSpectrum.spectral_interpolate``
+    (interpolate.py:455-486) on host arrays.  Returns ``(out, new_wcs,
+    new_include_or_None)``: a sample stays included only where every
+    neighbour it takes weight from is included, as the cube path poisons
+    its include mask; an exact grid hit or an edge clamp returns the
+    sample itself, so a zero-weight NaN neighbour never poisons it."""
+    if not suppress_smooth_warning:
+        check_nyquist(inaxis, outaxis)
+    idx, frac = interp_weights(inaxis, outaxis)
+
+    def lerp(v):
+        mixed = v[idx] * (1 - frac) + v[idx + 1] * frac
+        return np.where(frac == 0, v[idx],
+                        np.where(frac == 1, v[idx + 1], mixed))
+
+    out = lerp(value)
+    if fill_value is not None:
+        lo, hi = min(inaxis[0], inaxis[-1]), max(inaxis[0], inaxis[-1])
+        out = np.where((outaxis < lo) | (outaxis > hi), fill_value, out)
+    new_include = None
+    if include is not None:
+        new_include = lerp(1.0 - np.asarray(include, dtype=float)) == 0
+    return out, linear_spectral_wcs(wcs, outaxis), new_include
 
 
 def _nanmedian(x, dim):

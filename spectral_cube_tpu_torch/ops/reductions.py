@@ -4,7 +4,8 @@ Port of ``spectral_cube_tpu/ops/reductions.py``.  Every function takes the
 combined validity mask explicitly (``valid = include & isfinite(data)``).
 The critical semantic is ``allbadtonan`` (reference ``np_compat.py:3-27``):
 positions where no included finite value exists along the reduced axis
-yield NaN.  ``axis=None`` reduces over the whole cube.
+yield NaN.  ``axis=None`` reduces over the whole cube, and a tuple
+``axis`` over those axes together (:func:`_merge_axes`).
 """
 
 from __future__ import annotations
@@ -34,6 +35,22 @@ def _fill(data, valid, fill):
                                                     device=data.device))
 
 
+def _merge_axes(data, valid, axis):
+    """``(data, valid, axis)`` with a tuple ``axis`` turned into one: the
+    reduced axes moved last, in order, and flattened into axis -1 (the
+    kept axes stay in order in front), as ``jnp`` reduces a tuple of axes
+    in the JAX package.  Any other ``axis`` passes through."""
+    if not isinstance(axis, (tuple, list)):
+        return data, valid, axis
+    axes = sorted(int(a) % data.ndim for a in axis)
+    keep = [i for i in range(data.ndim) if i not in axes]
+    shape = [data.shape[i] for i in keep] + [-1]
+
+    def merge(x):
+        return x.expand(data.shape).permute(keep + axes).reshape(shape)
+    return merge(data), merge(valid), -1
+
+
 def _sum(x, axis):
     return x.sum() if axis is None else x.sum(axis)
 
@@ -44,11 +61,13 @@ def _count(valid, axis):
 
 def masked_sum(data, valid, axis=None):
     """nansum with allbadtonan: all-invalid positions -> NaN."""
+    data, valid, axis = _merge_axes(data, valid, axis)
     s = _sum(_fill(data, valid, 0), axis)
     return torch.where(_count(valid, axis) > 0, s, NAN)
 
 
 def masked_mean(data, valid, axis=None):
+    data, valid, axis = _merge_axes(data, valid, axis)
     s = _sum(_fill(data, valid, 0), axis)
     cnt = _count(valid, axis).to(data.dtype)
     return torch.where(cnt > 0, s / torch.clamp(cnt, min=1), NAN)
@@ -56,6 +75,7 @@ def masked_mean(data, valid, axis=None):
 
 def masked_std(data, valid, axis=None, ddof=0):
     """nanstd, two-pass form (numpy nanstd numerics)."""
+    data, valid, axis = _merge_axes(data, valid, axis)
     cnt = _count(valid, axis).to(data.dtype)
     mean = _sum(_fill(data, valid, 0), axis) / torch.clamp(cnt, min=1)
     mean_b = mean if axis is None else mean.unsqueeze(axis)
@@ -65,12 +85,14 @@ def masked_std(data, valid, axis=None, ddof=0):
 
 
 def masked_max(data, valid, axis=None):
+    data, valid, axis = _merge_axes(data, valid, axis)
     filled = _fill(data, valid, -math.inf)
     m = filled.max() if axis is None else filled.amax(axis)
     return torch.where(_count(valid, axis) > 0, m, NAN)
 
 
 def masked_min(data, valid, axis=None):
+    data, valid, axis = _merge_axes(data, valid, axis)
     filled = _fill(data, valid, math.inf)
     m = filled.min() if axis is None else filled.amin(axis)
     return torch.where(_count(valid, axis) > 0, m, NAN)
@@ -101,6 +123,7 @@ def masked_percentile(data, valid, q, axis=None):
     ``axis=None``, else each lane with excluded values set to NaN (sorted
     last), and interpolates between the two bracketing order statistics
     at position ``q/100 * (n - 1)``, computed in float64."""
+    data, valid, axis = _merge_axes(data, valid, axis)
     q = float(q)
     if axis is None:
         vals = data[valid]
@@ -134,6 +157,7 @@ MAD_STD_FACTOR = 1.482602218505602  # 1/Phi^-1(3/4), astropy.stats.mad_std
 def masked_mad_std(data, valid, axis=None):
     """Median-absolute-deviation std estimate (astropy mad_std semantics,
     used by reference spectral_cube.py:719-767)."""
+    data, valid, axis = _merge_axes(data, valid, axis)
     med = masked_median(data, valid, axis=axis)
     med_b = med if axis is None else med.unsqueeze(axis)
     dev = torch.abs(data - med_b)

@@ -1,6 +1,6 @@
 """Reprojection onto a new WCS, and the fused convolve + reproject.
 
-Port of ``spectral_cube_tpu/ops/regrid.py`` for orders 0 and 1.  The
+Port of ``spectral_cube_tpu/ops/regrid.py``.  The
 target-to-source pixel mapping is computed on the host in float64 through
 the standalone WCS stack (shared with the JAX package's derivation,
 :func:`bilinear_host_maps`).  A bilinear, axis-aligned target with an
@@ -20,18 +20,27 @@ with the resample in kernel 6 (``kernels/conv_reproject.py``) on operators
 composed on the host by :func:`_conv_reproject_operators`, or, where
 kernel 6's plan does not fit, runs the two-stage chain.
 
-Not ported yet, and raising ``NotImplementedError``: the spline orders
-2 and 3 (ROADMAP.md Queue 1 item 9).
+The spline orders 2 and 3 (biquadratic, bicubic) take
+:func:`_spline_spatial_then_z`: exact scipy operators built on the host in
+float64, a new spectral axis applied by kernel 7
+(``kernels/banded_matmul.py``), then the spatial step as IEEE float32
+matrix products (an axis-aligned mapping) or as the prefilter and the
+(order + 1)^2 tap gathers (any other mapping), as the JAX package computes
+them outside any Pallas kernel.
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from ..utils import ieee_fp32
 from ..wcs import WCS
+from ..kernels import banded_matmul as _bm
 from ..kernels.conv_reproject import (Bands, ConvTaps, Rows2, bands_of,
                                       conv_reproject, plan)
 from ..kernels.resample2 import resample2, resample2_filled
@@ -115,18 +124,281 @@ def bilinear_host_maps(zs, ys, xs, nchan_in, ny_in, nx_in, order):
             x0, x1, wx)
 
 
+#: host operators of the spline path, by their arguments (bounded)
+_SPLINE_OPS = OrderedDict()
+_SPLINE_OPS_SIZE = 16
+
+
+def _spline_cached(key, build):
+    hit = _SPLINE_OPS.get(key)
+    if hit is None:
+        hit = _SPLINE_OPS[key] = build()
+        if len(_SPLINE_OPS) > _SPLINE_OPS_SIZE:
+            _SPLINE_OPS.popitem(last=False)
+    else:
+        _SPLINE_OPS.move_to_end(key)
+    return hit
+
+
+def _spline_1d_matrix(n_in, coords, order):
+    """Exact (n_out, n_in) float32 scipy spline-resample operator along one
+    axis (regrid.py:42-62): ``scipy.ndimage.map_coordinates`` of an
+    identity in float64, which composes the spline prefilter and the
+    B-spline taps, boundaries included; entries below 1e-8 are dropped so
+    that the operator is banded.  Out-of-range coordinates give all-zero
+    rows, which the caller's validity mask NaNs.  Cached by its
+    arguments."""
+    coords = np.ascontiguousarray(coords, dtype=np.float64)
+
+    def build():
+        from scipy.ndimage import map_coordinates
+        n_out = coords.shape[0]
+        cc = np.stack([np.repeat(coords, n_in),
+                       np.tile(np.arange(n_in, dtype=np.float64), n_out)])
+        T = map_coordinates(np.eye(n_in), cc, order=order, mode="constant",
+                            cval=0.0).reshape(n_out, n_in)
+        T[np.abs(T) < 1e-8] = 0.0
+        return T.astype(np.float32)
+    return _spline_cached(("matrix", int(n_in), int(order), coords.tobytes()),
+                          build)
+
+
+def _spline_prefilter_matrix(n, order):
+    """(n, n) float32 mirror-mode spline prefilter (regrid.py:100-107):
+    column j the filtered unit impulse at j, entries below 1e-8 dropped.
+    Cached by its arguments."""
+    def build():
+        from scipy.ndimage import spline_filter1d
+        P = spline_filter1d(np.eye(n), order=order, axis=0,
+                            mode="mirror").astype(np.float32)
+        P[np.abs(P) < 1e-8] = 0.0
+        return P
+    return _spline_cached(("prefilter", int(n), int(order)), build)
+
+
+def _spectral_route(M):
+    """``(bands, fits)``: kernel 7's row bands of the host operator ``M``
+    and whether its plan takes them, cached by ``M``'s bytes."""
+    def build():
+        bands = _bm.row_bands(M)
+        return bands, _bm.fits(bands)
+    return _spline_cached(("bands", M.shape, M.tobytes()), build)
+
+
+def _spectral_product(M, cube):
+    """``M @ cube`` along axis 0 for the host operator ``M`` (nz, nchan)
+    and a finite float32 (nchan, ny, nx) tensor: kernel 7
+    (:func:`~..kernels.banded_matmul.banded_matmul`) on the contiguous
+    (nchan, ny * nx) view where its plan fits the operator's bands,
+    decided on the host before any launch; else ``torch.matmul`` in IEEE
+    float32, counted in ``_spectral_product.declined``.  The route of the
+    latest call is ``_spectral_product.last``."""
+    nchan, ny, nx = cube.shape
+    flat = cube.reshape(nchan, ny * nx).to(torch.float32).contiguous()
+    bands, fits = _spectral_route(M)
+    if fits:
+        _spectral_product.last = "banded_matmul"
+        out = _bm.banded_matmul(flat, bands)
+    else:
+        _spectral_product.last = "matmul"
+        _spectral_product.declined += 1
+        with ieee_fp32():
+            out = torch.matmul(torch.as_tensor(M, device=cube.device), flat)
+    return out.reshape(M.shape[0], ny, nx)
+
+
+_spectral_product.last = None
+_spectral_product.declined = 0
+
+
+def _spline_separable_resample(fz, wz, ys, xs, order):
+    """Order-2/3 spatial resample of an axis-aligned mapping
+    (regrid.py:65-87): the exact scipy operators along y then x, as IEEE
+    float32 matrix products, for the data and, with the operators'
+    absolute values, the NaN weights.  Returns ``(out, wn)``."""
+    nz, ny_in, nx_in = fz.shape
+    dev = fz.device
+    ty = _spline_1d_matrix(ny_in, ys[:, 0], order)
+    tx = _spline_1d_matrix(nx_in, xs[0, :], order)
+
+    def apply(arr, a, b):
+        a = torch.as_tensor(a, device=dev)
+        b = torch.as_tensor(b, device=dev)
+        t = torch.matmul(a, arr.to(torch.float32))
+        return torch.matmul(t, b.t())
+
+    with ieee_fp32():
+        out = apply(fz, ty, tx)
+        wn = apply(wz, np.abs(ty), np.abs(tx))
+    return out, wn
+
+
+def _bspline(order, t):
+    """B-spline basis value at distance ``t`` (regrid.py:133-141)."""
+    at = np.abs(t)
+    if order == 2:
+        return np.where(at < 0.5, 0.75 - at ** 2,
+                        np.where(at < 1.5, 0.5 * (at - 1.5) ** 2, 0.0))
+    return np.where(at < 1.0, (4.0 - 6.0 * at ** 2 + 3.0 * at ** 3) / 6.0,
+                    np.where(at < 2.0, (2.0 - at) ** 3 / 6.0, 0.0))
+
+
+class SplineTaps(NamedTuple):
+    """The nonseparable spline path's host plan on a device: the float32
+    prefilters ``py`` (ny_in, ny_in) and ``px`` (nx_in, nx_in), the
+    padding (``pad`` cells, torch ``pad_mode``) and per tap the (ny * nx,)
+    flat indices into the padded plane and the float32 weights (numpy)."""
+    py: torch.Tensor
+    px: torch.Tensor
+    pad: int
+    pad_mode: str
+    taps: list
+
+
+def spline_taps(ys, xs, order, ny_in, nx_in, device):
+    """:class:`SplineTaps` of the (order + 1)^2 B-spline taps at the maps
+    ``ys``/``xs`` (regrid.py:100-141): mirror-mode prefilters, ``order``
+    cells of padding (reflect, or edge where a plane is no larger than
+    ``order``), the taps' base knots rounded (order 2) or floored (order
+    3), weights in float64 cast to float32."""
+    pad = order
+    nxp = nx_in + 2 * pad
+    ycl = np.nan_to_num(np.asarray(ys, dtype=np.float64))
+    xcl = np.nan_to_num(np.asarray(xs, dtype=np.float64))
+    if order == 2:
+        yb, xb = np.round(ycl).astype(np.int64), np.round(xcl).astype(np.int64)
+        offs = (-1, 0, 1)
+    else:
+        yb, xb = np.floor(ycl).astype(np.int64), np.floor(xcl).astype(np.int64)
+        offs = (-1, 0, 1, 2)
+    fy, fx = ycl - yb, xcl - xb
+    taps = []
+    for dy in offs:
+        for dx in offs:
+            w = (_bspline(order, fy - dy)
+                 * _bspline(order, fx - dx)).astype(np.float32)
+            iy = np.clip(yb + dy + pad, 0, ny_in + 2 * pad - 1)
+            ix = np.clip(xb + dx + pad, 0, nxp - 1)
+            taps.append((torch.as_tensor((iy * nxp + ix).ravel(),
+                                         device=device),
+                         np.ascontiguousarray(w.ravel())))
+    return SplineTaps(
+        torch.as_tensor(_spline_prefilter_matrix(ny_in, order),
+                        device=device),
+        torch.as_tensor(_spline_prefilter_matrix(nx_in, order),
+                        device=device),
+        pad, "reflect" if min(ny_in, nx_in) > order else "replicate", taps)
+
+
+def spline_coefficients(arr, plan, absolute):
+    """The padded spline coefficients of the (nz, ny_in, nx_in) ``arr``
+    (their absolute values with ``absolute``) as the channels-minor
+    (padded plane, nz) tensor the taps gather from."""
+    with ieee_fp32():
+        c = torch.matmul(torch.matmul(plan.py, arr.to(torch.float32)),
+                         plan.px.t())
+    if absolute:
+        c = c.abs_()
+    p = plan.pad
+    c = F.pad(c[None], (p, p, p, p), mode=plan.pad_mode)[0]
+    return c.reshape(c.shape[0], -1).t().contiguous()
+
+
+def spline_gathers(flat, plan, absolute):
+    """The weighted sum of the taps of :func:`spline_coefficients`'
+    ``flat``: each tap gathered into one reused buffer and accumulated in
+    place, with the weights' absolute values where ``absolute``.  Returns
+    the (ny * nx, nz) sum."""
+    n_out = plan.taps[0][0].shape[0]
+    acc = torch.zeros((n_out, flat.shape[1]), dtype=flat.dtype,
+                      device=flat.device)
+    part = torch.empty_like(acc)
+    for idx, w in plan.taps:
+        w = np.abs(w) if absolute else w
+        torch.index_select(flat, 0, idx, out=part)
+        acc.addcmul_(part, torch.as_tensor(w, device=flat.device)[:, None])
+    return acc
+
+
+def _spline_nonseparable_resample(fz, wz, ys, xs, order):
+    """Order-2/3 resample of a rotated or general mapping
+    (regrid.py:90-178): prefilter both spatial axes (IEEE float32 matrix
+    products) and pad (:func:`spline_coefficients`), then sum the
+    (order + 1)^2 B-spline taps gathered as rows of the (space, nz)
+    channels-minor view (:func:`spline_gathers`).  The NaN-weight pass
+    runs only where ``wz`` is not all zero (decided on the host); an
+    output whose NaN weight is above 1e-6 is NaN.  Returns
+    ``(out, None)``."""
+    nz, ny_in, nx_in = fz.shape
+    ny, nx = ys.shape
+    plan = spline_taps(ys, xs, order, ny_in, nx_in, fz.device)
+    out = spline_gathers(spline_coefficients(fz, plan, False), plan, False)
+    if bool(wz.ne(0).any()):
+        wn = spline_gathers(spline_coefficients(wz, plan, True), plan, True)
+        out.masked_fill_(wn > 1e-6, float("nan"))
+        del wn
+    return out.t().reshape(nz, ny, nx), None
+
+
+def _spline_spatial_then_z(data, zs, ys, xs, order):
+    """Order-2/3 resample (regrid.py:194-244): the spectral operator of the
+    exact scipy spline along z (:func:`_spectral_product`, kernel 7), for
+    the NaN-filled data and, with its absolute values, the NaN mask; then
+    the spatial step, separable where the mapping is axis-aligned to 1e-9
+    pixel and no grid exceeds 4096, else the prefilter and tap gathers.
+    NaN poisoning is the |T|-weighted NaN mass above 1e-6, local to the
+    taps; outputs outside the input are NaN."""
+    nchan_in, ny_in, nx_in = data.shape
+    nz = zs.shape[0]
+    ny, nx = ys.shape
+    dev = data.device
+    zvalid = np.isfinite(zs) & (zs >= -1e-3) & (zs <= nchan_in - 1 + 1e-3)
+    yvalid = np.isfinite(ys) & (ys >= -1e-3) & (ys <= ny_in - 1 + 1e-3)
+    xvalid = np.isfinite(xs) & (xs >= -1e-3) & (xs <= nx_in - 1 + 1e-3)
+    nanmask = torch.isnan(data).to(torch.float32)
+    filled = torch.nan_to_num(data)
+
+    zc = np.nan_to_num(np.asarray(zs, dtype=np.float64))
+    z_identity = (nz == nchan_in and zvalid.all()
+                  and np.all(zc == np.arange(nchan_in)))
+    if z_identity:
+        fz, wz = filled, nanmask
+    else:
+        tz = _spline_1d_matrix(nchan_in, zc, order)
+        fz = _spectral_product(tz, filled)
+        wz = _spectral_product(np.abs(tz), nanmask)
+    del nanmask, filled
+
+    ycl = np.nan_to_num(np.asarray(ys, dtype=np.float64))
+    xcl = np.nan_to_num(np.asarray(xs, dtype=np.float64))
+    ysep = np.ptp(ycl, axis=1).max() <= 1e-9
+    xsep = np.ptp(xcl, axis=0).max() <= 1e-9
+    if ysep and xsep \
+            and max(ny, nx, ny_in, nx_in) <= _MATMUL_RESAMPLE_MAX_N:
+        out, wn = _spline_separable_resample(fz, wz, ycl, xcl, order)
+    else:
+        out, wn = _spline_nonseparable_resample(fz, wz, ycl, xcl, order)
+    del fz, wz
+    if wn is not None:
+        out.masked_fill_(wn > 1e-6, float("nan"))
+        del wn
+    valid = torch.as_tensor((yvalid & xvalid)[None], device=dev) \
+        & torch.as_tensor(zvalid, device=dev)[:, None, None]
+    return out.masked_fill_(~valid, float("nan")).to(data.dtype)
+
+
 def _bilinear_spatial_then_linear_z(data, zs, ys, xs, order):
     """Separable resample of (nchan, ny_in, nx_in) ``data`` at spectral
     input coordinates ``zs`` and spatial maps ``ys``/``xs``
-    (regrid.py:287-408), order 0 (nearest) or 1 (bilinear).  A bilinear,
+    (regrid.py:287-408).  Orders 2 and 3 take
+    :func:`_spline_spatial_then_z`.  A bilinear,
     axis-aligned mapping runs kernel 3: on the raw data for an untouched
     spectral axis, else after the staged spectral lerp of the NaN-filled
     data and the NaN mask (``resample2_filled``).  A rotated mapping and
     order 0 take :func:`_gather_resample`."""
-    if order not in (0, 1):
-        raise NotImplementedError(
-            "spline (biquadratic/bicubic) reprojection is not ported to "
-            "torch yet (ROADMAP.md Queue 1 item 9)")
+    if order >= 2:
+        return _spline_spatial_then_z(data, np.asarray(zs), np.asarray(ys),
+                                      np.asarray(xs), order)
     nchan_in, ny_in, nx_in = data.shape
     maps = bilinear_host_maps(zs, ys, xs, nchan_in, ny_in, nx_in, order)
     zvalid, z0, zf, z_identity, yvalid, xvalid = maps[:6]

@@ -1172,3 +1172,32 @@ def test_spectral_array_mask_broadcasts_on_the_card(cuda):
     assert inc.stride()[1:] == (0, 0)
     assert inc.cpu().numpy()[:, 3, 5].tolist() == [True, False, True, True,
                                                    False, True]
+
+
+@pytest.mark.parametrize("order", [2, 3])
+def test_banded_matmul_on_the_spline_operator(cuda, order):
+    """Kernel 7 on the spline path's spectral operator (a new axis at twice
+    the channel width): ``tz`` and ``|tz|`` against the plain version, and
+    the whole spline resample on the card against the CPU run."""
+    from spectral_cube_tpu_torch.kernels import banded_matmul as kbm
+    data = _noise_cube((64, 24, 28), 9)
+    zs = 0.25 + 2.0 * np.arange(31)
+    tz = tregrid._spline_1d_matrix(64, zs, order)
+    flat = torch.nan_to_num(torch.as_tensor(data, device=cuda)).reshape(64, -1)
+    for M in (tz, np.abs(tz)):
+        bands = kbm.row_bands(M)
+        assert kbm.fits(bands)
+        kbm.banded_matmul.launches = 0
+        got = kbm.banded_matmul(flat, bands)
+        assert kbm.banded_matmul.launches == 1
+        _close(got, kbm.banded_matmul_plain(flat, bands))
+    ys = np.broadcast_to(np.arange(24.0)[:, None] + 0.37, (24, 28)).copy()
+    xs = np.broadcast_to(np.arange(28.0)[None, :] - 0.61, (24, 28)).copy()
+    kbm.banded_matmul.launches = 0
+    got = tregrid._bilinear_spatial_then_linear_z(
+        torch.as_tensor(data, device=cuda), zs, ys, xs, order)
+    assert kbm.banded_matmul.launches == 2
+    assert tregrid._spectral_product.last == "banded_matmul"
+    want = tregrid._bilinear_spatial_then_linear_z(torch.as_tensor(data), zs,
+                                                   ys, xs, order)
+    _close(got, want, rtol=1e-5, atol=1e-5)

@@ -250,3 +250,98 @@ def test_beam_jtok_2D(pair):
     np.testing.assert_allclose(k1.value, plane.value * jtok, rtol=1e-6)
     jfreq = jc.with_spectral_unit("GHz").spectral_axis[0]
     assert_ldo_equal(plane.to("K", freq=freq), jc[0].to("K", freq=jfreq))
+
+
+# -- from_hdu / read, and a spectrum's spectral_interpolate / _smooth --------
+
+@pytest.mark.parametrize("kind", ["projection", "spectrum", "vr_spectrum"])
+def test_from_hdu_and_read_match_jax(pair, tmp_path, kind):
+    """A Projection and a OneDSpectrum round-trip through their HDU and a
+    FITS file; a spectrum beside a BEAMS table reads back as a
+    VaryingResolutionOneDSpectrum (reference tests/test_io.py:127-136)."""
+    tc, jc, _ = pair
+    if kind == "projection":
+        t, j, cls, jcls = tc[2], jc[2], T.Projection, J.Projection
+    elif kind == "spectrum":
+        t, j, cls, jcls = tc[:, 2, 3], jc[:, 2, 3], T.OneDSpectrum, \
+            J.OneDSpectrum
+    else:
+        path, _ = make_vr_cube_file(tmp_path, shape=(5, 4, 3))
+        tv, jv = read_both(path)
+        t, j, cls, jcls = tv[:, 1, 1], jv[:, 1, 1], T.OneDSpectrum, \
+            J.OneDSpectrum
+    tb, jb = cls.from_hdu(t.hdu), jcls.from_hdu(j.hdu)
+    assert_ldo_equal(tb, jb)
+    out_t, out_j = str(tmp_path / "t.fits"), str(tmp_path / "j.fits")
+    t.write(out_t)
+    j.write(out_j)
+    for path in (out_t, out_j):
+        tr, jr = cls.read(path), jcls.read(path)
+        assert_ldo_equal(tr, jr)
+        assert_ldo_equal(cls.from_hdu(T.io.fits_low.read_fits(path)), jr)
+        if kind == "vr_spectrum":
+            assert isinstance(tr, T.VaryingResolutionOneDSpectrum)
+            np.testing.assert_array_equal(tr.unmasked_beams.major.value,
+                                          jr.unmasked_beams.major.value)
+        else:
+            assert tr.beam.major_rad == jr.beam.major_rad
+    with pytest.raises(IOError):
+        cls.from_hdu([T.io.fits_low.BinTableHDU(name="BEAMS")])
+
+
+def _spectra(pair, tmp_path, vr):
+    if not vr:
+        tc, jc, _ = pair
+        return tc[:, 2, 3], jc[:, 2, 3]
+    path, _ = make_vr_cube_file(tmp_path, shape=(6, 4, 3))
+    tv, jv = read_both(path)
+    return tv[:, 1, 1], jv[:, 1, 1]
+
+
+@pytest.mark.parametrize("vr", [False, True])
+@pytest.mark.parametrize("grid", ["mid", "reversed", "fill", "coarse"])
+def test_onedspectrum_spectral_interpolate_matches_jax(pair, tmp_path, vr,
+                                                       grid):
+    t, j = _spectra(pair, tmp_path, vr)
+    sv = np.asarray(t.spectral_axis.value)
+    kw = {"suppress_smooth_warning": True}
+    if grid == "mid":
+        new = (sv[1:] + sv[:-1]) / 2
+    elif grid == "reversed":
+        new = sv[::-1]
+    elif grid == "fill":
+        new = np.linspace(sv[0] - 1.0, sv[-1] + 1.0, sv.size)
+        kw["fill_value"] = -5.0
+    else:
+        new = sv[::2]
+        kw = {}
+    q = T.Quantity(new, t.spectral_axis.unit)
+    jq = J.Quantity(new, j.spectral_axis.unit)
+    with warnings.catch_warnings(record=True) as tw:
+        warnings.simplefilter("always")
+        tr = t.spectral_interpolate(q, **kw)
+    with warnings.catch_warnings(record=True) as jw:
+        warnings.simplefilter("always")
+        jr = j.spectral_interpolate(jq, **kw)
+    assert sorted(w.category.__name__ for w in tw) == \
+        sorted(w.category.__name__ for w in jw)
+    assert_ldo_equal(tr, jr)
+    np.testing.assert_array_equal(tr.mask.include(),
+                                  np.asarray(jr.mask.include()))
+    if vr:
+        kept = tr._beams is not None
+        assert kept == (jr._beams is not None) == (new.size == sv.size)
+
+
+@pytest.mark.parametrize("vr", [False, True])
+def test_onedspectrum_spectral_smooth_matches_jax(pair, tmp_path, vr):
+    t, j = _spectra(pair, tmp_path, vr)
+    for kernel in (np.array([0.25, 0.5, 0.25]), np.hanning(5)):
+        tr = t.spectral_smooth(kernel, device="cpu")
+        jr = j.spectral_smooth(kernel)
+        assert type(tr).__name__ == type(jr).__name__
+        a, b = np.asarray(tr.value), np.asarray(jr.value)
+        np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+        np.testing.assert_allclose(a[~np.isnan(b)], b[~np.isnan(b)],
+                                   rtol=1e-6, atol=1e-7)
+        assert tr.wcs.to_header() == jr.wcs.to_header()

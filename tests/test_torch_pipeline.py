@@ -321,7 +321,9 @@ def test_port_imports_no_jax():
             "spectral_cube_tpu_torch.lower_dimensional_structures, "
             "spectral_cube_tpu_torch.cube_utils, "
             "spectral_cube_tpu_torch.interop, "
-            "spectral_cube_tpu_torch.io.fits; "
+            "spectral_cube_tpu_torch.io.fits, "
+            "spectral_cube_tpu_torch.persistence, "
+            "spectral_cube_tpu_torch.analysis_utilities; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'spectral_cube_tpu.'))"
             " or m == 'spectral_cube_tpu']; "

@@ -1,7 +1,8 @@
 """Torch port, kernel 3 (axis-aligned 2-tap resample, from raw data and
 from NaN-filled data with a NaN-weight plane), reprojection onto a new
-spectral axis, and the four-corner gather (rotated targets, order 0),
-against the JAX package.
+spectral axis, the four-corner gather (rotated targets, order 0) and the
+spline orders 2 and 3 (the spectral operator through kernel 7), against
+the JAX package.
 
 The same numpy inputs go through the JAX functions (the Pallas
 ``per_channel_shift_lerp`` / ``per_channel_resample_raw_strips`` /
@@ -11,7 +12,10 @@ CPU) and through the port on CPU tensors, where the kernel's wrappers run
 their plain PyTorch versions.  Tolerance: atol 5e-6 on unit-variance data,
 the JAX raw-strips test's own (test_banded_pallas.py:381), rtol 3e-5 /
 atol 1e-5 for the filled resample (:284-312), after an exact NaN
-pattern.
+pattern.  The spline cases are the JAX tests' own inputs
+(test_regrid.py:950-1056): equal NaN patterns and atol 5e-6 against the
+JAX package, and the JAX tests' tolerances against scipy's
+``map_coordinates``.
 """
 
 import numpy as np
@@ -158,7 +162,9 @@ def test_host_maps_are_the_jax_maps():
 
 def test_unported_reprojections_raise():
     """Order 0, rotated targets and a new spectral axis run and agree with
-    the JAX package; the spline orders still raise."""
+    the JAX package; an order outside 0-3, or a name reproject_interp does
+    not document, raises ValueError in both packages (the spline orders
+    run: see the spline tests below)."""
     data = _small_data((3, 6, 6), 3)
     td = torch.as_tensor(data)
     ys, xs = _maps(6, 6, 1.0, 0.2, 1.0, 0.3)
@@ -173,9 +179,10 @@ def test_unported_reprojections_raise():
         assert np.array_equal(np.isnan(got.numpy()), np.isnan(ref))
         fin = ~np.isnan(ref)
         np.testing.assert_allclose(got.numpy()[fin], ref[fin], atol=5e-6)
-    for order in (2, 3):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            tregrid._bilinear_spatial_then_linear_z(td, zs, ys, xs, order)
+    for order in (4, -1, "biquintic"):
+        for mod in (tregrid, jregrid):
+            with pytest.raises(ValueError, match="order"):
+                mod._order_int(order)
 
 
 def _rotation_maps(ny_out, nx_out, ny_in, nx_in, deg, shift=(0.0, 0.0)):
@@ -812,3 +819,207 @@ def test_raw_kernel_plan(case, width, form, store16):
         rows = np.unique(np.concatenate([y0, np.minimum(y0 + 1,
                                                          ny_in - 1)]))
         assert t["loads"].shape[0] == rows.size
+
+
+# -- the spline orders 2 and 3 -----------------------------------------------
+
+def _scipy_spline_oracle(data, zs, ys, xs, order):
+    """scipy's 3-D map_coordinates (test_regrid.py:936-946)."""
+    import scipy.ndimage as ndi
+    nz, ny, nx = len(zs), *ys.shape
+    zz = np.broadcast_to(np.asarray(zs)[:, None, None], (nz, ny, nx))
+    yy = np.broadcast_to(ys[None], (nz, ny, nx))
+    xx = np.broadcast_to(xs[None], (nz, ny, nx))
+    return ndi.map_coordinates(data.astype(np.float64), [zz, yy, xx],
+                               order=order, mode="constant", cval=np.nan)
+
+
+def _spline_both(data, zs, ys, xs, order):
+    """The port's and the JAX package's spline resample of ``data``: equal
+    NaN patterns, values within atol 5e-6.  Returns the port's."""
+    got = tregrid._bilinear_spatial_then_linear_z(
+        torch.as_tensor(data), zs, ys, xs, order).numpy()
+    ref = np.asarray(jregrid._bilinear_spatial_then_linear_z(
+        jnp.asarray(data), zs, ys, xs, order))
+    assert got.dtype == np.float32 and got.shape == ref.shape
+    assert np.array_equal(np.isnan(got), np.isnan(ref))
+    fin = ~np.isnan(ref)
+    np.testing.assert_allclose(got[fin], ref[fin], atol=5e-6)
+    return got
+
+
+def _rotation(n, th=0.15):
+    yy, xx = np.mgrid[0:n, 0:n].astype(np.float64)
+    c = (n - 1) / 2.0
+    return (c + np.cos(th) * (yy - c) + np.sin(th) * (xx - c),
+            c - np.sin(th) * (yy - c) + np.cos(th) * (xx - c))
+
+
+def _spline_case(case):
+    """(data, zs, ys, xs, rtol, atol) of test_regrid.py's spline tests:
+    an offset (separable), a rotation (prefilter + taps), a new spectral
+    axis and a rescaled grid, with those tests' tolerances."""
+    if case == "offset":
+        data = np.random.RandomState(11).rand(6, 24, 28).astype(np.float32)
+        ys, xs = _maps(24, 28, 1.0, 0.37, 1.0, 0.61)
+        return data, np.arange(6, dtype=np.float64), ys, xs, 2e-5, 2e-6
+    if case == "rotated":
+        data = np.random.RandomState(12).rand(3, 32, 32).astype(np.float32)
+        ys, xs = _rotation(32)
+        return data, np.arange(3, dtype=np.float64), ys, xs, 5e-5, 5e-6
+    if case == "spectral":
+        data = np.random.RandomState(13).rand(16, 12, 12).astype(np.float32)
+        ys, xs = _maps(12, 12, 1.0, 0.25, 1.0, 0.75)
+        return data, np.linspace(0.2, 14.7, 9), ys, xs, 5e-5, 5e-6
+    data = np.random.RandomState(14).rand(4, 40, 36).astype(np.float32)
+    ys, xs = _maps(40, 36, 0.8, 1.3, 1.1, 0.2)
+    return data, np.arange(4, dtype=np.float64), ys, xs, 5e-5, 5e-6
+
+
+@pytest.mark.parametrize("order", [2, 3])
+@pytest.mark.parametrize("case", ["offset", "rotated", "spectral", "scaled"])
+def test_spline_matches_jax_and_scipy(case, order):
+    data, zs, ys, xs, rtol, atol = _spline_case(case)
+    got = _spline_both(data, zs, ys, xs, order)
+    exp = _scipy_spline_oracle(data, zs, ys, xs, order)
+    assert np.array_equal(np.isnan(got), np.isnan(exp))
+    fin = np.isfinite(exp)
+    np.testing.assert_allclose(got[fin], exp[fin], rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("order", [2, 3])
+@pytest.mark.parametrize("rotated", [False, True])
+def test_spline_nan_poisoning_is_local(order, rotated):
+    """test_regrid.py:1032-1056's input: poisoning is the |T|-weighted NaN
+    mass above 1e-6, local to the taps (scipy's prefilter would smear the
+    NaN along the whole line); the NaN-free plane and the far corner
+    match the filled-data oracle.  Also on a rotated grid and with a NaN
+    reaching a new spectral axis."""
+    data = np.random.RandomState(15).rand(2, 48, 48).astype(np.float32)
+    data[1, 24, 24] = np.nan
+    zs = np.arange(2, dtype=np.float64)
+    ys, xs = _rotation(48, 0.1) if rotated else \
+        _maps(48, 48, 1.0, 0.4, 1.0, 0.6)
+    got = _spline_both(data, zs, ys, xs, order)
+    if not rotated:
+        assert np.isnan(got[1, 22:25, 22:25]).all()
+    filled = np.where(np.isfinite(data), data, 0.0)
+    exp = _scipy_spline_oracle(filled, zs, ys, xs, order)
+    fin = np.isfinite(exp[0])
+    np.testing.assert_allclose(got[0][fin], exp[0][fin], rtol=5e-5,
+                               atol=5e-6)
+    np.testing.assert_allclose(got[1, :6, 6:12], exp[1, :6, 6:12],
+                               rtol=5e-5, atol=5e-6)
+    deep = np.random.RandomState(16).rand(12, 10, 10).astype(np.float32)
+    deep[5, 4, 4] = np.nan
+    _spline_both(deep, np.linspace(0.5, 10.5, 6), *_maps(10, 10, 1.0, 0.3,
+                                                         1.0, 0.1), order)
+
+
+@pytest.mark.parametrize("order,n", [(3, 3), (2, 2), (3, 2), (2, 3)])
+def test_spline_tiny_planes_pad_by_edge(order, n):
+    """A plane no larger than ``order`` pads its coefficients by edge
+    (regrid.py:117-119), one larger by reflection."""
+    data = np.random.RandomState(n + order).rand(2, n, n).astype(np.float32)
+    yy, xx = np.mgrid[0:n, 0:n].astype(np.float64)
+    got = _spline_both(data, np.arange(2, dtype=np.float64),
+                       yy * 0.9 + 0.05 * xx, xx * 0.9 + 0.1, order)
+    assert np.isfinite(got).all()
+
+
+def test_spline_spectral_operator_runs_banded_matmul(monkeypatch):
+    """The spectral operator and its absolute value go through kernel 7's
+    wrapper (its plain version on the CPU), on the contiguous float32
+    (nchan, ny * nx) view; an untouched spectral axis does not."""
+    from spectral_cube_tpu_torch.kernels import banded_matmul as kbm
+    calls = []
+    real = kbm.banded_matmul
+
+    def counting(flat, bands):
+        calls.append((tuple(flat.shape), flat.dtype, flat.is_contiguous(),
+                      bands.nin))
+        return real(flat, bands)
+
+    monkeypatch.setattr(kbm, "banded_matmul", counting)
+    declined = tregrid._spectral_product.declined
+    data, zs, ys, xs, _, _ = _spline_case("spectral")
+    data[3, 4, 5] = np.nan
+    _spline_both(data, zs, ys, xs, 3)
+    assert calls == [((16, 144), torch.float32, True, 16)] * 2
+    assert tregrid._spectral_product.last == "banded_matmul"
+    assert tregrid._spectral_product.declined == declined
+    calls.clear()
+    data, zs, ys, xs, _, _ = _spline_case("offset")
+    _spline_both(data, zs, ys, xs, 2)
+    assert calls == []
+
+
+def test_spline_operator_too_wide_for_the_plan_takes_matmul():
+    """An operator whose spans no banded_matmul plan fits takes
+    torch.matmul in IEEE float32, decided on the host and counted."""
+    from spectral_cube_tpu_torch.kernels import banded_matmul as kbm
+    rng = np.random.RandomState(5)
+    M = rng.rand(8, 1200).astype(np.float32)
+    assert not kbm.fits(kbm.row_bands(M))
+    with pytest.raises(ValueError, match="too wide"):
+        kbm.plan(kbm.row_bands(M))
+    cube = torch.as_tensor(rng.rand(1200, 3, 4).astype(np.float32))
+    declined = tregrid._spectral_product.declined
+    got = tregrid._spectral_product(M, cube)
+    assert tregrid._spectral_product.last == "matmul"
+    assert tregrid._spectral_product.declined == declined + 1
+    want = (M.astype(np.float64) @ cube.numpy().reshape(1200, -1)
+            .astype(np.float64)).reshape(8, 3, 4)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+    band = np.eye(8, 24, dtype=np.float32) + np.eye(8, 24, 1,
+                                                    dtype=np.float32)
+    assert kbm.fits(kbm.row_bands(band))
+    tregrid._spectral_product(band, torch.ones((24, 2, 2)))
+    assert tregrid._spectral_product.last == "banded_matmul"
+
+
+def test_spline_host_operators_are_cached():
+    coords = np.linspace(0.3, 9.1, 5)
+    a = tregrid._spline_1d_matrix(12, coords, 3)
+    assert tregrid._spline_1d_matrix(12, coords.copy(), 3) is a
+    assert tregrid._spline_1d_matrix(12, coords, 2) is not a
+    np.testing.assert_array_equal(a, jregrid._spline_1d_matrix(12, coords,
+                                                               3))
+
+
+@pytest.mark.parametrize("order", ["biquadratic", "bicubic"])
+def test_spline_reproject_entry_points_match_jax(tmp_path, order):
+    """``cube.reproject`` onto a new spectral axis and a rotated grid,
+    ``Projection.reproject`` and ``reproject_image``, through both
+    packages."""
+    path = tmp_path / "s.fits"
+    h = _spectral_cube_file(path, nchan=12, ny=30, nx=32)
+    tcube = T.SpectralCube.read(str(path), device="cpu")
+    jcube = J.SpectralCube.read(str(path))
+    for target in (_target(h, 5, 2.0, 0.25), _rotated_header(h, 3.0)):
+        tr = tcube.reproject(target, order=order)
+        jr = jcube.reproject(target, order=order)
+        got, ref = tr._data.numpy(), np.asarray(jr._data)
+        assert np.array_equal(np.isnan(got), np.isnan(ref))
+        fin = ~np.isnan(ref)
+        assert fin.mean() > 0.3
+        np.testing.assert_allclose(got[fin], ref[fin], atol=5e-6)
+        np.testing.assert_array_equal(tr.get_mask_array(),
+                                      np.asarray(jr.get_mask_array()))
+    tp = tcube[2].reproject(_target(h, 12, 1.0, 0.0), order=order,
+                            device="cpu")
+    jp = jcube[2].reproject(_target(h, 12, 1.0, 0.0), order=order)
+    assert type(tp).__name__ == type(jp).__name__ == "Projection"
+    assert np.array_equal(np.isnan(tp.value), np.isnan(jp.value))
+    fin = ~np.isnan(jp.value)
+    np.testing.assert_allclose(tp.value[fin], jp.value[fin], atol=5e-6)
+    img = np.random.RandomState(2).randn(30, 32).astype(np.float32)
+    got, _ = tregrid.reproject_image(img, T.WCS(header=h),
+                                     _rotated_header(h, 3.0), order=order,
+                                     device="cpu")
+    ref, _ = jregrid.reproject_image(img, J.WCS(header=h),
+                                     _rotated_header(h, 3.0), order=order)
+    assert np.array_equal(np.isnan(got.numpy()), np.isnan(ref))
+    fin = ~np.isnan(ref)
+    np.testing.assert_allclose(got.numpy()[fin], np.asarray(ref)[fin],
+                               atol=5e-6)
