@@ -98,6 +98,22 @@
    operator (17-tap Gaussian, then every second channel, 512 -> 256) on a
    512 x 768 x 768 cube viewed as (512, 589824), counters at 0 before and
    the banded_matmul count > 0 after.
+10b. I/O and regions on a fourth 623 x 768 x 768 cube (the pipeline's kind
+   with NaN holes, its spectral axis in Hz): written as a CASA image in one
+   tile (format from the ``.image`` suffix) and in 64 x 64 x 1 x 16 tiles
+   (5616 tiles), and as FITS, each read back with its format detected onto
+   the card and held bit for bit against the source (data, NaN pattern,
+   include mask; WCS cards as the FITS read's; beam within 1e-12); an SNR
+   mask (> 3 sigma, ``mad_std`` on the card) appended with
+   ``make_casa_mask`` reads back bit for bit; a varying-resolution image
+   with 623 per-plane beams and a 4 x 64 x 768 x 768 IQUV image round-trip;
+   a type-2 CLASS .lmv cube of the same data reads onto the card equal to
+   its CPU read; then a DS9 cut (an fk5 circle, an image-frame polygon, an
+   exclusion circle) and a CRTF box with a velocity range of the CASA read,
+   their shapes and masks held against the host rasteriser, and
+   ``run_pipeline`` on the DS9 cut (counters at 0 before, moments, conv_sep
+   and resample2 > 0 after) against the same cut of the FITS read.  Each
+   file set is deleted once checked.
 11. Holds each kernel against its plain PyTorch version on the card at the
    paths' shapes, with and without NaN, and times the kernel, the plain
    version and, where one exists, a single PyTorch call computing the same
@@ -164,6 +180,16 @@ API_PLANE = 300
 API_VR_CUT = (100, 400)
 API_VR_THRESHOLD = 0.1
 API_STOKES_NCHAN = 64
+# I/O and regions phase: its cube's seed, the CASA tiling of the second
+# image (CASA order [x, y, stokes, chan]: 12 x 12 x 1 x 39 = 5616 tiles at
+# 623 x 768 x 768), the channels of the IQUV image, the SNR of the
+# appended mask, and the velocity range (km/s, radio) of the CRTF box
+IO_SEED = SEED + 30
+IO_TILE = (64, 64, 1, 16)
+IO_STOKES_NCHAN = 64
+IO_MASK_SNR = 3.0
+IO_VELOCITY_RANGE = (-10.0, 10.0)
+IO_KERNELS = ("moments", "conv_sep", "resample2")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
 # the tensor cores
@@ -663,17 +689,86 @@ def phase_resample(dev, data, header, results):
             del x
 
 
-def phase_pipeline(dev, workdir):
+def hold_stages(tag, cube, target_beam, target_header, res, dev, timed):
+    """``run_pipeline``'s stages on ``cube`` (convolve_to, mad_std, the
+    SNR-masked moments and statistics, reproject), each timed with
+    ``timed(name, fn)`` and held on the card against its plain function at
+    the cube's own shape, and against the pipeline's result ``res``."""
     import torch
     import spectral_cube_tpu_torch as T
-    from spectral_cube_tpu_torch import kernels as K
-    from spectral_cube_tpu_torch.io.fits_low import HDU, write_fits
     from spectral_cube_tpu_torch.kernels import conv_sep as kc
     from spectral_cube_tpu_torch.kernels import resample2 as kr
     from spectral_cube_tpu_torch.ops import convolve as oc
     from spectral_cube_tpu_torch.ops import moments as om
     from spectral_cube_tpu_torch.ops import reductions as rd
     from spectral_cube_tpu_torch.ops import regrid as og
+    nchan, ny, nx = cube.shape
+    conv = timed("convolve_to", lambda: cube.convolve_to(target_beam))
+    noise = timed("mad_std", lambda: float(conv.mad_std().value))
+    masked = conv.with_mask(conv > T.Quantity(SNR * noise, conv.unit))
+    mom = timed("moments", lambda: masked._moments012())
+    stats = timed("statistics", masked.statistics)
+    rep = timed("reproject", lambda: masked._reproject(target_header))
+
+    # the pixel scale as convolve_to takes it from the cube's WCS
+    pixscale = float(np.mean(np.abs(
+        cube.wcs.celestial.proj_plane_pixel_scales()))) * np.pi / 180.0
+    kern = target_beam.deconvolve(cube.beam).as_kernel(pixscale)
+    yt, xt = oc.separable_factors(kern)
+    ys, hy = oc._tap_stack([yt])
+    xs, hx = oc._tap_stack([xt])
+    ys, xs = torch.as_tensor(ys, device=dev), torch.as_tensor(xs, device=dev)
+    filled = cube._get_filled_data(fill=np.nan)
+    plain_conv = kc.conv_sep_plain(filled, ys, xs, hy, hx,
+                                   torch.zeros(nchan, dtype=torch.int32,
+                                               device=dev))
+    # Jy/beam data scale with the beam area (ops/convolve.beam_unit_factor)
+    plain_conv *= oc.beam_unit_factor(cube.unit, cube.beam, target_beam)
+    compare_conv(f"{tag} convolve_to vs plain", conv._data, plain_conv,
+                 filled, ys, xs, hy, hx, 1e-5)
+    del filled, plain_conv
+    plain_mad = float(rd.masked_mad_std(conv._data, rd.valid_mask(
+        conv._data, conv.mask.include(data=conv._data))))
+    if abs(plain_mad - noise) > 1e-6 * abs(noise):
+        raise AssertionError(f"{tag} mad_std {noise} vs {plain_mad}")
+    include = masked.mask.include(data=masked._data)
+    pm = om.moments_012(masked._data, masked._spectral_offsets(),
+                        masked._spectral_pix_size(), include=include)
+    sv0 = float(np.asarray(masked.spectral_axis.value)[0])
+    for i, (a, b) in enumerate(zip(mom, pm)):
+        compare(f"{tag} moment{i} vs plain expression", torch.as_tensor(a),
+                (b + sv0 if i == 1 else b).cpu(), 3e-6 if i < 2 else 5e-5)
+    for i in (0, 1):
+        compare(f"{tag} moment{i} vs run_pipeline", torch.as_tensor(mom[i]),
+                torch.as_tensor(np.asarray(res["moments"][i].value)), 0.0)
+    ps = rd.masked_statistics(masked._data, rd.valid_mask(masked._data,
+                                                          include))
+    del include
+    st = res["statistics"]
+    if stats["npts"] != int(ps["npts"]) or stats["npts"] != st["npts"]:
+        raise AssertionError(f"{tag} statistics npts")
+    for key in ("mean", "sigma", "sum", "rms", "min", "max"):
+        a, b = float(stats[key].value), float(ps[key])
+        if abs(a - b) > 2e-5 * abs(b):
+            raise AssertionError(f"{tag} statistics {key}: {a} vs {b}")
+    zs, ysm, xsm, _ = og.reproject_mappings(masked.wcs, target_header, nchan)
+    maps = og.bilinear_host_maps(zs, ysm, xsm, nchan, ny, nx, 1)
+    taps = og._axis_aligned_taps(ysm, xsm, ny, nx)
+    src = masked._get_filled_data(fill=np.nan)
+    plain_rep = kr.resample2_plain(src, *taps, maps[4] & maps[5], maps[0])
+    del src
+    compare(f"{tag} reproject vs plain", rep._data, plain_rep, 1e-6)
+    compare(f"{tag} reproject vs run_pipeline", rep._data,
+            res["cube"]._data, 0.0)
+    del plain_rep, rep, conv, masked
+    torch.cuda.empty_cache()
+
+
+def phase_pipeline(dev, workdir):
+    import torch
+    import spectral_cube_tpu_torch as T
+    from spectral_cube_tpu_torch import kernels as K
+    from spectral_cube_tpu_torch.io.fits_low import HDU, write_fits
     log("phase pipeline")
     t0 = time.perf_counter()
     data = synth_cube(NCHAN, NY, NX, SEED)
@@ -715,7 +810,7 @@ def phase_pipeline(dev, workdir):
     warm = time.perf_counter() - t0
     log(f"  run_pipeline again: {warm * 1e3:.1f} ms end to end")
 
-    m0, m1, lw = (np.asarray(p.value) for p in res["moments"])
+    m0 = np.asarray(res["moments"][0].value)
     out = res["cube"]
     st = res["statistics"]
     if m0.shape != (NY, NX) or out.shape != (NCHAN, NY, NX):
@@ -739,63 +834,10 @@ def phase_pipeline(dev, workdir):
         stages[name] = (time.perf_counter() - t) * 1e3
         return val
 
-    conv = timed("convolve_to", lambda: cube.convolve_to(target_beam))
-    noise = timed("mad_std", lambda: float(conv.mad_std().value))
-    masked = conv.with_mask(conv > T.Quantity(SNR * noise, conv.unit))
-    mom = timed("moments", lambda: masked._moments012())
-    stats = timed("statistics", masked.statistics)
-    rep = timed("reproject", lambda: masked._reproject(target_header))
+    hold_stages("stage", cube, target_beam, target_header, res, dev, timed)
     for name, ms in stages.items():
         log(f"  stage {name}: {ms:.1f} ms")
-
-    kern = target_beam.deconvolve(cube.beam).as_kernel(
-        np.radians(PIX_ARCSEC / 3600.0))
-    yt, xt = oc.separable_factors(kern)
-    ys, hy = oc._tap_stack([yt])
-    xs, hx = oc._tap_stack([xt])
-    ys, xs = torch.as_tensor(ys, device=dev), torch.as_tensor(xs, device=dev)
-    filled = cube._get_filled_data(fill=np.nan)
-    plain_conv = kc.conv_sep_plain(filled, ys, xs, hy, hx,
-                                   torch.zeros(NCHAN, dtype=torch.int32,
-                                               device=dev))
-    # Jy/beam data scale with the beam area (ops/convolve.beam_unit_factor)
-    plain_conv *= oc.beam_unit_factor(cube.unit, cube.beam, target_beam)
-    compare_conv("stage convolve_to vs plain", conv._data, plain_conv,
-                 filled, ys, xs, hy, hx, 1e-5)
-    del filled, plain_conv
-    plain_mad = float(rd.masked_mad_std(conv._data,
-                                        torch.isfinite(conv._data)))
-    if abs(plain_mad - noise) > 1e-6 * abs(noise):
-        raise AssertionError(f"mad_std {noise} vs {plain_mad}")
-    include = masked.mask.include(data=masked._data)
-    pm = om.moments_012(masked._data, masked._spectral_offsets(),
-                        masked._spectral_pix_size(), include=include)
-    sv0 = float(np.asarray(masked.spectral_axis.value)[0])
-    for i, (a, b) in enumerate(zip(mom, pm)):
-        compare(f"stage moment{i} vs plain expression", torch.as_tensor(a),
-                (b + sv0 if i == 1 else b).cpu(), 3e-6 if i < 2 else 5e-5)
-    compare("stage moment0 vs run_pipeline", torch.as_tensor(mom[0]),
-            torch.as_tensor(m0), 0.0)
-    compare("stage moment1 vs run_pipeline", torch.as_tensor(mom[1]),
-            torch.as_tensor(m1), 0.0)
-    ps = rd.masked_statistics(masked._data, rd.valid_mask(masked._data,
-                                                          include))
-    del include
-    if stats["npts"] != int(ps["npts"]) or stats["npts"] != st["npts"]:
-        raise AssertionError("statistics npts")
-    for key in ("mean", "sigma", "sum", "rms", "min", "max"):
-        a, b = float(stats[key].value), float(ps[key])
-        if abs(a - b) > 2e-5 * abs(b):
-            raise AssertionError(f"statistics {key}: {a} vs {b}")
-    zs, ysm, xsm, _ = og.reproject_mappings(masked.wcs, target_header, NCHAN)
-    maps = og.bilinear_host_maps(zs, ysm, xsm, NCHAN, NY, NX, 1)
-    taps = og._axis_aligned_taps(ysm, xsm, NY, NX)
-    src = masked._get_filled_data(fill=np.nan)
-    plain_rep = kr.resample2_plain(src, *taps, maps[4] & maps[5], maps[0])
-    del src
-    compare("stage reproject vs plain", rep._data, plain_rep, 1e-6)
-    compare("stage reproject vs run_pipeline", rep._data, out._data, 0.0)
-    del plain_rep, rep, conv, masked, out, res, cube
+    del out, res, cube
     torch.cuda.empty_cache()
     return total * 1e3, warm * 1e3, peak, counts, stages
 
@@ -2537,6 +2579,387 @@ def phase_banded_matmul(dev, data, results):
     return counts
 
 
+def io_header(nchan, ny, nx):
+    """The pipeline's header with a frequency axis in Hz and the celestial
+    cards a CASA image keeps (FK5, equinox, poles), so that a cube written
+    as a CASA image reads back with the same WCS cards as its FITS file."""
+    h = synth_header(nchan, ny, nx)
+    rest = float(h["RESTFRQ"])
+    h["CTYPE3"], h["CUNIT3"] = "FREQ", "Hz"
+    h["CRVAL3"] = rest * (1.0 - float(h["CRVAL3"]) / 299792458.0)
+    h["CDELT3"] = -rest * float(h["CDELT3"]) / 299792458.0
+    h["RADESYS"], h["EQUINOX"] = "FK5", 2000.0
+    h["LONPOLE"], h["LATPOLE"] = 180.0, float(h["CRVAL2"])
+    return h
+
+
+def lmv_bytes_header(shape, bval, ref_deg, pix_arcsec, velocity):
+    """The two 512-byte header blocks of a little-endian GILDAS type-2
+    (version 20) .lmv cube of ``shape`` (nchan, ny, nx): a SIN projection
+    centred on ``ref_deg`` (RA, Dec in deg) at the cube's centre pixel,
+    ``pix_arcsec`` pixels, a VELOCITY axis (start, step in km/s), blanking
+    value ``bval``, and the spectroscopy and resolution sections.  The
+    field walk is that of ``io/class_lmv._read_type2``."""
+    import struct
+    nchan, ny, nx = shape
+    out = bytearray(1024)
+
+    def put(off, fmt, *vals):
+        struct.pack_into("<" + fmt, out, off, *vals)
+        return off + struct.calcsize("<" + fmt)
+
+    rad = np.pi / 180.0
+    inc = pix_arcsec / 3600.0 * rad
+    out[0:12] = b"GILDAS<IMAGE"
+    o = put(12, "iqiiiiii", 0, 1, 2, 0, 20, 0, 0, 0)
+    o = put(64, "iiii", 0, 0, 7, 3)
+    o = put(o, "7q", nx, ny, nchan, 0, 0, 0, 0)
+    o = put(o, "ii", 0, 0)
+    o = put(o, "ff", bval, 0.0)
+    o = put(o, "ii", 0, 0)
+    o = put(o, "2f", 0.0, 1.0)
+    o = put(o, "2q", 0, 0)
+    o = put(o, "ii", 0, 0)
+    conv = [nx / 2 + 0.5, 0.0, -inc, ny / 2 + 0.5, 0.0, inc,
+            1.0, velocity[0], velocity[1]]
+    o = put(o, "21d", *(conv + [0.0] * 12))
+    o = put(o, "ii", 0, 0)
+    for text in ["Jy/beam", "RA", "DEC", "VELOCITY", "", "", "", ""]:
+        out[o:o + 12] = text.ljust(12).encode("ascii")
+        o += 12
+    o = put(512, "ii", 0, 0)
+    out[o:o + 24] = b"SYNTH       EQUATORIAL  "
+    o += 24
+    o = put(o, "2d", ref_deg[0] * rad, ref_deg[1] * rad)
+    o = put(o, "2d", 0.0, 0.0)
+    o = put(o, "f", 2000.0)
+    o = put(o, "ii", 9, 0)
+    o = put(o, "3d", ref_deg[0] * rad, ref_deg[1] * rad, 0.0)
+    o = put(o, "3i", 2, 1, 2)                       # SIN, x axis 1, y 2
+    o = put(o, "ii", 14, 0)
+    o = put(o, "ddd", -0.19, 230538.0, 230538.0)    # MHz
+    o = put(o, "fff", velocity[1], 0.0, 1.0)
+    o = put(o, "i", 3)
+    out[o:o + 12] = b"CO(2-1)     "
+    o = put(o + 12, "i", 1)
+    o = put(o, "ii", 3, 0)
+    o = put(o, "3f", CUBE_BEAM[0] / 3600.0 * rad, CUBE_BEAM[1] / 3600.0 * rad,
+            CUBE_BEAM[2] * rad)
+    put(o, "ii", 0, 0)
+    return bytes(out)
+
+
+def write_lmv(path, data, **header):
+    """``data`` (nchan, ny, nx float32, NaN blanked) as a type-2 .lmv file:
+    the header blocks, then the data in FITS order with NaN as the
+    blanking value, written a channel at a time."""
+    bval = -1000.0
+    with open(path, "wb") as fh:
+        fh.write(lmv_bytes_header(data.shape, bval, **header))
+        for plane in data:
+            fh.write(np.where(np.isnan(plane), np.float32(bval),
+                              plane).astype("<f4").tobytes())
+
+
+def bits_equal(a, b):
+    """Two float32 tensors are the same bits (the NaN pattern included)."""
+    import torch
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def phase_io_regions(dev, workdir):
+    """CASA images written and read back at the full size (one tile and a
+    CASA tiling), the FITS file beside them, an appended SNR mask, a
+    varying-resolution image with 623 per-plane beams, an IQUV image, a
+    CLASS .lmv cube, then DS9 and CRTF region cuts of the cube read from
+    the CASA image and ``run_pipeline`` on the DS9 cut, held against the
+    same cut of the FITS read."""
+    import resource
+    import shutil
+    import torch
+    import spectral_cube_tpu_torch as T
+    from spectral_cube_tpu_torch import kernels as K
+    from spectral_cube_tpu_torch.io import _detect_format
+    from spectral_cube_tpu_torch.io import native
+    from spectral_cube_tpu_torch.io.casa_low import read_casa_image_parts
+    from spectral_cube_tpu_torch.io.casa_masks import make_casa_mask
+    from spectral_cube_tpu_torch.io.casa_writer import write_casa_image
+    from spectral_cube_tpu_torch.masks import LazyMask
+    from spectral_cube_tpu_torch.region import (parse_ds9_region,
+                                                parse_crtf_region,
+                                                region_to_mask)
+    from spectral_cube_tpu_torch.units import Quantity
+    log("phase io and regions")
+    times = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        val = fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t) * 1e3
+        return val
+
+    def check(name, ok):
+        if not ok:
+            raise AssertionError(f"io and regions: {name}")
+        log(f"  {name}: ok")
+
+    torch.cuda.reset_peak_memory_stats()
+    data = synth_cube(NCHAN, NY, NX, IO_SEED)
+    add_holes(data, IO_SEED)
+    header = io_header(NCHAN, NY, NX)
+    wcs = T.WCS(header=header)
+    x = torch.as_tensor(data, device=dev)
+    src = T.SpectralCube(x, wcs, mask=LazyMask(torch.isfinite, data=x,
+                                               wcs=wcs),
+                         header=header, allow_huge_operations=True)
+    src_include = src.mask.include(data=x)
+    log(f"  source {src} ({float(src_include.float().mean()):.3f} "
+        f"included); C++ tile assembler: {native.native_available()}")
+
+    # 1. CASA images (one tile, then a CASA tiling) and the FITS file,
+    # each read back with its format detected
+    paths = {"single": os.path.join(workdir, "io.image"),
+             "tiled": os.path.join(workdir, "io_tiled.image"),
+             "fits": os.path.join(workdir, "io.fits")}
+    timed("write CASA, one tile", lambda: src.write(paths["single"]))
+    timed("write CASA, tiled", lambda: write_casa_image(
+        src, paths["tiled"], tile_shape=IO_TILE))
+    timed("write FITS", lambda: src.write(paths["fits"]))
+    parts = timed("read CASA tiled: parse", lambda: read_casa_image_parts(
+        paths["tiled"]))
+    timed("read CASA tiled: upload", lambda: torch.as_tensor(
+        np.ascontiguousarray(parts[0][:, 0]), device=dev))
+    del parts
+    cubes = {}
+    for kind, path in paths.items():
+        cube = timed(f"read {kind}", lambda: T.SpectralCube.read(path))
+        log(f"  {kind}: format {_detect_format(path)}, {cube.device}, "
+            f"{cube}")
+        check(f"{kind} read lands on the card", cube.device.type == "cuda")
+        check(f"{kind} data bitwise", bits_equal(cube._data, x))
+        check(f"{kind} include mask", torch.equal(
+            cube.mask.include(data=cube._data), src_include))
+        check(f"{kind} unit", cube.unit == src.unit)
+        rel = max(abs(getattr(cube.beam, a).to_value("deg")
+                      / getattr(src.beam, a).to_value("deg") - 1.0)
+                  for a in ("major", "minor", "pa"))
+        check(f"{kind} beam within {rel:.1e} (1e-12)", rel < 1e-12)
+        cubes[kind] = cube
+    for kind in ("single", "tiled"):
+        check(f"{kind} WCS cards as the FITS read's",
+              cubes[kind].wcs.to_header() == cubes["fits"].wcs.to_header())
+    del cubes["tiled"]
+    shutil.rmtree(paths["tiled"])
+
+    # 2. an SNR mask appended to the one-tile image
+    sigma = float(src.mad_std().value)
+    snr = src.with_mask(src > Quantity(IO_MASK_SNR * sigma, src.unit))
+    timed("append mask", lambda: make_casa_mask(
+        snr, os.path.join(workdir, "io_snr_mask", "snr"),
+        append_to_image=True, img=paths["single"]))
+    masked = timed("read with the appended mask",
+                   lambda: T.SpectralCube.read(paths["single"]))
+    check(f"appended mask read back bitwise (sigma {sigma:.4f})",
+          torch.equal(masked.mask.include(data=masked._data),
+                      snr.mask.include(data=x)))
+    del masked, snr
+    shutil.rmtree(os.path.join(workdir, "io_snr_mask"))
+
+    # 3. 623 per-plane beams, and an IQUV image
+    major, minor, pa = vr_beams(NCHAN)
+    plane_beams = T.Beams(major=Quantity(major.astype(float), "arcsec"),
+                    minor=Quantity(minor.astype(float), "arcsec"),
+                    pa=Quantity(pa.astype(float), "deg"))
+    vr = T.VaryingResolutionSpectralCube(x, wcs, mask=src.mask,
+                                         beams=plane_beams,
+                                         header=header,
+                                         allow_huge_operations=True)
+    vr_path = os.path.join(workdir, "io_vr.image")
+    timed("write CASA, per-plane beams", lambda: vr.write(vr_path))
+    vr_back = timed("read CASA, per-plane beams",
+                    lambda: T.SpectralCube.read(vr_path))
+    check("per-plane beams read back as a VRSC",
+          isinstance(vr_back, T.VaryingResolutionSpectralCube)
+          and bits_equal(vr_back._data, x))
+    worst = 0.0
+    for attr in ("major", "minor", "pa"):
+        a = np.asarray(getattr(vr_back.unmasked_beams, attr).to_value(
+            "arcsec" if attr != "pa" else "deg"))
+        b = np.asarray(getattr(plane_beams, attr).to_value(
+            "arcsec" if attr != "pa" else "deg"))
+        worst = max(worst, float(np.max(np.abs(a / b - 1.0))))
+    check(f"{NCHAN} beams within {worst:.1e} (1e-12)", worst < 1e-12)
+    del vr, vr_back
+    shutil.rmtree(vr_path)
+    n = IO_STOKES_NCHAN
+    wcs_n = src[:n].wcs
+    comps = {}
+    for k, name in enumerate("IQUV"):
+        t = x[k * n:(k + 1) * n].clone()
+        comps[name] = T.SpectralCube(t, wcs_n, mask=LazyMask(
+            torch.isfinite, data=t, wcs=wcs_n), header=header)
+    stokes = T.StokesSpectralCube(comps)
+    st_path = os.path.join(workdir, "io_iquv.image")
+    timed("write CASA, IQUV", lambda: write_casa_image(stokes, st_path))
+    back = timed("read CASA, IQUV",
+                 lambda: T.StokesSpectralCube.read(st_path))
+    check("IQUV components bitwise", back.components == list("IQUV") and all(
+        bits_equal(back[c]._data, comps[c]._data) and torch.equal(
+            back[c].mask.include(data=back[c]._data),
+            torch.isfinite(comps[c]._data)) for c in "IQUV"))
+    del stokes, back, comps
+    shutil.rmtree(st_path)
+
+    # 4. a CLASS .lmv cube at the full size, read onto the card and on
+    # the host
+    lmv_path = os.path.join(workdir, "io.lmv")
+    timed("write LMV", lambda: write_lmv(
+        lmv_path, data, ref_deg=(float(header["CRVAL1"]),
+                                 float(header["CRVAL2"])),
+        pix_arcsec=PIX_ARCSEC, velocity=(-20.0, 0.25)))
+    lmv = timed("read LMV", lambda: T.SpectralCube.read(lmv_path))
+    lmv_cpu = T.SpectralCube.read(lmv_path, device="cpu")
+    check("LMV read lands on the card", lmv.device.type == "cuda")
+    check("LMV on the card bitwise its CPU read, and the source",
+          bits_equal(lmv._data.cpu(), lmv_cpu._data)
+          and bits_equal(lmv._data, x)
+          and lmv.wcs.to_header() == lmv_cpu.wcs.to_header())
+    log(f"  LMV: {lmv}, WCS {lmv.wcs.ctype}")
+    del lmv, lmv_cpu
+    os.unlink(lmv_path)
+
+    # 5. region cuts of the CASA read, then run_pipeline on the DS9 cut
+    casa, fits = cubes["single"], cubes["fits"]
+    # at 768 x 768: an fk5 circle of 120 px about pixel (300, 430), a
+    # polygon overlapping it, a 40 px hole in the circle; the CRTF box
+    # corners at pixels (250, 200) and (560, 600)
+    cx, cy = round(0.39 * NX), round(0.56 * NY)
+    lon, lat = casa.wcs.celestial.pix2world(np.array([float(cx)]),
+                                            np.array([float(cy)]))
+    lon, lat = float(np.asarray(lon)[0]), float(np.asarray(lat)[0])
+    poly = ",".join(str(round(f * n)) for f, n in zip(
+        (0.55, 0.33, 0.78, 0.39, 0.73, 0.68, 0.59, 0.61), (NX, NY) * 4))
+    ds9 = (f'fk5; circle({lon:.7f}, {lat:.7f}, '
+           f'{0.156 * NX * PIX_ARCSEC:.2f}"); image; polygon({poly}); '
+           f"-circle({cx + 1},{cy + 1},{round(0.052 * NX)})")
+    crtf = (f"box[[{round(0.33 * NX)}pix, {round(0.26 * NY)}pix], "
+            f"[{round(0.73 * NX)}pix, {round(0.78 * NY)}pix]]")
+    log(f"  DS9: {ds9}; CRTF: {crtf}, range {IO_VELOCITY_RANGE} km/s")
+    regions = parse_ds9_region(ds9)
+    plane = timed("region rasterise", lambda: _region_plane(
+        regions, casa, region_to_mask))
+    finite_any = np.isfinite(data).any(axis=0)
+    keep = plane & finite_any
+    ys, xs = np.flatnonzero(keep.any(axis=1)), np.flatnonzero(keep.any(axis=0))
+    bounds = (slice(ys[0], ys[-1] + 1), slice(xs[0], xs[-1] + 1))
+    cut = timed("subcube DS9", lambda: casa.subcube_from_ds9region(ds9))
+    expect_shape = (NCHAN, ys[-1] - ys[0] + 1, xs[-1] - xs[0] + 1)
+    check(f"DS9 cut shape {cut.shape} as the host bounds",
+          cut.shape == expect_shape)
+    stored = cut.mask._mask2._mask
+    check(f"DS9 region kept as one {tuple(stored.shape)} "
+          f"{stored.dtype} plane on {stored.device}",
+          tuple(stored.shape) == (1,) + expect_shape[1:]
+          and stored.device == cut.device)
+    region_cut = torch.as_tensor(plane[bounds], device=dev)
+    check("DS9 cut mask as region_to_mask's composition", torch.equal(
+        cut.mask.include(data=cut._data),
+        torch.isfinite(cut._data) & region_cut[None]))
+    box = parse_crtf_region(crtf)[0]
+    box.meta["range"] = [Quantity(v, "km/s") for v in IO_VELOCITY_RANGE]
+    box.meta["veltype"] = "RADIO"
+    box_cut = timed("subcube CRTF with a velocity range",
+                    lambda: casa.subcube_from_regions([box]))
+    freq = np.asarray(casa.spectral_axis.value)
+    rest = float(header["RESTFRQ"])
+    ends = [int(np.argmin(np.abs(freq - rest * (1.0 - v * 1e3 / 299792458.0))))
+            for v in IO_VELOCITY_RANGE]
+    lo, hi = min(ends), max(ends)
+    bmask = region_to_mask(box, casa.wcs, casa.shape) & \
+        np.isfinite(data[lo:hi + 1]).any(axis=0)
+    bys, bxs = np.flatnonzero(bmask.any(axis=1)), \
+        np.flatnonzero(bmask.any(axis=0))
+    check(f"CRTF cut shape {box_cut.shape} as the host slab and bounds",
+          box_cut.shape == (hi - lo + 1, bys[-1] - bys[0] + 1,
+                            bxs[-1] - bxs[0] + 1)
+          and bits_equal(box_cut._data, x[lo:hi + 1, bys[0]:bys[-1] + 1,
+                                          bxs[0]:bxs[-1] + 1]))
+    del box_cut
+    # a CASA image's stored mask (mask0) stays with the cube through
+    # convolve_to, as in the JAX package, where a FITS read's finiteness
+    # mask follows the convolved data: the FITS read gets the same stored
+    # mask before its cut
+    fits_cut = fits.with_mask(fits.mask.include(data=fits._data)) \
+        .subcube_from_ds9region(ds9)
+    check("the FITS read's cut is the same cut",
+          fits_cut.shape == cut.shape and bits_equal(fits_cut._data,
+                                                     cut._data)
+          and torch.equal(fits_cut.mask.include(data=fits_cut._data),
+                          cut.mask.include(data=cut._data)))
+    _, target_beam = beams()
+    target_header = shifted_header(cut.header, *SHIFT)
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    res = timed("run_pipeline on the DS9 cut", lambda: T.run_pipeline(
+        cut, snr_threshold=SNR, target_beam=target_beam,
+        target_header=target_header))
+    counts = K.launch_counts()
+    log(f"  launches {counts}")
+    counts = {k: counts[k] for k in IO_KERNELS}
+    if not all(n > 0 for n in counts.values()):
+        raise AssertionError(f"a kernel of the path never ran: {counts}")
+    timed("run_pipeline again", lambda: T.run_pipeline(
+        cut, snr_threshold=SNR, target_beam=target_beam,
+        target_header=target_header))
+    ref = T.run_pipeline(fits_cut, snr_threshold=SNR, target_beam=target_beam,
+                         target_header=target_header)
+    for i, (a, b) in enumerate(zip(res["moments"], ref["moments"])):
+        compare(f"pipeline on the CASA cut, moment {i} vs the FITS cut's",
+                torch.as_tensor(np.asarray(a.value)),
+                torch.as_tensor(np.asarray(b.value)),
+                3e-6 if i < 2 else 5e-5)
+    check("pipeline cubes equal", bits_equal(res["cube"]._data,
+                                             ref["cube"]._data))
+    # each kernel of the path against its plain version at the cut's own
+    # shape, where the CASA-against-FITS check runs the same kernels on
+    # both sides
+    hold_stages("DS9 cut", cut, target_beam, target_header, res, dev,
+                lambda name, fn: timed(f"DS9 cut {name}", fn))
+    frac = float(np.isfinite(np.asarray(res["moments"][0].value)).mean())
+    check(f"cut's moment 0 finite fraction {frac:.3f}", 0.02 < frac < 1.0)
+    host_peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    device_peak = torch.cuda.max_memory_allocated() / 2**30
+    del res, ref, cut, fits_cut, cubes, casa, fits, src, x
+    for path in (paths["single"], paths["fits"]):
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        else:
+            os.unlink(path)
+    torch.cuda.empty_cache()
+    log("summary: io and regions (CUDA-synchronized): "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in times.items())
+        + f"; host peak (process, ru_maxrss) {host_peak:.2f} GiB, device "
+        f"peak {device_peak:.2f} GiB; launches "
+        + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    return counts
+
+
+def _region_plane(regions, cube, region_to_mask):
+    """The union of the include regions less the exclusions, on the host
+    (the composition ``region._extract`` makes)."""
+    plane = np.zeros(cube.shape[1:], bool)
+    for reg in regions:
+        if not reg.exclude:
+            plane |= region_to_mask(reg, cube.wcs, cube.shape)
+    for reg in regions:
+        if reg.exclude:
+            plane &= ~region_to_mask(reg, cube.wcs, cube.shape)
+    return plane
+
+
 def phase_small_reference(dev):
     """A small pipeline, a small varying-resolution pipeline on both
     convolution routes and a small spectral path, each on the card against
@@ -2680,6 +3103,7 @@ def main():
         api = phase("cube API", phase_cube_api, dev, workdir)
         spline = phase("spline and transforms", phase_spline_transforms,
                        dev, workdir, results)
+        io_counts = phase("io and regions", phase_io_regions, dev, workdir)
     counts.update({k: sp_counts[k] for k in SPECTRAL_KERNELS})
     counts.update({k: rs_counts[k] for k in REPROJECT_SPECTRAL_KERNELS})
     data = torch.as_tensor(synth_cube(NCHAN, NY, NX, SEED), device=dev)
@@ -2757,8 +3181,10 @@ def main():
         + ", ".join(f"{k} {v:.1f} ms" for k, v in spline["times"].items())
         + "; peaks " + ", ".join(f"{k} {v / 2**30:.2f} GiB"
                                  for k, v in spline["peaks"].items())
-        + "; banded_matmul launches on the path "
-        + str(sum(c["banded_matmul"] for c in spline["counts"].values())))
+        + "; launches on the path (added into the kernels line) "
+        + "; ".join(f"{step}: " + ", ".join(f"{k} {n}" for k, n in c.items()
+                                            if n)
+                    for step, c in spline["counts"].items()))
     api_times, api_peak, api_copy, api_launches = api
     log("summary: cube API (second call, CUDA-synchronized): "
         + ", ".join(f"{k} {v:.1f} ms" for k, v in api_times.items())

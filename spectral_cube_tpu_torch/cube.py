@@ -28,8 +28,14 @@ ray (``apply_function``) or on the whole filled array
 ``save_to_tmp_dir=True``, which writes the result to a temporary store
 and loads it back (``persistence.py``).
 
-Not ported yet: region subcubes (ROADMAP.md Queue 1 item 10d) and the
-exporters and viewers.
+Region subcubes (``subcube_from_ds9region``, ``_crtfregion``,
+``_regions``) rasterise the regions on the host in float64 (``region.py``)
+and apply the result as one compact ``(1, ny, nx)`` mask on the cube's
+device.  The exporters and viewers (``to_yt``, ``to_glue``, ``to_ds9``,
+``to_pvextractor``, ``plot_channel_maps``, ``find_lines``) copy what they
+hand over to the host; their optional packages are imported only when
+called.  ``SpectralCube.read`` reads FITS files, CASA images and CLASS
+.lmv cubes (``io/__init__.py``).
 """
 
 from __future__ import annotations
@@ -556,12 +562,22 @@ class BaseSpectralCube:
         write_cube(self, filename, overwrite=overwrite, format=format)
 
     @classmethod
-    def read(cls, filename, format=None, hdu=0, device=None, **kwargs):
-        """Read a cube onto ``device`` (default: the CUDA device; raises
-        where CUDA is absent unless ``device='cpu'`` is given).  A BEAMS
-        table gives a :class:`VaryingResolutionSpectralCube`.  A 4-D Stokes
-        file gives its I component with a :class:`StokesWarning` (reference
-        io/core.py:175-192); a file without one raises ``ValueError``."""
+    def read(cls, filename, format=None, hdu=0, use_dask=None, device=None,
+             **kwargs):
+        """Read a cube (FITS, CASA image or CLASS .lmv; the format is
+        detected when not given) onto ``device`` (default: the CUDA
+        device; raises where CUDA is absent unless ``device='cpu'`` is
+        given).  A BEAMS table or per-plane beams give a
+        :class:`VaryingResolutionSpectralCube`.  A Stokes file gives its I
+        component with a :class:`StokesWarning` (reference
+        io/core.py:175-192); a file without one raises ``ValueError``.
+        ``use_dask=True`` gives a sharded cube in the JAX package and
+        raises here: the port has no mesh yet."""
+        if use_dask:
+            raise NotImplementedError(
+                "use_dask=True reads into a cube sharded over a device "
+                "mesh, which is not ported to torch yet (ROADMAP.md Queue 1 "
+                "item 12)")
         from .io import read_cube
         return read_cube(filename, format=format, hdu=hdu, device=device,
                          stokes_to_i=True, **kwargs)
@@ -1230,6 +1246,26 @@ class BaseSpectralCube:
             zh = nchan if zhi == "max" else int(zhi)
         return self[zl:zh, ylo:yhi, xlo:xhi]
 
+    def subcube_from_ds9region(self, ds9_region, allow_empty=False):
+        """Cut by a DS9 region string or file (``region.py``)."""
+        from .region import subcube_from_ds9region
+        return subcube_from_ds9region(self, ds9_region,
+                                      allow_empty=allow_empty)
+
+    def subcube_from_crtfregion(self, crtf_region, allow_empty=False):
+        """Cut by a CASA CRTF region string or file (``region.py``)."""
+        from .region import subcube_from_crtfregion
+        return subcube_from_crtfregion(self, crtf_region,
+                                       allow_empty=allow_empty)
+
+    def subcube_from_regions(self, region_list, allow_empty=False,
+                             minimize=True):
+        """Cut by :class:`~.region.Region` objects (``region.py``)."""
+        from .region import subcube_from_regions
+        return subcube_from_regions(self, region_list,
+                                    allow_empty=allow_empty,
+                                    minimize=minimize)
+
     # ------------------------------------------------------------------
     # unit conversion & arithmetic
     # ------------------------------------------------------------------
@@ -1815,6 +1851,139 @@ class BaseSpectralCube:
             new_mask = BooleanArrayMask(inc_ds, wcs=new_wcs,
                                         shape=tuple(out.shape))
         return self._new_cube_with(data=out, wcs=new_wcs, mask=new_mask)
+
+    # ------------------------------------------------------------------
+    # line search, exporters and viewers (reference
+    # spectral_cube.py:2363-2648, :3559-3687).  Their packages are
+    # imported only when called; what they receive is copied to the host.
+    # ------------------------------------------------------------------
+    def find_lines(self, velocity_offset=None, velocity_convention=None,
+                   rest_value=None, **kwargs):
+        """Line search through astroquery's Splatalogue interface
+        (reference spectral_cube.py:2604-2648); needs astroquery and a
+        network."""
+        try:
+            from astroquery.splatalogue import Splatalogue
+        except ImportError as exc:
+            raise ImportError(
+                "find_lines requires astroquery, which is not "
+                "installed") from exc
+        value = self.with_spectral_unit(
+            u.GHz, velocity_convention=velocity_convention,
+            rest_value=rest_value).spectral_axis
+        if velocity_offset is not None:
+            vsu = self.with_spectral_unit(
+                u.km_s, velocity_convention=velocity_convention,
+                rest_value=rest_value).spectral_axis
+            vsu = vsu + velocity_offset
+            value = Quantity(np.asarray(vsu.value), vsu.unit)
+        return Splatalogue.query_lines(
+            float(np.asarray(value.value).min()),
+            float(np.asarray(value.value).max()), **kwargs)
+
+    def to_yt(self, **kwargs):
+        """A :class:`~.ytcube.ytCube` over a yt uniform grid of the filled
+        data (``ytcube.py``)."""
+        from .ytcube import to_yt
+        return to_yt(self, **kwargs)
+
+    def to_glue(self, name=None, glue_app=None, dataset=None,
+                start_gui=True):
+        """Send the cube to a new or existing Glue application (reference
+        spectral_cube.py:2441-2504); raises ImportError without glue."""
+        from glue.app.qt import GlueApplication
+        from glue.core import DataCollection, Data
+        from glue.core.coordinates import coordinates_from_header
+        if name is None:
+            name = "SpectralCube"
+        data = Data(label=name)
+        data.coords = coordinates_from_header(self.header)
+        data["intensity"] = self._get_filled_data(fill=np.nan).cpu().numpy()
+        if dataset is not None:
+            dataset.add_component(data["intensity"], name)
+            return
+        glue_app = glue_app or getattr(self, "_glue_app", None)
+        if glue_app is None:
+            glue_app = GlueApplication(DataCollection([data]))
+            self._glue_app = glue_app
+        else:
+            glue_app.add_datasets([data])
+        if start_gui:
+            glue_app.start()
+        return glue_app
+
+    def to_pvextractor(self):
+        """Open the cube in pvextractor's PV-slice GUI (reference
+        spectral_cube.py:2506-2513)."""
+        from pvextractor.gui import PVSlicer
+        return PVSlicer(self)
+
+    def to_ds9(self, ds9id=None, newframe=False):
+        """Send the cube to a running ds9 through XPA (reference
+        spectral_cube.py:2515-2545): it is written to a temporary FITS
+        file, loaded by path, and the file is removed."""
+        try:
+            import ds9
+        except ImportError:
+            import pyds9 as ds9
+        import os
+        import tempfile
+        if ds9id is None:
+            dd = ds9.DS9(start=True)
+        else:
+            dd = ds9.DS9(target=ds9id, start=False)
+        if newframe:
+            dd.set("frame new")
+        tmp = tempfile.NamedTemporaryFile(suffix=".fits", delete=False)
+        tmp.close()
+        try:
+            self.write(tmp.name, overwrite=True)
+            dd.set(f"file {tmp.name}")  # XPA set returns after the load
+        finally:
+            try:
+                os.unlink(tmp.name)
+            except OSError:
+                pass
+        return dd
+
+    def plot_channel_maps(self, nx, ny, channels, contourkwargs={},
+                          output_file=None, fig=None,
+                          fig_smallest_dim_inches=8, decimals=3, zoom=1,
+                          textcolor=None, cmap="gray_r", tighten=False,
+                          textxloc=0.5, textyloc=0.9, savefig_kwargs={},
+                          **kwargs):
+        """Channel-map grid plot with matplotlib (reference
+        spectral_cube.py:3559-3687)."""
+        import matplotlib.pyplot as plt
+        if len(channels) != nx * ny:
+            raise ValueError("to plot image channels, you need "
+                             "len(channels) == nx * ny")
+        if fig is None:
+            shape = self.shape[1:]
+            aspect = shape[0] / shape[1]
+            size = fig_smallest_dim_inches
+            figsize = (size * nx, size * ny * aspect) if aspect < 1 else \
+                (size * nx / aspect, size * ny)
+            fig = plt.figure(figsize=figsize)
+        axes = []
+        sv = np.asarray(self.spectral_axis.value)
+        for ii, chan in enumerate(channels):
+            ax = fig.add_subplot(ny, nx, ii + 1)
+            img = self._get_filled_data(
+                view=(chan, slice(None), slice(None))).cpu().numpy()
+            ax.imshow(img, origin="lower", cmap=cmap, **kwargs)
+            ax.text(textxloc, textyloc,
+                    f"{np.round(sv[chan], decimals)} {self.spectral_unit}",
+                    transform=ax.transAxes, ha="center",
+                    color=textcolor or "k")
+            ax.set_xticks([])
+            ax.set_yticks([])
+            axes.append(ax)
+        if tighten:
+            fig.tight_layout()
+        if output_file is not None:
+            fig.savefig(output_file, **savefig_kwargs)
+        return axes
 
     def __repr__(self):
         unit = str(self.unit)

@@ -75,6 +75,21 @@ def _component_cube(arr, wcs, meta, header, beams, device):
                         header=header)
 
 
+def stokes_components(names, stokes_to_i):
+    """The Stokes components to build: all of ``names``, or with
+    ``stokes_to_i`` and several of them only I, with a
+    :class:`StokesWarning`; a file without I then raises ``ValueError``
+    (reference io/core.py:175-192, the JAX package's cube.py:485-512)."""
+    if len(names) <= 1 or not stokes_to_i:
+        return names
+    if "I" not in names:
+        raise ValueError("Spectral cube is a Stokes cube that does not "
+                         "have an I component")
+    warnings.warn("Cube is a Stokes cube, returning spectral cube for I "
+                  "component", StokesWarning)
+    return ["I"]
+
+
 def cube_from_hdus(hdus, hdu=0, meta=None, device=None, stokes_to_i=False,
                    **kwargs):
     """Build a cube from parsed HDU objects.
@@ -108,14 +123,7 @@ def cube_from_hdus(hdus, hdu=0, meta=None, device=None, stokes_to_i=False,
         arrays, wcs3, tables = split_stokes(data, wcs, beam_table=beam_table)
     else:
         (arrays, wcs3), tables = split_stokes(data, wcs), None
-    names = list(arrays)
-    if len(names) > 1 and stokes_to_i:
-        if "I" not in names:
-            raise ValueError("Spectral cube is a Stokes cube that does not "
-                             "have an I component")
-        warnings.warn("Cube is a Stokes cube, returning spectral cube for I "
-                      "component", StokesWarning)
-        names = ["I"]
+    names = stokes_components(list(arrays), stokes_to_i)
     cubes = {name: _component_cube(
         arrays[name], wcs3, meta, header,
         _beams_from_columns(tables[name], beam_table.units)

@@ -360,6 +360,19 @@ class Projection(LowerDimensionalObject):
         view = (slice(ylo, yhi), slice(xlo, xhi))
         return self[view]
 
+    def quicklook(self, filename=None, use_aplpy=None, aplpy_kwargs=None,
+                  **kwargs):
+        """Plot the image with matplotlib (reference
+        lower_dimensional_structures.py:397-440; the aplpy flags are
+        accepted for API compatibility, and matplotlib draws)."""
+        import matplotlib.pyplot as plt
+        fig, ax = plt.subplots()
+        im = ax.imshow(np.asarray(self.value), origin="lower", **kwargs)
+        fig.colorbar(im, ax=ax, label=str(self.unit))
+        if filename:
+            fig.savefig(filename)
+        return ax
+
     def _world_planes(self, view=()):
         """(lat, lon) planes for a view — pix2world runs only over the
         viewed pixels, not the whole plane."""
@@ -547,6 +560,21 @@ class BaseOneDSpectrum(LowerDimensionalObject):
                          header=self._header, beam=self._beam, **kw)
         out._spectral_unit = self._spectral_unit
         return out
+
+    def quicklook(self, filename=None, drawstyle="steps-mid", **kwargs):
+        """Plot the spectrum into the current matplotlib figure
+        (reference lower_dimensional_structures.py:719-738); kwargs pass
+        to ``pyplot.plot``."""
+        from matplotlib import pyplot
+        ax = pyplot.gca()
+        ax.plot(np.asarray(self.spectral_axis.value),
+                np.asarray(self._get_filled_data()),
+                drawstyle=drawstyle, **kwargs)
+        ax.set_xlabel(str(self.spectral_axis.unit))
+        ax.set_ylabel(str(self.unit))
+        if filename is not None:
+            pyplot.gcf().savefig(filename)
+        return ax
 
     def spectral_smooth(self, kernel, device=None, **kwargs):
         """Convolve with a 1-D kernel, NaNs interpolated over

@@ -312,6 +312,22 @@ class MaskBase(ABC):
         masks.py:120-132)."""
         return self.exclude(view=view)
 
+    def quicklook(self, view, wcs=None, filename=None, use_aplpy=None,
+                  aplpy_kwargs=None):
+        """Plot a 2-D slice of the mask with matplotlib (reference
+        masks.py:272-335); the slice is copied to the host."""
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        img = self.include(view=view).cpu().numpy()
+        if img.ndim != 2:
+            raise ValueError("view must return a 2D slice")
+        fig, ax = plt.subplots()
+        ax.imshow(img, origin="lower", interpolation="nearest")
+        if filename:
+            fig.savefig(filename)
+        return ax
+
     def any(self, data=None, view=()):
         return bool(_include_of(self, data, view, None).any())
 

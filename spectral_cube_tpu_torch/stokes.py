@@ -242,6 +242,19 @@ class StokesSpectralCube:
     def minimal_subcube(self):
         return self._delegate("minimal_subcube")
 
+    def subcube_from_ds9region(self, ds9_region, allow_empty=False):
+        return self._delegate("subcube_from_ds9region", ds9_region,
+                              allow_empty=allow_empty)
+
+    def subcube_from_crtfregion(self, crtf_region, allow_empty=False):
+        return self._delegate("subcube_from_crtfregion", crtf_region,
+                              allow_empty=allow_empty)
+
+    def subcube_from_regions(self, region_list, allow_empty=False,
+                             minimize=True):
+        return self._delegate("subcube_from_regions", region_list,
+                              allow_empty=allow_empty, minimize=minimize)
+
     def subcube_slices_from_mask(self, region_mask, spatial_only=False):
         first = self._stokes_data[self.components[0]]
         return first.subcube_slices_from_mask(region_mask,

@@ -286,11 +286,19 @@ def test_cube_from_arrays_carries_jax_state(fits_path):
 
 
 def test_unported_paths_raise(fits_path):
+    """The sharded pipeline is not ported (item 12); a FITS file read as a
+    CASA image raises as it does in the JAX package."""
+    from spectral_cube_tpu.utils import FITSReadError as JFITSReadError
+    from spectral_cube_tpu_torch.utils import FITSReadError
     tcube = T.SpectralCube.read(str(fits_path), device="cpu")
     with pytest.raises(NotImplementedError, match="item 12"):
         T.run_pipeline(tcube, cmesh=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        T.SpectralCube.read(str(fits_path), format="casa_image")
+    with pytest.raises(FITSReadError, match="is not a CASA image directory"):
+        T.SpectralCube.read(str(fits_path), format="casa_image",
+                            device="cpu")
+    with pytest.raises(JFITSReadError,
+                       match="is not a CASA image directory"):
+        J.SpectralCube.read(str(fits_path), format="casa_image")
 
 
 def test_entry_points_default_to_cuda(fits_path, monkeypatch):
@@ -313,6 +321,25 @@ def test_entry_points_default_to_cuda(fits_path, monkeypatch):
     assert cube._new_cube_with(data=data + 1).device == torch.device("cpu")
     assert T.SpectralCube.read(str(fits_path), device="cpu").device \
         == torch.device("cpu")
+    # the CASA and CLASS loaders and the registry
+    from spectral_cube_tpu_torch.io import read_cube
+    from spectral_cube_tpu_torch.io.casa_image import load_casa_image
+    from spectral_cube_tpu_torch.io.casa_writer import write_casa_image
+    from spectral_cube_tpu_torch.io.class_lmv import load_lmv_cube
+    from test_io import _build_type2_lmv
+    image = str(fits_path) + ".image"
+    write_casa_image(T.SpectralCube.read(str(fits_path), device="cpu"),
+                     image)
+    lmv = str(fits_path) + ".lmv"
+    with open(lmv, "wb") as fh:
+        fh.write(_build_type2_lmv("<"))
+    for call in (lambda: load_casa_image(image), lambda: read_cube(image),
+                 lambda: load_lmv_cube(lmv), lambda: read_cube(lmv),
+                 lambda: T.StokesSpectralCube.read(image)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    for path in (image, lmv):
+        assert read_cube(path, device="cpu").device == torch.device("cpu")
 
 
 def test_port_imports_no_jax():
@@ -323,7 +350,15 @@ def test_port_imports_no_jax():
             "spectral_cube_tpu_torch.interop, "
             "spectral_cube_tpu_torch.io.fits, "
             "spectral_cube_tpu_torch.persistence, "
-            "spectral_cube_tpu_torch.analysis_utilities; "
+            "spectral_cube_tpu_torch.analysis_utilities, "
+            "spectral_cube_tpu_torch.io.casa_image, "
+            "spectral_cube_tpu_torch.io.casa_writer, "
+            "spectral_cube_tpu_torch.io.casa_masks, "
+            "spectral_cube_tpu_torch.io.class_lmv, "
+            "spectral_cube_tpu_torch.region, "
+            "spectral_cube_tpu_torch.wcs_utils, "
+            "spectral_cube_tpu_torch.visualization_tools, "
+            "spectral_cube_tpu_torch.ytcube; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'spectral_cube_tpu.'))"
             " or m == 'spectral_cube_tpu']; "
