@@ -114,6 +114,23 @@
    ``run_pipeline`` on the DS9 cut (counters at 0 before, moments, conv_sep
    and resample2 > 0 after) against the same cut of the FITS read.  Each
    file set is deleted once checked.
+10c. The multi-device layer on a 2 x 2 mesh of four shards on the card
+   (``CubeMesh(devices=[cuda:0] * 4, shape=(2, 2))``; the default mesh
+   spans the device count): (a) the pipeline's FITS file streamed onto it
+   (``io.streaming.read_sharded_cube``, four (623, 384, 384) blocks) and
+   ``run_pipeline(cmesh=)`` onto the shifted grid, halo exchanges > 0,
+   all-to-alls and gathers 0, moments, conv_sep and resample2 once a shard
+   at least, then its stages one by one; (b) the varying-resolution file
+   (a) onto the rotated grid (the FFT reshard, the reshard reprojection:
+   all-to-alls > 0, gathers 0); (c) the spectral file's interpolate with
+   the smoothing kernel, sigma clip and moments shard by shard
+   (smooth_interp, sigma_clip, moments >= 4 launches); (d) that cube
+   written as a CASA image in 64 x 64 x 1 x 16 tiles and streamed onto
+   the mesh (``read_sharded_casa``) bit for bit ``SpectralCube.read``'s.
+   Each held against the unsharded call on the card at the JAX tests'
+   tolerances, NaN patterns equal; counters and launches reset just before
+   each sharded run; one "summary: sharded" line (its launches not in the
+   kernels line).
 11. Holds each kernel against its plain PyTorch version on the card at the
    paths' shapes, with and without NaN, and times the kernel, the plain
    version and, where one exists, a single PyTorch call computing the same
@@ -134,6 +151,8 @@ last line ``{"ok": true, "device": {...}}``.  Any failed check raises.
 
 from __future__ import annotations
 
+import contextlib
+import inspect
 import json
 import os
 import subprocess
@@ -190,6 +209,12 @@ IO_STOKES_NCHAN = 64
 IO_MASK_SNR = 3.0
 IO_VELOCITY_RANGE = (-10.0, 10.0)
 IO_KERNELS = ("moments", "conv_sep", "resample2")
+
+# sharded phase: the mesh (one card, four shards) and the kernels each of
+# its paths must launch once a shard at least
+MESH_GRID = (2, 2)
+SHARDED_KERNELS = {"a": ("moments", "conv_sep", "resample2"),
+                   "c": ("smooth_interp", "sigma_clip", "moments")}
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
 # the tensor cores
@@ -2947,6 +2972,491 @@ def phase_io_regions(dev, workdir):
     return counts
 
 
+def close_arrays(name, got, want, rtol, atol):
+    """``got`` and ``want`` (host arrays or tensors) have equal NaN
+    patterns and agree within rtol/atol where finite; returns the largest
+    absolute difference."""
+    import torch
+    g = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) \
+        else np.asarray(got)
+    w = want.detach().cpu().numpy() if isinstance(want, torch.Tensor) \
+        else np.asarray(want)
+    if g.shape != w.shape:
+        raise AssertionError(f"{name}: shapes {g.shape} vs {w.shape}")
+    if not np.array_equal(np.isnan(g), np.isnan(w)):
+        raise AssertionError(f"{name}: NaN patterns differ in "
+                             f"{int((np.isnan(g) != np.isnan(w)).sum())} "
+                             "places")
+    fin = ~np.isnan(w)
+    err = float(np.abs(g[fin] - w[fin]).max()) if fin.any() else 0.0
+    np.testing.assert_allclose(g[fin], w[fin], rtol=rtol, atol=atol,
+                               err_msg=name)
+    return err
+
+
+def hold_pipeline(tag, res, ref):
+    """A sharded ``run_pipeline`` result against the unsharded one at the
+    JAX package's tolerances (tests/test_parallel.py:770-785): moments,
+    linewidth and statistics, then the reprojected cube (the reprojection
+    test's 1e-5 / 1e-6), NaN patterns equal.  Returns the largest errors."""
+    errs = {}
+    for i, (name, tol) in enumerate((("mom0", (3e-5, 1e-6)),
+                                     ("mom1", (3e-5, 1e-4)),
+                                     ("linewidth", (1e-4, 1e-4)))):
+        errs[name] = close_arrays(f"{tag} {name}",
+                                  np.asarray(res["moments"][i].value),
+                                  np.asarray(ref["moments"][i].value), *tol)
+    st, sr = res["statistics"], ref["statistics"]
+    if st["npts"] != sr["npts"]:
+        raise AssertionError(f"{tag} statistics npts {st['npts']} vs "
+                             f"{sr['npts']}")
+    for key in ("mean", "sigma", "sum", "max", "min", "rms"):
+        a, b = float(st[key].value), float(sr[key].value)
+        if abs(a - b) > 2e-5 * abs(b) + 1e-7:
+            raise AssertionError(f"{tag} statistics {key}: {a} vs {b}")
+    errs["cube"] = close_arrays(f"{tag} reprojected cube",
+                                res["cube"].cube._data, ref["cube"]._data,
+                                1e-5, 1e-6)
+    return errs
+
+
+class _Recorder:
+    """Stands in, in the port's modules, for a kernel wrapper: keeps the
+    arguments of its first and its last call in ``calls``, then calls it.
+    ``launches`` reads and writes the wrapper's own count, which the
+    wrapper's body adds to through its module's name."""
+
+    def __init__(self, fn, calls):
+        self.fn = fn
+        self.calls = calls
+
+    def __call__(self, *args, **kwargs):
+        self.calls[1 if self.calls else 0:] = [(args, kwargs)]
+        return self.fn(*args, **kwargs)
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches = n
+
+
+@contextlib.contextmanager
+def recorded_calls(names):
+    """Inside the block every module of the port that holds one of the
+    kernel wrappers ``names`` (keys of ``kernels.WRAPPERS``) holds a
+    :class:`_Recorder` of it instead.  Yields ``{name: [(args, kwargs)
+    of the first call, of the last call]}``."""
+    from spectral_cube_tpu_torch import kernels as K
+    calls = {n: [] for n in names}
+    subs = {id(K.WRAPPERS[n]): _Recorder(K.WRAPPERS[n], calls[n])
+            for n in names}
+    patched = []
+    for mname, mod in list(sys.modules.items()):
+        if mod is None or not mname.startswith("spectral_cube_tpu_torch"):
+            continue
+        for attr, val in list(vars(mod).items()):
+            rec = subs.get(id(val))
+            if rec is not None and rec.fn is val:
+                setattr(mod, attr, rec)
+                patched.append((mod, attr, val))
+    try:
+        yield calls
+    finally:
+        for mod, attr, val in patched:
+            setattr(mod, attr, val)
+
+
+def _bind(fn, args, kwargs):
+    """``args``/``kwargs`` of a call of ``fn`` by parameter name, in the
+    parameters' order (a wrapper takes them positionally: its device
+    guard names its first parameter ``x``)."""
+    ba = inspect.signature(fn).bind(*args, **kwargs)
+    ba.apply_defaults()
+    return dict(ba.arguments)
+
+
+def moment_term_scales(x, xc, valid):
+    """Per spaxel, in float64, the sums of the absolute values of the
+    terms that kernel 1's chunked two-pass sums add (csrc/moments.cu):
+    per chunk of ``kernels.moments.CHUNK`` channels, with w the included
+    values, m = s1/s0 the chunk's centre and d = x - m, s0 adds w, s1
+    adds s0*m and w*d, s2 adds s0*m^2, 2*m*w*d and w*d^2, and the
+    with-stats sum of squares adds (w - s0/n)^2 and s0^2/n.  Where a
+    chunk's s0 nearly cancels (a clipped spectrum's few values of both
+    signs), m, and with it these scales, grow large."""
+    import torch
+    from spectral_cube_tpu_torch.kernels.moments import CHUNK
+    t = [0.0] * 4
+    for c0 in range(0, x.shape[0], CHUNK):
+        ok = valid[c0:c0 + CHUNK]
+        w = torch.where(ok, x[c0:c0 + CHUNK], 0.0).double()
+        xx = xc[c0:c0 + CHUNK, None, None]
+        s0 = w.sum(0)
+        m = (w * xx).sum(0) / torch.where(s0 == 0, 1.0, s0)
+        aw, d = w.abs(), (xx - m).abs()
+        awd = (aw * d).sum(0)
+        n = ok.sum(0).clamp(min=1).double()
+        t[0] = t[0] + aw.sum(0)
+        t[1] = t[1] + (s0 * m).abs() + awd
+        t[2] = t[2] + s0.abs() * m * m + 2 * m.abs() * awd \
+            + (aw * d * d).sum(0)
+        t[3] = t[3] + torch.where(ok, (aw + (s0 / n).abs()) ** 2, 0.0) \
+            .sum(0) + s0 * s0 / n
+    return t
+
+
+def compare_moment_planes(name, got, want, a):
+    """Kernel 1's output against its plain version's on the inputs ``a``:
+    the counts equal, the minimum and maximum planes (with stats) equal
+    where a spaxel counts a value, and each pair-summed plane (s0, s1,
+    s2, and the sum of squares with stats) within 2 * (CHUNK + 2) * u
+    (u = eps / 2, float32's unit roundoff) of the absolute sum of its
+    terms (:func:`moment_term_scales`): a term is at most two roundings
+    from exact and a float32 sum of k terms adds at most k, so two
+    evaluations in different orders differ by at most twice (k + 2) * u
+    of that sum; the pairs carry the chunks' sums with no further loss
+    at this scale.  Returns the largest |got - want| / terms over the
+    planes."""
+    import torch
+    from spectral_cube_tpu_torch.kernels.moments import CHUNK, CMP_OPS
+    (gp, gc), (wp, wc) = got, want
+    if not torch.equal(gc, wc):
+        raise AssertionError(f"{name}: counts differ")
+    x = a["data"]
+    valid = torch.isfinite(x)
+    if a["cmp_op"]:
+        valid &= CMP_OPS[a["cmp_op"]](x, torch.tensor(
+            a["threshold"], dtype=torch.float32, device=x.device))
+    if a["include"] is not None:
+        valid &= a["include"].to(x.device).bool()
+    xc = torch.as_tensor(np.asarray(a["xc"], np.float64), device=x.device)
+    scales = moment_term_scales(x, xc, valid)
+    del valid
+    tol = (CHUNK + 2) * float(np.finfo(np.float32).eps)
+    names = ("s0", "s1", "s2", "sumsq")[:4 if a["with_stats"] else 3]
+    worst = 0.0
+    for k, plane in enumerate(names):
+        g = gp[2 * k].double() + gp[2 * k + 1].double()
+        w = wp[2 * k].double() + wp[2 * k + 1].double()
+        ratio = (g - w).abs() / scales[k].clamp(min=1e-300)
+        r = float(torch.where(gc > 0, ratio, 0.0).max())
+        log(f"  {name} {plane}: max |got - want| / terms {r:.3e} "
+            f"(tol {tol:.3e})")
+        if r > tol:
+            raise AssertionError(f"{name} {plane}: {r:.3e} > {tol:.3e}")
+        worst = max(worst, r)
+    if a["with_stats"]:
+        has = gc > 0
+        for k, plane in ((8, "min"), (9, "max")):
+            if not torch.equal(gp[k][has], wp[k][has]):
+                raise AssertionError(f"{name}: the {plane} planes differ")
+    return worst
+
+
+def hold_call(name, label, args, kwargs):
+    """One recorded call of the wrapper ``name`` repeated through the
+    wrapper and its plain version on the same inputs, held at the
+    tolerances the kernel's own phase holds it to.  Returns the largest
+    absolute error (where the kernel's check defines one)."""
+    import torch
+    from spectral_cube_tpu_torch.kernels import conv_sep as kc
+    from spectral_cube_tpu_torch.kernels import moments as km
+    from spectral_cube_tpu_torch.kernels import resample2 as kr
+    from spectral_cube_tpu_torch.kernels import sigma_clip as kcl
+    from spectral_cube_tpu_torch.kernels import smooth_interp as ks
+    tag = f"{label} {name}"
+    if name == "conv_sep":
+        a = _bind(kc.conv_sep_plain, args, kwargs)
+        x = a["data"]
+        ys, xs = a["ytaps"].to(x.device), a["xtaps"].to(x.device)
+        if int(torch.as_tensor(a["group_idx"]).max()) != 0:
+            raise AssertionError(f"{tag}: the hold expects one beam group")
+        got = kc.conv_sep(*a.values())
+        want = kc.conv_sep_plain(**a)
+        log(f"  {tag} on {tuple(x.shape)}:")
+        return compare_conv(f"{tag} vs plain", got, want, x, ys, xs,
+                            a["hy"], a["hx"], 1e-5)[0]
+    if name == "moments":
+        a = _bind(km.moments_planes_plain, args, kwargs)
+        got = km.moments_planes(*a.values())
+        want = km.moments_planes_plain(**a)
+        stats = a["with_stats"]
+        log(f"  {tag} on {tuple(a['data'].shape)} (op {a['cmp_op']}, "
+            f"include {a['include'] is not None}, with_stats {stats}):")
+        err = compare_moment_planes(f"{tag} vs plain", got, want, a)
+        if stats:
+            fg, fw = _finalize(got, stats), _finalize(want, stats)
+            for key in ("mean", "sigma", "sum", "rms", "min", "max"):
+                g, w = float(fg[3][key]), float(fw[3][key])
+                if abs(g - w) > 2e-5 * abs(w):
+                    raise AssertionError(f"{tag} statistics {key}: {g} vs "
+                                         f"{w}")
+        return err
+    if name == "resample2":
+        a = _bind(kr.resample2_plain, args, kwargs)
+        log(f"  {tag} on {tuple(a['raw'].shape)}:")
+        return compare(f"{tag} vs plain", kr.resample2(*a.values()),
+                       kr.resample2_plain(**a), 1e-6)[0]
+    if name == "sigma_clip":
+        a = _bind(kcl.sigma_clip_plain, args, kwargs)
+        x = a["data"]
+        log(f"  {tag} on {tuple(x.shape)}:")
+        return compare_clip(f"{tag} vs plain", kcl.sigma_clip(
+            x, a["sigma"], a["maxiters"], a["use_mean_center"]),
+            kcl.sigma_clip_plain(**a), x, a["sigma"], a["maxiters"],
+            a["use_mean_center"])
+    if name == "smooth_interp":
+        a = _bind(ks.smooth_interp, args, kwargs)
+        x = a["data"]
+        log(f"  {tag} on {tuple(x.shape)}:")
+        return compare_si(f"{tag} vs plain", ks.smooth_interp(*a.values()),
+                          ks.smooth_interp_plain(x, a["M"], a["S"], a["I"]),
+                          x, a["S"], a["I"])[0]
+    raise AssertionError(f"no hold for the kernel {name}")
+
+
+def phase_sharded(dev, workdir):
+    """The multi-device layer on a 2 x 2 mesh of four shards on one card
+    (``parallel``): (a) the pipeline's FITS file streamed onto the mesh
+    and ``run_pipeline`` onto the shifted grid (halo exchanges only); (b)
+    VRSC file (a) onto the rotated grid (the FFT reshard and the reshard
+    reprojection); (c) the spectral path's cube: smooth + interpolate,
+    sigma clip and moments shard by shard; (d) a tiled CASA image of it
+    streamed onto the mesh.  Each held against the unsharded call on the
+    same card; counters and launches reset just before each sharded run
+    and read just after."""
+    import shutil
+    import torch
+    import spectral_cube_tpu_torch as T
+    from spectral_cube_tpu_torch import kernels as K
+    from spectral_cube_tpu_torch.io import streaming
+    from spectral_cube_tpu_torch.io.casa_writer import write_casa_image
+    from spectral_cube_tpu_torch.ops import smoothing as osm
+    log(f"phase sharded ({MESH_GRID[0]}x{MESH_GRID[1]} mesh, "
+        f"{MESH_GRID[0] * MESH_GRID[1]} shards on {dev})")
+    t_phase = time.perf_counter()
+    cmesh = T.CubeMesh(devices=[dev] * (MESH_GRID[0] * MESH_GRID[1]),
+                       shape=MESH_GRID)
+    if T.default_mesh().n_devices != torch.cuda.device_count():
+        raise AssertionError("the default mesh does not span the cards")
+    times, counters, launches, peaks, errs = {}, {}, {}, {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        val = fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t) * 1e3
+        return val
+
+    def sharded(name, fn):
+        """``fn`` timed with the mesh's counters, the launch counts and
+        the device peak reset just before and read just after."""
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        cmesh.reset_counters()
+        val = timed(name, fn)
+        counters[name] = dict(cmesh.counters)
+        launches[name] = {k: v for k, v in K.launch_counts().items() if v}
+        peaks[name] = torch.cuda.max_memory_allocated()
+        log(f"  {name}: {times[name]:.1f} ms, counters {counters[name]}, "
+            f"launches {launches[name]}, peak {peaks[name] / 2**30:.2f} GiB")
+        return val
+
+    def check_shards(tag, sc):
+        shards = sc._data.addressable_shards
+        want = (sc.shape[0], sc.shape[1] // MESH_GRID[0],
+                sc.shape[2] // MESH_GRID[1])
+        if len(shards) != cmesh.n_devices or any(
+                tuple(s.data.shape) != want or s.data.device != dev
+                for s in shards):
+            raise AssertionError(f"{tag}: shards "
+                                 f"{[tuple(s.data.shape) for s in shards]}")
+        # the read held one decoded block and its read buffer (the
+        # file's block, float32 here) at once, never the cube
+        held = streaming.HOST_BUFFERS["held_bytes"]
+        block = streaming.HOST_BUFFERS["block_bytes"]
+        log(f"  {tag}: {len(shards)} shards of {want} on {dev}; host "
+            f"buffers held at once {held / 2**20:.1f} MiB (a block "
+            f"{block / 2**20:.1f} MiB)")
+        if held > 2 * block:
+            raise AssertionError(f"{tag}: the read held more than a block "
+                                 "and its read buffer")
+
+    def held_run(tag, name, fn, kernels):
+        """``fn`` once more, untimed, with the first and the last launch
+        of each kernel ``kernels`` recorded (the first shard's and the
+        last's), its launches as the counted run's; then each recorded
+        call repeated through the wrapper and its plain version on the
+        same inputs.  Those launches count nowhere."""
+        K.reset_launch_counts()
+        with recorded_calls(kernels) as calls:
+            fn()
+        n = {k: v for k, v in K.launch_counts().items() if v}
+        if n != launches[name]:
+            raise AssertionError(f"{tag}: the recorded run launched {n}, "
+                                 f"the counted run {launches[name]}")
+        errs = {}
+        for k in kernels:
+            if len(calls[k]) != 2:
+                raise AssertionError(f"{tag}: {k} recorded {len(calls[k])} "
+                                     "launches")
+            errs[k] = max(hold_call(k, f"({tag}) {which} launch", *c)
+                          for which, c in zip(("first", "last"), calls[k]))
+        del calls
+        torch.cuda.empty_cache()
+        log(f"  ({tag}) each kernel's first and last launch against its "
+            f"plain version: largest errors {errs}")
+        return errs
+
+    def check_counts(tag, name, halo=None, a2a=None, kernels=()):
+        c, n = counters[name], launches[name]
+        ok = c["gathers"] == 0 and (halo is None or (c["halo_exchanges"] > 0)
+                                    == halo) \
+            and (a2a is None or (c["all_to_alls"] > 0) == a2a) \
+            and all(n.get(k, 0) >= cmesh.n_devices for k in kernels)
+        if not ok:
+            raise AssertionError(f"{tag}: counters {c}, launches {n}")
+
+    # (a) the pipeline's file streamed onto the mesh: halo exchanges only
+    _, target_beam = beams()
+    path = os.path.join(workdir, "cube.fits")
+    sc = timed("a read_sharded_cube", lambda: streaming.read_sharded_cube(
+        path, cmesh))
+    check_shards("a", sc)
+    target = shifted_header(sc.header, *SHIFT)
+    kw = dict(snr_threshold=SNR, target_beam=target_beam,
+              target_header=target)
+    res = sharded("a run_pipeline sharded",
+                  lambda: T.run_pipeline(sc, cmesh, **kw))
+    check_counts("a", "a run_pipeline sharded", halo=True, a2a=False,
+                 kernels=SHARDED_KERNELS["a"])
+    del res
+    res = sharded("a run_pipeline sharded (second call)",
+                  lambda: T.run_pipeline(sc, cmesh, **kw))
+    kernel_errs = {"a": held_run("a", "a run_pipeline sharded",
+                                 lambda: T.run_pipeline(sc, cmesh, **kw),
+                                 SHARDED_KERNELS["a"])}
+    # the sharded pipeline's stages one by one (the pipeline phase's
+    # "stage" lines time the unsharded ones)
+    conv = timed("a stage convolve_to", lambda: sc.convolve_to(target_beam))
+    noise = timed("a stage mad_std", lambda: float(conv.mad_std().value))
+    masked = conv.with_mask(conv > T.Quantity(SNR * noise, conv.unit))
+    timed("a stage moment_maps", masked.moment_maps)
+    timed("a stage statistics", masked.statistics)
+    timed("a stage reproject", lambda: masked.reproject(target))
+    del conv, masked
+    cube = T.SpectralCube.read(path, device=dev)
+    timed("a run_pipeline unsharded", lambda: T.run_pipeline(cube, **kw))
+    ref = timed("a run_pipeline unsharded (second call)",
+                lambda: T.run_pipeline(cube, **kw))
+    errs["a"] = hold_pipeline("(a)", res, ref)
+    log(f"  (a) against the unsharded run: largest errors {errs['a']}")
+    del sc, res, ref, cube
+    torch.cuda.empty_cache()
+
+    # (b) VRSC file (a): the FFT route and the reshard reprojection
+    vr = T.SpectralCube.read(os.path.join(workdir, "vr_a.fits"), device=dev)
+    target = rotated_header(vr.header, VR_ROTATION)
+    res = sharded("b run_pipeline sharded", lambda: T.run_pipeline(
+        vr, cmesh, snr_threshold=SNR, target_header=target))
+    check_counts("b", "b run_pipeline sharded", a2a=True)
+    del res
+    res = sharded("b run_pipeline sharded (second call)",
+                  lambda: T.run_pipeline(vr, cmesh, snr_threshold=SNR,
+                                         target_header=target))
+    ref = timed("b run_pipeline unsharded", lambda: T.run_pipeline(
+        vr, snr_threshold=SNR, target_header=target))
+    errs["b"] = hold_pipeline("(b)", res, ref)
+    log(f"  (b) against the unsharded run: largest errors {errs['b']}")
+    del vr, res, ref
+    torch.cuda.empty_cache()
+
+    # (c) the spectral path's cube, shard by shard
+    path_s = os.path.join(workdir, "spectral.fits")
+    scs = timed("c read_sharded_cube", lambda: streaming.read_sharded_cube(
+        path_s, cmesh))
+    check_shards("c", scs)
+    kern = osm.gaussian_kernel1d(SMOOTH_STDDEV)
+    grid = scs.spectral_axis[::2]
+
+    def spectral(src):
+        si = src.spectral_interpolate(grid, smooth_kernel=kern)
+        cl = si.sigma_clip_spectrally(CLIP_SIGMA)
+        moms = cl.moment_maps() if isinstance(cl, T.ShardedCube) else (
+            cl.moment0(), cl.moment1())
+        return si, cl, moms
+
+    out = sharded("c spectral path sharded", lambda: spectral(scs))
+    check_counts("c", "c spectral path sharded", halo=False, a2a=False,
+                 kernels=SHARDED_KERNELS["c"])
+    del out
+    si, cl, moms = sharded("c spectral path sharded (second call)",
+                           lambda: spectral(scs))
+    kernel_errs["c"] = held_run("c", "c spectral path sharded",
+                                lambda: spectral(scs), SHARDED_KERNELS["c"])
+    cube = T.SpectralCube.read(path_s, device=dev)
+    timed("c spectral path unsharded", lambda: spectral(cube))
+    rsi, rcl, rmoms = timed("c spectral path unsharded (second call)",
+                            lambda: spectral(cube))
+    errs["c"] = {
+        "interpolated": close_arrays("(c) spectral_interpolate",
+                                     si.cube.filled_data[:].value,
+                                     rsi.filled_data[:].value, 2e-5, 1e-6),
+        "clipped": close_arrays("(c) sigma_clip_spectrally",
+                                cl.cube._data, rcl._data, 1e-5, 0.0),
+        "mom0": close_arrays("(c) mom0", moms[0].value, rmoms[0].value,
+                             3e-5, 1e-6),
+        "mom1": close_arrays("(c) mom1", moms[1].value, rmoms[1].value,
+                             3e-5, 1e-4)}
+    log(f"  (c) against the unsharded calls: largest errors {errs['c']}")
+    del si, cl, moms, rsi, rcl, rmoms, scs
+    torch.cuda.empty_cache()
+
+    # (d) a tiled CASA image of that cube streamed onto the mesh
+    casa = os.path.join(workdir, "sharded.image")
+    cube.allow_huge_operations = True
+    timed("d write CASA, tiled", lambda: write_casa_image(
+        cube, casa, tile_shape=IO_TILE))
+    del cube
+    scd = timed("d read_sharded_casa", lambda: streaming.read_sharded_casa(
+        casa, cmesh))
+    check_shards("d", scd)
+    want = timed("d SpectralCube.read (CASA)", lambda: T.SpectralCube.read(
+        casa, device=dev))
+    got = scd.cube
+    if not (bits_equal(got._data, want._data) and torch.equal(
+            got.mask.include(data=got._data).expand(want.shape),
+            want.mask.include(data=want._data).expand(want.shape))):
+        raise AssertionError("(d) the sharded CASA read is not the read's "
+                             "bits and mask")
+    if got.wcs.to_header() != want.wcs.to_header() \
+            or str(got.unit) != str(want.unit) or got.beam != want.beam:
+        raise AssertionError("(d) the sharded CASA read's metadata")
+    log("  (d) read_sharded_casa bit for bit the CASA read (data, mask, "
+        "WCS cards, unit, beam)")
+    del scd, want, got
+    shutil.rmtree(casa)
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    log(f"summary: sharded ({MESH_GRID[0]}x{MESH_GRID[1]} mesh, "
+        f"{cmesh.n_devices} shards on {dev}): phase {wall:.1f} s; "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in times.items())
+        + "; counters " + "; ".join(f"{k}: {v}" for k, v in counters.items())
+        + "; peaks " + ", ".join(f"{k} {v / 2**30:.2f} GiB"
+                                 for k, v in peaks.items())
+        + "; launches " + "; ".join(
+            f"{k}: " + ", ".join(f"{n} {c}" for n, c in v.items())
+            for k, v in launches.items())
+        + "; largest errors " + json.dumps(errs)
+        + "; kernels against their plain versions at the shard shapes, "
+        "largest errors " + json.dumps(kernel_errs))
+    return times, counters, launches
+
+
 def _region_plane(regions, cube, region_to_mask):
     """The union of the include regions less the exclusions, on the host
     (the composition ``region._extract`` makes)."""
@@ -3104,6 +3614,7 @@ def main():
         spline = phase("spline and transforms", phase_spline_transforms,
                        dev, workdir, results)
         io_counts = phase("io and regions", phase_io_regions, dev, workdir)
+        phase("sharded", phase_sharded, dev, workdir)
     counts.update({k: sp_counts[k] for k in SPECTRAL_KERNELS})
     counts.update({k: rs_counts[k] for k in REPROJECT_SPECTRAL_KERNELS})
     data = torch.as_tensor(synth_cube(NCHAN, NY, NX, SEED), device=dev)

@@ -3,14 +3,16 @@ hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The port of ``spectral_cube_tpu`` (JAX and Pallas on a TPU), module for
 module.  This package imports neither JAX nor the JAX package.  It covers
-everything the JAX package does on one device: FITS, CASA image and CLASS
+everything the JAX package does: on one device FITS, CASA image and CLASS
 .lmv read (FITS and CASA write; 3-D and 4-D Stokes files, BEAMS tables,
 per-plane beams, CASA masks), masks, moments, statistics, common-beam
 convolution of single-beam and varying-resolution cubes, reprojection,
 the spectral-axis path, ``run_pipeline``, the cube's everyday API
 (indexing and subcubes, spectral-unit and brightness-unit conversion,
 arithmetic, 1-D and 2-D results, Stokes cubes), DS9 and CRTF region
-subcubes, and the exporters and viewers.  A CPU tensor runs
+subcubes, and the exporters and viewers; over a device mesh
+(``parallel``) the sharded cube, its operations shard by shard, the
+streaming readers and ``run_pipeline(cmesh=...)``.  A CPU tensor runs
 each kernel's plain PyTorch version; a CUDA tensor runs the kernel, built
 from ``csrc/`` at first use.
 """
@@ -35,6 +37,7 @@ from .convolution import (CustomKernel, Gaussian1DKernel, Gaussian2DKernel,
                           Box1DKernel, Box2DKernel, Tophat2DKernel)
 from .pipeline import run_pipeline
 from .interop import cube_from_arrays
+from .parallel import CubeMesh, ShardedCube, use_mesh, default_mesh
 
 __version__ = "0.1.0"
 
@@ -46,5 +49,6 @@ __all__ = ["BaseSpectralCube", "SpectralCube",
            "MaskBase", "InvertedMask", "CompositeMask", "BooleanArrayMask",
            "LazyMask", "LazyComparisonMask", "FunctionMask", "Beam", "Beams",
            "WCS", "Quantity", "Unit", "run_pipeline", "cube_from_arrays",
+           "CubeMesh", "ShardedCube", "use_mesh", "default_mesh",
            "CustomKernel", "Gaussian1DKernel", "Gaussian2DKernel",
            "Box1DKernel", "Box2DKernel", "Tophat2DKernel"]

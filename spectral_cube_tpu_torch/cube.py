@@ -52,7 +52,8 @@ import torch
 from . import units as u
 from .units import Quantity, Unit, UnitConversionError
 from .masks import (BooleanArrayMask, LazyComparisonMask, CompositeMask,
-                    LazyMask, MaskBase, is_data_local, index_view,
+                    LazyMask, MaskBase, is_data_local,
+                    is_finiteness_mask, index_view,
                     view_shape, is_broadcastable_and_smaller,
                     _is_index as _is_int)
 from .beams import Beam, Beams, BeamError, NoBeamError
@@ -571,16 +572,16 @@ class BaseSpectralCube:
         :class:`VaryingResolutionSpectralCube`.  A Stokes file gives its I
         component with a :class:`StokesWarning` (reference
         io/core.py:175-192); a file without one raises ``ValueError``.
-        ``use_dask=True`` gives a sharded cube in the JAX package and
-        raises here: the port has no mesh yet."""
-        if use_dask:
-            raise NotImplementedError(
-                "use_dask=True reads into a cube sharded over a device "
-                "mesh, which is not ported to torch yet (ROADMAP.md Queue 1 "
-                "item 12)")
+        ``use_dask=True`` returns the cube sharded over the default mesh
+        (:class:`~.parallel.ShardedCube`, the reference's
+        read-into-``DaskSpectralCube``, dask_spectral_cube.py:1390-1394)."""
         from .io import read_cube
-        return read_cube(filename, format=format, hdu=hdu, device=device,
+        cube = read_cube(filename, format=format, hdu=hdu, device=device,
                          stokes_to_i=True, **kwargs)
+        if use_dask:
+            from .parallel import ShardedCube
+            return ShardedCube(cube)
+        return cube
 
     # ------------------------------------------------------------------
     # masking API (reference spectral_cube.py:1259-1306, :2263-2296)
@@ -1593,6 +1594,36 @@ class BaseSpectralCube:
             return Quantity(out, unit)
         return out
 
+    def rechunk(self, chunks=None, save_to_tmp_dir=False, **kwargs):
+        """Dask-API compat (reference DaskSpectralCube.rechunk,
+        dask_spectral_cube.py:349-384).  An unsharded cube is one block on
+        its device, so there is no chunk layout to change; with
+        ``save_to_tmp_dir=True`` it is written to a temporary store and
+        read back, as in the reference.  ``ShardedCube.rechunk`` moves
+        between mesh layouts."""
+        return self.checkpoint() if save_to_tmp_dir else self
+
+    def use_dask_scheduler(self, scheduler=None, num_workers=None):
+        """API-compat shim (reference dask_spectral_cube.py:278-312): the
+        cube runs on its device; returns a null context."""
+        import contextlib
+        from .utils import NotImplementedWarning
+        warnings.warn("use_dask_scheduler has no effect: the cube runs on "
+                      "its device; pick a device set with use_mesh()",
+                      NotImplementedWarning)
+        return contextlib.nullcontext(self)
+
+    def display_dask_array(self):
+        """Print the data's layout (the dask-graph display analog,
+        reference dask_spectral_cube.py:341): one block on one device."""
+        print(f"shape={self.shape} dtype={self.dtype} device={self.device}")
+
+    def to_sharded(self, cmesh=None):
+        """The cube sharded over ``cmesh`` (default: the default mesh),
+        the ``use_dask=True`` analog."""
+        from .parallel import ShardedCube
+        return ShardedCube(self, cmesh)
+
     def checkpoint(self, tmp_dir=None):
         """The cube's current (masked) state written to a temporary store
         and loaded back on its device; the store lives as long as the
@@ -1791,9 +1822,7 @@ class BaseSpectralCube:
         if smooth_kernel is not None:
             karr = _kernel_array(smooth_kernel)
             filled = self._get_filled_data(fill=np.nan)
-            if include is not None and isinstance(self._mask, LazyMask) \
-                    and self._mask._function in (torch.isfinite,
-                                                 np.isfinite):
+            if include is not None and is_finiteness_mask(self._mask):
                 # the read mask: finiteness tracks the data, so the
                 # inherited mask evaluated on the fused result gives
                 # exactly the chained calls' filled values

@@ -30,7 +30,7 @@ import warnings
 import numpy as np
 
 __all__ = ["read_table_keywords", "read_tiled_data", "read_casa_image_parts",
-           "casa_coords_to_wcs"]
+           "casa_image_info", "casa_coords_to_wcs"]
 
 TP_BOOL, TP_INT, TP_UINT, TP_FLOAT, TP_DOUBLE, TP_STRING, TP_TABLE = \
     0, 5, 6, 7, 8, 11, 12
@@ -504,11 +504,24 @@ def _beam_from_record(rec):
 def read_casa_image_parts(image_dir):
     """Read a CASA image directory -> (data, valid_mask_or_None, wcs,
     unit_string, beam_or_beams, misc_header_dict)."""
-    kw = read_table_keywords(os.path.join(image_dir, "table.dat"))
     data = read_tiled_data(image_dir, 0)
-    wcs = casa_coords_to_wcs(kw["coords"], data.ndim)
-
+    wcs, maskname, unit, beams, misc = casa_image_info(image_dir, data.ndim)
     valid = None
+    if maskname:
+        try:
+            valid = read_tiled_data(os.path.join(image_dir, maskname), 0)
+        except Exception as exc:  # mask is optional; data stands alone
+            warnings.warn(f"could not read CASA mask {maskname}: {exc}")
+    return data, valid, wcs, unit, beams, misc
+
+
+def casa_image_info(image_dir, ndim):
+    """Everything of a CASA image directory but its pixels: ``(wcs,
+    mask_name_or_None, unit_string, beam_or_beams, misc_header_dict)``,
+    ``ndim`` the image's dimensionality."""
+    kw = read_table_keywords(os.path.join(image_dir, "table.dat"))
+    wcs = casa_coords_to_wcs(kw["coords"], ndim)
+
     maskname = None
     # the default mask is recorded in Image_defaultmask or as mask0; any
     # appended mask directory (make_casa_mask append_to_image) also counts
@@ -531,11 +544,6 @@ def read_casa_image_parts(image_dir):
                     _is_paged_bool(entry):
                 maskname = entry
                 break
-    if maskname:
-        try:
-            valid = read_tiled_data(os.path.join(image_dir, maskname), 0)
-        except Exception as exc:  # mask is optional; data stands alone
-            warnings.warn(f"could not read CASA mask {maskname}: {exc}")
 
     unit = kw.get("units", "")
     info = kw.get("imageinfo", {})
@@ -566,4 +574,4 @@ def read_casa_image_parts(image_dir):
             misc[k.upper()[:8]] = v
     if "objectname" in info:
         misc["OBJECT"] = info["objectname"]
-    return data, valid, wcs, unit, beams, misc
+    return wcs, maskname, unit, beams, misc

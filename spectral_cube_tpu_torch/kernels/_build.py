@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import fcntl
+import functools
 import hashlib
 import os
 import subprocess
@@ -21,7 +22,8 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["load_library", "check", "stream_ptr", "ptr", "last_build"]
+__all__ = ["load_library", "check", "stream_ptr", "ptr", "last_build",
+           "on_tensor_device"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -177,3 +179,21 @@ def stream_ptr(device):
 def ptr(t):
     return ctypes.c_void_p(t.data_ptr()) if t is not None \
         else ctypes.c_void_p(None)
+
+
+def on_tensor_device(fn):
+    """Decorator of a kernel wrapper whose first argument is the tensor it
+    works on: for a CUDA tensor the call runs with the tensor's device
+    made current, so that the launch and the per-device calls on the C
+    side (``cudaFuncSetAttribute`` before every launch, the occupancy and
+    SM-count queries, ``cudaGetDevice``) address that device, not device
+    0.  A tensor on another device type passes through."""
+    @functools.wraps(fn)
+    def wrapper(x, *args, **kwargs):
+        dev = getattr(x, "device", None)
+        if dev is None or dev.type != "cuda":
+            return fn(x, *args, **kwargs)
+        import torch
+        with torch.cuda.device(dev):
+            return fn(x, *args, **kwargs)
+    return wrapper

@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from . import resample2 as _rs
-from ._build import load_library, check, stream_ptr
+from ._build import load_library, check, stream_ptr, on_tensor_device
 
 __all__ = ["plan_strips", "strip_blocks", "row_bands", "RowBands",
            "banded_matmul", "banded_matmul_plain", "banded_matmul_strips",
@@ -356,6 +356,7 @@ def prepare(flat, bands):
     return got
 
 
+@on_tensor_device
 def launch(flat, prep):
     """The kernel on ``flat`` with the tables from :func:`prepare`."""
     if tuple(flat.shape) != prep.shape or flat.device != prep.words.device:
@@ -395,6 +396,7 @@ def _check(flat, bands):
                          f"{tuple(flat.shape)}")
 
 
+@on_tensor_device
 def banded_matmul(flat, bands):
     """(nout, S) float32 banded product of ``bands`` (:func:`row_bands`)
     with ``flat`` (nin, S).  A CPU tensor takes the plain version; a CUDA

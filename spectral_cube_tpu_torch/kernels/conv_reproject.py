@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..utils import ieee_fp32
-from ._build import load_library, check, ptr, stream_ptr
+from ._build import load_library, check, ptr, stream_ptr, on_tensor_device
 from .conv_sep import DEN_EPS, _apply
 from .resample2 import POISON, lerp2
 
@@ -142,6 +142,7 @@ def _check(raw, gy, gx, my, mx, ry, rx, valid_plane):
         raise ValueError("valid_plane must be (ny_out, nx_out)")
 
 
+@on_tensor_device
 def conv_reproject(raw, gy, gx, my, mx, ry, rx, valid_plane):
     """(nchan, ny_out, nx_out) fused convolve + resample of ``raw``.
 
@@ -164,6 +165,7 @@ def conv_reproject(raw, gy, gx, my, mx, ry, rx, valid_plane):
 conv_reproject.launches = 0
 
 
+@on_tensor_device
 def plain_strips(x, ybands, xbands, group_idx):
     """(nchan, ny_out, nx_out): ``out[c] = sum_i My[g, i] @ X[c] @
     Mx[g, i]^T`` with g = ``group_idx[c]``, no NaN handling (finite input;

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from ._build import load_library, check, ptr, stream_ptr
+from ._build import load_library, check, ptr, stream_ptr, on_tensor_device
 
 __all__ = ["conv_sep", "conv_sep_plain", "DEN_EPS"]
 
@@ -37,6 +37,7 @@ def _check_inputs(data, ytaps, xtaps, hy, hx, group_idx):
         raise ValueError("group_idx must hold one group per channel")
 
 
+@on_tensor_device
 def conv_sep(data, ytaps, xtaps, hy, hx, group_idx):
     """out[c] = sum_i My[g,i] @ X[c] @ Mx[g,i]^T, g = group_idx[c], with
     normalized-convolution NaN handling.  A CPU tensor takes the plain

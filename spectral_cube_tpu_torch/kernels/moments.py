@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..ops.df32 import two_sum, two_prod, df_div
-from ._build import load_library, check, ptr, stream_ptr
+from ._build import load_library, check, ptr, stream_ptr, on_tensor_device
 
 __all__ = ["moments_planes", "moments_planes_plain", "plan", "CHUNK",
            "CMP_OPS"]
@@ -113,6 +113,7 @@ def _check_inputs(data, include):
                          f"shape {tuple(data.shape)}")
 
 
+@on_tensor_device
 def moments_planes(data, xc, cmp_op=0, threshold=0.0, include=None,
                    with_stats=False):
     """Sufficient planes of the masked moments along axis 0.

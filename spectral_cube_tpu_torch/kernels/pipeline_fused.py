@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ._build import on_tensor_device
 from .conv_reproject import _check, _launch, conv_reproject_plain
 from .moments import CMP_OPS, moments_planes_plain
 
@@ -30,6 +31,7 @@ def _check_mask(raw, xc, cmp_op, include):
                          f"shape {tuple(raw.shape)}")
 
 
+@on_tensor_device
 def pipeline_fused(raw, gy, gx, my, mx, ry, rx, valid_plane, xc, cmp_op=0,
                    threshold=0.0, include=None):
     """``(out, planes, count)``: :func:`~.conv_reproject.conv_reproject`'s

@@ -28,7 +28,7 @@ from collections import OrderedDict, namedtuple
 import numpy as np
 import torch
 
-from ._build import load_library, check, stream_ptr
+from ._build import load_library, check, stream_ptr, on_tensor_device
 
 __all__ = ["resample2", "resample2_plain", "resample2_filled",
            "resample2_filled_plain", "lerp2", "POISON", "plan", "pack_taps",
@@ -371,6 +371,7 @@ def prepare(raw, y0, wy, x0, wx, valid_plane, zvalid=None, wz=None,
     return got
 
 
+@on_tensor_device
 def launch(raw, prep, wz=None):
     """The kernel on ``raw`` (the filled entry's ``fz``, with ``wz``) with
     taps from :func:`prepare`."""
@@ -418,6 +419,7 @@ def launch(raw, prep, wz=None):
     return out
 
 
+@on_tensor_device
 def resample2(raw, y0, wy, x0, wx, valid_plane, zvalid=None):
     """(nchan, ny_out, nx_out) resample of ``raw``: out = sum w *
     nan_to_num(Z), NaN where the NaN weight exceeds :data:`POISON`, where
@@ -493,6 +495,7 @@ def _check_filled(fz, wz, wz_any):
         raise ValueError("wz_any must hold one flag per channel")
 
 
+@on_tensor_device
 def resample2_filled(fz, wz, wz_any, y0, wy, x0, wx, valid_plane,
                      zvalid=None):
     """(nchan, ny_out, nx_out) resample of NaN-filled ``fz`` with its

@@ -28,7 +28,7 @@ from collections import namedtuple
 
 import torch
 
-from ._build import load_library, check, ptr, stream_ptr
+from ._build import load_library, check, ptr, stream_ptr, on_tensor_device
 
 __all__ = ["sigma_clip", "sigma_clip_plain", "LANES", "band_sum", "plan"]
 
@@ -98,6 +98,7 @@ def _check_inputs(data, maxiters):
         raise ValueError(f"maxiters must be >= 0, got {maxiters}")
 
 
+@on_tensor_device
 def sigma_clip(data, sigma, maxiters, use_mean_center):
     """Clipped copy of ``data`` (nchan, ...), spectral axis first: samples
     outside the final clip band, and non-finite samples, become NaN.

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from ..utils import ieee_fp32
-from ._build import load_library, check, ptr, stream_ptr
+from ._build import load_library, check, ptr, stream_ptr, on_tensor_device
 from .conv_sep import DEN_EPS
 
 __all__ = ["smooth_interp", "smooth_interp_plain", "band_rows", "plan"]
@@ -97,6 +97,7 @@ def _check_ops(data, M, S, I):
                          f"{S.shape}, {I.shape}")
 
 
+@on_tensor_device
 def smooth_interp(data, M, S, I, bands=None):
     """(nout, ...) smooth + interpolation of ``data`` (nin, ...) along axis
     0 with the host float32 operators ``M = I @ S``, ``S`` and ``I``.  A

@@ -25,7 +25,8 @@ import torch
 
 __all__ = ["MaskBase", "InvertedMask", "CompositeMask", "BooleanArrayMask",
            "LazyMask", "LazyComparisonMask", "FunctionMask", "is_data_local",
-           "expr_key", "fused_predicate", "is_broadcastable_and_smaller",
+           "expr_key", "fused_predicate", "is_finiteness_mask",
+           "is_broadcastable_and_smaller",
            "dims_to_skip", "view_of_subset", "view_shape", "index_view",
            "trivial_view"]
 
@@ -86,6 +87,13 @@ def expr_key(mask):
 _FUSED_CMP = {torch.gt: 1, torch.greater: 1, torch.ge: 2,
               torch.greater_equal: 2, torch.lt: 3, torch.less: 3,
               torch.le: 4, torch.less_equal: 4}
+
+
+def is_finiteness_mask(mask):
+    """True for the mask a read gives, ``LazyMask(isfinite)``: it includes
+    exactly the finite values of whatever data it is evaluated on."""
+    return isinstance(mask, LazyMask) \
+        and mask._function in (torch.isfinite, np.isfinite)
 
 
 def fused_predicate(mask):

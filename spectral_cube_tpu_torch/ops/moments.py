@@ -24,7 +24,7 @@ from ..kernels.moments import moments_planes
 from .df32 import df_sub, df_mul, df_div, df_collapse
 
 __all__ = ["moments_012", "moments_012_kernel", "statistics_kernel",
-           "moment_generic", "SIGMA2FWHM"]
+           "statistics_planes", "moment_generic", "SIGMA2FWHM"]
 
 SIGMA2FWHM = 2.0 * math.sqrt(2.0 * math.log(2.0))
 NAN = float("nan")
@@ -130,7 +130,6 @@ def _finalize_pairs(planes, xbar, dx, with_stats):
         s0h, s0l, s1h, s1l, s2h, s2l, qh, ql, cntf, mn, mx = planes
     else:
         s0h, s0l, s1h, s1l, s2h, s2l, cntf = planes
-    zero = torch.zeros_like(s0h)
     s0c = s0h + s0l
     deg = s0c == 0
     S0 = (torch.where(deg, 1.0, s0h), torch.where(deg, 0.0, s0l))
@@ -150,12 +149,28 @@ def _finalize_pairs(planes, xbar, dx, with_stats):
     mom2 = torch.where(cntf == 1, 0.0, mom2)
     if not with_stats:
         return mom0, mom1, mom2
+    stats = _recombine_statistics(s0c, cntf.to(torch.int32), mn, mx,
+                                  _d2_plane(s0h, s0l, qh, ql, cntf))
+    return mom0, mom1, mom2, stats
+
+
+def _d2_plane(s0h, s0l, qh, ql, cntf):
+    """Per-spaxel sum of squared deviations from the spaxel's mean,
+    d2 = Q - S0^2/n in pair space, 0 where nothing is included."""
     ns = torch.clamp(cntf, min=1.0)
     d2 = df_collapse(df_sub((qh, ql), df_div(df_mul((s0h, s0l), (s0h, s0l)),
-                                             (ns, zero))))
-    d2 = torch.where(some, torch.clamp(d2, min=0.0), 0.0)
-    stats = _recombine_statistics(s0c, cntf.to(torch.int32), mn, mx, d2)
-    return mom0, mom1, mom2, stats
+                                             (ns, torch.zeros_like(s0h)))))
+    return torch.where(cntf > 0, torch.clamp(d2, min=0.0), 0.0)
+
+
+def statistics_planes(planes, cnt):
+    """``(s0, cnt, min, max, d2)``, the per-spaxel planes of kernel 1's
+    ``with_stats`` output ``(planes, cnt)`` that :func:`_recombine_statistics`
+    reduces: the included sum, count, extremes and squared deviations
+    (the sharded statistics reduce them over a mesh)."""
+    cntf = cnt.to(torch.float32)
+    return (planes[0] + planes[1], cnt, planes[8], planes[9],
+            _d2_plane(planes[0], planes[1], planes[6], planes[7], cntf))
 
 
 def _recombine_statistics(s0, cnt, mn_p, mx_p, d2_p):

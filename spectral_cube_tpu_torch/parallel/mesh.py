@@ -1,0 +1,531 @@
+"""Device mesh and sharded arrays: the port of
+``spectral_cube_tpu/parallel/mesh.py``.
+
+The JAX package runs one controller over a 2-D ('y', 'x') mesh of the
+local devices; ``shard_map`` programs move data between them with
+``ppermute`` and ``all_to_all``, and results come back as global arrays.
+The port keeps that model inside one process: a :class:`CubeMesh` is a
+grid of torch devices (one device may appear more than once, the
+counterpart of XLA's ``--xla_force_host_platform_device_count``), and a
+:class:`ShardedArray` is one tensor per mesh position, each on its device,
+with the global shape, the layout and each shard's index into the global
+array.  Collectives are explicit ``copy_`` calls between shards, never an
+assembly of the global tensor.
+
+The two canonical cube layouts (the reference's chunk policy,
+dask_spectral_cube.py:551, :618):
+
+- ``spatial`` -- [spec, y/my, x/mx]: the spectral axis local, space split
+  over the mesh.  Moments, the spectral path and per-spaxel work need no
+  communication in it.
+- ``spectral`` -- [spec/(my*mx), y, x]: channel blocks over every device,
+  y-major (``P(('y','x'), None, None)``), whole planes local.  FFT beam
+  convolution and the gather reprojection run per channel in it.
+
+``reshard`` moves between them with two explicit all-to-alls; halos for
+small stencils are exchanged by ``parallel.sharded.halo_pad``.  The mesh
+counts its halo exchanges, all-to-alls and gathers of a cube onto one
+device (``CubeMesh.counters``), where the JAX tests read the compiled
+program's collectives.
+"""
+
+from __future__ import annotations
+
+import math
+import warnings
+from collections import namedtuple
+
+import numpy as np
+import torch
+
+__all__ = ["CubeMesh", "make_mesh", "use_mesh", "default_mesh", "Mesh",
+           "Sharding", "ShardedArray", "Shard"]
+
+_DEFAULT_MESH = None
+
+LAYOUT_SPECS = {"spatial": (None, "y", "x"),
+                "spectral": (("y", "x"), None, None),
+                "plane": ("y", "x"),
+                "replicated": ()}
+
+
+def default_mesh() -> "CubeMesh":
+    """The process-wide default CubeMesh (every CUDA device once unless
+    overridden by :func:`use_mesh`)."""
+    global _DEFAULT_MESH
+    if _DEFAULT_MESH is None:
+        _DEFAULT_MESH = CubeMesh()
+    return _DEFAULT_MESH
+
+
+class use_mesh:
+    """Set the default mesh, as a call or a context manager (the analog of
+    the reference's ``use_dask_scheduler``, dask_spectral_cube.py:278-312).
+
+    >>> use_mesh(CubeMesh(shape=(2, 2)))            # set globally
+    >>> with use_mesh(CubeMesh(devices=devs)):      # or scoped
+    ...     cube.to_sharded().moment_maps()
+    """
+
+    def __init__(self, cmesh):
+        global _DEFAULT_MESH
+        self._previous = _DEFAULT_MESH
+        _DEFAULT_MESH = cmesh
+
+    def __enter__(self):
+        return _DEFAULT_MESH
+
+    def __exit__(self, *exc):
+        global _DEFAULT_MESH
+        _DEFAULT_MESH = self._previous
+        return False
+
+
+def _factor2(n):
+    """Split n into the most-square (a, b) with a*b == n."""
+    best = (1, n)
+    for a in range(1, int(math.isqrt(n)) + 1):
+        if n % a == 0:
+            best = (a, n // a)
+    return best
+
+
+def _as_device(d):
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+class Mesh:
+    """A 2-D grid of torch devices with axis names (``jax.sharding.Mesh``'s
+    counterpart): ``devices`` is an object array of shape (ny, nx)."""
+
+    def __init__(self, devices, axis_names):
+        self.devices = devices
+        self.axis_names = tuple(axis_names)
+
+    @property
+    def shape(self):
+        return dict(zip(self.axis_names, self.devices.shape))
+
+
+def make_mesh(devices=None, shape=None, axis_names=("y", "x")) -> Mesh:
+    """A :class:`Mesh` over ``devices`` (default: every CUDA device once;
+    raises where there is none) in the most-square ``shape``."""
+    if devices is None:
+        if not torch.cuda.is_available() or torch.cuda.device_count() == 0:
+            raise RuntimeError(
+                "the default mesh spans the CUDA devices and CUDA is not "
+                "available here: pass devices=, e.g. ['cpu'] * 8")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = [_as_device(d) for d in devices]
+    n = len(devices)
+    if n == 0:
+        raise ValueError("a mesh needs at least one device")
+    if shape is None:
+        shape = _factor2(n)
+    ny, nx = shape
+    if ny * nx != n:
+        raise ValueError(f"mesh shape {shape} does not match {n} devices")
+    grid = np.empty(n, dtype=object)
+    grid[:] = devices
+    return Mesh(grid.reshape(ny, nx), axis_names)
+
+
+class Sharding:
+    """A layout of a global array over a :class:`CubeMesh`: ``spec`` has
+    one entry per leading dimension, None (whole on every device), 'y',
+    'x' or ('y', 'x') (split over those mesh axes, y-major), as a
+    ``PartitionSpec``; trailing dimensions are whole."""
+
+    def __init__(self, cmesh, spec):
+        self.cmesh = cmesh
+        self.spec = tuple(spec)
+
+    def indices(self, shape):
+        """Each mesh position's index into an array of ``shape``: a list
+        in position order (row-major over the mesh) of tuples of
+        slices."""
+        my, mx = self.cmesh.grid
+        spec = self.spec + (None,) * (len(shape) - len(self.spec))
+        out = []
+        for iy in range(my):
+            for ix in range(mx):
+                coord = {"y": (iy, my), "x": (ix, mx)}
+                idx = []
+                for dim, entry in zip(shape, spec):
+                    if entry is None:
+                        idx.append(slice(0, dim))
+                        continue
+                    names = entry if isinstance(entry, tuple) else (entry,)
+                    k, size = 0, 1
+                    for name in names:
+                        c, m = coord[name]
+                        k, size = k * m + c, size * m
+                    block = dim // size
+                    idx.append(slice(k * block, (k + 1) * block))
+                out.append(tuple(idx))
+        return out
+
+    def __repr__(self):
+        return f"Sharding(spec={self.spec}, grid={self.cmesh.grid})"
+
+
+#: one shard of a :class:`ShardedArray` (``addressable_shards``' entries):
+#: its mesh position (iy, ix), device, index into the global array, data
+Shard = namedtuple("Shard", "position device index data")
+
+
+def _extent(index):
+    return tuple(s.stop - s.start for s in index)
+
+
+class ShardedArray:
+    """A global array held as one tensor per mesh position.
+
+    ``blocks[p]`` is the part ``index[p]`` (a tuple of slices with unit
+    step) of the global array of ``shape``, on the device of mesh
+    position ``p`` (row-major).  Positions whose indices overlap hold
+    copies (a replicated axis); the blocks of a layout with a ragged last
+    tile are smaller there."""
+
+    def __init__(self, cmesh, layout, shape, blocks, index):
+        self.cmesh = cmesh
+        self.layout = layout
+        self.shape = tuple(int(n) for n in shape)
+        self.blocks = list(blocks)
+        self.index = [tuple(slice(int(s.start), int(s.stop)) for s in ix)
+                      for ix in index]
+        if len(self.blocks) != cmesh.n_devices \
+                or len(self.index) != cmesh.n_devices:
+            raise ValueError("one block and one index per mesh position")
+        for b, ix in zip(self.blocks, self.index):
+            if tuple(b.shape) != _extent(ix):
+                raise ValueError(f"block {tuple(b.shape)} does not match "
+                                 f"its index {ix}")
+
+    @property
+    def dtype(self):
+        return self.blocks[0].dtype
+
+    @property
+    def ndim(self):
+        return len(self.shape)
+
+    @property
+    def addressable_shards(self):
+        devs = self.cmesh.devices
+        my, mx = self.cmesh.grid
+        return [Shard((p // mx, p % mx), devs[p], ix, b)
+                for p, (b, ix) in enumerate(zip(self.blocks, self.index))]
+
+    def map(self, fn, *others):
+        """``fn`` applied block by block (with the blocks of ``others``,
+        ShardedArrays of the same placement, or None), keeping the
+        placement; ``fn`` must keep each block's shape."""
+        blocks = [fn(b, *[None if o is None else o.blocks[p]
+                          for o in others])
+                  for p, b in enumerate(self.blocks)]
+        return ShardedArray(self.cmesh, self.layout, self.shape, blocks,
+                            self.index)
+
+    def gather(self, device=None):
+        """The global array assembled on ``device`` (default: the mesh's
+        first device).  A 3-D (cube) gather adds one to the mesh's
+        ``gathers`` counter; a 2-D map's assembly, the counterpart of
+        fetching a moment map in the JAX package, does not."""
+        dev = self.cmesh.devices[0] if device is None else _as_device(device)
+        if self.ndim == 3:
+            self.cmesh.counters["gathers"] += 1
+        out = torch.empty(self.shape, dtype=self.dtype, device=dev)
+        seen = set()
+        for b, ix in zip(self.blocks, self.index):
+            key = tuple((s.start, s.stop) for s in ix)
+            if key in seen or 0 in b.shape:
+                continue
+            seen.add(key)
+            out[ix].copy_(b)
+        return out
+
+    def __array__(self, dtype=None, copy=None):
+        arr = self.gather(torch.device("cpu")).numpy()
+        return arr if dtype is None else arr.astype(dtype)
+
+    def __repr__(self):
+        return (f"ShardedArray(shape={self.shape}, dtype={self.dtype}, "
+                f"layout={self.layout!r}, grid={self.cmesh.grid})")
+
+
+class CubeMesh:
+    """A 2-D ('y', 'x') device mesh with the two canonical cube layouts.
+
+    ``devices``: torch devices (or their names), one per mesh position; one
+    device may repeat (several shards on one card).  Default: every CUDA
+    device once; raises where CUDA is absent."""
+
+    def __init__(self, devices=None, shape=None):
+        self.mesh = make_mesh(devices=devices, shape=shape)
+        self.counters = {"halo_exchanges": 0, "all_to_alls": 0,
+                         "gathers": 0}
+
+    def reset_counters(self):
+        for k in self.counters:
+            self.counters[k] = 0
+
+    @property
+    def axis_names(self):
+        return self.mesh.axis_names
+
+    @property
+    def n_devices(self):
+        return self.mesh.devices.size
+
+    @property
+    def grid(self):
+        return self.mesh.devices.shape
+
+    @property
+    def devices(self):
+        """The devices in position order (row-major over the mesh)."""
+        return list(self.mesh.devices.ravel())
+
+    # -- layouts ---------------------------------------------------------
+    def spatial_sharding(self) -> Sharding:
+        """[spec, y, x]: space sharded, spectral axis local."""
+        return Sharding(self, LAYOUT_SPECS["spatial"])
+
+    def spectral_sharding(self) -> Sharding:
+        """[spec, y, x]: channels sharded over all devices, planes local."""
+        return Sharding(self, LAYOUT_SPECS["spectral"])
+
+    def plane_sharding(self) -> Sharding:
+        """[y, x] maps (moment outputs) sharded like the spatial layout."""
+        return Sharding(self, LAYOUT_SPECS["plane"])
+
+    def replicated(self) -> Sharding:
+        return Sharding(self, LAYOUT_SPECS["replicated"])
+
+    def sharding(self, layout: str) -> Sharding:
+        return {"spatial": self.spatial_sharding,
+                "spectral": self.spectral_sharding,
+                "plane": self.plane_sharding,
+                "replicated": self.replicated}[layout]()
+
+    def compatible_sharding(self, layout, shape) -> Sharding:
+        """The layout's sharding with the mesh axes that do not divide
+        ``shape`` dropped (replicated): the placement :meth:`shard` gives,
+        for callers that need the index map itself (the streaming
+        readers)."""
+        return Sharding(self, self._compatible_spec(
+            self.sharding(layout).spec, shape))
+
+    def _compatible_spec(self, spec, shape):
+        from ..utils import PossiblySlowWarning
+        if len(shape) < len(spec):
+            # zip truncation would pair dim 0 with the spec's leading
+            # entry and shard the wrong dims: demand the right layout
+            raise ValueError(
+                f"array rank {len(shape)} is smaller than the layout "
+                f"spec {spec}; use the 'plane' layout for 2-D maps")
+        sizes = dict(zip(self.axis_names, self.grid))
+        out, dropped = [], []
+        for dim, entry in zip(shape, spec):
+            if entry is None:
+                out.append(None)
+                continue
+            names = entry if isinstance(entry, tuple) else (entry,)
+            if dim % math.prod(sizes[n] for n in names) == 0:
+                out.append(entry)
+            else:
+                out.append(None)
+                dropped.append((dim, entry))
+        if dropped:
+            warnings.warn(
+                f"array dims {dropped} do not divide the mesh; those axes "
+                "are REPLICATED on every device (n_devices x the memory). "
+                "Pad the cube to mesh-aligned tiles for true sharding "
+                "(sharded ops pad internally and stay correct either "
+                "way).", PossiblySlowWarning)
+        return tuple(out)
+
+    # -- placement ---------------------------------------------------------
+    def shard(self, array, layout="spatial"):
+        """Place ``array`` (a numpy array, a tensor on any device, or a
+        ShardedArray) in ``layout``.  A dimension that the mesh axes do
+        not divide is replicated along them (with a
+        PossiblySlowWarning), as the JAX package's ``device_put`` falls
+        back; the sharded ops pad to aligned tiles internally.  A numpy
+        float64 array becomes float32, as the cube entry points store it.
+        A ShardedArray already in ``layout`` is returned as it is; one in
+        the other cube layout moves by :meth:`reshard`."""
+        if isinstance(array, ShardedArray):
+            if array.layout == layout:
+                return array
+            return self.reshard(array, layout)
+        if isinstance(array, torch.Tensor):
+            src = array
+        else:
+            arr = np.asarray(array)
+            if arr.dtype == np.float64:
+                arr = arr.astype(np.float32)
+            src = torch.from_numpy(np.ascontiguousarray(arr))
+        shape = tuple(src.shape)
+        index = self.compatible_sharding(layout, shape).indices(shape)
+        blocks = []
+        for dev, ix in zip(self.devices, index):
+            blk = torch.empty(_extent(ix), dtype=src.dtype, device=dev)
+            blk.copy_(src[ix])
+            blocks.append(blk)
+        return ShardedArray(self, layout, shape, blocks, index)
+
+    def reshard(self, array, layout, source=None):
+        """Change an array's layout (the dask ``rechunk`` analog).
+
+        Between the spatial and spectral layouts this is two explicit
+        all-to-alls (y first, so that channel blocks land y-major), each
+        a set of ``copy_`` calls between shards: every position sends
+        each other position of its mesh row or column exactly its part.
+        Any other move gathers the array and shards it again (counted as
+        a gather).  ``source`` names the input's layout, as in the JAX
+        package; a ShardedArray knows its own."""
+        if not isinstance(array, ShardedArray):
+            array = self.shard(array, source or "spatial")
+        src = source or array.layout
+        if src == layout:
+            return array
+        if src == "spatial" and layout == "spectral":
+            return self._a2a_spatial_to_spectral(array)
+        if src == "spectral" and layout == "spatial":
+            return self._a2a_spectral_to_spatial(array)
+        return self.shard(array.gather(), layout)
+
+    # -- the all-to-alls on aligned tiles --------------------------------
+    def _tile(self, array, layout, pad_value, chan_multiple=1):
+        """Each position's block of ``array`` in ``layout``, padded with
+        ``pad_value`` to the aligned tile: channels to a multiple of
+        ``chan_multiple`` (spatial) or of the device count (spectral), y
+        and x to multiples of the mesh axes.  Every block is cut from the
+        position's own shard; a shard that does not hold its tile (the
+        array is in another layout) is an error."""
+        my, mx = self.grid
+        n = self.n_devices
+        nchan, ny, nx = array.shape
+        ny_p, nx_p = ny + (-ny) % my, nx + (-nx) % mx
+        if layout == "spatial":
+            nc_p = nchan + (-nchan) % chan_multiple
+            py, px = ny_p // my, nx_p // mx
+            want = [((0, nc_p), ((p // mx) * py, (p // mx + 1) * py),
+                     ((p % mx) * px, (p % mx + 1) * px)) for p in range(n)]
+        else:
+            nc_p = nchan + (-nchan) % n
+            cb = nc_p // n
+            want = [((p * cb, (p + 1) * cb), (0, ny_p), (0, nx_p))
+                    for p in range(n)]
+        tiles = []
+        for p, (b, ix) in enumerate(zip(array.blocks, array.index)):
+            dev = self.devices[p]
+            lo = [w[0] for w in want[p]]
+            hi = [min(w[1], n_) for w, n_ in zip(want[p], array.shape)]
+            if any(h > l_ and (l_ < s.start or h > s.stop)
+                   for l_, h, s in zip(lo, hi, ix)):
+                raise ValueError(f"shard {p} does not hold its {layout} "
+                                 "tile")
+            full = tuple(w[1] - w[0] for w in want[p])
+            part = b[tuple(slice(max(l_ - s.start, 0),
+                                 max(h - s.start, 0))
+                           for l_, h, s in zip(lo, hi, ix))]
+            if tuple(part.shape) == full:
+                tiles.append(part.to(dev).contiguous())
+                continue
+            t = torch.full(full, pad_value, dtype=b.dtype, device=dev)
+            t[tuple(slice(0, k) for k in part.shape)].copy_(part)
+            tiles.append(t)
+        return tiles
+
+    def _a2a(self, tiles, split, concat, axis):
+        """One tiled all-to-all over mesh axis ``axis`` ('y' or 'x'):
+        each position splits its tile along dim ``split`` into as many
+        parts as the axis has positions and sends part j to position j of
+        its row or column, which concatenates what it receives along dim
+        ``concat`` in source order."""
+        my, mx = self.grid
+        m = my if axis == "y" else mx
+        out = []
+        for p, t in enumerate(tiles):
+            iy, ix = divmod(p, mx)
+            me = iy if axis == "y" else ix
+            part = t.shape[split] // m
+            shape = list(t.shape)
+            shape[split] = part
+            shape[concat] = t.shape[concat] * m
+            dst = torch.empty(shape, dtype=t.dtype, device=t.device)
+            for j in range(m):
+                q = j * mx + ix if axis == "y" else iy * mx + j
+                src = tiles[q].narrow(split, me * part, part)
+                dst.narrow(concat, j * t.shape[concat],
+                           t.shape[concat]).copy_(src)
+            out.append(dst)
+        self.counters["all_to_alls"] += 1
+        return out
+
+    def _spectral_tiles(self, tiles):
+        """Aligned spatial tiles (C_p, py, px) -> aligned spectral blocks
+        (C_p/n, ny_p, nx_p): the 'y' all-to-all, then the 'x' one."""
+        return self._a2a(self._a2a(tiles, 0, 1, "y"), 0, 2, "x")
+
+    def _spatial_tiles(self, blocks):
+        """The inverse: 'x' undone first, then 'y'."""
+        return self._a2a(self._a2a(blocks, 2, 0, "x"), 1, 0, "y")
+
+    def _a2a_spatial_to_spectral(self, array):
+        """[spec local, y/my, x/mx] -> [spec/(my*mx), y, x] through two
+        all-to-alls, padded to aligned tiles and cut back after."""
+        blocks = self._spectral_tiles(
+            self._tile(array, "spatial", 0, self.n_devices))
+        return self._from_spectral(blocks, array.shape)
+
+    def _a2a_spectral_to_spatial(self, array):
+        """[spec/(my*mx), y, x] -> [spec local, y/my, x/mx]."""
+        tiles = self._spatial_tiles(self._tile(array, "spectral", 0))
+        return self._from_spatial(tiles, array.shape)
+
+    def _from_spectral(self, blocks, shape):
+        """A spectral-layout ShardedArray of ``shape`` from aligned blocks
+        (C_p/n, >= ny, >= nx): each cut to its channels and the plane."""
+        nchan, ny, nx = shape
+        cb = blocks[0].shape[0]
+        index, out = [], []
+        for p, b in enumerate(blocks):
+            c0, c1 = min(p * cb, nchan), min((p + 1) * cb, nchan)
+            index.append((slice(c0, c1), slice(0, ny), slice(0, nx)))
+            out.append(b[:c1 - c0, :ny, :nx])
+        return ShardedArray(self, "spectral", shape, out, index)
+
+    def _from_spatial(self, tiles, shape):
+        """A spatial-layout ShardedArray of ``shape`` from aligned tiles
+        (>= nchan, py, px): each cut to the channels and to its part of
+        the plane (the last tile of an unaligned axis is ragged)."""
+        return ShardedArray(self, "spatial", shape,
+                            *self._cut_tiles(tiles, shape))
+
+    def _cut_tiles(self, tiles, shape):
+        """(blocks, index) of aligned (..., py, px) tiles cut to ``shape``
+        (trailing two dims spatial)."""
+        my, mx = self.grid
+        lead, (ny, nx) = tuple(shape[:-2]), tuple(shape[-2:])
+        py, px = tiles[0].shape[-2:]
+        blocks, index = [], []
+        for p, t in enumerate(tiles):
+            iy, ix = divmod(p, mx)
+            y0, y1 = min(iy * py, ny), min((iy + 1) * py, ny)
+            x0, x1 = min(ix * px, nx), min((ix + 1) * px, nx)
+            cut = tuple(slice(0, n_) for n_ in lead)
+            blocks.append(t[cut + (slice(0, y1 - y0), slice(0, x1 - x0))])
+            index.append(tuple(slice(0, n_) for n_ in lead)
+                         + (slice(y0, y1), slice(x0, x1)))
+        return blocks, index
+
+    def __repr__(self):
+        return f"CubeMesh(grid={self.grid}, devices={self.n_devices})"

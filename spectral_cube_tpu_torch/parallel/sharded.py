@@ -1,0 +1,1275 @@
+"""Sharded cube execution over a CubeMesh: the port of
+``spectral_cube_tpu/parallel/sharded.py``.
+
+The JAX package runs each operation as a ``shard_map`` program: every
+device works on its own shard with the single-device kernels, ``psum``
+trees reduce, ``ppermute`` exchanges halos and ``all_to_all`` reshards.
+Here every mesh position runs the port's own single-device function on
+its shard -- on a CUDA shard that is the kernel (moments #1/#2,
+conv_sep #3/#4, resample2 #5/#6, smooth_interp #11/#12, sigma_clip #13),
+launched once per shard on the shard's device -- and the collectives are
+the explicit copies of :mod:`.mesh` and :func:`halo_pad`.  Reductions over
+the mesh move scalars or one value per channel, never a cube.
+
+Per shard the functions compute what the unsharded port computes on the
+whole cube: the halo convolutions run conv_sep (or, past rank 8, the
+unsharded path's IEEE-float32 ``conv2d``) on the halo-padded block, and
+the halo reprojection runs resample2 on it, with each tile's taps moved
+into the block.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+import warnings
+from collections import namedtuple
+
+import numpy as np
+import torch
+
+from .mesh import CubeMesh, ShardedArray, default_mesh
+from ..masks import (is_data_local, is_finiteness_mask, LazyMask,
+                     LazyComparisonMask, CompositeMask, BooleanArrayMask)
+from ..kernels.moments import moments_planes_plain
+from ..ops import moments as _mom
+from ..ops import reductions as _red
+
+__all__ = ["sharded_moments", "sharded_statistics", "sharded_mad_std",
+           "halo_pad", "sharded_convolve_per_channel_separable",
+           "sharded_spatial_convolve", "sharded_spectral_convolve_fft",
+           "sharded_sigma_clip", "sharded_spectral_interpolate",
+           "sharded_smooth_interpolate", "sharded_reproject",
+           "ShardedCube"]
+
+NAN = float("nan")
+
+
+# ---------------------------------------------------------------------------
+# placement helpers
+# ---------------------------------------------------------------------------
+def _sharded(data, cmesh):
+    """``data`` as a ShardedArray of ``cmesh`` from which each position
+    cuts its spatial tile: a ShardedArray in the spatial (or replicated)
+    layout as it is, one in the spectral layout resharded, a ShardedArray
+    of another mesh gathered and placed again, and a host or device array
+    wrapped whole without a copy (each position cuts its tile from it)."""
+    if isinstance(data, ShardedArray):
+        if data.cmesh is not cmesh:
+            data = cmesh.shard(data.gather(), "spatial")
+        if data.layout == "spectral":
+            data = cmesh.reshard(data, "spatial")
+        return data
+    if isinstance(data, torch.Tensor):
+        t = data
+    else:
+        arr = np.asarray(data)
+        if arr.dtype == np.float64:
+            arr = arr.astype(np.float32)
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+    full = tuple(slice(0, n) for n in t.shape)
+    n = cmesh.n_devices
+    return ShardedArray(cmesh, "replicated", t.shape, [t] * n, [full] * n)
+
+
+def _shape_of(data):
+    return tuple(int(n) for n in (data.shape if hasattr(data, "shape")
+                                  else np.shape(data)))
+
+
+def _pad_spatial(data, cmesh, pad_value, include=None, chan_multiple=1):
+    """Each mesh position's aligned spatial tile (nchan, py, px) of
+    ``data``, py = ceil(ny / my) and px = ceil(nx / mx), the part past the
+    cube filled with ``pad_value``: NaN = invalid (reductions, clipping,
+    interpolation: padded voxels never contribute), 0 = the
+    ``boundary='fill'`` valid zero (convolution).  ``include`` is cut the
+    same way, padded False.  The channel count pads to a multiple of
+    ``chan_multiple`` (the spectral layout's).  Every tile is cut from the
+    position's own shard.  Returns ``(tiles, include_tiles, shape)``,
+    ``shape`` the cube's."""
+    src = _sharded(data, cmesh)
+    tiles = cmesh._tile(src, "spatial", pad_value, chan_multiple)
+    inc = None if include is None else cmesh._tile(
+        _sharded(include, cmesh), "spatial", False, chan_multiple)
+    return tiles, inc, src.shape
+
+
+def _pad_chan(tiles, cmesh, pad_value):
+    """Pad the channels of each tile up to a multiple of the device count,
+    so that the spectral layout divides.  Returns ``(tiles, nchan)``."""
+    n = cmesh.n_devices
+    nchan = tiles[0].shape[0]
+    pc = (-nchan) % n
+    if pc == 0:
+        return tiles, nchan
+    out = []
+    for t in tiles:
+        p = torch.full((nchan + pc,) + tuple(t.shape[1:]), pad_value,
+                       dtype=t.dtype, device=t.device)
+        p[:nchan].copy_(t)
+        out.append(p)
+    return out, nchan
+
+
+def _tile_extent(cmesh, p, shape, tile):
+    """(rows, cols) of position ``p``'s aligned tile inside a plane of
+    ``shape`` (ny, nx)."""
+    my, mx = cmesh.grid
+    iy, ix = divmod(p, mx)
+    return (max(0, min(tile[0], shape[0] - iy * tile[0])),
+            max(0, min(tile[1], shape[1] - ix * tile[1])))
+
+
+def _planes(cmesh, planes, shape):
+    """A plane-layout ShardedArray of ``shape`` (ny, nx) from aligned
+    per-position planes."""
+    return ShardedArray(cmesh, "plane", shape, *cmesh._cut_tiles(planes,
+                                                                 shape))
+
+
+def _to_first(cmesh, parts):
+    """Per-position tensors stacked on the mesh's first device (the
+    reduction tree's one step: a value per shard, never a cube)."""
+    dev = cmesh.devices[0]
+    return torch.stack([t.to(dev) for t in parts])
+
+
+def _match(arr, like):
+    """``arr`` with the placement of ``like`` (same shape): each block cut
+    from the position's own block, resharded first between the cube
+    layouts."""
+    if arr.index == like.index:
+        return arr
+    if arr.layout != like.layout and {arr.layout, like.layout} == {
+            "spatial", "spectral"}:
+        arr = arr.cmesh.reshard(arr, like.layout)
+    blocks = []
+    for p, (b, ix) in enumerate(zip(arr.blocks, arr.index)):
+        want = like.index[p]
+        if any(w.stop > w.start and (w.start < s.start or w.stop > s.stop)
+               for w, s in zip(want, ix)):
+            raise ValueError(f"shard {p} does not hold the part asked for")
+        blocks.append(b[tuple(slice(w.start - s.start, w.stop - s.start)
+                              if w.stop > w.start else slice(0, 0)
+                              for w, s in zip(want, ix))])
+    return ShardedArray(arr.cmesh, like.layout, like.shape, blocks,
+                        like.index)
+
+
+def _include_tile(inc, mask_expr, d):
+    """The include of the tile ``d``: its stored part ``inc``, the
+    data-local expression evaluated on ``d``, both, or None."""
+    if mask_expr is not None:
+        extra = mask_expr.include(data=d)
+        inc = extra if inc is None else torch.logical_and(inc, extra)
+    return inc
+
+
+# ---------------------------------------------------------------------------
+# moments: spatial layout, zero communication
+# ---------------------------------------------------------------------------
+def _local_moments(d, coords, dx, mask_expr, inc):
+    if d.dtype == torch.float32:
+        return _mom.moments_012_kernel(d, coords, dx, mask_expr=mask_expr,
+                                       include=inc)
+    return _mom.moments_012(d, coords, dx,
+                            include=_include_tile(inc, mask_expr, d))
+
+
+def sharded_moments(data, coords, dx, cmesh: CubeMesh, include=None,
+                    mask_expr=None):
+    """Masked moments 0/1/2 of a spatially sharded cube.
+
+    Each position reduces its own (nchan, py, px) tile along the local
+    spectral axis, with no communication: float32 tiles through the
+    moments kernel (its plain version on the CPU) with ``mask_expr``
+    fused where it can be and ``include`` as its bool mask, as the
+    unsharded cube runs them.  Returns three plane-layout
+    ShardedArrays."""
+    tiles, inc, shape = _pad_spatial(data, cmesh, NAN, include)
+    outs = [_local_moments(d, coords, dx, mask_expr,
+                           None if inc is None else inc[p])
+            for p, d in enumerate(tiles)]
+    return tuple(_planes(cmesh, [o[i] for o in outs], shape[1:])
+                 for i in range(3))
+
+
+# ---------------------------------------------------------------------------
+# global statistics and mad_std: reductions over the mesh
+# ---------------------------------------------------------------------------
+def _statistics_planes(d, inc, mask_expr):
+    """Per-spaxel (s0, cnt, min, max, d2) of one tile, from the moments
+    kernel's with_stats planes: the kernel for float32 (its plain version
+    on the CPU); for another type its plain version, in float32 as the
+    kernel computes, with the mask evaluated on the data in its own
+    type."""
+    xc = np.zeros(d.shape[0])
+    if d.dtype == torch.float32:
+        op, thr, inc = _mom._kernel_inputs(d, mask_expr, inc)
+        planes, cnt = _mom.moments_planes(d, xc, op, thr, inc, True)
+    else:
+        inc = _include_tile(inc, mask_expr, d)
+        if inc is not None:
+            inc = inc.to(d.device).expand(d.shape)
+        planes, cnt = moments_planes_plain(d, xc, include=inc,
+                                           with_stats=True)
+    return _mom.statistics_planes(planes, cnt)
+
+
+#: one shard's per-spaxel statistics planes (float32; ``cnt`` int32, ``n``
+#: its float32 copy, ``m`` the spaxel's mean)
+_Planes = namedtuple("_Planes", "s0 cnt n m mn mx d2")
+
+
+def sharded_statistics(data, cmesh: CubeMesh, include=None, mask_expr=None):
+    """CASA-style global statistics of a spatially sharded cube: each
+    position's per-spaxel sufficient planes (the moments kernel's
+    with_stats form), then a tree over the mesh of the per-shard sums,
+    counts and extremes, then the mean-centred second pass for sigma
+    (``ops/moments._recombine_statistics`` over the mesh; the reference's
+    per-chunk accumulation, dask_spectral_cube.py:769-814).  Returns a
+    dict of Python numbers; a cube with nothing included gives npts 0 and
+    NaN elsewhere."""
+    tiles, inc, _ = _pad_spatial(data, cmesh, NAN, include)
+    f32 = torch.float32
+    parts = []
+    for p, d in enumerate(tiles):
+        s0, cnt, mn, mx, d2 = _statistics_planes(
+            d, None if inc is None else inc[p], mask_expr)
+        n = cnt.to(f32)
+        parts.append(_Planes(s0.to(f32), cnt, n, s0.to(f32) / torch.clamp(
+            n, min=1), mn.to(f32), mx.to(f32), d2.to(f32)))
+
+    def tree(fn, reduce=torch.sum):
+        """``fn`` of each shard's planes, reduced over the mesh."""
+        return reduce(_to_first(cmesh, [fn(q) for q in parts]))
+
+    npts_i = int(tree(lambda q: q.cnt.sum()))
+    if npts_i == 0:
+        return {"npts": 0, "min": NAN, "max": NAN, "sum": NAN,
+                "sumsq": NAN, "mean": NAN, "sigma": NAN, "rms": NAN}
+    npts = tree(lambda q: q.n.sum())
+    s = tree(lambda q: q.s0.sum())
+    pilot = tree(lambda q: torch.where(q.cnt > 0, q.m, 0.0).sum()) \
+        / torch.clamp(tree(lambda q: (q.cnt > 0).to(f32).sum()), min=1)
+    ss = tree(lambda q: (q.d2 + q.n * q.m ** 2).sum())
+    mn = tree(lambda q: torch.where(q.cnt > 0, q.mn, math.inf).min(),
+              torch.min)
+    mx = tree(lambda q: torch.where(q.cnt > 0, q.mx, -math.inf).max(),
+              torch.max)
+    mean = pilot + tree(lambda q: (q.n * (q.m - pilot.to(q.m.device)))
+                        .sum()) / npts
+    s2c = tree(lambda q: q.d2.sum()) + tree(
+        lambda q: (q.n * (q.m - mean.to(q.m.device)) ** 2).sum())
+    sigma = torch.sqrt(s2c / torch.clamp(npts - 1, min=1)) \
+        if npts_i > 1 else torch.tensor(NAN)
+    rms = torch.sqrt(ss / npts)
+    vals = [float(v) for v in (mn, mx, s, ss, mean, sigma, rms)]
+    return {"npts": npts_i, "min": vals[0], "max": vals[1], "sum": vals[2],
+            "sumsq": vals[3], "mean": vals[4], "sigma": vals[5],
+            "rms": vals[6]}
+
+
+def _sorted_keys(x):
+    """int32 keys of the float32 values ``x``, ascending and in the
+    values' order: the values sorted (-0.0 taken as +0.0, an equal value
+    the keys must not split), each value's bits made to order as the
+    value does."""
+    i = torch.sort(x + 0.0).values.view(torch.int32)
+    return torch.where(i < 0, i ^ 0x7FFFFFFF, i)
+
+
+def _key_value(k):
+    """The float32 value of a key of :func:`_sorted_keys`."""
+    i = k ^ 0x7FFFFFFF if k < 0 else k
+    return float(np.array([i], np.int32).view(np.float32)[0])
+
+
+def _count_le(cmesh, keys, k):
+    """How many keys of every shard are <= ``k``: a search in each shard's
+    sorted keys, summed over the mesh."""
+    return int(_to_first(cmesh, [torch.searchsorted(
+        kk, torch.tensor([k], dtype=torch.int32, device=kk.device),
+        right=True)[0] for kk in keys]).sum())
+
+
+def _select(cmesh, keys, k):
+    """The ``k``-th smallest (0-based) of the shards' sorted keys: a
+    bisection over the int32 key range, each step one count."""
+    lo = min(int(kk[0]) for kk in keys if kk.numel())
+    hi = max(int(kk[-1]) for kk in keys if kk.numel())
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if _count_le(cmesh, keys, mid) >= k + 1:
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo
+
+
+def _median(cmesh, keys, n, like):
+    """``masked_median``'s value (the two bracketing order statistics at
+    0.5 * (n - 1), lerped as ``reductions._lerp_sorted`` does) of the
+    ``n`` keys of every shard, as a 0-d tensor like ``like``."""
+    pos = 0.5 * (n - 1)
+    lo_i = int(math.floor(pos))
+    hi_i = min(lo_i + 1, n - 1)
+    k_lo = k_hi = _select(cmesh, keys, lo_i)
+    if hi_i != lo_i and _count_le(cmesh, keys, k_lo) < hi_i + 1:
+        # the next larger key in any shard
+        nxt = []
+        for kk in keys:
+            j = int(torch.searchsorted(kk, torch.tensor(
+                [k_lo], dtype=torch.int32, device=kk.device), right=True)[0])
+            if j < kk.numel():
+                nxt.append(int(kk[j]))
+        k_hi = min(nxt)
+    t = [torch.tensor(_key_value(k), dtype=like.dtype, device=like.device)
+         for k in (k_lo, k_hi)]
+    return _red._lerp_sorted(t[0], t[1], pos - lo_i)
+
+
+def sharded_mad_std(data, cmesh: CubeMesh, include=None, mask_expr=None):
+    """``mad_std`` of the included finite voxels of a sharded cube (the
+    unsharded ``reductions.masked_mad_std``, exactly): each shard sorts
+    its own values, as the unsharded cube sorts all of them, and each
+    median is found by bisecting the float32 values' ordered bit
+    patterns, every step a count of each shard's sorted keys summed over
+    the mesh, so no shard's data leaves its device.  Returns a 0-d tensor
+    on the mesh's first device."""
+    tiles, inc, _ = _pad_spatial(data, cmesh, NAN, include)
+    if tiles[0].dtype != torch.float32:
+        raise NotImplementedError("the sharded mad_std takes float32 cubes")
+    vals = [d[_red.valid_mask(d, _include_tile(
+        None if inc is None else inc[p], mask_expr, d))]
+        for p, d in enumerate(tiles)]
+    del tiles
+    like = torch.empty((), dtype=torch.float32, device=cmesh.devices[0])
+    n = sum(v.numel() for v in vals)
+    if n == 0:
+        return torch.tensor(NAN, dtype=like.dtype, device=like.device)
+    med = _median(cmesh, [_sorted_keys(v) for v in vals], n, like)
+    mad = _median(cmesh, [_sorted_keys(torch.abs(v - med.to(v.device)))
+                          for v in vals], n, like)
+    return _red.MAD_STD_FACTOR * mad
+
+
+# ---------------------------------------------------------------------------
+# halo exchange for spatial stencils (the ppermute analog of dask chunk
+# overlap)
+# ---------------------------------------------------------------------------
+def halo_pad(tiles, cmesh: CubeMesh, halo_y, halo_x):
+    """Each aligned (..., py, px) tile padded with ``halo_y`` rows and
+    ``halo_x`` columns of its neighbours' data, by copies between the
+    shards: the y exchange first, then the x exchange of the y-padded
+    blocks, which fills the corners from the diagonal neighbours.  Edge
+    tiles get zero halos (the zero-fill boundary of the normalized
+    convolution).  A halo wider than a tile is refused: as ``ppermute``,
+    the exchange reaches one neighbour only.  Each exchange adds one to
+    the mesh's ``halo_exchanges`` counter."""
+    my, mx = cmesh.grid
+    py, px = tiles[0].shape[-2:]
+    if halo_y > py or halo_x > px:
+        raise ValueError(f"halo ({halo_y}, {halo_x}) is wider than a "
+                         f"({py}, {px}) tile: it reaches past the "
+                         "neighbouring shard")
+    lead = tuple(tiles[0].shape[:-2])
+    cols = slice(halo_x, halo_x + px)
+    out = []
+    for t in tiles:
+        o = torch.empty(lead + (py + 2 * halo_y, px + 2 * halo_x),
+                        dtype=t.dtype, device=t.device)
+        o[..., halo_y:halo_y + py, cols].copy_(t)
+        out.append(o)
+    if halo_y:
+        for p, o in enumerate(out):
+            iy = p // mx
+            top, bottom = o[..., :halo_y, cols], o[..., halo_y + py:, cols]
+            if iy > 0:
+                top.copy_(tiles[p - mx][..., py - halo_y:, :])
+            else:
+                top.zero_()
+            if iy < my - 1:
+                bottom.copy_(tiles[p + mx][..., :halo_y, :])
+            else:
+                bottom.zero_()
+        cmesh.counters["halo_exchanges"] += 1
+    if halo_x:
+        for p, o in enumerate(out):
+            ix = p % mx
+            left, right = o[..., :, :halo_x], o[..., :, halo_x + px:]
+            if ix > 0:
+                left.copy_(out[p - 1][..., :, px:px + halo_x])
+            else:
+                left.zero_()
+            if ix < mx - 1:
+                right.copy_(out[p + 1][..., :, halo_x:2 * halo_x])
+            else:
+                right.zero_()
+        cmesh.counters["halo_exchanges"] += 1
+    return out
+
+
+def _nan_empty_channels(cmesh, outs, tiles, shape):
+    """NaN the channels with no finite value anywhere in the cube (the
+    JAX package's ``any_valid`` psum): each tile's flags from its part
+    inside the cube, OR-ed over the mesh."""
+    tile = tiles[0].shape[-2:]
+    flags = []
+    for p, t in enumerate(tiles):
+        h, w = _tile_extent(cmesh, p, shape[1:], tile)
+        flags.append(torch.isfinite(t[:, :h, :w]).flatten(1).any(1))
+    any_valid = _to_first(cmesh, flags).any(0)
+    if bool(any_valid.all()):
+        return outs
+    return [torch.where(any_valid.to(o.device)[:, None, None], o, NAN)
+            for o in outs]
+
+
+def _crop_halo(blocks, hy, hx, tile):
+    py, px = tile
+    return [b[:, hy:hy + py, hx:hx + px].contiguous() for b in blocks]
+
+
+def sharded_convolve_per_channel_separable(data, kernels, group_idx,
+                                           cmesh: CubeMesh, max_rank=4):
+    """Per-channel separable beam convolution in the spatial layout with
+    a halo exchange: zero all-to-alls.
+
+    Each position runs conv_sep (kernel #3/#4; its plain version on the
+    CPU) on its halo-padded block with the taps the unsharded
+    ``ops/convolve.convolve_per_channel_separable`` builds; edge tiles see
+    zero halos, which is the zero-fill boundary, and channels with no
+    finite value anywhere are NaN.  Returns None when a kernel's rank
+    exceeds ``max_rank`` or its half-width exceeds a tile (the caller then
+    takes the reshard + FFT route)."""
+    from ..ops.convolve import separable_factors, _convolve_groups
+    from ..ops.smoothing import banded_tap_offset
+    my, mx = cmesh.grid
+    _, ny, nx = _shape_of(data)
+    py, px = -(-ny // my), -(-nx // mx)
+    ytaps_g, xtaps_g = [], []
+    hy = hx = 0
+    for k in kernels:
+        if k is None:
+            ytaps_g.append(np.ones((1, 1)))
+            xtaps_g.append(np.ones((1, 1)))
+            continue
+        fac = separable_factors(k, max_rank=max_rank)
+        if fac is None:
+            return None
+        ytaps_g.append(fac[0])
+        xtaps_g.append(fac[1])
+        # the backward reach after the flip, ceil((klen - 1) / 2)
+        hy = max(hy, banded_tap_offset(k.shape[0]))
+        hx = max(hx, banded_tap_offset(k.shape[1]))
+    if hy > py or hx > px:
+        return None
+    tiles, _, shape = _pad_spatial(data, cmesh, 0.0)
+    gi = np.asarray(group_idx, dtype=np.int32)
+    outs = [_convolve_groups(b, ytaps_g, xtaps_g, gi)
+            for b in halo_pad(tiles, cmesh, hy, hx)]
+    outs = _nan_empty_channels(cmesh, _crop_halo(outs, hy, hx, (py, px)),
+                               tiles, shape)
+    return cmesh._from_spatial(outs, shape)
+
+
+def sharded_spatial_convolve(data, kernel, cmesh: CubeMesh):
+    """NaN-interpolating spatial convolution of a spatially sharded cube
+    with one 2-D kernel, through a halo exchange.
+
+    A kernel of rank <= 4 takes :func:`sharded_convolve_per_channel_separable`
+    with one group; another odd kernel that fits a tile runs, per
+    halo-padded block, the unsharded ``ops/smoothing.spatial_smooth_cube``
+    (conv_sep to rank 8, else one IEEE-float32 ``conv2d``); an even kernel
+    or a halo wider than a tile takes the reshard + FFT route."""
+    from ..ops.smoothing import spatial_smooth_cube
+    karr = np.asarray(kernel, dtype=float)
+    k = karr / karr.sum()
+    nchan0, ny0, nx0 = _shape_of(data)
+    sep = sharded_convolve_per_channel_separable(
+        data, [k], np.zeros(nchan0, np.int32), cmesh)
+    if sep is not None:
+        return sep
+    hy, hx = k.shape[0] // 2, k.shape[1] // 2
+    my, mx = cmesh.grid
+    py, px = -(-max(ny0, 1) // my), -(-max(nx0, 1) // mx)
+    if hy > py or hx > px or k.shape[0] % 2 == 0 or k.shape[1] % 2 == 0:
+        # even kernels would emit misaligned tiles; both cases take the
+        # reshard + spectral-multiply route, its FFT planes sized from
+        # the mesh-padded extent
+        from ..ops.convolve import _padded_shape, _transfers
+        fy, fx = _padded_shape((ny0 + (-ny0) % my, nx0 + (-nx0) % mx),
+                               k.shape)
+        return _fft_convolve(
+            data, np.zeros(nchan0, np.int32), cmesh,
+            lambda groups, dev, dt: _transfers([k], fy, fx, dev, dt))
+    tiles, _, shape = _pad_spatial(data, cmesh, 0.0)
+    outs = [spatial_smooth_cube(b, karr)
+            for b in halo_pad(tiles, cmesh, hy, hx)]
+    outs = _nan_empty_channels(cmesh, _crop_halo(outs, hy, hx, (py, px)),
+                               tiles, shape)
+    return cmesh._from_spatial(outs, shape)
+
+
+# ---------------------------------------------------------------------------
+# FFT beam convolution: reshard to the channel layout (the rechunk analog)
+# ---------------------------------------------------------------------------
+def _fft_convolve(data, group_idx, cmesh, transfers_for):
+    """Per-channel FFT convolution over a mesh: the spatial tiles
+    (zero-padded to aligned tiles and to a channel count the devices
+    divide) reshard to the spectral layout by two all-to-alls, each
+    position convolves its channel block's whole planes with the
+    unsharded ``ops/convolve._convolve_planes`` (cuFFT on the card), and
+    the result reshards back.  ``transfers_for(groups, device, dtype)``
+    gives the transfers of the beam groups ``groups``, so each device
+    holds only its channels' ones."""
+    from ..ops.convolve import _convolve_planes, _complex_of
+    n = cmesh.n_devices
+    tiles, _, shape = _pad_spatial(data, cmesh, 0.0, chan_multiple=n)
+    nchan, ny, nx = shape
+    blocks = cmesh._spectral_tiles(tiles)
+    del tiles
+    cb = blocks[0].shape[0]
+    gidx = np.zeros(cb * n, np.int64)
+    gidx[:nchan] = np.asarray(group_idx)
+    outs = []
+    for p, b in enumerate(blocks):
+        used, local = np.unique(gidx[p * cb:(p + 1) * cb],
+                                return_inverse=True)
+        o = _convolve_planes(b, transfers_for(used, b.device,
+                                              _complex_of(b.dtype)), local)
+        # the mesh padding holds valid zeros: a channel with no finite
+        # value inside the cube is NaN, as the unsharded route gives it
+        inside = torch.isfinite(b[:, :ny, :nx]).flatten(1).any(1)
+        if not bool(inside.all()):
+            o = torch.where(inside[:, None, None], o, NAN)
+        outs.append(o)
+    del blocks
+    return cmesh._from_spatial(cmesh._spatial_tiles(outs), shape)
+
+
+def sharded_spectral_convolve_fft(data, transfers, group_idx,
+                                  cmesh: CubeMesh):
+    """Per-channel FFT convolution over a mesh with the transfers
+    ``transfers`` (ngroup, fy, fx//2+1), complex (``ops/convolve._transfers``
+    of the kernels), ``fy``/``fx`` at least the mesh-padded plane plus the
+    kernel: reshard [spec, y, x] to the spectral layout, full-plane FFTs
+    per channel, reshard back."""
+    tr = transfers if isinstance(transfers, torch.Tensor) \
+        else torch.as_tensor(np.asarray(transfers))
+
+    def transfers_for(groups, device, dtype):
+        return tr[torch.as_tensor(groups)].to(device=device, dtype=dtype)
+    return _fft_convolve(data, group_idx, cmesh, transfers_for)
+
+
+# ---------------------------------------------------------------------------
+# the spectral path: zero communication in the spatial layout
+# ---------------------------------------------------------------------------
+def sharded_sigma_clip(data, cmesh: CubeMesh, sigma=3.0, maxiters=5,
+                       cenfunc="median", stdfunc="std"):
+    """Per-spaxel sigma clip: each position clips its own tile (NaN
+    padded) with the unsharded ``ops/smoothing.sigma_clip_spectrally``,
+    the sigma_clip kernel (#13) for float32 with stdfunc='std'."""
+    from ..ops.smoothing import sigma_clip_spectrally
+    tiles, _, shape = _pad_spatial(data, cmesh, NAN)
+    outs = [sigma_clip_spectrally(t, sigma=sigma, maxiters=maxiters,
+                                  cenfunc=cenfunc, stdfunc=stdfunc)
+            for t in tiles]
+    return cmesh._from_spatial(outs, shape)
+
+
+def sharded_spectral_interpolate(data, inaxis, outaxis, cmesh: CubeMesh,
+                                 include=None):
+    """Spectral regrid: the gather weights are shared, so each position
+    regrids its own tile (NaN padded) with no communication.  The include
+    mask, if given, interpolates alongside (reference
+    spectral_cube.py:3298-3315).  Returns ``(out, new_include_or_None)``."""
+    from ..ops.interpolate import interp_cube_spectral
+    tiles, inc, shape = _pad_spatial(data, cmesh, NAN, include)
+    res = [interp_cube_spectral(t, inaxis, outaxis,
+                                include=None if inc is None else inc[p])
+           for p, t in enumerate(tiles)]
+    out_shape = (res[0][0].shape[0],) + tuple(shape[1:])
+    out = cmesh._from_spatial([r[0] for r in res], out_shape)
+    if include is None:
+        return out, None
+    return out, cmesh._from_spatial([r[1] for r in res], out_shape)
+
+
+def sharded_smooth_interpolate(data, kernel, inaxis, outaxis,
+                               cmesh: CubeMesh, include=None):
+    """Fused spectral smooth + regrid per spatial tile, no communication:
+    the unsharded ``ops/interpolate.smooth_interp_cube`` on each tile
+    (smooth_interp, #11/#12, for float32).  The tiles pad with ZEROS, not
+    NaN: both operators act along the spectral axis only, the padded
+    columns are cut after, and a NaN pad would send every edge tile's
+    padded spectra down the kernel's slower NaN branch."""
+    from ..ops.interpolate import smooth_interp_cube
+    kernel = np.asarray(kernel, dtype=float)
+    tiles, inc, shape = _pad_spatial(data, cmesh, 0.0, include)
+    res = [smooth_interp_cube(t, kernel, inaxis, outaxis,
+                              include=None if inc is None else inc[p])
+           for p, t in enumerate(tiles)]
+    out_shape = (res[0][0].shape[0],) + tuple(shape[1:])
+    out = cmesh._from_spatial([r[0] for r in res], out_shape)
+    if include is None:
+        return out, None
+    return out, cmesh._from_spatial([r[1] for r in res], out_shape)
+
+
+# ---------------------------------------------------------------------------
+# reprojection
+# ---------------------------------------------------------------------------
+def _reproject_tile_blocks(i0, w, valid, m, n_out, n_in):
+    """Cut one axis of an axis-aligned bilinear resample (taps ``i0``,
+    weights ``1 - w`` at ``i0`` and ``w`` at ``i0 + 1``) into per-tile
+    taps for an m-way mesh axis.
+
+    Output tile t (rows [t*po, (t+1)*po)) reads only the input window
+    [t*pi - h, (t+1)*pi + h) of its halo-padded block; ``h`` is the
+    smallest halo that covers every tile's taps of nonzero weight at the
+    outputs in ``valid`` (the others are NaN by the validity plane).
+    Returns ``(tiles, h)``, ``tiles[t] = (r0, r1, local_i0, local_w)``,
+    or None when a tile's taps reach beyond the nearest neighbour
+    (h > pi: the exchange reaches one tile only)."""
+    po, pi = -(-n_out // m), -(-n_in // m)
+    i0 = np.asarray(i0, np.int64)
+    w = np.asarray(w, np.float32)
+    first = np.where(w < 1, i0, i0 + 1)
+    last = np.where(w > 0, np.minimum(i0 + 1, n_in - 1), i0)
+    h = 0
+    for t in range(m):
+        r0, r1 = t * po, min((t + 1) * po, n_out)
+        ok = valid[r0:r1] if r0 < r1 else np.zeros(0, bool)
+        if ok.any():
+            h = max(h, t * pi - int(first[r0:r1][ok].min()),
+                    int(last[r0:r1][ok].max()) + 1 - (t + 1) * pi)
+    if h > pi:
+        return None
+    span = pi + 2 * h
+    tiles = []
+    for t in range(m):
+        r0, r1 = min(t * po, n_out), min((t + 1) * po, n_out)
+        li = i0[r0:r1] - (t * pi - h)
+        lw = w[r0:r1].copy()
+        # a zero-weight lower tap left of the block: step onto the next
+        # sample, weight 1 there, the same sum; an output outside the
+        # input is NaN whatever it reads
+        step = li < 0
+        lw[step & (lw == 1)] = 0
+        li = np.clip(np.where(step, li + 1, li), 0, span - 1)
+        tiles.append((r0, r1, li, lw))
+    return tiles, h
+
+
+def _reproject_halo(src, maps, taps, halo, cmesh, nz):
+    """The halo strategy: resample2 (#5/#6) on each halo-padded block
+    with the tile's own taps, the spectral lerp first where the spectral
+    axis changes (``resample2_filled``), as the unsharded
+    ``ops/regrid._bilinear_spatial_then_linear_z`` runs on the cube."""
+    from ..kernels.resample2 import resample2, resample2_filled
+    from ..ops.regrid import _zlerp_filled
+    (zvalid, z0, zf, z_identity, yvalid, xvalid) = maps[:6]
+    (ytiles, hy), (xtiles, hx) = halo
+    vp = yvalid & xvalid
+    my, mx = cmesh.grid
+    tiles, _, _ = _pad_spatial(src, cmesh, 0.0)
+    blocks, index = [], []
+    for p, b in enumerate(halo_pad(tiles, cmesh, hy, hx)):
+        iy, ix = divmod(p, mx)
+        ry0, ry1, yi, yw = ytiles[iy]
+        rx0, rx1, xi, xw = xtiles[ix]
+        plane = vp[ry0:ry1, rx0:rx1]
+        if plane.size == 0:
+            out = torch.empty((nz, ry1 - ry0, rx1 - rx0), dtype=b.dtype,
+                              device=b.device)
+        elif z_identity:
+            out = resample2(b, yi, yw, xi, xw, plane, zvalid)
+        else:
+            fz, wz, wz_any = _zlerp_filled(b, z0, zf)
+            out = resample2_filled(fz, wz, wz_any, yi, yw, xi, xw, plane,
+                                   zvalid)
+        blocks.append(out)
+        index.append((slice(0, nz), slice(ry0, ry1), slice(rx0, rx1)))
+    return ShardedArray(cmesh, "spatial", (nz,) + vp.shape, blocks, index)
+
+
+def _reproject_reshard(src, maps, order, cmesh, nz):
+    """The reshard strategy: the spectral lerp of the NaN-filled data and
+    of the NaN flags in the spatial layout (z local), two all-to-alls to
+    the spectral layout (whole planes local), the unsharded four-corner
+    gather (``ops/regrid._gather_resample``) per channel block, and two
+    all-to-alls back."""
+    (zvalid, z0, zf, z_identity, yvalid, xvalid, y0, y1, wy,
+     x0, x1, wx) = maps
+    nchan_in, ny_in, nx_in = src.shape
+    ny_out, nx_out = wy.shape
+    tiles, _, _ = _pad_spatial(src, cmesh, 0.0)
+    has_nan = bool(_to_first(cmesh, [torch.isnan(t).any()
+                                     for t in tiles]).any())
+    lo = np.asarray(z0, np.int64)
+    hi = np.minimum(lo + 1, nchan_in - 1)
+
+    def zlerp(a):
+        if z_identity:
+            return a
+        lo_t = torch.as_tensor(lo, device=a.device)
+        if order == 0 or nchan_in == 1:
+            return a.index_select(0, lo_t)
+        f3 = torch.as_tensor(np.asarray(zf, np.float32),
+                             device=a.device)[:, None, None]
+        return a.index_select(0, lo_t) * (1 - f3) \
+            + a.index_select(0, torch.as_tensor(hi, device=a.device)) * f3
+
+    def spectral(make):
+        parts, _ = _pad_chan([make(t) for t in tiles], cmesh, 0.0)
+        return cmesh._spectral_tiles(parts)
+
+    fz = spectral(lambda t: zlerp(torch.nan_to_num(t)))
+    wz = spectral(lambda t: zlerp(torch.isnan(t).to(torch.float32))) \
+        if has_nan else None
+    del tiles
+    ny_p, nx_p = fz[0].shape[1:]
+    corners = ((y0, x0, (1 - wy) * (1 - wx)), (y0, x1, (1 - wy) * wx),
+               (y1, x0, wy * (1 - wx)), (y1, x1, wy * wx))
+    if order == 0:
+        corners = corners[:1]
+    valid = (yvalid & xvalid)[None]
+    cb = fz[0].shape[0]
+    outs = []
+    for p, f in enumerate(fz):
+        dev = f.device
+        cidx = [(torch.as_tensor((yy * nx_p + xx).ravel(), device=dev),
+                 torch.as_tensor(np.ascontiguousarray(w.ravel()),
+                                 device=dev)[:, None])
+                for yy, xx, w in corners]
+
+        def gathers(a):
+            flat = a.reshape(cb, ny_p * nx_p).t().contiguous()
+            acc = None
+            for idx, w in cidx:
+                part = flat.index_select(0, idx)
+                if acc is None:
+                    acc = part.mul_(w)
+                else:
+                    acc.addcmul_(part, w)
+                del part
+            return acc
+
+        out = gathers(f)
+        if wz is not None:
+            out.masked_fill_(gathers(wz[p]) > 1e-6, NAN)
+        out = out.t().reshape(cb, ny_out, nx_out)
+        zv = np.zeros(cb, bool)
+        c0, c1 = min(p * cb, nz), min((p + 1) * cb, nz)
+        zv[:c1 - c0] = np.asarray(zvalid)[c0:c1]
+        ok = torch.as_tensor(valid, device=dev) \
+            & torch.as_tensor(zv, device=dev)[:, None, None]
+        outs.append(out.masked_fill_(~ok, NAN))
+    del fz, wz
+    out = cmesh._from_spectral(outs, (nz, ny_out, nx_out))
+    return cmesh.reshard(out, "spatial")
+
+
+def sharded_reproject(data, zs, ys, xs, cmesh: CubeMesh, order=1):
+    """Reproject a spatially sharded [spec, y, x] cube onto the host-side
+    target->source mappings ``(zs, ys, xs)``: the sharded form of the
+    unsharded ``ops/regrid._bilinear_spatial_then_linear_z`` (orders 0
+    and 1), with its host maps (``ops/regrid.bilinear_host_maps``) and
+    its results.
+
+    - **halo**: a bilinear, axis-aligned mapping (``ops/regrid.
+      _axis_aligned_taps``) whose every output tile reads within one
+      neighbouring tile runs resample2 per halo-padded block: zero
+      all-to-alls (the offset and low-shear mosaicking case).
+    - **reshard**: rotations, order 0 and displacements beyond one tile
+      reshard to the spectral layout, gather per channel block and
+      reshard back: four all-to-alls, never a gather of the cube.
+
+    Returns the (nz, ny_out, nx_out) result in the spatial layout."""
+    from ..ops.regrid import bilinear_host_maps, _axis_aligned_taps
+    order = int(order)
+    if order not in (0, 1):
+        raise ValueError("sharded_reproject supports orders 0/1 "
+                         "(nearest/bilinear); spline orders take the "
+                         "unsharded path")
+    src = _sharded(data, cmesh)
+    nchan_in, ny_in, nx_in = src.shape
+    zs = np.asarray(zs, np.float64)
+    ys = np.asarray(ys, np.float64)
+    xs = np.asarray(xs, np.float64)
+    nz = zs.shape[0]
+    ny_out, nx_out = ys.shape
+    maps = bilinear_host_maps(zs, ys, xs, nchan_in, ny_in, nx_in, order)
+    my, mx = cmesh.grid
+    if order == 1 and ny_in > 1 and nx_in > 1:
+        taps = _axis_aligned_taps(ys, xs, ny_in, nx_in)
+        if taps is not None:
+            vp = maps[4] & maps[5]
+            by = _reproject_tile_blocks(taps[0], taps[1], vp.any(1), my,
+                                        ny_out, ny_in)
+            bx = _reproject_tile_blocks(taps[2], taps[3], vp.any(0), mx,
+                                        nx_out, nx_in)
+            if by is not None and bx is not None:
+                return _reproject_halo(src, maps, taps, (by, bx), cmesh, nz)
+    return _reproject_reshard(src, maps, order, cmesh, nz)
+
+
+# ---------------------------------------------------------------------------
+# ShardedCube: the cube facade bound to a mesh
+# ---------------------------------------------------------------------------
+#: attributes a ShardedCube reads from its metadata cube (no data needed)
+_METADATA = frozenset({
+    "unit", "wcs", "spectral_axis", "spectral_unit", "header", "meta",
+    "beam", "beams", "unmasked_beams", "goodbeams_mask", "ndim", "size",
+    "dtype", "fill_value", "velocity_convention", "allow_huge_operations",
+    "pixels_per_beam", "common_beam", "closest_spectral_channel",
+    "_wcs", "_meta", "_unit", "_fill_value", "_beam", "_beams",
+    "_goodbeams_mask", "_header", "_nowcs_header", "_spectral_offsets",
+    "_spectral_pix_size", "_result_beam"})
+
+
+def _placeholder(shape, dtype, device):
+    """A tensor of ``shape`` that holds one value (a metadata cube's
+    data)."""
+    return torch.zeros((), dtype=dtype, device=device).expand(tuple(shape))
+
+
+class ShardedCube:
+    """A cube whose data is sharded over a CubeMesh, running its hot
+    operations shard by shard: the analog of the reference's
+    ``DaskSpectralCube``.  ``SpectralCube.read(..., use_dask=True)`` and
+    ``cube.to_sharded(mesh)`` give one.
+
+    It holds the data as a spatial-layout :class:`ShardedArray`; the mask
+    as a mask object, evaluated on each shard as the cube's indexing cuts
+    it (``mask[index].include(data=block)``), and/or a sharded include
+    array that a sharded operation produced; and a metadata cube (WCS,
+    unit, beams, meta; its data a one-value placeholder).  Methods it
+    does not define run on :attr:`cube`, the cube gathered on the mesh's
+    first device (a counted gather; in the JAX package GSPMD partitions
+    them), and a cube they return is sharded again."""
+
+    def __init__(self, cube, cmesh: CubeMesh | None = None):
+        if cmesh is not None and not isinstance(cmesh, CubeMesh):
+            raise TypeError(f"cmesh must be a CubeMesh, not "
+                            f"{type(cmesh).__name__}")
+        self.cmesh = cmesh if cmesh is not None else default_mesh()
+        if isinstance(cube, ShardedCube):
+            data, include = cube._data, cube._include
+            if cube.cmesh is not self.cmesh:
+                data = self.cmesh.shard(data.gather(), "spatial")
+                include = None if include is None else self.cmesh.shard(
+                    include.gather(), "spatial")
+            self._set(data, cube._template, cube._mask, include)
+            return
+        template = cube._new_cube_with(
+            data=_placeholder(cube.shape, cube.dtype, self.cmesh.devices[0]),
+            mask=None)
+        self._set(self.cmesh.shard(cube._data, "spatial"), template,
+                  cube._mask, None)
+
+    def _set(self, data, template, mask, include):
+        self._data = data
+        self._template = template
+        self._mask = mask
+        self._include = None if include is None else _match(include, data)
+        self._gathered = None
+
+    @classmethod
+    def _from_parts(cls, cmesh, data, template, mask=None, include=None):
+        """A ShardedCube over the ShardedArray ``data`` with the metadata
+        cube ``template`` (a readers' and a store's constructor)."""
+        out = object.__new__(cls)
+        out.cmesh = cmesh
+        out._set(data, template, mask, include)
+        return out
+
+    def _new(self, data, template=None, mask=None, include=None):
+        return ShardedCube._from_parts(
+            self.cmesh, data, self._template if template is None
+            else template, mask, include)
+
+    def _with_data(self, data):
+        """The same mask and metadata over new data of the same shape."""
+        return self._new(data, mask=self._mask, include=self._include)
+
+    def _template_like(self, shape, **kwargs):
+        t = self._template
+        return t._new_cube_with(
+            data=_placeholder(shape, t.dtype, self.cmesh.devices[0]),
+            mask=None, **kwargs)
+
+    # -- the gathered cube and delegation ---------------------------------
+    @property
+    def cube(self):
+        """The cube with its data (and a stored mask) gathered on the
+        mesh's first device; each gather adds to the mesh's ``gathers``
+        counter, once per ShardedCube."""
+        if self._gathered is None:
+            data = self._data.gather()
+            mask = self._mask
+            if self._include is not None:
+                t = self._template
+                stored = BooleanArrayMask(self._include.gather(),
+                                          wcs=t._wcs, shape=self.shape)
+                mask = stored if mask is None else CompositeMask(
+                    stored, mask, "and")
+            self._gathered = self._template._new_cube_with(data=data,
+                                                           mask=mask)
+        return self._gathered
+
+    def __getattr__(self, name):
+        """Metadata comes from the metadata cube; anything else runs on
+        the gathered cube, and a cube it returns is sharded again (the
+        DaskSpectralCube mirroring of SpectralCube)."""
+        if name.startswith("__") or name in ("cmesh", "_data", "_template",
+                                             "_mask", "_include",
+                                             "_gathered"):
+            raise AttributeError(name)
+        if name in _METADATA:
+            return getattr(self._template, name)
+        attr = getattr(self.cube, name)
+        if callable(attr):
+            from ..cube import BaseSpectralCube
+
+            def wrapped(*args, **kwargs):
+                out = attr(*args, **kwargs)
+                if isinstance(out, BaseSpectralCube):
+                    return ShardedCube(out, self.cmesh)
+                return out
+            return wrapped
+        return attr
+
+    def __repr__(self):
+        return (f"ShardedCube(shape={self.shape}, layout="
+                f"{self._data.layout!r}, mesh={self.cmesh.grid})")
+
+    @property
+    def shape(self):
+        return self._data.shape
+
+    def use_dask_scheduler(self, scheduler=None, num_workers=None):
+        """API-compat shim for the reference's scheduler selection
+        (dask_spectral_cube.py:278-312): the mesh owns the placement; pick
+        devices with :func:`~.mesh.use_mesh`.  Returns a null context."""
+        from ..utils import NotImplementedWarning
+        warnings.warn("use_dask_scheduler has no effect: each shard runs "
+                      "on its mesh device; pick a device set with "
+                      "use_mesh()", NotImplementedWarning)
+        return contextlib.nullcontext(self)
+
+    def display_dask_array(self):
+        """Print the layout of the sharded data (the analog of the
+        reference's dask-graph display, dask_spectral_cube.py:341): the
+        mesh, and each shard's device and index.  Returns the layout."""
+        d = self._data
+        print(f"shape={d.shape} dtype={d.dtype} mesh={self.cmesh.grid} "
+              f"layout={d.layout}")
+        for s in d.addressable_shards:
+            print(f"  {s.position} {s.device}: "
+                  + ", ".join(f"{i.start}:{i.stop}" for i in s.index))
+        return d.layout
+
+    display_sharding = display_dask_array
+
+    def rechunk(self, layout="spatial", save_to_tmp_dir=False):
+        """Move the data between the mesh layouts (the dask ``rechunk``
+        analog, reference dask_spectral_cube.py:349-384).  With
+        ``save_to_tmp_dir=True`` the current state is written to a
+        temporary store and read back first (the zarr persistence
+        analog; it goes through the gathered cube)."""
+        src = ShardedCube(self.cube.checkpoint(), self.cmesh) \
+            if save_to_tmp_dir else self
+        data = self.cmesh.shard(src._data, layout)
+        return src._new(data, mask=src._mask, include=src._include)
+
+    # -- masks -------------------------------------------------------------
+    def _include_parts(self):
+        """The bool include of each block (the stored part, and the mask
+        cut to the block's index and evaluated on it), or None where
+        nothing is masked."""
+        if self._mask is None and self._include is None:
+            return None
+        blocks = []
+        for p, (d, ix) in enumerate(zip(self._data.blocks,
+                                        self._data.index)):
+            inc = None if self._include is None else self._include.blocks[p]
+            if self._mask is not None:
+                m = self._mask[ix].include(data=d).to(d.device).expand(
+                    d.shape)
+                inc = m if inc is None else torch.logical_and(inc, m)
+            blocks.append(inc)
+        return ShardedArray(self.cmesh, self._data.layout, self.shape,
+                            blocks, self._data.index)
+
+    def _mask_args(self):
+        """``(include, mask_expr)`` for the sharded functions: a data-local
+        mask alone goes in as the expression each tile evaluates (fused in
+        the moments kernel where it can be), anything else as the include
+        of each block (the JAX package's split, sharded.py:876-886)."""
+        if self._include is None and (self._mask is None
+                                      or is_data_local(self._mask)):
+            return None, self._mask
+        return self._include_parts(), None
+
+    def _filled(self, fill=NAN):
+        """The data with excluded voxels set to ``fill``."""
+        inc = self._include_parts()
+        if inc is None:
+            return self._data
+        return self._data.map(
+            lambda d, i: torch.where(i, d, torch.as_tensor(
+                fill, dtype=d.dtype, device=d.device)), inc)
+
+    def _comparison_mask(self, op, value):
+        from ..units import Quantity
+        if not isinstance(value, Quantity):
+            if self.unit.dimensionless:
+                value = Quantity(value, "")
+            else:
+                raise ValueError(
+                    "Can only compare with Quantity values with units "
+                    "matching the cube's")
+        return LazyComparisonMask(op, value.to_value(self.unit),
+                                  wcs=self._template._wcs, shape=self.shape)
+
+    def __gt__(self, value):
+        return self._comparison_mask(torch.gt, value)
+
+    def __ge__(self, value):
+        return self._comparison_mask(torch.ge, value)
+
+    def __lt__(self, value):
+        return self._comparison_mask(torch.lt, value)
+
+    def __le__(self, value):
+        return self._comparison_mask(torch.le, value)
+
+    def with_mask(self, mask, inherit_mask=True, wcs_tolerance=None):
+        """A new ShardedCube with ``mask`` (and the current mask, with
+        ``inherit_mask``); a boolean array becomes a BooleanArrayMask.
+        Each shard evaluates its cut of the mask on its own data."""
+        if isinstance(mask, (np.ndarray, torch.Tensor)):
+            mask = BooleanArrayMask(mask, wcs=self._template._wcs,
+                                    shape=self.shape)
+        self._template._validate_mask_wcs(mask, wcs_tolerance)
+        old = self._mask if inherit_mask else None
+        return self._new(self._data, include=self._include if inherit_mask
+                         else None,
+                         mask=mask if old is None else CompositeMask(
+                             old, mask, "and"))
+
+    # -- the sharded operations -------------------------------------------
+    def moment_maps(self):
+        """(mom0, mom1, mom2) Projections in one sharded pass (the moments
+        kernel on each shard)."""
+        from ..lower_dimensional_structures import Projection
+        t = self._template
+        include, expr = self._mask_args()
+        maps = [np.asarray(m) for m in sharded_moments(
+            self._data, t._spectral_offsets(), t._spectral_pix_size(),
+            self.cmesh, include=include, mask_expr=expr)]
+        maps[1] = maps[1] + float(np.asarray(t.spectral_axis.value)[0])
+        beam = t._result_beam()
+        out = []
+        for order, m in enumerate(maps):
+            unit = t.unit * t.spectral_unit if order == 0 \
+                else t.spectral_unit ** max(order, 1)
+            meta = {"moment_order": order, "moment_axis": 0,
+                    "moment_method": "sharded"}
+            meta.update(t._meta)
+            if beam is not None:
+                meta["beam"] = beam
+            out.append(Projection(m, unit=unit, wcs=t._wcs.dropaxis(2),
+                                  meta=meta, header=t._nowcs_header,
+                                  beam=beam))
+        return tuple(out)
+
+    def statistics(self):
+        """Global statistics (CASA ``ia.statistics`` naming) reduced over
+        the mesh."""
+        from ..units import Quantity
+        include, expr = self._mask_args()
+        raw = sharded_statistics(self._data, self.cmesh, include=include,
+                                 mask_expr=expr)
+        unit = self._template.unit
+        out = {"npts": raw["npts"]}
+        for k in ("min", "max", "sum", "mean", "sigma", "rms"):
+            out[k] = Quantity(raw[k], unit)
+        out["sumsq"] = Quantity(raw["sumsq"], unit ** 2)
+        return out
+
+    def mad_std(self, axis=None, how=None, **kwargs):
+        """The whole cube's mad_std, found over the mesh without moving
+        the data; along an axis it runs on the gathered cube."""
+        if axis is not None:
+            return self.cube.mad_std(axis=axis, how=how, **kwargs)
+        from ..units import Quantity
+        include, expr = self._mask_args()
+        v = sharded_mad_std(self._data, self.cmesh, include=include,
+                            mask_expr=expr)
+        return Quantity(v.item(), self._template.unit)
+
+    def sigma_clip_spectrally(self, threshold, maxiters=5,
+                              cenfunc="median", stdfunc="std"):
+        out = sharded_sigma_clip(self._filled(), self.cmesh, sigma=threshold,
+                                 maxiters=maxiters, cenfunc=cenfunc,
+                                 stdfunc=stdfunc)
+        return self._with_data(out)
+
+    def spatial_smooth(self, kernel):
+        karr = np.asarray(getattr(kernel, "array", kernel), dtype=float)
+        return self._with_data(sharded_spatial_convolve(
+            self._filled(), karr, self.cmesh))
+
+    def spectral_interpolate(self, spectral_grid, smooth_kernel=None):
+        """Regrid onto a new linear spectral grid shard by shard (the
+        smooth_interp kernel with ``smooth_kernel``).  Under a data-local
+        mask other than the finiteness one the smooth must re-evaluate the
+        mask on the smoothed data, so that case runs on the gathered cube,
+        as the unsharded call does it."""
+        from ..units import Quantity
+        from ..ops.interpolate import linear_spectral_wcs
+        t = self._template
+        grid = spectral_grid.to_value(t.spectral_unit) \
+            if isinstance(spectral_grid, Quantity) \
+            else np.asarray(spectral_grid)
+        inax = np.asarray(t.spectral_axis.value, dtype=float)
+        new_wcs = linear_spectral_wcs(t._wcs, grid)
+        mask = self._mask
+        template = self._template_like((len(grid),) + self.shape[1:],
+                                       wcs=new_wcs)
+        if smooth_kernel is not None:
+            karr = np.asarray(getattr(smooth_kernel, "array",
+                                      smooth_kernel), dtype=float)
+            finiteness = self._include is None and (
+                mask is None or is_finiteness_mask(mask))
+            if not finiteness and self._include is None \
+                    and is_data_local(mask):
+                return ShardedCube(self.cube.spectral_interpolate(
+                    spectral_grid, smooth_kernel=smooth_kernel), self.cmesh)
+            include = None if finiteness else self._include_parts()
+            out, new_include = sharded_smooth_interpolate(
+                self._filled(), karr, inax, grid, self.cmesh,
+                include=include)
+            if finiteness:
+                # the re-bound finiteness mask tracks the fused result
+                return self._new(out, template, mask=LazyMask(
+                    torch.isfinite, wcs=new_wcs, shape=out.shape))
+            return self._new(out, template, include=new_include)
+        # RAW data, not filled: masked voxels must not poison neighbours;
+        # the mask interpolates separately (the unsharded semantics)
+        out, new_include = sharded_spectral_interpolate(
+            self._data, inax, grid, self.cmesh,
+            include=self._include_parts())
+        return self._new(out, template, include=new_include)
+
+    def reproject(self, header, order="bilinear", use_memmap=False,
+                  filled=True, **kwargs):
+        """Sharded reprojection onto a new spatial (and spectral) WCS:
+        the mappings are the unsharded ``cube.reproject``'s, then
+        :func:`sharded_reproject` resamples (the halo strategy for
+        axis-aligned mappings within a tile's reach, the reshard
+        otherwise).  Spline orders (2/3) run on the gathered cube."""
+        from ..ops.regrid import reproject_mappings, _order_int
+        t = self._template
+        if _order_int(order) >= 2:
+            return ShardedCube(self.cube.reproject(header, order=order,
+                                                   filled=filled, **kwargs),
+                               self.cmesh)
+        data = self._filled() if filled else self._data
+        zs, ys, xs, wcs_out = reproject_mappings(
+            t._wcs, header, self.shape[0],
+            spectral_values_in=np.asarray(t.spectral_axis.value))
+        out = sharded_reproject(data, zs, ys, xs, self.cmesh,
+                                order=_order_int(order))
+        template = t.__class__(
+            data=_placeholder(out.shape, t.dtype, self.cmesh.devices[0]),
+            wcs=wcs_out, meta=dict(t._meta), unit=t._unit,
+            fill_value=t._fill_value,
+            allow_huge_operations=t.allow_huge_operations)
+        return self._new(out, template, include=out.map(torch.isfinite))
+
+    def convolve_to(self, beam, allow_smaller=False, **kwargs):
+        """Common-beam convolution: the halo-exchange separable route
+        (conv_sep per shard, no all-to-all) where every beam group's
+        kernel separates (rank <= 8 for one group, <= 4 for several) and
+        its half-width fits a tile, else the reshard + FFT route.  A
+        varying-resolution cube's flagged channels are NaN and its beams
+        checked as the unsharded ``convolve_to`` does; returns a
+        single-beam cube."""
+        from ..ops import convolve as _conv
+        from ..beams import BeamError
+        from ..utils import NoBeamError
+        from ..cube import SpectralCube
+        t = self._template
+        nchan, ny, nx = self.shape
+        beams = getattr(t, "_beams", None)
+        good = None
+        if beams is not None:
+            good = np.asarray(t._goodbeams_mask, dtype=bool)
+            beam_list = [b if g else beam for b, g in zip(beams, good)]
+
+            def deconvolvable(b):
+                try:
+                    beam.deconvolve(b)
+                    return True
+                except BeamError:
+                    if not allow_smaller:
+                        raise
+                    return False
+            beam_list = [b if not g or deconvolvable(b) else beam
+                         for b, g in zip(beam_list, good)]
+        else:
+            if getattr(t, "_beam", None) is None:
+                raise NoBeamError("The cube has no beam; use with_beam "
+                                  "first")
+            beam_list = [t._beam] * nchan
+        pixscale = float(np.mean(np.abs(
+            t._wcs.celestial.proj_plane_pixel_scales()))) * np.pi / 180.0
+        groups, group_idx = _conv.beam_groups(beam_list)
+        kernels, max_k = [], (1, 1)
+        for b in groups:
+            cb = beam.deconvolve(b)
+            if cb.major_rad <= 0:
+                kernels.append(None)
+                continue
+            k = cb.as_kernel(pixscale)
+            kernels.append(k)
+            max_k = (max(max_k[0], k.shape[0]), max(max_k[1], k.shape[1]))
+        filled = self._filled()
+        # one beam group separates up to rank 8, several up to rank 4: the
+        # unsharded route's rule (ops/convolve.convolve_cube_to_beam), so
+        # that both run conv_sep on the same taps
+        out = sharded_convolve_per_channel_separable(
+            filled, kernels, group_idx, self.cmesh,
+            max_rank=8 if len(groups) == 1 else 4)
+        if out is None:
+            my, mx = self.cmesh.grid
+            fy, fx = _conv._padded_shape((ny + (-ny) % my, nx + (-nx) % mx),
+                                         max_k)
+            out = _fft_convolve(
+                filled, group_idx, self.cmesh,
+                lambda g, dev, dt: _conv._transfers(
+                    [kernels[i] for i in g], fy, fx, dev, dt))
+        del filled
+        factors = np.array([_conv.beam_unit_factor(t.unit, b, beam)
+                            for b in beam_list])
+        if not np.allclose(factors, 1.0):
+            out = out.map(lambda d: d * torch.as_tensor(
+                factors, dtype=d.dtype, device=d.device)[:, None, None])
+        if good is not None and not good.all():
+            bad = np.flatnonzero(~good)
+            out = out.map(lambda d: d.index_fill(
+                0, torch.as_tensor(bad, device=d.device), NAN))
+        meta = dict(t._meta)
+        meta["beam"] = beam
+        template = SpectralCube(
+            data=_placeholder(self.shape, t.dtype, self.cmesh.devices[0]),
+            wcs=t._wcs, meta=meta, fill_value=t._fill_value, unit=t._unit,
+            beam=beam, allow_huge_operations=t.allow_huge_operations)
+        return self._new(out, template, mask=self._mask,
+                         include=self._include)

@@ -9,8 +9,8 @@ either one ``data.npy`` or, for a store written from a sharded JAX cube,
 one ``shard_<n>.npy`` per distinct shard with its index in ``meta.json``.
 A store written by either package loads in the other, which is how a
 cube's state crosses between them on disk.  The port writes ``data.npy``;
-a sharded store is assembled on the host into one tensor on the requested
-device.
+a sharded store loads into one tensor on the requested device (assembled
+on the host), or with ``cmesh`` shard by shard onto the mesh.
 """
 
 from __future__ import annotations
@@ -90,15 +90,46 @@ def _assemble_shards(store_dir, meta):
     return out
 
 
+def _load_shards(store_dir, meta, cmesh):
+    """A sharded store's data on ``cmesh``: where the mesh's spatial,
+    spectral or replicated placement matches the saved shards, each
+    position loads its own shard file onto its device (no host-global
+    array, persistence.py:99-134 of the JAX package); else the array is
+    assembled on the host and sharded."""
+    from .parallel.mesh import ShardedArray
+    shape = tuple(meta["shape"])
+    saved = {}
+    for i, entry in enumerate(meta["shards"]):
+        key = tuple(tuple(int(v) for v in sl)[:2] for sl in entry["index"])
+        saved[key] = os.path.join(store_dir,
+                                  entry.get("file", f"shard_{i}.npy"))
+    sizes = dict(zip(cmesh.axis_names, cmesh.grid))
+    for layout in ("spatial", "spectral", "replicated"):
+        sharding = cmesh.sharding(layout)
+        if any(n % np.prod([sizes[a] for a in np.atleast_1d(e)])
+               for n, e in zip(shape, sharding.spec) if e is not None):
+            continue
+        index = sharding.indices(shape)
+        keys = [tuple((s.start, s.stop) for s in ix) for ix in index]
+        if all(k in saved for k in keys):
+            blocks = [torch.from_numpy(_native(np.load(saved[k]))).to(dev)
+                      for k, dev in zip(keys, cmesh.devices)]
+            return ShardedArray(cmesh, layout, shape, blocks, index)
+    return cmesh.shard(_native(_assemble_shards(store_dir, meta)), "spatial")
+
+
+def _native(arr):
+    """A loaded array as the cube entry points store it (float64 becomes
+    float32)."""
+    return arr.astype(np.float32) if arr.dtype == np.float64 else arr
+
+
 def load_cube(store_dir, device=None, cmesh=None):
     """The cube of a store written by :func:`save_cube` (of either
     package), on ``device``: the CUDA device unless the caller asks for
-    another.  ``cmesh`` (a device mesh to restore shards onto) belongs to
-    the port's sharded cubes, which are not ported."""
-    if cmesh is not None:
-        raise NotImplementedError(
-            "restoring a store onto a device mesh needs the sharded cube, "
-            "which is not ported to torch yet (ROADMAP.md Queue 1 item 12)")
+    another.  With ``cmesh`` the cube is a
+    :class:`~.parallel.ShardedCube` on that mesh, a sharded store's shards
+    each loaded onto its own device where the placements match."""
     from .wcs import WCS
     from .cube import (SpectralCube, VaryingResolutionSpectralCube,
                        _as_tensor)
@@ -112,11 +143,18 @@ def load_cube(store_dir, device=None, cmesh=None):
     unit = Unit.parse(meta["unit"])
     fill_value = meta.get("fill_value")
     fill_value = np.nan if fill_value is None else float(fill_value)
-    if meta.get("sharded"):
-        arr = _assemble_shards(store_dir, meta)
+    sharded = None
+    if cmesh is not None:
+        from .parallel.sharded import _placeholder
+        sharded = _load_shards(store_dir, meta, cmesh) \
+            if meta.get("sharded") else cmesh.shard(_native(np.load(
+                os.path.join(store_dir, "data.npy"))), "spatial")
+        data = _placeholder(sharded.shape, sharded.dtype, cmesh.devices[0])
+    elif meta.get("sharded"):
+        data = _as_tensor(_assemble_shards(store_dir, meta), device)
     else:
-        arr = np.load(os.path.join(store_dir, "data.npy"))
-    data = _as_tensor(arr, device)
+        data = _as_tensor(np.load(os.path.join(store_dir, "data.npy")),
+                          device)
     mask = LazyMask(torch.isfinite, data=data, wcs=wcs)
     if "beams" in meta:
         beams = Beams(major=Quantity(np.array(meta["beams"]["major_deg"]),
@@ -124,13 +162,19 @@ def load_cube(store_dir, device=None, cmesh=None):
                       minor=Quantity(np.array(meta["beams"]["minor_deg"]),
                                      "deg"),
                       pa=Quantity(np.array(meta["beams"]["pa_deg"]), "deg"))
-        return VaryingResolutionSpectralCube(
+        cube = VaryingResolutionSpectralCube(
             data, wcs, mask=mask, unit=unit, beams=beams,
             fill_value=fill_value,
             goodbeams_mask=np.array(meta.get("goodbeams"), dtype=bool))
-    beam = Beam.from_header(meta["beam"]) if "beam" in meta else None
-    return SpectralCube(data, wcs, mask=mask, unit=unit, beam=beam,
-                        fill_value=fill_value)
+    else:
+        beam = Beam.from_header(meta["beam"]) if "beam" in meta else None
+        cube = SpectralCube(data, wcs, mask=mask, unit=unit, beam=beam,
+                            fill_value=fill_value)
+    if sharded is None:
+        return cube
+    from .parallel.sharded import ShardedCube
+    return ShardedCube._from_parts(cmesh, sharded, cube, LazyMask(
+        torch.isfinite, wcs=wcs, shape=sharded.shape))
 
 
 def checkpoint_to_tmp_dir(cube, tmp_dir=None):

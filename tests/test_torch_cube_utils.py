@@ -276,5 +276,10 @@ def test_sharded_jax_store_assembles_on_one_device(tmp_path):
     np.testing.assert_array_equal(t._data.numpy(), np.asarray(cube._data))
     np.testing.assert_array_equal(t.get_mask_array(),
                                   np.isfinite(data))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tper.load_cube(store, cmesh=object())
+    # onto a port mesh of the same grid: shard by shard, no assembly
+    tmesh = T.CubeMesh(devices=["cpu"] * cmesh.n_devices,
+                       shape=tuple(cmesh.grid))
+    onto = tper.load_cube(store, cmesh=tmesh)
+    assert isinstance(onto, T.ShardedCube) and tmesh.counters["gathers"] == 0
+    np.testing.assert_array_equal(onto.cube._data.numpy(),
+                                  np.asarray(cube._data))

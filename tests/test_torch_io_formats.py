@@ -162,10 +162,21 @@ def test_write_cube_format_from_suffix(tmp_path):
         t.write(str(tmp_path / "b.x"), format="hdf5")
 
 
-def test_read_use_dask_raises(tmp_path):
-    path, _ = make_cube_file(tmp_path, shape=(3, 4, 5))
-    with pytest.raises(NotImplementedError, match="item 12"):
+def test_read_use_dask_raises(tmp_path, monkeypatch):
+    """``use_dask=True`` shards the cube over the default mesh, which
+    spans the CUDA devices: it raises where CUDA is absent and no mesh is
+    set, and with a mesh set gives a ShardedCube of the file's values."""
+    from spectral_cube_tpu_torch.parallel import mesh as tmesh
+    path, data = make_cube_file(tmp_path, shape=(3, 4, 5))
+    monkeypatch.setattr(tmesh, "_DEFAULT_MESH", None)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
         T.SpectralCube.read(path, use_dask=True, device="cpu")
+    with T.use_mesh(T.CubeMesh(devices=["cpu"] * 2)):
+        sc = T.SpectralCube.read(path, use_dask=True, device="cpu")
+    assert isinstance(sc, T.ShardedCube)
+    np.testing.assert_array_equal(sc.cube._data.numpy(),
+                                  data.astype(np.float32))
 
 
 def test_lmv_default_device(tmp_path, monkeypatch):

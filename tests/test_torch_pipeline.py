@@ -286,12 +286,29 @@ def test_cube_from_arrays_carries_jax_state(fits_path):
 
 
 def test_unported_paths_raise(fits_path):
-    """The sharded pipeline is not ported (item 12); a FITS file read as a
-    CASA image raises as it does in the JAX package."""
+    """``run_pipeline(cmesh=)`` runs sharded over a mesh and gives the
+    unsharded results (JAX's single-device mesh run as the reference of
+    test_run_pipeline_matches_jax); a FITS file read as a CASA image
+    raises as it does in the JAX package."""
     from spectral_cube_tpu.utils import FITSReadError as JFITSReadError
     from spectral_cube_tpu_torch.utils import FITSReadError
     tcube = T.SpectralCube.read(str(fits_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    tbeam = _beams(12.0, 12.0, 0.0)[1]
+    cmesh = T.CubeMesh(devices=["cpu"] * 4)
+    kw = dict(snr_threshold=1.0, target_beam=tbeam,
+              target_header=_shifted(tcube.header), noise_estimate=0.5)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        sharded = T.run_pipeline(tcube, cmesh=cmesh, **kw)
+        plain = T.run_pipeline(tcube, **kw)
+    assert cmesh.counters["gathers"] == 0
+    for a, b in zip(sharded["moments"], plain["moments"]):
+        _assert_linewidth(a.value, b.value, rtol=3e-5, atol=1e-4)
+    assert sharded["statistics"]["npts"] == plain["statistics"]["npts"]
+    _assert_cubes(sharded["cube"].cube._data.numpy(),
+                  plain["cube"]._data.numpy(), 1e-6)
+    assert isinstance(sharded["cube"], T.ShardedCube)
+    with pytest.raises(TypeError, match="cmesh must be a CubeMesh"):
         T.run_pipeline(tcube, cmesh=object())
     with pytest.raises(FITSReadError, match="is not a CASA image directory"):
         T.SpectralCube.read(str(fits_path), format="casa_image",
