@@ -145,6 +145,23 @@
     convolution routes and a small spectral path on the card and on the
     CPU and compares them.
 
+Profiler traces (``spectral_cube_tpu_torch.profiling``): after the timed
+calls of the pipeline (3), the spectral path (4), varying-resolution (a)
+(7) and sharded (a) (10c), one extra call of each runs under
+``profiling.trace`` with the launch counters reset just before, then once
+more with Python frames.  Each gives one "summary: trace" line (the
+window, the device-busy time, the idle share, the top 8 device operations
+and the 5 longest idle gaps with the host operation open at each gap's
+start and the Python function it falls in), printed again before the
+kernels line; each wrapper's counter
+must equal its kernels' launches in the trace.  The gzipped Chrome traces
+land in ``chiprun_out/traces/`` beside this script.  Also: ``OpTimer`` on
+the moments wrapper at the pipeline's shape (1 and 5 calls) within 2x of
+its CUDA-event median, ``device_memory_stats`` after the pipeline's
+traced call against the device's properties, the tensors it holds and a
+fresh allocation, and a ``ProgressCallback`` driven
+through ``sigma_clip_spectrally(update_function=)`` on a 64 x 64 cut.
+
 Prints one JSON line with each kernel's numbers, the card line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises.
 """
@@ -153,6 +170,7 @@ from __future__ import annotations
 
 import contextlib
 import inspect
+import io
 import json
 import os
 import subprocess
@@ -225,6 +243,11 @@ FP32_FLOPS = 67e12
 SMOOTH_STDDEV = 2.0
 CLIP_SIGMA = 1.0
 CLIP_ITERS = 5
+# the spatial cut whose spectra drive a ProgressCallback (one call each)
+PROGRESS_CUT = 64
+# the allocation that device_memory_stats must count to the byte (64 MiB,
+# a whole number of the allocator's 512-byte blocks)
+MEMORY_PROBE = 64 * 2**20
 
 # reprojection onto a new spectral axis: output channels, width and start
 # in input channels
@@ -247,6 +270,12 @@ STACK_LINE_SHIFT = -30.0
 # channels
 F1_BEAM = 90.0
 F2_BEAM = 100.0
+
+# the profiler traces of the four main paths, gzipped Chrome traces (one
+# plain, one with Python frames each), and their "summary: trace" lines
+TRACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "chiprun_out", "traces")
+TRACE_LINES = []
 
 # name -> (source, TPU kernels it replaces)
 KERNELS = {
@@ -334,6 +363,85 @@ def no_tf32():
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def _short(name, width=72):
+    """A device operation's or host frame's name, cut for a log line."""
+    if name is None:
+        return "-"
+    name = name.replace("(anonymous namespace)::", "")
+    name = name[5:] if name.startswith("void ") else name
+    if ".py(" in name:  # a Python frame, "path.py(line): function"
+        name = "/".join(name.split("/")[-2:])
+    else:
+        name = name.split("(")[0]
+    return name if len(name) <= width else name[:width - 3] + "..."
+
+
+def traced_path(tag, dev, fn):
+    """One extra, untimed call of ``fn`` under ``profiling.trace``, the
+    launch counters reset just before: its window, device-busy time, idle
+    share, top device operations and longest idle gaps, and each wrapper's
+    counter held against its kernels' launches in the trace (equal, or the
+    run fails; a trace with no device event fails too).  Then the call once
+    more traced with Python frames, for the Python function each gap falls
+    in (that trace's host runs slower, so its idle share reads higher).
+    The traces are written gzipped to TRACE_DIR; one "summary: trace" line
+    goes to TRACE_LINES."""
+    import gzip
+    import shutil
+    import torch
+    from spectral_cube_tpu_torch import kernels as K
+    from spectral_cube_tpu_torch import profiling
+    slug = "".join(c if c.isalnum() else "_" for c in tag).strip("_")
+    t = time.perf_counter()
+    summaries = {}
+    for stack in (False, True):
+        K.reset_launch_counts()
+        with profiling.trace(TRACE_DIR, device=dev, with_stack=stack):
+            fn()
+        counts = K.launch_counts()
+        tr = profiling.trace.last
+        s = profiling.device_summary(tr.events, device_index=dev.index or 0)
+        dest = os.path.join(TRACE_DIR, slug + (".stack" if stack else "")
+                            + ".pt.trace.json.gz")
+        with open(tr.path, "rb") as src, gzip.open(dest, "wb",
+                                                   compresslevel=1) as out:
+            shutil.copyfileobj(src, out)
+        os.remove(tr.path)
+        profiling.trace.last = None
+        if s["device_events"] == 0:
+            raise AssertionError(f"trace {tag}: no device event in {dest}")
+        bad = profiling.trace_mismatches(s["kernels"], counts)
+        if bad:
+            raise AssertionError(
+                f"trace {tag}{' (with Python frames)' if stack else ''}: "
+                f"launch counters against the trace's kernel launches "
+                f"(pattern: (counters, trace)) {bad}; counters {counts}")
+        s["counts"] = {k: v for k, v in counts.items() if v}
+        summaries[stack] = s
+        del tr
+    torch.cuda.empty_cache()
+    s, p = summaries[False], summaries[True]
+    line = (f"summary: trace {tag}: window {s['window_ms']:.1f} ms, device "
+            f"busy {s['busy_ms']:.1f} ms, idle share {s['idle_share']:.3f}, "
+            f"{s['device_events']} device events; launches "
+            + ", ".join(f"{k} {v}" for k, v in s["counts"].items())
+            + " (counters = the trace's kernels); top "
+            + "; ".join(f"{_short(n)} [{_short(op, 24)}] x{c} {ms:.2f} ms"
+                        for n, c, ms, op in s["top"])
+            + "; longest gaps " + "; ".join(
+                f"{d:.2f} ms at {t0:.1f} ms, {_short(op)} open at its start"
+                for t0, d, op, _ in s["gaps"])
+            + f"; with Python frames: window {p['window_ms']:.1f} ms, idle "
+            f"share {p['idle_share']:.3f}, longest gaps " + "; ".join(
+                f"{d:.2f} ms at {t0:.1f} ms inside {_short(fr)} "
+                f"({_short(op)} open at its start)"
+                for t0, d, op, fr in p["gaps"])
+            + f"; traced, exported and read in "
+            f"{time.perf_counter() - t:.1f} s")
+    log("  " + line)
+    TRACE_LINES.append(line)
 
 
 def compare(name, got, want, rtol):
@@ -498,6 +606,7 @@ def phase_moments(dev, data, results):
                     log(f"  moments 623x768x768 masked: kernel {ms:.3f} ms,"
                         f" plain {pms:.3f} ms, bound {bms:.3f} ms ({by}), "
                         f"plan {km.plan(NY * NX, True, False)}")
+                    op_timer_hold(ms, km.moments_planes, x, coords)
                     phase_moments_include(x, coords)
                 if label == "1024ch" and nan and not stats:
                     ms = cuda_ms(lambda: km.moments_planes(
@@ -509,6 +618,49 @@ def phase_moments(dev, data, results):
                     log(f"  moments 1024x768x768 masked: kernel {ms:.3f} ms,"
                         f" plain {pms:.3f} ms, bound {bms:.3f} ms ({by})")
     del cube
+
+
+def op_timer_hold(ms, fn, x, coords):
+    """``profiling.OpTimer`` on the moments wrapper at the pipeline's shape,
+    1 and 5 calls between its CUDA events, against ``cuda_ms``'s median
+    ``ms`` of the same call: within a factor of 2."""
+    from spectral_cube_tpu_torch import profiling
+    timer = profiling.OpTimer()
+    got = {reps: timer.time(f"moments loop_reps={reps}", fn, x, coords, 1,
+                            0.75, None, False, loop_reps=reps) * 1e3
+           for reps in (1, 5)}
+    log("  OpTimer on the moments wrapper (623x768x768, NaN border): "
+        + ", ".join(f"loop_reps {r}: {t:.3f} ms" for r, t in got.items())
+        + f"; cuda_ms {ms:.3f} ms\n" + timer.report())
+    for reps, t in got.items():
+        if not ms / 2 <= t <= 2 * ms:
+            raise AssertionError(f"OpTimer loop_reps={reps} {t:.3f} ms "
+                                 f"against cuda_ms {ms:.3f} ms")
+
+
+def memory_stats_hold(dev, held):
+    """``profiling.device_memory_stats(dev)`` held against sources of its
+    own: the peak equal to ``torch.cuda.max_memory_allocated``, the limit
+    equal to the total of the device's properties, the bytes in use at
+    least ``held`` (tensors known to live on the card) and no more than the
+    peak, and a fresh allocation of MEMORY_PROBE bytes adding exactly that
+    to the bytes in use, within the peak."""
+    import torch
+    from spectral_cube_tpu_torch import profiling
+    mem = profiling.device_memory_stats(dev)
+    x = torch.empty(MEMORY_PROBE // 4, device=dev)
+    grown = profiling.device_memory_stats(dev)
+    del x
+    log(f"  device_memory_stats after the traced call: {mem}; with "
+        f"{MEMORY_PROBE} bytes more: {grown}")
+    if mem["peak_bytes_in_use"] != torch.cuda.max_memory_allocated(dev) \
+            or mem["bytes_limit"] != \
+            torch.cuda.get_device_properties(dev).total_memory \
+            or not held <= mem["bytes_in_use"] <= mem["peak_bytes_in_use"] \
+            or grown["bytes_in_use"] - mem["bytes_in_use"] != MEMORY_PROBE \
+            or grown["peak_bytes_in_use"] < grown["bytes_in_use"]:
+        raise AssertionError(f"device_memory_stats {mem}, then {grown}; "
+                             f"{held} bytes held on the card")
 
 
 def phase_moments_include(x, coords):
@@ -834,6 +986,10 @@ def phase_pipeline(dev, workdir):
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
     log(f"  run_pipeline again: {warm * 1e3:.1f} ms end to end")
+    traced_path("run_pipeline", dev, lambda: T.run_pipeline(
+        cube, snr_threshold=SNR, target_beam=target_beam,
+        target_header=target_header))
+    memory_stats_hold(dev, cube._data.nbytes + res["cube"]._data.nbytes)
 
     m0 = np.asarray(res["moments"][0].value)
     out = res["cube"]
@@ -993,6 +1149,7 @@ def phase_spectral(dev, workdir, results):
     from spectral_cube_tpu_torch.io.fits_low import HDU, write_fits
     from spectral_cube_tpu_torch.kernels import sigma_clip as kc
     from spectral_cube_tpu_torch.kernels import smooth_interp as ks
+    from spectral_cube_tpu_torch import profiling
     from spectral_cube_tpu_torch.ops import interpolate as oi
     from spectral_cube_tpu_torch.ops import smoothing as osm
     log("phase spectral path (kernels sigma_clip and smooth_interp)")
@@ -1044,6 +1201,25 @@ def phase_spectral(dev, workdir, results):
     log(f"  spectral path, second call: "
         + ", ".join(f"{k} {v:.1f} ms" for k, v in steady.items())
         + f" (total {sum(steady.values()):.1f} ms)")
+    traced_path("spectral path", dev, lambda: cube.spectral_smooth(kern)
+                .spectral_interpolate(grid, smooth_kernel=kern)
+                .sigma_clip_spectrally(CLIP_SIGMA))
+    # a ProgressCallback through a cube method's update_function hook: one
+    # call a spaxel
+    buf = io.StringIO()
+    cut = cube[:, :PROGRESS_CUT, :PROGRESS_CUT]
+    cb = profiling.ProgressCallback(PROGRESS_CUT ** 2, desc="sigma clip",
+                                    stream=buf)
+    cut.sigma_clip_spectrally(CLIP_SIGMA, update_function=cb)
+    cb.close()
+    if cb.count != PROGRESS_CUT ** 2 or not buf.getvalue().endswith(
+            "sigma clip 100.0%\n"):
+        raise AssertionError(f"ProgressCallback: count {cb.count}, "
+                             f"{buf.getvalue()[-40:]!r}")
+    log(f"  ProgressCallback through sigma_clip_spectrally(update_function=)"
+        f" on a {cut.shape} cut: {cb.count} calls, stream ends "
+        f"{buf.getvalue()[-19:]!r}")
+    del cut
     nout = (NCHAN + 1) // 2
     if si.shape != (nout, NY, NX) or sc.shape != (nout, NY, NX):
         raise AssertionError(f"spectral path shapes {si.shape} {sc.shape}")
@@ -1711,6 +1887,8 @@ def phase_vrsc(dev, workdir, results):
     torch.cuda.synchronize()
     second = (time.perf_counter() - t0) * 1e3
     log(f"  (a) run_pipeline again: {second:.1f} ms")
+    traced_path("VRSC (a)", dev, lambda: T.run_pipeline(
+        cube, snr_threshold=SNR, target_header=target))
     m0, m1, _ = (np.asarray(p.value) for p in res["moments"])
     rep = res["cube"]._data
     if rep.shape != (NCHAN, NY, NX) or m0.shape != (NY, NX):
@@ -3337,6 +3515,7 @@ def phase_sharded(dev, workdir):
     del res
     res = sharded("a run_pipeline sharded (second call)",
                   lambda: T.run_pipeline(sc, cmesh, **kw))
+    traced_path("sharded (a)", dev, lambda: T.run_pipeline(sc, cmesh, **kw))
     kernel_errs = {"a": held_run("a", "a run_pipeline sharded",
                                  lambda: T.run_pipeline(sc, cmesh, **kw),
                                  SHARDED_KERNELS["a"])}
@@ -3702,6 +3881,10 @@ def main():
         + f"; peak {api_peak / 2**30:.2f} GiB; spatial cut copy "
         f"{api_copy:.3f} ms; moments launches "
         + ", ".join(f"{k} {v}" for k, v in api_launches.items()))
+    for line in TRACE_LINES:
+        log(line)
+    if len(TRACE_LINES) != 4:
+        raise AssertionError(f"{len(TRACE_LINES)} traced paths, not 4")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

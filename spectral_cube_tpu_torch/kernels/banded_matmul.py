@@ -402,7 +402,8 @@ def banded_matmul(flat, bands):
     with ``flat`` (nin, S).  A CPU tensor takes the plain version; a CUDA
     tensor the kernel, whose plan :func:`prepare` packs and uploads once
     per operator (ValueError where its spans are too wide for the
-    kernel's shared memory)."""
+    kernel's shared memory): one call launches ``banded_matmul_kernel``
+    once on the device, after the plan's upload where it is new."""
     _check(flat, bands)
     if flat.device.type == "cpu":
         return banded_matmul_plain(flat, bands)

@@ -152,7 +152,9 @@ def conv_reproject(raw, gy, gx, my, mx, ry, rx, valid_plane):
     1e-6, resampled by ``ry``/``rx`` (:class:`Rows2`), NaN where the
     resampled NaN flags exceed 1e-6.  All-NaN channels: NaN.  NaN where
     ``valid_plane`` is False.  A CPU tensor takes the plain version; a
-    CUDA tensor the kernel."""
+    CUDA tensor the kernel: one call launches two kernels on the device,
+    ``chan_flags_kernel`` (after a memset of the flags) and
+    ``conv_reproject_kernel`` in mode 0."""
     _check(raw, gy, gx, my, mx, ry, rx, valid_plane)
     if raw.device.type == "cpu":
         return conv_reproject_plain(raw, gy, gx, my, mx, ry, rx,
@@ -170,7 +172,9 @@ def plain_strips(x, ybands, xbands, group_idx):
     """(nchan, ny_out, nx_out): ``out[c] = sum_i My[g, i] @ X[c] @
     Mx[g, i]^T`` with g = ``group_idx[c]``, no NaN handling (finite input;
     a NaN spreads along its taps).  A CPU tensor takes the plain version;
-    a CUDA tensor the kernel (the clean branch of :func:`conv_reproject`)."""
+    a CUDA tensor the kernel (the clean branch of :func:`conv_reproject`):
+    one call launches ``conv_reproject_kernel`` in mode 1 once on the
+    device, with no flag pass."""
     if x.ndim != 3:
         raise ValueError(f"x must be (nchan, ny, nx), got {tuple(x.shape)}")
     group_idx = np.asarray(group_idx, dtype=np.int32)

@@ -41,7 +41,9 @@ def _check_inputs(data, ytaps, xtaps, hy, hx, group_idx):
 def conv_sep(data, ytaps, xtaps, hy, hx, group_idx):
     """out[c] = sum_i My[g,i] @ X[c] @ Mx[g,i]^T, g = group_idx[c], with
     normalized-convolution NaN handling.  A CPU tensor takes the plain
-    version; a CUDA tensor the kernel."""
+    version; a CUDA tensor the kernel: one call launches two kernels on
+    the device, ``channel_flags_kernel`` (the channels holding NaN, after a
+    memset of their flags) and ``conv_sep_kernel``."""
     _check_inputs(data, ytaps, xtaps, hy, hx, group_idx)
     if data.device.type == "cpu":
         return conv_sep_plain(data, ytaps, xtaps, hy, hx, group_idx)

@@ -121,7 +121,8 @@ def moments_planes(data, xc, cmp_op=0, threshold=0.0, include=None,
     ``xc``: (nchan,) centered spectral coordinates; ``cmp_op``/``threshold``:
     the fused comparison (0 = none, else a key of :data:`CMP_OPS`);
     ``include``: optional bool/uint8 array of the data's shape.
-    A CPU tensor takes the plain version; a CUDA tensor the kernel."""
+    A CPU tensor takes the plain version; a CUDA tensor the kernel: one
+    call launches ``moments_kernel`` once on the device."""
     _check_inputs(data, include)
     if data.device.type == "cpu":
         return moments_planes_plain(data, xc, cmp_op, threshold, include,

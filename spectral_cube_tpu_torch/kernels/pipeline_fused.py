@@ -37,7 +37,9 @@ def pipeline_fused(raw, gy, gx, my, mx, ry, rx, valid_plane, xc, cmp_op=0,
     """``(out, planes, count)``: :func:`~.conv_reproject.conv_reproject`'s
     cube and :func:`~.moments.moments_planes`' with-stats planes of ``raw``
     at centered coordinates ``xc``, from one pass over the cube.  A CPU
-    tensor takes the plain version; a CUDA tensor the kernel."""
+    tensor takes the plain version; a CUDA tensor the kernel: one call
+    launches two kernels on the device, ``chan_flags_kernel`` (after a
+    memset of the flags) and ``conv_reproject_kernel`` in mode 2."""
     _check(raw, gy, gx, my, mx, ry, rx, valid_plane)
     _check_mask(raw, xc, cmp_op, include)
     if raw.device.type == "cpu":

@@ -424,7 +424,9 @@ def resample2(raw, y0, wy, x0, wx, valid_plane, zvalid=None):
     """(nchan, ny_out, nx_out) resample of ``raw``: out = sum w *
     nan_to_num(Z), NaN where the NaN weight exceeds :data:`POISON`, where
     ``valid_plane`` is False and where ``zvalid`` is False.  A CPU tensor
-    takes the plain version; a CUDA tensor the kernel."""
+    takes the plain version; a CUDA tensor the kernel: one call launches
+    ``resample2_kernel`` (kFilled false) once on the device, after the
+    taps' upload where they are new."""
     if raw.ndim != 3:
         raise ValueError(f"raw must be (nchan, ny, nx), got {tuple(raw.shape)}")
     if raw.device.type == "cpu":
@@ -508,7 +510,8 @@ def resample2_filled(fz, wz, wz_any, y0, wy, x0, wx, valid_plane,
     NaNs.  The TPU kernel tests its weight block for a nonzero instead
     (banded_pallas.py:876); taking the flags saves reading ``wz`` here.
     A CPU tensor takes the plain version; a CUDA tensor the kernel, whose
-    taps, plan and flags :func:`prepare` packs into one upload."""
+    taps, plan and flags :func:`prepare` packs into one upload: one call
+    launches ``resample2_kernel`` (kFilled true) once on the device."""
     _check_filled(fz, wz, wz_any)
     taps = _host_taps(fz, y0, wy, x0, wx, valid_plane, zvalid)
     if fz.device.type == "cpu":

@@ -103,7 +103,11 @@ def sigma_clip(data, sigma, maxiters, use_mean_center):
     """Clipped copy of ``data`` (nchan, ...), spectral axis first: samples
     outside the final clip band, and non-finite samples, become NaN.
     stdfunc='std'.  A CPU tensor takes the plain version; a CUDA tensor
-    the kernel, at any spectrum length."""
+    the kernel, at any spectrum length: one call launches one kernel on
+    the device, ``sigma_clip_reg_kernel`` up to 1024 channels, else
+    ``sigma_clip_kernel``, except where a spaxel's rows outgrow shared
+    memory (beyond ~25,000 channels), which launch ``sigma_clip_kernel``
+    once per workspace chunk of spaxels."""
     _check_inputs(data, maxiters)
     if data.device.type == "cpu":
         return sigma_clip_plain(data, sigma, maxiters, use_mean_center)

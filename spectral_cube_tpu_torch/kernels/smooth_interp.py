@@ -103,7 +103,8 @@ def smooth_interp(data, M, S, I, bands=None):
     0 with the host float32 operators ``M = I @ S``, ``S`` and ``I``.  A
     CPU tensor takes the plain version; a CUDA tensor the kernel, which
     reads ``bands``, the :func:`band_rows` of (M, S, I) (computed here
-    when not given)."""
+    when not given): one call launches ``smooth_interp_kernel`` once on
+    the device (persistent blocks)."""
     M, S, I = (np.asarray(a, dtype=np.float32) for a in (M, S, I))
     _check_ops(data, M, S, I)
     if data.device.type == "cpu":

@@ -1201,3 +1201,26 @@ def test_banded_matmul_on_the_spline_operator(cuda, order):
     want = tregrid._bilinear_spatial_then_linear_z(torch.as_tensor(data), zs,
                                                    ys, xs, order)
     _close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_traced_moments_launches_equal_the_counter(cuda, tmp_path):
+    """A profiler trace of moments calls holds exactly the counter's
+    launches of the moments kernel (one a call), and nothing else of
+    ``csrc/``: the trace is held against the counters."""
+    from spectral_cube_tpu_torch import profiling
+    x = (_noise_cube((40, 24, 32), 5) + 2.0).to(cuda)
+    coords = np.linspace(0.0, 9.0, 40)
+    kmom.moments_planes(x, coords, 1, 1.7, None, False)  # build, warm up
+    K.reset_launch_counts()
+    with profiling.trace(str(tmp_path), device=cuda):
+        for with_stats in (False, True, False):
+            kmom.moments_planes(x, coords, 1, 1.7, None, with_stats)
+    counts = K.launch_counts()
+    assert counts["moments"] == 3 and sum(counts.values()) == 3
+    summary = profiling.device_summary(profiling.trace.last.events,
+                                       device_index=x.device.index or 0)
+    assert summary["device_events"] > 0 and 0.0 <= summary["idle_share"] < 1
+    traced = {k: n for k, n in summary["kernels"].items()
+              if "moments_kernel" in k}
+    assert sum(traced.values()) == 3, summary["kernels"]
+    assert profiling.trace_mismatches(summary["kernels"], counts) == {}
