@@ -126,9 +126,18 @@
    the smoothing kernel, sigma clip and moments shard by shard
    (smooth_interp, sigma_clip, moments >= 4 launches); (d) that cube
    written as a CASA image in 64 x 64 x 1 x 16 tiles and streamed onto
-   the mesh (``read_sharded_casa``) bit for bit ``SpectralCube.read``'s.
-   Each held against the unsharded call on the card at the JAX tests'
-   tolerances, NaN patterns equal; counters and launches reset just before
+   the mesh (``read_sharded_casa``) bit for bit ``SpectralCube.read``'s;
+   (e) before (a)'s cube is let go, the cube methods a ShardedCube runs
+   shard by shard on it under (a)'s SNR mask: metadata and element-wise
+   steps, reductions along the spectral axis and over the cube, the
+   moments (the kernel once a shard for the first, none after), the
+   spectral smoothing family, the spatial axes through the spectral
+   layout (all-to-alls > 0 for those alone), gathers 0 throughout; the
+   host and median filters on a 16-channel slab; ``minimal_subcube`` of
+   a box; a 64-channel float64 slab's ``mad_std`` and
+   ``run_pipeline(cmesh=)``.  Each held against the unsharded call on
+   the card at the JAX tests' tolerances ((e): bit for bit, sums within
+   1e-6), NaN patterns equal; counters and launches reset just before
    each sharded run; one "summary: sharded" line (its launches not in the
    kernels line).
 11. Holds each kernel against its plain PyTorch version on the card at the
@@ -232,7 +241,15 @@ IO_KERNELS = ("moments", "conv_sep", "resample2")
 # its paths must launch once a shard at least
 MESH_GRID = (2, 2)
 SHARDED_KERNELS = {"a": ("moments", "conv_sep", "resample2"),
-                   "c": ("smooth_interp", "sigma_clip", "moments")}
+                   "c": ("smooth_interp", "sigma_clip", "moments"),
+                   "e": ("moments",)}
+# (e), the cube methods a ShardedCube runs shard by shard: the channels of
+# the slab the host filters and the median filters run on (no host copy of
+# the whole cube), the box of the mask minimal_subcube cuts to (channels,
+# rows, columns), the channels of the float64 cube of the F5 case
+E_SLAB = 16
+E_BOX = (100, 400, 200, 600, 150, 500)
+E_F64_NCHAN = 64
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
 # the tensor cores
@@ -3396,6 +3413,222 @@ def hold_call(name, label, args, kwargs):
     raise AssertionError(f"no hold for the kernel {name}")
 
 
+def equal_nan(a, b):
+    """Two tensors of one shape hold the same values, NaN where NaN."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and bool(torch.equal(
+        torch.where(na, 0, a), torch.where(nb, 0, b)))
+
+
+def hold_result(tag, got, want, kind):
+    """A ShardedCube method's result against the unsharded call's by the
+    contract ``kind``: "exact" bit for bit (NaN where NaN), "sum" within
+    rtol 1e-6, NaN patterns equal.  A cube result: its shape, unit, WCS
+    cards and include equal, its NaN-filled data held so (on the card).
+    Returns the largest absolute difference."""
+    import torch
+    import spectral_cube_tpu_torch as T
+    rtol = 0.0 if kind == "exact" else 1e-6
+    if isinstance(got, T.ShardedCube):
+        g = got.cube
+        if g.shape != want.shape or str(g.unit) != str(want.unit) \
+                or g.wcs.to_header() != want.wcs.to_header() \
+                or not np.array_equal(g._fill_value, want._fill_value,
+                                      equal_nan=True):
+            raise AssertionError(f"{tag}: the cube's shape, unit, WCS or "
+                                 "fill value")
+        if not torch.equal(g._include_view().expand(g.shape),
+                           want._include_view().expand(want.shape)):
+            raise AssertionError(f"{tag}: the masks differ")
+        gd, wd = g._get_filled_data(), want._get_filled_data()
+        del g
+        if kind == "exact":
+            if not equal_nan(gd, wd):
+                raise AssertionError(f"{tag}: not bit for bit")
+            return 0.0
+        return close_arrays(tag, gd, wd, rtol, 0.0)
+    if isinstance(got, tuple):
+        if tuple(int(i) for i in got) != tuple(int(i) for i in want):
+            raise AssertionError(f"{tag}: {got} vs {want}")
+        return 0.0
+    g = np.asarray(getattr(got, "value", got))
+    w = np.asarray(getattr(want, "value", want))
+    if g.dtype != w.dtype:
+        raise AssertionError(f"{tag}: {g.dtype} vs {w.dtype}")
+    if kind == "exact" and g.dtype.kind != "f":
+        if not np.array_equal(g, w):
+            raise AssertionError(f"{tag}: not equal")
+        return 0.0
+    return close_arrays(tag, g, w, rtol, 0.0)
+
+
+def sharded_methods(cmesh, sc, cube, noise, sharded, timed, counters,
+                    launches):
+    """(e): the cube methods a ShardedCube runs shard by shard, on the
+    streamed 623 x 768 x 768 cube of (a) under (a)'s SNR mask (four
+    (623, 384, 384) shards): (a) metadata and element-wise steps, (b)
+    reductions along the spectral axis and over the cube and the moments,
+    (c) the spectral smoothing family, (d) the spatial axes through the
+    spectral layout.  The host filters and the median filters run on an
+    ``E_SLAB``-channel slab; ``minimal_subcube`` under the mask of the
+    box ``E_BOX`` too.  Each call with the counters, launches and peak
+    reset just before (``sharded``): gathers 0, all-to-alls > 0 exactly
+    for (d), the moments kernel 4 launches for the cube's first spectral
+    moment and none after; then the unsharded call on the card, timed,
+    and the two held by :func:`hold_result`; then each call once more,
+    timed (the steady reading).  Last the F5 case: the
+    float64 copy of ``E_F64_NCHAN`` channels, its ``mad_std`` and
+    ``run_pipeline(cmesh=)`` with the SNR threshold against the unsharded
+    runs.  Returns the largest errors."""
+    import torch
+    import scipy.ndimage as ndi
+    import spectral_cube_tpu_torch as T
+    from spectral_cube_tpu_torch.ops import smoothing as osm
+    q = T.Quantity(SNR * noise, sc.unit)
+    es = sc.with_mask(sc > q)
+    eu = cube.with_mask(cube > q)
+    eu.allow_huge_operations = True
+    sv = np.asarray(cube.spectral_axis.value)
+    unit = cube.spectral_unit
+    c0 = NCHAN // 2 - E_SLAB // 2
+
+    def chans(a, b):
+        return T.Quantity(sv[a], unit), T.Quantity(sv[b - 1], unit)
+    kern = osm.gaussian_kernel1d(SMOOTH_STDDEV)
+    box = torch.zeros(cube.shape, dtype=torch.bool, device=cube.device)
+    box[E_BOX[0]:E_BOX[1], E_BOX[2]:E_BOX[3], E_BOX[4]:E_BOX[5]] = True
+    errs = {}
+
+    def run(step, name, call, kind):
+        """``call(cube)`` on the sharded and on the unsharded cube, each
+        once more after the hold for its steady time."""
+        tag = f"e {step} {name}"
+        got = sharded(tag, lambda: call(es))
+        c = counters[tag]
+        if c["gathers"] or (c["all_to_alls"] > 0) != (step == "d"):
+            raise AssertionError(f"(e) {name}: counters {c}")
+        want = timed(tag + " unsharded", lambda: call(eu))
+        errs[name] = hold_result(f"(e) {name}", got, want, kind)
+        del got, want
+        timed(tag + " (second call)", lambda: call(es))
+        timed(tag + " unsharded (second call)", lambda: call(eu))
+
+    # the slab the host filters and the median filters take
+    run("a", "spectral_slab 16", lambda c: c.spectral_slab(
+        *chans(c0, c0 + E_SLAB)), "exact")
+    slab_s = es.spectral_slab(*chans(c0, c0 + E_SLAB))
+    slab_u = eu.spectral_slab(*chans(c0, c0 + E_SLAB))
+
+    def on_slab(call):
+        return lambda c: call(slab_s if c is es else slab_u)
+    log(f"  (e) host filters and median filters on channels {c0}:"
+        f"{c0 + E_SLAB} ({E_SLAB} x {NY} x {NX}), the rest on the whole "
+        "cube")
+
+    # (a) metadata and element-wise steps
+    run("a", "with_fill_value", lambda c: c.with_fill_value(0.0), "exact")
+    run("a", "with_spectral_unit", lambda c: c.with_spectral_unit("m/s"),
+        "exact")
+    run("a", "to K", lambda c: c.to("K"), "exact")
+    run("a", "spectral_slab half", lambda c: c.spectral_slab(
+        *chans(NCHAN // 4, 3 * NCHAN // 4)), "exact")
+    run("a", "world_extrema", lambda c: c.world_extrema, "exact")
+    # (b) along the spectral axis, over the cube, the moments
+    for name in ("moment0", "moment1", "moment2", "linewidth_sigma",
+                 "linewidth_fwhm"):
+        run("b", name, lambda c, n=name: getattr(c, n)(), "exact")
+        want = {"moments": cmesh.n_devices} if name == "moment0" else {}
+        if launches[f"e b {name}"] != want:
+            raise AssertionError(f"(e) {name}: launches "
+                                 f"{launches[f'e b {name}']}, not {want}")
+    for axis in (0, None, (1, 2)):
+        for name in ("sum", "mean", "std", "max", "min"):
+            run("b", f"{name}({axis})", lambda c, n=name, a=axis: getattr(
+                c, n)(axis=a), "sum" if name in ("sum", "mean", "std")
+                else "exact")
+    for axis in (0, None):
+        for name in ("median", "mad_std", "argmax", "argmin"):
+            run("b", f"{name}({axis})", lambda c, n=name, a=axis: getattr(
+                c, n)(axis=a), "exact")
+        run("b", f"percentile(90, {axis})",
+            lambda c, a=axis: c.percentile(90, axis=a), "exact")
+    # (c) the spectral smoothing family
+    run("c", "spectral_smooth", lambda c: c.spectral_smooth(kern), "sum")
+    run("c", "downsample_axis(2, 0)", lambda c: c.downsample_axis(2, 0),
+        "exact")
+    run("c", "spectral_smooth_median slab", on_slab(
+        lambda c: c.spectral_smooth_median(3, raise_error_jybm=False)),
+        "exact")
+    run("c", "spectral_filter slab", on_slab(
+        lambda c: c.spectral_filter(3, ndi.uniform_filter)), "exact")
+    # (d) the spatial axes through the spectral layout
+    for axis in (1, 2):
+        for name in ("sum", "max", "median", "argmax"):
+            run("d", f"{name}({axis})", lambda c, n=name, a=axis: getattr(
+                c, n)(axis=a), "sum" if name == "sum" else "exact")
+    for name in ("mean", "std", "min", "mad_std", "argmin"):
+        run("d", f"{name}(1)", lambda c, n=name: getattr(c, n)(axis=1),
+            "sum" if name in ("mean", "std") else "exact")
+    run("d", "percentile(10, 2)", lambda c: c.percentile(10, axis=2),
+        "exact")
+    for name in ("median", "mad_std"):
+        run("d", f"{name}((1, 2))", lambda c, n=name: getattr(c, n)(
+            axis=(1, 2)), "exact")
+    run("d", "std((0, 1))", lambda c: c.std(axis=(0, 1)), "sum")
+    run("d", "median((0, 2))", lambda c: c.median(axis=(0, 2)), "exact")
+    run("d", "max((0, 1))", lambda c: c.max(axis=(0, 1)), "exact")
+    for order, axis in ((0, 1), (1, 2), (2, 1)):
+        run("d", f"moment({order}, {axis})", lambda c, o=order, a=axis:
+            c.moment(order=o, axis=a), "sum")
+    run("d", "downsample_axis(2, 1)", lambda c: c.downsample_axis(2, 1),
+        "exact")
+    run("d", "downsample_axis(3, 2, max)", lambda c: c.downsample_axis(
+        3, 2, estimator="max"), "exact")
+    run("d", "spatial_smooth_median slab", on_slab(
+        lambda c: c.spatial_smooth_median(3, raise_error_jybm=False)),
+        "exact")
+    run("d", "spatial_filter slab", on_slab(
+        lambda c: c.spatial_filter(3, ndi.maximum_filter,
+                                   raise_error_jybm=False)), "exact")
+    run("d", "minimal_subcube box", lambda c: c.with_mask(
+        box).minimal_subcube(), "exact")
+    del slab_s, slab_u, es, eu, box
+    torch.cuda.empty_cache()
+    # F5: a float64 cube (the port's unsharded cube keeps a float64 tensor)
+    u64 = cube[:E_F64_NCHAN]._new_cube_with(
+        data=cube._data[:E_F64_NCHAN].double())
+    s64 = T.ShardedCube(u64, cmesh)
+    got = sharded("e F5 mad_std float64", s64.mad_std)
+    want = timed("e F5 mad_std float64 unsharded", u64.mad_std)
+    if float(got.value) != float(want.value) or counters[
+            "e F5 mad_std float64"]["gathers"]:
+        raise AssertionError(f"(e) F5 mad_std {got} vs {want}, counters "
+                             f"{counters['e F5 mad_std float64']}")
+    res = sharded("e F5 run_pipeline float64", lambda: T.run_pipeline(
+        u64, cmesh, snr_threshold=SNR))
+    if counters["e F5 run_pipeline float64"]["gathers"]:
+        raise AssertionError("(e) F5 run_pipeline gathered the cube")
+    ref = timed("e F5 run_pipeline float64 unsharded",
+                lambda: T.run_pipeline(u64, snr_threshold=SNR))
+    for i, name in enumerate(("mom0", "mom1", "linewidth")):
+        errs[f"F5 {name}"] = close_arrays(
+            f"(e) F5 {name}", np.asarray(res["moments"][i].value),
+            np.asarray(ref["moments"][i].value), 1e-6, 0.0)
+    st, sr = res["statistics"], ref["statistics"]
+    if st["npts"] != sr["npts"] or any(
+            abs(float(st[k].value) - float(sr[k].value))
+            > 1e-5 * abs(float(sr[k].value))
+            for k in ("mean", "sigma", "sum", "max", "min", "rms")):
+        raise AssertionError(f"(e) F5 statistics {st} vs {sr}")
+    log(f"  (e) F5: float64 mad_std {float(got.value)!r} both ways; "
+        "run_pipeline(cmesh=) on the float64 cube held against the "
+        "unsharded run")
+    return errs
+
+
 def phase_sharded(dev, workdir):
     """The multi-device layer on a 2 x 2 mesh of four shards on one card
     (``parallel``): (a) the pipeline's FITS file streamed onto the mesh
@@ -3403,9 +3636,10 @@ def phase_sharded(dev, workdir):
     VRSC file (a) onto the rotated grid (the FFT reshard and the reshard
     reprojection); (c) the spectral path's cube: smooth + interpolate,
     sigma clip and moments shard by shard; (d) a tiled CASA image of it
-    streamed onto the mesh.  Each held against the unsharded call on the
-    same card; counters and launches reset just before each sharded run
-    and read just after."""
+    streamed onto the mesh; (e) the cube methods shard by shard on (a)'s
+    cube (:func:`sharded_methods`).  Each held against the unsharded call
+    on the same card; counters and launches reset just before each
+    sharded run and read just after."""
     import shutil
     import torch
     import spectral_cube_tpu_torch as T
@@ -3534,7 +3768,20 @@ def phase_sharded(dev, workdir):
                 lambda: T.run_pipeline(cube, **kw))
     errs["a"] = hold_pipeline("(a)", res, ref)
     log(f"  (a) against the unsharded run: largest errors {errs['a']}")
-    del sc, res, ref, cube
+    del res, ref
+    torch.cuda.empty_cache()
+    t_e = time.perf_counter()
+    errs["e"] = sharded_methods(cmesh, sc, cube, noise, sharded, timed,
+                                counters, launches)
+    q = T.Quantity(SNR * noise, sc.unit)
+    kernel_errs["e"] = held_run("e", "e b moment0",
+                                lambda: sc.with_mask(sc > q).moment0(),
+                                SHARDED_KERNELS["e"])
+    times["e wall"] = (time.perf_counter() - t_e) * 1e3
+    log(f"  (e) the cube methods shard by shard against the unsharded "
+        f"calls, wall {times['e wall'] / 1e3:.1f} s: largest errors "
+        f"{errs['e']}")
+    del sc, cube
     torch.cuda.empty_cache()
 
     # (b) VRSC file (a): the FFT route and the reshard reprojection

@@ -21,6 +21,7 @@ into the block.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import warnings
 from collections import namedtuple
@@ -36,6 +37,7 @@ from ..ops import moments as _mom
 from ..ops import reductions as _red
 
 __all__ = ["sharded_moments", "sharded_statistics", "sharded_mad_std",
+           "sharded_percentile",
            "halo_pad", "sharded_convolve_per_channel_separable",
            "sharded_spatial_convolve", "sharded_spectral_convolve_fft",
            "sharded_sigma_clip", "sharded_spectral_interpolate",
@@ -156,6 +158,18 @@ def _match(arr, like):
                         like.index)
 
 
+def _spectral_blocks(cmesh, data, pad_value):
+    """Each position's aligned block (C_p/n, ny_p, nx_p) of ``data`` in
+    the spectral layout, whole planes of a slab of channels, padded with
+    ``pad_value``: two counted all-to-alls from the spatial layout, none
+    from the spectral one."""
+    if isinstance(data, ShardedArray) and data.cmesh is cmesh \
+            and data.layout == "spectral":
+        return cmesh._tile(data, "spectral", pad_value)
+    return cmesh._spectral_tiles(cmesh._tile(
+        _sharded(data, cmesh), "spatial", pad_value, cmesh.n_devices))
+
+
 def _include_tile(inc, mask_expr, d):
     """The include of the tile ``d``: its stored part ``inc``, the
     data-local expression evaluated on ``d``, both, or None."""
@@ -270,32 +284,61 @@ def sharded_statistics(data, cmesh: CubeMesh, include=None, mask_expr=None):
             "rms": vals[6]}
 
 
+#: the integer type whose bits a float of each width is read as
+_BITS = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _check_orderable(dtype):
+    """Refuse the types the unsharded ``reductions.masked_percentile``
+    does not reduce either: complex (torch sorts no complex values) and
+    bool (``masked_mad_std`` subtracts)."""
+    if dtype.is_complex or dtype == torch.bool:
+        raise NotImplementedError(f"order statistics of {dtype} cubes: "
+                                  "the unsharded reductions refuse them too")
+
+
+def _keys_of(s):
+    """Integer keys of the values ``s`` that order as the values do: a
+    float's bits (16-bit floats widened to int32, which every searchsorted
+    takes), its negative half reversed (``i ^ max`` where ``i < 0``); an
+    integer type's values as int64.  NaN, positive as the fills of this
+    module make it, keys above every finite value."""
+    if not s.dtype.is_floating_point:
+        return s.to(torch.int64)
+    bits = _BITS[s.element_size()]
+    i = s.view(bits)
+    i = torch.where(i < 0, i ^ torch.iinfo(bits).max, i)
+    return i.to(torch.int32) if s.element_size() < 4 else i
+
+
+def _values_of(k, dtype):
+    """The values of ``dtype`` whose keys (:func:`_keys_of`) are the
+    integer tensor ``k``."""
+    if not dtype.is_floating_point:
+        return k.to(dtype)
+    bits = _BITS[torch.empty((), dtype=dtype).element_size()]
+    i = k.to(bits)
+    return torch.where(i < 0, i ^ torch.iinfo(bits).max, i).view(dtype)
+
+
 def _sorted_keys(x):
-    """int32 keys of the float32 values ``x``, ascending and in the
-    values' order: the values sorted (-0.0 taken as +0.0, an equal value
-    the keys must not split), each value's bits made to order as the
-    value does."""
-    i = torch.sort(x + 0.0).values.view(torch.int32)
-    return torch.where(i < 0, i ^ 0x7FFFFFFF, i)
-
-
-def _key_value(k):
-    """The float32 value of a key of :func:`_sorted_keys`."""
-    i = k ^ 0x7FFFFFFF if k < 0 else k
-    return float(np.array([i], np.int32).view(np.float32)[0])
+    """The keys of the values ``x``, ascending: the values sorted (-0.0
+    taken as +0.0, an equal value the keys must not split), then keyed."""
+    return _keys_of(torch.sort(x + 0).values)
 
 
 def _count_le(cmesh, keys, k):
     """How many keys of every shard are <= ``k``: a search in each shard's
     sorted keys, summed over the mesh."""
     return int(_to_first(cmesh, [torch.searchsorted(
-        kk, torch.tensor([k], dtype=torch.int32, device=kk.device),
+        kk, torch.tensor([k], dtype=kk.dtype, device=kk.device),
         right=True)[0] for kk in keys]).sum())
 
 
 def _select(cmesh, keys, k):
     """The ``k``-th smallest (0-based) of the shards' sorted keys: a
-    bisection over the int32 key range, each step one count."""
+    bisection over the key range (at most as many steps as the keys have
+    bits), each step one count."""
     lo = min(int(kk[0]) for kk in keys if kk.numel())
     hi = max(int(kk[-1]) for kk in keys if kk.numel())
     while lo < hi:
@@ -307,11 +350,12 @@ def _select(cmesh, keys, k):
     return lo
 
 
-def _median(cmesh, keys, n, like):
-    """``masked_median``'s value (the two bracketing order statistics at
-    0.5 * (n - 1), lerped as ``reductions._lerp_sorted`` does) of the
-    ``n`` keys of every shard, as a 0-d tensor like ``like``."""
-    pos = 0.5 * (n - 1)
+def _percentile_of(cmesh, keys, n, q, dtype):
+    """``masked_percentile(axis=None)``'s value (the two bracketing order
+    statistics at q/100 * (n - 1), lerped as ``reductions._lerp_sorted``
+    does) of the ``n`` keys of every shard, values of ``dtype``: a 0-d
+    tensor on the mesh's first device."""
+    pos = q / 100.0 * (n - 1)
     lo_i = int(math.floor(pos))
     hi_i = min(lo_i + 1, n - 1)
     k_lo = k_hi = _select(cmesh, keys, lo_i)
@@ -320,38 +364,177 @@ def _median(cmesh, keys, n, like):
         nxt = []
         for kk in keys:
             j = int(torch.searchsorted(kk, torch.tensor(
-                [k_lo], dtype=torch.int32, device=kk.device), right=True)[0])
+                [k_lo], dtype=kk.dtype, device=kk.device), right=True)[0])
             if j < kk.numel():
                 nxt.append(int(kk[j]))
         k_hi = min(nxt)
-    t = [torch.tensor(_key_value(k), dtype=like.dtype, device=like.device)
-         for k in (k_lo, k_hi)]
-    return _red._lerp_sorted(t[0], t[1], pos - lo_i)
+    lo_v, hi_v = _values_of(torch.tensor([k_lo, k_hi]), dtype).to(
+        cmesh.devices[0])
+    return _red._lerp_sorted(lo_v, hi_v, pos - lo_i)
+
+
+def _valid_values(data, cmesh, include, mask_expr):
+    """Each shard's included finite values, flat, from its tile's part
+    inside the cube."""
+    src = _sharded(data, cmesh)
+    _check_orderable(src.dtype)
+    tiles, inc, shape = _pad_spatial(
+        src, cmesh, NAN if src.dtype.is_floating_point else 0, include)
+    out = []
+    for p, d in enumerate(tiles):
+        h, w = _tile_extent(cmesh, p, shape[1:], d.shape[1:])
+        d = d[:, :h, :w]
+        i = _include_tile(None if inc is None else inc[p][:, :h, :w],
+                          mask_expr, d)
+        out.append(d[_red.valid_mask(d, i)])
+    return out
+
+
+def sharded_percentile(data, q, cmesh: CubeMesh, include=None,
+                       mask_expr=None):
+    """The ``q``-th percentile of the included finite voxels of a sharded
+    cube (the unsharded ``reductions.masked_percentile(axis=None)``,
+    exactly): each shard sorts its own values, and each order statistic
+    is found by bisecting the values' ordered bit patterns, every step a
+    count of each shard's sorted keys summed over the mesh, so no shard's
+    data leaves its device.  Returns a 0-d tensor on the mesh's first
+    device."""
+    vals = _valid_values(data, cmesh, include, mask_expr)
+    n = sum(v.numel() for v in vals)
+    if n == 0:
+        return torch.tensor(NAN, dtype=vals[0].dtype,
+                            device=cmesh.devices[0])
+    return _percentile_of(cmesh, [_sorted_keys(v) for v in vals], n,
+                          float(q), vals[0].dtype)
 
 
 def sharded_mad_std(data, cmesh: CubeMesh, include=None, mask_expr=None):
     """``mad_std`` of the included finite voxels of a sharded cube (the
-    unsharded ``reductions.masked_mad_std``, exactly): each shard sorts
-    its own values, as the unsharded cube sorts all of them, and each
-    median is found by bisecting the float32 values' ordered bit
-    patterns, every step a count of each shard's sorted keys summed over
-    the mesh, so no shard's data leaves its device.  Returns a 0-d tensor
-    on the mesh's first device."""
-    tiles, inc, _ = _pad_spatial(data, cmesh, NAN, include)
-    if tiles[0].dtype != torch.float32:
-        raise NotImplementedError("the sharded mad_std takes float32 cubes")
-    vals = [d[_red.valid_mask(d, _include_tile(
-        None if inc is None else inc[p], mask_expr, d))]
-        for p, d in enumerate(tiles)]
-    del tiles
-    like = torch.empty((), dtype=torch.float32, device=cmesh.devices[0])
+    unsharded ``reductions.masked_mad_std``, exactly): the median of the
+    values, then the median of their absolute deviations from it, each as
+    :func:`sharded_percentile` finds it.  Float cubes of every width and
+    integer cubes, as the unsharded reduction takes them.  Returns a 0-d
+    tensor on the mesh's first device."""
+    vals = _valid_values(data, cmesh, include, mask_expr)
     n = sum(v.numel() for v in vals)
     if n == 0:
-        return torch.tensor(NAN, dtype=like.dtype, device=like.device)
-    med = _median(cmesh, [_sorted_keys(v) for v in vals], n, like)
-    mad = _median(cmesh, [_sorted_keys(torch.abs(v - med.to(v.device)))
-                          for v in vals], n, like)
+        return torch.tensor(NAN, dtype=vals[0].dtype,
+                            device=cmesh.devices[0])
+    med = _percentile_of(cmesh, [_sorted_keys(v) for v in vals], n, 50.0,
+                         vals[0].dtype)
+    dev = [torch.abs(v - med.to(v.device)) for v in vals]
+    del vals
+    mad = _percentile_of(cmesh, [_sorted_keys(v) for v in dev], n, 50.0,
+                         dev[0].dtype)
     return _red.MAD_STD_FACTOR * mad
+
+
+# ---------------------------------------------------------------------------
+# reductions along lanes: every part holds some values of every lane
+# ---------------------------------------------------------------------------
+def _lane_select(cmesh, keys, counts, k):
+    """Per lane, the ``k``-th smallest (0-based; ``k`` a (L,) int64 tensor
+    on the first device) of the parts' keys: ``keys[p]`` (L, m_p) sorted
+    along each lane, its first ``counts[p]`` (L,) entries the lane's
+    values.  A bisection of every lane at once over its key range, each
+    step one batched count of each part summed over the mesh."""
+    dev = cmesh.devices[0]
+    big = torch.iinfo(torch.int64).max
+    lo = torch.full_like(k, big)
+    hi = torch.full_like(k, -big)
+    for kk, c in zip(keys, counts):
+        has = (c > 0).to(dev)
+        first = kk[:, 0].to(dev, torch.int64)
+        last = kk.gather(1, (c - 1).clamp(min=0)[:, None])[:, 0].to(
+            dev, torch.int64)
+        lo = torch.where(has, torch.minimum(lo, first), lo)
+        hi = torch.where(has, torch.maximum(hi, last), hi)
+    hi = torch.maximum(hi, lo)       # an empty lane: nothing to bisect
+    while bool((lo < hi).any()):
+        # floor((lo + hi) / 2), with no overflow over the int64 keys
+        mid = (lo >> 1) + (hi >> 1) + (lo & hi & 1)
+        n = sum(torch.searchsorted(
+            kk, mid.to(kk.device, kk.dtype)[:, None], right=True)[:, 0]
+            .to(dev) for kk in keys)
+        up = n >= k + 1
+        hi = torch.where(up, mid, hi)
+        lo = torch.where(up, lo, mid + 1)
+    return lo
+
+
+def _lane_percentile(cmesh, parts, q):
+    """``masked_percentile`` along lanes (bit for bit): ``parts[p]`` is a
+    (L, m_p) tensor of the lanes' values on position p, NaN where a value
+    is not valid.  The two bracketing order statistics of each lane at
+    q/100 * (n - 1), its position, fraction and lerp computed as the
+    unsharded reduction computes them.  Returns (L,) on the first
+    device."""
+    dev = cmesh.devices[0]
+    dtype = parts[0].dtype
+    lanes = parts[0].shape[0]
+    parts = [x for x in parts if x.shape[1]]
+    if not parts:
+        return torch.full((lanes,), NAN, dtype=dtype, device=dev)
+    keys = [_keys_of(torch.sort(x, dim=1).values) for x in parts]
+    counts = [(~torch.isnan(x)).sum(1) for x in parts]
+    n = sum(c.to(dev) for c in counts)
+    pos = float(q) / 100.0 * (n - 1).to(torch.float64)
+    lo = torch.clamp(torch.floor(pos), min=0)
+    frac = (pos - lo).to(dtype)
+    lo = lo.to(torch.int64)
+    hi = torch.minimum(lo + 1, torch.clamp(n - 1, min=0))
+    out = _red._lerp_sorted(_values_of(_lane_select(cmesh, keys, counts, lo),
+                                       dtype),
+                            _values_of(_lane_select(cmesh, keys, counts, hi),
+                                       dtype), frac)
+    return torch.where(n > 0, out, NAN)
+
+
+def _lane_order(cmesh, name, parts, q=None):
+    """The order statistic ``name`` (median, percentile, mad_std) along
+    lanes of the parts (:func:`_lane_percentile`)."""
+    if name != "mad_std":
+        return _lane_percentile(cmesh, parts, 50.0 if q is None else q)
+    med = _lane_percentile(cmesh, parts, 50.0)
+    dev = [torch.abs(x - med.to(x.device)[:, None]) for x in parts]
+    return _red.MAD_STD_FACTOR * _lane_percentile(cmesh, dev, 50.0)
+
+
+def _lane_moments(cmesh, name, parts, ddof=0):
+    """sum, mean, std, max or min along lanes of the parts (``parts[p]``
+    a pair (x, valid) of (L, m_p) tensors), every part's partial
+    reduced over the mesh: sums, counts and centred squares in float64,
+    extremes in the values' type; a lane with no valid value is NaN (and
+    std's lane with no more than ``ddof``).  Returns (L,) on the first
+    device in the type the unsharded reduction gives."""
+    dtype = parts[0][0].dtype
+    out_dtype = dtype if dtype.is_floating_point else torch.float32
+    lanes = parts[0][0].shape[0]
+    parts = [(x, v) for x, v in parts if x.shape[1]]
+    if not parts:
+        return torch.full((lanes,), NAN, dtype=out_dtype,
+                          device=cmesh.devices[0])
+    f64 = torch.float64
+    cnt = _to_first(cmesh, [v.sum(1) for _, v in parts]).sum(0)
+    if name in ("max", "min"):
+        fill, red = (-math.inf, torch.amax) if name == "max" \
+            else (math.inf, torch.amin)
+        m = red(_to_first(cmesh, [red(torch.where(v, x, fill), 1)
+                                  for x, v in parts]), 0)
+        return torch.where(cnt > 0, m, NAN)
+    s = _to_first(cmesh, [torch.where(v, x, 0).sum(1, dtype=f64)
+                          for x, v in parts]).sum(0)
+    if name == "sum":
+        return torch.where(cnt > 0, s, NAN).to(out_dtype)
+    n = cnt.to(f64)
+    mean = s / torch.clamp(n, min=1)
+    if name == "mean":
+        return torch.where(cnt > 0, mean, NAN).to(out_dtype)
+    s2 = _to_first(cmesh, [torch.where(
+        v, (x.to(f64) - mean.to(x.device)[:, None]) ** 2, 0).sum(1)
+        for x, v in parts]).sum(0)
+    var = s2 / torch.clamp(n - ddof, min=1)
+    return torch.where(n > ddof, torch.sqrt(var), NAN).to(out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -820,6 +1003,14 @@ def sharded_reproject(data, zs, ys, xs, cmesh: CubeMesh, order=1):
 # ---------------------------------------------------------------------------
 # ShardedCube: the cube facade bound to a mesh
 # ---------------------------------------------------------------------------
+#: the unsharded reductions a ShardedCube runs on its tiles and slabs
+_REDUCERS = {"sum": _red.masked_sum, "mean": _red.masked_mean,
+             "std": _red.masked_std, "max": _red.masked_max,
+             "min": _red.masked_min, "median": _red.masked_median,
+             "mad_std": _red.masked_mad_std,
+             "percentile": lambda d, v, axis, q: _red.masked_percentile(
+                 d, v, q, axis=axis)}
+
 #: attributes a ShardedCube reads from its metadata cube (no data needed)
 _METADATA = frozenset({
     "unit", "wcs", "spectral_axis", "spectral_unit", "header", "meta",
@@ -828,7 +1019,19 @@ _METADATA = frozenset({
     "pixels_per_beam", "common_beam", "closest_spectral_channel",
     "_wcs", "_meta", "_unit", "_fill_value", "_beam", "_beams",
     "_goodbeams_mask", "_header", "_nowcs_header", "_spectral_offsets",
-    "_spectral_pix_size", "_result_beam"})
+    "_spectral_pix_size", "world", "world_extrema", "longitude_extrema",
+    "latitude_extrema", "spectral_extrema", "spatial_coordinate_map"})
+
+
+def _tmp_dir_option(method):
+    """The cube's ``save_to_tmp_dir=`` option of cube-returning methods:
+    the resulting ShardedCube written to a temporary store and read back
+    (:meth:`ShardedCube.rechunk`, through the gathered cube)."""
+    @functools.wraps(method)
+    def wrapper(self, *args, save_to_tmp_dir=False, **kwargs):
+        out = method(self, *args, **kwargs)
+        return out.rechunk(save_to_tmp_dir=True) if save_to_tmp_dir else out
+    return wrapper
 
 
 def _placeholder(shape, dtype, device):
@@ -847,10 +1050,27 @@ class ShardedCube:
     as a mask object, evaluated on each shard as the cube's indexing cuts
     it (``mask[index].include(data=block)``), and/or a sharded include
     array that a sharded operation produced; and a metadata cube (WCS,
-    unit, beams, meta; its data a one-value placeholder).  Methods it
-    does not define run on :attr:`cube`, the cube gathered on the mesh's
-    first device (a counted gather; in the JAX package GSPMD partitions
-    them), and a cube they return is sharded again."""
+    unit, beams, meta; its data a one-value placeholder).
+
+    Shard by shard, each result the unsharded method's: the moments and
+    linewidths (the maps cached, the moments kernel once a shard), the
+    reductions (``sum``, ``mean``, ``std``, ``max``, ``min``, ``median``,
+    ``percentile``, ``mad_std``, ``argmax``, ``argmin``) along any axis,
+    ``statistics``, the spectral smoothing family, ``spatial_smooth`` and
+    the spatial median and host filters, ``downsample_axis``,
+    ``sigma_clip_spectrally``, ``spectral_interpolate``, bilinear
+    ``reproject``, ``convolve_to``, ``spectral_slab``, ``minimal_subcube``,
+    ``to``, ``with_mask``, ``with_fill_value``, ``with_spectral_unit`` and
+    the WCS attributes.  Along the spectral axis each tile's whole
+    spectra; over the cube partials reduced over the mesh; along a spatial
+    axis each slab of whole planes of the spectral layout (all-to-alls).
+    Methods it does not define run on :attr:`cube`, the cube gathered on
+    the mesh's first device (a counted gather; in the JAX package GSPMD
+    partitions them), and a cube they return is sharded again:
+    ``write``, the spline orders of ``reproject``,
+    ``apply_numpy_function`` / ``apply_function``, the
+    ``unmasked_data[...]`` / ``filled_data[...]`` indexers and whatever
+    else the cube has."""
 
     def __init__(self, cube, cmesh: CubeMesh | None = None):
         if cmesh is not None and not isinstance(cmesh, CubeMesh):
@@ -877,6 +1097,7 @@ class ShardedCube:
         self._mask = mask
         self._include = None if include is None else _match(include, data)
         self._gathered = None
+        self._moments = None
 
     @classmethod
     def _from_parts(cls, cmesh, data, template, mask=None, include=None):
@@ -927,7 +1148,7 @@ class ShardedCube:
         DaskSpectralCube mirroring of SpectralCube)."""
         if name.startswith("__") or name in ("cmesh", "_data", "_template",
                                              "_mask", "_include",
-                                             "_gathered"):
+                                             "_gathered", "_moments"):
             raise AttributeError(name)
         if name in _METADATA:
             return getattr(self._template, name)
@@ -1062,31 +1283,353 @@ class ShardedCube:
                          mask=mask if old is None else CompositeMask(
                              old, mask, "and"))
 
-    # -- the sharded operations -------------------------------------------
+    # -- the blocks the methods run on -----------------------------------
+    def _tiles(self, filled=False):
+        """Each position's aligned spatial tile (nchan, py, px), NaN past
+        the cube, and the include of its values (the stored part and the
+        mask evaluated on the tile; None where nothing is masked);
+        ``filled`` sets the excluded values to NaN.  No communication."""
+        include, expr = self._mask_args()
+        tiles, inc, _ = _pad_spatial(self._data, self.cmesh, NAN, include)
+        incs = [_include_tile(None if inc is None else inc[p], expr, d)
+                for p, d in enumerate(tiles)]
+        if filled:
+            tiles = [d if i is None else torch.where(i, d, NAN)
+                     for d, i in zip(tiles, incs)]
+        return tiles, incs
+
+    def _slabs(self, filled=False):
+        """Each position's slab of whole planes, cut to the cube (the
+        spectral layout: two counted all-to-alls, two more for a stored
+        include or a mask that is not data-local), and its include, as
+        :meth:`_tiles` gives them."""
+        include, expr = self._mask_args()
+        slabs = self._slab_parts(self._data, NAN)
+        inc = None if include is None else self._slab_parts(include, False)
+        incs = [_include_tile(None if inc is None else inc[p], expr, d)
+                for p, d in enumerate(slabs)]
+        if filled:
+            slabs = [d if i is None else torch.where(i, d, NAN)
+                     for d, i in zip(slabs, incs)]
+        return slabs, incs
+
+    def _slab_parts(self, arr, pad_value):
+        """Each position's slab of whole planes of the ShardedArray
+        ``arr``, cut to the cube (:func:`_spectral_blocks`)."""
+        nchan, ny, nx = self.shape
+        blocks = _spectral_blocks(self.cmesh, arr, pad_value)
+        cb = blocks[0].shape[0]
+        return [b[:max(0, min((p + 1) * cb, nchan) - p * cb), :ny, :nx]
+                for p, b in enumerate(blocks)]
+
+    def _from_slabs(self, outs, shape):
+        """A spatial-layout ShardedArray of ``shape`` from each slab's
+        result (its channels, whole planes): two counted all-to-alls."""
+        return self.cmesh.reshard(self.cmesh._from_spectral(outs, shape),
+                                  "spatial")
+
+    def _planes_of(self, outs):
+        """The (ny, nx) host map assembled from each tile's plane (a 2-D
+        assembly, not a counted gather)."""
+        return np.asarray(_planes(self.cmesh, outs, self.shape[1:]))
+
+    def _concat(self, outs):
+        """Each slab's result stacked along its channels, on the mesh's
+        first device."""
+        dev = self.cmesh.devices[0]
+        return torch.cat([o.to(dev) for o in outs])
+
+    def _channels_included(self):
+        """Per channel, whether it holds an included voxel (host bool), or
+        None where nothing is masked."""
+        inc = self._include_parts()
+        if inc is None:
+            return None
+        out = np.zeros(self.shape[0], bool)
+        for b, ix in zip(inc.blocks, inc.index):
+            if b.numel():
+                out[ix[0]] |= b.flatten(1).any(1).cpu().numpy()
+        return out
+
+    def _result_beam(self):
+        """The beam of a spectral reduction: the template's, and for a
+        varying-resolution cube the average of the good beams of the
+        channels that hold an included voxel, with the warning, as the
+        unsharded ``average_beams(mask='compute')`` gives it."""
+        from ..utils import BeamAverageWarning, NoBeamError
+        t = self._template
+        chans = self._channels_included() \
+            if getattr(t, "_beams", None) is not None else None
+        if chans is None:
+            return t._result_beam()
+        warnings.warn("Arithmetic beam averaging is being performed.",
+                      BeamAverageWarning)
+        try:
+            return t._beams.average_beam(
+                include_mask=chans & t._goodbeams_mask)
+        except (ValueError, NoBeamError):
+            return None
+
+    def _wrap(self, out, axis, unit):
+        """A reduction's result as the unsharded ``_reduce`` returns it:
+        a Quantity, a Projection carrying :meth:`_result_beam` along the
+        spectral axis, or the template's lower-dimensional object."""
+        from ..units import Quantity
+        from ..lower_dimensional_structures import Projection
+        t = self._template
+        if axis is None:
+            return Quantity(out.item(), unit)
+        out = out.cpu().numpy() if isinstance(out, torch.Tensor) else out
+        if axis != 0:
+            return t._wrap_projection(out, axis, unit)
+        meta = {"collapse_axis": 0}
+        meta.update(t._meta)
+        beam = self._result_beam()
+        if beam is not None:
+            meta["beam"] = beam
+        return Projection(out, unit=unit, wcs=t._wcs.dropaxis(2), meta=meta,
+                          header=t._nowcs_header, beam=beam)
+
+    # -- reductions --------------------------------------------------------
+    def _reduce(self, name, axis=None, unit=None, **kwargs):
+        """The unsharded ``_reduce`` of the reduction ``name`` (sum, mean,
+        std, max, min, median, percentile, mad_std), shard by shard:
+
+        - along the spectral axis each tile holds whole spectra: the
+          unsharded reduction on each tile, the maps assembled;
+        - over the cube (``axis=None``), sums, counts and extremes reduced
+          over the mesh, order statistics by :func:`sharded_percentile`'s
+          bisection;
+        - over the planes (``axis=(1, 2)``), partial spectra of each tile
+          reduced over the mesh; order statistics on the slabs below;
+        - along a spatial axis each slab of the spectral layout holds
+          whole planes: the unsharded reduction on each slab, the maps
+          stacked; with the spectral axis too, every slab's partials (or
+          its values' bisection, :func:`_lane_select`) over the mesh."""
+        t = self._template
+        if isinstance(axis, (tuple, list)):
+            axis = tuple(sorted(int(a) % 3 for a in axis))
+            if axis == (0, 1, 2):
+                axis = None
+        elif axis is not None:
+            axis = int(axis) % 3
+        axes = {0, 1, 2} if axis is None else set(np.atleast_1d(axis))
+        if 0 in axes and hasattr(t, "_check_beam_areas"):
+            t._check_beam_areas()
+        unit = unit if unit is not None else t.unit
+        q = kwargs.get("q")
+        fn = _REDUCERS[name]
+        order = name in ("median", "percentile", "mad_std")
+        if order:
+            _check_orderable(self.dtype)
+        if axes == {0}:
+            tiles, incs = self._tiles()
+            out = self._planes_of([fn(d, _red.valid_mask(d, i), axis=axis,
+                                      **kwargs)
+                                   for d, i in zip(tiles, incs)])
+        elif axis is None and order:
+            include, expr = self._mask_args()
+            if name == "mad_std":
+                out = sharded_mad_std(self._data, self.cmesh, include, expr)
+            else:
+                out = sharded_percentile(self._data, 50.0 if q is None
+                                         else q, self.cmesh, include, expr)
+        elif axis is None or (axes == {1, 2} and not order):
+            tiles, incs = self._tiles()
+            lead = 1 if axis is None else self.shape[0]
+            out = _lane_moments(self.cmesh, name, [
+                (d.reshape(lead, -1), _red.valid_mask(d, i).expand(
+                    d.shape).reshape(lead, -1))
+                for d, i in zip(tiles, incs)], **kwargs)
+            out = out[0] if axis is None else out
+        elif 0 not in axes:
+            slabs, incs = self._slabs()
+            out = self._concat([fn(d, _red.valid_mask(d, i), axis=axis,
+                                   **kwargs) for d, i in zip(slabs, incs)
+                                if d.shape[0]])
+        else:
+            # (0, 1) or (0, 2): the kept spatial axis is each slab's lanes
+            keep = ({1, 2} - axes).pop()
+            perm = (keep, 0, 3 - keep)
+            slabs, incs = self._slabs()
+            valid = [_red.valid_mask(d, i).expand(d.shape)
+                     for d, i in zip(slabs, incs)]
+            if order:
+                out = _lane_order(self.cmesh, name, [
+                    torch.where(v, d, NAN).permute(*perm).reshape(
+                        d.shape[keep], -1) for d, v in zip(slabs, valid)],
+                    q=q)
+            else:
+                out = _lane_moments(self.cmesh, name, [
+                    (d.permute(*perm).reshape(d.shape[keep], -1),
+                     v.permute(*perm).reshape(d.shape[keep], -1))
+                    for d, v in zip(slabs, valid)], **kwargs)
+        return self._wrap(out, axis, unit)
+
+    def sum(self, axis=None, how=None, **kwargs):
+        return self._reduce("sum", axis=axis)
+
+    def mean(self, axis=None, how=None, **kwargs):
+        return self._reduce("mean", axis=axis)
+
+    def std(self, axis=None, ddof=0, how=None, **kwargs):
+        return self._reduce("std", axis=axis, ddof=ddof)
+
+    def max(self, axis=None, how=None, **kwargs):
+        return self._reduce("max", axis=axis)
+
+    def min(self, axis=None, how=None, **kwargs):
+        return self._reduce("min", axis=axis)
+
+    def median(self, axis=None, how=None, **kwargs):
+        return self._reduce("median", axis=axis)
+
+    def percentile(self, q, axis=None, how=None, **kwargs):
+        return self._reduce("percentile", axis=axis, q=q)
+
+    def mad_std(self, axis=None, how=None, **kwargs):
+        """mad_std; over the whole cube found over the mesh without moving
+        the data (:func:`sharded_mad_std`)."""
+        return self._reduce("mad_std", axis=axis)
+
+    def _arg_extremum(self, name, axis):
+        """argmax / argmin as the unsharded cube gives them: along an axis
+        the unsharded reduction on each tile (spectral) or slab (spatial);
+        over the cube each tile's first extremum and its flat index, the
+        first in C order of the extremes winning, as ``masked_argmax``
+        breaks ties."""
+        fn = _red.masked_argmax if name == "argmax" else _red.masked_argmin
+        if axis is not None:
+            axis = int(axis) % 3
+            if axis == 0:
+                tiles, incs = self._tiles()
+                return self._planes_of([fn(d, _red.valid_mask(d, i), axis=0)
+                                        for d, i in zip(tiles, incs)])
+            slabs, incs = self._slabs()
+            return self._concat([fn(d, _red.valid_mask(d, i), axis=axis)
+                                 for d, i in zip(slabs, incs)
+                                 if d.shape[0]]).cpu().numpy()
+        tiles, incs = self._tiles()
+        fill = -math.inf if name == "argmax" else math.inf
+        better = (lambda a, b: a > b) if name == "argmax" \
+            else (lambda a, b: a < b)
+        py, px = tiles[0].shape[1:]
+        best = None
+        for p, (d, i) in enumerate(zip(tiles, incs)):
+            h, w = _tile_extent(self.cmesh, p, self.shape[1:], (py, px))
+            if h == 0 or w == 0 or d.shape[0] == 0:
+                continue
+            vals = torch.where(_red.valid_mask(d, i)[:, :h, :w],
+                               d[:, :h, :w], fill).reshape(-1)
+            j = int(torch.argmax(vals) if name == "argmax"
+                    else torch.argmin(vals))
+            c, y, x = np.unravel_index(j, (d.shape[0], h, w))
+            iy, ix = divmod(p, self.cmesh.grid[1])
+            flat = int(np.ravel_multi_index((c, iy * py + y, ix * px + x),
+                                            self.shape))
+            v = float(vals[j])
+            if best is None or better(v, best[0]) or (
+                    v == best[0] and flat < best[1]):
+                best = (v, flat)
+        return np.unravel_index(best[1] if best else 0, self.shape)
+
+    def argmax(self, axis=None, how=None, **kwargs):
+        return self._arg_extremum("argmax", axis)
+
+    def argmin(self, axis=None, how=None, **kwargs):
+        return self._arg_extremum("argmin", axis)
+
+    # -- moments -----------------------------------------------------------
+    def _moments012(self):
+        """(mom0, mom1, mom2) host maps along the spectral axis from one
+        sharded pass (the moments kernel once a shard), kept for the
+        ShardedCube's life as the unsharded ``_moments012`` is cached."""
+        if self._moments is None:
+            t = self._template
+            include, expr = self._mask_args()
+            maps = [np.asarray(m) for m in sharded_moments(
+                self._data, t._spectral_offsets(), t._spectral_pix_size(),
+                self.cmesh, include=include, mask_expr=expr)]
+            maps[1] = maps[1] + float(np.asarray(t.spectral_axis.value)[0])
+            self._moments = tuple(maps)
+        return self._moments
+
     def moment_maps(self):
         """(mom0, mom1, mom2) Projections in one sharded pass (the moments
         kernel on each shard)."""
+        return tuple(self._moment_projection(m, order, 0, "sharded")
+                     for order, m in enumerate(self._moments012()))
+
+    def _moment_projection(self, out, order, axis, how):
         from ..lower_dimensional_structures import Projection
+        from ..units import Unit
         t = self._template
-        include, expr = self._mask_args()
-        maps = [np.asarray(m) for m in sharded_moments(
-            self._data, t._spectral_offsets(), t._spectral_pix_size(),
-            self.cmesh, include=include, mask_expr=expr)]
-        maps[1] = maps[1] + float(np.asarray(t.spectral_axis.value)[0])
-        beam = t._result_beam()
-        out = []
-        for order, m in enumerate(maps):
-            unit = t.unit * t.spectral_unit if order == 0 \
-                else t.spectral_unit ** max(order, 1)
-            meta = {"moment_order": order, "moment_axis": 0,
-                    "moment_method": "sharded"}
-            meta.update(t._meta)
-            if beam is not None:
-                meta["beam"] = beam
-            out.append(Projection(m, unit=unit, wcs=t._wcs.dropaxis(2),
-                                  meta=meta, header=t._nowcs_header,
-                                  beam=beam))
-        return tuple(out)
+        axunit = t.spectral_unit if axis == 0 else Unit.parse("deg")
+        unit = t.unit * axunit if order == 0 else axunit ** max(order, 1)
+        meta = {"moment_order": order, "moment_axis": axis,
+                "moment_method": how}
+        meta.update(t._meta)
+        beam = self._result_beam() if axis == 0 else None
+        if beam is not None:
+            meta["beam"] = beam
+        return Projection(out, unit=unit, wcs=t._wcs.dropaxis(2 - axis),
+                          meta=meta, header=t._nowcs_header, beam=beam)
+
+    def moment(self, order=0, axis=0, how="auto", **kwargs):
+        """The unsharded ``moment``: orders 0-2 along the spectral axis
+        from the cached moments pass, other orders on each tile, and along
+        a spatial axis on each slab of whole planes."""
+        from ..utils import VarianceWarning
+        t = self._template
+        axis = int(axis) % 3
+        if axis == 0 and hasattr(t, "_check_beam_areas"):
+            t._check_beam_areas()
+        if axis == 0 and order == 2:
+            warnings.warn("Note that the second moment returned will be a "
+                          "variance map. To get a linewidth map, use the "
+                          "SpectralCube.linewidth_fwhm() or "
+                          "SpectralCube.linewidth_sigma() methods instead.",
+                          VarianceWarning)
+        if axis == 0 and order in (0, 1, 2):
+            out = self._moments012()[order]
+        else:
+            coords, dx = t._moment_coords(axis)
+            parts, incs = self._tiles() if axis == 0 else self._slabs()
+            outs = [_mom.moment_generic(d, coords, dx, order, axis=axis,
+                                        include=i)
+                    for d, i in zip(parts, incs) if axis == 0 or d.shape[0]]
+            out = self._planes_of(outs) if axis == 0 \
+                else self._concat(outs).cpu().numpy()
+        return self._moment_projection(out, order, axis, how)
+
+    def moment0(self, axis=0, how="auto", **kwargs):
+        return self.moment(order=0, axis=axis, how=how, **kwargs)
+
+    def moment1(self, axis=0, how="auto", **kwargs):
+        return self.moment(order=1, axis=axis, how=how, **kwargs)
+
+    def moment2(self, axis=0, how="auto", **kwargs):
+        return self.moment(order=2, axis=axis, how=how, **kwargs)
+
+    def linewidth_sigma(self, how="auto"):
+        """sqrt(moment2) (reference spectral_cube.py:1746-1755)."""
+        from ..lower_dimensional_structures import Projection
+        from ..utils import VarianceWarning
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", VarianceWarning)
+            mom2 = self.moment(order=2, axis=0, how=how)
+        with np.errstate(invalid="ignore"):
+            vals = np.sqrt(np.asarray(mom2.value))
+        return Projection(vals, unit=self._template.spectral_unit,
+                          wcs=mom2.wcs, meta=mom2.meta, header=mom2._header,
+                          beam=mom2._beam)
+
+    def linewidth_fwhm(self, how="auto"):
+        from ..lower_dimensional_structures import Projection
+        sig = self.linewidth_sigma(how=how)
+        return Projection(np.asarray(sig.value) * _mom.SIGMA2FWHM, unit=sig.unit,
+                          wcs=sig.wcs, meta=sig.meta, header=sig._header,
+                          beam=sig._beam)
 
     def statistics(self):
         """Global statistics (CASA ``ia.statistics`` naming) reduced over
@@ -1101,17 +1644,6 @@ class ShardedCube:
             out[k] = Quantity(raw[k], unit)
         out["sumsq"] = Quantity(raw["sumsq"], unit ** 2)
         return out
-
-    def mad_std(self, axis=None, how=None, **kwargs):
-        """The whole cube's mad_std, found over the mesh without moving
-        the data; along an axis it runs on the gathered cube."""
-        if axis is not None:
-            return self.cube.mad_std(axis=axis, how=how, **kwargs)
-        from ..units import Quantity
-        include, expr = self._mask_args()
-        v = sharded_mad_std(self._data, self.cmesh, include=include,
-                            mask_expr=expr)
-        return Quantity(v.item(), self._template.unit)
 
     def sigma_clip_spectrally(self, threshold, maxiters=5,
                               cenfunc="median", stdfunc="std"):
@@ -1273,3 +1805,248 @@ class ShardedCube:
             beam=beam, allow_huge_operations=t.allow_huge_operations)
         return self._new(out, template, mask=self._mask,
                          include=self._include)
+
+    # -- metadata and element-wise steps: no exchange -----------------------
+    def with_fill_value(self, fill_value):
+        return self._new(self._data, self._template.with_fill_value(
+            fill_value), mask=self._mask, include=self._include)
+
+    def with_spectral_unit(self, unit, velocity_convention=None,
+                           rest_value=None):
+        """The spectral axis converted (the template's WCS); the data as it
+        is."""
+        return self._new(self._data, self._template.with_spectral_unit(
+            unit, velocity_convention=velocity_convention,
+            rest_value=rest_value), mask=self._mask, include=self._include)
+
+    def to(self, unit, equivalencies=()):
+        """Brightness-unit conversion: each block times the unsharded
+        call's factor, per channel where the conversion needs it
+        (``cube_utils.bunit_converters`` of the template).  No block
+        leaves its device, so the unsharded call's guard on huge cubes
+        does not apply."""
+        from ..cube_utils import bunit_converters
+        from ..units import Unit
+        unit = Unit.parse(unit) if isinstance(unit, str) else unit
+        factors = bunit_converters(self._template, unit,
+                                   equivalencies=equivalencies)
+        d = self._data
+        if factors.size == 1:
+            blocks = [b * float(factors[0]) for b in d.blocks]
+        else:
+            blocks = [b * torch.as_tensor(factors[ix[0]], dtype=b.dtype,
+                                          device=b.device)[:, None, None]
+                      for b, ix in zip(d.blocks, d.index)]
+        return self._new(ShardedArray(self.cmesh, d.layout, d.shape, blocks,
+                                      d.index),
+                         self._template_like(self.shape, unit=unit),
+                         mask=self._mask, include=self._include)
+
+    def _template_view(self, view, raw_view):
+        """The template cut by the slices ``view`` (canonical, step 1), as
+        the unsharded ``__getitem__`` cuts a cube: the WCS, the beams of a
+        varying-resolution cube, ``meta['slice']`` (of ``raw_view`` where
+        the unsharded base class records the view as given)."""
+        t = self._template
+        shape = tuple(s.stop - s.start for s in view)
+        kw = {}
+        if getattr(t, "_beams", None) is not None:
+            kw = {"beams": t._beams[view[0]],
+                  "goodbeams_mask": t._goodbeams_mask[view[0]]}
+            raw_view = view
+        meta = dict(t._meta)
+        meta["slice"] = [(v.start, v.stop, v.step) for v in raw_view]
+        return t._new_cube_with(
+            data=_placeholder(shape, t.dtype, self.cmesh.devices[0]),
+            wcs=t._wcs.slice(view, shape=self.shape), mask=None, meta=meta,
+            **kw)
+
+    def _cut(self, raw_view):
+        """The cube cut by a view of unit-step slices, as ``cube[view]``:
+        a channel range in the spatial layout, each block its own
+        channels (no exchange); a spatial box in the spectral layout,
+        where each slab crops its whole planes, then back (four counted
+        all-to-alls, two more for a stored include)."""
+        from ..cube_utils import canon_view
+        view = canon_view(tuple(raw_view) + (slice(None),) * (
+            3 - len(raw_view)), self.shape)
+        if any(v.step != 1 for v in view):
+            raise ValueError("a ShardedCube is cut by unit-step slices")
+        (c0, c1), (y0, y1), (x0, x1) = [(v.start, max(v.start, v.stop))
+                                        for v in view]
+        view = tuple(slice(a, b, 1) for a, b in ((c0, c1), (y0, y1),
+                                                  (x0, x1)))
+        nchan, ny, nx = self.shape
+        cmesh = self.cmesh
+
+        def cut(arr, pad):
+            if arr is None:
+                return None
+            if (y0, y1, x0, x1) != (0, ny, 0, nx):
+                blocks = [b[:, y0:y1, x0:x1]
+                          for b in _spectral_blocks(cmesh, arr, pad)]
+                arr = cmesh.reshard(cmesh._from_spectral(
+                    blocks, (nchan, y1 - y0, x1 - x0)), "spatial")
+            if (c0, c1) == (0, nchan):
+                return arr
+            tiles = cmesh._tile(arr, "spatial", pad)
+            return cmesh._from_spatial([t[c0:c1] for t in tiles],
+                                       (c1 - c0, y1 - y0, x1 - x0))
+        return self._new(cut(self._data, 0.0),
+                         self._template_view(view, raw_view),
+                         mask=None if self._mask is None
+                         else self._mask[view],
+                         include=cut(self._include, False))
+
+    def spectral_slab(self, lo, hi):
+        """The channel range covering [lo, hi] (the unsharded
+        ``spectral_slab``): each block keeps its own channels."""
+        t = self._template
+        ilo = t.closest_spectral_channel(lo)
+        ihi = t.closest_spectral_channel(hi)
+        if ilo > ihi:
+            ilo, ihi = ihi, ilo
+        return self._cut((slice(ilo, ihi + 1), slice(None), slice(None)))
+
+    def minimal_subcube(self, spatial_only=False):
+        """The bounding box of the included voxels (the unsharded
+        ``minimal_subcube``): each block's any() profiles, combined on the
+        host, then :meth:`_cut`."""
+        inc = self._include_parts()
+        if inc is None:
+            return self._cut((slice(None),) * 3)
+        profiles = [np.zeros(n, bool) for n in self.shape]
+        for b, ix in zip(inc.blocks, inc.index):
+            if not b.numel():
+                continue
+            for ax in range(3):
+                other = tuple(a for a in range(3) if a != ax)
+                profiles[ax][ix[ax]] |= b.any(other[1]).any(
+                    other[0]).cpu().numpy()
+        slices = []
+        for ax, prof in enumerate(profiles):
+            w = np.flatnonzero(prof)
+            if not w.size:
+                slices.append(slice(0, 0))
+            elif spatial_only and ax == 0:
+                slices.append(slice(None))
+            else:
+                slices.append(slice(int(w[0]), int(w[-1]) + 1))
+        return self._cut(tuple(slices))
+
+    # -- the spectral smoothing family: each tile's whole spectra ----------
+    def _check_spectral_smoothing(self, method):
+        """A varying-resolution cube refuses spectral smoothing: the
+        template's method raises as the unsharded cube's does."""
+        if getattr(self._template, "_beams", None) is not None:
+            getattr(self._template, method)()
+
+    def _per_tile(self, fn):
+        """``fn`` of each NaN-filled tile, a cube of the same shape: the
+        same mask and include over the new data."""
+        tiles, _ = self._tiles(filled=True)
+        return self._with_data(self.cmesh._from_spatial(
+            [fn(t) for t in tiles], self.shape))
+
+    @_tmp_dir_option
+    def spectral_smooth(self, kernel, convolve=None, verbose=0,
+                        parallel=None, num_cores=None, **kwargs):
+        """Smooth along the spectral axis (the unsharded
+        ``ops/smoothing.spectral_smooth_cube``) tile by tile."""
+        from ..cube import _check_parallel_options, _kernel_array
+        from ..ops.smoothing import spectral_smooth_cube
+        self._check_spectral_smoothing("spectral_smooth")
+        _check_parallel_options(parallel, num_cores)
+        karr = _kernel_array(kernel)
+        return self._per_tile(lambda t: spectral_smooth_cube(t, karr))
+
+    @_tmp_dir_option
+    def spectral_smooth_median(self, ksize, raise_error_jybm=True,
+                               parallel=None, num_cores=None,
+                               update_function=None, **kwargs):
+        """Median filter along the spectral axis tile by tile; the
+        progress hook once a spaxel of the cube."""
+        from ..cube import _check_parallel_options
+        from ..ops.smoothing import spectral_median_filter_cube
+        t = self._template
+        t._check_jybeam_smoothing(raise_error_jybm)
+        _check_parallel_options(parallel, num_cores)
+        out = self._per_tile(lambda d: spectral_median_filter_cube(d, ksize))
+        t._call_per_spaxel(update_function)
+        return out
+
+    @_tmp_dir_option
+    def spectral_filter(self, ksize, filter, parallel=None, num_cores=None,
+                        use_memmap=None, update_function=None, **kwargs):
+        """A scipy-style filter along the spectral axis on the host, one
+        tile at a time; the progress hook once a spaxel of the cube."""
+        from ..cube import _as_tensor, _check_parallel_options
+        _check_parallel_options(parallel, num_cores)
+        out = self._per_tile(lambda d: _as_tensor(filter(
+            d.cpu().numpy(), size=(ksize, 1, 1), **kwargs), d.device))
+        self._template._call_per_spaxel(update_function)
+        return out
+
+    # -- the spatial axes: each slab's whole planes -------------------------
+    def _per_slab(self, fn):
+        """``fn`` of each NaN-filled slab of whole planes, a cube of the
+        same shape: the same mask and include over the new data (four
+        counted all-to-alls)."""
+        slabs, _ = self._slabs(filled=True)
+        return self._with_data(self._from_slabs([fn(s) for s in slabs],
+                                                self.shape))
+
+    def spatial_smooth_median(self, ksize, raise_error_jybm=True, **kwargs):
+        """Median filter of each channel map (reflected at the cube's
+        border, as the unsharded call), slab by slab."""
+        from ..ops.smoothing import spatial_median_filter_cube
+        self._template._check_jybeam_smoothing(raise_error_jybm)
+        return self._per_slab(lambda d: spatial_median_filter_cube(d, ksize))
+
+    @_tmp_dir_option
+    def spatial_filter(self, ksize, filter, raise_error_jybm=True,
+                       parallel=None, num_cores=None, use_memmap=None,
+                       update_function=None, **kwargs):
+        """A scipy.ndimage filter over each spatial plane on the host, one
+        slab at a time; the progress hook once a channel."""
+        from ..cube import _as_tensor, _check_parallel_options
+        self._template._check_jybeam_smoothing(raise_error_jybm)
+        _check_parallel_options(parallel, num_cores)
+        ky, kx = (ksize, ksize) if np.isscalar(ksize) else tuple(ksize)
+        out = self._per_slab(lambda d: _as_tensor(filter(
+            d.cpu().numpy(), size=(1, ky, kx), **kwargs), d.device))
+        if update_function is not None:
+            for _ in range(int(self.shape[0])):
+                update_function()
+        return out
+
+    @_tmp_dir_option
+    def downsample_axis(self, factor, axis, estimator="mean", truncate=False,
+                        use_memmap=None, progressbar=None):
+        """Block-downsample (the unsharded ``downsample_axis``): along the
+        spectral axis tile by tile, along a spatial axis slab by slab; a
+        mask becomes the block-any of its include, stored sharded."""
+        from ..ops.interpolate import downsample_axis, downsample_include
+        axis = int(axis) % 3
+        parts, incs = self._tiles(filled=True) if axis == 0 \
+            else self._slabs(filled=True)
+        outs = [downsample_axis(d, factor, axis, estimator=estimator,
+                                truncate=truncate) for d in parts]
+        shape = list(self.shape)
+        shape[axis] = outs[0].shape[axis]
+        shape = tuple(shape)
+        masked = self._mask is not None or self._include is not None
+        if masked:
+            raw = self._include_parts()
+            inc = [downsample_include(i, factor, axis, truncate=truncate)
+                   for i in (_pad_spatial(raw, self.cmesh, False)[0]
+                             if axis == 0 else self._slab_parts(raw, False))]
+        assemble = (lambda o: self.cmesh._from_spatial(o, shape)) \
+            if axis == 0 else (lambda o: self._from_slabs(o, shape))
+        view = [slice(None)] * 3
+        view[axis] = slice(None, None, int(factor))
+        t = self._template
+        template = self._template_like(shape, wcs=t._wcs.slice(
+            tuple(view), shape=self.shape))
+        return self._new(assemble(outs), template,
+                         include=assemble(inc) if masked else None)

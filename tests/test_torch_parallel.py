@@ -329,9 +329,10 @@ def test_use_mesh_context(tmesh):
 
 
 def test_sharded_cube_delegation(tmp_path, tmesh, jmesh):
-    """ShardedCube quacks like the cube: metadata without a gather,
-    un-overridden methods on the gathered cube (one counted gather), and
-    cube-returning ones sharded again."""
+    """ShardedCube quacks like the cube: metadata without a gather, its
+    own methods (``spectral_slab``) shard by shard, un-overridden methods
+    on the gathered cube (one counted gather), and cube-returning ones
+    sharded again."""
     path, data = make_cube_file(tmp_path, shape=(8, 16, 16))
     tc, jc = _read(path)
     sc = tpar.ShardedCube(tc, tmesh)
@@ -344,7 +345,10 @@ def test_sharded_cube_delegation(tmp_path, tmesh, jmesh):
                            T.Quantity(-318.7, "km / s"))
     jsub = jsc.spectral_slab(J.Quantity(-321.2, "km / s"),
                              J.Quantity(-318.7, "km / s"))
+    assert tmesh.counters["gathers"] == 0
+    peak = sc.apply_numpy_function(np.nanmax)
     assert tmesh.counters["gathers"] == 1
+    assert peak == np.nanmax(data.astype("f4"))
     assert isinstance(sub, tpar.ShardedCube)
     assert sub.shape == jsub.shape and sub.shape[0] == 3
     m0 = sub.moment_maps()[0]
@@ -887,30 +891,63 @@ def test_sharded_cube_reproject_header(tmp_path, tmesh, jmesh):
            tc.reproject(hdr, order="bicubic").unmasked_data[:], 1e-6)
 
 
-def test_sharded_mad_std_is_the_unsharded_value(tmesh):
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_sharded_mad_std_is_the_unsharded_value(tmesh, dtype):
     """mad_std found over the mesh (each shard's values sorted, a
     bisection on their bit patterns, counts summed per step) is the
     unsharded value exactly, for odd and even counts, negative values,
-    ties and signed zeros, and a mask."""
+    ties and signed zeros, and a mask; a float64 tensor keyed by its
+    64-bit patterns, as the unsharded float64 cube reduces it."""
     from spectral_cube_tpu_torch.ops import reductions as rd
     rng = np.random.RandomState(11)
     for n_nan, ties in ((0, False), (1, False), (1, True)):
-        data = (rng.randn(9, 10, 13) * 3 - 1).astype("f4")
+        data = (rng.randn(9, 10, 13) * 3 - 1).astype(dtype)
         if ties:
             # repeated values, zeros of both signs at the median
-            data = np.round(data * 0.3).astype("f4")
+            data = np.round(data * 0.3).astype(dtype)
             data[data == 0] *= np.where(rng.rand(int((data == 0).sum()))
-                                        > 0.5, -1, 1).astype("f4")
+                                        > 0.5, -1, 1).astype(dtype)
         data[0, 0, :n_nan] = np.nan
         inc = rng.rand(*data.shape) > 0.3
         t = torch.from_numpy(data)
         for include in (None, inc):
             want = rd.masked_mad_std(t, rd.valid_mask(
                 t, None if include is None else torch.from_numpy(include)))
-            got = tpar.sharded_mad_std(data, tmesh, include=include)
+            got = tpar.sharded_mad_std(t, tmesh, include=include)
+            assert got.dtype == want.dtype == t.dtype
             assert float(got) == float(want)
     assert tmesh.counters == {"halo_exchanges": 0, "all_to_alls": 0,
                               "gathers": 0}
+
+
+def test_sharded_pipeline_float64_cube(tmp_path, tmesh, jmesh):
+    """``run_pipeline(cmesh=)`` on a float64 tensor cube, as the port's
+    unsharded cube keeps one: its noise, the sharded mad_std of the
+    float64 values, is the unsharded value exactly, and the run equals the
+    unsharded float64 run (the masked cube bit for bit, the moments within
+    rtol 1e-6, the statistics, computed in float32 as the moments kernel
+    computes them, within the JAX tests' 1e-5) with no gather of the cube;
+    the noise is within rtol 1e-6 of the JAX package's, which holds the
+    cube in float32."""
+    path, data = make_cube_file(tmp_path, shape=(12, 9, 10))
+    tc, jc = _read(path)
+    c64 = tc._new_cube_with(data=tc._data.double())
+    assert c64.dtype == torch.float64
+    noise = tpar.ShardedCube(c64, tmesh).mad_std()
+    assert float(noise.value) == float(c64.mad_std().value)
+    assert float(noise.value) == pytest.approx(float(jc.mad_std().value),
+                                               rel=1e-6)
+    tmesh.reset_counters()
+    res = T.run_pipeline(c64, tmesh, snr_threshold=1.0)
+    assert tmesh.counters["gathers"] == 0
+    ref = T.run_pipeline(c64, snr_threshold=1.0)
+    np.testing.assert_array_equal(_np(res["cube"].cube.filled_data[:]),
+                                  _np(ref["cube"].filled_data[:]))
+    for got, want in zip(res["moments"], ref["moments"]):
+        _close(got.value, want.value, 1e-6)
+    for key in ("npts", "mean", "sigma", "sum", "max", "min", "rms"):
+        assert float(_np(res["statistics"][key])) == pytest.approx(
+            float(_np(ref["statistics"][key])), rel=1e-5)
 
 
 def test_with_mask_and_comparisons_stay_sharded(tmp_path, tmesh):
