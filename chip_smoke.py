@@ -134,12 +134,27 @@
    spectral smoothing family, the spatial axes through the spectral
    layout (all-to-alls > 0 for those alone), gathers 0 throughout; the
    host and median filters on a 16-channel slab; ``minimal_subcube`` of
-   a box; a 64-channel float64 slab's ``mad_std`` and
-   ``run_pipeline(cmesh=)``.  Each held against the unsharded call on
-   the card at the JAX tests' tolerances ((e): bit for bit, sums within
-   1e-6), NaN patterns equal; counters and launches reset just before
-   each sharded run; one "summary: sharded" line (its launches not in the
-   kernels line).
+   a box (no all-to-all: each block of the box assembled from the blocks
+   that overlap it); a 64-channel float64 slab's ``mad_std`` and
+   ``run_pipeline(cmesh=)``; (f) then the methods that gathered the cube
+   until they ran shard by shard, on the same cube and mask: ``subcube``
+   by world bounds, a DS9 circle where the four shards meet,
+   ``subcube_from_mask``, ``mask_channels``, ``with_beam``,
+   ``unmasked_copy``, ``sigma_clip``, ``argmax_world``, the
+   ``filled_data``/``unmasked_data`` indexers (a spectrum, a plane, a box
+   across the four shards, negative steps), ``flattened``, the parallel
+   apply functions, the smoothed ``spectral_interpolate`` under the mask,
+   and the spline ``reproject`` (bicubic onto the 311-channel target:
+   banded_matmul 8 launches, two a shard, its first and last launch held
+   against the plain version and timed at the tile shape; biquadratic
+   onto the rotated grid); gathers 0 in every call, a spectrum, a plane,
+   a box and a region cut each under 64 MiB above the resident cubes; one
+   "summary: sharded (f)" line.  Each held against the unsharded call on
+   the card at the JAX tests' tolerances ((e), (f): bit for bit, sums
+   within 1e-6, products whose plan follows the batch within 1e-6 and
+   atol 1e-6), NaN patterns equal; counters and launches reset just
+   before each sharded run; one "summary: sharded" line (its launches not
+   in the kernels line).
 11. Holds each kernel against its plain PyTorch version on the card at the
    paths' shapes, with and without NaN, and times the kernel, the plain
    version and, where one exists, a single PyTorch call computing the same
@@ -242,7 +257,8 @@ IO_KERNELS = ("moments", "conv_sep", "resample2")
 MESH_GRID = (2, 2)
 SHARDED_KERNELS = {"a": ("moments", "conv_sep", "resample2"),
                    "c": ("smooth_interp", "sigma_clip", "moments"),
-                   "e": ("moments",)}
+                   "e": ("moments",),
+                   "f": ("banded_matmul",)}
 # (e), the cube methods a ShardedCube runs shard by shard: the channels of
 # the slab the host filters and the median filters run on (no host copy of
 # the whole cube), the box of the mask minimal_subcube cuts to (channels,
@@ -250,6 +266,21 @@ SHARDED_KERNELS = {"a": ("moments", "conv_sep", "resample2"),
 E_SLAB = 16
 E_BOX = (100, 400, 200, 600, 150, 500)
 E_F64_NCHAN = 64
+# (f), the methods that gathered the cube before they ran shard by shard:
+# the world box of ``subcube`` (pixels: channels, rows, columns, read back
+# as world bounds), the DS9 circle's radius (pixels, centred where the
+# four shards meet), the sigma_clip threshold, the spectrum and the plane
+# the indexers read, the channels and the half width of the box they read
+# across the four shards, and the most a spectrum, a plane, a box or a
+# region cut may add above the resident cubes
+F_WORLD_BOX = (100, 400, 250, 500, 200, 520)
+F_REGION_RADIUS = 40
+F_CLIP = 3.0
+F_SPAXEL = (300, 420)
+F_PLANE = 311
+F_BOX_NCHAN = 16
+F_BOX_HALF = 32
+F_PEAK_RISE = 64 * 2**20
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
 # the tensor cores
@@ -3357,6 +3388,7 @@ def hold_call(name, label, args, kwargs):
     tolerances the kernel's own phase holds it to.  Returns the largest
     absolute error (where the kernel's check defines one)."""
     import torch
+    from spectral_cube_tpu_torch.kernels import banded_matmul as kb
     from spectral_cube_tpu_torch.kernels import conv_sep as kc
     from spectral_cube_tpu_torch.kernels import moments as km
     from spectral_cube_tpu_torch.kernels import resample2 as kr
@@ -3403,6 +3435,11 @@ def hold_call(name, label, args, kwargs):
             x, a["sigma"], a["maxiters"], a["use_mean_center"]),
             kcl.sigma_clip_plain(**a), x, a["sigma"], a["maxiters"],
             a["use_mean_center"])
+    if name == "banded_matmul":
+        a = _bind(kb.banded_matmul_plain, args, kwargs)
+        log(f"  {tag} on {tuple(a['flat'].shape)}:")
+        return compare(f"{tag} vs plain", kb.banded_matmul(*a.values()),
+                       kb.banded_matmul_plain(**a), 1e-6)[0]
     if name == "smooth_interp":
         a = _bind(ks.smooth_interp, args, kwargs)
         x = a["data"]
@@ -3426,12 +3463,15 @@ def equal_nan(a, b):
 def hold_result(tag, got, want, kind):
     """A ShardedCube method's result against the unsharded call's by the
     contract ``kind``: "exact" bit for bit (NaN where NaN), "sum" within
-    rtol 1e-6, NaN patterns equal.  A cube result: its shape, unit, WCS
-    cards and include equal, its NaN-filled data held so (on the card).
-    Returns the largest absolute difference."""
+    rtol 1e-6, "product" within rtol 1e-6 and atol 1e-6 (a product or a
+    reduction whose plan follows the batch, on unit-noise data), NaN
+    patterns equal.  A cube result: its shape, unit, WCS cards and
+    include equal, its NaN-filled data held so (on the card).  Returns the
+    largest absolute difference."""
     import torch
     import spectral_cube_tpu_torch as T
-    rtol = 0.0 if kind == "exact" else 1e-6
+    rtol, atol = {"exact": (0.0, 0.0), "sum": (1e-6, 0.0),
+                  "product": (1e-6, 1e-6)}[kind]
     if isinstance(got, T.ShardedCube):
         g = got.cube
         if g.shape != want.shape or str(g.unit) != str(want.unit) \
@@ -3449,20 +3489,23 @@ def hold_result(tag, got, want, kind):
             if not equal_nan(gd, wd):
                 raise AssertionError(f"{tag}: not bit for bit")
             return 0.0
-        return close_arrays(tag, gd, wd, rtol, 0.0)
+        return close_arrays(tag, gd, wd, rtol, atol)
     if isinstance(got, tuple):
         if tuple(int(i) for i in got) != tuple(int(i) for i in want):
             raise AssertionError(f"{tag}: {got} vs {want}")
         return 0.0
-    g = np.asarray(getattr(got, "value", got))
-    w = np.asarray(getattr(want, "value", want))
+    g, w = (getattr(x, "value", x) for x in (got, want))
+    g, w = (x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+            for x in (g, w))
     if g.dtype != w.dtype:
         raise AssertionError(f"{tag}: {g.dtype} vs {w.dtype}")
-    if kind == "exact" and g.dtype.kind != "f":
-        if not np.array_equal(g, w):
-            raise AssertionError(f"{tag}: not equal")
+    if g.shape != w.shape:
+        raise AssertionError(f"{tag}: shapes {g.shape} vs {w.shape}")
+    if kind == "exact":
+        if not np.array_equal(g, w, equal_nan=g.dtype.kind == "f"):
+            raise AssertionError(f"{tag}: not bit for bit")
         return 0.0
-    return close_arrays(tag, g, w, rtol, 0.0)
+    return close_arrays(tag, g, w, rtol, atol)
 
 
 def sharded_methods(cmesh, sc, cube, noise, sharded, timed, counters,
@@ -3593,7 +3636,9 @@ def sharded_methods(cmesh, sc, cube, noise, sharded, timed, counters,
     run("d", "spatial_filter slab", on_slab(
         lambda c: c.spatial_filter(3, ndi.maximum_filter,
                                    raise_error_jybm=False)), "exact")
-    run("d", "minimal_subcube box", lambda c: c.with_mask(
+    # a spatial cut assembles each block of the box from the blocks that
+    # overlap it: no all-to-all
+    run("cut", "minimal_subcube box", lambda c: c.with_mask(
         box).minimal_subcube(), "exact")
     del slab_s, slab_u, es, eu, box
     torch.cuda.empty_cache()
@@ -3629,6 +3674,174 @@ def sharded_methods(cmesh, sc, cube, noise, sharded, timed, counters,
     return errs
 
 
+def sharded_gathers(cmesh, sc, cube, noise, sharded, timed, times,
+                    counters, launches, peaks):
+    """(f): the ShardedCube methods that gathered the cube until they ran
+    shard by shard, on the streamed 623 x 768 x 768 cube of (a) under
+    (a)'s SNR mask (four (623, 384, 384) shards): the cuts (``subcube`` by
+    the world bounds of ``F_WORLD_BOX``, a DS9 circle where the four
+    shards meet, ``subcube_from_mask``), the edits (``mask_channels``,
+    ``with_beam``, ``unmasked_copy``), ``sigma_clip``, ``argmax_world``,
+    the indexers (a spectrum, a plane, a box across the four shards, a
+    view with negative steps), ``flattened``, the parallel apply
+    functions (a baseline subtraction per spectrum, vmapped; each plane
+    over its peak), ``spectral_interpolate`` with the smoothing kernel
+    under the SNR mask, and the spline ``reproject`` (bicubic onto
+    ``SPECTRAL_TARGET`` on the shifted grid: banded_matmul twice a shard;
+    biquadratic onto the rotated grid).  Each call with the counters,
+    launches and peak reset just before (``sharded``): gathers 0, then the
+    unsharded call on the card and the two held by :func:`hold_result`,
+    then each once more (the steady reading); the spectrum, the plane,
+    the box, the negative-step view and the region cut each add less than
+    ``F_PEAK_RISE`` above the memory allocated before the call.  #14's
+    first and last launch of the bicubic call are held against its plain
+    version and the first timed at the tile shape.  Prints the "summary:
+    sharded (f)" line; returns the largest errors and #14's hold."""
+    import torch
+    import spectral_cube_tpu_torch as T
+    from spectral_cube_tpu_torch import kernels as K
+    from spectral_cube_tpu_torch.kernels import banded_matmul as kb
+    from spectral_cube_tpu_torch.ops import smoothing as osm
+    q = T.Quantity(SNR * noise, sc.unit)
+    fs = sc.with_mask(sc > q)
+    fs.allow_huge_operations = True
+    fu = cube.with_mask(cube > q)
+    fu.allow_huge_operations = True
+    header = cube.header
+    errs, rises = {}, {}
+    tags = []
+
+    def run(name, call, kind, rise=False):
+        """``call`` on the sharded and on the unsharded cube; the sharded
+        call's peak above the memory allocated before it."""
+        tag = f"f {name}"
+        tags.append(tag)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        got = sharded(tag, lambda: call(fs))
+        rises[tag] = peaks[tag] - base
+        if counters[tag]["gathers"]:
+            raise AssertionError(f"(f) {name}: counters {counters[tag]}")
+        if rise and rises[tag] >= F_PEAK_RISE:
+            raise AssertionError(f"(f) {name}: the peak rose by "
+                                 f"{rises[tag] / 2**20:.1f} MiB")
+        want = timed(tag + " unsharded", lambda: call(fu))
+        errs[name] = hold_result(f"(f) {name}", got, want, kind)
+        del got, want
+        timed(tag + " (second call)", lambda: call(fs))
+        timed(tag + " unsharded (second call)", lambda: call(fu))
+        return tag
+
+    # the cuts
+    c0, c1, y0, y1, x0, x1 = F_WORLD_BOX
+    sv = np.asarray(cube.spectral_axis.value)
+    _, lat, lon = cube.world[0, :, :]
+    lat, lon = np.asarray(lat.value), np.asarray(lon.value)
+    deg, unit = "deg", cube.spectral_unit
+    box = dict(xlo=T.Quantity(lon[NY // 2, x0], deg),
+               xhi=T.Quantity(lon[NY // 2, x1 - 1], deg),
+               ylo=T.Quantity(lat[y0, NX // 2], deg),
+               yhi=T.Quantity(lat[y1 - 1, NX // 2], deg),
+               zlo=T.Quantity(sv[c0], unit),
+               zhi=T.Quantity(sv[c1 - 1], unit))
+    run("subcube world box", lambda c: c.subcube(**box), "exact")
+    region = (f"image; circle({NX / 2 + 0.5}, {NY / 2 + 0.5}, "
+              f"{F_REGION_RADIUS})")
+    run("subcube_from_ds9region circle", lambda c: c.subcube_from_ds9region(
+        region), "exact", rise=True)
+    plane = torch.zeros((1, NY, NX), dtype=torch.bool, device=cube.device)
+    plane[:, y0:y1, x0:x1] = True
+    region_mask = T.BooleanArrayMask(plane, shape=cube.shape)
+    run("subcube_from_mask", lambda c: c.subcube_from_mask(region_mask),
+        "exact")
+    # the edits
+    run("mask_channels", lambda c: c.mask_channels(
+        np.arange(NCHAN) % 5 != 0), "exact")
+    run("with_beam", lambda c: c.with_beam(T.Beam.make(
+        T.Quantity(TARGET_BEAM, "arcsec"))), "exact")
+    run("unmasked_copy", lambda c: c.unmasked_copy(), "exact")
+    run("sigma_clip", lambda c: c.sigma_clip(F_CLIP), "exact")
+    run("argmax_world", lambda c: c.argmax_world(), "exact")
+    # the indexers
+    y, x = F_SPAXEL
+    run("filled_data spectrum", lambda c: c.filled_data[:, y, x], "exact",
+        rise=True)
+    run("filled_data plane", lambda c: c.filled_data[F_PLANE], "exact",
+        rise=True)
+    h = F_BOX_HALF
+    run("filled_data box", lambda c: c.filled_data[
+        F_PLANE:F_PLANE + F_BOX_NCHAN, NY // 2 - h:NY // 2 + h,
+        NX // 2 - h:NX // 2 + h], "exact", rise=True)
+    run("unmasked_data negative steps", lambda c: c.unmasked_data[
+        ::-1, NY // 2, ::-3], "exact", rise=True)
+    run("flattened", lambda c: c.flattened(), "exact")
+    # the parallel apply functions
+    run("apply_function_parallel_spectral baseline", lambda c:
+        c.apply_function_parallel_spectral(
+            lambda s: s - torch.nan_to_num(s[:APPLY_BASELINE]).mean()),
+        "product")
+    # a plane over its peak: a maximum is the same in any order, so the
+    # result, and the data-local mask evaluated on it, hold bit for bit
+    run("apply_function_parallel_spatial peak", lambda c:
+        c.apply_function_parallel_spatial(
+            lambda im: im / torch.nan_to_num(im).amax()), "exact")
+    # the smoothed interpolation under the SNR mask
+    kern = osm.gaussian_kernel1d(SMOOTH_STDDEV)
+    grid = cube.spectral_axis[::2]
+    run("spectral_interpolate smoothed", lambda c: c.spectral_interpolate(
+        grid, smooth_kernel=kern), "sum")
+    # the spline orders: #14 twice a shard for the bicubic spectral step
+    target = spectral_target(header)
+    bicubic = run("reproject bicubic", lambda c: c.reproject(
+        target, order="bicubic"), "product")
+    want = {"banded_matmul": 2 * cmesh.n_devices}
+    if launches[bicubic] != want:
+        raise AssertionError(f"(f) bicubic: launches {launches[bicubic]}, "
+                             f"not {want}")
+    run("reproject biquadratic rotated", lambda c: c.reproject(
+        rotated_header(header, VR_ROTATION), order="biquadratic"),
+        "product")
+    # #14 at the tile shape: the bicubic call once more, its launches
+    # recorded, the first and last held against the plain version
+    K.reset_launch_counts()
+    with recorded_calls(SHARDED_KERNELS["f"]) as calls:
+        fs.reproject(target, order="bicubic")
+    if {k: v for k, v in K.launch_counts().items() if v} != want:
+        raise AssertionError(f"(f) the recorded bicubic call launched "
+                             f"{K.launch_counts()}")
+    bm_err = max(hold_call("banded_matmul", f"(f) {which} launch", *c)
+                 for which, c in zip(("first", "last"),
+                                     calls["banded_matmul"]))
+    a = _bind(kb.banded_matmul_plain, *calls["banded_matmul"][0])
+    del calls
+    flat, bands = a["flat"], a["bands"]
+    nin, ncol = flat.shape
+    nout = int(bands.length.shape[0])
+    ms = cuda_ms(lambda: kb.banded_matmul(flat, bands), 7)
+    pms = cuda_ms(lambda: kb.banded_matmul_plain(flat, bands), 3)
+    bms, by = bound((nin + nout) * ncol * 4,
+                    2 * int(bands.length.sum()) * ncol)
+    tile = {"shape": [nout, nin, ncol], "max_abs_err": bm_err, "ms": ms,
+            "plain_ms": pms, "bound_ms": bms, "bound_by": by}
+    del a, flat, bands
+    del fs, fu
+    torch.cuda.empty_cache()
+    log(f"summary: sharded (f) ({cmesh.grid[0]}x{cmesh.grid[1]} mesh on "
+        f"{cube.device}; sharded / unsharded ms): "
+        + ", ".join(f"{t[2:]} {times[t]:.1f} / {times[t + ' unsharded']:.1f}"
+                    f" ms (second calls {times[t + ' (second call)']:.1f} / "
+                    f"{times[t + ' unsharded (second call)']:.1f})"
+                    for t in tags)
+        + "; counters " + "; ".join(f"{t[2:]}: {counters[t]}" for t in tags)
+        + "; launches " + "; ".join(f"{t[2:]}: {launches[t]}" for t in tags
+                                    if launches[t])
+        + "; peak above the resident cubes " + ", ".join(
+            f"{t[2:]} {rises[t] / 2**20:.1f} MiB" for t in tags)
+        + "; largest errors " + json.dumps(errs)
+        + "; banded_matmul at the tile shape " + json.dumps(tile))
+    return errs, tile
+
+
 def phase_sharded(dev, workdir):
     """The multi-device layer on a 2 x 2 mesh of four shards on one card
     (``parallel``): (a) the pipeline's FITS file streamed onto the mesh
@@ -3637,9 +3850,10 @@ def phase_sharded(dev, workdir):
     reprojection); (c) the spectral path's cube: smooth + interpolate,
     sigma clip and moments shard by shard; (d) a tiled CASA image of it
     streamed onto the mesh; (e) the cube methods shard by shard on (a)'s
-    cube (:func:`sharded_methods`).  Each held against the unsharded call
-    on the same card; counters and launches reset just before each
-    sharded run and read just after."""
+    cube (:func:`sharded_methods`); (f) the methods that gathered the
+    cube until they ran shard by shard (:func:`sharded_gathers`).  Each
+    held against the unsharded call on the same card; counters and
+    launches reset just before each sharded run and read just after."""
     import shutil
     import torch
     import spectral_cube_tpu_torch as T
@@ -3781,6 +3995,13 @@ def phase_sharded(dev, workdir):
     log(f"  (e) the cube methods shard by shard against the unsharded "
         f"calls, wall {times['e wall'] / 1e3:.1f} s: largest errors "
         f"{errs['e']}")
+    t_f = time.perf_counter()
+    errs["f"], kernel_errs["f"] = sharded_gathers(
+        cmesh, sc, cube, noise, sharded, timed, times, counters, launches,
+        peaks)
+    times["f wall"] = (time.perf_counter() - t_f) * 1e3
+    log(f"  (f) the methods that gathered the cube, shard by shard, wall "
+        f"{times['f wall'] / 1e3:.1f} s")
     del sc, cube
     torch.cuda.empty_cache()
 

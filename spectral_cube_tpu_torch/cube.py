@@ -215,6 +215,27 @@ def _world_to_pixel_range(wcs, axis, lo, hi, n, n_other=None):
     return lo_p, hi_p
 
 
+def _subcube_view(cube, xlo, xhi, ylo, yhi, zlo, zhi):
+    """The slices ``cube.subcube`` cuts for pixel or world bounds, from
+    the cube's WCS and shape alone."""
+    nchan, ny, nx = cube.shape
+    xlo, xhi = _world_to_pixel_range(cube._wcs, 0, xlo, xhi, nx, n_other=ny)
+    ylo, yhi = _world_to_pixel_range(cube._wcs, 1, ylo, yhi, ny, n_other=nx)
+    if isinstance(zlo, Quantity) or isinstance(zhi, Quantity):
+        zl = cube.closest_spectral_channel(zlo) \
+            if isinstance(zlo, Quantity) else (
+                0 if zlo == "min" else int(zlo))
+        zh = cube.closest_spectral_channel(zhi) + 1 \
+            if isinstance(zhi, Quantity) else (
+                nchan if zhi == "max" else int(zhi))
+        if zl > zh:
+            zl, zh = zh - 1, zl + 1
+    else:
+        zl = 0 if zlo == "min" else int(zlo)
+        zh = nchan if zhi == "max" else int(zhi)
+    return slice(zl, zh), slice(ylo, yhi), slice(xlo, xhi)
+
+
 class _SliceSyntax:
     """Makes ``cube.filled_data[0:3, :, :]`` style access work (reference
     ``slice_syntax`` decorator, cube_utils.py:203-240)."""
@@ -1228,24 +1249,7 @@ class BaseSpectralCube:
                 zhi="max", rest_value=None):
         """Cut by pixel or world bounds (reference
         spectral_cube.py:1947-2036)."""
-        nchan, ny, nx = self.shape
-        xlo, xhi = _world_to_pixel_range(self._wcs, 0, xlo, xhi, nx,
-                                         n_other=ny)
-        ylo, yhi = _world_to_pixel_range(self._wcs, 1, ylo, yhi, ny,
-                                         n_other=nx)
-        if isinstance(zlo, Quantity) or isinstance(zhi, Quantity):
-            zl = self.closest_spectral_channel(zlo) \
-                if isinstance(zlo, Quantity) else (
-                    0 if zlo == "min" else int(zlo))
-            zh = self.closest_spectral_channel(zhi) + 1 \
-                if isinstance(zhi, Quantity) else (
-                    nchan if zhi == "max" else int(zhi))
-            if zl > zh:
-                zl, zh = zh - 1, zl + 1
-        else:
-            zl = 0 if zlo == "min" else int(zlo)
-            zh = nchan if zhi == "max" else int(zhi)
-        return self[zl:zh, ylo:yhi, xlo:xhi]
+        return self[_subcube_view(self, xlo, xhi, ylo, yhi, zlo, zhi)]
 
     def subcube_from_ds9region(self, ds9_region, allow_empty=False):
         """Cut by a DS9 region string or file (``region.py``)."""

@@ -622,8 +622,12 @@ class LazyComparisonMask(_DataMask):
             cv = np.broadcast_to(np.asarray(cv), tuple(d.shape))
             if not trivial_view(view):
                 cv = cv[view]
-            cv = np.ascontiguousarray(cv)
-        cv = torch.as_tensor(cv, dtype=sub.dtype, device=sub.device)
+            cv = torch.as_tensor(np.ascontiguousarray(cv), dtype=sub.dtype,
+                                 device=sub.device)
+        else:
+            # rounded to the data's dtype on the host: a Python number
+            # needs no copy to the device, which would wait for its queue
+            cv = torch.as_tensor(cv, dtype=sub.dtype).item()
         return self._function(sub, cv)
 
     def __getitem__(self, view):

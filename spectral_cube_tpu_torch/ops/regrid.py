@@ -320,24 +320,59 @@ def spline_gathers(flat, plan, absolute):
     return acc
 
 
-def _spline_nonseparable_resample(fz, wz, ys, xs, order):
+def _spline_nonseparable_resample(fz, wz, ys, xs, order, plan=None):
     """Order-2/3 resample of a rotated or general mapping
     (regrid.py:90-178): prefilter both spatial axes (IEEE float32 matrix
     products) and pad (:func:`spline_coefficients`), then sum the
     (order + 1)^2 B-spline taps gathered as rows of the (space, nz)
     channels-minor view (:func:`spline_gathers`).  The NaN-weight pass
     runs only where ``wz`` is not all zero (decided on the host); an
-    output whose NaN weight is above 1e-6 is NaN.  Returns
-    ``(out, None)``."""
+    output whose NaN weight is above 1e-6 is NaN.  ``plan``: the maps'
+    :func:`spline_taps` on ``fz``'s device, when the caller built it
+    already.  Returns ``(out, None)``."""
     nz, ny_in, nx_in = fz.shape
     ny, nx = ys.shape
-    plan = spline_taps(ys, xs, order, ny_in, nx_in, fz.device)
+    if plan is None:
+        plan = spline_taps(ys, xs, order, ny_in, nx_in, fz.device)
     out = spline_gathers(spline_coefficients(fz, plan, False), plan, False)
     if bool(wz.ne(0).any()):
         wn = spline_gathers(spline_coefficients(wz, plan, True), plan, True)
         out.masked_fill_(wn > 1e-6, float("nan"))
         del wn
     return out.t().reshape(nz, ny, nx), None
+
+
+class SplineMaps(NamedTuple):
+    """The spline path's host decisions (regrid.py:194-244): the validity
+    of each output channel, row and column, the finite source maps, whether
+    the spectral axis is untouched and whether the spatial step is
+    separable (axis-aligned to 1e-9 pixel, no grid above 4096)."""
+    zvalid: np.ndarray
+    yvalid: np.ndarray
+    xvalid: np.ndarray
+    zc: np.ndarray
+    ycl: np.ndarray
+    xcl: np.ndarray
+    z_identity: bool
+    separable: bool
+
+
+def spline_host_maps(zs, ys, xs, nchan_in, ny_in, nx_in):
+    """:class:`SplineMaps` of the target->source maps ``zs`` (nz,),
+    ``ys``/``xs`` (ny, nx) onto an input of (nchan_in, ny_in, nx_in)."""
+    zs, ys, xs = (np.asarray(a, dtype=np.float64) for a in (zs, ys, xs))
+    zvalid = np.isfinite(zs) & (zs >= -1e-3) & (zs <= nchan_in - 1 + 1e-3)
+    yvalid = np.isfinite(ys) & (ys >= -1e-3) & (ys <= ny_in - 1 + 1e-3)
+    xvalid = np.isfinite(xs) & (xs >= -1e-3) & (xs <= nx_in - 1 + 1e-3)
+    zc, ycl, xcl = (np.nan_to_num(a) for a in (zs, ys, xs))
+    z_identity = bool(zs.shape[0] == nchan_in and zvalid.all()
+                      and np.all(zc == np.arange(nchan_in)))
+    separable = bool(np.ptp(ycl, axis=1).max() <= 1e-9
+                     and np.ptp(xcl, axis=0).max() <= 1e-9
+                     and max(*ys.shape, ny_in, nx_in)
+                     <= _MATMUL_RESAMPLE_MAX_N)
+    return SplineMaps(zvalid, yvalid, xvalid, zc, ycl, xcl, z_identity,
+                      separable)
 
 
 def _spline_spatial_then_z(data, zs, ys, xs, order):
@@ -348,42 +383,27 @@ def _spline_spatial_then_z(data, zs, ys, xs, order):
     pixel and no grid exceeds 4096, else the prefilter and tap gathers.
     NaN poisoning is the |T|-weighted NaN mass above 1e-6, local to the
     taps; outputs outside the input are NaN."""
-    nchan_in, ny_in, nx_in = data.shape
-    nz = zs.shape[0]
-    ny, nx = ys.shape
+    m = spline_host_maps(zs, ys, xs, *data.shape)
     dev = data.device
-    zvalid = np.isfinite(zs) & (zs >= -1e-3) & (zs <= nchan_in - 1 + 1e-3)
-    yvalid = np.isfinite(ys) & (ys >= -1e-3) & (ys <= ny_in - 1 + 1e-3)
-    xvalid = np.isfinite(xs) & (xs >= -1e-3) & (xs <= nx_in - 1 + 1e-3)
     nanmask = torch.isnan(data).to(torch.float32)
     filled = torch.nan_to_num(data)
-
-    zc = np.nan_to_num(np.asarray(zs, dtype=np.float64))
-    z_identity = (nz == nchan_in and zvalid.all()
-                  and np.all(zc == np.arange(nchan_in)))
-    if z_identity:
+    if m.z_identity:
         fz, wz = filled, nanmask
     else:
-        tz = _spline_1d_matrix(nchan_in, zc, order)
+        tz = _spline_1d_matrix(data.shape[0], m.zc, order)
         fz = _spectral_product(tz, filled)
         wz = _spectral_product(np.abs(tz), nanmask)
     del nanmask, filled
-
-    ycl = np.nan_to_num(np.asarray(ys, dtype=np.float64))
-    xcl = np.nan_to_num(np.asarray(xs, dtype=np.float64))
-    ysep = np.ptp(ycl, axis=1).max() <= 1e-9
-    xsep = np.ptp(xcl, axis=0).max() <= 1e-9
-    if ysep and xsep \
-            and max(ny, nx, ny_in, nx_in) <= _MATMUL_RESAMPLE_MAX_N:
-        out, wn = _spline_separable_resample(fz, wz, ycl, xcl, order)
+    if m.separable:
+        out, wn = _spline_separable_resample(fz, wz, m.ycl, m.xcl, order)
     else:
-        out, wn = _spline_nonseparable_resample(fz, wz, ycl, xcl, order)
+        out, wn = _spline_nonseparable_resample(fz, wz, m.ycl, m.xcl, order)
     del fz, wz
     if wn is not None:
         out.masked_fill_(wn > 1e-6, float("nan"))
         del wn
-    valid = torch.as_tensor((yvalid & xvalid)[None], device=dev) \
-        & torch.as_tensor(zvalid, device=dev)[:, None, None]
+    valid = torch.as_tensor((m.yvalid & m.xvalid)[None], device=dev) \
+        & torch.as_tensor(m.zvalid, device=dev)[:, None, None]
     return out.masked_fill_(~valid, float("nan")).to(data.dtype)
 
 

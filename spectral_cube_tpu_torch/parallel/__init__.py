@@ -9,7 +9,7 @@ from .sharded import (ShardedCube, sharded_moments, sharded_statistics,
                       sharded_spectral_convolve_fft, sharded_sigma_clip,
                       sharded_spectral_interpolate,
                       sharded_smooth_interpolate, sharded_reproject,
-                      halo_pad)
+                      sharded_spline_reproject, halo_pad)
 
 __all__ = ["CubeMesh", "make_mesh", "use_mesh", "default_mesh", "Mesh",
            "Sharding", "ShardedArray", "ShardedCube", "sharded_moments",
@@ -18,4 +18,4 @@ __all__ = ["CubeMesh", "make_mesh", "use_mesh", "default_mesh", "Mesh",
            "sharded_convolve_per_channel_separable",
            "sharded_spectral_convolve_fft", "sharded_sigma_clip",
            "sharded_spectral_interpolate", "sharded_smooth_interpolate",
-           "sharded_reproject", "halo_pad"]
+           "sharded_reproject", "sharded_spline_reproject", "halo_pad"]

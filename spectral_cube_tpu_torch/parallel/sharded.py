@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import inspect
 import math
 import warnings
 from collections import namedtuple
@@ -33,6 +34,7 @@ from .mesh import CubeMesh, ShardedArray, default_mesh
 from ..masks import (is_data_local, is_finiteness_mask, LazyMask,
                      LazyComparisonMask, CompositeMask, BooleanArrayMask)
 from ..kernels.moments import moments_planes_plain
+from ..utils import warn_slow
 from ..ops import moments as _mom
 from ..ops import reductions as _red
 
@@ -42,7 +44,7 @@ __all__ = ["sharded_moments", "sharded_statistics", "sharded_mad_std",
            "sharded_spatial_convolve", "sharded_spectral_convolve_fft",
            "sharded_sigma_clip", "sharded_spectral_interpolate",
            "sharded_smooth_interpolate", "sharded_reproject",
-           "ShardedCube"]
+           "sharded_spline_reproject", "ShardedCube"]
 
 NAN = float("nan")
 
@@ -1000,6 +1002,87 @@ def sharded_reproject(data, zs, ys, xs, cmesh: CubeMesh, order=1):
     return _reproject_reshard(src, maps, order, cmesh, nz)
 
 
+def sharded_spline_reproject(data, zs, ys, xs, cmesh: CubeMesh, order=3):
+    """Spline reprojection (order 2, biquadratic, or 3, bicubic) of a
+    spatially sharded [spec, y, x] cube onto the host-side target->source
+    mappings ``(zs, ys, xs)``: the sharded form of the unsharded
+    ``ops/regrid._spline_spatial_then_z``, with its host operators, its
+    routes and its results.
+
+    - **spectral**: on each tile's whole spectra (the spatial layout, no
+      communication) the spline operator along z through
+      ``ops/regrid._spectral_product`` (kernel #14 on the card), once for
+      the NaN-filled tile and once, with the operator's absolute values,
+      for its NaN mask: two launches a tile.  The route follows the
+      operator's bands, so every tile takes the unsharded call's.
+    - **spatial**: four all-to-alls to the spectral layout, then on each
+      slab of whole planes the separable products or the prefilter and
+      tap gathers (the route chosen once from the full maps by
+      ``ops/regrid.spline_host_maps``, as the unsharded call chooses it;
+      one tap plan a device), the NaN
+      poisoning where the |T|-weighted NaN mass passes 1e-6, and two
+      all-to-alls back.
+
+    Returns the (nz, ny_out, nx_out) result in the spatial layout."""
+    from ..ops import regrid as _rg
+    order = int(order)
+    if order not in (2, 3):
+        raise ValueError("sharded_spline_reproject takes the spline orders "
+                         "2/3 (biquadratic/bicubic); orders 0/1 take "
+                         "sharded_reproject")
+    src = _sharded(data, cmesh)
+    nchan_in, ny_in, nx_in = src.shape
+    m = _rg.spline_host_maps(zs, ys, xs, nchan_in, ny_in, nx_in)
+    nz = m.zc.shape[0]
+    ny, nx = m.ycl.shape
+    tiles, _, _ = _pad_spatial(src, cmesh, 0.0)
+    if not m.z_identity:
+        tz = _rg._spline_1d_matrix(nchan_in, m.zc, order)
+        atz = np.abs(tz)
+
+    def spectral(make):
+        parts, _ = _pad_chan([make(t) for t in tiles], cmesh, 0.0)
+        return cmesh._spectral_tiles(parts)
+
+    def nan_mask(t):
+        return torch.isnan(t).to(torch.float32)
+
+    if m.z_identity:
+        fz = spectral(torch.nan_to_num)
+        wz = spectral(nan_mask)
+    else:
+        fz = spectral(lambda t: _rg._spectral_product(tz, torch.nan_to_num(t)))
+        wz = spectral(lambda t: _rg._spectral_product(atz, nan_mask(t)))
+    del tiles
+    plans = {}
+    cb = fz[0].shape[0]
+    outs = []
+    for p, (f, w) in enumerate(zip(fz, wz)):
+        dev = f.device
+        c0, c1 = min(p * cb, nz), min((p + 1) * cb, nz)
+        f, w = f[:c1 - c0, :ny_in, :nx_in], w[:c1 - c0, :ny_in, :nx_in]
+        if c1 == c0:
+            outs.append(torch.empty((0, ny, nx), dtype=src.dtype,
+                                    device=dev))
+            continue
+        if m.separable:
+            out, wn = _rg._spline_separable_resample(f, w, m.ycl, m.xcl,
+                                                     order)
+            out.masked_fill_(wn > 1e-6, NAN)
+            del wn
+        else:
+            if str(dev) not in plans:
+                plans[str(dev)] = _rg.spline_taps(m.ycl, m.xcl, order, ny_in,
+                                                  nx_in, dev)
+            out, _ = _rg._spline_nonseparable_resample(
+                f, w, m.ycl, m.xcl, order, plan=plans[str(dev)])
+        valid = torch.as_tensor((m.yvalid & m.xvalid)[None], device=dev) \
+            & torch.as_tensor(m.zvalid[c0:c1], device=dev)[:, None, None]
+        outs.append(out.masked_fill_(~valid, NAN).to(src.dtype))
+    del fz, wz
+    return cmesh.reshard(cmesh._from_spectral(outs, (nz, ny, nx)), "spatial")
+
+
 # ---------------------------------------------------------------------------
 # ShardedCube: the cube facade bound to a mesh
 # ---------------------------------------------------------------------------
@@ -1011,16 +1094,54 @@ _REDUCERS = {"sum": _red.masked_sum, "mean": _red.masked_mean,
              "percentile": lambda d, v, axis, q: _red.masked_percentile(
                  d, v, q, axis=axis)}
 
-#: attributes a ShardedCube reads from its metadata cube (no data needed)
+#: attributes a ShardedCube reads from its metadata cube (no data needed;
+#: ``device`` is the mesh's first device, where the metadata cube lives)
 _METADATA = frozenset({
     "unit", "wcs", "spectral_axis", "spectral_unit", "header", "meta",
     "beam", "beams", "unmasked_beams", "goodbeams_mask", "ndim", "size",
-    "dtype", "fill_value", "velocity_convention", "allow_huge_operations",
+    "dtype", "device", "fill_value", "velocity_convention",
     "pixels_per_beam", "common_beam", "closest_spectral_channel",
+    "identify_bad_beams", "jtok_factors", "check_jybeam_smoothing",
+    "chunked", "find_lines", "read", "world_spines", "flattened_world",
     "_wcs", "_meta", "_unit", "_fill_value", "_beam", "_beams",
     "_goodbeams_mask", "_header", "_nowcs_header", "_spectral_offsets",
-    "_spectral_pix_size", "world", "world_extrema", "longitude_extrema",
-    "latitude_extrema", "spectral_extrema", "spatial_coordinate_map"})
+    "_spectral_pix_size", "_is_huge", "world", "world_extrema",
+    "longitude_extrema", "latitude_extrema", "spectral_extrema",
+    "spatial_coordinate_map"})
+
+#: the cube's names whose call still gathers the cube on the mesh's first
+#: device (one count on ``gathers``), with the reason: each produces a
+#: whole host array or a whole-cube host computation, in the JAX package
+#: too (``np.asarray`` of the sharded array)
+GATHERED = {
+    "write": "a file of the whole cube (a streamed sharded writer is out "
+             "of scope)",
+    "hdu": "an HDU holds the whole filled cube as a host array",
+    "hdulist": "its HDU holds the whole filled cube as a host array",
+    "to_yt": "yt takes the whole filled cube as a host array",
+    "to_glue": "glue takes the whole filled cube as a host array",
+    "to_ds9": "ds9 loads the whole cube from a FITS file",
+    "to_pvextractor": "the viewer holds the whole cube",
+    "plot_channel_maps": "the viewer holds the whole cube",
+    "filled": "the whole filled cube as a host array",
+    "get_mask_array": "the whole include as a host array",
+    "checkpoint": "the whole cube written to a store and read back",
+    "apply_numpy_function": "a numpy function of the whole filled cube on "
+                            "the host",
+    "apply_function": "with axis=0, 1 or 2: the host loop over every ray "
+                      "of the cube (axis=None runs on the shards)",
+    "apply_function_parallel_spectral": "with accepts_chunks=True: the "
+                                        "function receives the whole cube",
+    "apply_function_parallel_spatial": "with accepts_chunks=True: the "
+                                       "function receives the whole cube",
+    "rechunk": "with save_to_tmp_dir=True: through checkpoint (also every "
+               "method's save_to_tmp_dir=True)",
+    "mask": "with a stored include (a sharded array that no mask object "
+            "holds), a BooleanArrayMask of the whole include; without one "
+            "the mask object as it is, nothing moved",
+}
+
+_MISSING = object()
 
 
 def _tmp_dir_option(method):
@@ -1040,6 +1161,107 @@ def _placeholder(shape, dtype, device):
     return torch.zeros((), dtype=dtype, device=device).expand(tuple(shape))
 
 
+def _crop(arr, view):
+    """The box ``view`` (unit-step slices) of the ShardedArray ``arr``, in
+    the spatial layout of the box's own shape: each position's block
+    assembled on its device from the parts of ``arr``'s blocks that
+    overlap it, so that only the box's bytes move."""
+    cmesh = arr.cmesh
+    shape = tuple(v.stop - v.start for v in view)
+    my, mx = cmesh.grid
+    py, px = -(-shape[1] // my), -(-shape[2] // mx)
+    sources = {}
+    for b, ix in zip(arr.blocks, arr.index):
+        sources.setdefault(tuple((s.start, s.stop) for s in ix), (b, ix))
+    blocks, index = [], []
+    for p, dev in enumerate(cmesh.devices):
+        iy, ix = divmod(p, mx)
+        want = (slice(0, shape[0]),
+                slice(min(iy * py, shape[1]), min((iy + 1) * py, shape[1])),
+                slice(min(ix * px, shape[2]), min((ix + 1) * px, shape[2])))
+        out = torch.empty(tuple(w.stop - w.start for w in want),
+                          dtype=arr.dtype, device=dev)
+        for b, src in sources.values():
+            # the overlap in the cube's coordinates
+            lo = [max(v.start + w.start, s.start)
+                  for v, w, s in zip(view, want, src)]
+            hi = [min(v.start + w.stop, s.stop)
+                  for v, w, s in zip(view, want, src)]
+            if all(h > l_ for l_, h in zip(lo, hi)):
+                out[tuple(slice(l_ - v.start - w.start, h - v.start - w.start)
+                          for l_, h, v, w in zip(lo, hi, view, want))].copy_(
+                    b[tuple(slice(l_ - s.start, h - s.start)
+                            for l_, h, s in zip(lo, hi, src))])
+        blocks.append(out)
+        index.append(want)
+    return ShardedArray(cmesh, "spatial", shape, blocks, index)
+
+
+#: the voxels of one piece when a block's part is taken a few channels at a
+#: time (:func:`_channel_chunks`): 4 Mi voxels, 16 MiB of float32
+_CHUNK_VOXELS = 1 << 22
+
+
+def _channel_chunks(local, glob, place):
+    """A part (:meth:`ShardedCube._view_parts`) cut along its first axis
+    into pieces of at most ``_CHUNK_VOXELS`` voxels, each as ``(local,
+    glob, place)``: what is evaluated on a piece at a time (a mask's
+    include, flat positions) stays bounded whatever the cube's size."""
+    n = place[0].stop - place[0].start
+    per = max(1, (place[1].stop - place[1].start)
+              * (place[2].stop - place[2].start))
+    step = max(1, _CHUNK_VOXELS // per)
+    for a in range(0, n, step):
+        b = min(n, a + step)
+        cut = [(sl.start + a * sl.step, sl.start + (b - 1) * sl.step + 1,
+                sl.step) for sl in (local[0], glob[0])]
+        yield ((slice(*cut[0]),) + local[1:], (slice(*cut[1]),) + glob[1:],
+               (slice(place[0].start + a, place[0].start + b),) + place[1:])
+
+
+def _view_axes(view, shape):
+    """The view ``view`` of an array of ``shape`` as numpy reads it
+    (integers, slices of any step, ``None`` and one ``Ellipsis``, the
+    views ``masks.index_view`` takes): per axis an integer (the axis is
+    dropped) or ``(lo, count, step, flip)``, the indices ``lo + j * step``
+    (j < count, ``step`` > 0) the view selects in ascending order,
+    ``flip`` where it walks them backwards; and the positions in the
+    result of the axes ``None`` adds."""
+    from ..masks import _is_index
+    view = view if isinstance(view, tuple) else (view,)
+    ells = [i for i, v in enumerate(view) if v is Ellipsis]
+    if len(ells) > 1:
+        raise IndexError("an index can only have a single ellipsis ('...')")
+    used = sum(1 for v in view if v is not None and v is not Ellipsis)
+    if used > len(shape):
+        raise IndexError(f"too many indices for an array of {len(shape)} "
+                         "dimensions")
+    rest = (slice(None),) * (len(shape) - used)
+    view = view[:ells[0]] + rest + view[ells[0] + 1:] if ells \
+        else view + rest
+    axes, new = [], []
+    for v in view:
+        if v is None:
+            new.append(sum(not isinstance(a, int) for a in axes) + len(new))
+            continue
+        n = shape[len(axes)]
+        if isinstance(v, slice):
+            start, stop, step = v.indices(n)
+            r = range(start, stop, step)
+            axes.append((start, len(r), step, False) if step > 0 else
+                        (r[-1] if len(r) else 0, len(r), -step, True))
+        elif _is_index(v):
+            if not -n <= int(v) < n:
+                raise IndexError(f"index {int(v)} is out of bounds for "
+                                 f"axis {len(axes)} with size {n}")
+            axes.append(int(v) % n)
+        else:
+            raise TypeError("a ShardedCube's data indexers take integers, "
+                            "slices, None and Ellipsis, not "
+                            f"{type(v).__name__}")
+    return axes, new
+
+
 class ShardedCube:
     """A cube whose data is sharded over a CubeMesh, running its hot
     operations shard by shard: the analog of the reference's
@@ -1056,21 +1278,24 @@ class ShardedCube:
     linewidths (the maps cached, the moments kernel once a shard), the
     reductions (``sum``, ``mean``, ``std``, ``max``, ``min``, ``median``,
     ``percentile``, ``mad_std``, ``argmax``, ``argmin``) along any axis,
-    ``statistics``, the spectral smoothing family, ``spatial_smooth`` and
-    the spatial median and host filters, ``downsample_axis``,
-    ``sigma_clip_spectrally``, ``spectral_interpolate``, bilinear
-    ``reproject``, ``convolve_to``, ``spectral_slab``, ``minimal_subcube``,
-    ``to``, ``with_mask``, ``with_fill_value``, ``with_spectral_unit`` and
-    the WCS attributes.  Along the spectral axis each tile's whole
-    spectra; over the cube partials reduced over the mesh; along a spatial
-    axis each slab of whole planes of the spectral layout (all-to-alls).
-    Methods it does not define run on :attr:`cube`, the cube gathered on
-    the mesh's first device (a counted gather; in the JAX package GSPMD
-    partitions them), and a cube they return is sharded again:
-    ``write``, the spline orders of ``reproject``,
-    ``apply_numpy_function`` / ``apply_function``, the
-    ``unmasked_data[...]`` / ``filled_data[...]`` indexers and whatever
-    else the cube has."""
+    ``argmax_world`` / ``argmin_world``, ``statistics``, ``sigma_clip``,
+    the spectral smoothing family, ``spatial_smooth`` and the spatial
+    median and host filters, ``downsample_axis``,
+    ``sigma_clip_spectrally``, ``spectral_interpolate``, ``reproject``
+    (every order), ``convolve_to``, the cuts (``spectral_slab``,
+    ``subcube``, ``minimal_subcube``, ``subcube_from_mask`` and the region
+    cuts), the ``unmasked_data[...]`` / ``filled_data[...]`` indexers,
+    ``flattened``, ``apply_everywhere`` and the parallel apply functions,
+    the mask and beam edits (``with_mask``, ``mask_channels``,
+    ``unmasked_copy``, ``with_beam``, ``with_beams``,
+    ``mask_out_bad_beams``), ``to``, ``with_fill_value``,
+    ``with_spectral_unit`` and the WCS attributes.  Along the spectral
+    axis each tile's whole spectra; over the cube partials reduced over
+    the mesh; along a spatial axis each slab of whole planes of the
+    spectral layout (all-to-alls).  The calls of :data:`GATHERED` run on
+    :attr:`cube`, the cube gathered on the mesh's first device (a counted
+    gather; each makes a whole host array, in the JAX package too), and
+    a cube they return is sharded again."""
 
     def __init__(self, cube, cmesh: CubeMesh | None = None):
         if cmesh is not None and not isinstance(cmesh, CubeMesh):
@@ -1143,26 +1368,38 @@ class ShardedCube:
         return self._gathered
 
     def __getattr__(self, name):
-        """Metadata comes from the metadata cube; anything else runs on
-        the gathered cube, and a cube it returns is sharded again (the
-        DaskSpectralCube mirroring of SpectralCube)."""
+        """Metadata comes from the metadata cube.  Any other method of the
+        cube class is looked up without moving data and runs on the
+        gathered cube when called (the :data:`GATHERED` names), a cube it
+        returns sharded again (the DaskSpectralCube mirroring of
+        SpectralCube); any other property or attribute is read from the
+        gathered cube."""
         if name.startswith("__") or name in ("cmesh", "_data", "_template",
                                              "_mask", "_include",
                                              "_gathered", "_moments"):
             raise AttributeError(name)
         if name in _METADATA:
             return getattr(self._template, name)
-        attr = getattr(self.cube, name)
-        if callable(attr):
-            from ..cube import BaseSpectralCube
+        static = inspect.getattr_static(self._template, name, _MISSING)
+        if static is _MISSING:
+            raise AttributeError(f"{type(self).__name__} has no attribute "
+                                 f"{name!r}")
+        if not inspect.isfunction(static):
+            return getattr(self.cube, name)
 
-            def wrapped(*args, **kwargs):
-                out = attr(*args, **kwargs)
-                if isinstance(out, BaseSpectralCube):
-                    return ShardedCube(out, self.cmesh)
-                return out
-            return wrapped
-        return attr
+        @functools.wraps(static)
+        def gathered(*args, **kwargs):
+            return self._call_gathered(name, *args, **kwargs)
+        return gathered
+
+    def _call_gathered(self, name, *args, **kwargs):
+        """The cube's method ``name`` called on :attr:`cube` (one counted
+        gather); a cube it returns is sharded again."""
+        from ..cube import BaseSpectralCube
+        out = getattr(self.cube, name)(*args, **kwargs)
+        if isinstance(out, BaseSpectralCube):
+            return ShardedCube(out, self.cmesh)
+        return out
 
     def __repr__(self):
         return (f"ShardedCube(shape={self.shape}, layout="
@@ -1171,6 +1408,41 @@ class ShardedCube:
     @property
     def shape(self):
         return self._data.shape
+
+    @property
+    def allow_huge_operations(self):
+        return self._template.allow_huge_operations
+
+    @allow_huge_operations.setter
+    def allow_huge_operations(self, value):
+        self._template = self._template._new_cube_with()
+        self._template.allow_huge_operations = value
+
+    @property
+    def base(self):
+        """The sharded data (the unsharded cube's ``base`` is its data
+        tensor; in the JAX package the sharded array)."""
+        return self._data
+
+    @property
+    def mask(self):
+        """The mask object; with a stored include, a BooleanArrayMask of
+        the whole include composed with it (a counted gather)."""
+        if self._include is None:
+            return self._mask
+        return self.cube.mask
+
+    @property
+    def unitless(self):
+        return self._edit(self._template.unitless)
+
+    @property
+    def velocity(self):
+        from .. import units as u
+        return self.with_spectral_unit(u.km_s, velocity_convention="radio")
+
+    def to_sharded(self, cmesh=None):
+        return ShardedCube(self, cmesh)
 
     def use_dask_scheduler(self, scheduler=None, num_workers=None):
         """API-compat shim for the reference's scheduler selection
@@ -1214,15 +1486,10 @@ class ShardedCube:
         nothing is masked."""
         if self._mask is None and self._include is None:
             return None
-        blocks = []
-        for p, (d, ix) in enumerate(zip(self._data.blocks,
-                                        self._data.index)):
-            inc = None if self._include is None else self._include.blocks[p]
-            if self._mask is not None:
-                m = self._mask[ix].include(data=d).to(d.device).expand(
-                    d.shape)
-                inc = m if inc is None else torch.logical_and(inc, m)
-            blocks.append(inc)
+        blocks = [self._part_include(p, tuple(slice(0, s.stop - s.start)
+                                              for s in ix), ix, d)
+                  for p, (d, ix) in enumerate(zip(self._data.blocks,
+                                                  self._data.index))]
         return ShardedArray(self.cmesh, self._data.layout, self.shape,
                             blocks, self._data.index)
 
@@ -1282,6 +1549,68 @@ class ShardedCube:
                          else None,
                          mask=mask if old is None else CompositeMask(
                              old, mask, "and"))
+
+    # -- mask, beam and metadata edits: no data moves ------------------------
+    def _edit(self, template):
+        """The same data over ``template``, a metadata cube that one of the
+        template's own methods returned: the mask that method added (a
+        channel mask) composed with this cube's, as the unsharded method
+        composes it; the stored include kept."""
+        added, template._mask = template._mask, None
+        mask = self._mask if added is None else added if self._mask is None \
+            else CompositeMask(self._mask, added, "and")
+        return self._new(self._data, template, mask=mask,
+                         include=self._include)
+
+    def mask_channels(self, goodchannels):
+        """Mask out the channels where ``goodchannels`` is False (and, for
+        a varying-resolution cube, exempt their beams from the checks)."""
+        return self._edit(self._template.mask_channels(goodchannels))
+
+    def unmasked_copy(self):
+        """The same data with no mask and no stored include."""
+        return self._new(self._data)
+
+    def with_beam(self, beam, raise_error_jybm=True):
+        return self._edit(self._template.with_beam(
+            beam, raise_error_jybm=raise_error_jybm))
+
+    def with_beams(self, beams, goodbeams_mask=None, raise_error_jybm=True):
+        return self._edit(self._template.with_beams(
+            beams, goodbeams_mask=goodbeams_mask,
+            raise_error_jybm=raise_error_jybm))
+
+    def mask_out_bad_beams(self, threshold, reference_beam=None,
+                           criteria=("sr", "major", "minor")):
+        return self._edit(self._template.mask_out_bad_beams(
+            threshold, reference_beam=reference_beam, criteria=criteria))
+
+    def average_beams(self, threshold=None, mask="compute", warn=False):
+        """The average of the good beams of the channels that hold an
+        included voxel (``mask='compute'``; each block's channel flags
+        OR-ed on the host), as the unsharded ``average_beams``."""
+        from ..utils import BeamAverageWarning
+        t = self._template
+        chans = self._channels_included() if mask == "compute" else None
+        beam_mask = t._goodbeams_mask if chans is None \
+            else chans & t._goodbeams_mask
+        if threshold is not None:
+            t._check_beam_areas(threshold, mask=beam_mask)
+        if warn:
+            warnings.warn("Arithmetic beam averaging is being performed.",
+                          BeamAverageWarning)
+        return t._beams.average_beam(include_mask=beam_mask)
+
+    def sigma_clip(self, threshold):
+        """Mask out |data - median| > threshold * mad_std, both tails: the
+        sharded ``mad_std()`` and ``median()``, then a comparison mask each
+        shard evaluates on its own data."""
+        from ..units import Quantity
+        s = float(self.mad_std().value)
+        med = float(self.median().value)
+        lo = Quantity(med - threshold * s, self.unit)
+        hi = Quantity(med + threshold * s, self.unit)
+        return self.with_mask((self > lo) & (self < hi))
 
     # -- the blocks the methods run on -----------------------------------
     def _tiles(self, filled=False):
@@ -1661,8 +1990,9 @@ class ShardedCube:
         """Regrid onto a new linear spectral grid shard by shard (the
         smooth_interp kernel with ``smooth_kernel``).  Under a data-local
         mask other than the finiteness one the smooth must re-evaluate the
-        mask on the smoothed data, so that case runs on the gathered cube,
-        as the unsharded call does it."""
+        mask on the smoothed data, as the unsharded call does it: each
+        tile smooths its whole spectra, evaluates the mask on them and
+        interpolates the data and that include."""
         from ..units import Quantity
         from ..ops.interpolate import linear_spectral_wcs
         t = self._template
@@ -1681,8 +2011,19 @@ class ShardedCube:
                 mask is None or is_finiteness_mask(mask))
             if not finiteness and self._include is None \
                     and is_data_local(mask):
-                return ShardedCube(self.cube.spectral_interpolate(
-                    spectral_grid, smooth_kernel=smooth_kernel), self.cmesh)
+                from ..ops.interpolate import interp_cube_spectral
+                from ..ops.smoothing import spectral_smooth_cube
+                tiles, _ = self._tiles(filled=True)
+                res = []
+                for d in tiles:
+                    sm = spectral_smooth_cube(d, karr)
+                    res.append(interp_cube_spectral(
+                        sm, inax, grid, include=mask.include(data=sm,
+                                                             wcs=t._wcs)))
+                del tiles
+                out, new_include = (self.cmesh._from_spatial(
+                    [r[i] for r in res], template.shape) for i in (0, 1))
+                return self._new(out, template, include=new_include)
             include = None if finiteness else self._include_parts()
             out, new_include = sharded_smooth_interpolate(
                 self._filled(), karr, inax, grid, self.cmesh,
@@ -1705,19 +2046,18 @@ class ShardedCube:
         the mappings are the unsharded ``cube.reproject``'s, then
         :func:`sharded_reproject` resamples (the halo strategy for
         axis-aligned mappings within a tile's reach, the reshard
-        otherwise).  Spline orders (2/3) run on the gathered cube."""
+        otherwise); the spline orders (2/3) through
+        :func:`sharded_spline_reproject`."""
         from ..ops.regrid import reproject_mappings, _order_int
         t = self._template
-        if _order_int(order) >= 2:
-            return ShardedCube(self.cube.reproject(header, order=order,
-                                                   filled=filled, **kwargs),
-                               self.cmesh)
+        order = _order_int(order)
         data = self._filled() if filled else self._data
         zs, ys, xs, wcs_out = reproject_mappings(
             t._wcs, header, self.shape[0],
             spectral_values_in=np.asarray(t.spectral_axis.value))
-        out = sharded_reproject(data, zs, ys, xs, self.cmesh,
-                                order=_order_int(order))
+        resample = sharded_spline_reproject if order >= 2 \
+            else sharded_reproject
+        out = resample(data, zs, ys, xs, self.cmesh, order=order)
         template = t.__class__(
             data=_placeholder(out.shape, t.dtype, self.cmesh.devices[0]),
             wcs=wcs_out, meta=dict(t._meta), unit=t._unit,
@@ -1864,9 +2204,9 @@ class ShardedCube:
     def _cut(self, raw_view):
         """The cube cut by a view of unit-step slices, as ``cube[view]``:
         a channel range in the spatial layout, each block its own
-        channels (no exchange); a spatial box in the spectral layout,
-        where each slab crops its whole planes, then back (four counted
-        all-to-alls, two more for a stored include)."""
+        channels (no exchange); a spatial box by :func:`_crop`, each block
+        of the box assembled from the parts of the blocks that overlap it
+        (only the box's bytes move, no all-to-all)."""
         from ..cube_utils import canon_view
         view = canon_view(tuple(raw_view) + (slice(None),) * (
             3 - len(raw_view)), self.shape)
@@ -1883,15 +2223,12 @@ class ShardedCube:
             if arr is None:
                 return None
             if (y0, y1, x0, x1) != (0, ny, 0, nx):
-                blocks = [b[:, y0:y1, x0:x1]
-                          for b in _spectral_blocks(cmesh, arr, pad)]
-                arr = cmesh.reshard(cmesh._from_spectral(
-                    blocks, (nchan, y1 - y0, x1 - x0)), "spatial")
+                return _crop(arr, view)
             if (c0, c1) == (0, nchan):
                 return arr
             tiles = cmesh._tile(arr, "spatial", pad)
             return cmesh._from_spatial([t[c0:c1] for t in tiles],
-                                       (c1 - c0, y1 - y0, x1 - x0))
+                                       (c1 - c0, ny, nx))
         return self._new(cut(self._data, 0.0),
                          self._template_view(view, raw_view),
                          mask=None if self._mask is None
@@ -1912,17 +2249,64 @@ class ShardedCube:
         """The bounding box of the included voxels (the unsharded
         ``minimal_subcube``): each block's any() profiles, combined on the
         host, then :meth:`_cut`."""
-        inc = self._include_parts()
-        if inc is None:
+        if self._mask is None and self._include is None:
             return self._cut((slice(None),) * 3)
+        return self._cut(self._bounding_slices(spatial_only))
+
+    def subcube_slices_from_mask(self, region_mask, spatial_only=False):
+        """The bounding-box slices of ``region_mask``'s included region,
+        the mask evaluated on each block."""
+        return self._new(self._data, mask=region_mask)._bounding_slices(
+            spatial_only)
+
+    def subcube_from_mask(self, region_mask):
+        return self.with_mask(region_mask).minimal_subcube()
+
+    def subcube(self, xlo="min", xhi="max", ylo="min", yhi="max", zlo="min",
+                zhi="max", rest_value=None):
+        """Cut by pixel or world bounds: the unsharded call's slices from
+        the template's WCS, then :meth:`_cut`."""
+        from ..cube import _subcube_view
+        return self._cut(_subcube_view(self._template, xlo, xhi, ylo, yhi,
+                                       zlo, zhi))
+
+    def subcube_from_regions(self, region_list, allow_empty=False,
+                             minimize=True):
+        """Cut by :class:`~..region.Region` objects: ``region._extract`` on
+        this cube (its ``spectral_slab``, ``with_mask`` and
+        ``minimal_subcube``)."""
+        from ..region import subcube_from_regions
+        return subcube_from_regions(self, region_list,
+                                    allow_empty=allow_empty,
+                                    minimize=minimize)
+
+    def subcube_from_ds9region(self, ds9_region, allow_empty=False):
+        from ..region import subcube_from_ds9region
+        return subcube_from_ds9region(self, ds9_region,
+                                      allow_empty=allow_empty)
+
+    def subcube_from_crtfregion(self, crtf_region, allow_empty=False):
+        from ..region import subcube_from_crtfregion
+        return subcube_from_crtfregion(self, crtf_region,
+                                       allow_empty=allow_empty)
+
+    def _bounding_slices(self, spatial_only):
+        """The slices of the bounding box of the included voxels: each
+        block's any() profiles along the three axes, its include
+        evaluated a few channels at a time (:func:`_channel_chunks`), OR-ed
+        on the host (an empty axis gives slice(0, 0))."""
         profiles = [np.zeros(n, bool) for n in self.shape]
-        for b, ix in zip(inc.blocks, inc.index):
-            if not b.numel():
-                continue
-            for ax in range(3):
-                other = tuple(a for a in range(3) if a != ax)
-                profiles[ax][ix[ax]] |= b.any(other[1]).any(
-                    other[0]).cpu().numpy()
+        full = [(0, n, 1, False) for n in self.shape]
+        for p, local, glob, place in self._view_parts(full):
+            chans, plane = [], False
+            for lc, gc, _ in _channel_chunks(local, glob, place):
+                d = self._data.blocks[p][lc]
+                b = self._part_include(p, lc, gc, d)
+                chans.append(b.flatten(1).any(1))
+                plane = b.any(0) | plane
+            for ax, prof in enumerate((torch.cat(chans), plane.any(1),
+                                       plane.any(0))):
+                profiles[ax][glob[ax]] |= prof.cpu().numpy()
         slices = []
         for ax, prof in enumerate(profiles):
             w = np.flatnonzero(prof)
@@ -1932,7 +2316,337 @@ class ShardedCube:
                 slices.append(slice(None))
             else:
                 slices.append(slice(int(w[0]), int(w[-1]) + 1))
-        return self._cut(tuple(slices))
+        return tuple(slices)
+
+    # -- the data indexers and host results, from the shards a view meets --
+    def _view_parts(self, axes):
+        """Each block's part of the view ``axes`` (:func:`_view_axes`):
+        ``(p, local, glob, place)``, the part's index into block ``p``, its
+        index into the cube (unit or positive steps, every axis kept) and
+        its place in the view's result taken in ascending order.  A block
+        the view misses gives nothing; blocks that repeat an index (an
+        axis the mesh does not divide is whole on each) give it once."""
+        seen = set()
+        for p, ix in enumerate(self._data.index):
+            key = tuple((s.start, s.stop) for s in ix)
+            if key in seen:
+                continue
+            seen.add(key)
+            local, glob, place = [], [], []
+            for a, s in zip(axes, ix):
+                if isinstance(a, int):
+                    lo, k, j0, j1 = a, 1, 0, int(s.start <= a < s.stop)
+                else:
+                    lo, cnt, k, _ = a
+                    # the first and past-the-last j with lo + j*k in the block
+                    j0 = max(0, -((lo - s.start) // k))
+                    j1 = min(cnt, -((lo - s.stop) // k))
+                if j1 <= j0:
+                    break
+                g0, g1 = lo + j0 * k, lo + (j1 - 1) * k + 1
+                local.append(slice(g0 - s.start, g1 - s.start, k))
+                glob.append(slice(g0, g1, k))
+                place.append(slice(j0, j1))
+            else:
+                yield p, tuple(local), tuple(glob), tuple(place)
+
+    def _part_include(self, p, local, glob, d):
+        """The include of ``d``, block ``p``'s part ``local`` (the cube's
+        ``glob``): the stored include cut so, and the mask cut to ``glob``
+        and evaluated on ``d``; None where nothing is masked."""
+        inc = None if self._include is None else \
+            self._include.blocks[p][local]
+        if self._mask is not None:
+            m = self._mask[glob].include(data=d).to(d.device).expand(d.shape)
+            inc = m if inc is None else torch.logical_and(inc, m)
+        return inc
+
+    def _view_data(self, view, filled):
+        """``data[view]`` (``filled``: excluded voxels set to the fill
+        value), a tensor on the mesh's first device assembled from the
+        parts of the blocks the view meets; nothing else moves."""
+        axes, new = _view_axes(view, self.shape)
+        out = torch.empty([1 if isinstance(a, int) else a[1] for a in axes],
+                          dtype=self.dtype, device=self.cmesh.devices[0])
+        fill = self._template._fill_value
+        for p, local, glob, place in self._view_parts(axes):
+            d = self._data.blocks[p][local]
+            inc = self._part_include(p, local, glob, d) if filled else None
+            if inc is not None:
+                d = torch.where(inc, d, torch.as_tensor(
+                    fill, dtype=d.dtype, device=d.device))
+            out[place].copy_(d)
+        flips = [i for i, a in enumerate(axes)
+                 if not isinstance(a, int) and a[3]]
+        if flips:
+            out = out.flip(flips)
+        out = out[tuple(0 if isinstance(a, int) else slice(None)
+                        for a in axes)]
+        for pos in new:
+            out = out.unsqueeze(pos)
+        return out
+
+    @property
+    def filled_data(self):
+        """``filled_data[view]``: a Quantity of the mask-filled data of the
+        view on the mesh's first device; only the blocks the view meets
+        send their part, each with its include evaluated on it."""
+        from ..cube import _SliceSyntax
+        from ..units import Quantity
+        return _SliceSyntax(lambda view: Quantity(self._view_data(view, True),
+                                                  self.unit))
+
+    @property
+    def unmasked_data(self):
+        """``unmasked_data[view]``, as :attr:`filled_data` without the
+        mask."""
+        from ..cube import _SliceSyntax
+        from ..units import Quantity
+        return _SliceSyntax(lambda view: Quantity(
+            self._view_data(view, False), self.unit))
+
+    @property
+    def unitless_filled_data(self):
+        """``unitless_filled_data[view]``: :attr:`filled_data`'s values as a
+        host array."""
+        from ..cube import _SliceSyntax
+        return _SliceSyntax(lambda view: self._view_data(view, True)
+                            .cpu().numpy())
+
+    @warn_slow
+    def flattened(self, slice=(), weights=None):
+        """1-D host Quantity of the included values of the view ``slice``
+        in C order (times ``weights`` cut by the same view and mask): each
+        block compacts its part's included values with their flat
+        positions in the view, and the pieces merge in that order."""
+        from ..units import Quantity
+        axes, _ = _view_axes(slice, self.shape)
+        kept = [i for i, a in enumerate(axes) if not isinstance(a, int)]
+        strides = np.cumprod([1] + [axes[i][1] for i in kept[:0:-1]])[::-1]
+        w = None if weights is None else np.broadcast_to(
+            np.asarray(weights), self.shape)
+        dev = self.cmesh.devices[0]
+        vals, pos = [], []
+        for p, *part in self._view_parts(axes):
+            for local, glob, place in _channel_chunks(*part):
+                d = self._data.blocks[p][local]
+                inc = self._part_include(p, local, glob, d)
+                if inc is None:
+                    inc = torch.ones(d.shape, dtype=torch.bool,
+                                     device=d.device)
+                flat = torch.zeros((), dtype=torch.int64, device=d.device)
+                for i, stride in zip(kept, strides):
+                    _, cnt, _, flip = axes[i]
+                    j = torch.arange(place[i].start, place[i].stop,
+                                     device=d.device)
+                    shape = [1, 1, 1]
+                    shape[i] = -1
+                    flat = flat + ((cnt - 1 - j) if flip else j).reshape(
+                        shape) * int(stride)
+                nz = torch.nonzero(inc, as_tuple=True)
+                v = d[nz]
+                if w is not None:
+                    v = v * torch.as_tensor(np.ascontiguousarray(
+                        w[glob])).to(d.device)[nz]
+                vals.append(v.to(dev))
+                pos.append(flat.expand(d.shape)[nz].to(dev))
+        if not vals:
+            # a view that selects nothing: the values' type, as unsharded
+            out = self._data.blocks[0].reshape(-1)[:0].cpu().numpy()
+            return Quantity(out if w is None else out * w.reshape(-1)[:0],
+                            self.unit)
+        out = torch.cat(vals)[torch.argsort(torch.cat(pos))]
+        return Quantity(out.cpu().numpy(), self.unit)
+
+    def apply_function(self, function, axis=None, weights=None, unit=None,
+                       projection=False, progressbar=False,
+                       update_function=None, keep_shape=False, **kwargs):
+        """``axis=None``: ``function`` of :meth:`flattened` (``weights``
+        ignored, as the unsharded call ignores them).  Along an axis the
+        unsharded host loop over every ray, on the gathered cube."""
+        from ..units import Quantity
+        if axis is not None:
+            return self._call_gathered(
+                "apply_function", function, axis=axis, weights=weights,
+                unit=unit, projection=projection, progressbar=progressbar,
+                update_function=update_function, keep_shape=keep_shape,
+                **kwargs)
+        out = function(self.flattened(), **kwargs)
+        return Quantity(out, unit) if unit is not None else out
+
+    def _argmaxmin_world(self, axis, method):
+        """World coordinate of the maximum or minimum along ``axis``: the
+        sharded arg-extremum and any-valid plane (each tile's whole spectra
+        along the spectral axis, each slab's whole planes along a spatial
+        one), then the template's ``world_take_along_axis``."""
+        from ..cube_utils import world_take_along_axis
+        from ..lower_dimensional_structures import (Projection,
+                                                    LowerDimensionalObject)
+        from ..utils import WCSCelestialError
+        t = self._template
+        if t._wcs.is_pixel_axis_correlated(2 - axis):
+            raise WCSCelestialError(
+                f"{method}_world requires the celestial axes to be "
+                "aligned along image axes.")
+        idx = self._arg_extremum(method, axis)
+        if axis == 0:
+            tiles, incs = self._tiles()
+            any_valid = self._planes_of([_red.valid_mask(d, i).any(0)
+                                         for d, i in zip(tiles, incs)])
+        else:
+            slabs, incs = self._slabs()
+            any_valid = self._concat([_red.valid_mask(d, i).any(axis)
+                                      for d, i in zip(slabs, incs)
+                                      if d.shape[0]]).cpu().numpy()
+        out = world_take_along_axis(t, idx, axis)
+        vals = np.asarray(out.value, dtype=float).copy()
+        vals[~any_valid] = np.nan
+        meta = {"collapse_axis": axis}
+        meta.update(t._meta)
+        new_wcs = t._wcs.dropaxis(2 - axis)
+        cls = Projection if axis == 0 else LowerDimensionalObject
+        return cls(vals, unit=out.unit, wcs=new_wcs, meta=meta,
+                   header=t._nowcs_header)
+
+    def argmax_world(self, axis=0, **kwargs):
+        return self._argmaxmin_world(axis, "argmax")
+
+    def argmin_world(self, axis=0, **kwargs):
+        return self._argmaxmin_world(axis, "argmin")
+
+    # -- element-wise and per-spectrum / per-plane functions ----------------
+    def apply_everywhere(self, function, *args, check_units=True):
+        """An element-wise ``function`` of the NaN-filled data, block by
+        block (no block leaves its device, so the unsharded call's guard
+        on huge cubes does not apply); the function gets a Quantity whose
+        value is the block."""
+        from ..units import Quantity, Unit
+        filled = self._filled()
+        if not check_units:
+            outs = [function(d, *args) for d in filled.blocks]
+            unit = self._template.unit
+        else:
+            try:
+                test = function(Quantity(np.ones((1, 1, 1)), self.unit),
+                                *args)
+            except Exception as exc:
+                raise ValueError(f"function {function} does not accept "
+                                 f"Quantity input: {exc}")
+            outs = [function(Quantity(d, self.unit), *args)
+                    for d in filled.blocks]
+            unit = outs[0].unit if isinstance(outs[0], Quantity) else (
+                test.unit if isinstance(test, Quantity) else Unit.parse(""))
+            outs = [getattr(o, "value", o) for o in outs]
+        d = self._data
+        return self._new(ShardedArray(self.cmesh, d.layout, d.shape, outs,
+                                      d.index),
+                         self._template_like(self.shape, unit=unit),
+                         mask=self._mask, include=self._include)
+
+    def _applied(self, out, return_new_cube):
+        """The result of a parallel apply function: the ShardedArray, or a
+        cube of it (the same mask; the stored include where the shape
+        holds)."""
+        if not return_new_cube:
+            return out
+        if out.shape == self.shape:
+            return self._with_data(out)
+        return self._new(out, self._template_like(out.shape), mask=self._mask)
+
+    @_tmp_dir_option
+    def apply_function_parallel_spectral(self, function, *args,
+                                         accepts_chunks=False,
+                                         return_new_cube=True,
+                                         use_memmap=None, parallel=None,
+                                         num_cores=None, verbose=0,
+                                         progressbar=False,
+                                         update_function=None, **kwargs):
+        """``function`` of every spectrum of the NaN-filled data, tile by
+        tile (each tile holds whole spectra): ``torch.func.vmap`` over the
+        tile's spaxels, or, for a function that cannot be vmapped, per
+        spectrum on the host; the output's channel count follows the
+        function.  A function that takes ``block_info`` gets the whole
+        cube's, as in the unsharded call.  ``accepts_chunks=True`` hands
+        the function the whole cube (gathered).  ``return_new_cube=False``
+        returns the output as a spatial-layout ShardedArray, where the
+        unsharded call returns a tensor."""
+        from ..cube import (_as_tensor, _check_parallel_options,
+                            _engine_kwargs, _vmapped)
+        if accepts_chunks:
+            return self._call_gathered(
+                "apply_function_parallel_spectral", function, *args,
+                accepts_chunks=True, return_new_cube=return_new_cube,
+                parallel=parallel, num_cores=num_cores, **kwargs)
+        _check_parallel_options(parallel, num_cores)
+        kwargs = _engine_kwargs(function, self.shape, kwargs)
+        tiles, _ = self._tiles(filled=True)
+        outs, extents = [], []
+        for p, t in enumerate(tiles):
+            h, w = _tile_extent(self.cmesh, p, self.shape[1:], t.shape[1:])
+            extents.append((h, w))
+            if h == 0 or w == 0:
+                outs.append(None)
+                continue
+            d = t[:, :h, :w]
+            nchan = d.shape[0]
+            out = _vmapped(lambda spec: function(spec, *args, **kwargs),
+                           d.reshape(nchan, h * w), 1, 1)
+            if out is not None:
+                out = out.reshape(out.shape[0], h, w)
+            else:
+                out = _as_tensor(np.apply_along_axis(
+                    lambda spec: np.asarray(function(spec, *args, **kwargs)),
+                    0, d.cpu().numpy()), d.device)
+            outs.append(out)
+        ref = next(o for o in outs if o is not None)
+        outs = [o if o is not None else torch.empty(
+            (ref.shape[0],) + e, dtype=ref.dtype, device=t.device)
+            for o, e, t in zip(outs, extents, tiles)]
+        return self._applied(self.cmesh._from_spatial(
+            outs, (ref.shape[0],) + tuple(self.shape[1:])), return_new_cube)
+
+    @_tmp_dir_option
+    def apply_function_parallel_spatial(self, function, *args,
+                                        accepts_chunks=False,
+                                        return_new_cube=True,
+                                        use_memmap=None, parallel=None,
+                                        num_cores=None, verbose=0,
+                                        progressbar=False,
+                                        update_function=None, **kwargs):
+        """``function`` of every channel map of the NaN-filled data, slab
+        by slab of whole planes (the spectral layout: four all-to-alls),
+        vmapped over each slab's channels (per plane on the host for a
+        function that cannot be vmapped), with the options and the result
+        types of :meth:`apply_function_parallel_spectral`."""
+        from ..cube import (_as_tensor, _check_parallel_options,
+                            _engine_kwargs, _vmapped)
+        if accepts_chunks:
+            return self._call_gathered(
+                "apply_function_parallel_spatial", function, *args,
+                accepts_chunks=True, return_new_cube=return_new_cube,
+                parallel=parallel, num_cores=num_cores, **kwargs)
+        _check_parallel_options(parallel, num_cores)
+        kwargs = _engine_kwargs(function, self.shape, kwargs)
+        slabs, _ = self._slabs(filled=True)
+        outs = []
+        for s in slabs:
+            if not s.shape[0]:
+                outs.append(None)
+                continue
+            out = _vmapped(lambda img: function(img, *args, **kwargs), s,
+                           0, 0)
+            if out is None:
+                arr = s.cpu().numpy()
+                out = _as_tensor(np.stack([
+                    np.asarray(function(arr[i], *args, **kwargs))
+                    for i in range(arr.shape[0])]), s.device)
+            outs.append(out)
+        ref = next(o for o in outs if o is not None)
+        outs = [o if o is not None else torch.empty(
+            (0,) + tuple(ref.shape[1:]), dtype=ref.dtype, device=s.device)
+            for o, s in zip(outs, slabs)]
+        return self._applied(self._from_slabs(
+            outs, (self.shape[0],) + tuple(ref.shape[1:])), return_new_cube)
 
     # -- the spectral smoothing family: each tile's whole spectra ----------
     def _check_spectral_smoothing(self, method):

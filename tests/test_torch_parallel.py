@@ -601,19 +601,21 @@ def test_sharded_smooth_interpolate_matches_unsharded(tmp_path, tmesh,
 def test_sharded_smooth_interpolate_threshold_mask_parity(tmp_path, tmesh,
                                                           jmesh):
     """A threshold (data-local) mask re-evaluates on the SMOOTHED data,
-    sharded as unsharded: that case runs on the gathered cube."""
+    sharded as unsharded: each tile smooths its whole spectra and
+    evaluates the mask on them, with no gather."""
     tc, jc, mid, kern = _smooth_case(tmp_path, "tm.fits", (10, 8, 8), 9)
     tc = tc.with_mask(tc > T.Quantity(0.3, tc.unit))
     jc = jc.with_mask(jc > J.Quantity(0.3, jc.unit))
     ref = tc.spectral_interpolate(T.Quantity(mid, tc.spectral_unit),
                                   smooth_kernel=kern)
+    tmesh.reset_counters()
     got = tpar.ShardedCube(tc, tmesh).spectral_interpolate(
         T.Quantity(mid, tc.spectral_unit), smooth_kernel=kern)
+    assert tmesh.counters["gathers"] == 0
     jgot = jpar.ShardedCube(jc, jmesh).spectral_interpolate(
         J.Quantity(mid, jc.spectral_unit), smooth_kernel=kern)
     _close(got.cube.filled_data[:], ref.filled_data[:], 2e-5, 1e-6)
     _close(got.cube.filled_data[:], jgot.cube.filled_data[:], 2e-5, 1e-6)
-    assert tmesh.counters["gathers"] >= 1
 
 
 def test_sharded_smooth_interpolate_unaligned_spatial(tmp_path, tmesh,
@@ -857,7 +859,7 @@ def test_sharded_reproject_refuses_spline_orders(tmesh, big_cube):
 
 def test_sharded_cube_reproject_header(tmp_path, tmesh, jmesh):
     """ShardedCube.reproject(header) == cube.reproject (the pipeline's last
-    stage), a spline order through the gathered cube."""
+    stage), a spline order too (shard by shard, no gather)."""
     path, _ = make_cube_file(tmp_path, name="srep.fits", shape=(6, 16, 16))
     tc, jc = _read(path)
     hdr = tc.header
@@ -886,7 +888,9 @@ def test_sharded_cube_reproject_header(tmp_path, tmesh, jmesh):
                               "gathers": 0}
     _close(got.cube.unmasked_data[:], tc.reproject(shifted)
            .unmasked_data[:], 1e-5, 1e-6)
+    tmesh.reset_counters()
     rot = tpar.ShardedCube(tc, tmesh).reproject(hdr, order="bicubic")
+    assert tmesh.counters["gathers"] == 0
     _close(rot.cube.unmasked_data[:],
            tc.reproject(hdr, order="bicubic").unmasked_data[:], 1e-6)
 
