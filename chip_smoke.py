@@ -168,6 +168,16 @@
 12. Runs a small pipeline, a small varying-resolution pipeline on both
     convolution routes and a small spectral path on the card and on the
     CPU and compares them.
+13. Runs the port's test batteries (``BATTERY_FILES``: the JAX package's
+    reference, lower-dimensional, fuzz, docs, beam, unit and auxiliary
+    tests through the port, and the numpy interop tests) and then the
+    kernel tests (``tests/test_torch_kernels_cuda.py``), each in a pytest
+    process of its own (``python -m pytest --noconftest -m cuda``, the
+    kernels already built; ``-p chip_smoke`` loads the hook that adds up
+    the process's kernel launches test by test into a file): every
+    ``cuda`` case must run and pass, none may fail, error or skip.  One
+    "summary: batteries" line with the outcomes by file, the seconds and
+    each kernel's launches in each process.
 
 Profiler traces (``spectral_cube_tpu_torch.profiling``): after the timed
 calls of the pipeline (3), the spectral path (4), varying-resolution (a)
@@ -368,6 +378,21 @@ KERNELS = {
 # launch counters summed into each kernel's "launches": the conv_reproject
 # source serves #8 and its clean branch #9 through two wrappers
 COUNTED = {"conv_reproject": ("conv_reproject", "plain_strips")}
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+#: the JAX package's user-facing tests through the port, and the kernel
+#: tests: phase_batteries runs their ``cuda`` cases on the card
+BATTERY_FILES = ("tests/test_torch_ref_battery.py",
+                 "tests/test_torch_projection_battery.py",
+                 "tests/test_torch_fuzz_chains.py",
+                 "tests/test_torch_docs.py",
+                 "tests/test_torch_beams_units.py",
+                 "tests/test_torch_numpy_interop.py")
+KERNEL_TEST_FILES = ("tests/test_torch_kernels_cuda.py",)
+#: seconds a pytest process of phase_batteries may take
+BATTERY_TIMEOUT = 600
+#: the environment variable naming the file the pytest hook writes
+COUNTS_ENV = "CHIP_SMOKE_LAUNCHES"
 
 
 def log(*args):
@@ -3674,6 +3699,16 @@ def sharded_methods(cmesh, sc, cube, noise, sharded, timed, counters,
     return errs
 
 
+def dense_operator(bands):
+    """The (nout, nin) float32 operator that ``RowBands`` ``bands`` hold."""
+    nout = bands.taps.shape[0]
+    M = np.zeros((nout, bands.nin), np.float32)
+    for i in range(nout):
+        n = int(bands.length[i])
+        M[i, bands.start[i]:bands.start[i] + n] = bands.taps[i, :n]
+    return M
+
+
 def sharded_gathers(cmesh, sc, cube, noise, sharded, timed, times,
                     counters, launches, peaks):
     """(f): the ShardedCube methods that gathered the cube until they ran
@@ -3702,6 +3737,7 @@ def sharded_gathers(cmesh, sc, cube, noise, sharded, timed, times,
     from spectral_cube_tpu_torch import kernels as K
     from spectral_cube_tpu_torch.kernels import banded_matmul as kb
     from spectral_cube_tpu_torch.ops import smoothing as osm
+    from spectral_cube_tpu_torch.utils import ieee_fp32
     q = T.Quantity(SNR * noise, sc.unit)
     fs = sc.with_mask(sc > q)
     fs.allow_huge_operations = True
@@ -3819,11 +3855,15 @@ def sharded_gathers(cmesh, sc, cube, noise, sharded, timed, times,
     nout = int(bands.length.shape[0])
     ms = cuda_ms(lambda: kb.banded_matmul(flat, bands), 7)
     pms = cuda_ms(lambda: kb.banded_matmul_plain(flat, bands), 3)
+    Mt = torch.as_tensor(dense_operator(bands), device=flat.device)
+    with ieee_fp32():
+        lib_ms = cuda_ms(lambda: torch.matmul(Mt, flat), 5)
     bms, by = bound((nin + nout) * ncol * 4,
                     2 * int(bands.length.sum()) * ncol)
     tile = {"shape": [nout, nin, ncol], "max_abs_err": bm_err, "ms": ms,
-            "plain_ms": pms, "bound_ms": bms, "bound_by": by}
-    del a, flat, bands
+            "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib_ms}
+    del a, flat, bands, Mt
     del fs, fu
     torch.cuda.empty_cache()
     log(f"summary: sharded (f) ({cmesh.grid[0]}x{cmesh.grid[1]} mesh on "
@@ -4215,6 +4255,111 @@ def phase_small_reference(dev):
         raise AssertionError("small spectral path differs")
 
 
+class LaunchTally:
+    """A pytest plugin: adds up the port's kernel launches test by test
+    and writes the sums to ``path`` when pytest finishes.  A test that
+    resets the counters counts its launches after the reset."""
+
+    def __init__(self, path):
+        from spectral_cube_tpu_torch import kernels as K
+        self.K, self.path = K, path
+        self.total = dict.fromkeys(K.WRAPPERS, 0)
+
+    def pytest_runtest_logstart(self, nodeid, location):
+        self.K.reset_launch_counts()
+
+    def pytest_runtest_logfinish(self, nodeid, location):
+        for k, n in self.K.launch_counts().items():
+            self.total[k] += n
+
+    def pytest_sessionfinish(self, session, exitstatus):
+        with open(self.path, "w") as f:
+            json.dump(self.total, f)
+
+
+def pytest_configure(config):
+    """A pytest hook, active under ``-p chip_smoke``: registers a
+    :class:`LaunchTally` writing to the file ``COUNTS_ENV`` names."""
+    path = os.environ.get(COUNTS_ENV)
+    if path:
+        config.pluginmanager.register(LaunchTally(path), "launch_tally")
+
+
+def run_card_tests(files, workdir, tag):
+    """The ``cuda`` cases of ``files`` in a pytest process of their own,
+    without the repository's conftest (the card's machine has no JAX).
+    Returns the outcomes by file (from its junit report), the totals, the
+    seconds and the kernel launches of the process."""
+    import xml.etree.ElementTree as ET
+    report = os.path.join(workdir, f"{tag}.xml")
+    counts = os.path.join(workdir, f"{tag}.launches.json")
+    cmd = [sys.executable, "-m", "pytest", "--noconftest",
+           "-p", "no:cacheprovider", "-p", "chip_smoke",
+           "-o", "filterwarnings=", "-m", "cuda", "-q", "-rfEs",
+           f"--junitxml={report}", *files]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                          env=dict(os.environ, **{COUNTS_ENV: counts}),
+                          timeout=BATTERY_TIMEOUT)
+    seconds = time.perf_counter() - t
+    for line in proc.stdout.splitlines():
+        if line.startswith(("FAILED", "ERROR", "SKIPPED")):
+            log(f"  {tag}: {line}")
+    log(f"  {tag}: {proc.stdout.strip().splitlines()[-1]}")
+    if proc.returncode != 0:
+        log(proc.stdout[-6000:])
+        log(proc.stderr[-3000:])
+        raise AssertionError(f"{tag}: pytest exited {proc.returncode}")
+    by_file = {}
+    for case in ET.parse(report).getroot().iter("testcase"):
+        name = case.get("classname").split(".")[-1]
+        tags = {child.tag for child in case}
+        outcome = ("failed" if "failure" in tags else "errors"
+                   if "error" in tags else "skipped" if "skipped" in tags
+                   else "passed")
+        by_file.setdefault(name, dict.fromkeys(
+            ("passed", "failed", "errors", "skipped"), 0))[outcome] += 1
+    totals = {k: sum(f[k] for f in by_file.values())
+              for k in ("passed", "failed", "errors", "skipped")}
+    with open(counts) as f:
+        launches = json.load(f)
+    return {"by_file": by_file, "totals": totals, "seconds": seconds,
+            "launches": launches}
+
+
+def phase_batteries():
+    """The JAX package's user-facing test batteries run through the port
+    (``BATTERY_FILES``), then the kernel tests, every ``cuda`` case on the
+    card in a pytest process of its own, the kernels already built.  Fails
+    unless each file ran cases and every case passed: no failure, error or
+    skip.  Prints one "summary: batteries" line."""
+    log("phase batteries (card)")
+    runs = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        for tag, files in (("batteries", BATTERY_FILES),
+                           ("kernel tests", KERNEL_TEST_FILES)):
+            run = runs[tag] = run_card_tests(files, workdir, tag)
+            t = run["totals"]
+            ran = {os.path.basename(f)[:-3] for f in files}
+            if set(run["by_file"]) != ran or t["passed"] == 0 or \
+                    t["failed"] or t["errors"] or t["skipped"]:
+                raise AssertionError(f"{tag}: {run['by_file']}")
+
+    def part(tag):
+        run = runs[tag]
+        return (f"{tag}: " + ", ".join(f"{v} {k}" for k, v in
+                                       run["totals"].items())
+                + f" in {run['seconds']:.1f} s ("
+                + ", ".join(f"{f[len('test_torch_'):]} {c['passed']}"
+                            for f, c in run["by_file"].items())
+                + "), kernel launches " + ", ".join(
+                    f"{k} {n}" for k, n in run["launches"].items()))
+
+    log("summary: batteries (card, cuda cases; pytest --noconftest -m "
+        "cuda): " + "; ".join(part(tag) for tag in runs))
+    return runs
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4283,6 +4428,7 @@ def main():
     del data
     torch.cuda.empty_cache()
     phase("small reference", phase_small_reference, dev)
+    phase("batteries (card)", phase_batteries)
     log("summary: phase wall times "
         + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
 

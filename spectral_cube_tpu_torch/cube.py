@@ -55,7 +55,7 @@ from .masks import (BooleanArrayMask, LazyComparisonMask, CompositeMask,
                     LazyMask, MaskBase, is_data_local,
                     is_finiteness_mask, index_view,
                     view_shape, is_broadcastable_and_smaller,
-                    _is_index as _is_int)
+                    _call_user_function, _is_index as _is_int)
 from .beams import Beam, Beams, BeamError, NoBeamError
 from .lower_dimensional_structures import (Projection, Slice, OneDSpectrum,
                                            VaryingResolutionOneDSpectrum,
@@ -1418,7 +1418,8 @@ class BaseSpectralCube:
         if not check_units:
             vals = [a.value if isinstance(a, Quantity) else a
                     for a in args]
-            data = function(self._get_filled_data(fill=np.nan), *vals)
+            data = _call_user_function(
+                function, self._get_filled_data(fill=np.nan), *vals)
             return self._new_cube_with(data=data, unit=self.unit)
         return self.apply_everywhere(function, *args, check_units=True)
 
@@ -1442,7 +1443,8 @@ class BaseSpectralCube:
             if isinstance(out, Quantity):
                 return self._new_cube_with(data=out.value, unit=out.unit)
             return self._new_cube_with(data=out, unit=unit)
-        data = function(self._get_filled_data(fill=np.nan), *args)
+        data = _call_user_function(
+            function, self._get_filled_data(fill=np.nan), *args)
         return self._new_cube_with(data=data)
 
     # ------------------------------------------------------------------
@@ -1468,7 +1470,7 @@ class BaseSpectralCube:
         kwargs = _engine_kwargs(function, self.shape, kwargs)
         data = self._get_filled_data(fill=np.nan)
         if accepts_chunks:
-            out = function(data, *args, **kwargs)
+            out = _call_user_function(function, data, *args, **kwargs)
         else:
             nchan, ny, nx = data.shape
             out = _vmapped(lambda spec: function(spec, *args, **kwargs),
@@ -1498,7 +1500,7 @@ class BaseSpectralCube:
         kwargs = _engine_kwargs(function, self.shape, kwargs)
         data = self._get_filled_data(fill=np.nan)
         if accepts_chunks:
-            out = function(data, *args, **kwargs)
+            out = _call_user_function(function, data, *args, **kwargs)
         else:
             out = _vmapped(lambda img: function(img, *args, **kwargs), data,
                            0, 0)
@@ -2019,10 +2021,32 @@ class BaseSpectralCube:
         return axes
 
     def __repr__(self):
+        """Shape + per-axis type/unit/world-range summary (the JAX
+        package's cube.py:2097-2123, reference base_class.py:325-348),
+        then the device."""
+        nchan, ny, nx = self.shape
         unit = str(self.unit)
         head = f"{type(self).__name__} with shape={self.shape}"
-        head += f" and unit={unit}" if unit else ""
-        return head + f" on {self.device}"
+        head += f" and unit={unit}:\n" if unit else ":\n"
+        try:
+            lon = np.asarray(self.longitude_extrema.value, dtype=float)
+            lat = np.asarray(self.latitude_extrema.value, dtype=float)
+            spec = np.asarray(self.spectral_extrema.value, dtype=float)
+            cu = [c.to_string() for c in self._wcs.cunit]
+            su = str(self.spectral_axis.unit)
+            rows = [
+                f" n_x: {nx:6d}  type_x: {self._wcs.ctype[0]:8s}  "
+                f"unit_x: {cu[0]:5s}  range: {lon[0]:12.6f}:{lon[1]:12.6f}",
+                f" n_y: {ny:6d}  type_y: {self._wcs.ctype[1]:8s}  "
+                f"unit_y: {cu[1]:5s}  range: {lat[0]:12.6f}:{lat[1]:12.6f}",
+                f" n_s: {nchan:6d}  type_s: {self._wcs.ctype[2]:8s}  "
+                f"unit_s: {su:5s}  range: {spec[0]:12.3f}:{spec[1]:12.3f}",
+            ]
+        except Exception:
+            rows = [f" n_x: {nx:6d}  type_x: {self._wcs.ctype[0]}",
+                    f" n_y: {ny:6d}  type_y: {self._wcs.ctype[1]}",
+                    f" n_s: {nchan:6d}  type_s: {self._wcs.ctype[2]}"]
+        return head + "\n".join(rows) + f"\n on {self.device}"
 
 
 class SpectralCube(BaseSpectralCube):

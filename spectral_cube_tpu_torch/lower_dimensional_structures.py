@@ -32,7 +32,7 @@ def _host_include(mask, value, view=()):
     array: the mask is evaluated on a host tensor of the values, wherever
     the cube it came from lives."""
     inc = mask.include(data=torch.as_tensor(np.asarray(value)), view=view)
-    return np.asarray(inc.cpu())
+    return inc.cpu().numpy()
 
 
 class LowerDimensionalObject(Quantity):

@@ -18,10 +18,13 @@ arrays take.
 
 from __future__ import annotations
 
+import re
 from abc import ABC, abstractmethod
 
 import numpy as np
 import torch
+
+from .units import torch_namesake
 
 __all__ = ["MaskBase", "InvertedMask", "CompositeMask", "BooleanArrayMask",
            "LazyMask", "LazyComparisonMask", "FunctionMask", "is_data_local",
@@ -255,10 +258,37 @@ def _include_of(mask, data, view, wcs):
     return mask._include(data=data, view=view)
 
 
-def _torch_name(fn):
-    """The name under which ``fn`` is an attribute of torch, or None."""
-    name = getattr(fn, "__name__", "")
-    return name if name and getattr(torch, name, None) is fn else None
+def _data_tensor(data):
+    """Mask data as a tensor: numpy lands where a cube's data would
+    (``cube._as_tensor``: the card unless the CPU is asked for)."""
+    if data is None or isinstance(data, torch.Tensor):
+        return data
+    from .cube import _as_tensor
+    return _as_tensor(data, None)
+
+
+#: what numpy raises when it is handed a tensor it cannot read (one on the
+#: card)
+_NUMPY_REFUSED = re.compile(r"can't convert \S+ device type tensor to numpy")
+
+
+def _host_arg(a):
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+
+
+def _call_user_function(function, data, *args, **kwargs):
+    """``function(data, ...)`` for a caller's function handed a tensor.  A
+    function written for numpy cannot read a tensor on the card: when numpy
+    refuses it, the function is called again on host copies, as the JAX
+    package's functions get arrays numpy reads, and its result is returned
+    as it is.  Any other error comes through unchanged."""
+    try:
+        return function(data, *args, **kwargs)
+    except TypeError as exc:
+        if not (isinstance(data, torch.Tensor)
+                and _NUMPY_REFUSED.search(str(exc))):
+            raise
+    return function(_host_arg(data), *map(_host_arg, args), **kwargs)
 
 
 class MaskBase(ABC):
@@ -381,9 +411,9 @@ class MaskBase(ABC):
     # as the JAX package stores jnp functions and device arrays
     def __getstate__(self):
         state = dict(self.__dict__)
-        name = _torch_name(state.get("_function"))
-        if name is not None:
-            state["_function"] = ("__torch__", name)
+        fn = state.get("_function")
+        if fn is not None and torch_namesake(fn) is fn:
+            state["_function"] = ("__torch__", fn.__name__)
         for key in ("_data", "_mask"):
             if isinstance(state.get(key), torch.Tensor):
                 state[key] = ("__tensor__", state[key].cpu().numpy())
@@ -559,11 +589,13 @@ class _DataMask(MaskBase):
     reference's masks.py:534-542 cut it at once)."""
 
     def _bind(self, function, cube, data, wcs, shape):
-        self._function = function
+        # a numpy function whose name torch also has (np.isfinite,
+        # np.greater, ...) becomes torch's, which the kernels fuse
+        self._function = torch_namesake(function) or function
         if cube is not None:
             data = cube._data
             wcs = getattr(cube, "_wcs", None)
-        self._data = data
+        self._data = _data_tensor(data)
         self._data_view = ()
         self._wcs = wcs
         self._shape = shape if shape is not None else (
@@ -595,8 +627,9 @@ class LazyMask(_DataMask):
         self._bind(function, cube, data, wcs, shape)
 
     def _include(self, data=None, view=()):
-        d = data if data is not None else self._bound()
-        return self._function(index_view(d, view))
+        d = _data_tensor(data) if data is not None else self._bound()
+        return _as_bool_tensor(_call_user_function(
+            self._function, index_view(d, view))).to(d.device)
 
     def __getitem__(self, view):
         return self._sliced(view)
@@ -615,7 +648,7 @@ class LazyComparisonMask(_DataMask):
         self._comparison_value = comparison_value
 
     def _include(self, data=None, view=()):
-        d = data if data is not None else self._bound()
+        d = _data_tensor(data) if data is not None else self._bound()
         sub = index_view(d, view)
         cv = self._comparison_value
         if np.ndim(cv) > 0:
@@ -628,7 +661,8 @@ class LazyComparisonMask(_DataMask):
             # rounded to the data's dtype on the host: a Python number
             # needs no copy to the device, which would wait for its queue
             cv = torch.as_tensor(cv, dtype=sub.dtype).item()
-        return self._function(sub, cv)
+        return _as_bool_tensor(_call_user_function(
+            self._function, sub, cv)).to(sub.device)
 
     def __getitem__(self, view):
         cv = self._comparison_value
@@ -650,8 +684,9 @@ class FunctionMask(MaskBase):
         self._wcs = wcs
 
     def _include(self, data=None, view=(), wcs=None):
-        result = self._function(data, wcs if wcs is not None else self._wcs,
-                                view)
+        result = _call_user_function(
+            self._function, data, wcs if wcs is not None else self._wcs,
+            view)
         if data is not None and tuple(np.shape(result)) != \
                 tuple(view_shape(data.shape, view)):
             raise ValueError("Function did not return mask with correct "

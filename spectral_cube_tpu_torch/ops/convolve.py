@@ -149,7 +149,14 @@ def _convolve_planes(data, transfers, group_idx):
 
 def convolve2d_nan_fft(data, kernel):
     """NaN-interpolating normalized FFT convolution of (ny, nx) or
-    (nchan, ny, nx) ``data`` with one 2-D kernel, normalized to sum 1."""
+    (nchan, ny, nx) ``data`` with one 2-D kernel, normalized to sum 1.
+    A tensor gives a tensor on its device; numpy data runs where a cube's
+    data would (``cube._as_tensor``) and gives a numpy result, as the JAX
+    function's caller gets an array back."""
+    host = not isinstance(data, torch.Tensor)
+    if host:
+        from ..cube import _as_tensor
+        data = _as_tensor(data, None)
     k = np.asarray(kernel, dtype=float)
     single = data.ndim == 2
     if single:
@@ -159,7 +166,8 @@ def convolve2d_nan_fft(data, kernel):
                                             data.device,
                                             _complex_of(data.dtype)),
                            np.zeros(data.shape[0], np.int64))
-    return out[0] if single else out
+    out = out[0] if single else out
+    return out.cpu().numpy() if host else out
 
 
 def _conv_matrix_1d(n, taps):

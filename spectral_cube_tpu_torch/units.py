@@ -27,6 +27,7 @@ from dataclasses import dataclass
 from typing import Iterable, Sequence
 
 import numpy as np
+import torch
 
 __all__ = [
     "Unit",
@@ -572,6 +573,48 @@ def parse_bunit(text):
         return None
 
 
+def _host(value):
+    """``value`` as a numpy array.  A tensor is copied to the host
+    explicitly: numpy cannot read a tensor on the card."""
+    if isinstance(value, torch.Tensor):
+        value = value.detach().cpu().numpy()
+    return np.asarray(value)
+
+
+#: numpy functions whose torch namesake computes something else, or which
+#: torch spells differently (``torch.equal`` compares whole tensors)
+_TORCH_SPELLINGS = {"equal": torch.eq, "power": torch.pow}
+
+
+def torch_namesake(fn):
+    """The torch function that computes ``fn``, found by name: ``fn`` itself
+    when it is torch's (``torch.isfinite``), torch's namesake of a numpy
+    function (``np.isfinite`` -> ``torch.isfinite``), else None."""
+    name = getattr(fn, "__name__", "")
+    if name and getattr(torch, name, None) is fn:
+        return fn
+    if not name or getattr(np, name, None) is not fn:
+        return None
+    out = _TORCH_SPELLINGS.get(name, getattr(torch, name, None))
+    return out if callable(out) else None
+
+
+def _apply_ufunc(ufunc, *args):
+    """``ufunc(*args)`` for operands that may be tensors.  Where one is a
+    tensor and torch has the function by name, torch computes it on that
+    tensor's device; otherwise numpy computes it on a host copy."""
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    if not tensors:
+        return ufunc(*args)
+    fn = torch_namesake(ufunc)
+    if fn is None:
+        return ufunc(*(_host(a) if isinstance(a, torch.Tensor) else a
+                       for a in args))
+    device = tensors[0].device
+    return fn(*(a if isinstance(a, torch.Tensor)
+                else torch.as_tensor(a, device=device) for a in args))
+
+
 class Quantity:
     """A value (scalar or numpy array) with a unit.
 
@@ -706,17 +749,20 @@ class Quantity:
 
     def copy(self):
         """An independent copy (astropy Quantity.copy parity)."""
+        if isinstance(self.value, torch.Tensor):
+            return Quantity(self.value.clone(), self.unit)
         return Quantity(np.array(self.value, copy=True), self.unit)
 
     def __getitem__(self, item):
         return Quantity(self.value[item], self.unit)
 
     def __iter__(self):
-        for v in np.atleast_1d(self.value):
+        for v in np.atleast_1d(_host(self.value)):
             yield Quantity(v, self.unit)
 
-    def __array__(self, dtype=None):
-        return np.asarray(self.value, dtype=dtype)
+    def __array__(self, dtype=None, copy=None):
+        arr = np.asarray(_host(self.value), dtype=dtype)
+        return arr.copy() if copy else arr
 
     # numpy ufunc protocol: keep units through np.abs(q), np.add(q, q),
     # np.sqrt(q), ... like astropy Quantity (the reference's
@@ -744,14 +790,15 @@ class Quantity:
             # np.min/max/sum/nanmin/nanmax(q) lower to <ufunc>.reduce;
             # without this branch numpy would raise instead of falling
             # back to __array__ once __array_ufunc__ exists
-            arr = np.asarray(inputs[0])
+            arr = _host(inputs[0].value if isinstance(inputs[0], Quantity)
+                        else inputs[0])
             if name in ("minimum", "maximum", "fmin", "fmax", "add"):
                 return Quantity(ufunc.reduce(arr, **kwargs), self.unit)
             if name in ("logical_or", "logical_and"):
                 return ufunc.reduce(arr, **kwargs)
             return NotImplemented
         if method == "accumulate" and name == "add":
-            return Quantity(ufunc.accumulate(np.asarray(inputs[0]),
+            return Quantity(ufunc.accumulate(_host(inputs[0].value),
                                              **kwargs), self.unit)
         if method != "__call__":
             return NotImplemented
@@ -765,21 +812,23 @@ class Quantity:
             return x
 
         if name in self._UNIT_KEEPING_UFUNCS and len(inputs) == 1:
-            return Quantity(ufunc(val(inputs[0])), self.unit)
+            return Quantity(_apply_ufunc(ufunc, val(inputs[0])),
+                            self.unit)
         if name in self._UNIT_KEEPING_UFUNCS and len(inputs) == 2:
             a, b = inputs
-            return Quantity(ufunc(val(a, self.unit), val(b, self.unit)),
-                            self.unit)
+            return Quantity(_apply_ufunc(ufunc, val(a, self.unit),
+                                         val(b, self.unit)), self.unit)
         if name in self._UNIT_MATCHING_UFUNCS:
             a, b = inputs
-            return Quantity(ufunc(val(a, self.unit), val(b, self.unit)),
-                            self.unit)
+            return Quantity(_apply_ufunc(ufunc, val(a, self.unit),
+                                         val(b, self.unit)), self.unit)
         if name in self._BOOL_UFUNCS:
             if len(inputs) == 1:
-                return ufunc(val(inputs[0]))
+                return _apply_ufunc(ufunc, val(inputs[0]))
             a, b = inputs
             try:
-                return ufunc(val(a, self.unit), val(b, self.unit))
+                return _apply_ufunc(ufunc, val(a, self.unit),
+                                    val(b, self.unit))
             except UnitConversionError:
                 if name in ("equal", "not_equal"):
                     # match the == operator: incompatible units compare
@@ -791,19 +840,23 @@ class Quantity:
         if name == "multiply":
             a, b = (x if isinstance(x, Quantity) else Quantity(x)
                     for x in inputs)
-            return Quantity(ufunc(a.value, b.value), a.unit * b.unit)
+            return Quantity(_apply_ufunc(ufunc, a.value, b.value),
+                            a.unit * b.unit)
         if name in ("divide", "true_divide"):
             a, b = (x if isinstance(x, Quantity) else Quantity(x)
                     for x in inputs)
-            return Quantity(ufunc(a.value, b.value), a.unit / b.unit)
+            return Quantity(_apply_ufunc(ufunc, a.value, b.value),
+                            a.unit / b.unit)
         if name == "sqrt":
-            return Quantity(ufunc(val(inputs[0])), self.unit ** 0.5)
+            return Quantity(_apply_ufunc(ufunc, val(inputs[0])),
+                            self.unit ** 0.5)
         if name == "square":
-            return Quantity(ufunc(val(inputs[0])), self.unit ** 2)
+            return Quantity(_apply_ufunc(ufunc, val(inputs[0])),
+                            self.unit ** 2)
         if name in ("power", "float_power"):
             a, p = inputs
             p = float(p)
-            return Quantity(ufunc(val(a), p), self.unit ** p)
+            return Quantity(_apply_ufunc(ufunc, val(a), p), self.unit ** p)
         if name in self._DIMENSIONLESS_UFUNCS:
             q = inputs[0]
             if isinstance(q, Quantity):
@@ -816,7 +869,7 @@ class Quantity:
                     v = q.to_value(Unit.parse(""))
             else:
                 v = q
-            return ufunc(v)
+            return _apply_ufunc(ufunc, v)
         return NotImplemented
 
     @property
@@ -833,6 +886,8 @@ class Quantity:
 
     @property
     def dtype(self):
+        if isinstance(self.value, torch.Tensor):
+            return torch.empty((), dtype=self.value.dtype).numpy().dtype
         return np.asarray(self.value).dtype
 
     def reshape(self, *shape):
@@ -842,7 +897,7 @@ class Quantity:
         return float(self.value)
 
     def item(self):
-        return np.asarray(self.value).item()
+        return _host(self.value).item()
 
     @staticmethod
     def _redkw(kwargs):
@@ -856,51 +911,51 @@ class Quantity:
         return out
 
     def min(self, axis=None, **kwargs):
-        return Quantity(np.min(np.asarray(self.value), axis=axis,
+        return Quantity(np.min(_host(self.value), axis=axis,
                                **self._redkw(kwargs)), self.unit)
 
     def max(self, axis=None, **kwargs):
-        return Quantity(np.max(np.asarray(self.value), axis=axis,
+        return Quantity(np.max(_host(self.value), axis=axis,
                                **self._redkw(kwargs)), self.unit)
 
     def mean(self, axis=None, **kwargs):
-        return Quantity(np.mean(np.asarray(self.value), axis=axis,
+        return Quantity(np.mean(_host(self.value), axis=axis,
                                 **self._redkw(kwargs)), self.unit)
 
     # the full reduction set the reference reroutes to bare Quantities
     # (lower_dimensional_structures.py:802-812)
     def std(self, axis=None, **kwargs):
-        return Quantity(np.std(np.asarray(self.value), axis=axis,
+        return Quantity(np.std(_host(self.value), axis=axis,
                                **self._redkw(kwargs)), self.unit)
 
     def var(self, axis=None, **kwargs):
-        return Quantity(np.var(np.asarray(self.value), axis=axis,
+        return Quantity(np.var(_host(self.value), axis=axis,
                                **self._redkw(kwargs)), self.unit ** 2)
 
     def sum(self, axis=None, **kwargs):
-        return Quantity(np.sum(np.asarray(self.value), axis=axis,
+        return Quantity(np.sum(_host(self.value), axis=axis,
                                **self._redkw(kwargs)), self.unit)
 
     def nansum(self, axis=None, **kwargs):
-        return Quantity(np.nansum(np.asarray(self.value), axis=axis,
+        return Quantity(np.nansum(_host(self.value), axis=axis,
                                   **self._redkw(kwargs)), self.unit)
 
     def cumsum(self, axis=None, **kwargs):
-        return Quantity(np.cumsum(np.asarray(self.value), axis=axis),
+        return Quantity(np.cumsum(_host(self.value), axis=axis),
                         self.unit)
 
     def argmax(self, axis=None):
         # ndarray API: plain integer indices, no unit
-        return np.argmax(np.asarray(self.value), axis=axis)
+        return np.argmax(_host(self.value), axis=axis)
 
     def argmin(self, axis=None):
-        return np.argmin(np.asarray(self.value), axis=axis)
+        return np.argmin(_host(self.value), axis=axis)
 
     def ptp(self):
-        return Quantity(np.ptp(np.asarray(self.value)), self.unit)
+        return Quantity(np.ptp(_host(self.value)), self.unit)
 
     def round(self, decimals=0):
-        return Quantity(np.round(np.asarray(self.value), decimals),
+        return Quantity(np.round(_host(self.value), decimals),
                         self.unit)
 
     def squeeze(self):
