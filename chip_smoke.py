@@ -169,8 +169,10 @@
     convolution routes and a small spectral path on the card and on the
     CPU and compares them.
 13. Runs the port's test batteries (``BATTERY_FILES``: the JAX package's
-    reference, lower-dimensional, fuzz, docs, beam, unit and auxiliary
-    tests through the port, and the numpy interop tests) and then the
+    reference, lower-dimensional, fuzz, docs, beam, unit, auxiliary,
+    cube, mask, I/O, WCS, multi-device (on a mesh of 8 positions of the
+    card) and operation tests through the port, the numpy interop tests
+    and the sharded store's) and then the
     kernel tests (``tests/test_torch_kernels_cuda.py``), each in a pytest
     process of its own (``python -m pytest --noconftest -m cuda``, the
     kernels already built; ``-p chip_smoke`` loads the hook that adds up
@@ -387,7 +389,13 @@ BATTERY_FILES = ("tests/test_torch_ref_battery.py",
                  "tests/test_torch_fuzz_chains.py",
                  "tests/test_torch_docs.py",
                  "tests/test_torch_beams_units.py",
-                 "tests/test_torch_numpy_interop.py")
+                 "tests/test_torch_cube_battery.py",
+                 "tests/test_torch_io_battery.py",
+                 "tests/test_torch_wcs_battery.py",
+                 "tests/test_torch_mesh_battery.py",
+                 "tests/test_torch_ops_battery.py",
+                 "tests/test_torch_numpy_interop.py",
+                 "tests/test_torch_sharded_store.py")
 KERNEL_TEST_FILES = ("tests/test_torch_kernels_cuda.py",)
 #: seconds a pytest process of phase_batteries may take
 BATTERY_TIMEOUT = 600

@@ -1426,7 +1426,8 @@ class BaseSpectralCube:
     def apply_everywhere(self, function, *args, check_units=True):
         """Apply an elementwise function to the filled data (reference
         _apply_everywhere, spectral_cube.py:911-957); the function gets a
-        Quantity whose value is the data tensor."""
+        Quantity whose value is the data tensor, or a host copy of it where
+        numpy refuses the tensor (``masks._call_user_function``)."""
         self._check_huge_materialization("operation")
         if check_units:
             try:
@@ -1438,8 +1439,9 @@ class BaseSpectralCube:
                 raise ValueError(
                     f"function {function} does not accept Quantity "
                     f"input: {exc}")
-            out = function(Quantity(self._get_filled_data(fill=np.nan),
-                                    self.unit), *args)
+            out = _call_user_function(
+                function, Quantity(self._get_filled_data(fill=np.nan),
+                                   self.unit), *args)
             if isinstance(out, Quantity):
                 return self._new_cube_with(data=out.value, unit=out.unit)
             return self._new_cube_with(data=out, unit=unit)

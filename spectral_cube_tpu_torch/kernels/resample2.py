@@ -331,7 +331,7 @@ def _host_flags(wz_any):
     """The filled entry's channel flags on the host (one small read where
     they lie on the card)."""
     if isinstance(wz_any, torch.Tensor):
-        wz_any = wz_any.cpu()
+        wz_any = wz_any.cpu().numpy()
     return np.asarray(wz_any, dtype=bool)
 
 

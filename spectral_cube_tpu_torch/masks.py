@@ -24,7 +24,7 @@ from abc import ABC, abstractmethod
 import numpy as np
 import torch
 
-from .units import torch_namesake
+from .units import Quantity, torch_namesake
 
 __all__ = ["MaskBase", "InvertedMask", "CompositeMask", "BooleanArrayMask",
            "LazyMask", "LazyComparisonMask", "FunctionMask", "is_data_local",
@@ -272,23 +272,68 @@ def _data_tensor(data):
 _NUMPY_REFUSED = re.compile(r"can't convert \S+ device type tensor to numpy")
 
 
+def _holds_tensor(a):
+    return isinstance(a, torch.Tensor) or (
+        isinstance(a, Quantity) and isinstance(a.value, torch.Tensor))
+
+
 def _host_arg(a):
-    return a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+    """A tensor, or a ``Quantity`` of one, copied to the host."""
+    if not _holds_tensor(a):
+        return a
+    if isinstance(a, Quantity):
+        return Quantity(a.value.cpu().numpy(), a.unit)
+    return a.cpu().numpy()
 
 
 def _call_user_function(function, data, *args, **kwargs):
     """``function(data, ...)`` for a caller's function handed a tensor.  A
-    function written for numpy cannot read a tensor on the card: when numpy
-    refuses it, the function is called again on host copies, as the JAX
-    package's functions get arrays numpy reads, and its result is returned
-    as it is.  Any other error comes through unchanged."""
+    function written for numpy cannot read a tensor (or a ``Quantity`` of
+    one) on the card: when numpy refuses it, the function is called again on
+    host copies, as the JAX package's functions get arrays numpy reads, and
+    its result is returned as it is.  Any other error comes through
+    unchanged."""
     try:
         return function(data, *args, **kwargs)
     except TypeError as exc:
-        if not (isinstance(data, torch.Tensor)
-                and _NUMPY_REFUSED.search(str(exc))):
+        if not (_holds_tensor(data) and _NUMPY_REFUSED.search(str(exc))):
             raise
     return function(_host_arg(data), *map(_host_arg, args), **kwargs)
+
+
+def bind_data(mask, data):
+    """``mask`` with each data mask in it that has no bound data (a
+    streamed reader's finiteness mask, a sharded cube's comparison) bound
+    to ``data``, the whole array the mask covers; the mask itself where
+    none lacks data."""
+    if isinstance(mask, _DataMask):
+        if mask._data is not None:
+            return mask
+        new = type(mask).__new__(type(mask))
+        new.__dict__.update(mask.__dict__, _data=_data_tensor(data))
+        return new
+    if isinstance(mask, InvertedMask):
+        inner = bind_data(mask._mask, data)
+        return mask if inner is mask._mask else InvertedMask(inner)
+    if isinstance(mask, CompositeMask):
+        m1, m2 = bind_data(mask._mask1, data), bind_data(mask._mask2, data)
+        if m1 is mask._mask1 and m2 is mask._mask2:
+            return mask
+        return CompositeMask(m1, m2, mask._operation)
+    return mask
+
+
+def has_unbound_data(mask) -> bool:
+    """True if ``mask`` holds a data mask with no bound data, which
+    answers ``include()`` only when given data."""
+    if isinstance(mask, _DataMask):
+        return mask._data is None
+    if isinstance(mask, InvertedMask):
+        return has_unbound_data(mask._mask)
+    if isinstance(mask, CompositeMask):
+        return has_unbound_data(mask._mask1) or \
+            has_unbound_data(mask._mask2)
+    return False
 
 
 class MaskBase(ABC):
@@ -332,7 +377,9 @@ class MaskBase(ABC):
     # -- data access -------------------------------------------------------
     def _filled(self, data, wcs=None, fill=np.nan, view=()):
         """Data where included, ``fill`` elsewhere (reference
-        masks.py:197-237), in the data's dtype on its device."""
+        masks.py:197-237), in the data's dtype on its device; numpy data
+        lands where a cube's data would."""
+        data = _data_tensor(data)
         sub = index_view(data, view)
         inc = _include_of(self, data, view, wcs)
         return torch.where(inc.to(sub.device), sub,
@@ -340,7 +387,9 @@ class MaskBase(ABC):
                                            device=sub.device))
 
     def _flattened(self, data, wcs=None, view=()):
-        """1-D tensor of the included values (reference masks.py:165-195)."""
+        """1-D tensor of the included values (reference masks.py:165-195);
+        numpy data lands where a cube's data would."""
+        data = _data_tensor(data)
         sub = index_view(data, view)
         inc = _include_of(self, data, view, wcs).to(sub.device)
         return sub[inc.expand(sub.shape)]

@@ -30,6 +30,7 @@ import torch
 from ..beams import Beam
 from ..units import Unit
 from ..kernels.conv_sep import conv_sep
+from ..utils import takes_numpy
 from .smoothing import _banded_conv_matrix, banded_tap_offset
 
 __all__ = ["separable_factors", "convolve2d_separable",
@@ -147,16 +148,12 @@ def _convolve_planes(data, transfers, group_idx):
     return out.to(data.dtype)
 
 
+@takes_numpy
 def convolve2d_nan_fft(data, kernel):
     """NaN-interpolating normalized FFT convolution of (ny, nx) or
     (nchan, ny, nx) ``data`` with one 2-D kernel, normalized to sum 1.
-    A tensor gives a tensor on its device; numpy data runs where a cube's
-    data would (``cube._as_tensor``) and gives a numpy result, as the JAX
-    function's caller gets an array back."""
-    host = not isinstance(data, torch.Tensor)
-    if host:
-        from ..cube import _as_tensor
-        data = _as_tensor(data, None)
+    A tensor gives a tensor on its device, numpy data a numpy result
+    (:func:`~..utils.takes_numpy`)."""
     k = np.asarray(kernel, dtype=float)
     single = data.ndim == 2
     if single:
@@ -166,8 +163,7 @@ def convolve2d_nan_fft(data, kernel):
                                             data.device,
                                             _complex_of(data.dtype)),
                            np.zeros(data.shape[0], np.int64))
-    out = out[0] if single else out
-    return out.cpu().numpy() if host else out
+    return out[0] if single else out
 
 
 def _conv_matrix_1d(n, taps):

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..kernels.smooth_interp import band_rows, smooth_interp
-from ..utils import SmoothingWarning
+from ..utils import SmoothingWarning, takes_numpy
 from .smoothing import _banded_conv_matrix, spectral_smooth_cube
 
 __all__ = ["interp_weights", "interp_cube_spectral", "smooth_interp_cube",
@@ -120,6 +120,7 @@ def _interp_include(include, shape, idx_t, frac_t):
     return _gather_lerp(exc, idx_t, frac_t) == 0
 
 
+@takes_numpy
 def interp_cube_spectral(data, inaxis, outaxis, include=None):
     """Interpolate a [spec, y, x] cube onto a new spectral grid.
 
@@ -127,7 +128,8 @@ def interp_cube_spectral(data, inaxis, outaxis, include=None):
     float and stays included only where every contributing neighbor is
     included: the reference interpolates the *filled* data, so one
     excluded neighbor NaN-poisons the output sample
-    (spectral_cube.py:3267-3310)."""
+    (spectral_cube.py:3267-3310).  A tensor gives tensors on its device,
+    numpy data numpy results (:func:`~..utils.takes_numpy`)."""
     idx, frac = interp_weights(inaxis, outaxis)
     idx_t, frac_t = _weights_on(data.device, idx, frac, data.ndim)
     out = _gather_lerp(data, idx_t, frac_t).to(data.dtype)

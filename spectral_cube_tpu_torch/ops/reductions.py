@@ -51,8 +51,24 @@ def _merge_axes(data, valid, axis):
     return merge(data), merge(valid), -1
 
 
+#: elements of a whole-array float32 sum taken to float64 at once
+SUM_CHUNK = 1 << 24
+
+
 def _sum(x, axis):
-    return x.sum() if axis is None else x.sum(axis)
+    """The sum over ``axis``.  Over the whole array (``axis=None``) a
+    float32 sum is accumulated in float64, ``SUM_CHUNK`` elements at a
+    time, and rounded once: a device's tree of float32 partial sums can
+    land an ulp off the rounded sum, which the JAX tests' tolerances
+    (rel 1e-7 on a cube's sum) do not allow."""
+    if axis is not None:
+        return x.sum(axis)
+    if x.dtype != torch.float32:
+        return x.sum()
+    total = torch.zeros((), dtype=torch.float64, device=x.device)
+    for chunk in x.reshape(-1).split(SUM_CHUNK):
+        total += chunk.double().sum()
+    return total.to(x.dtype)
 
 
 def _count(valid, axis):

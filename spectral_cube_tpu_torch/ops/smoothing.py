@@ -21,7 +21,7 @@ import torch.nn.functional as F
 
 from ..kernels import sigma_clip as _clip
 from ..kernels.conv_sep import DEN_EPS
-from ..utils import ieee_fp32
+from ..utils import ieee_fp32, takes_numpy
 
 __all__ = ["convolve1d_nan", "spectral_smooth_cube", "spatial_smooth_cube",
            "spectral_median_filter_cube", "spatial_median_filter_cube",
@@ -225,6 +225,7 @@ def spatial_median_filter_cube(data, size):
     return _median0(stack.reshape((ky * kx,) + tuple(data.shape)))
 
 
+@takes_numpy
 def sigma_clip_spectrally(data, sigma=3.0, maxiters=5, cenfunc="median",
                           stdfunc="std"):
     """Iterative per-spaxel sigma clipping along the spectral axis,
@@ -234,7 +235,9 @@ def sigma_clip_spectrally(data, sigma=3.0, maxiters=5, cenfunc="median",
 
     float32 data with stdfunc='std' goes through kernel 4 (its plain
     version on the CPU); mad_std and float64 run the sorted-band plain
-    version on every device, as in the JAX package."""
+    version on every device, as in the JAX package.  A tensor gives a
+    tensor on its device, numpy data a numpy result
+    (:func:`~..utils.takes_numpy`)."""
     if cenfunc in ("median", np.median, np.nanmedian):
         use_mean_center = False
     elif cenfunc in ("mean", np.mean, np.nanmean):

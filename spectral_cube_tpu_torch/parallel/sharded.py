@@ -32,7 +32,8 @@ import torch
 
 from .mesh import CubeMesh, ShardedArray, default_mesh
 from ..masks import (is_data_local, is_finiteness_mask, LazyMask,
-                     LazyComparisonMask, CompositeMask, BooleanArrayMask)
+                     LazyComparisonMask, CompositeMask, BooleanArrayMask,
+                     bind_data, has_unbound_data)
 from ..kernels.moments import moments_planes_plain
 from ..utils import warn_slow
 from ..ops import moments as _mom
@@ -1125,7 +1126,6 @@ GATHERED = {
     "plot_channel_maps": "the viewer holds the whole cube",
     "filled": "the whole filled cube as a host array",
     "get_mask_array": "the whole include as a host array",
-    "checkpoint": "the whole cube written to a store and read back",
     "apply_numpy_function": "a numpy function of the whole filled cube on "
                             "the host",
     "apply_function": "with axis=0, 1 or 2: the host loop over every ray "
@@ -1134,11 +1134,11 @@ GATHERED = {
                                         "function receives the whole cube",
     "apply_function_parallel_spatial": "with accepts_chunks=True: the "
                                        "function receives the whole cube",
-    "rechunk": "with save_to_tmp_dir=True: through checkpoint (also every "
-               "method's save_to_tmp_dir=True)",
     "mask": "with a stored include (a sharded array that no mask object "
-            "holds), a BooleanArrayMask of the whole include; without one "
-            "the mask object as it is, nothing moved",
+            "holds), a BooleanArrayMask of the whole include, and a data "
+            "mask bound to no data (a streamed reader's, a comparison's) "
+            "bound to the gathered data; otherwise the mask object as it "
+            "is, nothing moved",
 }
 
 _MISSING = object()
@@ -1147,7 +1147,7 @@ _MISSING = object()
 def _tmp_dir_option(method):
     """The cube's ``save_to_tmp_dir=`` option of cube-returning methods:
     the resulting ShardedCube written to a temporary store and read back
-    (:meth:`ShardedCube.rechunk`, through the gathered cube)."""
+    (:meth:`ShardedCube.checkpoint`, block by block)."""
     @functools.wraps(method)
     def wrapper(self, *args, save_to_tmp_dir=False, **kwargs):
         out = method(self, *args, **kwargs)
@@ -1356,7 +1356,7 @@ class ShardedCube:
         counter, once per ShardedCube."""
         if self._gathered is None:
             data = self._data.gather()
-            mask = self._mask
+            mask = bind_data(self._mask, data)
             if self._include is not None:
                 t = self._template
                 stored = BooleanArrayMask(self._include.gather(),
@@ -1427,8 +1427,11 @@ class ShardedCube:
     @property
     def mask(self):
         """The mask object; with a stored include, a BooleanArrayMask of
-        the whole include composed with it (a counted gather)."""
-        if self._include is None:
+        the whole include composed with it, and where it holds a data mask
+        bound to no data, that mask bound to the gathered data (a counted
+        gather: ``include()`` answers as the JAX package's mask over its
+        sharded data does)."""
+        if self._include is None and not has_unbound_data(self._mask):
             return self._mask
         return self.cube.mask
 
@@ -1473,11 +1476,18 @@ class ShardedCube:
         analog, reference dask_spectral_cube.py:349-384).  With
         ``save_to_tmp_dir=True`` the current state is written to a
         temporary store and read back first (the zarr persistence
-        analog; it goes through the gathered cube)."""
-        src = ShardedCube(self.cube.checkpoint(), self.cmesh) \
-            if save_to_tmp_dir else self
+        analog, :meth:`checkpoint`)."""
+        src = self.checkpoint() if save_to_tmp_dir else self
         data = self.cmesh.shard(src._data, layout)
         return src._new(data, mask=src._mask, include=src._include)
+
+    def checkpoint(self, tmp_dir=None):
+        """The current (masked) state written to a temporary store, one
+        file per distinct block, and read back onto the mesh block by block
+        (:func:`~..persistence.checkpoint_to_tmp_dir`): the whole cube
+        never lands on the host."""
+        from ..persistence import checkpoint_to_tmp_dir
+        return checkpoint_to_tmp_dir(self, tmp_dir=tmp_dir)
 
     # -- masks -------------------------------------------------------------
     def _include_parts(self):

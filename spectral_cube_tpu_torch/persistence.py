@@ -8,9 +8,11 @@ fill value, WCS cards, class, beam or per-channel beams) beside the data,
 either one ``data.npy`` or, for a store written from a sharded JAX cube,
 one ``shard_<n>.npy`` per distinct shard with its index in ``meta.json``.
 A store written by either package loads in the other, which is how a
-cube's state crosses between them on disk.  The port writes ``data.npy``;
-a sharded store loads into one tensor on the requested device (assembled
-on the host), or with ``cmesh`` shard by shard onto the mesh.
+cube's state crosses between them on disk.  The port writes ``data.npy``
+for a cube, and for a :class:`~.parallel.ShardedCube` the JAX package's
+sharded store, each block copied to the host alone; a sharded store loads
+into one tensor on the requested device (assembled on the host), or with
+``cmesh`` shard by shard onto the mesh.
 """
 
 from __future__ import annotations
@@ -65,12 +67,35 @@ def save_cube(cube, store_dir, include_mask=True):
     """Write a cube's data and metadata to ``store_dir``.  With
     ``include_mask`` the data is written mask-filled with NaN, so the
     loaded cube's ``LazyMask(isfinite)`` gives the same mask; without it
-    the raw data.  Returns ``store_dir``."""
+    the raw data.  A :class:`~.parallel.ShardedCube` writes one
+    ``shard_<n>.npy`` per distinct block of its data (``n`` the block's
+    mesh position; a replicated layout's copies once), each block masked
+    on its device and copied to the host alone, with its index in
+    ``meta.json`` and no ``data.npy`` (persistence.py:57-95 of the JAX
+    package).  Returns ``store_dir``."""
+    from .parallel.sharded import ShardedCube
     os.makedirs(store_dir, exist_ok=True)
-    data = cube._get_filled_data(fill=np.nan) if include_mask else cube._data
-    meta = _meta_for(cube)
-    meta["sharded"] = False
-    np.save(os.path.join(store_dir, "data.npy"), data.cpu().numpy())
+    if isinstance(cube, ShardedCube):
+        meta = _meta_for(cube._template)
+        meta["sharded"] = True
+        meta["shards"] = []
+        data = cube._filled(np.nan) if include_mask else cube._data
+        seen = set()
+        for i, (block, ix) in enumerate(zip(data.blocks, data.index)):
+            key = tuple((s.start, s.stop, 1) for s in ix)
+            if key in seen:
+                continue
+            seen.add(key)
+            name = f"shard_{i}.npy"
+            np.save(os.path.join(store_dir, name), block.cpu().numpy())
+            meta["shards"].append({"index": [list(k) for k in key],
+                                   "file": name})
+    else:
+        data = cube._get_filled_data(fill=np.nan) if include_mask \
+            else cube._data
+        meta = _meta_for(cube)
+        meta["sharded"] = False
+        np.save(os.path.join(store_dir, "data.npy"), data.cpu().numpy())
     with open(os.path.join(store_dir, "meta.json"), "w") as f:
         json.dump(meta, f)
     return store_dir
@@ -179,11 +204,15 @@ def load_cube(store_dir, device=None, cmesh=None):
 
 def checkpoint_to_tmp_dir(cube, tmp_dir=None):
     """Write the cube's current (masked) state to a temporary store and
-    load it back on the cube's device; the store lives as long as the
-    returned cube (the reference's ``save_to_tmp_dir=True``,
-    dask_spectral_cube.py:85-116)."""
+    load it back on the cube's device (a ShardedCube: block by block onto
+    its mesh); the store lives as long as the returned cube (the
+    reference's ``save_to_tmp_dir=True``, dask_spectral_cube.py:85-116)."""
+    from .parallel.sharded import ShardedCube
     store = tempfile.mkdtemp(suffix=".cube_store", dir=tmp_dir)
     save_cube(cube, store)
-    new = load_cube(store, device=cube.device)
+    if isinstance(cube, ShardedCube):
+        new = load_cube(store, cmesh=cube.cmesh)
+    else:
+        new = load_cube(store, device=cube.device)
     weakref.finalize(new, shutil.rmtree, store, True)
     return new

@@ -19,7 +19,7 @@ __all__ = [
     "NotImplementedWarning", "StokesWarning", "ExperimentalImplementationWarning",
     "PossiblySlowWarning", "SmoothingWarning", "NonFiniteBeamsWarning",
     "FITSWarning", "BadVelocitiesWarning", "FITSReadError", "NoBeamError",
-    "cached", "warn_slow", "ieee_fp32",
+    "cached", "warn_slow", "ieee_fp32", "takes_numpy",
 ]
 
 
@@ -130,6 +130,26 @@ def ieee_fp32():
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = flags
+
+
+def takes_numpy(function):
+    """``function`` of a tensor (its first argument) also taking numpy, as
+    the JAX function takes any array: numpy lands where a cube's data
+    would (``cube._as_tensor``: the card unless the CPU is asked for) and
+    each tensor of the result comes back as a numpy array, as the JAX
+    function's caller gets arrays back.  A tensor passes through."""
+    @functools.wraps(function)
+    def wrapper(data, *args, **kwargs):
+        import torch
+        if isinstance(data, torch.Tensor):
+            return function(data, *args, **kwargs)
+        from .cube import _as_tensor
+        out = function(_as_tensor(data, None), *args, **kwargs)
+
+        def host(x):
+            return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+        return tuple(map(host, out)) if isinstance(out, tuple) else host(out)
+    return wrapper
 
 
 # reference policy constant (cube_utils.py:268): ops touching more elements

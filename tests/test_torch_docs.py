@@ -7,9 +7,9 @@ synthetic cubes, kernels and velocity surfaces the prose introduces) with
 the port, on the CPU and, marked ``cuda``, on the card.  The port may hand
 numpy no tensor (``numpy_guard``); a block, like test code, may.
 
-- The pages that build the default mesh (``CubeMesh()``) span every card
-  on the card; on the CPU they get an 8-position CPU mesh, the grid the
-  JAX tests' virtual CPU devices make.
+- The pages that build the default mesh (``CubeMesh()``) get 8 positions
+  of the case's device (``use_mesh``), the grid the JAX tests' virtual
+  CPU devices make.
 - ``quickstart.md`` reads ``my_cube.lmv``, which ``tests/test_docs.py``
   copies from the reference library's example where that exists: here it
   is a type-2 ``.lmv`` of the FITS cube written by
@@ -26,14 +26,15 @@ import warnings
 import numpy as np
 import pytest
 
-from spectral_cube_tpu_torch.parallel import mesh as _mesh
-
 from test_torch_fixtures_ref import (check_carried_over, make_cube_file,
                                      make_vr_cube_file, numpy_guard,
-                                     parametrize_devices, use_device)
+                                     parametrize_devices, use_device,
+                                     use_mesh)
 
 DOCS_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "docs")
+
+JAX_FILES = ["tests/test_docs.py"]
 
 #: the pages of ``tests/test_docs.py``, with executable blocks
 PAGES = ["quickstart.md", "accessing.md", "masking.md", "errors.md",
@@ -85,15 +86,7 @@ def pytest_generate_tests(metafunc):
 @pytest.fixture(autouse=True)
 def device(request, monkeypatch):
     dev = use_device(request.param, monkeypatch)
-    if dev.type == "cpu":
-        make_mesh = _mesh.make_mesh
-
-        def cpu_mesh(devices=None, shape=None, **kwargs):
-            return make_mesh(["cpu"] * 8 if devices is None else devices,
-                             shape, **kwargs)
-
-        monkeypatch.setattr(_mesh, "make_mesh", cpu_mesh)
-    monkeypatch.setattr(_mesh, "_DEFAULT_MESH", None)
+    use_mesh(dev, monkeypatch)
     return dev
 
 
@@ -202,6 +195,5 @@ def test_jax_only_blocks_still_call_jax():
 def test_every_jax_test_is_carried_over():
     """Each test of tests/test_docs.py is here or in NOT_CARRIED, and
     each NOT_CARRIED entry is still absent from this file."""
-    check_carried_over(["tests/test_docs.py"], globals(), NOT_CARRIED,
-                       CPU_ONLY)
+    check_carried_over(JAX_FILES, globals(), NOT_CARRIED, CPU_ONLY)
     assert set(CPU_ONLY_PAGES) <= set(PAGES)

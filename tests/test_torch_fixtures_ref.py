@@ -1,16 +1,17 @@
 """What the port's test batteries share, free of JAX.
 
 The batteries (``tests/test_torch_*_battery.py``, ``test_torch_docs.py``,
-``test_torch_fuzz_chains.py``, ``test_torch_beams_units.py``,
-``test_torch_numpy_interop.py``) run the JAX package's user-facing tests
-through the port, on the CPU and on the card, where JAX is absent.  So
+``test_torch_fuzz_chains.py``, ``test_torch_beams_units.py``: each file
+that assigns ``JAX_FILES``) run the JAX package's test files through the
+port, on the CPU and on the card, where JAX is absent, as do the fault
+pins (``test_torch_numpy_interop.py``, ``test_torch_sharded_store.py``).
+So
 this module rebuilds ``tests/conftest.py``'s synthetic FITS factory and
 ``tests/ref_fixtures.py``'s byte-faithful reference fixtures with
 ``spectral_cube_tpu_torch.io.fits_low``; the tests at the end hold every
 file byte for byte equal to the JAX fixtures' on the CPU.
 
-It also holds the two pieces each battery file wires into its own
-fixtures:
+It also holds the pieces each battery file wires into its own fixtures:
 
 - :func:`numpy_guard` makes ``np.asarray(tensor)`` raise, on any device,
   when a port module is among its callers, with the error the card raises
@@ -20,11 +21,23 @@ fixtures:
   docs block run by a test) converts freely, the tensor copied to the
   host first, as a JAX array is.
 - :func:`use_device` runs a case on ``"cpu"`` (the port's default device
-  pointed at the CPU) or ``"cuda"`` (skipped without a card).
+  pointed at the CPU) or ``"cuda"`` (skipped without a card), and
+  :func:`use_mesh` points the port's default ``CubeMesh()`` at 8
+  positions of that device: the 2x4 grid of the JAX tests' 8 virtual CPU
+  devices.
+
+:func:`carry_over` defines a JAX file's tests in a battery from the file's
+text.  A JAX test is left out of a battery (``NOT_CARRIED``) only for one
+of ``REASONS``, each entry naming the port test that holds the same
+behaviour against the JAX package (:func:`left_out`); whole JAX files
+that no battery carries are in ``WHOLE_FILES``, and
+:func:`test_every_jax_test_file_is_carried_or_listed` holds every JAX test
+file to one or the other.
 """
 
 import ast
 import contextlib
+import functools
 import os
 import re
 import sys
@@ -71,6 +84,24 @@ def use_device(name, monkeypatch):
                 and getattr(mod, "default_device", None) is _DEFAULT_DEVICE:
             monkeypatch.setattr(mod, "default_device", lambda: cpu)
     return cpu
+
+
+def use_mesh(device, monkeypatch):
+    """Point the port's default ``CubeMesh()`` (and ``default_mesh()``)
+    at 8 positions of ``device`` for one case: ``['cpu'] * 8`` on the
+    CPU, ``['cuda:0'] * 8`` on the card, a 2x4 grid (the port allows one
+    device more than once).  The default mesh is made anew in the case and
+    dropped after it."""
+    from spectral_cube_tpu_torch.parallel import mesh
+    make_mesh = mesh.make_mesh
+    positions = [torch.device(device)] * 8
+
+    def case_mesh(devices=None, shape=None, **kwargs):
+        return make_mesh(positions if devices is None else devices, shape,
+                         **kwargs)
+
+    monkeypatch.setattr(mesh, "make_mesh", case_mesh)
+    monkeypatch.setattr(mesh, "_DEFAULT_MESH", None)
 
 
 def _port_on_stack(frame):
@@ -122,43 +153,282 @@ PORT_RENAMES = [
 ]
 
 
-def carry_over(jax_files, namespace, not_carried):
+def _is_pallas_name(name):
+    """A Pallas function of the JAX package (``moments_012_pallas``,
+    ``_moments_pallas_chunked``, ``statistics_pallas``): the port has
+    its Hopper kernel under another name."""
+    return "pallas" in name
+
+
+@functools.lru_cache(maxsize=None)
+def _carrier(module):
+    """The battery that carries the JAX test file ``module`` (its module
+    name), or None."""
+    for name in _battery_files():
+        with open(os.path.join(REPO, "tests", name + ".py")) as f:
+            tree = ast.parse(f.read())
+        for node in tree.body:
+            if isinstance(node, ast.Assign) and any(
+                    getattr(t, "id", None) == "JAX_FILES"
+                    for t in node.targets) and \
+                    f"tests/{module}.py" in ast.literal_eval(node.value):
+                return name
+    return None
+
+
+def _port_imports(tree, carried):
+    """A JAX test file's imports, made the port's.  At the top level a
+    Pallas name is dropped from a ``from ... import`` (the tests that call
+    it are not carried over), and an import from a JAX test file already
+    carried into the same battery (``from test_wcs_golden import ...``)
+    is dropped, its names being defined there; anywhere, an import from a
+    JAX test file that another battery carries (``from test_ref_values
+    import ...``) takes the names from that battery."""
+    body = []
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom):
+            if node.module in carried:
+                continue
+            node.names = [a for a in node.names
+                          if not _is_pallas_name(a.name)]
+            if not node.names:
+                continue
+        body.append(node)
+    tree.body = body
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.level == 0 and \
+                (node.module or "").startswith("test_") and \
+                not node.module.startswith("test_torch_"):
+            node.module = _carrier(node.module) or node.module
+    return tree
+
+
+def carry_over(jax_files, namespace, not_carried, only=None):
     """Define the tests of ``jax_files`` in ``namespace`` (a battery file's
     globals) from the JAX files' text, read unchanged and renamed for the
-    port (``PORT_RENAMES``), so a JAX test's scenario, expected values and
-    tolerances are the port's too.  Each file is compiled under its own
-    name, with its asserts rewritten as pytest rewrites a test module's;
-    the tests of ``not_carried`` are then taken out."""
+    port (``PORT_RENAMES``, :func:`_port_imports`), so a JAX test's
+    scenario, expected values and tolerances are the port's too.  Each
+    file is compiled under its own name, with its asserts rewritten as
+    pytest rewrites a test module's; the tests of ``not_carried`` are then
+    taken out, and of a file that ``only`` maps to names (a JAX file
+    whose tests two batteries share), all tests but those."""
     from _pytest.assertion.rewrite import rewrite_asserts
     doc = namespace.get("__doc__")
+    carried = set()
     for path in jax_files:
         full = os.path.join(REPO, path)
         with open(full) as f:
             text = f.read()
         for pattern, repl in PORT_RENAMES:
             text = re.sub(pattern, repl, text, flags=re.MULTILINE)
-        tree = ast.parse(text, full)
+        tree = _port_imports(ast.parse(text, full), carried)
         rewrite_asserts(tree, text.encode(), full)
         exec(compile(tree, full, "exec"), namespace)
+        carried.add(os.path.basename(path)[:-3])
+        if only and path in only:
+            for name in jax_test_names(path) - set(only[path]):
+                namespace.pop(name, None)
     for name in not_carried:
         namespace.pop(name, None)
     namespace["__doc__"] = doc
 
 
-def check_carried_over(jax_files, namespace, not_carried, cpu_only=()):
-    """Every test of ``jax_files`` is in ``namespace`` (a battery file's
-    globals) or a key of ``not_carried`` (name -> reason), and no key of
-    ``not_carried`` is in ``namespace``: the dict cannot go stale.  Each
-    name of ``cpu_only`` (name -> why it does not run on the card) is a
-    test of the file."""
-    jax = set().union(*(jax_test_names(f) for f in jax_files))
+#: the tests of ``tests/test_aux.py`` that build the default mesh: the mesh
+#: battery carries them, the beam and unit battery the rest of the file
+AUX_MESH_TESTS = ("test_streaming_sharded_loader",
+                  "test_streaming_matches_eager",
+                  "test_to_sharded_facade",
+                  "test_use_dask_shards_over_devices",
+                  "test_sharded_checkpoint_restore",
+                  "test_streaming_spectral_layout_native_decode",
+                  "test_sharded_display",
+                  "test_replicated_layout_saves_each_shard_once")
+
+
+# -- why a JAX test or file is not carried over -----------------------------
+
+#: its body calls ``jax`` or ``jnp`` (or reads how JAX shards an array),
+#: which the card's machine does not have
+JNP = "calls jax or jnp in its body"
+#: it calls a Pallas function, a TPU kernel the port replaces by a Hopper
+#: kernel under its own name
+PALLAS = "calls a Pallas function"
+#: it reads a name private to the JAX package, to its TPU routes or to
+#: JAX's arrays, which the port drops by design: ``_device_data``,
+#: ``_filled(xp=)``, ``_use_matmul_*``, ``_MOMENTS_JIT_CACHE``,
+#: ``_dft_mats``, ``_kernel_transfer``, ``_block_banded_conv``'s block
+#: argument, ``clip_pallas``, the ``max_plane`` / DFT gates
+#: (``_MATMUL_CONV_MAX_N``), a JAX array's ``.sharding``, a shard's
+#: ``device`` as its mesh position (JAX places one position on a device;
+#: the port's mesh may repeat a device and names the position
+#: ``Shard.position``), XLA's compilation cache
+JAX_PRIVATE = "reads a JAX-private or TPU-only name"
+#: it reads a file of the reference library that the repository does not
+#: hold; the JAX test skips without it too
+REF_FILE = "needs a reference-library file the repository lacks"
+#: the only reasons a JAX test or file may be left out of the batteries
+REASONS = (JNP, PALLAS, JAX_PRIVATE, REF_FILE)
+
+_HELD_BY = re.compile(r"; held against the JAX package by "
+                      r"(tests/test_torch_\w+\.py)(?:::(\w+))?$")
+
+
+def left_out(reason, held_by):
+    """A ``NOT_CARRIED`` / ``WHOLE_FILES`` entry: one of ``REASONS`` and
+    the port test that holds the same behaviour against the JAX package,
+    ``tests/test_torch_<name>.py`` or ``...py::test_<name>``."""
+    assert reason in REASONS, reason
+    entry = f"{reason}; held against the JAX package by {held_by}"
+    assert _HELD_BY.search(entry), held_by
+    return entry
+
+
+def _references(jax_files):
+    """Test name -> the names its body reads, with those of the
+    module-level helpers (functions but fixtures) it calls, transitively
+    (read, not imported)."""
+    out = {}
+    for path in jax_files:
+        with open(os.path.join(REPO, path)) as f:
+            tree = ast.parse(f.read())
+        funcs = {n.name: n for n in tree.body
+                 if isinstance(n, ast.FunctionDef)
+                 and not (n.decorator_list and not n.name.startswith("test_"))}
+
+        def names(node):
+            found = set()
+            for x in ast.walk(node):
+                if isinstance(x, ast.Name):
+                    found.add(x.id)
+                elif isinstance(x, ast.Attribute):
+                    found.add(x.attr)
+                elif isinstance(x, (ast.Import, ast.ImportFrom)):
+                    found.update(a.name for a in x.names)
+                    found.update((getattr(x, "module", None) or "")
+                                 .split("."))
+            return found
+
+        for name, node in funcs.items():
+            if not name.startswith("test_"):
+                continue
+            seen, todo = set(), [node]
+            while todo:
+                got = names(todo.pop())
+                for callee in got & set(funcs) - seen:
+                    seen.add(callee)
+                    todo.append(funcs[callee])
+                seen |= got
+            out[name] = seen
+    return out
+
+
+def _reason_holds(reason, refs):
+    """A JAX test's body (``refs``: :func:`_references`) still does what
+    its ``JNP`` or ``PALLAS`` reason says; the other reasons are taken as
+    written."""
+    if reason == JNP:
+        return bool(refs & {"jax", "jnp"})
+    if reason == PALLAS:
+        return any("pallas" in n for n in refs)
+    return True
+
+
+def check_left_out(entry):
+    """An entry of :func:`left_out`: a reason of ``REASONS`` and a port
+    test that exists (the file, and the test function where named)."""
+    assert entry.split("; ")[0] in REASONS, entry
+    held = _HELD_BY.search(entry)
+    assert held, entry
+    path, test = held.groups()
+    assert os.path.exists(os.path.join(REPO, path)), entry
+    if test:
+        with open(os.path.join(REPO, path)) as f:
+            names = {n.name for n in ast.walk(ast.parse(f.read()))
+                     if isinstance(n, ast.FunctionDef)}
+        assert test in names, entry
+
+
+#: JAX test files no battery carries, each with its reason
+WHOLE_FILES = {
+    "tests/test_banded_pallas.py": left_out(
+        PALLAS, "tests/test_torch_kernels_cuda.py"),
+    "tests/test_api_parity.py": left_out(
+        REF_FILE, "tests/test_torch_api_parity.py"),
+}
+
+
+def check_carried_over(jax_files, namespace, not_carried, cpu_only=(),
+                       only=None, elsewhere=()):
+    """Every test of ``jax_files`` (of a file ``only`` maps to names, those
+    names; none of ``elsewhere``, which another battery carries) is in
+    ``namespace`` (a battery file's globals) or a key of ``not_carried``
+    (name -> :func:`left_out` entry), and no key of ``not_carried`` is in
+    ``namespace``: the dict cannot go stale.  No two of the files define
+    one name (the later would hide the earlier).  Each name of
+    ``cpu_only`` (name -> why it does not run on the card) is a test of
+    the file."""
+    only = only or {}
+    per_file = [jax_test_names(f) for f in jax_files]
+    assert sum(map(len, per_file)) == len(set().union(*per_file)), \
+        "two JAX files define one test name"
+    jax = set().union(*(set(only.get(f, names))
+                        for f, names in zip(jax_files, per_file)))
+    assert set(elsewhere) <= jax, "ELSEWHERE names a test not in the files"
+    jax -= set(elsewhere)
     mine = {n for n in namespace if n.startswith("test_")}
     assert not jax - mine - set(not_carried), "dropped without a reason"
     assert not set(not_carried) - jax, "not a test of the JAX files"
     assert not set(not_carried) & mine, "carried over after all"
+    assert not set(elsewhere) & mine, "carried here and elsewhere"
     assert set(cpu_only) <= mine, "CPU_ONLY names a test not in the file"
-    for reasons in (not_carried, cpu_only):
-        assert all(isinstance(r, str) and r for r in dict(reasons).values())
+    refs = _references(jax_files)
+    for name, entry in dict(not_carried).items():
+        check_left_out(entry)
+        assert _reason_holds(entry.split("; ")[0], refs[name]), (name, entry)
+    calls_jax = {n for n in mine & jax if _reason_holds(JNP, refs[n])}
+    assert not calls_jax, f"carried, but call jax or jnp: {sorted(calls_jax)}"
+    assert all(isinstance(r, str) and r for r in dict(cpu_only).values())
+
+
+def _battery_files():
+    """The battery files: each ``tests/test_torch_*.py`` that assigns
+    ``JAX_FILES`` (read, not imported)."""
+    here = os.path.join(REPO, "tests")
+    found = []
+    for name in sorted(os.listdir(here)):
+        if not (name.startswith("test_torch_") and name.endswith(".py")):
+            continue
+        with open(os.path.join(here, name)) as f:
+            tree = ast.parse(f.read())
+        if any(isinstance(n, ast.Assign) and any(
+                getattr(t, "id", None) == "JAX_FILES" for t in n.targets)
+               for n in tree.body):
+            found.append(name[:-3])
+    return found
+
+
+def test_every_jax_test_file_is_carried_or_listed():
+    """Each JAX test file (``tests/test_*.py`` but ``test_torch_*``) is in
+    some battery's ``JAX_FILES`` or in ``WHOLE_FILES`` with its reason, and
+    each of its tests is carried by exactly one battery or left out by
+    exactly one (``NOT_CARRIED``)."""
+    import importlib
+    here = os.path.join(REPO, "tests")
+    jax_files = {f"tests/{n}" for n in os.listdir(here)
+                 if n.startswith("test_") and n.endswith(".py")
+                 and not n.startswith("test_torch_")}
+    batteries = [importlib.import_module(n) for n in _battery_files()]
+    carried = {f for b in batteries for f in b.JAX_FILES}
+    assert not carried & set(WHOLE_FILES)
+    assert carried | set(WHOLE_FILES) == jax_files
+    for entry in WHOLE_FILES.values():
+        check_left_out(entry)
+    for path in sorted(carried):
+        for name in jax_test_names(path):
+            holders = [b.__name__ for b in batteries
+                       if path in b.JAX_FILES and (
+                           name in vars(b) or name in b.NOT_CARRIED)]
+            assert len(holders) == 1, (path, name, holders)
 
 
 # -- tests/conftest.py's synthetic cubes ------------------------------------

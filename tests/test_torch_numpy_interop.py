@@ -21,6 +21,18 @@ Expected values are numpy's on the same float32 data; the tests named
   card.  It is called again on a host copy only when numpy refuses the
   tensor; a function written with torch keeps the tensor, and an error of
   its own comes through from its one call.
+- F12: ``apply_everywhere`` on its default ``check_units=True`` path
+  handed the caller's function a ``Quantity`` of a tensor numpy cannot
+  read on the card.
+- F13: ``MaskBase._filled`` and ``_flattened`` refused numpy data.
+- F16: ``ops.interpolate.interp_cube_spectral`` refused numpy data.
+- F17: ``ops.smoothing.sigma_clip_spectrally`` refused numpy data.
+- F18: ``kernels/resample2._host_flags`` read the filled entry's channel
+  flags with ``np.asarray(tensor.cpu())``, an implicit conversion, on the
+  card's ``reproject`` onto a new spectral axis.
+- F19: a whole-cube float32 sum on the card (a tree of float32 partial
+  sums) landed an ulp off the rounded sum, outside the JAX test's rel
+  1e-7 (``tests/test_cube.py``'s ``test_nonnative_endian_ctor``).
 """
 
 import operator
@@ -30,10 +42,14 @@ import pytest
 import torch
 
 import spectral_cube_tpu_torch as T
-from spectral_cube_tpu_torch.masks import (FunctionMask, LazyComparisonMask,
-                                           LazyMask, fused_predicate,
+from spectral_cube_tpu_torch.masks import (BooleanArrayMask, FunctionMask,
+                                           LazyComparisonMask, LazyMask,
+                                           fused_predicate,
                                            is_finiteness_mask)
 from spectral_cube_tpu_torch.ops.convolve import convolve2d_nan_fft
+from spectral_cube_tpu_torch.ops.interpolate import interp_cube_spectral
+from spectral_cube_tpu_torch.ops.smoothing import sigma_clip_spectrally
+from spectral_cube_tpu_torch.kernels import resample2 as _resample2
 from spectral_cube_tpu_torch.units import Quantity
 
 from spectral_cube_tpu_torch.io.fits_low import HDU, write_fits
@@ -494,3 +510,256 @@ def test_f11_matches_jax(tmp_path):
         }
         for key in want:
             np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+def _doubled_value(q):
+    """``tests/test_cube.py``'s function: it strips the unit with numpy."""
+    return np.asarray(q.value) * 2.0
+
+
+def test_f12_apply_everywhere_with_a_numpy_function(tmp_path, device):
+    cube, data = _port_cube(tmp_path)
+    out = cube.apply_everywhere(_doubled_value)
+    # the function strips the unit: the result is dimensionless
+    assert out.device.type == device.type and out.unit.to_string() == ""
+    np.testing.assert_array_equal(np.asarray(out.unmasked_data[:].value),
+                                  data * 2)
+    # a function of Quantities keeps its tensor and its unit
+    seen = []
+    sq = cube.apply_everywhere(lambda q: seen.append(q.value) or q * q)
+    assert isinstance(seen[-1], torch.Tensor)
+    assert seen[-1].device.type == device.type
+    assert sq.unit == cube.unit ** 2
+
+
+def test_f12_matches_jax(tmp_path):
+    J = _jax()
+    with pytest.MonkeyPatch.context() as mp:
+        use_device("cpu", mp)
+        cube, _ = _port_cube(tmp_path)
+        jcube = J.SpectralCube.read(str(tmp_path / "interop.fits"))
+        got = cube.apply_everywhere(_doubled_value)
+        want = jcube.apply_everywhere(_doubled_value)
+        assert got.unit.to_string() == want.unit.to_string()
+        np.testing.assert_array_equal(
+            np.asarray(got.unmasked_data[:].value),
+            np.asarray(want.unmasked_data[:].value))
+
+
+def _filled_calls(masks):
+    """``tests/test_masks.py``'s ``_filled`` / ``_flattened`` calls on numpy
+    data, trivial and integer-index views."""
+    d = np.arange(5.0).reshape((1, 1, 5))
+    view = (0, 0, slice(1, 4))
+    bam = masks.BooleanArrayMask(
+        np.array([[[False, True, True, False, True]]]), None)
+    cmp = masks.LazyComparisonMask(operator.gt, 2, data=d)
+    return {
+        "filled": np.asarray(bam._filled(d, None)),
+        "flattened": np.asarray(bam._flattened(d, None)),
+        "filled_view": np.asarray(bam._filled(d, None, view=view)),
+        "flattened_view": np.asarray(bam._flattened(d, None, view=view)),
+        "cmp_filled_view": np.asarray(cmp._filled(d, None, view=view)),
+        "cmp_flattened": np.asarray(cmp._flattened(d, None)),
+    }
+
+
+def test_f13_filled_and_flattened_take_numpy(device):
+    import spectral_cube_tpu_torch.masks as masks
+    got = _filled_calls(masks)
+    nan = np.nan
+    np.testing.assert_array_equal(got["filled"], [[[nan, 1, 2, nan, 4]]])
+    np.testing.assert_array_equal(got["flattened"], [1, 2, 4])
+    np.testing.assert_array_equal(got["filled_view"], [1, 2, nan])
+    np.testing.assert_array_equal(got["flattened_view"], [1, 2])
+    np.testing.assert_array_equal(got["cmp_filled_view"], [nan, nan, 3])
+    np.testing.assert_array_equal(got["cmp_flattened"], [3, 4])
+    # the result lies where a cube's data would, in the data's dtype
+    out = BooleanArrayMask(np.ones((2, 3), bool), None)._filled(
+        np.ones((2, 3), np.float32))
+    assert out.device.type == device.type and out.dtype == torch.float32
+
+
+def test_f13_matches_jax():
+    _jax()
+    import spectral_cube_tpu.masks as jmasks
+    import spectral_cube_tpu_torch.masks as masks
+    with pytest.MonkeyPatch.context() as mp:
+        use_device("cpu", mp)
+        got, want = _filled_calls(masks), _filled_calls(jmasks)
+        for key in want:
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+def _interp_inputs():
+    """``tests/test_regrid.py``'s 2-D include case, and a 3-D include with
+    a NaN in the data."""
+    rng = np.random.RandomState(1)
+    data = rng.rand(8, 3, 4).astype(np.float32)
+    data[3, 0, 1] = np.nan
+    inax = np.arange(8, dtype=np.float64)
+    outax = np.linspace(0.5, 6.5, 5)
+    inc2d = np.zeros((3, 4), dtype=bool)
+    inc2d[1, 2] = True
+    inc3d = rng.rand(8, 3, 4) > 0.2
+    return data, inax, outax, inc2d, inc3d
+
+
+def test_f16_interp_cube_spectral_takes_numpy(device):
+    data, inax, outax, inc2d, inc3d = _interp_inputs()
+    for inc in (None, inc2d, inc3d):
+        out, new_inc = interp_cube_spectral(data, inax, outax, include=inc)
+        assert isinstance(out, np.ndarray) and out.shape == (5, 3, 4)
+        want = np.apply_along_axis(lambda s: np.interp(outax, inax, s), 0,
+                                   data)
+        np.testing.assert_allclose(out, want, rtol=1e-6)
+        if inc is None:
+            assert new_inc is None
+            continue
+        assert isinstance(new_inc, np.ndarray)
+        assert new_inc.shape == (5, 3, 4) and new_inc.dtype == bool
+        if inc is inc2d:
+            assert new_inc[:, 1, 2].all() and new_inc.sum() == 5
+    # a tensor gives tensors on its device
+    t, t_inc = interp_cube_spectral(torch.as_tensor(data, device=device),
+                                    inax, outax, include=inc2d)
+    assert t.device.type == device.type and t_inc.device.type == device.type
+    np.testing.assert_array_equal(t.cpu().numpy(), interp_cube_spectral(
+        data, inax, outax)[0])
+
+
+def test_f16_matches_jax():
+    _jax()
+    from spectral_cube_tpu.ops.interpolate import \
+        interp_cube_spectral as jinterp
+    data, inax, outax, inc2d, inc3d = _interp_inputs()
+    with pytest.MonkeyPatch.context() as mp:
+        use_device("cpu", mp)
+        for inc in (None, inc2d, inc3d):
+            out, new_inc = interp_cube_spectral(data, inax, outax,
+                                                include=inc)
+            jout, jinc = jinterp(data, inax, outax, include=inc)
+            np.testing.assert_allclose(out, np.asarray(jout), rtol=1e-6)
+            if inc is not None:
+                np.testing.assert_array_equal(new_inc, np.asarray(jinc))
+
+
+def _clip_input():
+    """``tests/test_smoothing.py``'s spectra with a -inf and a +inf."""
+    rng = np.random.RandomState(0)
+    spec = rng.normal(0.0, 1.0, 33).astype(np.float32)
+    x = np.stack([spec, spec, spec], axis=1)[:, :, None]
+    x[5, 1, 0] = -np.inf
+    x[9, 2, 0] = np.inf
+    return x
+
+
+def test_f17_sigma_clip_spectrally_takes_numpy(device):
+    x = _clip_input()
+    for stdfunc in ("std", "mad_std"):
+        out = sigma_clip_spectrally(x, sigma=6.0, maxiters=5,
+                                    stdfunc=stdfunc)
+        assert isinstance(out, np.ndarray) and out.dtype == np.float32
+        assert np.isnan(out[5, 1, 0]) and np.isnan(out[9, 2, 0])
+        keep = np.isfinite(x)
+        np.testing.assert_array_equal(out[keep], x[keep])
+        t = sigma_clip_spectrally(torch.as_tensor(x, device=device),
+                                  sigma=6.0, maxiters=5, stdfunc=stdfunc)
+        assert isinstance(t, torch.Tensor) and t.device.type == device.type
+        np.testing.assert_array_equal(t.cpu().numpy(), out)
+
+
+def test_f17_matches_jax():
+    _jax()
+    from spectral_cube_tpu.ops.smoothing import \
+        sigma_clip_spectrally as jclip
+    x = _clip_input()
+    with pytest.MonkeyPatch.context() as mp:
+        use_device("cpu", mp)
+        for stdfunc in ("std", "mad_std"):
+            np.testing.assert_array_equal(
+                sigma_clip_spectrally(x, sigma=6.0, maxiters=5,
+                                      stdfunc=stdfunc),
+                np.asarray(jclip(x, sigma=6.0, maxiters=5,
+                                 stdfunc=stdfunc)))
+
+
+def _cross_type_reprojection(cube):
+    """``tests/test_regrid.py``'s VRAD cube onto its own FREQ template: the
+    spectral axis moves (the filled resample, with its channel flags)."""
+    return cube.reproject(cube.with_spectral_unit("Hz").header)
+
+
+def test_f18_channel_flags_convert_explicitly(tmp_path, device):
+    flags = torch.tensor([True, False, True], device=device)
+    got = _resample2._host_flags(flags)
+    assert isinstance(got, np.ndarray) and got.dtype == bool
+    np.testing.assert_array_equal(got, [True, False, True])
+    cube, data = _port_cube(tmp_path)
+    out = _cross_type_reprojection(cube)
+    np.testing.assert_allclose(np.asarray(out.unmasked_data[:].value), data,
+                               rtol=1e-5)
+
+
+def test_f18_matches_jax(tmp_path):
+    J = _jax()
+    with pytest.MonkeyPatch.context() as mp:
+        use_device("cpu", mp)
+        cube, _ = _port_cube(tmp_path)
+        jcube = J.SpectralCube.read(str(tmp_path / "interop.fits"))
+        np.testing.assert_allclose(
+            np.asarray(_cross_type_reprojection(cube).unmasked_data[:].value),
+            np.asarray(_cross_type_reprojection(jcube).unmasked_data[:]
+                       .value), rtol=1e-6)
+
+
+def _sum_cubes(tmp_path):
+    """(name, FITS path, float32 data): ``tests/test_cube.py``'s 4x3x2 cube
+    with a NaN, and wider cubes of positive and signed values."""
+    out = []
+    for seed, shape, signed in ((42, (4, 3, 2), False), (5, (16, 24, 32),
+                                False), (6, (31, 17, 9), True)):
+        rng = np.random.RandomState(seed)
+        data = rng.rand(*shape) - (0.5 if signed else 0.0)
+        data[min(1, shape[0] - 1), min(1, shape[1] - 1), 1] = np.nan
+        path = str(tmp_path / f"sum{seed}.fits")
+        write_fits(path, [HDU(data=data, header=base_header(
+            nx=shape[2], ny=shape[1], nchan=shape[0]))])
+        out.append((f"seed {seed}", path, data.astype(np.float32)))
+    return out
+
+
+def test_f19_whole_cube_sums_round_once(tmp_path, device):
+    for name, path, data in _sum_cubes(tmp_path):
+        cube = T.SpectralCube.read(path)
+        exact = np.nansum(data.astype(np.float64))
+        assert float(cube.sum().value) == float(np.float32(exact)), name
+        n = np.float32(np.isfinite(data).sum())
+        assert float(cube.mean().value) == float(np.float32(exact) / n), \
+            name
+    # tests/test_cube.py's own check, on a big-endian float64 payload
+    be = data.astype(">f8")
+    c = T.SpectralCube(be, cube.wcs, unit="K")
+    assert float(c.sum().value) == pytest.approx(np.nansum(data), rel=1e-7)
+
+
+def test_f19_matches_jax(tmp_path):
+    """The port's whole-cube sum, mean and std lie as close to the float64
+    value as the JAX package's float32 ones, or closer (half an ulp of
+    rounding); on the JAX test's own cube they are the JAX package's."""
+    J = _jax()
+    with pytest.MonkeyPatch.context() as mp:
+        use_device("cpu", mp)
+        for name, path, data in _sum_cubes(tmp_path):
+            cube, jcube = T.SpectralCube.read(path), J.SpectralCube.read(path)
+            d64 = data.astype(np.float64)
+            exact = {"sum": np.nansum(d64), "mean": np.nanmean(d64),
+                     "std": np.nanstd(d64)}
+            for how, value in exact.items():
+                got = float(getattr(cube, how)().value)
+                want = float(np.asarray(getattr(jcube, how)().value))
+                half_ulp = float(np.spacing(np.float32(value))) / 2
+                assert abs(got - value) <= abs(want - value) + half_ulp, \
+                    (name, how, got, want, value)
+                if name == "seed 42":
+                    assert got == want, (how, got, want)

@@ -513,7 +513,6 @@ def _gathered_calls(tmp_path):
         "plot_channel_maps": plot,
         "filled": lambda c: c.filled(),
         "get_mask_array": lambda c: c.get_mask_array(),
-        "checkpoint": lambda c: c.checkpoint(),
         "apply_numpy_function": lambda c: c.apply_numpy_function(np.nanmax),
         "apply_function": lambda c: c.apply_function(np.nanmax, axis=0),
         "apply_function_parallel_spectral": lambda c:
@@ -522,7 +521,6 @@ def _gathered_calls(tmp_path):
         "apply_function_parallel_spatial": lambda c:
             c.apply_function_parallel_spatial(lambda d: d,
                                               accepts_chunks=True),
-        "rechunk": lambda c: c.rechunk(save_to_tmp_dir=True),
         "mask": lambda c: c.mask,
     }
 
@@ -573,5 +571,5 @@ def test_every_cube_name_is_sharded_metadata_or_gathered():
     defined_here = gathered & own
     assert defined_here == {"apply_function",
                             "apply_function_parallel_spectral",
-                            "apply_function_parallel_spatial", "rechunk",
+                            "apply_function_parallel_spatial",
                             "mask"}, sorted(defined_here)
