@@ -294,6 +294,25 @@ F_BOX_NCHAN = 16
 F_BOX_HALF = 32
 F_PEAK_RISE = 64 * 2**20
 
+# card-scale phase: P, run_pipeline's cube past 2**31 voxels (2304 x 1024
+# x 1024, 9.0 GiB, 11% of an H100), written to FITS and read back; H,
+# bench config 8's counterpart (bench.py:636-660) at the share its cube
+# takes of a v5e (1280 x 2048 x 2048, 20.0 GiB), built on the card; the
+# tiles (pixels) and slabs (channels) the results are held on where no
+# plain version fits; H's threshold; the limits: the pipeline's peak as a
+# share of the card, mad_std's peak above the resident data in cube bytes;
+# the kernels each cube must launch on its more than 2**31 elements
+CARD_P = (2304, 1024, 1024)
+CARD_H = (1280, 2048, 2048)
+CARD_TILE = 128
+CARD_SLAB = 8
+CARD_H_THRESHOLD = 0.25
+CARD_PEAK_SHARE = 0.9
+CARD_MAD_RATIO = 2.0
+CARD_KERNELS = {"P": ("moments", "conv_sep", "resample2"),
+                "H": ("moments",)}
+CARD_MIN_ELEMENTS = 2 ** 31
+
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
 # the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -619,6 +638,75 @@ def synth_cube(nchan, ny, nx, seed, cutoff=True):
         plane[cut] = np.nan
         data[c] = plane
     return data
+
+
+def card_cube(nchan, ny, nx, seed, dev):
+    """:func:`synth_cube`'s kind of cube (the drifting line, unit noise,
+    the NaN primary-beam cutoff) made on the card from
+    ``torch.Generator(device=dev)`` seeded with ``seed``, a slab of
+    channels at a time."""
+    import torch
+    f32 = torch.float32
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    ry = (torch.arange(ny, dtype=f32, device=dev)[:, None] - ny / 2) / ny
+    rx = (torch.arange(nx, dtype=f32, device=dev)[None, :] - nx / 2) / nx
+    amp = 6.0 * torch.exp(-0.5 * ((ry / 0.2) ** 2 + (rx / 0.25) ** 2))
+    centre = nchan / 2 + 0.15 * nchan * rx
+    cut = (ry / 0.47) ** 2 + (rx / 0.47) ** 2 > 1.0
+    data = torch.empty((nchan, ny, nx), dtype=f32, device=dev)
+    step = max(1, 2 ** 26 // (ny * nx))
+    for c0 in range(0, nchan, step):
+        blk = data[c0:c0 + step]
+        torch.randn(blk.shape, generator=g, dtype=f32, device=dev, out=blk)
+        c = torch.arange(c0, c0 + blk.shape[0], dtype=f32,
+                         device=dev)[:, None, None]
+        blk += amp * torch.exp(-0.5 * ((c - centre) / (0.02 * nchan)) ** 2)
+        blk.masked_fill_(cut, float("nan"))
+    return data
+
+
+def headline_cube(nchan, ny, nx, seed, dev):
+    """Bench config 8's cube (``bench.py:652-658``) made on the card: a
+    Gaussian line of sigma nchan / 16 channels times a uniform draw, plus
+    0.1, a slab of channels at a time."""
+    import torch
+    f32 = torch.float32
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    v = (torch.arange(nchan, dtype=f32, device=dev) - nchan / 2) \
+        / (nchan / 16)
+    line = torch.exp(-0.5 * v * v)[:, None, None]
+    data = torch.empty((nchan, ny, nx), dtype=f32, device=dev)
+    step = max(1, 2 ** 26 // (ny * nx))
+    for c0 in range(0, nchan, step):
+        blk = data[c0:c0 + step]
+        torch.rand(blk.shape, generator=g, dtype=f32, device=dev, out=blk)
+        blk.mul_(line[c0:c0 + step]).add_(0.1)
+    return data
+
+
+def one_sort_mad_std(data, valid):
+    """``mad_std`` over the whole array in one sort of the included values
+    and one of their deviations from the whole-array temporary
+    ``|data - median|``: the port's ``masked_mad_std`` before its pieces
+    (``ops/reductions.SORT_CHUNK``), kept to hold that its value below the
+    piece size is this one's bit for bit."""
+    import torch
+    from spectral_cube_tpu_torch.ops import reductions as rd
+
+    def median(x):
+        vals = x[valid]
+        n = vals.numel()
+        if n == 0:
+            return torch.tensor(float("nan"), dtype=x.dtype,
+                                device=x.device)
+        s = torch.sort(vals).values
+        pos = 0.5 * (n - 1)
+        lo = int(np.floor(pos))
+        return rd._lerp_sorted(s[lo], s[min(lo + 1, n - 1)], pos - lo)
+    med = median(data)
+    return rd.MAD_STD_FACTOR * median(torch.abs(data - med))
 
 
 def shifted_header(h, dx, dy):
@@ -3280,17 +3368,19 @@ def hold_pipeline(tag, res, ref):
 
 
 class _Recorder:
-    """Stands in, in the port's modules, for a kernel wrapper: keeps the
-    arguments of its first and its last call in ``calls``, then calls it.
-    ``launches`` reads and writes the wrapper's own count, which the
-    wrapper's body adds to through its module's name."""
+    """Stands in, in the port's modules, for a kernel wrapper: keeps
+    ``record(args, kwargs)`` of its first and its last call in ``calls``
+    (the arguments themselves by default), then calls it.  ``launches``
+    reads and writes the wrapper's own count, which the wrapper's body
+    adds to through its module's name."""
 
-    def __init__(self, fn, calls):
+    def __init__(self, fn, calls, record):
         self.fn = fn
         self.calls = calls
+        self.record = record
 
     def __call__(self, *args, **kwargs):
-        self.calls[1 if self.calls else 0:] = [(args, kwargs)]
+        self.calls[1 if self.calls else 0:] = [self.record(args, kwargs)]
         return self.fn(*args, **kwargs)
 
     @property
@@ -3303,14 +3393,14 @@ class _Recorder:
 
 
 @contextlib.contextmanager
-def recorded_calls(names):
+def recorded_calls(names, record=lambda args, kwargs: (args, kwargs)):
     """Inside the block every module of the port that holds one of the
     kernel wrappers ``names`` (keys of ``kernels.WRAPPERS``) holds a
-    :class:`_Recorder` of it instead.  Yields ``{name: [(args, kwargs)
-    of the first call, of the last call]}``."""
+    :class:`_Recorder` of it instead.  Yields ``{name: [record of the
+    first call, of the last call]}``, by default ``(args, kwargs)``."""
     from spectral_cube_tpu_torch import kernels as K
     calls = {n: [] for n in names}
-    subs = {id(K.WRAPPERS[n]): _Recorder(K.WRAPPERS[n], calls[n])
+    subs = {id(K.WRAPPERS[n]): _Recorder(K.WRAPPERS[n], calls[n], record)
             for n in names}
     patched = []
     for mname, mod in list(sys.modules.items()):
@@ -4165,6 +4255,420 @@ def _region_plane(regions, cube, region_to_mask):
     return plane
 
 
+def host_memory_line():
+    """The host's total and available memory (``/proc/meminfo``)."""
+    info = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":")
+            info[key] = int(val.split()[0]) * 1024
+    return (f"{info['MemAvailable'] / 2**30:.1f} GiB available of "
+            f"{info['MemTotal'] / 2**30:.1f}")
+
+
+def host_rss():
+    """The process's resident host memory, bytes: ``VmRSS`` of
+    ``/proc/self/status`` where the kernel gives it (some container
+    kernels do not), else the resident pages of ``/proc/self/statm``;
+    None where neither is there."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    except (OSError, IndexError, ValueError):
+        return None
+
+
+class HostPeak:
+    """The peak of :func:`host_rss` while the block runs, sampled every
+    5 ms by a thread (``peak`` None where the process's resident memory
+    cannot be read)."""
+
+    def __enter__(self):
+        import threading
+        self.peak = host_rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while self.peak is not None and not self._stop.wait(0.005):
+            rss = host_rss()
+            self.peak = None if rss is None else max(self.peak, rss)
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        return False
+
+    def __str__(self):
+        return host_gib(self.peak)
+
+
+def host_gib(nbytes):
+    """A host memory reading (bytes or None) for a log line."""
+    return "not measured" if nbytes is None else f"{nbytes / 2**30:.2f} GiB"
+
+
+def card_tiles(ny, nx):
+    """(y0, x0) of the CARD_TILE-square tiles the card-scale results are
+    held on: the four corners, the last holding the cube's last voxel,
+    and the centre."""
+    t = CARD_TILE
+    return [(0, 0), (0, nx - t), (ny - t, 0), (ny - t, nx - t),
+            ((ny - t) // 2, (nx - t) // 2)]
+
+
+def stats_oracle(data, include, step=64):
+    """npts and the float64 sum, mean and sigma of the finite voxels of
+    ``data`` that ``include(c0, x)`` keeps in the slab ``x`` of channels
+    from ``c0``, accumulated on the card ``step`` channels at a time: the
+    sum first, then the squared deviations from the mean."""
+    import torch
+    f64 = torch.float64
+    n = 0
+    s = torch.zeros((), dtype=f64, device=data.device)
+    for c0 in range(0, data.shape[0], step):
+        x = data[c0:c0 + step]
+        ok = torch.isfinite(x) & include(c0, x)
+        n += int(ok.sum())
+        s += torch.where(ok, x.to(f64), 0.0).sum()
+    mean = s / n
+    s2 = torch.zeros((), dtype=f64, device=data.device)
+    for c0 in range(0, data.shape[0], step):
+        x = data[c0:c0 + step]
+        ok = torch.isfinite(x) & include(c0, x)
+        s2 += torch.where(ok, (x.to(f64) - mean) ** 2, 0.0).sum()
+    return {"npts": n, "sum": float(s), "mean": float(mean),
+            "sigma": float(torch.sqrt(s2 / (n - 1)))}
+
+
+def phase_card_scale(dev, workdir):
+    """``run_pipeline`` on P (CARD_P, read from a FITS file the port wrote)
+    and moments, ``statistics()`` and ``mad_std()`` on H (CARD_H, bench
+    config 8's cube built on the card), both past 2**31 voxels, each stage
+    timed with its peak; the kernels' launches on those cubes; and the
+    results held where no plain version fits: moments and linewidth on
+    CARD_TILE tiles (corners, centre) bit for bit the same call on the
+    tile's cut-out, the convolved and reprojected cubes on CARD_SLAB-
+    channel slabs (first, middle, last) bit for bit the same call on the
+    slab, ``mad_std`` bit for bit ``sharded_mad_std`` on a MESH_GRID mesh
+    of the card and, on a cut-out of ``SORT_CHUNK`` voxels, the one-sort
+    form's, ``statistics()`` npts exact and sum, mean and sigma within
+    1e-6 of a float64 oracle.  Returns the "summary: card scale" line."""
+    import shutil
+    import torch
+    import spectral_cube_tpu_torch as T
+    from spectral_cube_tpu_torch import cube as tcube
+    from spectral_cube_tpu_torch import kernels as K
+    from spectral_cube_tpu_torch import profiling
+    from spectral_cube_tpu_torch.io.fits_low import HDU, write_fits
+    from spectral_cube_tpu_torch.ops import reductions as rd
+    from spectral_cube_tpu_torch.parallel import CubeMesh, sharded_mad_std
+    from spectral_cube_tpu_torch.wcs import WCS
+    log("phase card scale")
+    card = torch.cuda.get_device_properties(dev).total_memory
+    usage = shutil.disk_usage(workdir)
+    log(f"  card memory {card / 2**30:.2f} GiB; {workdir}: "
+        f"{usage.free / 2**30:.1f} GiB free of {usage.total / 2**30:.1f}; "
+        f"host memory {host_memory_line()}")
+    stages, checks, parts = {}, [], []
+    torch.cuda.empty_cache()
+
+    def staged(tag, name, nbytes, fn):
+        """``fn()`` on the host clock, synchronised, with the device peak
+        and its rise above the bytes in use before it, in cube bytes."""
+        torch.cuda.synchronize()
+        base = profiling.device_memory_stats(dev)["bytes_in_use"]
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        val = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        peak = profiling.device_memory_stats(dev)["peak_bytes_in_use"]
+        stages[f"{tag} {name}"] = (ms, peak, (peak - base) / nbytes)
+        log(f"  {tag} {name}: {ms:.1f} ms, peak {peak / 2**30:.2f} GiB, "
+            f"{(peak - base) / nbytes:.3f} cube bytes above the "
+            f"{base / 2**30:.2f} GiB in use before it")
+        return val
+
+    def hold(name, ok, detail="", short=None):
+        checks.append(short or name)
+        log(f"  {name}: {'ok' if ok else 'FAILED'} {detail}")
+        if not ok:
+            raise AssertionError(f"card scale: {name} {detail}")
+
+    def big_launches(tag, sizes):
+        """Each kernel of CARD_KERNELS[tag]: its launches since the
+        counters' reset and the elements of its first and last input."""
+        counts = K.launch_counts()
+        out = {k: (counts[k], sizes[k]) for k in CARD_KERNELS[tag]}
+        hold(f"{tag} kernels launched on more than 2**31 elements",
+             all(n > 0 and e and min(e) >= CARD_MIN_ELEMENTS
+                 for n, e in out.values()), str(out), f"{tag} launches")
+        return ", ".join(f"{k} {n} (inputs {'/'.join(map(str, e))} "
+                         "elements)" for k, (n, e) in out.items())
+
+    def numel(args, kwargs):
+        return args[0].numel()
+
+    def time_first_calls(tag, calls):
+        """CUDA-event median of three more wrapper calls with the
+        arguments of each kernel's first call."""
+        out = []
+        for k in CARD_KERNELS[tag]:
+            args, kwargs = calls[k][0]
+            ms = cuda_ms(lambda: K.WRAPPERS[k](*args, **kwargs), 3)
+            out.append(f"{k} {ms:.3f} ms on {args[0].numel()} elements")
+            log(f"  {tag} {out[-1]}")
+        return ", ".join(out)
+
+    def hold_mad_cutout(tag, data, valid):
+        """On the middle SORT_CHUNK voxels' channels: masked_mad_std bit
+        for bit the one-sort form's, and again with SORT_CHUNK a fifth of
+        the cut-out, so that it is cut into pieces of that size at most
+        (the keyed bisection on the card)."""
+        planes = rd.SORT_CHUNK // (data.shape[1] * data.shape[2])
+        c0 = (data.shape[0] - planes) // 2
+        sl = (slice(c0, c0 + planes),)
+        cut, ok = data[sl], valid(sl)
+        want = one_sort_mad_std(cut, ok)
+        got = rd.masked_mad_std(cut, ok)
+        keep = rd.SORT_CHUNK
+        rd.SORT_CHUNK = cut.numel() // 5
+        try:
+            keyed = rd.masked_mad_std(cut, ok)
+        finally:
+            rd.SORT_CHUNK = keep
+        hold(f"{tag} mad_std of channels {c0}-{c0 + planes - 1} the "
+             "one-sort value, in one piece and in pieces",
+             bits_equal(got.reshape(1), want.reshape(1))
+             and bits_equal(keyed.reshape(1), want.reshape(1)),
+             f"({float(want)!r})", f"{tag} mad_std cut-out")
+
+    def hold_sharded_mad(tag, noise, data, **mask):
+        cmesh = CubeMesh(devices=[dev] * 4, shape=MESH_GRID)
+        got = staged(tag, "sharded mad_std", data.numel() * 4,
+                     lambda: sharded_mad_std(data, cmesh, **mask))
+        hold(f"{tag} mad_std bit for bit sharded_mad_std on a "
+             f"{MESH_GRID[0]}x{MESH_GRID[1]} mesh of the card",
+             bits_equal(got.reshape(1), torch.tensor(
+                 [noise], dtype=torch.float32, device=dev)),
+             f"({noise!r})", f"{tag} sharded mad_std")
+
+    def hold_stats(tag, stats, want):
+        bad = [k for k in ("sum", "mean", "sigma")
+               if abs(float(stats[k].value) - want[k]) > 1e-6 * abs(want[k])]
+        hold(f"{tag} statistics npts exact, sum/mean/sigma within 1e-6 of "
+             "float64", stats["npts"] == want["npts"] and not bad,
+             "(" + ", ".join(f"{k} {float(stats[k].value)!r} vs {want[k]!r}"
+                             for k in ("sum", "mean", "sigma"))
+             + f", npts {stats['npts']} vs {want['npts']})",
+             f"{tag} statistics")
+
+    def hold_tiles(tag, full, tile_moments, ny, nx):
+        t = CARD_TILE
+        for y0, x0 in card_tiles(ny, nx):
+            got = tile_moments(y0, x0)
+            same = all(np.ascontiguousarray(
+                np.asarray(f)[y0:y0 + t, x0:x0 + t]).tobytes()
+                == np.ascontiguousarray(np.asarray(g)).tobytes()
+                for f, g in zip(full, got))
+            hold(f"{tag} moment0/1 and linewidth on the tile at "
+                 f"({y0}, {x0}) bit for bit the tile's", same, "",
+                 f"{tag} tile ({y0}, {x0})")
+
+    # P: run_pipeline on a cube read from FITS
+    nchan, ny, nx = CARD_P
+    t0 = time.perf_counter()
+    data = card_cube(nchan, ny, nx, SEED, dev)
+    torch.cuda.synchronize()
+    made = time.perf_counter() - t0
+    nbytes = data.numel() * 4
+    path = os.path.join(workdir, "card_p.fits")
+    base = host_rss()
+    with HostPeak() as write_peak:
+        t0 = time.perf_counter()
+        host = data.cpu().numpy()
+        del data
+        d2h = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        write_fits(path, [HDU(data=host, header=synth_header(nchan, ny,
+                                                             nx))])
+        wrote = time.perf_counter() - t0
+        del host
+    size = os.path.getsize(path)
+    uploads = []
+    as_tensor = tcube._as_tensor
+
+    def timed_upload(arr, device):
+        t = time.perf_counter()
+        out = as_tensor(arr, device)
+        torch.cuda.synchronize()
+        uploads.append(time.perf_counter() - t)
+        return out
+    with HostPeak() as read_peak:
+        t0 = time.perf_counter()
+        tcube._as_tensor = timed_upload
+        try:
+            cube = T.SpectralCube.read(path, device=dev)
+        finally:
+            tcube._as_tensor = as_tensor
+        torch.cuda.synchronize()
+        read = time.perf_counter() - t0
+    os.remove(path)
+    io_part = (f"made on the card {made:.2f} s, to the host {d2h:.2f} s, "
+               f"written ({size / 2**30:.2f} GiB) {wrote:.2f} s; read "
+               f"{read:.2f} s (upload {max(uploads):.2f} s); host resident "
+               f"{host_gib(base)} before, peaks {write_peak} writing, "
+               f"{read_peak} reading")
+    log(f"  P {cube}: {io_part}")
+    if cube.device != dev or cube.shape != CARD_P:
+        raise AssertionError(f"P read: {cube.device}, {cube.shape}")
+
+    _, target_beam = beams()
+    target_header = shifted_header(cube.header, *SHIFT)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launch_counts()
+    with recorded_calls(CARD_KERNELS["P"], numel) as sizes:
+        t0 = time.perf_counter()
+        res = T.run_pipeline(cube, snr_threshold=SNR, target_beam=target_beam,
+                             target_header=target_header)
+        torch.cuda.synchronize()
+        first = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev)
+    p_launches = big_launches("P", sizes)
+    hold(f"P run_pipeline peak at most {CARD_PEAK_SHARE:.0%} of the card",
+         peak <= CARD_PEAK_SHARE * card,
+         f"({peak / 2**30:.2f} of {card / 2**30:.2f} GiB, "
+         f"{peak / nbytes:.2f} cube bytes)", "P pipeline peak")
+    parts.append(f"P {nchan}x{ny}x{nx} ({nchan * ny * nx} voxels, "
+                 f"{nbytes / 2**30:.2f} GiB): {io_part}; run_pipeline "
+                 f"{first:.1f} ms (first call), peak {peak / 2**30:.2f} GiB "
+                 f"({peak / card:.1%} of the card, {peak / nbytes:.2f} cube "
+                 f"bytes), launches {p_launches}")
+
+    conv = staged("P", "convolve_to", nbytes,
+                  lambda: cube.convolve_to(target_beam))
+    noise = staged("P", "mad_std", nbytes,
+                   lambda: float(conv.mad_std().value))
+    masked = conv.with_mask(conv > T.Quantity(SNR * noise, conv.unit))
+    mom = staged("P", "moments", nbytes, masked._moments012)
+    stats = staged("P", "statistics", nbytes, masked.statistics)
+    rep = staged("P", "reproject", nbytes,
+                 lambda: masked._reproject(target_header))
+    hold("P mad_std peak above the resident data at most "
+         f"{CARD_MAD_RATIO} cube bytes",
+         stages["P mad_std"][2] <= CARD_MAD_RATIO,
+         f"({stages['P mad_std'][2]:.3f})", "P mad_std peak")
+    full = [np.asarray(m.value) for m in res["moments"]]
+    with np.errstate(invalid="ignore"):
+        staged_moments = [mom[0], mom[1], np.sqrt(mom[2])]
+    hold("P stages bit for bit run_pipeline's (moments, linewidth, "
+         "reprojected cube, statistics)",
+         all(a.tobytes() == np.asarray(b, a.dtype).tobytes()
+             for a, b in zip(full, staged_moments))
+         and bits_equal(rep._data, res["cube"]._data)
+         and all(float(stats[k].value) == float(res["statistics"][k].value)
+                 for k in ("sum", "mean", "sigma", "min", "max"))
+         and stats["npts"] == res["statistics"]["npts"], "",
+         "P stages = run_pipeline")
+    del res
+    hold_mad_cutout("P", conv._data, conv._valid_view)
+    hold_sharded_mad("P", noise, conv._data,
+                     include=conv.mask.include(data=conv._data))
+    hold_tiles("P", full, lambda y0, x0: [
+        m.value for m in T.run_pipeline(
+            conv[:, y0:y0 + CARD_TILE, x0:x0 + CARD_TILE],
+            snr_threshold=SNR, noise_estimate=noise)["moments"]], ny, nx)
+    for c0 in (0, (nchan - CARD_SLAB) // 2, nchan - CARD_SLAB):
+        sl = slice(c0, c0 + CARD_SLAB)
+        hold(f"P convolve_to of channels {c0}-{c0 + CARD_SLAB - 1} bit for "
+             "bit the slab's", bits_equal(
+                 cube[sl].convolve_to(target_beam)._data, conv._data[sl]),
+             "", f"P convolve_to slab {c0}")
+        slab = masked[sl]
+        hold(f"P reproject of channels {c0}-{c0 + CARD_SLAB - 1} bit for "
+             "bit the slab's", bits_equal(slab._reproject(shifted_header(
+                 slab.header, *SHIFT))._data, rep._data[sl]), "",
+             f"P reproject slab {c0}")
+    del rep, slab
+    include = masked.mask.include(data=masked._data)
+    hold_stats("P", stats, stats_oracle(
+        masked._data, lambda c0, x: include[c0:c0 + x.shape[0]]))
+    del include, masked, conv
+    torch.cuda.empty_cache()
+    # a second call, its kernels' first calls kept and timed at P's shapes
+    with recorded_calls(CARD_KERNELS["P"]) as calls:
+        t0 = time.perf_counter()
+        T.run_pipeline(cube, snr_threshold=SNR, target_beam=target_beam,
+                       target_header=target_header)
+        torch.cuda.synchronize()
+        second = (time.perf_counter() - t0) * 1e3
+    p_kernels = time_first_calls("P", calls)
+    parts.append(f"P run_pipeline again {second:.1f} ms; kernel wrapper "
+                 "calls " + p_kernels)
+    del calls, cube
+    torch.cuda.empty_cache()
+
+    # H: moments, statistics() and mad_std() on bench config 8's cube
+    nchan, ny, nx = CARD_H
+    t0 = time.perf_counter()
+    data = headline_cube(nchan, ny, nx, SEED, dev)
+    torch.cuda.synchronize()
+    made = time.perf_counter() - t0
+    nbytes = data.numel() * 4
+    h = synth_header(nchan, ny, nx)
+    cube = T.SpectralCube(data, WCS(header=h), header=h)
+    masked = cube.with_mask(cube > T.Quantity(CARD_H_THRESHOLD, cube.unit))
+    K.reset_launch_counts()
+    with recorded_calls(CARD_KERNELS["H"], numel) as sizes:
+        full = staged("H", "moments", nbytes, lambda: [
+            np.asarray(m.value) for m in (
+                masked.moment0(), masked.moment1(),
+                masked.linewidth_sigma())])
+        stats = staged("H", "statistics", nbytes, masked.statistics)
+    h_launches = big_launches("H", sizes)
+    with recorded_calls(CARD_KERNELS["H"]) as calls:
+        # a new cube: the moments of ``masked`` are cached
+        cube.with_mask(masked.mask)._moments012()
+    h_launches += "; kernel wrapper calls " + time_first_calls("H", calls)
+    del calls
+    noise = staged("H", "mad_std", nbytes,
+                   lambda: float(masked.mad_std().value))
+    hold("H mad_std peak above the resident data at most "
+         f"{CARD_MAD_RATIO} cube bytes",
+         stages["H mad_std"][2] <= CARD_MAD_RATIO,
+         f"({stages['H mad_std'][2]:.3f})", "H mad_std peak")
+    parts.append(f"H {nchan}x{ny}x{nx} ({nchan * ny * nx} voxels, "
+                 f"{nbytes / 2**30:.2f} GiB): made on the card {made:.2f} "
+                 f"s, launches {h_launches}")
+    hold_tiles("H", full, lambda y0, x0: [
+        np.asarray(m.value) for m in (lambda c: (
+            c.moment0(), c.moment1(), c.linewidth_sigma()))(
+                masked[:, y0:y0 + CARD_TILE, x0:x0 + CARD_TILE])], ny, nx)
+    hold_stats("H", stats, stats_oracle(
+        data, lambda c0, x: x > CARD_H_THRESHOLD))
+    hold_mad_cutout("H", data, masked._valid_view)
+    mask = masked.mask
+    del full, masked
+    hold_sharded_mad("H", noise, data, mask_expr=mask)
+    del cube, data, mask
+    torch.cuda.empty_cache()
+
+    parts.append("stages " + ", ".join(
+        f"{k} {ms:.1f} ms / {p / 2**30:.2f} GiB / {r:.3f}"
+        for k, (ms, p, r) in stages.items())
+        + " (time, peak, rise over cube bytes)")
+    parts.append(f"{len(checks)} checks passed: " + ", ".join(checks))
+    return "summary: card scale: " + "; ".join(parts)
+
+
 def phase_small_reference(dev):
     """A small pipeline, a small varying-resolution pipeline on both
     convolution routes and a small spectral path, each on the card against
@@ -4415,6 +4919,7 @@ def main():
                        dev, workdir, results)
         io_counts = phase("io and regions", phase_io_regions, dev, workdir)
         phase("sharded", phase_sharded, dev, workdir)
+        card_scale = phase("card scale", phase_card_scale, dev, workdir)
     counts.update({k: sp_counts[k] for k in SPECTRAL_KERNELS})
     counts.update({k: rs_counts[k] for k in REPROJECT_SPECTRAL_KERNELS})
     data = torch.as_tensor(synth_cube(NCHAN, NY, NX, SEED), device=dev)
@@ -4503,6 +5008,7 @@ def main():
         + f"; peak {api_peak / 2**30:.2f} GiB; spatial cut copy "
         f"{api_copy:.3f} ms; moments launches "
         + ", ".join(f"{k} {v}" for k, v in api_launches.items()))
+    log(card_scale)
     for line in TRACE_LINES:
         log(line)
     if len(TRACE_LINES) != 4:

@@ -567,7 +567,14 @@ def read_fits(path, memmap=True) -> list:
     return hdus
 
 
-def _image_bytes(data: np.ndarray):
+#: bytes of an image payload converted to the file's big-endian type at once
+WRITE_CHUNK = 1 << 26
+
+
+def _image_payload(data: np.ndarray):
+    """``(bitpix, values, dtype)``: the FITS BITPIX of ``data``, its values
+    flat in C order (a view of C-contiguous data) and the big-endian type
+    they are written as (bool as uint8, other types as float64)."""
     dt = data.dtype
     if dt.kind == "b":
         data = data.astype(np.uint8)
@@ -577,8 +584,17 @@ def _image_bytes(data: np.ndarray):
         data = data.astype(np.float64)
         key = "float64"
     bitpix = _DTYPE_BITPIX[key]
-    be = data.astype(np.dtype(_BITPIX_DTYPE[bitpix]))
-    return bitpix, be.tobytes()
+    return bitpix, data.reshape(-1), np.dtype(_BITPIX_DTYPE[bitpix])
+
+
+def _write_payload(f, flat, dtype):
+    """Write ``flat`` as ``dtype``, :data:`WRITE_CHUNK` bytes converted at
+    a time, so that the host holds no whole-payload copy.  Returns the
+    bytes written."""
+    step = max(1, WRITE_CHUNK // dtype.itemsize)
+    for i in range(0, flat.size, step):
+        f.write(flat[i:i + step].astype(dtype))
+    return flat.size * dtype.itemsize
 
 
 def write_fits(path, hdus, compress=None):
@@ -619,9 +635,10 @@ def write_fits(path, hdus, compress=None):
                 h["XTENSION"] = "IMAGE"
                 h["PCOUNT"] = 0
                 h["GCOUNT"] = 1
+            flat = None
             if data is not None:
                 data = np.asarray(data)
-                bitpix, payload = _image_bytes(data)
+                bitpix, flat, dtype = _image_payload(data)
                 h["BITPIX"] = bitpix
                 h["NAXIS"] = data.ndim
                 for i, n in enumerate(data.shape[::-1]):
@@ -637,10 +654,9 @@ def write_fits(path, hdus, compress=None):
             else:
                 h["BITPIX"] = 8
                 h["NAXIS"] = 0
-                payload = b""
             f.write(format_header(h))
-            f.write(payload)
-            f.write(b"\x00" * ((-len(payload)) % BLOCK))
+            n = 0 if flat is None else _write_payload(f, flat, dtype)
+            f.write(b"\x00" * ((-n) % BLOCK))
 
 
 _COL_TFORM = {"float32": "E", "float64": "D", "int16": "I", "int32": "J",

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from .units import Quantity, torch_namesake
+from .ops.reductions import finite
 
 __all__ = ["MaskBase", "InvertedMask", "CompositeMask", "BooleanArrayMask",
            "LazyMask", "LazyComparisonMask", "FunctionMask", "is_data_local",
@@ -677,8 +678,10 @@ class LazyMask(_DataMask):
 
     def _include(self, data=None, view=()):
         d = _data_tensor(data) if data is not None else self._bound()
+        # a finiteness mask without torch.isfinite's cube-sized temporary
+        fn = finite if is_finiteness_mask(self) else self._function
         return _as_bool_tensor(_call_user_function(
-            self._function, index_view(d, view))).to(d.device)
+            fn, index_view(d, view))).to(d.device)
 
     def __getitem__(self, view):
         return self._sliced(view)

@@ -47,6 +47,7 @@ from ..kernels.resample2 import resample2, resample2_filled
 from .convolve import (convolve2d_separable, separable_factors,
                        _conv_matrix_1d, _tap_stack)
 from .interpolate import _interp_matrix, compose_interp_banded
+from .reductions import finite
 
 __all__ = ["spatial_pixel_mapping", "bilinear_host_maps",
            "reproject_mappings", "reproject_cube", "reproject_image",
@@ -768,7 +769,7 @@ def reproject_cube(data, wcs_in: WCS, target_header, order="bilinear",
     out = _bilinear_spatial_then_linear_z(data, np.asarray(zs),
                                           np.asarray(ys), np.asarray(xs),
                                           _order_int(order))
-    return out, torch.isfinite(out), wcs_out
+    return out, finite(out), wcs_out
 
 
 def _resample_planes(data, ys, xs, order):

@@ -287,10 +287,6 @@ def sharded_statistics(data, cmesh: CubeMesh, include=None, mask_expr=None):
             "rms": vals[6]}
 
 
-#: the integer type whose bits a float of each width is read as
-_BITS = {2: torch.int16, 4: torch.int32, 8: torch.int64}
-
-
 def _check_orderable(dtype):
     """Refuse the types the unsharded ``reductions.masked_percentile``
     does not reduce either: complex (torch sorts no complex values) and
@@ -300,85 +296,9 @@ def _check_orderable(dtype):
                                   "the unsharded reductions refuse them too")
 
 
-def _keys_of(s):
-    """Integer keys of the values ``s`` that order as the values do: a
-    float's bits (16-bit floats widened to int32, which every searchsorted
-    takes), its negative half reversed (``i ^ max`` where ``i < 0``); an
-    integer type's values as int64.  NaN, positive as the fills of this
-    module make it, keys above every finite value."""
-    if not s.dtype.is_floating_point:
-        return s.to(torch.int64)
-    bits = _BITS[s.element_size()]
-    i = s.view(bits)
-    i = torch.where(i < 0, i ^ torch.iinfo(bits).max, i)
-    return i.to(torch.int32) if s.element_size() < 4 else i
-
-
-def _values_of(k, dtype):
-    """The values of ``dtype`` whose keys (:func:`_keys_of`) are the
-    integer tensor ``k``."""
-    if not dtype.is_floating_point:
-        return k.to(dtype)
-    bits = _BITS[torch.empty((), dtype=dtype).element_size()]
-    i = k.to(bits)
-    return torch.where(i < 0, i ^ torch.iinfo(bits).max, i).view(dtype)
-
-
-def _sorted_keys(x):
-    """The keys of the values ``x``, ascending: the values sorted (-0.0
-    taken as +0.0, an equal value the keys must not split), then keyed."""
-    return _keys_of(torch.sort(x + 0).values)
-
-
-def _count_le(cmesh, keys, k):
-    """How many keys of every shard are <= ``k``: a search in each shard's
-    sorted keys, summed over the mesh."""
-    return int(_to_first(cmesh, [torch.searchsorted(
-        kk, torch.tensor([k], dtype=kk.dtype, device=kk.device),
-        right=True)[0] for kk in keys]).sum())
-
-
-def _select(cmesh, keys, k):
-    """The ``k``-th smallest (0-based) of the shards' sorted keys: a
-    bisection over the key range (at most as many steps as the keys have
-    bits), each step one count."""
-    lo = min(int(kk[0]) for kk in keys if kk.numel())
-    hi = max(int(kk[-1]) for kk in keys if kk.numel())
-    while lo < hi:
-        mid = (lo + hi) // 2
-        if _count_le(cmesh, keys, mid) >= k + 1:
-            hi = mid
-        else:
-            lo = mid + 1
-    return lo
-
-
-def _percentile_of(cmesh, keys, n, q, dtype):
-    """``masked_percentile(axis=None)``'s value (the two bracketing order
-    statistics at q/100 * (n - 1), lerped as ``reductions._lerp_sorted``
-    does) of the ``n`` keys of every shard, values of ``dtype``: a 0-d
-    tensor on the mesh's first device."""
-    pos = q / 100.0 * (n - 1)
-    lo_i = int(math.floor(pos))
-    hi_i = min(lo_i + 1, n - 1)
-    k_lo = k_hi = _select(cmesh, keys, lo_i)
-    if hi_i != lo_i and _count_le(cmesh, keys, k_lo) < hi_i + 1:
-        # the next larger key in any shard
-        nxt = []
-        for kk in keys:
-            j = int(torch.searchsorted(kk, torch.tensor(
-                [k_lo], dtype=kk.dtype, device=kk.device), right=True)[0])
-            if j < kk.numel():
-                nxt.append(int(kk[j]))
-        k_hi = min(nxt)
-    lo_v, hi_v = _values_of(torch.tensor([k_lo, k_hi]), dtype).to(
-        cmesh.devices[0])
-    return _red._lerp_sorted(lo_v, hi_v, pos - lo_i)
-
-
-def _valid_values(data, cmesh, include, mask_expr):
-    """Each shard's included finite values, flat, from its tile's part
-    inside the cube."""
+def _valid_tiles(data, cmesh, include, mask_expr):
+    """Each shard's tile part inside the cube, with its include (or
+    None)."""
     src = _sharded(data, cmesh)
     _check_orderable(src.dtype)
     tiles, inc, shape = _pad_spatial(
@@ -387,49 +307,52 @@ def _valid_values(data, cmesh, include, mask_expr):
     for p, d in enumerate(tiles):
         h, w = _tile_extent(cmesh, p, shape[1:], d.shape[1:])
         d = d[:, :h, :w]
-        i = _include_tile(None if inc is None else inc[p][:, :h, :w],
-                          mask_expr, d)
-        out.append(d[_red.valid_mask(d, i)])
+        out.append((d, _include_tile(
+            None if inc is None else inc[p][:, :h, :w], mask_expr, d)))
     return out
+
+
+def _tiles_percentile(cmesh, tiles, q, fn=None):
+    """The ``q``-th percentile of ``fn`` of the shards' included finite
+    values: each shard sorts its own values, whole up to
+    ``reductions.SORT_CHUNK`` voxels and in pieces past it
+    (``reductions._pieces``), and each order statistic
+    is found by bisecting the values' ordered bit patterns, every step a
+    count of each piece's sorted keys summed over the mesh
+    (``reductions._percentile_of``), so no shard's data leaves its
+    device.  A 0-d tensor on the mesh's first device."""
+    keys = []
+    for d, i in tiles:
+        k, dtype = _red._piece_keys(d, _red.valid_mask(d, i), fn)
+        keys += k
+    n = sum(k.numel() for k in keys)
+    if n == 0:
+        return torch.tensor(NAN, dtype=dtype, device=cmesh.devices[0])
+    return _red._percentile_of(keys, n, float(q), dtype).to(
+        cmesh.devices[0])
 
 
 def sharded_percentile(data, q, cmesh: CubeMesh, include=None,
                        mask_expr=None):
     """The ``q``-th percentile of the included finite voxels of a sharded
     cube (the unsharded ``reductions.masked_percentile(axis=None)``,
-    exactly): each shard sorts its own values, and each order statistic
-    is found by bisecting the values' ordered bit patterns, every step a
-    count of each shard's sorted keys summed over the mesh, so no shard's
-    data leaves its device.  Returns a 0-d tensor on the mesh's first
-    device."""
-    vals = _valid_values(data, cmesh, include, mask_expr)
-    n = sum(v.numel() for v in vals)
-    if n == 0:
-        return torch.tensor(NAN, dtype=vals[0].dtype,
-                            device=cmesh.devices[0])
-    return _percentile_of(cmesh, [_sorted_keys(v) for v in vals], n,
-                          float(q), vals[0].dtype)
+    exactly).  Returns a 0-d tensor on the mesh's first device."""
+    return _tiles_percentile(cmesh, _valid_tiles(data, cmesh, include,
+                                                 mask_expr), q)
 
 
 def sharded_mad_std(data, cmesh: CubeMesh, include=None, mask_expr=None):
     """``mad_std`` of the included finite voxels of a sharded cube (the
     unsharded ``reductions.masked_mad_std``, exactly): the median of the
     values, then the median of their absolute deviations from it, each as
-    :func:`sharded_percentile` finds it.  Float cubes of every width and
-    integer cubes, as the unsharded reduction takes them.  Returns a 0-d
-    tensor on the mesh's first device."""
-    vals = _valid_values(data, cmesh, include, mask_expr)
-    n = sum(v.numel() for v in vals)
-    if n == 0:
-        return torch.tensor(NAN, dtype=vals[0].dtype,
-                            device=cmesh.devices[0])
-    med = _percentile_of(cmesh, [_sorted_keys(v) for v in vals], n, 50.0,
-                         vals[0].dtype)
-    dev = [torch.abs(v - med.to(v.device)) for v in vals]
-    del vals
-    mad = _percentile_of(cmesh, [_sorted_keys(v) for v in dev], n, 50.0,
-                         dev[0].dtype)
-    return _red.MAD_STD_FACTOR * mad
+    :func:`sharded_percentile` finds it, the deviations formed piece by
+    piece.  Float cubes of every width and integer cubes, as the
+    unsharded reduction takes them.  Returns a 0-d tensor on the mesh's
+    first device."""
+    tiles = _valid_tiles(data, cmesh, include, mask_expr)
+    med = _tiles_percentile(cmesh, tiles, 50.0)
+    return _red.MAD_STD_FACTOR * _tiles_percentile(
+        cmesh, tiles, 50.0, lambda v: torch.abs(v - med.to(v.device)))
 
 
 # ---------------------------------------------------------------------------
@@ -478,7 +401,7 @@ def _lane_percentile(cmesh, parts, q):
     parts = [x for x in parts if x.shape[1]]
     if not parts:
         return torch.full((lanes,), NAN, dtype=dtype, device=dev)
-    keys = [_keys_of(torch.sort(x, dim=1).values) for x in parts]
+    keys = [_red._keys_of(torch.sort(x, dim=1).values) for x in parts]
     counts = [(~torch.isnan(x)).sum(1) for x in parts]
     n = sum(c.to(dev) for c in counts)
     pos = float(q) / 100.0 * (n - 1).to(torch.float64)
@@ -486,10 +409,9 @@ def _lane_percentile(cmesh, parts, q):
     frac = (pos - lo).to(dtype)
     lo = lo.to(torch.int64)
     hi = torch.minimum(lo + 1, torch.clamp(n - 1, min=0))
-    out = _red._lerp_sorted(_values_of(_lane_select(cmesh, keys, counts, lo),
-                                       dtype),
-                            _values_of(_lane_select(cmesh, keys, counts, hi),
-                                       dtype), frac)
+    out = _red._lerp_sorted(
+        _red._values_of(_lane_select(cmesh, keys, counts, lo), dtype),
+        _red._values_of(_lane_select(cmesh, keys, counts, hi), dtype), frac)
     return torch.where(n > 0, out, NAN)
 
 
