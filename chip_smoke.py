@@ -171,8 +171,8 @@
 13. Runs the port's test batteries (``BATTERY_FILES``: the JAX package's
     reference, lower-dimensional, fuzz, docs, beam, unit, auxiliary,
     cube, mask, I/O, WCS, multi-device (on a mesh of 8 positions of the
-    card) and operation tests through the port, the numpy interop tests
-    and the sharded store's) and then the
+    card) and operation tests through the port, the numpy interop tests,
+    the sharded store's and the indexers' host arrays, F23) and then the
     kernel tests (``tests/test_torch_kernels_cuda.py``), each in a pytest
     process of its own (``python -m pytest --noconftest -m cuda``, the
     kernels already built; ``-p chip_smoke`` loads the hook that adds up
@@ -208,6 +208,7 @@ import contextlib
 import inspect
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -295,13 +296,15 @@ F_BOX_HALF = 32
 F_PEAK_RISE = 64 * 2**20
 
 # card-scale phase: P, run_pipeline's cube past 2**31 voxels (2304 x 1024
-# x 1024, 9.0 GiB, 11% of an H100), written to FITS and read back; H,
-# bench config 8's counterpart (bench.py:636-660) at the share its cube
-# takes of a v5e (1280 x 2048 x 2048, 20.0 GiB), built on the card; the
-# tiles (pixels) and slabs (channels) the results are held on where no
-# plain version fits; H's threshold; the limits: the pipeline's peak as a
-# share of the card, mad_std's peak above the resident data in cube bytes;
-# the kernels each cube must launch on its more than 2**31 elements
+# x 1024, 9.0 GiB, 11% of an H100), written to FITS and read back, then
+# the spectral path; H, bench config 8's counterpart (bench.py:636-660) at
+# the share its cube takes of a v5e (1280 x 2048 x 2048, 20.0 GiB), built
+# on the card, and the cube's reductions; the tiles (pixels) and slabs
+# (channels) the results are held on where no plain version fits; H's
+# threshold; the limits: the pipeline's and each spectral stage's peak as
+# a share of the card, each reduction's peak above the resident data in
+# cube bytes; the kernels each cube must launch on its more than 2**31
+# elements
 CARD_P = (2304, 1024, 1024)
 CARD_H = (1280, 2048, 2048)
 CARD_TILE = 128
@@ -309,8 +312,13 @@ CARD_SLAB = 8
 CARD_H_THRESHOLD = 0.25
 CARD_PEAK_SHARE = 0.9
 CARD_MAD_RATIO = 2.0
-CARD_KERNELS = {"P": ("moments", "conv_sep", "resample2"),
+CARD_KERNELS = {"P": ("moments", "conv_sep", "resample2", "smooth_interp",
+                      "sigma_clip"),
                 "H": ("moments",)}
+# the spectral median filter's width at P, and the percentile the H
+# reductions take along the spectral axis
+CARD_MEDIAN_WIDTH = 5
+CARD_PERCENTILE = 10.0
 CARD_MIN_ELEMENTS = 2 ** 31
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
@@ -414,7 +422,8 @@ BATTERY_FILES = ("tests/test_torch_ref_battery.py",
                  "tests/test_torch_mesh_battery.py",
                  "tests/test_torch_ops_battery.py",
                  "tests/test_torch_numpy_interop.py",
-                 "tests/test_torch_sharded_store.py")
+                 "tests/test_torch_sharded_store.py",
+                 "tests/test_torch_f23_indexers.py")
 KERNEL_TEST_FILES = ("tests/test_torch_kernels_cuda.py",)
 #: seconds a pytest process of phase_batteries may take
 BATTERY_TIMEOUT = 600
@@ -1423,6 +1432,7 @@ def phase_spectral(dev, workdir, results):
     compare_clip("stage sigma_clip vs plain", sc._data, want, si._data,
                  CLIP_SIGMA, CLIP_ITERS, False)
     del want
+    hold_tiles_at_path_shape(cube, kern)
 
     # kernel against plain version, clean and with NaN, and timed
     log("  smooth_interp kernel vs plain")
@@ -1482,6 +1492,64 @@ def phase_spectral(dev, workdir, results):
     del sm, si, sc, cube, raw, filled, si_data
     torch.cuda.empty_cache()
     return counts, peak, first, steady, clip623
+
+
+def hold_tiles_at_path_shape(cube, kern):
+    """At the spectral path's shape, each operation that runs on tiles of
+    whole lanes past ``ops/reductions.SORT_CHUNK`` voxels is its one call
+    bit for bit: the order statistics and arg-extrema along the spectral
+    axis, the mad_std clip (``sigma_clip_plain``) with SORT_CHUNK a fifth
+    of the cube (tiles of at most that many voxels), the median filter
+    (tiles already: its stack holds five cubes) against the whole stack
+    sorted at once, and ``convolve1d_nan``'s blocks against the
+    whole-cube formula (:func:`untiled_convolve1d_nan`)."""
+    import torch
+    from spectral_cube_tpu_torch.kernels import sigma_clip as kc
+    from spectral_cube_tpu_torch.ops import reductions as rd
+    from spectral_cube_tpu_torch.ops import smoothing as osm
+    data, valid = cube._data, cube._valid_view()
+    x = cube._get_filled_data(fill=np.nan)
+    calls = {
+        "median(axis=0)": lambda: rd.masked_median(data, valid, axis=0),
+        "mad_std(axis=0)": lambda: rd.masked_mad_std(data, valid, axis=0),
+        "argmax(axis=0)": lambda: rd.masked_argmax(data, valid, axis=0),
+        "max(axis=0)": lambda: rd.masked_max(data, valid, axis=0),
+        "sigma_clip_plain mad_std": lambda: kc.sigma_clip_plain(
+            x, CLIP_SIGMA, CLIP_ITERS, False, True)}
+    held = []
+    for name, fn in calls.items():
+        one = fn()
+        keep = rd.SORT_CHUNK
+        rd.SORT_CHUNK = data.numel() // 5
+        try:
+            tiles = len(list(rd.lane_tiles(data.shape, (0,))))
+            tiled = fn()
+        finally:
+            rd.SORT_CHUNK = keep
+        if tiles < 2 or not equal_nan(tiled, one):
+            raise AssertionError(f"{name} in {tiles} tiles is not its one "
+                                 "call bit for bit")
+        held.append(f"{name} ({tiles} tiles)")
+        del one, tiled
+    tiles = len(list(rd.lane_tiles(x.shape, (0,), weight=CARD_MEDIAN_WIDTH)))
+    one = osm._median0(osm._sliding_stack(x, CARD_MEDIAN_WIDTH, axis=0))
+    if tiles < 2 or not equal_nan(osm.spectral_median_filter_cube(
+            x, CARD_MEDIAN_WIDTH), one):
+        raise AssertionError("the median filter's tiles are not the whole "
+                             "stack's bit for bit")
+    held.append(f"spectral_median_filter_cube({CARD_MEDIAN_WIDTH}) "
+                f"({tiles} tiles)")
+    del one
+    karr = np.asarray(kern, dtype=float)
+    if not equal_nan(osm.convolve1d_nan(x, karr),
+                     untiled_convolve1d_nan(x, karr)):
+        raise AssertionError("convolve1d_nan's blocks are not the whole-cube "
+                             "formula's bit for bit")
+    held.append("convolve1d_nan (banded blocks)")
+    log("  at the path's shape, bit for bit the one call: "
+        + ", ".join(held))
+    del x, valid
+    torch.cuda.empty_cache()
 
 
 def spectral_target(header):
@@ -4324,19 +4392,29 @@ def card_tiles(ny, nx):
 
 
 def stats_oracle(data, include, step=64):
-    """npts and the float64 sum, mean and sigma of the finite voxels of
-    ``data`` that ``include(c0, x)`` keeps in the slab ``x`` of channels
-    from ``c0``, accumulated on the card ``step`` channels at a time: the
-    sum first, then the squared deviations from the mean."""
+    """npts and the float64 sum, mean, sigma (n - 1) and std (n) of the
+    finite voxels of ``data`` that ``include(c0, x)`` keeps in the slab
+    ``x`` of channels from ``c0``, accumulated on the card ``step``
+    channels at a time: the sum first, then the squared deviations from
+    the mean; and the largest of them with its first flat index, found in
+    the same float64 slabs."""
     import torch
     f64 = torch.float64
     n = 0
     s = torch.zeros((), dtype=f64, device=data.device)
+    best, at = -math.inf, 0
+    plane = data[0].numel()
     for c0 in range(0, data.shape[0], step):
         x = data[c0:c0 + step]
         ok = torch.isfinite(x) & include(c0, x)
         n += int(ok.sum())
-        s += torch.where(ok, x.to(f64), 0.0).sum()
+        x64 = torch.where(ok, x.to(f64), 0.0)
+        s += x64.sum()
+        x64.masked_fill_(~ok, -math.inf)
+        i = int(torch.argmax(x64))
+        if float(x64.reshape(-1)[i]) > best:
+            best, at = float(x64.reshape(-1)[i]), c0 * plane + i
+        del x64
     mean = s / n
     s2 = torch.zeros((), dtype=f64, device=data.device)
     for c0 in range(0, data.shape[0], step):
@@ -4344,7 +4422,216 @@ def stats_oracle(data, include, step=64):
         ok = torch.isfinite(x) & include(c0, x)
         s2 += torch.where(ok, (x.to(f64) - mean) ** 2, 0.0).sum()
     return {"npts": n, "sum": float(s), "mean": float(mean),
-            "sigma": float(torch.sqrt(s2 / (n - 1)))}
+            "sigma": float(torch.sqrt(s2 / (n - 1))),
+            "std": float(torch.sqrt(s2 / n)), "max": best, "argmax": at}
+
+
+def spectrum_oracle(data, include, step=64):
+    """The float64 mean over each plane of the finite voxels of ``data``
+    that ``include(c0, x)`` keeps (NaN where none), ``step`` channels at a
+    time on the card: ``mean(axis=(1, 2))``'s oracle."""
+    import torch
+    out = []
+    for c0 in range(0, data.shape[0], step):
+        x = data[c0:c0 + step]
+        ok = torch.isfinite(x) & include(c0, x)
+        s = torch.where(ok, x.double(), 0.0).sum((1, 2))
+        n = ok.sum((1, 2))
+        out.append(torch.where(n > 0, s / n.clamp(min=1), float("nan")))
+    return torch.cat(out).cpu().numpy()
+
+
+def untiled_convolve1d_nan(x, kernel):
+    """``ops/smoothing.convolve1d_nan`` along axis 0 as one whole-cube
+    formula, the filled data, numerator, denominator and quotient each a
+    cube: the port's function before its blocks, kept to hold that the
+    blocks give its values bit for bit where it fits."""
+    import torch
+    from spectral_cube_tpu_torch.ops import smoothing as osm
+    kernel = np.asarray(kernel, dtype=float)
+    kernel = kernel / kernel.sum()
+    v = torch.isfinite(x)
+    num = osm._conv1d_along_axis0(torch.where(v, x, 0).contiguous(), kernel)
+    den = 1.0 - osm._conv1d_along_axis0((~v).to(x.dtype).contiguous(),
+                                        kernel)
+    ok = den > osm.DEN_EPS
+    o = torch.where(ok, num / torch.where(ok, den, 1.0), float("nan"))
+    return torch.where(v.any(0, keepdim=True), o, float("nan"))
+
+
+def within_f64(got, want, rtol=1e-6, scale=None):
+    """NaN patterns equal and |got - want| <= rtol |want| where finite (host
+    arrays), or <= rtol ``scale`` where that is given; returns (ok, the
+    largest error over |want| or over ``scale``)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.array_equal(np.isnan(got),
+                                                     np.isnan(want)):
+        return False, float("inf")
+    fin = ~np.isnan(want)
+    if not fin.any():
+        return True, 0.0
+    den = np.abs(want[fin]) if scale is None else scale
+    rel = np.abs(got[fin] - want[fin]) / np.maximum(den, 1e-30)
+    return bool((rel <= rtol).all()), float(rel.max())
+
+
+def card_spectral(cube, nbytes, card, sizes, staged, hold,
+                  time_first_calls):
+    """The spectral path on P (``cube``, read from FITS): each stage staged,
+    its peak held at most CARD_PEAK_SHARE of the card, and its result held
+    on CARD_TILE tiles of whole spectra (corners, centre) against the same
+    call on the tile's cut-out: bit for bit for the smoothed interpolation
+    (smooth_interp, #11), the std clip (sigma_clip, #13), the mad_std clip,
+    the median filter and the interpolation without smoothing; within 1e-6
+    of the largest |value| of a float64 ``convolve1d_nan`` on the cut-out
+    for ``spectral_smooth`` (its cuBLAS blocks; whether the tile is also
+    the cut-out's bit for bit is logged).  smooth_interp's and
+    sigma_clip's first calls are timed, and the elements of their inputs
+    put in ``sizes``.  Returns the summary part."""
+    import torch
+    import spectral_cube_tpu_torch as T
+    from spectral_cube_tpu_torch.ops import smoothing as osm
+    kern = T.Gaussian1DKernel(SMOOTH_STDDEV)
+    karr = np.asarray(kern.array, dtype=float)
+    grid = cube.spectral_axis[::2]
+    t = CARD_TILE
+    stages = [
+        ("spectral_smooth", lambda c: c.spectral_smooth(kern), None),
+        ("spectral_interpolate smoothed", lambda c: c.spectral_interpolate(
+            grid, smooth_kernel=kern), "smooth_interp"),
+        ("spectral_interpolate", lambda c: c.spectral_interpolate(grid),
+         None),
+        ("sigma_clip_spectrally", lambda c: c.sigma_clip_spectrally(
+            CLIP_SIGMA, maxiters=CLIP_ITERS), "sigma_clip"),
+        ("sigma_clip_spectrally mad_std", lambda c: c.sigma_clip_spectrally(
+            CLIP_SIGMA, maxiters=CLIP_ITERS, stdfunc="mad_std"), None),
+        (f"spectral_smooth_median({CARD_MEDIAN_WIDTH})",
+         lambda c: c.spectral_smooth_median(CARD_MEDIAN_WIDTH,
+                                            raise_error_jybm=False), None)]
+    timed, bitwise = [], {}
+    for name, call, kernel in stages:
+        names = (kernel,) if kernel else ()
+        with recorded_calls(names) as calls:
+            out = staged("P", name, nbytes, lambda: call(cube))
+        peak = torch.cuda.max_memory_allocated(cube.device)
+        if kernel:
+            sizes[kernel] = [a[0].numel() for a, _ in calls[kernel]]
+            timed.append(time_first_calls("P", calls, names))
+        del calls
+        hold(f"P {name} peak at most {CARD_PEAK_SHARE:.0%} of the card",
+             peak <= CARD_PEAK_SHARE * card,
+             f"({peak / 2**30:.2f} of {card / 2**30:.2f} GiB)",
+             f"P {name} peak")
+        same = True
+        for y0, x0 in card_tiles(*cube.shape[1:]):
+            view = (slice(None), slice(y0, y0 + t), slice(x0, x0 + t))
+            got = out._get_filled_data(view)
+            want = call(cube[view])._get_filled_data()
+            same = same and equal_nan(got, want)
+            where = f"on the tile at ({y0}, {x0})"
+            if name != "spectral_smooth":
+                hold(f"P {name} {where} bit for bit the tile's",
+                     equal_nan(got, want), "", f"P {name} tile ({y0}, {x0})")
+                continue
+            ref = osm.convolve1d_nan(cube[view]._get_filled_data(
+                fill=np.nan).double(), karr).cpu().numpy()
+            fin = ~np.isnan(ref)
+            ok, err = within_f64(got.cpu().numpy(), ref, 1e-6, float(
+                np.abs(ref[fin]).max()) if fin.any() else 1.0)
+            hold(f"P {name} {where} within 1e-6 of float64", ok,
+                 f"({err:.2e} of the largest |value|; bit for bit the "
+                 f"tile's: {equal_nan(got, want)})",
+                 f"P {name} tile ({y0}, {x0})")
+        bitwise[name] = same
+        del out, got, want
+        torch.cuda.empty_cache()
+    return ("P spectral path: tiles bit for bit their cut-outs' "
+            + ", ".join(f"{k} {v}" for k, v in bitwise.items())
+            + "; kernel wrapper calls " + ", ".join(timed))
+
+
+def card_reductions(masked, nbytes, stages, staged, hold):
+    """The cube's other reductions on H (``masked``): ``sum``, ``mean``,
+    ``std``, ``max``, ``min``, ``median``, ``percentile`` and ``mad_std``
+    along the spectral axis, ``mean(axis=(1, 2))``, and ``std()``,
+    ``max()`` and ``argmax()`` over the cube, each staged with its rise
+    held at most CARD_MAD_RATIO cube bytes above the resident data.  The
+    maps are held on CARD_TILE tiles (corners, centre) against the same
+    call on the tile's cut-out: bit for bit for the order statistics and
+    extrema; within 1e-6 of the float64 reduction of the cut-out for the
+    sum, mean and std (torch may sum a lane in another order for another
+    number of lanes; whether the tile is the cut-out's bit for bit is
+    logged).  The spectrum and the whole-cube values are held against
+    float64 oracles on the card (:func:`spectrum_oracle`,
+    :func:`stats_oracle`): within 1e-6, the maximum exactly and argmax at
+    the oracle's first index.  Returns the summary part."""
+    from spectral_cube_tpu_torch.ops import reductions as rd
+    t = CARD_TILE
+    along = {"sum(axis=0)": lambda c: c.sum(axis=0),
+             "mean(axis=0)": lambda c: c.mean(axis=0),
+             "std(axis=0)": lambda c: c.std(axis=0),
+             "max(axis=0)": lambda c: c.max(axis=0),
+             "min(axis=0)": lambda c: c.min(axis=0),
+             "median(axis=0)": lambda c: c.median(axis=0),
+             f"percentile({CARD_PERCENTILE:g}, axis=0)":
+                 lambda c: c.percentile(CARD_PERCENTILE, axis=0),
+             "mad_std(axis=0)": lambda c: c.mad_std(axis=0)}
+    oracle = {"sum(axis=0)": rd.masked_sum, "mean(axis=0)": rd.masked_mean,
+              "std(axis=0)": rd.masked_std}
+    maps = {}
+
+    def rise_held(key):
+        hold(f"H {key} rise above the resident data at most "
+             f"{CARD_MAD_RATIO} cube bytes", stages[f"H {key}"][2]
+             <= CARD_MAD_RATIO, f"({stages[f'H {key}'][2]:.3f})",
+             f"H {key} rise")
+    for name, fn in along.items():
+        maps[name] = staged("H", name, nbytes,
+                            lambda: np.asarray(fn(masked).value))
+        rise_held(name)
+    spec = staged("H", "mean(axis=(1, 2))", nbytes,
+                  lambda: np.asarray(masked.mean(axis=(1, 2)).value))
+    std = staged("H", "std()", nbytes, lambda: float(masked.std().value))
+    mx = staged("H", "max()", nbytes, lambda: float(masked.max().value))
+    am = staged("H", "argmax()", nbytes,
+                lambda: tuple(int(i) for i in masked.argmax()))
+    for key in ("mean(axis=(1, 2))", "std()", "max()", "argmax()"):
+        rise_held(key)
+    bitwise = {}
+    for y0, x0 in card_tiles(*masked.shape[1:]):
+        view = (slice(None), slice(y0, y0 + t), slice(x0, x0 + t))
+        cut = masked[view]
+        where = f"on the tile at ({y0}, {x0})"
+        for name, fn in along.items():
+            got = maps[name][y0:y0 + t, x0:x0 + t]
+            same = np.ascontiguousarray(got).tobytes() == np.asarray(
+                fn(cut).value).tobytes()
+            bitwise[name] = bitwise.get(name, True) and same
+            if name not in oracle:
+                hold(f"H {name} {where} bit for bit the tile's",
+                     same, "", f"H {name} tile ({y0}, {x0})")
+                continue
+            ref = oracle[name](cut._data.double(), cut._valid_view(),
+                               axis=0).cpu().numpy()
+            ok, err = within_f64(got, ref)
+            hold(f"H {name} {where} within 1e-6 of float64", ok,
+                 f"({err:.2e}; bit for bit the tile's: {same})",
+                 f"H {name} tile ({y0}, {x0})")
+    keep = lambda c0, x: x > CARD_H_THRESHOLD  # noqa: E731
+    ok, err = within_f64(spec, spectrum_oracle(masked._data, keep))
+    hold("H mean(axis=(1, 2)) within 1e-6 of float64", ok, f"({err:.2e})",
+         "H mean(axis=(1, 2))")
+    want = stats_oracle(masked._data, keep)
+    at = tuple(int(i) for i in np.unravel_index(want["argmax"],
+                                                masked.shape))
+    hold("H std() within 1e-6 of float64, max() the float64 maximum, "
+         "argmax() its first index",
+         abs(std - want["std"]) <= 1e-6 * abs(want["std"])
+         and mx == want["max"] and am == at,
+         f"(std {std!r} vs {want['std']!r}, max {mx!r} vs {want['max']!r}, "
+         f"argmax {am} vs {at})", "H whole-cube std, max, argmax")
+    return ("H reductions: tiles bit for bit their cut-outs' "
+            + ", ".join(f"{k} {v}" for k, v in bitwise.items()))
 
 
 def phase_card_scale(dev, workdir):
@@ -4359,7 +4646,9 @@ def phase_card_scale(dev, workdir):
     slab, ``mad_std`` bit for bit ``sharded_mad_std`` on a MESH_GRID mesh
     of the card and, on a cut-out of ``SORT_CHUNK`` voxels, the one-sort
     form's, ``statistics()`` npts exact and sum, mean and sigma within
-    1e-6 of a float64 oracle.  Returns the "summary: card scale" line."""
+    1e-6 of a float64 oracle; then the spectral path on P
+    (:func:`card_spectral`) and the cube's other reductions on H
+    (:func:`card_reductions`).  Returns the "summary: card scale" line."""
     import shutil
     import torch
     import spectral_cube_tpu_torch as T
@@ -4416,11 +4705,12 @@ def phase_card_scale(dev, workdir):
     def numel(args, kwargs):
         return args[0].numel()
 
-    def time_first_calls(tag, calls):
+    def time_first_calls(tag, calls, names=None):
         """CUDA-event median of three more wrapper calls with the
-        arguments of each kernel's first call."""
+        arguments of each kernel's first call (of CARD_KERNELS[tag], or of
+        ``names``)."""
         out = []
-        for k in CARD_KERNELS[tag]:
+        for k in names or CARD_KERNELS[tag]:
             args, kwargs = calls[k][0]
             ms = cuda_ms(lambda: K.WRAPPERS[k](*args, **kwargs), 3)
             out.append(f"{k} {ms:.3f} ms on {args[0].numel()} elements")
@@ -4542,7 +4832,6 @@ def phase_card_scale(dev, workdir):
         torch.cuda.synchronize()
         first = (time.perf_counter() - t0) * 1e3
     peak = torch.cuda.max_memory_allocated(dev)
-    p_launches = big_launches("P", sizes)
     hold(f"P run_pipeline peak at most {CARD_PEAK_SHARE:.0%} of the card",
          peak <= CARD_PEAK_SHARE * card,
          f"({peak / 2**30:.2f} of {card / 2**30:.2f} GiB, "
@@ -4551,7 +4840,7 @@ def phase_card_scale(dev, workdir):
                  f"{nbytes / 2**30:.2f} GiB): {io_part}; run_pipeline "
                  f"{first:.1f} ms (first call), peak {peak / 2**30:.2f} GiB "
                  f"({peak / card:.1%} of the card, {peak / nbytes:.2f} cube "
-                 f"bytes), launches {p_launches}")
+                 f"bytes)")
 
     conv = staged("P", "convolve_to", nbytes,
                   lambda: cube.convolve_to(target_beam))
@@ -4610,10 +4899,15 @@ def phase_card_scale(dev, workdir):
                        target_header=target_header)
         torch.cuda.synchronize()
         second = (time.perf_counter() - t0) * 1e3
-    p_kernels = time_first_calls("P", calls)
+    p_kernels = time_first_calls("P", calls, PIPELINE_KERNELS)
     parts.append(f"P run_pipeline again {second:.1f} ms; kernel wrapper "
                  "calls " + p_kernels)
-    del calls, cube
+    del calls
+    torch.cuda.empty_cache()
+    parts.append(card_spectral(cube, nbytes, card, sizes, staged, hold,
+                               time_first_calls))
+    parts.append("P launches " + big_launches("P", sizes))
+    del cube
     torch.cuda.empty_cache()
 
     # H: moments, statistics() and mad_std() on bench config 8's cube
@@ -4655,8 +4949,10 @@ def phase_card_scale(dev, workdir):
     hold_stats("H", stats, stats_oracle(
         data, lambda c0, x: x > CARD_H_THRESHOLD))
     hold_mad_cutout("H", data, masked._valid_view)
+    del full
+    parts.append(card_reductions(masked, nbytes, stages, staged, hold))
     mask = masked.mask
-    del full, masked
+    del masked
     hold_sharded_mad("H", noise, data, mask_expr=mask)
     del cube, data, mask
     torch.cuda.empty_cache()

@@ -509,8 +509,10 @@ class BaseSpectralCube:
 
     @slice_syntax
     def filled_data(self, view):
-        """Quantity of the mask-filled data: ``cube.filled_data[:]``."""
-        return Quantity(self._get_filled_data(view), self.unit)
+        """Quantity of the mask-filled data: ``cube.filled_data[:]``, a host
+        array that numpy reads, as the JAX package's and the reference's
+        ``.value`` are (the device tensor: :meth:`_get_filled_data`)."""
+        return Quantity(self._get_filled_data(view).cpu().numpy(), self.unit)
 
     @slice_syntax
     def unitless_filled_data(self, view):
@@ -519,7 +521,9 @@ class BaseSpectralCube:
 
     @slice_syntax
     def unmasked_data(self, view):
-        return Quantity(index_view(self._data, view), self.unit)
+        """Quantity of the data as stored, a host array, as
+        :attr:`filled_data`."""
+        return Quantity(index_view(self._data, view).cpu().numpy(), self.unit)
 
     @warn_slow
     def filled(self, fill_value=None):
@@ -901,9 +905,9 @@ class BaseSpectralCube:
         elif axis is not None:
             axis = int(axis) % 3
         data = self._data
-        include = self._mask.include(data=data) if self._mask is not None \
-            else None
-        out = fn(data, _red.valid_mask(data, include), axis=axis, **kwargs)
+        valid = _red.valid_mask(data, self._mask.include(data=data)
+                                if self._mask is not None else None)
+        out = fn(data, valid, axis=axis, **kwargs)
         unit = unit if unit is not None else self.unit
         if axis is None:
             return Quantity(out.item(), unit)
@@ -972,9 +976,10 @@ class BaseSpectralCube:
 
     def _arg_extremum(self, fn, axis, valid):
         """Indices from ``fn`` (masked_argmax / masked_argmin) along
-        ``axis``, or the unravelled flat index where ``axis`` is None."""
+        ``axis``, or the unravelled flat index where ``axis`` is None
+        (found in pieces, the first on ties)."""
         if axis is None:
-            flat = fn(self._data.reshape(-1), valid.reshape(-1), axis=0)
+            flat = fn(self._data, valid, axis=None)
             return np.unravel_index(int(flat), self.shape)
         return fn(self._data, valid, axis=axis).cpu().numpy()
 

@@ -28,6 +28,7 @@ from collections import namedtuple
 
 import torch
 
+from ..ops.reductions import lane_tiles
 from ._build import load_library, check, ptr, stream_ptr, on_tensor_device
 
 __all__ = ["sigma_clip", "sigma_clip_plain", "LANES", "band_sum", "plan"]
@@ -182,8 +183,23 @@ def sigma_clip_plain(data, sigma, maxiters, use_mean_center,
     """The kernel's function in plain PyTorch, for any shape (spectral axis
     first) and float dtype, plus the MAD-std variant.  float32 data is
     computed in float32, anything else in float64, as the JAX package
-    does."""
+    does.  Each spectrum is clipped on its own, so a cube past
+    ``reductions.SORT_CHUNK`` voxels is clipped a tile of whole spectra
+    at a time (``reductions.lane_tiles``), bit for bit the one call."""
     _check_inputs(data, maxiters)
+    tiles = list(lane_tiles(data.shape, (0,)))
+    if len(tiles) == 1:
+        return _clip_plain(data, sigma, maxiters, use_mean_center,
+                           use_mad_std)
+    out = torch.empty(data.shape, dtype=data.dtype, device=data.device)
+    for idx in tiles:
+        out[idx] = _clip_plain(data[idx], sigma, maxiters, use_mean_center,
+                               use_mad_std)
+    return out
+
+
+def _clip_plain(data, sigma, maxiters, use_mean_center, use_mad_std):
+    """:func:`sigma_clip_plain` of one piece."""
     comp = torch.float32 if data.dtype == torch.float32 else torch.float64
     x = data.to(comp)
     n = x.shape[0]

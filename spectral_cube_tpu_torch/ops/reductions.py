@@ -5,7 +5,11 @@ combined validity mask explicitly (``valid = include & isfinite(data)``).
 The critical semantic is ``allbadtonan`` (reference ``np_compat.py:3-27``):
 positions where no included finite value exists along the reduced axis
 yield NaN.  ``axis=None`` reduces over the whole cube, and a tuple
-``axis`` over those axes together (:func:`_merge_axes`).
+``axis`` over those axes together.  No reduction holds a cube-sized
+temporary past :data:`SORT_CHUNK` voxels: a whole-cube reduction fills and
+reduces :data:`SUM_CHUNK` pieces (order statistics: sorted pieces whose
+keys are bisected), one along an axis runs on tiles of whole lanes
+(:func:`lane_tiles`), each lane's result the one call's bit for bit.
 """
 
 from __future__ import annotations
@@ -47,95 +51,292 @@ def _fill(data, valid, fill):
                                                     device=data.device))
 
 
-def _merge_axes(data, valid, axis):
-    """``(data, valid, axis)`` with a tuple ``axis`` turned into one: the
-    reduced axes moved last, in order, and flattened into axis -1 (the
-    kept axes stay in order in front), as ``jnp`` reduces a tuple of axes
-    in the JAX package.  Any other ``axis`` passes through."""
-    if not isinstance(axis, (tuple, list)):
-        return data, valid, axis
-    axes = sorted(int(a) % data.ndim for a in axis)
-    keep = [i for i in range(data.ndim) if i not in axes]
-    shape = [data.shape[i] for i in keep] + [-1]
-
-    def merge(x):
-        return x.expand(data.shape).permute(keep + axes).reshape(shape)
-    return merge(data), merge(valid), -1
-
-
-#: elements of a whole-array float32 sum taken to float64 at once
+# ---------------------------------------------------------------------------
+# the pieces a reduction runs on
+# ---------------------------------------------------------------------------
+#: elements of a whole-array reduction filled and reduced at once (a
+#: float32 sum takes each to float64)
 SUM_CHUNK = 1 << 24
 
 
-def _sum(x, axis):
-    """The sum over ``axis``.  Over the whole array (``axis=None``) a
-    float32 sum is accumulated in float64, ``SUM_CHUNK`` elements at a
-    time, and rounded once: a device's tree of float32 partial sums can
-    land an ulp off the rounded sum, which the JAX tests' tolerances
-    (rel 1e-7 on a cube's sum) do not allow."""
-    if axis is not None:
-        return x.sum(axis)
-    if x.dtype != torch.float32:
-        return x.sum()
-    total = torch.zeros((), dtype=torch.float64, device=x.device)
-    for chunk in x.reshape(-1).split(SUM_CHUNK):
-        total += chunk.double().sum()
-    return total.to(x.dtype)
+def _flat_range(x, a, b):
+    """Elements ``a:b`` of ``x`` in its logical (row-major) order: a view
+    where ``x`` is contiguous, else a copy of those elements alone."""
+    if x.is_contiguous():
+        return x.view(-1)[a:b]
+    if x.ndim <= 1:
+        return x.reshape(-1)[a:b]
+    row = x[0].numel()
+    ra, rb = a // row, (b - 1) // row
+    if ra == rb:
+        return _flat_range(x[ra], a - ra * row, b - ra * row)
+    parts = [_flat_range(x[ra], a - ra * row, row)]
+    if rb > ra + 1:
+        parts.append(x[ra + 1:rb].reshape(-1))
+    parts.append(_flat_range(x[rb], 0, b - rb * row))
+    return torch.cat(parts)
 
 
-def _count(valid, axis):
-    return valid.sum() if axis is None else valid.sum(axis)
+def _whole_pieces(data, valid):
+    """``(offset, data piece, valid piece)`` of the flat ranges of
+    :data:`SUM_CHUNK` elements of ``data`` in order; ``valid``
+    broadcasts against it."""
+    valid = valid.expand(data.shape)
+    n = data.numel()
+    for a in range(0, n, SUM_CHUNK):
+        b = min(a + SUM_CHUNK, n)
+        yield a, _flat_range(data, a, b), _flat_range(valid, a, b)
+
+
+def _whole_sum(data, valid, fn=None):
+    """The sum of ``fn`` of the included values of ``data`` (0 elsewhere),
+    filled and reduced a :data:`SUM_CHUNK` piece at a time, and the count
+    of included values.  A floating sum is accumulated in float64 and
+    rounded once to the data's type (a float32 piece taken whole to
+    float64, the order the whole array's sum had, so that a device's tree
+    of float32 partial sums cannot land an ulp off the rounded sum, which
+    the JAX tests' tolerances, rel 1e-7 on a cube's sum, do not allow); a
+    float64 sum is rounded once a piece, within 1e-15 relative of one
+    call over the whole."""
+    floating = data.dtype.is_floating_point
+    total = torch.zeros((), dtype=torch.float64 if floating else torch.int64,
+                        device=data.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=data.device)
+    for _, d, v in _whole_pieces(data, valid):
+        x = _fill(d if fn is None else fn(d), v, 0)
+        total += x.double().sum() if floating else x.sum()
+        cnt += v.sum()
+    return total.to(data.dtype), cnt
+
+
+def _whole_extremum(data, valid, fill, pick):
+    """``pick`` (``torch.max`` / ``torch.min``) of the included values,
+    ``fill`` elsewhere, over each :data:`SUM_CHUNK` piece and then over
+    the pieces' extremes; and the count of included values."""
+    ext = [torch.tensor(fill, dtype=data.dtype, device=data.device)]
+    cnt = torch.zeros((), dtype=torch.int64, device=data.device)
+    for _, d, v in _whole_pieces(data, valid):
+        ext.append(pick(_fill(d, v, fill)))
+        cnt += v.sum()
+    return pick(torch.stack(ext)), cnt
+
+
+def _whole_arg(data, valid, fill, pick):
+    """The first flat index (0-d int64) of ``pick``'s extremum (argmax /
+    argmin) of the included values, ``fill`` elsewhere: each
+    :data:`SUM_CHUNK` piece's first extreme index and value, then the
+    first piece that holds the extreme value (ties break to the first
+    index, as ``torch.argmax`` documents)."""
+    vals, idx = [], []
+    for a, d, v in _whole_pieces(data, valid):
+        f = _fill(d, v, fill)
+        i = pick(f)
+        # a copy of the value: indexing by a 0-d tensor would read the
+        # index on the host and keep a view, and with it the piece, alive
+        vals.append(f.take(i))
+        idx.append(i + a)
+    if not idx:
+        return torch.zeros((), dtype=torch.int64, device=data.device)
+    return torch.stack(idx)[pick(torch.stack(vals))]
+
+
+def lane_tiles(shape, axes, weight=1, size=None):
+    """Index tuples (one slice an axis) that cut an array of ``shape``
+    into tiles of whole lanes along ``axes``: the whole array while
+    ``weight`` times its voxels are at most :data:`SORT_CHUNK`, else
+    tiles of at most ``size`` (:data:`SORT_PIECE`, or :data:`SORT_CHUNK`
+    where that is smaller) voxels times ``weight``, cut along the other
+    axes in order: a run of indices of the first axis where one of its
+    indices fits, else each index cut the same way along the next; a
+    tile holds one lane at least.  ``size`` given: tiles of that size
+    whatever the array's."""
+    shape = tuple(int(s) for s in shape)
+    nd = len(shape)
+    axes = sorted({int(a) % nd for a in axes}) if nd else []
+    idx = [slice(None)] * nd
+    total = math.prod(shape) * weight
+    if size is None:
+        if total <= SORT_CHUNK:
+            yield tuple(idx)
+            return
+        size = min(SORT_PIECE, SORT_CHUNK)
+    if total <= size:
+        yield tuple(idx)
+        return
+    keep = [i for i in range(nd) if i not in axes]
+    lane = weight * math.prod(shape[a] for a in axes)
+
+    def cut(j):
+        if j == len(keep):
+            yield tuple(idx)
+            return
+        a = keep[j]
+        inner = lane * math.prod(shape[k] for k in keep[j + 1:])
+        if inner * shape[a] <= size:
+            yield tuple(idx)
+        elif inner <= size or j == len(keep) - 1:
+            step = max(1, size // inner)
+            for s in range(0, shape[a], step):
+                idx[a] = slice(s, min(s + step, shape[a]))
+                yield tuple(idx)
+            idx[a] = slice(None)
+        else:
+            for s in range(shape[a]):
+                idx[a] = slice(s, s + 1)
+                yield from cut(j + 1)
+            idx[a] = slice(None)
+    yield from cut(0)
+
+
+def _merges_as_view(x, axes):
+    """Whether the axes ``axes`` (ascending) of ``x`` merge into one as a
+    view, once moved last."""
+    dims = [a for a in axes if x.shape[a] != 1]
+    return all(x.stride(a) == x.stride(b) * x.shape[b]
+               for a, b in zip(dims, dims[1:]))
+
+
+def _along(fn, data, valid, axis):
+    """``fn(d, v, a)``, a reduction along the one axis ``a`` of its
+    arguments, over ``axis`` (an int, or a tuple of axes reduced
+    together: moved last, in order, and merged into axis -1, as ``jnp``
+    reduces a tuple of axes in the JAX package).  Each lane is reduced on
+    its own, so the array is cut into tiles of whole lanes
+    (:func:`lane_tiles`) where one call would hold more than
+    :data:`SORT_CHUNK` voxels, and a tuple whose merge is no view of the
+    data is merged a tile of at most :data:`SORT_PIECE` voxels at a time,
+    never as a copy of the cube.  ``valid`` broadcasts against ``data``."""
+    valid = valid.expand(data.shape)
+    if isinstance(axis, (tuple, list)):
+        axes = sorted({int(a) % data.ndim for a in axis})
+    else:
+        axes = [int(axis) % data.ndim]
+    keep = [i for i in range(data.ndim) if i not in axes]
+    size = None
+    if len(axes) > 1:
+        if not (_merges_as_view(data, axes) and _merges_as_view(valid, axes)):
+            size = min(SORT_PIECE, SORT_CHUNK)
+
+        def merge(x):
+            return x.permute(keep + axes).reshape(
+                [x.shape[i] for i in keep] + [-1])
+        ax = -1
+    else:
+        def merge(x):
+            return x
+        ax = axes[0]
+    tiles = list(lane_tiles(data.shape, axes, size=size))
+    if len(tiles) == 1:
+        return fn(merge(data[tiles[0]]), merge(valid[tiles[0]]), ax)
+    out = None
+    for idx in tiles:
+        r = fn(merge(data[idx]), merge(valid[idx]), ax)
+        if out is None:
+            out = torch.empty([data.shape[i] for i in keep], dtype=r.dtype,
+                              device=r.device)
+        out[tuple(idx[i] for i in keep)] = r
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the reductions
+# ---------------------------------------------------------------------------
+def _sum_axis(data, valid, axis):
+    s = _fill(data, valid, 0).sum(axis)
+    return torch.where(valid.sum(axis) > 0, s, NAN)
+
+
+def _mean_axis(data, valid, axis):
+    s = _fill(data, valid, 0).sum(axis)
+    cnt = valid.sum(axis).to(data.dtype)
+    return torch.where(cnt > 0, s / torch.clamp(cnt, min=1), NAN)
+
+
+def _std_axis(data, valid, axis, ddof=0):
+    cnt = valid.sum(axis).to(data.dtype)
+    mean = _fill(data, valid, 0).sum(axis) / torch.clamp(cnt, min=1)
+    # the squared deviations formed in one array (x * x is ``** 2``'s
+    # value), zero where excluded
+    dev = data - mean.unsqueeze(axis)
+    dev.mul_(dev).masked_fill_(valid.logical_not(), 0)
+    var = dev.sum(axis) / torch.clamp(cnt - ddof, min=1)
+    return torch.where(cnt > ddof, torch.sqrt(var), NAN)
+
+
+def _max_axis(data, valid, axis):
+    m = _fill(data, valid, -math.inf).amax(axis)
+    return torch.where(valid.sum(axis) > 0, m, NAN)
+
+
+def _min_axis(data, valid, axis):
+    m = _fill(data, valid, math.inf).amin(axis)
+    return torch.where(valid.sum(axis) > 0, m, NAN)
 
 
 def masked_sum(data, valid, axis=None):
     """nansum with allbadtonan: all-invalid positions -> NaN."""
-    data, valid, axis = _merge_axes(data, valid, axis)
-    s = _sum(_fill(data, valid, 0), axis)
-    return torch.where(_count(valid, axis) > 0, s, NAN)
+    if axis is not None:
+        return _along(_sum_axis, data, valid, axis)
+    s, cnt = _whole_sum(data, valid)
+    return torch.where(cnt > 0, s, NAN)
 
 
 def masked_mean(data, valid, axis=None):
-    data, valid, axis = _merge_axes(data, valid, axis)
-    s = _sum(_fill(data, valid, 0), axis)
-    cnt = _count(valid, axis).to(data.dtype)
+    if axis is not None:
+        return _along(_mean_axis, data, valid, axis)
+    s, cnt = _whole_sum(data, valid)
+    cnt = cnt.to(data.dtype)
     return torch.where(cnt > 0, s / torch.clamp(cnt, min=1), NAN)
 
 
 def masked_std(data, valid, axis=None, ddof=0):
     """nanstd, two-pass form (numpy nanstd numerics)."""
-    data, valid, axis = _merge_axes(data, valid, axis)
-    cnt = _count(valid, axis).to(data.dtype)
-    mean = _sum(_fill(data, valid, 0), axis) / torch.clamp(cnt, min=1)
-    mean_b = mean if axis is None else mean.unsqueeze(axis)
-    dev = _fill((data - mean_b) ** 2, valid, 0)
-    var = _sum(dev, axis) / torch.clamp(cnt - ddof, min=1)
+    if axis is not None:
+        return _along(lambda d, v, a: _std_axis(d, v, a, ddof), data, valid,
+                      axis)
+    s, cnt = _whole_sum(data, valid)
+    cnt = cnt.to(data.dtype)
+    mean = s / torch.clamp(cnt, min=1)
+
+    def square(d):
+        dev = d - mean
+        return dev.mul_(dev)
+    var = _whole_sum(data, valid, square)[0] / torch.clamp(cnt - ddof,
+                                                           min=1)
     return torch.where(cnt > ddof, torch.sqrt(var), NAN)
 
 
 def masked_max(data, valid, axis=None):
-    data, valid, axis = _merge_axes(data, valid, axis)
-    filled = _fill(data, valid, -math.inf)
-    m = filled.max() if axis is None else filled.amax(axis)
-    return torch.where(_count(valid, axis) > 0, m, NAN)
+    if axis is not None:
+        return _along(_max_axis, data, valid, axis)
+    m, cnt = _whole_extremum(data, valid, -math.inf, torch.max)
+    return torch.where(cnt > 0, m, NAN)
 
 
 def masked_min(data, valid, axis=None):
-    data, valid, axis = _merge_axes(data, valid, axis)
-    filled = _fill(data, valid, math.inf)
-    m = filled.min() if axis is None else filled.amin(axis)
-    return torch.where(_count(valid, axis) > 0, m, NAN)
+    if axis is not None:
+        return _along(_min_axis, data, valid, axis)
+    m, cnt = _whole_extremum(data, valid, math.inf, torch.min)
+    return torch.where(cnt > 0, m, NAN)
 
 
 def masked_argmax(data, valid, axis=0):
     """nanargmax with invalid values filled with -inf (reference
     spectral_cube.py:771-795): ties break to the first index, as
     ``torch.argmax`` documents on every device, and a position with no
-    valid value along ``axis`` gives 0."""
-    return torch.argmax(_fill(data, valid, -math.inf), dim=axis)
+    valid value along ``axis`` gives 0.  ``axis=None``: the first flat
+    index of the maximum over the whole array, found in pieces."""
+    if axis is None:
+        return _whole_arg(data, valid, -math.inf, torch.argmax)
+    return _along(lambda d, v, a: torch.argmax(_fill(d, v, -math.inf),
+                                               dim=a), data, valid, axis)
 
 
 def masked_argmin(data, valid, axis=0):
-    return torch.argmin(_fill(data, valid, math.inf), dim=axis)
+    if axis is None:
+        return _whole_arg(data, valid, math.inf, torch.argmin)
+    return _along(lambda d, v, a: torch.argmin(_fill(d, v, math.inf),
+                                               dim=a), data, valid, axis)
 
 
 def _lerp_sorted(lo_v, hi_v, frac):
@@ -143,21 +344,9 @@ def _lerp_sorted(lo_v, hi_v, frac):
     return lo_v * (1.0 - frac) + hi_v * frac
 
 
-def masked_percentile(data, valid, q, axis=None):
-    """nanpercentile over the masked data (linear interpolation).
-
-    ``torch.nanquantile`` refuses inputs above 2**24 elements, far below a
-    real cube, so this sorts instead: the included finite values for
-    ``axis=None`` (:func:`_whole_percentile`), else each lane with
-    excluded values set to NaN (sorted last), and interpolates between the
-    two bracketing order statistics at position ``q/100 * (n - 1)``,
-    computed in float64."""
-    data, valid, axis = _merge_axes(data, valid, axis)
-    q = float(q)
-    if axis is None:
-        return _whole_percentile(data, valid, q)
+def _percentile_axis(data, valid, q, axis):
     s = torch.sort(_fill(data, valid, NAN), dim=axis).values
-    n = _count(valid, axis).unsqueeze(axis)
+    n = valid.sum(axis).unsqueeze(axis)
     pos = q / 100.0 * (n - 1).to(torch.float64)
     lo = torch.clamp(torch.floor(pos), min=0)
     frac = (pos - lo).to(data.dtype)
@@ -168,6 +357,22 @@ def masked_percentile(data, valid, q, axis=None):
     return torch.where(n > 0, out, NAN).squeeze(axis)
 
 
+def masked_percentile(data, valid, q, axis=None):
+    """nanpercentile over the masked data (linear interpolation).
+
+    ``torch.nanquantile`` refuses inputs above 2**24 elements, far below a
+    real cube, so this sorts instead: the included finite values for
+    ``axis=None`` (:func:`_whole_percentile`), else each lane with
+    excluded values set to NaN (sorted last), a tile of lanes at a time
+    (:func:`_along`), and interpolates between the two bracketing order
+    statistics at position ``q/100 * (n - 1)``, computed in float64."""
+    q = float(q)
+    if axis is None:
+        return _whole_percentile(data, valid, q)
+    return _along(lambda d, v, a: _percentile_axis(d, v, q, a), data, valid,
+                  axis)
+
+
 def masked_median(data, valid, axis=None):
     return masked_percentile(data, valid, 50.0, axis=axis)
 
@@ -175,19 +380,23 @@ def masked_median(data, valid, axis=None):
 MAD_STD_FACTOR = 1.482602218505602  # 1/Phi^-1(3/4), astropy.stats.mad_std
 
 
+def _mad_std_axis(data, valid, axis):
+    med = _percentile_axis(data, valid, 50.0, axis)
+    dev = torch.abs(data - med.unsqueeze(axis))
+    return MAD_STD_FACTOR * _percentile_axis(dev, valid, 50.0, axis)
+
+
 def masked_mad_std(data, valid, axis=None):
     """Median-absolute-deviation std estimate (astropy mad_std semantics,
-    used by reference spectral_cube.py:719-767).  Over the whole array the
-    deviations are formed from each piece's included values as the
-    piece is sorted, never as a whole-array temporary."""
-    data, valid, axis = _merge_axes(data, valid, axis)
+    used by reference spectral_cube.py:719-767).  The deviations are never
+    a whole-array temporary: over the whole array they are formed from
+    each piece's included values as the piece is sorted, along an axis a
+    tile of lanes at a time."""
     if axis is None:
         med = _whole_percentile(data, valid, 50.0)
         return MAD_STD_FACTOR * _whole_percentile(
             data, valid, 50.0, lambda v: torch.abs(v - med))
-    med = masked_median(data, valid, axis=axis)
-    dev = torch.abs(data - med.unsqueeze(axis))
-    return MAD_STD_FACTOR * masked_median(dev, valid, axis=axis)
+    return _along(_mad_std_axis, data, valid, axis)
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from ..kernels import sigma_clip as _clip
 from ..kernels.conv_sep import DEN_EPS
 from ..utils import ieee_fp32, takes_numpy
+from . import reductions as _red
 
 __all__ = ["convolve1d_nan", "spectral_smooth_cube", "spatial_smooth_cube",
            "spectral_median_filter_cube", "spatial_median_filter_cube",
@@ -76,13 +77,14 @@ def _apply_rows(mat, x):
     return out.reshape((mat.shape[0],) + tuple(x.shape[1:]))
 
 
-def _block_banded_conv(data, kernel):
-    """Overlap-save banded convolution: the channel axis splits into
-    chunks of C; every chunk applies the same (C, C+2h) Toeplitz band
-    matrix to its haloed window, so the cost is linear in n.  Edge blocks
-    drop the out-of-range columns, which is exactly the zero-fill
-    boundary (smoothing.py:63-113)."""
-    n = data.shape[0]
+def _band_blocks(n, kernel, dtype, device):
+    """The overlap-save blocks of a banded convolution along an axis of
+    length ``n``: the axis splits into chunks of C; every chunk applies
+    the same (C, C+2h) Toeplitz band matrix to its haloed window, so the
+    cost is linear in n.  Edge blocks drop the out-of-range columns,
+    which is exactly the zero-fill boundary (smoothing.py:63-113).
+    Yields ``(r0, rows, cs, ce, W)``: output rows ``r0:r0 + rows`` are
+    ``W @`` input rows ``cs:ce``."""
     kf = np.asarray(kernel, dtype=np.float32)[::-1]
     klen = len(kf)
     half_lo = klen - 1 - (klen - 1) // 2   # taps reaching backward
@@ -96,14 +98,20 @@ def _block_banded_conv(data, kernel):
     o = cc - rr - h + half_lo
     W = np.where((o >= 0) & (o < klen),
                  kf[np.clip(o, 0, klen - 1)], 0.0).astype(np.float32)
-    Wt = torch.as_tensor(W, dtype=data.dtype, device=data.device)
-    out = torch.empty_like(data)
+    Wt = torch.as_tensor(W, dtype=dtype, device=device)
     for i in range(nb):
         s, e = i * chunk - h, i * chunk + chunk + h
         cs, ce = max(s, 0), min(e, n)
         rows = min(chunk, n - i * chunk)
-        Wi = Wt[:rows, cs - s:W.shape[1] - (e - ce)]
-        out[i * chunk:i * chunk + rows] = _apply_rows(Wi, data[cs:ce])
+        yield i * chunk, rows, cs, ce, Wt[:rows, cs - s:W.shape[1] - (e - ce)]
+
+
+def _block_banded_conv(data, kernel):
+    """Overlap-save banded convolution along axis 0 (:func:`_band_blocks`)."""
+    out = torch.empty_like(data)
+    for r0, rows, cs, ce, Wi in _band_blocks(data.shape[0], kernel,
+                                             data.dtype, data.device):
+        out[r0:r0 + rows] = _apply_rows(Wi, data[cs:ce])
     return out
 
 
@@ -118,24 +126,51 @@ def _conv1d_along_axis0(data, kernel):
     return _apply_rows(mat, data)
 
 
+def _nan_rows(W, x, v, comp):
+    """``W @`` the rows ``x`` (validity ``v``) under astropy's NaN rule: the
+    numerator ``W @ where(v, x, 0)`` over the denominator
+    ``1 - W @ (1 - v)``, NaN where that is at most 1e-6; the quotient is
+    formed in the numerator's array."""
+    num = _apply_rows(W, torch.where(v, x, 0).to(comp))
+    den = _apply_rows(W, v.logical_not().to(comp))
+    den.neg_().add_(1.0)
+    bad = den <= DEN_EPS
+    den.masked_fill_(bad, 1.0)
+    return num.div_(den).masked_fill_(bad, float("nan"))
+
+
 def convolve1d_nan(data, kernel, axis=0):
     """astropy-convolve semantics along ``axis``: NaNs are interpolated over
     (normalized convolution), zero-fill boundary, kernel normalized; a
-    spectrum with no finite value stays NaN."""
+    spectrum with no finite value stays NaN.  The validity is formed once
+    (:func:`~.reductions.finite`, a bool array); the filled data, the
+    numerator and the denominator a block of rows at a time (the banded
+    blocks of a long axis, each block's window filled as it is read) or
+    a tile of whole spectra at a time (the dense product of a short
+    axis), each block's quotient written into the output: no float
+    temporary the size of the cube but the output."""
     kernel = np.asarray(kernel, dtype=float)
     kernel = kernel / kernel.sum()
     x = data.movedim(axis, 0) if axis != 0 else data
     comp = torch.float64 if data.dtype == torch.float64 else torch.float32
-    if bool(torch.isfinite(x).all()):
+    v = _red.finite(x)
+    n = x.shape[0]
+    if bool(v.all()):
         out = _conv1d_along_axis0(x.to(comp).contiguous(), kernel)
     else:
-        v = torch.isfinite(x)
-        num = _conv1d_along_axis0(torch.where(v, x, 0).to(comp).contiguous(),
-                                  kernel)
-        den = 1.0 - _conv1d_along_axis0((~v).to(comp).contiguous(), kernel)
-        ok = den > DEN_EPS
-        o = torch.where(ok, num / torch.where(ok, den, 1.0), float("nan"))
-        out = torch.where(v.any(0, keepdim=True), o, float("nan"))
+        out = torch.empty(x.shape, dtype=comp, device=x.device)
+        if n > _DENSE_CONV_MAX_N:
+            for r0, rows, cs, ce, W in _band_blocks(n, kernel, comp,
+                                                    x.device):
+                out[r0:r0 + rows] = _nan_rows(W, x[cs:ce], v[cs:ce], comp)
+        else:
+            mat = torch.as_tensor(_banded_conv_matrix(n, kernel),
+                                  dtype=comp, device=x.device)
+            flat, xf, vf = out.view(n, -1), x.reshape(n, -1), \
+                v.reshape(n, -1)
+            for idx in _red.lane_tiles(xf.shape, (0,)):
+                flat[idx] = _nan_rows(mat, xf[idx], vf[idx], comp)
+        out.masked_fill_(v.any(0, keepdim=True).logical_not_(), float("nan"))
     if axis != 0:
         out = out.movedim(0, axis)
     return out.to(data.dtype)
@@ -210,8 +245,21 @@ def _median0(stack):
 def spectral_median_filter_cube(data, size):
     """scipy.ndimage.median_filter semantics along the spectral axis
     (NaNs propagate, reflect boundary), the reference's
-    ``spectral_smooth_median`` (spectral_cube.py:3186)."""
-    return _median0(_sliding_stack(data, int(size), axis=0))
+    ``spectral_smooth_median`` (spectral_cube.py:3186).  The ``size``
+    shifted copies are stacked and sorted a tile of whole spectra at a
+    time (:func:`~.reductions.lane_tiles`, the stack's voxels counted),
+    each spectrum's median the whole stack's bit for bit."""
+    size = int(size)
+    tiles = list(_red.lane_tiles(data.shape, (0,), weight=size))
+    if len(tiles) == 1:
+        return _median0(_sliding_stack(data, size, axis=0))
+    out = None
+    for idx in tiles:
+        med = _median0(_sliding_stack(data[idx], size, axis=0))
+        if out is None:
+            out = torch.empty(data.shape, dtype=med.dtype, device=med.device)
+        out[idx] = med
+    return out
 
 
 def spatial_median_filter_cube(data, size):

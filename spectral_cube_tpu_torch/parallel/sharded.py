@@ -2321,12 +2321,13 @@ class ShardedCube:
     @property
     def filled_data(self):
         """``filled_data[view]``: a Quantity of the mask-filled data of the
-        view on the mesh's first device; only the blocks the view meets
-        send their part, each with its include evaluated on it."""
+        view, a host array as the unsharded cube's; only the blocks the
+        view meets send their part, each with its include evaluated on
+        it."""
         from ..cube import _SliceSyntax
         from ..units import Quantity
-        return _SliceSyntax(lambda view: Quantity(self._view_data(view, True),
-                                                  self.unit))
+        return _SliceSyntax(lambda view: Quantity(
+            self._view_data(view, True).cpu().numpy(), self.unit))
 
     @property
     def unmasked_data(self):
@@ -2335,7 +2336,7 @@ class ShardedCube:
         from ..cube import _SliceSyntax
         from ..units import Quantity
         return _SliceSyntax(lambda view: Quantity(
-            self._view_data(view, False), self.unit))
+            self._view_data(view, False).cpu().numpy(), self.unit))
 
     @property
     def unitless_filled_data(self):

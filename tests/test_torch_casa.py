@@ -200,7 +200,7 @@ def test_casa_mask_read(tmp_path):
     path = write_both(tmp_path, tcube, jcube, "m.image")
     t, j = read_both(path)
     assert_read_equal(t, j)
-    filled = t.filled_data[:].value.numpy()
+    filled = t.filled_data[:].value
     assert np.isnan(filled[1, 1, 1])
     assert np.isfinite(filled).sum() == np.isfinite(data).sum()
 
@@ -294,7 +294,7 @@ def test_casa_write_read_roundtrip(tmp_path):
     np.testing.assert_allclose(
         np.asarray(tcube.with_spectral_unit(tu.Hz).spectral_axis.value),
         np.asarray(t.spectral_axis.value), rtol=1e-9)
-    assert np.isnan(t.filled_data[:].value.numpy()[1, 1, 1])
+    assert np.isnan(t.filled_data[:].value[1, 1, 1])
     # the format comes from the suffix
     tcube.write(str(tmp_path / "suffix.image"))
     assert_dirs_identical(path, str(tmp_path / "suffix.image"))

@@ -130,7 +130,7 @@ def test_fits_roundtrip_and_unported_inputs(tmp_path):
     p = str(tmp_path / "c.fits")
     write_fits(p, [HDU(data=data, header=h)])
     cube = T.SpectralCube.read(p, device="cpu")
-    np.testing.assert_array_equal(cube.unmasked_data[:].value.numpy(), data)
+    np.testing.assert_array_equal(cube.unmasked_data[:].value, data)
     assert cube.get_mask_array().sum() == np.isfinite(data).sum()
     out = str(tmp_path / "back.fits")
     cube.write(out)

@@ -238,7 +238,7 @@ def test_masks_and_cubes_pickle(cube_pair):
                                   masked.mask[1:3, ::-1].include().numpy())
     jmasked = jc.with_mask(jc > J.Quantity(0.4, "Jy/beam"))
     c2 = pickle.loads(pickle.dumps(masked))
-    np.testing.assert_array_equal(c2.filled_data[:].value.numpy(),
+    np.testing.assert_array_equal(c2.filled_data[:].value,
                                   np.asarray(jmasked.filled_data[:].value))
 
 
@@ -299,7 +299,7 @@ def test_function_mask_survives_cube_slicing(cube_pair):
     t = tc.with_mask(T.FunctionMask(lambda d, wcs, view: d > 0.5))[2:4, ::-1]
     j = jc.with_mask(J.FunctionMask(lambda d, wcs=None, view=():
                                     np.asarray(d) > 0.5))[2:4, ::-1]
-    np.testing.assert_array_equal(t.filled_data[:].value.numpy(),
+    np.testing.assert_array_equal(t.filled_data[:].value,
                                   np.asarray(j.filled_data[:].value))
 
 
@@ -309,10 +309,10 @@ def test_array_threshold_mask_slices_with_view(cube_pair):
     t = tc.with_mask(tc > T.Quantity(thr, tc.unit))
     j = jc.with_mask(jc > J.Quantity(thr, jc.unit))
     for view in (np.s_[1:3], np.s_[::-1], np.s_[2:4, :, :]):
-        np.testing.assert_array_equal(t[view].filled_data[:].value.numpy(),
+        np.testing.assert_array_equal(t[view].filled_data[:].value,
                                       np.asarray(j[view].filled_data[:]
                                                  .value))
-        np.testing.assert_array_equal(t.filled_data[view].value.numpy(),
+        np.testing.assert_array_equal(t.filled_data[view].value,
                                       np.asarray(j.filled_data[view].value))
 
 

@@ -169,7 +169,9 @@ def test_f7_filled_data_and_ufuncs(tmp_path, device):
 def test_f7_ufuncs_with_a_torch_namesake_stay_on_the_device(tmp_path,
                                                            device):
     cube, _ = _port_cube(tmp_path)
-    q = cube.filled_data[:]
+    # a Quantity of the device tensor: the indexers hand out host arrays
+    # (F23)
+    q = Quantity(cube._get_filled_data(), cube.unit)
     for out in (np.abs(q), np.add(q, q), np.greater(q, q * 0.5),
                 np.sqrt(np.abs(q / q)), np.power(q, 2)):
         value = out.value if isinstance(out, Quantity) else out

@@ -228,7 +228,7 @@ def test_cube_accessors_match_jax(fits_path, tmp_path):
                                   jcube._spectral_offsets())
     assert tcube._spectral_pix_size() == jcube._spectral_pix_size()
     assert tcube.beam.major_rad == jcube.beam.major_rad
-    np.testing.assert_array_equal(tcube.unmasked_data[:].value.numpy(),
+    np.testing.assert_array_equal(tcube.unmasked_data[:].value,
                                   np.asarray(jcube.unmasked_data[:].value))
     thr = T.Quantity(1.0, tcube.unit)
     tm = tcube.with_mask(tcube > thr).with_fill_value(-5.0)

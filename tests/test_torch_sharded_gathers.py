@@ -197,8 +197,8 @@ def test_data_indexers(cubes, tmesh, indexer, view):
 
 def test_indexers_move_only_the_blocks_they_meet(cubes, tmesh):
     """A spectrum reads one block: each other block's data is never read
-    (a block replaced by NaN changes nothing), and the result lands on the
-    mesh's first device."""
+    (a block replaced by NaN changes nothing), and the result is a host
+    array, as the unsharded cube's (F23)."""
     sc, uc, _ = cubes(SHAPES[0], "gt")
     want = uc.filled_data[:, 3, 4].value
     touched = [p for p, *_ in sc._view_parts(tsh._view_axes(
@@ -210,7 +210,7 @@ def test_indexers_move_only_the_blocks_they_meet(cubes, tmesh):
         if p != touched[0]:
             b.fill_(float("nan"))
     got = poisoned.filled_data[:, 3, 4].value
-    assert got.device == tmesh.devices[0]
+    assert isinstance(got, np.ndarray)
     _exact("spectrum of the one block", got, want)
     with pytest.raises(TypeError, match="indexers take"):
         sc.filled_data[[0, 1]]

@@ -174,7 +174,7 @@ def test_reversed_slice_wcs(pair):
     rev = tc[::-1]
     np.testing.assert_allclose(rev.spectral_axis.value,
                                tc.spectral_axis.value[::-1], rtol=1e-12)
-    np.testing.assert_array_equal(rev.unmasked_data[:].value.numpy(),
+    np.testing.assert_array_equal(rev.unmasked_data[:].value,
                                   data[::-1].astype(np.float32))
     m_fwd = tc.moment1().value
     m_rev = rev.moment1().value
@@ -387,7 +387,7 @@ def test_cube_pow_units(pair):
     sq = tc ** 2
     assert sq.unit.to_string() == (jc ** 2).unit.to_string()
     assert sq.unit == tc.unit ** 2
-    np.testing.assert_array_equal(sq.unmasked_data[:].value.numpy(),
+    np.testing.assert_array_equal(sq.unmasked_data[:].value,
                                   np.asarray((jc ** 2)._data))
 
 
@@ -546,7 +546,7 @@ def test_filled_and_flattened(pair, view):
     tm = tc.with_mask(tc > tq(0.5, "Jy/beam")).with_fill_value(-1.0)
     jm = jc.with_mask(jc > jq(0.5, "Jy/beam")).with_fill_value(-1.0)
     v = view if view else (slice(None),)
-    np.testing.assert_array_equal(tm.filled_data[v].value.numpy(),
+    np.testing.assert_array_equal(tm.filled_data[v].value,
                                   np.asarray(jm.filled_data[v].value))
     np.testing.assert_array_equal(tm.unitless_filled_data[v],
                                   np.asarray(jm.unitless_filled_data[v]))

@@ -92,7 +92,7 @@ def test_common_mask(iquv):
     mask[:, 1, :] = True
     tm, jm = ts.with_mask(mask), js.with_mask(mask)
     assert_stokes_equal(tm, jm)
-    filled = tm["I"].filled_data[:].value.numpy()
+    filled = tm["I"].filled_data[:].value
     assert np.isnan(filled[:, 0, :]).all()
     tm2 = tm.with_mask(torch.as_tensor(mask[::-1].copy()))
     assert_stokes_equal(tm2, jm.with_mask(mask[::-1].copy()))
@@ -128,8 +128,8 @@ def test_sky_to_feed_roundtrip(iquv, basis):
     back = feed.transform_basis("Sky")
     assert_stokes_equal(back, js.transform_basis(basis).transform_basis("Sky"))
     for comp in "IQUV":
-        got = back[comp].unmasked_data[:].value.numpy()
-        want = 0.5 * tcubes[comp].unmasked_data[:].value.numpy()
+        got = back[comp].unmasked_data[:].value
+        want = 0.5 * tcubes[comp].unmasked_data[:].value
         np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
         fin = ~np.isnan(want)
         np.testing.assert_allclose(got[fin], want[fin], rtol=1e-6,
