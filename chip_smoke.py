@@ -4382,12 +4382,26 @@ def host_gib(nbytes):
     return "not measured" if nbytes is None else f"{nbytes / 2**30:.2f} GiB"
 
 
-def card_tiles(ny, nx):
+def card_tiles(ny, nx, ok=None):
     """(y0, x0) of the CARD_TILE-square tiles the card-scale results are
     held on: the four corners, the last holding the cube's last voxel,
-    and the centre."""
+    and the centre; or, given ``ok`` (a host bool plane, the spaxels that
+    hold finite values), the four extremes of that footprint, the tile
+    after the first such spaxel, those beside the leftmost and the
+    rightmost, and the tile that ends at the last (the highest flat
+    spaxel index that holds values), and the centre."""
     t = CARD_TILE
-    return [(0, 0), (0, nx - t), (ny - t, 0), (ny - t, nx - t),
+    if ok is None:
+        return [(0, 0), (0, nx - t), (ny - t, 0), (ny - t, nx - t),
+                ((ny - t) // 2, (nx - t) // 2)]
+    ys, xs = np.nonzero(ok)
+
+    def at(y, x):
+        return (int(min(max(y, 0), ny - t)), int(min(max(x, 0), nx - t)))
+    left, right = int(np.argmin(xs)), int(np.argmax(xs))
+    return [at(ys[0], xs[0] - t // 2), at(ys[left] - t // 2, xs[left]),
+            at(ys[right] - t // 2, xs[right] - t + 1),
+            at(ys[-1] - t + 1, xs[-1] - t // 2),
             ((ny - t) // 2, (nx - t) // 2)]
 
 
@@ -4475,27 +4489,14 @@ def within_f64(got, want, rtol=1e-6, scale=None):
     return bool((rel <= rtol).all()), float(rel.max())
 
 
-def card_spectral(cube, nbytes, card, sizes, staged, hold,
-                  time_first_calls):
-    """The spectral path on P (``cube``, read from FITS): each stage staged,
-    its peak held at most CARD_PEAK_SHARE of the card, and its result held
-    on CARD_TILE tiles of whole spectra (corners, centre) against the same
-    call on the tile's cut-out: bit for bit for the smoothed interpolation
-    (smooth_interp, #11), the std clip (sigma_clip, #13), the mad_std clip,
-    the median filter and the interpolation without smoothing; within 1e-6
-    of the largest |value| of a float64 ``convolve1d_nan`` on the cut-out
-    for ``spectral_smooth`` (its cuBLAS blocks; whether the tile is also
-    the cut-out's bit for bit is logged).  smooth_interp's and
-    sigma_clip's first calls are timed, and the elements of their inputs
-    put in ``sizes``.  Returns the summary part."""
-    import torch
+def card_spectral_stages(cube):
+    """The spectral path's stages on P: ``(name, the call on a cube, the
+    kernel it launches or None)``, the interpolations onto every second
+    channel of ``cube``."""
     import spectral_cube_tpu_torch as T
-    from spectral_cube_tpu_torch.ops import smoothing as osm
     kern = T.Gaussian1DKernel(SMOOTH_STDDEV)
-    karr = np.asarray(kern.array, dtype=float)
     grid = cube.spectral_axis[::2]
-    t = CARD_TILE
-    stages = [
+    return [
         ("spectral_smooth", lambda c: c.spectral_smooth(kern), None),
         ("spectral_interpolate smoothed", lambda c: c.spectral_interpolate(
             grid, smooth_kernel=kern), "smooth_interp"),
@@ -4508,14 +4509,79 @@ def card_spectral(cube, nbytes, card, sizes, staged, hold,
         (f"spectral_smooth_median({CARD_MEDIAN_WIDTH})",
          lambda c: c.spectral_smooth_median(CARD_MEDIAN_WIDTH,
                                             raise_error_jybm=False), None)]
-    timed, bitwise = [], {}
-    for name, call, kernel in stages:
+
+
+#: the cube's other reductions on H: along the spectral axis (maps), and
+#: the spectrum and the whole-cube values, each a host value
+CARD_ALONG = {"sum(axis=0)": lambda c: c.sum(axis=0),
+              "mean(axis=0)": lambda c: c.mean(axis=0),
+              "std(axis=0)": lambda c: c.std(axis=0),
+              "max(axis=0)": lambda c: c.max(axis=0),
+              "min(axis=0)": lambda c: c.min(axis=0),
+              "median(axis=0)": lambda c: c.median(axis=0),
+              f"percentile({CARD_PERCENTILE:g}, axis=0)":
+                  lambda c: c.percentile(CARD_PERCENTILE, axis=0),
+              "mad_std(axis=0)": lambda c: c.mad_std(axis=0)}
+CARD_WHOLE = {"mean(axis=(1, 2))":
+                  lambda c: np.asarray(c.mean(axis=(1, 2)).value),
+              "std()": lambda c: float(c.std().value),
+              "max()": lambda c: float(c.max().value),
+              "argmax()": lambda c: tuple(int(i) for i in c.argmax())}
+
+
+def staged_call(dev, stages, tag, name, nbytes, fn):
+    """``fn()`` on the host clock, synchronised, with the device peak and
+    its rise above the bytes in use before it, in cube bytes, kept in
+    ``stages`` under ``"tag name"`` and logged."""
+    import torch
+    from spectral_cube_tpu_torch import profiling
+    torch.cuda.synchronize()
+    base = profiling.device_memory_stats(dev)["bytes_in_use"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    val = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    peak = profiling.device_memory_stats(dev)["peak_bytes_in_use"]
+    stages[f"{tag} {name}"] = (ms, peak, (peak - base) / nbytes)
+    log(f"  {tag} {name}: {ms:.1f} ms, peak {peak / 2**30:.2f} GiB, "
+        f"{(peak - base) / nbytes:.3f} cube bytes above the "
+        f"{base / 2**30:.2f} GiB in use before it")
+    return val
+
+
+def card_spectral(cube, tiles, nbytes, card, sizes, staged, hold,
+                  big_launches, time_first_calls):
+    """The spectral path on P (``cube``, read from FITS): each stage staged,
+    its peak held at most CARD_PEAK_SHARE of the card, and its result held
+    on the CARD_TILE ``tiles`` of whole spectra (each must hold finite
+    values) against the same call on the tile's cut-out: bit for bit for
+    the smoothed interpolation
+    (smooth_interp, #11), the std clip (sigma_clip, #13), the mad_std clip,
+    the median filter and the interpolation without smoothing; within 1e-6
+    of the largest |value| of a float64 ``convolve1d_nan`` on the cut-out
+    for ``spectral_smooth`` (its cuBLAS blocks; whether the tile is also
+    the cut-out's bit for bit is logged).  smooth_interp's and
+    sigma_clip's launches are read just after their own stage, the
+    counters set to 0 just before it (``big_launches``, the elements of
+    their inputs put in ``sizes``), and then their first calls are timed.
+    Returns the summary part."""
+    import torch
+    import spectral_cube_tpu_torch as T
+    from spectral_cube_tpu_torch import kernels as K
+    from spectral_cube_tpu_torch.ops import smoothing as osm
+    karr = np.asarray(T.Gaussian1DKernel(SMOOTH_STDDEV).array, dtype=float)
+    t = CARD_TILE
+    timed, launched, bitwise = [], [], {}
+    for name, call, kernel in card_spectral_stages(cube):
         names = (kernel,) if kernel else ()
         with recorded_calls(names) as calls:
+            K.reset_launch_counts()
             out = staged("P", name, nbytes, lambda: call(cube))
         peak = torch.cuda.max_memory_allocated(cube.device)
         if kernel:
             sizes[kernel] = [a[0].numel() for a, _ in calls[kernel]]
+            launched.append(big_launches("P", sizes, names))
             timed.append(time_first_calls("P", calls, names))
         del calls
         hold(f"P {name} peak at most {CARD_PEAK_SHARE:.0%} of the card",
@@ -4523,12 +4589,15 @@ def card_spectral(cube, nbytes, card, sizes, staged, hold,
              f"({peak / 2**30:.2f} of {card / 2**30:.2f} GiB)",
              f"P {name} peak")
         same = True
-        for y0, x0 in card_tiles(*cube.shape[1:]):
+        for y0, x0 in tiles:
             view = (slice(None), slice(y0, y0 + t), slice(x0, x0 + t))
             got = out._get_filled_data(view)
             want = call(cube[view])._get_filled_data()
             same = same and equal_nan(got, want)
             where = f"on the tile at ({y0}, {x0})"
+            some = int(torch.isfinite(got).sum())
+            hold(f"P {name} {where} holds finite values", some > 0,
+                 f"({some})", f"P {name} tile ({y0}, {x0}) finite")
             if name != "spectral_smooth":
                 hold(f"P {name} {where} bit for bit the tile's",
                      equal_nan(got, want), "", f"P {name} tile ({y0}, {x0})")
@@ -4545,8 +4614,10 @@ def card_spectral(cube, nbytes, card, sizes, staged, hold,
         bitwise[name] = same
         del out, got, want
         torch.cuda.empty_cache()
-    return ("P spectral path: tiles bit for bit their cut-outs' "
+    return ("P spectral path: tiles " + ", ".join(map(str, tiles))
+            + " bit for bit their cut-outs' "
             + ", ".join(f"{k} {v}" for k, v in bitwise.items())
+            + "; launches " + ", ".join(launched)
             + "; kernel wrapper calls " + ", ".join(timed))
 
 
@@ -4567,15 +4638,6 @@ def card_reductions(masked, nbytes, stages, staged, hold):
     the oracle's first index.  Returns the summary part."""
     from spectral_cube_tpu_torch.ops import reductions as rd
     t = CARD_TILE
-    along = {"sum(axis=0)": lambda c: c.sum(axis=0),
-             "mean(axis=0)": lambda c: c.mean(axis=0),
-             "std(axis=0)": lambda c: c.std(axis=0),
-             "max(axis=0)": lambda c: c.max(axis=0),
-             "min(axis=0)": lambda c: c.min(axis=0),
-             "median(axis=0)": lambda c: c.median(axis=0),
-             f"percentile({CARD_PERCENTILE:g}, axis=0)":
-                 lambda c: c.percentile(CARD_PERCENTILE, axis=0),
-             "mad_std(axis=0)": lambda c: c.mad_std(axis=0)}
     oracle = {"sum(axis=0)": rd.masked_sum, "mean(axis=0)": rd.masked_mean,
               "std(axis=0)": rd.masked_std}
     maps = {}
@@ -4585,24 +4647,20 @@ def card_reductions(masked, nbytes, stages, staged, hold):
              f"{CARD_MAD_RATIO} cube bytes", stages[f"H {key}"][2]
              <= CARD_MAD_RATIO, f"({stages[f'H {key}'][2]:.3f})",
              f"H {key} rise")
-    for name, fn in along.items():
+    for name, fn in CARD_ALONG.items():
         maps[name] = staged("H", name, nbytes,
                             lambda: np.asarray(fn(masked).value))
         rise_held(name)
-    spec = staged("H", "mean(axis=(1, 2))", nbytes,
-                  lambda: np.asarray(masked.mean(axis=(1, 2)).value))
-    std = staged("H", "std()", nbytes, lambda: float(masked.std().value))
-    mx = staged("H", "max()", nbytes, lambda: float(masked.max().value))
-    am = staged("H", "argmax()", nbytes,
-                lambda: tuple(int(i) for i in masked.argmax()))
-    for key in ("mean(axis=(1, 2))", "std()", "max()", "argmax()"):
+    spec, std, mx, am = (staged("H", key, nbytes, lambda: fn(masked))
+                         for key, fn in CARD_WHOLE.items())
+    for key in CARD_WHOLE:
         rise_held(key)
     bitwise = {}
     for y0, x0 in card_tiles(*masked.shape[1:]):
         view = (slice(None), slice(y0, y0 + t), slice(x0, x0 + t))
         cut = masked[view]
         where = f"on the tile at ({y0}, {x0})"
-        for name, fn in along.items():
+        for name, fn in CARD_ALONG.items():
             got = maps[name][y0:y0 + t, x0:x0 + t]
             same = np.ascontiguousarray(got).tobytes() == np.asarray(
                 fn(cut).value).tobytes()
@@ -4654,7 +4712,6 @@ def phase_card_scale(dev, workdir):
     import spectral_cube_tpu_torch as T
     from spectral_cube_tpu_torch import cube as tcube
     from spectral_cube_tpu_torch import kernels as K
-    from spectral_cube_tpu_torch import profiling
     from spectral_cube_tpu_torch.io.fits_low import HDU, write_fits
     from spectral_cube_tpu_torch.ops import reductions as rd
     from spectral_cube_tpu_torch.parallel import CubeMesh, sharded_mad_std
@@ -4669,21 +4726,7 @@ def phase_card_scale(dev, workdir):
     torch.cuda.empty_cache()
 
     def staged(tag, name, nbytes, fn):
-        """``fn()`` on the host clock, synchronised, with the device peak
-        and its rise above the bytes in use before it, in cube bytes."""
-        torch.cuda.synchronize()
-        base = profiling.device_memory_stats(dev)["bytes_in_use"]
-        torch.cuda.reset_peak_memory_stats(dev)
-        t = time.perf_counter()
-        val = fn()
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t) * 1e3
-        peak = profiling.device_memory_stats(dev)["peak_bytes_in_use"]
-        stages[f"{tag} {name}"] = (ms, peak, (peak - base) / nbytes)
-        log(f"  {tag} {name}: {ms:.1f} ms, peak {peak / 2**30:.2f} GiB, "
-            f"{(peak - base) / nbytes:.3f} cube bytes above the "
-            f"{base / 2**30:.2f} GiB in use before it")
-        return val
+        return staged_call(dev, stages, tag, name, nbytes, fn)
 
     def hold(name, ok, detail="", short=None):
         checks.append(short or name)
@@ -4691,14 +4734,16 @@ def phase_card_scale(dev, workdir):
         if not ok:
             raise AssertionError(f"card scale: {name} {detail}")
 
-    def big_launches(tag, sizes):
-        """Each kernel of CARD_KERNELS[tag]: its launches since the
-        counters' reset and the elements of its first and last input."""
+    def big_launches(tag, sizes, names=None):
+        """Each kernel of CARD_KERNELS[tag] (or of ``names``): its
+        launches since the counters' reset and the elements of its first
+        and last input."""
         counts = K.launch_counts()
-        out = {k: (counts[k], sizes[k]) for k in CARD_KERNELS[tag]}
-        hold(f"{tag} kernels launched on more than 2**31 elements",
+        out = {k: (counts[k], sizes[k]) for k in names or CARD_KERNELS[tag]}
+        hold(f"{tag} {', '.join(out)} launched on more than 2**31 elements",
              all(n > 0 and e and min(e) >= CARD_MIN_ELEMENTS
-                 for n, e in out.values()), str(out), f"{tag} launches")
+                 for n, e in out.values()), str(out),
+             f"{tag} {'/'.join(out)} launches")
         return ", ".join(f"{k} {n} (inputs {'/'.join(map(str, e))} "
                          "elements)" for k, (n, e) in out.items())
 
@@ -4760,9 +4805,9 @@ def phase_card_scale(dev, workdir):
              + f", npts {stats['npts']} vs {want['npts']})",
              f"{tag} statistics")
 
-    def hold_tiles(tag, full, tile_moments, ny, nx):
+    def hold_tiles(tag, full, tile_moments, tiles):
         t = CARD_TILE
-        for y0, x0 in card_tiles(ny, nx):
+        for y0, x0 in tiles:
             got = tile_moments(y0, x0)
             same = all(np.ascontiguousarray(
                 np.asarray(f)[y0:y0 + t, x0:x0 + t]).tobytes()
@@ -4831,6 +4876,7 @@ def phase_card_scale(dev, workdir):
                              target_header=target_header)
         torch.cuda.synchronize()
         first = (time.perf_counter() - t0) * 1e3
+    p_launches = big_launches("P", sizes, PIPELINE_KERNELS)
     peak = torch.cuda.max_memory_allocated(dev)
     hold(f"P run_pipeline peak at most {CARD_PEAK_SHARE:.0%} of the card",
          peak <= CARD_PEAK_SHARE * card,
@@ -4840,7 +4886,10 @@ def phase_card_scale(dev, workdir):
                  f"{nbytes / 2**30:.2f} GiB): {io_part}; run_pipeline "
                  f"{first:.1f} ms (first call), peak {peak / 2**30:.2f} GiB "
                  f"({peak / card:.1%} of the card, {peak / nbytes:.2f} cube "
-                 f"bytes)")
+                 f"bytes), launches {p_launches}")
+    # the tiles at the extremes of the primary beam's footprint: the
+    # corners lie outside it, all NaN
+    p_tiles = card_tiles(ny, nx, rd.finite(cube._data[0]).cpu().numpy())
 
     conv = staged("P", "convolve_to", nbytes,
                   lambda: cube.convolve_to(target_beam))
@@ -4874,7 +4923,7 @@ def phase_card_scale(dev, workdir):
     hold_tiles("P", full, lambda y0, x0: [
         m.value for m in T.run_pipeline(
             conv[:, y0:y0 + CARD_TILE, x0:x0 + CARD_TILE],
-            snr_threshold=SNR, noise_estimate=noise)["moments"]], ny, nx)
+            snr_threshold=SNR, noise_estimate=noise)["moments"]], p_tiles)
     for c0 in (0, (nchan - CARD_SLAB) // 2, nchan - CARD_SLAB):
         sl = slice(c0, c0 + CARD_SLAB)
         hold(f"P convolve_to of channels {c0}-{c0 + CARD_SLAB - 1} bit for "
@@ -4904,9 +4953,8 @@ def phase_card_scale(dev, workdir):
                  "calls " + p_kernels)
     del calls
     torch.cuda.empty_cache()
-    parts.append(card_spectral(cube, nbytes, card, sizes, staged, hold,
-                               time_first_calls))
-    parts.append("P launches " + big_launches("P", sizes))
+    parts.append(card_spectral(cube, p_tiles, nbytes, card, sizes, staged,
+                               hold, big_launches, time_first_calls))
     del cube
     torch.cuda.empty_cache()
 
@@ -4945,7 +4993,8 @@ def phase_card_scale(dev, workdir):
     hold_tiles("H", full, lambda y0, x0: [
         np.asarray(m.value) for m in (lambda c: (
             c.moment0(), c.moment1(), c.linewidth_sigma()))(
-                masked[:, y0:y0 + CARD_TILE, x0:x0 + CARD_TILE])], ny, nx)
+                masked[:, y0:y0 + CARD_TILE, x0:x0 + CARD_TILE])],
+        card_tiles(ny, nx))
     hold_stats("H", stats, stats_oracle(
         data, lambda c0, x: x > CARD_H_THRESHOLD))
     hold_mad_cutout("H", data, masked._valid_view)

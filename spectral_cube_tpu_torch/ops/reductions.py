@@ -6,10 +6,12 @@ The critical semantic is ``allbadtonan`` (reference ``np_compat.py:3-27``):
 positions where no included finite value exists along the reduced axis
 yield NaN.  ``axis=None`` reduces over the whole cube, and a tuple
 ``axis`` over those axes together.  No reduction holds a cube-sized
-temporary past :data:`SORT_CHUNK` voxels: a whole-cube reduction fills and
-reduces :data:`SUM_CHUNK` pieces (order statistics: sorted pieces whose
-keys are bisected), one along an axis runs on tiles of whole lanes
-(:func:`lane_tiles`), each lane's result the one call's bit for bit.
+temporary past :data:`SORT_CHUNK` voxels: every piece is a tile of
+:func:`lane_tiles`, a whole-cube reduction's tiles of no reduced axis
+(:func:`_pieces`; order statistics: sorted pieces whose keys are
+bisected), one along an axis its tiles of whole lanes, each lane's result
+the one call's bit for bit; a whole-cube sum fills and reduces flat
+:data:`SUM_CHUNK` ranges, in the order of one sum.
 """
 
 from __future__ import annotations
@@ -54,8 +56,8 @@ def _fill(data, valid, fill):
 # ---------------------------------------------------------------------------
 # the pieces a reduction runs on
 # ---------------------------------------------------------------------------
-#: elements of a whole-array reduction filled and reduced at once (a
-#: float32 sum takes each to float64)
+#: elements of a whole-array sum filled and reduced at once (a float32
+#: sum takes each to float64)
 SUM_CHUNK = 1 << 24
 
 
@@ -79,8 +81,8 @@ def _flat_range(x, a, b):
 
 def _whole_pieces(data, valid):
     """``(offset, data piece, valid piece)`` of the flat ranges of
-    :data:`SUM_CHUNK` elements of ``data`` in order; ``valid``
-    broadcasts against it."""
+    :data:`SUM_CHUNK` elements of ``data`` in order, the ranges a
+    whole-array sum accumulates; ``valid`` broadcasts against it."""
     valid = valid.expand(data.shape)
     n = data.numel()
     for a in range(0, n, SUM_CHUNK):
@@ -111,32 +113,37 @@ def _whole_sum(data, valid, fn=None):
 
 def _whole_extremum(data, valid, fill, pick):
     """``pick`` (``torch.max`` / ``torch.min``) of the included values,
-    ``fill`` elsewhere, over each :data:`SUM_CHUNK` piece and then over
+    ``fill`` elsewhere, over each piece (:func:`_pieces`) and then over
     the pieces' extremes; and the count of included values."""
     ext = [torch.tensor(fill, dtype=data.dtype, device=data.device)]
     cnt = torch.zeros((), dtype=torch.int64, device=data.device)
-    for _, d, v in _whole_pieces(data, valid):
-        ext.append(pick(_fill(d, v, fill)))
+    valid = valid.expand(data.shape)
+    for idx in lane_tiles(data.shape, ()) if data.numel() else ():
+        v = valid[idx]
+        ext.append(pick(_fill(data[idx], v, fill)))
         cnt += v.sum()
     return pick(torch.stack(ext)), cnt
 
 
 def _whole_arg(data, valid, fill, pick):
     """The first flat index (0-d int64) of ``pick``'s extremum (argmax /
-    argmin) of the included values, ``fill`` elsewhere: each
-    :data:`SUM_CHUNK` piece's first extreme index and value, then the
-    first piece that holds the extreme value (ties break to the first
-    index, as ``torch.argmax`` documents)."""
+    argmin) of the included values, ``fill`` elsewhere: each piece's
+    (:func:`_pieces`, runs of the flat order) first extreme index and
+    value, then the first piece that holds the extreme value (ties break
+    to the first index, as ``torch.argmax`` documents)."""
+    if not data.numel():
+        return torch.zeros((), dtype=torch.int64, device=data.device)
     vals, idx = [], []
-    for a, d, v in _whole_pieces(data, valid):
-        f = _fill(d, v, fill)
+    valid = valid.expand(data.shape)
+    a = 0
+    for tile in lane_tiles(data.shape, ()):
+        f = _fill(data[tile], valid[tile], fill)
         i = pick(f)
         # a copy of the value: indexing by a 0-d tensor would read the
         # index on the host and keep a view, and with it the piece, alive
         vals.append(f.take(i))
         idx.append(i + a)
-    if not idx:
-        return torch.zeros((), dtype=torch.int64, device=data.device)
+        a += f.numel()
     return torch.stack(idx)[pick(torch.stack(vals))]
 
 
@@ -416,26 +423,14 @@ SORT_CHUNK = 1 << 29
 SORT_PIECE = 1 << 27
 
 
-def _pieces(x, size=None):
-    """Views of ``x`` in order along its leading axes: ``x`` itself up to
-    :data:`SORT_CHUNK` elements, else pieces of at most ``size``
-    (:data:`SORT_PIECE`, or :data:`SORT_CHUNK` where that is smaller)
-    elements: whole leading-axis slabs where one row fits, else each row
-    cut the same way."""
-    if size is None:
-        if x.numel() <= SORT_CHUNK:
-            yield x
-            return
-        size = min(SORT_PIECE, SORT_CHUNK)
-    if x.numel() <= size or x.ndim == 0:
-        yield x
-    elif x.ndim == 1:
-        yield from x.split(size)
-    elif x[0].numel() <= size:
-        yield from x.split(max(1, size // x[0].numel()))
-    else:
-        for row in x:
-            yield from _pieces(row, size)
+def _pieces(x):
+    """Views of ``x`` in order along its leading axes, runs of its flat
+    order: the tiles of :func:`lane_tiles` with no axis reduced, ``x``
+    itself up to :data:`SORT_CHUNK` elements, else whole leading-axis
+    slabs of at most :data:`SORT_PIECE` elements where one row fits,
+    else each row cut the same way."""
+    for idx in lane_tiles(x.shape, ()):
+        yield x[idx]
 
 
 def _pick(data, valid, fn=None):

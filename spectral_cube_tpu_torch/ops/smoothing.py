@@ -126,17 +126,17 @@ def _conv1d_along_axis0(data, kernel):
     return _apply_rows(mat, data)
 
 
-def _nan_rows(W, x, v, comp):
-    """``W @`` the rows ``x`` (validity ``v``) under astropy's NaN rule: the
-    numerator ``W @ where(v, x, 0)`` over the denominator
-    ``1 - W @ (1 - v)``, NaN where that is at most 1e-6; the quotient is
-    formed in the numerator's array."""
-    num = _apply_rows(W, torch.where(v, x, 0).to(comp))
-    den = _apply_rows(W, v.logical_not().to(comp))
+def _nan_rows(W, x, v, flags, out):
+    """``W @`` the rows ``x`` (validity ``v``) under astropy's NaN rule,
+    written into ``out``: the numerator ``W @ where(v, x, 0)`` over the
+    denominator ``1 - W @ (1 - v)``, NaN where that is at most 1e-6.
+    ``flags`` holds 0 and 1 in the output's dtype, the invalid rows'
+    weights ``where(v, 0, 1)`` formed in one pass."""
+    num = _apply_rows(W, torch.where(v, x, 0).to(out.dtype))
+    den = _apply_rows(W, torch.where(v, flags[0], flags[1]))
     den.neg_().add_(1.0)
-    bad = den <= DEN_EPS
-    den.masked_fill_(bad, 1.0)
-    return num.div_(den).masked_fill_(bad, float("nan"))
+    torch.div(num, den, out=out)
+    out.masked_fill_(den <= DEN_EPS, float("nan"))
 
 
 def convolve1d_nan(data, kernel, axis=0):
@@ -147,8 +147,8 @@ def convolve1d_nan(data, kernel, axis=0):
     numerator and the denominator a block of rows at a time (the banded
     blocks of a long axis, each block's window filled as it is read) or
     a tile of whole spectra at a time (the dense product of a short
-    axis), each block's quotient written into the output: no float
-    temporary the size of the cube but the output."""
+    axis), each block's quotient divided straight into the output: no
+    float temporary the size of the cube but the output."""
     kernel = np.asarray(kernel, dtype=float)
     kernel = kernel / kernel.sum()
     x = data.movedim(axis, 0) if axis != 0 else data
@@ -159,17 +159,18 @@ def convolve1d_nan(data, kernel, axis=0):
         out = _conv1d_along_axis0(x.to(comp).contiguous(), kernel)
     else:
         out = torch.empty(x.shape, dtype=comp, device=x.device)
+        flags = torch.tensor([0.0, 1.0], dtype=comp, device=x.device)
         if n > _DENSE_CONV_MAX_N:
             for r0, rows, cs, ce, W in _band_blocks(n, kernel, comp,
                                                     x.device):
-                out[r0:r0 + rows] = _nan_rows(W, x[cs:ce], v[cs:ce], comp)
+                _nan_rows(W, x[cs:ce], v[cs:ce], flags, out[r0:r0 + rows])
         else:
             mat = torch.as_tensor(_banded_conv_matrix(n, kernel),
                                   dtype=comp, device=x.device)
             flat, xf, vf = out.view(n, -1), x.reshape(n, -1), \
                 v.reshape(n, -1)
             for idx in _red.lane_tiles(xf.shape, (0,)):
-                flat[idx] = _nan_rows(mat, xf[idx], vf[idx], comp)
+                _nan_rows(mat, xf[idx], vf[idx], flags, flat[idx])
         out.masked_fill_(v.any(0, keepdim=True).logical_not_(), float("nan"))
     if axis != 0:
         out = out.movedim(0, axis)

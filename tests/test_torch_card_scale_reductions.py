@@ -183,10 +183,10 @@ def test_reductions_in_tiles_are_the_one_call(monkeypatch, name, axis,
 
 @pytest.mark.parametrize("view", ["cut", "strided", "transposed"])
 def test_whole_cube_pieces_of_a_strided_view(monkeypatch, view):
-    """A strided view's whole-cube sum, std, max and argmax are read in
-    flat pieces of SUM_CHUNK elements (each a copy of those elements
-    alone, never of the cube) in the view's order: the one call's bit for
-    bit."""
+    """A strided view's whole-cube sum and std are read in flat pieces of
+    SUM_CHUNK elements (each a copy of those elements alone, never of the
+    cube) in the view's order, its max and argmax on the pieces of the
+    order statistics (views): the one call's bit for bit."""
     data, include = make_case(np.float32, "include")
     t, inc = tensors(data, include)
     pick = {"cut": lambda x: x[:, 2:8, 3:11],
@@ -195,7 +195,8 @@ def test_whole_cube_pieces_of_a_strided_view(monkeypatch, view):
     d, v = pick(t), pick(rd.valid_mask(t, inc))
     names = ("sum", "std", "max", "argmax")
     want = {n: FUNCS[n](d, v, axis=None) for n in names}
-    monkeypatch.setattr(rd, "SUM_CHUNK", 11)
+    small_pieces(monkeypatch, chunk=13, piece=9, sums=11)
+    assert len(list(rd._pieces(d))) > 1
     flat = torch.cat([p for _, p, _ in rd._whole_pieces(d, v)])
     assert torch.equal(torch.isnan(flat), torch.isnan(d.reshape(-1)))
     for n in names:
@@ -509,7 +510,7 @@ def test_whole_cube_pieces_are_freed_as_they_go(monkeypatch, name):
     t, inc = tensors(data, include)
     valid = rd.valid_mask(t, inc)
     want = FUNCS[name](t, valid, axis=None)
-    monkeypatch.setattr(rd, "SUM_CHUNK", 37)
+    small_pieces(monkeypatch, chunk=40, piece=24, sums=37)
     refs, alive = [], []
     fill = rd._fill
 

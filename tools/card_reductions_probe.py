@@ -1,86 +1,71 @@
-"""What the cube's other reductions and the spectral path take past 2**31
-voxels, on the port of this checkout or of another one.
+"""``chip_smoke.py``'s card-scale stages of the cube's other reductions and
+of the spectral path, run on the port of another checkout, each stage's
+error printed where it raises one.
 
     python3 tools/card_reductions_probe.py [--tree DIR] [--kernels]
 
-``--tree DIR`` imports ``spectral_cube_tpu_torch`` and ``chip_smoke`` from
-DIR (an unpacked ``git archive`` of another commit) instead of this
-checkout.  Prints the card's name and power limit, then each stage's
-host-clock time (synchronised), its peak above the memory allocated
-before it over the cube's bytes, and its peak as a share of the card, or
-the error it raised:
+``--tree DIR`` imports ``spectral_cube_tpu_torch`` from DIR (an unpacked
+``git archive`` of another commit) instead of this checkout; the stages
+are this checkout's (``chip_smoke.CARD_ALONG``, ``CARD_WHOLE`` and
+``card_spectral_stages``), timed and measured by ``chip_smoke.staged_call``
+(host clock, synchronised; the peak, and its rise above the memory in use
+before it over the cube's bytes).  Prints the card's name and power
+limit, then:
 
-1. On ``chip_smoke.headline_cube`` at 1280 x 2048 x 2048 under ``> 0.25``
-   (H, 20 GiB): ``sum``, ``mean``, ``std``, ``max``, ``min``, ``median``,
-   ``percentile(10)`` and ``mad_std`` along axis 0, ``mean(axis=(1, 2))``,
-   and ``std()``, ``max()`` and ``argmax()`` over the cube.
-2. On ``chip_smoke.card_cube`` at 2304 x 1024 x 1024 (P, 9 GiB) under the
-   finiteness mask a read gives: ``spectral_smooth``, ``spectral_interpolate``
-   onto every second channel, the ``mad_std`` ``sigma_clip_spectrally`` and
-   ``spectral_smooth_median(5)``; with ``--kernels`` (which builds the
-   kernels) also the smoothed ``spectral_interpolate`` and the ``std``
-   clip, the stages that launch kernels #11 and #13.
+1. H, ``chip_smoke.headline_cube`` at 1280 x 2048 x 2048 under ``> 0.25``:
+   every reduction of ``CARD_ALONG`` and ``CARD_WHOLE``.
+2. P, ``chip_smoke.card_cube`` at 2304 x 1024 x 1024 under the finiteness
+   mask a read gives: the spectral stages that launch no kernel, and with
+   ``--kernels`` (which builds the kernels) also those that do.
 
 Needs one card.
 """
 
 import argparse
+import importlib.util
 import os
 import sys
-import time
 
 import torch
 
-GiB = 2 ** 30
-
-
-def attempt(name, fn, nbytes, card):
-    """Run ``fn`` synchronised; print its time, its peak above the memory
-    allocated before it over ``nbytes`` and over the card, or the error it
-    raised."""
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    try:
-        out = fn()
-        torch.cuda.synchronize()
-    except (RuntimeError, torch.cuda.OutOfMemoryError) as err:
-        msg = " ".join(str(err).split())[:300]
-        print(f"  {name}: FAILED {type(err).__name__}: {msg}", flush=True)
-        torch.cuda.empty_cache()
-        return
-    ms = (time.perf_counter() - t0) * 1e3
-    peak = torch.cuda.max_memory_allocated()
-    print(f"  {name}: {ms:.1f} ms, rise {(peak - base) / nbytes:.3f} cube "
-          f"bytes, peak {peak / GiB:.2f} GiB ({peak / card:.1%} of the "
-          f"card)", flush=True)
-    del out
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
+    ap.add_argument("--tree", default=ROOT)
     ap.add_argument("--kernels", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.tree))
-    import chip_smoke as cs
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
     import spectral_cube_tpu_torch as T
     from spectral_cube_tpu_torch.masks import LazyMask
     from spectral_cube_tpu_torch.wcs import WCS
     if not torch.cuda.is_available():
         print("card_reductions_probe: CUDA is not available", file=sys.stderr)
         return 1
-    print(f"card: {cs.card_line()}; tree {os.path.abspath(args.tree)} "
-          f"({T.__file__})", flush=True)
+    print(f"card: {cs.card_line()}; port {T.__file__}", flush=True)
     dev = torch.device("cuda", 0)
     card = torch.cuda.get_device_properties(dev).total_memory
     if args.kernels:
         from spectral_cube_tpu_torch.kernels import _build
         _build.load_library()
     cs.no_tf32()
+    stages = {}
+
+    def attempt(tag, name, nbytes, fn):
+        torch.cuda.empty_cache()
+        try:
+            cs.staged_call(dev, stages, tag, name, nbytes, fn)
+        except (RuntimeError, torch.cuda.OutOfMemoryError) as err:
+            msg = " ".join(str(err).split())[:300]
+            cs.log(f"  {tag} {name}: FAILED {type(err).__name__}: {msg}")
+            return
+        cs.log(f"  {tag} {name}: peak {stages[f'{tag} {name}'][1] / card:.1%}"
+               " of the card")
 
     nchan, ny, nx = cs.CARD_H
     data = cs.headline_cube(nchan, ny, nx, cs.SEED, dev)
@@ -88,20 +73,10 @@ def main():
     cube = T.SpectralCube(data, WCS(header=h), header=h)
     masked = cube.with_mask(cube > T.Quantity(cs.CARD_H_THRESHOLD,
                                               cube.unit))
-    nbytes = data.numel() * 4
-    print(f"H {nchan}x{ny}x{nx}:", flush=True)
-    for name in ("sum", "mean", "std", "max", "min", "median", "mad_std"):
-        attempt(f"H {name}(axis=0)", lambda: getattr(masked, name)(axis=0),
-                nbytes, card)
-    attempt("H percentile(10, axis=0)",
-            lambda: masked.percentile(10, axis=0), nbytes, card)
-    attempt("H mean(axis=(1, 2))", lambda: masked.mean(axis=(1, 2)),
-            nbytes, card)
-    for name in ("std", "max", "argmax"):
-        attempt(f"H {name}()", lambda: getattr(masked, name)(), nbytes,
-                card)
+    cs.log(f"H {nchan}x{ny}x{nx}:")
+    for name, fn in {**cs.CARD_ALONG, **cs.CARD_WHOLE}.items():
+        attempt("H", name, data.numel() * 4, lambda: fn(masked))
     del masked, cube, data
-    torch.cuda.empty_cache()
 
     nchan, ny, nx = cs.CARD_P
     data = cs.card_cube(nchan, ny, nx, cs.SEED, dev)
@@ -109,25 +84,10 @@ def main():
     wcs = WCS(header=h)
     cube = T.SpectralCube(data, wcs, header=h,
                           mask=LazyMask(torch.isfinite, data=data, wcs=wcs))
-    nbytes = data.numel() * 4
-    kern = T.Gaussian1DKernel(cs.SMOOTH_STDDEV)
-    grid = cube.spectral_axis[::2]
-    print(f"P {nchan}x{ny}x{nx}:", flush=True)
-    stages = [
-        ("spectral_smooth", lambda: cube.spectral_smooth(kern)),
-        ("spectral_interpolate", lambda: cube.spectral_interpolate(grid)),
-        ("sigma_clip_spectrally mad_std", lambda: cube.sigma_clip_spectrally(
-            cs.CLIP_SIGMA, maxiters=cs.CLIP_ITERS, stdfunc="mad_std")),
-        ("spectral_smooth_median(5)", lambda: cube.spectral_smooth_median(
-            5, raise_error_jybm=False))]
-    if args.kernels:
-        stages += [
-            ("spectral_interpolate smoothed", lambda: cube.spectral_interpolate(
-                grid, smooth_kernel=kern)),
-            ("sigma_clip_spectrally std", lambda: cube.sigma_clip_spectrally(
-                cs.CLIP_SIGMA, maxiters=cs.CLIP_ITERS))]
-    for name, fn in stages:
-        attempt(f"P {name}", fn, nbytes, card)
+    cs.log(f"P {nchan}x{ny}x{nx}:")
+    for name, call, kernel in cs.card_spectral_stages(cube):
+        if kernel is None or args.kernels:
+            attempt("P", name, data.numel() * 4, lambda: call(cube))
     return 0
 
 
