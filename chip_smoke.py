@@ -314,7 +314,16 @@ CARD_PEAK_SHARE = 0.9
 CARD_MAD_RATIO = 2.0
 CARD_KERNELS = {"P": ("moments", "conv_sep", "resample2", "smooth_interp",
                       "sigma_clip"),
-                "H": ("moments",)}
+                "H": ("moments",), "V": ("moments", "conv_sep"),
+                "S": ("resample2_filled", "banded_matmul")}
+# S: P reprojected onto a new spectral axis of one channel fewer than
+# P's, each channel this many input channels wide, starting this far (in
+# input channels) in: every output channel a lerp of two input channels,
+# so that each kernel input on the way passes 2**31 elements
+CARD_S_STEP = (1.0, 0.25)
+# the beam groups V (a)'s FFT route must take at least (its beams drift
+# over every channel)
+CARD_VR_MIN_GROUPS = 2000
 # the spectral median filter's width at P, and the percentile the H
 # reductions take along the spectral axis
 CARD_MEDIAN_WIDTH = 5
@@ -1552,11 +1561,11 @@ def hold_tiles_at_path_shape(cube, kern):
     torch.cuda.empty_cache()
 
 
-def spectral_target(header):
-    """The header of a target with SPECTRAL_TARGET's channels (twice the
-    input's width, starting a quarter channel in) on the grid shifted by
-    SHIFT."""
-    nz, step, start = SPECTRAL_TARGET
+def spectral_target(header, target=SPECTRAL_TARGET):
+    """The header of a target with ``target``'s channels (SPECTRAL_TARGET:
+    twice the input's width, starting a quarter channel in) on the grid
+    shifted by SHIFT."""
+    nz, step, start = target
     t = shifted_header(header, *SHIFT)
     t["NAXIS3"] = nz
     t["CDELT3"] = float(header["CDELT3"]) * step
@@ -4529,6 +4538,431 @@ CARD_WHOLE = {"mean(axis=(1, 2))":
               "argmax()": lambda c: tuple(int(i) for i in c.argmax())}
 
 
+def card_vr_cube(host, workdir):
+    """V: P's host copy ``host`` written as a 4-D FITS file with a CASA
+    BEAMS table (``vr_beams`` at its channels, VR_FLAGGED flagged), read
+    back with no device argument and the file deleted.  Returns the cube
+    and the seconds the write and the read took."""
+    import torch
+    import spectral_cube_tpu_torch as T
+    path = os.path.join(workdir, "card_v.fits")
+    t0 = time.perf_counter()
+    write_vr_fits(path, host, vr_beams(host.shape[0], flagged=VR_FLAGGED))
+    wrote = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        cube = T.SpectralCube.read(path)
+        torch.cuda.synchronize()
+        read = time.perf_counter() - t0
+    finally:
+        os.remove(path)
+    return cube, wrote, read
+
+
+def card_vr_grouped(cube):
+    """V (b): ``cube``'s data and mask with PA-0 beams held over
+    VR_GROUP-channel groups (``vr_beams(pa=(0, 0), group=VR_GROUP)``),
+    which take the per-channel separable route."""
+    import spectral_cube_tpu_torch as T
+    major, minor, pa = vr_beams(cube.shape[0], pa=(0.0, 0.0), group=VR_GROUP)
+    beams = T.Beams(major=T.Quantity(major, "arcsec"),
+                    minor=T.Quantity(minor, "arcsec"),
+                    pa=T.Quantity(pa, "deg"))
+    return T.VaryingResolutionSpectralCube(cube._data, cube.wcs,
+                                           mask=cube.mask,
+                                           header=cube.header, beams=beams)
+
+
+def card_vr_stages(cube, target, staged):
+    """V (a) in ``run_pipeline``'s stages, as ``phase_vrsc`` stages them:
+    ``common_beam``, ``convolve_to`` (the FFT route), ``mad_std``,
+    moments, ``statistics()`` and the rotated ``reproject`` (the
+    four-corner gather), each through ``staged(name, fn)``.  Returns the
+    convolved cube, the noise, the masked cube, the moments, the
+    statistics and the reprojected cube."""
+    import spectral_cube_tpu_torch as T
+    cb = staged("common_beam", cube.common_beam)
+    conv = staged("convolve_to", lambda: cube.convolve_to(cb))
+    noise = staged("mad_std", lambda: float(conv.mad_std().value))
+    masked = conv.with_mask(conv > T.Quantity(SNR * noise, conv.unit))
+    mom = staged("moments", masked._moments012)
+    stats = staged("statistics", masked.statistics)
+    rep = staged("reproject", lambda: masked._reproject(target))
+    return conv, noise, masked, mom, stats, rep
+
+
+def card_s_stages(cube):
+    """S: ``cube.reproject`` onto a spectral axis of one channel fewer
+    (CARD_S_STEP) on the grid shifted by SHIFT: ``(name, the call on a
+    cube, the kernel it launches)``, bilinear (#7, ``resample2_filled``)
+    and bicubic (#14, ``banded_matmul``, then the separable spatial
+    products)."""
+    def call(order):
+        def run(c):
+            c.allow_huge_operations = True
+            return c.reproject(spectral_target(
+                c.header, (c.shape[0] - 1,) + CARD_S_STEP), order=order)
+        return run
+    return [("reproject bilinear", call("bilinear"), "resample2_filled"),
+            ("reproject bicubic", call("bicubic"), "banded_matmul")]
+
+
+def card_f64_cube(cube):
+    """A float64 copy of ``cube`` (read from FITS) under the finiteness
+    mask a read gives."""
+    import torch
+    import spectral_cube_tpu_torch as T
+    data = cube._data.double()
+    return T.SpectralCube(data, cube.wcs, header=cube.header,
+                          mask=T.LazyMask(torch.isfinite, data=data,
+                                          wcs=cube.wcs))
+
+
+def float64_fft_convolve_to(cube, beam):
+    """``cube.convolve_to(beam)`` on the FFT route in float64 (complex128
+    transfers of the same kernels), and each voxel's float64 denominator
+    1 - K*~finite: host arrays, the flagged planes NaN, the Jy/beam
+    factors applied."""
+    import torch
+    from spectral_cube_tpu_torch.ops import convolve as oc
+    from spectral_cube_tpu_torch.ops import reductions as rd
+    filled = cube._get_filled_data(fill=np.nan).double()
+    pix = float(np.mean(np.abs(
+        cube.wcs.celestial.proj_plane_pixel_scales()))) * np.pi / 180.0
+    good = np.asarray(cube.goodbeams_mask)
+    beams = [b if g else beam for b, g in zip(cube.unmasked_beams, good)]
+    groups, gidx = oc.beam_groups(beams)
+    kernels = [None if beam.deconvolve(b).major_rad <= 0
+               else beam.deconvolve(b).as_kernel(pix) for b in groups]
+    fy, fx = oc._padded_shape(filled.shape[1:], tuple(np.max(
+        [k.shape for k in kernels if k is not None] or [(1, 1)], axis=0)))
+    tr = oc._transfers(kernels, fy, fx, filled.device, torch.complex128)
+    out = oc._convolve_planes(filled, tr, gidx)
+    den = 1.0 - oc._convolve_planes((~rd.finite(filled)).double(), tr, gidx)
+    out[torch.as_tensor(np.flatnonzero(~good), device=out.device)] = np.nan
+    factors = torch.as_tensor([oc.beam_unit_factor(cube.unit, b, beam)
+                               for b in beams], dtype=torch.float64,
+                              device=out.device)
+    out *= factors[:, None, None]
+    return out.cpu().numpy(), den.cpu().numpy()
+
+
+def near_float64(got, want, free, weight=None, rtol=1e-6):
+    """A float32 result ``got`` against its float64 form ``want`` (host
+    arrays): NaN states equal but where ``free`` (where the NaN test sits
+    inside float32 rounding of the quantity it tests), and |got - want|,
+    times ``weight`` where given, within ``rtol`` of the largest |want|.
+    Returns (ok, that error over the largest |want|, the NaN flips)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    flip = np.isnan(got) != np.isnan(want)
+    both = ~np.isnan(got) & ~np.isnan(want)
+    if not both.any():
+        return not flip.any(), 0.0, int(flip.sum())
+    scale = float(np.abs(want[both]).max())
+    diff = np.abs(got[both] - want[both])
+    if weight is not None:
+        diff = diff * weight[both]
+    err = float(diff.max()) / max(scale, 1e-30)
+    return (not (flip & ~free).any() and err <= rtol), err, int(flip.sum())
+
+
+def float64_spline(cube, target, c0, c1, order=3):
+    """Output channels ``c0:c1`` of ``cube.reproject(target, order=order)``
+    onto a new spectral axis and an axis-aligned grid, every product in
+    float64 on the card (the port's float32 operators taken to float64),
+    and each voxel's float64 NaN weight: host arrays."""
+    import torch
+    from spectral_cube_tpu_torch.ops import regrid as og
+    f64 = torch.float64
+    nchan, ny_in, nx_in = cube.shape
+    zs, ys, xs, _ = og.reproject_mappings(
+        cube.wcs, target, nchan,
+        spectral_values_in=np.asarray(cube.spectral_axis.value))
+    m = og.spline_host_maps(zs, ys, xs, nchan, ny_in, nx_in)
+    tz = og._spline_1d_matrix(nchan, m.zc, order)[c0:c1]
+    cols = np.flatnonzero(np.abs(tz).sum(0))
+    tz = tz[:, cols]
+    ty = og._spline_1d_matrix(ny_in, m.ycl[:, 0], order)
+    tx = og._spline_1d_matrix(nx_in, m.xcl[0, :], order)
+    data = cube._get_filled_data(fill=np.nan)[
+        torch.as_tensor(cols, device=cube.device)]
+    dev = data.device
+
+    def op(a):
+        return torch.as_tensor(np.asarray(a, np.float64), device=dev)
+
+    def apply(z, y, x, a):
+        fz = (op(z) @ a.reshape(len(cols), -1)).reshape(-1, ny_in, nx_in)
+        return op(y) @ fz @ op(x).t()
+    out = apply(tz, ty, tx, torch.nan_to_num(data.to(f64)))
+    wn = apply(np.abs(tz), np.abs(ty), np.abs(tx),
+               torch.isnan(data).to(f64))
+    valid = torch.as_tensor((m.yvalid & m.xvalid)[None], device=dev) \
+        & torch.as_tensor(m.zvalid[c0:c1], device=dev)[:, None, None]
+    out = torch.where(valid & ~(wn > 1e-6), out, np.nan)
+    return out.cpu().numpy(), wn.cpu().numpy()
+
+
+def card_vr(cube, tiles, nbytes, card, sizes, stages, staged, hold,
+            big_launches, time_first_calls, hold_tiles):
+    """V on P (``cube``, a varying-resolution cube read from FITS): (a)
+    ``run_pipeline`` onto the grid rotated by VR_ROTATION (the FFT route
+    over its ~2303 beam groups, moments launched on the whole cube) and
+    its stages (:func:`card_vr_stages`); (b) ``convolve_to`` a 12" beam
+    from PA-0 beams in VR_GROUP-channel groups (conv_sep launched on the
+    whole cube).  Each peak at most CARD_PEAK_SHARE of the card; the
+    launches counted over their stage alone.  Held where no plain version
+    fits: (a)'s moments and linewidth on the ``tiles`` bit for bit the
+    same call on the tile's cut-out (``run_pipeline(noise_estimate=)``),
+    the stages bit for bit ``run_pipeline``'s, and on CARD_SLAB-channel
+    slabs (first, middle, last and over the flagged planes) the
+    reprojected cube bit for bit the slab's (the gather runs per voxel)
+    and the convolved cube within 1e-6 of the float64 form
+    (:func:`near_float64` by :func:`compare_conv`'s rule: cuFFT's batched
+    plans follow the batch; whether
+    it is also the slab's call bit for bit is logged); (b) on the slabs
+    bit for bit the slab's call.  Returns the summary part."""
+    import torch
+    import spectral_cube_tpu_torch as T
+    from spectral_cube_tpu_torch import kernels as K
+    from spectral_cube_tpu_torch.ops import convolve as oc
+    nchan = cube.shape[0]
+    moments, conv_sep = CARD_KERNELS["V"]
+    slabs = sorted({0, (nchan - CARD_SLAB) // 2, nchan - CARD_SLAB,
+                    VR_FLAGGED[0] - CARD_SLAB // 2})
+    target = rotated_header(cube.header, VR_ROTATION)
+
+    def peak_held(name):
+        peak = stages[f"V {name}"][1]
+        hold(f"V {name} peak at most {CARD_PEAK_SHARE:.0%} of the card",
+             peak <= CARD_PEAK_SHARE * card,
+             f"({peak / 2**30:.2f} of {card / 2**30:.2f} GiB)",
+             f"V {name} peak")
+
+    def staged_v(name, fn):
+        return staged("V", name, nbytes, fn)
+    # (a) run_pipeline, moments counted over it alone
+    with recorded_calls((moments,)) as calls:
+        K.reset_launch_counts()
+        res = staged_v("run_pipeline", lambda: T.run_pipeline(
+            cube, snr_threshold=SNR, target_header=target))
+    route = dict(oc.convolve_cube_to_beam.last)
+    sizes[moments] = [a[0].numel() for a, _ in calls[moments]]
+    launched = [big_launches("V", sizes, (moments,))]
+    del calls
+    peak_held("run_pipeline")
+    hold(f"V (a) route fft with at least {CARD_VR_MIN_GROUPS} beam groups",
+         route["route"] == "fft" and route["groups"] >= CARD_VR_MIN_GROUPS,
+         f"({route['route']}, {route['groups']} groups, host grouping "
+         f"{route['grouping_s'] * 1e3:.1f} ms, kernels and route choice "
+         f"{route['kernels_s'] * 1e3:.1f} ms)", "V (a) route")
+    conv, noise, masked, mom, stats, rep = card_vr_stages(
+        cube, target, staged_v)
+    for name in ("common_beam", "convolve_to", "mad_std", "moments",
+                 "statistics", "reproject"):
+        peak_held(name)
+    full = [np.asarray(m.value) for m in res["moments"]]
+    with np.errstate(invalid="ignore"):
+        staged_moments = [mom[0], mom[1], np.sqrt(mom[2])]
+    hold("V stages bit for bit run_pipeline's (moments, linewidth, "
+         "reprojected cube, statistics)",
+         all(a.tobytes() == np.asarray(b, a.dtype).tobytes()
+             for a, b in zip(full, staged_moments))
+         and bits_equal(rep._data, res["cube"]._data)
+         and all(float(stats[k].value) == float(res["statistics"][k].value)
+                 for k in ("sum", "mean", "sigma", "min", "max"))
+         and stats["npts"] == res["statistics"]["npts"], "",
+         "V stages = run_pipeline")
+    del res
+    for c in VR_FLAGGED:
+        hold(f"V convolved plane {c} (flagged beam) NaN",
+             bool(torch.isnan(conv._data[c]).all()), "", f"V flagged {c}")
+    hold_tiles("V", full, lambda y0, x0: [
+        m.value for m in T.run_pipeline(
+            conv[:, y0:y0 + CARD_TILE, x0:x0 + CARD_TILE],
+            snr_threshold=SNR, noise_estimate=noise)["moments"]], tiles)
+    cb = cube.common_beam()
+    bitwise = []
+    for c0 in slabs:
+        sl = slice(c0, c0 + CARD_SLAB)
+        where = f"channels {c0}-{c0 + CARD_SLAB - 1}"
+        got = conv._data[sl]
+        some = int(torch.isfinite(got).sum())
+        hold(f"V convolve_to of {where} holds finite values", some > 0,
+             f"({some})", f"V convolve_to slab {c0} finite")
+        same = bits_equal(cube[sl].convolve_to(cb)._data, got)
+        bitwise.append(same)
+        want, den = float64_fft_convolve_to(cube[sl], cb)
+        # compare_conv's rule: the NaN test den > 1e-6 is float32
+        # rounding itself where den <= 1e-5, and 1/den amplifies it
+        ok, err, flips = near_float64(got.cpu().numpy(), want, den <= 1e-5,
+                                      np.minimum(den, 1.0))
+        hold(f"V convolve_to of {where} within 1e-6 of float64", ok,
+             f"({err:.2e} of the largest |value|, {flips} NaN flips at den "
+             f"<= 1e-5; bit for bit the slab's: {same})",
+             f"V convolve_to slab {c0}")
+        slab = masked[sl]
+        hold(f"V reproject of {where} bit for bit the slab's",
+             bits_equal(slab._reproject(rotated_header(
+                 slab.header, VR_ROTATION))._data, rep._data[sl]), "",
+             f"V reproject slab {c0}")
+        del got, want, den, slab
+    del rep, conv, masked
+    torch.cuda.empty_cache()
+    # (b) the per-channel separable route
+    grouped = card_vr_grouped(cube)
+    _, target_beam = beams()
+    with recorded_calls((conv_sep,)) as calls:
+        K.reset_launch_counts()
+        out = staged_v("convolve_to (b)",
+                       lambda: grouped.convolve_to(target_beam))
+    route_b = dict(oc.convolve_cube_to_beam.last)
+    sizes[conv_sep] = [a[0].numel() for a, _ in calls[conv_sep]]
+    launched.append(big_launches("V", sizes, (conv_sep,)))
+    timed = time_first_calls("V", calls, (conv_sep,))
+    del calls
+    peak_held("convolve_to (b)")
+    ngroups = -(-nchan // VR_GROUP)
+    hold("V (b) route per_channel_separable",
+         route_b["route"] == "per_channel_separable"
+         and route_b["groups"] == ngroups,
+         f"({route_b['route']}, {route_b['groups']} groups)", "V (b) route")
+    for c0 in slabs:
+        sl = slice(c0, c0 + CARD_SLAB)
+        hold(f"V (b) convolve_to of channels {c0}-{c0 + CARD_SLAB - 1} bit "
+             "for bit the slab's", bits_equal(
+                 grouped[sl].convolve_to(target_beam)._data, out._data[sl]),
+             "", f"V (b) slab {c0}")
+    del out, grouped
+    torch.cuda.empty_cache()
+    return (f"V (a) route {route['route']}, {route['groups']} beam groups; "
+            "convolve_to slabs " + ", ".join(map(str, slabs))
+            + " bit for bit the slab's call: "
+            + ", ".join(map(str, bitwise)) + "; launches "
+            + ", ".join(launched) + "; kernel wrapper calls " + timed)
+
+
+def card_s_f64(cube, nbytes, card, sizes, stages, staged, hold, big_launches,
+               time_first_calls):
+    """S on P (``cube``, read from FITS): ``reproject`` onto a new spectral
+    axis (:func:`card_s_stages`), bilinear (#7 on fz and wz, each
+    2,414,870,528 elements) and bicubic (#14 on the filled data and the
+    NaN mask, 2,415,919,104 elements), each peak at most CARD_PEAK_SHARE
+    of the card, the launches counted over the stage alone; held on
+    CARD_SLAB-channel slabs (first, middle, last) of output channels,
+    each holding finite values: bilinear bit for bit the same call on the
+    slab's cut-out (every kernel input per voxel), bicubic within 1e-6 of
+    the largest |value| of its float64 form (:func:`float64_spline`: the
+    spatial ``torch.matmul``'s plan follows the batch), and #14's output
+    on a column range bit for bit the whole launch's.  Then
+    ``statistics()`` of a float64 copy (:func:`card_f64_cube`): its rise
+    at most CARD_MAD_RATIO cube bytes of its own, npts the float32
+    kernel's exactly, mean and sigma within 1e-6 of it.  Returns the
+    summary part."""
+    import torch
+    from spectral_cube_tpu_torch import kernels as K
+    from spectral_cube_tpu_torch.kernels import banded_matmul as kbm
+    from spectral_cube_tpu_torch.ops import regrid as og
+    nz = cube.shape[0] - 1
+    slabs = (0, (nz - CARD_SLAB) // 2, nz - CARD_SLAB)
+    target = spectral_target(cube.header, (nz,) + CARD_S_STEP)
+    launched, timed = [], []
+    s_stages = card_s_stages(cube)
+    if tuple(k for _, _, k in s_stages) != CARD_KERNELS["S"]:
+        raise AssertionError(f"S stages' kernels {s_stages}")
+    for (name, call, kernel), order in zip(s_stages, ("bilinear", "bicubic")):
+        with recorded_calls((kernel,)) as calls:
+            K.reset_launch_counts()
+            out = staged("S", name, nbytes, lambda: call(cube))
+        peak = stages[f"S {name}"][1]
+        sizes[kernel] = [a[0].numel() for a, _ in calls[kernel]]
+        launched.append(big_launches("S", sizes, (kernel,)))
+        args = calls[kernel][0][0]
+        if order == "bilinear":
+            # fz, wz, wz_any, the taps, the valid plane
+            bms, by = filled_bound(args[0], args[2],
+                                   args[0].shape[0] * args[7].size)
+        else:
+            flat, bands = args[:2]
+            bms, by = bound((flat.shape[0] + len(bands.start))
+                            * flat.shape[1] * 4,
+                            2 * int(bands.length.sum()) * flat.shape[1])
+        timed.append(time_first_calls("S", calls, (kernel,))
+                     + f" (bound {bms:.3f} ms, {by})")
+        log(f"  S {kernel} bound {bms:.3f} ms ({by})")
+        del calls, args
+        hold(f"S {name} peak at most {CARD_PEAK_SHARE:.0%} of the card",
+             peak <= CARD_PEAK_SHARE * card,
+             f"({peak / 2**30:.2f} of {card / 2**30:.2f} GiB)",
+             f"S {name} peak")
+        if out.shape != (nz,) + cube.shape[1:]:
+            raise AssertionError(f"S {name}: shape {out.shape}")
+        for c0 in slabs:
+            where = f"output channels {c0}-{c0 + CARD_SLAB - 1}"
+            got = out._data[c0:c0 + CARD_SLAB]
+            some = int(torch.isfinite(got).sum())
+            hold(f"S {name} {where} hold finite values", some > 0,
+                 f"({some})", f"S {name} slab {c0} finite")
+            cut = cube[c0:c0 + CARD_SLAB + 1]
+            cut.allow_huge_operations = True
+            same = bits_equal(cut.reproject(spectral_target(
+                cut.header, (CARD_SLAB,) + CARD_S_STEP), order=order)._data,
+                got)
+            if order == "bilinear":
+                hold(f"S {name} {where} bit for bit the slab's", same, "",
+                     f"S {name} slab {c0}")
+                continue
+            want, wn = float64_spline(cube, target, c0, c0 + CARD_SLAB)
+            # a float32 sum of the NaN weights may land on either side of
+            # the 1e-6 limit where it lies within 1e-6 of it
+            ok, err, flips = near_float64(got.cpu().numpy(), want,
+                                          np.abs(wn - 1e-6) <= 1e-6)
+            hold(f"S {name} {where} within 1e-6 of float64", ok,
+                 f"({err:.2e} of the largest |value|, {flips} NaN flips "
+                 f"at the 1e-6 weight limit; bit for bit the slab's: "
+                 f"{same})", f"S {name} slab {c0}")
+        # ``got`` is a view: it holds the whole output alive
+        del out, got
+        torch.cuda.empty_cache()
+    # #14's output on a column range against the whole launch's
+    zs, ys, xs, _ = og.reproject_mappings(
+        cube.wcs, target, cube.shape[0],
+        spectral_values_in=np.asarray(cube.spectral_axis.value))
+    m = og.spline_host_maps(zs, ys, xs, *cube.shape)
+    bands = og._spectral_route(og._spline_1d_matrix(cube.shape[0], m.zc,
+                                                    3))[0]
+    flat = torch.nan_to_num(cube._get_filled_data(fill=np.nan)).reshape(
+        cube.shape[0], -1)
+    whole = kbm.banded_matmul(flat, bands)
+    cols = slice(flat.shape[1] // 2, flat.shape[1] // 2 + CARD_TILE ** 2)
+    hold("S banded_matmul (#14) on a column range bit for bit the whole "
+         "launch's", bits_equal(kbm.banded_matmul(
+             flat[:, cols].contiguous(), bands), whole[:, cols]),
+         f"(columns {cols.start}-{cols.stop - 1})", "S #14 columns")
+    del flat, whole
+    torch.cuda.empty_cache()
+    # statistics() of a float64 copy
+    want = cube.statistics()
+    f64 = card_f64_cube(cube)
+    got = staged("F", "statistics float64", 2 * nbytes, f64.statistics)
+    rise = stages["F statistics float64"][2]
+    del f64
+    torch.cuda.empty_cache()
+    hold(f"F statistics float64 rise at most {CARD_MAD_RATIO} cube bytes",
+         rise <= CARD_MAD_RATIO, f"({rise:.3f})", "F statistics rise")
+    bad = [k for k in ("mean", "sigma") if abs(
+        float(got[k].value) - float(want[k].value))
+        > 1e-6 * abs(float(want[k].value))]
+    hold("F statistics float64 npts the float32 kernel's, mean and sigma "
+         "within 1e-6 of it", got["npts"] == want["npts"] and not bad,
+         "(" + ", ".join(f"{k} {float(got[k].value)!r} vs "
+                         f"{float(want[k].value)!r}" for k in
+                         ("mean", "sigma")) + f", npts {got['npts']})",
+         "F statistics")
+    return ("S launches " + ", ".join(launched) + "; kernel wrapper calls "
+            + ", ".join(timed))
+
+
 def staged_call(dev, stages, tag, name, nbytes, fn):
     """``fn()`` on the host clock, synchronised, with the device peak and
     its rise above the bytes in use before it, in cube bytes, kept in
@@ -4705,8 +5139,11 @@ def phase_card_scale(dev, workdir):
     of the card and, on a cut-out of ``SORT_CHUNK`` voxels, the one-sort
     form's, ``statistics()`` npts exact and sum, mean and sigma within
     1e-6 of a float64 oracle; then the spectral path on P
-    (:func:`card_spectral`) and the cube's other reductions on H
-    (:func:`card_reductions`).  Returns the "summary: card scale" line."""
+    (:func:`card_spectral`), P's reprojection onto a new spectral axis
+    and a float64 copy's ``statistics()`` (:func:`card_s_f64`), P as a
+    varying-resolution cube (:func:`card_vr`), and the cube's other
+    reductions on H (:func:`card_reductions`).  Returns the "summary:
+    card scale" line."""
     import shutil
     import torch
     import spectral_cube_tpu_torch as T
@@ -4955,7 +5392,30 @@ def phase_card_scale(dev, workdir):
     torch.cuda.empty_cache()
     parts.append(card_spectral(cube, p_tiles, nbytes, card, sizes, staged,
                                hold, big_launches, time_first_calls))
+    torch.cuda.empty_cache()
+    parts.append(card_s_f64(cube, nbytes, card, sizes, stages, staged, hold,
+                            big_launches, time_first_calls))
+    # V: P's data as a varying-resolution cube, written as a 4-D FITS
+    # file with a BEAMS table and read back with no device argument
+    t0 = time.perf_counter()
+    host = cube._data.cpu().numpy()
+    d2h = time.perf_counter() - t0
     del cube
+    torch.cuda.empty_cache()
+    with HostPeak() as vr_peak:
+        vr, wrote, read = card_vr_cube(host, workdir)
+        del host
+    if not isinstance(vr, T.VaryingResolutionSpectralCube) \
+            or vr.device.type != "cuda" or vr.shape != CARD_P:
+        raise AssertionError(f"V read without a device gave {vr!r}")
+    vr_io = (f"V: to the host {d2h:.2f} s, written with a BEAMS table "
+             f"{wrote:.2f} s, read {read:.2f} s, host peak {vr_peak}, "
+             f"{int((~vr.goodbeams_mask).sum())} flagged planes")
+    log(f"  {vr_io}")
+    parts.append(vr_io + "; " + card_vr(
+        vr, p_tiles, nbytes, card, sizes, stages, staged, hold,
+        big_launches, time_first_calls, hold_tiles))
+    del vr
     torch.cuda.empty_cache()
 
     # H: moments, statistics() and mad_std() on bench config 8's cube

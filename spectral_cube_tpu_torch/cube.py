@@ -112,6 +112,17 @@ def default_device():
     return torch.device("cuda")
 
 
+def _rescaled(out, factors, data):
+    """``out`` of ``convolve_cube_to_beam(data, ...)`` times its per-channel
+    Jy/beam ``factors``: in place on an output the convolution made, a new
+    tensor where the identity route handed back ``data`` itself."""
+    if np.allclose(factors, 1.0):
+        return out
+    f = torch.as_tensor(factors, dtype=out.dtype,
+                        device=out.device)[:, None, None]
+    return out * f if out is data else out.mul_(f)
+
+
 def _as_tensor(data, device):
     """Cube data as a tensor on ``device`` (default: the tensor's own
     device, else :func:`default_device`).  A numpy float64 payload becomes
@@ -2116,12 +2127,11 @@ class SpectralCube(BaseSpectralCube):
             raise NoBeamError("The cube has no beam; use with_beam first")
         pixscale = float(np.mean(np.abs(
             self._wcs.celestial.proj_plane_pixel_scales()))) * np.pi / 180.0
+        filled = self._get_filled_data(fill=np.nan)
         out, factors = _conv.convolve_cube_to_beam(
-            self._get_filled_data(fill=np.nan), self._beam, beam, pixscale,
-            unit=self.unit)
-        if not np.allclose(factors, 1.0):
-            out = out * torch.as_tensor(factors, dtype=out.dtype,
-                                        device=out.device)[:, None, None]
+            filled, self._beam, beam, pixscale, unit=self.unit)
+        out = _rescaled(out, factors, filled)
+        del filled
         return self._new_cube_with(data=out, beam=beam)
 
 
@@ -2372,12 +2382,12 @@ class VaryingResolutionSpectralCube(BaseSpectralCube):
                     return False
             beams = [b if not good or _deconvolvable(b) else beam
                      for b, good in zip(beams, self._goodbeams_mask)]
+        filled = self._get_filled_data(fill=np.nan)
         out, factors = _conv.convolve_cube_to_beam(
-            self._get_filled_data(fill=np.nan), beams, beam, pixscale,
-            unit=self.unit, goodchannels=self._goodbeams_mask)
-        if not np.allclose(factors, 1.0):
-            out = out * torch.as_tensor(factors, dtype=out.dtype,
-                                        device=out.device)[:, None, None]
+            filled, beams, beam, pixscale, unit=self.unit,
+            goodchannels=self._goodbeams_mask)
+        out = _rescaled(out, factors, filled)
+        del filled
         meta = dict(self._meta)
         meta["beam"] = beam
         return SpectralCube(data=out, wcs=self._wcs, mask=self._mask,

@@ -31,6 +31,7 @@ from ..beams import Beam
 from ..units import Unit
 from ..kernels.conv_sep import conv_sep
 from ..utils import takes_numpy
+from .reductions import finite
 from .smoothing import _banded_conv_matrix, banded_tap_offset
 
 __all__ = ["separable_factors", "convolve2d_separable",
@@ -105,6 +106,12 @@ def _transfers(kernels, fy, fx, device, dtype=torch.complex64):
     return out
 
 
+def _fft_channels(fy, fx):
+    """Channels of one batch of the FFT route: :data:`_FFT_CHUNK_BYTES` of
+    padded float32 planes."""
+    return max(1, _FFT_CHUNK_BYTES // (fy * fx * 4))
+
+
 def _convolve_planes(data, transfers, group_idx):
     """Convolve each channel of (nchan, ny, nx) ``data`` with its group's
     transfer (the JAX package's ops/convolve.py:244-310, rfft2 branch):
@@ -124,7 +131,7 @@ def _convolve_planes(data, transfers, group_idx):
     gidx = torch.as_tensor(np.asarray(group_idx, np.int64),
                            device=data.device)
     out = torch.empty((nchan, ny, nx), dtype=real, device=data.device)
-    step = max(1, _FFT_CHUNK_BYTES // (fy * fx * 4))
+    step = _fft_channels(fy, fx)
     for c0 in range(0, nchan, step):
         x = data[c0:c0 + step]
         t = tr.index_select(0, gidx[c0:c0 + step])
@@ -133,7 +140,7 @@ def _convolve_planes(data, transfers, group_idx):
             return torch.fft.irfft2(torch.fft.rfft2(a, s=(fy, fx)) * t,
                                     s=(fy, fx))[:, :ny, :nx]
 
-        valid = torch.isfinite(x)
+        valid = finite(x)
         num = conv2(torch.where(valid, x, 0).to(real))
         dirty = ~valid.flatten(1).all(1)
         if bool(dirty.any()):
@@ -146,6 +153,29 @@ def _convolve_planes(data, transfers, group_idx):
             num = torch.where(dirty[:, None, None], o, num)
         out[c0:c0 + step] = num
     return out.to(data.dtype)
+
+
+def _convolve_groups_fft(data, kernels, group_idx, fy, fx):
+    """:func:`_convolve_planes` of (nchan, ny, nx) ``data`` with channel c
+    convolved by ``kernels[group_idx[c]]`` (None is the identity) on
+    (fy, fx) planes, one :func:`_fft_channels` batch at a time, each batch
+    with the transfers of the groups it uses alone (the JAX package builds
+    every group's transfer at once for ops/convolve.py:244-310: at 2302
+    beam groups on 1152² planes, 11.4 GiB beside a 9 GiB cube).  A
+    transfer's values do not depend on which groups are built beside it
+    (:func:`_transfers`), and the batches are :func:`_convolve_planes`'
+    own, so the values are those of one call with every transfer."""
+    nchan = data.shape[0]
+    gidx = np.asarray(group_idx, np.int64)
+    out = torch.empty(data.shape, dtype=data.dtype, device=data.device)
+    step = _fft_channels(fy, fx)
+    for c0 in range(0, nchan, step):
+        used, local = np.unique(gidx[c0:c0 + step], return_inverse=True)
+        tr = _transfers([kernels[g] for g in used], fy, fx, data.device,
+                        _complex_of(data.dtype))
+        out[c0:c0 + step] = _convolve_planes(data[c0:c0 + step], tr, local)
+        del tr
+    return out
 
 
 @takes_numpy
@@ -337,9 +367,7 @@ def convolve_cube_to_beam(data, beams, target: Beam, pixscale_rad,
     t2 = time.perf_counter()
     if out is None:
         fy, fx = _padded_shape((ny, nx), max_k)
-        out = _convolve_planes(data, _transfers(kernels, fy, fx, data.device,
-                                                _complex_of(data.dtype)),
-                               group_idx)
+        out = _convolve_groups_fft(data, kernels, group_idx, fy, fx)
         route = "fft"
     convolve_cube_to_beam.last = {"route": route, "groups": len(groups),
                                   "grouping_s": t1 - t0,
@@ -352,7 +380,10 @@ def convolve_cube_to_beam(data, beams, target: Beam, pixscale_rad,
     if goodchannels is not None:
         bad = ~np.asarray(goodchannels)
         if bad.any():
-            out = out.clone()
+            # every route but the identity made ``out`` here: its bad
+            # planes are written in place, the caller's data left alone
+            if route == "identity":
+                out = out.clone()
             out[torch.as_tensor(np.where(bad)[0], device=out.device)] = \
                 float("nan")
     return out, factors

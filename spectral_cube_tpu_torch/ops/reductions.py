@@ -583,18 +583,24 @@ def _percentile_of(keys, n, q, dtype):
 
 def masked_statistics(data, valid):
     """Global statistics, CASA ia.statistics naming (reference
-    ``dask_spectral_cube.py:769-814``), with sigma from a second,
-    mean-centered pass (the one-pass form cancels in float32)."""
-    cnt = valid.sum()
-    s = _fill(data, valid, 0).sum()
-    ss = _fill(data * data, valid, 0).sum()
-    mn = _fill(data, valid, math.inf).min()
-    mx = _fill(data, valid, -math.inf).max()
+    ``dask_spectral_cube.py:769-814``; the JAX package's
+    ``ops/reductions.py:119-151``), with sigma from a second,
+    mean-centered pass (the one-pass form cancels in float32).  Every sum
+    is :func:`_whole_sum`'s and every extremum :func:`_whole_extremum`'s,
+    a piece at a time: no count, filled copy or square of the whole
+    cube.  ``valid`` broadcasts against ``data``."""
+    s, cnt = _whole_sum(data, valid)
+    ss = _whole_sum(data, valid, lambda d: d * d)[0]
+    mn = _whole_extremum(data, valid, math.inf, torch.min)[0]
+    mx = _whole_extremum(data, valid, -math.inf, torch.max)[0]
     npts = cnt.to(data.dtype)
     mean = torch.where(cnt > 0, s / torch.clamp(npts, min=1), NAN)
     mean_safe = torch.where(cnt > 0, mean, 0.0)
-    dev = _fill(data - mean_safe, valid, 0)
-    s2c = (dev * dev).sum()
+
+    def square(d):
+        dev = d - mean_safe
+        return dev.mul_(dev)
+    s2c = _whole_sum(data, valid, square)[0]
     sigma = torch.where(cnt > 1, torch.sqrt(s2c / torch.clamp(npts - 1,
                                                                min=1)), NAN)
     rms = torch.where(cnt > 0, torch.sqrt(ss / torch.clamp(npts, min=1)), NAN)

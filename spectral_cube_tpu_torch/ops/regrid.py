@@ -57,6 +57,38 @@ _ORDERS = {"nearest-neighbor": 0, "nearest": 0, "bilinear": 1,
            "biquadratic": 2, "bicubic": 3}
 
 
+#: output voxels a slab of the staged spectral lerp, of the four-corner
+#: gather and of the spline path's spatial step holds at once: each runs a
+#: slab of output channels at a time into its one output, so that its
+#: temporaries are a slab's, not a cube's
+SLAB_VOXELS = 1 << 27
+
+
+def _slabs(nz, plane):
+    """``(k0, k1)`` of the slabs of ``nz`` output channels of ``plane``
+    voxels each, :data:`SLAB_VOXELS` at most (one channel at least)."""
+    step = max(1, SLAB_VOXELS // max(int(plane), 1))
+    return [(k0, min(k0 + step, nz)) for k0 in range(0, nz, step)]
+
+
+def _into(out, k0, k1, nz, val):
+    """``val`` written as channels ``k0:k1`` of ``out``, the (nz, ...)
+    output made at the first slab with ``val``'s type and device."""
+    if out is None:
+        out = torch.empty((nz,) + tuple(val.shape[1:]), dtype=val.dtype,
+                          device=val.device)
+    out[k0:k1] = val
+    return out
+
+
+def _nan_channels(data):
+    """(nchan,) bool: the channels of ``data`` that hold a NaN, found a
+    slab of channels at a time."""
+    return torch.cat([torch.isnan(data[k0:k1]).flatten(1).any(1)
+                      for k0, k1 in _slabs(data.shape[0],
+                                           data[0].numel())])
+
+
 def _order_int(order):
     """Accept the reference's order names (reproject_interp's documented
     'nearest-neighbor'|'bilinear'|'biquadratic'|'bicubic', reference
@@ -383,26 +415,45 @@ def _spline_spatial_then_z(data, zs, ys, xs, order):
     the spatial step, separable where the mapping is axis-aligned to 1e-9
     pixel and no grid exceeds 4096, else the prefilter and tap gathers.
     NaN poisoning is the |T|-weighted NaN mass above 1e-6, local to the
-    taps; outputs outside the input are NaN."""
+    taps; outputs outside the input are NaN.  The filled data and then
+    the NaN mask are written a slab at a time into one buffer, each
+    product's input in turn, and the spatial step runs a slab of output
+    channels at a time into the one output (:data:`SLAB_VOXELS`)."""
     m = spline_host_maps(zs, ys, xs, *data.shape)
     dev = data.device
-    nanmask = torch.isnan(data).to(torch.float32)
-    filled = torch.nan_to_num(data)
+    nchan, ny_in, nx_in = data.shape
     if m.z_identity:
-        fz, wz = filled, nanmask
+        fz = torch.nan_to_num(data)
+        wz = torch.isnan(data).to(torch.float32)
     else:
-        tz = _spline_1d_matrix(data.shape[0], m.zc, order)
-        fz = _spectral_product(tz, filled)
-        wz = _spectral_product(np.abs(tz), nanmask)
-    del nanmask, filled
-    if m.separable:
-        out, wn = _spline_separable_resample(fz, wz, m.ycl, m.xcl, order)
-    else:
-        out, wn = _spline_nonseparable_resample(fz, wz, m.ycl, m.xcl, order)
-    del fz, wz
-    if wn is not None:
-        out.masked_fill_(wn > 1e-6, float("nan"))
+        tz = _spline_1d_matrix(nchan, m.zc, order)
+        buf = torch.empty(data.shape, dtype=torch.float32, device=dev)
+        slabs = _slabs(nchan, ny_in * nx_in)
+        for k0, k1 in slabs:
+            buf[k0:k1] = torch.nan_to_num(data[k0:k1])
+        fz = _spectral_product(tz, buf)
+        for k0, k1 in slabs:
+            buf[k0:k1] = torch.isnan(data[k0:k1])
+        wz = _spectral_product(np.abs(tz), buf)
+        del buf
+    nz = fz.shape[0]
+    ny, nx = m.ycl.shape
+    plan = None if m.separable else spline_taps(m.ycl, m.xcl, order, ny_in,
+                                                nx_in, dev)
+    out = None
+    for k0, k1 in _slabs(nz, max(ny * nx, ny_in * nx_in)):
+        if m.separable:
+            o, wn = _spline_separable_resample(fz[k0:k1], wz[k0:k1], m.ycl,
+                                               m.xcl, order)
+        else:
+            o, wn = _spline_nonseparable_resample(fz[k0:k1], wz[k0:k1],
+                                                  m.ycl, m.xcl, order, plan)
+        if wn is not None:
+            o.masked_fill_(wn > 1e-6, float("nan"))
         del wn
+        out = _into(out, k0, k1, nz, o)
+        del o
+    del fz, wz
     valid = torch.as_tensor((m.yvalid & m.xvalid)[None], device=dev) \
         & torch.as_tensor(m.zvalid, device=dev)[:, None, None]
     return out.masked_fill_(~valid, float("nan")).to(data.dtype)
@@ -438,11 +489,12 @@ def _gather_resample(data, maps, order):
     per output pixel the weighted sum of its 2 x 2 input corners (the
     nearest one for order 0), gathered as rows of the (ny_in * nx_in, nz)
     channels-minor view so that each gather reads whole spectra.  Only a
-    cube that holds NaN gathers its NaN weights too, and an output whose
-    NaN weight is above 1e-6 becomes NaN; outputs outside the input's
-    footprint are NaN.  The gathers accumulate in place into one buffer,
-    so the peak is about four cubes (the transposed input, the
-    accumulator, one gathered corner and the output)."""
+    slab whose input channels hold NaN gathers its NaN weights too, and an
+    output whose NaN weight is above 1e-6 becomes NaN; outputs outside the
+    input's footprint are NaN.  It runs a slab of output channels at a
+    time (:data:`SLAB_VOXELS`) into the one output, the gathers of a slab
+    accumulating in place into one buffer, so that the output is the only
+    cube it makes (the JAX package's whole-cube form held about four)."""
     (zvalid, z0, zf, z_identity, yvalid, xvalid, y0, y1, wy,
      x0, x1, wx) = maps
     nchan_in, ny_in, nx_in = data.shape
@@ -462,18 +514,24 @@ def _gather_resample(data, maps, order):
                                     nchan_in - 1), device=dev)
     f3 = torch.as_tensor(np.asarray(zf, np.float32), device=dev)[:, None,
                                                                  None]
+    lerped = not (z_identity or order == 0 or nchan_in == 1)
+    nan_chan = _nan_channels(data)
 
-    def zlerp(a):
+    def zlerp(prep, k0, k1):
+        # output channels k0:k1 of the spectral lerp of ``prep`` of the
+        # data, ``prep`` applied to the input channels they read
         if z_identity:
+            return prep(data[k0:k1])
+        a = prep(data.index_select(0, lo[k0:k1]))
+        if not lerped:
             return a
-        if order == 0 or nchan_in == 1:
-            return a.index_select(0, lo)
-        return a.index_select(0, lo) * (1 - f3) + a.index_select(0, hi) * f3
+        f = f3[k0:k1]
+        return a * (1 - f) + prep(data.index_select(0, hi[k0:k1])) * f
 
-    def gathers(make):
-        # ``make`` builds the (nz, ny_in, nx_in) cube to gather from, so
-        # that only its channels-minor copy stays alive
-        flat = make().reshape(nz, ny_in * nx_in).t().contiguous()
+    def gathers(src):
+        # the slab's channels-minor copy is the only one alive
+        flat = src.reshape(src.shape[0], ny_in * nx_in).t().contiguous()
+        del src
         acc = None
         for idx, w in corners:
             part = flat.index_select(0, idx)
@@ -484,12 +542,18 @@ def _gather_resample(data, maps, order):
             del part
         return acc
 
-    out = gathers(lambda: zlerp(torch.nan_to_num(data)))
-    if bool(torch.isnan(data).any()):
-        weight = gathers(lambda: zlerp(torch.isnan(data).to(torch.float32)))
-        out.masked_fill_(weight > 1e-6, float("nan"))
-        del weight
-    out = out.t().reshape(nz, ny, nx)
+    out = None
+    for k0, k1 in _slabs(nz, max(ny * nx, ny_in * nx_in)):
+        acc = gathers(zlerp(torch.nan_to_num, k0, k1))
+        read = slice(k0, k1) if z_identity else torch.cat(
+            [lo[k0:k1], hi[k0:k1]] if lerped else [lo[k0:k1]])
+        if bool(nan_chan[read].any()):
+            weight = gathers(zlerp(
+                lambda a: torch.isnan(a).to(torch.float32), k0, k1))
+            acc.masked_fill_(weight > 1e-6, float("nan"))
+            del weight
+        out = _into(out, k0, k1, nz, acc.t().reshape(k1 - k0, ny, nx))
+        del acc
     valid = torch.as_tensor((yvalid & xvalid)[None], device=dev) \
         & torch.as_tensor(np.asarray(zvalid), device=dev)[:, None, None]
     return out.masked_fill_(~valid, float("nan")).to(data.dtype)
@@ -501,28 +565,39 @@ def _zlerp_filled(data, z0, zf):
     ``zlerp(a) = a[z0] * (1 - zf) + a[z0 + 1] * zf``, and ``wz_any``, the
     (nz,) flags of the output channels whose ``wz`` is not all zero,
     derived from the input channels that hold a NaN (a weight of 0 carries
-    no NaN)."""
+    no NaN).  It runs a slab of output channels at a time
+    (:data:`SLAB_VOXELS`), filling and lerping the input channels that
+    slab reads, into the one fz and the one wz."""
     nchan_in = data.shape[0]
     dev = data.device
+    nz = len(z0)
     lo_i = torch.as_tensor(np.asarray(z0, np.int64), device=dev)
-    nanmask = torch.isnan(data)
-    chan_nan = nanmask.flatten(1).any(1)
-    filled = torch.nan_to_num(data)
-    nanmask = nanmask.to(torch.float32)
+    chan_nan = _nan_channels(data)
+
+    def nanmask(a):
+        return torch.isnan(a).to(torch.float32)
+    fz = wz = None
     if nchan_in == 1:
-        return (filled.index_select(0, lo_i).contiguous(),
-                nanmask.index_select(0, lo_i).contiguous(), chan_nan[lo_i])
+        for k0, k1 in _slabs(nz, data[0].numel()):
+            a = data.index_select(0, lo_i[k0:k1])
+            fz = _into(fz, k0, k1, nz, torch.nan_to_num(a))
+            wz = _into(wz, k0, k1, nz, nanmask(a))
+        return fz, wz, chan_nan[lo_i]
     hi_i = torch.as_tensor(np.minimum(np.asarray(z0, np.int64) + 1,
                                       nchan_in - 1), device=dev)
     f = torch.as_tensor(np.asarray(zf, np.float32), device=dev)
     g = 1 - f
     f3, g3 = f[:, None, None], g[:, None, None]
-
-    def zlerp(a):
-        return a.index_select(0, lo_i) * g3 + a.index_select(0, hi_i) * f3
-
+    for k0, k1 in _slabs(nz, data[0].numel()):
+        a = data.index_select(0, lo_i[k0:k1])
+        b = data.index_select(0, hi_i[k0:k1])
+        gs, fs = g3[k0:k1], f3[k0:k1]
+        fz = _into(fz, k0, k1, nz,
+                   torch.nan_to_num(a) * gs + torch.nan_to_num(b) * fs)
+        wz = _into(wz, k0, k1, nz, nanmask(a) * gs + nanmask(b) * fs)
+        del a, b
     wz_any = (chan_nan[lo_i] & (g != 0)) | (chan_nan[hi_i] & (f != 0))
-    return zlerp(filled), zlerp(nanmask), wz_any
+    return fz, wz, wz_any
 
 
 #: how far (pixels) a map may stray from axis alignment; the tolerance of
