@@ -155,6 +155,17 @@
    atol 1e-6), NaN patterns equal; counters and launches reset just
    before each sharded run; one "summary: sharded" line (its launches not
    in the kernels line).
+10d. Card scale, past 2**31 voxels (``phase_card_scale``): on P (2304 x
+   1024 x 1024, read from FITS) ``run_pipeline`` and its stages, the
+   spectral path, the reprojection onto a new spectral axis (S), the
+   rotated spline reprojection (R, biquadratic on P's own spectral axis,
+   bicubic onto 2303 channels) and the fused convolve + reproject (C:
+   #8, #9 and #10 on a clean cube of P's shape and on P), P as a
+   varying-resolution cube (V); on H (1280 x 2048 x 2048) the moments,
+   statistics and reductions.  Each stage's peak and rise logged and
+   held, each kernel launched on more than 2**31 elements and counted
+   over its own stage, results held on tiles and slabs; one "summary:
+   card scale" line.
 11. Holds each kernel against its plain PyTorch version on the card at the
    paths' shapes, with and without NaN, and times the kernel, the plain
    version and, where one exists, a single PyTorch call computing the same
@@ -304,7 +315,8 @@ F_PEAK_RISE = 64 * 2**20
 # threshold; the limits: the pipeline's and each spectral stage's peak as
 # a share of the card, each reduction's peak above the resident data in
 # cube bytes; the kernels each cube must launch on its more than 2**31
-# elements
+# elements (S, R: P reprojected onto a new spectral axis and onto a
+# rotated grid; C: the fused convolve + reproject on P's grid)
 CARD_P = (2304, 1024, 1024)
 CARD_H = (1280, 2048, 2048)
 CARD_TILE = 128
@@ -315,7 +327,9 @@ CARD_MAD_RATIO = 2.0
 CARD_KERNELS = {"P": ("moments", "conv_sep", "resample2", "smooth_interp",
                       "sigma_clip"),
                 "H": ("moments",), "V": ("moments", "conv_sep"),
-                "S": ("resample2_filled", "banded_matmul")}
+                "S": ("resample2_filled", "banded_matmul"),
+                "R": ("banded_matmul",),
+                "C": ("conv_reproject", "plain_strips", "pipeline_fused")}
 # S: P reprojected onto a new spectral axis of one channel fewer than
 # P's, each channel this many input channels wide, starting this far (in
 # input channels) in: every output channel a lerp of two input channels,
@@ -1787,7 +1801,6 @@ def phase_conv_reproject(dev, data, results):
     whole-pipeline fusion (#10) on bench config 5's clean cube (a) and the
     pipeline's NaN-bordered cube (b)."""
     import torch
-    import spectral_cube_tpu_torch as T
     from spectral_cube_tpu_torch import kernels as K
     from spectral_cube_tpu_torch.kernels import conv_reproject as kcr
     from spectral_cube_tpu_torch.kernels import pipeline_fused as kpf
@@ -1796,20 +1809,12 @@ def phase_conv_reproject(dev, data, results):
     from spectral_cube_tpu_torch.ops import regrid as og
     log("phase conv_reproject (kernels conv_reproject, plain_strips, "
         "pipeline_fused)")
-    cube_beam, target_beam = beams()
-    kern = target_beam.deconvolve(cube_beam).as_kernel(
-        np.radians(PIX_ARCSEC / 3600.0))
-    ys, xs = axis_maps(NY, NX, 1.0, SHIFT[0], 1.0, SHIFT[1])
-    ops = og._conv_reproject_operators(data.shape, kern, ys, xs)
-    if ops is None:
-        raise AssertionError("fused operators declined the pipeline target")
+    cube_beam, _ = beams()
+    kern, ys, xs, ops, coords, dx, mask = card_c_operators(data.shape)
     log(f"  kernel {kern.shape[0]}x{kern.shape[1]}, rank {ops.rank}, G bands "
         f"{ops.gy.taps.shape[3]}/{ops.gx.taps.shape[3]} taps")
     a = synth_config5(NCHAN, NY, NX, SEED + 7, dev)
     b = data
-    coords = np.arange(NCHAN) * 0.25
-    dx = 0.25
-    mask = T.LazyComparisonMask(torch.gt, FUSED_THRESHOLD, shape=a.shape)
     gi = np.zeros(NCHAN, np.int32)
 
     K.reset_launch_counts()
@@ -4666,12 +4671,43 @@ def near_float64(got, want, free, weight=None, rtol=1e-6):
     return (not (flip & ~free).any() and err <= rtol), err, int(flip.sum())
 
 
-def float64_spline(cube, target, c0, c1, order=3):
-    """Output channels ``c0:c1`` of ``cube.reproject(target, order=order)``
-    onto a new spectral axis and an axis-aligned grid, every product in
-    float64 on the card (the port's float32 operators taken to float64),
-    and each voxel's float64 NaN weight: host arrays."""
+def float64_taps(ycl, xcl, order, ny_in, nx_in, dev):
+    """The (order + 1)^2 B-spline taps of the nonseparable spline path at
+    the maps ``ycl``/``xcl`` with their weights in float64 (the port's
+    ``ops/regrid.spline_taps`` casts them to float32): per tap the flat
+    indices into the plane padded by ``order`` cells and the (ny * nx,)
+    float64 weights, both on ``dev``."""
     import torch
+    from spectral_cube_tpu_torch.ops import regrid as og
+    nxp = nx_in + 2 * order
+    base = np.round if order == 2 else np.floor
+    yb, xb = base(ycl).astype(np.int64), base(xcl).astype(np.int64)
+    offs = range(-1, 2) if order == 2 else range(-1, 3)
+    taps = []
+    for dy in offs:
+        for dx in offs:
+            w = og._bspline(order, ycl - yb - dy) \
+                * og._bspline(order, xcl - xb - dx)
+            iy = np.clip(yb + dy + order, 0, ny_in + 2 * order - 1)
+            ix = np.clip(xb + dx + order, 0, nxp - 1)
+            taps.append((torch.as_tensor((iy * nxp + ix).ravel(),
+                                         device=dev),
+                         torch.as_tensor(w.ravel(), device=dev)))
+    return taps
+
+
+def float64_spline(cube, target, c0, c1, order=3):
+    """Output channels ``c0:c1`` of ``cube.reproject(target, order=order)``,
+    every product in float64 on the card (the port's float32 operators
+    taken to float64), and each voxel's float64 NaN weight: host arrays.
+    The spectral operator's rows ``c0:c1`` (none on an untouched spectral
+    axis); then on an axis-aligned grid the separable spatial operators,
+    on any other the mirror-mode prefilters of both spatial axes, the
+    padding and the taps of :func:`float64_taps`, the NaN weights through
+    the prefiltered mask's absolute value and the weights' (the port's
+    ``ops/regrid._spline_nonseparable_resample``)."""
+    import torch
+    import torch.nn.functional as F
     from spectral_cube_tpu_torch.ops import regrid as og
     f64 = torch.float64
     nchan, ny_in, nx_in = cube.shape
@@ -4679,11 +4715,13 @@ def float64_spline(cube, target, c0, c1, order=3):
         cube.wcs, target, nchan,
         spectral_values_in=np.asarray(cube.spectral_axis.value))
     m = og.spline_host_maps(zs, ys, xs, nchan, ny_in, nx_in)
-    tz = og._spline_1d_matrix(nchan, m.zc, order)[c0:c1]
-    cols = np.flatnonzero(np.abs(tz).sum(0))
-    tz = tz[:, cols]
-    ty = og._spline_1d_matrix(ny_in, m.ycl[:, 0], order)
-    tx = og._spline_1d_matrix(nx_in, m.xcl[0, :], order)
+    ny, nx = m.ycl.shape
+    if m.z_identity:
+        cols, tz = np.arange(c0, c1), np.eye(c1 - c0)
+    else:
+        tz = og._spline_1d_matrix(nchan, m.zc, order)[c0:c1]
+        cols = np.flatnonzero(np.abs(tz).sum(0))
+        tz = tz[:, cols]
     data = cube._get_filled_data(fill=np.nan)[
         torch.as_tensor(cols, device=cube.device)]
     dev = data.device
@@ -4691,12 +4729,34 @@ def float64_spline(cube, target, c0, c1, order=3):
     def op(a):
         return torch.as_tensor(np.asarray(a, np.float64), device=dev)
 
-    def apply(z, y, x, a):
-        fz = (op(z) @ a.reshape(len(cols), -1)).reshape(-1, ny_in, nx_in)
-        return op(y) @ fz @ op(x).t()
-    out = apply(tz, ty, tx, torch.nan_to_num(data.to(f64)))
-    wn = apply(np.abs(tz), np.abs(ty), np.abs(tx),
-               torch.isnan(data).to(f64))
+    def spectral(z, a):
+        return (op(z) @ a.reshape(len(cols), -1)).reshape(-1, ny_in, nx_in)
+
+    if m.separable:
+        ty = og._spline_1d_matrix(ny_in, m.ycl[:, 0], order)
+        tx = og._spline_1d_matrix(nx_in, m.xcl[0, :], order)
+
+        def spatial(fz, absolute):
+            y, x = (np.abs(ty), np.abs(tx)) if absolute else (ty, tx)
+            return op(y) @ fz @ op(x).t()
+    else:
+        py = op(og._spline_prefilter_matrix(ny_in, order))
+        px = op(og._spline_prefilter_matrix(nx_in, order))
+        taps = float64_taps(m.ycl, m.xcl, order, ny_in, nx_in, dev)
+        mode = "reflect" if min(ny_in, nx_in) > order else "replicate"
+
+        def spatial(fz, absolute):
+            c = py @ fz @ px.t()
+            if absolute:
+                c = c.abs()
+            c = F.pad(c[None], (order,) * 4, mode=mode)[0]
+            c = c.reshape(c.shape[0], -1)
+            acc = torch.zeros((c.shape[0], ny * nx), dtype=f64, device=dev)
+            for idx, w in taps:
+                acc += c[:, idx] * (w.abs() if absolute else w)
+            return acc.reshape(-1, ny, nx)
+    out = spatial(spectral(tz, torch.nan_to_num(data.to(f64))), False)
+    wn = spatial(spectral(np.abs(tz), torch.isnan(data).to(f64)), True)
     valid = torch.as_tensor((m.yvalid & m.xvalid)[None], device=dev) \
         & torch.as_tensor(m.zvalid[c0:c1], device=dev)[:, None, None]
     out = torch.where(valid & ~(wn > 1e-6), out, np.nan)
@@ -4961,6 +5021,334 @@ def card_s_f64(cube, nbytes, card, sizes, stages, staged, hold, big_launches,
          "F statistics")
     return ("S launches " + ", ".join(launched) + "; kernel wrapper calls "
             + ", ".join(timed))
+
+
+def card_r_stages(cube):
+    """R: ``cube.reproject`` onto the grid rotated by VR_ROTATION:
+    ``(name, the call on a cube, the kernel it launches or None, the
+    order, the target header)``.  Biquadratic with the cube's own spectral
+    axis (the spline path's untouched-axis branch: the prefilters and 9
+    tap gathers, no kernel), and bicubic onto a spectral axis of one
+    channel fewer (CARD_S_STEP) on the grid shifted by SHIFT and rotated
+    (#14, ``banded_matmul``, on the filled data and the NaN mask, then the
+    prefilters and 16 tap gathers)."""
+    h = cube.header
+    out = []
+    for name, order, target, kernel in (
+            ("reproject biquadratic rotated", "biquadratic",
+             rotated_header(h, VR_ROTATION), None),
+            ("reproject bicubic rotated", "bicubic", rotated_header(
+                spectral_target(h, (cube.shape[0] - 1,) + CARD_S_STEP),
+                VR_ROTATION), "banded_matmul")):
+        def run(c, target=target, order=order):
+            c.allow_huge_operations = True
+            return c.reproject(target, order=order)
+        out.append((name, run, kernel, order, target))
+    return out
+
+
+def spline_slab_stages(cube, target, k0, k1, order):
+    """Output channels ``k0:k1`` of the spline path onto ``target`` with
+    the cube's own spectral axis, through its stages on those channels
+    alone (``ops/regrid.spline_taps``, ``spline_coefficients``,
+    ``spline_gathers``, the NaN-weight pass and the validity)."""
+    import torch
+    from spectral_cube_tpu_torch.ops import regrid as og
+    nchan, ny_in, nx_in = cube.shape
+    zs, ys, xs, _ = og.reproject_mappings(
+        cube.wcs, target, nchan,
+        spectral_values_in=np.asarray(cube.spectral_axis.value))
+    m = og.spline_host_maps(zs, ys, xs, nchan, ny_in, nx_in)
+    if not m.z_identity:
+        raise AssertionError("spline_slab_stages: a new spectral axis")
+    n = og._order_int(order)
+    src = cube._get_filled_data((slice(k0, k1),), fill=np.nan)
+    plan = og.spline_taps(m.ycl, m.xcl, n, ny_in, nx_in, cube.device)
+    acc = og.spline_gathers(og.spline_coefficients(
+        torch.nan_to_num(src), plan, False), plan, False)
+    wn = og.spline_gathers(og.spline_coefficients(
+        torch.isnan(src).to(torch.float32), plan, True), plan, True)
+    acc.masked_fill_(wn > 1e-6, float("nan"))
+    del wn
+    out = acc.t().reshape((k1 - k0,) + m.ycl.shape)
+    ok = torch.as_tensor(m.yvalid & m.xvalid, device=cube.device)
+    return out.masked_fill(~ok, float("nan"))
+
+
+def card_r(cube, nbytes, card, sizes, stages, staged, hold, big_launches):
+    """R on P (``cube``, read from FITS): :func:`card_r_stages`, each peak
+    at most CARD_PEAK_SHARE of the card.  Biquadratic launches no kernel
+    (every counter 0 over its stage); bicubic launches #14 on more than
+    2**31 elements, counted over its stage alone, and its first operator
+    is timed again at P on the filled data.  Held on CARD_SLAB-channel
+    slabs (first, middle, last) of output channels, each holding finite
+    values, within 1e-6 of the largest |value| of the float64 form
+    (:func:`float64_spline`), the NaN states free only where the float64
+    NaN weight lies within 1e-6 of the 1e-6 limit; and biquadratic's
+    middle slab of the path (``ops/regrid._slabs``) bit for bit its own
+    stages (:func:`spline_slab_stages`).  Returns the summary part."""
+    import torch
+    from spectral_cube_tpu_torch import kernels as K
+    from spectral_cube_tpu_torch.kernels import banded_matmul as kbm
+    from spectral_cube_tpu_torch.ops import regrid as og
+    launched, timed = [], []
+    r_stages = card_r_stages(cube)
+    if tuple(k for _, _, k, _, _ in r_stages if k) != CARD_KERNELS["R"]:
+        raise AssertionError(f"R stages' kernels {r_stages}")
+    for name, call, kernel, order, target in r_stages:
+        names = (kernel,) if kernel else ()
+        with recorded_calls(names, lambda a, kw: a[0].numel()) as calls:
+            K.reset_launch_counts()
+            out = staged("R", name, nbytes, lambda: call(cube))
+        peak = stages[f"R {name}"][1]
+        counts = {k: n for k, n in K.launch_counts().items() if n}
+        if kernel:
+            sizes[kernel] = calls[kernel]
+            launched.append(big_launches("R", sizes, names))
+        else:
+            hold(f"R {name} launches no kernel", not counts, str(counts),
+                 f"R {name} launches")
+        hold(f"R {name} peak at most {CARD_PEAK_SHARE:.0%} of the card",
+             peak <= CARD_PEAK_SHARE * card,
+             f"({peak / 2**30:.2f} of {card / 2**30:.2f} GiB)",
+             f"R {name} peak")
+        nz = int(target["NAXIS3"])
+        if out.shape != (nz,) + cube.shape[1:]:
+            raise AssertionError(f"R {name}: shape {out.shape}")
+        for c0 in (0, (nz - CARD_SLAB) // 2, nz - CARD_SLAB):
+            where = f"output channels {c0}-{c0 + CARD_SLAB - 1}"
+            got = out._data[c0:c0 + CARD_SLAB]
+            some = int(torch.isfinite(got).sum())
+            hold(f"R {name} {where} hold finite values", some > 0,
+                 f"({some})", f"R {name} slab {c0} finite")
+            want, wn = float64_spline(cube, target, c0, c0 + CARD_SLAB,
+                                      og._order_int(order))
+            # a float32 sum of the NaN weights may land on either side of
+            # the 1e-6 limit where it lies within 1e-6 of it
+            ok, err, flips = near_float64(got.cpu().numpy(), want,
+                                          np.abs(wn - 1e-6) <= 1e-6)
+            hold(f"R {name} {where} within 1e-6 of float64", ok,
+                 f"({err:.2e} of the largest |value|, {flips} NaN flips "
+                 "at the 1e-6 weight limit)", f"R {name} slab {c0}")
+        if kernel is None:
+            slabs = og._slabs(nz, cube.shape[1] * cube.shape[2])
+            k0, k1 = slabs[len(slabs) // 2]
+            hold(f"R {name} output channels {k0}-{k1 - 1} (a slab of the "
+                 "path) bit for bit its stages", bits_equal(
+                     spline_slab_stages(cube, target, k0, k1, order),
+                     out._data[k0:k1]), "", f"R {name} stages")
+        # ``got`` is a view: it holds the whole output alive
+        del out, got
+        torch.cuda.empty_cache()
+    # #14's first call at P: the spline operator on the filled data
+    zs, ys, xs, _ = og.reproject_mappings(
+        cube.wcs, r_stages[1][4], cube.shape[0],
+        spectral_values_in=np.asarray(cube.spectral_axis.value))
+    m = og.spline_host_maps(zs, ys, xs, *cube.shape)
+    bands = og._spectral_route(og._spline_1d_matrix(cube.shape[0], m.zc,
+                                                    3))[0]
+    flat = torch.nan_to_num(cube._get_filled_data(fill=np.nan)).reshape(
+        cube.shape[0], -1)
+    ms = cuda_ms(lambda: kbm.banded_matmul(flat, bands), 3)
+    bms, by = bound((flat.shape[0] + len(bands.start)) * flat.shape[1] * 4,
+                    2 * int(bands.length.sum()) * flat.shape[1])
+    timed.append(f"banded_matmul {ms:.3f} ms on {flat.numel()} elements "
+                 f"(bound {bms:.3f} ms, {by})")
+    log(f"  R {timed[-1]}")
+    del flat
+    torch.cuda.empty_cache()
+    return ("R launches " + ", ".join(launched) + "; kernel wrapper calls "
+            + ", ".join(timed))
+
+
+def card_c_operators(shape):
+    """The fused convolve + reproject's inputs on a cube of ``shape`` (the
+    conv_reproject phase's and C's): the kernel from CUBE_BEAM to
+    TARGET_BEAM, the grid shifted by SHIFT as broadcast axis maps (the
+    fused operators' exact alignment), their operators
+    (``ops/regrid._conv_reproject_operators``), spectral coordinates of
+    step 0.25 and that step, and bench config 5's mask."""
+    import torch
+    import spectral_cube_tpu_torch as T
+    from spectral_cube_tpu_torch.ops import regrid as og
+    nchan, ny, nx = shape
+    cube_beam, target_beam = beams()
+    kern = target_beam.deconvolve(cube_beam).as_kernel(
+        np.radians(PIX_ARCSEC / 3600.0))
+    ys, xs = axis_maps(ny, nx, 1.0, SHIFT[0], 1.0, SHIFT[1])
+    ops = og._conv_reproject_operators(shape, kern, ys, xs)
+    if ops is None:
+        raise AssertionError("fused operators declined the shifted grid")
+    mask = T.LazyComparisonMask(torch.gt, FUSED_THRESHOLD, shape=shape)
+    return kern, ys, xs, ops, np.arange(nchan) * 0.25, 0.25, mask
+
+
+def card_c_stages(inputs):
+    """C: ``(name, the call on a cube, its wrapper)``: the fused convolve
+    + reproject (#8), its clean branch on one group (#9) and the
+    whole-pipeline fusion under bench config 5's mask (#10), on
+    ``inputs``, :func:`card_c_operators` of the cube's shape."""
+    from spectral_cube_tpu_torch.kernels import conv_reproject as kcr
+    from spectral_cube_tpu_torch.ops import pipeline_fused as opf
+    from spectral_cube_tpu_torch.ops import regrid as og
+    kern, ys, xs, ops, coords, dx, mask = inputs
+    gi = np.zeros(mask.shape[0], np.int32)
+    return [("convolve_reproject_separable",
+             lambda x: og.convolve_reproject_separable(x, kern, ys, xs),
+             "conv_reproject"),
+            ("plain_strips",
+             lambda x: kcr.plain_strips(x, ops.gy, ops.gx, gi),
+             "plain_strips"),
+            ("moments_conv_reproject_fused",
+             lambda x: opf.moments_conv_reproject_fused(
+                 x, kern, ys, xs, coords, dx, mask_expr=mask),
+             "pipeline_fused")]
+
+
+def card_c(cube, nbytes, card, sizes, stages, staged, hold, big_launches,
+           time_first_calls):
+    """C on P's grid shifted by SHIFT (:func:`card_c_stages`): on (a)
+    bench config 5's clean synthesis at P's shape, made on the card and
+    freed after its stages, all three; on (b) P itself (a NaN border in
+    every plane: every channel takes the chain) #8 and #10.  Each peak at
+    most CARD_PEAK_SHARE of the card, each kernel launched on more than
+    2**31 elements, counted over its own stage alone, and its first call
+    timed again with its bound (:func:`conv_reproject_work`).  Held: #8's
+    route ``fused``; #8's and #9's outputs on CARD_SLAB-channel slabs
+    (first, middle, last; the last past 2**31 elements) bit for bit the
+    same kernel on the slab's contiguous cut-out and within 1e-5 of the
+    plain version on it; #9 bit for bit (a)'s #8 where the output is in
+    range; #10 not None, its cube bit for bit #8's, its planes against
+    ``kernels.moments.moments_planes`` on the whole cube (bit for bit, or
+    within :func:`compare_moment_planes`' bound) and its statistics (npts
+    exact, the rest within 3e-6) against ``moments_012_kernel(...,
+    with_stats=True)``.  Returns the summary part."""
+    import torch
+    from spectral_cube_tpu_torch import kernels as K
+    from spectral_cube_tpu_torch.kernels import conv_reproject as kcr
+    from spectral_cube_tpu_torch.kernels import pipeline_fused as kpf
+    from spectral_cube_tpu_torch.ops import moments as om
+    from spectral_cube_tpu_torch.ops import regrid as og
+    dev = cube.device
+    nchan = cube.shape[0]
+    inputs = card_c_operators(cube.shape)
+    _, _, _, ops, coords, dx, mask = inputs
+    args = (ops.gy, ops.gx, ops.my, ops.mx, ops.ry, ops.rx, ops.valid)
+    gi = np.zeros(nchan, np.int32)
+    c_stages = card_c_stages(inputs)
+    if tuple(k for _, _, k in c_stages) != CARD_KERNELS["C"]:
+        raise AssertionError(f"C stages' kernels {c_stages}")
+    slabs = (0, (nchan - CARD_SLAB) // 2, nchan - CARD_SLAB)
+    ok_plane = torch.as_tensor(ops.valid, device=dev)
+    launched, timed, planes_same = [], [], {}
+
+    def hold_slabs(tag, got, x, launch, plain):
+        for c0 in slabs:
+            sl = slice(c0, c0 + CARD_SLAB)
+            cut = x[sl].contiguous()
+            where = f"channels {c0}-{c0 + CARD_SLAB - 1}"
+            hold(f"C {tag} {where} bit for bit the kernel on the slab",
+                 bits_equal(launch(cut), got[sl]), "",
+                 f"C {tag} slab {c0}")
+            err, rel = compare(f"C {tag} {where} vs plain", got[sl],
+                               plain(cut), 1e-5)
+            hold(f"C {tag} {where} within 1e-5 of the plain version",
+                 rel <= 1e-5, f"({rel:.2e})", f"C {tag} slab {c0} plain")
+
+    for label in ("a", "b"):
+        x = synth_config5(*cube.shape, SEED + 7, dev) if label == "a" \
+            else cube._data
+        rep = None
+        for name, call, kernel in c_stages:
+            if label == "b" and kernel == "plain_strips":
+                continue
+            tag = f"{name} ({label})"
+            with recorded_calls((kernel,)) as calls:
+                K.reset_launch_counts()
+                og.convolve_reproject_separable.last = {}
+                got = staged("C", tag, nbytes, lambda: call(x))
+            peak = stages[f"C {tag}"][1]
+            sizes[kernel] = [a[0].numel() for a, _ in calls[kernel]]
+            launched.append(big_launches("C", sizes, (kernel,)))
+            hold(f"C {tag} peak at most {CARD_PEAK_SHARE:.0%} of the card",
+                 peak <= CARD_PEAK_SHARE * card,
+                 f"({peak / 2**30:.2f} of {card / 2**30:.2f} GiB)",
+                 f"C {tag} peak")
+            work = conv_reproject_work(x, ops, x.numel(), label == "b")
+            if kernel == "pipeline_fused":
+                # plus the planes written and ~8 flops a voxel for them
+                work = (work[0] + 11 * x[0].numel() * 4,
+                        work[1] + 8 * x.numel())
+            bms, by = bound(*work)
+            timed.append(f"({label}) " + time_first_calls(
+                "C", calls, (kernel,)) + f" (bound {bms:.3f} ms, {by})")
+            kargs, kkw = calls[kernel][0]
+            del calls
+            if kernel == "conv_reproject":
+                route = og.convolve_reproject_separable.last.get("route")
+                hold(f"C {tag} takes the fused route", route == "fused",
+                     f"({route})", f"C {tag} route")
+                rep = got
+                hold_slabs(f"conv_reproject ({label})", rep, x,
+                           lambda c: kcr.conv_reproject(c, *args),
+                           lambda c: kcr.conv_reproject_plain(c, *args))
+            elif kernel == "plain_strips":
+                hold_slabs(f"plain_strips ({label})", got, x,
+                           lambda c: kcr.plain_strips(
+                               c, ops.gy, ops.gx, gi[:c.shape[0]]),
+                           lambda c: kcr.plain_strips_plain(
+                               c, ops.gy, ops.gx, gi[:c.shape[0]]))
+                same = all(bool(torch.equal(got[c0:c0 + 64][:, ok_plane],
+                                            rep[c0:c0 + 64][:, ok_plane]))
+                           for c0 in range(0, nchan, 64))
+                hold(f"C plain_strips ({label}) bit for bit conv_reproject's "
+                     "clean branch where the output is in range", same, "",
+                     f"C plain_strips ({label}) = clean branch")
+            else:
+                hold(f"C {tag} takes the fused kernel", got is not None, "",
+                     f"C {tag} not None")
+                out, stats = got[0], got[4]
+                got = None
+                hold(f"C {tag} cube bit for bit convolve_reproject_"
+                     "separable's", bits_equal(out, rep), "",
+                     f"C {tag} cube")
+                del out
+                _, planes, cnt = kpf.pipeline_fused(*kargs, **kkw)
+                xc, op, thr, inc = kargs[8:12]
+                want = K.moments.moments_planes(x, xc, op, thr, inc, True)
+                same = bool(torch.equal(planes, want[0])
+                            and torch.equal(cnt, want[1]))
+                planes_same[label] = same
+                detail = "bit for bit"
+                if not same:
+                    # raises past its bound
+                    worst = compare_moment_planes(
+                        f"C {tag} planes", (planes, cnt), want,
+                        dict(data=x, cmp_op=op, threshold=thr, include=inc,
+                             xc=xc, with_stats=True))
+                    detail = f"within {worst:.2e} of the terms"
+                hold(f"C {tag} planes the moments kernel's (bit for bit, "
+                     "or within its bound)", True, f"({detail})",
+                     f"C {tag} planes")
+                del planes, cnt, want
+                cst = om.moments_012_kernel(x, coords, dx, mask_expr=mask,
+                                            with_stats=True)[3]
+                bad = [k for k in ("mean", "sigma", "min", "max", "sum")
+                       if abs(float(stats[k]) - float(cst[k]))
+                       > 3e-6 * abs(float(cst[k]))]
+                hold(f"C {tag} statistics npts exact, the rest within 3e-6 "
+                     "of moments_012_kernel's", int(stats["npts"])
+                     == int(cst["npts"]) and not bad,
+                     f"(npts {int(stats['npts'])}, off {bad})",
+                     f"C {tag} statistics")
+            got = None
+            torch.cuda.empty_cache()
+        del x, rep
+        torch.cuda.empty_cache()
+    return ("C launches " + ", ".join(launched) + "; kernel wrapper calls "
+            + ", ".join(timed) + "; #10's planes bit for bit the moments "
+            "kernel's: " + ", ".join(f"({k}) {v}"
+                                     for k, v in planes_same.items()))
 
 
 def staged_call(dev, stages, tag, name, nbytes, fn):
@@ -5395,6 +5783,13 @@ def phase_card_scale(dev, workdir):
     torch.cuda.empty_cache()
     parts.append(card_s_f64(cube, nbytes, card, sizes, stages, staged, hold,
                             big_launches, time_first_calls))
+    torch.cuda.empty_cache()
+    parts.append(card_r(cube, nbytes, card, sizes, stages, staged, hold,
+                        big_launches))
+    torch.cuda.empty_cache()
+    parts.append(card_c(cube, nbytes, card, sizes, stages, staged, hold,
+                        big_launches, time_first_calls))
+    torch.cuda.empty_cache()
     # V: P's data as a varying-resolution cube, written as a 4-D FITS
     # file with a BEAMS table and read back with no device argument
     t0 = time.perf_counter()

@@ -418,14 +418,14 @@ def _spline_spatial_then_z(data, zs, ys, xs, order):
     taps; outputs outside the input are NaN.  The filled data and then
     the NaN mask are written a slab at a time into one buffer, each
     product's input in turn, and the spatial step runs a slab of output
-    channels at a time into the one output (:data:`SLAB_VOXELS`)."""
+    channels at a time into the one output (:data:`SLAB_VOXELS`).  On an
+    untouched spectral axis each slab fills its own channels and forms
+    their NaN mask, so that the output is the only cube it makes."""
     m = spline_host_maps(zs, ys, xs, *data.shape)
     dev = data.device
     nchan, ny_in, nx_in = data.shape
-    if m.z_identity:
-        fz = torch.nan_to_num(data)
-        wz = torch.isnan(data).to(torch.float32)
-    else:
+    fz = wz = None
+    if not m.z_identity:
         tz = _spline_1d_matrix(nchan, m.zc, order)
         buf = torch.empty(data.shape, dtype=torch.float32, device=dev)
         slabs = _slabs(nchan, ny_in * nx_in)
@@ -436,18 +436,23 @@ def _spline_spatial_then_z(data, zs, ys, xs, order):
             buf[k0:k1] = torch.isnan(data[k0:k1])
         wz = _spectral_product(np.abs(tz), buf)
         del buf
-    nz = fz.shape[0]
+    nz = len(m.zvalid)
     ny, nx = m.ycl.shape
     plan = None if m.separable else spline_taps(m.ycl, m.xcl, order, ny_in,
                                                 nx_in, dev)
     out = None
     for k0, k1 in _slabs(nz, max(ny * nx, ny_in * nx_in)):
-        if m.separable:
-            o, wn = _spline_separable_resample(fz[k0:k1], wz[k0:k1], m.ycl,
-                                               m.xcl, order)
+        if fz is None:
+            f = torch.nan_to_num(data[k0:k1])
+            w = torch.isnan(data[k0:k1]).to(torch.float32)
         else:
-            o, wn = _spline_nonseparable_resample(fz[k0:k1], wz[k0:k1],
-                                                  m.ycl, m.xcl, order, plan)
+            f, w = fz[k0:k1], wz[k0:k1]
+        if m.separable:
+            o, wn = _spline_separable_resample(f, w, m.ycl, m.xcl, order)
+        else:
+            o, wn = _spline_nonseparable_resample(f, w, m.ycl, m.xcl, order,
+                                                  plan)
+        del f, w
         if wn is not None:
             o.masked_fill_(wn > 1e-6, float("nan"))
         del wn
