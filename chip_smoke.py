@@ -160,12 +160,17 @@
    spectral path, the reprojection onto a new spectral axis (S), the
    rotated spline reprojection (R, biquadratic on P's own spectral axis,
    bicubic onto 2303 channels) and the fused convolve + reproject (C:
-   #8, #9 and #10 on a clean cube of P's shape and on P), P as a
-   varying-resolution cube (V); on H (1280 x 2048 x 2048) the moments,
-   statistics and reductions.  Each stage's peak and rise logged and
-   held, each kernel launched on more than 2**31 elements and counted
-   over its own stage, results held on tiles and slabs; one "summary:
-   card scale" line.
+   #8, #9 and #10 on a clean cube of P's shape and on P), the sharded
+   path on the card's two meshes (M: the default mesh, one position on
+   one card whose shard is the whole cube, and a 2 x 2 mesh of the card;
+   P's FITS file read onto each, ``run_pipeline(cmesh=)``, the
+   reductions over the mesh, P as a varying-resolution cube through
+   ``to_sharded`` and ``run_pipeline(cmesh=)`` onto a rotated grid, a
+   float64 read's statistics), P as a varying-resolution cube (V); on H
+   (1280 x 2048 x 2048) the moments, statistics and reductions.  Each
+   stage's peak and rise logged and held, each kernel launched on more
+   than 2**31 elements and counted over its own stage, results held on
+   tiles and slabs; one "summary: card scale" line.
 11. Holds each kernel against its plain PyTorch version on the card at the
    paths' shapes, with and without NaN, and times the kernel, the plain
    version and, where one exists, a single PyTorch call computing the same
@@ -329,7 +334,8 @@ CARD_KERNELS = {"P": ("moments", "conv_sep", "resample2", "smooth_interp",
                 "H": ("moments",), "V": ("moments", "conv_sep"),
                 "S": ("resample2_filled", "banded_matmul"),
                 "R": ("banded_matmul",),
-                "C": ("conv_reproject", "plain_strips", "pipeline_fused")}
+                "C": ("conv_reproject", "plain_strips", "pipeline_fused"),
+                "M": ("moments", "conv_sep", "resample2")}
 # S: P reprojected onto a new spectral axis of one channel fewer than
 # P's, each channel this many input channels wide, starting this far (in
 # input channels) in: every output channel a lerp of two input channels,
@@ -3423,18 +3429,23 @@ def close_arrays(name, got, want, rtol, atol):
     return err
 
 
+#: (rtol, atol) of a sharded ``run_pipeline`` result against the unsharded
+#: one: the JAX package's (tests/test_parallel.py:770-785), the cube the
+#: reprojection test's
+PIPELINE_TOLERANCES = {"mom0": (3e-5, 1e-6), "mom1": (3e-5, 1e-4),
+                       "linewidth": (1e-4, 1e-4), "cube": (1e-5, 1e-6)}
+
+
 def hold_pipeline(tag, res, ref):
-    """A sharded ``run_pipeline`` result against the unsharded one at the
-    JAX package's tolerances (tests/test_parallel.py:770-785): moments,
-    linewidth and statistics, then the reprojected cube (the reprojection
-    test's 1e-5 / 1e-6), NaN patterns equal.  Returns the largest errors."""
+    """A sharded ``run_pipeline`` result against the unsharded one at
+    PIPELINE_TOLERANCES: moments, linewidth and statistics, then the
+    reprojected cube, NaN patterns equal.  Returns the largest errors."""
     errs = {}
-    for i, (name, tol) in enumerate((("mom0", (3e-5, 1e-6)),
-                                     ("mom1", (3e-5, 1e-4)),
-                                     ("linewidth", (1e-4, 1e-4)))):
+    for i, name in enumerate(("mom0", "mom1", "linewidth")):
         errs[name] = close_arrays(f"{tag} {name}",
                                   np.asarray(res["moments"][i].value),
-                                  np.asarray(ref["moments"][i].value), *tol)
+                                  np.asarray(ref["moments"][i].value),
+                                  *PIPELINE_TOLERANCES[name])
     st, sr = res["statistics"], ref["statistics"]
     if st["npts"] != sr["npts"]:
         raise AssertionError(f"{tag} statistics npts {st['npts']} vs "
@@ -3445,7 +3456,7 @@ def hold_pipeline(tag, res, ref):
             raise AssertionError(f"{tag} statistics {key}: {a} vs {b}")
     errs["cube"] = close_arrays(f"{tag} reprojected cube",
                                 res["cube"].cube._data, ref["cube"]._data,
-                                1e-5, 1e-6)
+                                *PIPELINE_TOLERANCES["cube"])
     return errs
 
 
@@ -4543,17 +4554,21 @@ CARD_WHOLE = {"mean(axis=(1, 2))":
               "argmax()": lambda c: tuple(int(i) for i in c.argmax())}
 
 
-def card_vr_cube(host, workdir):
-    """V: P's host copy ``host`` written as a 4-D FITS file with a CASA
-    BEAMS table (``vr_beams`` at its channels, VR_FLAGGED flagged), read
-    back with no device argument and the file deleted.  Returns the cube
-    and the seconds the write and the read took."""
-    import torch
-    import spectral_cube_tpu_torch as T
+def card_vr_file(host, workdir):
+    """V's file: P's host copy ``host`` written as a 4-D FITS file with a
+    CASA BEAMS table (``vr_beams`` at its channels, VR_FLAGGED flagged).
+    Returns its path and the seconds the write took."""
     path = os.path.join(workdir, "card_v.fits")
     t0 = time.perf_counter()
     write_vr_fits(path, host, vr_beams(host.shape[0], flagged=VR_FLAGGED))
-    wrote = time.perf_counter() - t0
+    return path, time.perf_counter() - t0
+
+
+def card_vr_read(path):
+    """V's file ``path`` read back with no device argument and deleted.
+    Returns the cube and the seconds the read took."""
+    import torch
+    import spectral_cube_tpu_torch as T
     try:
         t0 = time.perf_counter()
         cube = T.SpectralCube.read(path)
@@ -4561,6 +4576,15 @@ def card_vr_cube(host, workdir):
         read = time.perf_counter() - t0
     finally:
         os.remove(path)
+    return cube, read
+
+
+def card_vr_cube(host, workdir):
+    """V: :func:`card_vr_file` of ``host``, read back by
+    :func:`card_vr_read`.  Returns the cube and the seconds the write and
+    the read took."""
+    path, wrote = card_vr_file(host, workdir)
+    cube, read = card_vr_read(path)
     return cube, wrote, read
 
 
@@ -5351,6 +5375,414 @@ def card_c(cube, nbytes, card, sizes, stages, staged, hold, big_launches,
                                      for k, v in planes_same.items()))
 
 
+#: M's reductions on P's shards, each also run on the unsharded P for its
+#: reference: host values (``statistics()`` as :func:`statistics_values`)
+CARD_M_REDUCTIONS = {
+    "sum()": lambda c: float(c.sum().value),
+    "mean()": lambda c: float(c.mean().value),
+    "std()": lambda c: float(c.std().value),
+    "max()": lambda c: float(c.max().value),
+    "argmax()": lambda c: tuple(int(i) for i in c.argmax()),
+    "mean(axis=(1, 2))": lambda c: np.asarray(c.mean(axis=(1, 2)).value),
+    "std(axis=(1, 2))": lambda c: np.asarray(c.std(axis=(1, 2)).value),
+    "median(axis=(1, 2))": lambda c: np.asarray(c.median(axis=(1, 2)).value),
+    "median(axis=(0, 1))": lambda c: np.asarray(c.median(axis=(0, 1)).value),
+    f"percentile({CARD_PERCENTILE:g})":
+        lambda c: float(c.percentile(CARD_PERCENTILE).value),
+    "statistics()": lambda c: statistics_values(c.statistics())}
+#: M's reductions held exactly against the unsharded call; the others are
+#: sums, held within 1e-6 of a float64 oracle
+CARD_M_EXACT = ("max()", "argmax()", "median(axis=(1, 2))",
+                "median(axis=(0, 1))", f"percentile({CARD_PERCENTILE:g})")
+
+
+def statistics_values(stats):
+    """``statistics()``'s result as host numbers: npts an int, the rest
+    floats."""
+    return {k: int(v) if k == "npts" else float(getattr(v, "value", v))
+            for k, v in stats.items()}
+
+
+def card_m_meshes(dev):
+    """M's two meshes of the one card: M1, the default mesh (every CUDA
+    device once: one position on a one-card machine, whose one shard is
+    the whole cube), and M4, four positions of ``dev`` in the MESH_GRID
+    grid."""
+    import torch
+    import spectral_cube_tpu_torch as T
+    m1 = T.default_mesh()
+    if m1.n_devices != torch.cuda.device_count():
+        raise AssertionError(f"the default mesh {m1} does not span the "
+                             f"{torch.cuda.device_count()} cards")
+    return {"M1": m1, "M4": T.CubeMesh(devices=[dev] * 4, shape=MESH_GRID)}
+
+
+def card_m_run(cmesh, p_path, vr_path, run, after=lambda name, val: None):
+    """M's stages on ``cmesh``, each through ``run(name, fn, scale)``,
+    which calls ``fn`` and returns its value (``scale`` times P's float32
+    bytes are the stage's cube bytes), and ``after(name, value)`` just
+    after it: the read of P's FITS file ``p_path`` onto the mesh
+    (``io.streaming.read_sharded_cube``); ``run_pipeline(cmesh=)`` to a
+    TARGET_BEAM beam at SNR onto P's grid shifted by SHIFT (the halo
+    routes); each reduction of CARD_M_REDUCTIONS on those shards; then,
+    with P's shards dropped, V (a): the 4-D file ``vr_path`` read with
+    ``SpectralCube.read`` (``after("V (a) read", cube)``), put on the
+    mesh by ``to_sharded`` and the unsharded cube dropped, then
+    ``run_pipeline(cmesh=)`` onto the grid rotated by VR_ROTATION (the FFT
+    reshard and the reshard reprojection; ``after`` gets the sharded cube
+    and the result); last ``statistics()`` of P read onto the mesh as
+    float64.  A stage whose ``run`` returns None ends the mesh's read of
+    P, or is passed over."""
+    import numpy as np
+    import torch
+    import spectral_cube_tpu_torch as T
+    from spectral_cube_tpu_torch.io import streaming
+    _, target_beam = beams()
+    sc = run("read", lambda: streaming.read_sharded_cube(p_path, cmesh), 1)
+    if sc is None:
+        return
+    after("read", sc)
+    target = shifted_header(sc.header, *SHIFT)
+    val = run("run_pipeline", lambda: T.run_pipeline(
+        sc, cmesh=cmesh, snr_threshold=SNR, target_beam=target_beam,
+        target_header=target), 1)
+    after("run_pipeline", val)
+    del val
+    for name, fn in CARD_M_REDUCTIONS.items():
+        after(name, run(name, lambda: fn(sc), 1))
+    del sc
+    torch.cuda.empty_cache()
+    vr = T.SpectralCube.read(vr_path)
+    after("V (a) read", vr)
+    vsc = vr.to_sharded(cmesh)
+    del vr
+    torch.cuda.empty_cache()
+    val = run("V (a) run_pipeline", lambda: T.run_pipeline(
+        vsc, cmesh=cmesh, snr_threshold=SNR,
+        target_header=rotated_header(vsc.header, VR_ROTATION)), 1)
+    after("V (a) run_pipeline", (vsc, val))
+    del vsc, val
+    torch.cuda.empty_cache()
+    f64 = streaming.read_sharded_cube(p_path, cmesh, dtype=np.float64)
+    after("statistics() float64", run(
+        "statistics() float64",
+        lambda: statistics_values(f64.statistics()), 2))
+    del f64
+    torch.cuda.empty_cache()
+
+
+def card_m_reference(cube, tiles):
+    """M's references on the unsharded P (``cube``, read from FITS): its
+    data on the CARD_TILE ``tiles`` and CARD_SLAB slabs (first, middle,
+    last) of ``run_pipeline``'s reprojected cube, host arrays; the
+    pipeline's moments and statistics; each reduction of
+    CARD_M_REDUCTIONS; the float64 oracles of the sums
+    (:func:`stats_oracle`, :func:`spectrum_oracle`, :func:`spectrum_std`)
+    and the statistics of a float64 copy."""
+    import torch
+    import spectral_cube_tpu_torch as T
+    nchan = cube.shape[0]
+    t = CARD_TILE
+    ref = {"tiles": {(y0, x0): cube._data[:, y0:y0 + t, x0:x0 + t]
+                     .cpu().numpy() for y0, x0 in tiles},
+           "slabs": (0, (nchan - CARD_SLAB) // 2, nchan - CARD_SLAB)}
+    _, target_beam = beams()
+    res = T.run_pipeline(cube, snr_threshold=SNR, target_beam=target_beam,
+                         target_header=shifted_header(cube.header, *SHIFT))
+    ref["moments"] = [np.asarray(m.value) for m in res["moments"]]
+    ref["statistics"] = statistics_values(res["statistics"])
+    ref["cube"] = {c0: res["cube"].filled_data[c0:c0 + CARD_SLAB].value
+                   for c0 in ref["slabs"]}
+    del res
+    torch.cuda.empty_cache()
+    ref["reductions"] = {name: fn(cube)
+                         for name, fn in CARD_M_REDUCTIONS.items()}
+    keep = lambda c0, x: True  # noqa: E731
+    ref["oracle"] = stats_oracle(cube._data, keep)
+    ref["mean(axis=(1, 2))"], ref["std(axis=(1, 2))"] = spectrum_std(
+        cube._data)
+    f64 = card_f64_cube(cube)
+    ref["statistics() float64"] = statistics_values(f64.statistics())
+    del f64
+    torch.cuda.empty_cache()
+    return ref
+
+
+def spectrum_std(data, step=64):
+    """The float64 mean and std (n) over each plane of the finite voxels
+    of ``data`` (NaN where none), ``step`` channels at a time on the card:
+    ``mean(axis=(1, 2))``'s and ``std(axis=(1, 2))``'s oracles."""
+    import torch
+    means, stds = [], []
+    for c0 in range(0, data.shape[0], step):
+        x = data[c0:c0 + step].double()
+        ok = torch.isfinite(x)
+        n = ok.sum((1, 2))
+        m = torch.where(ok, x, 0.0).sum((1, 2)) / n.clamp(min=1)
+        s2 = torch.where(ok, (x - m[:, None, None]) ** 2, 0.0).sum((1, 2))
+        nan = torch.full_like(m, float("nan"))
+        means.append(torch.where(n > 0, m, nan))
+        stds.append(torch.where(n > 0, torch.sqrt(s2 / n.clamp(min=1)), nan))
+        del x, ok
+    return (torch.cat(means).cpu().numpy(), torch.cat(stds).cpu().numpy())
+
+
+def sharded_cut_cube(sc, view, dev):
+    """The unsharded cube of ``sc``'s cut ``view`` (a tuple of unit-step
+    slices), its mask-filled data read through ``filled_data`` (a host
+    array, no counted gather) and put on ``dev``: the cut-out a sharded
+    result is held against."""
+    import torch
+    import spectral_cube_tpu_torch as T
+    cut = sc._cut(view)
+    data = torch.as_tensor(cut.filled_data[:].value, device=dev)
+    return T.SpectralCube(data, cut.wcs, header=cut.header, meta=cut.meta,
+                          unit=cut.unit, beam=cut._template._beam,
+                          mask=T.LazyMask(torch.isfinite, data=data,
+                                          wcs=cut.wcs))
+
+
+def card_m(dev, p_path, vr_path, ref, nbytes, card, stages, staged, hold,
+           big_launches, tiles):
+    """M: the sharded path past 2**31 voxels on the card's two meshes
+    (:func:`card_m_meshes`), its stages :func:`card_m_run`'s, each on M1
+    and then on M4, each staged with its peak at most CARD_PEAK_SHARE of
+    the card and the mesh's ``gathers`` counter 0; each reduction's rise
+    at most CARD_MAD_RATIO cube bytes above the resident shards; on M1
+    moments, conv_sep and resample2 (CARD_KERNELS["M"]) launched on more
+    than 2**31 elements, counted over the pipeline stage alone.  Held
+    against ``ref`` (:func:`card_m_reference`): the read bit for bit P's
+    data on the ``tiles``, its host buffers one block and its read buffer
+    at most; the pipeline's moments and linewidth on the tiles and its
+    cube on CARD_SLAB slabs (``filled_data``, host arrays) at
+    :func:`hold_pipeline`'s tolerances with equal NaN patterns (bit for
+    bit or not, logged), its statistics by the same rule; the exact
+    reductions (CARD_M_EXACT) bit for bit the unsharded call's, the sums
+    within 1e-6 of the float64 oracles, the statistics' npts, min and max
+    the unsharded call's and the rest within 1e-6 of float64 (of the
+    float64 copy's statistics for the float64 read).  V (a): its convolved
+    cube (``convolve_to`` of the common beam again on the mesh) on
+    CARD_SLAB slabs (first, middle, last, over the flagged planes) within
+    1e-6 of the float64 FFT form (NaN decisions free at den <= 1e-5), its
+    reprojected slabs bit for bit the slab's call on the masked convolved
+    cube's cut-out and its moments on the tiles bit for bit the cut-out's
+    ``run_pipeline(noise_estimate=)``.  Returns the summary part."""
+    import torch
+    from spectral_cube_tpu_torch import kernels as K
+    from spectral_cube_tpu_torch.io import streaming
+    import spectral_cube_tpu_torch as T
+    t_m = time.perf_counter()
+    t = CARD_TILE
+    nchan = CARD_P[0]
+    vr_slabs = sorted({0, (nchan - CARD_SLAB) // 2, nchan - CARD_SLAB,
+                       VR_FLAGGED[0] - CARD_SLAB // 2})
+    parts = []
+    for tag, cmesh in card_m_meshes(dev).items():
+        t_mesh = time.perf_counter()
+        counters, launched, bitwise = {}, [], {}
+
+        def run(name, fn, scale, tag=tag, cmesh=cmesh, counters=counters,
+                launched=launched):
+            torch.cuda.empty_cache()
+            cmesh.reset_counters()
+            K.reset_launch_counts()
+            with recorded_calls(CARD_KERNELS["M"],
+                                lambda a, kw: a[0].numel()) as sizes:
+                val = staged(tag, name, nbytes * scale, fn)
+            counters[name] = dict(cmesh.counters)
+            ms, peak, rise = stages[f"{tag} {name}"]
+            hold(f"{tag} {name} peak at most {CARD_PEAK_SHARE:.0%} of the "
+                 "card, gathers 0", peak <= CARD_PEAK_SHARE * card
+                 and counters[name]["gathers"] == 0,
+                 f"({peak / 2**30:.2f} of {card / 2**30:.2f} GiB; counters "
+                 f"{counters[name]})", f"{tag} {name} peak")
+            if name in CARD_M_REDUCTIONS or name == "statistics() float64":
+                hold(f"{tag} {name} rise above the resident shards at most "
+                     f"{CARD_MAD_RATIO} cube bytes", rise <= CARD_MAD_RATIO,
+                     f"({rise:.3f})", f"{tag} {name} rise")
+            if name == "run_pipeline":
+                if tag == "M1":
+                    launched.append(big_launches("M", sizes))
+                else:
+                    launched.append(", ".join(
+                        f"{k} {n}" for k, n in K.launch_counts().items()
+                        if n))
+            return val
+
+        def close(name, got, want, rtol, atol):
+            err = close_arrays(f"{tag} {name}", got, want, rtol, atol)
+            same = np.ascontiguousarray(got).tobytes() \
+                == np.ascontiguousarray(want).tobytes()
+            bitwise[name] = bitwise.get(name, True) and same
+            return err
+
+        def after(name, val, tag=tag, cmesh=cmesh, bitwise=bitwise):
+            if name == "read":
+                shards = val._data.addressable_shards
+                want = (nchan, CARD_P[1] // cmesh.grid[0],
+                        CARD_P[2] // cmesh.grid[1])
+                held = streaming.HOST_BUFFERS["held_bytes"]
+                block = streaming.HOST_BUFFERS["block_bytes"]
+                hold(f"{tag} read: {cmesh.n_devices} shards of {want} on "
+                     "the card, host buffers one block and its read buffer "
+                     "at most", len(shards) == cmesh.n_devices and all(
+                         tuple(s.data.shape) == want and s.data.device == dev
+                         for s in shards) and held <= 2 * block,
+                     f"(held {held / 2**30:.2f} GiB, a block "
+                     f"{block / 2**30:.2f} GiB)", f"{tag} read shards")
+                hold(f"{tag} read bit for bit P's data on the tiles", all(
+                    np.ascontiguousarray(val.unmasked_data[
+                        :, y0:y0 + t, x0:x0 + t].value).tobytes()
+                    == data.tobytes()
+                    for (y0, x0), data in ref["tiles"].items()), "",
+                    f"{tag} read tiles")
+            elif name == "run_pipeline":
+                tol = dict(PIPELINE_TOLERANCES)
+                for i, key in enumerate(("mom0", "mom1", "linewidth")):
+                    got = np.asarray(val["moments"][i].value)
+                    for y0, x0 in tiles:
+                        sl = (slice(y0, y0 + t), slice(x0, x0 + t))
+                        close(key, got[sl], ref["moments"][i][sl],
+                              *tol[key])
+                hold_statistics(f"{tag} run_pipeline",
+                                statistics_values(val["statistics"]),
+                                ref["statistics"], hold)
+                for c0 in ref["slabs"]:
+                    close("cube", val["cube"].filled_data[
+                        c0:c0 + CARD_SLAB].value, ref["cube"][c0],
+                        *tol["cube"])
+                hold(f"{tag} run_pipeline: moments and linewidth on the "
+                     "tiles, the cube on the slabs and the statistics at "
+                     "hold_pipeline's tolerances, NaN patterns equal", True,
+                     f"(bit for bit: {bitwise})", f"{tag} run_pipeline")
+                c = counters["run_pipeline"]
+                hold(f"{tag} run_pipeline takes the halo routes",
+                     c["halo_exchanges"] > 0 and c["all_to_alls"] == 0,
+                     str(c), f"{tag} run_pipeline halo")
+            elif name in CARD_M_REDUCTIONS:
+                hold_m_reduction(tag, name, val, ref, hold)
+            elif name == "V (a) read":
+                cb = val.common_beam()
+                ref["V"] = {c0: float64_fft_convolve_to(
+                    val[c0:c0 + CARD_SLAB], cb) for c0 in vr_slabs}
+            elif name == "V (a) run_pipeline":
+                vsc, res = val
+                hold_m_vr(tag, dev, vsc, res, ref["V"], vr_slabs, tiles,
+                          counters[name], hold)
+            else:
+                hold_statistics(f"{tag} statistics() float64", val,
+                                ref["statistics() float64"], hold, 1e-6)
+        card_m_run(cmesh, p_path, vr_path, run, after)
+        wall = time.perf_counter() - t_mesh
+        parts.append(f"{tag} ({cmesh.n_devices} position(s), {wall:.1f} s): "
+                     "launches " + "; ".join(launched)
+                     + "; bit for bit the unsharded run: "
+                     + ", ".join(f"{k} {v}" for k, v in bitwise.items()))
+    return (f"M (the sharded path, {time.perf_counter() - t_m:.1f} s): "
+            + "; ".join(parts))
+
+
+def hold_statistics(tag, got, want, hold, rtol=None):
+    """``statistics()`` values ``got`` against ``want`` (host numbers):
+    npts exact; with ``rtol`` min and max exact and the rest within
+    ``rtol``; without, :func:`hold_pipeline`'s rule."""
+    keys = ("mean", "sigma", "sum", "sumsq", "max", "min", "rms")
+    if rtol is None:
+        bad = [k for k in keys
+               if abs(got[k] - want[k]) > 2e-5 * abs(want[k]) + 1e-7]
+    else:
+        bad = [k for k in keys if (got[k] != want[k] if k in ("max", "min")
+                                   else abs(got[k] - want[k])
+                                   > rtol * abs(want[k]))]
+    same = all(got[k] == want[k] for k in keys)
+    hold(f"{tag} statistics npts exact, the rest "
+         + ("at hold_pipeline's tolerance" if rtol is None
+            else f"within {rtol:g} (min and max exact)"),
+         got["npts"] == want["npts"] and not bad,
+         f"(off {bad}; bit for bit {same}; npts {got['npts']} vs "
+         f"{want['npts']})", f"{tag} statistics")
+
+
+def hold_m_reduction(tag, name, got, ref, hold):
+    """M's reduction ``name`` on the shards against ``ref``: exactly the
+    unsharded call's (CARD_M_EXACT), the sums within 1e-6 of the float64
+    oracles, ``statistics()`` npts, min and max the unsharded call's and
+    sum, mean and sigma within 1e-6 of float64."""
+    want = ref["reductions"][name]
+    oracle = ref["oracle"]
+    if name in CARD_M_EXACT:
+        ok = np.asarray(got).tobytes() == np.asarray(want).tobytes()
+        hold(f"{tag} {name} bit for bit the unsharded call's", ok,
+             "" if ok else f"({got!r} vs {want!r})", f"{tag} {name}")
+        return
+    if name == "statistics()":
+        bad = [k for k in ("sum", "mean", "sigma")
+               if abs(got[k] - oracle[k]) > 1e-6 * abs(oracle[k])]
+        ok = not bad and all(got[k] == want[k] for k in ("npts", "min",
+                                                          "max"))
+        detail = f"(off {bad}; {got} vs {want})"
+    elif name in ("mean(axis=(1, 2))", "std(axis=(1, 2))"):
+        ok, err = within_f64(got, ref[name])
+        detail = f"({err:.2e}; bit for bit the unsharded call's: " \
+            f"{np.asarray(got).tobytes() == np.asarray(want).tobytes()})"
+    else:
+        key = {"sum()": "sum", "mean()": "mean", "std()": "std"}[name]
+        ok = abs(got - oracle[key]) <= 1e-6 * abs(oracle[key])
+        detail = f"({got!r} vs {oracle[key]!r}; the unsharded call's " \
+            f"{want!r})"
+    hold(f"{tag} {name} within 1e-6 of float64", ok, detail,
+         f"{tag} {name}")
+
+
+def hold_m_vr(tag, dev, vsc, res, f64, slabs, tiles, counters, hold):
+    """M's V (a) on ``vsc`` (the sharded varying-resolution P) against its
+    float64 forms ``f64`` ({slab start: (values, den)}): see
+    :func:`card_m`."""
+    import torch
+    import spectral_cube_tpu_torch as T
+    t = CARD_TILE
+    hold(f"{tag} V (a) takes the reshard routes (all-to-alls)",
+         counters["all_to_alls"] > 0, str(counters), f"{tag} V (a) reshard")
+    conv = vsc.convolve_to(vsc.common_beam())
+    hold(f"{tag} V (a) convolved planes {VR_FLAGGED} (flagged beams) NaN",
+         all(np.isnan(conv.filled_data[c].value).all()
+             for c in VR_FLAGGED), "", f"{tag} V (a) flagged")
+    noise = float(conv.mad_std().value)
+    masked = conv.with_mask(conv > T.Quantity(SNR * noise, conv.unit))
+    for c0 in slabs:
+        sl = slice(c0, c0 + CARD_SLAB)
+        where = f"channels {c0}-{c0 + CARD_SLAB - 1}"
+        want, den = f64[c0]
+        ok, err, flips = near_float64(conv.filled_data[sl].value, want,
+                                      den <= 1e-5, np.minimum(den, 1.0))
+        hold(f"{tag} V (a) convolve_to of {where} within 1e-6 of float64",
+             ok, f"({err:.2e} of the largest |value|, {flips} NaN flips at "
+             "den <= 1e-5)", f"{tag} V (a) convolve_to slab {c0}")
+        slab = sharded_cut_cube(masked, (sl,), dev)
+        slab = slab.with_mask(slab > T.Quantity(SNR * noise, slab.unit))
+        got = slab._reproject(rotated_header(slab.header, VR_ROTATION))
+        hold(f"{tag} V (a) reproject of {where} bit for bit the slab's",
+             np.ascontiguousarray(got.filled_data[:].value).tobytes()
+             == np.ascontiguousarray(
+                 res["cube"].filled_data[sl].value).tobytes(), "",
+             f"{tag} V (a) reproject slab {c0}")
+        del slab, got
+    for y0, x0 in tiles:
+        cut = sharded_cut_cube(conv, (slice(None), slice(y0, y0 + t),
+                                      slice(x0, x0 + t)), dev)
+        want = T.run_pipeline(cut, snr_threshold=SNR,
+                              noise_estimate=noise)["moments"]
+        hold(f"{tag} V (a) moment0/1 and linewidth on the tile at "
+             f"({y0}, {x0}) bit for bit the tile's", all(
+                 np.ascontiguousarray(np.asarray(g.value)[
+                     y0:y0 + t, x0:x0 + t]).tobytes()
+                 == np.ascontiguousarray(np.asarray(w.value)).tobytes()
+                 for g, w in zip(res["moments"], want)), "",
+             f"{tag} V (a) tile ({y0}, {x0})")
+    del conv, masked
+    torch.cuda.empty_cache()
+
+
 def staged_call(dev, stages, tag, name, nbytes, fn):
     """``fn()`` on the host clock, synchronised, with the device peak and
     its rise above the bytes in use before it, in cube bytes, kept in
@@ -5528,10 +5960,14 @@ def phase_card_scale(dev, workdir):
     form's, ``statistics()`` npts exact and sum, mean and sigma within
     1e-6 of a float64 oracle; then the spectral path on P
     (:func:`card_spectral`), P's reprojection onto a new spectral axis
-    and a float64 copy's ``statistics()`` (:func:`card_s_f64`), P as a
-    varying-resolution cube (:func:`card_vr`), and the cube's other
-    reductions on H (:func:`card_reductions`).  Returns the "summary:
-    card scale" line."""
+    and a float64 copy's ``statistics()`` (:func:`card_s_f64`), the
+    rotated spline reprojection (:func:`card_r`), the fused convolve +
+    reproject (:func:`card_c`), the sharded path over the card's meshes
+    on P's FITS file and V's 4-D file (:func:`card_m`, its references
+    from the unsharded P first), P as a varying-resolution cube
+    (:func:`card_vr`), and the cube's other reductions on H
+    (:func:`card_reductions`).  Returns the "summary: card scale"
+    line."""
     import shutil
     import torch
     import spectral_cube_tpu_torch as T
@@ -5680,7 +6116,6 @@ def phase_card_scale(dev, workdir):
             tcube._as_tensor = as_tensor
         torch.cuda.synchronize()
         read = time.perf_counter() - t0
-    os.remove(path)
     io_part = (f"made on the card {made:.2f} s, to the host {d2h:.2f} s, "
                f"written ({size / 2**30:.2f} GiB) {wrote:.2f} s; read "
                f"{read:.2f} s (upload {max(uploads):.2f} s); host resident "
@@ -5790,21 +6225,34 @@ def phase_card_scale(dev, workdir):
     parts.append(card_c(cube, nbytes, card, sizes, stages, staged, hold,
                         big_launches, time_first_calls))
     torch.cuda.empty_cache()
-    # V: P's data as a varying-resolution cube, written as a 4-D FITS
-    # file with a BEAMS table and read back with no device argument
+    # M and V: P's data as a varying-resolution cube, written as a 4-D
+    # FITS file with a BEAMS table, which M reads onto the meshes (with
+    # P's FITS file) and V then reads back with no device argument
+    t0 = time.perf_counter()
+    ref = card_m_reference(cube, p_tiles)
+    m_ref = time.perf_counter() - t0
     t0 = time.perf_counter()
     host = cube._data.cpu().numpy()
     d2h = time.perf_counter() - t0
     del cube
     torch.cuda.empty_cache()
     with HostPeak() as vr_peak:
-        vr, wrote, read = card_vr_cube(host, workdir)
+        vr_path, wrote = card_vr_file(host, workdir)
         del host
+    parts.append(f"M references on the unsharded P {m_ref:.1f} s; "
+                 + card_m(dev, path, vr_path, ref, nbytes, card, stages,
+                          staged, hold, big_launches, p_tiles))
+    del ref
+    os.remove(path)
+    torch.cuda.empty_cache()
+    with HostPeak() as vr_read_peak:
+        vr, read = card_vr_read(vr_path)
     if not isinstance(vr, T.VaryingResolutionSpectralCube) \
             or vr.device.type != "cuda" or vr.shape != CARD_P:
         raise AssertionError(f"V read without a device gave {vr!r}")
     vr_io = (f"V: to the host {d2h:.2f} s, written with a BEAMS table "
-             f"{wrote:.2f} s, read {read:.2f} s, host peak {vr_peak}, "
+             f"{wrote:.2f} s, read {read:.2f} s, host peaks {vr_peak} "
+             f"writing, {vr_read_peak} reading, "
              f"{int((~vr.goodbeams_mask).sum())} flagged planes")
     log(f"  {vr_io}")
     parts.append(vr_io + "; " + card_vr(

@@ -324,6 +324,31 @@ def bind_data(mask, data):
     return mask
 
 
+def unbind_data(mask, data):
+    """``mask`` with each data mask in it that is bound to the tensor
+    ``data`` itself, unsliced, bound to no data (it then answers
+    ``include()`` when given data, as :func:`bind_data` undoes); the mask
+    itself where none is.  A sharded cube made from a cube evaluates the
+    mask on each shard, and a binding would keep the whole unsharded
+    tensor alive beside the shards."""
+    if isinstance(mask, _DataMask):
+        if mask._data is not data or not trivial_view(mask._data_view):
+            return mask
+        new = type(mask).__new__(type(mask))
+        new.__dict__.update(mask.__dict__, _data=None)
+        return new
+    if isinstance(mask, InvertedMask):
+        inner = unbind_data(mask._mask, data)
+        return mask if inner is mask._mask else InvertedMask(inner)
+    if isinstance(mask, CompositeMask):
+        m1 = unbind_data(mask._mask1, data)
+        m2 = unbind_data(mask._mask2, data)
+        if m1 is mask._mask1 and m2 is mask._mask2:
+            return mask
+        return CompositeMask(m1, m2, mask._operation)
+    return mask
+
+
 def has_unbound_data(mask) -> bool:
     """True if ``mask`` holds a data mask with no bound data, which
     answers ``include()`` only when given data."""

@@ -165,14 +165,25 @@ def _convolve_groups_fft(data, kernels, group_idx, fy, fx):
     transfer's values do not depend on which groups are built beside it
     (:func:`_transfers`), and the batches are :func:`_convolve_planes`'
     own, so the values are those of one call with every transfer."""
+    return _convolve_batches(data, group_idx, fy, fx,
+                             lambda used: _transfers(
+                                 [kernels[g] for g in used], fy, fx,
+                                 data.device, _complex_of(data.dtype)))
+
+
+def _convolve_batches(data, group_idx, fy, fx, transfers_of):
+    """:func:`_convolve_planes` of (nchan, ny, nx) ``data`` on (fy, fx)
+    planes, one :func:`_fft_channels` batch at a time, each batch with
+    ``transfers_of(groups)``, the transfers of the beam groups it uses
+    (ascending) alone: the FFT route's one cube-sized allocation is its
+    output."""
     nchan = data.shape[0]
     gidx = np.asarray(group_idx, np.int64)
     out = torch.empty(data.shape, dtype=data.dtype, device=data.device)
     step = _fft_channels(fy, fx)
     for c0 in range(0, nchan, step):
         used, local = np.unique(gidx[c0:c0 + step], return_inverse=True)
-        tr = _transfers([kernels[g] for g in used], fy, fx, data.device,
-                        _complex_of(data.dtype))
+        tr = transfers_of(used)
         out[c0:c0 + step] = _convolve_planes(data[c0:c0 + step], tr, local)
         del tr
     return out

@@ -100,6 +100,14 @@ def _whole_sum(data, valid, fn=None):
     the JAX tests' tolerances, rel 1e-7 on a cube's sum, do not allow); a
     float64 sum is rounded once a piece, within 1e-15 relative of one
     call over the whole."""
+    total, cnt = _whole_total(data, valid, fn)
+    return total.to(data.dtype), cnt
+
+
+def _whole_total(data, valid, fn=None):
+    """:func:`_whole_sum` before its rounding: the float64 sum (int64 for
+    an integer type) and the count, 0-d tensors on the data's device (the
+    sharded whole-cube sums add each shard's before they round)."""
     floating = data.dtype.is_floating_point
     total = torch.zeros((), dtype=torch.float64 if floating else torch.int64,
                         device=data.device)
@@ -108,7 +116,7 @@ def _whole_sum(data, valid, fn=None):
         x = _fill(d if fn is None else fn(d), v, 0)
         total += x.double().sum() if floating else x.sum()
         cnt += v.sum()
-    return total.to(data.dtype), cnt
+    return total, cnt
 
 
 def _whole_extremum(data, valid, fill, pick):

@@ -492,28 +492,15 @@ def _gather_resample(data, maps, order):
     """The JAX package's four-corner gather (regrid.py:351-408): the
     spectral lerp of the NaN-filled data (none on an untouched axis), then
     per output pixel the weighted sum of its 2 x 2 input corners (the
-    nearest one for order 0), gathered as rows of the (ny_in * nx_in, nz)
-    channels-minor view so that each gather reads whole spectra.  Only a
-    slab whose input channels hold NaN gathers its NaN weights too, and an
-    output whose NaN weight is above 1e-6 becomes NaN; outputs outside the
-    input's footprint are NaN.  It runs a slab of output channels at a
-    time (:data:`SLAB_VOXELS`) into the one output, the gathers of a slab
-    accumulating in place into one buffer, so that the output is the only
-    cube it makes (the JAX package's whole-cube form held about four)."""
-    (zvalid, z0, zf, z_identity, yvalid, xvalid, y0, y1, wy,
-     x0, x1, wx) = maps
+    nearest one for order 0), :func:`_gather_slabs`.  Only a slab whose
+    input channels hold NaN gathers its NaN weights too, and an output
+    whose NaN weight is above 1e-6 becomes NaN; outputs outside the
+    input's footprint are NaN.  The output is the only cube it makes (the
+    JAX package's whole-cube form held about four)."""
+    (zvalid, z0, zf, z_identity, yvalid, xvalid) = maps[:6]
     nchan_in, ny_in, nx_in = data.shape
     nz = zf.shape[0]
-    ny, nx = wy.shape
     dev = data.device
-    corners = ((y0, x0, (1 - wy) * (1 - wx)), (y0, x1, (1 - wy) * wx),
-               (y1, x0, wy * (1 - wx)), (y1, x1, wy * wx))
-    if order == 0:
-        corners = corners[:1]
-    corners = [(torch.as_tensor((yy * nx_in + xx).ravel(), device=dev),
-                torch.as_tensor(np.ascontiguousarray(w.ravel()),
-                                device=dev)[:, None])
-               for yy, xx, w in corners]
     lo = torch.as_tensor(np.asarray(z0, np.int64), device=dev)
     hi = torch.as_tensor(np.minimum(np.asarray(z0, np.int64) + 1,
                                     nchan_in - 1), device=dev)
@@ -533,12 +520,61 @@ def _gather_resample(data, maps, order):
         f = f3[k0:k1]
         return a * (1 - f) + prep(data.index_select(0, hi[k0:k1])) * f
 
+    def weight(k0, k1):
+        read = slice(k0, k1) if z_identity else torch.cat(
+            [lo[k0:k1], hi[k0:k1]] if lerped else [lo[k0:k1]])
+        if not bool(nan_chan[read].any()):
+            return None
+        return zlerp(_nan_weight, k0, k1)
+
+    out = _gather_slabs(nz, _corner_taps(maps, order, nx_in, dev),
+                       (ny_in, nx_in), yvalid.shape,
+                       lambda k0, k1: zlerp(torch.nan_to_num, k0, k1),
+                       weight)
+    valid = torch.as_tensor((yvalid & xvalid)[None], device=dev) \
+        & torch.as_tensor(np.asarray(zvalid), device=dev)[:, None, None]
+    return out.masked_fill_(~valid, float("nan")).to(data.dtype)
+
+
+def _nan_weight(a):
+    return torch.isnan(a).to(torch.float32)
+
+
+def _corner_taps(maps, order, nx_in, device):
+    """The four-corner gather's taps of the host maps ``maps``
+    (:func:`bilinear_host_maps`): per corner (one for order 0) the flat
+    indices of its input pixel in a plane of ``nx_in`` columns and its
+    (n, 1) weights, on ``device``."""
+    y0, y1, wy, x0, x1, wx = maps[6:]
+    corners = ((y0, x0, (1 - wy) * (1 - wx)), (y0, x1, (1 - wy) * wx),
+               (y1, x0, wy * (1 - wx)), (y1, x1, wy * wx))
+    if order == 0:
+        corners = corners[:1]
+    return [(torch.as_tensor((yy * nx_in + xx).ravel(), device=device),
+             torch.as_tensor(np.ascontiguousarray(w.ravel()),
+                             device=device)[:, None])
+            for yy, xx, w in corners]
+
+
+def _gather_slabs(nz, taps, plane_in, plane_out, fill, weight):
+    """The four-corner gather of ``nz`` output channels onto the
+    ``plane_out`` plane by the taps ``taps`` (:func:`_corner_taps`), a slab
+    of output channels at a time (:data:`SLAB_VOXELS`) into the one output:
+    ``fill(k0, k1)`` gives the slab's NaN-filled input planes (k1 - k0,
+    *``plane_in``) and ``weight(k0, k1)`` their NaN weights, or None where
+    they hold no NaN; an output whose gathered NaN weight passes 1e-6 is
+    NaN.  The gathers read rows of the slab's (ny_in * nx_in, k1 - k0)
+    channels-minor copy, whole spectra, and accumulate in place into one
+    buffer."""
+    ny_in, nx_in = plane_in
+    ny, nx = plane_out
+
     def gathers(src):
         # the slab's channels-minor copy is the only one alive
         flat = src.reshape(src.shape[0], ny_in * nx_in).t().contiguous()
         del src
         acc = None
-        for idx, w in corners:
+        for idx, w in taps:
             part = flat.index_select(0, idx)
             if acc is None:
                 acc = part.mul_(w)
@@ -549,19 +585,14 @@ def _gather_resample(data, maps, order):
 
     out = None
     for k0, k1 in _slabs(nz, max(ny * nx, ny_in * nx_in)):
-        acc = gathers(zlerp(torch.nan_to_num, k0, k1))
-        read = slice(k0, k1) if z_identity else torch.cat(
-            [lo[k0:k1], hi[k0:k1]] if lerped else [lo[k0:k1]])
-        if bool(nan_chan[read].any()):
-            weight = gathers(zlerp(
-                lambda a: torch.isnan(a).to(torch.float32), k0, k1))
-            acc.masked_fill_(weight > 1e-6, float("nan"))
-            del weight
+        acc = gathers(fill(k0, k1))
+        w = [weight(k0, k1)]
+        if w[0] is not None:
+            # handed over, so that the gather frees it once copied
+            acc.masked_fill_(gathers(w.pop()) > 1e-6, float("nan"))
         out = _into(out, k0, k1, nz, acc.t().reshape(k1 - k0, ny, nx))
         del acc
-    valid = torch.as_tensor((yvalid & xvalid)[None], device=dev) \
-        & torch.as_tensor(np.asarray(zvalid), device=dev)[:, None, None]
-    return out.masked_fill_(~valid, float("nan")).to(data.dtype)
+    return out
 
 
 def _zlerp_filled(data, z0, zf):

@@ -449,25 +449,35 @@ class CubeMesh:
         each position splits its tile along dim ``split`` into as many
         parts as the axis has positions and sends part j to position j of
         its row or column, which concatenates what it receives along dim
-        ``concat`` in source order."""
+        ``concat`` in source order.  Over an axis of one position every
+        tile is its own result, handed through with no copy.  The list
+        ``tiles`` is consumed: a row's or a column's tiles leave it as
+        soon as its results are made, so that the sources and the results
+        of a whole mesh are never alive at once."""
         my, mx = self.grid
         m = my if axis == "y" else mx
-        out = []
-        for p, t in enumerate(tiles):
-            iy, ix = divmod(p, mx)
-            me = iy if axis == "y" else ix
-            part = t.shape[split] // m
-            shape = list(t.shape)
-            shape[split] = part
-            shape[concat] = t.shape[concat] * m
-            dst = torch.empty(shape, dtype=t.dtype, device=t.device)
-            for j in range(m):
-                q = j * mx + ix if axis == "y" else iy * mx + j
-                src = tiles[q].narrow(split, me * part, part)
-                dst.narrow(concat, j * t.shape[concat],
-                           t.shape[concat]).copy_(src)
-            out.append(dst)
         self.counters["all_to_alls"] += 1
+        if m == 1:
+            return list(tiles)
+        out = [None] * len(tiles)
+        for g in range(mx if axis == "y" else my):
+            # the positions of column g ('y') or of row g ('x'), in order
+            group = [j * mx + g if axis == "y" else g * mx + j
+                     for j in range(m)]
+            for me, p in enumerate(group):
+                t = tiles[p]
+                part = t.shape[split] // m
+                shape = list(t.shape)
+                shape[split] = part
+                shape[concat] = t.shape[concat] * m
+                dst = torch.empty(shape, dtype=t.dtype, device=t.device)
+                for j, q in enumerate(group):
+                    src = tiles[q].narrow(split, me * part, part)
+                    dst.narrow(concat, j * t.shape[concat],
+                               t.shape[concat]).copy_(src)
+                out[p] = dst
+            for q in group:
+                tiles[q] = None
         return out
 
     def _spectral_tiles(self, tiles):

@@ -33,7 +33,7 @@ import torch
 from .mesh import CubeMesh, ShardedArray, default_mesh
 from ..masks import (is_data_local, is_finiteness_mask, LazyMask,
                      LazyComparisonMask, CompositeMask, BooleanArrayMask,
-                     bind_data, has_unbound_data)
+                     bind_data, unbind_data, has_unbound_data)
 from ..kernels.moments import moments_planes_plain
 from ..utils import warn_slow
 from ..ops import moments as _mom
@@ -449,17 +449,99 @@ def _lane_moments(cmesh, name, parts, ddof=0):
         return torch.where(cnt > 0, m, NAN)
     s = _to_first(cmesh, [torch.where(v, x, 0).sum(1, dtype=f64)
                           for x, v in parts]).sum(0)
+    return _from_sums(name, cnt, s, lambda mean: _to_first(cmesh, [
+        torch.where(v, (x.to(f64) - mean.to(x.device)[:, None]) ** 2,
+                    0).sum(1) for x, v in parts]).sum(0), ddof, out_dtype)
+
+
+def _from_sums(name, cnt, s, centred, ddof, out_dtype):
+    """sum, mean or std (over ``n - ddof``) from the count ``cnt`` and the
+    float64 sum ``s`` of the values, and ``centred(mean)``, the float64 sum
+    of their squared deviations from ``mean``; NaN where nothing (or, for
+    std, no more than ``ddof``) is counted, in ``out_dtype``."""
     if name == "sum":
         return torch.where(cnt > 0, s, NAN).to(out_dtype)
-    n = cnt.to(f64)
+    n = cnt.to(torch.float64)
     mean = s / torch.clamp(n, min=1)
     if name == "mean":
         return torch.where(cnt > 0, mean, NAN).to(out_dtype)
-    s2 = _to_first(cmesh, [torch.where(
-        v, (x.to(f64) - mean.to(x.device)[:, None]) ** 2, 0).sum(1)
-        for x, v in parts]).sum(0)
-    var = s2 / torch.clamp(n - ddof, min=1)
+    var = centred(mean) / torch.clamp(n - ddof, min=1)
     return torch.where(n > ddof, torch.sqrt(var), NAN).to(out_dtype)
+
+
+def _by_lane_tiles(reduce, lanes, parts):
+    """``reduce`` of the lanes of the parts a tile of whole lanes at a
+    time, never of every lane at once: ``parts[p]`` is (m_p, get), m_p
+    the values a lane holds on position p and ``get(sl)`` that position's
+    values of the lanes ``sl`` (what :func:`_lane_moments` or
+    :func:`_lane_order` takes of a part).  The tiles are
+    ``reductions.lane_tiles``' of a (lanes, the sum of the m_p) array:
+    all the lanes up to ``reductions.SORT_CHUNK`` voxels, else runs of
+    lanes whose parts on all positions hold at most
+    ``reductions.SORT_PIECE`` values together.  Each lane's value is its
+    own reduction's, so that the tiles give the values of one call (sums
+    within float64 rounding).  Returns (lanes,) on the first device."""
+    out = None
+    width = sum(m for m, _ in parts)
+    for idx in _red.lane_tiles((lanes, width), (1,)):
+        sl = slice(*idx[0].indices(lanes))
+        r = reduce([get(sl) for _, get in parts])
+        if out is None:
+            out = torch.empty((lanes,), dtype=r.dtype, device=r.device)
+        out[sl] = r
+    return out
+
+
+def _tile_lanes(d, inc, sl):
+    """Channels ``sl`` of a spatial tile ``d`` (its include ``inc`` or
+    None) as lanes over its plane: the values and their validity, each
+    (lanes, py * px)."""
+    x = d[sl]
+    v = _red.valid_mask(x, None if inc is None else inc.expand(d.shape)[sl])
+    return x.reshape(x.shape[0], -1), v.reshape(x.shape[0], -1)
+
+
+def _slab_lanes(d, inc, keep, order, sl):
+    """The rows (``keep`` 1) or columns (2) ``sl`` of a slab ``d`` of
+    whole planes (its include ``inc`` or None) as lanes over its channels
+    and the other spatial axis: the values and their validity, each
+    (lanes, channels * the other axis), or for an order statistic the
+    values with the invalid ones NaN."""
+    n = sl.stop - sl.start
+    x = d.narrow(keep, sl.start, n)
+    v = _red.valid_mask(x, None if inc is None else
+                        inc.expand(d.shape).narrow(keep, sl.start, n))
+    perm = (keep, 0, 3 - keep)
+    if order:
+        return torch.where(v, x, NAN).permute(*perm).reshape(n, -1)
+    return x.permute(*perm).reshape(n, -1), v.permute(*perm).reshape(n, -1)
+
+
+def _whole_moments(cmesh, name, parts, ddof=0):
+    """sum, mean, std, max or min of the values of the parts
+    (``parts[p]`` a pair (x, valid) of position p's block and its
+    validity), as :func:`_lane_moments` gives them over one lane: each
+    part's float64 sums, count and extremes in the unsharded whole-cube
+    reductions' pieces (``reductions._whole_total``, ``_whole_extremum``;
+    no cube-sized count, fill or square), reduced over the mesh and
+    rounded once.  A 0-d tensor on the first device."""
+    dtype = parts[0][0].dtype
+    out_dtype = dtype if dtype.is_floating_point else torch.float32
+    f64 = torch.float64
+    if name in ("max", "min"):
+        fill, pick = (-math.inf, torch.max) if name == "max" \
+            else (math.inf, torch.min)
+        ext = [_red._whole_extremum(x, v, fill, pick) for x, v in parts]
+        m = pick(_to_first(cmesh, [e for e, _ in ext]))
+        cnt = _to_first(cmesh, [c for _, c in ext]).sum()
+        return torch.where(cnt > 0, m, NAN)
+    tot = [_red._whole_total(x, v) for x, v in parts]
+    s = _to_first(cmesh, [t.to(f64) for t, _ in tot]).sum()
+    cnt = _to_first(cmesh, [c for _, c in tot]).sum()
+    return _from_sums(name, cnt, s, lambda mean: _to_first(cmesh, [
+        _red._whole_total(x, v, lambda d: (d.to(f64) - mean.to(d.device))
+                          ** 2)[0] for x, v in parts]).sum(), ddof,
+        out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -519,18 +601,19 @@ def halo_pad(tiles, cmesh: CubeMesh, halo_y, halo_x):
 
 
 def _nan_empty_channels(cmesh, outs, tiles, shape):
-    """NaN the channels with no finite value anywhere in the cube (the
-    JAX package's ``any_valid`` psum): each tile's flags from its part
-    inside the cube, OR-ed over the mesh."""
+    """NaN, in place, the channels of the outputs ``outs`` with no finite
+    value anywhere in the cube (the JAX package's ``any_valid`` psum):
+    each tile's flags from its part inside the cube, OR-ed over the
+    mesh."""
     tile = tiles[0].shape[-2:]
     flags = []
     for p, t in enumerate(tiles):
         h, w = _tile_extent(cmesh, p, shape[1:], tile)
-        flags.append(torch.isfinite(t[:, :h, :w]).flatten(1).any(1))
+        flags.append(_red.finite(t[:, :h, :w]).flatten(1).any(1))
     any_valid = _to_first(cmesh, flags).any(0)
     if bool(any_valid.all()):
         return outs
-    return [torch.where(any_valid.to(o.device)[:, None, None], o, NAN)
+    return [o.masked_fill_(~any_valid.to(o.device)[:, None, None], NAN)
             for o in outs]
 
 
@@ -610,7 +693,7 @@ def sharded_spatial_convolve(data, kernel, cmesh: CubeMesh):
         fy, fx = _padded_shape((ny0 + (-ny0) % my, nx0 + (-nx0) % mx),
                                k.shape)
         return _fft_convolve(
-            data, np.zeros(nchan0, np.int32), cmesh,
+            data, np.zeros(nchan0, np.int32), cmesh, fy, fx,
             lambda groups, dev, dt: _transfers([k], fy, fx, dev, dt))
     tiles, _, shape = _pad_spatial(data, cmesh, 0.0)
     outs = [spatial_smooth_cube(b, karr)
@@ -623,16 +706,17 @@ def sharded_spatial_convolve(data, kernel, cmesh: CubeMesh):
 # ---------------------------------------------------------------------------
 # FFT beam convolution: reshard to the channel layout (the rechunk analog)
 # ---------------------------------------------------------------------------
-def _fft_convolve(data, group_idx, cmesh, transfers_for):
-    """Per-channel FFT convolution over a mesh: the spatial tiles
-    (zero-padded to aligned tiles and to a channel count the devices
-    divide) reshard to the spectral layout by two all-to-alls, each
-    position convolves its channel block's whole planes with the
-    unsharded ``ops/convolve._convolve_planes`` (cuFFT on the card), and
-    the result reshards back.  ``transfers_for(groups, device, dtype)``
-    gives the transfers of the beam groups ``groups``, so each device
-    holds only its channels' ones."""
-    from ..ops.convolve import _convolve_planes, _complex_of
+def _fft_convolve(data, group_idx, cmesh, fy, fx, transfers_for):
+    """Per-channel FFT convolution over a mesh on (fy, fx) planes: the
+    spatial tiles (zero-padded to aligned tiles and to a channel count the
+    devices divide) reshard to the spectral layout by two all-to-alls,
+    each position convolves its channel block's whole planes in the
+    unsharded route's channel batches (``ops/convolve._convolve_batches``,
+    cuFFT on the card), and the result reshards back.
+    ``transfers_for(groups, device, dtype)`` gives the transfers of the
+    beam groups ``groups``, each batch's own, so that a device holds only
+    the transfers of the batch it convolves."""
+    from ..ops.convolve import _convolve_batches, _complex_of
     n = cmesh.n_devices
     tiles, _, shape = _pad_spatial(data, cmesh, 0.0, chan_multiple=n)
     nchan, ny, nx = shape
@@ -642,18 +726,20 @@ def _fft_convolve(data, group_idx, cmesh, transfers_for):
     gidx = np.zeros(cb * n, np.int64)
     gidx[:nchan] = np.asarray(group_idx)
     outs = []
-    for p, b in enumerate(blocks):
-        used, local = np.unique(gidx[p * cb:(p + 1) * cb],
-                                return_inverse=True)
-        o = _convolve_planes(b, transfers_for(used, b.device,
-                                              _complex_of(b.dtype)), local)
+    for p in range(n):
+        # each block leaves the list once convolved
+        b, blocks[p] = blocks[p], None
+        o = _convolve_batches(
+            b, gidx[p * cb:(p + 1) * cb], fy, fx,
+            lambda used, b=b: transfers_for(used, b.device,
+                                            _complex_of(b.dtype)))
         # the mesh padding holds valid zeros: a channel with no finite
         # value inside the cube is NaN, as the unsharded route gives it
-        inside = torch.isfinite(b[:, :ny, :nx]).flatten(1).any(1)
+        inside = _red.finite(b[:, :ny, :nx]).flatten(1).any(1)
+        del b
         if not bool(inside.all()):
-            o = torch.where(inside[:, None, None], o, NAN)
+            o.masked_fill_(~inside[:, None, None], NAN)
         outs.append(o)
-    del blocks
     return cmesh._from_spatial(cmesh._spatial_tiles(outs), shape)
 
 
@@ -669,7 +755,8 @@ def sharded_spectral_convolve_fft(data, transfers, group_idx,
 
     def transfers_for(groups, device, dtype):
         return tr[torch.as_tensor(groups)].to(device=device, dtype=dtype)
-    return _fft_convolve(data, group_idx, cmesh, transfers_for)
+    return _fft_convolve(data, group_idx, cmesh, tr.shape[1],
+                         2 * (tr.shape[2] - 1), transfers_for)
 
 
 # ---------------------------------------------------------------------------
@@ -805,71 +892,73 @@ def _reproject_halo(src, maps, taps, halo, cmesh, nz):
 
 
 def _reproject_reshard(src, maps, order, cmesh, nz):
-    """The reshard strategy: the spectral lerp of the NaN-filled data and
-    of the NaN flags in the spatial layout (z local), two all-to-alls to
-    the spectral layout (whole planes local), the unsharded four-corner
-    gather (``ops/regrid._gather_resample``) per channel block, and two
-    all-to-alls back."""
-    (zvalid, z0, zf, z_identity, yvalid, xvalid, y0, y1, wy,
-     x0, x1, wx) = maps
+    """The reshard strategy: the spectral step in the spatial layout (z
+    local; none on an untouched spectral axis, the nearest input channel
+    for order 0, else ``ops/regrid._zlerp_filled``'s lerp of the
+    NaN-filled data and of the NaN flags), two all-to-alls to the
+    spectral layout (whole planes local), on each channel block the
+    unsharded four-corner gather a slab of channels at a time
+    (``ops/regrid._gather_slabs``, each slab's NaN weights gathered where
+    its channels hold NaN), and two all-to-alls back."""
+    from ..ops.regrid import (_corner_taps, _gather_slabs, _nan_channels,
+                              _nan_weight, _zlerp_filled)
+    (zvalid, z0, zf, z_identity, yvalid, xvalid) = maps[:6]
     nchan_in, ny_in, nx_in = src.shape
-    ny_out, nx_out = wy.shape
+    ny_out, nx_out = yvalid.shape
     tiles, _, _ = _pad_spatial(src, cmesh, 0.0)
-    has_nan = bool(_to_first(cmesh, [torch.isnan(t).any()
-                                     for t in tiles]).any())
-    lo = np.asarray(z0, np.int64)
-    hi = np.minimum(lo + 1, nchan_in - 1)
+    lerped = not (z_identity or order == 0 or nchan_in == 1)
 
-    def zlerp(a):
-        if z_identity:
-            return a
-        lo_t = torch.as_tensor(lo, device=a.device)
-        if order == 0 or nchan_in == 1:
-            return a.index_select(0, lo_t)
-        f3 = torch.as_tensor(np.asarray(zf, np.float32),
-                             device=a.device)[:, None, None]
-        return a.index_select(0, lo_t) * (1 - f3) \
-            + a.index_select(0, torch.as_tensor(hi, device=a.device)) * f3
-
-    def spectral(make):
-        parts, _ = _pad_chan([make(t) for t in tiles], cmesh, 0.0)
+    def spectral(parts):
+        parts, _ = _pad_chan(parts, cmesh, 0.0)
         return cmesh._spectral_tiles(parts)
-
-    fz = spectral(lambda t: zlerp(torch.nan_to_num(t)))
-    wz = spectral(lambda t: zlerp(torch.isnan(t).to(torch.float32))) \
-        if has_nan else None
-    del tiles
-    ny_p, nx_p = fz[0].shape[1:]
-    corners = ((y0, x0, (1 - wy) * (1 - wx)), (y0, x1, (1 - wy) * wx),
-               (y1, x0, wy * (1 - wx)), (y1, x1, wy * wx))
-    if order == 0:
-        corners = corners[:1]
+    if lerped:
+        lerps = [_zlerp_filled(t, z0, zf) for t in tiles]
+        del tiles
+        # the output channels whose NaN weight is not zero on some tile
+        wz_any = np.logical_or.reduce([a.cpu().numpy()
+                                       for _, _, a in lerps])
+        fz = spectral([f for f, _, _ in lerps])
+        wz = spectral([w for _, w, _ in lerps])
+        del lerps
+    else:
+        if not z_identity:
+            lo = np.asarray(z0, np.int64)
+            tiles = [t.index_select(0, torch.as_tensor(lo, device=t.device))
+                     for t in tiles]
+        fz = spectral(tiles)
+        wz = None
+        del tiles
     valid = (yvalid & xvalid)[None]
     cb = fz[0].shape[0]
+    taps = {}
     outs = []
-    for p, f in enumerate(fz):
+    for p in range(len(fz)):
+        # each block leaves the lists once gathered
+        f, fz[p] = fz[p][:, :ny_in, :nx_in], None
         dev = f.device
-        cidx = [(torch.as_tensor((yy * nx_p + xx).ravel(), device=dev),
-                 torch.as_tensor(np.ascontiguousarray(w.ravel()),
-                                 device=dev)[:, None])
-                for yy, xx, w in corners]
+        if str(dev) not in taps:
+            taps[str(dev)] = _corner_taps(maps, order, nx_in, dev)
+        if wz is None:
+            nan_chan = _nan_channels(f)
 
-        def gathers(a):
-            flat = a.reshape(cb, ny_p * nx_p).t().contiguous()
-            acc = None
-            for idx, w in cidx:
-                part = flat.index_select(0, idx)
-                if acc is None:
-                    acc = part.mul_(w)
-                else:
-                    acc.addcmul_(part, w)
-                del part
-            return acc
+            def fill(k0, k1, f=f):
+                return torch.nan_to_num(f[k0:k1])
 
-        out = gathers(f)
-        if wz is not None:
-            out.masked_fill_(gathers(wz[p]) > 1e-6, NAN)
-        out = out.t().reshape(cb, ny_out, nx_out)
+            def weight(k0, k1, f=f, nan_chan=nan_chan):
+                return _nan_weight(f[k0:k1]) \
+                    if bool(nan_chan[k0:k1].any()) else None
+        else:
+            w, wz[p] = wz[p][:, :ny_in, :nx_in], None
+            flags = wz_any[p * cb:(p + 1) * cb]
+
+            def fill(k0, k1, f=f):
+                return f[k0:k1]
+
+            def weight(k0, k1, w=w, flags=flags):
+                return w[k0:k1] if flags[k0:k1].any() else None
+        out = _gather_slabs(cb, taps[str(dev)], (ny_in, nx_in),
+                            (ny_out, nx_out), fill, weight)
+        del f, fill, weight
         zv = np.zeros(cb, bool)
         c0, c1 = min(p * cb, nz), min((p + 1) * cb, nz)
         zv[:c1 - c0] = np.asarray(zvalid)[c0:c1]
@@ -878,6 +967,7 @@ def _reproject_reshard(src, maps, order, cmesh, nz):
         outs.append(out.masked_fill_(~ok, NAN))
     del fz, wz
     out = cmesh._from_spectral(outs, (nz, ny_out, nx_out))
+    del outs
     return cmesh.reshard(out, "spatial")
 
 
@@ -1235,8 +1325,10 @@ class ShardedCube:
         template = cube._new_cube_with(
             data=_placeholder(cube.shape, cube.dtype, self.cmesh.devices[0]),
             mask=None)
+        # a mask bound to the cube's data is evaluated on each shard: the
+        # binding would keep the unsharded data alive beside the shards
         self._set(self.cmesh.shard(cube._data, "spatial"), template,
-                  cube._mask, None)
+                  unbind_data(cube._mask, cube._data), None)
 
     def _set(self, data, template, mask, include):
         self._data = data
@@ -1695,14 +1787,18 @@ class ShardedCube:
             else:
                 out = sharded_percentile(self._data, 50.0 if q is None
                                          else q, self.cmesh, include, expr)
-        elif axis is None or (axes == {1, 2} and not order):
+        elif axis is None:
             tiles, incs = self._tiles()
-            lead = 1 if axis is None else self.shape[0]
-            out = _lane_moments(self.cmesh, name, [
-                (d.reshape(lead, -1), _red.valid_mask(d, i).expand(
-                    d.shape).reshape(lead, -1))
-                for d, i in zip(tiles, incs)], **kwargs)
-            out = out[0] if axis is None else out
+            out = _whole_moments(self.cmesh, name, [
+                (d, _red.valid_mask(d, i)) for d, i in zip(tiles, incs)],
+                **kwargs)
+        elif axes == {1, 2} and not order:
+            tiles, incs = self._tiles()
+            out = _by_lane_tiles(
+                lambda parts: _lane_moments(self.cmesh, name, parts,
+                                            **kwargs), self.shape[0],
+                [(d[0].numel(), functools.partial(_tile_lanes, d, i))
+                 for d, i in zip(tiles, incs)])
         elif 0 not in axes:
             slabs, incs = self._slabs()
             out = self._concat([fn(d, _red.valid_mask(d, i), axis=axis,
@@ -1711,20 +1807,17 @@ class ShardedCube:
         else:
             # (0, 1) or (0, 2): the kept spatial axis is each slab's lanes
             keep = ({1, 2} - axes).pop()
-            perm = (keep, 0, 3 - keep)
             slabs, incs = self._slabs()
-            valid = [_red.valid_mask(d, i).expand(d.shape)
-                     for d, i in zip(slabs, incs)]
+            parts = [(d.shape[0] * d.shape[3 - keep], functools.partial(
+                _slab_lanes, d, i, keep, order)) for d, i in zip(slabs, incs)]
             if order:
-                out = _lane_order(self.cmesh, name, [
-                    torch.where(v, d, NAN).permute(*perm).reshape(
-                        d.shape[keep], -1) for d, v in zip(slabs, valid)],
-                    q=q)
+                out = _by_lane_tiles(
+                    lambda p: _lane_order(self.cmesh, name, p, q=q),
+                    self.shape[keep], parts)
             else:
-                out = _lane_moments(self.cmesh, name, [
-                    (d.permute(*perm).reshape(d.shape[keep], -1),
-                     v.permute(*perm).reshape(d.shape[keep], -1))
-                    for d, v in zip(slabs, valid)], **kwargs)
+                out = _by_lane_tiles(
+                    lambda p: _lane_moments(self.cmesh, name, p, **kwargs),
+                    self.shape[keep], parts)
         return self._wrap(out, axis, unit)
 
     def sum(self, axis=None, how=None, **kwargs):
@@ -1995,7 +2088,7 @@ class ShardedCube:
             wcs=wcs_out, meta=dict(t._meta), unit=t._unit,
             fill_value=t._fill_value,
             allow_huge_operations=t.allow_huge_operations)
-        return self._new(out, template, include=out.map(torch.isfinite))
+        return self._new(out, template, include=out.map(_red.finite))
 
     def convolve_to(self, beam, allow_smaller=False, **kwargs):
         """Common-beam convolution: the halo-exchange separable route
@@ -2056,19 +2149,20 @@ class ShardedCube:
             fy, fx = _conv._padded_shape((ny + (-ny) % my, nx + (-nx) % mx),
                                          max_k)
             out = _fft_convolve(
-                filled, group_idx, self.cmesh,
+                filled, group_idx, self.cmesh, fy, fx,
                 lambda g, dev, dt: _conv._transfers(
                     [kernels[i] for i in g], fy, fx, dev, dt))
         del filled
+        # the Jy/beam factors and the flagged planes written in place on
+        # the convolution's own output blocks (the unsharded cube's)
+        from ..cube import _rescaled
         factors = np.array([_conv.beam_unit_factor(t.unit, b, beam)
                             for b in beam_list])
-        if not np.allclose(factors, 1.0):
-            out = out.map(lambda d: d * torch.as_tensor(
-                factors, dtype=d.dtype, device=d.device)[:, None, None])
-        if good is not None and not good.all():
-            bad = np.flatnonzero(~good)
-            out = out.map(lambda d: d.index_fill(
-                0, torch.as_tensor(bad, device=d.device), NAN))
+        bad = None if good is None else np.flatnonzero(~good)
+        for d in out.blocks:
+            _rescaled(d, factors, None)
+            if bad is not None and bad.size:
+                d.index_fill_(0, torch.as_tensor(bad, device=d.device), NAN)
         meta = dict(t._meta)
         meta["beam"] = beam
         template = SpectralCube(
