@@ -166,7 +166,9 @@
    P's FITS file read onto each, ``run_pipeline(cmesh=)``, the
    reductions over the mesh, P as a varying-resolution cube through
    ``to_sharded`` and ``run_pipeline(cmesh=)`` onto a rotated grid, a
-   float64 read's statistics), P as a varying-resolution cube (V); on H
+   float64 read's statistics; and MS on the same shards of P: the
+   spectral path, S and R shard by shard, held against the unsharded
+   stages' tiles and slabs), P as a varying-resolution cube (V); on H
    (1280 x 2048 x 2048) the moments, statistics and reductions.  Each
    stage's peak and rise logged and held, each kernel launched on more
    than 2**31 elements and counted over its own stage, results held on
@@ -335,7 +337,9 @@ CARD_KERNELS = {"P": ("moments", "conv_sep", "resample2", "smooth_interp",
                 "S": ("resample2_filled", "banded_matmul"),
                 "R": ("banded_matmul",),
                 "C": ("conv_reproject", "plain_strips", "pipeline_fused"),
-                "M": ("moments", "conv_sep", "resample2")}
+                "M": ("moments", "conv_sep", "resample2"),
+                "MS": ("smooth_interp", "sigma_clip", "resample2_filled",
+                       "banded_matmul")}
 # S: P reprojected onto a new spectral axis of one channel fewer than
 # P's, each channel this many input channels wide, starting this far (in
 # input channels) in: every output channel a lerp of two input channels,
@@ -4927,7 +4931,7 @@ def card_vr(cube, tiles, nbytes, card, sizes, stages, staged, hold,
 
 
 def card_s_f64(cube, nbytes, card, sizes, stages, staged, hold, big_launches,
-               time_first_calls):
+               time_first_calls, keep):
     """S on P (``cube``, read from FITS): ``reproject`` onto a new spectral
     axis (:func:`card_s_stages`), bilinear (#7 on fz and wz, each
     2,414,870,528 elements) and bicubic (#14 on the filled data and the
@@ -4941,8 +4945,11 @@ def card_s_f64(cube, nbytes, card, sizes, stages, staged, hold, big_launches,
     on a column range bit for bit the whole launch's.  Then
     ``statistics()`` of a float64 copy (:func:`card_f64_cube`): its rise
     at most CARD_MAD_RATIO cube bytes of its own, npts the float32
-    kernel's exactly, mean and sigma within 1e-6 of it.  Returns the
-    summary part."""
+    kernel's exactly, mean and sigma within 1e-6 of it.  Each stage's
+    slabs (and the bicubic's float64 forms with their NaN weights) are
+    kept in ``keep`` as host arrays under MS's name of the stage
+    (:func:`card_ms_stages`), MS's references.  Returns the summary
+    part."""
     import torch
     from spectral_cube_tpu_torch import kernels as K
     from spectral_cube_tpu_torch.kernels import banded_matmul as kbm
@@ -4981,9 +4988,11 @@ def card_s_f64(cube, nbytes, card, sizes, stages, staged, hold, big_launches,
              f"S {name} peak")
         if out.shape != (nz,) + cube.shape[1:]:
             raise AssertionError(f"S {name}: shape {out.shape}")
+        kept = keep[f"MS S {name}"] = {"slabs": {}, "f64": {}}
         for c0 in slabs:
             where = f"output channels {c0}-{c0 + CARD_SLAB - 1}"
             got = out._data[c0:c0 + CARD_SLAB]
+            kept["slabs"][c0] = got.cpu().numpy()
             some = int(torch.isfinite(got).sum())
             hold(f"S {name} {where} hold finite values", some > 0,
                  f"({some})", f"S {name} slab {c0} finite")
@@ -4997,6 +5006,7 @@ def card_s_f64(cube, nbytes, card, sizes, stages, staged, hold, big_launches,
                      f"S {name} slab {c0}")
                 continue
             want, wn = float64_spline(cube, target, c0, c0 + CARD_SLAB)
+            kept["f64"][c0] = want, wn
             # a float32 sum of the NaN weights may land on either side of
             # the 1e-6 limit where it lies within 1e-6 of it
             ok, err, flips = near_float64(got.cpu().numpy(), want,
@@ -5099,7 +5109,8 @@ def spline_slab_stages(cube, target, k0, k1, order):
     return out.masked_fill(~ok, float("nan"))
 
 
-def card_r(cube, nbytes, card, sizes, stages, staged, hold, big_launches):
+def card_r(cube, nbytes, card, sizes, stages, staged, hold, big_launches,
+           keep):
     """R on P (``cube``, read from FITS): :func:`card_r_stages`, each peak
     at most CARD_PEAK_SHARE of the card.  Biquadratic launches no kernel
     (every counter 0 over its stage); bicubic launches #14 on more than
@@ -5110,7 +5121,10 @@ def card_r(cube, nbytes, card, sizes, stages, staged, hold, big_launches):
     (:func:`float64_spline`), the NaN states free only where the float64
     NaN weight lies within 1e-6 of the 1e-6 limit; and biquadratic's
     middle slab of the path (``ops/regrid._slabs``) bit for bit its own
-    stages (:func:`spline_slab_stages`).  Returns the summary part."""
+    stages (:func:`spline_slab_stages`).  Each stage's slabs and their
+    float64 forms with their NaN weights are kept in ``keep`` as host
+    arrays under MS's name of the stage (:func:`card_ms_stages`), MS's
+    references.  Returns the summary part."""
     import torch
     from spectral_cube_tpu_torch import kernels as K
     from spectral_cube_tpu_torch.kernels import banded_matmul as kbm
@@ -5139,14 +5153,17 @@ def card_r(cube, nbytes, card, sizes, stages, staged, hold, big_launches):
         nz = int(target["NAXIS3"])
         if out.shape != (nz,) + cube.shape[1:]:
             raise AssertionError(f"R {name}: shape {out.shape}")
+        kept = keep[f"MS R {name}"] = {"slabs": {}, "f64": {}}
         for c0 in (0, (nz - CARD_SLAB) // 2, nz - CARD_SLAB):
             where = f"output channels {c0}-{c0 + CARD_SLAB - 1}"
             got = out._data[c0:c0 + CARD_SLAB]
+            kept["slabs"][c0] = got.cpu().numpy()
             some = int(torch.isfinite(got).sum())
             hold(f"R {name} {where} hold finite values", some > 0,
                  f"({some})", f"R {name} slab {c0} finite")
             want, wn = float64_spline(cube, target, c0, c0 + CARD_SLAB,
                                       og._order_int(order))
+            kept["f64"][c0] = want, wn
             # a float32 sum of the NaN weights may land on either side of
             # the 1e-6 limit where it lies within 1e-6 of it
             ok, err, flips = near_float64(got.cpu().numpy(), want,
@@ -5417,7 +5434,20 @@ def card_m_meshes(dev):
     return {"M1": m1, "M4": T.CubeMesh(devices=[dev] * 4, shape=MESH_GRID)}
 
 
-def card_m_run(cmesh, p_path, vr_path, run, after=lambda name, val: None):
+def card_ms_stages(cube):
+    """MS: the spectral path's, S's and R's stages
+    (:func:`card_spectral_stages`, :func:`card_s_stages`,
+    :func:`card_r_stages`) on the sharded P ``cube``: ``(name, the call on
+    a cube, the kernel it launches or None)``, each name "MS " and, for S
+    and R, the part's tag before the stage's."""
+    return ([(f"MS {n}", c, k) for n, c, k in card_spectral_stages(cube)]
+            + [(f"MS S {n}", c, k) for n, c, k in card_s_stages(cube)]
+            + [(f"MS R {n}", c, k)
+               for n, c, k, _, _ in card_r_stages(cube)])
+
+
+def card_m_run(cmesh, p_path, vr_path, run, after=lambda name, val: None,
+               parts=("M", "MS")):
     """M's stages on ``cmesh``, each through ``run(name, fn, scale)``,
     which calls ``fn`` and returns its value (``scale`` times P's float32
     bytes are the stage's cube bytes), and ``after(name, value)`` just
@@ -5431,8 +5461,10 @@ def card_m_run(cmesh, p_path, vr_path, run, after=lambda name, val: None):
     ``run_pipeline(cmesh=)`` onto the grid rotated by VR_ROTATION (the FFT
     reshard and the reshard reprojection; ``after`` gets the sharded cube
     and the result); last ``statistics()`` of P read onto the mesh as
-    float64.  A stage whose ``run`` returns None ends the mesh's read of
-    P, or is passed over."""
+    float64.  MS, on the same shards of P before they are dropped: each
+    stage of :func:`card_ms_stages`.  ``parts`` names the parts run, M
+    and MS (the read of P serves both).  A stage whose ``run`` returns
+    None ends the mesh's read of P, or is passed over."""
     import numpy as np
     import torch
     import spectral_cube_tpu_torch as T
@@ -5442,16 +5474,22 @@ def card_m_run(cmesh, p_path, vr_path, run, after=lambda name, val: None):
     if sc is None:
         return
     after("read", sc)
-    target = shifted_header(sc.header, *SHIFT)
-    val = run("run_pipeline", lambda: T.run_pipeline(
-        sc, cmesh=cmesh, snr_threshold=SNR, target_beam=target_beam,
-        target_header=target), 1)
-    after("run_pipeline", val)
-    del val
-    for name, fn in CARD_M_REDUCTIONS.items():
-        after(name, run(name, lambda: fn(sc), 1))
+    if "M" in parts:
+        target = shifted_header(sc.header, *SHIFT)
+        val = run("run_pipeline", lambda: T.run_pipeline(
+            sc, cmesh=cmesh, snr_threshold=SNR, target_beam=target_beam,
+            target_header=target), 1)
+        after("run_pipeline", val)
+        del val
+        for name, fn in CARD_M_REDUCTIONS.items():
+            after(name, run(name, lambda: fn(sc), 1))
+    if "MS" in parts:
+        for name, fn, _ in card_ms_stages(sc):
+            after(name, run(name, lambda: fn(sc), 1))
     del sc
     torch.cuda.empty_cache()
+    if "M" not in parts:
+        return
     vr = T.SpectralCube.read(vr_path)
     after("V (a) read", vr)
     vsc = vr.to_sharded(cmesh)
@@ -5566,7 +5604,14 @@ def card_m(dev, p_path, vr_path, ref, nbytes, card, stages, staged, hold,
     1e-6 of the float64 FFT form (NaN decisions free at den <= 1e-5), its
     reprojected slabs bit for bit the slab's call on the masked convolved
     cube's cut-out and its moments on the tiles bit for bit the cut-out's
-    ``run_pipeline(noise_estimate=)``.  Returns the summary part."""
+    ``run_pipeline(noise_estimate=)``.  MS (:func:`card_ms_stages`, on the
+    shards of M's read, after its reductions): each stage staged and held
+    as M's are (peak, gathers 0); on M1 its kernel (of
+    CARD_KERNELS["MS"]) launched on more than 2**31 elements, counted over
+    the stage alone; each held against ``ref["MS"]``, the unsharded
+    stages' tiles and slabs that :func:`card_spectral`, :func:`card_s_f64`
+    and :func:`card_r` kept (:func:`hold_ms`).  Returns the summary
+    part."""
     import torch
     from spectral_cube_tpu_torch import kernels as K
     from spectral_cube_tpu_torch.io import streaming
@@ -5577,16 +5622,21 @@ def card_m(dev, p_path, vr_path, ref, nbytes, card, stages, staged, hold,
     vr_slabs = sorted({0, (nchan - CARD_SLAB) // 2, nchan - CARD_SLAB,
                        VR_FLAGGED[0] - CARD_SLAB // 2})
     parts = []
+    ms_parts = []
     for tag, cmesh in card_m_meshes(dev).items():
         t_mesh = time.perf_counter()
         counters, launched, bitwise = {}, [], {}
+        ms_run = {"kernels": {}, "launched": [], "holds": [], "t0": None}
 
         def run(name, fn, scale, tag=tag, cmesh=cmesh, counters=counters,
-                launched=launched):
+                launched=launched, ms_run=ms_run):
             torch.cuda.empty_cache()
             cmesh.reset_counters()
             K.reset_launch_counts()
-            with recorded_calls(CARD_KERNELS["M"],
+            is_ms = name.startswith("MS ")
+            if is_ms and ms_run["t0"] is None:
+                ms_run["t0"] = time.perf_counter()
+            with recorded_calls(CARD_KERNELS["MS" if is_ms else "M"],
                                 lambda a, kw: a[0].numel()) as sizes:
                 val = staged(tag, name, nbytes * scale, fn)
             counters[name] = dict(cmesh.counters)
@@ -5600,6 +5650,13 @@ def card_m(dev, p_path, vr_path, ref, nbytes, card, stages, staged, hold,
                 hold(f"{tag} {name} rise above the resident shards at most "
                      f"{CARD_MAD_RATIO} cube bytes", rise <= CARD_MAD_RATIO,
                      f"({rise:.3f})", f"{tag} {name} rise")
+            kernel = ms_run["kernels"].get(name)
+            if kernel and tag == "M1":
+                ms_run["launched"].append(f"{name[3:]}: " + big_launches(
+                    "MS", sizes, (kernel,)))
+            elif kernel:
+                ms_run["launched"].append(f"{name[3:]}: {kernel} "
+                                      f"{K.launch_counts()[kernel]}")
             if name == "run_pipeline":
                 if tag == "M1":
                     launched.append(big_launches("M", sizes))
@@ -5616,8 +5673,11 @@ def card_m(dev, p_path, vr_path, ref, nbytes, card, stages, staged, hold,
             bitwise[name] = bitwise.get(name, True) and same
             return err
 
-        def after(name, val, tag=tag, cmesh=cmesh, bitwise=bitwise):
+        def after(name, val, tag=tag, cmesh=cmesh, bitwise=bitwise,
+                  ms_run=ms_run):
             if name == "read":
+                ms_run["kernels"].update(
+                    (n, k) for n, _, k in card_ms_stages(val) if k)
                 shards = val._data.addressable_shards
                 want = (nchan, CARD_P[1] // cmesh.grid[0],
                         CARD_P[2] // cmesh.grid[1])
@@ -5661,6 +5721,10 @@ def card_m(dev, p_path, vr_path, ref, nbytes, card, stages, staged, hold,
                      str(c), f"{tag} run_pipeline halo")
             elif name in CARD_M_REDUCTIONS:
                 hold_m_reduction(tag, name, val, ref, hold)
+            elif name.startswith("MS "):
+                ms_run["holds"].append(hold_ms(tag, name, val,
+                                               ref["MS"][name], hold))
+                ms_run["t1"] = time.perf_counter()
             elif name == "V (a) read":
                 cb = val.common_beam()
                 ref["V"] = {c0: float64_fft_convolve_to(
@@ -5674,12 +5738,17 @@ def card_m(dev, p_path, vr_path, ref, nbytes, card, stages, staged, hold,
                                 ref["statistics() float64"], hold, 1e-6)
         card_m_run(cmesh, p_path, vr_path, run, after)
         wall = time.perf_counter() - t_mesh
+        ms_parts.append(f"{tag} ({ms_run['t1'] - ms_run['t0']:.1f} s): "
+                        "launches " + "; ".join(ms_run["launched"])
+                        + "; held: " + "; ".join(ms_run["holds"]))
         parts.append(f"{tag} ({cmesh.n_devices} position(s), {wall:.1f} s): "
                      "launches " + "; ".join(launched)
                      + "; bit for bit the unsharded run: "
                      + ", ".join(f"{k} {v}" for k, v in bitwise.items()))
-    return (f"M (the sharded path, {time.perf_counter() - t_m:.1f} s): "
-            + "; ".join(parts))
+    return (f"M (the sharded path, {time.perf_counter() - t_m:.1f} s, MS "
+            "within it): " + "; ".join(parts)
+            + "; MS (the sharded spectral path and spline reprojections): "
+            + "; ".join(ms_parts))
 
 
 def hold_statistics(tag, got, want, hold, rtol=None):
@@ -5732,6 +5801,71 @@ def hold_m_reduction(tag, name, got, ref, hold):
             f"{want!r})"
     hold(f"{tag} {name} within 1e-6 of float64", ok, detail,
          f"{tag} {name}")
+
+
+def host_equal_nan(a, b):
+    """Two host arrays of one shape and dtype hold the same values, NaN
+    where NaN."""
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    na, nb = np.isnan(a), np.isnan(b)
+    return bool(np.array_equal(na, nb)
+                and np.array_equal(np.where(na, 0, a), np.where(nb, 0, b)))
+
+
+def hold_ms(tag, name, cube, ref, hold):
+    """MS's stage ``name`` on the sharded P, its result ``cube``, against
+    ``ref``, the unsharded stage's host arrays: on each CARD_TILE tile of
+    whole spectra (the spectral stages) or CARD_SLAB slab of output
+    channels (S, R), read through ``filled_data``, bit for bit the
+    unsharded stage's; ``spectral_smooth`` also within 1e-6 of the
+    largest |value| of its float64 form; the spline orders within 1e-6 of
+    the largest |value| of :func:`float64_spline`'s form, NaN states free
+    only where the float64 NaN weight lies within 1e-6 of the 1e-6 limit
+    (the flips counted), bit for bit the unsharded stage or not, logged.
+    Returns the summary's words on the stage."""
+    t = CARD_TILE
+    if "tiles" in ref:
+        views = {k: (slice(None), slice(k[0], k[0] + t),
+                     slice(k[1], k[1] + t)) for k in ref["tiles"]}
+        want_of, where = ref["tiles"], "tile at"
+    else:
+        views = {c0: (slice(c0, c0 + CARD_SLAB),) for c0 in ref["slabs"]}
+        want_of, where = ref["slabs"], "output channels from"
+    spline = "bicubic" in name or "biquadratic" in name
+    same, errs, flips = True, [], 0
+    for key, view in views.items():
+        got = np.asarray(cube.filled_data[view].value)
+        want = want_of[key]
+        exact = host_equal_nan(got, want)
+        same = same and exact
+        label = f"{tag} {name} {where} {key}"
+        if spline:
+            f64, wn = ref["f64"][key]
+            ok, err, n = near_float64(got, f64, np.abs(wn - 1e-6) <= 1e-6)
+            errs.append(err)
+            flips += n
+            hold(f"{label} within 1e-6 of float64", ok,
+                 f"({err:.2e} of the largest |value|, {n} NaN flips at the "
+                 f"1e-6 weight limit; bit for bit the unsharded stage: "
+                 f"{exact})", label)
+            continue
+        hold(f"{label} bit for bit the unsharded stage", exact, "", label)
+        if key in ref["f64"]:
+            f64 = ref["f64"][key]
+            fin = ~np.isnan(f64)
+            ok, err = within_f64(got, f64, 1e-6, float(
+                np.abs(f64[fin]).max()) if fin.any() else 1.0)
+            errs.append(err)
+            hold(f"{label} within 1e-6 of float64", ok,
+                 f"({err:.2e} of the largest |value|)", f"{label} float64")
+    out = f"{name[3:]} bit for bit {same}"
+    if errs:
+        out += f", {max(errs):.2e} of float64"
+    if spline:
+        out += f", {flips} NaN flips"
+    return out
 
 
 def hold_m_vr(tag, dev, vsc, res, f64, slabs, tiles, counters, hold):
@@ -5805,7 +5939,7 @@ def staged_call(dev, stages, tag, name, nbytes, fn):
 
 
 def card_spectral(cube, tiles, nbytes, card, sizes, staged, hold,
-                  big_launches, time_first_calls):
+                  big_launches, time_first_calls, keep):
     """The spectral path on P (``cube``, read from FITS): each stage staged,
     its peak held at most CARD_PEAK_SHARE of the card, and its result held
     on the CARD_TILE ``tiles`` of whole spectra (each must hold finite
@@ -5819,7 +5953,10 @@ def card_spectral(cube, tiles, nbytes, card, sizes, staged, hold,
     sigma_clip's launches are read just after their own stage, the
     counters set to 0 just before it (``big_launches``, the elements of
     their inputs put in ``sizes``), and then their first calls are timed.
-    Returns the summary part."""
+    Each stage's tiles (and ``spectral_smooth``'s float64 forms) are kept
+    in ``keep`` as host arrays under MS's name of the stage
+    (:func:`card_ms_stages`), MS's references.  Returns the summary
+    part."""
     import torch
     import spectral_cube_tpu_torch as T
     from spectral_cube_tpu_torch import kernels as K
@@ -5843,9 +5980,11 @@ def card_spectral(cube, tiles, nbytes, card, sizes, staged, hold,
              f"({peak / 2**30:.2f} of {card / 2**30:.2f} GiB)",
              f"P {name} peak")
         same = True
+        kept = keep[f"MS {name}"] = {"tiles": {}, "f64": {}}
         for y0, x0 in tiles:
             view = (slice(None), slice(y0, y0 + t), slice(x0, x0 + t))
             got = out._get_filled_data(view)
+            kept["tiles"][y0, x0] = got.cpu().numpy()
             want = call(cube[view])._get_filled_data()
             same = same and equal_nan(got, want)
             where = f"on the tile at ({y0}, {x0})"
@@ -5858,6 +5997,7 @@ def card_spectral(cube, tiles, nbytes, card, sizes, staged, hold,
                 continue
             ref = osm.convolve1d_nan(cube[view]._get_filled_data(
                 fill=np.nan).double(), karr).cpu().numpy()
+            kept["f64"][y0, x0] = ref
             fin = ~np.isnan(ref)
             ok, err = within_f64(got.cpu().numpy(), ref, 1e-6, float(
                 np.abs(ref[fin]).max()) if fin.any() else 1.0)
@@ -5964,7 +6104,10 @@ def phase_card_scale(dev, workdir):
     rotated spline reprojection (:func:`card_r`), the fused convolve +
     reproject (:func:`card_c`), the sharded path over the card's meshes
     on P's FITS file and V's 4-D file (:func:`card_m`, its references
-    from the unsharded P first), P as a varying-resolution cube
+    from the unsharded P first) and, on the same shards of P, the
+    sharded spectral path and spline reprojections (MS, within
+    :func:`card_m`, held against the tiles and slabs the spectral path, S
+    and R kept), P as a varying-resolution cube
     (:func:`card_vr`), and the cube's other reductions on H
     (:func:`card_reductions`).  Returns the "summary: card scale"
     line."""
@@ -6213,14 +6356,16 @@ def phase_card_scale(dev, workdir):
                  "calls " + p_kernels)
     del calls
     torch.cuda.empty_cache()
+    # MS's references: the unsharded stages' tiles and slabs on the host
+    ms_ref = {}
     parts.append(card_spectral(cube, p_tiles, nbytes, card, sizes, staged,
-                               hold, big_launches, time_first_calls))
+                               hold, big_launches, time_first_calls, ms_ref))
     torch.cuda.empty_cache()
     parts.append(card_s_f64(cube, nbytes, card, sizes, stages, staged, hold,
-                            big_launches, time_first_calls))
+                            big_launches, time_first_calls, ms_ref))
     torch.cuda.empty_cache()
     parts.append(card_r(cube, nbytes, card, sizes, stages, staged, hold,
-                        big_launches))
+                        big_launches, ms_ref))
     torch.cuda.empty_cache()
     parts.append(card_c(cube, nbytes, card, sizes, stages, staged, hold,
                         big_launches, time_first_calls))
@@ -6230,6 +6375,8 @@ def phase_card_scale(dev, workdir):
     # P's FITS file) and V then reads back with no device argument
     t0 = time.perf_counter()
     ref = card_m_reference(cube, p_tiles)
+    ref["MS"] = ms_ref
+    del ms_ref
     m_ref = time.perf_counter() - t0
     t0 = time.perf_counter()
     host = cube._data.cpu().numpy()

@@ -408,43 +408,49 @@ def spline_host_maps(zs, ys, xs, nchan_in, ny_in, nx_in):
                       separable)
 
 
-def _spline_spatial_then_z(data, zs, ys, xs, order):
-    """Order-2/3 resample (regrid.py:194-244): the spectral operator of the
-    exact scipy spline along z (:func:`_spectral_product`, kernel 7), for
-    the NaN-filled data and, with its absolute values, the NaN mask; then
-    the spatial step, separable where the mapping is axis-aligned to 1e-9
-    pixel and no grid exceeds 4096, else the prefilter and tap gathers.
-    NaN poisoning is the |T|-weighted NaN mass above 1e-6, local to the
-    taps; outputs outside the input are NaN.  The filled data and then
-    the NaN mask are written a slab at a time into one buffer, each
-    product's input in turn, and the spatial step runs a slab of output
-    channels at a time into the one output (:data:`SLAB_VOXELS`).  On an
-    untouched spectral axis each slab fills its own channels and forms
-    their NaN mask, so that the output is the only cube it makes."""
-    m = spline_host_maps(zs, ys, xs, *data.shape)
-    dev = data.device
+def _spline_spectral(data, m, order):
+    """The spectral step of :func:`_spline_spatial_then_z` on ``data``
+    (nchan, ny_in, nx_in) with its :class:`SplineMaps` ``m``: the spline
+    operator along z (:func:`_spectral_product`, kernel 7) of the
+    NaN-filled data and, with its absolute values, of the NaN mask, both
+    written a slab at a time into one buffer, each product's input in
+    turn.  Returns ``(fz, wz)``, or ``(None, None)`` on an untouched
+    spectral axis (the spatial step then fills each slab itself)."""
+    if m.z_identity:
+        return None, None
     nchan, ny_in, nx_in = data.shape
-    fz = wz = None
-    if not m.z_identity:
-        tz = _spline_1d_matrix(nchan, m.zc, order)
-        buf = torch.empty(data.shape, dtype=torch.float32, device=dev)
-        slabs = _slabs(nchan, ny_in * nx_in)
-        for k0, k1 in slabs:
-            buf[k0:k1] = torch.nan_to_num(data[k0:k1])
-        fz = _spectral_product(tz, buf)
-        for k0, k1 in slabs:
-            buf[k0:k1] = torch.isnan(data[k0:k1])
-        wz = _spectral_product(np.abs(tz), buf)
-        del buf
-    nz = len(m.zvalid)
+    tz = _spline_1d_matrix(nchan, m.zc, order)
+    buf = torch.empty(data.shape, dtype=torch.float32, device=data.device)
+    slabs = _slabs(nchan, ny_in * nx_in)
+    for k0, k1 in slabs:
+        buf[k0:k1] = torch.nan_to_num(data[k0:k1])
+    fz = _spectral_product(tz, buf)
+    for k0, k1 in slabs:
+        buf[k0:k1] = torch.isnan(data[k0:k1])
+    wz = _spectral_product(np.abs(tz), buf)
+    return fz, wz
+
+
+def _spline_spatial(fz, wz, m, order, plan, zvalid):
+    """The spatial step of :func:`_spline_spatial_then_z` on the output
+    channels of :func:`_spline_spectral`'s ``fz`` and ``wz`` or, where
+    ``wz`` is None (an untouched spectral axis), of the data ``fz``, each
+    slab filling its own channels and forming their NaN mask: the
+    separable products or (``plan``, the maps' :func:`spline_taps` on the
+    device) the prefilter and tap gathers, a slab of output channels at a
+    time (:data:`SLAB_VOXELS`) into the one output, NaN where the NaN
+    weight passes 1e-6 and outside the input (``zvalid``: the channels'
+    validity).  Returns the float32 output."""
+    nz, ny_in, nx_in = fz.shape
     ny, nx = m.ycl.shape
-    plan = None if m.separable else spline_taps(m.ycl, m.xcl, order, ny_in,
-                                                nx_in, dev)
+    dev = fz.device
+    plane = torch.as_tensor(m.yvalid & m.xvalid, device=dev)
+    zv = torch.as_tensor(np.asarray(zvalid), device=dev)
     out = None
     for k0, k1 in _slabs(nz, max(ny * nx, ny_in * nx_in)):
-        if fz is None:
-            f = torch.nan_to_num(data[k0:k1])
-            w = torch.isnan(data[k0:k1]).to(torch.float32)
+        if wz is None:
+            f = torch.nan_to_num(fz[k0:k1])
+            w = torch.isnan(fz[k0:k1]).to(torch.float32)
         else:
             f, w = fz[k0:k1], wz[k0:k1]
         if m.separable:
@@ -456,12 +462,36 @@ def _spline_spatial_then_z(data, zs, ys, xs, order):
         if wn is not None:
             o.masked_fill_(wn > 1e-6, float("nan"))
         del wn
+        o.masked_fill_(~(plane[None] & zv[k0:k1, None, None]),
+                       float("nan"))
         out = _into(out, k0, k1, nz, o)
         del o
+    return out
+
+
+def _spline_spatial_then_z(data, zs, ys, xs, order):
+    """Order-2/3 resample (regrid.py:194-244): the spectral operator of the
+    exact scipy spline along z (:func:`_spline_spectral`, kernel 7), for
+    the NaN-filled data and, with its absolute values, the NaN mask; then
+    the spatial step (:func:`_spline_spatial`), separable where the
+    mapping is axis-aligned to 1e-9 pixel and no grid exceeds 4096, else
+    the prefilter and tap gathers.  NaN poisoning is the |T|-weighted NaN
+    mass above 1e-6, local to the taps; outputs outside the input are
+    NaN.  The filled data and then the NaN mask are written a slab at a
+    time into one buffer, each product's input in turn, and the spatial
+    step runs a slab of output channels at a time into the one output
+    (:data:`SLAB_VOXELS`).  On an untouched spectral axis each slab fills
+    its own channels and forms their NaN mask, so that the output is the
+    only cube it makes.  ``parallel.sharded.sharded_spline_reproject``
+    runs the same two steps on each tile and each channel block."""
+    m = spline_host_maps(zs, ys, xs, *data.shape)
+    fz, wz = _spline_spectral(data, m, order)
+    plan = None if m.separable else spline_taps(m.ycl, m.xcl, order,
+                                                *data.shape[1:], data.device)
+    out = _spline_spatial(data if fz is None else fz, wz, m, order, plan,
+                          m.zvalid)
     del fz, wz
-    valid = torch.as_tensor((m.yvalid & m.xvalid)[None], device=dev) \
-        & torch.as_tensor(m.zvalid, device=dev)[:, None, None]
-    return out.masked_fill_(~valid, float("nan")).to(data.dtype)
+    return out.to(data.dtype)
 
 
 def _bilinear_spatial_then_linear_z(data, zs, ys, xs, order):

@@ -1019,21 +1019,26 @@ def sharded_spline_reproject(data, zs, ys, xs, cmesh: CubeMesh, order=3):
     """Spline reprojection (order 2, biquadratic, or 3, bicubic) of a
     spatially sharded [spec, y, x] cube onto the host-side target->source
     mappings ``(zs, ys, xs)``: the sharded form of the unsharded
-    ``ops/regrid._spline_spatial_then_z``, with its host operators, its
-    routes and its results.
+    ``ops/regrid._spline_spatial_then_z``, its two steps
+    (``_spline_spectral``, ``_spline_spatial``) run on the mesh, with its
+    host operators, its routes and its results.
 
     - **spectral**: on each tile's whole spectra (the spatial layout, no
       communication) the spline operator along z through
       ``ops/regrid._spectral_product`` (kernel #14 on the card), once for
       the NaN-filled tile and once, with the operator's absolute values,
-      for its NaN mask: two launches a tile.  The route follows the
-      operator's bands, so every tile takes the unsharded call's.
-    - **spatial**: four all-to-alls to the spectral layout, then on each
-      slab of whole planes the separable products or the prefilter and
-      tap gathers (the route chosen once from the full maps by
-      ``ops/regrid.spline_host_maps``, as the unsharded call chooses it;
-      one tap plan a device), the NaN
-      poisoning where the |T|-weighted NaN mass passes 1e-6, and two
+      for its NaN mask, the two inputs written in turn into one buffer:
+      two launches a tile.  The route follows the operator's bands, so
+      every tile takes the unsharded call's.  Four all-to-alls take fz
+      and wz to the spectral layout; on an untouched spectral axis two
+      take the data itself.
+    - **spatial**: on each block of whole planes the separable products or
+      the prefilter and tap gathers (the route chosen once from the full
+      maps by ``ops/regrid.spline_host_maps``, as the unsharded call
+      chooses it; one tap plan a device), a slab of output channels at a
+      time into the block's one output (each slab filling itself on an
+      untouched axis), the NaN poisoning where the |T|-weighted NaN mass
+      passes 1e-6; each block leaves the mesh's lists once resampled; two
       all-to-alls back.
 
     Returns the (nz, ny_out, nx_out) result in the spatial layout."""
@@ -1049,49 +1054,42 @@ def sharded_spline_reproject(data, zs, ys, xs, cmesh: CubeMesh, order=3):
     nz = m.zc.shape[0]
     ny, nx = m.ycl.shape
     tiles, _, _ = _pad_spatial(src, cmesh, 0.0)
-    if not m.z_identity:
-        tz = _rg._spline_1d_matrix(nchan_in, m.zc, order)
-        atz = np.abs(tz)
-
-    def spectral(make):
-        parts, _ = _pad_chan([make(t) for t in tiles], cmesh, 0.0)
-        return cmesh._spectral_tiles(parts)
-
-    def nan_mask(t):
-        return torch.isnan(t).to(torch.float32)
-
     if m.z_identity:
-        fz = spectral(torch.nan_to_num)
-        wz = spectral(nan_mask)
+        fz, wz = cmesh._spectral_tiles(_pad_chan(tiles, cmesh, 0.0)[0]), None
     else:
-        fz = spectral(lambda t: _rg._spectral_product(tz, torch.nan_to_num(t)))
-        wz = spectral(lambda t: _rg._spectral_product(atz, nan_mask(t)))
+        fz, wz = [], []
+        for p in range(len(tiles)):
+            # a tile's products made, padded and its tile let go in turn
+            f, w = _rg._spline_spectral(tiles[p], m, order)
+            tiles[p] = None
+            fz.append(_pad_chan([f], cmesh, 0.0)[0][0])
+            wz.append(_pad_chan([w], cmesh, 0.0)[0][0])
+            del f, w
+        fz, wz = cmesh._spectral_tiles(fz), cmesh._spectral_tiles(wz)
     del tiles
     plans = {}
     cb = fz[0].shape[0]
     outs = []
-    for p, (f, w) in enumerate(zip(fz, wz)):
-        dev = f.device
+    for p in range(len(fz)):
         c0, c1 = min(p * cb, nz), min((p + 1) * cb, nz)
-        f, w = f[:c1 - c0, :ny_in, :nx_in], w[:c1 - c0, :ny_in, :nx_in]
+        # each block leaves the lists once resampled
+        f, fz[p] = fz[p][:c1 - c0, :ny_in, :nx_in], None
+        w = None
+        if wz is not None:
+            w, wz[p] = wz[p][:c1 - c0, :ny_in, :nx_in], None
+        dev = f.device
         if c1 == c0:
             outs.append(torch.empty((0, ny, nx), dtype=src.dtype,
                                     device=dev))
             continue
-        if m.separable:
-            out, wn = _rg._spline_separable_resample(f, w, m.ycl, m.xcl,
-                                                     order)
-            out.masked_fill_(wn > 1e-6, NAN)
-            del wn
-        else:
-            if str(dev) not in plans:
-                plans[str(dev)] = _rg.spline_taps(m.ycl, m.xcl, order, ny_in,
-                                                  nx_in, dev)
-            out, _ = _rg._spline_nonseparable_resample(
-                f, w, m.ycl, m.xcl, order, plan=plans[str(dev)])
-        valid = torch.as_tensor((m.yvalid & m.xvalid)[None], device=dev) \
-            & torch.as_tensor(m.zvalid[c0:c1], device=dev)[:, None, None]
-        outs.append(out.masked_fill_(~valid, NAN).to(src.dtype))
+        if not m.separable and str(dev) not in plans:
+            plans[str(dev)] = _rg.spline_taps(m.ycl, m.xcl, order, ny_in,
+                                              nx_in, dev)
+        out = _rg._spline_spatial(f, w, m, order, plans.get(str(dev)),
+                                  m.zvalid[c0:c1])
+        del f, w
+        outs.append(out.to(src.dtype))
+        del out
     del fz, wz
     return cmesh.reshard(cmesh._from_spectral(outs, (nz, ny, nx)), "spatial")
 

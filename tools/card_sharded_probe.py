@@ -1,8 +1,10 @@
 """``chip_smoke.py``'s card-scale stages M (the sharded path past 2**31
-voxels), run on the port of another checkout, each stage's error printed
-where it raises one.
+voxels) and MS (the sharded spectral path and spline reprojections past
+2**31 voxels), run on the port of another checkout, each stage's error
+printed where it raises one.
 
     python3 tools/card_sharded_probe.py [--tree DIR] [--files DIR]
+        [--part M|MS]
 
 ``--tree DIR`` imports ``spectral_cube_tpu_torch`` from DIR (an unpacked
 ``git archive`` of another commit) instead of this checkout, and builds
@@ -15,7 +17,11 @@ the mesh's counters and the launches its wrappers counted.  Prints the
 card's name and power limit, then for each mesh: the read of P's FITS
 file onto it, ``run_pipeline(cmesh=)``, the reductions, V (a) (the 4-D
 file read, ``to_sharded`` and ``run_pipeline(cmesh=)`` onto a rotated
-grid) and a float64 read's ``statistics()``.
+grid) and a float64 read's ``statistics()`` (M); on the same shards of P,
+``chip_smoke.card_ms_stages``: the spectral path's six stages, S's two
+reprojections onto 2303 channels and R's two onto the rotated grid (MS),
+each kernel's inputs' elements beside its launches.  ``--part`` runs M or
+MS alone (default: both; MS alone needs no 4-D file).
 
 ``--files DIR`` keeps P's FITS file and V's 4-D file in DIR, made there
 (P by ``chip_smoke.card_cube`` at 2304 x 1024 x 1024 on the card) when
@@ -38,7 +44,9 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=ROOT)
     ap.add_argument("--files", default=None)
+    ap.add_argument("--part", choices=("M", "MS"), default=None)
     args = ap.parse_args()
+    parts = ("M", "MS") if args.part is None else (args.part,)
     sys.path.insert(0, os.path.abspath(args.tree))
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
@@ -62,16 +70,20 @@ def main():
         nchan, ny, nx = cs.CARD_P
         p_path = os.path.join(files, "card_p.fits")
         vr_path = os.path.join(files, "card_v.fits")
-        if not (os.path.exists(p_path) and os.path.exists(vr_path)):
+        want_vr = "M" in parts
+        if not (os.path.exists(p_path)
+                and (os.path.exists(vr_path) or not want_vr)):
             host = cs.card_cube(nchan, ny, nx, cs.SEED, dev).cpu().numpy()
             torch.cuda.empty_cache()
             write_fits(p_path, [HDU(data=host, header=cs.synth_header(
                 nchan, ny, nx))])
-            cs.write_vr_fits(vr_path, host, cs.vr_beams(
-                nchan, flagged=cs.VR_FLAGGED))
+            if want_vr:
+                cs.write_vr_fits(vr_path, host, cs.vr_beams(
+                    nchan, flagged=cs.VR_FLAGGED))
             del host
         nbytes = nchan * ny * nx * 4
         stages = {}
+        names = sorted(set(cs.CARD_KERNELS["M"] + cs.CARD_KERNELS["MS"]))
         for tag, cmesh in cs.card_m_meshes(dev).items():
             cs.log(f"{tag}: {cmesh}")
 
@@ -80,22 +92,25 @@ def main():
                 cmesh.reset_counters()
                 K.reset_launch_counts()
                 try:
-                    val = cs.staged_call(dev, stages, tag, name,
-                                         nbytes * scale, fn)
+                    with cs.recorded_calls(
+                            names, lambda a, kw: a[0].numel()) as sizes:
+                        val = cs.staged_call(dev, stages, tag, name,
+                                             nbytes * scale, fn)
                 except (RuntimeError, torch.cuda.OutOfMemoryError) as err:
                     msg = " ".join(str(err).split())[:300]
                     cs.log(f"  {tag} {name}: FAILED {type(err).__name__}: "
                            f"{msg}")
                     torch.cuda.empty_cache()
                     return None
-                launched = {k: n for k, n in K.launch_counts().items() if n}
+                launched = {k: (n, sizes[k]) if k in sizes else n
+                            for k, n in K.launch_counts().items() if n}
                 cs.log(f"  {tag} {name}: peak "
                        f"{stages[f'{tag} {name}'][1] / card:.1%} of the "
                        f"card; counters {dict(cmesh.counters)}; launches "
                        f"{launched}")
                 return val
             try:
-                cs.card_m_run(cmesh, p_path, vr_path, run)
+                cs.card_m_run(cmesh, p_path, vr_path, run, parts=parts)
             except (RuntimeError, torch.cuda.OutOfMemoryError) as err:
                 msg = " ".join(str(err).split())[:300]
                 cs.log(f"  {tag}: FAILED outside a stage "
