@@ -260,6 +260,10 @@ VR_MAJOR, VR_MINOR, VR_PA = (6.0, 6.6), (4.5, 4.95), (30.0, 34.0)
 VR_FLAGGED = (100, 101)
 VR_ROTATION = 3.0
 VR_GROUP = 4
+#: the slab of V (a)'s kind whose FFT-route NaN decisions are held against
+#: float64 (:func:`vr_flip_slab`): channels of P's 2304, and the seed
+VR_FLIP_CHANNELS = (0, 1, 1151, 2303)
+VR_FLIP_SEED = 29
 # bench config 2's composed operator, 512 -> 256 channels (bench.py:178-211)
 BM_NIN = 512
 # cube API phase: the velocity slab's first and last channel (300
@@ -456,7 +460,13 @@ BATTERY_FILES = ("tests/test_torch_ref_battery.py",
                  "tests/test_torch_ops_battery.py",
                  "tests/test_torch_numpy_interop.py",
                  "tests/test_torch_sharded_store.py",
-                 "tests/test_torch_f23_indexers.py")
+                 "tests/test_torch_f23_indexers.py",
+                 "tests/test_torch_public_cube.py",
+                 "tests/test_torch_public_vrsc.py",
+                 "tests/test_torch_public_lower_dim.py",
+                 "tests/test_torch_public_stokes.py",
+                 "tests/test_torch_public_sharded.py",
+                 "tests/test_torch_public_io.py")
 KERNEL_TEST_FILES = ("tests/test_torch_kernels_cuda.py",)
 #: seconds a pytest process of phase_batteries may take
 BATTERY_TIMEOUT = 600
@@ -4680,6 +4690,62 @@ def float64_fft_convolve_to(cube, beam):
     return out.cpu().numpy(), den.cpu().numpy()
 
 
+def vr_flip_slab(channels=VR_FLIP_CHANNELS, seed=VR_FLIP_SEED):
+    """A slab of V (a)'s kind for the FFT route's NaN decisions, as numpy:
+    P's 1024 x 1024 planes at ``channels`` of P's 2304 (:func:`synth_cube`'s
+    drifting line on unit noise from ``RandomState(seed)``, NaN outside the
+    primary beam), each convolved from its :func:`vr_beams` beam to the
+    common beam of all 2304 (V (a)'s ``convolve_to``, the FFT route).
+    Returns (data (n, ny, nx) float32, complex64 transfers (n, fy,
+    fx//2+1), group_idx), the transfers as the port's ``convolve_to``
+    builds them."""
+    import torch
+    import spectral_cube_tpu_torch as T
+    from spectral_cube_tpu_torch.ops import convolve as oc
+    nchan, ny, nx = CARD_P
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:ny, 0:nx].astype(np.float32)
+    ry, rx = (yy - ny / 2) / ny, (xx - nx / 2) / nx
+    amp = 6.0 * np.exp(-0.5 * ((ry / 0.2) ** 2 + (rx / 0.25) ** 2))
+    centre = nchan / 2 + 0.15 * nchan * rx
+    cut = (ry / 0.47) ** 2 + (rx / 0.47) ** 2 > 1.0
+    data = np.empty((len(channels), ny, nx), np.float32)
+    for i, c in enumerate(channels):
+        plane = amp * np.exp(-0.5 * ((c - centre) / (0.02 * nchan)) ** 2)
+        plane += rng.standard_normal((ny, nx)).astype(np.float32)
+        plane[cut] = np.nan
+        data[i] = plane
+    major, minor, pa = vr_beams(nchan)
+    beams = T.Beams(major=T.Quantity(major, "arcsec"),
+                    minor=T.Quantity(minor, "arcsec"),
+                    pa=T.Quantity(pa, "deg"))
+    common = beams.common_beam()
+    pix = PIX_ARCSEC / 3600.0 * np.pi / 180.0
+    kernels = [common.deconvolve(beams[c]).as_kernel(pix) for c in channels]
+    fy, fx = oc._padded_shape((ny, nx), tuple(np.max(
+        [k.shape for k in kernels], axis=0)))
+    tr = oc._transfers(kernels, fy, fx, torch.device("cpu"),
+                       torch.complex64)
+    return data, tr.numpy(), np.arange(len(channels), dtype=np.int32)
+
+
+def fft_flips(got, data, transfers, group_idx):
+    """The NaN decisions of ``got``, the FFT route's float32 result for
+    ``data`` (host arrays), against the float64 route (complex128 of the
+    same transfers): (the flips, the float64 den 1 - K*~finite at each,
+    the voxels whose den lies within the float32 rounding of the 1e-6
+    floor, den <= 1e-5)."""
+    import torch
+    from spectral_cube_tpu_torch.ops import convolve as oc
+    x = torch.as_tensor(data, dtype=torch.float64)
+    tr = torch.as_tensor(transfers).to(torch.complex128)
+    want = oc._convolve_planes(x, tr, group_idx).numpy()
+    den = 1.0 - oc._convolve_planes((~torch.isfinite(x)).double(), tr,
+                                    group_idx).numpy()
+    flip = np.isnan(np.asarray(got)) != np.isnan(want)
+    return int(flip.sum()), den[flip], int((den <= 1e-5).sum())
+
+
 def near_float64(got, want, free, weight=None, rtol=1e-6):
     """A float32 result ``got`` against its float64 form ``want`` (host
     arrays): NaN states equal but where ``free`` (where the NaN test sits
@@ -4897,6 +4963,25 @@ def card_vr(cube, tiles, nbytes, card, sizes, stages, staged, hold,
         del got, want, den, slab
     del rep, conv, masked
     torch.cuda.empty_cache()
+    # the FFT route's NaN decisions on a slab of (a)'s kind, held on the
+    # CPU against the JAX route's (tests/test_torch_fft_nan_flips.py): on
+    # the card too every flip lies within the float32 rounding of the
+    # 1e-6 floor
+    data, tr, gidx = vr_flip_slab()
+    dev = cube.device
+    got = oc._convolve_planes(torch.as_tensor(data, device=dev),
+                              torch.as_tensor(tr, device=dev),
+                              gidx).cpu().numpy()
+    flips, dens, free = fft_flips(got, data, tr, gidx)
+    bands = np.histogram(dens, bins=(-np.inf, 1e-7, 5e-7, 1e-6, 2e-6,
+                                     1e-5, np.inf))[0].tolist()
+    hold("V flip slab: NaN flips only at den <= 1e-5",
+         bool((dens <= 1e-5).all()),
+         f"({flips} NaN flips of {data.size} voxels, channels "
+         f"{VR_FLIP_CHANNELS}, float64 den at the flips < 1e-7, to 5e-7, "
+         f"to 1e-6, to 2e-6, to 1e-5, above: {bands}; {free} voxels at "
+         "den <= 1e-5)", "V flip slab")
+    del data, tr, got
     # (b) the per-channel separable route
     grouped = card_vr_grouped(cube)
     _, target_beam = beams()

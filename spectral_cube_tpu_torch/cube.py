@@ -409,7 +409,9 @@ class BaseSpectralCube:
 
     @property
     def dtype(self):
-        return self._data.dtype
+        """The data's numpy dtype, as the JAX package's cube gives it (a
+        JAX array's dtype is numpy's); the tensor's is ``_data.dtype``."""
+        return torch.empty(0, dtype=self._data.dtype).numpy().dtype
 
     @property
     def device(self):
@@ -466,6 +468,10 @@ class BaseSpectralCube:
 
     @property
     def base(self):
+        """The stored data tensor itself, on the cube's device: no copy is
+        made, where a host copy would cost a whole cube on every read.  Its
+        host form, which numpy reads on any device, is
+        ``unmasked_data[:]``."""
         return self._data
 
     def _new_cube_with(self, data=None, wcs=None, mask=_INHERIT, meta=None,
@@ -988,7 +994,11 @@ class BaseSpectralCube:
     def _arg_extremum(self, fn, axis, valid):
         """Indices from ``fn`` (masked_argmax / masked_argmin) along
         ``axis``, or the unravelled flat index where ``axis`` is None
-        (found in pieces, the first on ties)."""
+        (found in pieces, the first on ties).  A tuple of axes raises
+        ``TypeError``, as numpy's ``nanargmax`` and the JAX package's do."""
+        if isinstance(axis, (tuple, list)):
+            raise TypeError(f"'{type(axis).__name__}' object cannot be "
+                            "interpreted as an integer")
         if axis is None:
             flat = fn(self._data, valid, axis=None)
             return np.unravel_index(int(flat), self.shape)

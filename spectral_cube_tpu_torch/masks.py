@@ -259,6 +259,13 @@ def _include_of(mask, data, view, wcs):
     return mask._include(data=data, view=view)
 
 
+def _on_host_unless_tensor(inc, data):
+    """``inc``, an include tensor for ``data``: kept on its device where
+    ``data`` is a tensor, else copied to the host (``utils.takes_numpy``'s
+    rule), so a public result numpy reads on any device."""
+    return inc if isinstance(data, torch.Tensor) else inc.cpu()
+
+
 def _data_tensor(data):
     """Mask data as a tensor: numpy lands where a cube's data would
     (``cube._as_tensor``: the card unless the CPU is asked for)."""
@@ -371,11 +378,17 @@ class MaskBase(ABC):
 
     def include(self, data=None, wcs=None, view=()):
         """Boolean include tensor; ``wcs`` reaches the masks whose function
-        takes one (FunctionMask, reference masks.py:788-792)."""
-        return _include_of(self, data, view, wcs)
+        takes one (FunctionMask, reference masks.py:788-792).  As
+        ``utils.takes_numpy`` has it, a tensor ``data`` gives a tensor on
+        its device; otherwise the result is a host tensor, which numpy
+        reads wherever the mask's own data lies."""
+        return _on_host_unless_tensor(_include_of(self, data, view, wcs),
+                                      data)
 
     def exclude(self, data=None, wcs=None, view=()):
-        return torch.logical_not(_include_of(self, data, view, wcs))
+        """The include tensor negated, on the device ``include`` gives."""
+        return _on_host_unless_tensor(
+            torch.logical_not(_include_of(self, data, view, wcs)), data)
 
     def _wants_wcs(self):
         """True if this mask, or one inside it, takes a call-time wcs."""
@@ -421,9 +434,9 @@ class MaskBase(ABC):
         return sub[inc.expand(sub.shape)]
 
     def view(self, view=()):
-        """numpy.ma compatibility: True where excluded (reference
-        masks.py:120-132)."""
-        return self.exclude(view=view)
+        """numpy.ma compatibility: a numpy array, True where excluded
+        (reference masks.py:120-132)."""
+        return self.exclude(view=view).numpy()
 
     def quicklook(self, view, wcs=None, filename=None, use_aplpy=None,
                   aplpy_kwargs=None):

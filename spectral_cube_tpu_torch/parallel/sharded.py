@@ -1321,7 +1321,8 @@ class ShardedCube:
             self._set(data, cube._template, cube._mask, include)
             return
         template = cube._new_cube_with(
-            data=_placeholder(cube.shape, cube.dtype, self.cmesh.devices[0]),
+            data=_placeholder(cube.shape, cube._data.dtype,
+                              self.cmesh.devices[0]),
             mask=None)
         # a mask bound to the cube's data is evaluated on each shard: the
         # binding would keep the unsharded data alive beside the shards
@@ -1357,7 +1358,8 @@ class ShardedCube:
     def _template_like(self, shape, **kwargs):
         t = self._template
         return t._new_cube_with(
-            data=_placeholder(shape, t.dtype, self.cmesh.devices[0]),
+            data=_placeholder(shape, t._data.dtype,
+                              self.cmesh.devices[0]),
             mask=None, **kwargs)
 
     # -- the gathered cube and delegation ---------------------------------
@@ -1772,7 +1774,7 @@ class ShardedCube:
         fn = _REDUCERS[name]
         order = name in ("median", "percentile", "mad_std")
         if order:
-            _check_orderable(self.dtype)
+            _check_orderable(self._data.dtype)
         if axes == {0}:
             tiles, incs = self._tiles()
             out = self._planes_of([fn(d, _red.valid_mask(d, i), axis=axis,
@@ -2082,7 +2084,8 @@ class ShardedCube:
             else sharded_reproject
         out = resample(data, zs, ys, xs, self.cmesh, order=order)
         template = t.__class__(
-            data=_placeholder(out.shape, t.dtype, self.cmesh.devices[0]),
+            data=_placeholder(out.shape, t._data.dtype,
+                              self.cmesh.devices[0]),
             wcs=wcs_out, meta=dict(t._meta), unit=t._unit,
             fill_value=t._fill_value,
             allow_huge_operations=t.allow_huge_operations)
@@ -2164,7 +2167,8 @@ class ShardedCube:
         meta = dict(t._meta)
         meta["beam"] = beam
         template = SpectralCube(
-            data=_placeholder(self.shape, t.dtype, self.cmesh.devices[0]),
+            data=_placeholder(self.shape, t._data.dtype,
+                              self.cmesh.devices[0]),
             wcs=t._wcs, meta=meta, fill_value=t._fill_value, unit=t._unit,
             beam=beam, allow_huge_operations=t.allow_huge_operations)
         return self._new(out, template, mask=self._mask,
@@ -2221,7 +2225,8 @@ class ShardedCube:
         meta = dict(t._meta)
         meta["slice"] = [(v.start, v.stop, v.step) for v in raw_view]
         return t._new_cube_with(
-            data=_placeholder(shape, t.dtype, self.cmesh.devices[0]),
+            data=_placeholder(shape, t._data.dtype,
+                              self.cmesh.devices[0]),
             wcs=t._wcs.slice(view, shape=self.shape), mask=None, meta=meta,
             **kw)
 
@@ -2391,7 +2396,7 @@ class ShardedCube:
         parts of the blocks the view meets; nothing else moves."""
         axes, new = _view_axes(view, self.shape)
         out = torch.empty([1 if isinstance(a, int) else a[1] for a in axes],
-                          dtype=self.dtype, device=self.cmesh.devices[0])
+                          dtype=self._data.dtype, device=self.cmesh.devices[0])
         fill = self._template._fill_value
         for p, local, glob, place in self._view_parts(axes):
             d = self._data.blocks[p][local]

@@ -31,17 +31,13 @@ __all__ = ["save_cube", "load_cube", "checkpoint_to_tmp_dir"]
 _FORMAT_VERSION = 1
 
 
-def _numpy_dtype(dtype):
-    return torch.empty(0, dtype=dtype).numpy().dtype
-
-
 def _meta_for(cube):
     """The ``meta.json`` of a cube (persistence.py:28-52)."""
     fill = cube._fill_value
     meta = {
         "version": _FORMAT_VERSION,
         "shape": list(cube.shape),
-        "dtype": str(_numpy_dtype(cube.dtype)),
+        "dtype": str(np.dtype(cube.dtype)),
         "unit": cube.unit.to_string(),
         "fill_value": None if fill is None or
         (isinstance(fill, float) and np.isnan(fill)) else float(fill),

@@ -246,11 +246,13 @@ def test_f8_numpy_function_on_a_cube(tmp_path, device):
                                         np.nansum(data, axis=0), np.nan),
                                rtol=1e-5, atol=1e-6)
     # a callable torch has no namesake for sees a host copy of the data;
-    # its boolean result lands on the data's device
+    # its boolean result lands on the data's device, and the public
+    # include() with no tensor data hands it out on the host (F34)
     mask = LazyMask(lambda x: np.isfinite(x) & (np.abs(x) > 0.3),
                     cube=cube)
     inc = mask.include()
-    assert inc.dtype == torch.bool and inc.device.type == device.type
+    assert inc.dtype == torch.bool and inc.device.type == "cpu"
+    assert mask.include(data=cube._data).device.type == device.type
     with np.errstate(invalid="ignore"):
         np.testing.assert_array_equal(np.asarray(inc),
                                       fin & (np.abs(data) > 0.3))
@@ -282,9 +284,13 @@ def test_f8_numpy_data(device):
          np.nan_to_num(d) % 2 == 0),
     ]
     for mask, want in cases:
+        # numpy data lands on the device; the public results of no tensor
+        # data come back on the host (F34)
         for inc in (mask.include(), mask.include(data=d),
                     mask[1:3].include(), mask.exclude()):
-            assert inc.device.type == device.type
+            assert inc.device.type == "cpu"
+        assert mask.include(data=torch.as_tensor(d, device=device)) \
+            .device.type == device.type
         np.testing.assert_array_equal(np.asarray(mask.include()), want)
         np.testing.assert_array_equal(np.asarray(mask.include(data=d)), want)
         np.testing.assert_array_equal(np.asarray(mask[1:3].include()),
@@ -304,7 +310,7 @@ def test_f8_mask_functions_written_with_torch(tmp_path, device):
     seen = []
 
     def positive(d):
-        seen.append(type(d))
+        seen.append((type(d), d.device.type))
         return torch.isfinite(d) & (d > 0)
 
     with np.errstate(invalid="ignore"):
@@ -315,15 +321,16 @@ def test_f8_mask_functions_written_with_torch(tmp_path, device):
             (LazyComparisonMask(operator.gt, 0.5, cube=cube), data > 0.5),
         ]
     for mask, want in cases:
+        # the public include() of no tensor data is a host tensor (F34)
         inc = mask.include()
-        assert inc.dtype == torch.bool and inc.device.type == device.type
+        assert inc.dtype == torch.bool and inc.device.type == "cpu"
         np.testing.assert_array_equal(np.asarray(inc), want)
         np.testing.assert_array_equal(np.asarray(mask[1:3].include()),
                                       want[1:3])
     got = np.asarray(cube.with_mask(LazyMask(positive, cube=cube)).sum())
     np.testing.assert_allclose(got, data[np.isfinite(data) & (data > 0)]
                                .sum(), rtol=1e-5)
-    assert seen and set(seen) == {torch.Tensor}
+    assert seen and set(seen) == {(torch.Tensor, device.type)}
 
 
 def test_f8_matches_jax():

@@ -936,7 +936,8 @@ def test_sharded_pipeline_float64_cube(tmp_path, tmesh, jmesh):
     path, data = make_cube_file(tmp_path, shape=(12, 9, 10))
     tc, jc = _read(path)
     c64 = tc._new_cube_with(data=tc._data.double())
-    assert c64.dtype == torch.float64
+    # the cube's dtype is numpy's, as the JAX package's (F35)
+    assert c64.dtype == np.float64 and c64._data.dtype == torch.float64
     noise = tpar.ShardedCube(c64, tmesh).mad_std()
     assert float(noise.value) == float(c64.mad_std().value)
     assert float(noise.value) == pytest.approx(float(jc.mad_std().value),

@@ -225,7 +225,8 @@ def test_f15_streamed_cubes_answer_include(tmp_path, device):
                      tstream.read_sharded_cube(path, cmesh)):
         inc = streamed.mask.include()
         assert isinstance(inc, torch.Tensor)
-        assert inc.device.type == device.type
+        # a public include() of no tensor data is a host tensor (F34)
+        assert inc.device.type == "cpu"
         np.testing.assert_array_equal(_host(inc),
                                       _host(eager.mask.include()))
         np.testing.assert_array_equal(_host(inc), np.isfinite(data))
