@@ -124,8 +124,9 @@
    (a) onto the rotated grid (the FFT reshard, the reshard reprojection:
    all-to-alls > 0, gathers 0); (c) the spectral file's interpolate with
    the smoothing kernel, sigma clip and moments shard by shard
-   (smooth_interp, sigma_clip, moments >= 4 launches); (d) that cube
-   written as a CASA image in 64 x 64 x 1 x 16 tiles and streamed onto
+   (smooth_interp, sigma_clip, moments >= 4 launches); (d) 64 channels
+   of that cube written as a CASA image in 64 x 64 x 1 x 16 tiles and
+   streamed onto
    the mesh (``read_sharded_casa``) bit for bit ``SpectralCube.read``'s;
    (e) before (a)'s cube is let go, the cube methods a ShardedCube runs
    shard by shard on it under (a)'s SNR mask: metadata and element-wise
@@ -155,6 +156,25 @@
    atol 1e-6), NaN patterns equal; counters and launches reset just
    before each sharded run; one "summary: sharded" line (its launches not
    in the kernels line).
+10c'. The sharded path on meshes of distinct devices
+   (``phase_distinct_mesh``): D4, a 2 x 2 mesh with the card on the
+   diagonal and the host on the other two positions (every halo exchange
+   and all-to-all crosses devices along both axes), and D2, ``[card,
+   host]``; the host's positions run the plain versions.  On each, and on
+   the same grid of the card alone first: dryrun_multichip's six steps
+   and its product pipeline, a 32 x 768 x 768 cube of the pipeline's kind
+   streamed onto the mesh, ``convolve_to`` and ``run_pipeline`` of the
+   card alone's convolved cube onto the shifted grid; on D4 also
+   ``run_pipeline`` end to end, the reductions, the spectral path, S and
+   R on the shards, and V (a) through ``to_sharded``, its convolution and
+   pipeline onto the rotated grid.  Each stage held against the card
+   alone's: counters equal with no gather, each kernel launched the
+   card's positions' share of the card alone's launches, every block on
+   its position's device, values bit for bit, within 1e-6 (sums) or
+   within the kernels' tolerance against their plain versions with NaN
+   patterns exact, the normalized convolutions by ``compare_conv``'s rule
+   (NaN states free where the float64 den <= 1e-5); one "summary:
+   distinct mesh" line (its launches not in the kernels line).
 10d. Card scale, past 2**31 voxels (``phase_card_scale``): on P (2304 x
    1024 x 1024, read from FITS) ``run_pipeline`` and its stages, the
    spectral path, the reprojection onto a new spectral axis (S), the
@@ -290,6 +310,9 @@ IO_KERNELS = ("moments", "conv_sep", "resample2")
 # sharded phase: the mesh (one card, four shards) and the kernels each of
 # its paths must launch once a shard at least
 MESH_GRID = (2, 2)
+#: the channels of (d)'s tiled CASA image, a slab of the spectral cube (the
+#: I/O phase writes and reads the whole cube in tiles)
+D_NCHAN = 64
 SHARDED_KERNELS = {"a": ("moments", "conv_sep", "resample2"),
                    "c": ("smooth_interp", "sigma_clip", "moments"),
                    "e": ("moments",),
@@ -316,6 +339,20 @@ F_PLANE = 311
 F_BOX_NCHAN = 16
 F_BOX_HALF = 32
 F_PEAK_RISE = 64 * 2**20
+
+# distinct-mesh phase: meshes whose positions lie on distinct devices, the
+# card and the host (whose positions run the plain versions), so that
+# every halo exchange, all-to-all, tree step and gather crosses devices;
+# the channels of its files (cut from NCHAN so that the host's positions,
+# which run every plain version on the host's cores, keep the phase near
+# 90 s), the shape of dryrun_multichip's steps, and the tolerances (rtol
+# of the largest magnitude, atol) a result of the mixed mesh is held to
+# against the same call on the card alone: bit for bit, a sum's, the
+# kernels' against their plain versions
+DM_NCHAN = 32
+DM_DRYRUN_SHAPE = (32, 384, 384)
+DM_TOLERANCES = {"exact": (0.0, 0.0), "sum": (1e-6, 0.0),
+                 "kernel": (2e-5, 1e-6)}
 
 # card-scale phase: P, run_pipeline's cube past 2**31 voxels (2304 x 1024
 # x 1024, 9.0 GiB, 11% of an H100), written to FITS and read back, then
@@ -3426,6 +3463,13 @@ def close_arrays(name, got, want, rtol, atol):
     patterns and agree within rtol/atol where finite; returns the largest
     absolute difference."""
     import torch
+    if isinstance(got, torch.Tensor) and isinstance(want, torch.Tensor) \
+            and got.dtype == want.dtype == torch.float32 \
+            and got.device == want.device and got.is_contiguous() \
+            and want.is_contiguous() and bits_equal(got, want):
+        # the same bits (NaN where NaN): every tolerance holds, and the
+        # check reads no cube on the host
+        return 0.0
     g = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) \
         else np.asarray(got)
     w = want.detach().cpu().numpy() if isinstance(want, torch.Tensor) \
@@ -4093,8 +4137,8 @@ def phase_sharded(dev, workdir):
     and ``run_pipeline`` onto the shifted grid (halo exchanges only); (b)
     VRSC file (a) onto the rotated grid (the FFT reshard and the reshard
     reprojection); (c) the spectral path's cube: smooth + interpolate,
-    sigma clip and moments shard by shard; (d) a tiled CASA image of it
-    streamed onto the mesh; (e) the cube methods shard by shard on (a)'s
+    sigma clip and moments shard by shard; (d) a tiled CASA image of
+    D_NCHAN of its channels streamed onto the mesh; (e) the cube methods shard by shard on (a)'s
     cube (:func:`sharded_methods`); (f) the methods that gathered the
     cube until they ran shard by shard (:func:`sharded_gathers`).  Each
     held against the unsharded call on the same card; counters and
@@ -4296,8 +4340,9 @@ def phase_sharded(dev, workdir):
                             lambda: spectral(cube))
     errs["c"] = {
         "interpolated": close_arrays("(c) spectral_interpolate",
-                                     si.cube.filled_data[:].value,
-                                     rsi.filled_data[:].value, 2e-5, 1e-6),
+                                     si.cube._get_filled_data(fill=np.nan),
+                                     rsi._get_filled_data(fill=np.nan),
+                                     2e-5, 1e-6),
         "clipped": close_arrays("(c) sigma_clip_spectrally",
                                 cl.cube._data, rcl._data, 1e-5, 0.0),
         "mom0": close_arrays("(c) mom0", moms[0].value, rmoms[0].value,
@@ -4308,12 +4353,13 @@ def phase_sharded(dev, workdir):
     del si, cl, moms, rsi, rcl, rmoms, scs
     torch.cuda.empty_cache()
 
-    # (d) a tiled CASA image of that cube streamed onto the mesh
+    # (d) a tiled CASA image of a slab of that cube streamed onto the mesh
     casa = os.path.join(workdir, "sharded.image")
-    cube.allow_huge_operations = True
-    timed("d write CASA, tiled", lambda: write_casa_image(
-        cube, casa, tile_shape=IO_TILE))
+    slab = cube[:D_NCHAN]
     del cube
+    timed("d write CASA, tiled", lambda: write_casa_image(
+        slab, casa, tile_shape=IO_TILE))
+    del slab
     scd = timed("d read_sharded_casa", lambda: streaming.read_sharded_casa(
         casa, cmesh))
     check_shards("d", scd)
@@ -4347,6 +4393,526 @@ def phase_sharded(dev, workdir):
         + "; kernels against their plain versions at the shard shapes, "
         "largest errors " + json.dumps(kernel_errs))
     return times, counters, launches
+
+
+#: dryrun_multichip's 3 x 3 smoothing kernel (``__graft_entry__.py``)
+DRYRUN_KERNEL = np.outer([0.25, 0.5, 0.25], [0.25, 0.5, 0.25])
+
+
+def dryrun_inputs(shape, seed=0):
+    """The three float32 cubes ``dryrun_multichip`` draws from
+    ``RandomState(seed)``, in its order: the step 1-4 cube, the separable
+    convolution's and the smooth + interpolate's."""
+    rng = np.random.RandomState(seed)
+    return tuple(np.asarray(rng.rand(*shape), dtype=np.float32)
+                 for _ in range(3))
+
+
+def dryrun_steps(cmesh, shape):
+    """The port's form of ``dryrun_multichip``'s six steps on ``cmesh``
+    at ``shape``: (1) masked moments (include > 0.3) of the sharded cube;
+    (2) the global mean of the included voxels, a tree over the mesh; (3)
+    the included values (zero elsewhere) smoothed by the 3 x 3 kernel in
+    a halo exchange (``halo_pad`` by one row and column, a valid
+    ``conv2d`` on each block); (4) that result through the FFT route with
+    a transfer of ones (two all-to-alls each way); (5) the per-channel
+    separable convolution of a second cube with the kernel and the
+    identity in alternate channels (the halo route); (6) the fused
+    spectral smooth + interpolation of a third cube onto every second
+    channel.  Returns {step: result}, the maps and cubes ShardedArrays,
+    the mean a float."""
+    import torch
+    import torch.nn.functional as F
+    from spectral_cube_tpu_torch import parallel as par
+    nchan, ny, nx = shape
+    coords = np.arange(nchan, dtype=np.float64) * 0.5
+    data, data2, data3 = dryrun_inputs(shape)
+    include = data > 0.3
+    src = cmesh.shard(data, "spatial")
+    out = {"moments": par.sharded_moments(src, coords, 0.5, cmesh,
+                                          include=include),
+           "mean": par.sharded_statistics(src, cmesh,
+                                          include=include)["mean"]}
+    filled = src.map(lambda d: torch.where(d > 0.3, d, 0.0))
+    kern = torch.as_tensor(DRYRUN_KERNEL[::-1, ::-1].copy(),
+                           dtype=torch.float32)
+    with_halo = par.halo_pad(cmesh._tile(filled, "spatial", 0.0), cmesh,
+                             1, 1)
+    smooth = cmesh._from_spatial(
+        [F.conv2d(b[:, None], kern.to(b.device)[None, None])[:, 0]
+         for b in with_halo], shape)
+    del with_halo
+    out["halo smooth"] = smooth
+    ones = np.ones((1, ny + 2, (nx + 2) // 2 + 1), np.complex64)
+    out["fft"] = par.sharded_spectral_convolve_fft(
+        smooth, ones, np.zeros(nchan, np.int32), cmesh)
+    out["separable"] = par.sharded_convolve_per_channel_separable(
+        data2, [DRYRUN_KERNEL / DRYRUN_KERNEL.sum(), None],
+        (np.arange(nchan) % 2).astype(np.int32), cmesh)
+    out["smooth_interpolate"] = par.sharded_smooth_interpolate(
+        data3, np.array([0.25, 0.5, 0.25]), coords, coords[::2], cmesh)[0]
+    return out
+
+
+def dryrun_pipeline_cube(shape, device):
+    """``_dryrun_product_pipeline``'s cube (``__graft_entry__.py``) on
+    ``device``: rand from ``RandomState(5)`` with one NaN, 2" pixels, a
+    4-pixel beam, NaN fill; and its target header, shifted by (0.37,
+    0.61) pixels."""
+    import spectral_cube_tpu_torch as T
+    from spectral_cube_tpu_torch.io.fits_low import Header, HDU
+    nchan, ny, nx = shape
+    h = Header()
+    for key, val in (
+            ("SIMPLE", True), ("BITPIX", -32), ("NAXIS", 3),
+            ("NAXIS1", nx), ("NAXIS2", ny), ("NAXIS3", nchan),
+            ("CTYPE1", "RA---SIN"), ("CRVAL1", 23.18), ("CDELT1", -5.556e-4),
+            ("CRPIX1", 2.0), ("CUNIT1", "deg"),
+            ("CTYPE2", "DEC--SIN"), ("CRVAL2", 30.58), ("CDELT2", 5.556e-4),
+            ("CRPIX2", 2.0), ("CUNIT2", "deg"),
+            ("CTYPE3", "VRAD"), ("CRVAL3", -321.2), ("CDELT3", 1.28),
+            ("CRPIX3", 1.0), ("CUNIT3", "km/s"),
+            ("RESTFRQ", 1.42040571841e9), ("SPECSYS", "BARYCENT"),
+            ("BUNIT", "K"), ("BMAJ", 5.556e-4 * 4), ("BMIN", 5.556e-4 * 4),
+            ("BPA", 0.0)):
+        h[key] = val
+    rng = np.random.RandomState(5)
+    data = rng.rand(nchan, ny, nx).astype(np.float32)
+    data[1, 1, 1] = np.nan
+    cube = T.SpectralCube.read(HDU(data=data, header=h), device=device) \
+        .with_fill_value(np.nan)
+    th = cube.header
+    th["CRVAL1"] = float(th["CRVAL1"]) + 0.37 * float(th["CDELT1"])
+    th["CRVAL2"] = float(th["CRVAL2"]) + 0.61 * float(th["CDELT2"])
+    return cube, th
+
+
+def dryrun_pipeline(cmesh, shape=(48, 80, 96), device="cpu"):
+    """``_dryrun_product_pipeline``'s call on ``cmesh``: ``run_pipeline``
+    of its cube sharded on the mesh (a ShardedCube) to a 40" beam (a halo
+    wider than a tile: the FFT reshard), SNR 1 over a noise of 0.28 K,
+    onto the shifted grid (the halo reprojection).  Returns the sharded
+    cube and the result."""
+    import spectral_cube_tpu_torch as T
+    cube, th = dryrun_pipeline_cube(shape, device)
+    sc = T.ShardedCube(cube, cmesh)
+    del cube
+    res = T.run_pipeline(sc, cmesh, snr_threshold=1.0,
+                         target_beam=T.Beam(T.Quantity(40.0, "arcsec"),
+                                            T.Quantity(40.0, "arcsec"),
+                                            T.Quantity(0.0, "deg")),
+                         noise_estimate=T.Quantity(0.28, "K"),
+                         target_header=th)
+    return sc, res
+
+
+def distinct_meshes(dev):
+    """The distinct-mesh phase's meshes, each beside the same grid of
+    ``dev`` alone: D4, a 2 x 2 mesh with ``dev`` on the diagonal and the
+    host on the other two positions (every neighbour along either mesh
+    axis on the other device), and D2, ``[dev, host]``.  ``{name: (mesh,
+    reference mesh)}``."""
+    import torch
+    import spectral_cube_tpu_torch as T
+    host = torch.device("cpu")
+    return {"D4": (T.CubeMesh(devices=[dev, host, host, dev], shape=(2, 2)),
+                   T.CubeMesh(devices=[dev] * 4, shape=(2, 2))),
+            "D2": (T.CubeMesh(devices=[dev, host], shape=(1, 2)),
+                   T.CubeMesh(devices=[dev] * 2, shape=(1, 2)))}
+
+
+def placement_errors(val, cmesh):
+    """The blocks of the ShardedArrays and ShardedCubes in ``val`` (a
+    result: nested tuples, lists and dicts) that do not lie on their mesh
+    position's device: a list of (position, device, wanted)."""
+    import spectral_cube_tpu_torch as T
+    from spectral_cube_tpu_torch.parallel import ShardedArray
+    bad = []
+    if isinstance(val, T.ShardedCube):
+        arrays = [val._data] + ([] if val._include is None
+                                else [val._include])
+    elif isinstance(val, ShardedArray):
+        arrays = [val]
+    elif isinstance(val, dict):
+        return [b for v in val.values() for b in placement_errors(v, cmesh)]
+    elif isinstance(val, (tuple, list)):
+        return [b for v in val for b in placement_errors(v, cmesh)]
+    else:
+        return bad
+    for arr in arrays:
+        if arr.cmesh is not cmesh:
+            bad.append(("mesh", arr.cmesh, cmesh))
+            continue
+        for p, (b, want) in enumerate(zip(arr.blocks, cmesh.devices)):
+            if b.device != want:
+                bad.append((p, b.device, want))
+    return bad
+
+
+def host_values(val):
+    """A result as host values, for holding two meshes' results against
+    each other: a ShardedCube its NaN-filled data (``filled_data``, shard
+    by shard) and its unit, a ShardedArray its host gather, a Quantity,
+    Projection or tensor its values as numpy, Python numbers as they are;
+    tuples, lists and dicts element by element."""
+    import torch
+    import spectral_cube_tpu_torch as T
+    from spectral_cube_tpu_torch.parallel import ShardedArray
+    if isinstance(val, T.ShardedCube):
+        return (str(val.unit), np.asarray(val.filled_data[:].value))
+    if isinstance(val, ShardedArray):
+        return val.gather(torch.device("cpu")).numpy()
+    if isinstance(val, dict):
+        return {k: host_values(v) for k, v in val.items()}
+    if isinstance(val, (tuple, list)):
+        return tuple(host_values(v) for v in val)
+    if isinstance(val, torch.Tensor):
+        return val.detach().cpu().numpy()
+    if hasattr(val, "value") and hasattr(val, "unit"):
+        return (str(val.unit), np.asarray(val.value))
+    return val
+
+
+def hold_values(tag, got, want, tol):
+    """Host values of one call on two meshes (:func:`host_values`): equal
+    structure, units and integers, NaN patterns exact, floats within
+    ``tol`` (rtol, atol; rtol of the largest magnitude).  Returns the
+    largest absolute difference."""
+    rtol, atol = tol
+    if isinstance(want, dict):
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"{tag}: keys {sorted(got)} vs "
+                                 f"{sorted(want)}")
+        return max([hold_values(f"{tag}[{k!r}]", got[k], want[k], tol)
+                    for k in want], default=0.0)
+    if isinstance(want, tuple):
+        if not isinstance(got, tuple) or len(got) != len(want):
+            raise AssertionError(f"{tag}: {type(got)} vs a tuple of "
+                                 f"{len(want)}")
+        return max([hold_values(f"{tag}[{i}]", g, w, tol)
+                    for i, (g, w) in enumerate(zip(got, want))],
+                   default=0.0)
+    if isinstance(want, str) or want is None:
+        if got != want:
+            raise AssertionError(f"{tag}: {got!r} vs {want!r}")
+        return 0.0
+    g, w = np.asarray(got), np.asarray(want)
+    if g.shape != w.shape or g.dtype.kind != w.dtype.kind:
+        raise AssertionError(f"{tag}: {g.dtype}{g.shape} vs "
+                             f"{w.dtype}{w.shape}")
+    if w.dtype.kind not in "fc":
+        if not np.array_equal(g, w):
+            raise AssertionError(f"{tag}: {g} vs {w}")
+        return 0.0
+    gn, wn = np.isnan(g), np.isnan(w)
+    if not np.array_equal(gn, wn):
+        raise AssertionError(f"{tag}: NaN patterns differ in "
+                             f"{int((gn != wn).sum())} places")
+    if not (~wn).any():
+        return 0.0
+    diff = np.abs(g[~wn].astype(np.float64) - w[~wn])
+    scale = float(np.abs(w[~wn]).max())
+    err = float(diff.max())
+    if err > rtol * scale + atol:
+        raise AssertionError(f"{tag}: {err:.3e} apart, limit "
+                             f"{rtol:g} x {scale:.3e} + {atol:g}")
+    return err
+
+
+def hold_structure(tag, got, want):
+    """Host values of one call on two meshes held by their structure
+    alone: keys, lengths, units and array shapes equal.  Returns the
+    largest absolute difference of the floats both hold finite and the
+    count of NaN states that differ (logged, not held)."""
+    if isinstance(want, dict) or isinstance(want, tuple):
+        keys = sorted(want) if isinstance(want, dict) else range(len(want))
+        if (sorted(got) if isinstance(got, dict) else range(len(got))) \
+                != keys:
+            raise AssertionError(f"{tag}: {got!r} vs {want!r}")
+        out = [hold_structure(f"{tag}[{k!r}]", got[k], want[k])
+               for k in keys]
+        return (max([e for e, _ in out], default=0.0),
+                sum(n for _, n in out))
+    if isinstance(want, str) or want is None:
+        if got != want:
+            raise AssertionError(f"{tag}: {got!r} vs {want!r}")
+        return 0.0, 0
+    g, w = np.asarray(got), np.asarray(want)
+    if g.shape != w.shape:
+        raise AssertionError(f"{tag}: shapes {g.shape} vs {w.shape}")
+    if w.dtype.kind != "f":
+        return float(np.abs(g.astype(np.float64) - w).max()) if w.size \
+            else 0.0, 0
+    both = ~np.isnan(g) & ~np.isnan(w)
+    err = float(np.abs(g[both].astype(np.float64) - w[both]).max()) \
+        if both.any() else 0.0
+    return err, int((np.isnan(g) != np.isnan(w)).sum())
+
+
+def conv_den64(cube, beam):
+    """Each voxel's float64 denominator 1 - K*~finite of
+    ``cube.convolve_to(beam)`` (a cube on the card, single-beam or
+    varying-resolution): the valid share of the kernel's footprint, by
+    which the normalized convolution's float32 rounding is divided.  The
+    FFT form of the same kernels (zero outside the plane, as both routes
+    take it); a host array."""
+    import torch
+    from spectral_cube_tpu_torch.ops import convolve as oc
+    from spectral_cube_tpu_torch.ops import reductions as rd
+    nchan = cube.shape[0]
+    vr = getattr(cube, "_beams", None) is not None
+    beams = list(cube.unmasked_beams) if vr else [cube.beam] * nchan
+    good = np.asarray(cube.goodbeams_mask) if vr else np.ones(nchan, bool)
+    beams = [b if g else beam for b, g in zip(beams, good)]
+    groups, gidx = oc.beam_groups(beams)
+    pix = float(np.mean(np.abs(
+        cube.wcs.celestial.proj_plane_pixel_scales()))) * np.pi / 180.0
+    kernels = [None if beam.deconvolve(b).major_rad <= 0
+               else beam.deconvolve(b).as_kernel(pix) for b in groups]
+    bad = (~rd.finite(cube._get_filled_data(fill=np.nan))).double()
+    fy, fx = oc._padded_shape(bad.shape[1:], tuple(np.max(
+        [k.shape for k in kernels if k is not None] or [(1, 1)], axis=0)))
+    tr = oc._transfers(kernels, fy, fx, bad.device, torch.complex128)
+    den = 1.0 - oc._convolve_planes(bad, tr, gidx)
+    del bad, tr
+    return den.cpu().numpy()
+
+
+def dm_stages(dev, cmesh, p_path, vr_path, run, convolved, full=True):
+    """The distinct-mesh phase's stages on ``cmesh``, each through
+    ``run(name, fn, kind)`` (``kind``: how its result is held, see
+    :func:`phase_distinct_mesh`): dryrun_multichip's six steps at
+    DM_DRYRUN_SHAPE (:func:`dryrun_steps`, run as one call, held step by
+    step) and its product pipeline (:func:`dryrun_pipeline`); the
+    DM_NCHAN-channel cube of ``p_path`` streamed onto the mesh and
+    ``run_pipeline`` at SNR onto the shifted grid of ``convolved["p"]``,
+    its unsharded convolution on the card (the same input on every
+    mesh).  With ``full``, also that cube's ``convolve_to`` on the mesh,
+    ``run_pipeline`` end to end, M's reductions and MS's stages
+    (:func:`card_ms_stages`) on the read, and V (a): the 4-D file
+    ``vr_path`` read onto the card, ``to_sharded``, its convolution to
+    the common beam (the FFT route), ``run_pipeline`` of
+    ``convolved["v"]`` onto the rotated grid and end to end; last a
+    float64 read's ``statistics()``."""
+    import numpy as np
+    import torch
+    import spectral_cube_tpu_torch as T
+    from spectral_cube_tpu_torch.io import streaming
+    steps = {}
+
+    def step(name):
+        def fn():
+            if not steps:
+                steps.update(dryrun_steps(cmesh, DM_DRYRUN_SHAPE))
+            return steps[name]
+        return fn
+    run("dryrun steps", step("moments"), "kernel")
+    for name in ("moments", "mean", "halo smooth", "fft", "separable",
+                 "smooth_interpolate"):
+        run(f"dryrun {name}", step(name), "step")
+    steps.clear()
+    run("dryrun pipeline", lambda: dryrun_pipeline(
+        cmesh, (48, 80, 96), dev)[1], "kernel")
+    _, target_beam = beams()
+    sc = run("read", lambda: streaming.read_sharded_cube(p_path, cmesh),
+             "exact")
+    target = shifted_header(sc.header, *SHIFT)
+    run("run_pipeline of the convolved cube", lambda: T.run_pipeline(
+        convolved["p"], cmesh, snr_threshold=SNR, target_header=target),
+        "kernel")
+    if not full:
+        return
+    run("convolve_to", lambda: sc.convolve_to(target_beam), "conditioned")
+    run("run_pipeline", lambda: T.run_pipeline(
+        sc, cmesh, snr_threshold=SNR, target_beam=target_beam,
+        target_header=target), "structure")
+    for name, fn in CARD_M_REDUCTIONS.items():
+        run(name, lambda: fn(sc), "exact" if name in CARD_M_EXACT
+            else "kernel" if name.startswith("statistics") else "sum")
+    for name, fn, _ in card_ms_stages(sc):
+        run(name, lambda: fn(sc), "kernel")
+    del sc
+    torch.cuda.empty_cache()
+    vr = T.SpectralCube.read(vr_path)
+    vsc = run("V (a) to_sharded", lambda: vr.to_sharded(cmesh), "exact")
+    del vr
+    vtarget = rotated_header(vsc.header, VR_ROTATION)
+    run("V (a) convolve_to", lambda: vsc.convolve_to(vsc.common_beam()),
+        "conditioned")
+    run("V (a) run_pipeline of the convolved cube", lambda: T.run_pipeline(
+        convolved["v"], cmesh, snr_threshold=SNR, target_header=vtarget),
+        "kernel")
+    run("V (a) run_pipeline", lambda: T.run_pipeline(
+        vsc, cmesh, snr_threshold=SNR, target_header=vtarget), "structure")
+    del vsc
+    torch.cuda.empty_cache()
+    run("statistics() float64", lambda: statistics_values(
+        streaming.read_sharded_cube(p_path, cmesh,
+                                    dtype=np.float64).statistics()),
+        "kernel")
+
+
+def phase_distinct_mesh(dev, workdir):
+    """The sharded path on meshes of distinct devices
+    (:func:`distinct_meshes`: the card and the host, whose positions run
+    the plain versions), the port's counterpart of the JAX package's
+    ``dryrun_multichip`` on 8 devices: :func:`dm_stages` on each mesh
+    (D2 without the ``full`` part) and on its reference mesh of the card
+    alone, the reference first, the pipelines of the convolved cubes on
+    the unsharded convolutions on the card.  Each stage's counters, launches and
+    device peak reset just before it and read just after; held against
+    the reference's same stage: the mesh's counters equal (gathers 0),
+    each kernel launched the card's positions' share of the reference's
+    launches (the card's positions run the kernels, the host's none),
+    every block of a result on its position's device, and its values by
+    its kind: "exact" bit for bit, "sum" within 1e-6 and "kernel" within
+    the kernels' tolerance against their plain versions (DM_TOLERANCES,
+    rtol of the largest magnitude), NaN patterns exact; "step" as
+    "kernel", one step of a call already counted; "conditioned" (a
+    normalized convolution, whose float32 rounding is divided by its
+    denominator den: :func:`conv_den64`) by :func:`compare_conv`'s rule,
+    NaN states free only where den <= 1e-5 and the differences times den
+    within 1e-5; "structure" (a pipeline end to end, whose SNR mask
+    follows the convolution's rounding across its threshold) its keys,
+    shapes and units, its NaN flips and largest difference logged.
+    Returns the summary line."""
+    import torch
+    from spectral_cube_tpu_torch import kernels as K
+    from spectral_cube_tpu_torch.io.fits_low import HDU, write_fits
+    log(f"phase distinct mesh ({DM_NCHAN} x {NY} x {NX} files, "
+        f"dryrun steps at {DM_DRYRUN_SHAPE})")
+    t_phase = time.perf_counter()
+    data = synth_cube(DM_NCHAN, NY, NX, SEED + 40)
+    p_path = os.path.join(workdir, "dm_cube.fits")
+    write_fits(p_path, [HDU(data=data, header=synth_header(DM_NCHAN, NY,
+                                                           NX))])
+    vr_path = os.path.join(workdir, "dm_vr.fits")
+    flagged = (DM_NCHAN // 2, DM_NCHAN // 2 + 1)
+    data[list(flagged)] = np.nan
+    write_vr_fits(vr_path, data, vr_beams(DM_NCHAN, flagged=flagged))
+    del data
+    import spectral_cube_tpu_torch as T
+    _, target_beam = beams()
+    cube = T.SpectralCube.read(p_path, device=dev)
+    vr = T.SpectralCube.read(vr_path, device=dev)
+    dens = {"convolve_to": conv_den64(cube, target_beam),
+            "V (a) convolve_to": conv_den64(vr, vr.common_beam())}
+    convolved = {"p": cube.convolve_to(target_beam),
+                 "v": vr.convolve_to(vr.common_beam())}
+    del cube, vr
+    torch.cuda.empty_cache()
+    meshes = distinct_meshes(dev)
+    times, holds, launches, counters, worst, flips = {}, 0, {}, {}, {}, {}
+    peak = 0
+
+    for mname, (cmesh, ref_mesh) in meshes.items():
+        ref = {}
+        cuda_share = (sum(d.type == "cuda" for d in cmesh.devices),
+                      cmesh.n_devices)
+
+        def run(name, fn, mesh):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+            mesh.reset_counters()
+            t = time.perf_counter()
+            val = fn()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            c = dict(mesh.counters)
+            n = {k: v for k, v in K.launch_counts().items() if v}
+            bad = placement_errors(val, mesh)
+            return val, ms, c, n, bad, host_values(val)
+
+        def ref_run(name, fn, kind):
+            val, ms, c, n, bad, hv = run(name, fn, ref_mesh)
+            if bad:
+                raise AssertionError(f"{mname} reference {name}: blocks "
+                                     f"off their positions {bad}")
+            ref[name] = (ms, c, n, hv)
+            return val
+
+        def mixed_run(name, fn, kind):
+            nonlocal holds, peak
+            val, ms, c, n, bad, hv = run(name, fn, cmesh)
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            rms, rc, rn, rhv = ref[name]
+            tag = f"{mname} {name}"
+            if bad:
+                raise AssertionError(f"{tag}: blocks off their positions "
+                                     f"{bad}")
+            if kind != "step":
+                times[tag] = (ms, rms)
+                counters[tag] = c
+                launches[tag] = n
+                if c != rc or c["gathers"] != 0:
+                    raise AssertionError(f"{tag}: counters {c}, on the "
+                                         f"card alone {rc}")
+                share = {k: v * cuda_share[0] // cuda_share[1]
+                         for k, v in rn.items()}
+                if any(v * cuda_share[0] % cuda_share[1]
+                       for v in rn.values()) or n != {
+                           k: v for k, v in share.items() if v}:
+                    raise AssertionError(
+                        f"{tag}: launches {n}, the card's positions' share "
+                        f"of the card alone's {rn} is {share}")
+            if kind == "conditioned":
+                ok, err, nflip = near_float64(
+                    hv[1], rhv[1], dens[name] <= 1e-5,
+                    np.minimum(dens[name], 1.0), DM_TOLERANCES["kernel"][0])
+                if not ok or hv[0] != rhv[0]:
+                    raise AssertionError(
+                        f"{tag}: {err:.3e} of the largest |value| (times "
+                        f"den), {nflip} NaN flips, some where den > 1e-5")
+                flips[tag] = nflip
+                note = (f"differences times den {err:.3e} of the largest "
+                        f"|value|, {nflip} NaN flips at den <= 1e-5")
+            elif kind == "structure":
+                err, nflip = hold_structure(tag, hv, rhv)
+                flips[tag] = nflip
+                note = (f"structure equal; {nflip} NaN flips, largest "
+                        f"difference {err:.3e} (not held)")
+            else:
+                err = hold_values(tag, hv, rhv, DM_TOLERANCES[
+                    "kernel" if kind == "step" else kind])
+                note = f"largest error {err:.3e}"
+            if kind != "structure":
+                worst[tag] = err
+            holds += 1
+            log(f"  {tag}: {ms:.1f} ms (card alone {rms:.1f} ms), counters "
+                f"{c}, launches {n} (card alone {rn}), {note}")
+            return val
+
+        full = mname == "D4"
+        t_mesh = time.perf_counter()
+        dm_stages(dev, ref_mesh, p_path, vr_path, ref_run, convolved, full)
+        times[f"{mname} reference wall"] = time.perf_counter() - t_mesh
+        torch.cuda.empty_cache()
+        t_mesh = time.perf_counter()
+        dm_stages(dev, cmesh, p_path, vr_path, mixed_run, convolved, full)
+        times[f"{mname} wall"] = time.perf_counter() - t_mesh
+        del ref
+        torch.cuda.empty_cache()
+    del convolved
+    wall = time.perf_counter() - t_phase
+    walls = {k: v for k, v in times.items() if k.endswith("wall")}
+    stages = {k: v for k, v in times.items() if k not in walls}
+    line = (f"summary: distinct mesh (" + "; ".join(
+        f"{k} {m.grid[0]}x{m.grid[1]} [" + ", ".join(
+            str(d) for d in m.devices) + "]" for k, (m, _) in meshes.items())
+        + f"; {DM_NCHAN} x {NY} x {NX}): phase {wall:.1f} s; " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in walls.items())
+        + "; stage ms (mixed / card alone) " + ", ".join(
+            f"{k} {v[0]:.1f} / {v[1]:.1f}" for k, v in stages.items())
+        + f"; {holds} holds, largest error {max(worst.values()):.3e} ("
+        + max(worst, key=worst.get) + "); NaN flips " + ", ".join(
+            f"{k} {v}" for k, v in flips.items()) + "; launches " + "; ".join(
+            f"{k}: " + ", ".join(f"{n} {c}" for n, c in v.items())
+            for k, v in launches.items() if v)
+        + "; gathers " + str(sum(c["gathers"] for c in counters.values()))
+        + f"; peak {peak / 2**30:.2f} GiB")
+    log(line)
+    return line
 
 
 def _region_plane(regions, cube, region_to_mask):
@@ -6799,6 +7365,7 @@ def main():
                        dev, workdir, results)
         io_counts = phase("io and regions", phase_io_regions, dev, workdir)
         phase("sharded", phase_sharded, dev, workdir)
+        distinct = phase("distinct mesh", phase_distinct_mesh, dev, workdir)
         card_scale = phase("card scale", phase_card_scale, dev, workdir)
     counts.update({k: sp_counts[k] for k in SPECTRAL_KERNELS})
     counts.update({k: rs_counts[k] for k in REPROJECT_SPECTRAL_KERNELS})
@@ -6888,6 +7455,7 @@ def main():
         + f"; peak {api_peak / 2**30:.2f} GiB; spatial cut copy "
         f"{api_copy:.3f} ms; moments launches "
         + ", ".join(f"{k} {v}" for k, v in api_launches.items()))
+    log(distinct)
     log(card_scale)
     for line in TRACE_LINES:
         log(line)
