@@ -162,7 +162,7 @@
    and all-to-all crosses devices along both axes), and D2, ``[card,
    host]``; the host's positions run the plain versions.  On each, and on
    the same grid of the card alone first: dryrun_multichip's six steps
-   and its product pipeline, a 32 x 768 x 768 cube of the pipeline's kind
+   and its product pipeline, a 16 x 768 x 768 cube of the pipeline's kind
    streamed onto the mesh, ``convolve_to`` and ``run_pipeline`` of the
    card alone's convolved cube onto the shifted grid; on D4 also
    ``run_pipeline`` end to end, the reductions, the spectral path, S and
@@ -251,6 +251,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -345,14 +346,22 @@ F_PEAK_RISE = 64 * 2**20
 # every halo exchange, all-to-all, tree step and gather crosses devices;
 # the channels of its files (cut from NCHAN so that the host's positions,
 # which run every plain version on the host's cores, keep the phase near
-# 90 s), the shape of dryrun_multichip's steps, and the tolerances (rtol
-# of the largest magnitude, atol) a result of the mixed mesh is held to
-# against the same call on the card alone: bit for bit, a sum's, the
-# kernels' against their plain versions
-DM_NCHAN = 32
+# 40 s: it runs twice, the concurrent-positions phase runs it again under
+# the stream-delay probe), the shape of dryrun_multichip's steps, and the
+# tolerances (rtol of the largest magnitude, atol) a result of the mixed
+# mesh is held to against the same call on the card alone: bit for bit, a
+# sum's, the kernels' against their plain versions
+DM_NCHAN = 16
 DM_DRYRUN_SHAPE = (32, 384, 384)
 DM_TOLERANCES = {"exact": (0.0, 0.0), "sum": (1e-6, 0.0),
                  "kernel": (2e-5, 1e-6)}
+
+# concurrent-positions phase: the stream-delay probe's unit (clock cycles,
+# ~0.1 ms at the card's 1.98 GHz; position p's stream sleeps p + 1 units
+# before each of its calls, so that the positions finish in another order
+# than they start), and the cube of the sanitizer's M4 run_pipeline
+STREAM_DELAY_CYCLES = 200_000
+SANITIZER_SHAPE = (16, 128, 128)
 
 # card-scale phase: P, run_pipeline's cube past 2**31 voxels (2304 x 1024
 # x 1024, 9.0 GiB, 11% of an H100), written to FITS and read back, then
@@ -567,12 +576,15 @@ def _short(name, width=72):
     return name if len(name) <= width else name[:width - 3] + "..."
 
 
-def traced_path(tag, dev, fn):
+def traced_path(tag, dev, fn, min_overlaps=0):
     """One extra, untimed call of ``fn`` under ``profiling.trace``, the
     launch counters reset just before: its window, device-busy time, idle
-    share, top device operations and longest idle gaps, and each wrapper's
-    counter held against its kernels' launches in the trace (equal, or the
-    run fails; a trace with no device event fails too).  Then the call once
+    share, top device operations and longest idle gaps, the streams that
+    ran kernels and the pairs of kernels on two streams that overlapped in
+    time (at least ``min_overlaps``: a mesh's positions running at once),
+    and each wrapper's counter held against its kernels' launches in the
+    trace (equal, or the run fails; a trace with no device event fails
+    too).  Then the call once
     more traced with Python frames, for the Python function each gap falls
     in (that trace's host runs slower, so its idle share reads higher).
     The traces are written gzipped to TRACE_DIR; one "summary: trace" line
@@ -610,11 +622,17 @@ def traced_path(tag, dev, fn):
         s["counts"] = {k: v for k, v in counts.items() if v}
         summaries[stack] = s
         del tr
+    if summaries[False]["overlapping_kernel_pairs"] < min_overlaps:
+        raise AssertionError(
+            f"trace {tag}: {summaries[False]['overlapping_kernel_pairs']} "
+            f"pairs of kernels on two streams overlap, not {min_overlaps}")
     torch.cuda.empty_cache()
     s, p = summaries[False], summaries[True]
     line = (f"summary: trace {tag}: window {s['window_ms']:.1f} ms, device "
             f"busy {s['busy_ms']:.1f} ms, idle share {s['idle_share']:.3f}, "
-            f"{s['device_events']} device events; launches "
+            f"{s['device_events']} device events; kernels on "
+            f"{s['streams']} streams, {s['overlapping_kernel_pairs']} pairs "
+            f"of kernels on two streams overlapping in time; launches "
             + ", ".join(f"{k} {v}" for k, v in s["counts"].items())
             + " (counters = the trace's kernels); top "
             + "; ".join(f"{_short(n)} [{_short(op, 24)}] x{c} {ms:.2f} ms"
@@ -3529,9 +3547,12 @@ class _Recorder:
         self.fn = fn
         self.calls = calls
         self.record = record
+        self.lock = threading.Lock()
 
     def __call__(self, *args, **kwargs):
-        self.calls[1 if self.calls else 0:] = [self.record(args, kwargs)]
+        # a mesh's positions call at once, each on its own worker
+        with self.lock:
+            self.calls[1 if self.calls else 0:] = [self.record(args, kwargs)]
         return self.fn(*args, **kwargs)
 
     @property
@@ -4131,7 +4152,7 @@ def sharded_gathers(cmesh, sc, cube, noise, sharded, timed, times,
     return errs, tile
 
 
-def phase_sharded(dev, workdir):
+def phase_sharded(dev, workdir, traced=True):
     """The multi-device layer on a 2 x 2 mesh of four shards on one card
     (``parallel``): (a) the pipeline's FITS file streamed onto the mesh
     and ``run_pipeline`` onto the shifted grid (halo exchanges only); (b)
@@ -4142,7 +4163,10 @@ def phase_sharded(dev, workdir):
     cube (:func:`sharded_methods`); (f) the methods that gathered the
     cube until they ran shard by shard (:func:`sharded_gathers`).  Each
     held against the unsharded call on the same card; counters and
-    launches reset just before each sharded run and read just after."""
+    launches reset just before each sharded run and read just after.
+    ``traced``: (a)'s traced call (its positions' kernels must overlap on
+    their streams), which the concurrent-positions phase's second run
+    leaves out."""
     import shutil
     import torch
     import spectral_cube_tpu_torch as T
@@ -4252,7 +4276,9 @@ def phase_sharded(dev, workdir):
     del res
     res = sharded("a run_pipeline sharded (second call)",
                   lambda: T.run_pipeline(sc, cmesh, **kw))
-    traced_path("sharded (a)", dev, lambda: T.run_pipeline(sc, cmesh, **kw))
+    if traced:
+        traced_path("sharded (a)", dev,
+                    lambda: T.run_pipeline(sc, cmesh, **kw), min_overlaps=1)
     kernel_errs = {"a": held_run("a", "a run_pipeline sharded",
                                  lambda: T.run_pipeline(sc, cmesh, **kw),
                                  SHARDED_KERNELS["a"])}
@@ -4911,6 +4937,147 @@ def phase_distinct_mesh(dev, workdir):
             for k, v in launches.items() if v)
         + "; gathers " + str(sum(c["gathers"] for c in counters.values()))
         + f"; peak {peak / 2**30:.2f} GiB")
+    log(line)
+    return line
+
+
+@contextlib.contextmanager
+def stream_delays(cycles=STREAM_DELAY_CYCLES):
+    """The stream-delay probe: inside the block the mesh executor's fork
+    (``CubeMesh._fork``, wrapped here, through no switch of the package)
+    queues ``torch.cuda._sleep`` of (p + 1) * ``cycles`` clock cycles on
+    each CUDA position p's stream after the fork's wait and before the
+    position's work.  The positions then finish in another order than
+    they start, and an order missing between two streams (a read of a
+    block before its writer's stream has written it, a block handed out
+    again while another stream reads it) shows as a wrong value.  Yields
+    ``{"delays": how many it queued}``."""
+    import torch
+    from spectral_cube_tpu_torch.parallel import mesh as tmesh
+    fork = tmesh.CubeMesh._fork
+    queued = {"delays": 0}
+
+    def delayed(self, positions):
+        callers = fork(self, positions)
+        for p in positions:
+            stream = self._streams[p]
+            if stream is not None:
+                with torch.cuda.stream(stream):
+                    torch.cuda._sleep(int(cycles * (p + 1)))
+                queued["delays"] += 1
+        return callers
+    tmesh.CubeMesh._fork = delayed
+    try:
+        yield queued
+    finally:
+        tmesh.CubeMesh._fork = fork
+
+
+def sanitized_pipeline(workdir):
+    """One M4 ``run_pipeline(cmesh=)`` on a SANITIZER_SHAPE cube under
+    PyTorch's CUDA sanitizer (``torch.cuda._sanitizer``: every PyTorch
+    operator's reads and writes of each stream, the events and the
+    synchronisations; the executor carries its dispatch mode into the
+    workers), run by :func:`sanitizer_start` in a child process.  Prints one
+    "sanitizer:" line, the races it reported or none.  The sanitizer sees
+    no launch of the port's kernels (they go through ctypes), only the
+    PyTorch operators around them."""
+    import torch
+    import spectral_cube_tpu_torch as T
+    from spectral_cube_tpu_torch.io import streaming
+    from spectral_cube_tpu_torch.io.fits_low import HDU, write_fits
+    from spectral_cube_tpu_torch.kernels import _build
+    import torch.cuda._sanitizer as csan
+    _build.load_library()
+    dev = torch.device("cuda", 0)
+    nchan, ny, nx = SANITIZER_SHAPE
+    path = os.path.join(workdir, "sanitized.fits")
+    write_fits(path, [HDU(data=synth_cube(nchan, ny, nx, SEED + 50),
+                          header=synth_header(nchan, ny, nx))])
+    cmesh = T.CubeMesh(devices=[dev] * 4, shape=MESH_GRID)
+    _, target_beam = beams()
+    csan.enable_cuda_sanitizer()
+    t = time.perf_counter()
+    try:
+        sc = streaming.read_sharded_cube(path, cmesh)
+        res = T.run_pipeline(sc, cmesh, snr_threshold=SNR,
+                             target_beam=target_beam,
+                             target_header=shifted_header(sc.header, *SHIFT))
+        torch.cuda.synchronize()
+        finite = int(np.isfinite(np.asarray(res["moments"][0].value)).sum())
+        found = (f"no race reported in {time.perf_counter() - t:.1f} s; "
+                 f"mom0 finite at {finite} of {ny * nx} spaxels")
+    except csan.CUDASanitizerErrors as exc:
+        found = (f"{len(exc.errors)} races reported: "
+                 + " | ".join(str(e).replace("\n", " ")[:600]
+                              for e in exc.errors[:3]))
+    print(f"sanitizer: {found}", flush=True)
+    os.remove(path)
+    return 0
+
+
+def sanitizer_start(workdir):
+    """(c) of the concurrent-positions phase: :func:`sanitized_pipeline`
+    started in a child process (the sanitizer stays out of every other
+    phase; the child runs beside the probe's phases).  Returns the child,
+    or why it did not start."""
+    import importlib.util
+    if importlib.util.find_spec("torch.cuda._sanitizer") is None:
+        return "torch.cuda._sanitizer is absent from this torch"
+    here = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.sanitized_pipeline(sys.argv[1]))", workdir],
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def sanitizer_finish(child):
+    """The "sanitizer:" line's text of a child :func:`sanitizer_start`
+    started (waited for, killed past 600 s), or why there is none."""
+    if isinstance(child, str):
+        return child
+    try:
+        out, err = child.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.communicate()
+        return "the child ran past 600 s and was stopped"
+    lines = [ln for ln in out.splitlines() if ln.startswith("sanitizer:")]
+    if child.returncode != 0 or not lines:
+        return (f"the child exited {child.returncode}: "
+                + err.strip()[-1500:].replace("\n", " | "))
+    return lines[-1][len("sanitizer: "):]
+
+
+def phase_concurrent(dev, workdir):
+    """The mesh's positions at once (``CubeMesh._each``: a worker and, on
+    the card, a stream a position) under probes.  (a), every hold of
+    ``phase_sharded`` (M4, four positions on the card) and of
+    ``phase_distinct_mesh`` (D4, D2) through concurrent positions, ran in
+    those phases, and (d), the traced M4 ``run_pipeline`` whose
+    positions' kernels must overlap, in ``phase_sharded``; here (b) both
+    phases again under :func:`stream_delays`, every hold unchanged, and
+    (c) the CUDA sanitizer on a small M4 ``run_pipeline``
+    (:func:`sanitizer_start`, in a child beside (b)).  Returns the
+    summary line."""
+    log(f"phase concurrent positions: phase_sharded and phase_distinct_mesh "
+        f"again, each CUDA position's stream delayed (p + 1) x "
+        f"{STREAM_DELAY_CYCLES} cycles before each of its calls")
+    t = time.perf_counter()
+    child = sanitizer_start(workdir)
+    try:
+        with stream_delays() as queued:
+            phase_sharded(dev, workdir, traced=False)
+            phase_distinct_mesh(dev, workdir)
+        probe_s = time.perf_counter() - t
+    finally:
+        found = sanitizer_finish(child)
+    line = (f"summary: concurrent positions: stream-delay probe "
+            f"({queued['delays']} delays queued): every hold of the sharded "
+            f"(M4) and distinct-mesh (D4, D2) phases passed again in "
+            f"{probe_s:.1f} s; CUDA sanitizer on an M4 run_pipeline at "
+            f"{SANITIZER_SHAPE} (a child beside them, the port's ctypes "
+            f"kernels unseen by it): {found}")
     log(line)
     return line
 
@@ -7366,6 +7533,8 @@ def main():
         io_counts = phase("io and regions", phase_io_regions, dev, workdir)
         phase("sharded", phase_sharded, dev, workdir)
         distinct = phase("distinct mesh", phase_distinct_mesh, dev, workdir)
+        concurrent = phase("concurrent positions", phase_concurrent, dev,
+                           workdir)
         card_scale = phase("card scale", phase_card_scale, dev, workdir)
     counts.update({k: sp_counts[k] for k in SPECTRAL_KERNELS})
     counts.update({k: rs_counts[k] for k in REPROJECT_SPECTRAL_KERNELS})
@@ -7456,6 +7625,7 @@ def main():
         f"{api_copy:.3f} ms; moments launches "
         + ", ".join(f"{k} {v}" for k, v in api_launches.items()))
     log(distinct)
+    log(concurrent)
     log(card_scale)
     for line in TRACE_LINES:
         log(line)

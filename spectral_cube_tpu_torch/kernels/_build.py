@@ -23,7 +23,7 @@ import time
 from pathlib import Path
 
 __all__ = ["load_library", "check", "stream_ptr", "ptr", "last_build",
-           "on_tensor_device"]
+           "on_tensor_device", "count_launch", "stream_cached"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -36,6 +36,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
+#: the lock of the launch counts and of the device caches: the positions
+#: of a mesh launch at once, each on its own worker thread
+_COUNT_LOCK = threading.Lock()
 _LIB = None
 #: {"seconds": build wall time (0.0 when the library was already built),
 #:  "path": the library} of the load that ran in this process
@@ -172,8 +175,40 @@ def check(err, name):
 
 
 def stream_ptr(device):
+    """The current stream of ``device`` (a mesh position's own stream
+    inside its worker), where every launch is queued."""
     import torch
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def count_launch(wrapper):
+    """Add one to ``wrapper.launches``, where the wrapper has launched its
+    kernel: under a lock, since the positions of a mesh launch at once."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
+def stream_cached(cache, size, key, device, make):
+    """``cache[key]`` for the current stream of the CUDA ``device``,
+    ``make()`` where it is absent; ``cache`` an OrderedDict of at most
+    ``size`` entries, the least recently used let go first.  The stream
+    is part of the key: ``make`` queues its upload on that stream, so a
+    reader on another stream (another mesh position's) would not wait for
+    it, and an entry let go returns its block to the stream whose reads
+    are queued before any later use of it."""
+    import torch
+    key = (torch.cuda.current_stream(device).cuda_stream,) + tuple(key)
+    with _COUNT_LOCK:
+        hit = cache.get(key)
+        if hit is not None:
+            cache.move_to_end(key)
+            return hit
+    value = make()
+    with _COUNT_LOCK:
+        cache[key] = value
+        while len(cache) > size:
+            cache.popitem(last=False)
+    return value
 
 
 def ptr(t):

@@ -40,7 +40,8 @@ import numpy as np
 import torch
 
 from . import resample2 as _rs
-from ._build import load_library, check, stream_ptr, on_tensor_device
+from ._build import (load_library, check, stream_ptr, on_tensor_device,
+                     count_launch, stream_cached)
 
 __all__ = ["plan_strips", "strip_blocks", "row_bands", "RowBands",
            "banded_matmul", "banded_matmul_plain", "banded_matmul_strips",
@@ -333,27 +334,23 @@ _PREPARED_SIZE = 8
 def prepare(flat, bands):
     """The kernel's step tables for ``bands`` on ``flat`` (a CUDA (nin, S)
     tensor) on its device: planned and packed on the host, then one
-    non-blocking copy from pinned memory.  Kept by the operator's bytes
-    and S, so a later call with the same operator queues no copy."""
+    non-blocking copy from pinned memory.  Kept by the operator's bytes,
+    S and the current stream, so a later call with the same operator on
+    the same stream queues no copy."""
     h = hashlib.sha256()
     for a in bands[:3]:
         a = np.ascontiguousarray(a)
         h.update(str((a.dtype, a.shape)).encode())
         h.update(a.tobytes())
     key = (str(flat.device), tuple(flat.shape), bands.nin, h.hexdigest())
-    got = _PREPARED.get(key)
-    if got is not None:
-        _PREPARED.move_to_end(key)
-        return got
-    packed = pack(bands)
-    words = torch.from_numpy(packed.words).pin_memory().to(
-        flat.device, non_blocking=True)
-    got = Prepared(int(bands.start.shape[0]), tuple(flat.shape), packed,
-                   words)
-    _PREPARED[key] = got
-    if len(_PREPARED) > _PREPARED_SIZE:
-        _PREPARED.popitem(last=False)
-    return got
+
+    def make():
+        packed = pack(bands)
+        words = torch.from_numpy(packed.words).pin_memory().to(
+            flat.device, non_blocking=True)
+        return Prepared(int(bands.start.shape[0]), tuple(flat.shape), packed,
+                        words)
+    return stream_cached(_PREPARED, _PREPARED_SIZE, key, flat.device, make)
 
 
 @on_tensor_device
@@ -386,7 +383,7 @@ def launch(flat, prep):
                            "kernels/banded_matmul.py disagree on the plan")
     check(lib.sct_banded_matmul(ctypes.byref(args), stream_ptr(flat.device)),
           "sct_banded_matmul")
-    banded_matmul.launches += 1
+    count_launch(banded_matmul)
     return out
 
 

@@ -33,7 +33,8 @@ import numpy as np
 import torch
 
 from ..utils import ieee_fp32
-from ._build import load_library, check, ptr, stream_ptr, on_tensor_device
+from ._build import (load_library, check, ptr, stream_ptr, on_tensor_device,
+                     count_launch)
 from .conv_sep import DEN_EPS, _apply
 from .resample2 import POISON, lerp2
 
@@ -160,7 +161,7 @@ def conv_reproject(raw, gy, gx, my, mx, ry, rx, valid_plane):
         return conv_reproject_plain(raw, gy, gx, my, mx, ry, rx,
                                     valid_plane)
     out = _launch(0, raw, gy, gx, (my, mx, ry, rx), valid_plane)[0]
-    conv_reproject.launches += 1
+    count_launch(conv_reproject)
     return out
 
 
@@ -187,7 +188,7 @@ def plain_strips(x, ybands, xbands, group_idx):
     if x.device.type == "cpu":
         return plain_strips_plain(x, ybands, xbands, group_idx)
     out = _launch(1, x, ybands, xbands, None, None, group_idx=group_idx)[0]
-    plain_strips.launches += 1
+    count_launch(plain_strips)
     return out
 
 

@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from ._build import load_library, check, ptr, stream_ptr, on_tensor_device
+from ._build import (load_library, check, ptr, stream_ptr, on_tensor_device,
+                     count_launch)
 
 __all__ = ["conv_sep", "conv_sep_plain", "DEN_EPS"]
 
@@ -71,7 +72,7 @@ def conv_sep(data, ytaps, xtaps, hy, hx, group_idx):
                            nchan, ny, nx, r, ly, lx, int(hy), int(hx),
                            ptr(out), stream_ptr(dev))
     check(err, "sct_conv_sep")
-    conv_sep.launches += 1
+    count_launch(conv_sep)
     return out
 
 

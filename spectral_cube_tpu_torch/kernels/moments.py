@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 from ..ops.df32 import two_sum, two_prod, df_div
-from ._build import load_library, check, ptr, stream_ptr, on_tensor_device
+from ._build import (load_library, check, ptr, stream_ptr, on_tensor_device,
+                     count_launch, stream_cached)
 
 __all__ = ["moments_planes", "moments_planes_plain", "plan", "CHUNK",
            "CMP_OPS"]
@@ -78,25 +79,19 @@ def plan(npix, data_aligned=True, mask=False, mask_aligned=True):
                 "cp.async16" if vec else "cp.async4", form, smem)
 
 
-#: device copies of centred coordinates, keyed by device and bytes
+#: device copies of centred coordinates, keyed by stream, device and bytes
 _XC_CACHE = OrderedDict()
 _XC_CACHE_SIZE = 16
 
 
 def _device_coords(xc, dev):
-    """``xc`` as float32 on ``dev``, uploaded once per device and value: a
-    later call with the same coordinates queues no host copy."""
+    """``xc`` as float32 on ``dev``, uploaded once per device, stream and
+    value: a later call with the same coordinates on the same stream
+    queues no host copy."""
     a = np.ascontiguousarray(np.asarray(xc, dtype=np.float32))
-    key = (str(dev), a.shape, a.tobytes())
-    t = _XC_CACHE.get(key)
-    if t is None:
-        t = torch.from_numpy(a).pin_memory().to(dev, non_blocking=True)
-        _XC_CACHE[key] = t
-        if len(_XC_CACHE) > _XC_CACHE_SIZE:
-            _XC_CACHE.popitem(last=False)
-    else:
-        _XC_CACHE.move_to_end(key)
-    return t
+    return stream_cached(
+        _XC_CACHE, _XC_CACHE_SIZE, (str(dev), a.shape, a.tobytes()), dev,
+        lambda: torch.from_numpy(a).pin_memory().to(dev, non_blocking=True))
 
 
 def _acc2(h, l, vh, vl):
@@ -161,7 +156,7 @@ def moments_planes(data, xc, cmp_op=0, threshold=0.0, include=None,
                           p.stages, vec, mask, ptr(planes), ptr(count),
                           stream_ptr(dev))
     check(err, "sct_moments")
-    moments_planes.launches += 1
+    count_launch(moments_planes)
     return planes, count
 
 

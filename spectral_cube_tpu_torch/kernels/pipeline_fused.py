@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ._build import on_tensor_device
+from ._build import on_tensor_device, count_launch
 from .conv_reproject import _check, _launch, conv_reproject_plain
 from .moments import CMP_OPS, moments_planes_plain
 
@@ -48,7 +48,7 @@ def pipeline_fused(raw, gy, gx, my, mx, ry, rx, valid_plane, xc, cmp_op=0,
                                     include)
     res = _launch(2, raw, gy, gx, (my, mx, ry, rx), valid_plane,
                   moments=(xc, cmp_op, threshold, include))
-    pipeline_fused.launches += 1
+    count_launch(pipeline_fused)
     return res
 
 

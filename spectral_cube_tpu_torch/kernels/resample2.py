@@ -28,7 +28,8 @@ from collections import OrderedDict, namedtuple
 import numpy as np
 import torch
 
-from ._build import load_library, check, stream_ptr, on_tensor_device
+from ._build import (load_library, check, stream_ptr, on_tensor_device,
+                     count_launch, stream_cached)
 
 __all__ = ["resample2", "resample2_plain", "resample2_filled",
            "resample2_filled_plain", "lerp2", "POISON", "plan", "pack_taps",
@@ -340,8 +341,9 @@ def prepare(raw, y0, wy, x0, wx, valid_plane, zvalid=None, wz=None,
     """The kernel's packed taps for ``raw`` (a CUDA tensor; the filled
     entry's ``fz``, with its NaN weights ``wz`` and channel flags
     ``wz_any``) on its device: checked and packed on the host, then one
-    non-blocking copy from pinned memory.  Kept by the taps' bytes, so a
-    later call with the same taps and shape queues no copy."""
+    non-blocking copy from pinned memory.  Kept by the taps' bytes and
+    the current stream, so a later call with the same taps and shape on
+    the same stream queues no copy."""
     y0, wy, x0, wx, valid_plane, zvalid = _host_taps(
         raw, y0, wy, x0, wx, valid_plane, zvalid)
     filled = wz is not None
@@ -355,20 +357,15 @@ def prepare(raw, y0, wy, x0, wx, valid_plane, zvalid=None, wz=None,
         h.update(np.ascontiguousarray(a).tobytes())
     key = (str(raw.device), tuple(raw.shape), aligned, valid_plane.shape,
            filled, h.hexdigest())
-    got = _PREPARED.get(key)
-    if got is not None:
-        _PREPARED.move_to_end(key)
-        return got
-    packed = pack_taps(tuple(raw.shape), y0, wy, x0, wx, valid_plane,
-                       zvalid, aligned, flags)
-    words = torch.from_numpy(packed.words).pin_memory().to(
-        raw.device, non_blocking=True)
-    got = Prepared(tuple(raw.shape), aligned, valid_plane.shape, packed,
-                   words, filled)
-    _PREPARED[key] = got
-    if len(_PREPARED) > _PREPARED_SIZE:
-        _PREPARED.popitem(last=False)
-    return got
+
+    def make():
+        packed = pack_taps(tuple(raw.shape), y0, wy, x0, wx, valid_plane,
+                           zvalid, aligned, flags)
+        words = torch.from_numpy(packed.words).pin_memory().to(
+            raw.device, non_blocking=True)
+        return Prepared(tuple(raw.shape), aligned, valid_plane.shape, packed,
+                        words, filled)
+    return stream_cached(_PREPARED, _PREPARED_SIZE, key, raw.device, make)
 
 
 @on_tensor_device
@@ -413,9 +410,9 @@ def launch(raw, prep, wz=None):
     check(lib.sct_resample2(ctypes.byref(args), stream_ptr(raw.device)),
           "sct_resample2")
     if wz is None:
-        resample2.launches += 1
+        count_launch(resample2)
     else:
-        resample2_filled.launches += 1
+        count_launch(resample2_filled)
     return out
 
 

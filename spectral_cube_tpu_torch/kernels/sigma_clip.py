@@ -29,7 +29,8 @@ from collections import namedtuple
 import torch
 
 from ..ops.reductions import lane_tiles
-from ._build import load_library, check, ptr, stream_ptr, on_tensor_device
+from ._build import (load_library, check, ptr, stream_ptr, on_tensor_device,
+                     count_launch)
 
 __all__ = ["sigma_clip", "sigma_clip_plain", "LANES", "band_sum", "plan"]
 
@@ -139,7 +140,7 @@ def sigma_clip(data, sigma, maxiters, use_mean_center):
                              p.R, p.warps, p.spaxels, ptr(work), chunk,
                              ptr(out), stream_ptr(data.device))
     check(err, "sct_sigma_clip")
-    sigma_clip.launches += 1
+    count_launch(sigma_clip)
     return out
 
 

@@ -32,7 +32,8 @@ import numpy as np
 import torch
 
 from ..utils import ieee_fp32
-from ._build import load_library, check, ptr, stream_ptr, on_tensor_device
+from ._build import (load_library, check, ptr, stream_ptr, on_tensor_device,
+                     count_launch)
 from .conv_sep import DEN_EPS
 
 __all__ = ["smooth_interp", "smooth_interp_plain", "band_rows", "plan"]
@@ -144,7 +145,7 @@ def smooth_interp(data, M, S, I, bands=None):
                                 ptr(st), ws, ptr(is_), ptr(it), wi,
                                 ptr(out), stream_ptr(data.device))
     check(err, "sct_smooth_interp")
-    smooth_interp.launches += 1
+    count_launch(smooth_interp)
     return out
 
 

@@ -12,6 +12,7 @@ block-estimator reduce of the reference (spectral_cube.py:3421-3557).
 
 from __future__ import annotations
 
+import threading
 import warnings
 
 import numpy as np
@@ -140,6 +141,8 @@ def interp_cube_spectral(data, inaxis, outaxis, include=None):
 
 
 _SI_OP_CACHE = {}
+#: the positions of a mesh ask for the operators at once
+_SI_OP_LOCK = threading.Lock()
 
 
 def _nbytes(val):
@@ -155,7 +158,8 @@ def _si_operators(k, idx, frac, nin):
     value of the normalized kernel and the interp weights, and bounded by
     bytes (interpolate.py:299-330)."""
     key = (int(nin), k.tobytes(), idx.tobytes(), frac.tobytes())
-    hit = _SI_OP_CACHE.get(key)
+    with _SI_OP_LOCK:
+        hit = _SI_OP_CACHE.get(key)
     if hit is not None:
         return hit
     S = _banded_conv_matrix(nin, k)
@@ -163,10 +167,11 @@ def _si_operators(k, idx, frac, nin):
     M_host = compose_interp_banded(idx, frac, S, dtype=np.float32)
     val = (S, Imat, M_host, [band_rows(A) for A in (M_host, S, Imat)])
     nbytes = _nbytes(val)
-    total = sum(_nbytes(v) for v in _SI_OP_CACHE.values())
-    if len(_SI_OP_CACHE) >= 8 or total + nbytes > 2 * 2 ** 30:
-        _SI_OP_CACHE.clear()
-    _SI_OP_CACHE[key] = val
+    with _SI_OP_LOCK:
+        total = sum(_nbytes(v) for v in _SI_OP_CACHE.values())
+        if len(_SI_OP_CACHE) >= 8 or total + nbytes > 2 * 2 ** 30:
+            _SI_OP_CACHE.clear()
+        _SI_OP_CACHE[key] = val
     return val
 
 

@@ -31,6 +31,7 @@ them outside any Pallas kernel.
 
 from __future__ import annotations
 
+import threading
 from collections import OrderedDict
 from typing import NamedTuple
 
@@ -162,14 +163,22 @@ _SPLINE_OPS = OrderedDict()
 _SPLINE_OPS_SIZE = 16
 
 
+_SPLINE_OPS_LOCK = threading.Lock()
+
+
 def _spline_cached(key, build):
-    hit = _SPLINE_OPS.get(key)
-    if hit is None:
-        hit = _SPLINE_OPS[key] = build()
-        if len(_SPLINE_OPS) > _SPLINE_OPS_SIZE:
+    """``_SPLINE_OPS[key]``, built first where absent; under a lock, as
+    the positions of a mesh ask at once."""
+    with _SPLINE_OPS_LOCK:
+        hit = _SPLINE_OPS.get(key)
+        if hit is not None:
+            _SPLINE_OPS.move_to_end(key)
+            return hit
+    hit = build()
+    with _SPLINE_OPS_LOCK:
+        _SPLINE_OPS[key] = hit
+        while len(_SPLINE_OPS) > _SPLINE_OPS_SIZE:
             _SPLINE_OPS.popitem(last=False)
-    else:
-        _SPLINE_OPS.move_to_end(key)
     return hit
 
 

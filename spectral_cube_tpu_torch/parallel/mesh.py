@@ -27,12 +27,30 @@ small stencils are exchanged by ``parallel.sharded.halo_pad``.  The mesh
 counts its halo exchanges, all-to-alls and gathers of a cube onto one
 device (``CubeMesh.counters``), where the JAX tests read the compiled
 program's collectives.
+
+As ``shard_map`` runs its devices together, the positions run at once
+(``CubeMesh._each``): one worker thread per position, and on a CUDA
+device one stream per position, positions that share a card on streams
+of their own.  Each call forks from the caller's stream (what the caller
+queued before it is ready for every position) and joins back into it
+(what the positions queued is ready for the caller).  A position's call
+reads its own blocks and what existed before the fork, never what
+another position makes in the same call: a hand-off between positions
+is two calls, and the sources are dropped only after the join, so that
+the caching allocator hands no block out again while another stream
+still reads it.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import functools
 import math
+import queue
+import threading
 import warnings
+import weakref
 from collections import namedtuple
 
 import numpy as np
@@ -42,6 +60,12 @@ __all__ = ["CubeMesh", "make_mesh", "use_mesh", "default_mesh", "Mesh",
            "Sharding", "ShardedArray", "Shard"]
 
 _DEFAULT_MESH = None
+
+#: ``active`` on a mesh's worker threads: a position's call that reaches
+#: another mesh call runs its positions in turn, on its own worker
+_WORKER = threading.local()
+#: the lock of every mesh's counters: positions may count at once
+_LOCK = threading.Lock()
 
 LAYOUT_SPECS = {"spatial": (None, "y", "x"),
                 "spectral": (("y", "x"), None, None),
@@ -79,6 +103,65 @@ class use_mesh:
         global _DEFAULT_MESH
         _DEFAULT_MESH = self._previous
         return False
+
+
+class _Worker(threading.Thread):
+    """A mesh position's worker: runs the jobs put on its queue in turn
+    until it is handed None."""
+
+    def __init__(self, name):
+        super().__init__(name=name, daemon=True)
+        self._jobs = queue.SimpleQueue()
+        self.start()
+
+    def put(self, job):
+        self._jobs.put(job)
+
+    def run(self):
+        _WORKER.active = True
+        while True:
+            job = self._jobs.get()
+            if job is None:
+                return
+            job()
+            # the job holds its mesh: let it go while the worker waits
+            del job
+
+
+def _stop(workers):
+    """End a mesh's workers (the mesh is gone)."""
+    for w in workers:
+        w.put(None)
+
+
+def _caller_context():
+    """The calling thread's state that a worker takes on: its
+    TorchFunctionMode stack (``with torch.device(...)`` is one of its
+    modes) and TorchDispatchMode stack (a sanitizer's), grad mode and
+    inference mode."""
+    modes = [torch._C._get_function_stack_at(i)
+             for i in range(torch._C._len_torch_function_stack())]
+    dispatch = [torch._C._get_dispatch_stack_at(i)
+                for i in range(torch._C._len_torch_dispatch_stack())]
+    return (modes, dispatch, torch.is_grad_enabled(),
+            torch.is_inference_mode_enabled())
+
+
+def _enter_context(stack, ctx):
+    """Enter the caller's state ``ctx`` (:func:`_caller_context`) on this
+    thread for the life of the ExitStack ``stack``."""
+    modes, dispatch, grad, inference = ctx
+    if inference:
+        stack.enter_context(torch.inference_mode())
+    stack.enter_context(torch.set_grad_enabled(grad))
+    for mode in modes:
+        torch._C._push_on_torch_function_stack(mode)
+    stack.callback(lambda: [torch._C._pop_torch_function_stack()
+                            for _ in modes])
+    for mode in dispatch:
+        torch._C._push_on_torch_dispatch_stack(mode)
+    stack.callback(lambda: [torch._C._pop_torch_dispatch_stack(None)
+                            for _ in dispatch])
 
 
 def _factor2(n):
@@ -225,9 +308,9 @@ class ShardedArray:
         """``fn`` applied block by block (with the blocks of ``others``,
         ShardedArrays of the same placement, or None), keeping the
         placement; ``fn`` must keep each block's shape."""
-        blocks = [fn(b, *[None if o is None else o.blocks[p]
-                          for o in others])
-                  for p, b in enumerate(self.blocks)]
+        blocks = self.cmesh._each(lambda p: fn(
+            self.blocks[p], *[None if o is None else o.blocks[p]
+                              for o in others]))
         return ShardedArray(self.cmesh, self.layout, self.shape, blocks,
                             self.index)
 
@@ -238,15 +321,18 @@ class ShardedArray:
         fetching a moment map in the JAX package, does not."""
         dev = self.cmesh.devices[0] if device is None else _as_device(device)
         if self.ndim == 3:
-            self.cmesh.counters["gathers"] += 1
+            self.cmesh._count("gathers")
         out = torch.empty(self.shape, dtype=self.dtype, device=dev)
-        seen = set()
-        for b, ix in zip(self.blocks, self.index):
+        seen, sources = set(), []
+        for p, (b, ix) in enumerate(zip(self.blocks, self.index)):
             key = tuple((s.start, s.stop) for s in ix)
             if key in seen or 0 in b.shape:
                 continue
             seen.add(key)
-            out[ix].copy_(b)
+            sources.append(p)
+        # each position copies its own block into its part of ``out``
+        self.cmesh._each(lambda p: out[self.index[p]].copy_(self.blocks[p]),
+                         sources)
         return out
 
     def __array__(self, dtype=None, copy=None):
@@ -269,10 +355,137 @@ class CubeMesh:
         self.mesh = make_mesh(devices=devices, shape=shape)
         self.counters = {"halo_exchanges": 0, "all_to_alls": 0,
                          "gathers": 0}
+        # the per-position workers, streams and events, made at the first
+        # call
+        self._workers = self._streams = self._joined = self._forks = None
+        self._calls = threading.Lock()
 
     def reset_counters(self):
-        for k in self.counters:
-            self.counters[k] = 0
+        with _LOCK:
+            for k in self.counters:
+                self.counters[k] = 0
+
+    def _count(self, name):
+        with _LOCK:
+            self.counters[name] += 1
+
+    # -- the positions at once ----------------------------------------------
+    def _each(self, fn, positions=None, one_a_device=False):
+        """``[fn(p) for p in positions]`` (default: every position), each
+        position's call at once on its own worker, as ``shard_map`` runs
+        its devices: the position's device current and, on a CUDA device,
+        the position's own stream (:meth:`_fork` before, :meth:`_join`
+        after), with the caller's TorchFunctionMode and
+        TorchDispatchMode stacks (``with torch.device(...)`` is a function
+        mode), grad mode, inference mode and context variables (numpy's
+        ``errstate``).  Results in position order.  An exception in a
+        position is raised once every position has stopped and every
+        stream has been joined (the first in position order).  One
+        position, or a call from inside a worker, runs in turn in the
+        calling thread; the mesh's calls from several threads take turns
+        (its events are reused).  ``one_a_device``: the positions that
+        share a device run one after another on the first one's worker,
+        each on its own stream, the devices at once (a sort of up to
+        ``ops/reductions.SORT_PIECE`` values a position holds ~5 GiB,
+        and one card holds one position's at a time, as in turn)."""
+        positions = range(self.n_devices) if positions is None \
+            else positions
+        positions = list(positions)
+        if len(positions) < 2 or getattr(_WORKER, "active", False):
+            return [fn(p) for p in positions]
+        with self._calls:
+            if self._workers is None:
+                self._start()
+            callers = self._fork(positions)
+            ctx = _caller_context()
+            n = len(positions)
+            results, errors = [None] * n, [None] * n
+            groups = {}
+            for k, p in enumerate(positions):
+                groups.setdefault(self.devices[p] if one_a_device else k,
+                                  []).append((k, p))
+            left, done = [len(groups)], threading.Event()
+            lock = threading.Lock()
+
+            def job(members):
+                try:
+                    for k, p in members:
+                        try:
+                            results[k] = self._call(p, fn, ctx, callers)
+                        except BaseException as exc:   # raised in the caller
+                            errors[k] = exc
+                finally:
+                    with lock:
+                        left[0] -= 1
+                        last = left[0] == 0
+                    if last:
+                        done.set()
+            for members in groups.values():
+                self._workers[members[0][1]].put(functools.partial(
+                    contextvars.copy_context().run, job, members))
+            done.wait()
+            self._join(positions, callers)
+        for exc in errors:
+            if exc is not None:
+                raise exc
+        return results
+
+    def _start(self):
+        """One worker thread per position, and a stream, a fork event and
+        a join event for each CUDA position (two positions on one card
+        get two streams)."""
+        self._streams = [torch.cuda.Stream(device=d) if d.type == "cuda"
+                         else None for d in self.devices]
+        self._joined = [None if s is None else torch.cuda.Event()
+                        for s in self._streams]
+        self._forks = {d: torch.cuda.Event() for d in self.devices
+                       if d.type == "cuda"}
+        self._workers = [_Worker(f"mesh-position-{p}")
+                         for p in range(self.n_devices)]
+        weakref.finalize(self, _stop, self._workers)
+
+    def _fork(self, positions):
+        """Each CUDA position's stream made to wait on the caller's
+        current stream of its card (one event a card): what the caller
+        queued before the call is ready for the position.  Returns the
+        caller's current stream of every card of the mesh."""
+        callers = {}
+        for d, event in self._forks.items():
+            callers[d] = torch.cuda.current_stream(d)
+            event.record(callers[d])
+        for p in positions:
+            s = self._streams[p]
+            if s is not None:
+                s.wait_event(self._forks[s.device])
+        return callers
+
+    def _join(self, positions, callers):
+        """The caller's stream of each card made to wait on the streams of
+        the positions there (each position's join event, recorded at the
+        end of its work): what they queued is ready for the caller, and a
+        block they read is handed out again only after they have read
+        it."""
+        for p in positions:
+            s = self._streams[p]
+            if s is not None:
+                callers[s.device].wait_event(self._joined[p])
+
+    def _call(self, p, fn, ctx, callers):
+        """Position ``p``'s call on its worker: ``fn(p)`` with the
+        caller's context ``ctx``, the position's device current and its
+        stream; a host position queues its copies from and to a card on
+        the caller's stream of that card."""
+        with contextlib.ExitStack() as stack:
+            s = self._streams[p]
+            if s is not None:
+                stack.enter_context(torch.cuda.device(s.device))
+                stack.enter_context(torch.cuda.stream(s))
+                stack.callback(self._joined[p].record, s)
+            else:
+                for c in callers.values():
+                    stack.enter_context(torch.cuda.stream(c))
+            _enter_context(stack, ctx)
+            return fn(p)
 
     @property
     def axis_names(self):
@@ -373,12 +586,12 @@ class CubeMesh:
             src = torch.from_numpy(np.ascontiguousarray(arr))
         shape = tuple(src.shape)
         index = self.compatible_sharding(layout, shape).indices(shape)
-        blocks = []
-        for dev, ix in zip(self.devices, index):
-            blk = torch.empty(_extent(ix), dtype=src.dtype, device=dev)
-            blk.copy_(src[ix])
-            blocks.append(blk)
-        return ShardedArray(self, layout, shape, blocks, index)
+
+        def place(p):
+            blk = torch.empty(_extent(index[p]), dtype=src.dtype,
+                              device=self.devices[p])
+            return blk.copy_(src[index[p]])
+        return ShardedArray(self, layout, shape, self._each(place), index)
 
     def reshard(self, array, layout, source=None):
         """Change an array's layout (the dask ``rechunk`` analog).
@@ -423,9 +636,9 @@ class CubeMesh:
             cb = nc_p // n
             want = [((p * cb, (p + 1) * cb), (0, ny_p), (0, nx_p))
                     for p in range(n)]
-        tiles = []
-        for p, (b, ix) in enumerate(zip(array.blocks, array.index)):
-            dev = self.devices[p]
+
+        def tile(p):
+            b, ix, dev = array.blocks[p], array.index[p], self.devices[p]
             lo = [w[0] for w in want[p]]
             hi = [min(w[1], n_) for w, n_ in zip(want[p], array.shape)]
             if any(h > l_ and (l_ < s.start or h > s.stop)
@@ -437,12 +650,11 @@ class CubeMesh:
                                  max(h - s.start, 0))
                            for l_, h, s in zip(lo, hi, ix))]
             if tuple(part.shape) == full:
-                tiles.append(part.to(dev).contiguous())
-                continue
+                return part.to(dev).contiguous()
             t = torch.full(full, pad_value, dtype=b.dtype, device=dev)
             t[tuple(slice(0, k) for k in part.shape)].copy_(part)
-            tiles.append(t)
-        return tiles
+            return t
+        return self._each(tile)
 
     def _a2a(self, tiles, split, concat, axis):
         """One tiled all-to-all over mesh axis ``axis`` ('y' or 'x'):
@@ -451,12 +663,14 @@ class CubeMesh:
         its row or column, which concatenates what it receives along dim
         ``concat`` in source order.  Over an axis of one position every
         tile is its own result, handed through with no copy.  The list
-        ``tiles`` is consumed: a row's or a column's tiles leave it as
-        soon as its results are made, so that the sources and the results
-        of a whole mesh are never alive at once."""
+        ``tiles`` is consumed: a row's or a column's positions make their
+        results at once, and its tiles leave the list once every result
+        is made, so that the sources and the results of a whole mesh are
+        never alive at once and no source is let go while another
+        position's stream still reads it."""
         my, mx = self.grid
         m = my if axis == "y" else mx
-        self.counters["all_to_alls"] += 1
+        self._count("all_to_alls")
         if m == 1:
             return list(tiles)
         out = [None] * len(tiles)
@@ -464,7 +678,9 @@ class CubeMesh:
             # the positions of column g ('y') or of row g ('x'), in order
             group = [j * mx + g if axis == "y" else g * mx + j
                      for j in range(m)]
-            for me, p in enumerate(group):
+
+            def receive(p, group=group):
+                me = group.index(p)
                 t = tiles[p]
                 part = t.shape[split] // m
                 shape = list(t.shape)
@@ -475,6 +691,8 @@ class CubeMesh:
                     src = tiles[q].narrow(split, me * part, part)
                     dst.narrow(concat, j * t.shape[concat],
                                t.shape[concat]).copy_(src)
+                return dst
+            for p, dst in zip(group, self._each(receive, group)):
                 out[p] = dst
             for q in group:
                 tiles[q] = None
@@ -510,7 +728,7 @@ class CubeMesh:
         for p, b in enumerate(blocks):
             c0, c1 = min(p * cb, nchan), min((p + 1) * cb, nchan)
             index.append((slice(c0, c1), slice(0, ny), slice(0, nx)))
-            out.append(b[:c1 - c0, :ny, :nx])
+            out.append(b[:c1 - c0, :ny, :nx])      # a view: nothing queued
         return ShardedArray(self, "spectral", shape, out, index)
 
     def _from_spatial(self, tiles, shape):
@@ -532,6 +750,7 @@ class CubeMesh:
             y0, y1 = min(iy * py, ny), min((iy + 1) * py, ny)
             x0, x1 = min(ix * px, nx), min((ix + 1) * px, nx)
             cut = tuple(slice(0, n_) for n_ in lead)
+            # a view: nothing queued on any stream
             blocks.append(t[cut + (slice(0, y1 - y0), slice(0, x1 - x0))])
             index.append(tuple(slice(0, n_) for n_ in lead)
                          + (slice(y0, y1), slice(x0, x1)))

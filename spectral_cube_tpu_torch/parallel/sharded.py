@@ -9,7 +9,10 @@ its shard -- on a CUDA shard that is the kernel (moments #1/#2,
 conv_sep #3/#4, resample2 #5/#6, smooth_interp #11/#12, sigma_clip #13),
 launched once per shard on the shard's device -- and the collectives are
 the explicit copies of :mod:`.mesh` and :func:`halo_pad`.  Reductions over
-the mesh move scalars or one value per channel, never a cube.
+the mesh move scalars or one value per channel, never a cube.  The
+positions run at once, each on its own worker and stream
+(``CubeMesh._each``); every reduction over them takes their results in
+position order, whichever finished first.
 
 Per shard the functions compute what the unsharded port computes on the
 whole cube: the halo convolutions run conv_sep (or, past rank 8, the
@@ -107,13 +110,13 @@ def _pad_chan(tiles, cmesh, pad_value):
     pc = (-nchan) % n
     if pc == 0:
         return tiles, nchan
-    out = []
-    for t in tiles:
-        p = torch.full((nchan + pc,) + tuple(t.shape[1:]), pad_value,
-                       dtype=t.dtype, device=t.device)
-        p[:nchan].copy_(t)
-        out.append(p)
-    return out, nchan
+    def pad(p):
+        t = tiles[p]
+        out = torch.full((nchan + pc,) + tuple(t.shape[1:]), pad_value,
+                         dtype=t.dtype, device=t.device)
+        out[:nchan].copy_(t)
+        return out
+    return cmesh._each(pad, range(len(tiles))), nchan
 
 
 def _tile_extent(cmesh, p, shape, tile):
@@ -132,11 +135,13 @@ def _planes(cmesh, planes, shape):
                                                                  shape))
 
 
-def _to_first(cmesh, parts):
+def _to_first(cmesh, part, positions=None):
     """Per-position tensors stacked on the mesh's first device (the
-    reduction tree's one step: a value per shard, never a cube)."""
+    reduction tree's one step: a value per shard, never a cube): each
+    position of ``positions`` (default: every one) makes ``part(p)`` and
+    moves it there, the values stacked in position order."""
     dev = cmesh.devices[0]
-    return torch.stack([t.to(dev) for t in parts])
+    return torch.stack(cmesh._each(lambda p: part(p).to(dev), positions))
 
 
 def _match(arr, like):
@@ -154,6 +159,7 @@ def _match(arr, like):
         if any(w.stop > w.start and (w.start < s.start or w.stop > s.stop)
                for w, s in zip(want, ix)):
             raise ValueError(f"shard {p} does not hold the part asked for")
+        # a view of the position's own block: nothing queued
         blocks.append(b[tuple(slice(w.start - s.start, w.stop - s.start)
                               if w.stop > w.start else slice(0, 0)
                               for w, s in zip(want, ix))])
@@ -204,9 +210,8 @@ def sharded_moments(data, coords, dx, cmesh: CubeMesh, include=None,
     unsharded cube runs them.  Returns three plane-layout
     ShardedArrays."""
     tiles, inc, shape = _pad_spatial(data, cmesh, NAN, include)
-    outs = [_local_moments(d, coords, dx, mask_expr,
-                           None if inc is None else inc[p])
-            for p, d in enumerate(tiles)]
+    outs = cmesh._each(lambda p: _local_moments(
+        tiles[p], coords, dx, mask_expr, None if inc is None else inc[p]))
     return tuple(_planes(cmesh, [o[i] for o in outs], shape[1:])
                  for i in range(3))
 
@@ -249,35 +254,44 @@ def sharded_statistics(data, cmesh: CubeMesh, include=None, mask_expr=None):
     NaN elsewhere."""
     tiles, inc, _ = _pad_spatial(data, cmesh, NAN, include)
     f32 = torch.float32
-    parts = []
-    for p, d in enumerate(tiles):
+
+    def planes(p):
         s0, cnt, mn, mx, d2 = _statistics_planes(
-            d, None if inc is None else inc[p], mask_expr)
+            tiles[p], None if inc is None else inc[p], mask_expr)
         n = cnt.to(f32)
-        parts.append(_Planes(s0.to(f32), cnt, n, s0.to(f32) / torch.clamp(
-            n, min=1), mn.to(f32), mx.to(f32), d2.to(f32)))
+        return _Planes(s0.to(f32), cnt, n, s0.to(f32) / torch.clamp(
+            n, min=1), mn.to(f32), mx.to(f32), d2.to(f32))
+    parts = cmesh._each(planes)
+    del tiles, inc
 
-    def tree(fn, reduce=torch.sum):
-        """``fn`` of each shard's planes, reduced over the mesh."""
-        return reduce(_to_first(cmesh, [fn(q) for q in parts]))
+    dev = cmesh.devices[0]
 
-    npts_i = int(tree(lambda q: q.cnt.sum()))
+    def trees(*fns):
+        """Each of ``fns`` of each shard's planes on the first device,
+        stacked over the mesh in position order (one call of the
+        positions for them all); each reduced as the tree's one step."""
+        per = cmesh._each(lambda p: [fn(parts[p]).to(dev) for fn in fns])
+        return [torch.stack(col) for col in zip(*per)]
+
+    cnt, npts, s, pilot_s, pilot_n, ss, mn, mx, d2 = trees(
+        lambda q: q.cnt.sum(), lambda q: q.n.sum(), lambda q: q.s0.sum(),
+        lambda q: torch.where(q.cnt > 0, q.m, 0.0).sum(),
+        lambda q: (q.cnt > 0).to(f32).sum(),
+        lambda q: (q.d2 + q.n * q.m ** 2).sum(),
+        lambda q: torch.where(q.cnt > 0, q.mn, math.inf).min(),
+        lambda q: torch.where(q.cnt > 0, q.mx, -math.inf).max(),
+        lambda q: q.d2.sum())
+    npts_i = int(torch.sum(cnt))
     if npts_i == 0:
         return {"npts": 0, "min": NAN, "max": NAN, "sum": NAN,
                 "sumsq": NAN, "mean": NAN, "sigma": NAN, "rms": NAN}
-    npts = tree(lambda q: q.n.sum())
-    s = tree(lambda q: q.s0.sum())
-    pilot = tree(lambda q: torch.where(q.cnt > 0, q.m, 0.0).sum()) \
-        / torch.clamp(tree(lambda q: (q.cnt > 0).to(f32).sum()), min=1)
-    ss = tree(lambda q: (q.d2 + q.n * q.m ** 2).sum())
-    mn = tree(lambda q: torch.where(q.cnt > 0, q.mn, math.inf).min(),
-              torch.min)
-    mx = tree(lambda q: torch.where(q.cnt > 0, q.mx, -math.inf).max(),
-              torch.max)
-    mean = pilot + tree(lambda q: (q.n * (q.m - pilot.to(q.m.device)))
-                        .sum()) / npts
-    s2c = tree(lambda q: q.d2.sum()) + tree(
-        lambda q: (q.n * (q.m - mean.to(q.m.device)) ** 2).sum())
+    npts, s, ss = torch.sum(npts), torch.sum(s), torch.sum(ss)
+    pilot = torch.sum(pilot_s) / torch.clamp(torch.sum(pilot_n), min=1)
+    mn, mx = torch.min(mn), torch.max(mx)
+    mean = pilot + torch.sum(trees(
+        lambda q: (q.n * (q.m - pilot.to(q.m.device))).sum())[0]) / npts
+    s2c = torch.sum(d2) + torch.sum(trees(
+        lambda q: (q.n * (q.m - mean.to(q.m.device)) ** 2).sum())[0])
     sigma = torch.sqrt(s2c / torch.clamp(npts - 1, min=1)) \
         if npts_i > 1 else torch.tensor(NAN)
     rms = torch.sqrt(ss / npts)
@@ -303,13 +317,13 @@ def _valid_tiles(data, cmesh, include, mask_expr):
     _check_orderable(src.dtype)
     tiles, inc, shape = _pad_spatial(
         src, cmesh, NAN if src.dtype.is_floating_point else 0, include)
-    out = []
-    for p, d in enumerate(tiles):
-        h, w = _tile_extent(cmesh, p, shape[1:], d.shape[1:])
-        d = d[:, :h, :w]
-        out.append((d, _include_tile(
-            None if inc is None else inc[p][:, :h, :w], mask_expr, d)))
-    return out
+
+    def valid(p):
+        h, w = _tile_extent(cmesh, p, shape[1:], tiles[p].shape[1:])
+        d = tiles[p][:, :h, :w]
+        return d, _include_tile(
+            None if inc is None else inc[p][:, :h, :w], mask_expr, d)
+    return cmesh._each(valid)
 
 
 def _tiles_percentile(cmesh, tiles, q, fn=None):
@@ -322,8 +336,8 @@ def _tiles_percentile(cmesh, tiles, q, fn=None):
     (``reductions._percentile_of``), so no shard's data leaves its
     device.  A 0-d tensor on the mesh's first device."""
     keys = []
-    for d, i in tiles:
-        k, dtype = _red._piece_keys(d, _red.valid_mask(d, i), fn)
+    for k, dtype in cmesh._each(lambda p: _red._piece_keys(
+            tiles[p][0], _red.valid_mask(*tiles[p]), fn), one_a_device=True):
         keys += k
     n = sum(k.numel() for k in keys)
     if n == 0:
@@ -361,27 +375,35 @@ def sharded_mad_std(data, cmesh: CubeMesh, include=None, mask_expr=None):
 def _lane_select(cmesh, keys, counts, k):
     """Per lane, the ``k``-th smallest (0-based; ``k`` a (L,) int64 tensor
     on the first device) of the parts' keys: ``keys[p]`` (L, m_p) sorted
-    along each lane, its first ``counts[p]`` (L,) entries the lane's
-    values.  A bisection of every lane at once over its key range, each
-    step one batched count of each part summed over the mesh."""
+    along each lane on position p (the positions that hold values, the
+    dict's keys), its first ``counts[p]`` (L,) entries the lane's values.
+    A bisection of every lane at once over its key range, each step one
+    batched count on each position, summed over the mesh in position
+    order."""
     dev = cmesh.devices[0]
+    live = sorted(keys)
     big = torch.iinfo(torch.int64).max
     lo = torch.full_like(k, big)
     hi = torch.full_like(k, -big)
-    for kk, c in zip(keys, counts):
-        has = (c > 0).to(dev)
-        first = kk[:, 0].to(dev, torch.int64)
-        last = kk.gather(1, (c - 1).clamp(min=0)[:, None])[:, 0].to(
-            dev, torch.int64)
+
+    def ends(p):
+        kk, c = keys[p], counts[p]
+        last = kk.gather(1, (c - 1).clamp(min=0)[:, None])[:, 0]
+        return ((c > 0).to(dev), kk[:, 0].to(dev, torch.int64),
+                last.to(dev, torch.int64))
+    for has, first, last in cmesh._each(ends, live):
         lo = torch.where(has, torch.minimum(lo, first), lo)
         hi = torch.where(has, torch.maximum(hi, last), hi)
     hi = torch.maximum(hi, lo)       # an empty lane: nothing to bisect
+
+    def count(p, mid):
+        kk = keys[p]
+        return torch.searchsorted(kk, mid.to(kk.device, kk.dtype)[:, None],
+                                  right=True)[:, 0].to(dev)
     while bool((lo < hi).any()):
         # floor((lo + hi) / 2), with no overflow over the int64 keys
         mid = (lo >> 1) + (hi >> 1) + (lo & hi & 1)
-        n = sum(torch.searchsorted(
-            kk, mid.to(kk.device, kk.dtype)[:, None], right=True)[:, 0]
-            .to(dev) for kk in keys)
+        n = sum(cmesh._each(lambda p: count(p, mid), live))
         up = n >= k + 1
         hi = torch.where(up, mid, hi)
         lo = torch.where(up, lo, mid + 1)
@@ -398,12 +420,19 @@ def _lane_percentile(cmesh, parts, q):
     dev = cmesh.devices[0]
     dtype = parts[0].dtype
     lanes = parts[0].shape[0]
-    parts = [x for x in parts if x.shape[1]]
-    if not parts:
+    live = [p for p, x in enumerate(parts) if x.shape[1]]
+    if not live:
         return torch.full((lanes,), NAN, dtype=dtype, device=dev)
-    keys = [_red._keys_of(torch.sort(x, dim=1).values) for x in parts]
-    counts = [(~torch.isnan(x)).sum(1) for x in parts]
-    n = sum(c.to(dev) for c in counts)
+
+    def sort(p):
+        x = parts[p]
+        c = (~torch.isnan(x)).sum(1)
+        return _red._keys_of(torch.sort(x, dim=1).values), c, c.to(dev)
+    made = dict(zip(live, cmesh._each(sort, live, one_a_device=True)))
+    keys = {p: kc[0] for p, kc in made.items()}
+    counts = {p: kc[1] for p, kc in made.items()}
+    n = sum(made[p][2] for p in live)
+    del made
     pos = float(q) / 100.0 * (n - 1).to(torch.float64)
     lo = torch.clamp(torch.floor(pos), min=0)
     frac = (pos - lo).to(dtype)
@@ -421,7 +450,8 @@ def _lane_order(cmesh, name, parts, q=None):
     if name != "mad_std":
         return _lane_percentile(cmesh, parts, 50.0 if q is None else q)
     med = _lane_percentile(cmesh, parts, 50.0)
-    dev = [torch.abs(x - med.to(x.device)[:, None]) for x in parts]
+    dev = cmesh._each(lambda p: torch.abs(
+        parts[p] - med.to(parts[p].device)[:, None]), range(len(parts)))
     return _red.MAD_STD_FACTOR * _lane_percentile(cmesh, dev, 50.0)
 
 
@@ -435,23 +465,28 @@ def _lane_moments(cmesh, name, parts, ddof=0):
     dtype = parts[0][0].dtype
     out_dtype = dtype if dtype.is_floating_point else torch.float32
     lanes = parts[0][0].shape[0]
-    parts = [(x, v) for x, v in parts if x.shape[1]]
-    if not parts:
+    live = [p for p, (x, _) in enumerate(parts) if x.shape[1]]
+    if not live:
         return torch.full((lanes,), NAN, dtype=out_dtype,
                           device=cmesh.devices[0])
     f64 = torch.float64
-    cnt = _to_first(cmesh, [v.sum(1) for _, v in parts]).sum(0)
+    cnt = _to_first(cmesh, lambda p: parts[p][1].sum(1), live).sum(0)
     if name in ("max", "min"):
         fill, red = (-math.inf, torch.amax) if name == "max" \
             else (math.inf, torch.amin)
-        m = red(_to_first(cmesh, [red(torch.where(v, x, fill), 1)
-                                  for x, v in parts]), 0)
+        m = red(_to_first(cmesh, lambda p: red(torch.where(
+            parts[p][1], parts[p][0], fill), 1), live), 0)
         return torch.where(cnt > 0, m, NAN)
-    s = _to_first(cmesh, [torch.where(v, x, 0).sum(1, dtype=f64)
-                          for x, v in parts]).sum(0)
-    return _from_sums(name, cnt, s, lambda mean: _to_first(cmesh, [
-        torch.where(v, (x.to(f64) - mean.to(x.device)[:, None]) ** 2,
-                    0).sum(1) for x, v in parts]).sum(0), ddof, out_dtype)
+    s = _to_first(cmesh, lambda p: torch.where(
+        parts[p][1], parts[p][0], 0).sum(1, dtype=f64), live).sum(0)
+
+    def centred(mean):
+        def part(p):
+            x, v = parts[p]
+            return torch.where(v, (x.to(f64) - mean.to(x.device)[:, None])
+                               ** 2, 0).sum(1)
+        return _to_first(cmesh, part, live).sum(0)
+    return _from_sums(name, cnt, s, centred, ddof, out_dtype)
 
 
 def _from_sums(name, cnt, s, centred, ddof, out_dtype):
@@ -469,7 +504,7 @@ def _from_sums(name, cnt, s, centred, ddof, out_dtype):
     return torch.where(n > ddof, torch.sqrt(var), NAN).to(out_dtype)
 
 
-def _by_lane_tiles(reduce, lanes, parts):
+def _by_lane_tiles(cmesh, reduce, lanes, parts):
     """``reduce`` of the lanes of the parts a tile of whole lanes at a
     time, never of every lane at once: ``parts[p]`` is (m_p, get), m_p
     the values a lane holds on position p and ``get(sl)`` that position's
@@ -485,7 +520,8 @@ def _by_lane_tiles(reduce, lanes, parts):
     width = sum(m for m, _ in parts)
     for idx in _red.lane_tiles((lanes, width), (1,)):
         sl = slice(*idx[0].indices(lanes))
-        r = reduce([get(sl) for _, get in parts])
+        r = reduce(cmesh._each(lambda p: parts[p][1](sl),
+                               range(len(parts))))
         if out is None:
             out = torch.empty((lanes,), dtype=r.dtype, device=r.device)
         out[sl] = r
@@ -528,20 +564,24 @@ def _whole_moments(cmesh, name, parts, ddof=0):
     dtype = parts[0][0].dtype
     out_dtype = dtype if dtype.is_floating_point else torch.float32
     f64 = torch.float64
+    dev = cmesh.devices[0]
+    every = range(len(parts))
     if name in ("max", "min"):
         fill, pick = (-math.inf, torch.max) if name == "max" \
             else (math.inf, torch.min)
-        ext = [_red._whole_extremum(x, v, fill, pick) for x, v in parts]
-        m = pick(_to_first(cmesh, [e for e, _ in ext]))
-        cnt = _to_first(cmesh, [c for _, c in ext]).sum()
+        ext = cmesh._each(lambda p: [t.to(dev) for t in _red._whole_extremum(
+            *parts[p], fill, pick)], every)
+        m = pick(torch.stack([e for e, _ in ext]))
+        cnt = torch.stack([c for _, c in ext]).sum()
         return torch.where(cnt > 0, m, NAN)
-    tot = [_red._whole_total(x, v) for x, v in parts]
-    s = _to_first(cmesh, [t.to(f64) for t, _ in tot]).sum()
-    cnt = _to_first(cmesh, [c for _, c in tot]).sum()
-    return _from_sums(name, cnt, s, lambda mean: _to_first(cmesh, [
-        _red._whole_total(x, v, lambda d: (d.to(f64) - mean.to(d.device))
-                          ** 2)[0] for x, v in parts]).sum(), ddof,
-        out_dtype)
+    tot = cmesh._each(lambda p: [t.to(dev) for t in _red._whole_total(
+        *parts[p])], every)
+    s = torch.stack([t.to(f64) for t, _ in tot]).sum()
+    cnt = torch.stack([c for _, c in tot]).sum()
+    return _from_sums(name, cnt, s, lambda mean: _to_first(
+        cmesh, lambda p: _red._whole_total(
+            *parts[p], lambda d: (d.to(f64) - mean.to(d.device)) ** 2)[0],
+        every).sum(), ddof, out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -565,14 +605,16 @@ def halo_pad(tiles, cmesh: CubeMesh, halo_y, halo_x):
                          "neighbouring shard")
     lead = tuple(tiles[0].shape[:-2])
     cols = slice(halo_x, halo_x + px)
-    out = []
-    for t in tiles:
+    every = range(len(tiles))
+
+    def pad_y(p):
+        """The tile and the rows of its neighbours in y (the tiles, made
+        before this call)."""
+        t = tiles[p]
         o = torch.empty(lead + (py + 2 * halo_y, px + 2 * halo_x),
                         dtype=t.dtype, device=t.device)
         o[..., halo_y:halo_y + py, cols].copy_(t)
-        out.append(o)
-    if halo_y:
-        for p, o in enumerate(out):
+        if halo_y:
             iy = p // mx
             top, bottom = o[..., :halo_y, cols], o[..., halo_y + py:, cols]
             if iy > 0:
@@ -583,20 +625,28 @@ def halo_pad(tiles, cmesh: CubeMesh, halo_y, halo_x):
                 bottom.copy_(tiles[p + mx][..., :halo_y, :])
             else:
                 bottom.zero_()
-        cmesh.counters["halo_exchanges"] += 1
+        return o
+    out = cmesh._each(pad_y, every)
+    if halo_y:
+        cmesh._count("halo_exchanges")
+
+    def pad_x(p):
+        """The columns of the neighbours in x, from their y-padded blocks
+        (made by the call before; their interior columns, which no
+        position writes here)."""
+        o, ix = out[p], p % mx
+        left, right = o[..., :, :halo_x], o[..., :, halo_x + px:]
+        if ix > 0:
+            left.copy_(out[p - 1][..., :, px:px + halo_x])
+        else:
+            left.zero_()
+        if ix < mx - 1:
+            right.copy_(out[p + 1][..., :, halo_x:2 * halo_x])
+        else:
+            right.zero_()
     if halo_x:
-        for p, o in enumerate(out):
-            ix = p % mx
-            left, right = o[..., :, :halo_x], o[..., :, halo_x + px:]
-            if ix > 0:
-                left.copy_(out[p - 1][..., :, px:px + halo_x])
-            else:
-                left.zero_()
-            if ix < mx - 1:
-                right.copy_(out[p + 1][..., :, halo_x:2 * halo_x])
-            else:
-                right.zero_()
-        cmesh.counters["halo_exchanges"] += 1
+        cmesh._each(pad_x, every)
+        cmesh._count("halo_exchanges")
     return out
 
 
@@ -606,20 +656,21 @@ def _nan_empty_channels(cmesh, outs, tiles, shape):
     each tile's flags from its part inside the cube, OR-ed over the
     mesh."""
     tile = tiles[0].shape[-2:]
-    flags = []
-    for p, t in enumerate(tiles):
+
+    def flags(p):
         h, w = _tile_extent(cmesh, p, shape[1:], tile)
-        flags.append(_red.finite(t[:, :h, :w]).flatten(1).any(1))
+        return _red.finite(tiles[p][:, :h, :w]).flatten(1).any(1)
     any_valid = _to_first(cmesh, flags).any(0)
     if bool(any_valid.all()):
         return outs
-    return [o.masked_fill_(~any_valid.to(o.device)[:, None, None], NAN)
-            for o in outs]
+    return cmesh._each(lambda p: outs[p].masked_fill_(
+        ~any_valid.to(outs[p].device)[:, None, None], NAN))
 
 
-def _crop_halo(blocks, hy, hx, tile):
+def _crop_halo(cmesh, blocks, hy, hx, tile):
     py, px = tile
-    return [b[:, hy:hy + py, hx:hx + px].contiguous() for b in blocks]
+    return cmesh._each(lambda p: blocks[p][:, hy:hy + py,
+                                           hx:hx + px].contiguous())
 
 
 def sharded_convolve_per_channel_separable(data, kernels, group_idx,
@@ -658,10 +709,12 @@ def sharded_convolve_per_channel_separable(data, kernels, group_idx,
         return None
     tiles, _, shape = _pad_spatial(data, cmesh, 0.0)
     gi = np.asarray(group_idx, dtype=np.int32)
-    outs = [_convolve_groups(b, ytaps_g, xtaps_g, gi)
-            for b in halo_pad(tiles, cmesh, hy, hx)]
-    outs = _nan_empty_channels(cmesh, _crop_halo(outs, hy, hx, (py, px)),
-                               tiles, shape)
+    padded = halo_pad(tiles, cmesh, hy, hx)
+    outs = cmesh._each(lambda p: _convolve_groups(padded[p], ytaps_g,
+                                                  xtaps_g, gi))
+    del padded
+    outs = _nan_empty_channels(
+        cmesh, _crop_halo(cmesh, outs, hy, hx, (py, px)), tiles, shape)
     return cmesh._from_spatial(outs, shape)
 
 
@@ -696,10 +749,11 @@ def sharded_spatial_convolve(data, kernel, cmesh: CubeMesh):
             data, np.zeros(nchan0, np.int32), cmesh, fy, fx,
             lambda groups, dev, dt: _transfers([k], fy, fx, dev, dt))
     tiles, _, shape = _pad_spatial(data, cmesh, 0.0)
-    outs = [spatial_smooth_cube(b, karr)
-            for b in halo_pad(tiles, cmesh, hy, hx)]
-    outs = _nan_empty_channels(cmesh, _crop_halo(outs, hy, hx, (py, px)),
-                               tiles, shape)
+    padded = halo_pad(tiles, cmesh, hy, hx)
+    outs = cmesh._each(lambda p: spatial_smooth_cube(padded[p], karr))
+    del padded
+    outs = _nan_empty_channels(
+        cmesh, _crop_halo(cmesh, outs, hy, hx, (py, px)), tiles, shape)
     return cmesh._from_spatial(outs, shape)
 
 
@@ -725,22 +779,23 @@ def _fft_convolve(data, group_idx, cmesh, fy, fx, transfers_for):
     cb = blocks[0].shape[0]
     gidx = np.zeros(cb * n, np.int64)
     gidx[:nchan] = np.asarray(group_idx)
-    outs = []
-    for p in range(n):
+
+    def convolve(p):
         # each block leaves the list once convolved
         b, blocks[p] = blocks[p], None
         o = _convolve_batches(
             b, gidx[p * cb:(p + 1) * cb], fy, fx,
-            lambda used, b=b: transfers_for(used, b.device,
-                                            _complex_of(b.dtype)))
+            lambda used: transfers_for(used, b.device,
+                                       _complex_of(b.dtype)))
         # the mesh padding holds valid zeros: a channel with no finite
         # value inside the cube is NaN, as the unsharded route gives it
         inside = _red.finite(b[:, :ny, :nx]).flatten(1).any(1)
         del b
         if not bool(inside.all()):
             o.masked_fill_(~inside[:, None, None], NAN)
-        outs.append(o)
-    return cmesh._from_spatial(cmesh._spatial_tiles(outs), shape)
+        return o
+    return cmesh._from_spatial(cmesh._spatial_tiles(cmesh._each(convolve)),
+                               shape)
 
 
 def sharded_spectral_convolve_fft(data, transfers, group_idx,
@@ -769,9 +824,9 @@ def sharded_sigma_clip(data, cmesh: CubeMesh, sigma=3.0, maxiters=5,
     the sigma_clip kernel (#13) for float32 with stdfunc='std'."""
     from ..ops.smoothing import sigma_clip_spectrally
     tiles, _, shape = _pad_spatial(data, cmesh, NAN)
-    outs = [sigma_clip_spectrally(t, sigma=sigma, maxiters=maxiters,
-                                  cenfunc=cenfunc, stdfunc=stdfunc)
-            for t in tiles]
+    outs = cmesh._each(lambda p: sigma_clip_spectrally(
+        tiles[p], sigma=sigma, maxiters=maxiters, cenfunc=cenfunc,
+        stdfunc=stdfunc))
     return cmesh._from_spatial(outs, shape)
 
 
@@ -783,9 +838,8 @@ def sharded_spectral_interpolate(data, inaxis, outaxis, cmesh: CubeMesh,
     spectral_cube.py:3298-3315).  Returns ``(out, new_include_or_None)``."""
     from ..ops.interpolate import interp_cube_spectral
     tiles, inc, shape = _pad_spatial(data, cmesh, NAN, include)
-    res = [interp_cube_spectral(t, inaxis, outaxis,
-                                include=None if inc is None else inc[p])
-           for p, t in enumerate(tiles)]
+    res = cmesh._each(lambda p: interp_cube_spectral(
+        tiles[p], inaxis, outaxis, include=None if inc is None else inc[p]))
     out_shape = (res[0][0].shape[0],) + tuple(shape[1:])
     out = cmesh._from_spatial([r[0] for r in res], out_shape)
     if include is None:
@@ -804,9 +858,9 @@ def sharded_smooth_interpolate(data, kernel, inaxis, outaxis,
     from ..ops.interpolate import smooth_interp_cube
     kernel = np.asarray(kernel, dtype=float)
     tiles, inc, shape = _pad_spatial(data, cmesh, 0.0, include)
-    res = [smooth_interp_cube(t, kernel, inaxis, outaxis,
-                              include=None if inc is None else inc[p])
-           for p, t in enumerate(tiles)]
+    res = cmesh._each(lambda p: smooth_interp_cube(
+        tiles[p], kernel, inaxis, outaxis,
+        include=None if inc is None else inc[p]))
     out_shape = (res[0][0].shape[0],) + tuple(shape[1:])
     out = cmesh._from_spatial([r[0] for r in res], out_shape)
     if include is None:
@@ -871,23 +925,29 @@ def _reproject_halo(src, maps, taps, halo, cmesh, nz):
     vp = yvalid & xvalid
     my, mx = cmesh.grid
     tiles, _, _ = _pad_spatial(src, cmesh, 0.0)
-    blocks, index = [], []
-    for p, b in enumerate(halo_pad(tiles, cmesh, hy, hx)):
+    padded = halo_pad(tiles, cmesh, hy, hx)
+    del tiles
+
+    def resample(p):
+        b = padded[p]
         iy, ix = divmod(p, mx)
         ry0, ry1, yi, yw = ytiles[iy]
         rx0, rx1, xi, xw = xtiles[ix]
         plane = vp[ry0:ry1, rx0:rx1]
         if plane.size == 0:
-            out = torch.empty((nz, ry1 - ry0, rx1 - rx0), dtype=b.dtype,
-                              device=b.device)
-        elif z_identity:
-            out = resample2(b, yi, yw, xi, xw, plane, zvalid)
-        else:
-            fz, wz, wz_any = _zlerp_filled(b, z0, zf)
-            out = resample2_filled(fz, wz, wz_any, yi, yw, xi, xw, plane,
-                                   zvalid)
-        blocks.append(out)
-        index.append((slice(0, nz), slice(ry0, ry1), slice(rx0, rx1)))
+            return torch.empty((nz, ry1 - ry0, rx1 - rx0), dtype=b.dtype,
+                               device=b.device)
+        if z_identity:
+            return resample2(b, yi, yw, xi, xw, plane, zvalid)
+        fz, wz, wz_any = _zlerp_filled(b, z0, zf)
+        return resample2_filled(fz, wz, wz_any, yi, yw, xi, xw, plane,
+                                zvalid)
+    blocks = cmesh._each(resample)
+    index = []
+    for p in range(cmesh.n_devices):
+        iy, ix = divmod(p, mx)
+        index.append((slice(0, nz), slice(*ytiles[iy][:2]),
+                      slice(*xtiles[ix][:2])))
     return ShardedArray(cmesh, "spatial", (nz,) + vp.shape, blocks, index)
 
 
@@ -912,32 +972,33 @@ def _reproject_reshard(src, maps, order, cmesh, nz):
         parts, _ = _pad_chan(parts, cmesh, 0.0)
         return cmesh._spectral_tiles(parts)
     if lerped:
-        lerps = [_zlerp_filled(t, z0, zf) for t in tiles]
+        lerps = cmesh._each(lambda p: _zlerp_filled(tiles[p], z0, zf))
         del tiles
         # the output channels whose NaN weight is not zero on some tile
-        wz_any = np.logical_or.reduce([a.cpu().numpy()
-                                       for _, _, a in lerps])
+        wz_any = np.logical_or.reduce(cmesh._each(
+            lambda p: lerps[p][2].cpu().numpy()))
         fz = spectral([f for f, _, _ in lerps])
         wz = spectral([w for _, w, _ in lerps])
         del lerps
     else:
         if not z_identity:
             lo = np.asarray(z0, np.int64)
-            tiles = [t.index_select(0, torch.as_tensor(lo, device=t.device))
-                     for t in tiles]
+            tiles = cmesh._each(lambda p: tiles[p].index_select(
+                0, torch.as_tensor(lo, device=tiles[p].device)))
         fz = spectral(tiles)
         wz = None
         del tiles
     valid = (yvalid & xvalid)[None]
     cb = fz[0].shape[0]
-    taps = {}
-    outs = []
-    for p in range(len(fz)):
+    # one tap plan a device, made before the positions start: the
+    # positions of a card read the same plan on their streams
+    taps = {str(d): _corner_taps(maps, order, nx_in, d)
+            for d in dict.fromkeys(b.device for b in fz)}
+
+    def gather(p):
         # each block leaves the lists once gathered
         f, fz[p] = fz[p][:, :ny_in, :nx_in], None
         dev = f.device
-        if str(dev) not in taps:
-            taps[str(dev)] = _corner_taps(maps, order, nx_in, dev)
         if wz is None:
             nan_chan = _nan_channels(f)
 
@@ -964,8 +1025,9 @@ def _reproject_reshard(src, maps, order, cmesh, nz):
         zv[:c1 - c0] = np.asarray(zvalid)[c0:c1]
         ok = torch.as_tensor(valid, device=dev) \
             & torch.as_tensor(zv, device=dev)[:, None, None]
-        outs.append(out.masked_fill_(~ok, NAN))
-    del fz, wz
+        return out.masked_fill_(~ok, NAN)
+    outs = cmesh._each(gather, range(len(fz)))
+    del fz, wz, taps
     out = cmesh._from_spectral(outs, (nz, ny_out, nx_out))
     del outs
     return cmesh.reshard(out, "spatial")
@@ -1057,40 +1119,44 @@ def sharded_spline_reproject(data, zs, ys, xs, cmesh: CubeMesh, order=3):
     if m.z_identity:
         fz, wz = cmesh._spectral_tiles(_pad_chan(tiles, cmesh, 0.0)[0]), None
     else:
-        fz, wz = [], []
-        for p in range(len(tiles)):
-            # a tile's products made, padded and its tile let go in turn
+        def spectral(p):
+            # the tile's products made and padded, its tile let go
             f, w = _rg._spline_spectral(tiles[p], m, order)
             tiles[p] = None
-            fz.append(_pad_chan([f], cmesh, 0.0)[0][0])
-            wz.append(_pad_chan([w], cmesh, 0.0)[0][0])
-            del f, w
+            f = _pad_chan([f], cmesh, 0.0)[0][0]
+            return f, _pad_chan([w], cmesh, 0.0)[0][0]
+        fw = cmesh._each(spectral)
+        fz, wz = [f for f, _ in fw], [w for _, w in fw]
+        del fw
         fz, wz = cmesh._spectral_tiles(fz), cmesh._spectral_tiles(wz)
     del tiles
-    plans = {}
     cb = fz[0].shape[0]
-    outs = []
-    for p in range(len(fz)):
-        c0, c1 = min(p * cb, nz), min((p + 1) * cb, nz)
+
+    def bounds(p):
+        return min(p * cb, nz), min((p + 1) * cb, nz)
+    # one tap plan a device, made before the positions start: the
+    # positions of a card read the same plan on their streams
+    plans = {} if m.separable else {
+        str(d): _rg.spline_taps(m.ycl, m.xcl, order, ny_in, nx_in, d)
+        for d in dict.fromkeys(fz[p].device for p in range(len(fz))
+                               if bounds(p)[1] > bounds(p)[0])}
+
+    def spatial(p):
+        c0, c1 = bounds(p)
         # each block leaves the lists once resampled
         f, fz[p] = fz[p][:c1 - c0, :ny_in, :nx_in], None
         w = None
         if wz is not None:
             w, wz[p] = wz[p][:c1 - c0, :ny_in, :nx_in], None
-        dev = f.device
         if c1 == c0:
-            outs.append(torch.empty((0, ny, nx), dtype=src.dtype,
-                                    device=dev))
-            continue
-        if not m.separable and str(dev) not in plans:
-            plans[str(dev)] = _rg.spline_taps(m.ycl, m.xcl, order, ny_in,
-                                              nx_in, dev)
-        out = _rg._spline_spatial(f, w, m, order, plans.get(str(dev)),
+            return torch.empty((0, ny, nx), dtype=src.dtype,
+                               device=f.device)
+        out = _rg._spline_spatial(f, w, m, order, plans.get(str(f.device)),
                                   m.zvalid[c0:c1])
         del f, w
-        outs.append(out.to(src.dtype))
-        del out
-    del fz, wz
+        return out.to(src.dtype)
+    outs = cmesh._each(spatial, range(len(fz)))
+    del fz, wz, plans
     return cmesh.reshard(cmesh._from_spectral(outs, (nz, ny, nx)), "spatial")
 
 
@@ -1183,14 +1249,19 @@ def _crop(arr, view):
     sources = {}
     for b, ix in zip(arr.blocks, arr.index):
         sources.setdefault(tuple((s.start, s.stop) for s in ix), (b, ix))
-    blocks, index = [], []
-    for p, dev in enumerate(cmesh.devices):
+    index = []
+    for p in range(cmesh.n_devices):
         iy, ix = divmod(p, mx)
-        want = (slice(0, shape[0]),
-                slice(min(iy * py, shape[1]), min((iy + 1) * py, shape[1])),
-                slice(min(ix * px, shape[2]), min((ix + 1) * px, shape[2])))
+        index.append((slice(0, shape[0]),
+                      slice(min(iy * py, shape[1]),
+                            min((iy + 1) * py, shape[1])),
+                      slice(min(ix * px, shape[2]),
+                            min((ix + 1) * px, shape[2]))))
+
+    def assemble(p):
+        want = index[p]
         out = torch.empty(tuple(w.stop - w.start for w in want),
-                          dtype=arr.dtype, device=dev)
+                          dtype=arr.dtype, device=cmesh.devices[p])
         for b, src in sources.values():
             # the overlap in the cube's coordinates
             lo = [max(v.start + w.start, s.start)
@@ -1202,9 +1273,9 @@ def _crop(arr, view):
                           for l_, h, v, w in zip(lo, hi, view, want))].copy_(
                     b[tuple(slice(l_ - s.start, h - s.start)
                             for l_, h, s in zip(lo, hi, src))])
-        blocks.append(out)
-        index.append(want)
-    return ShardedArray(cmesh, "spatial", shape, blocks, index)
+        return out
+    return ShardedArray(cmesh, "spatial", shape, cmesh._each(assemble),
+                        index)
 
 
 #: the voxels of one piece when a block's part is taken a few channels at a
@@ -1510,10 +1581,10 @@ class ShardedCube:
         nothing is masked."""
         if self._mask is None and self._include is None:
             return None
-        blocks = [self._part_include(p, tuple(slice(0, s.stop - s.start)
-                                              for s in ix), ix, d)
-                  for p, (d, ix) in enumerate(zip(self._data.blocks,
-                                                  self._data.index))]
+        d = self._data
+        blocks = self.cmesh._each(lambda p: self._part_include(
+            p, tuple(slice(0, s.stop - s.start) for s in d.index[p]),
+            d.index[p], d.blocks[p]))
         return ShardedArray(self.cmesh, self._data.layout, self.shape,
                             blocks, self._data.index)
 
@@ -1644,12 +1715,19 @@ class ShardedCube:
         ``filled`` sets the excluded values to NaN.  No communication."""
         include, expr = self._mask_args()
         tiles, inc, _ = _pad_spatial(self._data, self.cmesh, NAN, include)
-        incs = [_include_tile(None if inc is None else inc[p], expr, d)
-                for p, d in enumerate(tiles)]
-        if filled:
-            tiles = [d if i is None else torch.where(i, d, NAN)
-                     for d, i in zip(tiles, incs)]
-        return tiles, incs
+        return self._with_includes(tiles, inc, expr, filled)
+
+    def _with_includes(self, parts, inc, expr, filled):
+        """``(parts, incs)``: each part's include (its stored part ``inc[p]``
+        and the expression ``expr`` evaluated on it), each part with its
+        excluded values NaN where ``filled``."""
+        def include(p):
+            d = parts[p]
+            i = _include_tile(None if inc is None else inc[p], expr, d)
+            return (d if i is None or not filled
+                    else torch.where(i, d, NAN)), i
+        both = self.cmesh._each(include, range(len(parts)))
+        return [d for d, _ in both], [i for _, i in both]
 
     def _slabs(self, filled=False):
         """Each position's slab of whole planes, cut to the cube (the
@@ -1659,12 +1737,7 @@ class ShardedCube:
         include, expr = self._mask_args()
         slabs = self._slab_parts(self._data, NAN)
         inc = None if include is None else self._slab_parts(include, False)
-        incs = [_include_tile(None if inc is None else inc[p], expr, d)
-                for p, d in enumerate(slabs)]
-        if filled:
-            slabs = [d if i is None else torch.where(i, d, NAN)
-                     for d, i in zip(slabs, incs)]
-        return slabs, incs
+        return self._with_includes(slabs, inc, expr, filled)
 
     def _slab_parts(self, arr, pad_value):
         """Each position's slab of whole planes of the ShardedArray
@@ -1672,6 +1745,7 @@ class ShardedCube:
         nchan, ny, nx = self.shape
         blocks = _spectral_blocks(self.cmesh, arr, pad_value)
         cb = blocks[0].shape[0]
+        # views of the positions' blocks: nothing queued
         return [b[:max(0, min((p + 1) * cb, nchan) - p * cb), :ny, :nx]
                 for p, b in enumerate(blocks)]
 
@@ -1686,11 +1760,15 @@ class ShardedCube:
         assembly, not a counted gather)."""
         return np.asarray(_planes(self.cmesh, outs, self.shape[1:]))
 
-    def _concat(self, outs):
-        """Each slab's result stacked along its channels, on the mesh's
-        first device."""
+    def _concat(self, fn, slabs, one_a_device=False):
+        """``fn(p)``, the result of the slab ``slabs[p]``, of each slab
+        that holds channels, stacked along its channels on the mesh's
+        first device in position order (``one_a_device``: as
+        ``CubeMesh._each`` takes it)."""
         dev = self.cmesh.devices[0]
-        return torch.cat([o.to(dev) for o in outs])
+        return torch.cat(self.cmesh._each(
+            lambda p: fn(p).to(dev),
+            [p for p, d in enumerate(slabs) if d.shape[0]], one_a_device))
 
     def _channels_included(self):
         """Per channel, whether it holds an included voxel (host bool), or
@@ -1699,9 +1777,12 @@ class ShardedCube:
         if inc is None:
             return None
         out = np.zeros(self.shape[0], bool)
-        for b, ix in zip(inc.blocks, inc.index):
-            if b.numel():
-                out[ix[0]] |= b.flatten(1).any(1).cpu().numpy()
+        flags = self.cmesh._each(
+            lambda p: inc.blocks[p].flatten(1).any(1).cpu().numpy()
+            if inc.blocks[p].numel() else None)
+        for f, ix in zip(flags, inc.index):
+            if f is not None:
+                out[ix[0]] |= f
         return out
 
     def _result_beam(self):
@@ -1775,11 +1856,13 @@ class ShardedCube:
         order = name in ("median", "percentile", "mad_std")
         if order:
             _check_orderable(self._data.dtype)
+        # an order statistic's sorts run one position a device at a time
+        # (CubeMesh._each's one_a_device), the others' at once
         if axes == {0}:
             tiles, incs = self._tiles()
-            out = self._planes_of([fn(d, _red.valid_mask(d, i), axis=axis,
-                                      **kwargs)
-                                   for d, i in zip(tiles, incs)])
+            out = self._planes_of(self.cmesh._each(lambda p: fn(
+                tiles[p], _red.valid_mask(tiles[p], incs[p]), axis=axis,
+                **kwargs), one_a_device=order))
         elif axis is None and order:
             include, expr = self._mask_args()
             if name == "mad_std":
@@ -1789,21 +1872,21 @@ class ShardedCube:
                                          else q, self.cmesh, include, expr)
         elif axis is None:
             tiles, incs = self._tiles()
-            out = _whole_moments(self.cmesh, name, [
-                (d, _red.valid_mask(d, i)) for d, i in zip(tiles, incs)],
+            out = _whole_moments(self.cmesh, name, self.cmesh._each(
+                lambda p: (tiles[p], _red.valid_mask(tiles[p], incs[p]))),
                 **kwargs)
         elif axes == {1, 2} and not order:
             tiles, incs = self._tiles()
             out = _by_lane_tiles(
-                lambda parts: _lane_moments(self.cmesh, name, parts,
-                                            **kwargs), self.shape[0],
+                self.cmesh, lambda parts: _lane_moments(
+                    self.cmesh, name, parts, **kwargs), self.shape[0],
                 [(d[0].numel(), functools.partial(_tile_lanes, d, i))
                  for d, i in zip(tiles, incs)])
         elif 0 not in axes:
             slabs, incs = self._slabs()
-            out = self._concat([fn(d, _red.valid_mask(d, i), axis=axis,
-                                   **kwargs) for d, i in zip(slabs, incs)
-                                if d.shape[0]])
+            out = self._concat(lambda p: fn(
+                slabs[p], _red.valid_mask(slabs[p], incs[p]), axis=axis,
+                **kwargs), slabs, order)
         else:
             # (0, 1) or (0, 2): the kept spatial axis is each slab's lanes
             keep = ({1, 2} - axes).pop()
@@ -1812,10 +1895,12 @@ class ShardedCube:
                 _slab_lanes, d, i, keep, order)) for d, i in zip(slabs, incs)]
             if order:
                 out = _by_lane_tiles(
+                    self.cmesh,
                     lambda p: _lane_order(self.cmesh, name, p, q=q),
                     self.shape[keep], parts)
             else:
                 out = _by_lane_tiles(
+                    self.cmesh,
                     lambda p: _lane_moments(self.cmesh, name, p, **kwargs),
                     self.shape[keep], parts)
         return self._wrap(out, axis, unit)
@@ -1857,22 +1942,25 @@ class ShardedCube:
             axis = int(axis) % 3
             if axis == 0:
                 tiles, incs = self._tiles()
-                return self._planes_of([fn(d, _red.valid_mask(d, i), axis=0)
-                                        for d, i in zip(tiles, incs)])
+                return self._planes_of(self.cmesh._each(lambda p: fn(
+                    tiles[p], _red.valid_mask(tiles[p], incs[p]), axis=0)))
             slabs, incs = self._slabs()
-            return self._concat([fn(d, _red.valid_mask(d, i), axis=axis)
-                                 for d, i in zip(slabs, incs)
-                                 if d.shape[0]]).cpu().numpy()
+            return self._concat(lambda p: fn(
+                slabs[p], _red.valid_mask(slabs[p], incs[p]), axis=axis),
+                slabs).cpu().numpy()
         tiles, incs = self._tiles()
         fill = -math.inf if name == "argmax" else math.inf
         better = (lambda a, b: a > b) if name == "argmax" \
             else (lambda a, b: a < b)
         py, px = tiles[0].shape[1:]
-        best = None
-        for p, (d, i) in enumerate(zip(tiles, incs)):
+
+        def extremum(p):
+            """The tile's first extremum and its flat index in the cube,
+            or None for a tile outside the cube."""
+            d, i = tiles[p], incs[p]
             h, w = _tile_extent(self.cmesh, p, self.shape[1:], (py, px))
             if h == 0 or w == 0 or d.shape[0] == 0:
-                continue
+                return None
             vals = torch.where(_red.valid_mask(d, i)[:, :h, :w],
                                d[:, :h, :w], fill).reshape(-1)
             j = int(torch.argmax(vals) if name == "argmax"
@@ -1881,7 +1969,12 @@ class ShardedCube:
             iy, ix = divmod(p, self.cmesh.grid[1])
             flat = int(np.ravel_multi_index((c, iy * py + y, ix * px + x),
                                             self.shape))
-            v = float(vals[j])
+            return float(vals[j]), flat
+        best = None
+        for found in self.cmesh._each(extremum):
+            if found is None:
+                continue
+            v, flat = found
             if best is None or better(v, best[0]) or (
                     v == best[0] and flat < best[1]):
                 best = (v, flat)
@@ -1949,11 +2042,12 @@ class ShardedCube:
         else:
             coords, dx = t._moment_coords(axis)
             parts, incs = self._tiles() if axis == 0 else self._slabs()
-            outs = [_mom.moment_generic(d, coords, dx, order, axis=axis,
-                                        include=i)
-                    for d, i in zip(parts, incs) if axis == 0 or d.shape[0]]
-            out = self._planes_of(outs) if axis == 0 \
-                else self._concat(outs).cpu().numpy()
+
+            def moment(p):
+                return _mom.moment_generic(parts[p], coords, dx, order,
+                                           axis=axis, include=incs[p])
+            out = self._planes_of(self.cmesh._each(moment)) if axis == 0 \
+                else self._concat(moment, parts).cpu().numpy()
         return self._moment_projection(out, order, axis, how)
 
     def moment0(self, axis=0, how="auto", **kwargs):
@@ -2039,12 +2133,13 @@ class ShardedCube:
                 from ..ops.interpolate import interp_cube_spectral
                 from ..ops.smoothing import spectral_smooth_cube
                 tiles, _ = self._tiles(filled=True)
-                res = []
-                for d in tiles:
-                    sm = spectral_smooth_cube(d, karr)
-                    res.append(interp_cube_spectral(
+
+                def smooth_interp(p):
+                    sm = spectral_smooth_cube(tiles[p], karr)
+                    return interp_cube_spectral(
                         sm, inax, grid, include=mask.include(data=sm,
-                                                             wcs=t._wcs)))
+                                                             wcs=t._wcs))
+                res = self.cmesh._each(smooth_interp)
                 del tiles
                 out, new_include = (self.cmesh._from_spatial(
                     [r[i] for r in res], template.shape) for i in (0, 1))
@@ -2160,10 +2255,13 @@ class ShardedCube:
         factors = np.array([_conv.beam_unit_factor(t.unit, b, beam)
                             for b in beam_list])
         bad = None if good is None else np.flatnonzero(~good)
-        for d in out.blocks:
+
+        def rescale(p):
+            d = out.blocks[p]
             _rescaled(d, factors, None)
             if bad is not None and bad.size:
                 d.index_fill_(0, torch.as_tensor(bad, device=d.device), NAN)
+        self.cmesh._each(rescale)
         meta = dict(t._meta)
         meta["beam"] = beam
         template = SpectralCube(
@@ -2199,12 +2297,14 @@ class ShardedCube:
         factors = bunit_converters(self._template, unit,
                                    equivalencies=equivalencies)
         d = self._data
-        if factors.size == 1:
-            blocks = [b * float(factors[0]) for b in d.blocks]
-        else:
-            blocks = [b * torch.as_tensor(factors[ix[0]], dtype=b.dtype,
-                                          device=b.device)[:, None, None]
-                      for b, ix in zip(d.blocks, d.index)]
+
+        def convert(p):
+            b = d.blocks[p]
+            if factors.size == 1:
+                return b * float(factors[0])
+            return b * torch.as_tensor(factors[d.index[p][0]], dtype=b.dtype,
+                                       device=b.device)[:, None, None]
+        blocks = self.cmesh._each(convert)
         return self._new(ShardedArray(self.cmesh, d.layout, d.shape, blocks,
                                       d.index),
                          self._template_like(self.shape, unit=unit),
@@ -2326,16 +2426,21 @@ class ShardedCube:
         on the host (an empty axis gives slice(0, 0))."""
         profiles = [np.zeros(n, bool) for n in self.shape]
         full = [(0, n, 1, False) for n in self.shape]
-        for p, local, glob, place in self._view_parts(full):
+        parts = {p: part for p, *part in self._view_parts(full)}
+
+        def part_profiles(p):
+            local, glob, place = parts[p]
             chans, plane = [], False
             for lc, gc, _ in _channel_chunks(local, glob, place):
                 d = self._data.blocks[p][lc]
                 b = self._part_include(p, lc, gc, d)
                 chans.append(b.flatten(1).any(1))
                 plane = b.any(0) | plane
-            for ax, prof in enumerate((torch.cat(chans), plane.any(1),
-                                       plane.any(0))):
-                profiles[ax][glob[ax]] |= prof.cpu().numpy()
+            return [prof.cpu().numpy() for prof in (
+                torch.cat(chans), plane.any(1), plane.any(0))]
+        for p, profs in zip(parts, self.cmesh._each(part_profiles, parts)):
+            for ax, prof in enumerate(profs):
+                profiles[ax][parts[p][1][ax]] |= prof
         slices = []
         for ax, prof in enumerate(profiles):
             w = np.flatnonzero(prof)
@@ -2398,13 +2503,18 @@ class ShardedCube:
         out = torch.empty([1 if isinstance(a, int) else a[1] for a in axes],
                           dtype=self._data.dtype, device=self.cmesh.devices[0])
         fill = self._template._fill_value
-        for p, local, glob, place in self._view_parts(axes):
+        parts = {p: part for p, *part in self._view_parts(axes)}
+
+        def copy(p):
+            # each position copies its part into its place in ``out``
+            local, glob, place = parts[p]
             d = self._data.blocks[p][local]
             inc = self._part_include(p, local, glob, d) if filled else None
             if inc is not None:
                 d = torch.where(inc, d, torch.as_tensor(
                     fill, dtype=d.dtype, device=d.device))
             out[place].copy_(d)
+        self.cmesh._each(copy, parts)
         flips = [i for i, a in enumerate(axes)
                  if not isinstance(a, int) and a[3]]
         if flips:
@@ -2456,9 +2566,14 @@ class ShardedCube:
         w = None if weights is None else np.broadcast_to(
             np.asarray(weights), self.shape)
         dev = self.cmesh.devices[0]
-        vals, pos = [], []
-        for p, *part in self._view_parts(axes):
-            for local, glob, place in _channel_chunks(*part):
+        parts = {p: part for p, *part in self._view_parts(axes)}
+
+        def compact(p):
+            """The included values of block ``p``'s part and their flat
+            positions in the view, a piece at a time, on the first
+            device."""
+            vals, pos = [], []
+            for local, glob, place in _channel_chunks(*parts[p]):
                 d = self._data.blocks[p][local]
                 inc = self._part_include(p, local, glob, d)
                 if inc is None:
@@ -2480,6 +2595,11 @@ class ShardedCube:
                         w[glob])).to(d.device)[nz]
                 vals.append(v.to(dev))
                 pos.append(flat.expand(d.shape)[nz].to(dev))
+            return vals, pos
+        vals, pos = [], []
+        for v, f in self.cmesh._each(compact, parts):
+            vals += v
+            pos += f
         if not vals:
             # a view that selects nothing: the values' type, as unsharded
             out = self._data.blocks[0].reshape(-1)[:0].cpu().numpy()
@@ -2521,13 +2641,13 @@ class ShardedCube:
         idx = self._arg_extremum(method, axis)
         if axis == 0:
             tiles, incs = self._tiles()
-            any_valid = self._planes_of([_red.valid_mask(d, i).any(0)
-                                         for d, i in zip(tiles, incs)])
+            any_valid = self._planes_of(self.cmesh._each(
+                lambda p: _red.valid_mask(tiles[p], incs[p]).any(0)))
         else:
             slabs, incs = self._slabs()
-            any_valid = self._concat([_red.valid_mask(d, i).any(axis)
-                                      for d, i in zip(slabs, incs)
-                                      if d.shape[0]]).cpu().numpy()
+            any_valid = self._concat(
+                lambda p: _red.valid_mask(slabs[p], incs[p]).any(axis),
+                slabs).cpu().numpy()
         out = world_take_along_axis(t, idx, axis)
         vals = np.asarray(out.value, dtype=float).copy()
         vals[~any_valid] = np.nan
@@ -2553,7 +2673,8 @@ class ShardedCube:
         from ..units import Quantity, Unit
         filled = self._filled()
         if not check_units:
-            outs = [function(d, *args) for d in filled.blocks]
+            outs = self.cmesh._each(lambda p: function(filled.blocks[p],
+                                                       *args))
             unit = self._template.unit
         else:
             try:
@@ -2562,8 +2683,8 @@ class ShardedCube:
             except Exception as exc:
                 raise ValueError(f"function {function} does not accept "
                                  f"Quantity input: {exc}")
-            outs = [function(Quantity(d, self.unit), *args)
-                    for d in filled.blocks]
+            outs = self.cmesh._each(lambda p: function(
+                Quantity(filled.blocks[p], self.unit), *args))
             unit = outs[0].unit if isinstance(outs[0], Quantity) else (
                 test.unit if isinstance(test, Quantity) else Unit.parse(""))
             outs = [getattr(o, "value", o) for o in outs]
@@ -2610,24 +2731,23 @@ class ShardedCube:
         _check_parallel_options(parallel, num_cores)
         kwargs = _engine_kwargs(function, self.shape, kwargs)
         tiles, _ = self._tiles(filled=True)
-        outs, extents = [], []
-        for p, t in enumerate(tiles):
-            h, w = _tile_extent(self.cmesh, p, self.shape[1:], t.shape[1:])
-            extents.append((h, w))
+        extents = [_tile_extent(self.cmesh, p, self.shape[1:],
+                                t.shape[1:]) for p, t in enumerate(tiles)]
+
+        def apply(p):
+            h, w = extents[p]
             if h == 0 or w == 0:
-                outs.append(None)
-                continue
-            d = t[:, :h, :w]
+                return None
+            d = tiles[p][:, :h, :w]
             nchan = d.shape[0]
             out = _vmapped(lambda spec: function(spec, *args, **kwargs),
                            d.reshape(nchan, h * w), 1, 1)
             if out is not None:
-                out = out.reshape(out.shape[0], h, w)
-            else:
-                out = _as_tensor(np.apply_along_axis(
-                    lambda spec: np.asarray(function(spec, *args, **kwargs)),
-                    0, d.cpu().numpy()), d.device)
-            outs.append(out)
+                return out.reshape(out.shape[0], h, w)
+            return _as_tensor(np.apply_along_axis(
+                lambda spec: np.asarray(function(spec, *args, **kwargs)),
+                0, d.cpu().numpy()), d.device)
+        outs = self.cmesh._each(apply)
         ref = next(o for o in outs if o is not None)
         outs = [o if o is not None else torch.empty(
             (ref.shape[0],) + e, dtype=ref.dtype, device=t.device)
@@ -2658,11 +2778,11 @@ class ShardedCube:
         _check_parallel_options(parallel, num_cores)
         kwargs = _engine_kwargs(function, self.shape, kwargs)
         slabs, _ = self._slabs(filled=True)
-        outs = []
-        for s in slabs:
+
+        def apply(p):
+            s = slabs[p]
             if not s.shape[0]:
-                outs.append(None)
-                continue
+                return None
             out = _vmapped(lambda img: function(img, *args, **kwargs), s,
                            0, 0)
             if out is None:
@@ -2670,7 +2790,8 @@ class ShardedCube:
                 out = _as_tensor(np.stack([
                     np.asarray(function(arr[i], *args, **kwargs))
                     for i in range(arr.shape[0])]), s.device)
-            outs.append(out)
+            return out
+        outs = self.cmesh._each(apply)
         ref = next(o for o in outs if o is not None)
         outs = [o if o is not None else torch.empty(
             (0,) + tuple(ref.shape[1:]), dtype=ref.dtype, device=s.device)
@@ -2690,7 +2811,7 @@ class ShardedCube:
         same mask and include over the new data."""
         tiles, _ = self._tiles(filled=True)
         return self._with_data(self.cmesh._from_spatial(
-            [fn(t) for t in tiles], self.shape))
+            self.cmesh._each(lambda p: fn(tiles[p])), self.shape))
 
     @_tmp_dir_option
     def spectral_smooth(self, kernel, convolve=None, verbose=0,
@@ -2737,8 +2858,8 @@ class ShardedCube:
         same shape: the same mask and include over the new data (four
         counted all-to-alls)."""
         slabs, _ = self._slabs(filled=True)
-        return self._with_data(self._from_slabs([fn(s) for s in slabs],
-                                                self.shape))
+        return self._with_data(self._from_slabs(
+            self.cmesh._each(lambda p: fn(slabs[p])), self.shape))
 
     def spatial_smooth_median(self, ksize, raise_error_jybm=True, **kwargs):
         """Median filter of each channel map (reflected at the cube's
@@ -2774,17 +2895,18 @@ class ShardedCube:
         axis = int(axis) % 3
         parts, incs = self._tiles(filled=True) if axis == 0 \
             else self._slabs(filled=True)
-        outs = [downsample_axis(d, factor, axis, estimator=estimator,
-                                truncate=truncate) for d in parts]
+        outs = self.cmesh._each(lambda p: downsample_axis(
+            parts[p], factor, axis, estimator=estimator, truncate=truncate))
         shape = list(self.shape)
         shape[axis] = outs[0].shape[axis]
         shape = tuple(shape)
         masked = self._mask is not None or self._include is not None
         if masked:
             raw = self._include_parts()
-            inc = [downsample_include(i, factor, axis, truncate=truncate)
-                   for i in (_pad_spatial(raw, self.cmesh, False)[0]
-                             if axis == 0 else self._slab_parts(raw, False))]
+            raw = _pad_spatial(raw, self.cmesh, False)[0] if axis == 0 \
+                else self._slab_parts(raw, False)
+            inc = self.cmesh._each(lambda p: downsample_include(
+                raw[p], factor, axis, truncate=truncate))
         assemble = (lambda o: self.cmesh._from_spatial(o, shape)) \
             if axis == 0 else (lambda o: self._from_slabs(o, shape))
         view = [slice(None)] * 3

@@ -159,6 +159,22 @@ def _union(intervals):
     return merged
 
 
+def _stream(e):
+    return e.get("args", {}).get("stream", e.get("tid"))
+
+
+def _overlapping_pairs(intervals):
+    """How many pairs of ``(start, end, stream)`` intervals on two
+    different streams overlap in time (the kernels of a mesh's positions
+    running at once)."""
+    pairs, active = 0, []
+    for s, t, stream in sorted(intervals):
+        active = [(t2, s2) for t2, s2 in active if t2 > s]
+        pairs += sum(s2 != stream for _, s2 in active)
+        active.append((t, stream))
+    return pairs
+
+
 def _innermost(ops, a, b):
     """Name of the innermost of ``ops`` ((start, length, name)) open over
     all of ``[a, b]`` (the one that started last, of those the shortest),
@@ -178,8 +194,12 @@ def device_summary(events, device_index=0):
     the span of its :data:`WINDOW` annotation, stretched to the last device
     event.  Busy: the union of the kernel, copy and set
     intervals on device ``device_index``.  Returns a dict:
-    ``window_ms``, ``busy_ms``, ``idle_share`` (1 - busy / window),
-    ``device_events``, ``kernels`` ({name: launches}), ``top``
+    ``window_ms``, ``busy_ms``, ``idle_share`` (1 - busy / window; the
+    union counts time that kernels on several streams share once),
+    ``device_events``, ``kernels`` ({name: launches}), ``streams`` (the
+    streams that ran a kernel), ``overlapping_kernel_pairs`` (pairs of
+    kernels on two streams that ran at the same time,
+    :func:`_overlapping_pairs`), ``top``
     ([(name, launches, total ms, the host operation that launched most of
     them)] of the :data:`TOP_OPS` device operations of most total time)
     and ``gaps`` ([(start ms into the window, length ms, the innermost
@@ -225,12 +245,16 @@ def device_summary(events, device_index=0):
     python = [h for h, e in zip(host, on_host)
               if _cat(e) == "python_function"]
     window = t1 - t0
+    ran = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
+            _stream(e)) for e in dev if _cat(e) == "kernel"]
     return {
         "window_ms": window / 1e3,
         "busy_ms": busy_us / 1e3,
         "idle_share": 1.0 - busy_us / window if window > 0 else 0.0,
         "device_events": len(dev),
         "kernels": kernels,
+        "streams": len({st for _, _, st in ran}),
+        "overlapping_kernel_pairs": _overlapping_pairs(ran),
         "top": [(name, n, tot / 1e3, ops.most_common(1)[0][0])
                 for name, (n, tot, ops) in ranked],
         "gaps": [((a - t0) / 1e3, (b - a) / 1e3, _innermost(host, a, a),

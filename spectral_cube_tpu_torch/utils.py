@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import threading
 import warnings
 
 __all__ = [
@@ -98,38 +99,59 @@ class FITSReadError(Exception):
 from .beams import NoBeamError  # noqa: E402  (re-export for API parity)
 
 
+_CACHED_LOCK = threading.Lock()
+
+
 def cached(func):
     """Per-instance memoization of a nullary method (reference utils
-    ``cached`` decorator semantics)."""
+    ``cached`` decorator semantics).  Threads that miss at once each
+    compute, and every caller gets the value stored first."""
     name = f"_cache_{func.__name__}"
 
     @functools.wraps(func)
     def wrapper(self, *args):
         cache = getattr(self, name, None)
         if cache is None:
-            cache = {}
-            object.__setattr__(self, name, cache)
+            with _CACHED_LOCK:
+                cache = getattr(self, name, None)
+                if cache is None:
+                    cache = {}
+                    object.__setattr__(self, name, cache)
         if args not in cache:
-            cache[args] = func(self, *args)
+            cache.setdefault(args, func(self, *args))
         return cache[args]
     return wrapper
+
+
+#: the blocks inside :func:`ieee_fp32` now, and the TF32 flags the first
+#: of them found
+_IEEE = {"depth": 0, "flags": None}
+_IEEE_LOCK = threading.Lock()
 
 
 @contextlib.contextmanager
 def ieee_fp32():
     """Float32 matrix products and convolutions in full IEEE float32 inside
     the block, with TF32 off, as the JAX package runs them at HIGHEST
-    precision; the global flags are restored on exit."""
+    precision.  The process-wide flags are off while any thread is inside
+    such a block (the positions of a mesh enter and leave it at once) and
+    restored when the last one leaves."""
     import torch
-    flags = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    with _IEEE_LOCK:
+        if _IEEE["depth"] == 0:
+            _IEEE["flags"] = (torch.backends.cuda.matmul.allow_tf32,
+                              torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        _IEEE["depth"] += 1
     try:
         yield
     finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = flags
+        with _IEEE_LOCK:
+            _IEEE["depth"] -= 1
+            if _IEEE["depth"] == 0:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = _IEEE["flags"]
 
 
 def takes_numpy(function):

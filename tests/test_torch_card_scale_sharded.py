@@ -250,12 +250,14 @@ def test_lane_tiles_cover_every_lane_once(monkeypatch):
         seen.append(sl)
         return torch.arange(sl.start, sl.stop, dtype=torch.float64)
     parts = [(5, lambda sl: sl), (3, lambda sl: sl)]
-    out = tsh._by_lane_tiles(reduce_, 11, parts)
+    cmesh = tpar.CubeMesh(devices=["cpu"] * 2)
+    out = tsh._by_lane_tiles(cmesh, reduce_, 11, parts)
     assert torch.equal(out, torch.arange(11, dtype=torch.float64))
     assert all(s.stop - s.start == 3 for s in seen[:-1])
     assert [s.start for s in seen] == list(range(0, 11, 3))
     seen.clear()
-    tsh._by_lane_tiles(reduce_, 11, [(2, lambda sl: sl), (3, lambda sl: sl)])
+    tsh._by_lane_tiles(cmesh, reduce_, 11,
+                       [(2, lambda sl: sl), (3, lambda sl: sl)])
     assert seen == [slice(0, 11, 1)]
 
 

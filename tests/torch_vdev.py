@@ -30,6 +30,7 @@ never imports it.
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 from torch.overrides import TorchFunctionMode
@@ -115,18 +116,24 @@ def _common(func, tensors, name):
 class VirtualDevices(TorchFunctionMode):
     """The mode; use it as a context manager (:func:`virtual_devices`).
     ``counts`` records the moves between devices it saw (``to``, ``cpu``,
-    ``copy_``)."""
+    ``copy_``), from every thread the mode is active on (a mesh's workers
+    take on their caller's modes)."""
 
     def __init__(self):
         super().__init__()
         self.counts = {"moves": 0, "checked": 0}
+        self._lock = threading.Lock()
+
+    def _count(self, name, n=1):
+        with self._lock:
+            self.counts[name] += n
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = dict(kwargs or {})
         if _is_device_getter(func):
             return vdev(_tag_of(args[0]))
         name = _name(func)
-        self.counts["checked"] += 1
+        self._count("checked")
         if name in _TO_NUMPY:
             k = _tag_of(args[0])
             if k:
@@ -142,7 +149,7 @@ class VirtualDevices(TorchFunctionMode):
         if name == "cuda":
             raise RuntimeError("no CUDA device under virtual devices")
         if name == "copy_":
-            self.counts["moves"] += _tag_of(args[0]) != _tag_of(args[1])
+            self._count("moves", _tag_of(args[0]) != _tag_of(args[1]))
             return func(*args, **kwargs)
         if name == "__iter__":
             return iter(_tag(torch.Tensor.unbind(args[0], 0),
@@ -169,7 +176,7 @@ class VirtualDevices(TorchFunctionMode):
         ``src`` itself), the result as it is where they do not."""
         if _tag_of(src) == k:
             return _tag(call(), k)
-        self.counts["moves"] += 1
+        self._count("moves")
         out = call()
         if out is src or (out.numel() and out.data_ptr() == src.data_ptr()):
             out = out.clone()
