@@ -638,13 +638,13 @@ def traced_path(tag, dev, fn, min_overlaps=0):
             + "; ".join(f"{_short(n)} [{_short(op, 24)}] x{c} {ms:.2f} ms"
                         for n, c, ms, op in s["top"])
             + "; longest gaps " + "; ".join(
-                f"{d:.2f} ms at {t0:.1f} ms, {_short(op)} open at its start"
-                for t0, d, op, _ in s["gaps"])
+                f"{d:.2f} ms at {t0:.1f} ms, {_short(op)} open at its start "
+                f"(span {sp})" for t0, d, op, _, sp in s["gaps"])
             + f"; with Python frames: window {p['window_ms']:.1f} ms, idle "
             f"share {p['idle_share']:.3f}, longest gaps " + "; ".join(
                 f"{d:.2f} ms at {t0:.1f} ms inside {_short(fr)} "
                 f"({_short(op)} open at its start)"
-                for t0, d, op, fr in p["gaps"])
+                for t0, d, op, fr, _ in p["gaps"])
             + f"; traced, exported and read in "
             f"{time.perf_counter() - t:.1f} s")
     log("  " + line)
@@ -2203,9 +2203,7 @@ def phase_vrsc(dev, workdir, results):
     last = dict(oc.convolve_cube_to_beam.last)
     log(f"  (a) run_pipeline: {first:.1f} ms first call, peak device memory "
         f"{peak / 2**30:.2f} GiB, launches {counts}; convolution route "
-        f"{last['route']}, {last['groups']} beam groups, host grouping "
-        f"{last['grouping_s'] * 1e3:.1f} ms, kernels and route choice "
-        f"{last['kernels_s'] * 1e3:.1f} ms")
+        f"{last['route']}, {last['groups']} beam groups")
     if last["route"] != "fft" or counts["moments"] <= 0:
         raise AssertionError(f"(a) route {last['route']}, counts {counts}")
     t0 = time.perf_counter()
@@ -2311,9 +2309,8 @@ def phase_vrsc(dev, workdir, results):
     timed(times, "second", lambda: cube.convolve_to(target_beam))
     log(f"  (b) convolve_to 12\": {times['first']:.1f} ms first call, "
         f"{times['second']:.1f} ms second, peak {peak_b / 2**30:.2f} GiB, "
-        f"route {last['route']}, {last['groups']} beam groups, host "
-        f"grouping {last['grouping_s'] * 1e3:.1f} ms, kernels and SVDs "
-        f"{last['kernels_s'] * 1e3:.1f} ms, launches {counts_b}")
+        f"route {last['route']}, {last['groups']} beam groups, launches "
+        f"{counts_b}")
     ngroups = -(-NCHAN // VR_GROUP)
     if last["route"] != "per_channel_separable" \
             or last["groups"] != ngroups or counts_b["conv_sep"] <= 0:
@@ -5640,9 +5637,7 @@ def card_vr(cube, tiles, nbytes, card, sizes, stages, staged, hold,
     peak_held("run_pipeline")
     hold(f"V (a) route fft with at least {CARD_VR_MIN_GROUPS} beam groups",
          route["route"] == "fft" and route["groups"] >= CARD_VR_MIN_GROUPS,
-         f"({route['route']}, {route['groups']} groups, host grouping "
-         f"{route['grouping_s'] * 1e3:.1f} ms, kernels and route choice "
-         f"{route['kernels_s'] * 1e3:.1f} ms)", "V (a) route")
+         f"({route['route']}, {route['groups']} groups)", "V (a) route")
     conv, noise, masked, mom, stats, rep = card_vr_stages(
         cube, target, staged_v)
     for name in ("common_beam", "convolve_to", "mad_std", "moments",
@@ -7503,9 +7498,7 @@ def main():
         f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
     _build.load_library()
-    log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {_build.last_build['seconds']:.1f} s): "
-        f"{_build.last_build['path']}")
+    log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
     no_tf32()
 
     warnings.simplefilter("ignore")

@@ -64,6 +64,7 @@ from .utils import (cached, warn_slow, VarianceWarning, BeamAverageWarning,
                     NonFiniteBeamsWarning, WCSMismatchWarning, SliceWarning,
                     ProgressBar)
 from .wcs import convert_spectral_axis, determine_ctype_from_vconv
+from .profiling import spanned
 from .ops import reductions as _red
 from .ops import moments as _mom
 from .ops import convolve as _conv
@@ -515,6 +516,7 @@ class BaseSpectralCube:
         return _red.valid_mask(d, None if self._mask is None
                                else self._include_view(view))
 
+    @spanned("sct.cube.filled")
     def _get_filled_data(self, view=(), fill=None):
         fill = self._fill_value if fill is None else fill
         d = index_view(self._data, view)
@@ -628,6 +630,7 @@ class BaseSpectralCube:
     # ------------------------------------------------------------------
     # masking API (reference spectral_cube.py:1259-1306, :2263-2296)
     # ------------------------------------------------------------------
+    @spanned("sct.cube.with_mask")
     def with_mask(self, mask, inherit_mask=True, wcs_tolerance=None):
         if isinstance(mask, (np.ndarray, torch.Tensor)):
             if tuple(mask.shape) != self.shape and not \
@@ -981,6 +984,7 @@ class BaseSpectralCube:
     def min(self, axis=None, how=None, **kwargs):
         return self._reduce(_red.masked_min, axis=axis)
 
+    @spanned("sct.cube.mad_std")
     def mad_std(self, axis=None, how=None, **kwargs):
         return self._reduce(_red.masked_mad_std, axis=axis)
 
@@ -1050,6 +1054,7 @@ class BaseSpectralCube:
         spectral_cube.py:875-889)."""
         return self._argmaxmin_world(axis, "argmin", **kwargs)
 
+    @spanned("sct.cube.statistics")
     def statistics(self):
         """One-pass global statistics, CASA ia.statistics naming
         (reference dask_spectral_cube.py:769-814)."""
@@ -1142,6 +1147,7 @@ class BaseSpectralCube:
         return y_off, x_off
 
     @cached
+    @spanned("sct.cube.moments012")
     def _moments012(self):
         """(mom0, mom1, mom2) host arrays along the spectral axis, from one
         pass over the cube."""
@@ -1669,6 +1675,7 @@ class BaseSpectralCube:
     # ------------------------------------------------------------------
     # reprojection and convolution
     # ------------------------------------------------------------------
+    @spanned("sct.cube.reproject")
     def _reproject(self, header, order="bilinear", filled=True):
         data = self._get_filled_data(fill=np.nan) if filled else self._data
         out, footprint, new_wcs = _regrid.reproject_cube(
@@ -1697,6 +1704,7 @@ class BaseSpectralCube:
     # smoothing / filtering family (reference spectral_cube.py:2749-3222)
     # ------------------------------------------------------------------
     @_tmp_dir_option
+    @spanned("sct.cube.spectral_smooth")
     def spectral_smooth(self, kernel, convolve=None, verbose=0,
                         parallel=None, num_cores=None, **kwargs):
         """Smooth along the spectral axis with a 1-D kernel (array or object
@@ -1767,6 +1775,7 @@ class BaseSpectralCube:
         return self._new_cube_with(data=out)
 
     @_tmp_dir_option
+    @spanned("sct.cube.sigma_clip_spectrally")
     def sigma_clip_spectrally(self, threshold, verbose=0, maxiters=5,
                               cenfunc="median", stdfunc="std",
                               parallel=None, num_cores=None,
@@ -1818,6 +1827,7 @@ class BaseSpectralCube:
     # spectral interpolation & downsampling
     # ------------------------------------------------------------------
     @_tmp_dir_option
+    @spanned("sct.cube.spectral_interpolate")
     def spectral_interpolate(self, spectral_grid,
                              suppress_smooth_warning=False,
                              fill_value=None, update_function=None,
@@ -2080,6 +2090,7 @@ class BaseSpectralCube:
 class SpectralCube(BaseSpectralCube):
     """A cube with one beam (reference spectral_cube.py:3689-3781)."""
 
+    @spanned("sct.cube.init")
     def __init__(self, data, wcs, mask=None, meta=None, fill_value=np.nan,
                  header=None, allow_huge_operations=False, beam=None,
                  wcs_tolerance=0.0, unit=None, device=None):
@@ -2129,6 +2140,7 @@ class SpectralCube(BaseSpectralCube):
                       * (np.pi / 180.0) ** 2))
 
     @_tmp_dir_option
+    @spanned("sct.cube.convolve_to")
     def convolve_to(self, beam, convolve=None, update_function=None,
                     **kwargs):
         """Convolve every channel to a common target beam (reference
@@ -2151,6 +2163,7 @@ class VaryingResolutionSpectralCube(BaseSpectralCube):
     spectral_cube.py:3784-4315; the JAX package's cube.py:2199-2560).
     Cutting the spectral axis cuts the beams with it."""
 
+    @spanned("sct.cube.init")
     def __init__(self, data, wcs, mask=None, meta=None, fill_value=np.nan,
                  header=None, allow_huge_operations=False, beams=None,
                  beam_table=None, goodbeams_mask=None, wcs_tolerance=0.0,
@@ -2362,6 +2375,7 @@ class VaryingResolutionSpectralCube(BaseSpectralCube):
         return self.beams.common_beam(**kwargs)
 
     @_tmp_dir_option
+    @spanned("sct.cube.convolve_to")
     def convolve_to(self, beam, allow_smaller=False, convolve=None,
                     update_function=None, **kwargs):
         """Per-channel convolution to one common beam (reference

@@ -19,11 +19,10 @@ import hashlib
 import os
 import subprocess
 import threading
-import time
 from pathlib import Path
 
-__all__ = ["load_library", "check", "stream_ptr", "ptr", "last_build",
-           "on_tensor_device", "count_launch", "stream_cached"]
+__all__ = ["load_library", "check", "stream_ptr", "ptr", "on_tensor_device",
+           "count_launch", "stream_cached"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -40,9 +39,6 @@ _LOCK = threading.Lock()
 #: of a mesh launch at once, each on its own worker thread
 _COUNT_LOCK = threading.Lock()
 _LIB = None
-#: {"seconds": build wall time (0.0 when the library was already built),
-#:  "path": the library} of the load that ran in this process
-last_build = {}
 
 
 def _nvcc():
@@ -151,8 +147,6 @@ def load_library():
         if _LIB is not None:
             return _LIB
         path = _library_path()
-        t0 = time.perf_counter()
-        built = False
         if not path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             # one builder at a time across processes; the others wait and
@@ -161,10 +155,7 @@ def load_library():
                 fcntl.flock(lock, fcntl.LOCK_EX)
                 if not path.exists():
                     _build(path)
-                    built = True
         _LIB = _declare(ctypes.CDLL(str(path)))
-        last_build.update(seconds=time.perf_counter() - t0 if built else 0.0,
-                          path=str(path))
         return _LIB
 
 

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from . import resample2 as _rs
+from ..profiling import spanned
 from ._build import (load_library, check, stream_ptr, on_tensor_device,
                      count_launch, stream_cached)
 
@@ -393,6 +394,7 @@ def _check(flat, bands):
                          f"{tuple(flat.shape)}")
 
 
+@spanned("sct.kernels.banded_matmul")
 @on_tensor_device
 def banded_matmul(flat, bands):
     """(nout, S) float32 banded product of ``bands`` (:func:`row_bands`)

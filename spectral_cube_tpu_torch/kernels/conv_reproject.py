@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..utils import ieee_fp32
+from ..profiling import spanned
 from ._build import (load_library, check, ptr, stream_ptr, on_tensor_device,
                      count_launch)
 from .conv_sep import DEN_EPS, _apply
@@ -143,6 +144,7 @@ def _check(raw, gy, gx, my, mx, ry, rx, valid_plane):
         raise ValueError("valid_plane must be (ny_out, nx_out)")
 
 
+@spanned("sct.kernels.conv_reproject")
 @on_tensor_device
 def conv_reproject(raw, gy, gx, my, mx, ry, rx, valid_plane):
     """(nchan, ny_out, nx_out) fused convolve + resample of ``raw``.
@@ -168,6 +170,7 @@ def conv_reproject(raw, gy, gx, my, mx, ry, rx, valid_plane):
 conv_reproject.launches = 0
 
 
+@spanned("sct.kernels.plain_strips")
 @on_tensor_device
 def plain_strips(x, ybands, xbands, group_idx):
     """(nchan, ny_out, nx_out): ``out[c] = sum_i My[g, i] @ X[c] @

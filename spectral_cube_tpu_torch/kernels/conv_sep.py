@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ..profiling import spanned
 from ._build import (load_library, check, ptr, stream_ptr, on_tensor_device,
                      count_launch)
 
@@ -38,6 +39,7 @@ def _check_inputs(data, ytaps, xtaps, hy, hx, group_idx):
         raise ValueError("group_idx must hold one group per channel")
 
 
+@spanned("sct.kernels.conv_sep")
 @on_tensor_device
 def conv_sep(data, ytaps, xtaps, hy, hx, group_idx):
     """out[c] = sum_i My[g,i] @ X[c] @ Mx[g,i]^T, g = group_idx[c], with

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..ops.df32 import two_sum, two_prod, df_div
+from ..profiling import spanned
 from ._build import (load_library, check, ptr, stream_ptr, on_tensor_device,
                      count_launch, stream_cached)
 
@@ -108,6 +109,7 @@ def _check_inputs(data, include):
                          f"shape {tuple(data.shape)}")
 
 
+@spanned("sct.kernels.moments")
 @on_tensor_device
 def moments_planes(data, xc, cmp_op=0, threshold=0.0, include=None,
                    with_stats=False):

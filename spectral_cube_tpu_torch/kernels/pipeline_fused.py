@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..profiling import spanned
 from ._build import on_tensor_device, count_launch
 from .conv_reproject import _check, _launch, conv_reproject_plain
 from .moments import CMP_OPS, moments_planes_plain
@@ -31,6 +32,7 @@ def _check_mask(raw, xc, cmp_op, include):
                          f"shape {tuple(raw.shape)}")
 
 
+@spanned("sct.kernels.pipeline_fused")
 @on_tensor_device
 def pipeline_fused(raw, gy, gx, my, mx, ry, rx, valid_plane, xc, cmp_op=0,
                    threshold=0.0, include=None):

@@ -28,6 +28,7 @@ from collections import OrderedDict, namedtuple
 import numpy as np
 import torch
 
+from ..profiling import spanned
 from ._build import (load_library, check, stream_ptr, on_tensor_device,
                      count_launch, stream_cached)
 
@@ -416,6 +417,7 @@ def launch(raw, prep, wz=None):
     return out
 
 
+@spanned("sct.kernels.resample2")
 @on_tensor_device
 def resample2(raw, y0, wy, x0, wx, valid_plane, zvalid=None):
     """(nchan, ny_out, nx_out) resample of ``raw``: out = sum w *
@@ -494,6 +496,7 @@ def _check_filled(fz, wz, wz_any):
         raise ValueError("wz_any must hold one flag per channel")
 
 
+@spanned("sct.kernels.resample2_filled")
 @on_tensor_device
 def resample2_filled(fz, wz, wz_any, y0, wy, x0, wx, valid_plane,
                      zvalid=None):

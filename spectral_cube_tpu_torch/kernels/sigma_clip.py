@@ -29,6 +29,7 @@ from collections import namedtuple
 import torch
 
 from ..ops.reductions import lane_tiles
+from ..profiling import spanned
 from ._build import (load_library, check, ptr, stream_ptr, on_tensor_device,
                      count_launch)
 
@@ -100,6 +101,7 @@ def _check_inputs(data, maxiters):
         raise ValueError(f"maxiters must be >= 0, got {maxiters}")
 
 
+@spanned("sct.kernels.sigma_clip")
 @on_tensor_device
 def sigma_clip(data, sigma, maxiters, use_mean_center):
     """Clipped copy of ``data`` (nchan, ...), spectral axis first: samples

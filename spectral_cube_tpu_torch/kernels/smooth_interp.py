@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..utils import ieee_fp32
+from ..profiling import spanned
 from ._build import (load_library, check, ptr, stream_ptr, on_tensor_device,
                      count_launch)
 from .conv_sep import DEN_EPS
@@ -98,6 +99,7 @@ def _check_ops(data, M, S, I):
                          f"{S.shape}, {I.shape}")
 
 
+@spanned("sct.kernels.smooth_interp")
 @on_tensor_device
 def smooth_interp(data, M, S, I, bands=None):
     """(nout, ...) smooth + interpolation of ``data`` (nin, ...) along axis

@@ -22,14 +22,13 @@ that kernel 2 does not make (ROADMAP.md Queue 1 item 5).
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from ..beams import Beam
 from ..units import Unit
 from ..kernels.conv_sep import conv_sep
+from ..profiling import span
 from ..utils import takes_numpy
 from .reductions import finite
 from .smoothing import _banded_conv_matrix, banded_tap_offset
@@ -344,45 +343,44 @@ def convolve_cube_to_beam(data, beams, target: Beam, pixscale_rad,
 
     ``convolve_cube_to_beam.last`` describes the latest call: its
     ``route`` ('identity', 'separable', 'per_channel_separable' or
-    'fft'), the number of beam ``groups``, and the host seconds of the
-    pairwise grouping (``grouping_s``) and of the kernels and the route
-    choice (``kernels_s``)."""
+    'fft') and the number of beam ``groups``.  The grouping, the
+    deconvolutions and the kernels' build run in the span
+    ``sct.convolve.setup``, each route tried in ``sct.convolve.<route>``
+    (a separable route declines a kernel that does not separate)."""
     nchan, ny, nx = data.shape
-    t0 = time.perf_counter()
-    beam_list = [beams] * nchan if isinstance(beams, Beam) else list(beams)
-    groups, group_idx = beam_groups(beam_list)
-    t1 = time.perf_counter()
-
-    kernels = []
-    max_k = (1, 1)
-    for b in groups:
-        conv_beam = target.deconvolve(b)
-        if conv_beam.major_rad <= 0:
-            kernels.append(None)
-            continue
-        k = conv_beam.as_kernel(pixscale_rad)
-        kernels.append(k)
-        max_k = (max(max_k[0], k.shape[0]), max(max_k[1], k.shape[1]))
-
+    with span("sct.convolve.setup"):
+        beam_list = [beams] * nchan if isinstance(beams, Beam) \
+            else list(beams)
+        groups, group_idx = beam_groups(beam_list)
+        kernels = []
+        max_k = (1, 1)
+        for b in groups:
+            conv_beam = target.deconvolve(b)
+            if conv_beam.major_rad <= 0:
+                kernels.append(None)
+                continue
+            k = conv_beam.as_kernel(pixscale_rad)
+            kernels.append(k)
+            max_k = (max(max_k[0], k.shape[0]), max(max_k[1], k.shape[1]))
     out, route = None, None
     if len(groups) == 1:
         k = kernels[0]
         if k is None:
             out, route = data, "identity"
         elif k.shape[0] <= 2 * ny:
-            out, route = convolve2d_separable(data, k), "separable"
+            with span("sct.convolve.separable"):
+                out, route = convolve2d_separable(data, k), "separable"
     if out is None and all(k is None or k.shape[0] <= 2 * ny
                            for k in kernels):
-        out = convolve_per_channel_separable(data, kernels, group_idx)
+        with span("sct.convolve.per_channel_separable"):
+            out = convolve_per_channel_separable(data, kernels, group_idx)
         route = "per_channel_separable"
-    t2 = time.perf_counter()
     if out is None:
-        fy, fx = _padded_shape((ny, nx), max_k)
-        out = _convolve_groups_fft(data, kernels, group_idx, fy, fx)
+        with span("sct.convolve.fft"):
+            fy, fx = _padded_shape((ny, nx), max_k)
+            out = _convolve_groups_fft(data, kernels, group_idx, fy, fx)
         route = "fft"
-    convolve_cube_to_beam.last = {"route": route, "groups": len(groups),
-                                  "grouping_s": t1 - t0,
-                                  "kernels_s": t2 - t1}
+    convolve_cube_to_beam.last = {"route": route, "groups": len(groups)}
 
     factors = np.ones(nchan)
     if unit is not None:

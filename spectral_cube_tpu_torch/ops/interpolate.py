@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..kernels.smooth_interp import band_rows, smooth_interp
+from ..profiling import spanned
 from ..utils import SmoothingWarning, takes_numpy
 from .smoothing import _banded_conv_matrix, spectral_smooth_cube
 
@@ -175,6 +176,7 @@ def _si_operators(k, idx, frac, nin):
     return val
 
 
+@spanned("sct.interpolate.smooth_interp_cube")
 def smooth_interp_cube(data, kernel, inaxis, outaxis, include=None):
     """Fused spectral smooth + regrid of a [spec, ...] cube, the workflow
     the reference documents as ``spectral_smooth`` then

@@ -20,6 +20,8 @@ import math
 
 import torch
 
+from ..profiling import spanned
+
 __all__ = ["finite", "valid_mask", "masked_sum", "masked_mean", "masked_std",
            "masked_max", "masked_min", "masked_argmax", "masked_argmin",
            "masked_median", "masked_percentile",
@@ -401,6 +403,7 @@ def _mad_std_axis(data, valid, axis):
     return MAD_STD_FACTOR * _percentile_axis(dev, valid, 50.0, axis)
 
 
+@spanned("sct.reductions.mad_std")
 def masked_mad_std(data, valid, axis=None):
     """Median-absolute-deviation std estimate (astropy mad_std semantics,
     used by reference spectral_cube.py:719-767).  The deviations are never
@@ -543,6 +546,7 @@ def _count_le(keys, k):
     return torch.stack(counts).sum()
 
 
+@spanned("sct.reductions.select")
 def _select(keys, k):
     """The ``k``-th smallest (0-based) of the sorted ``keys``, a 0-d int64
     tensor on the first keys' device: a bisection over the key range, as

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..profiling import span, spanned
 from ..utils import ieee_fp32
 from ..wcs import WCS
 from ..kernels import banded_matmul as _bm
@@ -118,6 +119,7 @@ def spatial_pixel_mapping(wcs_in: WCS, wcs_out: WCS, shape_out):
             np.asarray(xs).reshape(ny, nx))
 
 
+@spanned("sct.regrid.host_maps")
 def bilinear_host_maps(zs, ys, xs, nchan_in, ny_in, nx_in, order):
     """Host-side index/weight/validity arrays for the separable
     trilinear resample — shared by :func:`_bilinear_spatial_then_linear_z`
@@ -513,18 +515,24 @@ def _bilinear_spatial_then_linear_z(data, zs, ys, xs, order):
     data and the NaN mask (``resample2_filled``).  A rotated mapping and
     order 0 take :func:`_gather_resample`."""
     if order >= 2:
-        return _spline_spatial_then_z(data, np.asarray(zs), np.asarray(ys),
-                                      np.asarray(xs), order)
+        with span("sct.regrid.spline"):
+            return _spline_spatial_then_z(data, np.asarray(zs),
+                                          np.asarray(ys), np.asarray(xs),
+                                          order)
     nchan_in, ny_in, nx_in = data.shape
     maps = bilinear_host_maps(zs, ys, xs, nchan_in, ny_in, nx_in, order)
     zvalid, z0, zf, z_identity, yvalid, xvalid = maps[:6]
     taps = _axis_aligned_taps(ys, xs, ny_in, nx_in) if order == 1 else None
     if taps is None:
-        return _gather_resample(data, maps, order)
+        with span("sct.regrid.gather"):
+            return _gather_resample(data, maps, order)
     if z_identity:
-        return resample2(data, *taps, yvalid & xvalid, zvalid)
-    fz, wz, wz_any = _zlerp_filled(data, z0, zf)
-    return resample2_filled(fz, wz, wz_any, *taps, yvalid & xvalid, zvalid)
+        with span("sct.regrid.resample2"):
+            return resample2(data, *taps, yvalid & xvalid, zvalid)
+    with span("sct.regrid.resample2_filled"):
+        fz, wz, wz_any = _zlerp_filled(data, z0, zf)
+        return resample2_filled(fz, wz, wz_any, *taps, yvalid & xvalid,
+                                zvalid)
 
 
 def _gather_resample(data, maps, order):
@@ -854,6 +862,7 @@ def convolve_reproject_separable(data, kernel, ys, xs):
 convolve_reproject_separable.last = {}
 
 
+@spanned("sct.regrid.maps")
 def reproject_mappings(wcs_in: WCS, target_header, nchan_in,
                        spectral_values_in=None):
     """Host-side target->source pixel mappings for reprojection onto

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from ..kernels import sigma_clip as _clip
 from ..kernels.conv_sep import DEN_EPS
+from ..profiling import spanned
 from ..utils import ieee_fp32, takes_numpy
 from . import reductions as _red
 
@@ -139,6 +140,7 @@ def _nan_rows(W, x, v, flags, out):
     out.masked_fill_(den <= DEN_EPS, float("nan"))
 
 
+@spanned("sct.smoothing.convolve1d_nan")
 def convolve1d_nan(data, kernel, axis=0):
     """astropy-convolve semantics along ``axis``: NaNs are interpolated over
     (normalized convolution), zero-fill boundary, kernel normalized; a
@@ -275,6 +277,7 @@ def spatial_median_filter_cube(data, size):
 
 
 @takes_numpy
+@spanned("sct.smoothing.sigma_clip")
 def sigma_clip_spectrally(data, sigma=3.0, maxiters=5, cenfunc="median",
                           stdfunc="std"):
     """Iterative per-spaxel sigma clipping along the spectral axis,

@@ -22,12 +22,14 @@ import warnings
 import numpy as np
 
 from .cube_utils import _has_beams
+from .profiling import spanned
 from .units import Quantity
 from .utils import VarianceWarning
 
 __all__ = ["run_pipeline"]
 
 
+@spanned("sct.pipeline")
 def run_pipeline(cube, cmesh=None, snr_threshold=None, target_beam=None,
                  target_header=None, noise_estimate=None):
     """Run the masked-analysis pipeline on one cube.

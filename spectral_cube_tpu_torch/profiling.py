@@ -5,13 +5,18 @@ The reference has no tracing subsystem (SURVEY §5: progress via tqdm
 callbacks only).  On the card this is a first-class concern, so this
 module provides:
 
+- :func:`span` / :func:`spanned` — the program's own spans, named
+  ``sct.<layer>.<what>`` (:data:`SPAN_PREFIX`), at the entry, cube, ops,
+  WCS and kernel boundaries: a ``record_function`` while a profiler
+  records, so that each is a user annotation on the same clock as the
+  device's kernels, copies and sets; nothing while none records;
 - :func:`trace` — context manager around ``torch.profiler`` that writes a
   Chrome trace of the block (TensorBoard's profiler plugin and Perfetto
   read it); :func:`read_trace` reads its events back,
   :func:`device_summary` turns them into the device's busy time, idle
-  share, top operations and longest idle gaps, and
-  :func:`trace_mismatches` holds its kernel launches against the port's
-  launch counters;
+  share, host waits, top operations, the program's spans and the longest
+  idle gaps, and :func:`trace_mismatches` holds its kernel launches
+  against the port's launch counters;
 - :class:`OpTimer` — device time of a callable: CUDA events on the card,
   the host clock less one dispatch round trip on the CPU;
 - :class:`ProgressCallback` — the analog of the reference's
@@ -21,7 +26,9 @@ module provides:
 
 from __future__ import annotations
 
+import bisect
 import contextlib
+import functools
 import gzip
 import json
 import os
@@ -33,10 +40,11 @@ from dataclasses import dataclass
 
 import torch
 
-from .cube import default_device
-from .kernels import DEVICE_KERNELS, launch_counts
+__all__ = ["span", "spanned", "trace", "OpTimer", "ProgressCallback",
+           "device_memory_stats"]
 
-__all__ = ["trace", "OpTimer", "ProgressCallback", "device_memory_stats"]
+#: the first part of every span's name the program opens
+SPAN_PREFIX = "sct."
 
 #: the user annotation that brackets a traced block; its span is the
 #: window :func:`device_summary` reads
@@ -53,16 +61,68 @@ LONGEST_GAPS = 5
 #: host-side launch calls: kernels were sent to the device
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
                 "cuLaunchKernelEx")
+#: host calls that wait for the device: a tensor read as a Python number,
+#: the synchronisations and the synchronous copy (one inside another, as
+#: ``aten::_local_scalar_dense`` holds a ``cudaStreamSynchronize``, is
+#: one wait)
+WAIT_CALLS = ("aten::_local_scalar_dense", "cudaStreamSynchronize",
+              "cudaDeviceSynchronize", "cudaEventSynchronize", "cudaMemcpy")
+#: host categories of the runtime calls that put work on the device
+RUNTIME_CATEGORIES = ("cuda_runtime", "cuda_driver")
 
 #: what :func:`trace` leaves in ``trace.last``: the file written and its
 #: events (:func:`read_trace`)
 TraceFile = namedtuple("TraceFile", "path events")
 
 
+class _Off:
+    """The context of every span while no profiler records."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return None
+
+
+_OFF = _Off()
+_recording = torch.autograd._profiler_enabled
+
+
+def span(name):
+    """Context manager of the program's span ``name``
+    (``sct.<layer>.<what>``): while a ``torch.profiler`` session records
+    on this thread, a ``torch.profiler.record_function(name)``, a user
+    annotation in the same Chrome trace as the device's work, nested in
+    the spans open on the thread; otherwise (no session, or a thread it
+    does not record, as a mesh position's worker) one shared context that
+    does nothing.  The profiler being on is the only switch."""
+    return torch.profiler.record_function(name) if _recording() else _OFF
+
+
+def spanned(name):
+    """Decorator: each call of the function runs inside :func:`span`
+    ``(name)``, decided at the call."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if not _recording():
+                return fn(*args, **kwargs)
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return wrapper
+    return wrap
+
+
 def _device(device):
     """``device`` as a torch device; None means the port's default device,
     the card, which raises where CUDA is absent."""
-    return default_device() if device is None else torch.device(device)
+    if device is None:
+        from .cube import default_device
+        return default_device()
+    return torch.device(device)
 
 
 def _sync(dev):
@@ -71,6 +131,7 @@ def _sync(dev):
 
 
 def _port_launches():
+    from .kernels import launch_counts
     return sum(launch_counts().values())
 
 
@@ -201,11 +262,20 @@ def device_summary(events, device_index=0):
     kernels on two streams that ran at the same time,
     :func:`_overlapping_pairs`), ``top``
     ([(name, launches, total ms, the host operation that launched most of
-    them)] of the :data:`TOP_OPS` device operations of most total time)
-    and ``gaps`` ([(start ms into the window, length ms, the innermost
-    host operation open at its start, the innermost Python function open
-    over the whole gap)] of the :data:`LONGEST_GAPS` longest idle gaps; a
-    Python function only where the trace was taken ``with_stack``)."""
+    them)] of the :data:`TOP_OPS` device operations of most total time),
+    ``waits`` (the host's waits for the device in the window,
+    :data:`WAIT_CALLS`, one inside another counted once), ``spans``
+    ({name: :class:`SpanSummary`} of each of the program's spans,
+    :func:`span`: its calls, host ms (summed over the calls), device ms
+    (the union of the device work launched inside it, matched to its
+    launch call by correlation id), idle ms (the device's idle time within
+    its host intervals) and the host waits that start inside it) and
+    ``gaps`` ([(start ms into the window, length ms, the innermost host
+    operation open at its start, the innermost Python function open over
+    the whole gap, the innermost of the program's spans open at its
+    start)] of the :data:`LONGEST_GAPS` longest idle gaps; a Python
+    function only where the trace was taken ``with_stack``, a span only
+    where the gap lies in the program)."""
     dev = [e for e in events if _is_device(e, device_index)]
     complete = [e for e in events if e.get("ph") == "X"
                 and _cat(e) not in ("trace", "overhead")]
@@ -247,6 +317,10 @@ def device_summary(events, device_index=0):
     window = t1 - t0
     ran = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
             _stream(e)) for e in dev if _cat(e) == "kernel"]
+    waits = _host_waits(complete)
+    ours = [h for h, e in zip(host, on_host)
+            if _cat(e) == "user_annotation"
+            and str(h[2]).startswith(SPAN_PREFIX)]
     return {
         "window_ms": window / 1e3,
         "busy_ms": busy_us / 1e3,
@@ -257,9 +331,81 @@ def device_summary(events, device_index=0):
         "overlapping_kernel_pairs": _overlapping_pairs(ran),
         "top": [(name, n, tot / 1e3, ops.most_common(1)[0][0])
                 for name, (n, tot, ops) in ranked],
+        "waits": sum(t0 <= w <= t1 for w in waits),
+        "spans": _span_summaries(ours, dev, complete, busy, waits),
         "gaps": [((a - t0) / 1e3, (b - a) / 1e3, _innermost(host, a, a),
-                  _innermost(python, a, b)) for a, b in idle],
+                  _innermost(python, a, b), _innermost(ours, a, a))
+                 for a, b in idle],
     }
+
+
+#: one of the program's spans in a trace (:func:`device_summary`)
+SpanSummary = namedtuple("SpanSummary",
+                         "calls host_ms device_ms idle_ms waits")
+
+
+def _host_waits(complete):
+    """Sorted start times of the host's waits among the ``complete``
+    events: each :data:`WAIT_CALLS` event that lies inside no other on its
+    thread."""
+    calls = sorted((str(e.get("tid")), float(e["ts"]),
+                    -float(e.get("dur", 0)))
+                   for e in complete if e.get("name") in WAIT_CALLS)
+    starts, outer = [], None
+    for tid, s, neg in calls:
+        if outer is not None and outer[0] == tid and s - neg <= outer[1]:
+            continue
+        outer = (tid, s - neg)
+        starts.append(s)
+    return sorted(starts)
+
+
+def _covered(intervals, busy):
+    """Time of the sorted, disjoint ``intervals`` that the sorted,
+    disjoint ``busy`` intervals cover."""
+    starts = [s for s, _ in busy]
+    total = 0.0
+    for a, b in intervals:
+        i = max(bisect.bisect_right(starts, a) - 1, 0)
+        while i < len(busy) and busy[i][0] < b:
+            total += max(0.0, min(b, busy[i][1]) - max(a, busy[i][0]))
+            i += 1
+    return total
+
+
+def _span_summaries(ours, dev, complete, busy, waits):
+    """{name: :class:`SpanSummary`} of the program's spans ``ours``
+    ((start, length, name)); ``busy`` the device's busy union, ``waits``
+    the sorted starts of the host's waits."""
+    launched = {}
+    for e in complete:
+        corr = e.get("args", {}).get("correlation")
+        if _cat(e) in RUNTIME_CATEGORIES and corr is not None:
+            launched[corr] = float(e["ts"])
+    work = sorted((launched[c], float(e["ts"]),
+                   float(e["ts"]) + float(e.get("dur", 0)))
+                  for e in dev
+                  if (c := e.get("args", {}).get("correlation")) in launched)
+    at = [w[0] for w in work]
+    occ = {}
+    for s, d, name in ours:
+        occ.setdefault(name, []).append((s, s + d))
+    out = {}
+    for name, spans in sorted(occ.items()):
+        cover = _union(spans)
+        inside, n_waits = [], 0
+        for a, b in cover:
+            inside += [(s, t) for _, s, t in work[
+                bisect.bisect_left(at, a):bisect.bisect_right(at, b)]]
+            n_waits += (bisect.bisect_right(waits, b)
+                        - bisect.bisect_left(waits, a))
+        host_us = sum(b - a for a, b in spans)
+        held = sum(b - a for a, b in cover)
+        out[name] = SpanSummary(
+            len(spans), host_us / 1e3,
+            sum(t - s for s, t in _union(inside)) / 1e3,
+            (held - _covered(cover, busy)) / 1e3, n_waits)
+    return out
 
 
 def trace_mismatches(kernels, counts):
@@ -271,6 +417,7 @@ def trace_mismatches(kernels, counts):
     over the wrappers that launch it) against the trace's launches of
     kernels that match it; returns {pattern: (implied, traced)} where they
     differ."""
+    from .kernels import DEVICE_KERNELS
     implied = {}
     for name, patterns in DEVICE_KERNELS.items():
         for p in patterns:

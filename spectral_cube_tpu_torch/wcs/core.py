@@ -25,6 +25,7 @@ import warnings
 import numpy as np
 
 from ..units import Unit, UnitConversionError, c
+from ..profiling import spanned
 from ..utils import WCSWarning
 from . import projections as prj
 
@@ -148,6 +149,7 @@ class WCS:
     # ------------------------------------------------------------------
     # construction
     # ------------------------------------------------------------------
+    @spanned("sct.wcs.init")
     def _from_header(self, header, naxis=None):
         get = header.get
         n = naxis or int(get("WCSAXES", get("NAXIS", 0)) or 0)

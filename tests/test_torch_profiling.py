@@ -212,14 +212,14 @@ def test_device_summary_on_hand_made_events():
     # "run" spans it; [100, 110) and [260, 270) in "run" (aten::add
     # starts at 105, after the first gap's start)
     ms = pytest.approx
-    assert s["gaps"] == [(ms(0.040), ms(0.110), "maps", "maps"),
-                         (ms(0.180), ms(0.030), "tail", "run"),
-                         (ms(0.0), ms(0.010), "run", "run"),
-                         (ms(0.160), ms(0.010), "run", "run")]
+    assert s["gaps"] == [(ms(0.040), ms(0.110), "maps", "maps", None),
+                         (ms(0.180), ms(0.030), "tail", "run", None),
+                         (ms(0.0), ms(0.010), "run", "run", None),
+                         (ms(0.160), ms(0.010), "run", "run", None)]
     # an op inside a Python function is the innermost host operation
     ev.append(_x("aten::item", "cpu_op", 140.0, 50.0))
     assert P.device_summary(ev)["gaps"][0] == (ms(0.040), ms(0.110),
-                                               "aten::item", "maps")
+                                               "aten::item", "maps", None)
     assert P.device_summary(ev, device_index=1)["busy_ms"] == ms(0.090)
 
 
